@@ -1,0 +1,71 @@
+"""JAX GPT parameters -> the port's GPT (no JAX file answers to this one; it
+reads the pytree of ``deepspeed_tpu/models/gpt.py:init_gpt_params``).
+
+The JAX pytree is ``{"wte", "wpe", "lnf_g", "lnf_b", "blocks"}`` where
+``blocks`` holds stacked ``[n_layer, ...]`` leaves (``scan_layers=True``) or
+one ``{"h<i>": {...}}`` dict per layer.  Leaves may be numpy arrays or
+anything ``numpy.asarray`` reads (JAX arrays included); this module imports
+no JAX.
+
+Layout: the ``[in, out]`` weight layout of JAX's ``h @ W`` is KEPT — the
+port applies weights as ``h @ W`` too, so no leaf is transposed.  Values and
+dtypes are carried over exactly (bf16 leaves stay bf16).
+
+Used by the parity tests and by anyone loading JAX checkpoints into the
+port.
+"""
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from deepspeed_tpu_torch.models.gpt import (BLOCK_KEYS, GPT, OTHER_FAMILIES,
+                                            TOP_KEYS, GPTConfig)
+
+
+def _tensor(x) -> torch.Tensor:
+    if isinstance(x, dict):
+        raise NotImplementedError(
+            "int8-quantized weight leaves are not ported yet "
+            f"({OTHER_FAMILIES})")
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":   # numpy has no bf16: go through fp32, exactly
+        return torch.tensor(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.tensor(arr)
+
+
+def params_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
+    """JAX GPT pytree -> state dict with :class:`GPT`'s keys (``"wte"``,
+    ``"blocks.<i>.qkv_w"``, ...), CPU tensors, weights ``[in, out]``."""
+    for key in ("lm_head", "lm_head_b"):
+        if key in tree:
+            raise NotImplementedError(
+                f"an untied head ({key!r}) is not ported yet ({OTHER_FAMILIES})")
+    sd = {name: _tensor(tree[name]) for name in TOP_KEYS}
+    blocks = tree["blocks"]
+    if "moe" in blocks or any("moe" in b for b in blocks.values()
+                              if isinstance(b, dict)):
+        raise NotImplementedError(f"MoE blocks are not ported yet ({OTHER_FAMILIES})")
+    if "h0" in blocks:                       # scan_layers=False: one dict per layer
+        layers = [blocks[f"h{i}"] for i in range(len(blocks))]
+        for i, layer in enumerate(layers):
+            for k in BLOCK_KEYS:
+                sd[f"blocks.{i}.{k}"] = _tensor(layer[k])
+        return sd
+    stacked = {k: _tensor(blocks[k]) for k in BLOCK_KEYS}
+    n_layer = stacked["qkv_w"].shape[0]
+    for i in range(n_layer):
+        for k in BLOCK_KEYS:
+            sd[f"blocks.{i}.{k}"] = stacked[k][i].clone()
+    return sd
+
+
+def gpt_from_jax(cfg: GPTConfig, tree: Dict, device=None,
+                 dtype: Optional[torch.dtype] = None) -> GPT:
+    """A :class:`GPT` holding the JAX parameters ``tree`` on ``device``
+    (default: the current CUDA device), optionally cast to ``dtype``."""
+    sd = params_from_jax(tree)
+    if dtype is not None:
+        sd = {k: v.to(dtype) for k, v in sd.items()}
+    return GPT(cfg, device=device, state_dict=sd)

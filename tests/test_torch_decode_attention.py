@@ -1,0 +1,277 @@
+"""Parity of the port's decode attention (``deepspeed_tpu_torch/ops/cuda/
+decode_attention.py``) with the JAX package's.
+
+On the CPU the port's wrappers run their plain versions; these are held
+against JAX's jnp references and against JAX's Pallas kernels in interpret
+mode, on the same numpy inputs.  Tolerance: 1e-5 absolute in fp32 (both
+sides sum in fp32, in different orders).
+
+The CUDA kernels themselves run only on a card: the ``cuda``-marked tests
+at the end skip here and run on the GPU machine
+(``python -m pytest tests/test_torch_decode_attention.py -m cuda``), and
+``chip_smoke.py`` holds them against the plain versions at the serving
+shapes.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from deepspeed_tpu.ops.pallas import decode_attention as jda
+from deepspeed_tpu_torch.ops.cuda import decode_attention as tda
+
+ATOL = 1e-5
+
+
+def make_paged(B=2, Sq=1, H=4, D=16, Hkv=None, NB=24, BS=8, MB=8, seed=0,
+               lengths=(20, 15)):
+    """Random arena, distinct shuffled physical blocks per row, numpy."""
+    Hkv = Hkv or H
+    rng = np.random.default_rng(seed)
+    kp = rng.standard_normal((NB, BS, Hkv, D)).astype(np.float32)
+    vp = rng.standard_normal((NB, BS, Hkv, D)).astype(np.float32)
+    free = list(range(1, NB))
+    rng.shuffle(free)
+    tables = np.asarray([[free.pop() for _ in range(MB)] for _ in range(B)],
+                        np.int32)
+    q = rng.standard_normal((B, Sq, H, D)).astype(np.float32)
+    return q, kp, vp, tables, np.asarray(lengths[:B], np.int32)
+
+
+def both(fn_jax, fn_torch, *arrays):
+    """Run the JAX and the port function on the same numpy inputs."""
+    j = np.asarray(fn_jax(*[jnp.asarray(a) for a in arrays]))
+    t = fn_torch(*[torch.from_numpy(a) for a in arrays]).numpy()
+    return j, t
+
+
+PAGED_CASES = {
+    # name: make_paged kwargs
+    "mha-decode": dict(Sq=1, lengths=(20, 15)),
+    "gqa-decode": dict(Sq=1, H=8, Hkv=2, lengths=(13, 40)),
+    "mha-chunk": dict(Sq=4, lengths=(9, 30)),
+    "gqa-chunk": dict(Sq=4, H=8, Hkv=4, lengths=(3, 21)),
+    "padded-chunk-past-table": dict(Sq=8, lengths=(57, 62)),   # len+Sq > MB*BS
+    "length-zero": dict(Sq=1, lengths=(0, 1)),
+    "prefill-from-zero": dict(Sq=8, lengths=(0, 0)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PAGED_CASES))
+def test_paged_matches_jax_reference(case):
+    kw = PAGED_CASES[case]
+    arrays = make_paged(seed=sum(map(ord, case)), **kw)
+    j, t = both(jda.paged_attention_reference, tda.paged_attention, *arrays)
+    np.testing.assert_allclose(t, j, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["mha-decode", "mha-chunk",
+                                  "padded-chunk-past-table", "length-zero"])
+def test_paged_matches_pallas_interpret(monkeypatch, case):
+    """The JAX paged kernel itself (interpret mode on CPU) on the same
+    inputs: the port's plain version computes what the TPU kernel does."""
+    monkeypatch.setenv("DST_PALLAS_PAGED", "1")
+    arrays = make_paged(seed=7, **PAGED_CASES[case])
+    j, t = both(jda.paged_attention, tda.paged_attention, *arrays)
+    np.testing.assert_allclose(t, j, atol=ATOL, rtol=0)
+
+
+def test_paged_stale_arena_contents_masked():
+    """Positions past each row's causal limit (stale block tails, the
+    trash block, table slots never written) do not change the output."""
+    q, kp, vp, tables, lengths = make_paged(Sq=2, lengths=(11, 5))
+    base = tda.paged_attention(*map(torch.from_numpy,
+                                    (q, kp, vp, tables, lengths)))
+    kp2, vp2 = kp.copy(), vp.copy()
+    BS = kp.shape[1]
+    for b, n in enumerate(lengths):
+        for j in range(tables.shape[1]):
+            for o in range(BS):
+                if j * BS + o > n + 1:                 # past the last query
+                    kp2[tables[b, j], o] = 1e3
+                    vp2[tables[b, j], o] = -1e3
+    kp2[0] = vp2[0] = 7e3                              # trash block
+    out = tda.paged_attention(*map(torch.from_numpy,
+                                   (q, kp2, vp2, tables, lengths)))
+    np.testing.assert_array_equal(out.numpy(), base.numpy())
+    j = np.asarray(jda.paged_attention_reference(
+        *map(jnp.asarray, (q, kp2, vp2, tables, lengths))))
+    np.testing.assert_allclose(out.numpy(), j, atol=ATOL, rtol=0)
+
+
+DECODE_CASES = {
+    # name: (B, Sq, H, D, T, pos)
+    "decode": (2, 1, 4, 16, 64, 37),
+    "chunk": (2, 5, 4, 16, 64, 20),
+    "prefill-from-zero": (1, 16, 4, 16, 32, 0),
+    "ragged-T": (2, 1, 4, 16, 50, 49),
+    "ragged-T-chunk": (2, 3, 4, 16, 37, 30),
+}
+
+
+def make_cache(B, Sq, H, D, T, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, Sq, H, D)).astype(np.float32)
+    ck = rng.standard_normal((B, T, H, D)).astype(np.float32)
+    cv = rng.standard_normal((B, T, H, D)).astype(np.float32)
+    return q, ck, cv
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_decode_matches_jax_reference(case):
+    B, Sq, H, D, T, pos = DECODE_CASES[case]
+    q, ck, cv = make_cache(B, Sq, H, D, T, seed=3)
+    j = np.asarray(jda.decode_attention_reference(
+        jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv), jnp.int32(pos)))
+    t = tda.decode_attention(torch.from_numpy(q), torch.from_numpy(ck),
+                             torch.from_numpy(cv), pos).numpy()
+    np.testing.assert_allclose(t, j, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["decode", "chunk", "prefill-from-zero"])
+def test_decode_matches_pallas_interpret(monkeypatch, case):
+    """JAX's contiguous-cache Pallas kernel (interpret mode) on the same
+    inputs; T is a multiple of its block so JAX does not demote it."""
+    monkeypatch.setenv("DST_PALLAS_DECODE", "1")
+    B, Sq, H, D, T, pos = DECODE_CASES[case]
+    q, ck, cv = make_cache(B, Sq, H, D, T, seed=5)
+    j = np.asarray(jda.decode_attention(
+        jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv), jnp.int32(pos),
+        block_k=16))
+    t = tda.decode_attention(torch.from_numpy(q), torch.from_numpy(ck),
+                             torch.from_numpy(cv), pos).numpy()
+    np.testing.assert_allclose(t, j, atol=ATOL, rtol=0)
+
+
+def test_paged_equals_contiguous_on_gathered_cache():
+    """The paged plain version equals the contiguous one on the gathered
+    cache (the serving path and generate() attend to the same thing)."""
+    q, kp, vp, tables, lengths = make_paged(Sq=3, lengths=(21, 21))
+    B, Sq, H, D = q.shape
+    T = tables.shape[1] * kp.shape[1]
+    paged = tda.paged_attention(*map(torch.from_numpy,
+                                     (q, kp, vp, tables, lengths)))
+    ck = torch.from_numpy(kp[tables].reshape(B, T, H, D))
+    cv = torch.from_numpy(vp[tables].reshape(B, T, H, D))
+    dense = tda.decode_attention(torch.from_numpy(q), ck, cv, 21)
+    np.testing.assert_allclose(paged.numpy(), dense.numpy(), atol=1e-6, rtol=0)
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
+    tda.reset_counts()
+    arrays = [torch.from_numpy(a) for a in make_paged()]
+    tda.paged_attention(*arrays)
+    q, ck, cv = map(torch.from_numpy, make_cache(1, 1, 4, 16, 16))
+    tda.decode_attention(q, ck, cv, 3)
+    assert tda.paged_attention.launches == 0
+    assert tda.decode_attention.launches == 0
+    assert tda.paged_attention_reference.calls == 1
+    assert tda.decode_attention_reference.calls == 1
+    tda.reset_counts()
+
+
+def test_other_devices_raise():
+    q = torch.empty(1, 1, 4, 16, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        tda.decode_attention(q, q, q, 0)
+    with pytest.raises(ValueError, match="no kernel"):
+        tda.paged_attention(q, q, q, q, q)
+
+
+# --------------------------------------------------------------------------- #
+# on the card
+# --------------------------------------------------------------------------- #
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+# the kernels are compiled for head_dim 64 and blocks of 16 keys; MB = 4
+# keeps the CPU cases' 64-slot table rows (len + S_q > MB*BS still holds)
+KERNEL_SHAPE = dict(D=tda.KERNEL_HEAD_DIM, BS=tda.KERNEL_TILE, MB=4)
+
+# generate()'s own shapes for GPT-2 XL (25 heads): a 300-token prompt
+# prefilled from position 0 into a 332-slot cache, then a decode step whose
+# cache tail is masked
+GPT2XL_DECODE_CASES = {
+    "gpt2xl-prefill": (1, 300, 25, 64, 332, 0),
+    "gpt2xl-decode": (1, 1, 25, 64, 332, 200),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", sorted(PAGED_CASES))
+def test_cuda_paged_kernel_matches_plain(cuda_device, case, dtype, tol):
+    arrays = make_paged(seed=11, **KERNEL_SHAPE, **PAGED_CASES[case])
+    q, kp, vp = (torch.from_numpy(a).to(cuda_device, dtype) for a in arrays[:3])
+    tables, lengths = (torch.from_numpy(a).to(cuda_device) for a in arrays[3:])
+    out = tda.paged_attention(q, kp, vp, tables, lengths)
+    ref = tda.paged_attention_reference(q, kp, vp, tables, lengths)
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs() / ref.float().abs().clamp(min=1)
+    assert diff.max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", sorted(DECODE_CASES)
+                         + sorted(GPT2XL_DECODE_CASES))
+def test_cuda_decode_kernel_matches_plain(cuda_device, case, dtype, tol):
+    B, Sq, H, _, T, pos = {**DECODE_CASES, **GPT2XL_DECODE_CASES}[case]
+    q, ck, cv = (torch.from_numpy(a).to(cuda_device, dtype)
+                 for a in make_cache(B, Sq, H, tda.KERNEL_HEAD_DIM, T, seed=13))
+    out = tda.decode_attention(q, ck, cv, pos)
+    ref = tda.decode_attention_reference(q, ck, cv, pos)
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs() / ref.float().abs().clamp(min=1)
+    assert diff.max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_paged_and_contiguous_kernels_agree_bitwise(cuda_device):
+    """fp32: the two kernels share one device function, so generate() and
+    the serving path attend identically."""
+    q, kp, vp, tables, lengths = make_paged(Sq=5, NB=12, lengths=(17, 17),
+                                            **KERNEL_SHAPE)
+    B, Sq, H, D = q.shape
+    T = tables.shape[1] * kp.shape[1]
+    dev = cuda_device
+    args = [torch.from_numpy(a).to(dev) for a in (q, kp, vp, tables, lengths)]
+    paged = tda.paged_attention(*args)
+    ck = torch.from_numpy(kp[tables].reshape(B, T, H, D)).to(dev)
+    cv = torch.from_numpy(vp[tables].reshape(B, T, H, D)).to(dev)
+    dense = tda.decode_attention(args[0], ck, cv, 17)
+    assert torch.equal(paged, dense)
+
+
+@pytest.mark.cuda
+def test_cuda_rejects_what_the_kernel_does_not_take(cuda_device):
+    arrays = make_paged(**KERNEL_SHAPE)
+    q, kp, vp, tables, lengths = (torch.from_numpy(a).to(cuda_device)
+                                  for a in arrays)
+    other_bs = [torch.from_numpy(a).to(cuda_device) for a in make_paged(
+        D=tda.KERNEL_HEAD_DIM, BS=8, MB=8)]
+    with pytest.raises(ValueError, match="block_size"):
+        tda.paged_attention(*other_bs)
+    other_d = [torch.from_numpy(a).to(cuda_device) for a in make_paged(
+        D=32, BS=tda.KERNEL_TILE, MB=4)]
+    with pytest.raises(ValueError, match="head_dim"):
+        tda.paged_attention(*other_d)
+    with pytest.raises(ValueError, match="head_dim"):
+        tda.decode_attention(*[torch.from_numpy(a).to(cuda_device)
+                               for a in make_cache(1, 1, 4, 32, 16)], 3)
+    with pytest.raises(NotImplementedError):
+        tda.paged_attention(q, kp, vp, tables, lengths, bias=torch.zeros(1))
+    with pytest.raises(TypeError):
+        tda.paged_attention(q.half(), kp.half(), vp.half(), tables, lengths)
+    with pytest.raises(TypeError):
+        tda.paged_attention(q, kp, vp, tables.long(), lengths)
+    with pytest.raises(ValueError):
+        tda.paged_attention(q.transpose(1, 2), kp, vp, tables, lengths)

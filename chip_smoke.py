@@ -22,12 +22,33 @@ Phases, each printing its own lines; any failure exits non-zero:
    position are within 1e-4;
 5. bf16 serving of the same requests: tokens/s, median TTFT and median
    decode-step time, finite logits, and the first decode step's logits
-   against the plain attention path.
+   against the plain attention path;
+6. the training kernels against their plain versions at GPT-2's training
+   shape, fp32 and bf16: the cross-entropy forward, dx and dhead at N 2048
+   (micro 8 x seq 256), E 768, V 50304 (vocab 50257), and the fused AdamW
+   over all 148 GPT-2 leaves (123,886,080 values, bit for bit); times as
+   in phase 3, with ``x @ head^T`` + ``F.cross_entropy`` (and its autograd
+   backward) and ``torch._fused_adamw_`` as yardsticks.  The cross-entropy
+   kernels are held against the plain version with both products in fp32
+   (``fp32_products``; in bf16 only the roundings of ds and of the output
+   stay), at a logit spread where the softmax part of each gradient is
+   checked on its own (CE_* below);
+7. training end to end in bf16: ``deepspeed_tpu_torch.initialize`` ->
+   ``train_batch`` with bench.py's headline config at seq 256 (micro 8,
+   AdamW lr 1e-4 wd 0.01, clip 1.0, remat, attn_impl "auto" -> reference
+   attention): 2 warm-up and 12 timed steps, median step ms, samples/s,
+   TFLOPs by bench.py's formula, a falling finite loss, and a
+   ``torch.profiler`` split of one step's device time;
+8. the same model in fp32 (TF32 off), 3 steps through the kernels and 3
+   through the plain versions from the same seeded weights: losses and
+   final parameters held to the tolerances stated at the top.
 
-Each run of phases 4-5 (generate(), each serve) zeroes the launch counters
-just before it and reads them just after: its kernel must have launched,
-the plain versions never.  The kernel table reports the paged kernel's
-count from the bf16 serve and the contiguous kernel's from generate().
+Each run of phases 4-5 and 7-8 (generate(), each serve, the timed
+training steps, each fp32 training run) zeroes the launch counters just
+before it and reads them just after: its kernels must have launched (the
+training kernels exactly once per micro-step, AdamW once per step), no
+other kernel, and the plain versions never (phase 8's plain run excepted).
+The kernel table reports each kernel's count from the run that uses it.
 The last two lines are the kernel table (JSON) and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside this file, it exits non-zero and prints no result.
@@ -45,9 +66,9 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"float32": 67e12,  # fp32 outside the tensor cores
               "bfloat16": 989e12}
-# |kernel - plain| <= TOL * max(1, |plain|): fp32 sums in another order;
-# bf16 outputs are rounded to bf16 (2^-8 relative) after a softmax whose p
-# the two versions round at different points
+# decode kernels and AdamW: |kernel - plain| <= TOL * max(1, |plain|): fp32
+# sums in another order; bf16 outputs are rounded to bf16 (2^-8 relative)
+# after a softmax whose p the two versions round at different points
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 NEAR_TIE = 1e-4
 BF16_LOGIT_TOL = 0.25            # first decode step, kernel vs plain attention
@@ -67,6 +88,48 @@ CONTIGUOUS_CASES = [("contiguous-T1024", 8, 1, 1024, 1023),
                     ("generate-prefill", 1, 300, 332, 0),
                     ("generate-decode", 1, 1, 332, 200)]
 SERVE_CFG = {"block_size": BS, "max_batch_size": 8, "prefill_chunk": 64}
+
+# training: bench.py's headline config (bench.py:122-130) at seq 256, where
+# attn_impl="auto" takes the reference attention
+TRAIN_SEQ, TRAIN_MICRO, TRAIN_TIMED_STEPS = 256, 8, 12
+TRAIN_CFG = {"train_micro_batch_size_per_gpu": TRAIN_MICRO, "gradient_accumulation_steps": 1,
+             "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.01}},
+             "zero_optimization": {"stage": 0}, "bf16": {"enabled": True},
+             "gradient_clipping": 1.0, "steps_per_print": 10 ** 9}
+TRAIN_PARAMS = 123_886_080          # GPT-2 at n_positions 256: 148 leaves
+CE_SHAPE = (TRAIN_MICRO * TRAIN_SEQ, 768, 50304, 50257)     # N, E, V, vocab_size
+# cross-entropy inputs: x ~ N(0, 1), head ~ N(0, CE_HEAD_STD^2), so the
+# logits' std is 0.15 * sqrt(768) ~ 4.2 and a few columns dominate each
+# row's softmax, as in a trained model.  (At head std 0.02 the softmax is
+# nearly flat, p ~ 2e-5, and its part of dx and dhead sits below bf16's
+# resolution of the one-hot part, so a wrong softmax product would pass.)
+CE_HEAD_STD = 0.15
+# cross-entropy tolerances, against the plain version with fp32 products
+# on the same inputs (the JAX-faithful plain version rounds bf16 logits,
+# which moves p by percents, so it holds the bf16 kernels to nothing):
+# * forward: |err| / max(1, |plain|) of nll and lse: fp32 sums of 768
+#   exact products in another order;
+# * dx, dhead: max |err| / max |plain|.  fp32: sums of 50304 (dx) or 2048
+#   (dhead) terms in another order.  bf16: both sides round the output to
+#   bf16, so where their fp32 sums straddle a rounding point they part by
+#   one bf16 ulp, at most 2^-7 of max |plain|;
+# * the softmax part on its own, |err|_2 / |softmax part|_2: dx against
+#   plain + g * head[label] (the one-hot term taken out), dhead over the
+#   vocab rows no label hits (pure softmax product).  Only the sparse
+#   one-ulp flips above add to it in bf16: 7.9e-4 (dx) and 1.2e-4 (dhead)
+#   on the H100, where dropping the softmax product gives 1.
+CE_FWD_TOL = {"float32": 1e-5, "bfloat16": 1e-5}
+CE_GRAD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+CE_SOFTMAX_TOL = {"float32": 1e-5, "bfloat16": 2e-3}
+# fp32 kernel path vs plain path over 3 steps: score tiles sum in another
+# order, so gradients differ by rounding noise d (~1e-10 absolute).  Adam
+# moves an element by lr * m / (sqrt(v) + eps), so that noise moves a step
+# by at most lr * d / eps ~ 1e-2 * lr, even where the exact gradient is
+# zero (the attention key bias).  TRAIN_PARAM_ATOL is a tenth of the
+# 3 * lr = 3e-4 that three steps can move any element: one element whose
+# step went the wrong way or by a wrong size fails it.  Over all
+# parameters the difference stays a rounding-level fraction of their norm
+TRAIN_LOSS_RTOL, TRAIN_PARAM_REL_L2, TRAIN_PARAM_ATOL = 1e-5, 1e-6, 3e-5
 
 
 def fail(msg: str) -> None:
@@ -201,17 +264,7 @@ def kernel_cases(device, flush, reps: int = 50, plain_reps: int = 10):
                 plain_ms=median_ms(lambda: da.decode_attention_reference(
                     q, ck, cv, pos), plain_reps, flush),
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib))
-    for r in rows:
-        tol = TOL[r["dtype"]]
-        say(f"kernel {r['kernel']} case={r['case']} dtype={r['dtype']} "
-            f"max_abs_err={r['err']:.3e} scaled_err={r['scaled']:.3e} "
-            f"tol={tol:g} ms={r['ms']:.4f} "
-            f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
-            f"({r['bound_by']}) library_ms="
-            f"{'null' if r['library_ms'] is None else format(r['library_ms'], '.4f')}")
-        if not r["scaled"] <= tol:
-            fail(f"{r['kernel']} {r['case']} {r['dtype']}: error "
-                 f"{r['scaled']:.3e} x max(1, |plain|) > {tol:g}")
+    report_rows(rows)
     return rows
 
 
@@ -272,37 +325,57 @@ def check_identity(model, prompts, futs, refs, label) -> int:
     return ties
 
 
-def counted(label: str, kernel: str, run):
-    """Zero every counter, ``run()``, read the counters at once.  Fails
-    unless ``kernel`` launched and no plain version ran.  Returns
-    (run's result, launches by kernel)."""
+def kernel_modules():
+    from deepspeed_tpu_torch.ops.cuda import cross_entropy as tce
     from deepspeed_tpu_torch.ops.cuda import decode_attention as da
+    from deepspeed_tpu_torch.ops.cuda import fused_optim as tfo
+    return da, tce, tfo
 
-    da.reset_counts()
+
+def read_counts():
+    """(launches by kernel, calls by plain version)."""
+    da, tce, tfo = kernel_modules()
+    launches = {fn.__name__: fn.launches for fn in (
+        da.paged_attention, da.decode_attention, tce.ce_forward, tce.ce_backward_dx,
+        tce.ce_backward_dhead, tfo.fused_adam)}
+    plain = {fn.__name__: fn.calls for fn in (
+        da.paged_attention_reference, da.decode_attention_reference,
+        tce.ce_forward_reference, tce.ce_backward_dx_reference,
+        tce.ce_backward_dhead_reference, tfo.adam_reference)}
+    return launches, plain
+
+
+def counted(label: str, expect, run):
+    """Zero every counter, ``run()``, read the counters at once.  ``expect``
+    maps each kernel the run must launch to its exact count (None: at least
+    once).  Fails if one of them is off, another kernel launched, or a
+    plain version ran.  Returns (run's result, launches by kernel)."""
+    for mod in kernel_modules():
+        mod.reset_counts()
     result = run()
-    counts = {"paged_attention": da.paged_attention.launches,
-              "decode_attention": da.decode_attention.launches}
-    plain = (da.paged_attention_reference.calls
-             + da.decode_attention_reference.calls)
-    say(f"{label} launches: {json.dumps(counts)}; plain calls: {plain}")
-    if counts[kernel] <= 0:
-        fail(f"{label}: {kernel} never launched")
-    if plain:
-        fail(f"{label}: the plain attention ran {plain} times on the card's path")
+    counts, plain = read_counts()
+    say(f"{label} launches: {json.dumps(counts)}; plain calls: {sum(plain.values())}")
+    for kernel, n in counts.items():
+        want = expect.get(kernel, 0)
+        if (want is None and n <= 0) or (want is not None and n != want):
+            fail(f"{label}: {kernel} launched {n} times, expected "
+                 f"{'at least 1' if want is None else want}")
+    if any(plain.values()):
+        fail(f"{label}: plain versions ran on the card's path: {plain}")
     return result, counts
 
 
 def phase_fp32(model, prompts, device, roomy_blocks: int, small_blocks: int):
     import deepspeed_tpu_torch as dst
 
-    refs, gen_counts = counted("fp32 generate()", "decode_attention", lambda: [
+    refs, gen_counts = counted("fp32 generate()", {"decode_attention": None}, lambda: [
         model.generate([p], NEW_TOKENS)[0, len(p):].tolist() for p in prompts])
     results = {"generate": dict(counts=gen_counts)}
     for label, blocks in (("roomy", roomy_blocks), ("preempting", small_blocks)):
         eng = dst.init_serving(model=model, device=device, config={"serving": dict(
             SERVE_CFG, num_blocks=blocks, dtype="float32")})
         t0 = time.perf_counter()
-        futs, counts = counted(f"fp32 serve ({label})", "paged_attention",
+        futs, counts = counted(f"fp32 serve ({label})", {"paged_attention": None},
                                lambda: serve(eng, prompts, NEW_TOKENS))
         wall = time.perf_counter() - t0
         ties = check_identity(model, prompts, futs, refs, f"fp32 {label}")
@@ -422,7 +495,7 @@ def phase_bf16(model, prompts, device, blocks: int, card: str):
             decode_ms.append(dt * 1e3)
 
     t0 = time.perf_counter()
-    futs, counts = counted("bf16 serve", "paged_attention",
+    futs, counts = counted("bf16 serve", {"paged_attention": None},
                            lambda: serve(eng, prompts, NEW_TOKENS, on_step))
     wall = time.perf_counter() - t0
     if not all(bool(f) for f in finite):
@@ -449,6 +522,391 @@ def phase_bf16(model, prompts, device, blocks: int, card: str):
         fail(f"bf16 logits differ by {err:.4f} > {BF16_LOGIT_TOL}")
     return dict(tokens_per_s=ntok / wall, ttft_ms=statistics.median(ttft),
                 decode_step_ms=statistics.median(decode_ms), counts=counts)
+
+
+# --------------------------------------------------------------------------- #
+# phase 6: the training kernels against their plain versions
+# --------------------------------------------------------------------------- #
+def report_rows(rows):
+    """Print each kernel case with its checks, then fail if a check is past
+    its tolerance.  A row without ``checks`` is held to TOL of max(1,
+    |plain|)."""
+    bad = []
+    for r in rows:
+        checks = r.get("checks") or [("err/max(1,|plain|)", r["scaled"], TOL[r["dtype"]])]
+        lib = r["library_ms"]
+        say(f"kernel {r['kernel']} case={r['case']} dtype={r['dtype']} "
+            f"max_abs_err={r['err']:.3e} "
+            + " ".join(f"{name}={val:.3e}(tol {tol:g})" for name, val, tol in checks)
+            + f" ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) library_ms="
+            f"{'null' if lib is None else format(lib, '.4f')}"
+            + (f" [{r['note']}]" if r.get("note") else ""))
+        bad += [f"{r['kernel']} {r['case']} {r['dtype']}: {name} {val:.3e} > {tol:g}"
+                for name, val, tol in checks if not val <= tol]
+    if bad:
+        fail("; ".join(bad))
+
+
+def ce_checks(name, dtype_name, out, ref, head, labels, gscale, vocab):
+    """(label, value, tolerance) of one cross-entropy output against the
+    plain version with fp32 products (CE_* tolerances)."""
+    import torch
+    diff = (out.float() - ref.float()).abs()
+    if name == "ce_forward":
+        return [("err/max(1,|plain|)",
+                 (diff / ref.float().abs().clamp(min=1.0)).max().item(),
+                 CE_FWD_TOL[dtype_name])]
+    checks = [("err/max|plain|", diff.max().item() / ref.float().abs().max().item(),
+               CE_GRAD_TOL[dtype_name])]
+    if name == "ce_backward_dx":
+        softmax = ref.float() + gscale * head[labels.long()].float()
+        err = diff
+    else:
+        hit = torch.zeros(head.shape[0], dtype=torch.bool, device=head.device)
+        hit[labels.long()] = True
+        rows = ~hit & (torch.arange(head.shape[0], device=head.device) < vocab)
+        softmax, err = ref.float()[rows], diff[rows]
+    checks.append(("softmax-part err_2/|softmax|_2",
+                   (err.norm() / softmax.norm()).item(), CE_SOFTMAX_TOL[dtype_name]))
+    return checks
+
+
+def ce_cases(device, flush, reps: int = 20, plain_reps: int = 5):
+    """The three cross-entropy kernels at GPT-2's training shape (N 2048 =
+    micro 8 x seq 256, E 768, V 50304, vocab 50257), fp32 and bf16."""
+    import torch
+    import torch.nn.functional as F
+    _, tce, _ = kernel_modules()
+
+    N, E, V, vocab = CE_SHAPE
+    rng = np.random.default_rng(4321)
+    x32 = torch.from_numpy(rng.standard_normal((N, E), dtype=np.float32)).to(device)
+    h32 = torch.from_numpy(rng.standard_normal((V, E), dtype=np.float32)
+                           * CE_HEAD_STD).to(device)
+    labels = torch.from_numpy(rng.integers(0, vocab, N).astype(np.int32)).to(device)
+    gscale = torch.full((1,), 1.0 / N, device=device)
+    rows = []
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        x, head = x32.to(dtype), h32.to(dtype)
+        esize = x.element_size()
+        k_reps = reps if dtype == torch.bfloat16 else max(3, reps // 4)
+        nll, lse = tce.ce_forward(x, head, labels, vocab)
+        rnll, rlse = tce.ce_forward_reference(x, head, labels, vocab, fp32_products=True)
+        args = (x, head, labels, rlse, gscale, vocab)
+        outs = {"ce_forward": (torch.stack([nll, lse]), torch.stack([rnll, rlse])),
+                "ce_backward_dx": (tce.ce_backward_dx(*args),
+                                   tce.ce_backward_dx_reference(*args, fp32_products=True)),
+                "ce_backward_dhead": (tce.ce_backward_dhead(*args),
+                                      tce.ce_backward_dhead_reference(*args,
+                                                                      fp32_products=True))}
+        torch.cuda.synchronize()
+        # yardstick: x @ head^T over the real vocab, then F.cross_entropy (two
+        # calls), and one autograd backward that gives dx and dhead together
+        xr = x.detach().requires_grad_()
+        hr = head[:vocab].detach().requires_grad_()
+        lab64 = labels.long()
+        fwd_lib = median_ms(lambda: F.cross_entropy(xr @ hr.T, lab64), k_reps, flush)
+        loss = F.cross_entropy(xr @ hr.T, lab64)
+        bwd_lib = median_ms(lambda: torch.autograd.grad(loss, (xr, hr), retain_graph=True),
+                            k_reps, flush)
+        io = N * E * esize + V * E * esize + N * 4 + N * 4      # x, head, labels, lse
+        # kernel and plain (the module's own, JAX's unchunked branch) timings
+        specs = {
+            "ce_forward": (lambda: tce.ce_forward(x, head, labels, vocab),
+                           lambda: tce.ce_forward_reference(x, head, labels, vocab),
+                           io + N * 4, 2.0 * N * E * V, fwd_lib, "library: matmul + "
+                           "F.cross_entropy, two calls"),
+            "ce_backward_dx": (lambda: tce.ce_backward_dx(*args),
+                               lambda: tce.ce_backward_dx_reference(*args),
+                               io + N * E * esize, 4.0 * N * E * V, bwd_lib,
+                               "library: one autograd backward giving dx and dhead"),
+            "ce_backward_dhead": (lambda: tce.ce_backward_dhead(*args),
+                                  lambda: tce.ce_backward_dhead_reference(*args),
+                                  io + V * E * esize, 4.0 * N * E * V, bwd_lib,
+                                  "library: one autograd backward giving dx and dhead"),
+        }
+        for name, (kern, plain, nbytes, flops, lib, note) in specs.items():
+            out, ref = outs[name]
+            if not torch.isfinite(out.float()).all():
+                fail(f"{name} {dtype_name}: non-finite kernel output")
+            err, scaled = compare(out, ref)
+            b_ms, b_by = bound(nbytes, flops, dtype_name)
+            rows.append(dict(
+                kernel=name, case="gpt2-train", dtype=dtype_name, err=err, scaled=scaled,
+                checks=ce_checks(name, dtype_name, out, ref, head, labels, gscale, vocab),
+                ms=median_ms(kern, k_reps, flush), plain_ms=median_ms(plain, plain_reps, flush),
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib, note=note))
+        del xr, hr, loss, outs
+    return rows
+
+
+def adam_case(device, flush, reps: int = 20, plain_reps: int = 3):
+    """The fused AdamW kernel over all 148 GPT-2 leaves at seq 256 (fp32
+    params, grads and moments, a mid-training state), bit for bit against
+    the plain version; ``torch._fused_adamw_`` on the same leaves is the
+    yardstick (the port never calls it)."""
+    import torch
+    from deepspeed_tpu_torch.models.gpt import gpt_config, init_gpt_params
+    _, _, tfo = kernel_modules()
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    tree = init_gpt_params(gpt_config("gpt2", n_positions=TRAIN_SEQ), gen)
+    params = [tree[k] for k in ("wte", "wpe", "lnf_g", "lnf_b")] + [
+        t for blk in tree["blocks"] for t in blk.values()]
+
+    def randn_like(p, scale):
+        return torch.randn(p.shape, generator=gen, device=device) * scale
+    grads = [randn_like(p, 1e-3) for p in params]
+    mus = [randn_like(p, 1e-4) for p in params]
+    nus = [randn_like(p, 1e-3).square() for p in params]
+    spec = tfo.spec_from_config("adamw", {"weight_decay": 0.01}, 1e-4)
+    neg_lr, bc1, bc2 = tfo.step_scalars(spec, torch.tensor(10, dtype=torch.int32,
+                                                           device=device))
+    scal = torch.stack([torch.tensor(0.5, device=device), torch.tensor(0.7, device=device),
+                        neg_lr, bc1, bc2])
+    kw = dict(b1=spec["b1"], b2=spec["b2"], eps=spec["eps"], wd=spec["wd"])
+
+    def clone(ts):
+        return [t.clone() for t in ts]
+    a = [clone(params), grads, clone(mus), clone(nus)]
+    b = [clone(params), grads, clone(mus), clone(nus)]
+    table = tfo.AdamTable(*a)
+    tfo.fused_adam(table, scal, **kw)
+    tfo.adam_reference(*b, scal, **kw)
+    torch.cuda.synchronize()
+    mismatches = sum(int((x != y).sum()) for xs, ys in zip(a, b) for x, y in zip(xs, ys))
+    err = max((x - y).abs().max().item() for xs, ys in zip(a, b) for x, y in zip(xs, ys))
+    n = table.numel()
+    say(f"fused_adam: {len(params)} leaves, {n:,} values; {mismatches} elements differ from "
+        f"the plain version (bitwise contract)")
+    if len(params) != 148 or n != TRAIN_PARAMS:
+        fail(f"fused_adam: expected 148 leaves and {TRAIN_PARAMS:,} values, got "
+             f"{len(params)} and {n:,}")
+    if mismatches:
+        fail(f"fused_adam: {mismatches} elements differ from the plain version")
+    lib_p, lib_m, lib_v = clone(params), clone(mus), clone(nus)
+    steps = [torch.tensor(10.0, device=device) for _ in params]
+    lib = median_ms(lambda: torch._fused_adamw_(
+        lib_p, grads, lib_m, lib_v, [], steps, lr=1e-4, beta1=0.9, beta2=0.999,
+        weight_decay=0.01, eps=1e-8, amsgrad=False, maximize=False), reps, flush)
+    b_ms, b_by = bound(28 * n, 20.0 * n, "float32")
+    return [dict(kernel="fused_adam", case="gpt2-148-leaves", dtype="float32", err=err,
+                 scaled=err, ms=median_ms(lambda: tfo.fused_adam(table, scal, **kw), reps,
+                                          flush),
+                 plain_ms=median_ms(lambda: tfo.adam_reference(*b, scal, **kw), plain_reps,
+                                    flush),
+                 bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                 note="library: torch._fused_adamw_ on the same leaves")]
+
+
+# --------------------------------------------------------------------------- #
+# phases 7-8: training end to end
+# --------------------------------------------------------------------------- #
+def train_engine(model, config, device):
+    import deepspeed_tpu_torch as dst
+    engine, _, _, _ = dst.initialize(model=model, config=config, device=device, seed=0)
+    engine.tput_timer.start_step = 10 ** 12     # no device drain inside the timed steps
+    return engine
+
+
+def train_batch_of(vocab: int, device):
+    import torch
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, vocab, (1, TRAIN_MICRO, TRAIN_SEQ))
+                           .astype(np.int32)).to(device)
+    return ids, ids
+
+
+def profile_train_step(engine, batch, card: str):
+    """One step's device time by category (torch.profiler), and the
+    device's busy share of the step's wall time (profiling adds host time,
+    so the busy share reads low).  Kernels are attributed through the CPU op
+    that launched them: attention is everything under the reference
+    attention call (forward and its remat recompute) and under its
+    backward ops (bmm, softmax, mask)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from deepspeed_tpu_torch.ops import attention as tattn
+
+    inner = tattn._REGISTRY["auto"]
+
+    def traced(*a, **k):
+        with record_function("reference_attention"):
+            return inner(*a, **k)
+    tattn._REGISTRY["auto"] = traced
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine.train_batch(batch=batch)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        tattn._REGISTRY["auto"] = inner
+    by_name = {}                     # device time and launches per kernel name
+    for e in prof.key_averages():
+        # the range opened above also appears on the device's timeline (a
+        # GPU user annotation spanning its kernels): not a kernel
+        if (e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                and e.key != "reference_attention"):
+            t, n = by_name.get(e.key, (0.0, 0))
+            by_name[e.key] = (t + e.self_device_time_total, n + e.count)
+    device_total = sum(t for t, _ in by_name.values())
+    if not device_total:
+        say("train profile: the profiler recorded no device time (not measured)")
+        return None
+    attn_ops = ("reference_attention", "BmmBackward", "SoftmaxBackward", "WhereBackward")
+
+    def category(kernel: str) -> str:
+        k = kernel.lower()
+        if "ce_fwd" in k or "ce_bwd" in k:
+            return "cross-entropy kernels"
+        if "adam_kernel" in k:
+            return "fused AdamW"
+        if any(g in k for g in ("gemm", "cutlass", "xmma", "nvjet", "sm90_", "cublas")):
+            return "GEMMs"
+        return "layernorm / elementwise / other"
+
+    def under_attention(op) -> bool:
+        while op is not None:
+            if any(a in op.name for a in attn_ops):
+                return True
+            op = op.cpu_parent
+        return False
+    # kernels an aten op launched carry a link to it; those under the
+    # attention call (forward and remat recompute) or its backward ops move
+    # to "reference attention" (kernels launched through ctypes have no op)
+    attn = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and under_attention(e):
+            for kern in getattr(e, "kernels", []):
+                attn[kern.name] = attn.get(kern.name, 0.0) + kern.duration
+    split = {}
+    for name, (t, _) in by_name.items():
+        a = min(attn.get(name, 0.0), t)
+        split["reference attention"] = split.get("reference attention", 0.0) + a
+        split[category(name)] = split.get(category(name), 0.0) + t - a
+    say(f"train profile: one bf16 step, device busy {device_total / wall_us:.1%} of "
+        f"{wall_us / 1e3:.2f} ms wall ({device_total / 1e3:.3f} ms device, "
+        f"{sum(n for _, n in by_name.values())} kernels) [{card}]")
+    for cat, t in sorted(split.items(), key=lambda kv: -kv[1]):
+        say(f"  {t / device_total:6.1%} {t / 1e3:8.3f} ms  {cat}")
+    say("train profile: top kernels")
+    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
+        say(f"  {t / device_total:6.1%} {t / 1e3:8.3f} ms {n:5d}x  {name[:90]}")
+    return {"device_ms": device_total / 1e3, "wall_ms": wall_us / 1e3,
+            "split_ms": {k: v / 1e3 for k, v in split.items()}}
+
+
+def phase_train_bf16(device, card: str, timed: int = TRAIN_TIMED_STEPS):
+    """GPT-2 at seq 256 through initialize() -> train_batch, bench.py's
+    headline config: warm-up, timed steps, a profiled step."""
+    import torch
+    from deepspeed_tpu_torch.models.gpt import GPT, gpt_config
+
+    cfg = gpt_config("gpt2", n_positions=TRAIN_SEQ, remat=True)
+    model = GPT(cfg, device=device, seed=0)
+    engine = train_engine(model, TRAIN_CFG, device)
+    batch = train_batch_of(cfg.vocab_size, device)
+    losses = [engine.train_batch(batch=batch) for _ in range(2)]      # warm-up
+    torch.cuda.synchronize()
+    step_ms, host_ms = [], []
+
+    def run():
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            losses.append(engine.train_batch(batch=batch))
+            host_ms.append((time.perf_counter() - t0) * 1e3)    # the host has queued the step
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    _, counts = counted(f"bf16 train ({timed} steps)", {
+        "ce_forward": timed, "ce_backward_dx": timed, "ce_backward_dhead": timed,
+        "fused_adam": timed}, run)
+    vals = [float(v) for v in losses]
+    if not all(np.isfinite(vals)):
+        fail(f"bf16 train: non-finite loss {vals}")
+    if not vals[-1] < vals[0]:
+        fail(f"bf16 train: the loss did not fall ({vals[0]:.4f} -> {vals[-1]:.4f})")
+    med = statistics.median(step_ms)
+    samples_s = TRAIN_MICRO / (med / 1e3)
+    tflops = samples_s * TRAIN_SEQ * model.flops_per_token(TRAIN_SEQ) / 1e12
+    say(f"bf16 train: gpt2 seq {TRAIN_SEQ} micro {TRAIN_MICRO}, {model.num_params():,} params; "
+        f"loss {vals[0]:.4f} -> {vals[-1]:.4f} over {len(vals)} steps; median step "
+        f"{med:.3f} ms (min {min(step_ms):.3f}, max {max(step_ms):.3f}), of which the "
+        f"host takes a median {statistics.median(host_ms):.3f} ms to queue it; "
+        f"{samples_s:.2f} samples/s; {tflops:.2f} TFLOPs [{card}]")
+    prof = profile_train_step(engine, batch, card)
+    if prof is not None:
+        say(f"train: device busy {prof['device_ms'] / med:.1%} of the median un-profiled "
+            f"step ({prof['device_ms']:.3f} ms device / {med:.3f} ms)")
+    return dict(step_ms=med, host_ms=statistics.median(host_ms), samples_per_s=samples_s,
+                tflops=tflops, losses=vals, counts=counts, profile=prof)
+
+
+def phase_train_fp32_parity(device, steps: int = 3):
+    """GPT-2 at full width and depth in fp32 (TF32 off): ``steps``
+    train_batch steps through the kernels, then through the plain versions
+    (patched in where the engine calls the kernels), from the same seeded
+    weights.  The plain path's only use on the card."""
+    import torch
+    from deepspeed_tpu_torch.models.gpt import GPT, gpt_config
+    from deepspeed_tpu_torch.runtime import optimizers
+    _, tce, tfo = kernel_modules()
+
+    cfg = gpt_config("gpt2", n_positions=TRAIN_SEQ, remat=True, dtype="float32")
+    config = {k: v for k, v in TRAIN_CFG.items() if k != "bf16"}
+
+    def run_path():
+        model = GPT(cfg, device=device, seed=0)
+        engine = train_engine(model, config, device)
+        batch = train_batch_of(cfg.vocab_size, device)
+        losses = [float(engine.train_batch(batch=batch)) for _ in range(steps)]
+        names = [n for n, _ in model.named_parameters()]
+        return losses, dict(zip(names, [p.detach().clone() for p in model.parameters()]))
+
+    n = steps
+    (k_losses, k_params), k_counts = counted("fp32 train, kernels", {
+        "ce_forward": n, "ce_backward_dx": n, "ce_backward_dhead": n, "fused_adam": n},
+        run_path)
+    saved = (tce.ce_forward, tce.ce_backward_dx, tce.ce_backward_dhead, optimizers.fused_adam)
+    tce.ce_forward = tce.ce_forward_reference
+    tce.ce_backward_dx = tce.ce_backward_dx_reference
+    tce.ce_backward_dhead = tce.ce_backward_dhead_reference
+    optimizers.fused_adam = lambda table, scal, **kw: tfo.adam_reference(*table.leaves, scal,
+                                                                        **kw)
+    try:
+        tfo.reset_counts()
+        tce.reset_counts()
+        p_losses, p_params = run_path()
+        _, plain = read_counts()
+    finally:
+        (tce.ce_forward, tce.ce_backward_dx, tce.ce_backward_dhead,
+         optimizers.fused_adam) = saved
+    say(f"fp32 train, plain versions: plain calls {json.dumps(plain)}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(k_losses, p_losses))
+    worst, worst_key, diff_sq, norm_sq = 0.0, "", 0.0, 0.0
+    for k, a in k_params.items():
+        d = (a - p_params[k]).double()
+        if d.abs().max().item() > worst:
+            worst, worst_key = d.abs().max().item(), k
+        diff_sq += d.square().sum().item()
+        norm_sq += p_params[k].double().square().sum().item()
+    rel_l2 = (diff_sq / norm_sq) ** 0.5
+    say(f"fp32 train parity over {steps} steps: losses kernel {k_losses} vs plain "
+        f"{p_losses} (max rel diff {loss_rel:.3e}, tol {TRAIN_LOSS_RTOL:g}); params max abs "
+        f"diff {worst:.3e} in {worst_key} (tol {TRAIN_PARAM_ATOL:g}), relative L2 "
+        f"diff {rel_l2:.3e} (tol {TRAIN_PARAM_REL_L2:g})")
+    if any(plain[k] != n for k in ("ce_forward_reference", "ce_backward_dx_reference",
+                                   "ce_backward_dhead_reference", "adam_reference")):
+        fail(f"fp32 train, plain versions: expected {n} calls of each, got {plain}")
+    if not loss_rel <= TRAIN_LOSS_RTOL:
+        fail(f"fp32 train: kernel and plain losses differ by {loss_rel:.3e}")
+    if not (worst <= TRAIN_PARAM_ATOL and rel_l2 <= TRAIN_PARAM_REL_L2):
+        fail("fp32 train: kernel and plain parameters differ past the tolerance")
+    return dict(loss_rel=loss_rel, param_max=worst, param_rel_l2=rel_l2, counts=k_counts)
 
 
 # --------------------------------------------------------------------------- #
@@ -491,9 +949,10 @@ def main() -> int:
     say(f"build: {res.path.name} in {res.seconds:.2f}s from "
         f"{[p.name for p in builder.sources()]}")
     for line in res.log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if "registers" in line or "Compiling entry" in line or "spill" in line:
             say(f"  ptxas: {line.strip()}")
-    say("kernels: paged_attention, decode_attention")
+    say("kernels: paged_attention, decode_attention, ce_forward, ce_backward_dx, "
+        "ce_backward_dhead, fused_adam")
 
     # ---- 3. kernels against their plain versions ----------------------------- #
     scratch = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)
@@ -527,21 +986,56 @@ def main() -> int:
         "fp32 serve (preempting)": fp32["preempting"]["counts"],
         "bf16 serve": bf16["counts"]}))
 
+    del model
+    torch.cuda.empty_cache()
+
+    # ---- 6. training kernels against their plain versions -------------------- #
+    scratch = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)
+    train_rows = ce_cases(device, flush=scratch.zero_) + adam_case(device, flush=scratch.zero_)
+    report_rows(train_rows)
+    del scratch
+    torch.cuda.empty_cache()
+
+    # ---- 7. training end to end, bf16 ------------------------------------------- #
+    train = phase_train_bf16(device, card)
+    torch.cuda.empty_cache()
+
+    # ---- 8. kernel path against the plain path, fp32 ----------------------------- #
+    parity = phase_train_fp32_parity(device)
+    say(f"summary: bf16 train {train['step_ms']:.3f} ms/step, "
+        f"{train['samples_per_s']:.2f} samples/s, {train['tflops']:.2f} TFLOPs; fp32 "
+        f"kernel-vs-plain loss rel diff {parity['loss_rel']:.3e} [{card}]")
+
     # ---- report ------------------------------------------------------------------ #
     # each kernel's row: its case at the shape and dtype of the run that
-    # launches it (the bf16 serve for the paged kernel, the fp32 generate()
-    # for the contiguous one), and that run's launch count
+    # launches it, and that run's launch count: the bf16 serve for the paged
+    # kernel, the fp32 generate() for the contiguous one, the bf16 training
+    # run for the cross-entropy and AdamW kernels
     main_case = {"paged_attention": ("paged-decode", "bfloat16", bf16["counts"]),
                  "decode_attention": ("generate-decode", "float32",
-                                      fp32["generate"]["counts"])}
-    source = "deepspeed_tpu_torch/ops/cuda/csrc/decode_attention.cu"
+                                      fp32["generate"]["counts"]),
+                 "ce_forward": ("gpt2-train", "bfloat16", train["counts"]),
+                 "ce_backward_dx": ("gpt2-train", "bfloat16", train["counts"]),
+                 "ce_backward_dhead": ("gpt2-train", "bfloat16", train["counts"]),
+                 "fused_adam": ("gpt2-148-leaves", "float32", train["counts"])}
+    csrc = "deepspeed_tpu_torch/ops/cuda/csrc/"
+    source = {"paged_attention": csrc + "decode_attention.cu",
+              "decode_attention": csrc + "decode_attention.cu",
+              "ce_forward": csrc + "cross_entropy.cu",
+              "ce_backward_dx": csrc + "cross_entropy.cu",
+              "ce_backward_dhead": csrc + "cross_entropy.cu",
+              "fused_adam": csrc + "fused_optim.cu"}
     replaces = {"paged_attention": "deepspeed_tpu/ops/pallas/decode_attention.py:230",
-                "decode_attention": "deepspeed_tpu/ops/pallas/decode_attention.py:78"}
+                "decode_attention": "deepspeed_tpu/ops/pallas/decode_attention.py:78",
+                "ce_forward": "deepspeed_tpu/ops/pallas/cross_entropy.py:92",
+                "ce_backward_dx": "deepspeed_tpu/ops/pallas/cross_entropy.py:182",
+                "ce_backward_dhead": "deepspeed_tpu/ops/pallas/cross_entropy.py:205",
+                "fused_adam": "deepspeed_tpu/ops/pallas/fused_optim.py:139"}
     table = []
     for name, (case, dt, counts) in main_case.items():
-        r = next(r for r in rows if r["kernel"] == name and r["case"] == case
+        r = next(r for r in rows + train_rows if r["kernel"] == name and r["case"] == case
                  and r["dtype"] == dt)
-        table.append({"name": name, "route": "cuda", "source": source,
+        table.append({"name": name, "route": "cuda", "source": source[name],
                       "replaces": replaces[name], "launches": counts[name],
                       "max_abs_err": r["err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -1,16 +1,31 @@
 """deepspeed_tpu_torch — the PyTorch/CUDA port of ``deepspeed_tpu``.
 
-Counterpart of ``deepspeed_tpu/__init__.py``.  This slice serves GPT-2
-through the paged KV arena: ``init_serving`` / ``ServingEngine`` /
-``DeepSpeedServingConfig``, with hand-written CUDA decode-attention kernels
-for Hopper (``ops/cuda/``).  ``initialize`` and ``init_inference`` come in
-later slices (ROADMAP.md).  Entry points run on the current CUDA device
-unless the caller passes ``device="cpu"``.
+Counterpart of ``deepspeed_tpu/__init__.py``.  Two slices so far: training
+(``initialize`` -> ``DeepSpeedEngine.train_batch``, GPT-2 at ZeRO-0 on one
+device, with the hand-written cross-entropy and fused AdamW kernels) and
+serving (``init_serving`` / ``ServingEngine`` over the paged KV arena, with
+the decode-attention kernels).  ``init_inference`` comes in a later slice
+(ROADMAP.md).  Entry points run on the current CUDA device unless the
+caller passes ``device="cpu"``.
 """
 
+from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig, DeepSpeedConfigError
+from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
 from deepspeed_tpu_torch.serving.config import DeepSpeedServingConfig
 from deepspeed_tpu_torch.serving.engine import ServingEngine
 from deepspeed_tpu_torch.version import __version__
+
+
+def initialize(model=None, config=None, model_parameters=None, lr_scheduler=None,
+               device=None, seed: int = 42):
+    """Build a training engine (``runtime/engine.py``) from a ds_config dict
+    or JSON path.  Returns ``(engine, optimizer, training_dataloader,
+    lr_scheduler)`` as the JAX package does; the optimizer object stands
+    where JAX returns its optax transformation, and the dataloader is None
+    in this slice."""
+    engine = DeepSpeedEngine(model=model, config=config, model_parameters=model_parameters,
+                             lr_scheduler=lr_scheduler, device=device, seed=seed)
+    return engine, engine.optimizer, None, engine.lr_scheduler
 
 
 def init_serving(model=None, config=None, **kwargs):
@@ -20,5 +35,6 @@ def init_serving(model=None, config=None, **kwargs):
     return _init(model=model, config=config, **kwargs)
 
 
-__all__ = ["DeepSpeedServingConfig", "ServingEngine", "__version__",
+__all__ = ["DeepSpeedConfig", "DeepSpeedConfigError", "DeepSpeedEngine",
+           "DeepSpeedServingConfig", "ServingEngine", "__version__", "initialize",
            "init_serving"]

@@ -1,5 +1,7 @@
-"""JAX GPT parameters -> the port's GPT (no JAX file answers to this one; it
-reads the pytree of ``deepspeed_tpu/models/gpt.py:init_gpt_params``).
+"""JAX GPT parameters and optimizer state -> the port's GPT and optimizer (no
+JAX file answers to this one; it reads the pytree of
+``deepspeed_tpu/models/gpt.py:init_gpt_params`` and optax's
+``ScaleByAdamState``).
 
 The JAX pytree is ``{"wte", "wpe", "lnf_g", "lnf_b", "blocks"}`` where
 ``blocks`` holds stacked ``[n_layer, ...]`` leaves (``scan_layers=True``) or
@@ -15,7 +17,7 @@ Used by the parity tests and by anyone loading JAX checkpoints into the
 port.
 """
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -69,3 +71,28 @@ def gpt_from_jax(cfg: GPTConfig, tree: Dict, device=None,
     if dtype is not None:
         sd = {k: v.to(dtype) for k, v in sd.items()}
     return GPT(cfg, device=device, state_dict=sd)
+
+
+def adam_state_from_jax(opt_state) -> Dict[str, Any]:
+    """optax Adam state -> the port's optimizer state
+    (``runtime/optimizers.py:FusedAdam.load_state_dict``): ``{"mu": state
+    dict, "nu": state dict, "count": int}``, with :class:`GPT`'s keys for a
+    GPT tree (as ``params_from_jax`` names them) and the tree's own keys for
+    a flat dict of arrays.
+
+    ``opt_state`` is a ``ScaleByAdamState`` (fields ``mu``, ``nu``,
+    ``count``) or an optax chain state holding exactly one such entry, as
+    the JAX engine keeps in ``engine.state.opt_state``."""
+    if not all(hasattr(opt_state, f) for f in ("mu", "nu", "count")):
+        found = [s for s in opt_state if all(hasattr(s, f) for f in ("mu", "nu", "count"))]
+        if len(found) != 1:
+            raise ValueError(f"expected one Adam state (mu, nu, count) in the optimizer "
+                             f"state, found {len(found)}")
+        opt_state = found[0]
+
+    def state_dict(tree):
+        if "wte" in tree:
+            return params_from_jax(tree)
+        return {name: _tensor(leaf) for name, leaf in tree.items()}
+    return {"mu": state_dict(opt_state.mu), "nu": state_dict(opt_state.nu),
+            "count": int(np.asarray(opt_state.count))}

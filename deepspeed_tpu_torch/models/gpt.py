@@ -1,39 +1,54 @@
-"""GPT-2 for generate() and the serving engine (counterpart of
+"""GPT-2 for training, generate() and the serving engine (counterpart of
 ``deepspeed_tpu/models/gpt.py``).
 
-Ported here: the config and presets, the seeded init, the KV-cache path of
-``generate()`` and the paged serving step, with the JAX package's names and
-layouts.  Weights keep JAX's ``[in, out]`` layout and are applied as
-``h @ W``.  The functions take a parameter tree shaped like the JAX pytree,
-except that ``blocks`` is a list of per-layer dicts instead of stacked
-``[n_layer, ...]`` leaves; :class:`GPT` is an ``nn.Module`` that owns such a
-tree and has the JAX ``GPT`` object's inference methods.
+Ported here: the config and presets, the seeded init, the training
+forward and loss (``gpt_block``, ``gpt_forward``, ``chunked_cross_entropy``,
+``gpt_loss``), the KV-cache path of ``generate()`` and the paged serving
+step, with the JAX package's names and layouts.  Weights keep JAX's
+``[in, out]`` layout and are applied as ``h @ W``.  The functions take a
+parameter tree shaped like the JAX pytree, except that ``blocks`` is a list
+of per-layer dicts instead of stacked ``[n_layer, ...]`` leaves (the layer
+loop is a Python loop; ``scan_layers`` has no meaning here); :class:`GPT`
+is an ``nn.Module`` that owns such a tree and has the JAX ``GPT`` object's
+methods (``__call__(params, batch, rng, train)`` is the training loss).
 
 Where JAX updated a cache with ``dynamic_update_slice`` or a scatter, the
 port writes into the cache tensor in place (no second cache in memory).
 
-Plain large products (qkv, out, fc, proj, the tied head), layernorm, gelu,
-the embedding gather and the argmax are PyTorch calls; attention goes
-through the CUDA kernels of ``ops/cuda/decode_attention.py``.  Config knobs
-of the other GPT families (rope, alibi, rmsnorm, swiglu, GQA, parallel
-blocks, MoE, untied heads) and training knobs (random-LTD, activation
-quantization) raise ``NotImplementedError`` naming their ROADMAP item.
+Plain large products (qkv, out, fc, proj), layernorm, gelu, the embedding
+gather and the argmax are PyTorch calls.  Attention goes through the CUDA
+kernels of ``ops/cuda/decode_attention.py`` when decoding and through
+``ops/attention.py`` when training; the training loss goes through the
+fused cross-entropy kernels of ``ops/cuda/cross_entropy.py`` on the card.
+Config knobs of the other GPT families (rope, alibi, rmsnorm, swiglu, GQA,
+parallel blocks, MoE, untied heads) and training knobs not ported yet
+(random-LTD, activation quantization, dropout, progressive layer drop)
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 import dataclasses
+import functools
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from deepspeed_tpu_torch.accelerator.real_accelerator import resolve_device
+from deepspeed_tpu_torch.ops.attention import get_attention_fn
+from deepspeed_tpu_torch.ops.cuda.cross_entropy import (ce_logits, cross_entropy,
+                                                        label_logit)
 from deepspeed_tpu_torch.ops.cuda.decode_attention import (decode_attention,
                                                            paged_attention)
+from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing import checkpoint
 
 OTHER_FAMILIES = "ROADMAP.md, Queue 1: other GPT families"
-TRAINING = "ROADMAP.md, Queue 1: training slice"
+TRAINING = "ROADMAP.md, Queue 1 item 9 (data pipeline, compression, progressive layer drop)"
+DROPOUT = ("ROADMAP.md, Queue 1 item 4: dropout in training (its random streams "
+           "cannot match JAX's; no config on the training path uses it)")
+# the unchunked cross-entropy holds one [N, V] fp32 logits block up to this size
+CE_CHUNK_BYTES = 900 * 2 ** 20
 
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float16": torch.float16, "fp16": torch.float16,
@@ -258,6 +273,100 @@ def greedy_tokens(cfg: GPTConfig, logits: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------- #
+# Training: forward and loss
+# --------------------------------------------------------------------------- #
+def gpt_block(cfg: GPTConfig, p: Dict, x: torch.Tensor,
+              attention_fn: Callable) -> torch.Tensor:
+    """One sequential pre-LN block on ``x`` ``[B, S, E]``."""
+    B, S, E = x.shape
+    q, k, v = _attn_in(cfg, p, x, x.dtype)
+    o = attention_fn(q, k, v, causal=True).reshape(B, S, E)
+    return _attn_out(cfg, p, x, o, x.dtype)
+
+
+def gpt_forward(cfg: GPTConfig, params: Dict, input_ids: torch.Tensor,
+                rng=None, train: bool = False,
+                attention_fn: Optional[Callable] = None,
+                pld_theta=None, return_hidden: bool = False) -> torch.Tensor:
+    """Logits ``[B, S, padded_vocab]`` fp32, or with ``return_hidden`` the
+    final-layernorm hidden ``[B, S, E]`` that the training loss takes.  With
+    ``cfg.remat`` each block keeps only its input and re-runs in the
+    backward pass."""
+    if pld_theta is not None:
+        raise NotImplementedError(f"progressive layer drop is not ported yet ({TRAINING})")
+    if train and cfg.dropout:
+        raise NotImplementedError(f"dropout={cfg.dropout} is not ported yet ({DROPOUT})")
+    attention_fn = attention_fn or get_attention_fn(cfg.attn_impl)
+    dt = cfg.dtype
+    S = input_ids.shape[1]
+    x = _embed(cfg, params, input_ids.long(),
+               torch.arange(S, device=input_ids.device)[None], dt)
+    body = functools.partial(gpt_block, cfg, attention_fn=attention_fn)
+    for p in params["blocks"]:
+        x = checkpoint(body, p, x) if cfg.remat else body(p, x)
+    x = layer_norm(x, params["lnf_g"], params["lnf_b"], eps=cfg.ln_eps)
+    if return_hidden:
+        return x
+    return (x @ params["wte"].to(dt).T).float()
+
+
+def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+                          vocab_size: int, n_chunks: int = 0) -> torch.Tensor:
+    """Mean next-token cross-entropy of the hidden ``x`` ``[B, S, E]``
+    against ``head`` ``[V, E]``, padded vocab columns masked with ``-1e9``.
+
+    On the card this is always the fused kernel (``ops/cuda/cross_entropy.py``),
+    which never materializes logits and raises on a dtype or width it does
+    not take (the JAX gate's mesh test has no meaning at world size 1).
+    Elsewhere it is the JAX package's
+    chunked path: one ``[N, V]`` block when it fits ``CE_CHUNK_BYTES``
+    (``n_chunks=1``), else row chunks recomputed in the backward pass."""
+    B, S, E = x.shape
+    V = head.shape[0]
+    N = B * S
+    if x.is_cuda:
+        return cross_entropy(x.reshape(N, E), head, labels.reshape(N).to(torch.int32),
+                             vocab_size)
+    if n_chunks <= 0:
+        if N * V * 4 <= CE_CHUNK_BYTES:
+            n_chunks = 1
+        else:
+            n_chunks = max(1, -(-N // max(1, CE_CHUNK_BYTES // (4 * V))))
+    if n_chunks == 1:
+        logits = ce_logits(x.reshape(N, E), head, vocab_size)
+        lse = torch.logsumexp(logits, dim=-1)
+        return (lse - label_logit(logits, labels.reshape(N))).mean()
+    # rows padded up to n_chunks * rows; pad rows are masked out of the sum
+    rows = -(-N // n_chunks)
+    n_pad = n_chunks * rows - N
+    xf, lf = x.reshape(N, E), labels.reshape(N)
+    if n_pad:
+        xf = torch.cat([xf, xf.new_zeros(n_pad, E)])
+        lf = torch.cat([lf, lf.new_zeros(n_pad)])
+    valid = (torch.arange(n_chunks * rows, device=x.device) < N).reshape(n_chunks, rows)
+
+    def chunk(xc, lc, keep):
+        logits = ce_logits(xc, head, vocab_size)
+        nll = torch.logsumexp(logits, dim=-1) - label_logit(logits, lc)
+        return torch.where(keep, nll, 0.0).sum()
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for xc, lc, keep in zip(xf.reshape(n_chunks, rows, E), lf.reshape(n_chunks, rows), valid):
+        total = total + checkpoint(chunk, xc, lc, keep)
+    return total / N
+
+
+def gpt_loss(cfg: GPTConfig, params: Dict, input_ids: torch.Tensor,
+             labels: torch.Tensor, rng=None, train: bool = True,
+             attention_fn: Optional[Callable] = None, pld_theta=None) -> torch.Tensor:
+    """Next-token cross-entropy over the tied head (no ``[B, S, V]`` logits
+    tensor on the card)."""
+    x = gpt_forward(cfg, params, input_ids, rng, train, attention_fn,
+                    pld_theta=pld_theta, return_hidden=True)
+    return chunked_cross_entropy(x, params["wte"], labels, cfg.vocab_size)
+
+
+# --------------------------------------------------------------------------- #
 # Inference: contiguous KV cache + generate()
 # --------------------------------------------------------------------------- #
 def init_kv_cache(cfg: GPTConfig, batch: int, max_len: int,
@@ -446,10 +555,31 @@ class GPT(nn.Module):
         tree["blocks"] = [dict(b.named_parameters()) for b in self.blocks]
         return tree
 
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"the training forward and loss are not ported yet ({TRAINING}); "
-            "use generate(), apply_with_cache() or paged_step()")
+    def forward(self, params: Dict, batch, rng=None, train: bool = True,
+                pld_theta=None) -> torch.Tensor:
+        """The training loss of ``batch`` = (input_ids, labels) under
+        ``params`` (the JAX ``GPT.__call__(params, batch, rng, train)``)."""
+        input_ids, labels = batch
+        return gpt_loss(self.cfg, params, input_ids, labels, rng, train,
+                        pld_theta=pld_theta)
+
+    def init_params(self, generator: torch.Generator) -> Dict:
+        """A fresh fp32 parameter tree from ``generator`` (on its device)."""
+        return init_gpt_params(self.cfg, generator)
+
+    def set_params(self, tree: Dict, requires_grad: bool = False) -> None:
+        """Make the tensors of ``tree`` (``param_tree()``'s layout, or a
+        state dict with this module's keys) this module's parameters,
+        without copying them."""
+        if "blocks" not in tree:
+            tree = _tree_from_state_dict(self.cfg, tree, tree["wte"].device)
+        for name in TOP_KEYS:
+            self.register_parameter(
+                name, nn.Parameter(tree[name], requires_grad=requires_grad))
+        for block, p in zip(self.blocks, tree["blocks"]):
+            for name in BLOCK_KEYS:
+                block.register_parameter(
+                    name, nn.Parameter(p[name], requires_grad=requires_grad))
 
     # ---- inference decode protocol ---------------------------------- #
     def init_cache(self, batch: int, max_len: int) -> Dict:
@@ -479,3 +609,8 @@ class GPT(nn.Module):
                      + I * E + E                        # mlp down
                      + 4 * E)                           # two norms
         return cfg.padded_vocab * E + L * per_block + 2 * E + cfg.n_positions * E
+
+    def flops_per_token(self, seq_len: int) -> float:
+        """Training FLOPs/token ~ 6N + the attention term (PaLM appendix B)."""
+        cfg = self.cfg
+        return 6 * self.num_params() + 12 * cfg.n_layer * cfg.n_embd * seq_len

@@ -129,6 +129,20 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dst_decode_attention.argtypes = [vp, vp, vp, vp,
                                          ci, ci, ci, ci, ci, ci, cf, ci, vp]
     lib.dst_decode_attention.restype = ci
+    lib.dst_ce_forward.argtypes = [vp, vp, vp, vp, vp, vp, vp,
+                                   ci, ci, ci, ci, ci, ci, vp]
+    lib.dst_ce_forward.restype = ci
+    lib.dst_ce_backward_dx.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
+                                       ci, ci, ci, ci, ci, ci, vp]
+    lib.dst_ce_backward_dx.restype = ci
+    lib.dst_ce_backward_dhead.argtypes = [vp, vp, vp, vp, vp, vp,
+                                          ci, ci, ci, ci, ci, vp]
+    lib.dst_ce_backward_dhead.restype = ci
+    lib.dst_fused_adam.argtypes = [vp, ci, vp, vp, ci, vp,
+                                   cf, cf, cf, cf, cf, cf, ci, vp]
+    lib.dst_fused_adam.restype = ci
+    lib.dst_fused_adam_chunk.argtypes = []
+    lib.dst_fused_adam_chunk.restype = ci
     lib.dst_error_string.argtypes = [ci]
     lib.dst_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,0 +1,300 @@
+"""Fused cross-entropy over the tied lm head: hand-written CUDA kernels and
+their plain PyTorch versions (counterpart of
+``deepspeed_tpu/ops/pallas/cross_entropy.py``).
+
+Layouts are the JAX package's: ``x`` ``[N, E]`` hidden rows, ``head``
+``[V, E]`` (the tied ``wte``, vocab padded to a multiple of 128),
+``labels`` ``[N]`` int32; vocab columns at or past ``vocab_size`` are
+masked with the same ``-1e9`` sentinel as the JAX kernels and reference.
+The loss is the mean nll over the N rows.
+
+Three entry points, one per TPU kernel, each with its plain version:
+
+* ``ce_forward`` -> (nll, lse) per row; replaces ``_fwd_kernel``
+  (``ops/pallas/cross_entropy.py:92``);
+* ``ce_backward_dx`` -> dx in x's dtype; replaces ``_bwd_dx_kernel``
+  (``:182``);
+* ``ce_backward_dhead`` -> dhead in head's dtype; replaces
+  ``_bwd_dh_kernel`` (``:205``).
+
+Dispatch: a CPU tensor goes to the plain version (``*_reference``, JAX's
+``n_chunks == 1`` branch of ``models/gpt.py:chunked_cross_entropy`` and
+its hand-derived backward); a CUDA tensor launches the kernel of
+``csrc/cross_entropy.cu`` or raises on a dtype, shape or layout the kernel
+does not take.  There is no fallback from one to the other.
+``cross_entropy`` is the ``torch.autograd.Function`` over the three.
+
+Kernel notes (details in the ``.cu`` file): all three are bound by
+operations (the score product x . head^T, recomputed in each kernel so no
+``[N, V]`` tensor reaches device memory); bf16 inputs go through the
+tensor cores (wmma), fp32 inputs through fp32 FMA; dx and dhead are one
+CUDA kernel, compiled for n_embd 768 only.  The head bias of the JAX
+kernel is not ported (GPT-2 has none).
+
+Each wrapper counts its launches (``ce_forward.launches``); each plain
+version counts its calls (``ce_forward_reference.calls``).
+"""
+
+from typing import Optional, Tuple
+
+import torch
+
+from deepspeed_tpu_torch.ops.cuda import builder
+
+PAD_LOGIT = -1e9
+KERNEL_EMBD = 768        # the n_embd the backward kernels are compiled for
+FWD_ROWS, DX_ROWS = 128, 32
+FWD_SPLITS = 32          # vocab splits of the forward grid: 16 row tiles x 32 = 512 blocks
+DX_SPLITS = 4            # vocab splits of the dx grid: 64 row tiles x 4 = 256 blocks
+HEAD_BIAS = "ROADMAP.md, Queue 1: other GPT families (head bias)"
+FP16 = "ROADMAP.md, Queue 1 item 5 (fp16 training)"
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+# --------------------------------------------------------------------------- #
+# Plain versions
+# --------------------------------------------------------------------------- #
+def ce_logits(x: torch.Tensor, head: torch.Tensor, vocab_size: int,
+              fp32_products: bool = False) -> torch.Tensor:
+    """``[N, V]`` fp32 logits as JAX's unchunked branch forms them:
+    ``x @ head^T`` in x's dtype, then fp32, pad columns ``-1e9``.  With
+    ``fp32_products`` the product runs on the inputs upcast to fp32, as
+    the kernels form it (bf16 x bf16 products are exact in fp32)."""
+    if fp32_products:
+        logits = x.float() @ head.float().T
+    else:
+        logits = (x @ head.to(x.dtype).T).float()
+    V = head.shape[0]
+    if V != vocab_size:
+        keep = torch.arange(V, device=x.device) < vocab_size
+        logits = torch.where(keep, logits, PAD_LOGIT)
+    return logits
+
+
+def label_logit(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The label's logit per row; 0 for a label outside ``[0, V)``, as the
+    one-hot contraction gives."""
+    V = logits.shape[1]
+    lab = labels.long()
+    valid = (lab >= 0) & (lab < V)
+    ll = logits.gather(1, lab.clamp(0, V - 1)[:, None])[:, 0]
+    return torch.where(valid, ll, 0.0)
+
+
+def ce_forward_reference(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+                         vocab_size: int, fp32_products: bool = False
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row (nll, lse), fp32."""
+    ce_forward_reference.calls += 1
+    logits = ce_logits(x, head, vocab_size, fp32_products)
+    lse = torch.logsumexp(logits, dim=-1)
+    return lse - label_logit(logits, labels), lse
+
+
+ce_forward_reference.calls = 0
+
+
+def _dlogits(x, head, labels, lse, gscale, vocab_size, fp32_products) -> torch.Tensor:
+    """(softmax - onehot) * g / N, fp32 ``[N, V]``."""
+    logits = ce_logits(x, head, vocab_size, fp32_products)
+    ds = torch.exp(logits - lse[:, None])
+    lab = labels.long()
+    valid = (lab >= 0) & (lab < ds.shape[1])
+    rows = torch.arange(ds.shape[0], device=ds.device)[valid]
+    ds[rows, lab[valid]] -= 1.0
+    return ds * gscale
+
+
+def ce_backward_dx_reference(x, head, labels, lse, gscale, vocab_size,
+                             fp32_products: bool = False) -> torch.Tensor:
+    """dx = ds . head, in x's dtype (ds rounded to x's dtype first, as the
+    autograd of the unchunked branch rounds it).  ``fp32_products``: both
+    products in fp32 on the upcast operands, only the roundings of ds and
+    of dx left in x's dtype (what the kernels compute, up to summation
+    order)."""
+    ce_backward_dx_reference.calls += 1
+    ds = _dlogits(x, head, labels, lse, gscale, vocab_size, fp32_products).to(x.dtype)
+    if fp32_products:
+        return (ds.float() @ head.float()).to(x.dtype)
+    return (ds @ head.to(x.dtype)).to(x.dtype)
+
+
+ce_backward_dx_reference.calls = 0
+
+
+def ce_backward_dhead_reference(x, head, labels, lse, gscale, vocab_size,
+                                fp32_products: bool = False) -> torch.Tensor:
+    """dhead = ds^T . x, in head's dtype (``fp32_products`` as for dx)."""
+    ce_backward_dhead_reference.calls += 1
+    ds = _dlogits(x, head, labels, lse, gscale, vocab_size, fp32_products).to(x.dtype)
+    if fp32_products:
+        return (ds.float().T @ x.float()).to(head.dtype)
+    return (ds.T @ x).to(head.dtype)
+
+
+ce_backward_dhead_reference.calls = 0
+
+
+# --------------------------------------------------------------------------- #
+# Kernel wrappers
+# --------------------------------------------------------------------------- #
+def _check_cuda(name: str, x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+                vocab_size: int, *row_vectors: torch.Tensor) -> int:
+    """Validate what the kernels take; returns the dtype code."""
+    if x.dtype not in _DTYPE_CODES or head.dtype != x.dtype:
+        raise TypeError(f"{name}: CUDA kernel takes float32 or bfloat16 x and head of one "
+                        f"dtype, got {x.dtype} and {head.dtype}"
+                        + (f" (float16 is not ported yet: {FP16})"
+                           if torch.float16 in (x.dtype, head.dtype) else ""))
+    if x.dim() != 2 or head.dim() != 2 or head.shape[1] != x.shape[1]:
+        raise ValueError(f"{name}: x must be [N, E] and head [V, E], got "
+                         f"{tuple(x.shape)} and {tuple(head.shape)}")
+    N, E = x.shape
+    V = head.shape[0]
+    if E != KERNEL_EMBD:
+        raise ValueError(f"{name}: the CUDA kernels are compiled for n_embd "
+                         f"{KERNEL_EMBD}, got {E}")
+    if not 0 < vocab_size <= V:
+        raise ValueError(f"{name}: vocab_size {vocab_size} not in (0, {V}]")
+    if N == 0 or N >= 2 ** 31 or V >= 2 ** 31:
+        raise ValueError(f"{name}: N {N}, V {V} out of range")
+    if labels.dtype != torch.int32 or tuple(labels.shape) != (N,):
+        raise TypeError(f"{name}: labels must be int32 [{N}], got {labels.dtype} "
+                        f"{tuple(labels.shape)}")
+    for t in (x, head, labels) + row_vectors:
+        if t.device != x.device:
+            raise ValueError(f"{name}: all tensors must be on {x.device}, got one on "
+                             f"{t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: CUDA kernel takes contiguous tensors")
+    for t in (x, head):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: x and head must start on a 16-byte boundary")
+    for t in row_vectors:
+        if t.dtype != torch.float32 or t.numel() not in (1, N):
+            raise TypeError(f"{name}: lse must be fp32 [{N}] and gscale fp32 [1]")
+    return _DTYPE_CODES[x.dtype]
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def ce_forward(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+               vocab_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row (nll, lse) in fp32 without materializing logits.  CPU
+    tensors take the plain version."""
+    if x.device.type == "cpu":
+        return ce_forward_reference(x, head, labels, vocab_size)
+    if x.device.type != "cuda":
+        raise ValueError(f"ce_forward: no kernel for device {x.device}")
+    dtype = _check_cuda("ce_forward", x, head, labels, vocab_size)
+    N, E = x.shape
+    V = head.shape[0]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    nll, lse = torch.empty(N, **f32), torch.empty(N, **f32)
+    part = torch.empty(FWD_SPLITS * 3 * N, **f32)
+    counters = torch.zeros(-(-N // FWD_ROWS), dtype=torch.int32, device=x.device)
+    lib = builder.load_library()
+    rc = lib.dst_ce_forward(x.data_ptr(), head.data_ptr(), labels.data_ptr(),
+                            part.data_ptr(), counters.data_ptr(), nll.data_ptr(),
+                            lse.data_ptr(), N, E, V, vocab_size, FWD_SPLITS, dtype,
+                            _stream(x))
+    builder.check(lib, rc, "ce_forward")
+    ce_forward.launches += 1
+    return nll, lse
+
+
+ce_forward.launches = 0
+
+
+def ce_backward_dx(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+                   lse: torch.Tensor, gscale: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """dx ``[N, E]`` in x's dtype; ``gscale`` is dloss/N as a one-element
+    fp32 tensor on the device (never read on the host)."""
+    if x.device.type == "cpu":
+        return ce_backward_dx_reference(x, head, labels, lse, gscale, vocab_size)
+    if x.device.type != "cuda":
+        raise ValueError(f"ce_backward_dx: no kernel for device {x.device}")
+    dtype = _check_cuda("ce_backward_dx", x, head, labels, vocab_size, lse, gscale)
+    N, E = x.shape
+    n_pad = -(-N // DX_ROWS) * DX_ROWS
+    dx = torch.empty_like(x)
+    part = torch.empty(DX_SPLITS * n_pad * E, dtype=torch.float32, device=x.device)
+    counters = torch.zeros(n_pad // DX_ROWS, dtype=torch.int32, device=x.device)
+    lib = builder.load_library()
+    rc = lib.dst_ce_backward_dx(x.data_ptr(), head.data_ptr(), labels.data_ptr(),
+                                lse.data_ptr(), gscale.data_ptr(), dx.data_ptr(),
+                                part.data_ptr(), counters.data_ptr(), N, E, head.shape[0],
+                                vocab_size, DX_SPLITS, dtype, _stream(x))
+    builder.check(lib, rc, "ce_backward_dx")
+    ce_backward_dx.launches += 1
+    return dx
+
+
+ce_backward_dx.launches = 0
+
+
+def ce_backward_dhead(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+                      lse: torch.Tensor, gscale: torch.Tensor,
+                      vocab_size: int) -> torch.Tensor:
+    """dhead ``[V, E]`` in head's dtype, summed over the rows by one block
+    per 32 vocab rows (no atomics: deterministic)."""
+    if x.device.type == "cpu":
+        return ce_backward_dhead_reference(x, head, labels, lse, gscale, vocab_size)
+    if x.device.type != "cuda":
+        raise ValueError(f"ce_backward_dhead: no kernel for device {x.device}")
+    dtype = _check_cuda("ce_backward_dhead", x, head, labels, vocab_size, lse, gscale)
+    N, E = x.shape
+    dh = torch.empty_like(head)
+    lib = builder.load_library()
+    rc = lib.dst_ce_backward_dhead(x.data_ptr(), head.data_ptr(), labels.data_ptr(),
+                                   lse.data_ptr(), gscale.data_ptr(), dh.data_ptr(), N, E,
+                                   head.shape[0], vocab_size, dtype, _stream(x))
+    builder.check(lib, rc, "ce_backward_dhead")
+    ce_backward_dhead.launches += 1
+    return dh
+
+
+ce_backward_dhead.launches = 0
+
+
+class _CrossEntropy(torch.autograd.Function):
+    """Mean nll; backward through the dx and dhead entry points."""
+
+    @staticmethod
+    def forward(ctx, x, head, labels, vocab_size):
+        nll, lse = ce_forward(x, head, labels, vocab_size)
+        ctx.save_for_backward(x, head, labels, lse)
+        ctx.vocab_size = vocab_size
+        return nll.mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, head, labels, lse = ctx.saved_tensors
+        # d(mean)/d(nll_i) = g / N, as a device scalar
+        gscale = (g.float() / x.shape[0]).reshape(1)
+        dx = dh = None
+        if ctx.needs_input_grad[0]:
+            dx = ce_backward_dx(x, head, labels, lse, gscale, ctx.vocab_size)
+        if ctx.needs_input_grad[1]:
+            dh = ce_backward_dhead(x, head, labels, lse, gscale, ctx.vocab_size)
+        return dx, dh, None, None
+
+
+def cross_entropy(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+                  vocab_size: int, head_b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token nll of ``x`` ``[N, E]`` against ``head`` ``[V, E]``
+    without materializing logits (counterpart of ``fused_cross_entropy``).
+    Differentiable in x and head."""
+    if head_b is not None:
+        raise NotImplementedError(f"cross_entropy: a head bias is not ported yet ({HEAD_BIAS})")
+    return _CrossEntropy.apply(x, head, labels, vocab_size)
+
+
+def reset_counts() -> None:
+    """Zero every launch and plain-call counter of this module."""
+    for fn in (ce_forward, ce_backward_dx, ce_backward_dhead):
+        fn.launches = 0
+    for fn in (ce_forward_reference, ce_backward_dx_reference, ce_backward_dhead_reference):
+        fn.calls = 0

@@ -1,0 +1,202 @@
+"""The DeepSpeed-style JSON config (counterpart of
+``deepspeed_tpu/runtime/config.py``).
+
+One JSON document (path or dict) becomes a typed ``DeepSpeedConfig`` with
+the batch arithmetic invariant
+
+    train_batch_size = micro_batch_per_device * gradient_accumulation_steps * dp_world_size
+
+solved and validated as the JAX package (and the reference) do, with the
+same ``DeepSpeedConfigError`` on inconsistent or missing values.  The world
+size is 1 in the port so far.  Blocks of features the port has not taken
+over yet (stability, telemetry, monitors, PLD, compression, ...) are kept
+as raw dicts; the engine raises when one of them is enabled.
+"""
+
+import json
+import os
+from typing import Any, Dict, Optional
+
+import torch
+
+from deepspeed_tpu_torch.runtime import constants as C
+from deepspeed_tpu_torch.runtime.config_utils import (DeepSpeedConfigModel,
+                                                      dict_raise_error_on_duplicate_keys)
+from deepspeed_tpu_torch.runtime.zero.config import DeepSpeedZeroConfig
+from deepspeed_tpu_torch.utils.logging import logger
+
+
+class DeepSpeedFP16Config(DeepSpeedConfigModel):
+    """``fp16`` block."""
+    enabled: bool = False
+    auto_cast: bool = False
+    loss_scale: float = 0  # 0 => dynamic
+    initial_scale_power: int = 16
+    loss_scale_window: int = 1000
+    hysteresis: int = 2
+    min_loss_scale: float = 1
+    consecutive_hysteresis: bool = False
+    fp16_master_weights_and_grads: bool = False
+
+
+class DeepSpeedBF16Config(DeepSpeedConfigModel):
+    enabled: bool = False
+
+
+class DeepSpeedActivationCheckpointingConfig(DeepSpeedConfigModel):
+    """``activation_checkpointing`` block: selects the remat policy of
+    ``runtime/activation_checkpointing/checkpointing.py``."""
+    partition_activations: bool = False
+    contiguous_memory_optimization: bool = False
+    cpu_checkpointing: bool = False
+    number_checkpoints: Optional[int] = None
+    synchronize_checkpoint_boundary: bool = False
+    profile: bool = False
+
+
+class DeepSpeedConfigError(Exception):
+    pass
+
+
+# blocks whose feature is not ported: {"enabled": true} in one of them makes
+# the engine raise, naming the ROADMAP item
+UNPORTED_BLOCKS = {
+    C.STABILITY: "ROADMAP.md, Queue 1 item 8 (stability sentinel)",
+    C.TELEMETRY: "ROADMAP.md, Queue 1 item 8 (telemetry)",
+    C.FAULT_TOLERANCE: "ROADMAP.md, Queue 1 item 8 (fault tolerance)",
+    C.COMMS_LOGGER: "ROADMAP.md, Queue 1 item 7 (comms)",
+    C.MONITOR_CONFIG_TENSORBOARD: "ROADMAP.md, Queue 1 item 9 (monitor)",
+    C.MONITOR_CONFIG_WANDB: "ROADMAP.md, Queue 1 item 9 (monitor)",
+    C.MONITOR_CONFIG_CSV: "ROADMAP.md, Queue 1 item 9 (monitor)",
+    C.FLOPS_PROFILER: "ROADMAP.md, Queue 1 item 9 (flops profiler)",
+    C.PROGRESSIVE_LAYER_DROP: "ROADMAP.md, Queue 1 item 9 (progressive layer drop)",
+    C.EIGENVALUE: "ROADMAP.md, Queue 1 item 9 (compression / MoQ)",
+    C.QUANTIZE_TRAINING: "ROADMAP.md, Queue 1 item 9 (compression / MoQ)",
+    C.DATA_EFFICIENCY: "ROADMAP.md, Queue 1 item 9 (data pipeline)",
+    C.CURRICULUM_LEARNING_LEGACY: "ROADMAP.md, Queue 1 item 9 (data pipeline)",
+}
+
+
+class DeepSpeedConfig:
+    """Parses and validates the full ds_config JSON document; the attribute
+    names are the JAX package's (and the reference's)."""
+
+    def __init__(self, config: Any, world_size: int = 1):
+        if isinstance(config, (str, os.PathLike)):
+            if not os.path.exists(config):
+                raise DeepSpeedConfigError(f"DeepSpeed config path does not exist: {config}")
+            with open(config) as f:
+                self._param_dict = json.load(f,
+                                             object_pairs_hook=dict_raise_error_on_duplicate_keys)
+        elif isinstance(config, dict):
+            self._param_dict = dict(config)
+        elif isinstance(config, DeepSpeedConfig):
+            self._param_dict = dict(config._param_dict)
+        else:
+            raise DeepSpeedConfigError(
+                f"Expected a string path or dict for the DeepSpeed config, got {type(config)}")
+        self.world_size = world_size
+        self._initialize_params(self._param_dict)
+        self._configure_train_batch_size()
+        self._do_sanity_check()
+
+    def _initialize_params(self, pd: Dict):
+        self.train_batch_size = pd.get(C.TRAIN_BATCH_SIZE, C.TRAIN_BATCH_SIZE_DEFAULT)
+        self.train_micro_batch_size_per_gpu = pd.get(C.TRAIN_MICRO_BATCH_SIZE_PER_GPU,
+                                                     C.TRAIN_MICRO_BATCH_SIZE_PER_GPU_DEFAULT)
+        self.gradient_accumulation_steps = pd.get(C.GRADIENT_ACCUMULATION_STEPS,
+                                                  C.GRADIENT_ACCUMULATION_STEPS_DEFAULT)
+        self.steps_per_print = pd.get(C.STEPS_PER_PRINT, C.STEPS_PER_PRINT_DEFAULT)
+        self.wall_clock_breakdown = pd.get(C.WALL_CLOCK_BREAKDOWN, C.WALL_CLOCK_BREAKDOWN_DEFAULT)
+        self.gradient_clipping = pd.get(C.GRADIENT_CLIPPING, C.GRADIENT_CLIPPING_DEFAULT)
+
+        opt = pd.get(C.OPTIMIZER, None)
+        self.optimizer_name = opt.get(C.TYPE).lower() if opt and opt.get(C.TYPE) else None
+        self.optimizer_params = (opt or {}).get(C.OPTIMIZER_PARAMS, {})
+
+        sched = pd.get(C.SCHEDULER, None)
+        self.scheduler_name = sched.get(C.TYPE) if sched else None
+        self.scheduler_params = (sched or {}).get(C.SCHEDULER_PARAMS, {})
+
+        self.zero_config = DeepSpeedZeroConfig(**pd.get(C.ZERO_OPTIMIZATION, {}))
+
+        self.fp16_config = DeepSpeedFP16Config(**pd.get(C.FP16, {}))
+        self.bfloat16_config = DeepSpeedBF16Config(**pd.get(C.BFLOAT16, pd.get(C.BFLOAT16_OLD, {})))
+        self.amp_enabled = bool(pd.get(C.AMP, {}).get(C.AMP_ENABLED, C.AMP_ENABLED_DEFAULT))
+        self.activation_checkpointing_config = DeepSpeedActivationCheckpointingConfig(
+            **pd.get(C.ACTIVATION_CHECKPOINTING, {}))
+
+        self.parallel_blocks = {k: pd.get(k, {}) for k in (
+            C.MESH, C.TENSOR_PARALLEL, C.PIPELINE_PARALLEL, C.SEQUENCE_PARALLEL)}
+        self.sparse_attention = pd.get(C.SPARSE_ATTENTION, None)
+        self.compression_config = pd.get(C.COMPRESSION_TRAINING, {})
+        self.unported_blocks = {k: pd.get(k, {}) for k in UNPORTED_BLOCKS}
+
+    @property
+    def dp_world_size(self) -> int:
+        """Data-parallel replicas: devices not taken by model axes."""
+        mesh = self.parallel_blocks[C.MESH]
+        tp = max(int(self.parallel_blocks[C.TENSOR_PARALLEL].get("tp_size", 1)),
+                 int(mesh.get("tensor", 1)), 1)
+        pp = max(int(self.parallel_blocks[C.PIPELINE_PARALLEL].get("stages", 1)),
+                 int(mesh.get("pipe", 1)), 1)
+        sp = max(int(self.parallel_blocks[C.SEQUENCE_PARALLEL].get("sp_size", 1)),
+                 int(mesh.get("seq", 1)), 1)
+        model_degree = tp * pp * sp
+        if self.world_size % model_degree:
+            raise DeepSpeedConfigError(
+                f"world size {self.world_size} not divisible by tp*pp*sp={model_degree}")
+        return self.world_size // model_degree
+
+    def _configure_train_batch_size(self):
+        """Solve/validate train_batch = micro * gas * dp_world."""
+        train = self.train_batch_size
+        micro = self.train_micro_batch_size_per_gpu
+        gas = self.gradient_accumulation_steps
+        dp = self.dp_world_size
+
+        if train is not None and micro is not None and gas is not None:
+            pass
+        elif train is not None and micro is not None:
+            gas = train // (micro * dp)
+        elif train is not None and gas is not None:
+            micro = train // (dp * gas)
+        elif micro is not None and gas is not None:
+            train = micro * gas * dp
+        elif train is not None:
+            gas = 1
+            micro = train // dp
+        elif micro is not None:
+            train = micro * dp
+            gas = 1
+        else:
+            raise DeepSpeedConfigError(
+                "Either train_batch_size or train_micro_batch_size_per_gpu needs to be provided")
+
+        self.train_batch_size = train
+        self.train_micro_batch_size_per_gpu = micro
+        self.gradient_accumulation_steps = gas
+
+        if train != micro * gas * dp:
+            raise DeepSpeedConfigError(
+                f"Check batch related parameters. train_batch_size is not equal to "
+                f"micro_batch_per_gpu * gradient_acc_step * world_size: "
+                f"{train} != {micro} * {gas} * {dp}")
+        if micro is None or micro <= 0 or (gas is None or gas <= 0):
+            raise DeepSpeedConfigError(
+                f"Batch arithmetic produced non-positive values: micro={micro}, gas={gas}")
+
+    def _do_sanity_check(self):
+        if self.fp16_config.enabled and self.bfloat16_config.enabled:
+            raise DeepSpeedConfigError("fp16 and bf16 modes cannot both be enabled")
+        if self.optimizer_name is None and self.scheduler_name is not None:
+            logger.warning("scheduler configured without an optimizer block; "
+                           "the default Adam takes the schedule")
+
+    @property
+    def precision_dtype(self) -> torch.dtype:
+        if self.fp16_config.enabled:
+            return torch.float16
+        if self.bfloat16_config.enabled:
+            return torch.bfloat16
+        return torch.float32

@@ -46,3 +46,15 @@ class DeepSpeedConfigModel(BaseModel):
 
     def dict(self, **kwargs):  # pydantic-v1-style alias
         return self.model_dump(**kwargs)
+
+
+def dict_raise_error_on_duplicate_keys(ordered_pairs):
+    """``json.load`` object_pairs_hook that rejects duplicate keys."""
+    d = dict((k, v) for k, v in ordered_pairs)
+    if len(d) != len(ordered_pairs):
+        counter = {}
+        for k, _ in ordered_pairs:
+            counter[k] = counter.get(k, 0) + 1
+        keys = [k for k, v in counter.items() if v > 1]
+        raise ValueError(f"Duplicate keys in DeepSpeed config: {keys}")
+    return d

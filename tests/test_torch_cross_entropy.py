@@ -1,0 +1,230 @@
+"""Parity of the port's fused cross-entropy (``deepspeed_tpu_torch/ops/cuda/
+cross_entropy.py``, and the chunked path of ``models/gpt.py``) with the JAX
+package's.
+
+On the CPU the port's ``cross_entropy`` runs its plain versions (forward,
+dx, dhead); they are held against JAX's Pallas kernels in interpret mode
+(``fused_cross_entropy``) and against JAX's ``chunked_cross_entropy`` with
+the kernel off, on the same numpy inputs: N = 37 rows (ragged against any
+row tile), E = 64, V = 384 with ``vocab_size`` 300 (padded columns
+masked) and with ``vocab_size`` = V (no mask).
+
+Tolerances.  fp32: the loss within 1e-6 relative, dx and dhead within
+1e-5 of their largest magnitude (both sides sum in fp32, in other orders).
+bf16: 2e-2 of the largest magnitude (the plain version rounds the logits
+and ds to bf16 as JAX's unchunked branch does; the kernels keep them in
+fp32).
+
+The CUDA kernels run only on a card: the ``cuda``-marked tests skip here
+and run on the GPU machine (``python -m pytest
+tests/test_torch_cross_entropy.py -m cuda``); ``chip_smoke.py`` holds the
+kernels against the plain versions at GPT-2's training shape.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from deepspeed_tpu.models import gpt as jgpt
+from deepspeed_tpu.ops.pallas import cross_entropy as jce
+from deepspeed_tpu_torch.models import gpt as tgpt
+from deepspeed_tpu_torch.ops.cuda import cross_entropy as tce
+
+# (N, E, V, vocab_size)
+CASES = {"padded-vocab": (37, 64, 384, 300), "full-vocab": (37, 64, 384, 384)}
+TOL = {"float32": (1e-6, 1e-5), "bfloat16": (2e-2, 2e-2)}   # (loss rtol, grad tol)
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def make_inputs(N, E, V, vocab_size, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((N, E)).astype(np.float32)
+    head = (rng.standard_normal((V, E)) * 0.2).astype(np.float32)
+    labels = rng.integers(0, vocab_size, N).astype(np.int32)
+    return x, head, labels
+
+
+def jax_value_and_grads(fn, x, head, dtype):
+    jdt = DTYPES[dtype][0]
+    loss, (dx, dh) = jax.value_and_grad(fn, argnums=(0, 1))(
+        jnp.asarray(x, jdt), jnp.asarray(head, jdt))
+    return (float(loss), np.asarray(dx.astype(jnp.float32)),
+            np.asarray(dh.astype(jnp.float32)))
+
+
+def port_value_and_grads(fn, x, head, dtype):
+    tdt = DTYPES[dtype][1]
+    xt = torch.from_numpy(x).to(tdt).requires_grad_()
+    ht = torch.from_numpy(head).to(tdt).requires_grad_()
+    loss = fn(xt, ht)
+    loss.backward()
+    return float(loss.detach()), xt.grad.float().numpy(), ht.grad.float().numpy()
+
+
+def assert_close(port, ref, dtype):
+    loss_rtol, grad_tol = TOL[dtype]
+    assert abs(port[0] - ref[0]) <= loss_rtol * abs(ref[0]), (port[0], ref[0])
+    for p, r in zip(port[1:], ref[1:]):
+        np.testing.assert_allclose(p, r, rtol=0, atol=grad_tol * np.abs(r).max())
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_cross_entropy_matches_pallas_interpret(case, dtype):
+    """The JAX kernels themselves (interpret mode on the CPU)."""
+    N, E, V, vocab = CASES[case]
+    x, head, labels = make_inputs(N, E, V, vocab)
+    lab_j, lab_t = jnp.asarray(labels), torch.from_numpy(labels)
+    ref = jax_value_and_grads(
+        lambda a, h: jce.fused_cross_entropy(a, h, lab_j, vocab), x, head, dtype)
+    port = port_value_and_grads(
+        lambda a, h: tce.cross_entropy(a, h, lab_t, vocab), x, head, dtype)
+    assert_close(port, ref, dtype)
+
+
+@pytest.mark.parametrize("n_chunks", [0, 3])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_cross_entropy_matches_jax_chunked(monkeypatch, case, dtype, n_chunks):
+    """JAX's chunked_cross_entropy with the kernel off, against the port's
+    fused function (n_chunks 0: JAX's unchunked branch) and the port's own
+    chunked path (n_chunks 3: ragged row chunks, padding masked)."""
+    monkeypatch.setenv("DST_PALLAS_CE", "0")
+    N, E, V, vocab = CASES[case]
+    x, head, labels = make_inputs(N, E, V, vocab, seed=1)
+    lab_j, lab_t = jnp.asarray(labels)[None], torch.from_numpy(labels)[None]
+    ref = jax_value_and_grads(
+        lambda a, h: jgpt.chunked_cross_entropy(a[None], h, lab_j, vocab, n_chunks=n_chunks),
+        x, head, dtype)
+    if n_chunks:
+        fn = lambda a, h: tgpt.chunked_cross_entropy(a[None], h, lab_t, vocab, n_chunks=n_chunks)
+    else:
+        fn = lambda a, h: tce.cross_entropy(a, h, lab_t[0], vocab)
+    assert_close(port_value_and_grads(fn, x, head, dtype), ref, dtype)
+
+
+def test_plain_entry_points_agree_with_autograd_of_the_logits():
+    """The hand-derived dx and dhead are autograd's gradient of the
+    unchunked loss (fp32, 1e-6 of the largest magnitude)."""
+    N, E, V, vocab = CASES["padded-vocab"]
+    x, head, labels = map(torch.from_numpy, make_inputs(N, E, V, vocab, seed=2))
+    xg, hg = x.clone().requires_grad_(), head.clone().requires_grad_()
+    logits = tce.ce_logits(xg, hg, vocab)
+    (torch.logsumexp(logits, -1) - tce.label_logit(logits, labels)).mean().backward()
+    nll, lse = tce.ce_forward(x, head, labels, vocab)
+    g = torch.full((1,), 1.0 / N)
+    dx = tce.ce_backward_dx(x, head, labels, lse, g, vocab)
+    dh = tce.ce_backward_dhead(x, head, labels, lse, g, vocab)
+    for got, want in ((dx, xg.grad), (dh, hg.grad)):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6 * want.abs().max().item())
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
+    tce.reset_counts()
+    x, head, labels = map(torch.from_numpy, make_inputs(*CASES["full-vocab"]))
+    x.requires_grad_()
+    tce.cross_entropy(x, head, labels, 384).backward()
+    assert (tce.ce_forward.launches, tce.ce_backward_dx.launches,
+            tce.ce_backward_dhead.launches) == (0, 0, 0)
+    assert tce.ce_forward_reference.calls == 1
+    assert tce.ce_backward_dx_reference.calls == 1
+    assert tce.ce_backward_dhead_reference.calls == 0     # head needs no grad
+    tce.reset_counts()
+
+
+def test_other_devices_and_a_bias_raise():
+    x = torch.empty(4, 768, device="meta")
+    lab = torch.empty(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        tce.ce_forward(x, x, lab, 4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tce.cross_entropy(x, x, lab, 4, head_b=torch.zeros(4))
+
+
+# --------------------------------------------------------------------------- #
+# on the card
+# --------------------------------------------------------------------------- #
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+# the kernels take n_embd 768; ragged rows and a ragged last vocab tile
+KERNEL_CASES = {"ragged": (37, 768, 384, 300), "vocab-tail": (200, 768, 1000, 1000)}
+# Kernel against the plain version with fp32 products on the same inputs
+# (in bf16 only the roundings of ds and of the output stay; the
+# JAX-faithful plain version rounds the logits, std ~5.5 here, to bf16,
+# which moves p by percents).  Forward: |err| / max(1, |plain|), fp32 sums
+# in another order.  dx, dhead: max |err| / max |plain| (bf16: both sides
+# round the output, so they part by at most one bf16 ulp, 2^-7 of the max),
+# and the softmax part alone, |err|_2 / |softmax part|_2 (dx with the
+# one-hot term g * head[label] taken out; dhead over the vocab rows no
+# label hits).  The same tolerances as chip_smoke.py's phase 6.
+KERNEL_TOL = {"float32": (1e-5, 1e-4, 1e-5), "bfloat16": (1e-5, 1e-2, 2e-3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", sorted(KERNEL_CASES))
+def test_cuda_kernels_match_plain(cuda_device, case, dtype):
+    N, E, V, vocab = KERNEL_CASES[case]
+    fwd_tol, grad_tol, softmax_tol = KERNEL_TOL[dtype]
+    tdt = DTYPES[dtype][1]
+    x, head, labels = (torch.from_numpy(a).to(cuda_device)
+                       for a in make_inputs(N, E, V, vocab, seed=3))
+    x, head = x.to(tdt), head.to(tdt)
+    g = torch.full((1,), 1.0 / N, device=cuda_device)
+    nll, lse = tce.ce_forward(x, head, labels, vocab)
+    rnll, rlse = tce.ce_forward_reference(x, head, labels, vocab, fp32_products=True)
+    args = (x, head, labels, rlse, g, vocab)
+    dx = tce.ce_backward_dx(*args)
+    rdx = tce.ce_backward_dx_reference(*args, fp32_products=True)
+    dh = tce.ce_backward_dhead(*args)
+    rdh = tce.ce_backward_dhead_reference(*args, fp32_products=True)
+    torch.cuda.synchronize()
+    for got, want in ((nll, rnll), (lse, rlse)):
+        assert ((got - want).abs() / want.abs().clamp(min=1.0)).max().item() <= fwd_tol
+    hit = torch.zeros(V, dtype=torch.bool, device=cuda_device)
+    hit[labels.long()] = True
+    free = ~hit & (torch.arange(V, device=cuda_device) < vocab)
+    softmax_dx = rdx.float() + g * head[labels.long()].float()
+    for got, want, softmax, rows in ((dx, rdx, softmax_dx, slice(None)),
+                                     (dh, rdh, rdh.float()[free], free)):
+        err = (got.float() - want.float()).abs()
+        assert err.max().item() <= grad_tol * want.float().abs().max().item()
+        assert (err[rows].norm() / softmax.norm()).item() <= softmax_tol
+
+
+@pytest.mark.cuda
+def test_cuda_rejects_what_the_kernels_do_not_take(cuda_device):
+    x, head, labels = (torch.from_numpy(a).to(cuda_device)
+                       for a in make_inputs(8, 64, 128, 128))
+    with pytest.raises(ValueError, match="n_embd"):
+        tce.ce_forward(x, head, labels, 128)
+    x, head, labels = (torch.from_numpy(a).to(cuda_device)
+                       for a in make_inputs(8, 768, 128, 128))
+    with pytest.raises(TypeError):
+        tce.ce_forward(x.half(), head.half(), labels, 128)
+    with pytest.raises(TypeError):
+        tce.ce_forward(x, head, labels.long(), 128)
+    with pytest.raises(ValueError):
+        tce.ce_forward(x, head, labels, 129)
+
+
+@pytest.mark.cuda
+def test_cuda_loss_takes_the_kernel_for_every_dtype(cuda_device):
+    """gpt_loss's cross-entropy sends every CUDA tensor to the kernel: a
+    dtype it does not take raises, it never runs the plain path there."""
+    x, head, labels = (torch.from_numpy(a).to(cuda_device)
+                       for a in make_inputs(8, 768, 128, 128))
+    tce.reset_counts()
+    with pytest.raises(TypeError, match="ROADMAP"):
+        tgpt.chunked_cross_entropy(x.half()[None], head.half(), labels[None], 128)
+    tgpt.chunked_cross_entropy(x[None], head, labels[None], 128)
+    assert tce.ce_forward.launches == 1 and tce.ce_forward_reference.calls == 0
+    tce.reset_counts()

@@ -90,6 +90,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         dst.init_serving(model=model, config={"dtype": "float32"})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         dst.ServingEngine(model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dst.initialize(model=model, config={"train_micro_batch_size_per_gpu": 1})
+    engine, *_ = dst.initialize(model=model, device="cpu",
+                                config={"train_micro_batch_size_per_gpu": 1})
+    assert engine.device == torch.device("cpu")
+    assert engine.optimizer.table.device == torch.device("cpu")
     eng = dst.init_serving(model=model, device="cpu", config={
         "dtype": "float32", "block_size": 8, "num_blocks": 16,
         "max_batch_size": 2, "prefill_chunk": 8})
@@ -125,12 +131,14 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
 def test_build_directory_is_keyed_by_sources_and_ignored():
     assert builder.BUILD_ROOT == REPO / "build_torch"
     assert len(builder.source_hash()) == 16
-    assert [p.name for p in builder.sources()] == ["decode_attention.cu"]
+    assert [p.name for p in builder.sources()] == [
+        "cross_entropy.cu", "decode_attention.cu", "fused_optim.cu"]
     ignored = (REPO / ".gitignore").read_text().split()
     assert "build_torch/" in ignored
 
 
 def test_public_surface():
     assert dst.__version__
-    for name in ("init_serving", "ServingEngine", "DeepSpeedServingConfig"):
+    for name in ("init_serving", "ServingEngine", "DeepSpeedServingConfig", "initialize",
+                 "DeepSpeedEngine", "DeepSpeedConfig", "DeepSpeedConfigError"):
         assert hasattr(dst, name)

@@ -1,0 +1,404 @@
+"""Parity of the port's training slice with the JAX package's, on the CPU.
+
+* ``DeepSpeedConfig``: the batch arithmetic and named errors of
+  ``tests/unit/test_config.py`` that apply at world size 1, case by case
+  against the JAX config.
+* ``gpt_loss``: the loss and every gradient against ``jax.value_and_grad``
+  of the JAX ``gpt_loss`` (fp32, remat on and off) for ``tiny`` (vocab 300
+  padded to 384) and a 2-layer model at GPT-2's width (E 768, 12 heads,
+  S 32, B 2).  Tolerance: the loss within 1e-5 relative, each gradient
+  within 1e-4 of its largest magnitude (fp32 sums in other orders, through
+  layer norms and a softmax).
+* The engine: three ``train_batch`` steps (fp32, AdamW wd 0.01, clip 1.0
+  binding, GAS 2) against the JAX engine on a one-device mesh with both
+  Pallas gates on (cross-entropy and fused Adam in interpret mode), from
+  the same parameters.  Tolerance: losses and grad norms within 1e-5
+  relative; moments within 1e-4 of their largest magnitude; final
+  parameters within 2e-5 absolute, except the attention key bias, whose
+  gradient is zero in exact arithmetic (softmax is shift-invariant): its
+  fp32 gradient is rounding noise that Adam normalizes to steps of about
+  lr, so it is held only to Adam's bound, 2 * lr per step.
+* The lr schedules, ``update_scale`` sequences and the attention dispatch.
+"""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import deepspeed_tpu
+import deepspeed_tpu_torch as dst
+from deepspeed_tpu.models import gpt as jgpt
+from deepspeed_tpu.parallel import mesh as mesh_lib
+from deepspeed_tpu.runtime import lr_schedules as jlr
+from deepspeed_tpu.runtime.config import DeepSpeedConfig as JConfig
+from deepspeed_tpu.runtime.config import DeepSpeedConfigError as JConfigError
+from deepspeed_tpu.runtime.fp16 import loss_scaler as jls
+from deepspeed_tpu_torch.models import gpt as tgpt
+from deepspeed_tpu_torch.models.convert import adam_state_from_jax, params_from_jax
+from deepspeed_tpu_torch.ops import attention as tattn
+from deepspeed_tpu_torch.runtime import lr_schedules as tlr
+from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig as TConfig
+from deepspeed_tpu_torch.runtime.config import DeepSpeedConfigError as TConfigError
+from deepspeed_tpu_torch.runtime.fp16 import loss_scaler as tls
+from deepspeed_tpu_torch.utils.timer import ThroughputTimer
+
+# --------------------------------------------------------------------------- #
+# config
+# --------------------------------------------------------------------------- #
+CONFIG_CASES = {
+    "full": {"train_batch_size": 4, "train_micro_batch_size_per_gpu": 2,
+             "gradient_accumulation_steps": 2},
+    "solve-gas": {"train_batch_size": 4, "train_micro_batch_size_per_gpu": 2},
+    "solve-micro": {"train_batch_size": 4, "gradient_accumulation_steps": 2},
+    "solve-train": {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2},
+    "train-only": {"train_batch_size": 8},
+    "micro-only": {"train_micro_batch_size_per_gpu": 8},
+    "invalid": {"train_batch_size": 5, "train_micro_batch_size_per_gpu": 2,
+                "gradient_accumulation_steps": 2},
+    "missing": {},
+    "non-positive": {"train_batch_size": 1, "train_micro_batch_size_per_gpu": 2},
+    "fp16-and-bf16": {"train_batch_size": 8, "fp16": {"enabled": True},
+                      "bf16": {"enabled": True}},
+    "zero-aliases": {"train_batch_size": 8, "zero_optimization": {
+        "stage": 3, "stage3_max_live_parameters": 12345, "stage3_prefetch_bucket_size": 777,
+        "offload_optimizer": {"device": "cpu"}}},
+    "unknown-keys": {"train_batch_size": 8, "zero_optimization": {"stage": 1, "future": True}},
+    "blocks": {"train_batch_size": 8,
+               "optimizer": {"type": "AdamW", "params": {"lr": 0.001, "weight_decay": 0.01}},
+               "scheduler": {"type": "WarmupLR", "params": {"warmup_num_steps": 10}},
+               "fp16": {"enabled": True, "initial_scale_power": 8, "loss_scale_window": 500},
+               "gradient_clipping": 1.0},
+}
+
+
+def config_view(cfg):
+    zc = cfg.zero_config
+    return (cfg.train_batch_size, cfg.train_micro_batch_size_per_gpu,
+            cfg.gradient_accumulation_steps, zc.stage, zc.max_live_parameters,
+            zc.prefetch_bucket_size, str(getattr(zc.offload_optimizer, "device", None)),
+            cfg.optimizer_name, cfg.optimizer_params, cfg.scheduler_name,
+            cfg.fp16_config.enabled, cfg.fp16_config.initial_scale_power,
+            cfg.fp16_config.loss_scale_window, cfg.gradient_clipping)
+
+
+@pytest.mark.parametrize("case", sorted(CONFIG_CASES))
+def test_config_matches_jax_at_world_size_1(case):
+    raw = CONFIG_CASES[case]
+    try:
+        want = config_view(JConfig(raw, world_size=1))
+    except JConfigError as e:
+        with pytest.raises(TConfigError) as got:
+            TConfig(raw, world_size=1)
+        assert type(e).__name__ == type(got.value).__name__
+        return
+    assert config_view(TConfig(raw, world_size=1)) == want
+
+
+def test_config_from_path_rejects_duplicate_keys(tmp_path):
+    p = tmp_path / "ds.json"
+    p.write_text('{"train_batch_size": 8, "train_batch_size": 16}')
+    with pytest.raises(ValueError):
+        TConfig(str(p))
+    p.write_text(json.dumps(CONFIG_CASES["full"]))
+    assert TConfig(str(p)).gradient_accumulation_steps == 2
+    assert TConfig(CONFIG_CASES["blocks"]).precision_dtype == torch.float16
+
+
+# --------------------------------------------------------------------------- #
+# gpt_loss and its gradients
+# --------------------------------------------------------------------------- #
+MODELS = {
+    "tiny": dict(vocab_size=300, n_positions=64, n_embd=32, n_layer=2, n_head=4),
+    "gpt2-width-2-layers": dict(vocab_size=1000, n_positions=32, n_embd=768, n_layer=2,
+                                n_head=12),
+}
+LOSS_RTOL, GRAD_TOL = 1e-5, 1e-4
+
+
+def jax_model(name, seed=0, scale=1.0, **kw):
+    cfg = jgpt.GPTConfig(dtype="float32", **MODELS[name], **kw)
+    params = jgpt.GPT(cfg).init_params(jax.random.PRNGKey(seed))
+    params = jax.tree.map(lambda a: np.asarray(a) * (scale if np.ndim(a) >= 2 else 1.0), params)
+    return cfg, params
+
+
+def batch(vocab, B, S, seed, gas=None):
+    rng = np.random.default_rng(seed)
+    shape = (B, S) if gas is None else (gas, B, S)
+    ids = rng.integers(0, vocab, shape).astype(np.int32)
+    return ids, np.roll(ids, -1, axis=-1)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_gpt_loss_and_every_grad_match_jax(monkeypatch, name, remat):
+    monkeypatch.setenv("DST_PALLAS_CE", "0")
+    B, S = 2, 32
+    jcfg, jparams = jax_model(name, remat=remat)
+    ids, labels = batch(jcfg.vocab_size, B, S, seed=3)
+    jloss, jgrads = jax.value_and_grad(
+        lambda p: jgpt.gpt_loss(jcfg, p, jnp.asarray(ids), jnp.asarray(labels)))(
+        jax.tree.map(jnp.asarray, jparams))
+    tcfg = tgpt.GPTConfig(dtype="float32", remat=remat, **MODELS[name])
+    model = tgpt.GPT(tcfg, device="cpu", state_dict=params_from_jax(jparams))
+    tree = model.param_tree()
+    for p in model.parameters():
+        p.requires_grad_(True)
+    loss = tgpt.gpt_loss(tcfg, tree, torch.from_numpy(ids), torch.from_numpy(labels))
+    loss.backward()
+    assert abs(float(loss.detach()) - float(jloss)) <= LOSS_RTOL * abs(float(jloss))
+    want = params_from_jax(jgrads)
+    got = dict(model.named_parameters())
+    assert set(want) == set(got)
+    for k, g in want.items():
+        np.testing.assert_allclose(got[k].grad.numpy(), g.numpy(), rtol=0,
+                                   atol=GRAD_TOL * float(g.abs().max()), err_msg=k)
+
+
+def test_gpt_forward_logits_match_the_inference_path():
+    """``gpt_forward`` without ``return_hidden`` gives the logits that
+    ``apply_with_cache`` (the inference path) gives on the same prompt."""
+    jcfg, jparams = jax_model("tiny", scale=4.0)
+    cfg = tgpt.GPTConfig(dtype="float32", **MODELS["tiny"])
+    model = tgpt.GPT(cfg, device="cpu", state_dict=params_from_jax(jparams))
+    ids = torch.from_numpy(batch(cfg.vocab_size, 2, 16, seed=4)[0])
+    logits = tgpt.gpt_forward(cfg, model.param_tree(), ids)
+    ref, _ = model.apply_with_cache(ids, model.init_cache(2, 16))
+    torch.testing.assert_close(logits, ref, rtol=0, atol=1e-4)
+
+
+def test_training_knobs_not_ported_raise():
+    cfg = tgpt.GPTConfig(dtype="float32", dropout=0.1, **MODELS["tiny"])
+    model = tgpt.GPT(cfg, device="cpu")
+    ids = torch.zeros(1, 8, dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match="dropout"):
+        model(model.param_tree(), (ids, ids))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tgpt.gpt_loss(cfg, model.param_tree(), ids, ids, train=False, pld_theta=0.5)
+
+
+# --------------------------------------------------------------------------- #
+# the engine against the JAX engine
+# --------------------------------------------------------------------------- #
+ENGINE_LR, CLIP, GAS, MICRO, SEQ, STEPS = 1e-3, 1.0, 2, 2, 16, 3
+
+
+def engine_config():
+    return {"train_micro_batch_size_per_gpu": MICRO, "gradient_accumulation_steps": GAS,
+            "optimizer": {"type": "AdamW", "params": {"lr": ENGINE_LR, "weight_decay": 0.01}},
+            "gradient_clipping": CLIP, "steps_per_print": 10 ** 9}
+
+
+def run_jax_engine(cfg, params, batches):
+    mesh = mesh_lib.MeshSpec(device_count=1).build(jax.devices()[:1])
+    try:
+        engine, _, _, _ = deepspeed_tpu.initialize(
+            model=jgpt.GPT(cfg), model_parameters=params, config=engine_config(), mesh=mesh)
+        assert engine._fused_opt_active()
+        losses, norms = [], []
+        for ids, labels in batches:
+            losses.append(float(engine.train_batch(batch=(ids, labels))))
+            norms.append(engine.get_global_grad_norm())
+        return losses, norms, engine.state.params, engine.state.opt_state
+    finally:
+        mesh_lib.reset_mesh()
+
+
+def test_engine_trajectory_matches_the_jax_engine(monkeypatch):
+    monkeypatch.setenv("DST_PALLAS_CE", "1")
+    monkeypatch.setenv("DST_PALLAS_FUSED_OPT", "1")
+    jcfg, jparams = jax_model("tiny", scale=4.0, scan_layers=True)
+    batches = [batch(jcfg.vocab_size, MICRO, SEQ, seed=20 + i, gas=GAS) for i in range(STEPS)]
+    jlosses, jnorms, jfinal, jstate = run_jax_engine(jcfg, jparams, batches)
+
+    model = tgpt.GPT(tgpt.GPTConfig(dtype="float32", **MODELS["tiny"]), device="cpu")
+    engine, optimizer, loader, sched = dst.initialize(
+        model=model, config=engine_config(), model_parameters=params_from_jax(jparams),
+        device="cpu")
+    assert optimizer is engine.optimizer and loader is None and sched is None
+    losses, norms = [], []
+    for ids, labels in batches:
+        loss = engine.train_batch(batch=(ids, labels))
+        assert loss.shape == () and loss.device.type == "cpu"
+        losses.append(float(loss))
+        norms.append(engine.get_global_grad_norm())
+    assert min(jnorms) > CLIP and min(norms) > CLIP     # the clip binds every step
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-5)
+    np.testing.assert_allclose(norms, jnorms, rtol=1e-5)
+    want = params_from_jax(jfinal)
+    got = dict(model.named_parameters())
+    E = jcfg.n_embd
+    for k, v in want.items():
+        diff = np.abs(got[k].detach().numpy() - v.numpy())
+        assert diff.max() <= 2 * ENGINE_LR * STEPS, k
+        if k.endswith("qkv_b"):
+            diff = np.concatenate([diff[:E], diff[2 * E:]])     # all but the key bias
+        assert diff.max() <= 2e-5, (k, diff.max())
+    jadam = adam_state_from_jax(jstate)
+    state = engine.optimizer.state_dict()
+    assert int(state["count"]) == jadam["count"] == STEPS
+    for key in ("mu", "nu"):
+        for k, v in jadam[key].items():
+            np.testing.assert_allclose(state[key][k].numpy(), v.numpy(), rtol=0,
+                                       atol=1e-4 * float(v.abs().max()), err_msg=f"{key} {k}")
+    assert engine.global_steps == STEPS and engine.micro_steps == STEPS * GAS
+
+
+def test_forward_backward_step_equals_train_batch():
+    """The micro-step API accumulates the same gradients and takes the same
+    step as ``train_batch`` (bit for bit on the CPU)."""
+    jcfg, jparams = jax_model("tiny", seed=5)
+    sd = params_from_jax(jparams)
+    ids, labels = batch(jcfg.vocab_size, MICRO, SEQ, seed=6, gas=GAS)
+    engines = []
+    for _ in range(2):
+        model = tgpt.GPT(tgpt.GPTConfig(dtype="float32", **MODELS["tiny"]), device="cpu")
+        engines.append(dst.initialize(model=model, config=engine_config(),
+                                      model_parameters=sd, device="cpu")[0])
+    fused = engines[0].train_batch(batch=(ids, labels))
+    micro = engines[1]
+    for i in range(GAS):
+        loss = micro.forward(ids[i], labels[i])
+        micro.backward(loss)
+        micro.step()
+        assert micro.global_steps == (1 if i == GAS - 1 else 0)
+    for (k, a), (_, b) in zip(engines[0].module.named_parameters(),
+                              micro.module.named_parameters()):
+        assert torch.equal(a, b), k
+    assert float(fused) > 0
+
+
+@pytest.mark.parametrize("config,item", [
+    ({"zero_optimization": {"stage": 1}}, "item 7"),
+    ({"zero_optimization": {"offload_optimizer": {"device": "cpu"}}}, "item 7"),
+    ({"fp16": {"enabled": True}}, "item 5"),
+    ({"optimizer": {"type": "Lamb"}}, "item 5"),
+    ({"stability": {"enabled": True}}, "item 8"),
+    ({"activation_checkpointing": {"partition_activations": True}}, "item 6"),
+    ({"activation_checkpointing": {"cpu_checkpointing": True}}, "item 7"),
+])
+def test_engine_rejects_what_is_not_ported(config, item):
+    model = tgpt.GPT(tgpt.GPTConfig(dtype="float32", **MODELS["tiny"]), device="cpu")
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1 {item}"):
+        dst.initialize(model=model, device="cpu",
+                       config=dict({"train_micro_batch_size_per_gpu": 1}, **config))
+
+
+def test_engine_schedule_feeds_the_kernel_lr_on_the_device_count():
+    model = tgpt.GPT(tgpt.GPTConfig(dtype="float32", **MODELS["tiny"]), device="cpu")
+    engine, _, _, sched = dst.initialize(model=model, device="cpu", config=dict(
+        engine_config(), scheduler={"type": "WarmupLR", "params": {
+            "warmup_num_steps": 4, "warmup_max_lr": 1e-3, "warmup_type": "linear"}}))
+    ids, labels = batch(300, MICRO, SEQ, seed=7, gas=GAS)
+    lrs = []
+    for _ in range(3):
+        lrs.append(engine.get_lr()[0])
+        engine.train_batch(batch=(ids, labels))
+    assert lrs == pytest.approx([0.0, 2.5e-4, 5e-4])
+    assert sched.last_batch_iteration == 2 and int(engine.optimizer.count) == 3
+
+
+# --------------------------------------------------------------------------- #
+# schedules, loss scaling, attention dispatch, throughput timer
+# --------------------------------------------------------------------------- #
+SCHEDULES = [
+    ("WarmupLR", dict(warmup_min_lr=1e-5, warmup_max_lr=1e-3, warmup_num_steps=20)),
+    ("WarmupLR", dict(warmup_max_lr=3e-4, warmup_num_steps=10, warmup_type="linear")),
+    ("WarmupDecayLR", dict(total_num_steps=40, warmup_max_lr=1e-3, warmup_num_steps=10)),
+    ("LRRangeTest", dict(lr_range_test_min_lr=1e-4, lr_range_test_step_size=7,
+                         lr_range_test_step_rate=2.0, lr_range_test_staircase=True)),
+    ("OneCycle", dict(cycle_min_lr=1e-5, cycle_max_lr=1e-3, cycle_first_step_size=10,
+                      decay_lr_rate=0.1, decay_step_size=5)),
+]
+
+
+@pytest.mark.parametrize("name,params", SCHEDULES, ids=[s[0] + str(i) for i, s in
+                                                         enumerate(SCHEDULES)])
+def test_lr_schedules_match_jax(name, params):
+    """fp32, steps 0..59; within 1 ulp (the log warmup's log is the CPU
+    math library's on one side and XLA's on the other)."""
+    jfn = jlr.get_lr_schedule(name, params).schedule_fn()
+    tfn = tlr.get_lr_schedule(name, params).schedule_fn()
+    steps = np.arange(60)
+    want = np.asarray([np.float32(jfn(s)) for s in steps])
+    got = np.asarray([tfn(int(s)).item() for s in steps], np.float32)
+    np.testing.assert_allclose(got, want, rtol=2 ** -23, atol=0)
+    sched = tlr.get_lr_schedule(name, params)
+    sched.step()
+    sched.step()
+    assert sched.get_lr() == [pytest.approx(float(want[1]), rel=1e-6)]
+
+
+SCALER_KW = [dict(initial_scale_power=4, loss_scale_window=3, hysteresis=2),
+             dict(initial_scale_power=3, loss_scale_window=2, hysteresis=1, min_loss_scale=4.0),
+             dict(initial_scale_power=4, loss_scale_window=3, hysteresis=2,
+                  consecutive_hysteresis=True),
+             dict(static_loss_scale=128.0)]
+OVERFLOWS = [False, False, True, False, True, True, False, False, False, True, False,
+             False, False, False, True, True, True]
+
+
+@pytest.mark.parametrize("kw", SCALER_KW, ids=[str(i) for i in range(len(SCALER_KW))])
+def test_update_scale_sequences_match_jax(kw):
+    js, ts = jls.create_loss_scaler(**kw), tls.create_loss_scaler(**kw)
+    update = jax.jit(jls.update_scale)
+    for i, ovf in enumerate(OVERFLOWS):
+        js = update(js, jnp.asarray(ovf))
+        ts = tls.update_scale(ts, torch.tensor(ovf))
+        for field in jls.LossScalerState._fields:
+            assert np.asarray(getattr(js, field)).item() == getattr(ts, field).item(), (i, field)
+
+
+def test_unit_scaler_is_static_one():
+    s = tls.unit_loss_scaler()
+    assert float(s.scale) == 1.0 and not bool(s.dynamic)
+    assert float(tls.update_scale(s, torch.tensor(True)).scale) == 1.0
+
+
+def test_auto_attention_uses_the_reference_on_the_cpu_above_256():
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 300, 2, 8)).astype(np.float32))
+               for _ in range(3))
+    ref = tattn.reference_attention(q, k, v, causal=True)
+    assert torch.equal(tattn.auto_attention(q, k, v, causal=True), ref)
+    assert torch.equal(tattn.get_attention_fn("flash")(q, k, v, causal=True), ref)
+    from deepspeed_tpu.ops import attention as jattn
+    want = jattn.reference_attention(*(jnp.asarray(t.numpy()) for t in (q, k, v)), causal=True)
+    np.testing.assert_allclose(ref.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tattn.get_attention_fn("ring")
+
+
+def test_throughput_timer_never_syncs_before_start_step():
+    syncs = []
+    timer = ThroughputTimer(batch_size=8, synchronize=lambda: syncs.append(1),
+                            start_step=10 ** 12, steps_per_output=2, logging_fn=lambda m: None)
+    for _ in range(5):
+        timer.start()
+        timer.stop(global_step=True)
+    assert not syncs and timer.avg_samples_per_sec() == 0.0
+    timer = ThroughputTimer(batch_size=8, synchronize=lambda: syncs.append(1),
+                            start_step=1, steps_per_output=2, logging_fn=lambda m: None)
+    for _ in range(5):
+        timer.start()
+        timer.stop(global_step=True)
+    assert len(syncs) == 3 and timer.avg_samples_per_sec() > 0
+
+
+# --------------------------------------------------------------------------- #
+# on the card
+# --------------------------------------------------------------------------- #
+@pytest.mark.cuda
+def test_cuda_flash_attention_raises_instead_of_the_reference():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    q = torch.zeros(1, 300, 2, 64, device="cuda")
+    with pytest.raises(NotImplementedError, match="Queue 2 rows 1-3"):
+        tattn.auto_attention(q, q, q, causal=True)
+    with pytest.raises(NotImplementedError, match="Queue 2 rows 1-3"):
+        tattn.flash_attention(q[:, :8], q[:, :8], q[:, :8], causal=True)

@@ -24,30 +24,38 @@ Phases, each printing its own lines; any failure exits non-zero:
    decode-step time, finite logits, and the first decode step's logits
    against the plain attention path;
 6. the training kernels against their plain versions at GPT-2's training
-   shape, fp32 and bf16: the cross-entropy forward, dx and dhead at N 2048
-   (micro 8 x seq 256), E 768, V 50304 (vocab 50257), and the fused AdamW
-   over all 148 GPT-2 leaves (123,886,080 values, bit for bit); times as
-   in phase 3, with ``x @ head^T`` + ``F.cross_entropy`` (and its autograd
-   backward) and ``torch._fused_adamw_`` as yardsticks.  The cross-entropy
-   kernels are held against the plain version with both products in fp32
-   (``fp32_products``; in bf16 only the roundings of ds and of the output
-   stay), at a logit spread where the softmax part of each gradient is
-   checked on its own (CE_* below);
+   shape, fp32 and bf16: the flash attention forward, dQ and dKV at the
+   path's shape (B 8, S 512, H 12, head_dim 64, causal) and at GPT-2 XL's
+   (H 25, S 1024, B 2), with GQA (Hkv 4), ALiBi, a per-head bias, a ragged
+   S 1000 and without the causal mask; the cross-entropy forward, dx and
+   dhead at N 4096 (micro 8 x seq 512), E 768, V 50304 (vocab 50257); and
+   the fused AdamW over all 148 GPT-2 leaves at n_positions 512
+   (124,082,688 values, bit for bit).  Times as in phase 3, with
+   ``scaled_dot_product_attention`` (forward; its autograd backward as one
+   call against dQ + dKV), ``x @ head^T`` + ``F.cross_entropy`` (and its
+   autograd backward) and ``torch._fused_adamw_`` as yardsticks.  The bf16
+   kernels are held against plain versions whose products are exact (the
+   flash plain versions always; the cross-entropy ones with
+   ``fp32_products``), at peaked scores (flash: score std 3; cross-entropy:
+   FLASH_* and CE_* below);
 7. training end to end in bf16: ``deepspeed_tpu_torch.initialize`` ->
-   ``train_batch`` with bench.py's headline config at seq 256 (micro 8,
-   AdamW lr 1e-4 wd 0.01, clip 1.0, remat, attn_impl "auto" -> reference
-   attention): 2 warm-up and 12 timed steps, median step ms, samples/s,
-   TFLOPs by bench.py's formula, a falling finite loss, and a
-   ``torch.profiler`` split of one step's device time;
-8. the same model in fp32 (TF32 off), 3 steps through the kernels and 3
+   ``train_batch`` with bench.py's headline config at seq 512 (micro 8,
+   AdamW lr 1e-4 wd 0.01, clip 1.0, remat, attn_impl "auto" -> flash): 2
+   warm-up and 12 timed steps, median step ms, samples/s, TFLOPs by
+   bench.py's formula, a falling finite loss, and a ``torch.profiler``
+   split of one step's device time; then 3 timed steps of the same config
+   at seq 256, where "auto" takes the reference attention;
+8. the seq-512 model in fp32 (TF32 off), 3 steps through the kernels and 3
    through the plain versions from the same seeded weights: losses and
    final parameters held to the tolerances stated at the top.
 
 Each run of phases 4-5 and 7-8 (generate(), each serve, the timed
 training steps, each fp32 training run) zeroes the launch counters just
 before it and reads them just after: its kernels must have launched (the
-training kernels exactly once per micro-step, AdamW once per step), no
-other kernel, and the plain versions never (phase 8's plain run excepted).
+flash kernels exactly once per layer per micro-step, the remat recompute
+reusing the saved o and lse; the cross-entropy kernels once per
+micro-step; AdamW once per step), no other kernel, and the plain versions
+never (phase 8's plain run excepted).
 The kernel table reports each kernel's count from the run that uses it.
 The last two lines are the kernel table (JSON) and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -89,14 +97,16 @@ CONTIGUOUS_CASES = [("contiguous-T1024", 8, 1, 1024, 1023),
                     ("generate-decode", 1, 1, 332, 200)]
 SERVE_CFG = {"block_size": BS, "max_batch_size": 8, "prefill_chunk": 64}
 
-# training: bench.py's headline config (bench.py:122-130) at seq 256, where
-# attn_impl="auto" takes the reference attention
-TRAIN_SEQ, TRAIN_MICRO, TRAIN_TIMED_STEPS = 256, 8, 12
+# training: bench.py's headline config (bench.py:122-130) at seq 512, where
+# attn_impl="auto" takes flash; a short run at seq 256 drives the reference
+TRAIN_SEQ, TRAIN_MICRO, TRAIN_TIMED_STEPS = 512, 8, 12
+SHORT_SEQ, SHORT_TIMED_STEPS = 256, 3
 TRAIN_CFG = {"train_micro_batch_size_per_gpu": TRAIN_MICRO, "gradient_accumulation_steps": 1,
              "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.01}},
              "zero_optimization": {"stage": 0}, "bf16": {"enabled": True},
              "gradient_clipping": 1.0, "steps_per_print": 10 ** 9}
-TRAIN_PARAMS = 123_886_080          # GPT-2 at n_positions 256: 148 leaves
+TRAIN_PARAMS = 124_082_688          # GPT-2 at n_positions 512: 148 leaves
+TRAIN_LAYERS = 12
 CE_SHAPE = (TRAIN_MICRO * TRAIN_SEQ, 768, 50304, 50257)     # N, E, V, vocab_size
 # cross-entropy inputs: x ~ N(0, 1), head ~ N(0, CE_HEAD_STD^2), so the
 # logits' std is 0.15 * sqrt(768) ~ 4.2 and a few columns dominate each
@@ -121,6 +131,31 @@ CE_HEAD_STD = 0.15
 CE_FWD_TOL = {"float32": 1e-5, "bfloat16": 1e-5}
 CE_GRAD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 CE_SOFTMAX_TOL = {"float32": 1e-5, "bfloat16": 2e-3}
+# flash attention cases: (B, S, H, Hkv, causal, bias, alibi); the path's
+# shape first.  q is drawn with std 3 (k, v, do std 1), so the scores
+# q.k * scale have std 3 and each row's softmax is peaked: a wrong p . v or
+# a wrong ds moves the outputs by far more than rounding does.
+FLASH_CASES = {
+    "gpt2-train": (8, 512, 12, 12, True, None, False),
+    "gpt2-xl": (2, 1024, 25, 25, True, None, False),
+    "gqa": (8, 512, 12, 4, True, None, False),
+    "alibi": (8, 512, 12, 12, True, None, True),
+    "bias": (8, 512, 12, 12, True, "per-head", False),
+    "ragged": (2, 1000, 12, 12, True, None, False),
+    "noncausal": (8, 512, 12, 12, False, None, False),
+}
+FLASH_Q_STD = 3.0
+# flash tolerances, kernel against the plain version (exact products) on
+# the same inputs, per output: max |err| / max |plain| and |err|_2 /
+# |plain|_2 (lse: |err| / max(1, |plain|)).  fp32: sums in another order.
+# bf16: both sides round p, ds and the outputs to bf16, from fp32 values
+# that differ by rounding noise, so an element parts by at most about one
+# bf16 ulp (2^-8 of its size) and the norm by far less.  The H100 read at
+# most 4.9e-3 (max) and 1.2e-3 (o) / 1.5e-4 (dq, dk, dv) in norm over these
+# cases; fp32 6e-7.  A wrong p . v or ds at these peaked scores is off by
+# a large fraction of the output's norm.
+FLASH_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 2e-3)}
+FLASH_LSE_TOL = 1e-5
 # fp32 kernel path vs plain path over 3 steps: score tiles sum in another
 # order, so gradients differ by rounding noise d (~1e-10 absolute).  Adam
 # moves an element by lr * m / (sqrt(v) + eps), so that noise moves a step
@@ -328,20 +363,23 @@ def check_identity(model, prompts, futs, refs, label) -> int:
 def kernel_modules():
     from deepspeed_tpu_torch.ops.cuda import cross_entropy as tce
     from deepspeed_tpu_torch.ops.cuda import decode_attention as da
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as tfa
     from deepspeed_tpu_torch.ops.cuda import fused_optim as tfo
-    return da, tce, tfo
+    return da, tce, tfo, tfa
 
 
 def read_counts():
     """(launches by kernel, calls by plain version)."""
-    da, tce, tfo = kernel_modules()
+    da, tce, tfo, tfa = kernel_modules()
     launches = {fn.__name__: fn.launches for fn in (
-        da.paged_attention, da.decode_attention, tce.ce_forward, tce.ce_backward_dx,
-        tce.ce_backward_dhead, tfo.fused_adam)}
+        da.paged_attention, da.decode_attention, tfa.flash_forward, tfa.flash_backward_dq,
+        tfa.flash_backward_dkv, tce.ce_forward, tce.ce_backward_dx, tce.ce_backward_dhead,
+        tfo.fused_adam)}
     plain = {fn.__name__: fn.calls for fn in (
         da.paged_attention_reference, da.decode_attention_reference,
-        tce.ce_forward_reference, tce.ce_backward_dx_reference,
-        tce.ce_backward_dhead_reference, tfo.adam_reference)}
+        tfa.flash_forward_reference, tfa.flash_backward_dq_reference,
+        tfa.flash_backward_dkv_reference, tce.ce_forward_reference,
+        tce.ce_backward_dx_reference, tce.ce_backward_dhead_reference, tfo.adam_reference)}
     return launches, plain
 
 
@@ -572,12 +610,162 @@ def ce_checks(name, dtype_name, out, ref, head, labels, gscale, vocab):
     return checks
 
 
-def ce_cases(device, flush, reps: int = 20, plain_reps: int = 5):
-    """The three cross-entropy kernels at GPT-2's training shape (N 2048 =
-    micro 8 x seq 256, E 768, V 50304, vocab 50257), fp32 and bf16."""
+def flash_inputs(case: str, dtype, device, seed: int = 2024):
+    """(q, k, v, do), bias, slopes, causal for one FLASH_CASES entry, drawn
+    on the card from a seeded generator."""
+    import torch
+    from deepspeed_tpu_torch.ops.attention import alibi_slopes
+    B, S, H, Hkv, causal, bias_kind, alibi = FLASH_CASES[case]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def randn(shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=device) * std
+    q = randn((B, S, H, 64), FLASH_Q_STD).to(dtype)
+    k, v = (randn((B, S, Hkv, 64)).to(dtype) for _ in range(2))
+    do = randn((B, S, H, 64)).to(dtype)
+    bias = randn((1, H, S, S), 0.5) if bias_kind == "per-head" else None
+    slopes = torch.from_numpy(alibi_slopes(H)).to(device) if alibi else None
+    return (q, k, v, do), bias, slopes, causal
+
+
+def flash_checks(pairs):
+    """(label, value, tolerance) for each named (kernel out, plain out)."""
+    checks, worst = [], 0.0
+    for name, got, want, dtype_name in pairs:
+        err = got.float() - want.float()
+        worst = max(worst, err.abs().max().item())
+        if name == "lse":
+            checks.append(("lse err/max(1,|plain|)",
+                           (err.abs() / want.abs().clamp(min=1.0)).max().item(), FLASH_LSE_TOL))
+            continue
+        max_tol, l2_tol = FLASH_TOL[dtype_name]
+        checks.append((f"{name} err/max|plain|",
+                       err.abs().max().item() / want.float().abs().max().item(), max_tol))
+        checks.append((f"{name} err_2/|plain|_2", (err.norm() / want.float().norm()).item(),
+                       l2_tol))
+    return checks, worst
+
+
+def flash_cases(device, flush, card: str, reps: int = 20, plain_reps: int = 5):
+    """The three flash kernels against their plain versions over
+    FLASH_CASES, fp32 and bf16, with ``scaled_dot_product_attention`` (and
+    its autograd backward, one call for dq, dk and dv) as the yardstick."""
     import torch
     import torch.nn.functional as F
-    _, tce, _ = kernel_modules()
+    tfa = kernel_modules()[3]
+
+    rows = []
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for case in FLASH_CASES:
+            B, S, H, Hkv, causal, _, _ = FLASH_CASES[case]
+            (q, k, v, do), bias, slopes, causal = flash_inputs(case, dtype, device)
+            scale = 1.0 / 8.0
+            args = (q, k, v)
+            extra = (bias, slopes, causal, scale)
+            o, lse = tfa.flash_forward(*args, *extra)
+            ro, rlse = tfa.flash_forward_reference(*args, *extra)
+            delta = (ro.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+            bargs = (q, k, v, do, rlse, delta) + extra
+            dq = tfa.flash_backward_dq(*bargs)
+            rdq = tfa.flash_backward_dq_reference(*bargs)
+            dk, dv = tfa.flash_backward_dkv(*bargs)
+            rdk, rdv = tfa.flash_backward_dkv_reference(*bargs)
+            torch.cuda.synchronize()
+            for t in (o, lse, dq, dk, dv):
+                if not torch.isfinite(t.float()).all():
+                    fail(f"flash {case} {dtype_name}: non-finite kernel output")
+            # yardstick: SDPA in its [B, H, S, D] layout, the bias or ALiBi
+            # (with the causal mask) as an additive mask in q's dtype
+            qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+            mask = None
+            if bias is not None or slopes is not None:
+                pos = torch.arange(S, device=device)
+                dist = (pos[None, :] - pos[:, None]).float()
+                mask = (bias if bias is not None
+                        else slopes[None, :, None, None] * dist[None, None])
+                if causal:
+                    mask = mask.masked_fill(dist > 0, float("-inf"))
+                mask = mask.to(dtype)
+
+            def sdpa(a, b, c):
+                return F.scaled_dot_product_attention(
+                    a, b, c, attn_mask=mask, is_causal=causal and mask is None, scale=scale,
+                    enable_gqa=Hkv != H)
+            fwd_lib = median_ms(lambda: sdpa(qt, kt, vt), reps, flush)
+            lib_in = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+            lib_out = sdpa(*lib_in)
+            bwd_lib = median_ms(lambda: torch.autograd.grad(lib_out, lib_in, dot,
+                                                            retain_graph=True), reps, flush)
+            del lib_out, lib_in
+            if case == "gpt2-train":
+                # what auto would run here without flash: JAX's reference
+                # attention in plain torch, forward and autograd backward
+                from deepspeed_tpu_torch.ops.attention import reference_attention
+                ref_in = [t.detach().requires_grad_() for t in (q, k, v)]
+                ref_fwd = median_ms(lambda: reference_attention(*ref_in, causal=True), reps,
+                                    flush)
+                ref_out = reference_attention(*ref_in, causal=True)
+                ref_bwd = median_ms(lambda: torch.autograd.grad(ref_out, ref_in, do,
+                                                                retain_graph=True),
+                                    reps, flush)
+                say(f"reference attention at the path's shape ({dtype_name}): forward "
+                    f"{ref_fwd:.4f} ms, backward {ref_bwd:.4f} ms (one autograd call) "
+                    f"[{card}]")
+                del ref_out, ref_in
+            esize = q.element_size()
+            n_q, n_kv, n_row = q.numel(), k.numel(), B * H * S
+            n_pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+            bias_bytes = bias.numel() * 4 if bias is not None else 0
+            specs = [
+                ("flash_forward", [("o", o, ro), ("lse", lse, rlse)],
+                 lambda: tfa.flash_forward(*args, *extra),
+                 lambda: tfa.flash_forward_reference(*args, *extra),
+                 (2 * n_q + 2 * n_kv) * esize + 4 * n_row + bias_bytes, 4.0 * 64 * n_pairs,
+                 fwd_lib, "library: scaled_dot_product_attention forward"),
+                ("flash_backward_dq", [("dq", dq, rdq)],
+                 lambda: tfa.flash_backward_dq(*bargs),
+                 lambda: tfa.flash_backward_dq_reference(*bargs),
+                 (3 * n_q + 2 * n_kv) * esize + 8 * n_row + bias_bytes, 6.0 * 64 * n_pairs,
+                 bwd_lib, "library: one SDPA autograd backward giving dq, dk and dv"),
+                ("flash_backward_dkv", [("dk", dk, rdk), ("dv", dv, rdv)],
+                 lambda: tfa.flash_backward_dkv(*bargs),
+                 lambda: tfa.flash_backward_dkv_reference(*bargs),
+                 (2 * n_q + 4 * n_kv) * esize + 8 * n_row + bias_bytes, 8.0 * 64 * n_pairs,
+                 bwd_lib, "library: the same SDPA backward"),
+            ]
+            for name, outs, kern, plain, nbytes, flops, lib, note in specs:
+                checks, worst = flash_checks([(o_name, got, want, dtype_name)
+                                              for o_name, got, want in outs])
+                b_ms, b_by = bound(nbytes, flops, dtype_name)
+                rows.append(dict(
+                    kernel=name, case=case, dtype=dtype_name, err=worst, scaled=worst,
+                    checks=checks, ms=median_ms(kern, reps, flush),
+                    plain_ms=median_ms(plain, plain_reps, flush), bound_ms=b_ms,
+                    bound_by=b_by, library_ms=lib, note=note))
+            del o, lse, ro, rlse, dq, rdq, dk, dv, rdk, rdv
+        report_rows(rows[-3 * len(FLASH_CASES):])
+    by = {(r["kernel"], r["case"], r["dtype"]): r for r in rows}
+    for dtype_name in ("float32", "bfloat16"):
+        fwd = by[("flash_forward", "gpt2-train", dtype_name)]
+        dq = by[("flash_backward_dq", "gpt2-train", dtype_name)]
+        dkv = by[("flash_backward_dkv", "gpt2-train", dtype_name)]
+        say(f"flash gpt2-train {dtype_name}: forward {fwd['ms']:.4f} ms vs SDPA forward "
+            f"{fwd['library_ms']:.4f}; dQ + dKV {dq['ms'] + dkv['ms']:.4f} ms vs one SDPA "
+            f"backward {dq['library_ms']:.4f} [{card}]")
+        ratios = {k: by[(k, "gpt2-train", dtype_name)]["ms"] / by[(k, "noncausal", dtype_name)]["ms"]
+                  for k in ("flash_forward", "flash_backward_dq", "flash_backward_dkv")}
+        say(f"flash causal / non-causal time ({dtype_name}, B 8, S 512): "
+            + ", ".join(f"{k} {r:.3f}" for k, r in ratios.items()))
+    return rows
+
+
+def ce_cases(device, flush, reps: int = 20, plain_reps: int = 5):
+    """The three cross-entropy kernels at GPT-2's training shape (N 4096 =
+    micro 8 x seq 512, E 768, V 50304, vocab 50257), fp32 and bf16."""
+    import torch
+    import torch.nn.functional as F
+    _, tce, _, _ = kernel_modules()
 
     N, E, V, vocab = CE_SHAPE
     rng = np.random.default_rng(4321)
@@ -642,13 +830,13 @@ def ce_cases(device, flush, reps: int = 20, plain_reps: int = 5):
 
 
 def adam_case(device, flush, reps: int = 20, plain_reps: int = 3):
-    """The fused AdamW kernel over all 148 GPT-2 leaves at seq 256 (fp32
+    """The fused AdamW kernel over all 148 GPT-2 leaves at seq 512 (fp32
     params, grads and moments, a mid-training state), bit for bit against
     the plain version; ``torch._fused_adamw_`` on the same leaves is the
     yardstick (the port never calls it)."""
     import torch
     from deepspeed_tpu_torch.models.gpt import gpt_config, init_gpt_params
-    _, _, tfo = kernel_modules()
+    _, _, tfo, _ = kernel_modules()
 
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
@@ -711,10 +899,10 @@ def train_engine(model, config, device):
     return engine
 
 
-def train_batch_of(vocab: int, device):
+def train_batch_of(vocab: int, device, seq: int = TRAIN_SEQ):
     import torch
     rng = np.random.default_rng(0)
-    ids = torch.from_numpy(rng.integers(0, vocab, (1, TRAIN_MICRO, TRAIN_SEQ))
+    ids = torch.from_numpy(rng.integers(0, vocab, (1, TRAIN_MICRO, seq))
                            .astype(np.int32)).to(device)
     return ids, ids
 
@@ -722,10 +910,12 @@ def train_batch_of(vocab: int, device):
 def profile_train_step(engine, batch, card: str):
     """One step's device time by category (torch.profiler), and the
     device's busy share of the step's wall time (profiling adds host time,
-    so the busy share reads low).  Kernels are attributed through the CPU op
-    that launched them: attention is everything under the reference
-    attention call (forward and its remat recompute) and under its
-    backward ops (bmm, softmax, mask)."""
+    so the busy share reads low).  The flash, cross-entropy and AdamW
+    kernels are named by their kernel names; other kernels are attributed
+    through the CPU op that launched them: "reference attention" is every
+    kernel under the attention call (forward and remat recompute) or under
+    the reference's backward ops (bmm, softmax, mask) -- at seq 512 only
+    what surrounds the flash op."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -734,7 +924,7 @@ def profile_train_step(engine, batch, card: str):
     inner = tattn._REGISTRY["auto"]
 
     def traced(*a, **k):
-        with record_function("reference_attention"):
+        with record_function("attention_call"):
             return inner(*a, **k)
     tattn._REGISTRY["auto"] = traced
     try:
@@ -751,17 +941,19 @@ def profile_train_step(engine, batch, card: str):
         # the range opened above also appears on the device's timeline (a
         # GPU user annotation spanning its kernels): not a kernel
         if (e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-                and e.key != "reference_attention"):
+                and e.key != "attention_call"):
             t, n = by_name.get(e.key, (0.0, 0))
             by_name[e.key] = (t + e.self_device_time_total, n + e.count)
     device_total = sum(t for t, _ in by_name.values())
     if not device_total:
         say("train profile: the profiler recorded no device time (not measured)")
         return None
-    attn_ops = ("reference_attention", "BmmBackward", "SoftmaxBackward", "WhereBackward")
+    attn_ops = ("attention_call", "BmmBackward", "SoftmaxBackward", "WhereBackward")
 
     def category(kernel: str) -> str:
         k = kernel.lower()
+        if "flash_fwd_kernel" in k or "flash_dq_kernel" in k or "flash_dkv_kernel" in k:
+            return "flash attention kernels"
         if "ce_fwd" in k or "ce_bwd" in k:
             return "cross-entropy kernels"
         if "adam_kernel" in k:
@@ -777,8 +969,8 @@ def profile_train_step(engine, batch, card: str):
             op = op.cpu_parent
         return False
     # kernels an aten op launched carry a link to it; those under the
-    # attention call (forward and remat recompute) or its backward ops move
-    # to "reference attention" (kernels launched through ctypes have no op)
+    # attention call (forward and remat recompute) or the reference's
+    # backward ops move to "reference attention"
     attn = {}
     for e in prof.events():
         if e.device_type == DeviceType.CPU and under_attention(e):
@@ -786,9 +978,10 @@ def profile_train_step(engine, batch, card: str):
                 attn[kern.name] = attn.get(kern.name, 0.0) + kern.duration
     split = {}
     for name, (t, _) in by_name.items():
-        a = min(attn.get(name, 0.0), t)
+        cat = category(name)
+        a = 0.0 if cat == "flash attention kernels" else min(attn.get(name, 0.0), t)
         split["reference attention"] = split.get("reference attention", 0.0) + a
-        split[category(name)] = split.get(category(name), 0.0) + t - a
+        split[cat] = split.get(cat, 0.0) + t - a
     say(f"train profile: one bf16 step, device busy {device_total / wall_us:.1%} of "
         f"{wall_us / 1e3:.2f} ms wall ({device_total / 1e3:.3f} ms device, "
         f"{sum(n for _, n in by_name.values())} kernels) [{card}]")
@@ -801,16 +994,20 @@ def profile_train_step(engine, batch, card: str):
             "split_ms": {k: v / 1e3 for k, v in split.items()}}
 
 
-def phase_train_bf16(device, card: str, timed: int = TRAIN_TIMED_STEPS):
-    """GPT-2 at seq 256 through initialize() -> train_batch, bench.py's
-    headline config: warm-up, timed steps, a profiled step."""
+def phase_train_bf16(device, card: str, seq: int = TRAIN_SEQ, timed: int = TRAIN_TIMED_STEPS,
+                     profiled: bool = True):
+    """GPT-2 at ``seq`` through initialize() -> train_batch, bench.py's
+    headline config: warm-up, timed steps, a profiled step.  Above 256
+    tokens the attention is flash: its three kernels launch once per layer
+    per step; at 256 and below it is the reference and they never do."""
     import torch
     from deepspeed_tpu_torch.models.gpt import GPT, gpt_config
+    from deepspeed_tpu_torch.ops.attention import XLA_FUSED_MAX_SEQ
 
-    cfg = gpt_config("gpt2", n_positions=TRAIN_SEQ, remat=True)
+    cfg = gpt_config("gpt2", n_positions=seq, remat=True)
     model = GPT(cfg, device=device, seed=0)
     engine = train_engine(model, TRAIN_CFG, device)
-    batch = train_batch_of(cfg.vocab_size, device)
+    batch = train_batch_of(cfg.vocab_size, device, seq)
     losses = [engine.train_batch(batch=batch) for _ in range(2)]      # warm-up
     torch.cuda.synchronize()
     step_ms, host_ms = [], []
@@ -822,9 +1019,12 @@ def phase_train_bf16(device, card: str, timed: int = TRAIN_TIMED_STEPS):
             host_ms.append((time.perf_counter() - t0) * 1e3)    # the host has queued the step
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
-    _, counts = counted(f"bf16 train ({timed} steps)", {
-        "ce_forward": timed, "ce_backward_dx": timed, "ce_backward_dhead": timed,
-        "fused_adam": timed}, run)
+    flash = cfg.n_layer * timed if seq > XLA_FUSED_MAX_SEQ else 0
+    expect = {"ce_forward": timed, "ce_backward_dx": timed, "ce_backward_dhead": timed,
+              "fused_adam": timed}
+    if flash:
+        expect.update(flash_forward=flash, flash_backward_dq=flash, flash_backward_dkv=flash)
+    _, counts = counted(f"bf16 train seq {seq} ({timed} steps)", expect, run)
     vals = [float(v) for v in losses]
     if not all(np.isfinite(vals)):
         fail(f"bf16 train: non-finite loss {vals}")
@@ -832,13 +1032,13 @@ def phase_train_bf16(device, card: str, timed: int = TRAIN_TIMED_STEPS):
         fail(f"bf16 train: the loss did not fall ({vals[0]:.4f} -> {vals[-1]:.4f})")
     med = statistics.median(step_ms)
     samples_s = TRAIN_MICRO / (med / 1e3)
-    tflops = samples_s * TRAIN_SEQ * model.flops_per_token(TRAIN_SEQ) / 1e12
-    say(f"bf16 train: gpt2 seq {TRAIN_SEQ} micro {TRAIN_MICRO}, {model.num_params():,} params; "
+    tflops = samples_s * seq * model.flops_per_token(seq) / 1e12
+    say(f"bf16 train: gpt2 seq {seq} micro {TRAIN_MICRO}, {model.num_params():,} params; "
         f"loss {vals[0]:.4f} -> {vals[-1]:.4f} over {len(vals)} steps; median step "
         f"{med:.3f} ms (min {min(step_ms):.3f}, max {max(step_ms):.3f}), of which the "
         f"host takes a median {statistics.median(host_ms):.3f} ms to queue it; "
         f"{samples_s:.2f} samples/s; {tflops:.2f} TFLOPs [{card}]")
-    prof = profile_train_step(engine, batch, card)
+    prof = profile_train_step(engine, batch, card) if profiled else None
     if prof is not None:
         say(f"train: device busy {prof['device_ms'] / med:.1%} of the median un-profiled "
             f"step ({prof['device_ms']:.3f} ms device / {med:.3f} ms)")
@@ -847,14 +1047,15 @@ def phase_train_bf16(device, card: str, timed: int = TRAIN_TIMED_STEPS):
 
 
 def phase_train_fp32_parity(device, steps: int = 3):
-    """GPT-2 at full width and depth in fp32 (TF32 off): ``steps``
-    train_batch steps through the kernels, then through the plain versions
+    """GPT-2 at seq 512, full width and depth, in fp32 (TF32 off): ``steps``
+    train_batch steps through the seven training kernels, then through
+    their plain versions
     (patched in where the engine calls the kernels), from the same seeded
     weights.  The plain path's only use on the card."""
     import torch
     from deepspeed_tpu_torch.models.gpt import GPT, gpt_config
     from deepspeed_tpu_torch.runtime import optimizers
-    _, tce, tfo = kernel_modules()
+    _, tce, tfo, tfa = kernel_modules()
 
     cfg = gpt_config("gpt2", n_positions=TRAIN_SEQ, remat=True, dtype="float32")
     config = {k: v for k, v in TRAIN_CFG.items() if k != "bf16"}
@@ -867,24 +1068,29 @@ def phase_train_fp32_parity(device, steps: int = 3):
         names = [n for n, _ in model.named_parameters()]
         return losses, dict(zip(names, [p.detach().clone() for p in model.parameters()]))
 
-    n = steps
+    n, nf = steps, steps * cfg.n_layer
     (k_losses, k_params), k_counts = counted("fp32 train, kernels", {
+        "flash_forward": nf, "flash_backward_dq": nf, "flash_backward_dkv": nf,
         "ce_forward": n, "ce_backward_dx": n, "ce_backward_dhead": n, "fused_adam": n},
         run_path)
-    saved = (tce.ce_forward, tce.ce_backward_dx, tce.ce_backward_dhead, optimizers.fused_adam)
+    saved = (tfa.flash_forward, tfa.flash_backward_dq, tfa.flash_backward_dkv, tce.ce_forward,
+             tce.ce_backward_dx, tce.ce_backward_dhead, optimizers.fused_adam)
+    tfa.flash_forward = tfa.flash_forward_reference
+    tfa.flash_backward_dq = tfa.flash_backward_dq_reference
+    tfa.flash_backward_dkv = tfa.flash_backward_dkv_reference
     tce.ce_forward = tce.ce_forward_reference
     tce.ce_backward_dx = tce.ce_backward_dx_reference
     tce.ce_backward_dhead = tce.ce_backward_dhead_reference
     optimizers.fused_adam = lambda table, scal, **kw: tfo.adam_reference(*table.leaves, scal,
                                                                         **kw)
     try:
-        tfo.reset_counts()
-        tce.reset_counts()
+        for mod in kernel_modules():
+            mod.reset_counts()
         p_losses, p_params = run_path()
         _, plain = read_counts()
     finally:
-        (tce.ce_forward, tce.ce_backward_dx, tce.ce_backward_dhead,
-         optimizers.fused_adam) = saved
+        (tfa.flash_forward, tfa.flash_backward_dq, tfa.flash_backward_dkv, tce.ce_forward,
+         tce.ce_backward_dx, tce.ce_backward_dhead, optimizers.fused_adam) = saved
     say(f"fp32 train, plain versions: plain calls {json.dumps(plain)}")
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(k_losses, p_losses))
     worst, worst_key, diff_sq, norm_sq = 0.0, "", 0.0, 0.0
@@ -899,9 +1105,12 @@ def phase_train_fp32_parity(device, steps: int = 3):
         f"{p_losses} (max rel diff {loss_rel:.3e}, tol {TRAIN_LOSS_RTOL:g}); params max abs "
         f"diff {worst:.3e} in {worst_key} (tol {TRAIN_PARAM_ATOL:g}), relative L2 "
         f"diff {rel_l2:.3e} (tol {TRAIN_PARAM_REL_L2:g})")
-    if any(plain[k] != n for k in ("ce_forward_reference", "ce_backward_dx_reference",
-                                   "ce_backward_dhead_reference", "adam_reference")):
-        fail(f"fp32 train, plain versions: expected {n} calls of each, got {plain}")
+    want_plain = {"flash_forward_reference": nf, "flash_backward_dq_reference": nf,
+                  "flash_backward_dkv_reference": nf, "ce_forward_reference": n,
+                  "ce_backward_dx_reference": n, "ce_backward_dhead_reference": n,
+                  "adam_reference": n}
+    if any(plain[k] != want for k, want in want_plain.items()):
+        fail(f"fp32 train, plain versions: expected {want_plain}, got {plain}")
     if not loss_rel <= TRAIN_LOSS_RTOL:
         fail(f"fp32 train: kernel and plain losses differ by {loss_rel:.3e}")
     if not (worst <= TRAIN_PARAM_ATOL and rel_l2 <= TRAIN_PARAM_REL_L2):
@@ -951,8 +1160,8 @@ def main() -> int:
     for line in res.log.splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             say(f"  ptxas: {line.strip()}")
-    say("kernels: paged_attention, decode_attention, ce_forward, ce_backward_dx, "
-        "ce_backward_dhead, fused_adam")
+    say("kernels: paged_attention, decode_attention, flash_forward, flash_backward_dq, "
+        "flash_backward_dkv, ce_forward, ce_backward_dx, ce_backward_dhead, fused_adam")
 
     # ---- 3. kernels against their plain versions ----------------------------- #
     scratch = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)
@@ -991,6 +1200,8 @@ def main() -> int:
 
     # ---- 6. training kernels against their plain versions -------------------- #
     scratch = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)
+    flash_rows = flash_cases(device, scratch.zero_, card)
+    torch.cuda.empty_cache()
     train_rows = ce_cases(device, flush=scratch.zero_) + adam_case(device, flush=scratch.zero_)
     report_rows(train_rows)
     del scratch
@@ -999,21 +1210,28 @@ def main() -> int:
     # ---- 7. training end to end, bf16 ------------------------------------------- #
     train = phase_train_bf16(device, card)
     torch.cuda.empty_cache()
+    short = phase_train_bf16(device, card, seq=SHORT_SEQ, timed=SHORT_TIMED_STEPS,
+                             profiled=False)
+    torch.cuda.empty_cache()
 
     # ---- 8. kernel path against the plain path, fp32 ----------------------------- #
     parity = phase_train_fp32_parity(device)
-    say(f"summary: bf16 train {train['step_ms']:.3f} ms/step, "
-        f"{train['samples_per_s']:.2f} samples/s, {train['tflops']:.2f} TFLOPs; fp32 "
-        f"kernel-vs-plain loss rel diff {parity['loss_rel']:.3e} [{card}]")
+    say(f"summary: bf16 train seq {TRAIN_SEQ} {train['step_ms']:.3f} ms/step, "
+        f"{train['samples_per_s']:.2f} samples/s, {train['tflops']:.2f} TFLOPs (seq "
+        f"{SHORT_SEQ}: {short['step_ms']:.3f} ms/step); fp32 kernel-vs-plain loss rel diff "
+        f"{parity['loss_rel']:.3e} [{card}]")
 
     # ---- report ------------------------------------------------------------------ #
     # each kernel's row: its case at the shape and dtype of the run that
     # launches it, and that run's launch count: the bf16 serve for the paged
-    # kernel, the fp32 generate() for the contiguous one, the bf16 training
-    # run for the cross-entropy and AdamW kernels
+    # kernel, the fp32 generate() for the contiguous one, the seq-512 bf16
+    # training run for the flash, cross-entropy and AdamW kernels
     main_case = {"paged_attention": ("paged-decode", "bfloat16", bf16["counts"]),
                  "decode_attention": ("generate-decode", "float32",
                                       fp32["generate"]["counts"]),
+                 "flash_forward": ("gpt2-train", "bfloat16", train["counts"]),
+                 "flash_backward_dq": ("gpt2-train", "bfloat16", train["counts"]),
+                 "flash_backward_dkv": ("gpt2-train", "bfloat16", train["counts"]),
                  "ce_forward": ("gpt2-train", "bfloat16", train["counts"]),
                  "ce_backward_dx": ("gpt2-train", "bfloat16", train["counts"]),
                  "ce_backward_dhead": ("gpt2-train", "bfloat16", train["counts"]),
@@ -1021,20 +1239,26 @@ def main() -> int:
     csrc = "deepspeed_tpu_torch/ops/cuda/csrc/"
     source = {"paged_attention": csrc + "decode_attention.cu",
               "decode_attention": csrc + "decode_attention.cu",
+              "flash_forward": csrc + "flash_attention.cu",
+              "flash_backward_dq": csrc + "flash_attention.cu",
+              "flash_backward_dkv": csrc + "flash_attention.cu",
               "ce_forward": csrc + "cross_entropy.cu",
               "ce_backward_dx": csrc + "cross_entropy.cu",
               "ce_backward_dhead": csrc + "cross_entropy.cu",
               "fused_adam": csrc + "fused_optim.cu"}
     replaces = {"paged_attention": "deepspeed_tpu/ops/pallas/decode_attention.py:230",
                 "decode_attention": "deepspeed_tpu/ops/pallas/decode_attention.py:78",
+                "flash_forward": "deepspeed_tpu/ops/pallas/flash_attention.py:154",
+                "flash_backward_dq": "deepspeed_tpu/ops/pallas/flash_attention.py:249",
+                "flash_backward_dkv": "deepspeed_tpu/ops/pallas/flash_attention.py:293",
                 "ce_forward": "deepspeed_tpu/ops/pallas/cross_entropy.py:92",
                 "ce_backward_dx": "deepspeed_tpu/ops/pallas/cross_entropy.py:182",
                 "ce_backward_dhead": "deepspeed_tpu/ops/pallas/cross_entropy.py:205",
                 "fused_adam": "deepspeed_tpu/ops/pallas/fused_optim.py:139"}
     table = []
     for name, (case, dt, counts) in main_case.items():
-        r = next(r for r in rows + train_rows if r["kernel"] == name and r["case"] == case
-                 and r["dtype"] == dt)
+        r = next(r for r in rows + flash_rows + train_rows
+                 if r["kernel"] == name and r["case"] == case and r["dtype"] == dt)
         table.append({"name": name, "route": "cuda", "source": source[name],
                       "replaces": replaces[name], "launches": counts[name],
                       "max_abs_err": r["err"], "ms": r["ms"],

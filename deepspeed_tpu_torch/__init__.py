@@ -2,7 +2,8 @@
 
 Counterpart of ``deepspeed_tpu/__init__.py``.  Two slices so far: training
 (``initialize`` -> ``DeepSpeedEngine.train_batch``, GPT-2 at ZeRO-0 on one
-device, with the hand-written cross-entropy and fused AdamW kernels) and
+device, with the hand-written flash attention, cross-entropy and fused
+AdamW kernels; flash runs on the card above 256 tokens) and
 serving (``init_serving`` / ``ServingEngine`` over the paged KV arena, with
 the decode-attention kernels).  ``init_inference`` comes in a later slice
 (ROADMAP.md).  Entry points run on the current CUDA device unless the

@@ -18,8 +18,11 @@ port writes into the cache tensor in place (no second cache in memory).
 Plain large products (qkv, out, fc, proj), layernorm, gelu, the embedding
 gather and the argmax are PyTorch calls.  Attention goes through the CUDA
 kernels of ``ops/cuda/decode_attention.py`` when decoding and through
-``ops/attention.py`` when training; the training loss goes through the
-fused cross-entropy kernels of ``ops/cuda/cross_entropy.py`` on the card.
+``ops/attention.py`` when training (the reference up to 256 tokens, the
+flash kernels of ``ops/cuda/flash_attention.py`` above, fed the
+``[B, S, H, D]`` views of the qkv product without copies); the training
+loss goes through the fused cross-entropy kernels of
+``ops/cuda/cross_entropy.py`` on the card.
 Config knobs of the other GPT families (rope, alibi, rmsnorm, swiglu, GQA,
 parallel blocks, MoE, untied heads) and training knobs not ported yet
 (random-LTD, activation quantization, dropout, progressive layer drop)
@@ -290,8 +293,8 @@ def gpt_forward(cfg: GPTConfig, params: Dict, input_ids: torch.Tensor,
                 pld_theta=None, return_hidden: bool = False) -> torch.Tensor:
     """Logits ``[B, S, padded_vocab]`` fp32, or with ``return_hidden`` the
     final-layernorm hidden ``[B, S, E]`` that the training loss takes.  With
-    ``cfg.remat`` each block keeps only its input and re-runs in the
-    backward pass."""
+    ``cfg.remat`` each block keeps its input and the flash op's o and lse,
+    and re-runs the rest in the backward pass (JAX's checkpoint policy)."""
     if pld_theta is not None:
         raise NotImplementedError(f"progressive layer drop is not ported yet ({TRAINING})")
     if train and cfg.dropout:

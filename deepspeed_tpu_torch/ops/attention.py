@@ -6,23 +6,27 @@ Every implementation has the JAX package's signature and layout::
     fn(q, k, v, *, causal: bool, bias=None, alibi=None) -> out
     # [batch, seq, heads, head_dim]; k/v may carry fewer heads (GQA)
 
+``bias`` is broadcastable to ``[B, H, S, Sk]`` (rank 2 and 3 right-aligned
+by ``canonical_bias``), ``alibi`` the per-head slopes ``[H]``; both are
+constants under differentiation on every path.
+
 * ``reference_attention``: plain torch ops in the JAX op order (fp32
   logits, ``-1e30`` causal mask, probabilities cast to q's dtype).  It is
   what JAX runs outside any Pallas kernel, so it is not written as
   ``scaled_dot_product_attention``.
-* ``flash_attention``: the Pallas kernel's port is not written yet
-  (ROADMAP.md, Queue 2 rows 1-3).  On CUDA it raises; on the CPU it runs
-  the reference, as the JAX package does off the TPU.
-* ``auto_attention``: the reference up to ``XLA_FUSED_MAX_SEQ`` tokens,
-  flash above.
+* ``flash_attention``: ``ops/cuda/flash_attention.py``, on both devices:
+  the hand-written forward, dQ and dKV kernels on the card, their plain
+  versions on the CPU.
+* ``auto_attention``: the reference up to ``XLA_FUSED_MAX_SEQ`` tokens
+  (the JAX package's switch point, kept as it is), flash above.
 """
 
 import math
 from typing import Callable
 
+import numpy as np
 import torch
 
-FLASH = "ROADMAP.md, Queue 2 rows 1-3 (flash attention)"
 SEQUENCE_PARALLEL = "ROADMAP.md, Queue 1 item 9 (sequence parallel attention)"
 
 # the JAX package's switch point between dense and flash attention
@@ -39,6 +43,18 @@ def expand_kv_heads(q, k, v):
     return k.repeat_interleave(H // Hkv, dim=2), v.repeat_interleave(H // Hkv, dim=2)
 
 
+def canonical_bias(bias):
+    """Right-align a logit bias to rank 4 (``[B|1, H|1, q, k]``); the
+    contract admits rank 2 and 3."""
+    if bias is None:
+        return None
+    if bias.dim() > 4:
+        raise ValueError(f"bias rank {bias.dim()} > 4")
+    while bias.dim() < 4:
+        bias = bias[None]
+    return bias
+
+
 def reference_attention(q, k, v, *, causal: bool = True, bias=None, alibi=None):
     """Multi-head attention with fp32 softmax.  ``bias`` (broadcastable to
     ``[B, H, S, Sk]``) and ``alibi`` (per-head slopes) are constants under
@@ -50,7 +66,7 @@ def reference_attention(q, k, v, *, causal: bool = True, bias=None, alibi=None):
     if bias is not None:
         logits = logits + bias.detach().float()
     if alibi is not None:
-        slopes = alibi.detach().float()
+        slopes = torch.as_tensor(alibi).detach().to(q.device, torch.float32)
         dist = (torch.arange(Sk, device=q.device)[None, :]
                 - torch.arange(S, device=q.device)[:, None]).float()
         logits = logits + slopes[None, :, None, None] * dist[None, None]
@@ -62,12 +78,10 @@ def reference_attention(q, k, v, *, causal: bool = True, bias=None, alibi=None):
 
 
 def flash_attention(q, k, v, *, causal: bool = True, bias=None, alibi=None):
-    """Flash attention: not ported to CUDA yet; the reference on the CPU."""
-    if q.device.type != "cpu":
-        raise NotImplementedError(
-            f"flash_attention has no CUDA kernel yet ({FLASH}); sequences up to "
-            f"{XLA_FUSED_MAX_SEQ} tokens take the reference path under attn_impl='auto'")
-    return reference_attention(q, k, v, causal=causal, bias=bias, alibi=alibi)
+    """Flash attention: the CUDA kernels on the card, their plain versions
+    on the CPU (``ops/cuda/flash_attention.py``)."""
+    from deepspeed_tpu_torch.ops.cuda.flash_attention import flash_attention as fa
+    return fa(q, k, v, causal=causal, bias=bias, alibi=alibi)
 
 
 def auto_attention(q, k, v, *, causal: bool = True, bias=None, alibi=None):
@@ -75,6 +89,29 @@ def auto_attention(q, k, v, *, causal: bool = True, bias=None, alibi=None):
     if q.shape[1] <= XLA_FUSED_MAX_SEQ:
         return reference_attention(q, k, v, causal=causal, bias=bias, alibi=alibi)
     return flash_attention(q, k, v, causal=causal, bias=bias, alibi=alibi)
+
+
+def alibi_slopes(num_heads: int) -> np.ndarray:
+    """Per-head ALiBi slopes (BLOOM; the paper's geometric sequence)."""
+    def pow2_slopes(n):
+        start = 2.0 ** (-(2.0 ** -(np.log2(n) - 3)))
+        return [start * (start ** i) for i in range(n)]
+
+    if np.log2(num_heads).is_integer():
+        return np.asarray(pow2_slopes(num_heads), np.float32)
+    closest = 2 ** int(np.floor(np.log2(num_heads)))
+    extra = pow2_slopes(2 * closest)[0::2][:num_heads - closest]
+    return np.asarray(pow2_slopes(closest) + extra, np.float32)
+
+
+def alibi_bias(num_heads: int, q_len: int, k_len: int, q_offset: int = 0,
+               device=None) -> torch.Tensor:
+    """``[1, H, q, k]`` additive ALiBi bias: ``slope_h * (k_pos - q_pos)``."""
+    slopes = torch.from_numpy(alibi_slopes(num_heads)).to(device)
+    qpos = q_offset + torch.arange(q_len, device=device)[:, None]
+    kpos = torch.arange(k_len, device=device)[None, :]
+    dist = (kpos - qpos).float()                  # <= 0 in the causal past
+    return (slopes[:, None, None] * dist)[None]
 
 
 _REGISTRY = {

@@ -141,6 +141,16 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dst_fused_adam.argtypes = [vp, ci, vp, vp, ci, vp,
                                    cf, cf, cf, cf, cf, cf, ci, vp]
     lib.dst_fused_adam.restype = ci
+    strides = ctypes.POINTER(ctypes.c_longlong)
+    lib.dst_flash_forward.argtypes = [vp, vp, vp, vp, vp, vp, vp, strides,
+                                      ci, ci, ci, ci, cf, ci, ci, vp]
+    lib.dst_flash_forward.restype = ci
+    lib.dst_flash_backward_dq.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, strides,
+                                          ci, ci, ci, ci, cf, ci, ci, vp]
+    lib.dst_flash_backward_dq.restype = ci
+    lib.dst_flash_backward_dkv.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, strides,
+                                           ci, ci, ci, ci, cf, ci, ci, vp]
+    lib.dst_flash_backward_dkv.restype = ci
     lib.dst_fused_adam_chunk.argtypes = []
     lib.dst_fused_adam_chunk.restype = ci
     lib.dst_error_string.argtypes = [ci]

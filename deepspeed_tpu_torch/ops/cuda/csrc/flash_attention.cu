@@ -1,0 +1,630 @@
+// Flash attention for Hopper (sm_90a): the forward, dQ and dKV kernels.
+//
+// Replaces ops/pallas/flash_attention.py:_fwd_kernel, :_bwd_dq_kernel and
+// :_bwd_dkv_kernel of the JAX package.  Per (batch b, query head h, kv head
+// hk = h / group), with s = q . k^T * scale in fp32, plus an optional dense
+// fp32 bias and ALiBi slope_h * (key - query), causal columns past the row
+// masked:
+//     forward: o = softmax(s) . v,  lse = m + log(l)  (online softmax)
+//     dQ:      dq = ds . k
+//     dKV:     dk = sum over the group's heads of ds^T . q,  dv = sum p^T . do
+// where p = exp(s - lse) and ds = p * (dp - delta) * scale with
+// dp = do . v^T and delta = rowsum(do * o) (computed outside, as in JAX).
+// Rounding as JAX's kernels: products accumulate in fp32; p is rounded to
+// v's (and do's) dtype before p . v and p^T . do, ds to the input dtype
+// before ds . k and ds^T . q; o, dq, dk, dv are written in the input dtype.
+//
+// Bound: at GPT-2's training shape (B 8, S 512, H 12, D 64, bf16, causal)
+// the forward moves 25 MB and does 3.2 GFLOP: about 7.6 us of memory time
+// against 3.3 us of tensor-core time, so bytes bind; dQ and dKV do two to
+// three times the products over a few more tensors and sit near the same
+// line.  What a simple kernel does about it: each input tile is read from
+// device memory once per block that needs it, scores and probabilities never
+// leave registers, and fully masked key tiles are skipped.
+//
+// Design (simple and right first; wgmma, TMA and warp specialisation are
+// later work):
+// * One block of 4 warps per 64-row tile: query rows for the forward and dQ
+//   (grid: query tiles x heads x batch), key rows for dKV (grid: key tiles
+//   x kv heads x batch).  Each warp owns 16 of the rows.
+// * bf16 products use mma.sync m16n8k16 (fp32 accumulate) with fragments
+//   read straight from shared memory; the score tile stays in the mma
+//   accumulator layout (thread: rows g and g + 8, columns 2t and 2t + 1 of
+//   each 8-column slice), which is also the A-operand layout of the next
+//   product, so p and ds go to the tensor cores from registers.  fp32 uses
+//   fp32 FMA in the same register layout (no TF32), p and ds passed between
+//   the four threads of a row group by shuffles.
+// * The streamed tiles (K and V in the forward and dQ; Q, dO, lse, delta in
+//   dKV) are double-buffered in shared memory with cp.async: the next tile
+//   is in flight while the current one is used.
+// * The online softmax keeps m, l and the accumulator in fp32 registers; m
+//   starts at JAX's -1e30, so a row whose every column a bias sets to -1e30
+//   averages uniformly as JAX's does; out-of-range and causally masked
+//   columns are -inf, exactly zero weight, never 0/0 (l = 0 gives o = 0).
+// * Causal: the forward and dQ walk key tiles 0..q tile, dKV walks query
+//   tiles from the key tile on; only the diagonal tile is masked by value.
+// * GQA: the forward and dQ read kv head h / group; dKV loops over the
+//   group's query heads inside one block, so grouped K/V are never expanded
+//   and dK/dV are summed in a fixed order with no atomics.
+// * Inputs are read by strides ([B, S, H, D] views, e.g. of the model's qkv
+//   product), head_dim contiguous; outputs are written contiguous.  Rows past
+//   S are zero-filled in shared memory and never written.  head_dim 64 only.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kD = 64;                  // head_dim the kernels are compiled for
+constexpr int kTile = 64;               // rows of a query or key tile
+constexpr int kWarps = 4;               // 16 rows each
+constexpr int kThreads = 32 * kWarps;
+constexpr float kNegInf = -1e30f;       // JAX's NEG_INF: where the running max starts
+constexpr unsigned kFull = 0xffffffffu;
+
+template <typename T> struct Tr;
+template <> struct Tr<bf16> { static constexpr int kLd = kD + 8; };    // 144-byte rows
+template <> struct Tr<float> { static constexpr int kLd = kD + 4; };   // 272-byte rows
+
+template <typename T> constexpr int kTileElems = kTile * Tr<T>::kLd;
+
+struct Params {
+  const void* q; const void* k; const void* v; const void* dout;
+  const float* bias; const float* slopes; const float* lse_in; const float* delta;
+  void* o; float* lse; void* dq; void* dk; void* dv;
+  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh;
+  long long b_sb, b_sh, b_sq, b_sk;   // bias strides (0 where it broadcasts)
+  int S, H, Hkv, group, causal;
+  float scale;
+};
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// 16 bytes global -> shared without a register round trip; an invalid
+// source fills zeros (and reads nothing).
+__device__ __forceinline__ void copy16_async(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void commit_copies() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// dst[r][0 : kD) = src[(row0 + r) * ss + 0 : kD) for r < kTile; rows at or
+// past S are zeros.  Asynchronous: commit, wait and a barrier before reading.
+template <typename T>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, long long ss, int row0, int S) {
+  constexpr int kElems = 16 / sizeof(T);
+  constexpr int kChunks = kD / kElems;                     // 16-byte chunks per row
+  constexpr int kPer = kTile * kChunks / kThreads;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int c = threadIdx.x + i * kThreads;
+    const int r = c / kChunks, col = (c % kChunks) * kElems;
+    const bool valid = row0 + r < S;
+    copy16_async(dst + r * Tr<T>::kLd + col, valid ? src + (row0 + r) * ss + col : src, valid);
+  }
+}
+
+// --------------------------------------------------------------------------
+// products.  A 16 x 64 fp32 tile of a warp lives in registers as c[8][4]:
+// c[j][i] is row g + 8 * (i >> 1), column 8 j + 2 t + (i & 1), where
+// g = lane / 4 and t = lane % 4 (the mma.m16n8k16 accumulator layout).
+// --------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+__device__ __forceinline__ uint32_t pack_raw(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+__device__ __forceinline__ uint32_t pack_rn(float lo, float hi) {
+  return pack_raw(__float2bfloat16(lo), __float2bfloat16(hi));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void zero(float (&c)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[j][i] = 0.f;
+}
+
+// c = a . b^T: a is the warp's 16 rows, b 64 rows, both [row][kD] in shared
+// memory (the score product q . k^T and dp = do . v^T).
+__device__ __forceinline__ void product_nt(float (&c)[8][4], const bf16* a, const bf16* b) {
+  constexpr int L = Tr<bf16>::kLd;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  zero(c);
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    const bf16* ar = a + g * L + kk * 16 + 2 * t;
+    const uint32_t a0 = ld32(ar), a1 = ld32(ar + 8 * L), a2 = ld32(ar + 8),
+                   a3 = ld32(ar + 8 * L + 8);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const bf16* br = b + (j * 8 + g) * L + kk * 16 + 2 * t;
+      mma_bf16(c[j], a0, a1, a2, a3, ld32(br), ld32(br + 8));
+    }
+  }
+}
+
+__device__ __forceinline__ void product_nt(float (&c)[8][4], const float* a, const float* b) {
+  constexpr int L = Tr<float>::kLd;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  zero(c);
+#pragma unroll 2
+  for (int d = 0; d < kD; d += 4) {
+    const float4 lo = *reinterpret_cast<const float4*>(a + g * L + d);
+    const float4 hi = *reinterpret_cast<const float4*>(a + (g + 8) * L + d);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float4 bv = *reinterpret_cast<const float4*>(b + (j * 8 + 2 * t + i) * L + d);
+        c[j][i] = fmaf(lo.x, bv.x, c[j][i]);
+        c[j][i] = fmaf(lo.y, bv.y, c[j][i]);
+        c[j][i] = fmaf(lo.z, bv.z, c[j][i]);
+        c[j][i] = fmaf(lo.w, bv.w, c[j][i]);
+        c[j][2 + i] = fmaf(hi.x, bv.x, c[j][2 + i]);
+        c[j][2 + i] = fmaf(hi.y, bv.y, c[j][2 + i]);
+        c[j][2 + i] = fmaf(hi.z, bv.z, c[j][2 + i]);
+        c[j][2 + i] = fmaf(hi.w, bv.w, c[j][2 + i]);
+      }
+  }
+}
+
+// acc += p . b: p is the warp's 16 x 64 tile in registers (rounded to bf16
+// here, as JAX rounds p and ds before their products), b is [64][kD] in
+// shared memory (p . v, ds . k, p^T . do, ds^T . q).
+__device__ __forceinline__ void product_pv(float (&acc)[8][4], const float (&p)[8][4],
+                                           const bf16* b) {
+  constexpr int L = Tr<bf16>::kLd;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk) {
+    const uint32_t a0 = pack_rn(p[2 * kk][0], p[2 * kk][1]);
+    const uint32_t a1 = pack_rn(p[2 * kk][2], p[2 * kk][3]);
+    const uint32_t a2 = pack_rn(p[2 * kk + 1][0], p[2 * kk + 1][1]);
+    const uint32_t a3 = pack_rn(p[2 * kk + 1][2], p[2 * kk + 1][3]);
+    const bf16* br = b + (kk * 16 + 2 * t) * L + g;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const bf16* bj = br + j * 8;
+      mma_bf16(acc[j], a0, a1, a2, a3, pack_raw(bj[0], bj[L]), pack_raw(bj[8 * L], bj[9 * L]));
+    }
+  }
+}
+
+__device__ __forceinline__ void product_pv(float (&acc)[8][4], const float (&p)[8][4],
+                                           const float* b) {
+  constexpr int L = Tr<float>::kLd;
+  const int lane = threadIdx.x & 31, t = lane & 3, quad = lane & ~3;
+#pragma unroll
+  for (int jk = 0; jk < 8; ++jk)
+#pragma unroll
+    for (int tk = 0; tk < 4; ++tk)
+#pragma unroll
+      for (int ik = 0; ik < 2; ++ik) {
+        const float p_lo = __shfl_sync(kFull, p[jk][ik], quad + tk);
+        const float p_hi = __shfl_sync(kFull, p[jk][2 + ik], quad + tk);
+        const float* br = b + (jk * 8 + 2 * tk + ik) * L + 2 * t;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 bv = *reinterpret_cast<const float2*>(br + j * 8);
+          acc[j][0] = fmaf(p_lo, bv.x, acc[j][0]);
+          acc[j][1] = fmaf(p_lo, bv.y, acc[j][1]);
+          acc[j][2] = fmaf(p_hi, bv.x, acc[j][2]);
+          acc[j][3] = fmaf(p_hi, bv.y, acc[j][3]);
+        }
+      }
+}
+
+// s <- s * scale (+ bias) (+ slope * (key - query)), -inf where causally
+// masked or out of range.  The tile's rows start at row0 and its columns at
+// col0; kKeyRows: rows are keys and columns queries (the dKV kernel).
+template <bool kKeyRows>
+__device__ __forceinline__ void scores(float (&s)[8][4], const Params& p, const float* bias,
+                                       float slope, int row0, int col0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = row0 + g + 8 * (i >> 1), c = col0 + j * 8 + 2 * t + (i & 1);
+      const int qi = kKeyRows ? c : r, ki = kKeyRows ? r : c;
+      float x = -INFINITY;
+      if (qi < p.S && ki < p.S && !(p.causal && ki > qi)) {
+        x = __fmul_rn(s[j][i], p.scale);
+        if (bias != nullptr) x = __fadd_rn(x, bias[qi * p.b_sq + ki * p.b_sk]);
+        if (p.slopes != nullptr) x = __fadd_rn(x, __fmul_rn(slope, (float)(ki - qi)));
+      }
+      s[j][i] = x;
+    }
+}
+
+template <typename T> __device__ __forceinline__ void store2(T* dst, float a, float b);
+template <> __device__ __forceinline__ void store2<float>(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+template <> __device__ __forceinline__ void store2<bf16>(bf16* dst, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+
+// out[row][h][0 : kD) = c's rows (scaled by inv[0] / inv[1] for rows g and
+// g + 8) for the warp's rows below S; out is contiguous [B, S, heads, kD]
+// with its batch and head offset applied.
+template <typename T>
+__device__ __forceinline__ void store_rows(T* out, long long row_stride, const float (&c)[8][4],
+                                           int row0, int S, const float (&inv)[2]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = row0 + g + 8 * half;
+    if (r >= S) continue;
+    T* dst = out + r * row_stride + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      store2<T>(dst + j * 8, c[j][2 * half] * inv[half], c[j][2 * half + 1] * inv[half]);
+  }
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
+  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(kFull, x, 1);
+  return x + __shfl_xor_sync(kFull, x, 2);
+}
+
+// --------------------------------------------------------------------------
+// forward: one block per (query tile, head, batch)
+// --------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int TE = kTileElems<T>, L = Tr<T>::kLd;
+  T* sq = reinterpret_cast<T*>(smem);
+  T* sk = sq + TE;                  // two buffers each
+  T* sv = sk + 2 * TE;
+  const int qt = gridDim.x - 1 - blockIdx.x;      // the longest causal rows first
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / p.group;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = qt * kTile, wrow0 = row0 + warp * 16;
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  const float* bias = p.bias != nullptr ? p.bias + b * p.b_sb + h * p.b_sh : nullptr;
+  const float slope = p.slopes != nullptr ? p.slopes[h] : 0.f;
+  const int n_kv = p.causal ? qt + 1 : cdiv(p.S, kTile);
+
+  load_tile(sq, q, p.q_ss, row0, p.S);
+  load_tile(sk, k, p.k_ss, 0, p.S);
+  load_tile(sv, v, p.v_ss, 0, p.S);
+  commit_copies();
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[8][4];
+  zero(acc);
+  for (int j = 0; j < n_kv; ++j) {
+    const int buf = j & 1;
+    if (j + 1 < n_kv) {
+      load_tile(sk + (buf ^ 1) * TE, k, p.k_ss, (j + 1) * kTile, p.S);
+      load_tile(sv + (buf ^ 1) * TE, v, p.v_ss, (j + 1) * kTile, p.S);
+      commit_copies();
+      wait_copies<1>();
+    } else {
+      wait_copies<0>();
+    }
+    __syncthreads();
+    float s[8][4];
+    product_nt(s, sq + warp * 16 * L, sk + buf * TE);
+    scores<false>(s, p, bias, slope, wrow0, j * kTile);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], s[jj][i]);
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      alpha[r] = expf(m[r] - mx[r]);
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[jj][i] = expf(s[jj][i] - mx[i >> 1]);
+        sum[i >> 1] += s[jj][i];
+        acc[jj][i] *= alpha[i >> 1];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];   // this thread's columns
+    product_pv(acc, s, sv + buf * TE);
+    __syncthreads();                   // every warp is done with buf before it is refilled
+  }
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l[r]);
+    inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+  }
+  T* o = static_cast<T*>(p.o) + (long long)b * p.S * p.H * kD + h * kD;
+  store_rows<T>(o, (long long)p.H * kD, acc, wrow0, p.S, inv);
+  if (t == 0) {
+    float* lse = p.lse + ((long long)b * p.H + h) * p.S;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (wrow0 + g + 8 * r < p.S) lse[wrow0 + g + 8 * r] = m[r] + logf(l[r]);
+  }
+}
+
+// --------------------------------------------------------------------------
+// dQ: one block per (query tile, head, batch), walking the key tiles
+// --------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int TE = kTileElems<T>, L = Tr<T>::kLd;
+  T* sq = reinterpret_cast<T*>(smem);
+  T* sdo = sq + TE;
+  T* sk = sdo + TE;                 // two buffers each
+  T* sv = sk + 2 * TE;
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / p.group;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2;
+  const int row0 = qt * kTile, wrow0 = row0 + warp * 16;
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  const float* bias = p.bias != nullptr ? p.bias + b * p.b_sb + h * p.b_sh : nullptr;
+  const float slope = p.slopes != nullptr ? p.slopes[h] : 0.f;
+  const int n_kv = p.causal ? qt + 1 : cdiv(p.S, kTile);
+  const long long stat0 = ((long long)b * p.H + h) * p.S;
+  float lse[2], delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wrow0 + g + 8 * r;
+    lse[r] = row < p.S ? p.lse_in[stat0 + row] : 0.f;
+    delta[r] = row < p.S ? p.delta[stat0 + row] : 0.f;
+  }
+
+  load_tile(sq, q, p.q_ss, row0, p.S);
+  load_tile(sdo, dout, p.do_ss, row0, p.S);
+  load_tile(sk, k, p.k_ss, 0, p.S);
+  load_tile(sv, v, p.v_ss, 0, p.S);
+  commit_copies();
+  float dq[8][4];
+  zero(dq);
+  for (int j = 0; j < n_kv; ++j) {
+    const int buf = j & 1;
+    if (j + 1 < n_kv) {
+      load_tile(sk + (buf ^ 1) * TE, k, p.k_ss, (j + 1) * kTile, p.S);
+      load_tile(sv + (buf ^ 1) * TE, v, p.v_ss, (j + 1) * kTile, p.S);
+      commit_copies();
+      wait_copies<1>();
+    } else {
+      wait_copies<0>();
+    }
+    __syncthreads();
+    float s[8][4], dp[8][4];
+    product_nt(s, sq + warp * 16 * L, sk + buf * TE);
+    scores<false>(s, p, bias, slope, wrow0, j * kTile);
+    product_nt(dp, sdo + warp * 16 * L, sv + buf * TE);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float pr = expf(s[jj][i] - lse[i >> 1]);
+        s[jj][i] = pr * (dp[jj][i] - delta[i >> 1]) * p.scale;    // ds
+      }
+    product_pv(dq, s, sk + buf * TE);
+    __syncthreads();
+  }
+  const float one[2] = {1.f, 1.f};
+  T* out = static_cast<T*>(p.dq) + (long long)b * p.S * p.H * kD + h * kD;
+  store_rows<T>(out, (long long)p.H * kD, dq, wrow0, p.S, one);
+}
+
+// --------------------------------------------------------------------------
+// dKV: one block per (key tile, kv head, batch), walking the group's query
+// heads and, for each, the query tiles from the diagonal on
+// --------------------------------------------------------------------------
+
+// Stage query tile `qt` of head h into buffer `buf`: Q and dO by cp.async,
+// lse and delta (zeros past S) by plain loads.
+template <typename T>
+__device__ __forceinline__ void load_query_tile(const Params& p, T* sq, T* sdo, float* slse,
+                                                float* sdelta, int b, int h, int qt) {
+  const int row0 = qt * kTile;
+  load_tile(sq, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss, row0, p.S);
+  load_tile(sdo, static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh, p.do_ss, row0,
+            p.S);
+  const int i = threadIdx.x & (kTile - 1), row = row0 + i;
+  const float* src = threadIdx.x < kTile ? p.lse_in : p.delta;
+  const float val = row < p.S ? src[((long long)b * p.H + h) * p.S + row] : 0.f;
+  (threadIdx.x < kTile ? slse : sdelta)[i] = val;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int TE = kTileElems<T>, L = Tr<T>::kLd;
+  static_assert(kThreads == 2 * kTile, "lse and delta take one thread per row each");
+  T* sk = reinterpret_cast<T*>(smem);
+  T* sv = sk + TE;
+  T* sq = sv + TE;                  // two buffers each
+  T* sdo = sq + 2 * TE;
+  float* slse = reinterpret_cast<float*>(sdo + 2 * TE);     // [2][kTile]
+  float* sdelta = slse + 2 * kTile;
+  const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int key0 = kt * kTile, wkey0 = key0 + warp * 16;
+  const int n_q = cdiv(p.S, kTile), first = p.causal ? kt : 0, per_head = n_q - first;
+  const int total = p.group * per_head;
+
+  load_tile(sk, static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh, p.k_ss, key0, p.S);
+  load_tile(sv, static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh, p.v_ss, key0, p.S);
+  load_query_tile<T>(p, sq, sdo, slse, sdelta, b, hk * p.group, first);
+  commit_copies();
+  float dk[8][4], dv[8][4];
+  zero(dk);
+  zero(dv);
+  for (int it = 0; it < total; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < total) {
+      const int nb = buf ^ 1, nh = hk * p.group + (it + 1) / per_head;
+      load_query_tile<T>(p, sq + nb * TE, sdo + nb * TE, slse + nb * kTile,
+                         sdelta + nb * kTile, b, nh, first + (it + 1) % per_head);
+      commit_copies();
+      wait_copies<1>();
+    } else {
+      wait_copies<0>();
+    }
+    __syncthreads();
+    const int h = hk * p.group + it / per_head, q0 = (first + it % per_head) * kTile;
+    const float* bias = p.bias != nullptr ? p.bias + b * p.b_sb + h * p.b_sh : nullptr;
+    const float slope = p.slopes != nullptr ? p.slopes[h] : 0.f;
+    const float* lse = slse + buf * kTile;
+    const float* delta = sdelta + buf * kTile;
+    const T* q_tile = sq + buf * TE;
+    const T* do_tile = sdo + buf * TE;
+    float s[8][4], dp[8][4];
+    product_nt(s, sk + warp * 16 * L, q_tile);          // s^T: keys x queries
+    scores<true>(s, p, bias, slope, wkey0, q0);
+    const int t = lane & 3;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[jj][i] = expf(s[jj][i] - lse[jj * 8 + 2 * t + (i & 1)]);
+    product_pv(dv, s, do_tile);                         // p^T . do
+    product_nt(dp, sv + warp * 16 * L, do_tile);        // dp^T = v . do^T
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        s[jj][i] = s[jj][i] * (dp[jj][i] - delta[jj * 8 + 2 * t + (i & 1)]) * p.scale;
+    product_pv(dk, s, q_tile);                          // ds^T . q
+    __syncthreads();
+  }
+  const float one[2] = {1.f, 1.f};
+  const long long off = (long long)b * p.S * p.Hkv * kD + hk * kD;
+  store_rows<T>(static_cast<T*>(p.dk) + off, (long long)p.Hkv * kD, dk, wkey0, p.S, one);
+  store_rows<T>(static_cast<T*>(p.dv) + off, (long long)p.Hkv * kD, dv, wkey0, p.S, one);
+}
+
+// --------------------------------------------------------------------------
+// launches
+// --------------------------------------------------------------------------
+
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, const Params& p, cudaStream_t st) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, st>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T> size_t tile_bytes() { return sizeof(T) * kTileElems<T>; }
+
+enum Which { kForward, kDq, kDkv };
+
+template <typename T>
+cudaError_t run(Which which, const Params& p, int B, cudaStream_t st) {
+  const int tiles = cdiv(p.S, kTile);
+  switch (which) {
+    case kForward:
+      return launch(flash_fwd_kernel<T>, dim3(tiles, p.H, B), 5 * tile_bytes<T>(), p, st);
+    case kDq:
+      return launch(flash_dq_kernel<T>, dim3(tiles, p.H, B), 6 * tile_bytes<T>(), p, st);
+    default:
+      return launch(flash_dkv_kernel<T>, dim3(tiles, p.Hkv, B),
+                    6 * tile_bytes<T>() + 4 * kTile * sizeof(float), p, st);
+  }
+}
+
+bool aligned16(const void* ptr) { return ((uintptr_t)ptr & 15u) == 0; }
+
+// strides: [q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, do_b, do_s, do_h,
+// bias_b, bias_h, bias_q, bias_k], in elements.
+int dispatch(Which which, Params p, const long long* strides, int B, int dtype, void* stream) {
+  p.q_sb = strides[0]; p.q_ss = strides[1]; p.q_sh = strides[2];
+  p.k_sb = strides[3]; p.k_ss = strides[4]; p.k_sh = strides[5];
+  p.v_sb = strides[6]; p.v_ss = strides[7]; p.v_sh = strides[8];
+  p.do_sb = strides[9]; p.do_ss = strides[10]; p.do_sh = strides[11];
+  p.b_sb = strides[12]; p.b_sh = strides[13]; p.b_sq = strides[14]; p.b_sk = strides[15];
+  const int vec = dtype == 0 ? 4 : 8;             // elements per 16 bytes
+  bool ok = B > 0 && p.S > 0 && p.H > 0 && p.Hkv > 0 && p.H % p.Hkv == 0 && B <= 65535 &&
+            p.H <= 65535 && (dtype == 0 || dtype == 1) && aligned16(p.q) && aligned16(p.k) &&
+            aligned16(p.v) && (p.dout == nullptr || aligned16(p.dout));
+  for (int i = 0; i < 12; ++i) ok = ok && strides[i] % vec == 0;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  p.group = p.H / p.Hkv;
+  cudaStream_t st = (cudaStream_t)stream;
+  return (int)(dtype == 0 ? run<float>(which, p, B, st) : run<bf16>(which, p, B, st));
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16.  Each returns a cudaError_t (0 = launched).
+// q [B, S, H, 64], k and v [B, S, Hkv, 64] by strides; bias fp32 by strides
+// or null; slopes fp32 [H] or null; o contiguous [B, S, H, 64]; lse fp32
+// contiguous [B, H, S].
+int dst_flash_forward(const void* q, const void* k, const void* v, const float* bias,
+                      const float* slopes, void* o, float* lse, const long long* strides, int B,
+                      int S, int H, int Hkv, float scale, int causal, int dtype, void* stream) {
+  Params p = {};
+  p.q = q; p.k = k; p.v = v; p.bias = bias; p.slopes = slopes; p.o = o; p.lse = lse;
+  p.S = S; p.H = H; p.Hkv = Hkv; p.scale = scale; p.causal = causal;
+  return dispatch(kForward, p, strides, B, dtype, stream);
+}
+
+// dout by strides like q; lse and delta fp32 contiguous [B, H, S]; dq
+// contiguous [B, S, H, 64].
+int dst_flash_backward_dq(const void* q, const void* k, const void* v, const void* dout,
+                          const float* lse, const float* delta, const float* bias,
+                          const float* slopes, void* dq, const long long* strides, int B, int S,
+                          int H, int Hkv, float scale, int causal, int dtype, void* stream) {
+  Params p = {};
+  p.q = q; p.k = k; p.v = v; p.dout = dout; p.lse_in = lse; p.delta = delta; p.bias = bias;
+  p.slopes = slopes; p.dq = dq;
+  p.S = S; p.H = H; p.Hkv = Hkv; p.scale = scale; p.causal = causal;
+  return dispatch(kDq, p, strides, B, dtype, stream);
+}
+
+// dk, dv contiguous [B, S, Hkv, 64].
+int dst_flash_backward_dkv(const void* q, const void* k, const void* v, const void* dout,
+                           const float* lse, const float* delta, const float* bias,
+                           const float* slopes, void* dk, void* dv, const long long* strides,
+                           int B, int S, int H, int Hkv, float scale, int causal, int dtype,
+                           void* stream) {
+  Params p = {};
+  p.q = q; p.k = k; p.v = v; p.dout = dout; p.lse_in = lse; p.delta = delta; p.bias = bias;
+  p.slopes = slopes; p.dk = dk; p.dv = dv;
+  p.S = S; p.H = H; p.Hkv = Hkv; p.scale = scale; p.causal = causal;
+  return dispatch(kDkv, p, strides, B, dtype, stream);
+}
+
+}  // extern "C"

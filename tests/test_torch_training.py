@@ -6,9 +6,13 @@
 * ``gpt_loss``: the loss and every gradient against ``jax.value_and_grad``
   of the JAX ``gpt_loss`` (fp32, remat on and off) for ``tiny`` (vocab 300
   padded to 384) and a 2-layer model at GPT-2's width (E 768, 12 heads,
-  S 32, B 2).  Tolerance: the loss within 1e-5 relative, each gradient
-  within 1e-4 of its largest magnitude (fp32 sums in other orders, through
-  layer norms and a softmax).
+  B 2), at S 32 (reference attention) and above 256 tokens (S 320 and
+  288: the port's flash plain versions against JAX's reference, which JAX
+  runs for flash off the TPU).  Tolerance: the loss within 1e-5 relative,
+  each gradient within 1e-4 of its largest magnitude (fp32 sums in other
+  orders, through layer norms and a softmax).
+* Remat keeps the flash op's o and lse: the flash forward runs once per
+  layer per forward and backward.
 * The engine: three ``train_batch`` steps (fp32, AdamW wd 0.01, clip 1.0
   binding, GAS 2) against the JAX engine on a one-device mesh with both
   Pallas gates on (cross-entropy and fused Adam in interpret mode), from
@@ -41,6 +45,8 @@ from deepspeed_tpu.runtime.fp16 import loss_scaler as jls
 from deepspeed_tpu_torch.models import gpt as tgpt
 from deepspeed_tpu_torch.models.convert import adam_state_from_jax, params_from_jax
 from deepspeed_tpu_torch.ops import attention as tattn
+from deepspeed_tpu_torch.ops.cuda import flash_attention as tfa
+from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing
 from deepspeed_tpu_torch.runtime import lr_schedules as tlr
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig as TConfig
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfigError as TConfigError
@@ -158,6 +164,68 @@ def test_gpt_loss_and_every_grad_match_jax(monkeypatch, name, remat):
     for k, g in want.items():
         np.testing.assert_allclose(got[k].grad.numpy(), g.numpy(), rtol=0,
                                    atol=GRAD_TOL * float(g.abs().max()), err_msg=k)
+
+
+# above XLA_FUSED_MAX_SEQ (256) attn_impl="auto" takes flash: the port's
+# plain flash versions on the CPU, JAX's reference off the TPU
+LONG_MODELS = {"tiny": (320, 320), "gpt2-width-2-layers": (288, 288)}     # n_positions, S
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("name", sorted(LONG_MODELS))
+def test_gpt_loss_and_every_grad_match_jax_above_256(monkeypatch, name, remat):
+    monkeypatch.setenv("DST_PALLAS_CE", "0")
+    n_positions, S = LONG_MODELS[name]
+    dims = dict(MODELS[name], n_positions=n_positions)
+    jcfg = jgpt.GPTConfig(dtype="float32", remat=remat, **dims)
+    jparams = jgpt.GPT(jcfg).init_params(jax.random.PRNGKey(0))
+    ids, labels = batch(jcfg.vocab_size, 2, S, seed=9)
+    jloss, jgrads = jax.value_and_grad(
+        lambda p: jgpt.gpt_loss(jcfg, p, jnp.asarray(ids), jnp.asarray(labels)))(jparams)
+    tcfg = tgpt.GPTConfig(dtype="float32", remat=remat, **dims)
+    model = tgpt.GPT(tcfg, device="cpu", state_dict=params_from_jax(jparams))
+    for p in model.parameters():
+        p.requires_grad_(True)
+    tfa.reset_counts()
+    loss = tgpt.gpt_loss(tcfg, model.param_tree(), torch.from_numpy(ids),
+                         torch.from_numpy(labels))
+    loss.backward()
+    assert tfa.flash_forward_reference.calls == tcfg.n_layer       # flash, not the reference
+    assert abs(float(loss.detach()) - float(jloss)) <= LOSS_RTOL * abs(float(jloss))
+    want = params_from_jax(jgrads)
+    got = dict(model.named_parameters())
+    assert set(want) == set(got)
+    for k, g in want.items():
+        np.testing.assert_allclose(got[k].grad.numpy(), g.numpy(), rtol=0,
+                                   atol=GRAD_TOL * float(g.abs().max()), err_msg=k)
+
+
+@pytest.mark.parametrize("policy", ["saves flash o and lse", "nothing saveable"])
+def test_remat_runs_the_flash_forward_once_per_layer(monkeypatch, policy):
+    """With remat, a block keeps its input plus the flash op's o and lse, as
+    JAX's checkpoint_policy does: one forward and backward of an L-layer
+    model runs the flash forward L times (2L when the policy saves
+    nothing, the recompute re-running it), dQ and dKV L times each."""
+    if policy == "nothing saveable":
+        monkeypatch.setattr(checkpointing, "SAVED_OPS", frozenset())
+    cfg = tgpt.GPTConfig(dtype="float32", remat=True, **dict(MODELS["tiny"], n_layer=3,
+                                                              n_positions=300))
+    model = tgpt.GPT(cfg, device="cpu")
+    for p in model.parameters():
+        p.requires_grad_(True)
+    ids, labels = batch(cfg.vocab_size, 2, 300, seed=10)
+    tfa.reset_counts()
+    loss = tgpt.gpt_loss(cfg, model.param_tree(), torch.from_numpy(ids),
+                         torch.from_numpy(labels))
+    assert tfa.flash_forward_reference.calls == cfg.n_layer
+    loss.backward()
+    L = cfg.n_layer
+    forwards = L if policy == "saves flash o and lse" else 2 * L
+    assert (tfa.flash_forward_reference.calls, tfa.flash_backward_dq_reference.calls,
+            tfa.flash_backward_dkv_reference.calls) == (forwards, L, L)
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in model.parameters())
+    tfa.reset_counts()
 
 
 def test_gpt_forward_logits_match_the_inference_path():
@@ -361,17 +429,29 @@ def test_unit_scaler_is_static_one():
 
 
 def test_auto_attention_uses_the_reference_on_the_cpu_above_256():
+    """Up to 256 tokens ``auto`` is the reference; above, it is flash, whose
+    plain version runs on the CPU and agrees with the reference (and with
+    JAX's) within fp32 2e-5."""
     rng = np.random.default_rng(8)
     q, k, v = (torch.from_numpy(rng.standard_normal((1, 300, 2, 8)).astype(np.float32))
                for _ in range(3))
     ref = tattn.reference_attention(q, k, v, causal=True)
-    assert torch.equal(tattn.auto_attention(q, k, v, causal=True), ref)
-    assert torch.equal(tattn.get_attention_fn("flash")(q, k, v, causal=True), ref)
+    tfa.reset_counts()
+    got = tattn.auto_attention(q, k, v, causal=True)
+    assert tfa.flash_forward_reference.calls == 1
+    torch.testing.assert_close(got, ref, rtol=0, atol=2e-5)
+    torch.testing.assert_close(tattn.get_attention_fn("flash")(q, k, v, causal=True), got,
+                               rtol=0, atol=0)
+    short = tuple(t[:, :256] for t in (q, k, v))
+    assert torch.equal(tattn.auto_attention(*short, causal=True),
+                       tattn.reference_attention(*short, causal=True))
+    assert tfa.flash_forward_reference.calls == 2
     from deepspeed_tpu.ops import attention as jattn
     want = jattn.reference_attention(*(jnp.asarray(t.numpy()) for t in (q, k, v)), causal=True)
-    np.testing.assert_allclose(ref.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=2e-5)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tattn.get_attention_fn("ring")
+    tfa.reset_counts()
 
 
 def test_throughput_timer_never_syncs_before_start_step():
@@ -394,11 +474,20 @@ def test_throughput_timer_never_syncs_before_start_step():
 # on the card
 # --------------------------------------------------------------------------- #
 @pytest.mark.cuda
-def test_cuda_flash_attention_raises_instead_of_the_reference():
+def test_cuda_auto_attention_launches_the_flash_kernels_above_256():
+    """On the card ``auto`` at S 512 runs the flash kernels forward and
+    backward, never their plain versions or the reference."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    q = torch.zeros(1, 300, 2, 64, device="cuda")
-    with pytest.raises(NotImplementedError, match="Queue 2 rows 1-3"):
-        tattn.auto_attention(q, q, q, causal=True)
-    with pytest.raises(NotImplementedError, match="Queue 2 rows 1-3"):
-        tattn.flash_attention(q[:, :8], q[:, :8], q[:, :8], causal=True)
+    rng = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 512, 4, 64)).astype(np.float32))
+               .to("cuda", torch.bfloat16).requires_grad_() for _ in range(3))
+    tfa.reset_counts()
+    tattn.auto_attention(q, k, v, causal=True).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (tfa.flash_forward.launches, tfa.flash_backward_dq.launches,
+            tfa.flash_backward_dkv.launches) == (1, 1, 1)
+    assert (tfa.flash_forward_reference.calls, tfa.flash_backward_dq_reference.calls,
+            tfa.flash_backward_dkv_reference.calls) == (0, 0, 0)
+    assert all(torch.isfinite(t.grad.float()).all() for t in (q, k, v))
+    tfa.reset_counts()

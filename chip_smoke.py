@@ -47,15 +47,34 @@ Phases, each printing its own lines; any failure exits non-zero:
    at seq 256, where "auto" takes the reference attention;
 8. the seq-512 model in fp32 (TF32 off), 3 steps through the kernels and 3
    through the plain versions from the same seeded weights: losses and
-   final parameters held to the tolerances stated at the top.
+   final parameters held to the tolerances stated at the top;
+9. the block-sparse path in bf16: the same config at seq 4096, micro 2,
+   with a ds_config ``sparse_attention`` block (the Sparse Transformer
+   "fixed" layout, block 64) that reaches the model as
+   ``attn_impl="block_sparse"`` through ``register_attention`` and an
+   adapter over ``SparseSelfAttention`` (as a user of the package writes
+   it): 2 warm-up and 6 timed steps, a profile of one step with the sparse
+   kernels as a category of their own; then 3 steps of the same config
+   with ``attn_impl="flash"``, the dense step at the same length;
+10. the sparse path in fp32 (TF32 off), 3 steps through the kernels and 3
+   through the plain versions, as phase 8.
 
-Each run of phases 4-5 and 7-8 (generate(), each serve, the timed
+Phase 6 also holds the three block-sparse kernels against their plain
+versions (``kernel_rounding=True``: p and ds rounded to the input dtype
+before their products, as the bf16 kernels' tensor cores take them; the
+JAX-literal plain version keeps them in fp32 and is reported beside, for
+the path's case) in fp32 and bf16 over SPARSE_CASES below, with
+``scaled_dot_product_attention`` under the layout's dense mask and the
+port's flash kernels at the same shape as yardsticks.
+
+Each run of phases 4-5 and 7-10 (generate(), each serve, the timed
 training steps, each fp32 training run) zeroes the launch counters just
 before it and reads them just after: its kernels must have launched (the
 flash kernels exactly once per layer per micro-step, the remat recompute
-reusing the saved o and lse; the cross-entropy kernels once per
-micro-step; AdamW once per step), no other kernel, and the plain versions
-never (phase 8's plain run excepted).
+reusing the saved o and lse; the sparse forward twice, since remat saves
+nothing of it, as in JAX, and its dQ and dKV once; the cross-entropy
+kernels once per micro-step; AdamW once per step), no other kernel, and
+the plain versions never (the fp32 phases' plain runs excepted).
 The kernel table reports each kernel's count from the run that uses it.
 The last two lines are the kernel table (JSON) and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -165,6 +184,32 @@ FLASH_LSE_TOL = 1e-5
 # step went the wrong way or by a wrong size fails it.  Over all
 # parameters the difference stays a rounding-level fraction of their norm
 TRAIN_LOSS_RTOL, TRAIN_PARAM_REL_L2, TRAIN_PARAM_ATOL = 1e-5, 1e-6, 3e-5
+# the sparse path: the same config at seq 4096, micro 2 (8192 tokens per
+# step), with a ds_config sparse_attention block: the Sparse Transformer
+# "fixed" pattern keeps 640 of the 2080 causal block pairs per head.  The
+# fp32 parity of phase 10 holds it to the TRAIN_* limits above, for the
+# same reasons (its full width and depth fit the time limit).
+SPARSE_SEQ, SPARSE_MICRO, SPARSE_TIMED_STEPS, SPARSE_DENSE_STEPS = 4096, 2, 6, 3
+SPARSE_BLOCK = {"mode": "fixed", "block": 64, "num_local_blocks": 4, "num_global_blocks": 1,
+                "attention": "unidirectional"}
+SPARSE_TRAIN_CFG = dict(TRAIN_CFG, train_micro_batch_size_per_gpu=SPARSE_MICRO,
+                        sparse_attention=SPARSE_BLOCK)
+SPARSE_PARAMS = 126_835_200         # GPT-2 at n_positions 4096: 148 leaves
+# block-sparse kernel cases: (B, S, H, sparse_attention block, causal); the
+# path's shape and layout first.  "empty-future": a [2, 4, 4] layout whose
+# head 0 lists nothing in rows 2-3 and whose head 1 lists only a future
+# block in row 0 (the JAX tests' cases).  Inputs and tolerances as the
+# flash cases' (q std 3; FLASH_TOL, FLASH_LSE_TOL), against the plain
+# versions with the kernel's rounding.
+SPARSE_CASES = {
+    "gpt2-s4096-fixed": (2, 4096, 12, SPARSE_BLOCK, True),
+    "bigbird-s2048": (2, 2048, 12, {"mode": "bigbird", "block": 64, "num_random_blocks": 2,
+                                    "num_sliding_window_blocks": 3, "num_global_blocks": 1,
+                                    "attention": "bidirectional", "seed": 3}, False),
+    "per-head-s2048": (2, 2048, 12, dict(SPARSE_BLOCK, different_layout_per_head=True,
+                                         num_different_global_patterns=4), True),
+    "empty-future-s256": (1, 256, 2, None, True),
+}
 
 
 def fail(msg: str) -> None:
@@ -361,25 +406,29 @@ def check_identity(model, prompts, futs, refs, label) -> int:
 
 
 def kernel_modules():
+    from deepspeed_tpu_torch.ops.cuda import block_sparse_attention as tbs
     from deepspeed_tpu_torch.ops.cuda import cross_entropy as tce
     from deepspeed_tpu_torch.ops.cuda import decode_attention as da
     from deepspeed_tpu_torch.ops.cuda import flash_attention as tfa
     from deepspeed_tpu_torch.ops.cuda import fused_optim as tfo
-    return da, tce, tfo, tfa
+    return da, tce, tfo, tfa, tbs
 
 
 def read_counts():
     """(launches by kernel, calls by plain version)."""
-    da, tce, tfo, tfa = kernel_modules()
+    da, tce, tfo, tfa, tbs = kernel_modules()
     launches = {fn.__name__: fn.launches for fn in (
         da.paged_attention, da.decode_attention, tfa.flash_forward, tfa.flash_backward_dq,
         tfa.flash_backward_dkv, tce.ce_forward, tce.ce_backward_dx, tce.ce_backward_dhead,
-        tfo.fused_adam)}
+        tfo.fused_adam, tbs.block_sparse_forward, tbs.block_sparse_backward_dq,
+        tbs.block_sparse_backward_dkv)}
     plain = {fn.__name__: fn.calls for fn in (
         da.paged_attention_reference, da.decode_attention_reference,
         tfa.flash_forward_reference, tfa.flash_backward_dq_reference,
         tfa.flash_backward_dkv_reference, tce.ce_forward_reference,
-        tce.ce_backward_dx_reference, tce.ce_backward_dhead_reference, tfo.adam_reference)}
+        tce.ce_backward_dx_reference, tce.ce_backward_dhead_reference, tfo.adam_reference,
+        tbs.block_sparse_forward_reference, tbs.block_sparse_backward_dq_reference,
+        tbs.block_sparse_backward_dkv_reference)}
     return launches, plain
 
 
@@ -760,12 +809,157 @@ def flash_cases(device, flush, card: str, reps: int = 20, plain_reps: int = 5):
     return rows
 
 
+def sparse_layout(case: str) -> np.ndarray:
+    """The [H, nb, nb] layout of one SPARSE_CASES entry."""
+    from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import (
+        sparsity_config_from_dict)
+    _, S, H, block, _ = SPARSE_CASES[case]
+    if block is not None:
+        return sparsity_config_from_dict(block, num_heads=H).make_layout(S)
+    layout = np.zeros((H, 4, 4), np.int32)
+    layout[0, :2, :2] = 1                 # head 0: rows 2-3 list nothing
+    layout[1, 0, 2] = 1                   # head 1: row 0 lists only future block 2
+    layout[1, 1:, :2] = 1
+    return layout
+
+
+def sparse_pairs(layout: np.ndarray, causal: bool, bs: int) -> int:
+    """(query, key) pairs a layout computes for one batch row: its listed
+    blocks, under ``causal`` the diagonal's lower triangle and no future
+    block (which the kernels skip)."""
+    nb = layout.shape[-1]
+    i, j = np.meshgrid(np.arange(nb), np.arange(nb), indexing="ij")
+    per = np.where(np.logical_or(not causal, j < i), bs * bs,
+                   np.where(j == i, bs * (bs + 1) // 2, 0))
+    return int((layout * per[None]).sum())
+
+
+def sparse_cases(device, flush, card: str, reps: int = 20, plain_reps: int = 3):
+    """The three block-sparse kernels against their plain versions (with
+    the kernel's rounding) over SPARSE_CASES, fp32 and bf16.  Yardsticks:
+    ``scaled_dot_product_attention`` with the layout's dense boolean mask
+    (forward; its autograd backward as one call against dQ + dKV), and the
+    port's flash kernels at the same shape, the dense cost the layout is
+    meant to cut."""
+    import torch
+    import torch.nn.functional as F
+    _, _, _, tfa, tbs = kernel_modules()
+
+    rows = []
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for case in SPARSE_CASES:
+            B, S, H, _, causal = SPARSE_CASES[case]
+            layout = sparse_layout(case)
+            bs = S // layout.shape[-1]
+            gen = torch.Generator(device=device)
+            gen.manual_seed(2025)
+            q = (torch.randn((B, S, H, 64), generator=gen, device=device) * FLASH_Q_STD).to(dtype)
+            k, v, do = (torch.randn((B, S, H, 64), generator=gen, device=device).to(dtype)
+                        for _ in range(3))
+            row_lut, row_cnt, col_lut, col_cnt = tbs.device_luts(layout, device)
+            scale = 1.0 / 8.0
+            fargs = (q, k, v, row_lut, row_cnt, causal, scale)
+            o, lse = tbs.block_sparse_forward(*fargs)
+            ro, rlse = tbs.block_sparse_forward_reference(*fargs, kernel_rounding=True)
+            delta = (ro.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+            qargs = (q, k, v, do, rlse, delta, row_lut, row_cnt, causal, scale)
+            kargs = (q, k, v, do, rlse, delta, col_lut, col_cnt, causal, scale)
+            dq = tbs.block_sparse_backward_dq(*qargs)
+            rdq = tbs.block_sparse_backward_dq_reference(*qargs, kernel_rounding=True)
+            dk, dv = tbs.block_sparse_backward_dkv(*kargs)
+            rdk, rdv = tbs.block_sparse_backward_dkv_reference(*kargs, kernel_rounding=True)
+            torch.cuda.synchronize()
+            for t in (o, lse, dq, dk, dv):
+                if not torch.isfinite(t.float()).all():
+                    fail(f"sparse {case} {dtype_name}: non-finite kernel output")
+            if case == "gpt2-s4096-fixed" and dtype == torch.bfloat16:
+                # the JAX-literal plain version keeps p and ds in fp32: what
+                # the kernel's bf16 rounding of them moves, for the record
+                lo, _ = tbs.block_sparse_forward_reference(*fargs)
+                ldq = tbs.block_sparse_backward_dq_reference(*qargs)
+                ldk, ldv = tbs.block_sparse_backward_dkv_reference(*kargs)
+                say("sparse gpt2-s4096-fixed bf16, kernel vs the JAX-literal plain version "
+                    "(p, ds in fp32), err_2/|plain|_2: " + ", ".join(
+                        f"{n} {((a.float() - b.float()).norm() / b.float().norm()).item():.3e}"
+                        for n, a, b in (("o", o, lo), ("dq", dq, ldq), ("dk", dk, ldk),
+                                        ("dv", dv, ldv))))
+                del lo, ldq, ldk, ldv
+            # yardstick: SDPA in its [B, H, S, D] layout under the dense mask
+            # of the layout (and the causal triangle)
+            keep = torch.from_numpy(layout).to(device).bool()
+            keep = keep.repeat_interleave(bs, 1).repeat_interleave(bs, 2)[None]
+            if causal:
+                keep = keep & torch.ones(S, S, dtype=torch.bool, device=device).tril()
+            qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+
+            def sdpa(a, b, c):
+                return F.scaled_dot_product_attention(a, b, c, attn_mask=keep, scale=scale)
+            fwd_lib = median_ms(lambda: sdpa(qt, kt, vt), reps, flush)
+            lib_in = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+            lib_out = sdpa(*lib_in)
+            bwd_lib = median_ms(lambda: torch.autograd.grad(lib_out, lib_in, dot,
+                                                            retain_graph=True), reps, flush)
+            del lib_out, lib_in, keep, qt, kt, vt, dot
+            # the port's flash kernels at the same shape (dense, causal or not)
+            fo, flse = tfa.flash_forward(q, k, v, None, None, causal, scale)
+            fdelta = (fo.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+            flash_fwd = median_ms(lambda: tfa.flash_forward(q, k, v, None, None, causal, scale),
+                                  reps, flush)
+            flash_bwd = median_ms(lambda: tfa.flash_block_bwd(
+                q, k, v, do, flse, fdelta, causal=causal, scale=scale), reps, flush)
+            del fo, flse, fdelta
+            esize = q.element_size()
+            n_q, n_row = q.numel(), B * H * S
+            pairs = B * sparse_pairs(layout, causal, bs)
+            lut_r = 4 * (row_lut.numel() + row_cnt.numel())
+            lut_c = 4 * (col_lut.numel() + col_cnt.numel())
+            specs = [
+                ("block_sparse_forward", [("o", o, ro), ("lse", lse, rlse)],
+                 lambda: tbs.block_sparse_forward(*fargs),
+                 lambda: tbs.block_sparse_forward_reference(*fargs, kernel_rounding=True),
+                 4 * n_q * esize + 4 * n_row + lut_r, 4.0 * 64 * pairs, fwd_lib,
+                 f"library: SDPA forward under the dense mask; flash forward {flash_fwd:.4f}"),
+                ("block_sparse_backward_dq", [("dq", dq, rdq)],
+                 lambda: tbs.block_sparse_backward_dq(*qargs),
+                 lambda: tbs.block_sparse_backward_dq_reference(*qargs, kernel_rounding=True),
+                 5 * n_q * esize + 8 * n_row + lut_r, 6.0 * 64 * pairs, bwd_lib,
+                 f"library: one SDPA backward under the mask; flash dQ + dKV {flash_bwd:.4f}"),
+                ("block_sparse_backward_dkv", [("dk", dk, rdk), ("dv", dv, rdv)],
+                 lambda: tbs.block_sparse_backward_dkv(*kargs),
+                 lambda: tbs.block_sparse_backward_dkv_reference(*kargs, kernel_rounding=True),
+                 6 * n_q * esize + 8 * n_row + lut_c, 8.0 * 64 * pairs, bwd_lib,
+                 "library: the same SDPA backward"),
+            ]
+            for name, outs, kern, plain, nbytes, flops, lib, note in specs:
+                checks, worst = flash_checks([(o_name, got, want, dtype_name)
+                                              for o_name, got, want in outs])
+                b_ms, b_by = bound(nbytes, flops, dtype_name)
+                rows.append(dict(
+                    kernel=name, case=case, dtype=dtype_name, err=worst, scaled=worst,
+                    checks=checks, ms=median_ms(kern, reps, flush),
+                    plain_ms=median_ms(plain, plain_reps, flush), bound_ms=b_ms,
+                    bound_by=b_by, library_ms=lib, flash_fwd_ms=flash_fwd,
+                    flash_bwd_ms=flash_bwd, note=note))
+            del o, lse, ro, rlse, dq, rdq, dk, dv, rdk, rdv
+            torch.cuda.empty_cache()
+        report_rows(rows[-3 * len(SPARSE_CASES):])
+    by = {(r["kernel"], r["case"], r["dtype"]): r for r in rows}
+    for dtype_name in ("float32", "bfloat16"):
+        fwd, dq, dkv = (by[(k, "gpt2-s4096-fixed", dtype_name)] for k in (
+            "block_sparse_forward", "block_sparse_backward_dq", "block_sparse_backward_dkv"))
+        say(f"sparse gpt2-s4096-fixed {dtype_name}: forward {fwd['ms']:.4f} ms vs SDPA under "
+            f"the mask {fwd['library_ms']:.4f} vs flash {fwd['flash_fwd_ms']:.4f}; dQ + dKV "
+            f"{dq['ms'] + dkv['ms']:.4f} ms vs one SDPA backward {dq['library_ms']:.4f} vs "
+            f"flash dQ + dKV {dq['flash_bwd_ms']:.4f} [{card}]")
+    return rows
+
+
 def ce_cases(device, flush, reps: int = 20, plain_reps: int = 5):
     """The three cross-entropy kernels at GPT-2's training shape (N 4096 =
     micro 8 x seq 512, E 768, V 50304, vocab 50257), fp32 and bf16."""
     import torch
     import torch.nn.functional as F
-    _, tce, _, _ = kernel_modules()
+    tce = kernel_modules()[1]
 
     N, E, V, vocab = CE_SHAPE
     rng = np.random.default_rng(4321)
@@ -836,7 +1030,7 @@ def adam_case(device, flush, reps: int = 20, plain_reps: int = 3):
     yardstick (the port never calls it)."""
     import torch
     from deepspeed_tpu_torch.models.gpt import gpt_config, init_gpt_params
-    _, _, tfo, _ = kernel_modules()
+    tfo = kernel_modules()[2]
 
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
@@ -899,34 +1093,75 @@ def train_engine(model, config, device):
     return engine
 
 
-def train_batch_of(vocab: int, device, seq: int = TRAIN_SEQ):
+def train_batch_of(vocab: int, device, seq: int = TRAIN_SEQ, micro: int = TRAIN_MICRO):
     import torch
     rng = np.random.default_rng(0)
-    ids = torch.from_numpy(rng.integers(0, vocab, (1, TRAIN_MICRO, seq))
+    ids = torch.from_numpy(rng.integers(0, vocab, (1, micro, seq))
                            .astype(np.int32)).to(device)
     return ids, ids
 
 
-def profile_train_step(engine, batch, card: str):
+def register_sparse_attention() -> None:
+    """``attn_impl="block_sparse"``: the ds_config block -> SparsityConfig
+    -> SparseSelfAttention at max_seq_length 4096, behind the attention
+    contract, registered as a user of the package does it (the package has
+    no such adapter, as the JAX package has none)."""
+    from deepspeed_tpu_torch.ops.attention import register_attention
+    from deepspeed_tpu_torch.ops.sparse_attention import SparseSelfAttention
+    from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import (
+        sparsity_config_from_dict)
+    module = SparseSelfAttention(
+        sparsity_config_from_dict(SPARSE_TRAIN_CFG["sparse_attention"], num_heads=12),
+        max_seq_length=SPARSE_SEQ)
+
+    def block_sparse(q, k, v, *, causal, bias=None, alibi=None):
+        if bias is not None or alibi is not None:
+            raise NotImplementedError("block-sparse attention takes no bias or ALiBi slopes")
+        return module(q, k, v)
+    register_attention("block_sparse", block_sparse)
+
+
+def train_expect(attn_impl: str, seq: int, layers: int, steps: int, plain: bool = False):
+    """Exact launches of ``steps`` GPT-2 steps of one micro-step each (or,
+    with ``plain``, calls of the plain versions): the attention kernels once
+    per layer per step (the sparse forward twice: remat saves nothing of
+    it), the cross-entropy kernels once per step, AdamW once."""
+    from deepspeed_tpu_torch.ops.attention import XLA_FUSED_MAX_SEQ
+    n = layers * steps
+    want = {"ce_forward": steps, "ce_backward_dx": steps, "ce_backward_dhead": steps,
+            "fused_adam": steps}
+    if attn_impl == "block_sparse":
+        want.update(block_sparse_forward=2 * n, block_sparse_backward_dq=n,
+                    block_sparse_backward_dkv=n)
+    elif attn_impl == "flash" or (attn_impl == "auto" and seq > XLA_FUSED_MAX_SEQ):
+        want.update(flash_forward=n, flash_backward_dq=n, flash_backward_dkv=n)
+    if plain:
+        want = {("adam_reference" if k == "fused_adam" else k + "_reference"): count
+                for k, count in want.items()}
+    return want
+
+
+def profile_train_step(engine, batch, card: str, attn_impl: str = "auto"):
     """One step's device time by category (torch.profiler), and the
     device's busy share of the step's wall time (profiling adds host time,
     so the busy share reads low).  The flash, cross-entropy and AdamW
-    kernels are named by their kernel names; other kernels are attributed
-    through the CPU op that launched them: "reference attention" is every
-    kernel under the attention call (forward and remat recompute) or under
-    the reference's backward ops (bmm, softmax, mask) -- at seq 512 only
-    what surrounds the flash op."""
+    kernels are named by their kernel names (the block-sparse ones too);
+    other kernels are attributed through the CPU op that launched them:
+    "reference attention" is every kernel under the attention call (forward
+    and remat recompute) or under the reference's backward ops (bmm,
+    softmax, mask) -- with flash or the sparse kernels only what surrounds
+    their op."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     from deepspeed_tpu_torch.ops import attention as tattn
 
-    inner = tattn._REGISTRY["auto"]
+    inner = tattn._REGISTRY[attn_impl]
 
     def traced(*a, **k):
         with record_function("attention_call"):
             return inner(*a, **k)
-    tattn._REGISTRY["auto"] = traced
+    tattn._REGISTRY[attn_impl] = traced
     try:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -935,7 +1170,7 @@ def profile_train_step(engine, batch, card: str):
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
     finally:
-        tattn._REGISTRY["auto"] = inner
+        tattn._REGISTRY[attn_impl] = inner
     by_name = {}                     # device time and launches per kernel name
     for e in prof.key_averages():
         # the range opened above also appears on the device's timeline (a
@@ -954,6 +1189,8 @@ def profile_train_step(engine, batch, card: str):
         k = kernel.lower()
         if "flash_fwd_kernel" in k or "flash_dq_kernel" in k or "flash_dkv_kernel" in k:
             return "flash attention kernels"
+        if "sparse_fwd_kernel" in k or "sparse_dq_kernel" in k or "sparse_dkv_kernel" in k:
+            return "block-sparse attention kernels"
         if "ce_fwd" in k or "ce_bwd" in k:
             return "cross-entropy kernels"
         if "adam_kernel" in k:
@@ -979,7 +1216,7 @@ def profile_train_step(engine, batch, card: str):
     split = {}
     for name, (t, _) in by_name.items():
         cat = category(name)
-        a = 0.0 if cat == "flash attention kernels" else min(attn.get(name, 0.0), t)
+        a = 0.0 if cat.endswith("attention kernels") else min(attn.get(name, 0.0), t)
         split["reference attention"] = split.get("reference attention", 0.0) + a
         split[cat] = split.get(cat, 0.0) + t - a
     say(f"train profile: one bf16 step, device busy {device_total / wall_us:.1%} of "
@@ -995,19 +1232,21 @@ def profile_train_step(engine, batch, card: str):
 
 
 def phase_train_bf16(device, card: str, seq: int = TRAIN_SEQ, timed: int = TRAIN_TIMED_STEPS,
-                     profiled: bool = True):
+                     profiled: bool = True, attn_impl: str = "auto", micro: int = TRAIN_MICRO,
+                     config=TRAIN_CFG):
     """GPT-2 at ``seq`` through initialize() -> train_batch, bench.py's
-    headline config: warm-up, timed steps, a profiled step.  Above 256
-    tokens the attention is flash: its three kernels launch once per layer
-    per step; at 256 and below it is the reference and they never do."""
+    headline config (``config``): warm-up, timed steps, a profiled step.
+    With "auto" above 256 tokens the attention is flash: its three kernels
+    launch once per layer per step; at 256 and below it is the reference
+    and they never do.  "block_sparse" runs the sparse kernels
+    (``train_expect``)."""
     import torch
     from deepspeed_tpu_torch.models.gpt import GPT, gpt_config
-    from deepspeed_tpu_torch.ops.attention import XLA_FUSED_MAX_SEQ
 
-    cfg = gpt_config("gpt2", n_positions=seq, remat=True)
+    cfg = gpt_config("gpt2", n_positions=seq, remat=True, attn_impl=attn_impl)
     model = GPT(cfg, device=device, seed=0)
-    engine = train_engine(model, TRAIN_CFG, device)
-    batch = train_batch_of(cfg.vocab_size, device, seq)
+    engine = train_engine(model, config, device)
+    batch = train_batch_of(cfg.vocab_size, device, seq, micro)
     losses = [engine.train_batch(batch=batch) for _ in range(2)]      # warm-up
     torch.cuda.synchronize()
     step_ms, host_ms = [], []
@@ -1019,65 +1258,67 @@ def phase_train_bf16(device, card: str, seq: int = TRAIN_SEQ, timed: int = TRAIN
             host_ms.append((time.perf_counter() - t0) * 1e3)    # the host has queued the step
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
-    flash = cfg.n_layer * timed if seq > XLA_FUSED_MAX_SEQ else 0
-    expect = {"ce_forward": timed, "ce_backward_dx": timed, "ce_backward_dhead": timed,
-              "fused_adam": timed}
-    if flash:
-        expect.update(flash_forward=flash, flash_backward_dq=flash, flash_backward_dkv=flash)
-    _, counts = counted(f"bf16 train seq {seq} ({timed} steps)", expect, run)
+    expect = train_expect(attn_impl, seq, cfg.n_layer, timed)
+    _, counts = counted(f"bf16 train seq {seq} {attn_impl} ({timed} steps)", expect, run)
     vals = [float(v) for v in losses]
     if not all(np.isfinite(vals)):
         fail(f"bf16 train: non-finite loss {vals}")
     if not vals[-1] < vals[0]:
         fail(f"bf16 train: the loss did not fall ({vals[0]:.4f} -> {vals[-1]:.4f})")
     med = statistics.median(step_ms)
-    samples_s = TRAIN_MICRO / (med / 1e3)
+    samples_s = micro / (med / 1e3)
     tflops = samples_s * seq * model.flops_per_token(seq) / 1e12
-    say(f"bf16 train: gpt2 seq {seq} micro {TRAIN_MICRO}, {model.num_params():,} params; "
+    say(f"bf16 train: gpt2 seq {seq} micro {micro} attn_impl {attn_impl}, "
+        f"{model.num_params():,} params; "
         f"loss {vals[0]:.4f} -> {vals[-1]:.4f} over {len(vals)} steps; median step "
         f"{med:.3f} ms (min {min(step_ms):.3f}, max {max(step_ms):.3f}), of which the "
         f"host takes a median {statistics.median(host_ms):.3f} ms to queue it; "
-        f"{samples_s:.2f} samples/s; {tflops:.2f} TFLOPs [{card}]")
-    prof = profile_train_step(engine, batch, card) if profiled else None
+        f"{samples_s:.2f} samples/s; {tflops:.2f} TFLOPs by bench.py's dense formula [{card}]")
+    prof = profile_train_step(engine, batch, card, attn_impl) if profiled else None
     if prof is not None:
         say(f"train: device busy {prof['device_ms'] / med:.1%} of the median un-profiled "
             f"step ({prof['device_ms']:.3f} ms device / {med:.3f} ms)")
     return dict(step_ms=med, host_ms=statistics.median(host_ms), samples_per_s=samples_s,
-                tflops=tflops, losses=vals, counts=counts, profile=prof)
+                tflops=tflops, losses=vals, counts=counts, profile=prof,
+                params=model.num_params())
 
 
-def phase_train_fp32_parity(device, steps: int = 3):
-    """GPT-2 at seq 512, full width and depth, in fp32 (TF32 off): ``steps``
-    train_batch steps through the seven training kernels, then through
-    their plain versions
-    (patched in where the engine calls the kernels), from the same seeded
-    weights.  The plain path's only use on the card."""
+def phase_train_fp32_parity(device, steps: int = 3, seq: int = TRAIN_SEQ,
+                            micro: int = TRAIN_MICRO, attn_impl: str = "auto", config=TRAIN_CFG):
+    """GPT-2 at ``seq``, full width and depth, in fp32 (TF32 off): ``steps``
+    train_batch steps through the training kernels (flash, or the sparse
+    ones with "block_sparse"; cross-entropy, AdamW), then through their
+    plain versions (patched in where the engine calls the kernels), from
+    the same seeded weights.  The plain path's only use on the card."""
     import torch
     from deepspeed_tpu_torch.models.gpt import GPT, gpt_config
     from deepspeed_tpu_torch.runtime import optimizers
-    _, tce, tfo, tfa = kernel_modules()
+    _, tce, tfo, tfa, tbs = kernel_modules()
 
-    cfg = gpt_config("gpt2", n_positions=TRAIN_SEQ, remat=True, dtype="float32")
-    config = {k: v for k, v in TRAIN_CFG.items() if k != "bf16"}
+    cfg = gpt_config("gpt2", n_positions=seq, remat=True, dtype="float32", attn_impl=attn_impl)
+    config = {k: v for k, v in config.items() if k != "bf16"}
 
     def run_path():
         model = GPT(cfg, device=device, seed=0)
         engine = train_engine(model, config, device)
-        batch = train_batch_of(cfg.vocab_size, device)
+        batch = train_batch_of(cfg.vocab_size, device, seq, micro)
         losses = [float(engine.train_batch(batch=batch)) for _ in range(steps)]
         names = [n for n, _ in model.named_parameters()]
         return losses, dict(zip(names, [p.detach().clone() for p in model.parameters()]))
 
-    n, nf = steps, steps * cfg.n_layer
-    (k_losses, k_params), k_counts = counted("fp32 train, kernels", {
-        "flash_forward": nf, "flash_backward_dq": nf, "flash_backward_dkv": nf,
-        "ce_forward": n, "ce_backward_dx": n, "ce_backward_dhead": n, "fused_adam": n},
-        run_path)
+    label = f"fp32 train seq {seq} {attn_impl}"
+    (k_losses, k_params), k_counts = counted(
+        f"{label}, kernels", train_expect(attn_impl, seq, cfg.n_layer, steps), run_path)
     saved = (tfa.flash_forward, tfa.flash_backward_dq, tfa.flash_backward_dkv, tce.ce_forward,
-             tce.ce_backward_dx, tce.ce_backward_dhead, optimizers.fused_adam)
+             tce.ce_backward_dx, tce.ce_backward_dhead, optimizers.fused_adam,
+             tbs.block_sparse_forward, tbs.block_sparse_backward_dq,
+             tbs.block_sparse_backward_dkv)
     tfa.flash_forward = tfa.flash_forward_reference
     tfa.flash_backward_dq = tfa.flash_backward_dq_reference
     tfa.flash_backward_dkv = tfa.flash_backward_dkv_reference
+    tbs.block_sparse_forward = tbs.block_sparse_forward_reference
+    tbs.block_sparse_backward_dq = tbs.block_sparse_backward_dq_reference
+    tbs.block_sparse_backward_dkv = tbs.block_sparse_backward_dkv_reference
     tce.ce_forward = tce.ce_forward_reference
     tce.ce_backward_dx = tce.ce_backward_dx_reference
     tce.ce_backward_dhead = tce.ce_backward_dhead_reference
@@ -1090,8 +1331,10 @@ def phase_train_fp32_parity(device, steps: int = 3):
         _, plain = read_counts()
     finally:
         (tfa.flash_forward, tfa.flash_backward_dq, tfa.flash_backward_dkv, tce.ce_forward,
-         tce.ce_backward_dx, tce.ce_backward_dhead, optimizers.fused_adam) = saved
-    say(f"fp32 train, plain versions: plain calls {json.dumps(plain)}")
+         tce.ce_backward_dx, tce.ce_backward_dhead, optimizers.fused_adam,
+         tbs.block_sparse_forward, tbs.block_sparse_backward_dq,
+         tbs.block_sparse_backward_dkv) = saved
+    say(f"{label}, plain versions: plain calls {json.dumps(plain)}")
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(k_losses, p_losses))
     worst, worst_key, diff_sq, norm_sq = 0.0, "", 0.0, 0.0
     for k, a in k_params.items():
@@ -1101,20 +1344,17 @@ def phase_train_fp32_parity(device, steps: int = 3):
         diff_sq += d.square().sum().item()
         norm_sq += p_params[k].double().square().sum().item()
     rel_l2 = (diff_sq / norm_sq) ** 0.5
-    say(f"fp32 train parity over {steps} steps: losses kernel {k_losses} vs plain "
+    say(f"{label} parity over {steps} steps: losses kernel {k_losses} vs plain "
         f"{p_losses} (max rel diff {loss_rel:.3e}, tol {TRAIN_LOSS_RTOL:g}); params max abs "
         f"diff {worst:.3e} in {worst_key} (tol {TRAIN_PARAM_ATOL:g}), relative L2 "
         f"diff {rel_l2:.3e} (tol {TRAIN_PARAM_REL_L2:g})")
-    want_plain = {"flash_forward_reference": nf, "flash_backward_dq_reference": nf,
-                  "flash_backward_dkv_reference": nf, "ce_forward_reference": n,
-                  "ce_backward_dx_reference": n, "ce_backward_dhead_reference": n,
-                  "adam_reference": n}
-    if any(plain[k] != want for k, want in want_plain.items()):
-        fail(f"fp32 train, plain versions: expected {want_plain}, got {plain}")
+    want_plain = train_expect(attn_impl, seq, cfg.n_layer, steps, plain=True)
+    if plain != {k: want_plain.get(k, 0) for k in plain}:
+        fail(f"{label}, plain versions: expected {want_plain}, got {plain}")
     if not loss_rel <= TRAIN_LOSS_RTOL:
-        fail(f"fp32 train: kernel and plain losses differ by {loss_rel:.3e}")
+        fail(f"{label}: kernel and plain losses differ by {loss_rel:.3e}")
     if not (worst <= TRAIN_PARAM_ATOL and rel_l2 <= TRAIN_PARAM_REL_L2):
-        fail("fp32 train: kernel and plain parameters differ past the tolerance")
+        fail(f"{label}: kernel and plain parameters differ past the tolerance")
     return dict(loss_rel=loss_rel, param_max=worst, param_rel_l2=rel_l2, counts=k_counts)
 
 
@@ -1161,7 +1401,8 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             say(f"  ptxas: {line.strip()}")
     say("kernels: paged_attention, decode_attention, flash_forward, flash_backward_dq, "
-        "flash_backward_dkv, ce_forward, ce_backward_dx, ce_backward_dhead, fused_adam")
+        "flash_backward_dkv, ce_forward, ce_backward_dx, ce_backward_dhead, fused_adam, "
+        "block_sparse_forward, block_sparse_backward_dq, block_sparse_backward_dkv")
 
     # ---- 3. kernels against their plain versions ----------------------------- #
     scratch = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)
@@ -1202,6 +1443,8 @@ def main() -> int:
     scratch = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)
     flash_rows = flash_cases(device, scratch.zero_, card)
     torch.cuda.empty_cache()
+    sparse_rows = sparse_cases(device, scratch.zero_, card)
+    torch.cuda.empty_cache()
     train_rows = ce_cases(device, flush=scratch.zero_) + adam_case(device, flush=scratch.zero_)
     report_rows(train_rows)
     del scratch
@@ -1220,12 +1463,36 @@ def main() -> int:
         f"{train['samples_per_s']:.2f} samples/s, {train['tflops']:.2f} TFLOPs (seq "
         f"{SHORT_SEQ}: {short['step_ms']:.3f} ms/step); fp32 kernel-vs-plain loss rel diff "
         f"{parity['loss_rel']:.3e} [{card}]")
+    torch.cuda.empty_cache()
+
+    # ---- 9. the block-sparse path, bf16, beside the dense step ----------------- #
+    register_sparse_attention()
+    sparse = phase_train_bf16(device, card, seq=SPARSE_SEQ, timed=SPARSE_TIMED_STEPS,
+                              attn_impl="block_sparse", micro=SPARSE_MICRO,
+                              config=SPARSE_TRAIN_CFG)
+    if sparse["params"] != SPARSE_PARAMS:
+        fail(f"sparse path: expected {SPARSE_PARAMS:,} parameters, got {sparse['params']:,}")
+    torch.cuda.empty_cache()
+    dense = phase_train_bf16(device, card, seq=SPARSE_SEQ, timed=SPARSE_DENSE_STEPS,
+                             attn_impl="flash", micro=SPARSE_MICRO, config=SPARSE_TRAIN_CFG)
+    torch.cuda.empty_cache()
+
+    # ---- 10. the sparse path in fp32, kernels against plain versions ---------- #
+    sparse_parity = phase_train_fp32_parity(device, seq=SPARSE_SEQ, micro=SPARSE_MICRO,
+                                            attn_impl="block_sparse", config=SPARSE_TRAIN_CFG)
+    say(f"summary: bf16 train seq {SPARSE_SEQ} micro {SPARSE_MICRO}: block_sparse "
+        f"{sparse['step_ms']:.3f} ms/step, {sparse['samples_per_s']:.2f} samples/s; flash "
+        f"{dense['step_ms']:.3f} ms/step, {dense['samples_per_s']:.2f} samples/s; device ms "
+        f"per step {((sparse['profile'] or {}).get('device_ms', float('nan'))):.3f} sparse, "
+        f"{((dense['profile'] or {}).get('device_ms', float('nan'))):.3f} flash; fp32 "
+        f"kernel-vs-plain loss rel diff {sparse_parity['loss_rel']:.3e} [{card}]")
 
     # ---- report ------------------------------------------------------------------ #
     # each kernel's row: its case at the shape and dtype of the run that
     # launches it, and that run's launch count: the bf16 serve for the paged
     # kernel, the fp32 generate() for the contiguous one, the seq-512 bf16
-    # training run for the flash, cross-entropy and AdamW kernels
+    # training run for the flash, cross-entropy and AdamW kernels, the
+    # seq-4096 sparse bf16 training run for the block-sparse kernels
     main_case = {"paged_attention": ("paged-decode", "bfloat16", bf16["counts"]),
                  "decode_attention": ("generate-decode", "float32",
                                       fp32["generate"]["counts"]),
@@ -1235,7 +1502,11 @@ def main() -> int:
                  "ce_forward": ("gpt2-train", "bfloat16", train["counts"]),
                  "ce_backward_dx": ("gpt2-train", "bfloat16", train["counts"]),
                  "ce_backward_dhead": ("gpt2-train", "bfloat16", train["counts"]),
-                 "fused_adam": ("gpt2-148-leaves", "float32", train["counts"])}
+                 "fused_adam": ("gpt2-148-leaves", "float32", train["counts"]),
+                 "block_sparse_forward": ("gpt2-s4096-fixed", "bfloat16", sparse["counts"]),
+                 "block_sparse_backward_dq": ("gpt2-s4096-fixed", "bfloat16", sparse["counts"]),
+                 "block_sparse_backward_dkv": ("gpt2-s4096-fixed", "bfloat16",
+                                               sparse["counts"])}
     csrc = "deepspeed_tpu_torch/ops/cuda/csrc/"
     source = {"paged_attention": csrc + "decode_attention.cu",
               "decode_attention": csrc + "decode_attention.cu",
@@ -1245,7 +1516,10 @@ def main() -> int:
               "ce_forward": csrc + "cross_entropy.cu",
               "ce_backward_dx": csrc + "cross_entropy.cu",
               "ce_backward_dhead": csrc + "cross_entropy.cu",
-              "fused_adam": csrc + "fused_optim.cu"}
+              "fused_adam": csrc + "fused_optim.cu",
+              "block_sparse_forward": csrc + "block_sparse_attention.cu",
+              "block_sparse_backward_dq": csrc + "block_sparse_attention.cu",
+              "block_sparse_backward_dkv": csrc + "block_sparse_attention.cu"}
     replaces = {"paged_attention": "deepspeed_tpu/ops/pallas/decode_attention.py:230",
                 "decode_attention": "deepspeed_tpu/ops/pallas/decode_attention.py:78",
                 "flash_forward": "deepspeed_tpu/ops/pallas/flash_attention.py:154",
@@ -1254,10 +1528,14 @@ def main() -> int:
                 "ce_forward": "deepspeed_tpu/ops/pallas/cross_entropy.py:92",
                 "ce_backward_dx": "deepspeed_tpu/ops/pallas/cross_entropy.py:182",
                 "ce_backward_dhead": "deepspeed_tpu/ops/pallas/cross_entropy.py:205",
-                "fused_adam": "deepspeed_tpu/ops/pallas/fused_optim.py:139"}
+                "fused_adam": "deepspeed_tpu/ops/pallas/fused_optim.py:139",
+                "block_sparse_forward": "deepspeed_tpu/ops/pallas/block_sparse_attention.py:116",
+                "block_sparse_backward_dq": "deepspeed_tpu/ops/pallas/block_sparse_attention.py:195",
+                "block_sparse_backward_dkv":
+                    "deepspeed_tpu/ops/pallas/block_sparse_attention.py:231"}
     table = []
     for name, (case, dt, counts) in main_case.items():
-        r = next(r for r in rows + flash_rows + train_rows
+        r = next(r for r in rows + flash_rows + sparse_rows + train_rows
                  if r["kernel"] == name and r["case"] == case and r["dtype"] == dt)
         table.append({"name": name, "route": "cuda", "source": source[name],
                       "replaces": replaces[name], "launches": counts[name],

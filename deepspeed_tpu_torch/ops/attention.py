@@ -19,6 +19,11 @@ constants under differentiation on every path.
   versions on the CPU.
 * ``auto_attention``: the reference up to ``XLA_FUSED_MAX_SEQ`` tokens
   (the JAX package's switch point, kept as it is), flash above.
+
+``register_attention(name, fn)`` adds an implementation of that signature
+under a name, which ``GPTConfig.attn_impl`` can then select (a block-sparse
+``SparseSelfAttention`` behind an adapter, for instance), as in the JAX
+package.
 """
 
 import math
@@ -128,3 +133,8 @@ def get_attention_fn(impl: str = "auto") -> Callable:
     if impl not in _REGISTRY:
         raise ValueError(f"unknown attention impl {impl!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[impl]
+
+
+def register_attention(name: str, fn: Callable) -> None:
+    """Make ``fn`` the attention that ``get_attention_fn(name)`` returns."""
+    _REGISTRY[name] = fn

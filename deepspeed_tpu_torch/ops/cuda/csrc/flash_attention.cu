@@ -50,27 +50,9 @@
 //   product), head_dim contiguous; outputs are written contiguous.  Rows past
 //   S are zero-filled in shared memory and never written.  head_dim 64 only.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_tile.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
-
-constexpr int kD = 64;                  // head_dim the kernels are compiled for
-constexpr int kTile = 64;               // rows of a query or key tile
-constexpr int kWarps = 4;               // 16 rows each
-constexpr int kThreads = 32 * kWarps;
-constexpr float kNegInf = -1e30f;       // JAX's NEG_INF: where the running max starts
-constexpr unsigned kFull = 0xffffffffu;
-
-template <typename T> struct Tr;
-template <> struct Tr<bf16> { static constexpr int kLd = kD + 8; };    // 144-byte rows
-template <> struct Tr<float> { static constexpr int kLd = kD + 4; };   // 272-byte rows
-
-template <typename T> constexpr int kTileElems = kTile * Tr<T>::kLd;
 
 struct Params {
   const void* q; const void* k; const void* v; const void* dout;
@@ -81,158 +63,6 @@ struct Params {
   int S, H, Hkv, group, causal;
   float scale;
 };
-
-__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-// 16 bytes global -> shared without a register round trip; an invalid
-// source fills zeros (and reads nothing).
-__device__ __forceinline__ void copy16_async(void* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void commit_copies() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void wait_copies() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// dst[r][0 : kD) = src[(row0 + r) * ss + 0 : kD) for r < kTile; rows at or
-// past S are zeros.  Asynchronous: commit, wait and a barrier before reading.
-template <typename T>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, long long ss, int row0, int S) {
-  constexpr int kElems = 16 / sizeof(T);
-  constexpr int kChunks = kD / kElems;                     // 16-byte chunks per row
-  constexpr int kPer = kTile * kChunks / kThreads;
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    const int r = c / kChunks, col = (c % kChunks) * kElems;
-    const bool valid = row0 + r < S;
-    copy16_async(dst + r * Tr<T>::kLd + col, valid ? src + (row0 + r) * ss + col : src, valid);
-  }
-}
-
-// --------------------------------------------------------------------------
-// products.  A 16 x 64 fp32 tile of a warp lives in registers as c[8][4]:
-// c[j][i] is row g + 8 * (i >> 1), column 8 j + 2 t + (i & 1), where
-// g = lane / 4 and t = lane % 4 (the mma.m16n8k16 accumulator layout).
-// --------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-__device__ __forceinline__ uint32_t pack_raw(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-__device__ __forceinline__ uint32_t pack_rn(float lo, float hi) {
-  return pack_raw(__float2bfloat16(lo), __float2bfloat16(hi));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void zero(float (&c)[8][4]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) c[j][i] = 0.f;
-}
-
-// c = a . b^T: a is the warp's 16 rows, b 64 rows, both [row][kD] in shared
-// memory (the score product q . k^T and dp = do . v^T).
-__device__ __forceinline__ void product_nt(float (&c)[8][4], const bf16* a, const bf16* b) {
-  constexpr int L = Tr<bf16>::kLd;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  zero(c);
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    const bf16* ar = a + g * L + kk * 16 + 2 * t;
-    const uint32_t a0 = ld32(ar), a1 = ld32(ar + 8 * L), a2 = ld32(ar + 8),
-                   a3 = ld32(ar + 8 * L + 8);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const bf16* br = b + (j * 8 + g) * L + kk * 16 + 2 * t;
-      mma_bf16(c[j], a0, a1, a2, a3, ld32(br), ld32(br + 8));
-    }
-  }
-}
-
-__device__ __forceinline__ void product_nt(float (&c)[8][4], const float* a, const float* b) {
-  constexpr int L = Tr<float>::kLd;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  zero(c);
-#pragma unroll 2
-  for (int d = 0; d < kD; d += 4) {
-    const float4 lo = *reinterpret_cast<const float4*>(a + g * L + d);
-    const float4 hi = *reinterpret_cast<const float4*>(a + (g + 8) * L + d);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float4 bv = *reinterpret_cast<const float4*>(b + (j * 8 + 2 * t + i) * L + d);
-        c[j][i] = fmaf(lo.x, bv.x, c[j][i]);
-        c[j][i] = fmaf(lo.y, bv.y, c[j][i]);
-        c[j][i] = fmaf(lo.z, bv.z, c[j][i]);
-        c[j][i] = fmaf(lo.w, bv.w, c[j][i]);
-        c[j][2 + i] = fmaf(hi.x, bv.x, c[j][2 + i]);
-        c[j][2 + i] = fmaf(hi.y, bv.y, c[j][2 + i]);
-        c[j][2 + i] = fmaf(hi.z, bv.z, c[j][2 + i]);
-        c[j][2 + i] = fmaf(hi.w, bv.w, c[j][2 + i]);
-      }
-  }
-}
-
-// acc += p . b: p is the warp's 16 x 64 tile in registers (rounded to bf16
-// here, as JAX rounds p and ds before their products), b is [64][kD] in
-// shared memory (p . v, ds . k, p^T . do, ds^T . q).
-__device__ __forceinline__ void product_pv(float (&acc)[8][4], const float (&p)[8][4],
-                                           const bf16* b) {
-  constexpr int L = Tr<bf16>::kLd;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
-    const uint32_t a0 = pack_rn(p[2 * kk][0], p[2 * kk][1]);
-    const uint32_t a1 = pack_rn(p[2 * kk][2], p[2 * kk][3]);
-    const uint32_t a2 = pack_rn(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    const uint32_t a3 = pack_rn(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-    const bf16* br = b + (kk * 16 + 2 * t) * L + g;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const bf16* bj = br + j * 8;
-      mma_bf16(acc[j], a0, a1, a2, a3, pack_raw(bj[0], bj[L]), pack_raw(bj[8 * L], bj[9 * L]));
-    }
-  }
-}
-
-__device__ __forceinline__ void product_pv(float (&acc)[8][4], const float (&p)[8][4],
-                                           const float* b) {
-  constexpr int L = Tr<float>::kLd;
-  const int lane = threadIdx.x & 31, t = lane & 3, quad = lane & ~3;
-#pragma unroll
-  for (int jk = 0; jk < 8; ++jk)
-#pragma unroll
-    for (int tk = 0; tk < 4; ++tk)
-#pragma unroll
-      for (int ik = 0; ik < 2; ++ik) {
-        const float p_lo = __shfl_sync(kFull, p[jk][ik], quad + tk);
-        const float p_hi = __shfl_sync(kFull, p[jk][2 + ik], quad + tk);
-        const float* br = b + (jk * 8 + 2 * tk + ik) * L + 2 * t;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float2 bv = *reinterpret_cast<const float2*>(br + j * 8);
-          acc[j][0] = fmaf(p_lo, bv.x, acc[j][0]);
-          acc[j][1] = fmaf(p_lo, bv.y, acc[j][1]);
-          acc[j][2] = fmaf(p_hi, bv.x, acc[j][2]);
-          acc[j][3] = fmaf(p_hi, bv.y, acc[j][3]);
-        }
-      }
-}
 
 // s <- s * scale (+ bias) (+ slope * (key - query)), -inf where causally
 // masked or out of range.  The tile's rows start at row0 and its columns at
@@ -255,41 +85,6 @@ __device__ __forceinline__ void scores(float (&s)[8][4], const Params& p, const 
       }
       s[j][i] = x;
     }
-}
-
-template <typename T> __device__ __forceinline__ void store2(T* dst, float a, float b);
-template <> __device__ __forceinline__ void store2<float>(float* dst, float a, float b) {
-  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
-}
-template <> __device__ __forceinline__ void store2<bf16>(bf16* dst, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
-}
-
-// out[row][h][0 : kD) = c's rows (scaled by inv[0] / inv[1] for rows g and
-// g + 8) for the warp's rows below S; out is contiguous [B, S, heads, kD]
-// with its batch and head offset applied.
-template <typename T>
-__device__ __forceinline__ void store_rows(T* out, long long row_stride, const float (&c)[8][4],
-                                           int row0, int S, const float (&inv)[2]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = row0 + g + 8 * half;
-    if (r >= S) continue;
-    T* dst = out + r * row_stride + 2 * t;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      store2<T>(dst + j * 8, c[j][2 * half] * inv[half], c[j][2 * half + 1] * inv[half]);
-  }
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
-  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(kFull, x, 1);
-  return x + __shfl_xor_sync(kFull, x, 2);
 }
 
 // --------------------------------------------------------------------------
@@ -536,17 +331,6 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Params p) {
 // launches
 // --------------------------------------------------------------------------
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, const Params& p, cudaStream_t st) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, st>>>(p);
-  return cudaGetLastError();
-}
-
-template <typename T> size_t tile_bytes() { return sizeof(T) * kTileElems<T>; }
-
 enum Which { kForward, kDq, kDkv };
 
 template <typename T>
@@ -562,8 +346,6 @@ cudaError_t run(Which which, const Params& p, int B, cudaStream_t st) {
                     6 * tile_bytes<T>() + 4 * kTile * sizeof(float), p, st);
   }
 }
-
-bool aligned16(const void* ptr) { return ((uintptr_t)ptr & 15u) == 0; }
 
 // strides: [q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, do_b, do_s, do_h,
 // bias_b, bias_h, bias_q, bias_k], in elements.

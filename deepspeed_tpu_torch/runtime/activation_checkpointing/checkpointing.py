@@ -9,6 +9,10 @@ twice.  The port is ``torch.utils.checkpoint.checkpoint(...,
 use_reentrant=False)`` with a selective-checkpoint policy that saves the
 outputs of the flash forward op (``dst_torch::flash_fwd``,
 ``ops/cuda/flash_attention.py``) and prefers to recompute every other op.
+The block-sparse forward op (``dst_torch::block_sparse_fwd``,
+``ops/cuda/block_sparse_attention.py``) is among those: JAX's policy saves
+only flash's outputs, so under remat a sparse layer runs its forward twice
+per micro-step, in the port as in JAX.
 ``partition_activations`` (dots saveable) and ``cpu_checkpointing`` raise
 until they are ported.
 """

@@ -8,9 +8,12 @@ the batch arithmetic invariant
 
 solved and validated as the JAX package (and the reference) do, with the
 same ``DeepSpeedConfigError`` on inconsistent or missing values.  The world
-size is 1 in the port so far.  Blocks of features the port has not taken
-over yet (stability, telemetry, monitors, PLD, compression, ...) are kept
-as raw dicts; the engine raises when one of them is enabled.
+size is 1 in the port so far.  The ``sparse_attention`` block is checked
+as the JAX package checks it (``ValueError`` if it is not a dict,
+``NotImplementedError`` on an unknown mode) and kept as a dict.  Blocks of
+features the port has not taken over yet (stability, telemetry, monitors,
+PLD, compression, ...) are kept as raw dicts; the engine raises when one of
+them is enabled.
 """
 
 import json
@@ -128,7 +131,16 @@ class DeepSpeedConfig:
 
         self.parallel_blocks = {k: pd.get(k, {}) for k in (
             C.MESH, C.TENSOR_PARALLEL, C.PIPELINE_PARALLEL, C.SEQUENCE_PARALLEL)}
+        # validated eagerly so that a typo fails here; a model builds its
+        # SparsityConfig from the block with sparsity_config_from_dict
         self.sparse_attention = pd.get(C.SPARSE_ATTENTION, None)
+        if self.sparse_attention is not None:
+            from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import (
+                validate_sparsity_mode)
+            if not isinstance(self.sparse_attention, dict):
+                raise ValueError(f"'{C.SPARSE_ATTENTION}' must be a dict, "
+                                 f"got {type(self.sparse_attention).__name__}")
+            validate_sparsity_mode(self.sparse_attention.get(C.SPARSE_MODE, C.SPARSE_MODE_DEFAULT))
         self.compression_config = pd.get(C.COMPRESSION_TRAINING, {})
         self.unported_blocks = {k: pd.get(k, {}) for k in UNPORTED_BLOCKS}
 

@@ -80,3 +80,5 @@ COMPRESSION_TRAINING = "compression_training"
 DATA_EFFICIENCY = "data_efficiency"
 CURRICULUM_LEARNING_LEGACY = "curriculum_learning"
 SPARSE_ATTENTION = "sparse_attention"
+SPARSE_MODE = "mode"
+SPARSE_MODE_DEFAULT = "fixed"

@@ -26,7 +26,9 @@ Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
 item: ZeRO stages 1-3 and offload (Queue 1 item 7), fp16 (item 5),
 checkpoints (item 6), and the stability, telemetry,
 fault-tolerance, monitor, PLD, compression and data-pipeline blocks
-(items 8 and 9).
+(items 8 and 9).  A ``sparse_attention`` block is accepted (the config
+checks it), as in the JAX engine: the model takes its layout through a
+registered ``attn_impl``.
 """
 
 import dataclasses
@@ -48,6 +50,7 @@ ZERO = "ROADMAP.md, Queue 1 item 7 (ZeRO-1/2/3 and offload)"
 PRECISION = "ROADMAP.md, Queue 1 item 5 (fp16 loss scaling)"
 CHECKPOINTS = "ROADMAP.md, Queue 1 item 6 (checkpoints)"
 OPS_PLANES = "ROADMAP.md, Queue 1 items 8 and 9"
+COMPRESSION = "ROADMAP.md, Queue 1 item 9 (compression)"
 
 
 def _map_tree(fn: Callable, tree):
@@ -131,9 +134,8 @@ class DeepSpeedEngine:
         for key, item in UNPORTED_BLOCKS.items():
             if cfg.unported_blocks[key].get(flags.get(key, "enabled"), False):
                 raise NotImplementedError(f"the {key!r} block is not ported yet ({item})")
-        if cfg.compression_config or cfg.sparse_attention is not None:
-            raise NotImplementedError("compression_training / sparse_attention are not "
-                                      f"ported yet ({OPS_PLANES})")
+        if cfg.compression_config:
+            raise NotImplementedError(f"compression_training is not ported yet ({COMPRESSION})")
         if cfg.wall_clock_breakdown:
             raise NotImplementedError(f"wall_clock_breakdown is not ported yet ({OPS_PLANES})")
 

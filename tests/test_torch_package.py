@@ -132,7 +132,8 @@ def test_build_directory_is_keyed_by_sources_and_ignored():
     assert builder.BUILD_ROOT == REPO / "build_torch"
     assert len(builder.source_hash()) == 16
     assert [p.name for p in builder.sources()] == [
-        "cross_entropy.cu", "decode_attention.cu", "flash_attention.cu", "fused_optim.cu"]
+        "block_sparse_attention.cu", "cross_entropy.cu", "decode_attention.cu",
+        "flash_attention.cu", "fused_optim.cu"]
     ignored = (REPO / ".gitignore").read_text().split()
     assert "build_torch/" in ignored
 

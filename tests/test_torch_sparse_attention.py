@@ -1,0 +1,508 @@
+"""Parity of the port's block-sparse attention (``deepspeed_tpu_torch/ops/
+sparse_attention/`` and ``ops/cuda/block_sparse_attention.py``) with the
+JAX package's.
+
+* Layouts: every mode at two or three parameter sets, seeds included,
+  equal JAX's bit for bit; so do the LUTs of ``build_luts``, the exception
+  types of ``sparsity_config_from_dict`` and the errors of
+  ``SparseSelfAttention.get_layout``.
+* Kernels: on the CPU the port's entry points run their plain versions.
+  On the same numpy inputs they are held against JAX's Pallas kernels in
+  interpret mode, as the JAX package's own tests run them: o and lse
+  against ``_fwd``, and dq, dk, dv (the gradients of ``sum(o * do)``)
+  against ``jax.grad`` through the Pallas ``block_sparse_attention``.
+  Cases: causal and non-causal, blocks of 32 and 64, head_dim 32 and 64,
+  2 to 12 heads, one layout per head, a layout with empty rows and one
+  with a row that lists only a future block.  Tolerance: |port - jax| <=
+  tol * max(1, |jax|), 1e-5 in fp32 (sums in other orders) and 1e-2 in
+  bf16 (both sides compute in fp32 from the same bf16 inputs and round the
+  outputs to bf16, so an element parts by at most one bf16 ulp, 2^-8 of
+  its size, where the fp32 values straddle a rounding step).
+* The masked-dense path (``sparse_reference_attention`` and the module
+  with rpe, key-padding and attention masks in both modes) against JAX's,
+  fp32, 1e-5.
+
+The CUDA kernels run only on a card: the ``cuda``-marked tests skip here
+and run on the GPU machine (``python -m pytest
+tests/test_torch_sparse_attention.py -m cuda``), where each kernel is held
+against its plain version (with the kernel's rounding) on the same inputs.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from deepspeed_tpu.ops import sparse_attention as jsa
+from deepspeed_tpu.ops.pallas import block_sparse_attention as jbs
+from deepspeed_tpu.ops.sparse_attention import sparsity_config as jsc
+from deepspeed_tpu_torch.ops import sparse_attention as tsa
+from deepspeed_tpu_torch.ops.cuda import block_sparse_attention as tbs
+from deepspeed_tpu_torch.ops.sparse_attention import sparse_self_attention as tssa
+from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as tsc
+
+# --------------------------------------------------------------------------- #
+# layouts
+# --------------------------------------------------------------------------- #
+# (mode, kwargs, seq_len)
+LAYOUTS = [
+    ("dense", dict(num_heads=3, block=32), 128),
+    ("dense", dict(num_heads=2, block=64), 256),
+    ("fixed", dict(num_heads=12, block=64, num_local_blocks=4, num_global_blocks=1,
+                   attention="unidirectional"), 4096),
+    ("fixed", dict(num_heads=4, block=16, num_local_blocks=4, attention="bidirectional",
+                   horizontal_global_attention=True), 16 * 10),
+    ("fixed", dict(num_heads=4, block=16, different_layout_per_head=True,
+                   num_local_blocks=4, num_global_blocks=1,
+                   num_different_global_patterns=4), 16 * 9),
+    ("variable", dict(num_heads=2, block=16, num_random_blocks=2,
+                      attention="unidirectional", seed=3), 16 * 8),
+    ("variable", dict(num_heads=3, block=16, different_layout_per_head=True,
+                      num_random_blocks=1, local_window_blocks=[2, 4],
+                      global_block_indices=[0, 5], global_block_end_indices=[2, 7],
+                      horizontal_global_attention=True, seed=11), 16 * 12),
+    ("bigbird", dict(num_heads=2, block=16, num_random_blocks=2, seed=7), 16 * 8),
+    ("bigbird", dict(num_heads=12, block=64, different_layout_per_head=True,
+                     num_random_blocks=3, num_sliding_window_blocks=3, num_global_blocks=2,
+                     seed=5), 64 * 32),
+    ("bigbird", dict(num_heads=2, block=32, num_random_blocks=1,
+                     attention="unidirectional", seed=9), 32 * 6),
+    ("bslongformer", dict(num_heads=1, block=16, num_sliding_window_blocks=3,
+                          global_block_indices=[0, 4]), 16 * 8),
+    ("bslongformer", dict(num_heads=2, block=32, num_sliding_window_blocks=5,
+                          global_block_indices=[0], global_block_end_indices=[2],
+                          attention="unidirectional"), 32 * 10),
+    ("local_sliding_window", dict(num_heads=2, block=16, num_sliding_window_blocks=3), 16 * 8),
+    ("local_sliding_window", dict(num_heads=1, block=32, num_sliding_window_blocks=5,
+                                  attention="bidirectional"), 32 * 9),
+]
+LAYOUT_IDS = [f"{mode}-{i}" for i, (mode, _, _) in enumerate(LAYOUTS)]
+
+
+@pytest.mark.parametrize("mode,kw,seq", LAYOUTS, ids=LAYOUT_IDS)
+def test_layout_equals_jax_bit_for_bit(mode, kw, seq):
+    want = jsc.MODE_TO_CONFIG[mode](**kw).make_layout(seq)
+    got = tsc.MODE_TO_CONFIG[mode](**kw).make_layout(seq)
+    assert got.dtype == want.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    cfg = dict(kw, mode=mode)
+    heads = cfg.pop("num_heads")
+    from_dict = tsc.sparsity_config_from_dict(cfg, num_heads=heads).make_layout(seq)
+    np.testing.assert_array_equal(from_dict, want)
+    for a, b in zip(tbs.build_luts(got), jbs.build_luts(want)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_path_layout_keeps_640_of_2080_causal_block_pairs_per_head():
+    layout = tsc.sparsity_config_from_dict(
+        {"mode": "fixed", "block": 64, "num_local_blocks": 4, "num_global_blocks": 1,
+         "attention": "unidirectional"}, num_heads=12).make_layout(4096)
+    assert layout.shape == (12, 64, 64) and (layout.sum(axis=(1, 2)) == 640).all()
+    row_lut, row_cnt, col_lut, col_cnt = tbs.build_luts(layout)
+    assert row_lut.shape[1] == row_cnt.max() and col_lut.shape[1] == col_cnt.max() == 61
+
+
+def test_luts_of_empty_rows_equal_jax():
+    layout = np.zeros((2, 4, 4), np.int32)
+    layout[0, :2, :2] = 1
+    layout[1, 0, 2] = 1
+    for a, b in zip(tbs.build_luts(layout), jbs.build_luts(layout)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("cfg,exc", [
+    ({"mode": "nope"}, NotImplementedError),
+    ({"mode": "fixed", "blokc": 64}, TypeError),
+    ({"mode": "fixed", "num_local_blocks": 4, "num_global_blocks": 3}, ValueError),
+    ({"mode": "fixed", "attention": "sideways"}, NotImplementedError),
+    ({"mode": "variable", "global_block_indices": [3], "global_block_end_indices": [2]},
+     ValueError),
+])
+def test_sparsity_config_from_dict_raises_as_jax_does(cfg, exc):
+    with pytest.raises(exc):
+        jsc.sparsity_config_from_dict(cfg, num_heads=2)
+    with pytest.raises(exc):
+        tsc.sparsity_config_from_dict(cfg, num_heads=2)
+    with pytest.raises(NotImplementedError):
+        tsc.validate_sparsity_mode("nope")
+    assert sorted(tsc.MODE_TO_CONFIG) == sorted(jsc.MODE_TO_CONFIG)
+
+
+@pytest.mark.parametrize("seq,max_len", [(100, 512), (1024, 512), (4096, None), (256, 512)])
+def test_get_layout_raises_as_jax_does(seq, max_len):
+    """Not a multiple of the block, or past max_seq_length (2048 by default,
+    so the seq-4096 path must pass max_seq_length=4096), raises ValueError
+    in both packages; otherwise the sub-layouts are equal."""
+    kw = {} if max_len is None else {"max_seq_length": max_len}
+    mods = [pkg.SparseSelfAttention(pkg.FixedSparsityConfig(num_heads=2, block=64), **kw)
+            for pkg in (jsa, tsa)]
+    if seq % 64 or seq > (max_len or 2048):
+        for mod in mods:
+            with pytest.raises(ValueError):
+                mod.get_layout(seq)
+        return
+    jl, tl = (mod.get_layout(seq) for mod in mods)
+    np.testing.assert_array_equal(tl, jl)
+    np.testing.assert_array_equal(tl, mods[1].master_layout[:, :4, :4])
+    with pytest.raises(ValueError):
+        tsa.SparseSelfAttention(key_padding_mask_mode="xor")
+
+
+# --------------------------------------------------------------------------- #
+# kernels: plain versions against the Pallas kernels (interpret mode)
+# --------------------------------------------------------------------------- #
+def empty_rows_layout():
+    layout = np.zeros((1, 4, 4), np.int32)
+    layout[0, :2, :2] = 1                     # rows 2-3 attend nothing
+    return layout
+
+
+def future_only_layout():
+    layout = np.zeros((1, 4, 4), np.int32)
+    layout[0, 0, 2] = 1                       # row 0 attends only future block 2
+    layout[0, 1:, :2] = 1
+    return layout
+
+
+# name: (B, S, H, D, layout (a function of H, S), causal)
+CASES = {
+    "fixed-causal": (2, 256, 2, 32, lambda H, S: tsc.FixedSparsityConfig(
+        num_heads=H, block=64, num_local_blocks=2, attention="unidirectional").make_layout(S),
+        True),
+    "bigbird-noncausal": (2, 256, 2, 32, lambda H, S: tsc.BigBirdSparsityConfig(
+        num_heads=H, block=64, seed=2).make_layout(S), False),
+    "bslongformer-block32": (1, 128, 2, 32, lambda H, S: tsc.BSLongformerSparsityConfig(
+        num_heads=H, block=32).make_layout(S), False),
+    "per-head-variable": (1, 256, 4, 64, lambda H, S: tsc.VariableSparsityConfig(
+        num_heads=H, block=32, different_layout_per_head=True, num_random_blocks=2,
+        attention="unidirectional", seed=4).make_layout(S), True),
+    "gpt2-heads": (1, 256, 12, 64, lambda H, S: tsc.FixedSparsityConfig(
+        num_heads=H, block=64, num_local_blocks=2, attention="unidirectional").make_layout(S),
+        True),
+    "empty-rows": (1, 128, 1, 32, lambda H, S: empty_rows_layout(), False),
+    "future-only": (1, 128, 1, 32, lambda H, S: future_only_layout(), True),
+}
+TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def make_case(name, seed=0):
+    """numpy (q, k, v, do) in [B, S, H, D], the layout and causal."""
+    B, S, H, D, layout_fn, causal = CASES[name]
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (rng.standard_normal((B, S, H, D)).astype(np.float32) for _ in range(4))
+    return (q, k, v, do), layout_fn(H, S), causal
+
+
+def to_torch(a, dtype):
+    return torch.from_numpy(np.array(a)).to(DTYPES[dtype][1])
+
+
+def assert_close(got, want, dtype, what):
+    got = np.asarray(got.float() if isinstance(got, torch.Tensor) else
+                     jnp.asarray(got, jnp.float32), np.float32)
+    want = np.asarray(jnp.asarray(want, jnp.float32), np.float32)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    err = (np.abs(got - want) / np.maximum(1.0, np.abs(want))).max()
+    assert err <= TOL[dtype], f"{what}: {err:.3e} > {TOL[dtype]}"
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_forward_matches_pallas_fwd(case, dtype):
+    (q, k, v, _), layout, causal = make_case(case)
+    B, S, H, D = q.shape
+    row_lut, row_cnt, _, _ = jbs.build_luts(layout)
+    jt = [jnp.asarray(x, DTYPES[dtype][0]).transpose(0, 2, 1, 3) for x in (q, k, v)]
+    jo, jlse = jbs._fwd(*jt, jnp.asarray(row_lut), jnp.asarray(row_cnt),
+                        scale=1.0 / math.sqrt(D), causal=causal, bs=S // layout.shape[-1])
+    luts = tbs.device_luts(layout, "cpu")
+    o, lse = tbs.block_sparse_forward(*(to_torch(x, dtype) for x in (q, k, v)), luts[0],
+                                      luts[1], causal, 1.0 / math.sqrt(D))
+    assert o.dtype == DTYPES[dtype][1] and lse.dtype == torch.float32
+    assert_close(o, jo.transpose(0, 2, 1, 3), dtype, "o")
+    assert_close(lse, jlse[..., 0], dtype, "lse")
+    if case in ("empty-rows", "future-only"):
+        rows = slice(64, None) if case == "empty-rows" else slice(0, 32)
+        assert (o[:, rows] == 0).all()
+        assert (lse[:, :, rows] == -1e30).all() and (np.asarray(jlse)[:, :, rows] == -1e30).all()
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_grads_match_jax_grad_of_pallas(case, dtype):
+    """dq, dk, dv of ``sum(o * do)`` through the public functions."""
+    (q, k, v, do), layout, causal = make_case(case, seed=1)
+    jdt = DTYPES[dtype][0]
+    jdo = jnp.asarray(do)
+    jgrads = jax.grad(lambda *a: jnp.sum(jbs.block_sparse_attention(
+        *a, layout, causal=causal).astype(jnp.float32) * jdo), argnums=(0, 1, 2))(
+        *(jnp.asarray(x, jdt) for x in (q, k, v)))
+    ts = [to_torch(x, dtype).requires_grad_() for x in (q, k, v)]
+    o = tbs.block_sparse_attention(*ts, layout, causal=causal)
+    (o.float() * torch.from_numpy(do)).sum().backward()
+    for t, want, what in zip(ts, jgrads, ("dq", "dk", "dv")):
+        assert t.grad.dtype == t.dtype and torch.isfinite(t.grad.float()).all()
+        assert_close(t.grad, want, dtype, what)
+    if case == "empty-rows":
+        assert (ts[0].grad[:, 64:] == 0).all()
+    if case == "future-only":
+        assert (ts[0].grad[:, :32] == 0).all()
+
+
+def test_kernel_rounding_is_the_identity_in_fp32_and_rounds_p_and_ds_in_bf16():
+    (q, k, v, do), layout, causal = make_case("fixed-causal", seed=2)
+    row_lut, row_cnt, col_lut, col_cnt = tbs.device_luts(layout, "cpu")
+    for dtype in ("float32", "bfloat16"):
+        tq, tk, tv, tdo = (to_torch(x, dtype) for x in (q, k, v, do))
+        args = (tq, tk, tv, row_lut, row_cnt, causal, 0.125)
+        o, lse = tbs.block_sparse_forward_reference(*args)
+        o2, lse2 = tbs.block_sparse_forward_reference(*args, kernel_rounding=True)
+        delta = (o.float() * tdo.float()).sum(-1).transpose(1, 2).contiguous()
+        bargs = (tq, tk, tv, tdo, lse, delta, col_lut, col_cnt, causal, 0.125)
+        dk, dv = tbs.block_sparse_backward_dkv_reference(*bargs)
+        dk2, dv2 = tbs.block_sparse_backward_dkv_reference(*bargs, kernel_rounding=True)
+        assert torch.equal(lse, lse2)
+        same = dtype == "float32"
+        assert torch.equal(o, o2) == same and torch.equal(dk, dk2) == same
+        assert_close(o2, o.float().numpy(), dtype, "o with the kernel's rounding")
+        assert_close(dv2, dv.float().numpy(), dtype, "dv with the kernel's rounding")
+
+
+# --------------------------------------------------------------------------- #
+# the masked-dense path and the module
+# --------------------------------------------------------------------------- #
+MASK_CASES = {
+    "rpe": dict(rpe=True),
+    "kp-add-am-mul": dict(kp="add", am="mul"),
+    "kp-mul-am-add-causal": dict(kp="mul", am="add", causal=True),
+    "all-mul-causal": dict(rpe=True, kp="mul", am="mul", causal=True),
+}
+
+
+def mask_inputs(seed=5, B=2, S=128, H=2, D=32):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((B, S, H, D)).astype(np.float32) for _ in range(3))
+    rpe = (rng.standard_normal((H, S, S)) * 0.5).astype(np.float32)
+    kp = np.ones((B, S), np.float32)
+    kp[:, 96:] = 0
+    am = (rng.random((S, S)) > 0.2).astype(np.float32)
+    return (q, k, v), rpe, kp, am
+
+
+@pytest.mark.parametrize("case", sorted(MASK_CASES))
+def test_sparse_reference_attention_matches_jax(case):
+    spec = MASK_CASES[case]
+    (q, k, v), rpe, kp, am = mask_inputs()
+    layout = tsc.BigBirdSparsityConfig(num_heads=2, block=32, seed=5).make_layout(128)
+    kw = dict(causal=spec.get("causal", False),
+              key_padding_mask_mode=spec.get("kp", "add"), attn_mask_mode=spec.get("am", "mul"))
+    arrays = dict(rpe=rpe if spec.get("rpe") else None, key_padding_mask=kp if "kp" in spec
+                  else None, attn_mask=am if "am" in spec else None)
+    want = jbs.sparse_reference_attention(
+        *(jnp.asarray(x) for x in (q, k, v)), layout,
+        **{n: None if a is None else jnp.asarray(a) for n, a in arrays.items()}, **kw)
+    got = tbs.sparse_reference_attention(
+        *(torch.from_numpy(x) for x in (q, k, v)), layout,
+        **{n: None if a is None else torch.from_numpy(a) for n, a in arrays.items()}, **kw)
+    assert_close(got, want, "float32", "o")
+
+
+def test_module_paths_match_jax_and_warn_once(monkeypatch):
+    warnings = []
+    monkeypatch.setattr(tssa, "log_dist", lambda msg, **kw: warnings.append(msg))
+    (q, k, v), rpe, kp, _ = mask_inputs(seed=6)
+    mods = [pkg.SparseSelfAttention(pkg.BigBirdSparsityConfig(num_heads=2, block=32, seed=5),
+                                    max_seq_length=256, key_padding_mask_mode="mul")
+            for pkg in (jsa, tsa)]
+    jq, tq = [jnp.asarray(x) for x in (q, k, v)], [torch.from_numpy(x) for x in (q, k, v)]
+    assert_close(mods[1](*tq), mods[0](*jq), "float32", "fast path")
+    for _ in range(2):
+        got = mods[1](*tq, key_padding_mask=torch.from_numpy(kp))
+    assert_close(got, mods[0](*jq, key_padding_mask=jnp.asarray(kp)), "float32", "mask path")
+    assert len(warnings) == 1 and "masked-dense" in warnings[0]
+    v2 = tq[2].clone()
+    v2[:, 96:] = 123.0
+    torch.testing.assert_close(mods[1](tq[0], tq[1], v2, key_padding_mask=torch.from_numpy(kp)),
+                               got, rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="share shape"):
+        mods[1](tq[0], tq[1][:, :64], tq[2])
+
+
+# --------------------------------------------------------------------------- #
+# dispatch on the CPU, and what the kernels do not take
+# --------------------------------------------------------------------------- #
+def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
+    (q, k, v, _), layout, causal = make_case("gpt2-heads")
+    ts = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    tbs.reset_counts()
+    tsa.block_sparse_attention(*ts, layout, causal=causal).sum().backward()
+    assert (tbs.block_sparse_forward_reference.calls, tbs.block_sparse_backward_dq_reference.calls,
+            tbs.block_sparse_backward_dkv_reference.calls) == (1, 1, 1)
+    assert (tbs.block_sparse_forward.launches, tbs.block_sparse_backward_dq.launches,
+            tbs.block_sparse_backward_dkv.launches) == (0, 0, 0)
+    luts = tbs.device_luts(layout, "cpu")
+    assert luts is tbs.device_luts(layout.copy(), torch.device("cpu"))     # one copy per layout
+    assert all(t.dtype == torch.int32 for t in luts)
+    tbs.reset_counts()
+
+
+def test_what_the_kernels_do_not_take_raises():
+    """Shapes are checked before the device, so meta tensors reach the
+    checks a CUDA tensor meets."""
+    def luts(H, nb):
+        return (torch.zeros(H * nb, 1, dtype=torch.int32, device="meta"),
+                torch.ones(H, nb, dtype=torch.int32, device="meta"))
+    q = torch.empty(1, 256, 2, 32, device="meta")
+    with pytest.raises(ValueError, match="head_dim 64.*Queue 1 item 9"):
+        tbs.block_sparse_forward(q, q, q, *luts(2, 4), True, 0.125)
+    q = torch.empty(1, 256, 2, 64, device="meta")
+    with pytest.raises(ValueError, match="block 64.*Queue 1 item 9"):
+        tbs.block_sparse_forward(q, q, q, *luts(2, 8), True, 0.125)
+    with pytest.raises(TypeError, match="Queue 1 item 5"):
+        tbs.block_sparse_forward(q.half(), q.half(), q.half(), *luts(2, 4), True, 0.125)
+    with pytest.raises(ValueError, match="no kernel"):
+        tbs.block_sparse_forward(q, q, q, *luts(2, 4), True, 0.125)
+    with pytest.raises(ValueError, match="layout must be"):
+        tbs.block_sparse_attention(torch.zeros(1, 64, 2, 8), torch.zeros(1, 64, 2, 8),
+                                   torch.zeros(1, 64, 2, 8), np.ones((3, 2, 2)))
+    with pytest.raises(ValueError, match="one shape"):
+        tbs.block_sparse_attention(torch.zeros(1, 64, 2, 8), torch.zeros(1, 64, 1, 8),
+                                   torch.zeros(1, 64, 1, 8), np.ones((2, 2, 2)))
+
+
+# --------------------------------------------------------------------------- #
+# on the card
+# --------------------------------------------------------------------------- #
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+# (B, S, H, layout, causal) at block 64 and head_dim 64
+KERNEL_CASES = {
+    "fixed-causal-s1024": (2, 1024, 4, lambda H, S: tsc.FixedSparsityConfig(
+        num_heads=H, block=64, num_local_blocks=4, attention="unidirectional").make_layout(S),
+        True),
+    "bigbird-noncausal": (1, 1024, 4, lambda H, S: tsc.BigBirdSparsityConfig(
+        num_heads=H, block=64, num_random_blocks=2, seed=3).make_layout(S), False),
+    "per-head-variable": (1, 512, 4, lambda H, S: tsc.VariableSparsityConfig(
+        num_heads=H, block=64, different_layout_per_head=True, num_random_blocks=2,
+        attention="unidirectional", seed=4).make_layout(S), True),
+    "empty-rows": (1, 256, 1, lambda H, S: empty_rows_layout(), False),
+    "future-only": (1, 256, 1, lambda H, S: future_only_layout(), True),
+}
+# kernel against the plain version with the kernel's rounding, on the same
+# inputs, q drawn so the score std is 3 (peaked rows).  Per output: max
+# |err| / max |plain| and |err|_2 / |plain|_2.  fp32: sums in another
+# order.  bf16: both round p, ds and the outputs to bf16 from fp32 values
+# that differ by rounding noise, one ulp (2^-8) at most per element.
+KERNEL_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 5e-3)}
+
+
+def kernel_inputs(case, dtype, device, seed=11):
+    B, S, H, layout_fn, causal = KERNEL_CASES[case]
+    rng = np.random.default_rng(seed)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device, DTYPES[dtype][1])
+    q = dev(rng.standard_normal((B, S, H, 64)) * 3.0)
+    k, v, do = (dev(rng.standard_normal((B, S, H, 64))) for _ in range(3))
+    return (q, k, v, do), layout_fn(H, S), causal
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", sorted(KERNEL_CASES))
+def test_cuda_kernels_match_plain(cuda_device, case, dtype):
+    (q, k, v, do), layout, causal = kernel_inputs(case, dtype, cuda_device)
+    row_lut, row_cnt, col_lut, col_cnt = tbs.device_luts(layout, cuda_device)
+    o, lse = tbs.block_sparse_forward(q, k, v, row_lut, row_cnt, causal, 0.125)
+    ro, rlse = tbs.block_sparse_forward_reference(q, k, v, row_lut, row_cnt, causal, 0.125,
+                                                  kernel_rounding=True)
+    delta = (ro.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    bargs = (q, k, v, do, rlse, delta)
+    dq = tbs.block_sparse_backward_dq(*bargs, row_lut, row_cnt, causal, 0.125)
+    rdq = tbs.block_sparse_backward_dq_reference(*bargs, row_lut, row_cnt, causal, 0.125,
+                                                 kernel_rounding=True)
+    dk, dv = tbs.block_sparse_backward_dkv(*bargs, col_lut, col_cnt, causal, 0.125)
+    rdk, rdv = tbs.block_sparse_backward_dkv_reference(*bargs, col_lut, col_cnt, causal, 0.125,
+                                                       kernel_rounding=True)
+    torch.cuda.synchronize()
+    lse_err = ((lse - rlse).abs() / rlse.abs().clamp(min=1.0)).max().item()
+    assert lse_err <= 1e-5, f"lse {lse_err:.3e}"
+    max_tol, l2_tol = KERNEL_TOL[dtype]
+    for got, want, what in ((o, ro, "o"), (dq, rdq, "dq"), (dk, rdk, "dk"), (dv, rdv, "dv")):
+        assert got.dtype == want.dtype and got.shape == want.shape and got.is_contiguous()
+        assert torch.isfinite(got.float()).all(), what
+        err = got.float() - want.float()
+        scale = want.float().abs().max().clamp(min=1e-30)
+        err_max = (err.abs().max() / scale).item()
+        err_l2 = (err.norm() / want.float().norm().clamp(min=1e-30)).item()
+        assert err_max <= max_tol and err_l2 <= l2_tol, \
+            f"{what}: max {err_max:.3e} (tol {max_tol}), L2 {err_l2:.3e} (tol {l2_tol})"
+
+
+@pytest.mark.cuda
+def test_cuda_reads_the_models_qkv_views_by_stride(cuda_device):
+    """q, k, v as the model hands them (views of one [B, S, 3E] product)
+    give what contiguous copies give, bit for bit."""
+    B, S, H = 2, 512, 12
+    qkv = torch.randn(B, S, 3 * H * 64, device=cuda_device, dtype=torch.bfloat16)
+    q, k, v = (t.reshape(B, S, H, 64) for t in qkv.split(H * 64, dim=-1))
+    layout = tsc.FixedSparsityConfig(num_heads=H, block=64,
+                                     attention="unidirectional").make_layout(S)
+    row_lut, row_cnt, _, _ = tbs.device_luts(layout, cuda_device)
+    tbs.reset_counts()
+    o, lse = tbs.block_sparse_forward(q, k, v, row_lut, row_cnt, True, 0.125)
+    o2, lse2 = tbs.block_sparse_forward(q.contiguous(), k.contiguous(), v.contiguous(),
+                                        row_lut, row_cnt, True, 0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert tbs.block_sparse_forward.launches == 2
+    assert tbs.block_sparse_forward_reference.calls == 0
+    tbs.reset_counts()
+
+
+@pytest.mark.cuda
+def test_cuda_rejects_what_the_kernels_do_not_take(cuda_device):
+    layout = np.ones((2, 4, 4), np.int32)
+    q = torch.zeros(1, 128, 2, 64, device=cuda_device)
+    luts = tbs.device_luts(layout, cuda_device)
+    with pytest.raises(ValueError, match="block 64"):
+        tbs.block_sparse_forward(q, q, q, luts[0], luts[1], False, 0.125)
+    q = torch.zeros(1, 256, 2, 32, device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim 64"):
+        tbs.block_sparse_forward(q, q, q, luts[0], luts[1], False, 0.125)
+    q = torch.zeros(1, 256, 2, 64, device=cuda_device)
+    with pytest.raises(TypeError, match="Queue 1 item 5"):
+        tbs.block_sparse_forward(q.half(), q.half(), q.half(), luts[0], luts[1], False, 0.125)
+    with pytest.raises(ValueError, match="no kernel"):
+        tbs.block_sparse_forward(q, q.cpu(), q, luts[0], luts[1], False, 0.125)
+
+
+@pytest.mark.cuda
+def test_cuda_module_launches_the_kernels_forward_and_backward(cuda_device):
+    """``SparseSelfAttention`` on the card runs the three kernels, never
+    their plain versions, with finite gradients."""
+    mod = tsa.SparseSelfAttention(tsa.FixedSparsityConfig(num_heads=4, block=64,
+                                                          attention="unidirectional"),
+                                  max_seq_length=1024)
+    rng = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 1024, 4, 64)).astype(np.float32))
+               .to(cuda_device, torch.bfloat16).requires_grad_() for _ in range(3))
+    tbs.reset_counts()
+    mod(q, k, v).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (tbs.block_sparse_forward.launches, tbs.block_sparse_backward_dq.launches,
+            tbs.block_sparse_backward_dkv.launches) == (1, 1, 1)
+    assert (tbs.block_sparse_forward_reference.calls, tbs.block_sparse_backward_dq_reference.calls,
+            tbs.block_sparse_backward_dkv_reference.calls) == (0, 0, 0)
+    assert all(torch.isfinite(t.grad.float()).all() for t in (q, k, v))
+    tbs.reset_counts()

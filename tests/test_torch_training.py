@@ -13,6 +13,16 @@
   orders, through layer norms and a softmax).
 * Remat keeps the flash op's o and lse: the flash forward runs once per
   layer per forward and backward.
+* Block-sparse attention through the model: a name given to
+  ``register_attention`` reaches ``gpt_forward`` through
+  ``cfg.attn_impl`` in both packages; with an adapter over
+  ``SparseSelfAttention`` (a block-64 "fixed" unidirectional layout from a
+  ds_config ``sparse_attention`` block) a 2-layer GPT-2-width model at S
+  256 matches JAX's loss and every gradient (remat on and off, the same
+  tolerances), and under remat the sparse forward runs twice per layer
+  (JAX's policy saves only flash's outputs), dQ and dKV once.  The engine
+  trajectory below is also run with ``tiny`` on that path (block 32, S
+  128).
 * The engine: three ``train_batch`` steps (fp32, AdamW wd 0.01, clip 1.0
   binding, GAS 2) against the JAX engine on a one-device mesh with both
   Pallas gates on (cross-entropy and fused Adam in interpret mode), from
@@ -37,6 +47,8 @@ import jax.numpy as jnp
 import deepspeed_tpu
 import deepspeed_tpu_torch as dst
 from deepspeed_tpu.models import gpt as jgpt
+from deepspeed_tpu.ops import attention as jattn
+from deepspeed_tpu.ops import sparse_attention as jsa
 from deepspeed_tpu.parallel import mesh as mesh_lib
 from deepspeed_tpu.runtime import lr_schedules as jlr
 from deepspeed_tpu.runtime.config import DeepSpeedConfig as JConfig
@@ -45,6 +57,8 @@ from deepspeed_tpu.runtime.fp16 import loss_scaler as jls
 from deepspeed_tpu_torch.models import gpt as tgpt
 from deepspeed_tpu_torch.models.convert import adam_state_from_jax, params_from_jax
 from deepspeed_tpu_torch.ops import attention as tattn
+from deepspeed_tpu_torch.ops import sparse_attention as tsa
+from deepspeed_tpu_torch.ops.cuda import block_sparse_attention as tbs
 from deepspeed_tpu_torch.ops.cuda import flash_attention as tfa
 from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing
 from deepspeed_tpu_torch.runtime import lr_schedules as tlr
@@ -74,6 +88,11 @@ CONFIG_CASES = {
         "stage": 3, "stage3_max_live_parameters": 12345, "stage3_prefetch_bucket_size": 777,
         "offload_optimizer": {"device": "cpu"}}},
     "unknown-keys": {"train_batch_size": 8, "zero_optimization": {"stage": 1, "future": True}},
+    "sparse-attention": {"train_batch_size": 8, "sparse_attention": {
+        "mode": "bigbird", "block": 64, "num_random_blocks": 2}},
+    "sparse-attention-unknown-mode": {"train_batch_size": 8,
+                                      "sparse_attention": {"mode": "nope"}},
+    "sparse-attention-not-a-dict": {"train_batch_size": 8, "sparse_attention": "fixed"},
     "blocks": {"train_batch_size": 8,
                "optimizer": {"type": "AdamW", "params": {"lr": 0.001, "weight_decay": 0.01}},
                "scheduler": {"type": "WarmupLR", "params": {"warmup_num_steps": 10}},
@@ -89,16 +108,18 @@ def config_view(cfg):
             zc.prefetch_bucket_size, str(getattr(zc.offload_optimizer, "device", None)),
             cfg.optimizer_name, cfg.optimizer_params, cfg.scheduler_name,
             cfg.fp16_config.enabled, cfg.fp16_config.initial_scale_power,
-            cfg.fp16_config.loss_scale_window, cfg.gradient_clipping)
+            cfg.fp16_config.loss_scale_window, cfg.gradient_clipping, cfg.sparse_attention)
 
 
 @pytest.mark.parametrize("case", sorted(CONFIG_CASES))
 def test_config_matches_jax_at_world_size_1(case):
+    """Same values, or the same exception type (the config errors, and the
+    sparse_attention block's ValueError and NotImplementedError)."""
     raw = CONFIG_CASES[case]
     try:
         want = config_view(JConfig(raw, world_size=1))
-    except JConfigError as e:
-        with pytest.raises(TConfigError) as got:
+    except (JConfigError, ValueError, NotImplementedError) as e:
+        with pytest.raises((TConfigError, ValueError, NotImplementedError)) as got:
             TConfig(raw, world_size=1)
         assert type(e).__name__ == type(got.value).__name__
         return
@@ -228,6 +249,109 @@ def test_remat_runs_the_flash_forward_once_per_layer(monkeypatch, policy):
     tfa.reset_counts()
 
 
+# --------------------------------------------------------------------------- #
+# block-sparse attention through the model
+# --------------------------------------------------------------------------- #
+# a ds_config sparse_attention block: the Sparse Transformer "fixed"
+# pattern, causal (at S 256 with block 64: row blocks 0-3 list {0}, {0, 1},
+# {1, 2}, {1, 2, 3})
+SPARSE_BLOCK = {"mode": "fixed", "block": 64, "num_local_blocks": 2, "num_global_blocks": 1,
+                "attention": "unidirectional"}
+
+
+def sparse_attention_fn(pkg, block, num_heads, max_seq_length):
+    """The adapter a user of either package writes: the config block ->
+    SparsityConfig -> SparseSelfAttention, behind the attention contract."""
+    module = pkg.SparseSelfAttention(
+        pkg.sparsity_config.sparsity_config_from_dict(block, num_heads=num_heads),
+        max_seq_length=max_seq_length)
+
+    def fn(q, k, v, *, causal, bias=None, alibi=None):
+        if bias is not None or alibi is not None:
+            raise NotImplementedError("block-sparse attention takes no bias or ALiBi slopes")
+        return module(q, k, v)
+    return fn
+
+
+@pytest.fixture
+def own_registries(monkeypatch):
+    """Registrations made in a test go with it."""
+    monkeypatch.setattr(jattn, "_REGISTRY", dict(jattn._REGISTRY))
+    monkeypatch.setattr(tattn, "_REGISTRY", dict(tattn._REGISTRY))
+
+
+def register_sparse(block, num_heads, max_seq_length):
+    jattn.register_attention("block_sparse", sparse_attention_fn(jsa, block, num_heads,
+                                                                 max_seq_length))
+    tattn.register_attention("block_sparse", sparse_attention_fn(tsa, block, num_heads,
+                                                                 max_seq_length))
+
+
+def test_a_registered_name_reaches_gpt_forward_in_both_packages(own_registries):
+    calls = {"jax": [], "torch": []}
+
+    def spy(attention, pkg):
+        def fn(q, k, v, **kw):
+            calls[pkg].append(tuple(q.shape))
+            return attention(q, k, v, **kw)
+        return fn
+    jattn.register_attention("spy", spy(jattn.reference_attention, "jax"))
+    tattn.register_attention("spy", spy(tattn.reference_attention, "torch"))
+    assert tattn.get_attention_fn("spy") is tattn._REGISTRY["spy"]
+    jcfg, jparams = jax_model("tiny", attn_impl="spy")
+    ids = batch(jcfg.vocab_size, 2, 16, seed=30)[0]
+    want = jgpt.gpt_forward(jcfg, jparams, jnp.asarray(ids))
+    cfg = tgpt.GPTConfig(dtype="float32", attn_impl="spy", **MODELS["tiny"])
+    model = tgpt.GPT(cfg, device="cpu", state_dict=params_from_jax(jparams))
+    got = tgpt.gpt_forward(cfg, model.param_tree(), torch.from_numpy(ids))
+    # JAX traces its scanned block once; the port calls it per layer
+    assert calls == {"jax": [(2, 16, 4, 8)], "torch": [(2, 16, 4, 8)] * cfg.n_layer}
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-4)
+    with pytest.raises(NotImplementedError, match="no bias"):
+        sparse_attention_fn(tsa, SPARSE_BLOCK, 4, 128)(*(torch.zeros(1, 64, 4, 8),) * 3,
+                                                       causal=True, alibi=np.ones(4))
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_gpt_loss_and_every_grad_match_jax_through_sparse_attention(monkeypatch, own_registries,
+                                                                    remat):
+    """A 2-layer GPT-2-width model (E 768, 12 heads) at S 256 with
+    attn_impl "block_sparse": loss and every gradient against JAX's (its
+    Pallas kernels in interpret mode).  The plain sparse versions run: the
+    forward twice per layer under remat (nothing of the op is saved, as in
+    JAX), once without; dQ and dKV once per layer."""
+    monkeypatch.setenv("DST_PALLAS_CE", "0")
+    S = 256
+    register_sparse(SPARSE_BLOCK, 12, S)
+    dims = dict(MODELS["gpt2-width-2-layers"], n_positions=S)
+    jcfg = jgpt.GPTConfig(dtype="float32", remat=remat, attn_impl="block_sparse", **dims)
+    jparams = jgpt.GPT(jcfg).init_params(jax.random.PRNGKey(0))
+    ids, labels = batch(jcfg.vocab_size, 2, S, seed=31)
+    jloss, jgrads = jax.value_and_grad(
+        lambda p: jgpt.gpt_loss(jcfg, p, jnp.asarray(ids), jnp.asarray(labels)))(jparams)
+    tcfg = tgpt.GPTConfig(dtype="float32", remat=remat, attn_impl="block_sparse", **dims)
+    model = tgpt.GPT(tcfg, device="cpu", state_dict=params_from_jax(jparams))
+    for p in model.parameters():
+        p.requires_grad_(True)
+    tbs.reset_counts()
+    tfa.reset_counts()
+    loss = tgpt.gpt_loss(tcfg, model.param_tree(), torch.from_numpy(ids),
+                         torch.from_numpy(labels))
+    loss.backward()
+    L = tcfg.n_layer
+    assert (tbs.block_sparse_forward_reference.calls, tbs.block_sparse_backward_dq_reference.calls,
+            tbs.block_sparse_backward_dkv_reference.calls) == ((2 * L if remat else L), L, L)
+    assert tfa.flash_forward_reference.calls == 0
+    assert abs(float(loss.detach()) - float(jloss)) <= LOSS_RTOL * abs(float(jloss))
+    want = params_from_jax(jgrads)
+    got = dict(model.named_parameters())
+    assert set(want) == set(got)
+    for k, g in want.items():
+        np.testing.assert_allclose(got[k].grad.numpy(), g.numpy(), rtol=0,
+                                   atol=GRAD_TOL * float(g.abs().max()), err_msg=k)
+    tbs.reset_counts()
+
+
 def test_gpt_forward_logits_match_the_inference_path():
     """``gpt_forward`` without ``return_hidden`` gives the logits that
     ``apply_with_cache`` (the inference path) gives on the same prompt."""
@@ -262,11 +386,11 @@ def engine_config():
             "gradient_clipping": CLIP, "steps_per_print": 10 ** 9}
 
 
-def run_jax_engine(cfg, params, batches):
+def run_jax_engine(cfg, params, batches, config):
     mesh = mesh_lib.MeshSpec(device_count=1).build(jax.devices()[:1])
     try:
         engine, _, _, _ = deepspeed_tpu.initialize(
-            model=jgpt.GPT(cfg), model_parameters=params, config=engine_config(), mesh=mesh)
+            model=jgpt.GPT(cfg), model_parameters=params, config=config, mesh=mesh)
         assert engine._fused_opt_active()
         losses, norms = [], []
         for ids, labels in batches:
@@ -277,16 +401,41 @@ def run_jax_engine(cfg, params, batches):
         mesh_lib.reset_mesh()
 
 
+# the tiny model on the block-sparse path: block 32 at S 128 (4 row blocks)
+SPARSE_TINY_BLOCK = dict(SPARSE_BLOCK, block=32)
+SPARSE_TINY_SEQ = 128
+
+
 def test_engine_trajectory_matches_the_jax_engine(monkeypatch):
+    check_engine_trajectory(monkeypatch, "auto")
+
+
+def test_engine_trajectory_matches_the_jax_engine_through_sparse_attention(monkeypatch,
+                                                                          own_registries):
+    """The ds_config carries the sparse_attention block, which both engines
+    accept, and the models' attn_impl names the adapter built from it."""
+    check_engine_trajectory(monkeypatch, "block_sparse")
+
+
+def check_engine_trajectory(monkeypatch, attention):
     monkeypatch.setenv("DST_PALLAS_CE", "1")
     monkeypatch.setenv("DST_PALLAS_FUSED_OPT", "1")
-    jcfg, jparams = jax_model("tiny", scale=4.0, scan_layers=True)
-    batches = [batch(jcfg.vocab_size, MICRO, SEQ, seed=20 + i, gas=GAS) for i in range(STEPS)]
-    jlosses, jnorms, jfinal, jstate = run_jax_engine(jcfg, jparams, batches)
+    config, seq, dims = engine_config(), SEQ, dict(MODELS["tiny"])
+    if attention == "block_sparse":
+        seq = SPARSE_TINY_SEQ
+        config["sparse_attention"] = SPARSE_TINY_BLOCK
+        dims.update(n_positions=seq, attn_impl="block_sparse")
+        register_sparse(SPARSE_TINY_BLOCK, dims["n_head"], seq)
+    jcfg = jgpt.GPTConfig(dtype="float32", scan_layers=True, **dims)
+    jparams = jax.tree.map(lambda a: np.asarray(a) * (4.0 if np.ndim(a) >= 2 else 1.0),
+                           jgpt.GPT(jcfg).init_params(jax.random.PRNGKey(0)))
+    batches = [batch(jcfg.vocab_size, MICRO, seq, seed=20 + i, gas=GAS) for i in range(STEPS)]
+    jlosses, jnorms, jfinal, jstate = run_jax_engine(jcfg, jparams, batches, config)
 
-    model = tgpt.GPT(tgpt.GPTConfig(dtype="float32", **MODELS["tiny"]), device="cpu")
+    model = tgpt.GPT(tgpt.GPTConfig(dtype="float32", **dims), device="cpu")
+    tbs.reset_counts()
     engine, optimizer, loader, sched = dst.initialize(
-        model=model, config=engine_config(), model_parameters=params_from_jax(jparams),
+        model=model, config=config, model_parameters=params_from_jax(jparams),
         device="cpu")
     assert optimizer is engine.optimizer and loader is None and sched is None
     losses, norms = [], []
@@ -315,6 +464,9 @@ def test_engine_trajectory_matches_the_jax_engine(monkeypatch):
             np.testing.assert_allclose(state[key][k].numpy(), v.numpy(), rtol=0,
                                        atol=1e-4 * float(v.abs().max()), err_msg=f"{key} {k}")
     assert engine.global_steps == STEPS and engine.micro_steps == STEPS * GAS
+    sparse_calls = tbs.block_sparse_forward_reference.calls
+    assert sparse_calls == (STEPS * GAS * jcfg.n_layer if attention == "block_sparse" else 0)
+    tbs.reset_counts()
 
 
 def test_forward_backward_step_equals_train_batch():
@@ -349,6 +501,7 @@ def test_forward_backward_step_equals_train_batch():
     ({"stability": {"enabled": True}}, "item 8"),
     ({"activation_checkpointing": {"partition_activations": True}}, "item 6"),
     ({"activation_checkpointing": {"cpu_checkpointing": True}}, "item 7"),
+    ({"compression_training": {"weight_quantization": {"shared_parameters": {}}}}, "item 9"),
 ])
 def test_engine_rejects_what_is_not_ported(config, item):
     model = tgpt.GPT(tgpt.GPTConfig(dtype="float32", **MODELS["tiny"]), device="cpu")

@@ -13,7 +13,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    the bound (bytes or operations over the H100 SXM's peaks) and, for the
    contiguous kernel, one ``scaled_dot_product_attention`` call as a
    yardstick.  The contiguous kernel runs at batch-8 decode and at
-   generate()'s own shapes (a 300-token prefill, a masked decode step);
+   generate()'s own shapes (a 300-token prefill, a masked decode step).
+   bf16 is also held at peaked scores (q scaled to a score std of ~3, where
+   a lost 16-key block shows) against the plain version computed in fp32 on
+   the same inputs, by relative L2.  Beside each paged case, one SDPA call
+   over the cache gathered beforehand (the gather untimed) is reported as a
+   lower reference: no PyTorch call takes a block table, so it is not a
+   library time.  Each decode case is also timed after a read-only flush
+   (the 64 MB buffer summed, not zeroed): zeroing leaves ~50 MB of dirty
+   lines in L2 whose write-back shares the bandwidth with the kernel's
+   reads, which is not how the serving step finds the cache;
 4. end to end in fp32 (TF32 off): GPT-2 XL at full width and depth, seeded
    weights, served through ``init_serving`` and held token for token
    against the port's ``generate()`` — once with a roomy arena, once with a
@@ -21,8 +30,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    a near-tie only where generate()'s top-two logits at the first differing
    position are within 1e-4;
 5. bf16 serving of the same requests: tokens/s, median TTFT and median
-   decode-step time, finite logits, and the first decode step's logits
-   against the plain attention path;
+   decode-step time, finite logits, a profile of 8 decode steps (device
+   time by kernel, paged attention's device ms per step) and the first
+   decode step's logits against the plain attention path;
 6. the training kernels against their plain versions at GPT-2's training
    shape, fp32 and bf16: the flash attention forward, dQ and dKV at the
    path's shape (B 8, S 512, H 12, head_dim 64, causal) and at GPT-2 XL's
@@ -97,6 +107,12 @@ PEAK_FLOPS = {"float32": 67e12,  # fp32 outside the tensor cores
 # sums in another order; bf16 outputs are rounded to bf16 (2^-8 relative)
 # after a softmax whose p the two versions round at different points
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# decode kernels in bf16 at peaked scores (q scaled to a score std of ~3):
+# relative L2 against the plain version computed in fp32 on the same bf16
+# inputs.  The kernel's own error is bf16 rounding of p and o (2^-9
+# relative each, ~2e-3 together); a lost 16-key block moves o by percents
+PEAKED_Q_STD = 3.0
+PEAKED_L2_TOL = 5e-3
 NEAR_TIE = 1e-4
 BF16_LOGIT_TOL = 0.25            # first decode step, kernel vs plain attention
 
@@ -277,8 +293,25 @@ def paged_inputs(rng, B, Sq, lengths, dtype, device):
             dev(np.asarray(lengths, np.int32), torch.int32))
 
 
-def kernel_cases(device, flush, reps: int = 50, plain_reps: int = 10):
-    """Every case x dtype: error, times, bound.  Returns the result rows."""
+def peaked_checks(dtype_name, scaled, kernel, exact, q):
+    """The checks of one decode-kernel case: the error scaled by max(1,
+    |plain|) against TOL and, in bf16, the relative L2 error at peaked
+    scores (q * PEAKED_Q_STD) against ``exact`` (the plain version in fp32
+    on the same inputs)."""
+    import torch
+    checks = [("err/max(1,|plain|)", scaled, TOL[dtype_name])]
+    if dtype_name == "bfloat16":
+        qq = q * PEAKED_Q_STD
+        out, ref = kernel(qq), exact(qq)
+        torch.cuda.synchronize()
+        checks.append(("peaked err_2/|exact|_2",
+                       ((out.float() - ref).norm() / ref.norm()).item(), PEAKED_L2_TOL))
+    return checks
+
+
+def kernel_cases(device, flush, clean_flush, reps: int = 50, plain_reps: int = 10):
+    """Every case x dtype: error, times, bound.  Returns the result rows.
+    ``clean_flush`` is a read-only flush, for the second pair of times."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.cuda import decode_attention as da
@@ -300,6 +333,23 @@ def kernel_cases(device, flush, reps: int = 50, plain_reps: int = 10):
             if not torch.isfinite(out).all():
                 fail(f"{case} {dtype_name}: non-finite kernel output")
             err, scaled = compare(out, ref)
+            checks = peaked_checks(
+                dtype_name, scaled, lambda qq: da.paged_attention(qq, kp, vp, tables, lens),
+                lambda qq: da.paged_attention_reference(
+                    qq.float(), kp.float(), vp.float(), tables, lens), q)
+            # lower reference: SDPA over the cache gathered beforehand
+            T = MB * BS
+            kt, vt = (pages[tables.long()].reshape(B, T, H, D).transpose(1, 2).contiguous()
+                      for pages in (kp, vp))
+            qt = q.transpose(1, 2).contiguous()
+            keep = (torch.arange(T, device=device)[None, None, :]
+                    <= lens.long()[:, None, None]
+                    + torch.arange(Sq, device=device)[None, :, None])[:, None]
+            gathered, gathered_clean = (median_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=keep), reps, fl) for fl in (flush, clean_flush))
+            clean = median_ms(lambda: da.paged_attention(q, kp, vp, tables, lens), reps,
+                              clean_flush)
+            del kt, vt
             live = [min(n + Sq, MB * BS) for n in lengths]
             nbytes = (2 * sum(live) * H * D * esize + 2 * q.numel() * esize
                       + tables.numel() * 4 + lens.numel() * 4)
@@ -308,12 +358,16 @@ def kernel_cases(device, flush, reps: int = 50, plain_reps: int = 10):
             b_ms, b_by = bound(nbytes, flops, dtype_name)
             rows.append(dict(
                 kernel="paged_attention", case=case, dtype=dtype_name, err=err,
-                scaled=scaled,
+                scaled=scaled, checks=checks,
                 ms=median_ms(lambda: da.paged_attention(q, kp, vp, tables, lens),
                              reps, flush),
                 plain_ms=median_ms(lambda: da.paged_attention_reference(
                     q, kp, vp, tables, lens), plain_reps, flush),
-                bound_ms=b_ms, bound_by=b_by, library_ms=None))
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                note=f"SDPA over the pre-gathered cache, gather untimed (a lower "
+                     f"reference, not a library time): {gathered:.4f} ms; after a "
+                     f"read-only flush: kernel {clean:.4f}, that SDPA "
+                     f"{gathered_clean:.4f} ms"))
         for case, B, Sq, T, pos in CONTIGUOUS_CASES:
             q, ck, cv = (torch.from_numpy(rng.standard_normal(
                 shape, dtype=np.float32)).to(device, dtype)
@@ -324,6 +378,10 @@ def kernel_cases(device, flush, reps: int = 50, plain_reps: int = 10):
             if not torch.isfinite(out).all():
                 fail(f"{case} {dtype_name}: non-finite kernel output")
             err, scaled = compare(out, ref)
+            checks = peaked_checks(
+                dtype_name, scaled, lambda qq: da.decode_attention(qq, ck, cv, pos),
+                lambda qq: da.decode_attention_reference(qq.float(), ck.float(),
+                                                         cv.float(), pos), q)
             live = min(pos + Sq, T)
             nbytes = 2 * B * live * H * D * esize + 2 * q.numel() * esize
             flops = 4.0 * B * sum(min(pos + i + 1, T) for i in range(Sq)) * H * D
@@ -334,16 +392,18 @@ def kernel_cases(device, flush, reps: int = 50, plain_reps: int = 10):
             qpos = pos + torch.arange(Sq, device=device)[:, None]
             keep = torch.arange(T, device=device)[None, :] <= qpos
             mask = None if bool(keep.all()) else keep
-            lib = median_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask), reps, flush)
+            lib, lib_clean = (median_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask), reps, fl) for fl in (flush, clean_flush))
+            clean = median_ms(lambda: da.decode_attention(q, ck, cv, pos), reps, clean_flush)
             rows.append(dict(
                 kernel="decode_attention", case=case,
-                dtype=dtype_name, err=err, scaled=scaled,
+                dtype=dtype_name, err=err, scaled=scaled, checks=checks,
                 ms=median_ms(lambda: da.decode_attention(q, ck, cv, pos),
                              reps, flush),
                 plain_ms=median_ms(lambda: da.decode_attention_reference(
                     q, ck, cv, pos), plain_reps, flush),
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                note=f"after a read-only flush: kernel {clean:.4f}, SDPA {lib_clean:.4f} ms"))
     report_rows(rows)
     return rows
 
@@ -551,10 +611,16 @@ def profile_decode(eng, prompts, card: str, steps: int = 8):
         say("profile: the profiler recorded no device time (not measured)")
         return
     launches = sum(e.count for e in device)
+    paged = [e for e in device if "paged_decode_kernel" in e.key
+             or "paged_prefill_kernel" in e.key]
+    paged_us = sum(e.self_device_time_total for e in paged)
     say(f"profile: {steps} decode steps x {eng._config.max_batch_size} rows, "
         f"device busy {total / wall_us:.1%} of {wall_us / 1e3:.2f} ms wall "
         f"({total / steps / 1e3:.3f} ms device, {launches / steps:.0f} device "
         f"ops per step) [{card}]")
+    say(f"profile: paged attention {paged_us / steps / 1e3:.4f} ms device per decode "
+        f"step ({sum(e.count for e in paged) / steps:.0f} launches per step, "
+        f"{paged_us / total:.1%} of device time) [{card}]")
     for name, t in rows[:6]:
         say(f"  {t / total:6.1%} {t / steps / 1e3:8.3f} ms/step  {name[:70]}")
 
@@ -1406,7 +1472,8 @@ def main() -> int:
 
     # ---- 3. kernels against their plain versions ----------------------------- #
     scratch = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)
-    rows = kernel_cases(device, flush=scratch.zero_)
+    rows = kernel_cases(device, flush=scratch.zero_,
+                        clean_flush=scratch.view(torch.float32).sum)
     del scratch
 
     # ---- 4. end to end, fp32 ---------------------------------------------------- #

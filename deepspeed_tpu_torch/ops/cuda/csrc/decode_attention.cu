@@ -1,310 +1,739 @@
-// KV-cache decode attention for Hopper (sm_90a): the paged (block-table)
-// kernel of the serving engine and the contiguous-cache kernel of
-// generate().
+// KV-cache attention for Hopper (sm_90a): the paged (block-table) kernel of
+// the serving engine and the contiguous-cache kernel of generate().
 //
 // Replaces ops/pallas/decode_attention.py:_paged_kernel and :_decode_kernel
 // of the JAX package.  Both compute, per (row b, head h, query i at global
 // position len_b + i):
 //     out = softmax(q . K^T / sqrt(D), causal: col <= len_b + i) . V
-// over only the live cache tiles, with an online softmax in fp32.
+// over only the live cache columns, with an online softmax in fp32: masked
+// scores are -1e30 and carry weight 0, the running max starts at -1e30, PV
+// takes p rounded to the cache dtype, out = acc / max(l, 1e-30) in q's
+// dtype, and columns past the cache (a contiguous cache's ragged tail, a
+// table row's end) are masked.
 //
-// Bound: bytes.  A decode step reads every live K/V element once and does
-// 4 flops per element read (the score and the PV product), far below the
-// card's ~295 flops/byte ridge, so the floor is live K/V bytes / 3.35 TB/s.
+// Bound: bytes.  Every live K/V element is read once and takes 4 flops
+// (score and PV), far below the card's ~295 flops/byte ridge, so the floor
+// is the live K/V bytes over 3.35 TB/s (a 64-query prefill chunk does 64x
+// the flops on the same bytes and stays below the ridge in bf16).  Short
+// rows do not fill the card, so the rest is latency: each path keeps its
+// dependent reads few (length and block table read together, K/V copies
+// issued before the query tile is needed) and many loads in flight.
 //
-// Design (simple and correct first; wgmma, TMA and split-KV are later work):
-// * compiled for the one shape the GPT-2 family serves: tiles of kTile = 16
-//   keys (the arena's block size) at head_dim kHeadDim = 64.  The wrappers
-//   raise on any other; a configuration that needs another adds its own
-//   instantiation.
-// * grid (H, B, ceil(S_q / 32)): one block per (head, row, 32-query group).
-//   The TPU grid is (B,) with one DMA feeding all heads; here 8 decode rows
-//   x 25 heads give 200 blocks to spread over the 132 SMs.
-// * each block walks its row's live tiles in logical order.  Each of the
-//   128 threads loads 8 contiguous elements of the next tile's K and V (one
-//   or two 16-byte loads each) into registers while the current tile is
-//   consumed, then stages them in shared memory as fp32.  Each warp updates
-//   the running max, sum and accumulator of its query rows (kept in shared
-//   memory across tiles).
-// * within a warp, lane (j, part) computes half of the score of key j; one
-//   shuffle completes it.  The PV product runs with lanes over the head
-//   dimension, keys in order.  Both loops visit only the columns the causal
-//   mask keeps, so the result of a row does not depend on how many masked
-//   columns or tiles the block also walks.
-// * the two kernels share attend_rows(); only the address of a key differs
-//   (a block-table lookup or a stride).  They therefore give bit-identical
-//   fp32 results, which generate() == serve relies on.
-// * the loop bound is min(ceil((len + S_q) / kTile), MB) for the paged
-//   kernel (a padded prefill chunk can push len + S_q past MB * BS) and
-//   ceil(min(len + S_q, T) / kTile) for the contiguous one (ragged T masked).
-// * masked scores are -1e30 and the PV product takes p rounded to the cache
-//   dtype, as the JAX kernels have them; the output is written in q's dtype.
+// Two paths, picked on the host by S_q alone (never by T, MB, the lengths
+// or the addressing), so both kernels take the same one for the same call:
+//
+// * decode, S_q <= kDecodeMaxRows (4): CUDA cores.  One block of 8 warps per
+//   (row b, head h), all S_q query rows in registers.  The live 16-key
+//   blocks (aligned to absolute positions 0, 16, ...) are dealt to the warps
+//   round robin: block n goes to warp n % 8, so each warp walks every 8th
+//   block and all 8 warps stream one row's keys at once.  A warp copies a
+//   block with 16 bytes a lane (a key row per 8 lanes in bf16, 16 in fp32)
+//   into a ring in its own shared memory by cp.async, 3 blocks deep in bf16
+//   and 2 in fp32; each lane reads back only what it copied, so the ring
+//   needs no barrier.  Each warp keeps its own (m, l, acc) per row; at the
+//   end the 8 partial states are merged in shared memory in warp order
+//   0..7, each rescaled to the row's overall max.  A warp with no live
+//   block leaves m = -1e30, l = 0, acc = 0, which the merge weights by
+//   exp(-1e30 - m) = 0: no NaN.
+// * prefill, S_q > 4: tensor cores.  Per (64-query tile, head, row) a
+//   cluster of 4 blocks of 4 warps on neighbouring SMs, each warp 16 query
+//   rows; block g of the cluster walks 64-key tiles g, g + 4, ... (4 arena
+//   blocks each, looked up through the table; positions 0, 64, ...) double
+//   buffered in shared memory with cp.async, and block 0 merges the 4
+//   states through distributed shared memory in rank order.  bf16 products
+//   are mma.sync m16n8k16 with fragments loaded by ldmatrix (.trans for V);
+//   fp32 uses FMA in the same register layout (attention_tile.cuh), no
+//   TF32 (wgmma would not help: a call is ~0.3 GFLOP, far from the tensor
+//   cores' limit; the time is latency and the exponentials).  Key tiles
+//   wholly past the tile's last query are not visited; the mask is applied
+//   by value only where some column of the tile lies past a row's position.
+//   Key rows past the tile's last live column (its last query's position,
+//   or the end of the table or cache) are zero-filled and never read, so a
+//   tile that crosses a table row's end reads no table entry at or past
+//   MB.  Query rows past S_q are zero-filled and never written.
+//
+// Scores are kept in log2 units (q . k * log2(e) / sqrt(D)) so that each
+// exponential is one ex2.approx instruction; exp2(0) = 1 exactly.
+//
+// Why paged and contiguous agree bit for bit in fp32: both run the same
+// device function for each path and differ only in the address of a key
+// row (a table lookup, or a stride), and the split of the keys over warps
+// and tiles depends only on absolute key positions.
+//
+// Row independence: within each path, a query row's fp32 result depends
+// only on its own position and the keys.  Its tiles are fixed by absolute
+// position; a block or warp may also visit a tile that lies wholly past the
+// row (for the sake of later rows), and such a tile leaves m, l and acc
+// exactly as they were (alpha = exp2(0) = 1, p = 0); a warp or cluster
+// block with nothing live for the row adds exactly 0 in the merge.  So a prompt prefilled
+// whole (generate()) and in chunks (the serving engine) gives the same rows.
+// The two paths differ from each other in summation order.
+//
+// Compiled for the one shape the GPT-2 family serves: arena blocks of 16
+// keys, head_dim 64; the wrappers raise on any other.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <cooperative_groups.h>
 
-#include <algorithm>
+#include "attention_tile.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kTile = 16;           // keys per tile = the arena's block size
-constexpr int kHeadDim = 64;        // GPT-2 family head_dim
-constexpr int kRowsPerBlock = 32;   // query rows one block owns
-constexpr int kThreads = 128;       // 4 warps: all load, each owns query rows
-constexpr int kVec = kTile * kHeadDim / kThreads;   // elements one thread loads per tile
-constexpr int kThreadsPerKey = kHeadDim / kVec;
-constexpr int kParts = 32 / kTile;  // lanes that share one key's score
-constexpr int kLdk = kHeadDim + 2;  // k_s row stride: lanes (j, part) hit 32 distinct banks
-constexpr float kNegInf = -1e30f;
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kBlock = 16;              // keys per arena block
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kDecodeMaxRows = 4;       // S_q up to this takes the decode path
+constexpr int kDecodeWarps = 8;
+constexpr int kDecodeThreads = 32 * kDecodeWarps;
+static_assert(kTile % kBlock == 0, "a prefill key tile is whole arena blocks");
 
-static_assert(kVec * kThreadsPerKey == kHeadDim && kTile * kThreadsPerKey == kThreads,
-              "one tile is one load per thread");
-static_assert(kHeadDim % 32 == 0 && 32 % kTile == 0, "lane mapping");
+__device__ __forceinline__ bool aligned_ptr(const void* p) { return ((uintptr_t)p & 15u) == 0; }
+
+// 2^x in one instruction (relative error ~2^-22; results below 2^-126 flush
+// to 0).  Scores are kept in log2 units (scaled by log2(e) / sqrt(D)), so
+// exp(s - m) of the math is exp2_approx(s' - m').
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
 
-// kVec elements of T as raw 16-byte words: 1 for bf16, 2 for fp32.
-template <typename T> struct Raw {
-  static constexpr int kWords = kVec * sizeof(T) / 16;
-  uint4 w[kWords];
-};
+// --------------------------------------------------------------------------
+// addressing: the two kernels differ only here
+// --------------------------------------------------------------------------
 
-__device__ __forceinline__ void unpack(const Raw<float>& r, float* f) {
-#pragma unroll
-  for (int i = 0; i < Raw<float>::kWords; ++i) {
-    f[4 * i + 0] = __uint_as_float(r.w[i].x);
-    f[4 * i + 1] = __uint_as_float(r.w[i].y);
-    f[4 * i + 2] = __uint_as_float(r.w[i].z);
-    f[4 * i + 3] = __uint_as_float(r.w[i].w);
-  }
-}
-
-// bf16 -> fp32 is exact: the bf16 bits are the high half of the fp32 bits
-// (the first element is the low half of the 32-bit word, little-endian).
-__device__ __forceinline__ void unpack_pair(unsigned u, float* f) {
-  f[0] = __uint_as_float(u << 16);
-  f[1] = __uint_as_float(u & 0xffff0000u);
-}
-
-__device__ __forceinline__ void unpack(const Raw<__nv_bfloat16>& r, float* f) {
-#pragma unroll
-  for (int i = 0; i < Raw<__nv_bfloat16>::kWords; ++i) {
-    unpack_pair(r.w[i].x, f + 8 * i);
-    unpack_pair(r.w[i].y, f + 8 * i + 2);
-    unpack_pair(r.w[i].z, f + 8 * i + 4);
-    unpack_pair(r.w[i].w, f + 8 * i + 6);
-  }
-}
-
-// Element offset of key column `col` of one (row, kv head) stream.
+// handle(n) names the sequence's 16-key block n (called only for n < MB);
+// offset(hnd, key) is the element offset of key row `key` (0..15) of it.
 struct PagedAddr {
   const int* table;   // this row's block table, MB entries
   int hkv_count, hkv;
-  __device__ __forceinline__ long long operator()(int col) const {
-    const long long phys = table[col / kTile];
-    return ((phys * kTile + col % kTile) * hkv_count + hkv) * kHeadDim;
+  __device__ __forceinline__ int handle(int n) const { return table[n]; }
+  __device__ __forceinline__ long long offset(int hnd, int key) const {
+    return (((long long)hnd * kBlock + key) * hkv_count + hkv) * kD;
   }
 };
 
 struct DenseAddr {
   long long row_base;  // b * T
   int h_count, h;
-  __device__ __forceinline__ long long operator()(int col) const {
-    return ((row_base + col) * h_count + h) * kHeadDim;
+  __device__ __forceinline__ int handle(int n) const { return n; }
+  __device__ __forceinline__ long long offset(int hnd, int key) const {
+    return ((row_base + (long long)hnd * kBlock + key) * h_count + h) * kD;
   }
 };
 
-// This thread's slice of tile t: key tid / kThreadsPerKey, elements
-// [c0, c0 + kVec).  Columns at or past n_cols (the ragged end of a
-// contiguous cache) are zero and never read from memory.
+template <typename T> struct Args {
+  const T* q; const T* k; const T* v; T* out;
+  const int* tables; const int* lengths;  // paged
+  int sq, h_count, hkv_count, mb;         // mb: table width (paged)
+  int t_len, pos;                         // contiguous
+  float scale_log2;                       // log2(e) / sqrt(D)
+};
+
+// The row's cache length: the position of its first query.
+template <typename T> __device__ __forceinline__ int a_len(const Args<T>& a, int b) {
+  return a.lengths != nullptr ? a.lengths[b] : a.pos;
+}
+
+// --------------------------------------------------------------------------
+// decode path
+// --------------------------------------------------------------------------
+
+template <typename T> struct Lanes {
+  static constexpr int kElems = 16 / sizeof(T);         // per 16-byte load: 8 bf16, 4 fp32
+  static constexpr int kPerKey = kD / kElems;           // lanes per key row: 8, 16
+  static constexpr int kKeysPerLoad = 32 / kPerKey;     // 4, 2
+  static constexpr int kLoads = kBlock / kKeysPerLoad;  // warp loads per block: 4, 8
+  static constexpr int kStages = sizeof(T) == 2 ? 3 : 2;   // blocks in a warp's ring
+};
+
+__device__ __forceinline__ void unpack16(const uint4& w, float (&f)[4]) {
+  f[0] = __uint_as_float(w.x);
+  f[1] = __uint_as_float(w.y);
+  f[2] = __uint_as_float(w.z);
+  f[3] = __uint_as_float(w.w);
+}
+
+// bf16 -> fp32 is exact: the bf16 bits are the high half of the fp32 bits
+// (the first element is the low half of the 32-bit word, little-endian).
+__device__ __forceinline__ void unpack16(const uint4& w, float (&f)[8]) {
+  const unsigned u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(u[i] << 16);
+    f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+
+// One 16-key block of K and V as this lane holds it: key
+// i * kKeysPerLoad + lane / kPerKey, elements [c0, c0 + kElems).
+template <typename T> struct KV {
+  uint4 k[Lanes<T>::kLoads], v[Lanes<T>::kLoads];
+};
+
+// A warp's stage holds one block: K then V, each kLoads x 32 lanes x 16
+// bytes, lane-major, so a warp's copy or read of one load is 512 contiguous
+// bytes.  Each lane reads back only what it copied itself, so the ring
+// needs no barrier, only cp.async.wait_group.
+template <typename T> constexpr int kStageBytes = 2 * Lanes<T>::kLoads * 32 * 16;
+
+// Copy block n (handle hnd) into a stage; keys past last_col are zeros and
+// are not read.  Asynchronous: commit, then wait before read_block.
 template <typename T, typename Addr>
-__device__ __forceinline__ void load_tile(const T* __restrict__ k, const T* __restrict__ v,
-                                          const Addr& addr, int t, int n_cols, Raw<T>& kr,
-                                          Raw<T>& vr) {
-  const int col = t * kTile + threadIdx.x / kThreadsPerKey;
-  const int c0 = (threadIdx.x % kThreadsPerKey) * kVec;
-  if (col < n_cols) {
-    const long long off = addr(col) + c0;
-    const uint4* kp = reinterpret_cast<const uint4*>(k + off);
-    const uint4* vp = reinterpret_cast<const uint4*>(v + off);
+__device__ __forceinline__ void copy_block(unsigned char* stage, const T* k, const T* v,
+                                           const Addr& addr, int hnd, int n, int last_col) {
+  using L = Lanes<T>;
+  const int lane = threadIdx.x & 31, j = lane / L::kPerKey;
+  const int c0 = (lane % L::kPerKey) * L::kElems;
 #pragma unroll
-    for (int i = 0; i < Raw<T>::kWords; ++i) {
-      kr.w[i] = __ldg(kp + i);
-      vr.w[i] = __ldg(vp + i);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < Raw<T>::kWords; ++i) kr.w[i] = vr.w[i] = make_uint4(0, 0, 0, 0);
+  for (int i = 0; i < L::kLoads; ++i) {
+    const int key = i * L::kKeysPerLoad + j;
+    const bool valid = n * kBlock + key <= last_col;
+    const long long off = valid ? addr.offset(hnd, key) + c0 : 0;
+    copy16_async(stage + (i * 32 + lane) * 16, k + off, valid);
+    copy16_async(stage + ((L::kLoads + i) * 32 + lane) * 16, v + off, valid);
   }
 }
 
 template <typename T>
-__device__ __forceinline__ void stage_tile(float* k_s, float* v_s, const Raw<T>& kr,
-                                           const Raw<T>& vr) {
-  const int jj = threadIdx.x / kThreadsPerKey;
-  const int c0 = (threadIdx.x % kThreadsPerKey) * kVec;
-  float kf[kVec], vf[kVec];
-  unpack(kr, kf);
-  unpack(vr, vf);
+__device__ __forceinline__ void read_block(KV<T>& kv, const unsigned char* stage) {
+  using L = Lanes<T>;
+  const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int e = 0; e < kVec; ++e) {
-    k_s[jj * kLdk + c0 + e] = kf[e];
-    v_s[jj * kLdk + c0 + e] = vf[e];
+  for (int i = 0; i < L::kLoads; ++i) {
+    kv.k[i] = *reinterpret_cast<const uint4*>(stage + (i * 32 + lane) * 16);
+    kv.v[i] = *reinterpret_cast<const uint4*>(stage + ((L::kLoads + i) * 32 + lane) * 16);
   }
 }
 
-size_t smem_bytes(int rows) {
-  return sizeof(float) * (size_t)(2 * kTile * kLdk + 2 * rows * kHeadDim + 2 * rows);
-}
+// The warp's running state of its rows: m and l are whole-warp values once a
+// block is folded in (l summed over this lane's key group only, until the
+// end), acc is this lane's kElems columns over its key group.
+template <typename T, int kRows> struct RowState {
+  float m[kRows], l[kRows], acc[kRows][Lanes<T>::kElems];
+};
 
-// One block: query rows [row0, row0 + nrows) of (b, h) against n_cols key
-// columns (only the first min(len + row0 + nrows, n_cols) are live).
-template <typename T, typename Addr>
-__device__ void attend_rows(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v, T* __restrict__ out,
-                            const Addr addr, int b, int h, int sq, int h_count, int len,
-                            int n_cols, float scale) {
-  constexpr int d = kHeadDim;
-  extern __shared__ float smem[];
-  const int row0 = blockIdx.z * kRowsPerBlock;
-  const int rows = min(sq, kRowsPerBlock);          // shared-memory row stride
-  const int nrows = min(kRowsPerBlock, sq - row0);
-  float* k_s = smem;
-  float* v_s = k_s + kTile * kLdk;
-  float* q_s = v_s + kTile * kLdk;
-  float* acc_s = q_s + rows * d;
-  float* m_s = acc_s + rows * d;
-  float* l_s = m_s + rows;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31, nwarps = kThreads >> 5;
-
-  for (int i = tid; i < nrows * d; i += kThreads) {
-    const int r = i / d, c = i % d;
-    q_s[i] = to_f(q[(((long long)b * sq + row0 + r) * h_count + h) * d + c]);
-    acc_s[i] = 0.f;
-  }
-  for (int r = tid; r < nrows; r += kThreads) {
-    m_s[r] = kNegInf;
-    l_s[r] = 0.f;
-  }
-
-  const int last_col = min(len + row0 + nrows - 1, n_cols - 1);
-  const int n_tiles = last_col / kTile + 1;
-  const int j = lane % kTile, part = lane / kTile;
-
-  Raw<T> kr, vr;
-  load_tile(k, v, addr, 0, n_cols, kr, vr);
-  for (int t = 0; t < n_tiles; ++t) {
-    __syncthreads();                                // previous tile consumed
-    stage_tile<T>(k_s, v_s, kr, vr);
-    if (t + 1 < n_tiles) load_tile(k, v, addr, t + 1, n_cols, kr, vr);
-    __syncthreads();
-
-    for (int r = warp; r < nrows; r += nwarps) {
-      const int qpos = len + row0 + r;
-      // columns of this tile the causal mask keeps for row r (a prefix)
-      const int n_valid = min(min(qpos, n_cols - 1) - t * kTile + 1, kTile);
-      if (n_valid <= 0) continue;                   // warp-uniform
-
-      const float* qrow = q_s + r * d;
-      const float* krow = k_s + j * kLdk;
-      float s = 0.f;
+template <typename T, int kRows>
+__device__ __forceinline__ void attend_block(RowState<T, kRows>& st, const KV<T>& kv,
+                                             const float (&qf)[kRows][Lanes<T>::kElems], int n,
+                                             int len, int n_cols, float scale_log2) {
+  using L = Lanes<T>;
+  constexpr int E = L::kElems;
+  const int j = (threadIdx.x & 31) / L::kPerKey;
 #pragma unroll
-      for (int c = part; c < d; c += kParts) s += qrow[c] * krow[c];
+  for (int r = 0; r < kRows; ++r) {
+    const int lim = min(len + r, n_cols - 1);       // last column row r attends to
+    if (n * kBlock > lim) continue;                 // warp-uniform: the block is past row r
+    float s[L::kLoads];
 #pragma unroll
-      for (int off = kTile; off < 32; off <<= 1) s += __shfl_xor_sync(kFull, s, off);
-      const bool keep = j < n_valid;
-      s = keep ? s * scale : kNegInf;
-
-      float mt = s;
+    for (int i = 0; i < L::kLoads; ++i) {
+      float kf[E];
+      unpack16(kv.k[i], kf);
+      float d = 0.f;
 #pragma unroll
-      for (int off = 1; off < kTile; off <<= 1) mt = fmaxf(mt, __shfl_xor_sync(kFull, mt, off));
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mt);
-      const float p = keep ? expf(s - m_new) : 0.f;
-      float ps = p;
+      for (int e = 0; e < E; ++e) d = fmaf(qf[r][e], kf[e], d);
 #pragma unroll
-      for (int off = 1; off < kTile; off <<= 1) ps += __shfl_xor_sync(kFull, ps, off);
-      const float alpha = expf(m_old - m_new);
-      const float pv = to_f(from_f<T>(p));          // PV takes p in the cache dtype
-
-      float a[d / 32];
-#pragma unroll
-      for (int i = 0; i < d / 32; ++i) a[i] = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < kTile; ++jj) {
-        if (jj < n_valid) {                         // warp-uniform
-          const float pj = __shfl_sync(kFull, pv, jj);
-          const float* vrow = v_s + jj * kLdk;
-#pragma unroll
-          for (int i = 0; i < d / 32; ++i) a[i] += pj * vrow[i * 32 + lane];
-        }
-      }
-      float* ar = acc_s + r * d;
-#pragma unroll
-      for (int i = 0; i < d / 32; ++i) ar[i * 32 + lane] = ar[i * 32 + lane] * alpha + a[i];
-      __syncwarp();                                 // every lane has read m_s[r]
-      if (lane == 0) {
-        m_s[r] = m_new;
-        l_s[r] = l_s[r] * alpha + ps;
-      }
-      __syncwarp();
+      for (int off = 1; off < L::kPerKey; off <<= 1) d = __fadd_rn(d, __shfl_xor_sync(kFull, d, off));
+      s[i] = n * kBlock + i * L::kKeysPerLoad + j <= lim ? __fmul_rn(d, scale_log2) : kNegInf;
     }
+    float mt = s[0];
+#pragma unroll
+    for (int i = 1; i < L::kLoads; ++i) mt = fmaxf(mt, s[i]);
+#pragma unroll
+    for (int off = L::kPerKey; off < 32; off <<= 1) mt = fmaxf(mt, __shfl_xor_sync(kFull, mt, off));
+    const float m_new = fmaxf(st.m[r], mt);
+    const float alpha = exp2_approx(__fsub_rn(st.m[r], m_new));
+    float ps = 0.f, pv[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) pv[e] = 0.f;
+#pragma unroll
+    for (int i = 0; i < L::kLoads; ++i) {
+      const bool keep = n * kBlock + i * L::kKeysPerLoad + j <= lim;
+      const float p = keep ? exp2_approx(__fsub_rn(s[i], m_new)) : 0.f;
+      ps = __fadd_rn(ps, p);
+      const float pr = to_f(from_f<T>(p));          // PV takes p in the cache dtype
+      float vf[E];
+      unpack16(kv.v[i], vf);
+#pragma unroll
+      for (int e = 0; e < E; ++e) pv[e] = fmaf(pr, vf[e], pv[e]);
+    }
+    st.l[r] = fmaf(st.l[r], alpha, ps);
+#pragma unroll
+    for (int e = 0; e < E; ++e) st.acc[r][e] = fmaf(st.acc[r][e], alpha, pv[e]);
+    st.m[r] = m_new;
   }
+}
+
+// One block: the kRows (= S_q) query rows of (b, h).
+template <typename T, int kRows, typename Addr>
+__device__ __forceinline__ void decode_rows(const Args<T>& a, const Addr& addr, int b, int h,
+                                            int n_cols) {
+  using L = Lanes<T>;
+  constexpr int E = L::kElems, S = L::kStages;
+  __shared__ float s_m[kDecodeWarps][kRows], s_l[kDecodeWarps][kRows];
+  __shared__ float s_acc[kDecodeWarps][kRows][kD];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c0 = (lane % L::kPerKey) * E;
+  const long long row_stride = (long long)a.h_count * kD;
+  const long long base = (long long)b * kRows * row_stride + (long long)h * kD;
+
+  float qf[kRows][E];
+  RowState<T, kRows> st;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      qf[r][e] = to_f(a.q[base + r * row_stride + c0 + e]);
+      st.acc[r][e] = 0.f;
+    }
+    st.m[r] = kNegInf;
+    st.l[r] = 0.f;
+  }
+
+  // this warp's blocks: warp, warp + 8, ... up to the last live one.  Lane
+  // l holds the handle of the warp's block 32 * (i / 32) + l; the first 32
+  // are read before the length is known (the table is read only below its
+  // width n_cols / 16), so the two reads overlap
+  const auto block_of = [&](int i) { return warp + i * kDecodeWarps; };
+  int hnd = block_of(lane) * kBlock < n_cols ? addr.handle(block_of(lane)) : 0;
+  const int len = a_len(a, b);
+  const int last_col = min(len + kRows - 1, n_cols - 1);
+  const int n_blocks = last_col / kBlock + 1;
+  const int count = warp < n_blocks ? (n_blocks - 1 - warp) / kDecodeWarps + 1 : 0;
+
+  extern __shared__ __align__(128) unsigned char ring[];   // kStages blocks per warp
+  unsigned char* my = ring + warp * S * kStageBytes<T>;
+#pragma unroll
+  for (int s = 0; s + 1 < S; ++s) {
+    if (s < count)
+      copy_block(my + s * kStageBytes<T>, a.k, a.v, addr, __shfl_sync(kFull, hnd, s),
+                 block_of(s), last_col);
+    commit_copies();
+  }
+  for (int i = 0; i < count; ++i) {
+    const int next = i + S - 1;
+    if (next < count) {
+      if ((next & 31) == 0) hnd = next + lane < count ? addr.handle(block_of(next + lane)) : 0;
+      copy_block(my + (next % S) * kStageBytes<T>, a.k, a.v, addr,
+                 __shfl_sync(kFull, hnd, next & 31), block_of(next), last_col);
+    }
+    commit_copies();
+    wait_copies<S - 1>();                           // block i has landed
+    KV<T> kv;
+    read_block(kv, my + (i % S) * kStageBytes<T>);
+    attend_block<T, kRows>(st, kv, qf, block_of(i), len, n_cols, a.scale_log2);
+  }
+
+  // the warp's state: sum l and acc over the lane groups of different keys
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int off = L::kPerKey; off < 32; off <<= 1) {
+      st.l[r] = __fadd_rn(st.l[r], __shfl_xor_sync(kFull, st.l[r], off));
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        st.acc[r][e] = __fadd_rn(st.acc[r][e], __shfl_xor_sync(kFull, st.acc[r][e], off));
+    }
+  if (lane < L::kPerKey)
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+#pragma unroll
+      for (int e = 0; e < E; ++e) s_acc[warp][r][c0 + e] = st.acc[r][e];
+  if (lane == 0)
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      s_m[warp][r] = st.m[r];
+      s_l[warp][r] = st.l[r];
+    }
   __syncthreads();
-  for (int i = tid; i < nrows * d; i += kThreads) {
-    const int r = i / d, c = i % d;
-    out[(((long long)b * sq + row0 + r) * h_count + h) * d + c] =
-        from_f<T>(acc_s[i] / fmaxf(l_s[r], 1e-30f));
+
+  // merge the warps in order 0..7, each rescaled to the row's max
+  for (int i = threadIdx.x; i < kRows * kD; i += kDecodeThreads) {
+    const int r = i / kD, c = i % kD;
+    float m = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kDecodeWarps; ++w) m = fmaxf(m, s_m[w][r]);
+    float l = 0.f, acc = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecodeWarps; ++w) {
+      const float f = exp2_approx(__fsub_rn(s_m[w][r], m));
+      l = fmaf(f, s_l[w][r], l);
+      acc = fmaf(f, s_acc[w][r][c], acc);
+    }
+    a.out[base + r * row_stride + c] = from_f<T>(__fdiv_rn(acc, fmaxf(l, 1e-30f)));
   }
 }
 
+// --------------------------------------------------------------------------
+// prefill path
+// --------------------------------------------------------------------------
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// c = a . b^T for the warp's 16 rows of a and the 64 rows of b ([row][kD] in
+// shared memory).  Lane l addresses row l % 8 of 8x8 matrix l / 8; the four
+// matrices of one ldmatrix are A's (rows 0-7 | 8-15) x (columns 0-7 | 8-15)
+// of a 16-deep slice, or B's two halves of that slice for two 8-key slices.
+__device__ __forceinline__ void scores_tile(float (&c)[8][4], const bf16* a, const bf16* b) {
+  constexpr int L = Tr<bf16>::kLd;
+  const int lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
+  zero(c);
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    uint32_t af[4];
+    ldsm_x4(af, a + ((mi & 1) * 8 + r8) * L + kk * 16 + (mi >> 1) * 8);
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {
+      uint32_t bfr[4];
+      ldsm_x4(bfr, b + ((2 * jp + (mi >> 1)) * 8 + r8) * L + kk * 16 + (mi & 1) * 8);
+      mma_bf16(c[2 * jp], af[0], af[1], af[2], af[3], bfr[0], bfr[1]);
+      mma_bf16(c[2 * jp + 1], af[0], af[1], af[2], af[3], bfr[2], bfr[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ void scores_tile(float (&c)[8][4], const float* a, const float* b) {
+  product_nt(c, a, b);
+}
+
+// acc += p . b: p the warp's 16 x 64 tile in registers (rounded to bf16, as
+// JAX's kernel rounds p to the cache dtype), b [64 keys][kD] in shared
+// memory, read transposed by ldmatrix.trans.
+__device__ __forceinline__ void pv_tile(float (&acc)[8][4], const float (&p)[8][4],
+                                        const bf16* b) {
+  constexpr int L = Tr<bf16>::kLd;
+  const int lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk) {
+    const uint32_t a0 = pack_rn(p[2 * kk][0], p[2 * kk][1]);
+    const uint32_t a1 = pack_rn(p[2 * kk][2], p[2 * kk][3]);
+    const uint32_t a2 = pack_rn(p[2 * kk + 1][0], p[2 * kk + 1][1]);
+    const uint32_t a3 = pack_rn(p[2 * kk + 1][2], p[2 * kk + 1][3]);
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {
+      uint32_t bfr[4];
+      ldsm_x4_trans(bfr, b + (kk * 16 + (mi & 1) * 8 + r8) * L + (2 * jp + (mi >> 1)) * 8);
+      mma_bf16(acc[2 * jp], a0, a1, a2, a3, bfr[0], bfr[1]);
+      mma_bf16(acc[2 * jp + 1], a0, a1, a2, a3, bfr[2], bfr[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ void pv_tile(float (&acc)[8][4], const float (&p)[8][4],
+                                        const float* b) {
+  product_pv(acc, p, b);
+}
+
+// The blocks of one query tile form a cluster of kPrefillCluster blocks on
+// neighbouring SMs: block g walks key tiles g, g + G, ... of the tile's 64
+// rows (each warp 16 rows), so G key tiles are in flight and in the tensor
+// cores at once, and block 0 merges the G states through distributed shared
+// memory at the end.
+constexpr int kPrefillCluster = 4;
+
+// Shared memory of a prefill block: the query tile, two K and two V buffers.
+template <typename T> constexpr size_t kPrefillSmem = 5 * sizeof(T) * kTileElems<T>;
+
+// The query tile: rows [row0, row0 + 64) of q (row stride `stride`, a
+// multiple of 16 bytes), rows at or past S_q zero.  16-byte cp.async copies
+// when q is 16-byte aligned (as a fresh tensor is), else element loads.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                       const T* __restrict__ v_pages, const int* __restrict__ block_tables,
-                       const int* __restrict__ lengths, T* __restrict__ out, int sq,
-                       int h_count, int hkv_count, int mb, float scale) {
-  const int h = blockIdx.x, b = blockIdx.y;
-  const PagedAddr addr{block_tables + (long long)b * mb, hkv_count,
-                       h / (h_count / hkv_count)};
-  attend_rows<T>(q, k_pages, v_pages, out, addr, b, h, sq, h_count, lengths[b], mb * kTile,
-                 scale);
+__device__ __forceinline__ void load_query_tile(T* dst, const T* q, long long stride, int row0,
+                                                int sq) {
+  constexpr int L = Tr<T>::kLd, kElems = 16 / sizeof(T), kChunks = kD / kElems;
+  if (aligned_ptr(q)) {
+    for (int c = threadIdx.x; c < kTile * kChunks; c += kThreads) {
+      const int r = c / kChunks, e = (c % kChunks) * kElems;
+      const bool valid = row0 + r < sq;
+      copy16_async(dst + r * L + e, valid ? q + (row0 + r) * stride + e : q, valid);
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < kTile * kD; i += kThreads) {
+    const int r = i / kD, c = i % kD;
+    dst[r * L + c] = row0 + r < sq ? q[(row0 + r) * stride + c] : from_f<T>(0.f);
+  }
+}
+
+// Key tile `tile` of K and V (keys [64 tile, 64 tile + 64)) through the
+// addressing; keys past last_col are zero-filled and neither they nor their
+// table entries are read.  Asynchronous: commit, wait and a barrier first.
+template <typename T, typename Addr>
+__device__ __forceinline__ void load_key_tile(T* dk, T* dv, const T* k, const T* v,
+                                              const Addr& addr, int tile, int last_col) {
+  constexpr int kElems = 16 / sizeof(T), kChunks = kD / kElems;
+  constexpr int kPer = kTile * kChunks / kThreads, L = Tr<T>::kLd;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int c = threadIdx.x + i * kThreads;
+    const int r = c / kChunks, e = (c % kChunks) * kElems;
+    const int col = tile * kTile + r;
+    const bool valid = col <= last_col;
+    const long long off = valid ? addr.offset(addr.handle(col / kBlock), col % kBlock) + e : 0;
+    copy16_async(dk + r * L + e, k + off, valid);
+    copy16_async(dv + r * L + e, v + off, valid);
+  }
+}
+
+// One block: key tiles rank, rank + G, ... of query rows [64 qt, 64 qt + 64)
+// of (b, h); the longest query tiles first.
+template <typename T, typename Addr>
+__device__ __forceinline__ void prefill_rows(const Args<T>& a, const Addr& addr, int b, int h,
+                                             int n_cols) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int G = kPrefillCluster, TE = kTileElems<T>, L = Tr<T>::kLd;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  T* s_q = reinterpret_cast<T*>(smem);
+  T* s_k = s_q + TE;                   // two buffers each
+  T* s_v = s_k + 2 * TE;
+  const int qt = gridDim.z - 1 - blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = qt * kTile, wrow0 = row0 + warp * 16;
+  const int len = a_len(a, b);
+  const int last_col = min(len + min(row0 + kTile, a.sq) - 1, n_cols - 1);
+  const int all_live = min(len + row0, n_cols - 1);   // every row attends to columns 0..all_live
+  const int n_kv = last_col / kTile + 1;
+  const long long stride = (long long)a.h_count * kD;
+  const long long base = (long long)b * a.sq * stride + (long long)h * kD;
+  // last column each of this thread's two rows (wrow0 + g, + 8) attends to
+  const int lim[2] = {min(len + wrow0 + g, n_cols - 1), min(len + wrow0 + g + 8, n_cols - 1)};
+
+  load_query_tile(s_q, a.q + base, stride, row0, a.sq);
+  commit_copies();
+  if (rank < n_kv) load_key_tile(s_k, s_v, a.k, a.v, addr, rank, last_col);
+  commit_copies();
+  wait_copies<1>();                    // this thread's part of the query tile
+  __syncthreads();                     // everyone's
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[8][4];
+  zero(acc);
+  for (int j = rank, it = 0; j < n_kv; j += G, ++it) {
+    const int buf = it & 1;
+    if (j + G < n_kv) {
+      load_key_tile(s_k + (buf ^ 1) * TE, s_v + (buf ^ 1) * TE, a.k, a.v, addr, j + G, last_col);
+      commit_copies();
+      wait_copies<1>();
+    } else {
+      wait_copies<0>();
+    }
+    __syncthreads();
+    float s[8][4];
+    scores_tile(s, s_q + warp * 16 * L, s_k + buf * TE);
+    const bool band = j * kTile + kTile - 1 > all_live;   // some column lies past a row
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = j * kTile + jj * 8 + 2 * t + (i & 1);
+        const float x = band && col > lim[i >> 1] ? kNegInf : __fmul_rn(s[jj][i], a.scale_log2);
+        s[jj][i] = x;
+        mx[i >> 1] = fmaxf(mx[i >> 1], x);
+      }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      alpha[r] = exp2_approx(__fsub_rn(m[r], mx[r]));
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = j * kTile + jj * 8 + 2 * t + (i & 1);
+        const float p =
+            band && col > lim[i >> 1] ? 0.f : exp2_approx(__fsub_rn(s[jj][i], mx[i >> 1]));
+        s[jj][i] = p;
+        sum[i >> 1] = __fadd_rn(sum[i >> 1], p);
+        acc[jj][i] = __fmul_rn(acc[jj][i], alpha[i >> 1]);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = fmaf(l[r], alpha[r], sum[r]);   // this thread's columns
+    pv_tile(acc, s, s_v + buf * TE);
+    __syncthreads();                   // every warp is done with buf before it is refilled
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = quad_sum(l[r]);
+
+  // merge: blocks 1.. leave their state in their K buffers, block 0 reads
+  // them through distributed shared memory and folds them in in rank order,
+  // each rescaled to the row's max (a block with no live tile for a row
+  // holds m = -1e30, l = 0, acc = 0 and adds exactly 0)
+  float* st = reinterpret_cast<float*>(s_k);
+  constexpr int kStride = kThreads;    // element-major: lanes write neighbouring words
+  if (rank > 0) {
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) st[(jj * 4 + i) * kStride + threadIdx.x] = acc[jj][i];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      st[(32 + r) * kStride + threadIdx.x] = m[r];
+      st[(34 + r) * kStride + threadIdx.x] = l[r];
+    }
+  }
+  cluster.sync();
+  if (rank == 0) {
+    float mt[2] = {m[0], m[1]};
+#pragma unroll
+    for (int gg = 1; gg < G; ++gg) {
+      const float* so = cluster.map_shared_rank(st, gg);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) mt[r] = fmaxf(mt[r], so[(32 + r) * kStride + threadIdx.x]);
+    }
+    float f[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      f[r] = exp2_approx(__fsub_rn(m[r], mt[r]));
+      l[r] = __fmul_rn(f[r], l[r]);
+    }
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[jj][i] = __fmul_rn(f[i >> 1], acc[jj][i]);
+#pragma unroll
+    for (int gg = 1; gg < G; ++gg) {
+      const float* so = cluster.map_shared_rank(st, gg);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        f[r] = exp2_approx(__fsub_rn(so[(32 + r) * kStride + threadIdx.x], mt[r]));
+        l[r] = fmaf(f[r], so[(34 + r) * kStride + threadIdx.x], l[r]);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          acc[jj][i] = fmaf(f[i >> 1], so[(jj * 4 + i) * kStride + threadIdx.x], acc[jj][i]);
+    }
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) inv[r] = __frcp_rn(fmaxf(l[r], 1e-30f));
+    store_rows<T>(a.out + base, stride, acc, wrow0, a.sq, inv);
+  }
+  cluster.sync();                      // keep every block's state alive until block 0 has read it
+}
+
+// --------------------------------------------------------------------------
+// kernels: grid (H, B) for decode, (H, B, query tiles) for prefill
+// --------------------------------------------------------------------------
+
+template <typename T>
+__device__ __forceinline__ PagedAddr paged_addr(const Args<T>& a, int b, int h) {
+  return PagedAddr{a.tables + (long long)b * a.mb, a.hkv_count, h / (a.h_count / a.hkv_count)};
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ ck,
-                        const T* __restrict__ cv, T* __restrict__ out, int sq, int h_count,
-                        int t_len, int pos, float scale) {
+__device__ __forceinline__ DenseAddr dense_addr(const Args<T>& a, int b, int h) {
+  return DenseAddr{(long long)b * a.t_len, a.h_count, h};
+}
+
+template <typename T, int kRows>
+__global__ void __launch_bounds__(kDecodeThreads) paged_decode_kernel(const Args<T> a) {
   const int h = blockIdx.x, b = blockIdx.y;
-  const DenseAddr addr{(long long)b * t_len, h_count, h};
-  attend_rows<T>(q, ck, cv, out, addr, b, h, sq, h_count, pos, t_len, scale);
+  decode_rows<T, kRows>(a, paged_addr(a, b, h), b, h, a.mb * kBlock);
 }
 
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem) {
-  if (smem > 48 * 1024)
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)smem);
-  return cudaSuccess;
+template <typename T, int kRows>
+__global__ void __launch_bounds__(kDecodeThreads) contiguous_decode_kernel(const Args<T> a) {
+  const int h = blockIdx.x, b = blockIdx.y;
+  decode_rows<T, kRows>(a, dense_addr(a, b, h), b, h, a.t_len);
 }
 
-dim3 grid_for(int h, int b, int sq) {
-  return dim3(h, b, (sq + kRowsPerBlock - 1) / kRowsPerBlock);
+template <typename T>
+__global__ void __cluster_dims__(kPrefillCluster, 1, 1) __launch_bounds__(kThreads)
+    paged_prefill_kernel(const Args<T> a) {
+  const int h = blockIdx.x / kPrefillCluster, b = blockIdx.y;
+  prefill_rows<T>(a, paged_addr(a, b, h), b, h, a.mb * kBlock);
 }
 
-bool aligned(const void* p) { return ((uintptr_t)p & 15u) == 0; }
+template <typename T>
+__global__ void __cluster_dims__(kPrefillCluster, 1, 1) __launch_bounds__(kThreads)
+    contiguous_prefill_kernel(const Args<T> a) {
+  const int h = blockIdx.x / kPrefillCluster, b = blockIdx.y;
+  prefill_rows<T>(a, dense_addr(a, b, h), b, h, a.t_len);
+}
+
+// Above the default 48 KB a kernel's dynamic shared memory must be raised
+// first: once per kernel and device (the call costs host time on the
+// decode step, which is host-bound).
+template <auto kKernel, typename T>
+cudaError_t launch_kernel(dim3 grid, int threads, size_t smem, cudaStream_t st, const Args<T>& a) {
+  static thread_local int ready = -1;
+  if (smem > 48 * 1024) {
+    int dev;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess && dev != ready)
+      err = cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    ready = dev;
+  }
+  kKernel<<<grid, threads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T> constexpr size_t kDecodeSmem = (size_t)kDecodeWarps * Lanes<T>::kStages * kStageBytes<T>;
+
+// One launch: the decode path for S_q <= kDecodeMaxRows, else the prefill path.
+template <typename T, bool kPaged>
+cudaError_t launch_attention(const Args<T>& a, int b, int h, cudaStream_t st) {
+  static_assert(kDecodeMaxRows == 4, "one case per decode row count");
+  const dim3 grid(h, b);
+  constexpr size_t ds = kDecodeSmem<T>;
+  const dim3 prefill_grid(h * kPrefillCluster, b, cdiv(a.sq, kTile));
+  switch (kPaged ? -a.sq : a.sq) {                  // one case per path, kernel and row count
+    case 1: return launch_kernel<contiguous_decode_kernel<T, 1>>(grid, kDecodeThreads, ds, st, a);
+    case 2: return launch_kernel<contiguous_decode_kernel<T, 2>>(grid, kDecodeThreads, ds, st, a);
+    case 3: return launch_kernel<contiguous_decode_kernel<T, 3>>(grid, kDecodeThreads, ds, st, a);
+    case 4: return launch_kernel<contiguous_decode_kernel<T, 4>>(grid, kDecodeThreads, ds, st, a);
+    case -1: return launch_kernel<paged_decode_kernel<T, 1>>(grid, kDecodeThreads, ds, st, a);
+    case -2: return launch_kernel<paged_decode_kernel<T, 2>>(grid, kDecodeThreads, ds, st, a);
+    case -3: return launch_kernel<paged_decode_kernel<T, 3>>(grid, kDecodeThreads, ds, st, a);
+    case -4: return launch_kernel<paged_decode_kernel<T, 4>>(grid, kDecodeThreads, ds, st, a);
+    default:
+      if (kPaged)
+        return launch_kernel<paged_prefill_kernel<T>>(prefill_grid, kThreads, kPrefillSmem<T>,
+                                                      st, a);
+      return launch_kernel<contiguous_prefill_kernel<T>>(prefill_grid, kThreads,
+                                                         kPrefillSmem<T>, st, a);
+  }
+}
+
+template <bool kPaged>
+int dispatch(int dtype, const void* q, const void* k, const void* v, void* out,
+             const int* tables, const int* lengths, int b, int sq, int h, int hkv, int mb,
+             int t_len, int pos, float scale, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return (int)launch_attention<float, kPaged>(
+        Args<float>{(const float*)q, (const float*)k, (const float*)v, (float*)out, tables,
+                    lengths, sq, h, hkv, mb, t_len, pos, scale * kLog2e},
+        b, h, st);
+  return (int)launch_attention<bf16, kPaged>(
+      Args<bf16>{(const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, tables, lengths,
+                 sq, h, hkv, mb, t_len, pos, scale * kLog2e},
+      b, h, st);
+}
 
 }  // namespace
 
@@ -315,55 +744,22 @@ int dst_paged_attention(const void* q, const void* k_pages, const void* v_pages,
                         const int* block_tables, const int* lengths, void* out, int b,
                         int sq, int h, int hkv, int d, int bs, int mb, float scale,
                         int dtype, void* stream) {
-  if (b <= 0 || sq <= 0 || h <= 0 || hkv <= 0 || h % hkv != 0 || d != kHeadDim ||
-      bs != kTile || mb <= 0 || b > 65535 || (dtype != 0 && dtype != 1) ||
-      !aligned(k_pages) || !aligned(v_pages))
+  if (b <= 0 || sq <= 0 || h <= 0 || hkv <= 0 || h % hkv != 0 || d != kD || bs != kBlock ||
+      mb <= 0 || b > 65535 || (dtype != 0 && dtype != 1) || !aligned16(k_pages) ||
+      !aligned16(v_pages))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(std::min(sq, kRowsPerBlock));
-  const dim3 grid = grid_for(h, b, sq);
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if (dtype == 0) {
-    err = prepare(paged_attention_kernel<float>, smem);
-    if (err != cudaSuccess) return (int)err;
-    paged_attention_kernel<float><<<grid, kThreads, smem, st>>>(
-        (const float*)q, (const float*)k_pages, (const float*)v_pages, block_tables, lengths,
-        (float*)out, sq, h, hkv, mb, scale);
-  } else {
-    err = prepare(paged_attention_kernel<__nv_bfloat16>, smem);
-    if (err != cudaSuccess) return (int)err;
-    paged_attention_kernel<__nv_bfloat16><<<grid, kThreads, smem, st>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_pages,
-        (const __nv_bfloat16*)v_pages, block_tables, lengths, (__nv_bfloat16*)out, sq, h,
-        hkv, mb, scale);
-  }
-  return (int)cudaGetLastError();
+  return dispatch<true>(dtype, q, k_pages, v_pages, out, block_tables, lengths, b, sq, h, hkv,
+                        mb, 0, 0, scale, stream);
 }
 
 int dst_decode_attention(const void* q, const void* ck, const void* cv, void* out, int b,
                          int sq, int h, int d, int t_len, int pos, float scale, int dtype,
                          void* stream) {
-  if (b <= 0 || sq <= 0 || h <= 0 || d != kHeadDim || t_len <= 0 || pos < 0 ||
-      b > 65535 || (dtype != 0 && dtype != 1) || !aligned(ck) || !aligned(cv))
+  if (b <= 0 || sq <= 0 || h <= 0 || d != kD || t_len <= 0 || pos < 0 || b > 65535 ||
+      (dtype != 0 && dtype != 1) || !aligned16(ck) || !aligned16(cv))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(std::min(sq, kRowsPerBlock));
-  const dim3 grid = grid_for(h, b, sq);
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if (dtype == 0) {
-    err = prepare(decode_attention_kernel<float>, smem);
-    if (err != cudaSuccess) return (int)err;
-    decode_attention_kernel<float><<<grid, kThreads, smem, st>>>(
-        (const float*)q, (const float*)ck, (const float*)cv, (float*)out, sq, h, t_len, pos,
-        scale);
-  } else {
-    err = prepare(decode_attention_kernel<__nv_bfloat16>, smem);
-    if (err != cudaSuccess) return (int)err;
-    decode_attention_kernel<__nv_bfloat16><<<grid, kThreads, smem, st>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)ck, (const __nv_bfloat16*)cv,
-        (__nv_bfloat16*)out, sq, h, t_len, pos, scale);
-  }
-  return (int)cudaGetLastError();
+  return dispatch<false>(dtype, q, ck, cv, out, nullptr, nullptr, b, sq, h, h, 0, t_len, pos,
+                         scale, stream);
 }
 
 const char* dst_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -22,13 +22,32 @@ Kernel notes (details in the ``.cu`` file):
   ``_decode_kernel`` (``:78``).
 * Both are bound by bytes: the live K/V read once, ~4 flops per element;
   the floor is live K/V bytes / 3.35 TB/s on an H100 SXM.
-* Compiled for the GPT-2 family's shape only: head_dim 64, tiles of 16
-  keys (the serving arena's default block size).  Any other head_dim or
+* Compiled for the GPT-2 family's shape only: head_dim 64, arena blocks of
+  16 keys (the serving arena's default block size).  Any other head_dim or
   block size raises on CUDA.
-* Grid (H, B, ceil(S_q/32)), so a decode batch of 8 rows x 25 heads gives
-  200 blocks; each block walks its row's live tiles in order with the
-  online softmax in fp32.  Both kernels share one device function and
-  differ only in how a key is addressed, so they agree bit for bit in fp32.
+* Each call launches one kernel, of one of two paths picked by ``S_q``
+  alone (``DECODE_MAX_ROWS``):
+
+  - decode (``S_q <= 4``, every decode step): one block of 8 warps per
+    (row, head); the row's live 16-key blocks are dealt to the warps round
+    robin (block n to warp n % 8), so all 8 warps stream one row's keys at
+    once, each with 16-byte ``cp.async`` copies into its own 2-3 block
+    ring, which is what a bytes-bound kernel needs; each warp keeps its own
+    online-softmax state and the 8 are merged at the end in a fixed order.
+  - prefill (``S_q > 4``, prompt chunks): 64-query tiles on tensor cores
+    (bf16 ``mma.sync``; fp32 by FMA, no TF32); the tile's 64-key tiles are
+    dealt round robin to a cluster of 4 blocks, double buffered in shared
+    memory, and merged through distributed shared memory; key tiles wholly
+    past a query tile are skipped, so a prompt's early rows never read the
+    keys they cannot see.
+
+* The split of the keys over warps and tiles depends only on absolute key
+  positions, and the two kernels differ only in how a key row is addressed
+  (a block-table lookup or a stride), so for the same ``q`` and the
+  gathered cache they take the same path and agree bit for bit in fp32.
+  Within a path a row's result depends only on its position and the keys,
+  so a prompt prefilled whole (``generate()``) and in chunks (the serving
+  engine) gives the same rows.
 
 Each wrapper counts its kernel launches in a plain int attribute
 (``paged_attention.launches``); each plain version counts its calls
@@ -43,6 +62,7 @@ import torch
 NEG_INF = -1e30
 KERNEL_TILE = 16         # keys per kernel tile = the paged arena's block_size
 KERNEL_HEAD_DIM = 64     # the one head_dim the kernels are compiled for
+DECODE_MAX_ROWS = 4      # S_q up to this takes the kernels' decode path
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -195,9 +215,9 @@ paged_attention.launches = 0
 def decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                      pos: int) -> torch.Tensor:
     """KV-cache attention for generate()'s prefill and decode
-    (``[B, S_q, H, D]`` out, q's dtype).  The kernel walks tiles of
-    ``KERNEL_TILE`` keys, the serving arena's block size, so it and
-    ``paged_attention`` agree bit for bit in fp32.  Any ``T`` is taken; the
+    (``[B, S_q, H, D]`` out, q's dtype).  The kernel splits the keys at
+    the serving arena's block size, ``KERNEL_TILE``, as ``paged_attention``
+    does, so the two agree bit for bit in fp32.  Any ``T`` is taken; the
     ragged last tile is masked.  CPU tensors take the plain version."""
     if q.device.type == "cpu":
         return decode_attention_reference(q, ck, cv, pos)

@@ -1,0 +1,126 @@
+"""Mutation check of the decode-attention kernels, on a machine with a card.
+
+    python -m deepspeed_tpu_torch.ops.cuda.mutation_check
+
+For each mutation below, copies the checkout into a temporary directory,
+breaks ``csrc/decode_attention.cu`` there in one known way, and runs the
+``cuda``-marked tests of ``tests/test_torch_decode_attention.py`` against
+the copy's own build (the copies build and run side by side).  The
+unmutated checkout is run the same way and must pass every test; each
+mutation must fail at least one bf16 and one fp32 test.  Prints one line
+per run with the tests that failed, then a JSON summary; exits non-zero if
+the checkout fails a test or a mutation goes unseen in either dtype.
+"""
+
+import json
+import shutil
+import subprocess
+import sys
+import tempfile
+import xml.etree.ElementTree as ET
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[3]
+SOURCE = "deepspeed_tpu_torch/ops/cuda/csrc/decode_attention.cu"
+TESTS = "tests/test_torch_decode_attention.py"
+TIMEOUT_S = 900
+
+# name: (what it breaks, the line as it is, the line broken)
+MUTATIONS = {
+    "drop-last-block-of-warp-0": (
+        "decode path: warp 0 skips the last block of its range",
+        "  const int count = warp < n_blocks ? (n_blocks - 1 - warp) / kDecodeWarps + 1 : 0;",
+        "  const int count = (warp < n_blocks ? (n_blocks - 1 - warp) / kDecodeWarps + 1 : 0)"
+        " - (warp == 0 ? 1 : 0);"),
+    "skip-table-end-tile": (
+        "prefill path: the key tile that crosses the end of the table row (or of the "
+        "contiguous cache) is not visited",
+        "  const int n_kv = last_col / kTile + 1;",
+        "  const int n_kv = last_col / kTile + (last_col == n_cols - 1 && n_cols % kTile ? 0 : 1);"),
+    "merge-warps-alpha-1": (
+        "decode path: the warps' states are merged without rescaling to the row's max",
+        "      const float f = exp2_approx(__fsub_rn(s_m[w][r], m));",
+        "      const float f = 1.f;"),
+}
+
+
+def dtype_of(test_id: str) -> str:
+    """bf16 for the peaked tests and the 2e-2 cases, fp32 for the 1e-5
+    cases and the bit-identity tests."""
+    return "bfloat16" if "bf16" in test_id or "-0.02]" in test_id else "float32"
+
+
+def copy_checkout(dst: Path) -> None:
+    shutil.copytree(REPO, dst, ignore=shutil.ignore_patterns(
+        ".git", "build_torch", "__pycache__", ".pytest_cache", "*.pyc"))
+
+
+def mutate(root: Path, old: str, new: str) -> None:
+    path = root / SOURCE
+    text = path.read_text()
+    if text.count(old) != 1:
+        raise SystemExit(f"mutation_check: the line to mutate is not in {SOURCE} once: {old!r}")
+    path.write_text(text.replace(old, new))
+
+
+def failed_tests(xml_path: Path):
+    """(failed test ids, number of tests run) from pytest's junit XML."""
+    root = ET.parse(xml_path).getroot()
+    failed, n = [], 0
+    for case in root.iter("testcase"):
+        if case.find("skipped") is not None:
+            continue
+        n += 1
+        if case.find("failure") is not None or case.find("error") is not None:
+            failed.append(case.get("name"))
+    return failed, n
+
+
+def main() -> int:
+    runs = {"checkout": None, **MUTATIONS}
+    with tempfile.TemporaryDirectory(prefix="decode_mutations_") as tmp:
+        procs = {}
+        for name, m in runs.items():
+            root = Path(tmp, name)
+            copy_checkout(root)
+            if m is not None:
+                mutate(root, m[1], m[2])
+            procs[name] = (root, subprocess.Popen(
+                [sys.executable, "-m", "pytest", TESTS, "-m", "cuda", "-q",
+                 "-p", "no:cacheprovider", f"--junitxml={root / 'junit.xml'}"],
+                cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        summary, ok = {}, True
+        for name, (root, proc) in procs.items():
+            try:
+                out, _ = proc.communicate(timeout=TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, _ = proc.communicate()
+            xml = root / "junit.xml"
+            if not xml.is_file():
+                print(f"mutation_check: {name}: pytest wrote no report (exit "
+                      f"{proc.returncode})\n{out[-4000:]}", flush=True)
+                return 1
+            failed, n = failed_tests(xml)
+            by_dtype = {dt: sorted(t for t in failed if dtype_of(t) == dt)
+                        for dt in ("float32", "bfloat16")}
+            summary[name] = {"tests": n, "failed": len(failed),
+                             "failed_float32": by_dtype["float32"],
+                             "failed_bfloat16": by_dtype["bfloat16"]}
+            if name == "checkout":
+                seen = not failed
+            else:
+                seen = all(by_dtype.values())
+            ok = ok and seen
+            what = "the checkout" if name == "checkout" else MUTATIONS[name][0]
+            print(f"mutation_check: {name} ({what}): {len(failed)} of {n} tests failed "
+                  f"(fp32 {len(by_dtype['float32'])}, bf16 {len(by_dtype['bfloat16'])}): "
+                  f"{'ok' if seen else 'NOT SEEN'}", flush=True)
+            for t in failed:
+                print(f"  {t}", flush=True)
+    print(json.dumps({"mutation_check": summary, "ok": ok}))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -56,6 +56,17 @@ PAGED_CASES = {
     "padded-chunk-past-table": dict(Sq=8, lengths=(57, 62)),   # len+Sq > MB*BS
     "length-zero": dict(Sq=1, lengths=(0, 1)),
     "prefill-from-zero": dict(Sq=8, lengths=(0, 0)),
+    # edges of the CUDA kernels' tiling (blocks of 16 keys dealt over 8
+    # warps for S_q <= 4, 64-query x 64-key tiles above): a table 5 blocks
+    # wide (its last key tile crosses the row's end) with len + S_q past it
+    # and a ragged query tile; one long row among short and empty ones; GQA
+    # rows long enough that every decode warp gets blocks; a 65-row chunk
+    "table-width-5-past-end": dict(Sq=17, BS=16, MB=5, lengths=(60, 70)),
+    "long-among-short-decode": dict(B=4, Sq=1, BS=16, MB=16, NB=72,
+                                    lengths=(0, 3, 250, 1)),
+    "gqa-long-multirow-decode": dict(Sq=3, H=8, Hkv=2, BS=16, MB=16, NB=40,
+                                     lengths=(200, 129)),
+    "ragged-q-tile-65": dict(Sq=65, BS=16, MB=8, lengths=(0, 40)),
 }
 
 
@@ -68,7 +79,10 @@ def test_paged_matches_jax_reference(case):
 
 
 @pytest.mark.parametrize("case", ["mha-decode", "mha-chunk",
-                                  "padded-chunk-past-table", "length-zero"])
+                                  "padded-chunk-past-table", "length-zero",
+                                  "table-width-5-past-end",
+                                  "long-among-short-decode",
+                                  "ragged-q-tile-65"])
 def test_paged_matches_pallas_interpret(monkeypatch, case):
     """The JAX paged kernel itself (interpret mode on CPU) on the same
     inputs: the port's plain version computes what the TPU kernel does."""
@@ -108,6 +122,13 @@ DECODE_CASES = {
     "prefill-from-zero": (1, 16, 4, 16, 32, 0),
     "ragged-T": (2, 1, 4, 16, 50, 49),
     "ragged-T-chunk": (2, 3, 4, 16, 37, 30),
+    # the CUDA kernels' edges, as for PAGED_CASES: a 65-row chunk whose
+    # second key tile crosses T; a decode row whose blocks reach every
+    # warp; the decode path's most rows; a chunk padded past a ragged T
+    "ragged-q-tile-65": (1, 65, 4, 16, 96, 20),
+    "long-decode-every-warp": (2, 1, 4, 16, 288, 270),
+    "multirow-decode": (2, 4, 4, 16, 160, 140),
+    "chunk-past-ragged-T": (1, 17, 4, 16, 70, 60),
 }
 
 
@@ -130,7 +151,9 @@ def test_decode_matches_jax_reference(case):
     np.testing.assert_allclose(t, j, atol=ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("case", ["decode", "chunk", "prefill-from-zero"])
+@pytest.mark.parametrize("case", ["decode", "chunk", "prefill-from-zero",
+                                  "ragged-q-tile-65", "long-decode-every-warp",
+                                  "multirow-decode"])
 def test_decode_matches_pallas_interpret(monkeypatch, case):
     """JAX's contiguous-cache Pallas kernel (interpret mode) on the same
     inputs; T is a multiple of its block so JAX does not demote it."""
@@ -208,7 +231,7 @@ GPT2XL_DECODE_CASES = {
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("case", sorted(PAGED_CASES))
 def test_cuda_paged_kernel_matches_plain(cuda_device, case, dtype, tol):
-    arrays = make_paged(seed=11, **KERNEL_SHAPE, **PAGED_CASES[case])
+    arrays = make_paged(seed=11, **{**KERNEL_SHAPE, **PAGED_CASES[case]})
     q, kp, vp = (torch.from_numpy(a).to(cuda_device, dtype) for a in arrays[:3])
     tables, lengths = (torch.from_numpy(a).to(cuda_device) for a in arrays[3:])
     out = tda.paged_attention(q, kp, vp, tables, lengths)
@@ -249,6 +272,108 @@ def test_cuda_paged_and_contiguous_kernels_agree_bitwise(cuda_device):
     cv = torch.from_numpy(vp[tables].reshape(B, T, H, D)).to(dev)
     dense = tda.decode_attention(args[0], ck, cv, 17)
     assert torch.equal(paged, dense)
+
+
+# bf16 at peaked scores: q scaled so the score std is ~3 (as chip_smoke.py
+# does for flash), where the softmax is far from flat and a lost 16-key
+# block moves o by several percent; held against the plain version on the
+# same bf16 inputs computed in fp32, by relative L2.  The kernel's own
+# error there is bf16 rounding of p and of o, ~2e-3 (2^-9 relative each).
+PEAKED_Q_STD = 3.0
+PEAKED_L2_TOL = 5e-3
+
+
+def rel_l2(out, ref):
+    return ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PAGED_CASES))
+def test_cuda_paged_kernel_bf16_peaked(cuda_device, case):
+    arrays = make_paged(seed=19, **{**KERNEL_SHAPE, **PAGED_CASES[case]})
+    q, kp, vp = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+                 for a in (arrays[0] * PEAKED_Q_STD,) + arrays[1:3])
+    tables, lengths = (torch.from_numpy(a).to(cuda_device) for a in arrays[3:])
+    out = tda.paged_attention(q, kp, vp, tables, lengths)
+    ref = tda.paged_attention_reference(q.float(), kp.float(), vp.float(),
+                                        tables, lengths)
+    torch.cuda.synchronize()
+    assert rel_l2(out, ref) <= PEAKED_L2_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(DECODE_CASES)
+                         + sorted(GPT2XL_DECODE_CASES))
+def test_cuda_decode_kernel_bf16_peaked(cuda_device, case):
+    B, Sq, H, _, T, pos = {**DECODE_CASES, **GPT2XL_DECODE_CASES}[case]
+    q, ck, cv = make_cache(B, Sq, H, tda.KERNEL_HEAD_DIM, T, seed=23)
+    q, ck, cv = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+                 for a in (q * PEAKED_Q_STD, ck, cv))
+    out = tda.decode_attention(q, ck, cv, pos)
+    ref = tda.decode_attention_reference(q.float(), ck.float(), cv.float(), pos)
+    torch.cuda.synchronize()
+    assert rel_l2(out, ref) <= PEAKED_L2_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_rows_do_not_depend_on_chunking(cuda_device):
+    """fp32: a 300-token prompt prefilled whole (generate()'s contiguous
+    call) and in chunks of 64 (contiguous, and paged with the last chunk
+    padded to 64 as the serving engine sends it) gives bit-identical rows:
+    a row's result depends only on its position and the keys."""
+    rng = np.random.default_rng(29)
+    H, D, BS, P, C = 4, tda.KERNEL_HEAD_DIM, tda.KERNEL_TILE, 300, 64
+    T, MB = 332, 21                         # the table holds 336 keys
+    q = rng.standard_normal((1, P, H, D)).astype(np.float32)
+    k = rng.standard_normal((MB * BS, H, D)).astype(np.float32)
+    v = rng.standard_normal((MB * BS, H, D)).astype(np.float32)
+    ids = rng.permutation(np.arange(1, MB + 1)).astype(np.int32)
+    kp = np.zeros((MB + 1, BS, H, D), np.float32)
+    vp = np.zeros_like(kp)
+    kp[ids], vp[ids] = k.reshape(MB, BS, H, D), v.reshape(MB, BS, H, D)
+    dev = cuda_device
+    qd = torch.from_numpy(q).to(dev)
+    ck, cv = (torch.from_numpy(a[None, :T]).to(dev) for a in (k, v))
+    kp, vp = torch.from_numpy(kp).to(dev), torch.from_numpy(vp).to(dev)
+    table = torch.from_numpy(ids[None]).to(dev)
+    whole = tda.decode_attention(qd, ck, cv, 0)
+    contiguous, paged = [], []
+    for s in range(0, P, C):
+        n = min(C, P - s)
+        contiguous.append(tda.decode_attention(
+            qd[:, s:s + n].contiguous(), ck, cv, s))
+        padded = torch.zeros(1, C, H, D, device=dev)
+        padded[:, :n] = qd[:, s:s + n]
+        paged.append(tda.paged_attention(
+            padded, kp, vp, table,
+            torch.tensor([s], dtype=torch.int32, device=dev))[:, :n])
+    assert torch.equal(torch.cat(contiguous, dim=1), whole)
+    assert torch.equal(torch.cat(paged, dim=1), whole)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_rows_do_not_depend_on_s_q(cuda_device):
+    """fp32: each row of a decode-path call with S_q = 2..4 equals the
+    S_q = 1 call at its own position, in both kernels."""
+    B, H, T, pos, R = 2, 4, 300, 250, tda.DECODE_MAX_ROWS
+    q, ck, cv = (torch.from_numpy(a).to(cuda_device)
+                 for a in make_cache(B, R, H, tda.KERNEL_HEAD_DIM, T, seed=31))
+    NB, BS = T // tda.KERNEL_TILE + 2, tda.KERNEL_TILE    # 19 blocks: 304 keys
+    kp = torch.zeros(NB, BS, H, tda.KERNEL_HEAD_DIM, device=cuda_device)
+    vp = torch.zeros_like(kp)
+    kp[1:, :].view(-1, H, tda.KERNEL_HEAD_DIM)[:T] = ck[0]
+    vp[1:, :].view(-1, H, tda.KERNEL_HEAD_DIM)[:T] = cv[0]
+    table = torch.arange(1, NB, dtype=torch.int32, device=cuda_device)[None]
+    for sq in range(2, R + 1):
+        out = tda.decode_attention(q[:, :sq].contiguous(), ck, cv, pos)
+        pout = tda.paged_attention(
+            q[:1, :sq].contiguous(), kp, vp, table,
+            torch.tensor([pos], dtype=torch.int32, device=cuda_device))
+        for i in range(sq):
+            one = tda.decode_attention(q[:, i:i + 1].contiguous(), ck, cv,
+                                       pos + i)
+            assert torch.equal(out[:, i:i + 1], one)
+            assert torch.equal(pout[:, i:i + 1], one[:1])
 
 
 @pytest.mark.cuda

@@ -38,7 +38,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    path's shape (B 8, S 512, H 12, head_dim 64, causal) and at GPT-2 XL's
    (H 25, S 1024, B 2), with GQA (Hkv 4), ALiBi, a per-head bias, a ragged
    S 1000 and without the causal mask; the cross-entropy forward, dx and
-   dhead at N 4096 (micro 8 x seq 512), E 768, V 50304 (vocab 50257); and
+   dhead at N 4096 (micro 8 x seq 512), E 768, V 50304 (vocab 50257), in
+   bf16 also at GPT-2 medium's, large's and XL's widths (E 1024, 1280,
+   1600); and
    the fused AdamW over all 148 GPT-2 leaves at n_positions 512
    (124,082,688 values, bit for bit).  Times as in phase 3, with
    ``scaled_dot_product_attention`` (forward; its autograd backward as one
@@ -67,7 +69,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    kernels as a category of their own; then 3 steps of the same config
    with ``attn_impl="flash"``, the dense step at the same length;
 10. the sparse path in fp32 (TF32 off), 3 steps through the kernels and 3
-   through the plain versions, as phase 8.
+   through the plain versions, as phase 8;
+11. the other GPT-2 widths in bf16 through the same entry points and
+   config at seq 512, micro 8: ``gpt_config("gpt2-medium")`` at full size
+   for 3 steps, ``gpt2-large`` and ``gpt2-xl`` at full size for 2 steps
+   each: a finite, falling loss, the step time and the launch counts of
+   every kernel, each model freed before the next.
 
 Phase 6 also holds the three block-sparse kernels against their plain
 versions (``kernel_rounding=True``: p and ds rounded to the input dtype
@@ -77,7 +84,7 @@ the path's case) in fp32 and bf16 over SPARSE_CASES below, with
 ``scaled_dot_product_attention`` under the layout's dense mask and the
 port's flash kernels at the same shape as yardsticks.
 
-Each run of phases 4-5 and 7-10 (generate(), each serve, the timed
+Each run of phases 4-5 and 7-11 (generate(), each serve, the timed
 training steps, each fp32 training run) zeroes the launch counters just
 before it and reads them just after: its kernels must have launched (the
 flash kernels exactly once per layer per micro-step, the remat recompute
@@ -143,6 +150,11 @@ TRAIN_CFG = {"train_micro_batch_size_per_gpu": TRAIN_MICRO, "gradient_accumulati
 TRAIN_PARAMS = 124_082_688          # GPT-2 at n_positions 512: 148 leaves
 TRAIN_LAYERS = 12
 CE_SHAPE = (TRAIN_MICRO * TRAIN_SEQ, 768, 50304, 50257)     # N, E, V, vocab_size
+# the cross-entropy kernels at the other GPT-2 widths (bf16, the path's
+# dtype; same N, V and inputs as CE_SHAPE)
+CE_WIDTHS = {"gpt2-medium-train": 1024, "gpt2-large-train": 1280, "gpt2-xl-train": 1600}
+# phase 11: preset -> train_batch steps at full size (the first a warm-up)
+TRAIN_WIDTHS = {"gpt2-medium": 3, "gpt2-large": 2, "gpt2-xl": 2}
 # cross-entropy inputs: x ~ N(0, 1), head ~ N(0, CE_HEAD_STD^2), so the
 # logits' std is 0.15 * sqrt(768) ~ 4.2 and a few columns dominate each
 # row's softmax, as in a trained model.  (At head std 0.02 the softmax is
@@ -1022,21 +1034,26 @@ def sparse_cases(device, flush, card: str, reps: int = 20, plain_reps: int = 3):
 
 def ce_cases(device, flush, reps: int = 20, plain_reps: int = 5):
     """The three cross-entropy kernels at GPT-2's training shape (N 4096 =
-    micro 8 x seq 512, E 768, V 50304, vocab 50257), fp32 and bf16."""
+    micro 8 x seq 512, E 768, V 50304, vocab 50257), fp32 and bf16, and in
+    bf16 at the other GPT-2 widths (CE_WIDTHS)."""
     import torch
     import torch.nn.functional as F
     tce = kernel_modules()[1]
 
-    N, E, V, vocab = CE_SHAPE
-    rng = np.random.default_rng(4321)
-    x32 = torch.from_numpy(rng.standard_normal((N, E), dtype=np.float32)).to(device)
-    h32 = torch.from_numpy(rng.standard_normal((V, E), dtype=np.float32)
-                           * CE_HEAD_STD).to(device)
-    labels = torch.from_numpy(rng.integers(0, vocab, N).astype(np.int32)).to(device)
-    gscale = torch.full((1,), 1.0 / N, device=device)
+    N, E0, V, vocab = CE_SHAPE
+    runs = [("gpt2-train", E0, "float32"), ("gpt2-train", E0, "bfloat16")] + [
+        (case, E, "bfloat16") for case, E in CE_WIDTHS.items()]
     rows = []
-    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+    for case, E, dtype_name in runs:
+        rng = np.random.default_rng(4321)
+        x32 = torch.from_numpy(rng.standard_normal((N, E), dtype=np.float32)).to(device)
+        h32 = torch.from_numpy(rng.standard_normal((V, E), dtype=np.float32)
+                               * CE_HEAD_STD).to(device)
+        labels = torch.from_numpy(rng.integers(0, vocab, N).astype(np.int32)).to(device)
+        gscale = torch.full((1,), 1.0 / N, device=device)
+        dtype = getattr(torch, dtype_name)
         x, head = x32.to(dtype), h32.to(dtype)
+        del x32, h32
         esize = x.element_size()
         k_reps = reps if dtype == torch.bfloat16 else max(3, reps // 4)
         nll, lse = tce.ce_forward(x, head, labels, vocab)
@@ -1081,11 +1098,12 @@ def ce_cases(device, flush, reps: int = 20, plain_reps: int = 5):
             err, scaled = compare(out, ref)
             b_ms, b_by = bound(nbytes, flops, dtype_name)
             rows.append(dict(
-                kernel=name, case="gpt2-train", dtype=dtype_name, err=err, scaled=scaled,
+                kernel=name, case=case, dtype=dtype_name, err=err, scaled=scaled,
                 checks=ce_checks(name, dtype_name, out, ref, head, labels, gscale, vocab),
                 ms=median_ms(kern, k_reps, flush), plain_ms=median_ms(plain, plain_reps, flush),
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib, note=note))
-        del xr, hr, loss, outs
+        del xr, hr, loss, outs, x, head
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1299,21 +1317,21 @@ def profile_train_step(engine, batch, card: str, attn_impl: str = "auto"):
 
 def phase_train_bf16(device, card: str, seq: int = TRAIN_SEQ, timed: int = TRAIN_TIMED_STEPS,
                      profiled: bool = True, attn_impl: str = "auto", micro: int = TRAIN_MICRO,
-                     config=TRAIN_CFG):
-    """GPT-2 at ``seq`` through initialize() -> train_batch, bench.py's
-    headline config (``config``): warm-up, timed steps, a profiled step.
-    With "auto" above 256 tokens the attention is flash: its three kernels
-    launch once per layer per step; at 256 and below it is the reference
-    and they never do.  "block_sparse" runs the sparse kernels
-    (``train_expect``)."""
+                     config=TRAIN_CFG, preset: str = "gpt2", warmup: int = 2):
+    """GPT-2 (``preset``) at ``seq`` through initialize() -> train_batch,
+    bench.py's headline config (``config``): warm-up, timed steps, a
+    profiled step.  With "auto" above 256 tokens the attention is flash:
+    its three kernels launch once per layer per step; at 256 and below it
+    is the reference and they never do.  "block_sparse" runs the sparse
+    kernels (``train_expect``)."""
     import torch
     from deepspeed_tpu_torch.models.gpt import GPT, gpt_config
 
-    cfg = gpt_config("gpt2", n_positions=seq, remat=True, attn_impl=attn_impl)
+    cfg = gpt_config(preset, n_positions=seq, remat=True, attn_impl=attn_impl)
     model = GPT(cfg, device=device, seed=0)
     engine = train_engine(model, config, device)
     batch = train_batch_of(cfg.vocab_size, device, seq, micro)
-    losses = [engine.train_batch(batch=batch) for _ in range(2)]      # warm-up
+    losses = [engine.train_batch(batch=batch) for _ in range(warmup)]
     torch.cuda.synchronize()
     step_ms, host_ms = [], []
 
@@ -1325,7 +1343,7 @@ def phase_train_bf16(device, card: str, seq: int = TRAIN_SEQ, timed: int = TRAIN
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
     expect = train_expect(attn_impl, seq, cfg.n_layer, timed)
-    _, counts = counted(f"bf16 train seq {seq} {attn_impl} ({timed} steps)", expect, run)
+    _, counts = counted(f"bf16 train {preset} seq {seq} {attn_impl} ({timed} steps)", expect, run)
     vals = [float(v) for v in losses]
     if not all(np.isfinite(vals)):
         fail(f"bf16 train: non-finite loss {vals}")
@@ -1334,8 +1352,8 @@ def phase_train_bf16(device, card: str, seq: int = TRAIN_SEQ, timed: int = TRAIN
     med = statistics.median(step_ms)
     samples_s = micro / (med / 1e3)
     tflops = samples_s * seq * model.flops_per_token(seq) / 1e12
-    say(f"bf16 train: gpt2 seq {seq} micro {micro} attn_impl {attn_impl}, "
-        f"{model.num_params():,} params; "
+    say(f"bf16 train: {preset} ({cfg.n_layer} layers x {cfg.n_embd}) seq {seq} micro {micro} "
+        f"attn_impl {attn_impl}, {model.num_params():,} params; "
         f"loss {vals[0]:.4f} -> {vals[-1]:.4f} over {len(vals)} steps; median step "
         f"{med:.3f} ms (min {min(step_ms):.3f}, max {max(step_ms):.3f}), of which the "
         f"host takes a median {statistics.median(host_ms):.3f} ms to queue it; "
@@ -1346,7 +1364,7 @@ def phase_train_bf16(device, card: str, seq: int = TRAIN_SEQ, timed: int = TRAIN
             f"step ({prof['device_ms']:.3f} ms device / {med:.3f} ms)")
     return dict(step_ms=med, host_ms=statistics.median(host_ms), samples_per_s=samples_s,
                 tflops=tflops, losses=vals, counts=counts, profile=prof,
-                params=model.num_params())
+                params=model.num_params(), n_layer=cfg.n_layer, n_embd=cfg.n_embd)
 
 
 def phase_train_fp32_parity(device, steps: int = 3, seq: int = TRAIN_SEQ,
@@ -1553,6 +1571,19 @@ def main() -> int:
         f"per step {((sparse['profile'] or {}).get('device_ms', float('nan'))):.3f} sparse, "
         f"{((dense['profile'] or {}).get('device_ms', float('nan'))):.3f} flash; fp32 "
         f"kernel-vs-plain loss rel diff {sparse_parity['loss_rel']:.3e} [{card}]")
+
+    torch.cuda.empty_cache()
+
+    # ---- 11. the other GPT-2 widths, bf16 ------------------------------------------ #
+    widths = {}
+    for preset, steps in TRAIN_WIDTHS.items():
+        widths[preset] = phase_train_bf16(device, card, timed=steps - 1, profiled=False,
+                                          preset=preset, warmup=1)
+        torch.cuda.empty_cache()
+    say("summary: bf16 train at GPT-2's other widths, seq 512 micro 8: " + "; ".join(
+        f"{p} {r['n_layer']} layers x {r['n_embd']}: loss {r['losses'][0]:.4f} -> "
+        f"{r['losses'][-1]:.4f}, {r['step_ms']:.3f} ms/step" for p, r in widths.items())
+        + f" [{card}]")
 
     # ---- report ------------------------------------------------------------------ #
     # each kernel's row: its case at the shape and dtype of the run that

@@ -138,6 +138,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dst_ce_backward_dhead.argtypes = [vp, vp, vp, vp, vp, vp,
                                           ci, ci, ci, ci, ci, vp]
     lib.dst_ce_backward_dhead.restype = ci
+    lib.dst_ce_backward_active_clusters.argtypes = [ci, ci]
+    lib.dst_ce_backward_active_clusters.restype = ci
     lib.dst_fused_adam.argtypes = [vp, ci, vp, vp, ci, vp,
                                    cf, cf, cf, cf, cf, cf, ci, vp]
     lib.dst_fused_adam.restype = ci

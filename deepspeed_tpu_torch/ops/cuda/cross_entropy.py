@@ -27,14 +27,18 @@ does not take.  There is no fallback from one to the other.
 Kernel notes (details in the ``.cu`` file): all three are bound by
 operations (the score product x . head^T, recomputed in each kernel so no
 ``[N, V]`` tensor reaches device memory); bf16 inputs go through the
-tensor cores (wmma), fp32 inputs through fp32 FMA; dx and dhead are one
-CUDA kernel, compiled for n_embd 768 only.  The head bias of the JAX
-kernel is not ported (GPT-2 has none).
+tensor cores, fp32 inputs through fp32 FMA.  The kernels take any n_embd
+that is a multiple of 8 up to ``MAX_EMBD`` (1664: every GPT-2 width); dx
+and dhead are one CUDA kernel, run by thread-block clusters of up to
+``BWD_MAX_CLUSTER`` blocks, each owning a slice of n_embd of at most
+``BWD_SLICE`` columns.  The head bias of the
+JAX kernel is not ported (GPT-2 has none).
 
 Each wrapper counts its launches (``ce_forward.launches``); each plain
 version counts its calls (``ce_forward_reference.calls``).
 """
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -42,10 +46,17 @@ import torch
 from deepspeed_tpu_torch.ops.cuda import builder
 
 PAD_LOGIT = -1e9
-KERNEL_EMBD = 768        # the n_embd the backward kernels are compiled for
-FWD_ROWS, DX_ROWS = 128, 32
-FWD_SPLITS = 32          # vocab splits of the forward grid: 16 row tiles x 32 = 512 blocks
-DX_SPLITS = 4            # vocab splits of the dx grid: 64 row tiles x 4 = 256 blocks
+FWD_ROWS = 128
+FWD_SPLITS = 32          # vocab splits of the forward grid: 32 row tiles x 32 = 1024 blocks
+# the backward: resident rows per cluster and streamed rows per tile (by
+# dtype), and the widest slice of n_embd one block of a cluster (at most 8
+# blocks) owns
+BWD_ROWS = {torch.bfloat16: 128, torch.float32: 64}
+BWD_STREAM = {torch.bfloat16: 64, torch.float32: 32}
+BWD_SLICE, BWD_MAX_CLUSTER = 208, 8
+EMBD_ALIGN = 8           # n_embd a multiple of 8: rows start on 16-byte boundaries
+MAX_EMBD = BWD_SLICE * BWD_MAX_CLUSTER
+OTHER_FAMILIES = "ROADMAP.md, Queue 1: other GPT families"
 HEAD_BIAS = "ROADMAP.md, Queue 1: other GPT families (head bias)"
 FP16 = "ROADMAP.md, Queue 1 item 5 (fp16 training)"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -138,6 +149,13 @@ ce_backward_dhead_reference.calls = 0
 # --------------------------------------------------------------------------- #
 # Kernel wrappers
 # --------------------------------------------------------------------------- #
+def check_embd(name: str, E: int) -> None:
+    """The widths the kernels take: a multiple of 8 up to ``MAX_EMBD``."""
+    if E <= 0 or E % EMBD_ALIGN or E > MAX_EMBD:
+        raise ValueError(f"{name}: the CUDA kernels take n_embd a multiple of {EMBD_ALIGN} up "
+                         f"to {MAX_EMBD}, got {E} ({OTHER_FAMILIES})")
+
+
 def _check_cuda(name: str, x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
                 vocab_size: int, *row_vectors: torch.Tensor) -> int:
     """Validate what the kernels take; returns the dtype code."""
@@ -151,9 +169,7 @@ def _check_cuda(name: str, x: torch.Tensor, head: torch.Tensor, labels: torch.Te
                          f"{tuple(x.shape)} and {tuple(head.shape)}")
     N, E = x.shape
     V = head.shape[0]
-    if E != KERNEL_EMBD:
-        raise ValueError(f"{name}: the CUDA kernels are compiled for n_embd "
-                         f"{KERNEL_EMBD}, got {E}")
+    check_embd(name, E)
     if not 0 < vocab_size <= V:
         raise ValueError(f"{name}: vocab_size {vocab_size} not in (0, {V}]")
     if N == 0 or N >= 2 ** 31 or V >= 2 ** 31:
@@ -178,6 +194,35 @@ def _check_cuda(name: str, x: torch.Tensor, head: torch.Tensor, labels: torch.Te
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def _active_clusters(E: int, dtype_code: int, device_index: int) -> int:
+    """Clusters of the backward kernel the card holds at once (the CUDA
+    occupancy query; a block fills an SM, and a cluster's blocks share a GPC)."""
+    lib = builder.load_library()
+    with torch.cuda.device(device_index):
+        n = lib.dst_ce_backward_active_clusters(E, dtype_code)
+    if n <= 0:
+        raise RuntimeError(f"cross-entropy backward: the device holds no cluster at n_embd {E}")
+    return n
+
+
+def dx_grid(N: int, V: int, dtype: torch.dtype, active: int) -> Tuple[int, int]:
+    """(row tiles, vocab splits) of the dx kernel: a cluster per row tile,
+    times the vocab splits that finish soonest when the card holds
+    ``active`` clusters at once (waves x tiles per split; the fewest splits
+    among equals, every split at least one tile)."""
+    tiles = -(-N // BWD_ROWS[dtype])
+    v_tiles = -(-V // BWD_STREAM[dtype])
+    best = None
+    for want in range(1, min(16, v_tiles) + 1):
+        per_split = -(-v_tiles // want)
+        splits = -(-v_tiles // per_split)
+        cost = -(-tiles * splits // active) * per_split
+        if best is None or cost < best[0]:
+            best = (cost, splits)
+    return tiles, best[1]
 
 
 def ce_forward(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
@@ -218,15 +263,18 @@ def ce_backward_dx(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
         raise ValueError(f"ce_backward_dx: no kernel for device {x.device}")
     dtype = _check_cuda("ce_backward_dx", x, head, labels, vocab_size, lse, gscale)
     N, E = x.shape
-    n_pad = -(-N // DX_ROWS) * DX_ROWS
+    active = _active_clusters(E, dtype, x.device.index if x.device.index is not None
+                              else torch.cuda.current_device())
+    tiles, splits = dx_grid(N, head.shape[0], x.dtype, active)
     dx = torch.empty_like(x)
-    part = torch.empty(DX_SPLITS * n_pad * E, dtype=torch.float32, device=x.device)
-    counters = torch.zeros(n_pad // DX_ROWS, dtype=torch.int32, device=x.device)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    part = torch.empty(splits * tiles * BWD_ROWS[x.dtype] * E if splits > 1 else 0, **f32)
+    counters = torch.zeros(tiles * BWD_MAX_CLUSTER, dtype=torch.int32, device=x.device)
     lib = builder.load_library()
     rc = lib.dst_ce_backward_dx(x.data_ptr(), head.data_ptr(), labels.data_ptr(),
                                 lse.data_ptr(), gscale.data_ptr(), dx.data_ptr(),
                                 part.data_ptr(), counters.data_ptr(), N, E, head.shape[0],
-                                vocab_size, DX_SPLITS, dtype, _stream(x))
+                                vocab_size, splits, dtype, _stream(x))
     builder.check(lib, rc, "ce_backward_dx")
     ce_backward_dx.launches += 1
     return dx
@@ -238,8 +286,8 @@ ce_backward_dx.launches = 0
 def ce_backward_dhead(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
                       lse: torch.Tensor, gscale: torch.Tensor,
                       vocab_size: int) -> torch.Tensor:
-    """dhead ``[V, E]`` in head's dtype, summed over the rows by one block
-    per 32 vocab rows (no atomics: deterministic)."""
+    """dhead ``[V, E]`` in head's dtype, summed over the rows by one
+    cluster per 128 vocab rows (64 in fp32; no atomics: deterministic)."""
     if x.device.type == "cpu":
         return ce_backward_dhead_reference(x, head, labels, lse, gscale, vocab_size)
     if x.device.type != "cuda":

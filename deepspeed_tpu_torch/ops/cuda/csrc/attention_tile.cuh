@@ -1,12 +1,16 @@
 // Tile code shared by the attention kernels for Hopper (sm_90a):
-// flash_attention.cu (dense) and block_sparse_attention.cu (over a layout's
-// lookup tables).  One 64-row tile of a 64-wide head per block of 4 warps,
-// each warp owning 16 of the rows:
+// flash_attention.cu (dense), block_sparse_attention.cu (over a layout's
+// lookup tables) and decode_attention.cu (its prefill path).  One 64-row
+// tile of a 64-wide head per block of 4 warps, each warp owning 16 of the
+// rows:
 // * 16-byte cp.async copies of a [64][64] tile from a strided [B, S, H, 64]
 //   tensor into shared memory (rows past S zero-filled);
 // * c = a . b^T and acc += p . b on [16 x 64] warp tiles, bf16 through
 //   mma.sync m16n8k16 (fp32 accumulate), fp32 through FMA in the same
-//   register layout (no TF32);
+//   register layout (no TF32): product_nt / product_pv read bf16 fragments
+//   with 32- and 16-bit shared loads (the dQ, dKV and block-sparse
+//   kernels); QFragments (Q held in registers) and pv_tile read them with
+//   ldmatrix (the flash forward and the decode prefill path);
 // * row stores to contiguous [B, S, heads, 64] outputs.
 // A 16 x 64 fp32 tile of a warp lives in registers as c[8][4]: c[j][i] is
 // row g + 8 * (i >> 1), column 8 j + 2 t + (i & 1), where g = lane / 4 and
@@ -16,14 +20,11 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "sm90_primitives.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int kD = 64;                  // head_dim the kernels are compiled for
 constexpr int kTile = 64;               // rows of a query or key tile
@@ -37,20 +38,6 @@ template <> struct Tr<bf16> { static constexpr int kLd = kD + 8; };    // 144-by
 template <> struct Tr<float> { static constexpr int kLd = kD + 4; };   // 272-byte rows
 
 template <typename T> constexpr int kTileElems = kTile * Tr<T>::kLd;
-
-__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-// 16 bytes global -> shared without a register round trip; an invalid
-// source fills zeros (and reads nothing).
-__device__ __forceinline__ void copy16_async(void* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void commit_copies() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void wait_copies() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // dst[r][0 : kD) = src[(row0 + r) * ss + 0 : kD) for r < kTile; rows at or
 // past S are zeros.  Asynchronous: commit, wait and a barrier before reading.
@@ -71,22 +58,6 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long long ss, in
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
-__device__ __forceinline__ uint32_t pack_raw(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-__device__ __forceinline__ uint32_t pack_rn(float lo, float hi) {
-  return pack_raw(__float2bfloat16(lo), __float2bfloat16(hi));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ void zero(float (&c)[8][4]) {
 #pragma unroll
   for (int j = 0; j < 8; ++j)
@@ -219,12 +190,102 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(kFull, x, 2);
 }
 
+// ---- ldmatrix helpers (the decode prefill path and the flash forward) ----
+
+// dst[r][0 : kD) = src[(row0 + r) * ss + 0 : kD) for r < ROWS, by THREADS
+// threads; rows at or past S are zeros.  Asynchronous, as load_tile.
+template <typename T, int ROWS, int THREADS>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, long long ss, int row0, int S) {
+  constexpr int kElems = 16 / sizeof(T);
+  constexpr int kChunks = kD / kElems;
+  constexpr int kPer = ROWS * kChunks / THREADS;
+  static_assert(kPer * THREADS == ROWS * kChunks, "whole 16-byte chunks per thread");
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int c = threadIdx.x + i * THREADS;
+    const int r = c / kChunks, col = (c % kChunks) * kElems;
+    const bool valid = row0 + r < S;
+    copy16_async(dst + r * Tr<T>::kLd + col, valid ? src + (row0 + r) * ss + col : src, valid);
+  }
+}
+
+// The warp's 16 query rows as the A operand of c = q . k^T: bf16 fragments
+// loaded once by ldmatrix and kept in registers (K by ldmatrix per tile);
+// fp32 reads q from shared memory in product_nt.
+template <typename T> struct QFragments;
+
+template <> struct QFragments<bf16> {
+  uint32_t f[kD / 16][4];
+
+  __device__ __forceinline__ void load(const bf16* q) {
+    constexpr int L = Tr<bf16>::kLd;
+    const int lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      ldsm_x4(f[kk], q + ((mi & 1) * 8 + r8) * L + kk * 16 + (mi >> 1) * 8);
+  }
+
+  // c = q . b^T for the 64 rows of b ([row][kD] in shared memory)
+  __device__ __forceinline__ void scores(float (&c)[8][4], const bf16* b) const {
+    constexpr int L = Tr<bf16>::kLd;
+    const int lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
+    zero(c);
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t bfr[4];
+        ldsm_x4(bfr, b + ((2 * jp + (mi >> 1)) * 8 + r8) * L + kk * 16 + (mi & 1) * 8);
+        mma_bf16(c[2 * jp], f[kk][0], f[kk][1], f[kk][2], f[kk][3], bfr[0], bfr[1]);
+        mma_bf16(c[2 * jp + 1], f[kk][0], f[kk][1], f[kk][2], f[kk][3], bfr[2], bfr[3]);
+      }
+  }
+};
+
+template <> struct QFragments<float> {
+  const float* q;
+  __device__ __forceinline__ void load(const float* rows) { q = rows; }
+  __device__ __forceinline__ void scores(float (&c)[8][4], const float* b) const {
+    product_nt(c, q, b);
+  }
+};
+
+// acc += p . b: p the warp's 16 x 64 tile in registers (rounded to bf16, as
+// JAX's kernels round p to v's dtype), b [64 keys][kD] in shared memory,
+// read transposed by ldmatrix.trans.
+__device__ __forceinline__ void pv_tile(float (&acc)[8][4], const float (&p)[8][4],
+                                        const bf16* b) {
+  constexpr int L = Tr<bf16>::kLd;
+  const int lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk) {
+    const uint32_t a0 = pack_rn(p[2 * kk][0], p[2 * kk][1]);
+    const uint32_t a1 = pack_rn(p[2 * kk][2], p[2 * kk][3]);
+    const uint32_t a2 = pack_rn(p[2 * kk + 1][0], p[2 * kk + 1][1]);
+    const uint32_t a3 = pack_rn(p[2 * kk + 1][2], p[2 * kk + 1][3]);
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {
+      uint32_t bfr[4];
+      ldsm_x4_trans(bfr, b + (kk * 16 + (mi & 1) * 8 + r8) * L + (2 * jp + (mi >> 1)) * 8);
+      mma_bf16(acc[2 * jp], a0, a1, a2, a3, bfr[0], bfr[1]);
+      mma_bf16(acc[2 * jp + 1], a0, a1, a2, a3, bfr[2], bfr[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ void pv_tile(float (&acc)[8][4], const float (&p)[8][4],
+                                        const float* b) {
+  product_pv(acc, p, b);
+}
+
+
 template <typename Kernel, typename P>
-cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, const P& p, cudaStream_t st) {
+cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, const P& p, cudaStream_t st,
+                   int threads = kThreads) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, st>>>(p);
+  kernel<<<grid, threads, smem, st>>>(p);
   return cudaGetLastError();
 }
 

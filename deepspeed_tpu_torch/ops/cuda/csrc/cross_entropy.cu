@@ -12,41 +12,78 @@
 // reaches device memory: each kernel recomputes its score tiles from
 // (x, head) in shared memory, as the TPU kernels do in VMEM.
 //
-// Bound: operations.  At GPT-2's training shape (N 2048, E 768, V 50304)
-// one score pass is 2*N*E*V = 158 GFLOP; the forward does one, dx and
+// Bound: operations.  At GPT-2's training shape (N 4096, E 768, V 50304)
+// one score pass is 2*N*E*V = 317 GFLOP; the forward does one, dx and
 // dhead two each (a recomputed score pass and their own product).  Their
 // inputs are a few MB, so the floor is those flops over the tensor-core
 // rate in bf16 (989 TFLOP/s) and over the fp32 rate (67 TFLOP/s) for fp32.
+// Widths: any n_embd E that is a multiple of 8 (rows start on 16-byte
+// boundaries), up to 8 x 208 = 1664 in the backward (GPT-2's 768, 1024,
+// 1280 and 1600 all fit); the wrapper raises on any other.
 //
-// Design (simple and correct first; wgmma, TMA and a pipelined stream are
-// later work):
-// * bf16 products use wmma (mma.sync 16x16x16, fp32 accumulate) from
-//   shared-memory tiles; fp32 inputs use fp32 FMA on the CUDA cores (no
-//   TF32).  bf16 tiles are staged with cp.async, so each thread's 16-byte
-//   copies are all in flight before it waits.
-// * forward: grid (row tiles of 128, vocab splits).  score_tile() computes
-//   a 128 x 128 block of s, staging x and head in steps of 32 columns.
-//   Each block walks its split's vocab tiles with the online softmax
-//   (running max, sum, label logit; two threads per row).  The block that
-//   finishes a row tile last (an atomic counter per row tile) folds the
-//   splits' partials in split order, so the result does not depend on
-//   which block ends first.
-// * dx and dhead are one kernel, ce_bwd_kernel<T, kDhead>.  A block owns
-//   32 "resident" rows of all 768 columns (x rows for dx, head rows for
-//   dhead), staged once in shared memory, and an fp32 accumulator
-//   [32 x 768] in registers (each warp owns 96 columns).  It streams the
-//   other operand (head rows for dx, x rows for dhead) in tiles of 64
-//   (bf16) or 16 (fp32) full rows: each tile is staged once and serves both
-//   the score product s = resident . tile^T and the update acc += ds . tile,
-//   with ds rounded to the input dtype, as the autograd of JAX's unchunked
-//   branch rounds it.
-// * dx: grid (row tiles of 32, vocab splits); the splits' fp32 partials are
-//   summed in split order by the last block of the row tile.  dhead: one
-//   block per 32 vocab rows walks every row of x: no atomics, so fp32
-//   results are deterministic.  The backward kernel is compiled for n_embd
-//   768 (GPT-2) only; the wrapper raises on another.
-// * rows past N and vocab rows past V are masked, never padded in memory.
+// Forward (simple and correct first; wmma, not redesigned):
+// * grid (row tiles of 128, vocab splits).  score_tile() computes a 128 x
+//   128 block of s with wmma (bf16) or fp32 FMA, staging x and head in
+//   steps of 32 columns by cp.async (the last step masked when 32 does not
+//   divide E).  Each block walks its split's vocab tiles with the online
+//   softmax (running max, sum, label logit; two threads per row).  The
+//   block that finishes a row tile last (an atomic counter per row tile)
+//   folds the splits' partials in split order, so the result does not
+//   depend on which block ends first.
+//
+// Backward (dx and dhead, one kernel ce_bwd_kernel<T, kDhead>; redesigned
+// for Hopper).  It is flash attention with head width E: a block keeps
+// "resident" rows R (x rows for dx, head rows for dhead) and streams the
+// other operand T (head rows, or x rows) in tiles; per tile
+//     s = R . T^T,  ds = (softmax part - one-hot) * g,  acc += ds . T,
+// with one copy of each T tile serving both products.  The fp32
+// accumulator [rows x E] is too big for one block at GPT-2's widths, so:
+// * A thread-block cluster of C blocks (C = 1, 2, 4 or 8: the smallest
+//   whose slice of E, rounded up to 8 columns, fits 208; GPT-2 768 -> 4 x
+//   192, 1024 / 1280 / 1600 -> 8 x 128 / 160 / 200) shares one tile of 128
+//   resident rows (bf16, streamed tiles of 64; fp32 64 and 32).  Block c
+//   loads only its slice of E of R and of every T tile and keeps only that
+//   slice of the accumulator, in registers.
+// * Each block computes the partial score over its slice.  Block c owns
+//   rows [c m, (c + 1) m) of the tile (m = rows / C): every block sends it
+//   those rows' partials, block c sums the C of them in rank order (fixed:
+//   fp32 results are deterministic, no atomics), forms ds, rounds it to
+//   the input dtype (as the autograd of JAX's unchunked branch rounds ds)
+//   and sends its rows of ds to every block, which then updates its own
+//   columns, acc += ds . T.
+// * The exchanges are bulk copies (cp.async.bulk, shared::cta to
+//   shared::cluster), one per peer, each counted off a transaction barrier
+//   (mbarrier) in the receiving block, so a block waits only for the data
+//   it reads: no cluster-wide barrier per tile.  (First designs sent them
+//   with per-thread distributed-shared-memory stores and cluster barriers:
+//   slower, the store count and the barriers' release fences dominating.)
+// * The step is pipelined so that each exchange is in flight while the
+//   tensor cores work: step t computes tile t's partial scores while ds(t -
+//   1) is in flight, and applies ds(t - 1) while tile t's partials are in
+//   flight; ds is double-buffered.
+// * bf16 products are mma.sync m16n8k16 (fp32 accumulate) with fragments
+//   by ldmatrix (T by .trans for the update), the next step's fragments
+//   loaded while the current step's products run; the score warp tiles are
+//   32 x 32 and the update's 64 rows x every 4th 8-column slice, to cut
+//   the shared-memory bytes per product.  fp32 uses FMA in the same layout
+//   (no TF32).
+// * T tiles stream into two ring slots by bulk copies, one per row,
+//   counted off the slot's barrier; ds is formed with ex2.approx on log2
+//   scaled scores.
+// * Grids: dx, a cluster per 128 rows of x, times vocab splits chosen from
+//   the clusters the card holds at once (the CUDA occupancy query; the
+//   splits' fp32 partials are summed in split order by the last block of
+//   each row tile and slice); dhead, a cluster per 128 vocab rows, each
+//   walking every row of x.
+// * Rows past N, vocab rows past V and columns past E are masked (zeros or
+//   earlier finite values in shared memory that only meet ds = 0, never
+//   written), never padded in memory.
+// What holds it (PERF.md): the exchange and the per-step bookkeeping of
+// all warps in lockstep take about as long as the products.  Next: warp
+// specialisation (producer and consumer warps), wgmma with TMA-fed tiles,
+// and one launch for dx and dhead (the score pass done once).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -54,53 +91,33 @@
 
 #include <type_traits>
 
+#include "sm90_primitives.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
 
 using namespace nvcuda;
-using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;                // forward block
 constexpr int kWarps = kThreads / 32;
 constexpr int kBK = 32;                      // E columns per step of the forward's score product
-constexpr int kAccE = 768;                   // n_embd of the backward kernel
-constexpr int kRes = 32;                     // resident rows of a backward block
-constexpr int kWarpCols = kAccE / kWarps;    // 96 accumulator columns per warp
 constexpr float kPadLogit = -1e9f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 constexpr int kFwdRows = 128, kFwdCols = 128;
-
-static_assert(kWarpCols % 16 == 0 && kRes % 16 == 0, "wmma tiling");
 
 template <typename T> struct Cfg;
 template <> struct Cfg<bf16> {
   static constexpr int kLd = kBK + 8;          // forward staging stride (wmma: multiple of 8)
-  static constexpr int kStream = 64;           // streamed rows per backward tile
-  static constexpr int kLdA = kRes + 8;        // ds tile stride
-  static constexpr int kLdB = kAccE + 8;       // full-row tile stride
 };
 template <> struct Cfg<float> {
   static constexpr int kLd = kBK + 1;          // odd stride: conflict-free column reads
-  static constexpr int kStream = 16;
-  static constexpr int kLdA = kRes + 4;
-  static constexpr int kLdB = kAccE + 4;
 };
 
 template <typename T> constexpr bool kIsBf16 = std::is_same<T, bf16>::value;
 
 __host__ __device__ constexpr size_t align128(size_t b) { return (b + 127) & ~size_t(127); }
-
-// 16 bytes global -> shared without a register round trip, so a thread's
-// copies are all in flight at once; an invalid source fills zeros.
-__device__ __forceinline__ void copy16_async(void* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-// Wait for this thread's async copies (a barrier then publishes them).
-__device__ __forceinline__ void wait_copies() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
-}
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
@@ -135,8 +152,9 @@ struct FwdLayout {
 };
 
 // dst[r][0 : kBK) = src[row0 + r][k0 : k0 + kBK) for r < ROWS; rows at or
-// past nrows are zeros.  bf16 copies are asynchronous: wait_copies() and a
-// barrier before reading dst.
+// past nrows and columns at or past e (the last step of an e that is not a
+// multiple of kBK) are zeros.  bf16 copies are asynchronous: commit, wait
+// and a barrier before reading dst.
 template <typename T, int ROWS>
 __device__ __forceinline__ void stage_k(const T* __restrict__ src, int row0, int nrows, int e,
                                         int k0, T* __restrict__ dst) {
@@ -145,14 +163,15 @@ __device__ __forceinline__ void stage_k(const T* __restrict__ src, int row0, int
     constexpr int kVecs = kBK / 8;
     for (int i = threadIdx.x; i < ROWS * kVecs; i += kThreads) {
       const int r = i / kVecs, part = i % kVecs;
-      const bool valid = row0 + r < nrows;
+      const bool valid = row0 + r < nrows && k0 + part * 8 < e;   // e % 8 == 0
       copy16_async(dst + r * kLd + part * 8,
                    valid ? src + (size_t)(row0 + r) * e + k0 + part * 8 : src, valid);
     }
   } else {
     for (int i = threadIdx.x; i < ROWS * kBK; i += kThreads) {
       const int r = i / kBK, k = i % kBK;
-      dst[r * kLd + k] = row0 + r < nrows ? src[(size_t)(row0 + r) * e + k0 + k] : 0.f;
+      const bool valid = row0 + r < nrows && k0 + k < e;
+      dst[r * kLd + k] = valid ? src[(size_t)(row0 + r) * e + k0 + k] : 0.f;
     }
   }
 }
@@ -179,7 +198,8 @@ __device__ void score_tile(const T* __restrict__ x, const T* __restrict__ head, 
     for (int k0 = 0; k0 < e; k0 += kBK) {
       stage_k<T, BM>(x, row0, n, e, k0, a);
       stage_k<T, BN>(head, col0, v, e, k0, b);
-      wait_copies();
+      commit_copies();
+      wait_copies<0>();
       __syncthreads();
 #pragma unroll
       for (int kk = 0; kk < kBK; kk += 16) {
@@ -309,264 +329,531 @@ ce_fwd_kernel(const T* __restrict__ x, const T* __restrict__ head, const int* __
 // backward (dx and dhead)
 // --------------------------------------------------------------------------
 
-// Shared memory of the backward kernel: the score tile s [kRes][BN + 4]
-// fp32, the ds tile held k-major (at[j][i]: streamed row j, resident row
-// i), the resident rows, the streamed tile, and one 16x16 fp32 scratch per
-// warp for the accumulator's store.
+constexpr int kWMax = 208;            // most columns of E one block of a cluster owns
+constexpr int kMaxCluster = 8;        // the portable cluster size
+constexpr int kUpdN8 = 7;             // n8 tiles per update warp: every 4th of kWMax / 8
+
+// Per dtype: resident rows and streamed rows per tile, the warps, and the
+// two warp grids: the score tile [rows x stream] as
+// kSR x kSC warps, the update [rows x slice] as kUR row groups x 4 column
+// groups (group c takes n8 tiles c, c + 4, ...).
+template <typename T> struct Bwd;
+template <> struct Bwd<bf16> {
+  static constexpr int kRows = 128, kStream = 64, kWarps = 8;
+  static constexpr int kSR = 4, kSC = 2, kUR = 2;
+  static constexpr int kLd = kWMax + 8;        // 432-byte rows: an odd number of 16-byte
+                                               // chunks, so ldmatrix rows hit distinct banks
+  static constexpr int kLdDs = kStream + 8;    // 144-byte rows, likewise
+};
+template <> struct Bwd<float> {
+  static constexpr int kRows = 64, kStream = 32, kWarps = 4;
+  static constexpr int kSR = 2, kSC = 2, kUR = 1;
+  static constexpr int kLd = kWMax + 4;
+  static constexpr int kLdDs = kStream + 4;
+};
+template <typename T> constexpr int kLdS = Bwd<T>::kStream + 4;     // fp32 partial scores
+template <typename T> constexpr int kThr = Bwd<T>::kWarps * 32;
+template <typename T> constexpr int kSM = Bwd<T>::kRows / Bwd<T>::kSR / 16;   // m16 per score warp
+template <typename T> constexpr int kSN = Bwd<T>::kStream / Bwd<T>::kSC / 8;  // n8 per score warp
+template <typename T> constexpr int kUM = Bwd<T>::kRows / Bwd<T>::kUR / 16;   // m16 per update warp
+static_assert(Bwd<bf16>::kWarps == Bwd<bf16>::kSR * Bwd<bf16>::kSC &&
+              Bwd<bf16>::kWarps == Bwd<bf16>::kUR * 4 &&
+              Bwd<float>::kWarps == Bwd<float>::kSR * Bwd<float>::kSC &&
+              Bwd<float>::kWarps == Bwd<float>::kUR * 4 && kUpdN8 * 4 >= kWMax / 8,
+              "warp grids");
+
+// Columns of E a block owns when c blocks share it (rounded up to 8, so
+// every slice starts on a 16-byte boundary).
+__host__ __device__ constexpr int slice_of(int e, int c) { return (cdiv(e, c) + 7) / 8 * 8; }
+
+// Blocks per cluster for width e: the smallest power of two whose slice
+// fits kWMax; 0 when e needs more than kMaxCluster blocks.
+__host__ __device__ constexpr int cluster_of(int e) {
+  for (int c = 1; c <= kMaxCluster; c *= 2)
+    if (slice_of(e, c) <= kWMax) return c;
+  return 0;
+}
+
+// Shared memory of a backward block: the resident slice; two ring slots
+// of streamed tiles, each with its rows' lse and labels (dhead); the
+// partial scores this block receives (one slot per block of the cluster)
+// and those it sends; two ds tiles; the resident rows' lse and labels
+// (dx); five transaction barriers (the partial scores received; each ds
+// tile's rows received from the other blocks; each ring slot's rows).
 template <typename T>
 struct BwdLayout {
-  static constexpr int BN = Cfg<T>::kStream;
-  static constexpr size_t kAt = align128(sizeof(float) * kRes * (BN + 4));
-  static constexpr size_t kR = kAt + align128(sizeof(T) * BN * Cfg<T>::kLdA);
-  static constexpr size_t kT = kR + align128(sizeof(T) * kRes * Cfg<T>::kLdB);
-  static constexpr size_t kScratch = kT + align128(sizeof(T) * BN * Cfg<T>::kLdB);
-  static constexpr size_t kBytes = kScratch + align128(sizeof(float) * kWarps * 256);
+  using B = Bwd<T>;
+  static constexpr size_t kSlotBytes = align128(sizeof(T) * B::kStream * B::kLd + 8 * B::kStream);
+  static constexpr size_t kScoreBytes = align128(sizeof(float) * B::kRows * kLdS<T>);
+  static constexpr size_t kDsBytes = align128(sizeof(T) * B::kRows * B::kLdDs);
+  static constexpr size_t kRing = align128(sizeof(T) * B::kRows * B::kLd);
+  static constexpr size_t kRecv = kRing + 2 * kSlotBytes;
+  static constexpr size_t kSend = kRecv + kScoreBytes;
+  static constexpr size_t kDs = kSend + kScoreBytes;
+  static constexpr size_t kStats = kDs + 2 * kDsBytes;
+  static constexpr size_t kBars = kStats + align128(8 * B::kRows);
+  static constexpr size_t kBytes = kBars + 128;
+  // bytes each barrier phase receives from the other blocks (padding
+  // included): this block's rows' partial scores of one tile, and the rows
+  // of a ds tile that the others form
+  static __device__ uint32_t recv_tx(int C) {
+    return sizeof(float) * (B::kRows - B::kRows / C) * kLdS<T>;
+  }
+  static __device__ uint32_t ds_tx(int C) {
+    return sizeof(T) * (B::kRows - B::kRows / C) * B::kLdDs;
+  }
 };
 
-// dst[r][0 : kAccE) = src[row0 + r] for r < ROWS (row stride kLdB); rows
-// at or past nrows are zeros.
+struct BwdArgs {
+  const void* x;
+  const void* head;
+  const int* labels;
+  const float* lse;
+  const float* gscale;
+  void* out;
+  float* part;         // dx over vocab splits: [splits][n_pad][e] fp32
+  int* counters;       // dx over vocab splits: one per (row tile, slice), zeroed
+  int n, e, v, vocab_size;
+  int w;               // slice width (columns per block of the cluster)
+  int per_split;       // streamed tiles per vocab split (dx)
+  int n_pad;           // row tiles x rows per tile (dx)
+};
+
+// dst[r][0 : W16) = src[row0 + r][col0 : col0 + w) for r < ROWS, where W16
+// is w rounded up to 16; columns past w and rows at or past nrows are
+// zeros.  Asynchronous: commit, wait and a barrier before reading.
 template <typename T, int ROWS>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ src, int row0, int nrows,
-                                           T* __restrict__ dst) {
-  constexpr int kPer = 16 / sizeof(T);               // elements per 16-byte load
-  constexpr int kVecs = kAccE / kPer;
-  constexpr int kLdB = Cfg<T>::kLdB;
-  for (int i = threadIdx.x; i < ROWS * kVecs; i += kThreads) {
-    const int r = i / kVecs, c = (i % kVecs) * kPer;
-    const bool valid = row0 + r < nrows;
-    copy16_async(dst + r * kLdB + c, valid ? src + (size_t)(row0 + r) * kAccE + c : src, valid);
-  }
-  wait_copies();
-}
-
-// s[i][j] = res[i] . tile[j] over kAccE columns (fp32 sums), i < kRes,
-// j < kStream; both operands staged with row stride kLdB.
-template <typename T>
-__device__ __forceinline__ void score_rows(const T* __restrict__ res, const T* __restrict__ tile,
-                                           float* __restrict__ s) {
-  constexpr int BN = Cfg<T>::kStream, kLdB = Cfg<T>::kLdB, kLdS = BN + 4;
-  if constexpr (kIsBf16<T>) {
-    // one 16x16 block of s per warp: 2 x 4 blocks for 8 warps
-    static_assert((kRes / 16) * (BN / 16) == kWarps, "one score block per warp");
-    // kChains independent accumulators over interleaved k steps, so
-    // consecutive mma do not wait on each other; summed at the end
-    constexpr int kChains = 4;
-    const int warp = threadIdx.x / 32, fi = warp / (BN / 16), fj = warp % (BN / 16);
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kChains];
-#pragma unroll
-    for (int c = 0; c < kChains; ++c) wmma::fill_fragment(acc[c], 0.f);
-    for (int k = 0; k < kAccE; k += 16 * kChains) {
-#pragma unroll
-      for (int c = 0; c < kChains; ++c) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfr;
-        wmma::load_matrix_sync(af, res + fi * 16 * kLdB + k + 16 * c, kLdB);
-        wmma::load_matrix_sync(bfr, tile + fj * 16 * kLdB + k + 16 * c, kLdB);
-        wmma::mma_sync(acc[c], af, bfr, acc[c]);
-      }
+__device__ __forceinline__ void load_slice(T* dst, const T* src, int row0, int nrows, int e,
+                                           int col0, int w) {
+  constexpr int kPer = 16 / sizeof(T);
+  const int chunks = cdiv(w, 16) * 16 / kPer;       // per row
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < ROWS; r += Bwd<T>::kWarps) {      // a warp per row, a lane per chunk
+    const bool row_ok = row0 + r < nrows;
+    const T* from = src + (size_t)(row_ok ? row0 + r : 0) * e + col0;
+    for (int c = lane * kPer; c < chunks * kPer; c += 32 * kPer) {
+      const bool valid = row_ok && c < w;
+      copy16_async(dst + r * Bwd<T>::kLd + c, valid ? from + c : src, valid);
     }
-#pragma unroll
-    for (int c = 1; c < kChains; ++c)
-#pragma unroll
-      for (int t = 0; t < acc[0].num_elements; ++t) acc[0].x[t] += acc[c].x[t];
-    wmma::store_matrix_sync(s + fi * 16 * kLdS + fj * 16, acc[0], kLdS, wmma::mem_row_major);
-  } else {
-    // two entries of s per thread: row i, columns j and j + BN / 2; a warp
-    // reads 4 resident rows and 8 tile rows per k, in distinct banks
-    static_assert(kRes * BN == 2 * kThreads, "two score entries per thread");
-    const int i = threadIdx.x / (BN / 2), j = threadIdx.x % (BN / 2);
-    const float* ri = res + i * kLdB;
-    const float* t0 = tile + j * kLdB;
-    const float* t1 = t0 + (BN / 2) * kLdB;
-    float a0 = 0.f, a1 = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < kAccE; ++k) {
-      const float rv = ri[k];
-      a0 = fmaf(rv, t0[k], a0);
-      a1 = fmaf(rv, t1[k], a1);
-    }
-    s[i * kLdS + j] = a0;
-    s[i * kLdS + j + BN / 2] = a1;
   }
 }
 
-// The [kRes x kAccE] fp32 accumulator of a backward block:
-// acc += A . B, with A [kRes x k] held k-major in shared memory (at[k][m])
-// and B [k x kAccE] the streamed tile.
-template <typename T> struct Acc;
-
-template <> struct Acc<bf16> {
-  static constexpr int FM = kRes / 16, FN = kWarpCols / 16;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> f[FM][FN];
-
-  __device__ void zero() {
+// The block's partial scores of one tile, s[m][n] the warp's m16 x n8
+// accumulator tiles (warp grid kSR x kSC), over nk steps of 16 columns;
+// each step's fragments are loaded while the previous step's products run.
+__device__ __forceinline__ void block_scores(float (&s)[kSM<bf16>][kSN<bf16>][4], const bf16* res,
+                                             const bf16* tile, int nk) {
+  using B = Bwd<bf16>;
+  constexpr int L = B::kLd, SM = kSM<bf16>, SN = kSN<bf16>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
+  const bf16* a = res + ((warp / B::kSC) * (16 * SM) + (mi & 1) * 8 + r8) * L + (mi >> 1) * 8;
+  const bf16* b = tile + ((warp % B::kSC) * (8 * SN) + (mi >> 1) * 8 + r8) * L + (mi & 1) * 8;
+  uint32_t af[2][SM][4], bfr[2][SN / 2][4];
+  auto load = [&](int kk, int buf) {
 #pragma unroll
-    for (int i = 0; i < FM; ++i)
+    for (int m = 0; m < SM; ++m) ldsm_x4(af[buf][m], a + m * 16 * L + kk * 16);
 #pragma unroll
-      for (int j = 0; j < FN; ++j) wmma::fill_fragment(f[i][j], 0.f);
-  }
-
-  // k rows [0, kStream) of at against the streamed tile bb
-  __device__ void mma(const bf16* __restrict__ at, const bf16* __restrict__ bb) {
-    constexpr int kLdA = Cfg<bf16>::kLdA, kLdB = Cfg<bf16>::kLdB;
-    const int col0 = (threadIdx.x / 32) * kWarpCols;
-#pragma unroll 2
-    for (int kk = 0; kk < Cfg<bf16>::kStream; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> af[FM];
+    for (int np = 0; np < SN / 2; ++np) ldsm_x4(bfr[buf][np], b + np * 16 * L + kk * 16);
+  };
 #pragma unroll
-      for (int i = 0; i < FM; ++i) wmma::load_matrix_sync(af[i], at + kk * kLdA + i * 16, kLdA);
+  for (int m = 0; m < SM; ++m)
 #pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-        wmma::load_matrix_sync(bfr, bb + kk * kLdB + col0 + j * 16, kLdB);
+    for (int n = 0; n < SN; ++n)
 #pragma unroll
-        for (int i = 0; i < FM; ++i) wmma::mma_sync(f[i][j], af[i], bfr, f[i][j]);
-      }
-    }
-  }
-
-  // out[r][c] (row stride kAccE) for r < rows, through this warp's 16x16
-  // fp32 scratch
-  template <typename O>
-  __device__ void store(O* __restrict__ out, int rows, float* __restrict__ scratch) {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    float* st = scratch + warp * 256;
+      for (int i = 0; i < 4; ++i) s[m][n][i] = 0.f;
+  load(0, 0);
 #pragma unroll
-    for (int i = 0; i < FM; ++i)
+  for (int kk = 0; kk < kWMax / 16; ++kk) {
+    if (kk < nk) {
+      if (kk + 1 < nk) load(kk + 1, (kk + 1) & 1);
+      const int buf = kk & 1;
 #pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        wmma::store_matrix_sync(st, f[i][j], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int idx = lane; idx < 256; idx += 32) {
-          const int r = i * 16 + idx / 16, c = warp * kWarpCols + j * 16 + idx % 16;
-          if (r < rows) out[(size_t)r * kAccE + c] = from_f<O>(st[idx]);
+      for (int np = 0; np < SN / 2; ++np)
+#pragma unroll
+        for (int m = 0; m < SM; ++m) {
+          const uint32_t(&x)[4] = af[buf][m];
+          mma_bf16(s[m][2 * np], x[0], x[1], x[2], x[3], bfr[buf][np][0], bfr[buf][np][1]);
+          mma_bf16(s[m][2 * np + 1], x[0], x[1], x[2], x[3], bfr[buf][np][2], bfr[buf][np][3]);
         }
-        __syncwarp();
-      }
+    }
   }
-};
+}
 
-template <> struct Acc<float> {
-  // thread (ty, tx) owns rows ty + 8 i and columns tx + 32 j
-  static constexpr int RM = kRes / 8, RN = kAccE / 32;
-  float f[RM][RN];
-
-  __device__ void zero() {
+__device__ __forceinline__ void block_scores(float (&s)[kSM<float>][kSN<float>][4],
+                                             const float* res, const float* tile, int nk) {
+  using B = Bwd<float>;
+  constexpr int L = B::kLd;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* a = res + ((warp / B::kSC) * (16 * kSM<float>) + g) * L;
+  const float* b = tile + ((warp % B::kSC) * (8 * kSN<float>) + 2 * t) * L;
 #pragma unroll
-    for (int i = 0; i < RM; ++i)
+  for (int m = 0; m < kSM<float>; ++m)
 #pragma unroll
-      for (int j = 0; j < RN; ++j) f[i][j] = 0.f;
+    for (int n = 0; n < kSN<float>; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[m][n][i] = 0.f;
+  for (int d = 0; d < nk * 16; d += 4) {
+    float4 av[kSM<float>][2], bv[kSN<float>][2];
+#pragma unroll
+    for (int m = 0; m < kSM<float>; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        av[m][h] = *reinterpret_cast<const float4*>(a + (m * 16 + 8 * h) * L + d);
+#pragma unroll
+    for (int n = 0; n < kSN<float>; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        bv[n][e] = *reinterpret_cast<const float4*>(b + (n * 8 + e) * L + d);
+#pragma unroll
+    for (int m = 0; m < kSM<float>; ++m)
+#pragma unroll
+      for (int n = 0; n < kSN<float>; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 x = av[m][i >> 1], y = bv[n][i & 1];
+          float c = s[m][n][i];
+          c = fmaf(x.x, y.x, c);
+          c = fmaf(x.y, y.y, c);
+          c = fmaf(x.z, y.z, c);
+          c = fmaf(x.w, y.w, c);
+          s[m][n][i] = c;
+        }
   }
+}
 
-  __device__ void mma(const float* __restrict__ at, const float* __restrict__ bb) {
-    constexpr int kLdA = Cfg<float>::kLdA, kLdB = Cfg<float>::kLdB;
-    const int ty = threadIdx.x / 32, tx = threadIdx.x % 32;
-#pragma unroll 2
-    for (int k = 0; k < Cfg<float>::kStream; ++k) {
-      float av[RM];
+// acc += ds . tile for the warp's update tile: rows [kRows / kUR) of its
+// row group, n8 tiles j = (warp % 4) + 4 i below the slice's nt8.
+__device__ __forceinline__ void block_update(float (&acc)[kUM<bf16>][kUpdN8][4], const bf16* ds,
+                                             const bf16* tile, int nt8) {
+  using B = Bwd<bf16>;
+  constexpr int L = B::kLd, LD = B::kLdDs, UM = kUM<bf16>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
+  const bf16* a = ds + ((warp / 4) * (16 * UM) + (mi & 1) * 8 + r8) * LD + (mi >> 1) * 8;
+  const bf16* b = tile + (lane & 15) * L + (warp % 4) * 8;
 #pragma unroll
-      for (int i = 0; i < RM; ++i) av[i] = at[k * kLdA + ty + 8 * i];
+  for (int kk = 0; kk < B::kStream / 16; ++kk) {
+    uint32_t af[UM][4], bfr[kUpdN8][2];
 #pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        const float bv = bb[k * kLdB + tx + 32 * j];
+    for (int m = 0; m < UM; ++m) ldsm_x4(af[m], a + m * 16 * LD + kk * 16);
 #pragma unroll
-        for (int i = 0; i < RM; ++i) f[i][j] = fmaf(av[i], bv, f[i][j]);
+    for (int i = 0; i < kUpdN8; ++i)
+      if (warp % 4 + 4 * i < nt8) ldsm_x2_trans(bfr[i], b + kk * 16 * L + i * 32);
+#pragma unroll
+    for (int i = 0; i < kUpdN8; ++i)
+      if (warp % 4 + 4 * i < nt8)
+#pragma unroll
+        for (int m = 0; m < UM; ++m)
+          mma_bf16(acc[m][i], af[m][0], af[m][1], af[m][2], af[m][3], bfr[i][0], bfr[i][1]);
+  }
+}
+
+__device__ __forceinline__ void block_update(float (&acc)[kUM<float>][kUpdN8][4],
+                                             const float* ds, const float* tile, int nt8) {
+  using B = Bwd<float>;
+  constexpr int L = B::kLd, LD = B::kLdDs;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* a = ds + ((warp / 4) * (16 * kUM<float>) + g) * LD;
+  const int c0 = warp % 4;
+  for (int k = 0; k < B::kStream; ++k) {
+    float dv[kUM<float>][2];
+#pragma unroll
+    for (int m = 0; m < kUM<float>; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) dv[m][h] = a[(m * 16 + 8 * h) * LD + k];
+    const float* row = tile + k * L + 2 * t;
+#pragma unroll
+    for (int i = 0; i < kUpdN8; ++i) {
+      const int j = c0 + 4 * i;
+      if (j >= nt8) break;
+      const float2 bv = *reinterpret_cast<const float2*>(row + j * 8);
+#pragma unroll
+      for (int m = 0; m < kUM<float>; ++m) {
+        acc[m][i][0] = fmaf(dv[m][0], bv.x, acc[m][i][0]);
+        acc[m][i][1] = fmaf(dv[m][0], bv.y, acc[m][i][1]);
+        acc[m][i][2] = fmaf(dv[m][1], bv.x, acc[m][i][2]);
+        acc[m][i][3] = fmaf(dv[m][1], bv.y, acc[m][i][3]);
       }
     }
   }
+}
 
-  template <typename O>
-  __device__ void store(O* __restrict__ out, int rows, float* /*scratch*/) {
-    const int ty = threadIdx.x / 32, tx = threadIdx.x % 32;
+__device__ __forceinline__ void store4(float* dst, const float (&d)[4]) {
+  *reinterpret_cast<float4*>(dst) = make_float4(d[0], d[1], d[2], d[3]);
+}
+__device__ __forceinline__ void store4(bf16* dst, const float (&d)[4]) {
+  *reinterpret_cast<uint2*>(dst) = make_uint2(pack_rn(d[0], d[1]), pack_rn(d[2], d[3]));
+}
+
+template <typename O> __device__ __forceinline__ void store2(O* dst, float a, float b);
+template <> __device__ __forceinline__ void store2<float>(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+template <> __device__ __forceinline__ void store2<bf16>(bf16* dst, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+
+// out[row0 + r][col0 + c] = the warp's update tile, rows below nrows (row
+// stride e).
+template <typename T, typename O>
+__device__ __forceinline__ void store_acc(O* out, int e, const float (&acc)[kUM<T>][kUpdN8][4],
+                                          int row0, int nrows, int col0, int nt8) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = row0 + (warp / 4) * (16 * kUM<T>) + g;
 #pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int r = ty + 8 * i;
-      if (r >= rows) continue;
+  for (int m = 0; m < kUM<T>; ++m)
 #pragma unroll
-      for (int j = 0; j < RN; ++j) out[(size_t)r * kAccE + tx + 32 * j] = from_f<O>(f[i][j]);
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + m * 16 + 8 * h;
+      if (r >= nrows) continue;
+#pragma unroll
+      for (int i = 0; i < kUpdN8; ++i) {
+        const int j = warp % 4 + 4 * i;
+        if (j < nt8)
+          store2<O>(out + (size_t)r * e + col0 + j * 8 + 2 * t, acc[m][i][2 * h],
+                    acc[m][i][2 * h + 1]);
+      }
     }
-  }
-};
+}
 
-// dx (kDhead false): resident rows are x rows [res0, res0 + 32) of n, the
-// streamed tiles are head rows (vocab) from tile t_begin to t_end; the
-// block writes its fp32 partial [32 x 768] of split blockIdx.y, and the
-// last block of the row tile sums the splits into dx.
-// dhead (kDhead true): resident rows are head rows [res0, res0 + 32) of v,
-// the streamed tiles are all rows of x; the block writes dhead directly.
+// The warp's partial scores by row r: into this block's send tile (row
+// order), or, for the rows this block owns, straight
+// into its own receive slot, which has the same layout.
+template <typename T>
+__device__ __forceinline__ void stage_partial(const float (&s)[kSM<T>][kSN<T>][4], float* send,
+                                              float* recv, int mine, int rank) {
+  using B = Bwd<T>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = (warp / B::kSC) * (16 * kSM<T>) + g, c0 = (warp % B::kSC) * (8 * kSN<T>) + 2 * t;
+#pragma unroll
+  for (int m = 0; m < kSM<T>; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + m * 16 + 8 * h;
+      const bool own = r >= rank * mine && r < (rank + 1) * mine;
+      float* dst = (own ? recv : send) + r * kLdS<T> + c0;
+#pragma unroll
+      for (int n = 0; n < kSN<T>; ++n)
+        *reinterpret_cast<float2*>(dst + n * 8) = make_float2(s[m][n][2 * h], s[m][n][2 * h + 1]);
+    }
+}
+
+// This block's rows of the cluster's ds tile for streamed tile str0 (rows
+// rank * mine + i, i < mine): the C blocks' partial scores of each row
+// summed in rank order (fixed: fp32 results are deterministic), ds formed
+// in fp32 and rounded to T into those rows of this block's ds tile.
+// Resident row r, streamed row j is (x row, vocab column) = (res0 + r,
+// str0 + j) for dx and (str0 + j, res0 + r) for dhead; stat_lse / stat_lab
+// hold the lse and label of each resident row (dx) or streamed row (dhead).
 template <typename T, bool kDhead>
-__global__ void __launch_bounds__(kThreads)
-ce_bwd_kernel(const T* __restrict__ x, const T* __restrict__ head,
-              const int* __restrict__ labels, const float* __restrict__ lse,
-              const float* __restrict__ gscale, T* __restrict__ out, float* __restrict__ part,
-              int* __restrict__ counters, int n, int n_pad, int v, int vocab_size,
-              int per_split) {
-  constexpr int BN = Cfg<T>::kStream, kLdA = Cfg<T>::kLdA, kLdS = BN + 4;
-  using L = BwdLayout<T>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* s = reinterpret_cast<float*>(smem);
-  T* at = reinterpret_cast<T*>(smem + L::kAt);
-  T* res = reinterpret_cast<T*>(smem + L::kR);
-  T* tile = reinterpret_cast<T*>(smem + L::kT);
-  float* scratch = reinterpret_cast<float*>(smem + L::kScratch);
-  __shared__ float lse_s[kDhead ? BN : kRes];    // per row of x in play
-  __shared__ int lab_s[kDhead ? BN : kRes];
-
-  const int res0 = blockIdx.x * kRes;
-  const int res_n = kDhead ? v : n;              // rows of the resident operand
-  const int str_n = kDhead ? n : v;              // rows of the streamed operand
-  const int t_begin = kDhead ? 0 : blockIdx.y * per_split;
-  const int t_end = kDhead ? (n + BN - 1) / BN : min(t_begin + per_split, (v + BN - 1) / BN);
-  const float g = *gscale;
-  stage_rows<T, kRes>(kDhead ? head : x, res0, res_n, res);
-  if (!kDhead && threadIdx.x < kRes) {
-    const int row = res0 + threadIdx.x;
-    lse_s[threadIdx.x] = row < n ? lse[row] : 0.f;
-    lab_s[threadIdx.x] = row < n ? labels[row] : -1;
-  }
-  Acc<T> acc;
-  acc.zero();
-  for (int t = t_begin; t < t_end; ++t) {
-    const int str0 = t * BN;
-    stage_rows<T, BN>(kDhead ? x : head, str0, str_n, tile);
-    if (kDhead && threadIdx.x < BN) {
-      const int row = str0 + threadIdx.x;
-      lse_s[threadIdx.x] = row < n ? lse[row] : 0.f;
-      lab_s[threadIdx.x] = row < n ? labels[row] : -1;
+__device__ __forceinline__ void form_ds(const BwdArgs& a, const float* recv, T* ds,
+                                        const float* stat_lse, const int* stat_lab, int C,
+                                        int rank, int res0, int str0, float g) {
+  using B = Bwd<T>;
+  constexpr int kQuads = B::kStream / 4, kIters = B::kRows * kQuads / kThr<T>;
+  const int mine = B::kRows / C;
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {   // kIters / C of them do work
+    const int idx = threadIdx.x + it * kThr<T>;
+    if (idx >= mine * kQuads) continue;
+    const int i = idx / kQuads, c = (idx % kQuads) * 4, r = rank * mine + i;
+    float sv[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int cc = 0; cc < kMaxCluster; ++cc) {      // the C partial scores, in rank order
+      if (cc >= C) break;
+      const float4 q = *reinterpret_cast<const float4*>(recv + (cc * mine + i) * kLdS<T> + c);
+      sv[0] += q.x;
+      sv[1] += q.y;
+      sv[2] += q.z;
+      sv[3] += q.w;
     }
-    __syncthreads();
-    score_rows<T>(res, tile, s);
-    __syncthreads();
-    // ds into at[j][i], the A operand (resident x streamed) held k-major
-    for (int idx = threadIdx.x; idx < kRes * BN; idx += kThreads) {
-      const int i = idx / BN, j = idx % BN;
-      const int row = kDhead ? str0 + j : res0 + i, col = kDhead ? res0 + i : str0 + j;
-      const int r = kDhead ? j : i;
-      float d = 0.f;
-      if (row < n && col < v) {
-        const float p = expf(masked(s[i * kLdS + j], col, vocab_size) - lse_s[r]);
-        d = (p - (col == lab_s[r] ? 1.f : 0.f)) * g;
+    float d[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int row = kDhead ? str0 + c + k : res0 + r;
+      const int col = kDhead ? res0 + r : str0 + c + k;
+      const int st = kDhead ? c + k : r;
+      d[k] = 0.f;
+      if (row < a.n && col < a.v) {
+        const float p = exp2_approx(__fmul_rn(masked(sv[k], col, a.vocab_size) - stat_lse[st],
+                                              kLog2e));
+        d[k] = (p - (col == stat_lab[st] ? 1.f : 0.f)) * g;
       }
-      at[j * kLdA + i] = from_f<T>(d);
     }
-    __syncthreads();
-    acc.mma(at, tile);
-    __syncthreads();   // tile, at and the row stats are rewritten by the next tile
+    store4(ds + r * B::kLdDs + c, d);
   }
-  if constexpr (kDhead) {
-    acc.store(out + (size_t)res0 * kAccE, min(kRes, v - res0), scratch);
-  } else {
-    // fp32 partial of this split; part is [splits][n_pad][kAccE]
-    const int splits = gridDim.y;
-    acc.store(part + ((size_t)blockIdx.y * n_pad + res0) * kAccE, kRes, scratch);
-    if (!last_block(counters + blockIdx.x, splits)) return;
-    for (int i = threadIdx.x; i < kRes * kAccE; i += kThreads) {
-      const int r = i / kAccE, c = i % kAccE, row = res0 + r;
-      if (row >= n) continue;
-      float sum = __ldcg(part + (size_t)row * kAccE + c);
-      for (int j = 1; j < splits; ++j) sum += __ldcg(part + ((size_t)j * n_pad + row) * kAccE + c);
-      out[(size_t)row * kAccE + c] = from_f<T>(sum);
+}
+
+// Streamed tile t into its ring slot: each of its rows' slice by one bulk
+// copy counted off the slot's barrier `bar` (rows at or past str_n are not
+// copied: the slot keeps earlier, finite values there, which only ever
+// meet a ds of 0), and (dhead) its rows' lse and labels by cp.async after
+// them (zeros past str_n).  Issued after a barrier past every read of the
+// slot, each of those threads having fenced (proxy_fence).
+template <typename T, bool kDhead>
+__device__ __forceinline__ void load_stream(const BwdArgs& a, unsigned char* slot, uint32_t bar,
+                                            const T* src, int str0, int str_n, int col0, int w) {
+  using B = Bwd<T>;
+  const int rows = min(B::kStream, str_n - str0);
+  const uint32_t bytes = sizeof(T) * w;
+  if (threadIdx.x == 0) mbar_expect(bar, rows * bytes);
+  if (threadIdx.x < rows)
+    bulk_load(smem_u32(slot) + threadIdx.x * sizeof(T) * B::kLd,
+              src + (size_t)(str0 + threadIdx.x) * a.e + col0, bytes, bar);
+  if (kDhead && threadIdx.x < 2 * B::kStream) {
+    const int j = threadIdx.x % B::kStream, row = str0 + j;
+    const bool lab = threadIdx.x >= B::kStream;
+    unsigned char* stats = slot + sizeof(T) * B::kStream * B::kLd;
+    copy4_async(stats + 4 * threadIdx.x, row < a.n ? (lab ? (const void*)(a.labels + row)
+                                                          : (const void*)(a.lse + row))
+                                                   : (const void*)a.lse, row < a.n);
+  }
+}
+
+// dx (kDhead false): resident rows are x rows, streamed tiles head rows
+// (vocab), from tile blockIdx.y * per_split on; dhead (kDhead true):
+// resident rows are head rows, streamed tiles every row of x.  blockIdx.x
+// is (resident tile) * C + rank in the cluster.
+//
+// Block c of the cluster owns rows [c mine, (c + 1) mine) of the tile,
+// mine = rows / C.  Step t: compute tile t's partial scores (registers;
+// meanwhile ds(t - 1) is in flight); wait for ds(t - 1); write the partial
+// scores to the send tile and copy each owner's rows into its receive slot
+// (one bulk copy per other owner; in flight while this block applies ds(t - 1)
+// to its columns); wait for this block's rows' partial scores of tile t;
+// form those rows of ds(t) in its ds tile and copy them into the other
+// blocks' tiles.  Every exchange is a bulk copy into a peer's shared memory
+// counted off a transaction barrier there, so a block waits only for the
+// data it reads.  The partial scores of step t leave only once ds(t - 1)
+// is whole (every owner has read those of step t - 1); ds(t) goes to the
+// ds tile not in use (t % 2) and leaves only once every block's partial
+// scores of step t have arrived (every block is past its use of ds(t -
+// 2)).  Tile t + 1 streams in from the middle of step t, once tile t - 1's
+// slot is free.
+template <typename T, bool kDhead>
+__global__ void __launch_bounds__(Bwd<T>::kWarps * 32, 1) ce_bwd_kernel(const BwdArgs a) {
+  using B = Bwd<T>;
+  using Lay = BwdLayout<T>;
+  constexpr int kRows = B::kRows;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* res = reinterpret_cast<T*>(smem);
+  unsigned char* ring = smem + Lay::kRing;
+  float* recv = reinterpret_cast<float*>(smem + Lay::kRecv);
+  float* send = reinterpret_cast<float*>(smem + Lay::kSend);
+  float* res_lse = reinterpret_cast<float*>(smem + Lay::kStats);
+  int* res_lab = reinterpret_cast<int*>(res_lse + kRows);
+  const uint32_t bar_recv = smem_u32(smem + Lay::kBars);       // then ds [2], tile slots [2]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int mine = kRows / C;
+  const int res0 = (int)(blockIdx.x / C) * kRows;
+  const int col0 = rank * a.w, w = min(a.w, a.e - col0), nk = cdiv(w, 16), nt8 = w / 8;
+  const T* rsrc = static_cast<const T*>(kDhead ? a.head : a.x);
+  const T* ssrc = static_cast<const T*>(kDhead ? a.x : a.head);
+  const int res_n = kDhead ? a.v : a.n, str_n = kDhead ? a.n : a.v;
+  const int n_str = cdiv(str_n, B::kStream);                    // streamed tiles
+  const int t_begin = kDhead ? 0 : (int)blockIdx.y * a.per_split;
+  const int nt = kDhead ? n_str : min(a.per_split, n_str - t_begin);
+  const float g = *a.gscale;
+  auto slot = [&](int t) { return ring + (size_t)(t & 1) * Lay::kSlotBytes; };
+  auto slot_lse = [&](int t) {
+    return reinterpret_cast<const float*>(slot(t) + sizeof(T) * B::kStream * B::kLd);
+  };
+  auto ds = [&](int t) { return reinterpret_cast<T*>(smem + Lay::kDs + (t & 1) * Lay::kDsBytes); };
+  auto bar_ds = [&](int t) { return bar_recv + 8 * (1 + (t & 1)); };
+  auto bar_tile = [&](int t) { return bar_recv + 8 * (3 + (t & 1)); };
+
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 5; ++b) mbar_init(bar_recv + 8 * b, 1);
+    mbar_init_fence();
+  }
+  for (int i = threadIdx.x; i < (int)(2 * Lay::kSlotBytes / 16); i += kThr<T>)
+    reinterpret_cast<uint4*>(ring)[i] = make_uint4(0, 0, 0, 0);   // the columns no copy writes
+  proxy_fence();
+  __syncthreads();
+  load_slice<T, kRows>(res, rsrc, res0, res_n, a.e, col0, w);
+  if (nt > 0)
+    load_stream<T, kDhead>(a, slot(0), bar_tile(0), ssrc, t_begin * B::kStream, str_n, col0, w);
+  commit_copies();
+  if (!kDhead)
+    for (int r = threadIdx.x; r < kRows; r += kThr<T>) {
+      const int row = res0 + r;
+      res_lse[r] = row < a.n ? a.lse[row] : 0.f;
+      res_lab[r] = row < a.n ? a.labels[row] : -1;
     }
+  float acc[kUM<T>][kUpdN8][4];
+#pragma unroll
+  for (int m = 0; m < kUM<T>; ++m)
+#pragma unroll
+    for (int i = 0; i < kUpdN8; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[m][i][k] = 0.f;
+  wait_copies<0>();
+  __syncthreads();                    // the resident slice (and tile 0's stats) have landed
+  cluster_arrive();
+  cluster_wait();                     // every block's barriers are set up
+  if (threadIdx.x == 0) {             // the ds phases of tiles 0 and 1
+    mbar_expect(bar_ds(0), Lay::ds_tx(C));
+    mbar_expect(bar_ds(1), Lay::ds_tx(C));
+  }
+  for (int t = 0; t < nt; ++t) {
+    if (threadIdx.x == 0) mbar_expect(bar_recv, Lay::recv_tx(C));
+    mbar_wait(bar_tile(t), (t >> 1) & 1);                    // tile t has landed
+    float s[kSM<T>][kSN<T>][4];
+    block_scores(s, res, reinterpret_cast<const T*>(slot(t)), nk);
+    if (t > 0) mbar_wait(bar_ds(t - 1), ((t - 1) >> 1) & 1);  // ds(t - 1) is whole
+    stage_partial<T>(s, send, recv, mine, rank);
+    proxy_fence();
+    __syncthreads();
+    // every thread is past its wait, so the barrier's next phase (tile t +
+    // 1's, which completes at once when no other block sends rows) may open
+    if (t > 0 && threadIdx.x == 0) mbar_expect(bar_ds(t + 1), Lay::ds_tx(C));
+    if (threadIdx.x < C && threadIdx.x != rank) {   // owner o's rows, into its slot for us
+      const uint32_t bytes = sizeof(float) * mine * kLdS<T>;
+      bulk_to_peer(map_rank(smem_u32(recv) + rank * bytes, threadIdx.x),
+                   smem_u32(send) + threadIdx.x * bytes, bytes, map_rank(bar_recv, threadIdx.x));
+    }
+    if (t > 0) block_update(acc, ds(t - 1), reinterpret_cast<const T*>(slot(t - 1)), nt8);
+    proxy_fence();
+    __syncthreads();                  // tile t - 1's slot is free
+    if (t + 1 < nt)
+      load_stream<T, kDhead>(a, slot(t + 1), bar_tile(t + 1), ssrc, (t_begin + t + 1) * B::kStream,
+                             str_n, col0, w);
+    commit_copies();
+    mbar_wait(bar_recv, t & 1);       // every partial score of this block's rows of tile t
+    form_ds<T, kDhead>(a, recv, ds(t), kDhead ? slot_lse(t) : res_lse,
+                       kDhead ? reinterpret_cast<const int*>(slot_lse(t) + B::kStream) : res_lab,
+                       C, rank, res0, (t_begin + t) * B::kStream, g);
+    proxy_fence();
+    __syncthreads();
+    if (threadIdx.x < C && threadIdx.x != rank) {   // this block's rows, into the others' tiles
+      const uint32_t bytes = sizeof(T) * mine * B::kLdDs;
+      const uint32_t rows = smem_u32(ds(t)) + rank * bytes;
+      bulk_to_peer(map_rank(rows, threadIdx.x), rows, bytes, map_rank(bar_ds(t), threadIdx.x));
+    }
+    wait_copies<0>();
+    __syncthreads();                  // tile t + 1's stats have landed
+  }
+  if (nt > 0) {
+    mbar_wait(bar_ds(nt - 1), ((nt - 1) >> 1) & 1);
+    block_update(acc, ds(nt - 1), reinterpret_cast<const T*>(slot(nt - 1)), nt8);
+  }
+  cluster_arrive();
+  cluster_wait();                     // no block leaves while a peer may still copy into it
+  T* out = static_cast<T*>(a.out);
+  if (kDhead || gridDim.y == 1) {
+    store_acc<T>(out, a.e, acc, res0, res_n, col0, nt8);
+    return;
+  }
+  // fp32 partial of this vocab split; the last split to finish sums them
+  store_acc<T>(a.part + (size_t)blockIdx.y * a.n_pad * a.e, a.e, acc, res0, a.n_pad, col0, nt8);
+  if (!last_block(a.counters + blockIdx.x, gridDim.y)) return;
+  for (int i = threadIdx.x; i < kRows * w; i += kThr<T>) {
+    const int row = res0 + i / w, c = col0 + i % w;
+    if (row >= a.n) continue;
+    float sum = __ldcg(a.part + (size_t)row * a.e + c);
+    for (int j = 1; j < (int)gridDim.y; ++j)
+      sum += __ldcg(a.part + ((size_t)j * a.n_pad + row) * a.e + c);
+    out[(size_t)row * a.e + c] = from_f<T>(sum);
   }
 }
 
@@ -596,36 +883,55 @@ cudaError_t launch_fwd(const void* x, const void* head, const int* labels, float
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dx(const void* x, const void* head, const int* labels, const float* lse,
-                      const float* gscale, void* dx, float* part, int* counters, int n, int v,
-                      int vocab_size, int splits, cudaStream_t st) {
+// One backward launch: clusters of C blocks along x, `splits` along y.
+template <typename T, bool kDhead>
+cudaError_t launch_bwd(BwdArgs a, int splits, cudaStream_t st) {
+  const int C = cluster_of(a.e);
+  a.w = slice_of(a.e, C);
+  const int tiles = cdiv(kDhead ? a.v : a.n, Bwd<T>::kRows);
+  a.n_pad = tiles * Bwd<T>::kRows;
+  a.per_split = cdiv(cdiv(a.v, Bwd<T>::kStream), splits);
   const size_t smem = BwdLayout<T>::kBytes;
-  cudaError_t err = prepare(ce_bwd_kernel<T, false>, smem);
+  cudaError_t err = prepare(ce_bwd_kernel<T, kDhead>, smem);
   if (err != cudaSuccess) return err;
-  const int row_tiles = (n + kRes - 1) / kRes;
-  const int v_tiles = (v + Cfg<T>::kStream - 1) / Cfg<T>::kStream;
-  ce_bwd_kernel<T, false><<<dim3(row_tiles, splits), kThreads, smem, st>>>(
-      (const T*)x, (const T*)head, labels, lse, gscale, (T*)dx, part, counters, n,
-      row_tiles * kRes, v, vocab_size, (v_tiles + splits - 1) / splits);
-  return cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * C, splits);
+  cfg.blockDim = dim3(Bwd<T>::kWarps * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, ce_bwd_kernel<T, kDhead>, a);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_dh(const void* x, const void* head, const int* labels, const float* lse,
-                      const float* gscale, void* dh, int n, int v, int vocab_size,
-                      cudaStream_t st) {
+int active_clusters(int e) {
+  const int C = cluster_of(e);
   const size_t smem = BwdLayout<T>::kBytes;
-  cudaError_t err = prepare(ce_bwd_kernel<T, true>, smem);
-  if (err != cudaSuccess) return err;
-  ce_bwd_kernel<T, true><<<(v + kRes - 1) / kRes, kThreads, smem, st>>>(
-      (const T*)x, (const T*)head, labels, lse, gscale, (T*)dh, nullptr, nullptr, n, 0, v,
-      vocab_size, 0);
-  return cudaGetLastError();
+  if (prepare(ce_bwd_kernel<T, false>, smem) != cudaSuccess) return 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C * 1024);
+  cfg.blockDim = dim3(Bwd<T>::kWarps * 32);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  return cudaOccupancyMaxActiveClusters(&n, ce_bwd_kernel<T, false>, &cfg) == cudaSuccess ? n : 0;
 }
 
 bool shape_ok(int n, int e, int v, int vocab_size, int dtype) {
-  return n > 0 && e > 0 && e % kBK == 0 && v > 0 && vocab_size > 0 && vocab_size <= v &&
+  return n > 0 && e > 0 && e % 8 == 0 && v > 0 && vocab_size > 0 && vocab_size <= v &&
          (dtype == 0 || dtype == 1);
 }
 
@@ -648,30 +954,40 @@ int dst_ce_forward(const void* x, const void* head, const int* labels, float* pa
                                              vocab_size, splits, st));
 }
 
-// part: [splits][ceil(n / 32) * 32][768] fp32 scratch; counters: ceil(n / 32)
-// zeroed ints.  gscale: one fp32 on the device (dloss / N).
+// Clusters of the dx kernel the current device holds at once at width e
+// (0 if it holds none, or e is not taken).
+int dst_ce_backward_active_clusters(int e, int dtype) {
+  if (e <= 0 || e % 8 || cluster_of(e) == 0 || (dtype != 0 && dtype != 1)) return 0;
+  return dtype == 0 ? active_clusters<float>(e) : active_clusters<bf16>(e);
+}
+
+// With splits > 1 (vocab splits of dx), part is [splits][ceil(n / R) * R][e]
+// fp32 scratch and counters ceil(n / R) * 8 zeroed ints (a cluster has at
+// most 8 blocks), R = 128 rows per tile in bf16, 64 in fp32.  gscale: one fp32 on the device
+// (dloss / N).
 int dst_ce_backward_dx(const void* x, const void* head, const int* labels, const float* lse,
                        const float* gscale, void* dx, float* part, int* counters, int n, int e,
                        int v, int vocab_size, int splits, int dtype, void* stream) {
-  if (!shape_ok(n, e, v, vocab_size, dtype) || e != kAccE || splits <= 0 || splits > 65535 ||
-      !aligned(x) || !aligned(head))
+  if (!shape_ok(n, e, v, vocab_size, dtype) || cluster_of(e) == 0 || splits <= 0 ||
+      splits > 65535 || !aligned(x) || !aligned(head))
     return (int)cudaErrorInvalidValue;
+  const BwdArgs a = {x, head, labels, lse, gscale, dx, part, counters, n, e, v, vocab_size,
+                     0, 0, 0};
   cudaStream_t st = (cudaStream_t)stream;
-  return (int)(dtype == 0 ? launch_dx<float>(x, head, labels, lse, gscale, dx, part, counters, n,
-                                             v, vocab_size, splits, st)
-                          : launch_dx<bf16>(x, head, labels, lse, gscale, dx, part, counters, n,
-                                            v, vocab_size, splits, st));
+  return (int)(dtype == 0 ? launch_bwd<float, false>(a, splits, st)
+                          : launch_bwd<bf16, false>(a, splits, st));
 }
 
 int dst_ce_backward_dhead(const void* x, const void* head, const int* labels, const float* lse,
                           const float* gscale, void* dh, int n, int e, int v, int vocab_size,
                           int dtype, void* stream) {
-  if (!shape_ok(n, e, v, vocab_size, dtype) || e != kAccE || !aligned(x) || !aligned(head))
+  if (!shape_ok(n, e, v, vocab_size, dtype) || cluster_of(e) == 0 || !aligned(x) ||
+      !aligned(head))
     return (int)cudaErrorInvalidValue;
+  const BwdArgs a = {x, head, labels, lse, gscale, dh, nullptr, nullptr, n, e, v, vocab_size,
+                     0, 0, 0};
   cudaStream_t st = (cudaStream_t)stream;
-  return (int)(dtype == 0
-                   ? launch_dh<float>(x, head, labels, lse, gscale, dh, n, v, vocab_size, st)
-                   : launch_dh<bf16>(x, head, labels, lse, gscale, dh, n, v, vocab_size, st));
+  return (int)(dtype == 0 ? launch_bwd<float, true>(a, 1, st) : launch_bwd<bf16, true>(a, 1, st));
 }
 
 }  // extern "C"

@@ -89,15 +89,6 @@ static_assert(kTile % kBlock == 0, "a prefill key tile is whole arena blocks");
 
 __device__ __forceinline__ bool aligned_ptr(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
-// 2^x in one instruction (relative error ~2^-22; results below 2^-126 flush
-// to 0).  Scores are kept in log2 units (scaled by log2(e) / sqrt(D)), so
-// exp(s - m) of the math is exp2_approx(s' - m').
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 
@@ -375,20 +366,6 @@ __device__ __forceinline__ void decode_rows(const Args<T>& a, const Addr& addr, 
 // prefill path
 // --------------------------------------------------------------------------
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
 // c = a . b^T for the warp's 16 rows of a and the 64 rows of b ([row][kD] in
 // shared memory).  Lane l addresses row l % 8 of 8x8 matrix l / 8; the four
 // matrices of one ldmatrix are A's (rows 0-7 | 8-15) x (columns 0-7 | 8-15)
@@ -413,34 +390,6 @@ __device__ __forceinline__ void scores_tile(float (&c)[8][4], const bf16* a, con
 
 __device__ __forceinline__ void scores_tile(float (&c)[8][4], const float* a, const float* b) {
   product_nt(c, a, b);
-}
-
-// acc += p . b: p the warp's 16 x 64 tile in registers (rounded to bf16, as
-// JAX's kernel rounds p to the cache dtype), b [64 keys][kD] in shared
-// memory, read transposed by ldmatrix.trans.
-__device__ __forceinline__ void pv_tile(float (&acc)[8][4], const float (&p)[8][4],
-                                        const bf16* b) {
-  constexpr int L = Tr<bf16>::kLd;
-  const int lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
-    const uint32_t a0 = pack_rn(p[2 * kk][0], p[2 * kk][1]);
-    const uint32_t a1 = pack_rn(p[2 * kk][2], p[2 * kk][3]);
-    const uint32_t a2 = pack_rn(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    const uint32_t a3 = pack_rn(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-#pragma unroll
-    for (int jp = 0; jp < 4; ++jp) {
-      uint32_t bfr[4];
-      ldsm_x4_trans(bfr, b + (kk * 16 + (mi & 1) * 8 + r8) * L + (2 * jp + (mi >> 1)) * 8);
-      mma_bf16(acc[2 * jp], a0, a1, a2, a3, bfr[0], bfr[1]);
-      mma_bf16(acc[2 * jp + 1], a0, a1, a2, a3, bfr[2], bfr[3]);
-    }
-  }
-}
-
-__device__ __forceinline__ void pv_tile(float (&acc)[8][4], const float (&p)[8][4],
-                                        const float* b) {
-  product_pv(acc, p, b);
 }
 
 // The blocks of one query tile form a cluster of kPrefillCluster blocks on

@@ -22,27 +22,46 @@
 // device memory once per block that needs it, scores and probabilities never
 // leave registers, and fully masked key tiles are skipped.
 //
-// Design (simple and right first; wgmma, TMA and warp specialisation are
-// later work):
-// * One block of 4 warps per 64-row tile: query rows for the forward and dQ
+// Design (wgmma, TMA and warp specialisation are later work):
+// * The forward (redesigned for Hopper): one block of 4 warps per 64-query
+//   tile (grid: query tiles x heads x batch, the longest causal rows
+//   first), each warp 16 rows, at up to 168 registers a thread so that
+//   three blocks share an SM and one block's loads and softmax overlap
+//   another's products.  (8 warps per 128-query tile at one block per SM,
+//   and four blocks per SM at 128 registers with spills, both ran slower.)
+//   - bf16: the warp's Q fragments are loaded once by ldmatrix and held in
+//     registers; K fragments come by ldmatrix, V by ldmatrix.trans (one
+//     instruction per four 8x8 matrices, not 16-bit or 32-bit loads).
+//   - Scores are kept in log2 units (q . k * scale * log2(e)), so each
+//     exponential (p and the rescale alpha) is one ex2.approx; lse is
+//     converted back at the end, lse = (m2 + log2 l) * ln 2, the natural-log
+//     value dQ, dKV and remat read.  The running max starts at -1e30 *
+//     log2(e), so a row a bias masks wholly still averages uniformly.
+//   - Masking by value only on a warp's diagonal key tile and a ragged last
+//     tile; a key tile wholly past a warp's rows is skipped by that warp.
+//     The no-bias, no-ALiBi path (GPT-2's) is its own instantiation, with
+//     one multiply per score.
+//   - fp32 keeps FMA products (product_nt / product_pv) in the same layout.
+// * dQ and dKV: one block of 4 warps per 64-row tile: query rows for dQ
 //   (grid: query tiles x heads x batch), key rows for dKV (grid: key tiles
-//   x kv heads x batch).  Each warp owns 16 of the rows.
-// * bf16 products use mma.sync m16n8k16 (fp32 accumulate) with fragments
-//   read straight from shared memory; the score tile stays in the mma
-//   accumulator layout (thread: rows g and g + 8, columns 2t and 2t + 1 of
-//   each 8-column slice), which is also the A-operand layout of the next
-//   product, so p and ds go to the tensor cores from registers.  fp32 uses
-//   fp32 FMA in the same register layout (no TF32), p and ds passed between
-//   the four threads of a row group by shuffles.
+//   x kv heads x batch).  Each warp owns 16 of the rows.  bf16 products use
+//   mma.sync m16n8k16 (fp32 accumulate) with fragments read straight from
+//   shared memory; fp32 uses fp32 FMA in the same register layout (no
+//   TF32), p and ds passed between the four threads of a row group by
+//   shuffles.
+// * The score tile stays in the mma accumulator layout (thread: rows g and
+//   g + 8, columns 2t and 2t + 1 of each 8-column slice), which is also the
+//   A-operand layout of the next product, so p and ds go to the tensor cores
+//   from registers.
 // * The streamed tiles (K and V in the forward and dQ; Q, dO, lse, delta in
 //   dKV) are double-buffered in shared memory with cp.async: the next tile
 //   is in flight while the current one is used.
-// * The online softmax keeps m, l and the accumulator in fp32 registers; m
-//   starts at JAX's -1e30, so a row whose every column a bias sets to -1e30
-//   averages uniformly as JAX's does; out-of-range and causally masked
-//   columns are -inf, exactly zero weight, never 0/0 (l = 0 gives o = 0).
-// * Causal: the forward and dQ walk key tiles 0..q tile, dKV walks query
-//   tiles from the key tile on; only the diagonal tile is masked by value.
+// * The online softmax keeps m, l and the accumulator in fp32 registers;
+//   out-of-range and causally masked columns are -inf, exactly zero weight,
+//   never 0/0 (l = 0 gives o = 0).
+// * Causal: the forward and dQ walk key tiles up to the query tile's last
+//   row, dKV walks query tiles from the key tile on; only the diagonal tile
+//   is masked by value.
 // * GQA: the forward and dQ read kv head h / group; dKV loops over the
 //   group's query heads inside one block, so grouped K/V are never expanded
 //   and dK/dV are summed in a fixed order with no atomics.
@@ -88,71 +107,135 @@ __device__ __forceinline__ void scores(float (&s)[8][4], const Params& p, const 
 }
 
 // --------------------------------------------------------------------------
-// forward: one block per (query tile, head, batch)
+// forward: one block of 8 warps per (128-query tile, head, batch)
 // --------------------------------------------------------------------------
 
+constexpr int kFwdWarps = 4;
+constexpr int kFwdRows = 16 * kFwdWarps;          // query rows of a forward block
+constexpr int kFwdThreads = 32 * kFwdWarps;
+constexpr int kFwdBlocksPerSm = 3;                // up to 168 registers a thread
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
+constexpr size_t fwd_smem_bytes() {               // the query tile, two K and two V buffers
+  return sizeof(T) * (kFwdRows + 4 * kTile) * Tr<T>::kLd;
+}
+
+// With extras (a bias or ALiBi): s <- s * scale (+ bias) (+ slope * (key -
+// query)), times log2(e), as scores<> forms it in natural units.  Without
+// (GPT-2's path) s stays as it is: the caller folds scale * log2(e) into
+// the exponential's argument.  -inf where causally masked or out of range
+// (kMask).
+template <bool kExtras, bool kMask>
+__device__ __forceinline__ void scores_log2(float (&s)[8][4], const Params& p, const float* bias,
+                                            float slope, int row0, int col0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = row0 + g + 8 * (i >> 1), c = col0 + j * 8 + 2 * t + (i & 1);
+      float x = -INFINITY;
+      if (!kMask || (r < p.S && c < p.S && !(p.causal && c > r))) {
+        if (kExtras) {
+          x = __fmul_rn(s[j][i], p.scale);
+          if (bias != nullptr) x = __fadd_rn(x, bias[r * p.b_sq + c * p.b_sk]);
+          if (p.slopes != nullptr) x = __fadd_rn(x, __fmul_rn(slope, (float)(c - r)));
+          x = __fmul_rn(x, kLog2e);
+        } else {
+          x = s[j][i];
+        }
+      }
+      s[j][i] = x;
+    }
+}
+
+template <typename T, bool kExtras>
+__global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSm) flash_fwd_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int TE = kTileElems<T>, L = Tr<T>::kLd;
   T* sq = reinterpret_cast<T*>(smem);
-  T* sk = sq + TE;                  // two buffers each
+  T* sk = sq + kFwdRows * L;        // two buffers each
   T* sv = sk + 2 * TE;
   const int qt = gridDim.x - 1 - blockIdx.x;      // the longest causal rows first
   const int h = blockIdx.y, b = blockIdx.z, hk = h / p.group;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int row0 = qt * kTile, wrow0 = row0 + warp * 16;
+  const int row0 = qt * kFwdRows, wrow0 = row0 + warp * 16;
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  const float* bias = p.bias != nullptr ? p.bias + b * p.b_sb + h * p.b_sh : nullptr;
-  const float slope = p.slopes != nullptr ? p.slopes[h] : 0.f;
-  const int n_kv = p.causal ? qt + 1 : cdiv(p.S, kTile);
+  const float* bias = kExtras && p.bias != nullptr ? p.bias + b * p.b_sb + h * p.b_sh : nullptr;
+  const float slope = kExtras && p.slopes != nullptr ? p.slopes[h] : 0.f;
+  // the factor from s to log2 units: folded into each exponential's FFMA on
+  // the plain path; with extras s is already in log2 units
+  const float to_log2 = kExtras ? 1.f : p.scale * kLog2e;
+  const int n_all = cdiv(p.S, kTile);
+  const int n_kv = p.causal ? min(cdiv(row0 + kFwdRows, kTile), n_all) : n_all;
 
-  load_tile(sq, q, p.q_ss, row0, p.S);
-  load_tile(sk, k, p.k_ss, 0, p.S);
-  load_tile(sv, v, p.v_ss, 0, p.S);
+  load_rows<T, kFwdRows, kFwdThreads>(sq, q, p.q_ss, row0, p.S);
+  load_rows<T, kTile, kFwdThreads>(sk, k, p.k_ss, 0, p.S);
+  load_rows<T, kTile, kFwdThreads>(sv, v, p.v_ss, 0, p.S);
   commit_copies();
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  // m in log2 units; its start is JAX's -1e30 scaled as a score is, so a
+  // row whose every column a bias sets to -1e30 still averages uniformly
+  const float m0 = __fmul_rn(kNegInf, kLog2e);
+  float m[2] = {m0, m0}, l[2] = {0.f, 0.f};
   float acc[8][4];
   zero(acc);
+  QFragments<T> qf;
   for (int j = 0; j < n_kv; ++j) {
     const int buf = j & 1;
     if (j + 1 < n_kv) {
-      load_tile(sk + (buf ^ 1) * TE, k, p.k_ss, (j + 1) * kTile, p.S);
-      load_tile(sv + (buf ^ 1) * TE, v, p.v_ss, (j + 1) * kTile, p.S);
+      load_rows<T, kTile, kFwdThreads>(sk + (buf ^ 1) * TE, k, p.k_ss, (j + 1) * kTile, p.S);
+      load_rows<T, kTile, kFwdThreads>(sv + (buf ^ 1) * TE, v, p.v_ss, (j + 1) * kTile, p.S);
       commit_copies();
       wait_copies<1>();
     } else {
       wait_copies<0>();
     }
     __syncthreads();
-    float s[8][4];
-    product_nt(s, sq + warp * 16 * L, sk + buf * TE);
-    scores<false>(s, p, bias, slope, wrow0, j * kTile);
-    float mx[2] = {m[0], m[1]};
+    if (j == 0) qf.load(sq + warp * 16 * L);
+    const int col0 = j * kTile;
+    // a key tile wholly past the warp's last row leaves its state as it is
+    if (!p.causal || col0 <= wrow0 + 15) {
+      float s[8][4];
+      qf.scores(s, sk + buf * TE);
+      // only the diagonal tile and a ragged last tile are masked by value
+      const bool edge = (p.causal && col0 + kTile - 1 > wrow0) || col0 + kTile > p.S;
+      if (edge)
+        scores_log2<kExtras, true>(s, p, bias, slope, wrow0, col0);
+      else if (kExtras)
+        scores_log2<kExtras, false>(s, p, bias, slope, wrow0, col0);
+      float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj)
+      for (int jj = 0; jj < 8; ++jj)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], s[jj][i]);
-    float alpha[2], sum[2] = {0.f, 0.f};
+        for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], s[jj][i]);
+      float alpha[2], sum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = quad_max(mx[r]);
-      alpha[r] = expf(m[r] - mx[r]);
-      m[r] = mx[r];
-    }
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[jj][i] = expf(s[jj][i] - mx[i >> 1]);
-        sum[i >> 1] += s[jj][i];
-        acc[jj][i] *= alpha[i >> 1];
+      for (int r = 0; r < 2; ++r) {   // the running max in log2 units (to_log2 > 0)
+        mx[r] = fmaxf(m[r], __fmul_rn(quad_max(mx[r]), to_log2));
+        alpha[r] = exp2_approx(__fsub_rn(m[r], mx[r]));
+        m[r] = mx[r];
       }
 #pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];   // this thread's columns
-    product_pv(acc, s, sv + buf * TE);
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[jj][i] = exp2_approx(fmaf(s[jj][i], to_log2, -mx[i >> 1]));
+          sum[i >> 1] += s[jj][i];
+        }
+      if (__any_sync(kFull, alpha[0] != 1.f || alpha[1] != 1.f)) {   // a row's max moved
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[jj][i] *= alpha[i >> 1];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];   // this thread's columns
+      pv_tile(acc, s, sv + buf * TE);
+    }
     __syncthreads();                   // every warp is done with buf before it is refilled
   }
   float inv[2];
@@ -166,8 +249,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
   if (t == 0) {
     float* lse = p.lse + ((long long)b * p.H + h) * p.S;
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
-      if (wrow0 + g + 8 * r < p.S) lse[wrow0 + g + 8 * r] = m[r] + logf(l[r]);
+    for (int r = 0; r < 2; ++r) {    // back to natural-log units, as dQ and dKV read it
+      const int row = wrow0 + g + 8 * r;
+      if (row < p.S) lse[row] = __fmul_rn(__fadd_rn(m[r], log2f(l[r])), kLn2);
+    }
   }
 }
 
@@ -337,8 +422,13 @@ template <typename T>
 cudaError_t run(Which which, const Params& p, int B, cudaStream_t st) {
   const int tiles = cdiv(p.S, kTile);
   switch (which) {
-    case kForward:
-      return launch(flash_fwd_kernel<T>, dim3(tiles, p.H, B), 5 * tile_bytes<T>(), p, st);
+    case kForward: {
+      const dim3 grid(cdiv(p.S, kFwdRows), p.H, B);
+      return p.bias != nullptr || p.slopes != nullptr
+                 ? launch(flash_fwd_kernel<T, true>, grid, fwd_smem_bytes<T>(), p, st, kFwdThreads)
+                 : launch(flash_fwd_kernel<T, false>, grid, fwd_smem_bytes<T>(), p, st,
+                          kFwdThreads);
+    }
     case kDq:
       return launch(flash_dq_kernel<T>, dim3(tiles, p.H, B), 6 * tile_bytes<T>(), p, st);
     default:

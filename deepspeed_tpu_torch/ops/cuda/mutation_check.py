@@ -1,15 +1,19 @@
-"""Mutation check of the decode-attention kernels, on a machine with a card.
+"""Mutation check of the redesigned kernels, on a machine with a card.
 
     python -m deepspeed_tpu_torch.ops.cuda.mutation_check
 
 For each mutation below, copies the checkout into a temporary directory,
-breaks ``csrc/decode_attention.cu`` there in one known way, and runs the
-``cuda``-marked tests of ``tests/test_torch_decode_attention.py`` against
-the copy's own build (the copies build and run side by side).  The
-unmutated checkout is run the same way and must pass every test; each
-mutation must fail at least one bf16 and one fp32 test.  Prints one line
-per run with the tests that failed, then a JSON summary; exits non-zero if
-the checkout fails a test or a mutation goes unseen in either dtype.
+breaks one kernel source there in one known way, and runs the
+``cuda``-marked tests of that kernel's test file against the copy's own
+build (the copies build and run side by side): the decode-attention
+kernels (``csrc/decode_attention.cu``), the flash forward
+(``csrc/flash_attention.cu``) and the cross-entropy backward
+(``csrc/cross_entropy.cu``).  The unmutated checkout runs every one of
+those test files the same way and must pass every test; each mutation must
+fail at least one bf16 and one fp32 test (each mutated line is compiled
+into both dtypes' kernels).  Prints one line per run with the tests that
+failed, then a JSON summary; exits non-zero if the checkout fails a test
+or a mutation goes unseen in either dtype.
 """
 
 import json
@@ -21,33 +25,54 @@ import xml.etree.ElementTree as ET
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[3]
-SOURCE = "deepspeed_tpu_torch/ops/cuda/csrc/decode_attention.cu"
-TESTS = "tests/test_torch_decode_attention.py"
+CSRC = "deepspeed_tpu_torch/ops/cuda/csrc/"
+DECODE = (CSRC + "decode_attention.cu", "tests/test_torch_decode_attention.py")
+FLASH = (CSRC + "flash_attention.cu", "tests/test_torch_flash_attention.py")
+CROSS_ENTROPY = (CSRC + "cross_entropy.cu", "tests/test_torch_cross_entropy.py")
 TIMEOUT_S = 900
 
-# name: (what it breaks, the line as it is, the line broken)
+# name: ((source, test file), what it breaks, the line as it is, the line broken)
 MUTATIONS = {
     "drop-last-block-of-warp-0": (
-        "decode path: warp 0 skips the last block of its range",
+        DECODE, "decode path: warp 0 skips the last block of its range",
         "  const int count = warp < n_blocks ? (n_blocks - 1 - warp) / kDecodeWarps + 1 : 0;",
         "  const int count = (warp < n_blocks ? (n_blocks - 1 - warp) / kDecodeWarps + 1 : 0)"
         " - (warp == 0 ? 1 : 0);"),
     "skip-table-end-tile": (
-        "prefill path: the key tile that crosses the end of the table row (or of the "
+        DECODE, "prefill path: the key tile that crosses the end of the table row (or of the "
         "contiguous cache) is not visited",
         "  const int n_kv = last_col / kTile + 1;",
         "  const int n_kv = last_col / kTile + (last_col == n_cols - 1 && n_cols % kTile ? 0 : 1);"),
     "merge-warps-alpha-1": (
-        "decode path: the warps' states are merged without rescaling to the row's max",
+        DECODE, "decode path: the warps' states are merged without rescaling to the row's max",
         "      const float f = exp2_approx(__fsub_rn(s_m[w][r], m));",
         "      const float f = 1.f;"),
+    "flash-lse-in-log2-units": (
+        FLASH, "flash forward: lse is saved in log2 units, not converted back by ln 2",
+        "      if (row < p.S) lse[row] = __fmul_rn(__fadd_rn(m[r], log2f(l[r])), kLn2);",
+        "      if (row < p.S) lse[row] = __fadd_rn(m[r], log2f(l[r]));"),
+    "flash-diagonal-unmasked": (
+        FLASH, "flash forward: the causal diagonal tile is not masked (only a ragged tile is)",
+        "      const bool edge = (p.causal && col0 + kTile - 1 > wrow0) || col0 + kTile > p.S;",
+        "      const bool edge = col0 + kTile > p.S;"),
+    "ce-drop-last-cluster-block": (
+        CROSS_ENTROPY, "cross-entropy backward: the last block's slice of E is left out of "
+        "every summed score",
+        "      if (cc >= C) break;",
+        "      if (cc >= C - 1) break;"),
+    "ce-skip-last-vocab-tile": (
+        CROSS_ENTROPY, "cross-entropy backward: dx never streams the last vocab tile",
+        "  const int n_str = cdiv(str_n, B::kStream);                    // streamed tiles",
+        "  const int n_str = cdiv(str_n, B::kStream) - (kDhead ? 0 : 1);   // streamed tiles"),
 }
 
 
 def dtype_of(test_id: str) -> str:
-    """bf16 for the peaked tests and the 2e-2 cases, fp32 for the 1e-5
-    cases and the bit-identity tests."""
-    return "bfloat16" if "bf16" in test_id or "-0.02]" in test_id else "float32"
+    """bf16 for the peaked tests, the 2e-2 cases and the cases named
+    bfloat16; fp32 for the rest (the 1e-5 and float32 cases, the
+    bit-identity tests)."""
+    bf16 = "bf16" in test_id or "bfloat16" in test_id or "-0.02]" in test_id
+    return "bfloat16" if bf16 else "float32"
 
 
 def copy_checkout(dst: Path) -> None:
@@ -55,11 +80,11 @@ def copy_checkout(dst: Path) -> None:
         ".git", "build_torch", "__pycache__", ".pytest_cache", "*.pyc"))
 
 
-def mutate(root: Path, old: str, new: str) -> None:
-    path = root / SOURCE
+def mutate(root: Path, source: str, old: str, new: str) -> None:
+    path = root / source
     text = path.read_text()
     if text.count(old) != 1:
-        raise SystemExit(f"mutation_check: the line to mutate is not in {SOURCE} once: {old!r}")
+        raise SystemExit(f"mutation_check: the line to mutate is not in {source} once: {old!r}")
     path.write_text(text.replace(old, new))
 
 
@@ -78,16 +103,18 @@ def failed_tests(xml_path: Path):
 
 def main() -> int:
     runs = {"checkout": None, **MUTATIONS}
-    with tempfile.TemporaryDirectory(prefix="decode_mutations_") as tmp:
+    every_test_file = sorted({tests for (_, tests), *_ in MUTATIONS.values()})
+    with tempfile.TemporaryDirectory(prefix="kernel_mutations_") as tmp:
         procs = {}
         for name, m in runs.items():
             root = Path(tmp, name)
             copy_checkout(root)
             if m is not None:
-                mutate(root, m[1], m[2])
+                (source, tests), _, old, new = m
+                mutate(root, source, old, new)
             procs[name] = (root, subprocess.Popen(
-                [sys.executable, "-m", "pytest", TESTS, "-m", "cuda", "-q",
-                 "-p", "no:cacheprovider", f"--junitxml={root / 'junit.xml'}"],
+                [sys.executable, "-m", "pytest", *([tests] if m else every_test_file), "-m",
+                 "cuda", "-q", "-p", "no:cacheprovider", f"--junitxml={root / 'junit.xml'}"],
                 cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         summary, ok = {}, True
         for name, (root, proc) in procs.items():
@@ -112,7 +139,7 @@ def main() -> int:
             else:
                 seen = all(by_dtype.values())
             ok = ok and seen
-            what = "the checkout" if name == "checkout" else MUTATIONS[name][0]
+            what = "the checkout" if name == "checkout" else MUTATIONS[name][1]
             print(f"mutation_check: {name} ({what}): {len(failed)} of {n} tests failed "
                   f"(fp32 {len(by_dtype['float32'])}, bf16 {len(by_dtype['bfloat16'])}): "
                   f"{'ok' if seen else 'NOT SEEN'}", flush=True)

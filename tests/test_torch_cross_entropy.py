@@ -7,7 +7,9 @@ dx, dhead); they are held against JAX's Pallas kernels in interpret mode
 (``fused_cross_entropy``) and against JAX's ``chunked_cross_entropy`` with
 the kernel off, on the same numpy inputs: N = 37 rows (ragged against any
 row tile), E = 64, V = 384 with ``vocab_size`` 300 (padded columns
-masked) and with ``vocab_size`` = V (no mask).
+masked) and with ``vocab_size`` = V (no mask), and the same rows at E =
+200 ("wide-ragged": not a multiple of the forward's 32-column step, one
+block of the backward's cluster).
 
 Tolerances.  fp32: the loss within 1e-6 relative, dx and dhead within
 1e-5 of their largest magnitude (both sides sum in fp32, in other orders).
@@ -34,7 +36,9 @@ from deepspeed_tpu_torch.models import gpt as tgpt
 from deepspeed_tpu_torch.ops.cuda import cross_entropy as tce
 
 # (N, E, V, vocab_size)
-CASES = {"padded-vocab": (37, 64, 384, 300), "full-vocab": (37, 64, 384, 384)}
+CASES = {"padded-vocab": (37, 64, 384, 300), "full-vocab": (37, 64, 384, 384),
+         "wide-ragged": (37, 200, 384, 300)}
+GPT2_EMBD = {"gpt2": 768, "gpt2-medium": 1024, "gpt2-large": 1280, "gpt2-xl": 1600}
 TOL = {"float32": (1e-6, 1e-5), "bfloat16": (2e-2, 2e-2)}   # (loss rtol, grad tol)
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -144,6 +148,46 @@ def test_other_devices_and_a_bias_raise():
         tce.cross_entropy(x, x, lab, 4, head_b=torch.zeros(4))
 
 
+def _meta_inputs(E, N=4, V=128):
+    x = torch.empty(N, E, device="meta")
+    head = torch.empty(V, E, device="meta")
+    return x, head, torch.empty(N, dtype=torch.int32, device="meta")
+
+
+@pytest.mark.parametrize("E", sorted(GPT2_EMBD.values()) + [200])
+def test_kernel_shape_check_takes_every_gpt2_width(E):
+    """The kernels' shape check takes each GPT-2 preset's n_embd (and 200,
+    not a multiple of the forward's 32-column step)."""
+    x, head, labels = _meta_inputs(E)
+    assert tce._check_cuda("ce_forward", x, head, labels, 128) == 0
+    if E in GPT2_EMBD.values():
+        assert tgpt.gpt_config(next(k for k, v in GPT2_EMBD.items() if v == E)).n_embd == E
+
+
+@pytest.mark.parametrize("E", [100, 764, 1604, tce.MAX_EMBD + 8])
+def test_kernel_shape_check_refuses_other_widths_naming_the_roadmap(E):
+    """A width that is not a multiple of 8 (or past the backward's 8 x 208
+    columns) raises, naming the ROADMAP item; it never falls back."""
+    x, head, labels = _meta_inputs(E)
+    with pytest.raises(ValueError, match="n_embd.*Queue 1: other GPT families"):
+        tce._check_cuda("ce_forward", x, head, labels, 128)
+
+
+def test_dx_grid_splits_the_vocab_to_fill_the_waves():
+    """GPT-2's dx at N 4096: 32 clusters in one wave when the card holds
+    them all (no vocab split); when it holds 25 at once the vocab splits
+    so that the waves come out nearly even; a few rows split the vocab to
+    use the card, every split non-empty."""
+    assert tce.dx_grid(4096, 50304, torch.bfloat16, 32) == (32, 1)
+    tiles, splits = tce.dx_grid(4096, 50304, torch.bfloat16, 25)
+    per_split = -(-786 // splits)
+    assert tiles == 32 and 1 < splits <= 16
+    assert -(-32 * splits // 25) * per_split < 2 * 786           # better than two whole waves
+    tiles, splits = tce.dx_grid(37, 1000, torch.float32, 100)
+    v_tiles = -(-1000 // tce.BWD_STREAM[torch.float32])
+    assert tiles == 1 and splits == 16 and (splits - 1) * -(-v_tiles // 16) < v_tiles
+
+
 # --------------------------------------------------------------------------- #
 # on the card
 # --------------------------------------------------------------------------- #
@@ -154,8 +198,13 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-# the kernels take n_embd 768; ragged rows and a ragged last vocab tile
-KERNEL_CASES = {"ragged": (37, 768, 384, 300), "vocab-tail": (200, 768, 1000, 1000)}
+# ragged rows and a ragged last vocab tile, at GPT-2's n_embd (768: a
+# cluster of 4 slices of 192 columns) and at the other widths: 200 (one
+# block, a ragged last 16-column step), 1024, 1280 and 1600 (8 slices of
+# 128, 160 and 200 columns)
+KERNEL_CASES = {"ragged": (37, 768, 384, 300), "vocab-tail": (200, 768, 1000, 1000),
+                "e200-ragged": (37, 200, 1000, 990), "e1024-vocab-tail": (300, 1024, 1000, 999),
+                "e1280-ragged": (130, 1280, 384, 300), "e1600-vocab-tail": (200, 1600, 1000, 997)}
 # Kernel against the plain version with fp32 products on the same inputs
 # (in bf16 only the roundings of ds and of the output stay; the
 # JAX-faithful plain version rounds the logits, std ~5.5 here, to bf16,
@@ -203,7 +252,7 @@ def test_cuda_kernels_match_plain(cuda_device, case, dtype):
 @pytest.mark.cuda
 def test_cuda_rejects_what_the_kernels_do_not_take(cuda_device):
     x, head, labels = (torch.from_numpy(a).to(cuda_device)
-                       for a in make_inputs(8, 64, 128, 128))
+                       for a in make_inputs(8, 100, 128, 128))
     with pytest.raises(ValueError, match="n_embd"):
         tce.ce_forward(x, head, labels, 128)
     x, head, labels = (torch.from_numpy(a).to(cuda_device)

@@ -299,6 +299,15 @@ KERNEL_CASES = {
     "bias-rank2": (1, 256, 4, 2, True, "rank2", False),
     "ragged-s1000": (1, 1000, 2, 2, True, None, False),
     "gpt2-xl-s512": (1, 512, 25, 25, True, None, False),
+    # around the forward's 128-query tile and the 64-key tile: one row short
+    # of a query tile, one past it (a second tile of one row), one short of
+    # two
+    "s127-causal": (2, 127, 4, 4, True, None, False),
+    "s127-noncausal": (2, 127, 4, 4, False, None, False),
+    "s129-causal": (2, 129, 4, 4, True, None, False),
+    "s129-noncausal": (2, 129, 4, 4, False, None, False),
+    "s255-causal": (1, 255, 4, 2, True, None, False),
+    "s255-noncausal": (1, 255, 4, 4, False, None, False),
 }
 # kernel against the plain version (exact products) on the same inputs, q
 # drawn so the score std is 3 (peaked rows).  Per output: max |err| / max
@@ -395,3 +404,47 @@ def test_cuda_rejects_what_the_kernels_do_not_take(cuda_device):
         tfa.flash_forward(padded, q, q, *NO_EXTRAS)
     with pytest.raises(ValueError, match="no kernel"):
         tfa.flash_forward(q, q.cpu(), q, *NO_EXTRAS)
+
+
+# bf16 forward at peaked scores (q std 3, so the score std is ~3 as in
+# chip_smoke.py): o against the plain forward computed in fp32 on the same
+# bf16 inputs, by relative L2.  The kernel's own error there is bf16
+# rounding of p and of o (2^-9 relative each, ~2e-3 together) and the
+# ex2.approx exponentials (~2^-22 relative); a key tile lost or left
+# unmasked moves o by percents.
+PEAKED_L2_TOL = 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["causal", "noncausal", "alibi", "bias-per-head",
+                                  "ragged-s1000", "s129-causal"])
+def test_cuda_forward_bf16_peaked(cuda_device, case):
+    (q, k, v, _), bias, slopes, causal = kernel_inputs(case, "bfloat16", cuda_device)
+    o, _ = tfa.flash_forward(q, k, v, bias, slopes, causal, 0.125)
+    ro, _ = tfa.flash_forward_reference(q.float(), k.float(), v.float(), bias, slopes, causal,
+                                        0.125)
+    torch.cuda.synchronize()
+    err = ((o.float() - ro).norm() / ro.norm()).item()
+    assert err <= PEAKED_L2_TOL, f"relative L2 {err:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", ["causal", "alibi", "ragged-s1000"])
+def test_cuda_saved_lse_gives_the_plain_forwards_gradients(cuda_device, case, dtype):
+    """The lse the kernel forward saves (for the backward and for remat) is
+    in natural-log units: dQ and dKV given it agree with dQ and dKV given
+    the plain forward's lse, within the kernels' tolerances."""
+    (q, k, v, do), bias, slopes, causal = kernel_inputs(case, dtype, cuda_device)
+    scale = 0.125
+    o, lse = tfa.flash_forward(q, k, v, bias, slopes, causal, scale)
+    _, rlse = tfa.flash_forward_reference(q, k, v, bias, slopes, causal, scale)
+    delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    grads = [tfa.flash_block_bwd(q, k, v, do, stat, delta, bias, slopes, causal=causal,
+                                 scale=scale) for stat in (lse, rlse)]
+    torch.cuda.synchronize()
+    max_tol, l2_tol = KERNEL_TOL[dtype]
+    for got, want, what in zip(grads[0], grads[1], ("dq", "dk", "dv")):
+        err_max, err_l2 = kernel_errors(got, want)
+        assert err_max <= max_tol and err_l2 <= l2_tol, \
+            f"{what}: max {err_max:.3e} (tol {max_tol}), L2 {err_l2:.3e} (tol {l2_tol})"

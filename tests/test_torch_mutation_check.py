@@ -1,9 +1,9 @@
-"""The decode kernels' mutation check (``deepspeed_tpu_torch/ops/cuda/
-mutation_check.py``) on the CPU: each mutation still names a line of
-``csrc/decode_attention.cu`` exactly once (so an edit of the kernel cannot
-leave the check mutating nothing), and the report reading sorts the
-``cuda`` tests of ``tests/test_torch_decode_attention.py`` by dtype.  The
-check itself runs on the card."""
+"""The kernels' mutation check (``deepspeed_tpu_torch/ops/cuda/
+mutation_check.py``) on the CPU: each mutation still names a line of its
+kernel source exactly once (so an edit of a kernel cannot leave the check
+mutating nothing) and names an existing test file, and the report reading
+sorts the ``cuda`` tests of the decode, flash and cross-entropy test files
+by dtype.  The check itself runs on the card."""
 
 import pytest
 
@@ -12,23 +12,39 @@ from deepspeed_tpu_torch.ops.cuda import mutation_check as mc
 
 @pytest.mark.parametrize("name", sorted(mc.MUTATIONS))
 def test_each_mutation_names_one_line_of_the_kernel(name):
-    _, old, new = mc.MUTATIONS[name]
-    source = (mc.REPO / mc.SOURCE).read_text()
-    assert source.count(old) == 1
+    (source, tests), _, old, new = mc.MUTATIONS[name]
+    assert (mc.REPO / source).read_text().count(old) == 1
     assert old != new
+    assert (mc.REPO / tests).is_file()
+
+
+def test_every_redesigned_kernel_has_two_mutations():
+    by_source = {}
+    for (source, _), *_ in mc.MUTATIONS.values():
+        by_source[source] = by_source.get(source, 0) + 1
+    assert set(by_source) == {mc.DECODE[0], mc.FLASH[0], mc.CROSS_ENTROPY[0]}
+    assert min(by_source.values()) >= 2
 
 
 def test_mutate_applies_the_change_to_a_copy(tmp_path):
-    name = sorted(mc.MUTATIONS)[0]
-    _, old, new = mc.MUTATIONS[name]
-    path = tmp_path / mc.SOURCE
+    check_mutation_applies(tmp_path, sorted(mc.MUTATIONS)[0])
+
+
+@pytest.mark.parametrize("name", sorted(mc.MUTATIONS))
+def test_every_mutation_applies_to_a_copy(tmp_path, name):
+    check_mutation_applies(tmp_path, name)
+
+
+def check_mutation_applies(tmp_path, name):
+    (source, _), _, old, new = mc.MUTATIONS[name]
+    path = tmp_path / source
     path.parent.mkdir(parents=True)
-    path.write_text((mc.REPO / mc.SOURCE).read_text())
-    mc.mutate(tmp_path, old, new)
+    path.write_text((mc.REPO / source).read_text())
+    mc.mutate(tmp_path, source, old, new)
     text = path.read_text()
     assert old not in text and text.count(new) == 1
     with pytest.raises(SystemExit):
-        mc.mutate(tmp_path, old, new)          # no longer there: refused
+        mc.mutate(tmp_path, source, old, new)          # no longer there: refused
 
 
 @pytest.mark.parametrize("test_id,dtype", [
@@ -37,6 +53,10 @@ def test_mutate_applies_the_change_to_a_copy(tmp_path):
     ("test_cuda_decode_kernel_bf16_peaked[decode]", "bfloat16"),
     ("test_cuda_paged_and_contiguous_kernels_agree_bitwise", "float32"),
     ("test_cuda_prefill_rows_do_not_depend_on_chunking", "float32"),
+    ("test_cuda_kernels_match_plain[e1024-vocab-tail-bfloat16]", "bfloat16"),
+    ("test_cuda_kernels_match_plain[e1024-vocab-tail-float32]", "float32"),
+    ("test_cuda_forward_bf16_peaked[causal]", "bfloat16"),
+    ("test_cuda_saved_lse_gives_the_plain_forwards_gradients[alibi-float32]", "float32"),
 ])
 def test_dtype_of_test_ids(test_id, dtype):
     assert mc.dtype_of(test_id) == dtype

@@ -35,9 +35,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    decode step's logits against the plain attention path;
 6. the training kernels against their plain versions at GPT-2's training
    shape, fp32 and bf16: the flash attention forward, dQ and dKV at the
-   path's shape (B 8, S 512, H 12, head_dim 64, causal) and at GPT-2 XL's
-   (H 25, S 1024, B 2), with GQA (Hkv 4), ALiBi, a per-head bias, a ragged
-   S 1000 and without the causal mask; the cross-entropy forward, dx and
+   path's shape (B 8, S 512, H 12, head_dim 64, causal), at GPT-2 XL's
+   (H 25, S 1024, B 2) and at the dense seq-4096 step's (B 2, S 4096, H
+   12), with GQA (Hkv 4), ALiBi, a per-head bias, a ragged S 1000 and
+   without the causal mask; the cross-entropy forward, dx and
    dhead at N 4096 (micro 8 x seq 512), E 768, V 50304 (vocab 50257), in
    bf16 also at GPT-2 medium's, large's and XL's widths (E 1024, 1280,
    1600); and
@@ -190,6 +191,7 @@ FLASH_CASES = {
     "bias": (8, 512, 12, 12, True, "per-head", False),
     "ragged": (2, 1000, 12, 12, True, None, False),
     "noncausal": (8, 512, 12, 12, False, None, False),
+    "gpt2-s4096": (2, 4096, 12, 12, True, None, False),
 }
 FLASH_Q_STD = 3.0
 # flash tolerances, kernel against the plain version (exact products) on
@@ -1484,6 +1486,15 @@ def main() -> int:
     for line in res.log.splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             say(f"  ptxas: {line.strip()}")
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as tfa
+    occupancy = []
+    for kern in ("forward", "dq", "dkv"):
+        for dt_name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            for extras in (False, True):
+                n, smem = tfa.kernel_occupancy(kern, dt, extras)
+                occupancy.append(f"{kern} {dt_name}{' extras' if extras else ''} {n} x {smem} B")
+    say("flash blocks per SM x shared memory per block (occupancy query): "
+        + ", ".join(occupancy))
     say("kernels: paged_attention, decode_attention, flash_forward, flash_backward_dq, "
         "flash_backward_dkv, ce_forward, ce_backward_dx, ce_backward_dhead, fused_adam, "
         "block_sparse_forward, block_sparse_backward_dq, block_sparse_backward_dkv")

@@ -153,6 +153,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dst_flash_backward_dkv.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, strides,
                                            ci, ci, ci, ci, cf, ci, ci, vp]
     lib.dst_flash_backward_dkv.restype = ci
+    lib.dst_flash_occupancy.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+    lib.dst_flash_occupancy.restype = ci
     lib.dst_sparse_forward.argtypes = [vp, vp, vp, vp, vp, vp, vp, strides,
                                        ci, ci, ci, ci, cf, ci, ci, vp]
     lib.dst_sparse_forward.restype = ci

@@ -8,9 +8,10 @@
 // * c = a . b^T and acc += p . b on [16 x 64] warp tiles, bf16 through
 //   mma.sync m16n8k16 (fp32 accumulate), fp32 through FMA in the same
 //   register layout (no TF32): product_nt / product_pv read bf16 fragments
-//   with 32- and 16-bit shared loads (the dQ, dKV and block-sparse
-//   kernels); QFragments (Q held in registers) and pv_tile read them with
-//   ldmatrix (the flash forward and the decode prefill path);
+//   with 32- and 16-bit shared loads (the block-sparse kernels);
+//   RowFragments (a warp's own 16 rows held in registers) and pv_tile read
+//   them with ldmatrix (the flash forward, dQ and dKV, and the decode
+//   prefill path);
 // * row stores to contiguous [B, S, heads, 64] outputs.
 // A 16 x 64 fp32 tile of a warp lives in registers as c[8][4]: c[j][i] is
 // row g + 8 * (i >> 1), column 8 j + 2 t + (i & 1), where g = lane / 4 and
@@ -58,9 +59,10 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long long ss, in
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
-__device__ __forceinline__ void zero(float (&c)[8][4]) {
+template <int NJ>
+__device__ __forceinline__ void zero(float (&c)[NJ][4]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) c[j][i] = 0.f;
 }
@@ -84,7 +86,9 @@ __device__ __forceinline__ void product_nt(float (&c)[8][4], const bf16* a, cons
   }
 }
 
-__device__ __forceinline__ void product_nt(float (&c)[8][4], const float* a, const float* b) {
+// fp32: c = a . b^T for the first 8 NJ rows of b (c's columns).
+template <int NJ>
+__device__ __forceinline__ void product_nt(float (&c)[NJ][4], const float* a, const float* b) {
   constexpr int L = Tr<float>::kLd;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   zero(c);
@@ -93,7 +97,7 @@ __device__ __forceinline__ void product_nt(float (&c)[8][4], const float* a, con
     const float4 lo = *reinterpret_cast<const float4*>(a + g * L + d);
     const float4 hi = *reinterpret_cast<const float4*>(a + (g + 8) * L + d);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const float4 bv = *reinterpret_cast<const float4*>(b + (j * 8 + 2 * t + i) * L + d);
@@ -131,12 +135,14 @@ __device__ __forceinline__ void product_pv(float (&acc)[8][4], const float (&p)[
   }
 }
 
-__device__ __forceinline__ void product_pv(float (&acc)[8][4], const float (&p)[8][4],
+// fp32: acc += p . b over p's 8 NJ columns (b's first 8 NJ rows).
+template <int NJ>
+__device__ __forceinline__ void product_pv(float (&acc)[8][4], const float (&p)[NJ][4],
                                            const float* b) {
   constexpr int L = Tr<float>::kLd;
   const int lane = threadIdx.x & 31, t = lane & 3, quad = lane & ~3;
 #pragma unroll
-  for (int jk = 0; jk < 8; ++jk)
+  for (int jk = 0; jk < NJ; ++jk)
 #pragma unroll
     for (int tk = 0; tk < 4; ++tk)
 #pragma unroll
@@ -209,31 +215,35 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, long long ss, in
   }
 }
 
-// The warp's 16 query rows as the A operand of c = q . k^T: bf16 fragments
-// loaded once by ldmatrix and kept in registers (K by ldmatrix per tile);
-// fp32 reads q from shared memory in product_nt.
-template <typename T> struct QFragments;
+// A warp's own 16 rows ([row][kD] in shared memory) as the A operand of c =
+// rows . b^T: the flash forward's and dQ's query (and dO) rows, dKV's key
+// (and value) rows.  bf16 fragments are loaded once by ldmatrix and kept in
+// registers, b's by ldmatrix per tile (four 8x8 matrices, two mma, per
+// instruction); fp32 leaves the rows in shared memory for product_nt.
+template <typename T> struct RowFragments;
 
-template <> struct QFragments<bf16> {
+template <> struct RowFragments<bf16> {
   uint32_t f[kD / 16][4];
 
-  __device__ __forceinline__ void load(const bf16* q) {
+  __device__ __forceinline__ void load(const bf16* rows) {
     constexpr int L = Tr<bf16>::kLd;
     const int lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk)
-      ldsm_x4(f[kk], q + ((mi & 1) * 8 + r8) * L + kk * 16 + (mi >> 1) * 8);
+      ldsm_x4(f[kk], rows + ((mi & 1) * 8 + r8) * L + kk * 16 + (mi >> 1) * 8);
   }
 
-  // c = q . b^T for the 64 rows of b ([row][kD] in shared memory)
-  __device__ __forceinline__ void scores(float (&c)[8][4], const bf16* b) const {
+  // c = rows . b^T for the first 8 NJ rows of b ([row][kD] in shared
+  // memory; NJ even)
+  template <int NJ>
+  __device__ __forceinline__ void product_nt(float (&c)[NJ][4], const bf16* b) const {
     constexpr int L = Tr<bf16>::kLd;
     const int lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
     zero(c);
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk)
 #pragma unroll
-      for (int jp = 0; jp < 4; ++jp) {
+      for (int jp = 0; jp < NJ / 2; ++jp) {
         uint32_t bfr[4];
         ldsm_x4(bfr, b + ((2 * jp + (mi >> 1)) * 8 + r8) * L + kk * 16 + (mi & 1) * 8);
         mma_bf16(c[2 * jp], f[kk][0], f[kk][1], f[kk][2], f[kk][3], bfr[0], bfr[1]);
@@ -242,23 +252,26 @@ template <> struct QFragments<bf16> {
   }
 };
 
-template <> struct QFragments<float> {
-  const float* q;
-  __device__ __forceinline__ void load(const float* rows) { q = rows; }
-  __device__ __forceinline__ void scores(float (&c)[8][4], const float* b) const {
-    product_nt(c, q, b);
+template <> struct RowFragments<float> {
+  const float* rows;
+  __device__ __forceinline__ void load(const float* r) { rows = r; }
+  template <int NJ>
+  __device__ __forceinline__ void product_nt(float (&c)[NJ][4], const float* b) const {
+    ::product_nt(c, rows, b);
   }
 };
 
-// acc += p . b: p the warp's 16 x 64 tile in registers (rounded to bf16, as
-// JAX's kernels round p to v's dtype), b [64 keys][kD] in shared memory,
-// read transposed by ldmatrix.trans.
-__device__ __forceinline__ void pv_tile(float (&acc)[8][4], const float (&p)[8][4],
+// acc += p . b: p the warp's 16 x 8 NJ tile in registers (rounded to bf16,
+// as JAX's kernels round p to v's dtype and ds to q's), b [8 NJ][kD] in
+// shared memory (v or k for rows of queries; do or q for dKV's rows of
+// keys), read transposed by ldmatrix.trans.  NJ even.
+template <int NJ>
+__device__ __forceinline__ void pv_tile(float (&acc)[8][4], const float (&p)[NJ][4],
                                         const bf16* b) {
   constexpr int L = Tr<bf16>::kLd;
   const int lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
 #pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
+  for (int kk = 0; kk < NJ / 2; ++kk) {
     const uint32_t a0 = pack_rn(p[2 * kk][0], p[2 * kk][1]);
     const uint32_t a1 = pack_rn(p[2 * kk][2], p[2 * kk][3]);
     const uint32_t a2 = pack_rn(p[2 * kk + 1][0], p[2 * kk + 1][1]);
@@ -273,7 +286,8 @@ __device__ __forceinline__ void pv_tile(float (&acc)[8][4], const float (&p)[8][
   }
 }
 
-__device__ __forceinline__ void pv_tile(float (&acc)[8][4], const float (&p)[8][4],
+template <int NJ>
+__device__ __forceinline__ void pv_tile(float (&acc)[8][4], const float (&p)[NJ][4],
                                         const float* b) {
   product_pv(acc, p, b);
 }

@@ -22,46 +22,60 @@
 // device memory once per block that needs it, scores and probabilities never
 // leave registers, and fully masked key tiles are skipped.
 //
-// Design (wgmma, TMA and warp specialisation are later work):
-// * The forward (redesigned for Hopper): one block of 4 warps per 64-query
-//   tile (grid: query tiles x heads x batch, the longest causal rows
-//   first), each warp 16 rows, at up to 168 registers a thread so that
-//   three blocks share an SM and one block's loads and softmax overlap
-//   another's products.  (8 warps per 128-query tile at one block per SM,
-//   and four blocks per SM at 128 registers with spills, both ran slower.)
-//   - bf16: the warp's Q fragments are loaded once by ldmatrix and held in
-//     registers; K fragments come by ldmatrix, V by ldmatrix.trans (one
-//     instruction per four 8x8 matrices, not 16-bit or 32-bit loads).
-//   - Scores are kept in log2 units (q . k * scale * log2(e)), so each
-//     exponential (p and the rescale alpha) is one ex2.approx; lse is
-//     converted back at the end, lse = (m2 + log2 l) * ln 2, the natural-log
-//     value dQ, dKV and remat read.  The running max starts at -1e30 *
-//     log2(e), so a row a bias masks wholly still averages uniformly.
-//   - Masking by value only on a warp's diagonal key tile and a ragged last
-//     tile; a key tile wholly past a warp's rows is skipped by that warp.
-//     The no-bias, no-ALiBi path (GPT-2's) is its own instantiation, with
-//     one multiply per score.
-//   - fp32 keeps FMA products (product_nt / product_pv) in the same layout.
-// * dQ and dKV: one block of 4 warps per 64-row tile: query rows for dQ
-//   (grid: query tiles x heads x batch), key rows for dKV (grid: key tiles
-//   x kv heads x batch).  Each warp owns 16 of the rows.  bf16 products use
-//   mma.sync m16n8k16 (fp32 accumulate) with fragments read straight from
-//   shared memory; fp32 uses fp32 FMA in the same register layout (no
+// Design (wgmma, TMA and warp specialisation are later work).  All three
+// kernels share it:
+// * One block of 4 warps per 64-row tile, each warp 16 rows: query rows in
+//   the forward and dQ, key rows in dKV.  The forward's grid is query tiles
+//   x heads x batch, each head's longest causal rows first; dQ's and dKV's
+//   is heads x batch x tiles, so that every head's longest causal walk is
+//   dispatched before any shorter one (12-13 % faster at GPT-2's training
+//   shape than each head's tiles together: the short walks fill the tail).
+// * The rows the block owns are staged once; the other side's tiles stream
+//   through two shared-memory buffers by cp.async (K and V in the forward
+//   and dQ; Q, dO, lse and delta in dKV).  dQ and dKV issue the next tile's
+//   copies right after their one barrier per tile, which also tells every
+//   warp is done with the buffer being refilled.
+// * bf16: the warp's own rows are loaded once by ldmatrix and held in
+//   registers as mma.sync m16n8k16 A fragments (RowFragments: Q in the
+//   forward, Q and dO in dQ, K and V in dKV); the streamed tile's fragments
+//   come by ldmatrix for s = rows . tile^T and by ldmatrix.trans for acc +=
+//   p . tile (pv_tile), one instruction per four 8x8 matrices.  fp32 keeps
+//   FMA products (product_nt / product_pv) in the same register layout (no
 //   TF32), p and ds passed between the four threads of a row group by
 //   shuffles.
 // * The score tile stays in the mma accumulator layout (thread: rows g and
 //   g + 8, columns 2t and 2t + 1 of each 8-column slice), which is also the
 //   A-operand layout of the next product, so p and ds go to the tensor cores
-//   from registers.
-// * The streamed tiles (K and V in the forward and dQ; Q, dO, lse, delta in
-//   dKV) are double-buffered in shared memory with cp.async: the next tile
-//   is in flight while the current one is used.
+//   from registers.  dQ forms its score tiles 32 keys wide (kDqCols), so
+//   that a warp skips the half of its diagonal tile past its last row and
+//   the score tile and dp take half the registers; dKV forms them 64
+//   queries wide (kDkvCols).
+// * Exponentials in log2 units, one ex2.approx each.  The forward keeps its
+//   scores and running max there (q . k * scale * log2(e); the running max
+//   starts at -1e30 * log2(e), so a row a bias masks wholly still averages
+//   uniformly) and converts lse back at the end, lse = (m2 + log2 l) * ln 2,
+//   the natural-log value dQ, dKV and remat read.  dQ and dKV form p =
+//   2^(s * scale * log2(e) - lse * log2(e)), dQ with lse converted once per
+//   row in registers, dKV once per column pair as it reads lse from shared
+//   memory (lse and delta arrive there by asynchronous copies, a float2 of
+//   each per 8-column slice read, not one per score); ds = p (dp - delta) *
+//   scale keeps its natural units.
+// * Masking by value only on edge tiles: a warp's causal diagonal tile and a
+//   tile that crosses S (in its rows or its columns).  A tile wholly past a
+//   warp's causal range is skipped by that warp.  The no-bias, no-ALiBi path
+//   (GPT-2's) is its own instantiation, with the scale folded into the
+//   exponential's FFMA: one multiply-add per score.
+// * Blocks per SM fixed by __launch_bounds__ after measuring the options
+//   (PERF.md; python -m deepspeed_tpu_torch.ops.cuda.flash_variants): the
+//   forward 3 (up to 168 registers a thread), so that one block's loads and
+//   softmax overlap another's products; dQ 3 on GPT-2's bf16 path, 2 on the
+//   others, where 168 registers would spill; dKV 2 (K, V, dK and dV take 96
+//   registers a thread before any score: at 168 it spills).
 // * The online softmax keeps m, l and the accumulator in fp32 registers;
 //   out-of-range and causally masked columns are -inf, exactly zero weight,
 //   never 0/0 (l = 0 gives o = 0).
 // * Causal: the forward and dQ walk key tiles up to the query tile's last
-//   row, dKV walks query tiles from the key tile on; only the diagonal tile
-//   is masked by value.
+//   row, dKV walks query tiles from the key tile on.
 // * GQA: the forward and dQ read kv head h / group; dKV loops over the
 //   group's query heads inside one block, so grouped K/V are never expanded
 //   and dK/dV are summed in a fixed order with no atomics.
@@ -83,31 +97,8 @@ struct Params {
   float scale;
 };
 
-// s <- s * scale (+ bias) (+ slope * (key - query)), -inf where causally
-// masked or out of range.  The tile's rows start at row0 and its columns at
-// col0; kKeyRows: rows are keys and columns queries (the dKV kernel).
-template <bool kKeyRows>
-__device__ __forceinline__ void scores(float (&s)[8][4], const Params& p, const float* bias,
-                                       float slope, int row0, int col0) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = row0 + g + 8 * (i >> 1), c = col0 + j * 8 + 2 * t + (i & 1);
-      const int qi = kKeyRows ? c : r, ki = kKeyRows ? r : c;
-      float x = -INFINITY;
-      if (qi < p.S && ki < p.S && !(p.causal && ki > qi)) {
-        x = __fmul_rn(s[j][i], p.scale);
-        if (bias != nullptr) x = __fadd_rn(x, bias[qi * p.b_sq + ki * p.b_sk]);
-        if (p.slopes != nullptr) x = __fadd_rn(x, __fmul_rn(slope, (float)(ki - qi)));
-      }
-      s[j][i] = x;
-    }
-}
-
 // --------------------------------------------------------------------------
-// forward: one block of 8 warps per (128-query tile, head, batch)
+// forward: one block of 4 warps per (64-query tile, head, batch)
 // --------------------------------------------------------------------------
 
 constexpr int kFwdWarps = 4;
@@ -123,25 +114,26 @@ constexpr size_t fwd_smem_bytes() {               // the query tile, two K and t
 }
 
 // With extras (a bias or ALiBi): s <- s * scale (+ bias) (+ slope * (key -
-// query)), times log2(e), as scores<> forms it in natural units.  Without
-// (GPT-2's path) s stays as it is: the caller folds scale * log2(e) into
-// the exponential's argument.  -inf where causally masked or out of range
-// (kMask).
-template <bool kExtras, bool kMask>
-__device__ __forceinline__ void scores_log2(float (&s)[8][4], const Params& p, const float* bias,
+// query)), times log2(e).  Without (GPT-2's path) s stays as it is: the
+// caller folds scale * log2(e) into the exponential's argument.  -inf where
+// causally masked or out of range (kMask).  The tile's rows start at row0
+// and its columns at col0; kKeyRows: rows are keys and columns queries (dKV).
+template <bool kExtras, bool kMask, bool kKeyRows = false, int NJ>
+__device__ __forceinline__ void scores_log2(float (&s)[NJ][4], const Params& p, const float* bias,
                                             float slope, int row0, int col0) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = row0 + g + 8 * (i >> 1), c = col0 + j * 8 + 2 * t + (i & 1);
+      const int qi = kKeyRows ? c : r, ki = kKeyRows ? r : c;
       float x = -INFINITY;
-      if (!kMask || (r < p.S && c < p.S && !(p.causal && c > r))) {
+      if (!kMask || (qi < p.S && ki < p.S && !(p.causal && ki > qi))) {
         if (kExtras) {
           x = __fmul_rn(s[j][i], p.scale);
-          if (bias != nullptr) x = __fadd_rn(x, bias[r * p.b_sq + c * p.b_sk]);
-          if (p.slopes != nullptr) x = __fadd_rn(x, __fmul_rn(slope, (float)(c - r)));
+          if (bias != nullptr) x = __fadd_rn(x, bias[qi * p.b_sq + ki * p.b_sk]);
+          if (p.slopes != nullptr) x = __fadd_rn(x, __fmul_rn(slope, (float)(ki - qi)));
           x = __fmul_rn(x, kLog2e);
         } else {
           x = s[j][i];
@@ -183,7 +175,7 @@ __global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSm) flash_fwd_kernel
   float m[2] = {m0, m0}, l[2] = {0.f, 0.f};
   float acc[8][4];
   zero(acc);
-  QFragments<T> qf;
+  RowFragments<T> qf;
   for (int j = 0; j < n_kv; ++j) {
     const int buf = j & 1;
     if (j + 1 < n_kv) {
@@ -200,9 +192,10 @@ __global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSm) flash_fwd_kernel
     // a key tile wholly past the warp's last row leaves its state as it is
     if (!p.causal || col0 <= wrow0 + 15) {
       float s[8][4];
-      qf.scores(s, sk + buf * TE);
-      // only the diagonal tile and a ragged last tile are masked by value
-      const bool edge = (p.causal && col0 + kTile - 1 > wrow0) || col0 + kTile > p.S;
+      qf.product_nt(s, sk + buf * TE);
+      // only the diagonal tile and a tile that crosses S are masked by value
+      const bool edge =
+          (p.causal && col0 + kTile - 1 > wrow0) || col0 + kTile > p.S || wrow0 + 16 > p.S;
       if (edge)
         scores_log2<kExtras, true>(s, p, bias, slope, wrow0, col0);
       else if (kExtras)
@@ -257,68 +250,118 @@ __global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSm) flash_fwd_kernel
 }
 
 // --------------------------------------------------------------------------
+// dQ and dKV: a ring of kStages buffers for the streamed tiles, a tile's
+// copies issued kStages - 1 tiles ahead, right after the one barrier per
+// tile (a third buffer, copies two tiles ahead, measured no faster)
+// --------------------------------------------------------------------------
+
+constexpr int kStages = 2;
+
+// --------------------------------------------------------------------------
 // dQ: one block per (query tile, head, batch), walking the key tiles
 // --------------------------------------------------------------------------
 
+constexpr int kDqWarps = 4;
+constexpr int kDqRows = 16 * kDqWarps;            // query rows of a dQ block
+constexpr int kDqThreads = 32 * kDqWarps;
+constexpr int kDqBlocksPerSm = 3;                 // bf16 without extras (GPT-2's path)
+constexpr int kDqCols = 32;                       // key columns of a score tile
+
+// Blocks per SM __launch_bounds__ asks for: GPT-2's path kDqBlocksPerSm (up
+// to 168 registers a thread); the bias / ALiBi and fp32 paths 2, where they
+// spill nothing (fp32's shared memory holds two blocks an SM anyway).
+template <typename T, bool kExtras>
+constexpr int dq_min_blocks() {
+  return sizeof(T) == 2 && !kExtras ? kDqBlocksPerSm : 2;
+}
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Params p) {
+constexpr size_t dq_smem_bytes() {                // Q and dO, kStages K and V buffers
+  return sizeof(T) * (2 * kDqRows + 2 * kStages * kTile) * Tr<T>::kLd;
+}
+
+// grid: heads x batch x query tiles, the longest causal rows dispatched first
+template <typename T, bool kExtras>
+__global__ void __launch_bounds__(kDqThreads, (dq_min_blocks<T, kExtras>()))
+    flash_dq_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int TE = kTileElems<T>, L = Tr<T>::kLd;
+  constexpr int TE = kTileElems<T>, L = Tr<T>::kLd, NS = kStages, NJ = kDqCols / 8;
   T* sq = reinterpret_cast<T*>(smem);
-  T* sdo = sq + TE;
-  T* sk = sdo + TE;                 // two buffers each
-  T* sv = sk + 2 * TE;
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / p.group;
+  T* sdo = sq + kDqRows * L;
+  T* sk = sdo + kDqRows * L;        // NS buffers each
+  T* sv = sk + NS * TE;
+  const int qt = gridDim.z - 1 - blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / p.group;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2;
-  const int row0 = qt * kTile, wrow0 = row0 + warp * 16;
+  const int row0 = qt * kDqRows, wrow0 = row0 + warp * 16;
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  const float* bias = p.bias != nullptr ? p.bias + b * p.b_sb + h * p.b_sh : nullptr;
-  const float slope = p.slopes != nullptr ? p.slopes[h] : 0.f;
-  const int n_kv = p.causal ? qt + 1 : cdiv(p.S, kTile);
+  const float* bias = kExtras && p.bias != nullptr ? p.bias + b * p.b_sb + h * p.b_sh : nullptr;
+  const float slope = kExtras && p.slopes != nullptr ? p.slopes[h] : 0.f;
+  const float to_log2 = kExtras ? 1.f : p.scale * kLog2e;
+  const int n_all = cdiv(p.S, kTile);
+  const int n_kv = p.causal ? min(cdiv(row0 + kDqRows, kTile), n_all) : n_all;
   const long long stat0 = ((long long)b * p.H + h) * p.S;
-  float lse[2], delta[2];
+  float lse2[2], delta[2];          // lse in log2 units
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = wrow0 + g + 8 * r;
-    lse[r] = row < p.S ? p.lse_in[stat0 + row] : 0.f;
+    lse2[r] = row < p.S ? __fmul_rn(p.lse_in[stat0 + row], kLog2e) : 0.f;
     delta[r] = row < p.S ? p.delta[stat0 + row] : 0.f;
   }
 
-  load_tile(sq, q, p.q_ss, row0, p.S);
-  load_tile(sdo, dout, p.do_ss, row0, p.S);
-  load_tile(sk, k, p.k_ss, 0, p.S);
-  load_tile(sv, v, p.v_ss, 0, p.S);
-  commit_copies();
+  load_rows<T, kDqRows, kDqThreads>(sq, q, p.q_ss, row0, p.S);
+  load_rows<T, kDqRows, kDqThreads>(sdo, dout, p.do_ss, row0, p.S);
+#pragma unroll
+  for (int st = 0; st < NS - 1; ++st) {
+    if (st < n_kv) {
+      load_rows<T, kTile, kDqThreads>(sk + st * TE, k, p.k_ss, st * kTile, p.S);
+      load_rows<T, kTile, kDqThreads>(sv + st * TE, v, p.v_ss, st * kTile, p.S);
+    }
+    commit_copies();
+  }
   float dq[8][4];
   zero(dq);
-  for (int j = 0; j < n_kv; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_kv) {
-      load_tile(sk + (buf ^ 1) * TE, k, p.k_ss, (j + 1) * kTile, p.S);
-      load_tile(sv + (buf ^ 1) * TE, v, p.v_ss, (j + 1) * kTile, p.S);
-      commit_copies();
-      wait_copies<1>();
-    } else {
-      wait_copies<0>();
+  RowFragments<T> qf, dof;
+  for (int j = 0, buf = 0; j < n_kv; ++j, buf = buf + 1 == NS ? 0 : buf + 1) {
+    wait_copies<NS - 2>();             // key tile j has landed
+    __syncthreads();
+    const int next = j + NS - 1, nbuf = buf == 0 ? NS - 1 : buf - 1;
+    if (next < n_kv) {
+      load_rows<T, kTile, kDqThreads>(sk + nbuf * TE, k, p.k_ss, next * kTile, p.S);
+      load_rows<T, kTile, kDqThreads>(sv + nbuf * TE, v, p.v_ss, next * kTile, p.S);
     }
-    __syncthreads();
-    float s[8][4], dp[8][4];
-    product_nt(s, sq + warp * 16 * L, sk + buf * TE);
-    scores<false>(s, p, bias, slope, wrow0, j * kTile);
-    product_nt(dp, sdo + warp * 16 * L, sv + buf * TE);
+    commit_copies();
+    if (j == 0) {
+      qf.load(sq + warp * 16 * L);
+      dof.load(sdo + warp * 16 * L);
+    }
+#pragma unroll 1
+    for (int c = 0; c < kTile; c += kDqCols) {
+      const int col0 = j * kTile + c;
+      // key columns wholly past the warp's last row add nothing to its rows
+      if (p.causal && col0 > wrow0 + 15) break;
+      const T* k_cols = sk + buf * TE + c * L;
+      float s[NJ][4], dp[NJ][4];
+      qf.product_nt(s, k_cols);
+      dof.product_nt(dp, sv + buf * TE + c * L);
+      // only the diagonal and columns or rows that cross S are masked by value
+      const bool diagonal = p.causal && col0 + kDqCols - 1 > wrow0;
+      if (diagonal || col0 + kDqCols > p.S || wrow0 + 16 > p.S)
+        scores_log2<kExtras, true>(s, p, bias, slope, wrow0, col0);
+      else if (kExtras)
+        scores_log2<kExtras, false>(s, p, bias, slope, wrow0, col0);
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj)
+      for (int jj = 0; jj < NJ; ++jj)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pr = expf(s[jj][i] - lse[i >> 1]);
-        s[jj][i] = pr * (dp[jj][i] - delta[i >> 1]) * p.scale;    // ds
-      }
-    product_pv(dq, s, sk + buf * TE);
-    __syncthreads();
+        for (int i = 0; i < 4; ++i) {
+          const float pr = exp2_approx(fmaf(s[jj][i], to_log2, -lse2[i >> 1]));
+          s[jj][i] = pr * (dp[jj][i] - delta[i >> 1]) * p.scale;    // ds
+        }
+      pv_tile(dq, s, k_cols);
+    }
   }
   const float one[2] = {1.f, 1.f};
   T* out = static_cast<T*>(p.dq) + (long long)b * p.S * p.H * kD + h * kD;
@@ -330,81 +373,128 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Params p) {
 // heads and, for each, the query tiles from the diagonal on
 // --------------------------------------------------------------------------
 
-// Stage query tile `qt` of head h into buffer `buf`: Q and dO by cp.async,
-// lse and delta (zeros past S) by plain loads.
+constexpr int kDkvWarps = 4;
+constexpr int kDkvRows = 16 * kDkvWarps;          // key rows of a dKV block
+constexpr int kDkvThreads = 32 * kDkvWarps;
+constexpr int kDkvBlocksPerSm = 2;
+constexpr int kDkvCols = 64;                      // query columns of a score tile
+
+template <typename T>
+constexpr size_t dkv_smem_bytes() {   // K and V, kStages Q, dO, lse and delta buffers
+  return sizeof(T) * (2 * kDkvRows + 2 * kStages * kTile) * Tr<T>::kLd +
+         2 * kStages * kTile * sizeof(float);
+}
+
+// Stage query tile `qt` of head h: Q and dO, lse and delta (zeros past S),
+// all by cp.async.
 template <typename T>
 __device__ __forceinline__ void load_query_tile(const Params& p, T* sq, T* sdo, float* slse,
                                                 float* sdelta, int b, int h, int qt) {
+  static_assert(kDkvThreads >= 2 * kTile, "lse and delta take one thread per row each");
   const int row0 = qt * kTile;
-  load_tile(sq, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss, row0, p.S);
-  load_tile(sdo, static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh, p.do_ss, row0,
-            p.S);
-  const int i = threadIdx.x & (kTile - 1), row = row0 + i;
-  const float* src = threadIdx.x < kTile ? p.lse_in : p.delta;
-  const float val = row < p.S ? src[((long long)b * p.H + h) * p.S + row] : 0.f;
-  (threadIdx.x < kTile ? slse : sdelta)[i] = val;
+  load_rows<T, kTile, kDkvThreads>(sq, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh,
+                                   p.q_ss, row0, p.S);
+  load_rows<T, kTile, kDkvThreads>(
+      sdo, static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh, p.do_ss, row0, p.S);
+  if (threadIdx.x < 2 * kTile) {
+    const bool is_lse = threadIdx.x < kTile;
+    const int i = threadIdx.x & (kTile - 1), row = row0 + i;
+    const bool valid = row < p.S;
+    const float* src = (is_lse ? p.lse_in : p.delta) + ((long long)b * p.H + h) * p.S;
+    copy4_async((is_lse ? slse : sdelta) + i, valid ? src + row : src, valid);
+  }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Params p) {
+// grid: kv heads x batch x key tiles, the longest causal walks dispatched
+// first
+template <typename T, bool kExtras>
+__global__ void __launch_bounds__(kDkvThreads, kDkvBlocksPerSm) flash_dkv_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int TE = kTileElems<T>, L = Tr<T>::kLd;
-  static_assert(kThreads == 2 * kTile, "lse and delta take one thread per row each");
+  constexpr int TE = kTileElems<T>, L = Tr<T>::kLd, NS = kStages, NJ = kDkvCols / 8;
   T* sk = reinterpret_cast<T*>(smem);
-  T* sv = sk + TE;
-  T* sq = sv + TE;                  // two buffers each
-  T* sdo = sq + 2 * TE;
-  float* slse = reinterpret_cast<float*>(sdo + 2 * TE);     // [2][kTile]
-  float* sdelta = slse + 2 * kTile;
-  const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int key0 = kt * kTile, wkey0 = key0 + warp * 16;
-  const int n_q = cdiv(p.S, kTile), first = p.causal ? kt : 0, per_head = n_q - first;
+  T* sv = sk + kDkvRows * L;
+  T* sq = sv + kDkvRows * L;        // NS buffers each
+  T* sdo = sq + NS * TE;
+  float* slse = reinterpret_cast<float*>(sdo + NS * TE);    // [NS][kTile]
+  float* sdelta = slse + NS * kTile;
+  const int kt = blockIdx.z, hk = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
+  const int key0 = kt * kDkvRows, wkey0 = key0 + warp * 16;
+  const int n_q = cdiv(p.S, kTile), first = p.causal ? key0 / kTile : 0, per_head = n_q - first;
   const int total = p.group * per_head;
+  const float to_log2 = kExtras ? 1.f : p.scale * kLog2e;
+  // stage item `it` (query head it / per_head of the group, query tile
+  // first + it % per_head) into buffer `buf`
+  auto stage = [&](int it, int buf) {
+    load_query_tile<T>(p, sq + buf * TE, sdo + buf * TE, slse + buf * kTile,
+                       sdelta + buf * kTile, b, hk * p.group + it / per_head,
+                       first + it % per_head);
+  };
 
-  load_tile(sk, static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh, p.k_ss, key0, p.S);
-  load_tile(sv, static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh, p.v_ss, key0, p.S);
-  load_query_tile<T>(p, sq, sdo, slse, sdelta, b, hk * p.group, first);
-  commit_copies();
+  load_rows<T, kDkvRows, kDkvThreads>(sk, static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh,
+                                      p.k_ss, key0, p.S);
+  load_rows<T, kDkvRows, kDkvThreads>(sv, static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh,
+                                      p.v_ss, key0, p.S);
+#pragma unroll
+  for (int st = 0; st < NS - 1; ++st) {
+    if (st < total) stage(st, st);
+    commit_copies();
+  }
   float dk[8][4], dv[8][4];
   zero(dk);
   zero(dv);
-  for (int it = 0; it < total; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < total) {
-      const int nb = buf ^ 1, nh = hk * p.group + (it + 1) / per_head;
-      load_query_tile<T>(p, sq + nb * TE, sdo + nb * TE, slse + nb * kTile,
-                         sdelta + nb * kTile, b, nh, first + (it + 1) % per_head);
-      commit_copies();
-      wait_copies<1>();
-    } else {
-      wait_copies<0>();
+  RowFragments<T> kf, vf;
+  for (int it = 0, buf = 0; it < total; ++it, buf = buf + 1 == NS ? 0 : buf + 1) {
+    wait_copies<NS - 2>();             // item it has landed
+    __syncthreads();
+    if (it + NS - 1 < total) stage(it + NS - 1, buf == 0 ? NS - 1 : buf - 1);
+    commit_copies();
+    if (it == 0) {
+      kf.load(sk + warp * 16 * L);
+      vf.load(sv + warp * 16 * L);
     }
-    __syncthreads();
     const int h = hk * p.group + it / per_head, q0 = (first + it % per_head) * kTile;
-    const float* bias = p.bias != nullptr ? p.bias + b * p.b_sb + h * p.b_sh : nullptr;
-    const float slope = p.slopes != nullptr ? p.slopes[h] : 0.f;
-    const float* lse = slse + buf * kTile;
-    const float* delta = sdelta + buf * kTile;
-    const T* q_tile = sq + buf * TE;
-    const T* do_tile = sdo + buf * TE;
-    float s[8][4], dp[8][4];
-    product_nt(s, sk + warp * 16 * L, q_tile);          // s^T: keys x queries
-    scores<true>(s, p, bias, slope, wkey0, q0);
-    const int t = lane & 3;
+    const float* bias = kExtras && p.bias != nullptr ? p.bias + b * p.b_sb + h * p.b_sh : nullptr;
+    const float slope = kExtras && p.slopes != nullptr ? p.slopes[h] : 0.f;
+#pragma unroll 1
+    for (int c = 0; c < kTile; c += kDkvCols) {
+      const int qc = q0 + c;
+      // query columns wholly before the warp's first key add nothing to its rows
+      if (p.causal && qc + kDkvCols - 1 < wkey0) continue;
+      const float* lse = slse + buf * kTile + c;
+      const float* delta = sdelta + buf * kTile + c;
+      const T* q_cols = sq + buf * TE + c * L;
+      const T* do_cols = sdo + buf * TE + c * L;
+      float s[NJ][4], dp[NJ][4];
+      kf.product_nt(s, q_cols);                         // s^T: keys x queries
+      vf.product_nt(dp, do_cols);                       // dp^T = v . do^T
+      // only the diagonal and columns or rows that cross S are masked by value
+      const bool edge =
+          (p.causal && wkey0 + 15 > qc) || qc + kDkvCols > p.S || wkey0 + 16 > p.S;
+      if (edge)
+        scores_log2<kExtras, true, true>(s, p, bias, slope, wkey0, qc);
+      else if (kExtras)
+        scores_log2<kExtras, false, true>(s, p, bias, slope, wkey0, qc);
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj)
+      for (int jj = 0; jj < NJ; ++jj) {   // p^T; lse read and put in log2 units per column pair
+        const float2 l = *reinterpret_cast<const float2*>(lse + jj * 8 + 2 * t);
+        const float l0 = __fmul_rn(l.x, kLog2e), l1 = __fmul_rn(l.y, kLog2e);
+        s[jj][0] = exp2_approx(fmaf(s[jj][0], to_log2, -l0));
+        s[jj][1] = exp2_approx(fmaf(s[jj][1], to_log2, -l1));
+        s[jj][2] = exp2_approx(fmaf(s[jj][2], to_log2, -l0));
+        s[jj][3] = exp2_approx(fmaf(s[jj][3], to_log2, -l1));
+      }
+      pv_tile(dv, s, do_cols);                          // dv += p^T . do
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s[jj][i] = expf(s[jj][i] - lse[jj * 8 + 2 * t + (i & 1)]);
-    product_pv(dv, s, do_tile);                         // p^T . do
-    product_nt(dp, sv + warp * 16 * L, do_tile);        // dp^T = v . do^T
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        s[jj][i] = s[jj][i] * (dp[jj][i] - delta[jj * 8 + 2 * t + (i & 1)]) * p.scale;
-    product_pv(dk, s, q_tile);                          // ds^T . q
-    __syncthreads();
+      for (int jj = 0; jj < NJ; ++jj) {   // ds^T, delta read once per column pair
+        const float2 d = *reinterpret_cast<const float2*>(delta + jj * 8 + 2 * t);
+        s[jj][0] = s[jj][0] * (dp[jj][0] - d.x) * p.scale;
+        s[jj][1] = s[jj][1] * (dp[jj][1] - d.y) * p.scale;
+        s[jj][2] = s[jj][2] * (dp[jj][2] - d.x) * p.scale;
+        s[jj][3] = s[jj][3] * (dp[jj][3] - d.y) * p.scale;
+      }
+      pv_tile(dk, s, q_cols);                           // dk += ds^T . q
+    }
   }
   const float one[2] = {1.f, 1.f};
   const long long off = (long long)b * p.S * p.Hkv * kD + hk * kD;
@@ -420,20 +510,61 @@ enum Which { kForward, kDq, kDkv };
 
 template <typename T>
 cudaError_t run(Which which, const Params& p, int B, cudaStream_t st) {
-  const int tiles = cdiv(p.S, kTile);
+  const bool extras = p.bias != nullptr || p.slopes != nullptr;
   switch (which) {
     case kForward: {
       const dim3 grid(cdiv(p.S, kFwdRows), p.H, B);
-      return p.bias != nullptr || p.slopes != nullptr
-                 ? launch(flash_fwd_kernel<T, true>, grid, fwd_smem_bytes<T>(), p, st, kFwdThreads)
-                 : launch(flash_fwd_kernel<T, false>, grid, fwd_smem_bytes<T>(), p, st,
-                          kFwdThreads);
+      return extras ? launch(flash_fwd_kernel<T, true>, grid, fwd_smem_bytes<T>(), p, st,
+                             kFwdThreads)
+                    : launch(flash_fwd_kernel<T, false>, grid, fwd_smem_bytes<T>(), p, st,
+                             kFwdThreads);
     }
+    case kDq: {
+      const dim3 grid(p.H, B, cdiv(p.S, kDqRows));
+      return extras ? launch(flash_dq_kernel<T, true>, grid, dq_smem_bytes<T>(), p, st,
+                             kDqThreads)
+                    : launch(flash_dq_kernel<T, false>, grid, dq_smem_bytes<T>(), p, st,
+                             kDqThreads);
+    }
+    default: {
+      const dim3 grid(p.Hkv, B, cdiv(p.S, kDkvRows));
+      return extras ? launch(flash_dkv_kernel<T, true>, grid, dkv_smem_bytes<T>(), p, st,
+                             kDkvThreads)
+                    : launch(flash_dkv_kernel<T, false>, grid, dkv_smem_bytes<T>(), p, st,
+                             kDkvThreads);
+    }
+  }
+}
+
+// Blocks of `kernel` that one SM holds at once with `smem` bytes of dynamic
+// shared memory each (registers and shared memory both counted); 0 on an
+// error.
+template <typename Kernel>
+int blocks_per_sm(Kernel kernel, int threads, size_t smem) {
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
+      cudaSuccess)
+    return 0;
+  int n = 0;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem) == cudaSuccess
+             ? n
+             : 0;
+}
+
+template <typename T>
+int occupancy(Which which, bool extras, int* smem) {
+  switch (which) {
+    case kForward:
+      *smem = (int)fwd_smem_bytes<T>();
+      return extras ? blocks_per_sm(flash_fwd_kernel<T, true>, kFwdThreads, *smem)
+                    : blocks_per_sm(flash_fwd_kernel<T, false>, kFwdThreads, *smem);
     case kDq:
-      return launch(flash_dq_kernel<T>, dim3(tiles, p.H, B), 6 * tile_bytes<T>(), p, st);
+      *smem = (int)dq_smem_bytes<T>();
+      return extras ? blocks_per_sm(flash_dq_kernel<T, true>, kDqThreads, *smem)
+                    : blocks_per_sm(flash_dq_kernel<T, false>, kDqThreads, *smem);
     default:
-      return launch(flash_dkv_kernel<T>, dim3(tiles, p.Hkv, B),
-                    6 * tile_bytes<T>() + 4 * kTile * sizeof(float), p, st);
+      *smem = (int)dkv_smem_bytes<T>();
+      return extras ? blocks_per_sm(flash_dkv_kernel<T, true>, kDkvThreads, *smem)
+                    : blocks_per_sm(flash_dkv_kernel<T, false>, kDkvThreads, *smem);
   }
 }
 
@@ -446,9 +577,11 @@ int dispatch(Which which, Params p, const long long* strides, int B, int dtype, 
   p.do_sb = strides[9]; p.do_ss = strides[10]; p.do_sh = strides[11];
   p.b_sb = strides[12]; p.b_sh = strides[13]; p.b_sq = strides[14]; p.b_sk = strides[15];
   const int vec = dtype == 0 ? 4 : 8;             // elements per 16 bytes
+  // dQ's and dKV's tiles are the grid's z dimension
   bool ok = B > 0 && p.S > 0 && p.H > 0 && p.Hkv > 0 && p.H % p.Hkv == 0 && B <= 65535 &&
-            p.H <= 65535 && (dtype == 0 || dtype == 1) && aligned16(p.q) && aligned16(p.k) &&
-            aligned16(p.v) && (p.dout == nullptr || aligned16(p.dout));
+            p.H <= 65535 && (which == kForward || cdiv(p.S, kTile) <= 65535) &&
+            (dtype == 0 || dtype == 1) && aligned16(p.q) && aligned16(p.k) && aligned16(p.v) &&
+            (p.dout == nullptr || aligned16(p.dout));
   for (int i = 0; i < 12; ++i) ok = ok && strides[i] % vec == 0;
   if (!ok) return (int)cudaErrorInvalidValue;
   p.group = p.H / p.Hkv;
@@ -497,6 +630,16 @@ int dst_flash_backward_dkv(const void* q, const void* k, const void* v, const vo
   p.slopes = slopes; p.dk = dk; p.dv = dv;
   p.S = S; p.H = H; p.Hkv = Hkv; p.scale = scale; p.causal = causal;
   return dispatch(kDkv, p, strides, B, dtype, stream);
+}
+
+// Blocks of one kernel (which: 0 forward, 1 dQ, 2 dKV; extras: its bias /
+// ALiBi instantiation) that one SM holds at once; its dynamic shared memory
+// per block in *smem_bytes.  0 on an error.
+int dst_flash_occupancy(int which, int dtype, int extras, int* smem_bytes) {
+  if (which < 0 || which > 2 || (dtype != 0 && dtype != 1) || smem_bytes == nullptr) return 0;
+  const Which w = (Which)which;
+  return dtype == 0 ? occupancy<float>(w, extras != 0, smem_bytes)
+                    : occupancy<bf16>(w, extras != 0, smem_bytes);
 }
 
 }  // extern "C"

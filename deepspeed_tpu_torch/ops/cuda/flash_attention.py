@@ -293,6 +293,25 @@ def flash_backward_dkv(q, k, v, do, lse, delta, bias, slopes, causal: bool,
 flash_backward_dkv.launches = 0
 
 
+_KERNEL_CODES = {"forward": 0, "dq": 1, "dkv": 2}
+
+
+def kernel_occupancy(kernel: str, dtype: torch.dtype, extras: bool = False) -> Tuple[int, int]:
+    """(blocks per SM, dynamic shared memory bytes per block) of one flash
+    kernel on the current card, by CUDA's occupancy query: ``kernel`` is
+    "forward", "dq" or "dkv", ``extras`` its bias / ALiBi instantiation.
+    Launches nothing."""
+    if kernel not in _KERNEL_CODES or dtype not in _DTYPE_CODES:
+        raise ValueError(f"kernel_occupancy: no kernel {kernel!r} for {dtype}")
+    lib = builder.load_library()
+    smem = ctypes.c_int(0)
+    blocks = lib.dst_flash_occupancy(_KERNEL_CODES[kernel], _DTYPE_CODES[dtype], int(extras),
+                                     ctypes.byref(smem))
+    if blocks <= 0:
+        raise RuntimeError(f"kernel_occupancy: the occupancy query failed for {kernel}")
+    return blocks, smem.value
+
+
 # the ring-attention hop bodies of the JAX package, against an external lse
 flash_block_fwd = flash_forward
 

@@ -6,7 +6,7 @@ For each mutation below, copies the checkout into a temporary directory,
 breaks one kernel source there in one known way, and runs the
 ``cuda``-marked tests of that kernel's test file against the copy's own
 build (the copies build and run side by side): the decode-attention
-kernels (``csrc/decode_attention.cu``), the flash forward
+kernels (``csrc/decode_attention.cu``), the flash forward, dQ and dKV
 (``csrc/flash_attention.cu``) and the cross-entropy backward
 (``csrc/cross_entropy.cu``).  The unmutated checkout runs every one of
 those test files the same way and must pass every test; each mutation must
@@ -52,9 +52,31 @@ MUTATIONS = {
         "      if (row < p.S) lse[row] = __fmul_rn(__fadd_rn(m[r], log2f(l[r])), kLn2);",
         "      if (row < p.S) lse[row] = __fadd_rn(m[r], log2f(l[r]));"),
     "flash-diagonal-unmasked": (
-        FLASH, "flash forward: the causal diagonal tile is not masked (only a ragged tile is)",
-        "      const bool edge = (p.causal && col0 + kTile - 1 > wrow0) || col0 + kTile > p.S;",
-        "      const bool edge = col0 + kTile > p.S;"),
+        FLASH, "flash forward: the causal diagonal tile is not masked (only a tile that "
+        "crosses S is)",
+        "          (p.causal && col0 + kTile - 1 > wrow0) || col0 + kTile > p.S || wrow0 + 16 > p.S;",
+        "          col0 + kTile > p.S || wrow0 + 16 > p.S;"),
+    "flash-dq-diagonal-unmasked": (
+        FLASH, "flash dQ: the causal diagonal tile is not masked (only a tile that crosses S "
+        "is)",
+        "      const bool diagonal = p.causal && col0 + kDqCols - 1 > wrow0;",
+        "      const bool diagonal = false;"),
+    "flash-dq-lse-in-natural-units": (
+        FLASH, "flash dQ: lse is not converted to log2 units before the exponential",
+        "    lse2[r] = row < p.S ? __fmul_rn(p.lse_in[stat0 + row], kLog2e) : 0.f;",
+        "    lse2[r] = row < p.S ? p.lse_in[stat0 + row] : 0.f;"),
+    "flash-dkv-skip-last-group-head": (
+        FLASH, "flash dKV: the last query head of a GQA group (of more than one) is left out "
+        "of dK and dV",
+        "  const int total = p.group * per_head;",
+        "  const int total = (p.group > 1 ? p.group - 1 : 1) * per_head;"),
+    "flash-dkv-drop-ragged-query-tile": (
+        FLASH, "flash dKV: the ragged last query tile is dropped by every key block but the "
+        "last",
+        "  const int n_q = cdiv(p.S, kTile), first = p.causal ? key0 / kTile : 0, "
+        "per_head = n_q - first;",
+        "  const int n_q = max(p.S / kTile, key0 / kTile + 1), first = p.causal ? key0 / kTile "
+        ": 0, per_head = n_q - first;"),
     "ce-drop-last-cluster-block": (
         CROSS_ENTROPY, "cross-entropy backward: the last block's slice of E is left out of "
         "every summed score",

@@ -27,7 +27,8 @@ The CUDA kernels run only on a card: the ``cuda``-marked tests skip here
 and run on the GPU machine (``python -m pytest
 tests/test_torch_flash_attention.py -m cuda``), where each kernel is held
 against its plain version on the same inputs, over the
-same cases plus a ragged S 1000 and GPT-2 XL's 25 heads at S 512.
+same cases plus a ragged S 1000, GPT-2 XL's 25 heads at S 512, a GQA
+group of 3 and S around the kernels' 64-row tiles.
 """
 
 import math
@@ -299,9 +300,19 @@ KERNEL_CASES = {
     "bias-rank2": (1, 256, 4, 2, True, "rank2", False),
     "ragged-s1000": (1, 1000, 2, 2, True, None, False),
     "gpt2-xl-s512": (1, 512, 25, 25, True, None, False),
-    # around the forward's 128-query tile and the 64-key tile: one row short
-    # of a query tile, one past it (a second tile of one row), one short of
-    # two
+    # ALiBi off the causal diagonal: the extras path on tiles that are not
+    # edges; a bias at a ragged S: the extras path on tiles that cross S
+    "alibi-noncausal": (1, 256, 4, 4, False, None, True),
+    "bias-per-head-s200": (1, 200, 4, 4, False, "per-head", False),
+    # dKV's in-block loop over a GQA group of 3 query heads
+    "gqa-group3": (1, 320, 12, 4, True, None, False),
+    # around the 64-row tiles of all three kernels: exactly one tile, one
+    # row into a second (dKV's ragged query tile, a ragged key tile for the
+    # forward and dQ), one row short of two tiles, one past, one short of
+    # four
+    "s64-causal": (2, 64, 4, 4, True, None, False),
+    "s65-causal": (2, 65, 4, 4, True, None, False),
+    "s65-noncausal": (2, 65, 4, 4, False, None, False),
     "s127-causal": (2, 127, 4, 4, True, None, False),
     "s127-noncausal": (2, 127, 4, 4, False, None, False),
     "s129-causal": (2, 129, 4, 4, True, None, False),

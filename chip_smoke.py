@@ -43,7 +43,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    bf16 also at GPT-2 medium's, large's and XL's widths (E 1024, 1280,
    1600); and
    the fused AdamW over all 148 GPT-2 leaves at n_positions 512
-   (124,082,688 values, bit for bit).  Times as in phase 3, with
+   (124,082,688 values, bit for bit; again with the gradients as views
+   into one flat buffer, the engine's layout).  Times as in phase 3, with
    ``scaled_dot_product_attention`` (forward; its autograd backward as one
    call against dQ + dKV), ``x @ head^T`` + ``F.cross_entropy`` (and its
    autograd backward) and ``torch._fused_adamw_`` as yardsticks.  The bf16
@@ -83,7 +84,11 @@ before their products, as the bf16 kernels' tensor cores take them; the
 JAX-literal plain version keeps them in fp32 and is reported beside, for
 the path's case) in fp32 and bf16 over SPARSE_CASES below, with
 ``scaled_dot_product_attention`` under the layout's dense mask and the
-port's flash kernels at the same shape as yardsticks.
+port's flash kernels at the same shape as yardsticks.  dKV walks the work
+list of ``dkv_work`` (its rows report the split length, the task count and
+the workspace bytes); a second call must give bitwise-equal dK and dV, and
+the fixed split lengths of DKV_SPLITS are held to the same tolerances and
+timed beside the kept one at each bf16 case.
 
 Each run of phases 4-5 and 7-11 (generate(), each serve, the timed
 training steps, each fp32 training run) zeroes the launch counters just
@@ -240,6 +245,9 @@ SPARSE_CASES = {
                                          num_different_global_patterns=4), True),
     "empty-future-s256": (1, 256, 2, None, True),
 }
+# fixed dKV split lengths timed beside the kept one (DKV_SPLIT, "auto") at
+# each bf16 case, each also held to the tolerances; None splits no column
+DKV_SPLITS = (None, 8, 16, 32)
 
 
 def fail(msg: str) -> None:
@@ -914,6 +922,32 @@ def sparse_pairs(layout: np.ndarray, causal: bool, bs: int) -> int:
     return int((layout * per[None]).sum())
 
 
+def dkv_splits(row, kept, kargs, layout, causal, plain, flush, reps: int, card: str):
+    """dKV at one case with the fixed split lengths of DKV_SPLITS (None: no
+    column split), each held to the case's tolerances against the same
+    plain outputs and timed beside the kept one (``kept``, what "auto"
+    gave); one line."""
+    import torch
+    tbs = kernel_modules()[4]
+    B = kargs[0].shape[0]
+    times = {f"{tbs.DKV_SPLIT} = {kept}": row["ms"]}
+    for split in DKV_SPLITS:
+        work = tbs.dkv_work(layout, causal, B, kargs[0].device, kargs[0].dtype, split=split)
+        out = tbs.block_sparse_backward_dkv(*kargs, work=work)
+        torch.cuda.synchronize()
+        checks, _ = flash_checks([(n, got, want, row["dtype"])
+                                  for n, got, want in zip(("dk", "dv"), out, plain)])
+        bad = [f"{n} {val:.3e} > {tol:g}" for n, val, tol in checks if not val <= tol]
+        if bad:
+            fail(f"block_sparse_backward_dkv split {split}: " + "; ".join(bad))
+        times[split] = median_ms(lambda: tbs.block_sparse_backward_dkv(*kargs, work=work), reps,
+                                 flush)
+        del out, work
+    say(f"block_sparse_backward_dkv {row['case']} {row['dtype']} by split length (ms; "
+        f"kept first, None: no split): "
+        + ", ".join(f"{sp} {ms:.4f}" for sp, ms in times.items()) + f" [{card}]")
+
+
 def sparse_cases(device, flush, card: str, reps: int = 20, plain_reps: int = 3):
     """The three block-sparse kernels against their plain versions (with
     the kernel's rounding) over SPARSE_CASES, fp32 and bf16.  Yardsticks:
@@ -944,9 +978,11 @@ def sparse_cases(device, flush, card: str, reps: int = 20, plain_reps: int = 3):
             delta = (ro.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
             qargs = (q, k, v, do, rlse, delta, row_lut, row_cnt, causal, scale)
             kargs = (q, k, v, do, rlse, delta, col_lut, col_cnt, causal, scale)
+            work = tbs.dkv_work(layout, causal, B, device, dtype)
+            split = tbs.dkv_split(layout, causal, B, device, dtype)
             dq = tbs.block_sparse_backward_dq(*qargs)
             rdq = tbs.block_sparse_backward_dq_reference(*qargs, kernel_rounding=True)
-            dk, dv = tbs.block_sparse_backward_dkv(*kargs)
+            dk, dv = tbs.block_sparse_backward_dkv(*kargs, work=work)
             rdk, rdv = tbs.block_sparse_backward_dkv_reference(*kargs, kernel_rounding=True)
             torch.cuda.synchronize()
             for t in (o, lse, dq, dk, dv):
@@ -992,7 +1028,7 @@ def sparse_cases(device, flush, card: str, reps: int = 20, plain_reps: int = 3):
             n_q, n_row = q.numel(), B * H * S
             pairs = B * sparse_pairs(layout, causal, bs)
             lut_r = 4 * (row_lut.numel() + row_cnt.numel())
-            lut_c = 4 * (col_lut.numel() + col_cnt.numel())
+            lut_c = 4 * (work.tasks.numel() + work.entries.numel())     # dKV's work list
             specs = [
                 ("block_sparse_forward", [("o", o, ro), ("lse", lse, rlse)],
                  lambda: tbs.block_sparse_forward(*fargs),
@@ -1005,10 +1041,12 @@ def sparse_cases(device, flush, card: str, reps: int = 20, plain_reps: int = 3):
                  5 * n_q * esize + 8 * n_row + lut_r, 6.0 * 64 * pairs, bwd_lib,
                  f"library: one SDPA backward under the mask; flash dQ + dKV {flash_bwd:.4f}"),
                 ("block_sparse_backward_dkv", [("dk", dk, rdk), ("dv", dv, rdv)],
-                 lambda: tbs.block_sparse_backward_dkv(*kargs),
+                 lambda: tbs.block_sparse_backward_dkv(*kargs, work=work),
                  lambda: tbs.block_sparse_backward_dkv_reference(*kargs, kernel_rounding=True),
                  6 * n_q * esize + 8 * n_row + lut_c, 8.0 * 64 * pairs, bwd_lib,
-                 "library: the same SDPA backward"),
+                 f"library: the same SDPA backward; split {tbs.DKV_SPLIT} = {split}, "
+                 f"{work.tasks.shape[0]} tasks x batch {B}, workspace "
+                 f"{work.workspace_bytes():,} B"),
             ]
             for name, outs, kern, plain, nbytes, flops, lib, note in specs:
                 checks, worst = flash_checks([(o_name, got, want, dtype_name)
@@ -1020,6 +1058,15 @@ def sparse_cases(device, flush, card: str, reps: int = 20, plain_reps: int = 3):
                     plain_ms=median_ms(plain, plain_reps, flush), bound_ms=b_ms,
                     bound_by=b_by, library_ms=lib, flash_fwd_ms=flash_fwd,
                     flash_bwd_ms=flash_bwd, note=note))
+            # the split columns are summed in split order and each launch
+            # leaves its counters at 0: the timed calls above changed nothing
+            dk2, dv2 = tbs.block_sparse_backward_dkv(*kargs, work=work)
+            if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+                fail(f"block_sparse_backward_dkv {case} {dtype_name}: two calls on the same "
+                     "inputs differ")
+            del dk2, dv2
+            if dtype == torch.bfloat16:
+                dkv_splits(rows[-1], split, kargs, layout, causal, (rdk, rdv), flush, reps, card)
             del o, lse, ro, rlse, dq, rdq, dk, dv, rdk, rdv
             torch.cuda.empty_cache()
         report_rows(rows[-3 * len(SPARSE_CASES):])
@@ -1154,6 +1201,27 @@ def adam_case(device, flush, reps: int = 20, plain_reps: int = 3):
              f"{len(params)} and {n:,}")
     if mismatches:
         fail(f"fused_adam: {mismatches} elements differ from the plain version")
+    # the engine's layout: the gradients as views into one flat buffer
+    # (runtime/engine.py), every GPT-2 leaf a multiple of 4 elements, so
+    # every view stays 16-byte aligned
+    sizes = [g.numel() for g in grads]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    flat_grads = [piece.view(g.shape) for piece, g in zip(torch.split(flat, sizes), grads)]
+    fa = [clone(params), flat_grads, clone(mus), clone(nus)]
+    fb = [clone(params), flat_grads, clone(mus), clone(nus)]
+    flat_table = tfo.AdamTable(*fa)
+    tfo.fused_adam(flat_table, scal, **kw)
+    tfo.adam_reference(*fb, scal, **kw)
+    torch.cuda.synchronize()
+    flat_mismatches = sum(int((x != y).sum()) for xs, ys in zip(fa, fb) for x, y in zip(xs, ys))
+    scalar = int((flat_table.chunks[:, 1] == 0).sum())
+    say(f"fused_adam, flat gradient views (the engine's layout): {flat_mismatches} elements "
+        f"differ from the plain version; {flat_table.n_chunks} chunks ({scalar} scalar) over "
+        f"a grid of {table.grid} blocks")
+    if flat_mismatches:
+        fail(f"fused_adam, flat gradient views: {flat_mismatches} elements differ from the "
+             "plain version")
+    del fa, fb, flat_table
     lib_p, lib_m, lib_v = clone(params), clone(mus), clone(nus)
     steps = [torch.tensor(10.0, device=device) for _ in params]
     lib = median_ms(lambda: torch._fused_adamw_(
@@ -1310,6 +1378,13 @@ def profile_train_step(engine, batch, card: str, attn_impl: str = "auto"):
         f"{sum(n for _, n in by_name.values())} kernels) [{card}]")
     for cat, t in sorted(split.items(), key=lambda kv: -kv[1]):
         say(f"  {t / device_total:6.1%} {t / 1e3:8.3f} ms  {cat}")
+    # the kernels redesigned last, by name: device ms and launches in the step
+    picked = {label: [(t, n) for name, (t, n) in by_name.items() if key in name]
+              for label, key in (("block-sparse dKV", "sparse_dkv_kernel"),
+                                 ("flash dKV", "flash_dkv_kernel"), ("AdamW", "adam_kernel"))}
+    say("train profile: per step " + ", ".join(
+        f"{label} {sum(t for t, _ in hits) / 1e3:.3f} ms ({sum(n for _, n in hits)} launches)"
+        for label, hits in picked.items() if hits) + f" [{card}]")
     say("train profile: top kernels")
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         say(f"  {t / device_total:6.1%} {t / 1e3:8.3f} ms {n:5d}x  {name[:90]}")
@@ -1404,7 +1479,8 @@ def phase_train_fp32_parity(device, steps: int = 3, seq: int = TRAIN_SEQ,
     tfa.flash_backward_dkv = tfa.flash_backward_dkv_reference
     tbs.block_sparse_forward = tbs.block_sparse_forward_reference
     tbs.block_sparse_backward_dq = tbs.block_sparse_backward_dq_reference
-    tbs.block_sparse_backward_dkv = tbs.block_sparse_backward_dkv_reference
+    tbs.block_sparse_backward_dkv = (     # the plain version walks the LUT, not dKV's work list
+        lambda *args, work=None: tbs.block_sparse_backward_dkv_reference(*args))
     tce.ce_forward = tce.ce_forward_reference
     tce.ce_backward_dx = tce.ce_backward_dx_reference
     tce.ce_backward_dhead = tce.ce_backward_dhead_reference
@@ -1495,6 +1571,13 @@ def main() -> int:
                 occupancy.append(f"{kern} {dt_name}{' extras' if extras else ''} {n} x {smem} B")
     say("flash blocks per SM x shared memory per block (occupancy query): "
         + ", ".join(occupancy))
+    from deepspeed_tpu_torch.ops.cuda import block_sparse_attention as tbs
+    nb = SPARSE_SEQ // 64       # the path's layout: 64 blocks, at most 61 listed per row
+    occupancy = [(kern, dt_name, *tbs.kernel_occupancy(kern, dt, nb, nb))
+                 for kern in ("forward", "dq", "dkv")
+                 for dt_name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32))]
+    say("block-sparse blocks per SM x shared memory per block at S 4096 (occupancy query): "
+        + ", ".join(f"{kern} {dt_name} {n} x {smem} B" for kern, dt_name, n, smem in occupancy))
     say("kernels: paged_attention, decode_attention, flash_forward, flash_backward_dq, "
         "flash_backward_dkv, ce_forward, ce_backward_dx, ce_backward_dhead, fused_adam, "
         "block_sparse_forward, block_sparse_backward_dq, block_sparse_backward_dkv")

@@ -11,6 +11,11 @@ tables: the row LUT ``[H * nb, max_r]`` (the key blocks of each layout row,
 ascending, padded with the last) with its counts ``[H, nb]``, and the
 column LUT and counts likewise.  ``device_luts`` keeps them as int32
 tensors once per layout and device, so no step copies a LUT from the host.
+The dKV kernel walks a work list made from the column LUT on the host
+(``build_dkv_tasks``: each key block's live query blocks, long columns
+split into near-equal runs, longest first); ``dkv_work`` keeps it on the
+device with the kernel's workspace (fp32 partials of the split columns and
+their arrival counters) once per layout, ``causal``, batch size and device.
 
 Three entry points, one per TPU kernel, each with its plain version:
 
@@ -39,10 +44,11 @@ contiguous, rows on 16-byte boundaries); o, dq, dk and dv come out
 contiguous.  Kernel notes (bound, design) are in the ``.cu`` file.
 
 ``block_sparse_attention`` is differentiable in q, k and v through the
-custom op ``dst_torch::block_sparse_fwd`` (returning o and lse) and its
-registered backward.  Activation checkpointing saves nothing of it, as the
-JAX policy saves only flash's outputs, so under remat its forward runs
-twice per layer (``runtime/activation_checkpointing/checkpointing.py``).
+custom op ``dst_torch::block_sparse_fwd`` (returning o and lse; the column
+LUT and dKV's work list ride along as inputs) and its registered backward.
+Activation checkpointing saves nothing of it, as the JAX policy saves only
+flash's outputs, so under remat its forward runs twice per layer
+(``runtime/activation_checkpointing/checkpointing.py``).
 
 ``sparse_reference_attention`` is the masked-dense path with rpe,
 key-padding and attention masks; JAX computes it outside any kernel, so it
@@ -55,7 +61,7 @@ plain version counts its calls (``block_sparse_forward_reference.calls``).
 import ctypes
 import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -128,6 +134,135 @@ def device_luts(layout: np.ndarray, device) -> Tuple[torch.Tensor, ...]:
     layout = _as_layout(layout)
     H, nb, _ = layout.shape
     return _device_luts_cached(layout.tobytes(), H, nb, str(torch.device(device)))
+
+
+# --------------------------------------------------------------------------- #
+# dKV's work list
+# --------------------------------------------------------------------------- #
+# the longest walk of one dKV task, in query blocks (a column that lists more
+# is split): "auto" is the share of a launch's live tiles that falls to each
+# block slot of the card (dkv_split), so a split shortens only walks longer
+# than the launch's balanced length (PERF.md, section 6, has the fixed
+# lengths measured beside it); an int fixes it, None splits nothing
+DKV_SPLIT = "auto"
+TASK_FIELDS = ("head", "key_block", "first", "count", "split", "splits", "slot", "counter")
+
+
+def build_dkv_tasks(col_lut: np.ndarray, col_cnt: np.ndarray, causal: bool,
+                    split: Optional[int]):
+    """dKV's work list, from the numpy column LUT of ``build_luts``.
+
+    A task is one key block's live query blocks (all it lists, or under
+    ``causal`` those at or after it), in ascending order; a column with
+    more than ``split`` of them (``None``: no limit) becomes ``ceil(n /
+    split)`` tasks of consecutive runs of near-equal length, its splits.  A
+    column with none is a task of count 0 (its dK and dV are zeros).
+
+    Returns ``(tasks, entries, n_slots, n_counters)``: ``tasks`` int32
+    ``[n_tasks, 8]`` with the columns of ``TASK_FIELDS``, sorted by count,
+    longest first (stably: ties by head, key block, split); task i walks
+    ``entries[first : first + count]``.  The splits of one column take
+    consecutive partial slots (``slot - split`` is the column's first) of
+    ``n_slots`` and one arrival counter of ``n_counters``; an unsplit task
+    has slot and counter -1.
+    """
+    H, nb = col_cnt.shape
+    rows, runs = [], []
+    n_slots = n_counters = 0
+    for h in range(H):
+        for kb in range(nb):
+            live = col_lut[h * nb + kb, :col_cnt[h, kb]]
+            if causal:
+                live = live[live >= kb]
+            n = len(live)
+            splits = -(-n // split) if split and n > split else 1
+            cuts = [i * n // splits for i in range(splits + 1)]
+            for sp in range(splits):
+                runs.append(live[cuts[sp]:cuts[sp + 1]])
+                rows.append([h, kb, 0, cuts[sp + 1] - cuts[sp], sp, splits,
+                             n_slots + sp if splits > 1 else -1,
+                             n_counters if splits > 1 else -1])
+            if splits > 1:
+                n_slots += splits
+                n_counters += 1
+    order = sorted(range(len(rows)), key=lambda i: -rows[i][3])
+    tasks = np.asarray([rows[i] for i in order], np.int32).reshape(-1, len(TASK_FIELDS))
+    counts = tasks[:, 3].astype(np.int64)
+    tasks[:, 2] = np.cumsum(counts) - counts
+    entries = np.concatenate([runs[i] for i in order] + [np.zeros(0, np.int32)])
+    return tasks, entries.astype(np.int32), n_slots, n_counters
+
+
+class DkvWork(NamedTuple):
+    """dKV's work list on a device, with the kernel's workspace for one
+    batch size: the split columns' fp32 partial dK and dV and their arrival
+    counters (zero between launches: each launch leaves them so)."""
+    tasks: torch.Tensor       # int32 [n_tasks, 8] (TASK_FIELDS)
+    entries: torch.Tensor     # int32 [n_entries]
+    partials: torch.Tensor    # fp32 [B, n_slots, 2, KERNEL_BLOCK * KERNEL_HEAD_DIM]
+    counters: torch.Tensor    # int32 [B, n_counters]
+
+    def workspace_bytes(self) -> int:
+        """Bytes of the partials and counters."""
+        return sum(t.numel() * t.element_size() for t in (self.partials, self.counters))
+
+
+@functools.lru_cache(maxsize=16)
+def _dkv_work_cached(layout_bytes: bytes, H: int, nb: int, causal: bool, batch: int,
+                     device: str, split: Optional[int]) -> DkvWork:
+    _, _, col_lut, col_cnt = _luts_cached(layout_bytes, H, nb)
+    tasks, entries, n_slots, n_counters = build_dkv_tasks(col_lut, col_cnt, causal, split)
+    return DkvWork(torch.from_numpy(tasks).to(device), torch.from_numpy(entries).to(device),
+                   torch.zeros((batch, n_slots, 2, KERNEL_BLOCK * KERNEL_HEAD_DIM),
+                               dtype=torch.float32, device=device),
+                   torch.zeros((batch, n_counters), dtype=torch.int32, device=device))
+
+
+def balanced_split(live_tiles: int, batch: int, slots: int) -> int:
+    """The walk each of ``slots`` block slots would take if a launch's
+    ``live_tiles x batch`` tiles were shared equally: ``ceil(live_tiles x
+    batch / slots)``, at least 1."""
+    return max(1, -(-live_tiles * batch // slots))
+
+
+@functools.lru_cache(maxsize=None)
+def _dkv_slots(device: str, dtype: torch.dtype, nb: int) -> int:
+    """dKV blocks the card holds at once: SMs x blocks per SM (occupancy
+    query)."""
+    device = torch.device(device)
+    with torch.cuda.device(device):
+        blocks, _ = kernel_occupancy("dkv", dtype, nb)
+    return torch.cuda.get_device_properties(device).multi_processor_count * blocks
+
+
+def dkv_split(layout: np.ndarray, causal: bool, batch: int, device,
+              dtype: torch.dtype = torch.bfloat16, split=DKV_SPLIT) -> Optional[int]:
+    """The split length ``dkv_work`` uses: ``split`` itself, or for "auto"
+    on a card ``balanced_split`` of the layout's live tiles over the dKV
+    kernel's block slots (on the CPU, whose plain version walks the LUT,
+    None)."""
+    if split != "auto":
+        return split
+    if torch.device(device).type != "cuda":
+        return None
+    layout = _as_layout(layout)
+    nb = layout.shape[-1]
+    live = layout * np.tril(np.ones((nb, nb), np.int32)) if causal else layout
+    return balanced_split(int(live.sum()), batch, _dkv_slots(str(device), dtype, nb))
+
+
+def dkv_work(layout: np.ndarray, causal: bool, batch: int, device,
+             dtype: torch.dtype = torch.bfloat16, split=DKV_SPLIT) -> DkvWork:
+    """``build_dkv_tasks`` of the layout's column LUT on ``device`` at the
+    split length ``dkv_split`` gives, with the workspace for ``batch``, made
+    once per (layout, causal, batch, device, split length).  ``dtype`` is
+    the kernel's (its blocks per SM set "auto"'s length).  Calls that share
+    one must run on one stream."""
+    layout = _as_layout(layout)
+    split = dkv_split(layout, causal, batch, device, dtype, split)
+    H, nb, _ = layout.shape
+    return _dkv_work_cached(layout.tobytes(), H, nb, bool(causal), int(batch),
+                            str(torch.device(device)), split)
 
 
 # --------------------------------------------------------------------------- #
@@ -363,29 +498,71 @@ def block_sparse_backward_dq(q, k, v, do, lse, delta, row_lut, row_cnt, causal: 
 block_sparse_backward_dq.launches = 0
 
 
+def _check_work(work: Optional[DkvWork], B: int, H: int, nb: int, device) -> None:
+    """What the dKV kernel takes of its work list (``dkv_work``)."""
+    name = "block_sparse_backward_dkv"
+    if work is None:
+        raise ValueError(f"{name}: the CUDA kernel walks a work list: pass work=dkv_work(layout, "
+                         "causal, batch, device, dtype)")
+    tasks, entries, partials, counters = work
+    ok = (tasks.dtype == entries.dtype == counters.dtype == torch.int32
+          and partials.dtype == torch.float32 and all(t.is_contiguous() for t in work)
+          and all(t.device == device for t in work)
+          and tasks.dim() == 2 and tasks.shape[1] == len(TASK_FIELDS) and tasks.shape[0] >= H * nb
+          and partials.dim() == 4 and partials.shape[0] == B
+          and tuple(partials.shape[2:]) == (2, KERNEL_BLOCK * KERNEL_HEAD_DIM)
+          and counters.dim() == 2 and counters.shape[0] == B and tasks.data_ptr() % 16 == 0)
+    if not ok:
+        raise ValueError(f"{name}: work must be dkv_work of this layout for batch {B} on {device}")
+
+
 def block_sparse_backward_dkv(q, k, v, do, lse, delta, col_lut, col_cnt, causal: bool,
-                              scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                              scale: float, work: Optional[DkvWork] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) ``[B, S, H, D]`` in k's and v's dtypes over the column LUT.
-    CPU tensors take the plain version."""
+    CPU tensors take the plain version; on CUDA the kernel walks ``work``
+    (``dkv_work`` of the same layout, ``causal`` and batch size)."""
     if q.device.type == "cpu":
         return block_sparse_backward_dkv_reference(q, k, v, do, lse, delta, col_lut, col_cnt,
                                                    causal, scale)
     dtype = _check("block_sparse_backward_dkv", q, k, v, col_lut, col_cnt, do, lse, delta)
     B, S, H, _ = q.shape
+    _check_work(work, B, H, col_cnt.shape[1], q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     lib = builder.load_library()
     rc = lib.dst_sparse_backward_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                                     lse.data_ptr(), delta.data_ptr(), col_lut.data_ptr(),
-                                     col_cnt.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                                     _strides(q, k, v, do), B, S, H, col_lut.shape[1], scale,
-                                     int(causal), dtype, _stream(q))
+                                     lse.data_ptr(), delta.data_ptr(), work.tasks.data_ptr(),
+                                     work.entries.data_ptr(), work.tasks.shape[0],
+                                     work.partials.data_ptr(), work.partials.shape[1],
+                                     work.counters.data_ptr(), work.counters.shape[1],
+                                     dk.data_ptr(), dv.data_ptr(), _strides(q, k, v, do), B, S,
+                                     H, scale, int(causal), dtype, _stream(q))
     builder.check(lib, rc, "block_sparse_backward_dkv")
     block_sparse_backward_dkv.launches += 1
     return dk, dv
 
 
 block_sparse_backward_dkv.launches = 0
+
+_KERNEL_CODES = {"forward": 0, "dq": 1, "dkv": 2}
+
+
+def kernel_occupancy(kernel: str, dtype: torch.dtype, nb: int, max_n: int = 0
+                     ) -> Tuple[int, int]:
+    """(blocks per SM, dynamic shared memory bytes per block) of one
+    block-sparse kernel ("forward", "dq" or "dkv") on the current card at
+    ``nb`` layout blocks (``max_n`` listed per row for the forward and dQ),
+    by CUDA's occupancy query.  Launches nothing."""
+    if kernel not in _KERNEL_CODES or dtype not in _DTYPE_CODES:
+        raise ValueError(f"kernel_occupancy: no kernel {kernel!r} for {dtype}")
+    lib = builder.load_library()
+    smem = ctypes.c_int(0)
+    blocks = lib.dst_sparse_occupancy(_KERNEL_CODES[kernel], _DTYPE_CODES[dtype], nb, max_n,
+                                      ctypes.byref(smem))
+    if blocks <= 0:
+        raise RuntimeError(f"kernel_occupancy: the occupancy query failed for {kernel}")
+    return blocks, smem.value
 
 
 # --------------------------------------------------------------------------- #
@@ -394,23 +571,29 @@ block_sparse_backward_dkv.launches = 0
 @torch.library.custom_op("dst_torch::block_sparse_fwd", mutates_args=())
 def block_sparse_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         row_lut: torch.Tensor, row_cnt: torch.Tensor, col_lut: torch.Tensor,
-                        col_cnt: torch.Tensor, causal: bool, scale: float
+                        col_cnt: torch.Tensor, dkv_tasks: torch.Tensor,
+                        dkv_entries: torch.Tensor, dkv_partials: torch.Tensor,
+                        dkv_counters: torch.Tensor, causal: bool, scale: float
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o, lse) of ``block_sparse_forward``, as one dispatcher op; the
-    column LUT rides along for the backward."""
+    column LUT and dKV's work list (``DkvWork``'s four tensors) ride along
+    for the backward."""
     return block_sparse_forward(q, k, v, row_lut, row_cnt, causal, scale)
 
 
 @block_sparse_fwd_op.register_fake
-def _block_sparse_fwd_fake(q, k, v, row_lut, row_cnt, col_lut, col_cnt, causal, scale):
+def _block_sparse_fwd_fake(q, k, v, row_lut, row_cnt, col_lut, col_cnt, dkv_tasks,
+                           dkv_entries, dkv_partials, dkv_counters, causal, scale):
     B, S, H, _ = q.shape
     return q.new_empty(q.shape), q.new_empty((B, H, S), dtype=torch.float32)
 
 
 def _setup_context(ctx, inputs, output):
-    q, k, v, row_lut, row_cnt, col_lut, col_cnt, causal, scale = inputs
+    q, k, v, row_lut, row_cnt, col_lut, col_cnt = inputs[:7]
+    causal, scale = inputs[11:]
     o, lse = output
     ctx.save_for_backward(q, k, v, row_lut, row_cnt, col_lut, col_cnt, o, lse)
+    ctx.work = DkvWork(*inputs[7:11])
     ctx.causal, ctx.scale = causal, scale
 
 
@@ -421,8 +604,8 @@ def _backward(ctx, do, _dlse):
     dq = block_sparse_backward_dq(q, k, v, do, lse, delta, row_lut, row_cnt, ctx.causal,
                                   ctx.scale)
     dk, dv = block_sparse_backward_dkv(q, k, v, do, lse, delta, col_lut, col_cnt, ctx.causal,
-                                       ctx.scale)
-    return dq, dk, dv, None, None, None, None, None, None
+                                       ctx.scale, work=ctx.work)
+    return (dq, dk, dv) + (None,) * 10
 
 
 block_sparse_fwd_op.register_autograd(_backward, setup_context=_setup_context)
@@ -457,7 +640,9 @@ def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     if scale is None:
         scale = 1.0 / math.sqrt(D)
-    o, _ = block_sparse_fwd_op(q, k, v, *device_luts(layout, q.device), causal, float(scale))
+    o, _ = block_sparse_fwd_op(q, k, v, *device_luts(layout, q.device),
+                               *dkv_work(layout, causal, B, q.device, q.dtype), causal,
+                               float(scale))
     return o
 
 

@@ -140,7 +140,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dst_ce_backward_dhead.restype = ci
     lib.dst_ce_backward_active_clusters.argtypes = [ci, ci]
     lib.dst_ce_backward_active_clusters.restype = ci
-    lib.dst_fused_adam.argtypes = [vp, ci, vp, vp, ci, vp,
+    lib.dst_fused_adam.argtypes = [vp, ci, vp, ci, ci, vp,
                                    cf, cf, cf, cf, cf, cf, ci, vp]
     lib.dst_fused_adam.restype = ci
     strides = ctypes.POINTER(ctypes.c_longlong)
@@ -161,11 +161,15 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dst_sparse_backward_dq.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, strides,
                                            ci, ci, ci, ci, cf, ci, ci, vp]
     lib.dst_sparse_backward_dq.restype = ci
-    lib.dst_sparse_backward_dkv.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, strides,
-                                            ci, ci, ci, ci, cf, ci, ci, vp]
+    lib.dst_sparse_backward_dkv.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, vp, ci, vp, ci,
+                                            vp, vp, strides, ci, ci, ci, cf, ci, ci, vp]
     lib.dst_sparse_backward_dkv.restype = ci
+    lib.dst_sparse_occupancy.argtypes = [ci, ci, ci, ci, ctypes.POINTER(ci)]
+    lib.dst_sparse_occupancy.restype = ci
     lib.dst_fused_adam_chunk.argtypes = []
     lib.dst_fused_adam_chunk.restype = ci
+    lib.dst_fused_adam_grid.argtypes = []
+    lib.dst_fused_adam_grid.restype = ci
     lib.dst_error_string.argtypes = [ci]
     lib.dst_error_string.restype = ctypes.c_char_p
     return lib

@@ -30,21 +30,47 @@
 // multiplied, each block's own tile is read once, scores and probabilities
 // never leave registers.
 //
-// Design (simple and right first; the tile code is flash's,
-// attention_tile.cuh):
-// * One block of 4 warps per 64-row tile: a query block for the forward and
-//   dQ (grid: query blocks x heads x batch, the longest rows of a causal
-//   layout first), a key block for dKV (grid: key blocks x heads x batch).
+// Design of the forward and dQ (simple and right first; the tile code is
+// flash's, attention_tile.cuh):
+// * One block of 4 warps per 64-row query block (grid: query blocks x
+//   heads x batch, the longest rows of a causal layout first).
 // * Each block reads its own count and LUT row and walks only the listed
 //   blocks (not a padded walk of the densest row's length, as the Pallas
 //   grid does): thread 0 copies the live entries (under `causal` those not
 //   wholly in the future) to shared memory, then the loop runs to that
-//   count.  The streamed tiles (K and V in the forward and dQ; Q, dO, lse
-//   and delta in dKV) are double-buffered with cp.async, the next listed
-//   block in flight while the current one is used.
-// * Load imbalance: under the "fixed" layout a global key block is listed by
-//   every later query block (61 of 64 at S 4096) while a local one is listed
-//   by at most 4, so the dKV grid has a long tail; not addressed here.
+//   count.  The streamed K and V tiles are double-buffered with cp.async,
+//   the next listed block in flight while the current one is used.
+//
+// Design of dKV (flash dKV's tile body over a work list made on the host):
+// * Under the "fixed" layout a global key block is listed by every later
+//   query block (61 of 64 at S 4096) while a local one is listed by at most
+//   4, so a grid of one block per key block has a long tail.  The wrapper
+//   builds, once per layout, a work list (block_sparse_attention.py:
+//   build_dkv_tasks): a task is one key block's live query blocks (the
+//   causal filter applied on the host, so no block copies or filters its
+//   LUT row), a column longer than the split length cut into near-equal
+//   splits, every task sorted by walk length, longest first, across heads.
+//   The grid is tasks x batch (batch fastest), so the longest walks start
+//   first and the short ones fill the tail.  The split length is by default
+//   the launch's balanced walk (its live tiles over the card's block slots):
+//   cutting walks shorter than that costs more in partials than it saves.
+// * A split writes its fp32 partial dK and dV to its own workspace slot and
+//   counts its arrival on the column's counter (__threadfence, atomicAdd).
+//   The block that arrives last sums the column's partials in split order
+//   (its own from registers), so the result does not depend on the order
+//   of arrival, writes dK and dV, and sets the counter back to 0 for the
+//   next launch (or CUDA graph replay): one launch, no memset.  An unsplit
+//   column writes dK and dV directly.  The workspace and counters belong to
+//   one (layout, batch, device) and to one stream at a time.
+// * Per tile, flash dKV's tools: the block's own K and V held as
+//   ldmatrix fragments in registers (RowFragments), Q and dO tiles read by
+//   ldmatrix / ldmatrix.trans (pv_tile), p = ex2.approx of one FFMA on a
+//   log2-unit lse (scale * log2(e) folded in), lse and delta staged by
+//   cp.async in the same group as Q and dO, a ring of kStages buffers with
+//   one barrier per tile, masking by value only on the causal diagonal tile
+//   (block 64 = tile 64, S a multiple of 64: no other edge).  Blocks per SM
+//   by __launch_bounds__ (kDkvBlocksPerSm), read back by the occupancy query
+//   (dst_sparse_occupancy).
 // * Inputs are read by strides ([B, S, H, D] views, e.g. of the model's qkv
 //   product), head_dim contiguous; outputs are written contiguous.  Block 64
 //   and head_dim 64 only (S a multiple of 64).
@@ -56,18 +82,18 @@ namespace {
 struct Params {
   const void* q; const void* k; const void* v; const void* dout;
   const float* lse_in; const float* delta;
-  const int* lut; const int* cnt;     // [H * nb, max_n] and [H * nb]
+  const int* lut; const int* cnt;     // [H * nb, max_n] and [H * nb] (forward, dQ)
+  const int* tasks; const int* entries;   // dKV's work list: [n_tasks][8] and the live blocks
+  float* partials; int* counters;     // dKV: [B][n_slots][2][64 * 64] and [B][n_counters]
   void* o; float* lse; void* dq; void* dk; void* dv;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh;
-  int S, H, nb, max_n, causal;
+  int S, H, nb, max_n, causal, B, n_slots, n_counters;
   float scale;
 };
 
-// Thread 0 copies the live entries of this block's LUT row to `live`:
-// all of them, or under `causal` those on the past side of block `own`
-// (at or before it for a query block's keys, at or after it for a key
-// block's queries).  Returns their count to every thread.
-template <bool kKeyRows>
+// Thread 0 copies the live entries of this query block's LUT row to
+// `live`: all of them, or under `causal` those at or before block `own`.
+// Returns their count to every thread.
 __device__ __forceinline__ int live_entries(const Params& p, int h, int own, int* live) {
   __shared__ int count;
   if (threadIdx.x == 0) {
@@ -77,7 +103,7 @@ __device__ __forceinline__ int live_entries(const Params& p, int h, int own, int
     int m = 0;
     for (int j = 0; j < n; ++j) {
       const int other = lut[j];
-      if (!p.causal || (kKeyRows ? other >= own : other <= own)) live[m++] = other;
+      if (!p.causal || other <= own) live[m++] = other;
     }
     count = m;
   }
@@ -86,9 +112,8 @@ __device__ __forceinline__ int live_entries(const Params& p, int h, int own, int
 }
 
 // s <- s * scale, -inf where the key is past the query (only in a diagonal
-// block under `causal`).  Local indices: the warp's 16 rows, 64 columns;
-// kKeyRows: rows are keys and columns queries (the dKV kernel).
-template <bool kKeyRows>
+// block under `causal`).  Local indices: the warp's 16 query rows, 64 key
+// columns.
 __device__ __forceinline__ void scale_mask(float (&s)[8][4], float scale, bool diag) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -96,8 +121,7 @@ __device__ __forceinline__ void scale_mask(float (&s)[8][4], float scale, bool d
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = warp * 16 + g + 8 * (i >> 1), c = j * 8 + 2 * t + (i & 1);
-      const int qi = kKeyRows ? c : r, ki = kKeyRows ? r : c;
-      s[j][i] = diag && ki > qi ? -INFINITY : __fmul_rn(s[j][i], scale);
+      s[j][i] = diag && c > r ? -INFINITY : __fmul_rn(s[j][i], scale);
     }
 }
 
@@ -124,7 +148,7 @@ __global__ void __launch_bounds__(kThreads) sparse_fwd_kernel(const Params p) {
   const T* q = at<T>(p.q, b * p.q_sb + h * p.q_sh);
   const T* k = at<T>(p.k, b * p.k_sb + h * p.k_sh);
   const T* v = at<T>(p.v, b * p.v_sb + h * p.v_sh);
-  const int n = live_entries<false>(p, h, qb, live);
+  const int n = live_entries(p, h, qb, live);
 
   load_tile(sq, q, p.q_ss, row0, p.S);
   if (n > 0) {
@@ -148,7 +172,7 @@ __global__ void __launch_bounds__(kThreads) sparse_fwd_kernel(const Params p) {
     __syncthreads();
     float s[8][4];
     product_nt(s, sq + warp * 16 * L, sk + buf * TE);
-    scale_mask<false>(s, p.scale, p.causal && live[j] == qb);
+    scale_mask(s, p.scale, p.causal && live[j] == qb);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj)
@@ -218,7 +242,7 @@ __global__ void __launch_bounds__(kThreads) sparse_dq_kernel(const Params p) {
     lse[r] = p.lse_in[stat0 + wrow0 + g + 8 * r];
     delta[r] = p.delta[stat0 + wrow0 + g + 8 * r];
   }
-  const int n = live_entries<false>(p, h, qb, live);
+  const int n = live_entries(p, h, qb, live);
 
   load_tile(sq, q, p.q_ss, row0, p.S);
   load_tile(sdo, dout, p.do_ss, row0, p.S);
@@ -242,7 +266,7 @@ __global__ void __launch_bounds__(kThreads) sparse_dq_kernel(const Params p) {
     __syncthreads();
     float s[8][4], dp[8][4];
     product_nt(s, sq + warp * 16 * L, sk + buf * TE);
-    scale_mask<false>(s, p.scale, p.causal && live[j] == qb);
+    scale_mask(s, p.scale, p.causal && live[j] == qb);
     product_nt(dp, sdo + warp * 16 * L, sv + buf * TE);
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj)
@@ -261,84 +285,191 @@ __global__ void __launch_bounds__(kThreads) sparse_dq_kernel(const Params p) {
 }
 
 // --------------------------------------------------------------------------
-// dKV: one block per (key block, head, batch), walking the column LUT
+// dKV: one block per (task of the work list, batch), walking the task's live
+// query blocks; a split column's last block to arrive sums its partials
 // --------------------------------------------------------------------------
 
-// Stage query block `qb` into buffer slots: Q and dO by cp.async, lse and
-// delta by plain loads.
+constexpr int kDkvBlocksPerSm = 2;      // K, V, dK and dV fragments take 96 registers a thread
+constexpr int kStages = 2;              // query-block buffers in the ring
+constexpr int kTaskInts = 8;            // h, key block, first, count, split, splits, slot, counter
+constexpr int kPartFloats = kTile * kD;     // one fp32 [64][64] partial
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <typename T>
+constexpr size_t dkv_smem_bytes(int nb) {   // K and V, kStages Q, dO, lse and delta, live list
+  return sizeof(T) * (2 + 2 * kStages) * kTileElems<T> + 2 * kStages * kTile * sizeof(float) +
+         nb * sizeof(int);
+}
+
+// Stage query block `qb` of head h: Q and dO, lse and delta, all by
+// cp.async (one commit group).
 template <typename T>
 __device__ __forceinline__ void load_query_block(const Params& p, T* sq, T* sdo, float* slse,
                                                  float* sdelta, int b, int h, int qb) {
+  static_assert(kThreads == 2 * kTile, "lse and delta take one thread per row each");
   const int row0 = qb * kTile;
   load_tile(sq, at<T>(p.q, b * p.q_sb + h * p.q_sh), p.q_ss, row0, p.S);
   load_tile(sdo, at<T>(p.dout, b * p.do_sb + h * p.do_sh), p.do_ss, row0, p.S);
+  const bool is_lse = threadIdx.x < kTile;
   const int i = threadIdx.x & (kTile - 1);
-  const float* src = threadIdx.x < kTile ? p.lse_in : p.delta;
-  (threadIdx.x < kTile ? slse : sdelta)[i] = src[((long long)b * p.H + h) * p.S + row0 + i];
+  const float* src = (is_lse ? p.lse_in : p.delta) + ((long long)b * p.H + h) * p.S + row0 + i;
+  copy4_async((is_lse ? slse : sdelta) + i, src, true);
 }
 
+// -inf where the key is past the query, on the diagonal tile under
+// `causal`.  Rows: the warp's 16 keys; columns: the tile's 64 queries.
+__device__ __forceinline__ void mask_future_queries(float (&s)[8][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (warp * 16 + g + 8 * (i >> 1) > j * 8 + 2 * t + (i & 1)) s[j][i] = -INFINITY;
+}
+
+// A warp's [16][64] fp32 tile, in its register layout, at the warp's place
+// in a [64][64] partial: lane-consecutive float4s, past L1 (other SMs read
+// them).
+__device__ __forceinline__ void store_partial(float* part, const float (&c)[8][4]) {
+  float4* dst = reinterpret_cast<float4*>(part) + (threadIdx.x >> 5) * 8 * 32 + (threadIdx.x & 31);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) __stcg(dst + j * 32, make_float4(c[j][0], c[j][1], c[j][2], c[j][3]));
+}
+
+__device__ __forceinline__ void add_partial(float (&acc)[8][4], const float* part) {
+  const float4* src =
+      reinterpret_cast<const float4*>(part) + (threadIdx.x >> 5) * 8 * 32 + (threadIdx.x & 31);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float4 x = __ldcg(src + j * 32);
+    acc[j][0] += x.x;
+    acc[j][1] += x.y;
+    acc[j][2] += x.z;
+    acc[j][3] += x.w;
+  }
+}
+
+__device__ __forceinline__ void add_tile(float (&acc)[8][4], const float (&c)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] += c[j][i];
+}
+
+// grid: tasks x batch, batch fastest; the tasks come longest first
 template <typename T>
-__global__ void __launch_bounds__(kThreads) sparse_dkv_kernel(const Params p) {
+__global__ void __launch_bounds__(kThreads, kDkvBlocksPerSm) sparse_dkv_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int TE = kTileElems<T>, L = Tr<T>::kLd;
-  static_assert(kThreads == 2 * kTile, "lse and delta take one thread per row each");
+  __shared__ int last;
+  constexpr int TE = kTileElems<T>, L = Tr<T>::kLd, NS = kStages;
   T* sk = reinterpret_cast<T*>(smem);
   T* sv = sk + TE;
-  T* sq = sv + TE;                  // two buffers each
-  T* sdo = sq + 2 * TE;
-  float* slse = reinterpret_cast<float*>(sdo + 2 * TE);     // [2][kTile]
-  float* sdelta = slse + 2 * kTile;
-  int* live = reinterpret_cast<int*>(sdelta + 2 * kTile);
-  const int kb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  T* sq = sv + TE;                  // NS buffers each
+  T* sdo = sq + NS * TE;
+  float* slse = reinterpret_cast<float*>(sdo + NS * TE);     // [NS][kTile]
+  float* sdelta = slse + NS * kTile;
+  int* live = reinterpret_cast<int*>(sdelta + NS * kTile);   // the task's query blocks
+  const int4* task = reinterpret_cast<const int4*>(p.tasks + (blockIdx.x / p.B) * kTaskInts);
+  const int4 t0 = task[0], t1 = task[1];
+  const int h = t0.x, kb = t0.y, first = t0.z, n = t0.w;
+  const int split = t1.x, n_split = t1.y, slot = t1.z, counter = t1.w;
+  const int b = blockIdx.x % p.B;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
   const int key0 = kb * kTile, wkey0 = key0 + warp * 16;
-  const int n = live_entries<true>(p, h, kb, live);
+  const float to_log2 = p.scale * kLog2e;
+  auto stage = [&](int it, int buf) {
+    load_query_block<T>(p, sq + buf * TE, sdo + buf * TE, slse + buf * kTile,
+                        sdelta + buf * kTile, b, h, live[it]);
+  };
 
   load_tile(sk, at<T>(p.k, b * p.k_sb + h * p.k_sh), p.k_ss, key0, p.S);
   load_tile(sv, at<T>(p.v, b * p.v_sb + h * p.v_sh), p.v_ss, key0, p.S);
-  if (n > 0) load_query_block<T>(p, sq, sdo, slse, sdelta, b, h, live[0]);
-  commit_copies();
+  for (int i = threadIdx.x; i < n; i += kThreads) live[i] = p.entries[first + i];
+  __syncthreads();
+#pragma unroll
+  for (int st = 0; st < NS - 1; ++st) {
+    if (st < n) stage(st, st);
+    commit_copies();
+  }
   float dk[8][4], dv[8][4];
   zero(dk);
   zero(dv);
-  for (int j = 0; j < n; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n) {
-      const int nb = buf ^ 1;
-      load_query_block<T>(p, sq + nb * TE, sdo + nb * TE, slse + nb * kTile,
-                          sdelta + nb * kTile, b, h, live[j + 1]);
-      commit_copies();
-      wait_copies<1>();
-    } else {
-      wait_copies<0>();
+  RowFragments<T> kf, vf;
+  for (int it = 0, buf = 0; it < n; ++it, buf = buf + 1 == NS ? 0 : buf + 1) {
+    wait_copies<NS - 2>();             // query block it has landed
+    __syncthreads();                   // ... for every thread; every warp is done with it - 1
+    if (it + NS - 1 < n) stage(it + NS - 1, buf == 0 ? NS - 1 : buf - 1);
+    commit_copies();
+    if (it == 0) {
+      kf.load(sk + warp * 16 * L);
+      vf.load(sv + warp * 16 * L);
     }
-    __syncthreads();
     const float* lse = slse + buf * kTile;
     const float* delta = sdelta + buf * kTile;
     const T* q_tile = sq + buf * TE;
     const T* do_tile = sdo + buf * TE;
     float s[8][4], dp[8][4];
-    product_nt(s, sk + warp * 16 * L, q_tile);          // s^T: keys x queries
-    scale_mask<true>(s, p.scale, p.causal && live[j] == kb);
+    kf.product_nt(s, q_tile);                           // s^T: keys x queries
+    vf.product_nt(dp, do_tile);                         // dp^T = v . do^T
+    if (p.causal && live[it] == kb) mask_future_queries(s);
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj)
+    for (int jj = 0; jj < 8; ++jj) {   // p^T; lse read and put in log2 units per column pair
+      const float2 l = *reinterpret_cast<const float2*>(lse + jj * 8 + 2 * t);
+      const float l0 = __fmul_rn(l.x, kLog2e), l1 = __fmul_rn(l.y, kLog2e);
+      s[jj][0] = exp2_approx(fmaf(s[jj][0], to_log2, -l0));
+      s[jj][1] = exp2_approx(fmaf(s[jj][1], to_log2, -l1));
+      s[jj][2] = exp2_approx(fmaf(s[jj][2], to_log2, -l0));
+      s[jj][3] = exp2_approx(fmaf(s[jj][3], to_log2, -l1));
+    }
+    pv_tile(dv, s, do_tile);                            // dv += p^T . do
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s[jj][i] = expf(s[jj][i] - lse[jj * 8 + 2 * t + (i & 1)]);
-    product_pv(dv, s, do_tile);                         // p^T . do
-    product_nt(dp, sv + warp * 16 * L, do_tile);        // dp^T = v . do^T
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        s[jj][i] = s[jj][i] * (dp[jj][i] - delta[jj * 8 + 2 * t + (i & 1)]) * p.scale;
-    product_pv(dk, s, q_tile);                          // ds^T . q
-    __syncthreads();
+    for (int jj = 0; jj < 8; ++jj) {   // ds^T, delta read once per column pair
+      const float2 d = *reinterpret_cast<const float2*>(delta + jj * 8 + 2 * t);
+      s[jj][0] = s[jj][0] * (dp[jj][0] - d.x) * p.scale;
+      s[jj][1] = s[jj][1] * (dp[jj][1] - d.y) * p.scale;
+      s[jj][2] = s[jj][2] * (dp[jj][2] - d.x) * p.scale;
+      s[jj][3] = s[jj][3] * (dp[jj][3] - d.y) * p.scale;
+    }
+    pv_tile(dk, s, q_tile);                             // dk += ds^T . q
   }
-  wait_copies<0>();
+  wait_copies<0>();                    // the K and V copies of a column with nothing live
   const float one[2] = {1.f, 1.f};
   const long long off = (long long)b * p.S * p.H * kD + h * kD;
-  store_rows<T>(static_cast<T*>(p.dk) + off, (long long)p.H * kD, dk, wkey0, p.S, one);
-  store_rows<T>(static_cast<T*>(p.dv) + off, (long long)p.H * kD, dv, wkey0, p.S, one);
+  T* dk_out = static_cast<T*>(p.dk) + off;
+  T* dv_out = static_cast<T*>(p.dv) + off;
+  if (n_split == 1) {
+    store_rows<T>(dk_out, (long long)p.H * kD, dk, wkey0, p.S, one);
+    store_rows<T>(dv_out, (long long)p.H * kD, dv, wkey0, p.S, one);
+    return;
+  }
+  // a split: publish the partial, count the arrival; the last to arrive sums
+  float* parts = p.partials + ((long long)b * p.n_slots + slot - split) * 2 * kPartFloats;
+  store_partial(parts + 2 * split * kPartFloats, dk);
+  store_partial(parts + (2 * split + 1) * kPartFloats, dv);
+  __threadfence();                     // this thread's partial is visible before the count
+  __syncthreads();
+  int* arrivals = p.counters + (long long)b * p.n_counters + counter;
+  if (threadIdx.x == 0) {
+    last = atomicAdd(arrivals, 1) == n_split - 1;
+    if (last) *arrivals = 0;           // every split has arrived: ready for the next launch
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();                     // the other splits' partials, as counted
+  float sum_k[8][4], sum_v[8][4];
+  zero(sum_k);
+  zero(sum_v);
+  for (int sp = 0; sp < n_split; ++sp) {   // in split order, whatever the order of arrival
+    if (sp == split) {
+      add_tile(sum_k, dk);
+      add_tile(sum_v, dv);
+    } else {
+      add_partial(sum_k, parts + 2 * sp * kPartFloats);
+      add_partial(sum_v, parts + (2 * sp + 1) * kPartFloats);
+    }
+  }
+  store_rows<T>(dk_out, (long long)p.H * kD, sum_k, wkey0, p.S, one);
+  store_rows<T>(dv_out, (long long)p.H * kD, sum_v, wkey0, p.S, one);
 }
 
 // --------------------------------------------------------------------------
@@ -348,37 +479,67 @@ __global__ void __launch_bounds__(kThreads) sparse_dkv_kernel(const Params p) {
 enum Which { kForward, kDq, kDkv };
 
 template <typename T>
-cudaError_t run(Which which, const Params& p, int B, cudaStream_t st) {
-  const dim3 grid(p.nb, p.H, B);
-  const size_t live = sizeof(int) * p.max_n;
+size_t smem_bytes(Which which, int nb, int max_n) {
+  const size_t live = sizeof(int) * max_n;
   switch (which) {
-    case kForward:
-      return launch(sparse_fwd_kernel<T>, grid, 5 * tile_bytes<T>() + live, p, st);
-    case kDq:
-      return launch(sparse_dq_kernel<T>, grid, 6 * tile_bytes<T>() + live, p, st);
-    default:
-      return launch(sparse_dkv_kernel<T>, grid,
-                    6 * tile_bytes<T>() + 4 * kTile * sizeof(float) + live, p, st);
+    case kForward: return 5 * tile_bytes<T>() + live;
+    case kDq: return 6 * tile_bytes<T>() + live;
+    default: return dkv_smem_bytes<T>(nb);
+  }
+}
+
+template <typename T>
+cudaError_t run(Which which, const Params& p, int n_tasks, cudaStream_t st) {
+  const size_t smem = smem_bytes<T>(which, p.nb, p.max_n);
+  switch (which) {
+    case kForward: return launch(sparse_fwd_kernel<T>, dim3(p.nb, p.H, p.B), smem, p, st);
+    case kDq: return launch(sparse_dq_kernel<T>, dim3(p.nb, p.H, p.B), smem, p, st);
+    default: return launch(sparse_dkv_kernel<T>, dim3(n_tasks * p.B), smem, p, st);
+  }
+}
+
+// Blocks of one kernel that one SM holds at once, registers and shared
+// memory (at nb layout blocks, max_n listed) both counted; 0 on an error.
+template <typename T>
+int occupancy(Which which, int nb, int max_n, int* smem) {
+  *smem = (int)smem_bytes<T>(which, nb, max_n);
+  auto query = [&](auto kernel) {
+    int n = 0;
+    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, *smem) != cudaSuccess)
+      return 0;
+    return n;
+  };
+  switch (which) {
+    case kForward: return query(sparse_fwd_kernel<T>);
+    case kDq: return query(sparse_dq_kernel<T>);
+    default: return query(sparse_dkv_kernel<T>);
   }
 }
 
 // strides: [q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, do_b, do_s, do_h], in
 // elements.
-int dispatch(Which which, Params p, const long long* strides, int B, int dtype, void* stream) {
+int dispatch(Which which, Params p, const long long* strides, int n_tasks, int dtype,
+             void* stream) {
   p.q_sb = strides[0]; p.q_ss = strides[1]; p.q_sh = strides[2];
   p.k_sb = strides[3]; p.k_ss = strides[4]; p.k_sh = strides[5];
   p.v_sb = strides[6]; p.v_ss = strides[7]; p.v_sh = strides[8];
   p.do_sb = strides[9]; p.do_ss = strides[10]; p.do_sh = strides[11];
   const int vec = dtype == 0 ? 4 : 8;             // elements per 16 bytes
-  bool ok = B > 0 && B <= 65535 && p.H > 0 && p.H <= 65535 && p.S > 0 && p.S % kTile == 0 &&
-            p.max_n > 0 && p.max_n <= p.S / kTile && (dtype == 0 || dtype == 1) &&
-            aligned16(p.q) && aligned16(p.k) && aligned16(p.v) &&
-            (p.dout == nullptr || aligned16(p.dout));
+  bool ok = p.B > 0 && p.B <= 65535 && p.H > 0 && p.H <= 65535 && p.S > 0 &&
+            p.S % kTile == 0 && (dtype == 0 || dtype == 1) && aligned16(p.q) &&
+            aligned16(p.k) && aligned16(p.v) && (p.dout == nullptr || aligned16(p.dout));
+  if (which == kDkv)
+    ok = ok && n_tasks > 0 && (long long)n_tasks * p.B <= 0x7fffffffLL && p.n_slots >= 0 &&
+         p.n_counters >= 0 && aligned16(p.tasks);
+  else
+    ok = ok && p.max_n > 0 && p.max_n <= p.S / kTile;
   for (int i = 0; i < 12; ++i) ok = ok && strides[i] % vec == 0;
   if (!ok) return (int)cudaErrorInvalidValue;
   p.nb = p.S / kTile;
   cudaStream_t st = (cudaStream_t)stream;
-  return (int)(dtype == 0 ? run<float>(which, p, B, st) : run<bf16>(which, p, B, st));
+  return (int)(dtype == 0 ? run<float>(which, p, n_tasks, st) : run<bf16>(which, p, n_tasks, st));
 }
 
 }  // namespace
@@ -387,17 +548,16 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  Each returns a cudaError_t (0 = launched).
 // q, k, v [B, S, H, 64] by strides, S a multiple of 64; lut int32
-// [H * S / 64, max_n] and cnt int32 [H * S / 64], the row LUT (forward, dQ)
-// or the column LUT (dKV) of build_luts; o contiguous [B, S, H, 64]; lse
-// fp32 contiguous [B, H, S].
+// [H * S / 64, max_n] and cnt int32 [H * S / 64], the row LUT of
+// build_luts; o contiguous [B, S, H, 64]; lse fp32 contiguous [B, H, S].
 int dst_sparse_forward(const void* q, const void* k, const void* v, const int* lut,
                        const int* cnt, void* o, float* lse, const long long* strides, int B,
                        int S, int H, int max_n, float scale, int causal, int dtype,
                        void* stream) {
   Params p = {};
   p.q = q; p.k = k; p.v = v; p.lut = lut; p.cnt = cnt; p.o = o; p.lse = lse;
-  p.S = S; p.H = H; p.max_n = max_n; p.scale = scale; p.causal = causal;
-  return dispatch(kForward, p, strides, B, dtype, stream);
+  p.B = B; p.S = S; p.H = H; p.max_n = max_n; p.scale = scale; p.causal = causal;
+  return dispatch(kForward, p, strides, 0, dtype, stream);
 }
 
 // dout by strides like q; lse and delta fp32 contiguous [B, H, S]; dq
@@ -409,20 +569,40 @@ int dst_sparse_backward_dq(const void* q, const void* k, const void* v, const vo
   Params p = {};
   p.q = q; p.k = k; p.v = v; p.dout = dout; p.lse_in = lse; p.delta = delta;
   p.lut = lut; p.cnt = cnt; p.dq = dq;
-  p.S = S; p.H = H; p.max_n = max_n; p.scale = scale; p.causal = causal;
-  return dispatch(kDq, p, strides, B, dtype, stream);
+  p.B = B; p.S = S; p.H = H; p.max_n = max_n; p.scale = scale; p.causal = causal;
+  return dispatch(kDq, p, strides, 0, dtype, stream);
 }
 
-// dk, dv contiguous [B, S, H, 64].
+// The work list of build_dkv_tasks: tasks int32 [n_tasks][8] (head, key
+// block, first entry, count, split, splits, slot, counter), entries int32
+// (the tasks' live query blocks); partials fp32 [B][n_slots][2][64 * 64]
+// and counters int32 [B][n_counters], all 0 before the first launch (each
+// launch leaves them so).  dk, dv contiguous [B, S, H, 64].
 int dst_sparse_backward_dkv(const void* q, const void* k, const void* v, const void* dout,
-                            const float* lse, const float* delta, const int* lut, const int* cnt,
-                            void* dk, void* dv, const long long* strides, int B, int S, int H,
-                            int max_n, float scale, int causal, int dtype, void* stream) {
+                            const float* lse, const float* delta, const int* tasks,
+                            const int* entries, int n_tasks, float* partials, int n_slots,
+                            int* counters, int n_counters, void* dk, void* dv,
+                            const long long* strides, int B, int S, int H, float scale,
+                            int causal, int dtype, void* stream) {
   Params p = {};
   p.q = q; p.k = k; p.v = v; p.dout = dout; p.lse_in = lse; p.delta = delta;
-  p.lut = lut; p.cnt = cnt; p.dk = dk; p.dv = dv;
-  p.S = S; p.H = H; p.max_n = max_n; p.scale = scale; p.causal = causal;
-  return dispatch(kDkv, p, strides, B, dtype, stream);
+  p.tasks = tasks; p.entries = entries; p.partials = partials; p.counters = counters;
+  p.n_slots = n_slots; p.n_counters = n_counters; p.dk = dk; p.dv = dv;
+  p.B = B; p.S = S; p.H = H; p.scale = scale; p.causal = causal;
+  return dispatch(kDkv, p, strides, n_tasks, dtype, stream);
+}
+
+// Blocks of one kernel (which: 0 forward, 1 dQ, 2 dKV) that one SM holds
+// at once at S / 64 = nb layout blocks (max_n listed per row for the
+// forward and dQ); its dynamic shared memory per block in *smem_bytes.  0
+// on an error.
+int dst_sparse_occupancy(int which, int dtype, int nb, int max_n, int* smem_bytes) {
+  if (which < 0 || which > 2 || (dtype != 0 && dtype != 1) || nb <= 0 || max_n < 0 ||
+      smem_bytes == nullptr)
+    return 0;
+  const Which w = (Which)which;
+  return dtype == 0 ? occupancy<float>(w, nb, max_n, smem_bytes)
+                    : occupancy<bf16>(w, nb, max_n, smem_bytes);
 }
 
 }  // extern "C"

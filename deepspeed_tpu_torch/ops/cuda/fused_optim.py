@@ -19,9 +19,14 @@ same way.
 Dispatch: a table of CPU tensors runs ``adam_reference``; a table of CUDA
 tensors launches the kernel of ``csrc/fused_optim.cu`` (replaces
 ``_adam_kernel``, ``ops/pallas/fused_optim.py:139``).  The table of leaf
-pointers, sizes and chunks is built once (``AdamTable``); the leaves are
-updated in place, so it stays valid.  The kernel is bound by bytes: 28
-bytes per element (p, g, mu, nu read; p, mu, nu written).
+pointers and the plan of chunks are built once (``AdamTable``); the leaves
+are updated in place, so they stay valid.  The plan (``plan_chunks``, a
+pure function of the leaf sizes and the pointers' offsets mod 16) cuts
+every leaf into chunks of the kernel's chunk size: 16-byte vector chunks
+where p, g, mu and nu are all 16-byte aligned, scalar chunks for a leaf's
+last ``n % 4`` elements and for every leaf that is not.  The kernel is
+bound by bytes: 28 bytes per element (p, g, mu, nu read; p, mu, nu
+written).
 
 ``fused_adam.launches`` counts kernel launches, ``adam_reference.calls``
 the plain version's calls.
@@ -122,11 +127,36 @@ adam_reference.calls = 0
 # --------------------------------------------------------------------------- #
 # Kernel wrapper
 # --------------------------------------------------------------------------- #
+def plan_chunks(sizes: Sequence[int], offsets: Sequence[Sequence[int]],
+                chunk: int) -> np.ndarray:
+    """The kernel's work: int32 ``[n_chunks, 4]`` rows (leaf, vector,
+    count, start), every element of every leaf in exactly one chunk of at
+    most ``chunk`` elements.
+
+    ``offsets[i]`` holds leaf i's four base addresses (p, g, mu, nu) mod 16,
+    in bytes.  A leaf whose four are all 0 is cut into vector chunks (count
+    a multiple of 4, so each range is 16-byte aligned in all four tensors),
+    and its last ``n % 4`` elements form a scalar chunk; any other leaf is
+    cut into scalar chunks whole.  ``chunk`` is a multiple of 4.
+    """
+    if chunk <= 0 or chunk % 4:
+        raise ValueError(f"plan_chunks: chunk {chunk} must be a positive multiple of 4")
+    rows = []
+    for leaf, (n, offs) in enumerate(zip(sizes, offsets)):
+        if not 0 < n < 2 ** 31:
+            raise ValueError(f"plan_chunks: leaf {leaf} has {n} elements (1 to 2**31 - 1)")
+        n_vec = n - n % 4 if not any(o % 16 for o in offs) else 0
+        rows += [(leaf, 1, min(chunk, n_vec - s), s) for s in range(0, n_vec, chunk)]
+        rows += [(leaf, 0, min(chunk, n - s), s) for s in range(n_vec, n, chunk)]
+    return np.asarray(rows, np.int32).reshape(-1, 4)
+
+
 class AdamTable:
     """The leaves one optimizer updates: four equally shaped fp32 lists
     (params, grads, mu, nu).  On CUDA it also holds the device table of
-    their pointers and sizes and the chunk list the kernel walks; the
-    tensors are kept referenced here for as long as the table lives."""
+    their pointers, the plan of chunks the kernel walks and the grid it
+    launches; the tensors are kept referenced here for as long as the table
+    lives."""
 
     def __init__(self, params: List[torch.Tensor], grads: List[torch.Tensor],
                  mus: List[torch.Tensor], nus: List[torch.Tensor]):
@@ -148,19 +178,18 @@ class AdamTable:
 
     def _build(self) -> None:
         lib = builder.load_library()
-        chunk = int(lib.dst_fused_adam_chunk())
-        sizes = [p.numel() for p in self.leaves[0]]
-        table = [[t.data_ptr() for t in ts] for ts in self.leaves] + [sizes]
-        leaf_of, start_of = [], []
-        for i, n in enumerate(sizes):
-            starts = range(0, n, chunk)
-            leaf_of += [i] * len(starts)
-            start_of += list(starts)
+        with torch.cuda.device(self.device):
+            self.grid = int(lib.dst_fused_adam_grid())
+        if self.grid <= 0:
+            raise RuntimeError("fused_adam: the occupancy query failed")
+        ptrs = [[t.data_ptr() for t in ts] for ts in self.leaves]
+        plan = plan_chunks([p.numel() for p in self.leaves[0]],
+                           [[a % 16 for a in group] for group in zip(*ptrs)],
+                           int(lib.dst_fused_adam_chunk()))
         dev = self.device
-        self.table = torch.from_numpy(np.asarray(table, np.int64).reshape(-1)).to(dev)
-        self.chunk_leaf = torch.from_numpy(np.asarray(leaf_of, np.int32)).to(dev)
-        self.chunk_start = torch.from_numpy(np.asarray(start_of, np.int64)).to(dev)
-        self.n_leaves, self.n_chunks = len(sizes), len(leaf_of)
+        self.table = torch.from_numpy(np.asarray(ptrs, np.int64).reshape(-1)).to(dev)
+        self.chunks = torch.from_numpy(plan).to(dev)
+        self.n_leaves, self.n_chunks = len(ptrs[0]), len(plan)
 
     def numel(self) -> int:
         return sum(p.numel() for p in self.leaves[0])
@@ -179,9 +208,8 @@ def fused_adam(table: AdamTable, scal: torch.Tensor, *, b1: float, b2: float,
         raise TypeError("fused_adam: scal must be a contiguous fp32 [5] tensor on "
                         f"{table.device}")
     lib = builder.load_library()
-    rc = lib.dst_fused_adam(table.table.data_ptr(), table.n_leaves,
-                            table.chunk_leaf.data_ptr(), table.chunk_start.data_ptr(),
-                            table.n_chunks, scal.data_ptr(), _f32(b1), _f32(b2),
+    rc = lib.dst_fused_adam(table.table.data_ptr(), table.n_leaves, table.chunks.data_ptr(),
+                            table.n_chunks, table.grid, scal.data_ptr(), _f32(b1), _f32(b2),
                             _f32(1 - b1), _f32(1 - b2), _f32(eps), _f32(wd), int(wd != 0),
                             torch.cuda.current_stream(table.device).cuda_stream)
     builder.check(lib, rc, "fused_adam")

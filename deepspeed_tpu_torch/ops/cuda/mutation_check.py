@@ -3,17 +3,20 @@
     python -m deepspeed_tpu_torch.ops.cuda.mutation_check
 
 For each mutation below, copies the checkout into a temporary directory,
-breaks one kernel source there in one known way, and runs the
-``cuda``-marked tests of that kernel's test file against the copy's own
-build (the copies build and run side by side): the decode-attention
-kernels (``csrc/decode_attention.cu``), the flash forward, dQ and dKV
-(``csrc/flash_attention.cu``) and the cross-entropy backward
-(``csrc/cross_entropy.cu``).  The unmutated checkout runs every one of
-those test files the same way and must pass every test; each mutation must
-fail at least one bf16 and one fp32 test (each mutated line is compiled
-into both dtypes' kernels).  Prints one line per run with the tests that
-failed, then a JSON summary; exits non-zero if the checkout fails a test
-or a mutation goes unseen in either dtype.
+breaks one kernel source (or the plan its wrapper makes) there in one known
+way, and runs the ``cuda``-marked tests of that kernel's test file against
+the copy's own build (the copies build and run side by side): the
+decode-attention kernels (``csrc/decode_attention.cu``), the flash forward,
+dQ and dKV (``csrc/flash_attention.cu``), the cross-entropy backward
+(``csrc/cross_entropy.cu``), the block-sparse dKV
+(``csrc/block_sparse_attention.cu``) and the fused AdamW
+(``csrc/fused_optim.cu`` and its plan in ``fused_optim.py``).  The
+unmutated checkout runs every one of those test files the same way and
+must pass every test; each mutation must fail at least one test in each
+dtype its kernel is compiled for (bf16 and fp32; AdamW fp32 only).  Prints
+one line per run with the tests that failed, then a JSON summary; exits
+non-zero if the checkout fails a test or a mutation goes unseen in a
+dtype.
 """
 
 import json
@@ -29,7 +32,14 @@ CSRC = "deepspeed_tpu_torch/ops/cuda/csrc/"
 DECODE = (CSRC + "decode_attention.cu", "tests/test_torch_decode_attention.py")
 FLASH = (CSRC + "flash_attention.cu", "tests/test_torch_flash_attention.py")
 CROSS_ENTROPY = (CSRC + "cross_entropy.cu", "tests/test_torch_cross_entropy.py")
+SPARSE = (CSRC + "block_sparse_attention.cu", "tests/test_torch_sparse_attention.py")
+ADAM = (CSRC + "fused_optim.cu", "tests/test_torch_fused_optim.py")
+ADAM_PLAN = ("deepspeed_tpu_torch/ops/cuda/fused_optim.py", ADAM[1])
 TIMEOUT_S = 900
+# the dtypes a mutation must be seen in, by test file: every kernel but
+# AdamW is compiled for both
+DTYPES = {ADAM[1]: ("float32",)}
+BOTH = ("float32", "bfloat16")
 
 # name: ((source, test file), what it breaks, the line as it is, the line broken)
 MUTATIONS = {
@@ -86,6 +96,29 @@ MUTATIONS = {
         CROSS_ENTROPY, "cross-entropy backward: dx never streams the last vocab tile",
         "  const int n_str = cdiv(str_n, B::kStream);                    // streamed tiles",
         "  const int n_str = cdiv(str_n, B::kStream) - (kDhead ? 0 : 1);   // streamed tiles"),
+    "sparse-dkv-sum-drops-split-0": (
+        SPARSE, "block-sparse dKV: the last split to arrive leaves split 0's partial out of "
+        "its column's sum",
+        "  for (int sp = 0; sp < n_split; ++sp) {   // in split order, whatever the order of "
+        "arrival",
+        "  for (int sp = 1; sp < n_split; ++sp) {   // in split order, whatever the order of "
+        "arrival"),
+    "sparse-dkv-counter-not-reset": (
+        SPARSE, "block-sparse dKV: the last split to arrive leaves the column's counter as it "
+        "is, so the next launch never sums that column",
+        "    if (last) *arrivals = 0;           // every split has arrived: ready for the next "
+        "launch",
+        "    // the counter is left at the number of splits"),
+    "adam-vector-leaf-drops-tail": (
+        ADAM_PLAN, "fused AdamW: the plan sends no scalar chunk for an aligned leaf's n % 4 "
+        "tail",
+        "        rows += [(leaf, 0, min(chunk, n - s), s) for s in range(n_vec, n, chunk)]",
+        "        rows += [(leaf, 0, min(chunk, n - s), s) for s in range(n_vec, n if not n_vec "
+        "else n_vec, chunk)]"),
+    "adam-skip-first-chunk-of-stride": (
+        ADAM, "fused AdamW: each block starts its stride at its second chunk",
+        "  int c = blockIdx.x;",
+        "  int c = blockIdx.x + gridDim.x;"),
 }
 
 
@@ -159,7 +192,7 @@ def main() -> int:
             if name == "checkout":
                 seen = not failed
             else:
-                seen = all(by_dtype.values())
+                seen = all(by_dtype[dt] for dt in DTYPES.get(MUTATIONS[name][0][1], BOTH))
             ok = ok and seen
             what = "the checkout" if name == "checkout" else MUTATIONS[name][1]
             print(f"mutation_check: {name} ({what}): {len(failed)} of {n} tests failed "

@@ -13,10 +13,16 @@ terms is many ulps of the small result, so the bound is taken against the
 tensor's scale.  The bias corrections and the saturating count match JAX
 bit for bit.
 
+The kernel's plan (``plan_chunks``: vector chunks where p, g, mu and nu
+are all 16-byte aligned, scalar chunks for each leaf's ``n % 4`` tail and
+for misaligned leaves) is a pure function of the leaf sizes and pointer
+offsets, checked here at gradient views into one flat buffer, as the
+engine lays them out.
+
 The CUDA kernel runs only on a card: the ``cuda``-marked tests skip here
 (``python -m pytest tests/test_torch_fused_optim.py -m cuda`` on the GPU
 machine); ``chip_smoke.py`` holds it against the plain version over all
-148 GPT-2 leaves.
+148 GPT-2 leaves, separate and as the engine's flat gradient layout.
 """
 
 import numpy as np
@@ -238,6 +244,62 @@ def test_cpu_table_runs_the_plain_version_and_counts_no_launch():
 
 
 # --------------------------------------------------------------------------- #
+# the kernel's plan
+# --------------------------------------------------------------------------- #
+PLAN_SIZES = [1, 3, 5, 70001, 8, 4096 * 3, 153]
+
+
+def flat_offsets(sizes, view_of, start):
+    """Byte offsets mod 16 of each leaf's (p, g, mu, nu) when the tensor
+    ``view_of`` is views into one 16-byte aligned flat buffer from element
+    ``start`` on (as the engine's gradients are) and the others are
+    separate allocations."""
+    offs, at = [], start
+    for n in sizes:
+        o = [0, 0, 0, 0]
+        if view_of is not None:
+            o[view_of] = 4 * at % 16
+        offs.append(o)
+        at += n
+    return offs
+
+
+@pytest.mark.parametrize("chunk", [8, 4096])
+@pytest.mark.parametrize("view_of,start", [(None, 0), (1, 0), (1, 1), (1, 2), (1, 3), (0, 1),
+                                           (2, 2), (3, 3)])
+def test_plan_covers_every_element_once_with_aligned_vectors(view_of, start, chunk):
+    """Sizes 1, 3, 5, 70001 (and others) at element offsets 0-3: each
+    element in exactly one chunk; a vector chunk's range is 16-byte aligned
+    in all four tensors; an aligned leaf's n % 4 tail, and every element of
+    a misaligned leaf, goes to the scalar path."""
+    offs = flat_offsets(PLAN_SIZES, view_of, start)
+    plan = tfo.plan_chunks(PLAN_SIZES, offs, chunk)
+    assert plan.dtype == np.int32 and plan.shape[1] == 4
+    for leaf, n in enumerate(PLAN_SIZES):
+        rows = plan[plan[:, 0] == leaf]
+        covered = np.zeros(n, np.int64)
+        aligned = not any(offs[leaf])
+        for _, vector, count, start_el in rows:
+            assert 0 < count <= chunk
+            covered[start_el:start_el + count] += 1
+            if vector:
+                assert aligned and count % 4 == 0
+                assert all((o + 4 * start_el) % 16 == 0 for o in offs[leaf])
+        assert (covered == 1).all(), leaf
+        scalar = sorted((int(s), int(c)) for _, v, c, s in rows if not v)
+        want = [(0, n)] if not aligned else ([(n - n % 4, n % 4)] if n % 4 else [])
+        assert sum(c for _, c in scalar) == sum(c for _, c in want)
+        assert (scalar[0][0] if scalar else None) == (want[0][0] if want else None)
+
+
+def test_plan_refuses_what_it_cannot_cut():
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tfo.plan_chunks([8], [[0, 0, 0, 0]], 6)
+    with pytest.raises(ValueError, match="elements"):
+        tfo.plan_chunks([0], [[0, 0, 0, 0]], 8)
+
+
+# --------------------------------------------------------------------------- #
 # on the card
 # --------------------------------------------------------------------------- #
 @pytest.fixture
@@ -248,9 +310,10 @@ def cuda_device():
 
 
 def card_leaves(device, seed):
-    """Leaves of odd sizes, one past the kernel's chunk of 32768."""
+    """Leaves of odd sizes, some past several of the kernel's 4096-element
+    chunks."""
     rng = np.random.default_rng(seed)
-    shapes = [(3,), (17, 9), (70001,), (256, 768), ()]
+    shapes = [(3,), (17, 9), (70001,), (256, 768), (), (5,), (4096 * 2 + 4,)]
     out = []
     for scale in (1.0, 1.0, 0.01, 0.001):      # params, grads, mu, nu (nu >= 0)
         group = []
@@ -268,6 +331,30 @@ def test_cuda_kernel_matches_plain_bitwise(cuda_device, wd):
     a, b = card_leaves(cuda_device, 1), card_leaves(cuda_device, 1)
     scal = torch.tensor([0.5, 0.7, -1e-3, 0.3, 0.01], device=cuda_device)
     tfo.fused_adam(tfo.AdamTable(*a), scal, b1=0.9, b2=0.999, eps=1e-8, wd=wd)
+    tfo.adam_reference(*b, scal, b1=0.9, b2=0.999, eps=1e-8, wd=wd)
+    torch.cuda.synchronize()
+    for xs, ys in zip(a, b):
+        for x, y in zip(xs, ys):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wd", [0.0, 0.01])
+def test_cuda_flat_gradient_views_match_plain_bitwise(cuda_device, wd):
+    """Gradients as the engine lays them out: views into one flat buffer,
+    so every leaf after one of odd size starts off 16 bytes and takes the
+    scalar path; the others take the vector path with their tails."""
+    a, b = card_leaves(cuda_device, 2), card_leaves(cuda_device, 2)
+    sizes = [t.numel() for t in a[1]]
+    for group in (a, b):
+        flat = torch.cat([t.reshape(-1) for t in group[1]])
+        group[1] = [piece.view(t.shape) for piece, t in zip(torch.split(flat, sizes), group[1])]
+    table = tfo.AdamTable(*a)
+    kinds = table.chunks[:, 1].tolist()
+    assert 0 in kinds and 1 in kinds
+    assert any(g.data_ptr() % 16 for g in a[1])
+    scal = torch.tensor([0.5, 0.7, -1e-3, 0.3, 0.01], device=cuda_device)
+    tfo.fused_adam(table, scal, b1=0.9, b2=0.999, eps=1e-8, wd=wd)
     tfo.adam_reference(*b, scal, b1=0.9, b2=0.999, eps=1e-8, wd=wd)
     torch.cuda.synchronize()
     for xs, ys in zip(a, b):

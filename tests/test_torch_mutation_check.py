@@ -2,8 +2,8 @@
 mutation_check.py``) on the CPU: each mutation still names a line of its
 kernel source exactly once (so an edit of a kernel cannot leave the check
 mutating nothing) and names an existing test file, and the report reading
-sorts the ``cuda`` tests of the decode, flash and cross-entropy test files
-by dtype.  The check itself runs on the card."""
+sorts the ``cuda`` tests of the decode, flash, cross-entropy, block-sparse
+and AdamW test files by dtype.  The check itself runs on the card."""
 
 import pytest
 
@@ -19,11 +19,17 @@ def test_each_mutation_names_one_line_of_the_kernel(name):
 
 
 def test_every_redesigned_kernel_has_two_mutations():
-    by_source = {}
-    for (source, _), *_ in mc.MUTATIONS.values():
-        by_source[source] = by_source.get(source, 0) + 1
-    assert set(by_source) == {mc.DECODE[0], mc.FLASH[0], mc.CROSS_ENTROPY[0]}
-    assert min(by_source.values()) >= 2
+    """Counted by the kernels' test files (AdamW's two mutations are one in
+    its kernel and one in the plan its wrapper makes)."""
+    by_tests = {}
+    for (_, tests), *_ in mc.MUTATIONS.values():
+        by_tests[tests] = by_tests.get(tests, 0) + 1
+    assert set(by_tests) == {mc.DECODE[1], mc.FLASH[1], mc.CROSS_ENTROPY[1], mc.SPARSE[1],
+                             mc.ADAM[1]}
+    assert min(by_tests.values()) >= 2
+    sources = {source for (source, _), *_ in mc.MUTATIONS.values()}
+    assert {mc.SPARSE[0], mc.ADAM[0], mc.ADAM_PLAN[0]} <= sources
+    assert mc.DTYPES == {mc.ADAM[1]: ("float32",)}
 
 
 def test_mutate_applies_the_change_to_a_copy(tmp_path):
@@ -57,6 +63,9 @@ def check_mutation_applies(tmp_path, name):
     ("test_cuda_kernels_match_plain[e1024-vocab-tail-float32]", "float32"),
     ("test_cuda_forward_bf16_peaked[causal]", "bfloat16"),
     ("test_cuda_saved_lse_gives_the_plain_forwards_gradients[alibi-float32]", "float32"),
+    ("test_cuda_kernels_match_plain[fixed-causal-s4096-split-bfloat16]", "bfloat16"),
+    ("test_cuda_dkv_is_deterministic_across_calls[float32]", "float32"),
+    ("test_cuda_flat_gradient_views_match_plain_bitwise[0.01]", "float32"),
 ])
 def test_dtype_of_test_ids(test_id, dtype):
     assert mc.dtype_of(test_id) == dtype

@@ -22,10 +22,18 @@ JAX package's.
   with rpe, key-padding and attention masks in both modes) against JAX's,
   fp32, 1e-5.
 
+* dKV's work list (``build_dkv_tasks``), on every ``KERNEL_CASES`` layout
+  and the training path's (fixed, S 4096, H 12), unsplit and split: every
+  live (key block, query block) pair in exactly one task, no future pair
+  under ``causal``, tasks longest first and none past the split length,
+  distinct partial slots for the splits of one column.
+
 The CUDA kernels run only on a card: the ``cuda``-marked tests skip here
 and run on the GPU machine (``python -m pytest
 tests/test_torch_sparse_attention.py -m cuda``), where each kernel is held
-against its plain version (with the kernel's rounding) on the same inputs.
+against its plain version (with the kernel's rounding) on the same inputs,
+and dKV, whose split columns are summed by the last split to arrive, must
+give bitwise-equal outputs call after call.
 """
 
 import math
@@ -397,6 +405,12 @@ KERNEL_CASES = {
         attention="unidirectional", seed=4).make_layout(S), True),
     "empty-rows": (1, 256, 1, lambda H, S: empty_rows_layout(), False),
     "future-only": (1, 256, 1, lambda H, S: future_only_layout(), True),
+    # the training path's layout at B 1, H 2: "auto" gives each block slot
+    # a walk of about 5 tiles, so its longest columns (61 live query blocks)
+    # split into 13 tasks, summed in the kernel
+    "fixed-causal-s4096-split": (1, 4096, 2, lambda H, S: tsc.FixedSparsityConfig(
+        num_heads=H, block=64, num_local_blocks=4, num_global_blocks=1,
+        attention="unidirectional").make_layout(S), True),
 }
 # kernel against the plain version with the kernel's rounding, on the same
 # inputs, q drawn so the score std is 3 (peaked rows).  Per output: max
@@ -404,6 +418,129 @@ KERNEL_CASES = {
 # order.  bf16: both round p, ds and the outputs to bf16 from fp32 values
 # that differ by rounding noise, one ulp (2^-8) at most per element.
 KERNEL_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 5e-3)}
+
+
+# --------------------------------------------------------------------------- #
+# dKV's work list (host side, no card needed)
+# --------------------------------------------------------------------------- #
+WORK_LIST_CASES = dict(KERNEL_CASES, **{"gpt2-s4096-fixed": (
+    2, 4096, 12, lambda H, S: tsc.sparsity_config_from_dict(
+        {"mode": "fixed", "block": 64, "num_local_blocks": 4, "num_global_blocks": 1,
+         "attention": "unidirectional"}, num_heads=H).make_layout(S), True)})
+SPLITS = [None, 4, 16]
+
+
+def work_list(case, split):
+    """(tasks as dicts of TASK_FIELDS, entries, n_slots, n_counters, layout,
+    causal) of one case."""
+    _, S, H, layout_fn, causal = WORK_LIST_CASES[case]
+    layout = layout_fn(H, S)
+    _, _, col_lut, col_cnt = tbs.build_luts(layout)
+    tasks, entries, n_slots, n_counters = tbs.build_dkv_tasks(col_lut, col_cnt, causal, split)
+    assert tasks.dtype == entries.dtype == np.int32 and tasks.shape[1] == len(tbs.TASK_FIELDS)
+    rows = [dict(zip(tbs.TASK_FIELDS, map(int, t))) for t in tasks]
+    return rows, entries, n_slots, n_counters, layout, causal
+
+
+@pytest.mark.parametrize("split", SPLITS, ids=str)
+@pytest.mark.parametrize("case", sorted(WORK_LIST_CASES))
+def test_dkv_tasks_cover_every_live_pair_once(case, split):
+    """Each (head, key block, query block) the kernel must visit, the
+    layout's listed pairs (under ``causal`` those with the query block at or
+    after the key block), in exactly one task; every key block has a task,
+    so a column with nothing live still writes its zeros."""
+    rows, entries, _, _, layout, causal = work_list(case, split)
+    H, nb, _ = layout.shape
+    seen = np.zeros((H, nb, nb), np.int64)               # [h, query block, key block]
+    for t in rows:
+        for qb in entries[t["first"]:t["first"] + t["count"]]:
+            seen[t["head"], qb, t["key_block"]] += 1
+        assert list(entries[t["first"]:t["first"] + t["count"]]) == sorted(
+            entries[t["first"]:t["first"] + t["count"]])
+    want = layout.astype(np.int64)
+    if causal:
+        want = want * np.tril(np.ones((nb, nb), np.int64))[None]
+        assert not np.triu(seen, 1).any(), "a future pair in the work list"
+    np.testing.assert_array_equal(seen, want)
+    assert {(t["head"], t["key_block"]) for t in rows} == {
+        (h, kb) for h in range(H) for kb in range(nb)}
+    assert sum(t["count"] for t in rows) == len(entries)
+
+
+@pytest.mark.parametrize("split", SPLITS, ids=str)
+@pytest.mark.parametrize("case", sorted(WORK_LIST_CASES))
+def test_dkv_tasks_run_longest_first_and_within_the_split(case, split):
+    rows, _, _, _, _, _ = work_list(case, split)
+    counts = [t["count"] for t in rows]
+    assert counts == sorted(counts, reverse=True)
+    if split is not None:
+        assert max(counts) <= split
+    for t in rows:     # near-equal splits: a column's runs differ by at most one block
+        assert t["splits"] == 1 or t["count"] >= max(
+            u["count"] for u in rows if (u["head"], u["key_block"]) ==
+            (t["head"], t["key_block"])) - 1
+
+
+@pytest.mark.parametrize("split", SPLITS, ids=str)
+@pytest.mark.parametrize("case", sorted(WORK_LIST_CASES))
+def test_dkv_splits_of_a_column_take_distinct_slots(case, split):
+    """A split column's tasks: splits 0..n-1 once each, consecutive partial
+    slots from ``slot - split`` (distinct across columns) and one counter of
+    its own; an unsplit one has neither."""
+    rows, _, n_slots, n_counters, _, _ = work_list(case, split)
+    columns = {}
+    for t in rows:
+        columns.setdefault((t["head"], t["key_block"]), []).append(t)
+    slots, counters = [], []
+    for tasks in columns.values():
+        n = tasks[0]["splits"]
+        assert sorted(t["split"] for t in tasks) == list(range(n))
+        assert all(t["splits"] == n for t in tasks)
+        if n == 1:
+            assert (tasks[0]["slot"], tasks[0]["counter"]) == (-1, -1)
+            continue
+        assert {t["slot"] - t["split"] for t in tasks} == {min(t["slot"] for t in tasks)}
+        assert len({t["counter"] for t in tasks}) == 1
+        slots += [t["slot"] for t in tasks]
+        counters.append(tasks[0]["counter"])
+    assert sorted(slots) == list(range(n_slots))
+    assert sorted(counters) == list(range(n_counters))
+    if split == 16 and case in ("fixed-causal-s4096-split", "gpt2-s4096-fixed"):
+        assert max(len(tasks) for tasks in columns.values()) >= 3
+
+
+def test_dkv_work_is_made_once_per_layout_and_batch():
+    _, S, H, layout_fn, causal = WORK_LIST_CASES["gpt2-s4096-fixed"]
+    layout = layout_fn(H, S)
+    work = tbs.dkv_work(layout, causal, 2, "cpu")
+    assert work is tbs.dkv_work(layout.copy(), causal, 2, torch.device("cpu"))
+    assert work is not tbs.dkv_work(layout, causal, 1, "cpu")
+    # on the CPU "auto" splits nothing (the plain version walks the LUT)
+    assert tbs.DKV_SPLIT == "auto" and tbs.dkv_split(layout, causal, 2, "cpu") is None
+    assert tbs.dkv_work(layout, causal, 2, "cpu", split=16) is not work
+    tasks, _, n_slots, n_counters = tbs.build_dkv_tasks(*tbs.build_luts(layout)[2:], causal,
+                                                        None)
+    assert torch.equal(work.tasks, torch.from_numpy(tasks))
+    assert tuple(work.partials.shape) == (2, n_slots, 2, 64 * 64)
+    assert tuple(work.counters.shape) == (2, n_counters) and not work.counters.any()
+    assert work.workspace_bytes() == 4 * (work.partials.numel() + work.counters.numel())
+    tbs._check_work(work, 2, H, S // 64, torch.device("cpu"))
+    with pytest.raises(ValueError, match="work list"):
+        tbs._check_work(None, 2, H, S // 64, torch.device("cpu"))
+    with pytest.raises(ValueError, match="batch 1"):
+        tbs._check_work(work, 1, H, S // 64, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("tiles,batch,slots,want", [
+    (640 * 12, 2, 264, 59), (640 * 2, 1, 264, 5), (9, 1, 264, 1), (0, 1, 264, 1),
+    (264, 1, 264, 1), (265, 1, 264, 2)])
+def test_balanced_split_shares_the_tiles_among_the_block_slots(tiles, batch, slots, want):
+    """"auto"'s split length: the training path's layout (640 live tiles a
+    head, H 12, B 2) over 132 SMs x 2 blocks gives 59, so only its 61-tile
+    columns split; at B 1, H 2 every column past 5 does."""
+    assert tbs.balanced_split(tiles, batch, slots) == want
+    if tiles:
+        assert tbs.balanced_split(tiles, batch, slots) * slots >= tiles * batch
 
 
 def kernel_inputs(case, dtype, device, seed=11):
@@ -431,7 +568,8 @@ def test_cuda_kernels_match_plain(cuda_device, case, dtype):
     dq = tbs.block_sparse_backward_dq(*bargs, row_lut, row_cnt, causal, 0.125)
     rdq = tbs.block_sparse_backward_dq_reference(*bargs, row_lut, row_cnt, causal, 0.125,
                                                  kernel_rounding=True)
-    dk, dv = tbs.block_sparse_backward_dkv(*bargs, col_lut, col_cnt, causal, 0.125)
+    work = tbs.dkv_work(layout, causal, q.shape[0], cuda_device, q.dtype)
+    dk, dv = tbs.block_sparse_backward_dkv(*bargs, col_lut, col_cnt, causal, 0.125, work=work)
     rdk, rdv = tbs.block_sparse_backward_dkv_reference(*bargs, col_lut, col_cnt, causal, 0.125,
                                                        kernel_rounding=True)
     torch.cuda.synchronize()
@@ -447,6 +585,43 @@ def test_cuda_kernels_match_plain(cuda_device, case, dtype):
         err_l2 = (err.norm() / want.float().norm().clamp(min=1e-30)).item()
         assert err_max <= max_tol and err_l2 <= l2_tol, \
             f"{what}: max {err_max:.3e} (tol {max_tol}), L2 {err_l2:.3e} (tol {l2_tol})"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_dkv_is_deterministic_across_calls(cuda_device, dtype):
+    """dKV twice on the same inputs, with a call at another shape between:
+    bitwise-equal dK and dV.  The split columns' partials are summed in
+    split order whatever the order of arrival, and each launch leaves its
+    arrival counters at 0 for the next."""
+    def dkv(case):
+        (q, k, v, do), layout, causal = kernel_inputs(case, dtype, cuda_device)
+        row_lut, row_cnt, col_lut, col_cnt = tbs.device_luts(layout, cuda_device)
+        o, lse = tbs.block_sparse_forward(q, k, v, row_lut, row_cnt, causal, 0.125)
+        delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+        work = tbs.dkv_work(layout, causal, q.shape[0], cuda_device, q.dtype)
+        return tbs.block_sparse_backward_dkv(q, k, v, do, lse, delta, col_lut, col_cnt, causal,
+                                             0.125, work=work)
+    first = dkv("fixed-causal-s4096-split")
+    other = dkv("fixed-causal-s1024")
+    second = dkv("fixed-causal-s4096-split")
+    torch.cuda.synchronize()
+    for a, b, what in zip(first, second, ("dk", "dv")):
+        assert torch.isfinite(a.float()).all(), what
+        assert torch.equal(a, b), f"{what} differs between two calls on the same inputs"
+    assert all(torch.isfinite(t.float()).all() for t in other)
+
+
+@pytest.mark.cuda
+def test_cuda_dkv_raises_without_its_work_list(cuda_device):
+    (q, k, v, do), layout, causal = kernel_inputs("fixed-causal-s1024", "float32", cuda_device)
+    _, _, col_lut, col_cnt = tbs.device_luts(layout, cuda_device)
+    stats = torch.zeros(q.shape[0], q.shape[2], q.shape[1], device=cuda_device)
+    with pytest.raises(ValueError, match="work list"):
+        tbs.block_sparse_backward_dkv(q, k, v, do, stats, stats, col_lut, col_cnt, causal, 0.125)
+    with pytest.raises(ValueError, match="batch 2"):
+        tbs.block_sparse_backward_dkv(q, k, v, do, stats, stats, col_lut, col_cnt, causal, 0.125,
+                                      work=tbs.dkv_work(layout, causal, 1, cuda_device, q.dtype))
 
 
 @pytest.mark.cuda

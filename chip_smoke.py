@@ -41,7 +41,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    without the causal mask; the cross-entropy forward, dx and
    dhead at N 4096 (micro 8 x seq 512), E 768, V 50304 (vocab 50257), in
    bf16 also at GPT-2 medium's, large's and XL's widths (E 1024, 1280,
-   1600); and
+   1600), and the forward alone at the sparse step's N 8192, each forward
+   beside cuBLAS's ``x @ head[:vocab]^T`` alone ("product-only", the least
+   a library takes for the product the kernel fuses); and
    the fused AdamW over all 148 GPT-2 leaves at n_positions 512
    (124,082,688 values, bit for bit; again with the gradients as views
    into one flat buffer, the engine's layout).  Times as in phase 3, with
@@ -78,15 +80,19 @@ Phases, each printing its own lines; any failure exits non-zero:
    each: a finite, falling loss, the step time and the launch counts of
    every kernel, each model freed before the next.
 
+Phase 2 also prints the registers, spills, blocks per SM and shared
+memory of the kernels the tree redesigned last (the cross-entropy forward
+and the block-sparse forward), from ptxas's log and the occupancy query.
 Phase 6 also holds the three block-sparse kernels against their plain
 versions (``kernel_rounding=True``: p and ds rounded to the input dtype
 before their products, as the bf16 kernels' tensor cores take them; the
 JAX-literal plain version keeps them in fp32 and is reported beside, for
 the path's case) in fp32 and bf16 over SPARSE_CASES below, with
 ``scaled_dot_product_attention`` under the layout's dense mask and the
-port's flash kernels at the same shape as yardsticks.  dKV walks the work
-list of ``dkv_work`` (its rows report the split length, the task count and
-the workspace bytes); a second call must give bitwise-equal dK and dV, and
+port's flash kernels at the same shape as yardsticks.  The forward walks
+the work list of ``fwd_work``, dKV that of ``dkv_work`` (its rows report
+the split length, the task count and the workspace bytes); a second call
+must give bitwise-equal dK and dV, and
 the fixed split lengths of DKV_SPLITS are held to the same tolerances and
 timed beside the kept one at each bf16 case.
 
@@ -159,6 +165,9 @@ CE_SHAPE = (TRAIN_MICRO * TRAIN_SEQ, 768, 50304, 50257)     # N, E, V, vocab_siz
 # the cross-entropy kernels at the other GPT-2 widths (bf16, the path's
 # dtype; same N, V and inputs as CE_SHAPE)
 CE_WIDTHS = {"gpt2-medium-train": 1024, "gpt2-large-train": 1280, "gpt2-xl-train": 1600}
+# the cross-entropy forward alone at the sparse step's shape (micro 2 x seq
+# 4096 = N 8192 rows; bf16, E 768, the same V and inputs)
+CE_SPARSE_ROWS = 2 * 4096
 # phase 11: preset -> train_batch steps at full size (the first a warm-up)
 TRAIN_WIDTHS = {"gpt2-medium": 3, "gpt2-large": 2, "gpt2-xl": 2}
 # cross-entropy inputs: x ~ N(0, 1), head ~ N(0, CE_HEAD_STD^2), so the
@@ -702,6 +711,21 @@ def phase_bf16(model, prompts, device, blocks: int, card: str):
 # --------------------------------------------------------------------------- #
 # phase 6: the training kernels against their plain versions
 # --------------------------------------------------------------------------- #
+def build_info(log: str, entry: str):
+    """(registers, spill store bytes, spill load bytes) of the kernel whose
+    mangled name holds ``entry``, from ptxas's lines in the build log."""
+    import re
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and entry in line:
+            text = " ".join(lines[i:i + 6])
+            regs = re.search(r"Used (\d+) registers", text)
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)
+            if regs and spills:
+                return int(regs.group(1)), int(spills.group(1)), int(spills.group(2))
+    fail(f"build log: no ptxas line for {entry}")
+
+
 def report_rows(rows):
     """Print each kernel case with its checks, then fail if a check is past
     its tolerance.  A row without ``checks`` is held to TOL of max(1,
@@ -973,7 +997,8 @@ def sparse_cases(device, flush, card: str, reps: int = 20, plain_reps: int = 3):
             row_lut, row_cnt, col_lut, col_cnt = tbs.device_luts(layout, device)
             scale = 1.0 / 8.0
             fargs = (q, k, v, row_lut, row_cnt, causal, scale)
-            o, lse = tbs.block_sparse_forward(*fargs)
+            fwork = tbs.fwd_work(layout, causal, device)
+            o, lse = tbs.block_sparse_forward(*fargs, work=fwork)
             ro, rlse = tbs.block_sparse_forward_reference(*fargs, kernel_rounding=True)
             delta = (ro.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
             qargs = (q, k, v, do, rlse, delta, row_lut, row_cnt, causal, scale)
@@ -1027,14 +1052,17 @@ def sparse_cases(device, flush, card: str, reps: int = 20, plain_reps: int = 3):
             esize = q.element_size()
             n_q, n_row = q.numel(), B * H * S
             pairs = B * sparse_pairs(layout, causal, bs)
-            lut_r = 4 * (row_lut.numel() + row_cnt.numel())
+            lut_r = 4 * (row_lut.numel() + row_cnt.numel())             # dQ's row LUT
+            lut_f = 4 * (fwork.tasks.numel() + fwork.entries.numel())   # the forward's work list
             lut_c = 4 * (work.tasks.numel() + work.entries.numel())     # dKV's work list
             specs = [
                 ("block_sparse_forward", [("o", o, ro), ("lse", lse, rlse)],
-                 lambda: tbs.block_sparse_forward(*fargs),
+                 lambda: tbs.block_sparse_forward(*fargs, work=fwork),
                  lambda: tbs.block_sparse_forward_reference(*fargs, kernel_rounding=True),
-                 4 * n_q * esize + 4 * n_row + lut_r, 4.0 * 64 * pairs, fwd_lib,
-                 f"library: SDPA forward under the dense mask; flash forward {flash_fwd:.4f}"),
+                 4 * n_q * esize + 4 * n_row + lut_f, 4.0 * 64 * pairs, fwd_lib,
+                 f"library: SDPA forward under the dense mask; flash forward {flash_fwd:.4f}; "
+                 f"{fwork.tasks.shape[0]} tasks x batch {B}, longest walk "
+                 f"{int(fwork.tasks[0, 3])}"),
                 ("block_sparse_backward_dq", [("dq", dq, rdq)],
                  lambda: tbs.block_sparse_backward_dq(*qargs),
                  lambda: tbs.block_sparse_backward_dq_reference(*qargs, kernel_rounding=True),
@@ -1083,17 +1111,22 @@ def sparse_cases(device, flush, card: str, reps: int = 20, plain_reps: int = 3):
 
 def ce_cases(device, flush, reps: int = 20, plain_reps: int = 5):
     """The three cross-entropy kernels at GPT-2's training shape (N 4096 =
-    micro 8 x seq 512, E 768, V 50304, vocab 50257), fp32 and bf16, and in
-    bf16 at the other GPT-2 widths (CE_WIDTHS)."""
+    micro 8 x seq 512, E 768, V 50304, vocab 50257), fp32 and bf16, in bf16
+    at the other GPT-2 widths (CE_WIDTHS), and the forward alone at the
+    sparse step's N 8192.  Beside the forward, cuBLAS's ``x @
+    head[:vocab]^T`` alone (and over the padded head, ``x @ head^T``): the
+    least a library takes for the product the kernel fuses."""
     import torch
     import torch.nn.functional as F
     tce = kernel_modules()[1]
 
-    N, E0, V, vocab = CE_SHAPE
-    runs = [("gpt2-train", E0, "float32"), ("gpt2-train", E0, "bfloat16")] + [
-        (case, E, "bfloat16") for case, E in CE_WIDTHS.items()]
+    N0, E0, V, vocab = CE_SHAPE
+    runs = [("gpt2-train", N0, E0, "float32"), ("gpt2-train", N0, E0, "bfloat16")] + [
+        (case, N0, E, "bfloat16") for case, E in CE_WIDTHS.items()] + [
+        ("gpt2-s4096-sparse", CE_SPARSE_ROWS, E0, "bfloat16")]
     rows = []
-    for case, E, dtype_name in runs:
+    for case, N, E, dtype_name in runs:
+        forward_only = N != N0
         rng = np.random.default_rng(4321)
         x32 = torch.from_numpy(rng.standard_normal((N, E), dtype=np.float32)).to(device)
         h32 = torch.from_numpy(rng.standard_normal((V, E), dtype=np.float32)
@@ -1108,13 +1141,17 @@ def ce_cases(device, flush, reps: int = 20, plain_reps: int = 5):
         nll, lse = tce.ce_forward(x, head, labels, vocab)
         rnll, rlse = tce.ce_forward_reference(x, head, labels, vocab, fp32_products=True)
         args = (x, head, labels, rlse, gscale, vocab)
-        outs = {"ce_forward": (torch.stack([nll, lse]), torch.stack([rnll, rlse])),
-                "ce_backward_dx": (tce.ce_backward_dx(*args),
-                                   tce.ce_backward_dx_reference(*args, fp32_products=True)),
-                "ce_backward_dhead": (tce.ce_backward_dhead(*args),
-                                      tce.ce_backward_dhead_reference(*args,
-                                                                      fp32_products=True))}
+        outs = {"ce_forward": (torch.stack([nll, lse]), torch.stack([rnll, rlse]))}
+        if not forward_only:
+            outs["ce_backward_dx"] = (tce.ce_backward_dx(*args),
+                                      tce.ce_backward_dx_reference(*args, fp32_products=True))
+            outs["ce_backward_dhead"] = (tce.ce_backward_dhead(*args),
+                                         tce.ce_backward_dhead_reference(*args,
+                                                                         fp32_products=True))
+        del rnll, rlse
         torch.cuda.synchronize()
+        product_ms = median_ms(lambda: x @ head[:vocab].T, k_reps, flush)
+        padded_ms = median_ms(lambda: x @ head.T, k_reps, flush)
         # yardstick: x @ head^T over the real vocab, then F.cross_entropy (two
         # calls), and one autograd backward that gives dx and dhead together
         xr = x.detach().requires_grad_()
@@ -1122,8 +1159,8 @@ def ce_cases(device, flush, reps: int = 20, plain_reps: int = 5):
         lab64 = labels.long()
         fwd_lib = median_ms(lambda: F.cross_entropy(xr @ hr.T, lab64), k_reps, flush)
         loss = F.cross_entropy(xr @ hr.T, lab64)
-        bwd_lib = median_ms(lambda: torch.autograd.grad(loss, (xr, hr), retain_graph=True),
-                            k_reps, flush)
+        bwd_lib = None if forward_only else median_ms(
+            lambda: torch.autograd.grad(loss, (xr, hr), retain_graph=True), k_reps, flush)
         io = N * E * esize + V * E * esize + N * 4 + N * 4      # x, head, labels, lse
         # kernel and plain (the module's own, JAX's unchunked branch) timings
         specs = {
@@ -1140,7 +1177,12 @@ def ce_cases(device, flush, reps: int = 20, plain_reps: int = 5):
                                   io + V * E * esize, 4.0 * N * E * V, bwd_lib,
                                   "library: one autograd backward giving dx and dhead"),
         }
+        specs["ce_forward"] = specs["ce_forward"][:5] + (
+            specs["ce_forward"][5] + f"; product-only {product_ms:.4f} (x @ head[:vocab]^T), "
+            f"{padded_ms:.4f} (x @ head^T, V {V})",)
         for name, (kern, plain, nbytes, flops, lib, note) in specs.items():
+            if name not in outs:
+                continue
             out, ref = outs[name]
             if not torch.isfinite(out.float()).all():
                 fail(f"{name} {dtype_name}: non-finite kernel output")
@@ -1150,7 +1192,8 @@ def ce_cases(device, flush, reps: int = 20, plain_reps: int = 5):
                 kernel=name, case=case, dtype=dtype_name, err=err, scaled=scaled,
                 checks=ce_checks(name, dtype_name, out, ref, head, labels, gscale, vocab),
                 ms=median_ms(kern, k_reps, flush), plain_ms=median_ms(plain, plain_reps, flush),
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib, note=note))
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib, note=note,
+                product_ms=product_ms if name == "ce_forward" else None))
         del xr, hr, loss, outs, x, head
         torch.cuda.empty_cache()
     return rows
@@ -1378,9 +1421,11 @@ def profile_train_step(engine, batch, card: str, attn_impl: str = "auto"):
         f"{sum(n for _, n in by_name.values())} kernels) [{card}]")
     for cat, t in sorted(split.items(), key=lambda kv: -kv[1]):
         say(f"  {t / device_total:6.1%} {t / 1e3:8.3f} ms  {cat}")
-    # the kernels redesigned last, by name: device ms and launches in the step
+    # the kernels redesigned lately, by name: device ms and launches in the step
     picked = {label: [(t, n) for name, (t, n) in by_name.items() if key in name]
-              for label, key in (("block-sparse dKV", "sparse_dkv_kernel"),
+              for label, key in (("CE forward", "ce_fwd_"),
+                                 ("block-sparse forward", "sparse_fwd_kernel"),
+                                 ("block-sparse dKV", "sparse_dkv_kernel"),
                                  ("flash dKV", "flash_dkv_kernel"), ("AdamW", "adam_kernel"))}
     say("train profile: per step " + ", ".join(
         f"{label} {sum(t for t, _ in hits) / 1e3:.3f} ms ({sum(n for _, n in hits)} launches)"
@@ -1477,9 +1522,11 @@ def phase_train_fp32_parity(device, steps: int = 3, seq: int = TRAIN_SEQ,
     tfa.flash_forward = tfa.flash_forward_reference
     tfa.flash_backward_dq = tfa.flash_backward_dq_reference
     tfa.flash_backward_dkv = tfa.flash_backward_dkv_reference
-    tbs.block_sparse_forward = tbs.block_sparse_forward_reference
+    # the plain versions walk the LUTs, not the forward's or dKV's work list
+    tbs.block_sparse_forward = (
+        lambda *args, work=None: tbs.block_sparse_forward_reference(*args))
     tbs.block_sparse_backward_dq = tbs.block_sparse_backward_dq_reference
-    tbs.block_sparse_backward_dkv = (     # the plain version walks the LUT, not dKV's work list
+    tbs.block_sparse_backward_dkv = (
         lambda *args, work=None: tbs.block_sparse_backward_dkv_reference(*args))
     tce.ce_forward = tce.ce_forward_reference
     tce.ce_backward_dx = tce.ce_backward_dx_reference
@@ -1578,6 +1625,21 @@ def main() -> int:
                  for dt_name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32))]
     say("block-sparse blocks per SM x shared memory per block at S 4096 (occupancy query): "
         + ", ".join(f"{kern} {dt_name} {n} x {smem} B" for kern, dt_name, n, smem in occupancy))
+    # the kernels this tree redesigned: registers and spills (ptxas), blocks
+    # per SM and dynamic shared memory per block (the occupancy query)
+    from deepspeed_tpu_torch.ops.cuda import cross_entropy as tce
+    redesigned = [("ce_fwd_wgmma_kernel", "ce_fwd_wgmma_kernel",
+                   tce.kernel_occupancy(torch.bfloat16)),
+                  ("ce_fwd_kernel (fp32)", "13ce_fwd_kernelE", tce.kernel_occupancy(torch.float32)),
+                  ("sparse_fwd_kernel<bf16>", "sparse_fwd_kernelI13__nv_bfloat16",
+                   tbs.kernel_occupancy("forward", torch.bfloat16, nb)),
+                  ("sparse_fwd_kernel<fp32>", "sparse_fwd_kernelIf",
+                   tbs.kernel_occupancy("forward", torch.float32, nb))]
+    say("redesigned kernels (registers, spill stores / loads in bytes, blocks per SM, shared "
+        "memory per block): " + "; ".join(
+            "{} {} regs, spills {} / {}, {} per SM, {} B".format(
+                name, *build_info(res.log, entry), blocks, smem)
+            for name, entry, (blocks, smem) in redesigned))
     say("kernels: paged_attention, decode_attention, flash_forward, flash_backward_dq, "
         "flash_backward_dkv, ce_forward, ce_backward_dx, ce_backward_dhead, fused_adam, "
         "block_sparse_forward, block_sparse_backward_dq, block_sparse_backward_dkv")

@@ -11,7 +11,11 @@ tables: the row LUT ``[H * nb, max_r]`` (the key blocks of each layout row,
 ascending, padded with the last) with its counts ``[H, nb]``, and the
 column LUT and counts likewise.  ``device_luts`` keeps them as int32
 tensors once per layout and device, so no step copies a LUT from the host.
-The dKV kernel walks a work list made from the column LUT on the host
+The forward kernel walks a work list made from the row LUT on the host
+(``build_fwd_tasks``: each row's live key blocks, the causal filter
+applied, longest first across heads); ``fwd_work`` keeps it on the device
+once per layout, ``causal`` and device.  The dKV kernel walks a work list
+made from the column LUT on the host
 (``build_dkv_tasks``: each key block's live query blocks, long columns
 split into near-equal runs, longest first); ``dkv_work`` keeps it on the
 device with the kernel's workspace (fp32 partials of the split columns and
@@ -44,8 +48,9 @@ contiguous, rows on 16-byte boundaries); o, dq, dk and dv come out
 contiguous.  Kernel notes (bound, design) are in the ``.cu`` file.
 
 ``block_sparse_attention`` is differentiable in q, k and v through the
-custom op ``dst_torch::block_sparse_fwd`` (returning o and lse; the column
-LUT and dKV's work list ride along as inputs) and its registered backward.
+custom op ``dst_torch::block_sparse_fwd`` (returning o and lse over the
+forward's work list; the column LUT and dKV's work list ride along as
+inputs) and its registered backward.
 Activation checkpointing saves nothing of it, as the JAX policy saves only
 flash's outputs, so under remat its forward runs twice per layer
 (``runtime/activation_checkpointing/checkpointing.py``).
@@ -134,6 +139,65 @@ def device_luts(layout: np.ndarray, device) -> Tuple[torch.Tensor, ...]:
     layout = _as_layout(layout)
     H, nb, _ = layout.shape
     return _device_luts_cached(layout.tobytes(), H, nb, str(torch.device(device)))
+
+
+# --------------------------------------------------------------------------- #
+# The forward's work list
+# --------------------------------------------------------------------------- #
+FWD_TASK_FIELDS = ("head", "query_block", "first", "count", "diagonal")
+
+
+def build_fwd_tasks(row_lut: np.ndarray, row_cnt: np.ndarray, causal: bool):
+    """The forward's work list, from the numpy row LUT of ``build_luts``.
+
+    A task is one (head, query block) row's live key blocks: all it lists,
+    or under ``causal`` those at or before the query block, ascending; a
+    row with none is a task of count 0 (it writes o = 0, lse = -1e30).
+    ``diagonal`` is 1 where the walk's last block is the query block itself
+    under ``causal``, the one block the kernel masks by value.
+
+    Returns ``(tasks, entries)``: ``tasks`` int32 ``[H * nb, 5]`` with the
+    columns of ``FWD_TASK_FIELDS``, sorted by count, longest first (stably:
+    ties by head, then query block); task i walks ``entries[first : first +
+    count]``.
+    """
+    H, nb = row_cnt.shape
+    rows, runs = [], []
+    for h in range(H):
+        for qb in range(nb):
+            live = row_lut[h * nb + qb, :row_cnt[h, qb]]
+            if causal:
+                live = live[live <= qb]
+            runs.append(live)
+            rows.append([h, qb, 0, len(live), int(causal and len(live) > 0 and live[-1] == qb)])
+    order = sorted(range(len(rows)), key=lambda i: -rows[i][3])
+    tasks = np.asarray([rows[i] for i in order], np.int32).reshape(-1, len(FWD_TASK_FIELDS))
+    counts = tasks[:, 3].astype(np.int64)
+    tasks[:, 2] = np.cumsum(counts) - counts
+    entries = np.concatenate([runs[i] for i in order] + [np.zeros(0, np.int32)])
+    return tasks, entries.astype(np.int32)
+
+
+class FwdWork(NamedTuple):
+    """The forward's work list on a device (``build_fwd_tasks``)."""
+    tasks: torch.Tensor       # int32 [H * nb, 5] (FWD_TASK_FIELDS)
+    entries: torch.Tensor     # int32 [n_entries]
+
+
+@functools.lru_cache(maxsize=64)
+def _fwd_work_cached(layout_bytes: bytes, H: int, nb: int, causal: bool, device: str) -> FwdWork:
+    row_lut, row_cnt, _, _ = _luts_cached(layout_bytes, H, nb)
+    tasks, entries = build_fwd_tasks(row_lut, row_cnt, causal)
+    return FwdWork(torch.from_numpy(tasks).to(device), torch.from_numpy(entries).to(device))
+
+
+def fwd_work(layout: np.ndarray, causal: bool, device) -> FwdWork:
+    """``build_fwd_tasks`` of the layout's row LUT on ``device``, made once
+    per (layout, causal, device): the list does not depend on the batch,
+    which the kernel's grid folds in."""
+    layout = _as_layout(layout)
+    H, nb, _ = layout.shape
+    return _fwd_work_cached(layout.tobytes(), H, nb, bool(causal), str(torch.device(device)))
 
 
 # --------------------------------------------------------------------------- #
@@ -451,20 +515,36 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def block_sparse_forward(q, k, v, row_lut, row_cnt, causal: bool, scale: float
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _check_fwd_work(work: Optional[FwdWork], H: int, nb: int, device) -> None:
+    """What the forward kernel takes of its work list (``fwd_work``)."""
+    name = "block_sparse_forward"
+    if work is None:
+        raise ValueError(f"{name}: the CUDA kernel walks a work list: pass work=fwd_work(layout, "
+                         "causal, device)")
+    tasks, entries = work
+    ok = (tasks.dtype == entries.dtype == torch.int32 and all(t.is_contiguous() for t in work)
+          and all(t.device == device for t in work)
+          and tuple(tasks.shape) == (H * nb, len(FWD_TASK_FIELDS)))
+    if not ok:
+        raise ValueError(f"{name}: work must be fwd_work of this layout on {device}")
+
+
+def block_sparse_forward(q, k, v, row_lut, row_cnt, causal: bool, scale: float,
+                         work: Optional[FwdWork] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o ``[B, S, H, D]`` in q's dtype, lse fp32 ``[B, H, S]``) over the
-    row LUT.  CPU tensors take the plain version."""
+    row LUT.  CPU tensors take the plain version; on CUDA the kernel walks
+    ``work`` (``fwd_work`` of the same layout and ``causal``)."""
     if q.device.type == "cpu":
         return block_sparse_forward_reference(q, k, v, row_lut, row_cnt, causal, scale)
     dtype = _check("block_sparse_forward", q, k, v, row_lut, row_cnt)
     B, S, H, _ = q.shape
+    _check_fwd_work(work, H, row_cnt.shape[1], q.device)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     lib = builder.load_library()
-    rc = lib.dst_sparse_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), row_lut.data_ptr(),
-                                row_cnt.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                                _strides(q, k, v, None), B, S, H, row_lut.shape[1], scale,
+    rc = lib.dst_sparse_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), work.tasks.data_ptr(),
+                                work.entries.data_ptr(), work.tasks.shape[0], o.data_ptr(),
+                                lse.data_ptr(), _strides(q, k, v, None), B, S, H, scale,
                                 int(causal), dtype, _stream(q))
     builder.check(lib, rc, "block_sparse_forward")
     block_sparse_forward.launches += 1
@@ -571,29 +651,32 @@ def kernel_occupancy(kernel: str, dtype: torch.dtype, nb: int, max_n: int = 0
 @torch.library.custom_op("dst_torch::block_sparse_fwd", mutates_args=())
 def block_sparse_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         row_lut: torch.Tensor, row_cnt: torch.Tensor, col_lut: torch.Tensor,
-                        col_cnt: torch.Tensor, dkv_tasks: torch.Tensor,
-                        dkv_entries: torch.Tensor, dkv_partials: torch.Tensor,
-                        dkv_counters: torch.Tensor, causal: bool, scale: float
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(o, lse) of ``block_sparse_forward``, as one dispatcher op; the
-    column LUT and dKV's work list (``DkvWork``'s four tensors) ride along
-    for the backward."""
-    return block_sparse_forward(q, k, v, row_lut, row_cnt, causal, scale)
+                        col_cnt: torch.Tensor, fwd_tasks: torch.Tensor,
+                        fwd_entries: torch.Tensor, dkv_tasks: torch.Tensor,
+                        dkv_entries: torch.Tensor,
+                        dkv_partials: torch.Tensor, dkv_counters: torch.Tensor, causal: bool,
+                        scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse) of ``block_sparse_forward`` over its work list (``FwdWork``'s
+    two tensors), as one dispatcher op; the column LUT and dKV's work list
+    (``DkvWork``'s four tensors) ride along for the backward."""
+    return block_sparse_forward(q, k, v, row_lut, row_cnt, causal, scale,
+                                work=FwdWork(fwd_tasks, fwd_entries))
 
 
 @block_sparse_fwd_op.register_fake
-def _block_sparse_fwd_fake(q, k, v, row_lut, row_cnt, col_lut, col_cnt, dkv_tasks,
-                           dkv_entries, dkv_partials, dkv_counters, causal, scale):
+def _block_sparse_fwd_fake(q, k, v, row_lut, row_cnt, col_lut, col_cnt, fwd_tasks,
+                           fwd_entries, dkv_tasks, dkv_entries, dkv_partials, dkv_counters,
+                           causal, scale):
     B, S, H, _ = q.shape
     return q.new_empty(q.shape), q.new_empty((B, H, S), dtype=torch.float32)
 
 
 def _setup_context(ctx, inputs, output):
     q, k, v, row_lut, row_cnt, col_lut, col_cnt = inputs[:7]
-    causal, scale = inputs[11:]
+    causal, scale = inputs[13:]
     o, lse = output
     ctx.save_for_backward(q, k, v, row_lut, row_cnt, col_lut, col_cnt, o, lse)
-    ctx.work = DkvWork(*inputs[7:11])
+    ctx.work = DkvWork(*inputs[9:13])
     ctx.causal, ctx.scale = causal, scale
 
 
@@ -605,7 +688,7 @@ def _backward(ctx, do, _dlse):
                                   ctx.scale)
     dk, dv = block_sparse_backward_dkv(q, k, v, do, lse, delta, col_lut, col_cnt, ctx.causal,
                                        ctx.scale, work=ctx.work)
-    return (dq, dk, dv) + (None,) * 10
+    return (dq, dk, dv) + (None,) * 12
 
 
 block_sparse_fwd_op.register_autograd(_backward, setup_context=_setup_context)
@@ -641,6 +724,7 @@ def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     o, _ = block_sparse_fwd_op(q, k, v, *device_luts(layout, q.device),
+                               *fwd_work(layout, causal, q.device),
                                *dkv_work(layout, causal, B, q.device, q.dtype), causal,
                                float(scale))
     return o

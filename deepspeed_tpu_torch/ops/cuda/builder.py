@@ -138,6 +138,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dst_ce_backward_dhead.argtypes = [vp, vp, vp, vp, vp, vp,
                                           ci, ci, ci, ci, ci, vp]
     lib.dst_ce_backward_dhead.restype = ci
+    lib.dst_ce_forward_occupancy.argtypes = [ci, ctypes.POINTER(ci)]
+    lib.dst_ce_forward_occupancy.restype = ci
     lib.dst_ce_backward_active_clusters.argtypes = [ci, ci]
     lib.dst_ce_backward_active_clusters.restype = ci
     lib.dst_fused_adam.argtypes = [vp, ci, vp, ci, ci, vp,
@@ -155,8 +157,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dst_flash_backward_dkv.restype = ci
     lib.dst_flash_occupancy.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
     lib.dst_flash_occupancy.restype = ci
-    lib.dst_sparse_forward.argtypes = [vp, vp, vp, vp, vp, vp, vp, strides,
-                                       ci, ci, ci, ci, cf, ci, ci, vp]
+    lib.dst_sparse_forward.argtypes = [vp, vp, vp, vp, vp, ci, vp, vp, strides,
+                                       ci, ci, ci, cf, ci, ci, vp]
     lib.dst_sparse_forward.restype = ci
     lib.dst_sparse_backward_dq.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, strides,
                                            ci, ci, ci, ci, cf, ci, ci, vp]

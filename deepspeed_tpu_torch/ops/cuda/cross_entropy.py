@@ -28,16 +28,22 @@ Kernel notes (details in the ``.cu`` file): all three are bound by
 operations (the score product x . head^T, recomputed in each kernel so no
 ``[N, V]`` tensor reaches device memory); bf16 inputs go through the
 tensor cores, fp32 inputs through fp32 FMA.  The kernels take any n_embd
-that is a multiple of 8 up to ``MAX_EMBD`` (1664: every GPT-2 width); dx
-and dhead are one CUDA kernel, run by thread-block clusters of up to
+that is a multiple of 8 up to ``MAX_EMBD`` (1664: every GPT-2 width).  The
+bf16 forward runs warpgroup MMA on TMA-fed tiles of 128 rows x
+``FWD_COLS`` vocab columns, the online softmax on its accumulators, over
+``fwd_grid``'s vocab splits; the last block of a row tile merges the
+splits in split order and resets its arrival counter, so the counters
+(``_fwd_counters``, one set per device) are never memset.  dx and dhead
+are one CUDA kernel, run by thread-block clusters of up to
 ``BWD_MAX_CLUSTER`` blocks, each owning a slice of n_embd of at most
-``BWD_SLICE`` columns.  The head bias of the
-JAX kernel is not ported (GPT-2 has none).
+``BWD_SLICE`` columns.  The head bias of the JAX kernel is not ported
+(GPT-2 has none).
 
 Each wrapper counts its launches (``ce_forward.launches``); each plain
 version counts its calls (``ce_forward_reference.calls``).
 """
 
+import ctypes
 import functools
 from typing import Optional, Tuple
 
@@ -46,8 +52,14 @@ import torch
 from deepspeed_tpu_torch.ops.cuda import builder
 
 PAD_LOGIT = -1e9
+# the forward: rows and vocab columns of a tile (by dtype); fp32 keeps a
+# fixed 32 vocab splits, bf16 takes fwd_grid's from the card's block slots
 FWD_ROWS = 128
-FWD_SPLITS = 32          # vocab splits of the forward grid: 32 row tiles x 32 = 1024 blocks
+FWD_COLS = {torch.bfloat16: 256, torch.float32: 128}
+FWD_SPLITS_FP32 = 32
+# fwd_grid's estimate of a block's fixed cost (filling the ring, writing and
+# merging its partials), in vocab tiles
+FWD_BLOCK_COST = 0.5
 # the backward: resident rows per cluster and streamed rows per tile (by
 # dtype), and the widest slice of n_embd one block of a cluster (at most 8
 # blocks) owns
@@ -225,6 +237,63 @@ def dx_grid(N: int, V: int, dtype: torch.dtype, active: int) -> Tuple[int, int]:
     return tiles, best[1]
 
 
+def fwd_grid(N: int, V: int, dtype: torch.dtype, slots: int) -> Tuple[int, int]:
+    """(row tiles, vocab splits) of the forward: bf16 the split count whose
+    waves of ``slots`` blocks (the card's SMs x blocks per SM) finish
+    soonest, each block costing its tiles plus ``FWD_BLOCK_COST`` (the
+    fewest splits among equals); fp32 ``FWD_SPLITS_FP32``.  Either way no
+    more splits than vocab tiles, and every split non-empty."""
+    tiles = -(-N // FWD_ROWS)
+    v_tiles = -(-V // FWD_COLS[dtype])
+    if dtype != torch.bfloat16:
+        return tiles, -(-v_tiles // -(-v_tiles // min(FWD_SPLITS_FP32, v_tiles)))
+    best = None
+    for want in range(1, v_tiles + 1):
+        per_split = -(-v_tiles // want)
+        splits = -(-v_tiles // per_split)
+        cost = -(-tiles * splits // slots) * (per_split + FWD_BLOCK_COST)
+        if best is None or cost < best[0]:
+            best = (cost, splits)
+    return tiles, best[1]
+
+
+def kernel_occupancy(dtype: torch.dtype) -> Tuple[int, int]:
+    """(blocks per SM, dynamic shared memory bytes per block) of the
+    forward kernel for ``dtype`` on the current card, by CUDA's occupancy
+    query.  Launches nothing."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"kernel_occupancy: no forward kernel for {dtype}")
+    lib = builder.load_library()
+    smem = ctypes.c_int(0)
+    blocks = lib.dst_ce_forward_occupancy(_DTYPE_CODES[dtype], ctypes.byref(smem))
+    if blocks <= 0:
+        raise RuntimeError("kernel_occupancy: the occupancy query failed")
+    return blocks, smem.value
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_slots(dtype: torch.dtype, device_index: int) -> int:
+    """Forward blocks the card holds at once: SMs x blocks per SM."""
+    with torch.cuda.device(device_index):
+        blocks, _ = kernel_occupancy(dtype)
+    return torch.cuda.get_device_properties(device_index).multi_processor_count * blocks
+
+
+_FWD_COUNTERS = {}
+
+
+def _fwd_counters(device: torch.device, tiles: int) -> torch.Tensor:
+    """The forward's arrival counters (one per row tile) on ``device``: made
+    zero once and kept, since each launch leaves them at 0; grown when a
+    call has more row tiles.  Calls that share them must run on one
+    stream."""
+    counters = _FWD_COUNTERS.get(device)
+    if counters is None or counters.numel() < tiles:
+        counters = torch.zeros(max(tiles, 64), dtype=torch.int32, device=device)
+        _FWD_COUNTERS[device] = counters
+    return counters
+
+
 def ce_forward(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
                vocab_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row (nll, lse) in fp32 without materializing logits.  CPU
@@ -236,15 +305,16 @@ def ce_forward(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
     dtype = _check_cuda("ce_forward", x, head, labels, vocab_size)
     N, E = x.shape
     V = head.shape[0]
+    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    tiles, splits = fwd_grid(N, V, x.dtype, _fwd_slots(x.dtype, index))
     f32 = dict(dtype=torch.float32, device=x.device)
     nll, lse = torch.empty(N, **f32), torch.empty(N, **f32)
-    part = torch.empty(FWD_SPLITS * 3 * N, **f32)
-    counters = torch.zeros(-(-N // FWD_ROWS), dtype=torch.int32, device=x.device)
+    part = torch.empty(splits * 3 * N, **f32)
+    counters = _fwd_counters(torch.device("cuda", index), tiles)
     lib = builder.load_library()
     rc = lib.dst_ce_forward(x.data_ptr(), head.data_ptr(), labels.data_ptr(),
                             part.data_ptr(), counters.data_ptr(), nll.data_ptr(),
-                            lse.data_ptr(), N, E, V, vocab_size, FWD_SPLITS, dtype,
-                            _stream(x))
+                            lse.data_ptr(), N, E, V, vocab_size, splits, dtype, _stream(x))
     builder.check(lib, rc, "ce_forward")
     ce_forward.launches += 1
     return nll, lse

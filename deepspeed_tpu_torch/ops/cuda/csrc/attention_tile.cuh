@@ -187,15 +187,6 @@ __device__ __forceinline__ void store_rows(T* out, long long row_stride, const f
   }
 }
 
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
-  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(kFull, x, 1);
-  return x + __shfl_xor_sync(kFull, x, 2);
-}
-
 // ---- ldmatrix helpers (the decode prefill path and the flash forward) ----
 
 // dst[r][0 : kD) = src[(row0 + r) * ss + 0 : kD) for r < ROWS, by THREADS

@@ -30,8 +30,34 @@
 // multiplied, each block's own tile is read once, scores and probabilities
 // never leave registers.
 //
-// Design of the forward and dQ (simple and right first; the tile code is
-// flash's, attention_tile.cuh):
+// Design of the forward (flash forward's tile body over a work list made on
+// the host; redesigned for Hopper):
+// * The wrapper builds, once per layout and `causal`, a work list
+//   (block_sparse_attention.py: build_fwd_tasks): a task is one (head,
+//   query block) row's live key blocks (the causal filter applied on the
+//   host, so no thread copies or filters a LUT row), marked where its last
+//   block is the causal diagonal; every row has a task, an empty one
+//   writing o = 0 and lse = -1e30.  Tasks run longest first across heads
+//   and the grid is tasks x batch, batch fastest, so the longest walks of
+//   every head start first and the short ones fill the tail.  The block
+//   copies its task's entries to shared memory once, all threads together.
+// * Per tile, the flash forward's body: Q held as ldmatrix fragments in
+//   registers (RowFragments), K by ldmatrix and V by ldmatrix.trans
+//   (pv_tile), scores in log2 units (scale * log2(e) folded into the
+//   exponential's FFMA, one ex2.approx each), masking by value only on the
+//   diagonal block, a ring of kFwdStages key / value buffers filled by
+//   cp.async with one barrier per tile, blocks per SM by __launch_bounds__
+//   (kFwdBlocksPerSm), read back by the occupancy query.  An empty row
+//   writes JAX's lse = -1e30 directly: the log2 formula (m + log2 l) ln 2
+//   would give -inf there (l = 0), and a running max started at -1e30
+//   unscaled would give -1e30 ln 2.
+// * What holds it (H100 SXM, 700 W; PERF.md, section 6): a live tile now
+//   costs about what the flash forward's tile costs, so the tile body
+//   (mma.sync on 16-row warp tiles) is the limit, not the walk; the
+//   longest-first order is worth ~15 % (forward_variants.py).
+//
+// Design of dQ (simple and right first; the tile code is flash's,
+// attention_tile.cuh):
 // * One block of 4 warps per 64-row query block (grid: query blocks x
 //   heads x batch, the longest rows of a causal layout first).
 // * Each block reads its own count and LUT row and walks only the listed
@@ -82,8 +108,8 @@ namespace {
 struct Params {
   const void* q; const void* k; const void* v; const void* dout;
   const float* lse_in; const float* delta;
-  const int* lut; const int* cnt;     // [H * nb, max_n] and [H * nb] (forward, dQ)
-  const int* tasks; const int* entries;   // dKV's work list: [n_tasks][8] and the live blocks
+  const int* lut; const int* cnt;     // dQ's row LUT: [H * nb, max_n] and [H * nb]
+  const int* tasks; const int* entries;   // the forward's or dKV's work list and live blocks
   float* partials; int* counters;     // dKV: [B][n_slots][2][64 * 64] and [B][n_counters]
   void* o; float* lse; void* dq; void* dk; void* dv;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh;
@@ -130,87 +156,122 @@ template <typename T> __device__ __forceinline__ const T* at(const void* base, l
 }
 
 // --------------------------------------------------------------------------
-// forward: one block per (query block, head, batch), walking the row LUT
+// forward: one block per (task of the work list, batch), walking the task's
+// live key blocks; flash's forward tile body
 // --------------------------------------------------------------------------
 
+constexpr int kFwdTaskInts = 5;         // head, query block, first, count, diagonal
+constexpr int kFwdStages = 2;           // key / value buffers in the ring
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Blocks per SM __launch_bounds__ asks for: bf16 3 (up to 168 registers a
+// thread, the flash forward's), fp32 2 (its shared memory holds 2).
+template <typename T> constexpr int kFwdBlocksPerSm = 3;
+template <> constexpr int kFwdBlocksPerSm<float> = 2;
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads) sparse_fwd_kernel(const Params p) {
+constexpr size_t fwd_smem_bytes(int nb) {   // Q, kFwdStages K and V buffers, the live list
+  return sizeof(T) * (1 + 2 * kFwdStages) * kTileElems<T> + nb * sizeof(int);
+}
+
+// grid: tasks x batch, batch fastest; the tasks come longest first
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kFwdBlocksPerSm<T>) sparse_fwd_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int TE = kTileElems<T>, L = Tr<T>::kLd;
+  constexpr int TE = kTileElems<T>, L = Tr<T>::kLd, NS = kFwdStages;
   T* sq = reinterpret_cast<T*>(smem);
-  T* sk = sq + TE;                  // two buffers each
-  T* sv = sk + 2 * TE;
-  int* live = reinterpret_cast<int*>(sv + 2 * TE);
-  const int qb = gridDim.x - 1 - blockIdx.x;      // the longest causal rows first
-  const int h = blockIdx.y, b = blockIdx.z;
+  T* sk = sq + TE;                  // NS buffers each
+  T* sv = sk + NS * TE;
+  int* live = reinterpret_cast<int*>(sv + NS * TE);
+  const int* task = p.tasks + (long long)(blockIdx.x / p.B) * kFwdTaskInts;
+  const int h = task[0], qb = task[1], first = task[2], n = task[3], diagonal = task[4];
+  const int b = blockIdx.x % p.B;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int row0 = qb * kTile, wrow0 = row0 + warp * 16;
-  const T* q = at<T>(p.q, b * p.q_sb + h * p.q_sh);
   const T* k = at<T>(p.k, b * p.k_sb + h * p.k_sh);
   const T* v = at<T>(p.v, b * p.v_sb + h * p.v_sh);
-  const int n = live_entries(p, h, qb, live);
+  const float to_log2 = p.scale * kLog2e;
+  auto stage = [&](int it, int buf) {
+    load_tile(sk + buf * TE, k, p.k_ss, live[it] * kTile, p.S);
+    load_tile(sv + buf * TE, v, p.v_ss, live[it] * kTile, p.S);
+  };
 
-  load_tile(sq, q, p.q_ss, row0, p.S);
-  if (n > 0) {
-    load_tile(sk, k, p.k_ss, live[0] * kTile, p.S);
-    load_tile(sv, v, p.v_ss, live[0] * kTile, p.S);
+  for (int i = threadIdx.x; i < n; i += kThreads) live[i] = p.entries[first + i];
+  if (n > 0) load_tile(sq, at<T>(p.q, b * p.q_sb + h * p.q_sh), p.q_ss, row0, p.S);
+  __syncthreads();
+#pragma unroll
+  for (int st = 0; st < NS - 1; ++st) {
+    if (st < n) stage(st, st);
+    commit_copies();                   // the first group also holds Q
   }
-  commit_copies();
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  // m in log2 units from JAX's -1e30 scaled as a score is
+  const float m0 = __fmul_rn(kNegInf, kLog2e);
+  float m[2] = {m0, m0}, l[2] = {0.f, 0.f};
   float acc[8][4];
   zero(acc);
-  for (int j = 0; j < n; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n) {
-      load_tile(sk + (buf ^ 1) * TE, k, p.k_ss, live[j + 1] * kTile, p.S);
-      load_tile(sv + (buf ^ 1) * TE, v, p.v_ss, live[j + 1] * kTile, p.S);
-      commit_copies();
-      wait_copies<1>();
-    } else {
-      wait_copies<0>();
-    }
-    __syncthreads();
+  RowFragments<T> qf;
+  for (int it = 0, buf = 0; it < n; ++it, buf = buf + 1 == NS ? 0 : buf + 1) {
+    wait_copies<NS - 2>();             // key block it has landed
+    __syncthreads();                   // ... for every thread; every warp is done with it - 1
+    if (it + NS - 1 < n) stage(it + NS - 1, buf == 0 ? NS - 1 : buf - 1);
+    commit_copies();
+    if (it == 0) qf.load(sq + warp * 16 * L);
     float s[8][4];
-    product_nt(s, sq + warp * 16 * L, sk + buf * TE);
-    scale_mask(s, p.scale, p.causal && live[j] == qb);
-    float mx[2] = {m[0], m[1]};
+    qf.product_nt(s, sk + buf * TE);
+    // only the causal diagonal block (the walk's last, which the work list
+    // marks) is masked by value: keys past the query take no weight
+    if (diagonal && it == n - 1) {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (jj * 8 + 2 * t + (i & 1) > warp * 16 + g + 8 * (i >> 1)) s[jj][i] = -INFINITY;
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj)
 #pragma unroll
       for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], s[jj][i]);
     float alpha[2], sum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = quad_max(mx[r]);
-      alpha[r] = expf(m[r] - mx[r]);
+    for (int r = 0; r < 2; ++r) {      // the running max in log2 units (to_log2 > 0)
+      mx[r] = fmaxf(m[r], __fmul_rn(quad_max(mx[r]), to_log2));
+      alpha[r] = exp2_approx(__fsub_rn(m[r], mx[r]));
       m[r] = mx[r];
     }
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        s[jj][i] = expf(s[jj][i] - mx[i >> 1]);
+        s[jj][i] = exp2_approx(fmaf(s[jj][i], to_log2, -mx[i >> 1]));
         sum[i >> 1] += s[jj][i];
-        acc[jj][i] *= alpha[i >> 1];
       }
+    if (__any_sync(kFull, alpha[0] != 1.f || alpha[1] != 1.f)) {   // a row's max moved
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[jj][i] *= alpha[i >> 1];
+    }
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];   // this thread's columns
-    product_pv(acc, s, sv + buf * TE);
-    __syncthreads();                   // every warp is done with buf before it is refilled
+    pv_tile(acc, s, sv + buf * TE);
   }
-  wait_copies<0>();                    // the q tile of a row with nothing listed
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    l[r] = fmaxf(quad_sum(l[r]), 1e-30f);      // a row with nothing listed: o = 0
-    inv[r] = 1.f / l[r];
+    l[r] = quad_sum(l[r]);
+    inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;   // a row with nothing live: o = 0
   }
   T* o = static_cast<T*>(p.o) + (long long)b * p.S * p.H * kD + h * kD;
   store_rows<T>(o, (long long)p.H * kD, acc, wrow0, p.S, inv);
   if (t == 0) {
     float* lse = p.lse + ((long long)b * p.H + h) * p.S;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) lse[wrow0 + g + 8 * r] = m[r] + logf(l[r]);
+    for (int r = 0; r < 2; ++r) {      // natural-log units, as dQ and dKV read it
+      const float row_lse = __fmul_rn(__fadd_rn(m[r], log2f(l[r])), kLn2);
+      lse[wrow0 + g + 8 * r] = n > 0 ? row_lse : kNegInf;   // an empty row: JAX's -1e30
+    }
   }
 }
 
@@ -293,7 +354,6 @@ constexpr int kDkvBlocksPerSm = 2;      // K, V, dK and dV fragments take 96 reg
 constexpr int kStages = 2;              // query-block buffers in the ring
 constexpr int kTaskInts = 8;            // h, key block, first, count, split, splits, slot, counter
 constexpr int kPartFloats = kTile * kD;     // one fp32 [64][64] partial
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <typename T>
 constexpr size_t dkv_smem_bytes(int nb) {   // K and V, kStages Q, dO, lse and delta, live list
@@ -482,7 +542,7 @@ template <typename T>
 size_t smem_bytes(Which which, int nb, int max_n) {
   const size_t live = sizeof(int) * max_n;
   switch (which) {
-    case kForward: return 5 * tile_bytes<T>() + live;
+    case kForward: return fwd_smem_bytes<T>(nb);
     case kDq: return 6 * tile_bytes<T>() + live;
     default: return dkv_smem_bytes<T>(nb);
   }
@@ -492,7 +552,7 @@ template <typename T>
 cudaError_t run(Which which, const Params& p, int n_tasks, cudaStream_t st) {
   const size_t smem = smem_bytes<T>(which, p.nb, p.max_n);
   switch (which) {
-    case kForward: return launch(sparse_fwd_kernel<T>, dim3(p.nb, p.H, p.B), smem, p, st);
+    case kForward: return launch(sparse_fwd_kernel<T>, dim3(n_tasks * p.B), smem, p, st);
     case kDq: return launch(sparse_dq_kernel<T>, dim3(p.nb, p.H, p.B), smem, p, st);
     default: return launch(sparse_dkv_kernel<T>, dim3(n_tasks * p.B), smem, p, st);
   }
@@ -533,6 +593,9 @@ int dispatch(Which which, Params p, const long long* strides, int n_tasks, int d
   if (which == kDkv)
     ok = ok && n_tasks > 0 && (long long)n_tasks * p.B <= 0x7fffffffLL && p.n_slots >= 0 &&
          p.n_counters >= 0 && aligned16(p.tasks);
+  else if (which == kForward)            // one task per (head, query block)
+    ok = ok && (long long)n_tasks == (long long)p.H * (p.S / kTile) &&
+         (long long)n_tasks * p.B <= 0x7fffffffLL && p.tasks != nullptr;
   else
     ok = ok && p.max_n > 0 && p.max_n <= p.S / kTile;
   for (int i = 0; i < 12; ++i) ok = ok && strides[i] % vec == 0;
@@ -547,17 +610,18 @@ int dispatch(Which which, Params p, const long long* strides, int n_tasks, int d
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  Each returns a cudaError_t (0 = launched).
-// q, k, v [B, S, H, 64] by strides, S a multiple of 64; lut int32
-// [H * S / 64, max_n] and cnt int32 [H * S / 64], the row LUT of
-// build_luts; o contiguous [B, S, H, 64]; lse fp32 contiguous [B, H, S].
-int dst_sparse_forward(const void* q, const void* k, const void* v, const int* lut,
-                       const int* cnt, void* o, float* lse, const long long* strides, int B,
-                       int S, int H, int max_n, float scale, int causal, int dtype,
-                       void* stream) {
+// q, k, v [B, S, H, 64] by strides, S a multiple of 64; the work list of
+// build_fwd_tasks: tasks int32 [H * S / 64][5] (head, query block, first
+// entry, count, diagonal), longest first, and entries int32 (the tasks' live
+// key blocks); o contiguous [B, S, H, 64]; lse fp32 contiguous [B, H, S].
+int dst_sparse_forward(const void* q, const void* k, const void* v, const int* tasks,
+                       const int* entries, int n_tasks, void* o, float* lse,
+                       const long long* strides, int B, int S, int H, float scale, int causal,
+                       int dtype, void* stream) {
   Params p = {};
-  p.q = q; p.k = k; p.v = v; p.lut = lut; p.cnt = cnt; p.o = o; p.lse = lse;
-  p.B = B; p.S = S; p.H = H; p.max_n = max_n; p.scale = scale; p.causal = causal;
-  return dispatch(kForward, p, strides, 0, dtype, stream);
+  p.q = q; p.k = k; p.v = v; p.tasks = tasks; p.entries = entries; p.o = o; p.lse = lse;
+  p.B = B; p.S = S; p.H = H; p.scale = scale; p.causal = causal;
+  return dispatch(kForward, p, strides, n_tasks, dtype, stream);
 }
 
 // dout by strides like q; lse and delta fp32 contiguous [B, H, S]; dq
@@ -593,9 +657,8 @@ int dst_sparse_backward_dkv(const void* q, const void* k, const void* v, const v
 }
 
 // Blocks of one kernel (which: 0 forward, 1 dQ, 2 dKV) that one SM holds
-// at once at S / 64 = nb layout blocks (max_n listed per row for the
-// forward and dQ); its dynamic shared memory per block in *smem_bytes.  0
-// on an error.
+// at once at S / 64 = nb layout blocks (max_n listed per row for dQ); its
+// dynamic shared memory per block in *smem_bytes.  0 on an error.
 int dst_sparse_occupancy(int which, int dtype, int nb, int max_n, int* smem_bytes) {
   if (which < 0 || which > 2 || (dtype != 0 && dtype != 1) || nb <= 0 || max_n < 0 ||
       smem_bytes == nullptr)

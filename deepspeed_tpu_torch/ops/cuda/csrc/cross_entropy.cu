@@ -21,15 +21,50 @@
 // boundaries), up to 8 x 208 = 1664 in the backward (GPT-2's 768, 1024,
 // 1280 and 1600 all fit); the wrapper raises on any other.
 //
-// Forward (simple and correct first; wmma, not redesigned):
-// * grid (row tiles of 128, vocab splits).  score_tile() computes a 128 x
-//   128 block of s with wmma (bf16) or fp32 FMA, staging x and head in
-//   steps of 32 columns by cp.async (the last step masked when 32 does not
-//   divide E).  Each block walks its split's vocab tiles with the online
-//   softmax (running max, sum, label logit; two threads per row).  The
-//   block that finishes a row tile last (an atomic counter per row tile)
-//   folds the splits' partials in split order, so the result does not
-//   depend on which block ends first.
+// Forward, bf16 (ce_fwd_wgmma_kernel; redesigned for Hopper).  The score
+// product is a GEMM with one long reduction over E and no dependent second
+// product, so it runs on warpgroup MMA fed by the tensor memory accelerator:
+// * A block owns 128 rows of x and a range of vocab tiles of 256 columns.
+//   Warpgroup 0 produces: one thread streams x and head as 64-column
+//   slices of E (128 bytes a row) by TMA, with the 128-byte swizzle the
+//   wgmma shared-memory descriptors name, into a ring of kWgStages stages
+//   (16 KB of x and 32 KB of head each), counted off each stage's
+//   transaction barrier (mbarrier).  The ring carries on across vocab
+//   tiles, so the next tile's first slices land while this tile's softmax
+//   runs.  Warpgroups 1 and 2 consume: each issues wgmma.mma_async
+//   m64n256k16 (both operands in shared memory, fp32 accumulators in
+//   registers, 128 a thread) for its 64 rows, and frees a stage once the
+//   products that read it are done.  setmaxnreg moves registers from the
+//   producer (40) to the consumers (232).
+// * The online softmax runs on the accumulators: each thread holds two
+//   rows' columns in the mma accumulator layout, so a row's max and sum
+//   are quad shuffles.  Scores go to log2 units in the exponential's FFMA,
+//   exponentials by ex2.approx; the thread that holds the label's column
+//   takes its logit.  The score tile never touches shared memory.
+// * TMA's out-of-bounds zero fill masks the ragged edges: rows past N,
+//   vocab rows past V and the columns of a last slice past E (E 200, or
+//   any E not a multiple of 64).  Memory is never padded.  Only a tile
+//   that reaches past vocab_size masks by value.
+// * Grid: row tiles x vocab splits, row tiles fastest, so all row tiles
+//   of one vocab range are in flight together and share its head tiles
+//   through L2 (the head, 77 MB at GPT-2's shape, exceeds the 50 MB L2; x
+//   is 6 MB).  The wrapper picks the split count from the blocks the card
+//   holds at once (the occupancy query; fwd_grid in cross_entropy.py).
+// * Each split writes its rows' (max, sum, label logit); the block that
+//   arrives last at its row tile's counter folds the splits in split order
+//   (merge_splits, shared with fp32), so the result does not depend on
+//   which block ends first, and sets the counter back to 0: counters live
+//   across calls (cached per device by the wrapper), never memset.
+// fp32 (ce_fwd_kernel<float>; not redesigned): 128 x 128 score tiles by
+// FMA from cp.async-staged 32-column steps, two threads a row reading the
+// tile from shared memory, 32 vocab splits; the same partials and merge.
+// Bound: operations, 2 N E V = 317 GFLOP at N 4096, E 768, V 50304: 0.320
+// ms at 989 TFLOP/s (bf16).  What holds the bf16 kernel (H100 SXM, 700 W;
+// PERF.md, section 6): the products and the ring alone take ~87 % of its
+// time, ~81 % of the tensor-core peak; the softmax, which both consumer
+// warpgroups run while no product of theirs is in flight, the other ~13 %
+// (forward_variants.py, "ce-products-only").  Next: overlap one
+// warpgroup's softmax with the other's products.
 //
 // Backward (dx and dhead, one kernel ce_bwd_kernel<T, kDhead>; redesigned
 // for Hopper).  It is flash attention with head width E: a block keeps
@@ -84,12 +119,10 @@
 // and one launch for dx and dhead (the score pass done once).
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "sm90_primitives.cuh"
 
@@ -97,25 +130,9 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int kThreads = 256;                // forward block
-constexpr int kWarps = kThreads / 32;
-constexpr int kBK = 32;                      // E columns per step of the forward's score product
 constexpr float kPadLogit = -1e9f;
 constexpr float kLog2e = 1.4426950408889634f;
-
-constexpr int kFwdRows = 128, kFwdCols = 128;
-
-template <typename T> struct Cfg;
-template <> struct Cfg<bf16> {
-  static constexpr int kLd = kBK + 8;          // forward staging stride (wmma: multiple of 8)
-};
-template <> struct Cfg<float> {
-  static constexpr int kLd = kBK + 1;          // odd stride: conflict-free column reads
-};
-
-template <typename T> constexpr bool kIsBf16 = std::is_same<T, bf16>::value;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __host__ __device__ constexpr size_t align128(size_t b) { return (b + 127) & ~size_t(127); }
 
@@ -129,170 +146,398 @@ __device__ __forceinline__ float masked(float s, int col, int vocab_size) {
 
 // True in the block that arrives last at `counter` (of `expected`); that
 // block then sees every other block's global writes (read them with
-// __ldcg, past the incoherent L1).
+// __ldcg, past the incoherent L1) and sets the counter back to 0, ready
+// for the next launch.
 __device__ bool last_block(int* counter, int expected) {
   __shared__ int is_last;
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) is_last = atomicAdd(counter, 1) == expected - 1;
+  if (threadIdx.x == 0) {
+    is_last = atomicAdd(counter, 1) == expected - 1;
+    if (is_last) *counter = 0;
+  }
   __syncthreads();
+  if (is_last) __threadfence();
   return is_last != 0;
 }
 
 // --------------------------------------------------------------------------
-// forward
+// forward: the splits' partials and their merge (both dtypes)
 // --------------------------------------------------------------------------
 
-// Shared memory of the forward: the score tile s and its two staging tiles.
-template <typename T>
+// Each vocab split leaves, per row, in part [splits][3][n] fp32: the
+// running max of its scores in log2 units, the sum of 2^(s log2(e) - max)
+// over its columns, and the label's logit if the label is one of its
+// columns below vocab_size (else 0).  The block that arrives last at its
+// row tile folds them, rows r = tid, tid + nthreads, ... of the tile: lse
+// = (max + log2 sum) ln 2, nll = lse - the label's logit (-1e9 for a
+// label in [vocab_size, V), JAX's pad logit; 0 outside [0, V)).
+__device__ void merge_splits(const float* part, const int* labels, float* nll, float* lse,
+                             int row0, int rows, int n, int v, int vocab_size, int splits,
+                             int tid, int nthreads) {
+  for (int r = tid; r < rows; r += nthreads) {
+    const int row = row0 + r;
+    if (row >= n) continue;
+    float mm = -INFINITY;
+    for (int j = 0; j < splits; ++j) mm = fmaxf(mm, __ldcg(part + (size_t)j * 3 * n + row));
+    float ls = 0.f, lab = 0.f;
+    for (int j = 0; j < splits; ++j) {   // in split order, whatever the order of arrival
+      const float lj = __ldcg(part + ((size_t)j * 3 + 1) * n + row);
+      if (lj > 0.f) ls += lj * exp2f(__ldcg(part + (size_t)j * 3 * n + row) - mm);
+      lab += __ldcg(part + ((size_t)j * 3 + 2) * n + row);
+    }
+    const int label = labels[row];
+    if (label >= vocab_size && label < v) lab = kPadLogit;
+    const float lse_r = (mm + log2f(ls)) * kLn2;
+    lse[row] = lse_r;
+    nll[row] = lse_r - lab;
+  }
+}
+
+// --------------------------------------------------------------------------
+// forward, bf16: warpgroup MMA on TMA-fed tiles
+// --------------------------------------------------------------------------
+
+constexpr int kWgRows = 128;             // x rows of a block: two consumer warpgroups of 64
+constexpr int kWgCols = 256;             // vocab columns of a tile (m64n256k16)
+constexpr int kWgK = 64;                 // E columns of a slice: one 128-byte swizzle row
+constexpr int kWgStages = 4;             // ring stages of x and head slices
+constexpr int kWgThreads = 384;          // warpgroup 0 produces, 1 and 2 consume
+constexpr int kWgAcc = kWgCols / 2;      // fp32 accumulators a consumer thread holds
+constexpr uint32_t kWgXBytes = kWgRows * kWgK * 2;
+constexpr uint32_t kWgHeadBytes = kWgCols * kWgK * 2;
+constexpr uint32_t kWgStageBytes = kWgXBytes + kWgHeadBytes;
+// 1024 bytes of slack to align the ring (the 128-byte swizzle repeats every
+// 1024 bytes), the ring, a full and an empty barrier per stage
+constexpr size_t kWgSmem = 1024 + kWgStages * (size_t)kWgStageBytes + 16 * kWgStages;
+constexpr float kWgMaxStart = -1e30f;    // the running max's start: finite, so 2^(-inf - m) = 0
+
+struct FwdArgs {
+  const int* labels;
+  float* part;         // [splits][3][n]
+  int* counters;       // one per row tile, 0 between launches
+  float* nll;
+  float* lse;
+  int n, e, v, vocab_size, per_split;
+};
+
+// A shared-memory matrix descriptor of wgmma for a K-major tile whose rows
+// are 128 bytes with the 128-byte swizzle: 8-row groups 1024 bytes apart.
+// A k step of 16 bf16 advances the start address by 32 bytes (+2).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Pins the accumulators in program order around the asynchronous products
+// (the compiler does not see wgmma write them late).
+__device__ __forceinline__ void fence_acc(float (&d)[kWgAcc]) {
+#pragma unroll
+  for (int i = 0; i < kWgAcc; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define CE_ACC8(i)                                                                            \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (+)= A . B^T over 16 columns of E: A 64 rows, B 256 rows, both K-major
+// in shared memory; `accumulate` 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[kWgAcc], uint64_t desc_a,
+                                                 uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : CE_ACC8(0), CE_ACC8(8), CE_ACC8(16), CE_ACC8(24), CE_ACC8(32), CE_ACC8(40), CE_ACC8(48),
+        CE_ACC8(56), CE_ACC8(64), CE_ACC8(72), CE_ACC8(80), CE_ACC8(88), CE_ACC8(96),
+        CE_ACC8(104), CE_ACC8(112), CE_ACC8(120)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+#undef CE_ACC8
+
+// The two consumer warpgroups' barrier (named barrier 1; the producer has
+// left by then).
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kWgThreads - 128) : "memory");
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+ce_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                    const __grid_constant__ CUtensorMap tm_head, const FwdArgs a) {
+  extern __shared__ unsigned char smem[];
+  __shared__ int is_last;
+  const uint32_t ring = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t sx = ring, sh = ring + kWgStages * kWgXBytes;
+  const uint32_t full = sh + kWgStages * kWgHeadBytes, empty = full + 8 * kWgStages;
+  const int row0 = blockIdx.x * kWgRows;
+  const int n_k = cdiv(a.e, kWgK);       // the last slice's columns past E are TMA's zeros
+  const int t_begin = blockIdx.y * a.per_split;
+  const int t_end = min(t_begin + a.per_split, cdiv(a.v, kWgCols));
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(full + 8 * s, 1);        // the producer's arrival, with the stage's bytes
+      mbar_init(empty + 8 * s, 2);       // one arrival per consumer warpgroup
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = t_begin; t < t_end; ++t)
+        for (int ks = 0; ks < n_k; ++ks) {
+          mbar_wait(empty + 8 * stage, phase ^ 1);     // the consumers freed the stage
+          mbar_expect(full + 8 * stage, kWgStageBytes);
+          tma_load_2d(sx + stage * kWgXBytes, &tm_x, ks * kWgK, row0, full + 8 * stage);
+          tma_load_2d(sh + stage * kWgHeadBytes, &tm_head, ks * kWgK, t * kWgCols,
+                      full + 8 * stage);
+          if (++stage == kWgStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup cw owns rows 64 cw .. 64 cw + 63 of the tile ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int ct = threadIdx.x - 128, cw = ct >> 7;
+  const int lane = ct & 31, g = lane >> 2, t4 = lane & 3;
+  const int rbase = row0 + cw * 64 + ((ct >> 5) & 3) * 16 + g;     // rows rbase, rbase + 8
+  int label[2];
+  float m[2], l[2], lab[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    label[r] = rbase + 8 * r < a.n ? a.labels[rbase + 8 * r] : -1;
+    m[r] = kWgMaxStart;
+    l[r] = 0.f;
+    lab[r] = 0.f;
+  }
+  const uint64_t desc_x = sw128_desc(sx + cw * 64 * 128), desc_h = sw128_desc(sh);
+  float d[kWgAcc];
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int t = t_begin; t < t_end; ++t) {
+    int prev = 0;
+    for (int ks = 0; ks < n_k; ++ks) {
+      mbar_wait(full + 8 * stage, phase);
+      wgmma_fence();
+      const uint64_t dx = desc_x + ((stage * kWgXBytes) >> 4);
+      const uint64_t dh = desc_h + ((stage * kWgHeadBytes) >> 4);
+#pragma unroll
+      for (int kk = 0; kk < kWgK / 16; ++kk)
+        wgmma_m64n256k16(d, dx + 2 * kk, dh + 2 * kk, ks > 0 || kk > 0);
+      wgmma_commit();
+      if (ks > 0) {                       // the previous slice's products are done: free it
+        wgmma_wait<1>();
+        if ((ct & 127) == 0) mbar_arrive(empty + 8 * prev);
+      }
+      prev = stage;
+      if (++stage == kWgStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_acc(d);
+    if ((ct & 127) == 0) mbar_arrive(empty + 8 * prev);
+
+    // ---- the online softmax on the accumulators: d[4 j + 2 r + i] is row
+    // rbase + 8 r, column col0 + 8 j + 2 t4 + i ----
+    const int col0 = t * kWgCols;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int lc = label[r] - col0;
+      if (lc >= 0 && lc < kWgCols && label[r] < a.vocab_size) {   // this tile holds the label
+#pragma unroll
+        for (int j = 0; j < kWgCols / 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            if (8 * j + 2 * t4 + i == lc) lab[r] = d[4 * j + 2 * r + i];
+      }
+    }
+    if (col0 + kWgCols > a.vocab_size) {  // pad columns and columns past V take no weight
+#pragma unroll
+      for (int j = 0; j < kWgCols / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (col0 + 8 * j + 2 * t4 + (i & 1) >= a.vocab_size) d[4 * j + i] = -INFINITY;
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < kWgCols / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], d[4 * j + i]);
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(m[r], __fmul_rn(quad_max(mx[r]), kLog2e));
+      alpha[r] = exp2_approx(__fsub_rn(m[r], mx[r]));
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int j = 0; j < kWgCols / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        sum[i >> 1] += exp2_approx(fmaf(d[4 * j + i], kLog2e, -mx[i >> 1]));
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];   // this thread's columns
+  }
+
+  // ---- this split's partials; the last block of the row tile merges ----
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l[r]);
+    lab[r] = quad_sum(lab[r]);
+    const int row = rbase + 8 * r;
+    if (t4 == 0 && row < a.n) {
+      float* p = a.part + (size_t)blockIdx.y * 3 * a.n + row;
+      p[0] = m[r];
+      p[(size_t)a.n] = l[r];
+      p[2 * (size_t)a.n] = lab[r];
+    }
+  }
+  __threadfence();                       // this thread's partials are visible before the count
+  consumer_sync();
+  if (ct == 0) {
+    int* arrivals = a.counters + blockIdx.x;
+    is_last = atomicAdd(arrivals, 1) == (int)gridDim.y - 1;
+    if (is_last) *arrivals = 0;          // every split has arrived: ready for the next launch
+  }
+  consumer_sync();
+  if (!is_last) return;
+  __threadfence();                       // the other splits' partials, as counted
+  merge_splits(a.part, a.labels, a.nll, a.lse, row0, kWgRows, a.n, a.v, a.vocab_size, gridDim.y,
+               ct, kWgThreads - 128);
+}
+
+// --------------------------------------------------------------------------
+// forward, fp32: FMA score tiles (not redesigned)
+// --------------------------------------------------------------------------
+
+constexpr int kThreads = 256;                // fp32 forward block
+constexpr int kBK = 32;                      // E columns per step of the score product
+constexpr int kLd = kBK + 1;                 // odd stride: conflict-free column reads
+constexpr int kFwdRows = 128, kFwdCols = 128;
+
+// Shared memory of the fp32 forward: the score tile s and its two staging
+// tiles.
 struct FwdLayout {
   static constexpr size_t kA = align128(sizeof(float) * kFwdRows * (kFwdCols + 4));
-  static constexpr size_t kB = kA + align128(sizeof(T) * kFwdRows * Cfg<T>::kLd);
-  static constexpr size_t kBytes = kB + align128(sizeof(T) * kFwdCols * Cfg<T>::kLd);
+  static constexpr size_t kB = kA + align128(sizeof(float) * kFwdRows * kLd);
+  static constexpr size_t kBytes = kB + align128(sizeof(float) * kFwdCols * kLd);
 };
 
 // dst[r][0 : kBK) = src[row0 + r][k0 : k0 + kBK) for r < ROWS; rows at or
-// past nrows and columns at or past e (the last step of an e that is not a
-// multiple of kBK) are zeros.  bf16 copies are asynchronous: commit, wait
-// and a barrier before reading dst.
-template <typename T, int ROWS>
-__device__ __forceinline__ void stage_k(const T* __restrict__ src, int row0, int nrows, int e,
-                                        int k0, T* __restrict__ dst) {
-  constexpr int kLd = Cfg<T>::kLd;
-  if constexpr (kIsBf16<T>) {
-    constexpr int kVecs = kBK / 8;
-    for (int i = threadIdx.x; i < ROWS * kVecs; i += kThreads) {
-      const int r = i / kVecs, part = i % kVecs;
-      const bool valid = row0 + r < nrows && k0 + part * 8 < e;   // e % 8 == 0
-      copy16_async(dst + r * kLd + part * 8,
-                   valid ? src + (size_t)(row0 + r) * e + k0 + part * 8 : src, valid);
-    }
-  } else {
-    for (int i = threadIdx.x; i < ROWS * kBK; i += kThreads) {
-      const int r = i / kBK, k = i % kBK;
-      const bool valid = row0 + r < nrows && k0 + k < e;
-      dst[r * kLd + k] = valid ? src[(size_t)(row0 + r) * e + k0 + k] : 0.f;
-    }
+// past nrows and columns at or past e are zeros.
+template <int ROWS>
+__device__ __forceinline__ void stage_k(const float* __restrict__ src, int row0, int nrows, int e,
+                                        int k0, float* __restrict__ dst) {
+  for (int i = threadIdx.x; i < ROWS * kBK; i += kThreads) {
+    const int r = i / kBK, k = i % kBK;
+    const bool valid = row0 + r < nrows && k0 + k < e;
+    dst[r * kLd + k] = valid ? src[(size_t)(row0 + r) * e + k0 + k] : 0.f;
   }
 }
 
 // s[BM][BN + 4] = x[row0 : row0 + BM] . head[col0 : col0 + BN]^T over all e
 // columns, fp32 sums.  x rows past n and head rows past v count as zeros.
 // Ends with a barrier, so s is ready for every thread.
-template <typename T, int BM, int BN, int WM>
-__device__ void score_tile(const T* __restrict__ x, const T* __restrict__ head, int row0, int n,
-                           int col0, int v, int e, T* __restrict__ a, T* __restrict__ b,
-                           float* __restrict__ s) {
-  constexpr int kLd = Cfg<T>::kLd;
+template <int BM, int BN>
+__device__ void score_tile(const float* __restrict__ x, const float* __restrict__ head, int row0,
+                           int n, int col0, int v, int e, float* __restrict__ a,
+                           float* __restrict__ b, float* __restrict__ s) {
   constexpr int kLdS = BN + 4;
-  if constexpr (kIsBf16<T>) {
-    constexpr int WN = kWarps / WM;
-    constexpr int FM = BM / (WM * 16), FN = BN / (WN * 16);
-    static_assert(FM * WM * 16 == BM && FN * WN * 16 == BN, "warp tiling");
-    const int warp = threadIdx.x / 32, wm = warp / WN, wn = warp % WN;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
+  // thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j
+  constexpr int RM = BM / 16, RN = BN / 16;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  float acc[RM][RN];
 #pragma unroll
-    for (int i = 0; i < FM; ++i)
+  for (int i = 0; i < RM; ++i)
 #pragma unroll
-      for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-    for (int k0 = 0; k0 < e; k0 += kBK) {
-      stage_k<T, BM>(x, row0, n, e, k0, a);
-      stage_k<T, BN>(head, col0, v, e, k0, b);
-      commit_copies();
-      wait_copies<0>();
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kBK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[FM];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfr[FN];
-#pragma unroll
-        for (int i = 0; i < FM; ++i)
-          wmma::load_matrix_sync(af[i], a + (wm * FM + i) * 16 * kLd + kk, kLd);
-#pragma unroll
-        for (int j = 0; j < FN; ++j)
-          wmma::load_matrix_sync(bfr[j], b + (wn * FN + j) * 16 * kLd + kk, kLd);
-#pragma unroll
-        for (int i = 0; i < FM; ++i)
-#pragma unroll
-          for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::store_matrix_sync(s + (wm * FM + i) * 16 * kLdS + (wn * FN + j) * 16, acc[i][j],
-                                kLdS, wmma::mem_row_major);
-  } else {
-    // thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j
-    constexpr int RM = BM / 16, RN = BN / 16;
-    const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-    float acc[RM][RN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
-    for (int k0 = 0; k0 < e; k0 += kBK) {
-      stage_k<T, BM>(x, row0, n, e, k0, a);
-      stage_k<T, BN>(head, col0, v, e, k0, b);
-      __syncthreads();
+    for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
+  for (int k0 = 0; k0 < e; k0 += kBK) {
+    stage_k<BM>(x, row0, n, e, k0, a);
+    stage_k<BN>(head, col0, v, e, k0, b);
+    __syncthreads();
 #pragma unroll 4
-      for (int k = 0; k < kBK; ++k) {
-        float av[RM], bv[RN];
+    for (int k = 0; k < kBK; ++k) {
+      float av[RM], bv[RN];
 #pragma unroll
-        for (int i = 0; i < RM; ++i) av[i] = a[(ty + 16 * i) * kLd + k];
+      for (int i = 0; i < RM; ++i) av[i] = a[(ty + 16 * i) * kLd + k];
 #pragma unroll
-        for (int j = 0; j < RN; ++j) bv[j] = b[(tx + 16 * j) * kLd + k];
+      for (int j = 0; j < RN; ++j) bv[j] = b[(tx + 16 * j) * kLd + k];
 #pragma unroll
-        for (int i = 0; i < RM; ++i)
+      for (int i = 0; i < RM; ++i)
 #pragma unroll
-          for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
+        for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < RN; ++j) s[(ty + 16 * i) * kLdS + tx + 16 * j] = acc[i][j];
+    __syncthreads();
   }
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < RN; ++j) s[(ty + 16 * i) * kLdS + tx + 16 * j] = acc[i][j];
   __syncthreads();
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-ce_fwd_kernel(const T* __restrict__ x, const T* __restrict__ head, const int* __restrict__ labels,
-              float* __restrict__ part, int* __restrict__ counters, float* __restrict__ nll,
-              float* __restrict__ lse, int n, int e, int v, int vocab_size, int per_split) {
+ce_fwd_kernel(const float* __restrict__ x, const float* __restrict__ head, const FwdArgs a) {
   constexpr int BM = kFwdRows, BN = kFwdCols, kLdS = BN + 4, kHalf = BN / 2;
-  using L = FwdLayout<T>;
   extern __shared__ __align__(128) unsigned char smem[];
   float* s = reinterpret_cast<float*>(smem);
-  T* a = reinterpret_cast<T*>(smem + L::kA);
-  T* b = reinterpret_cast<T*>(smem + L::kB);
+  float* sa = reinterpret_cast<float*>(smem + FwdLayout::kA);
+  float* sb = reinterpret_cast<float*>(smem + FwdLayout::kB);
 
   const int row0 = blockIdx.x * BM, split = blockIdx.y, splits = gridDim.y;
-  const int t_begin = split * per_split;
-  const int t_end = min(t_begin + per_split, (v + BN - 1) / BN);
+  const int t_begin = split * a.per_split;
+  const int t_end = min(t_begin + a.per_split, (a.v + BN - 1) / BN);
   const int r = threadIdx.x >> 1, half = threadIdx.x & 1;   // two threads per row
   const int row = row0 + r;
-  const int label = row < n ? labels[row] : -1;
+  const int label = row < a.n ? a.labels[row] : -1;
   float m = -INFINITY, l = 0.f, ll = 0.f;
   for (int t = t_begin; t < t_end; ++t) {
     const int col0 = t * BN;
-    score_tile<T, BM, BN, 2>(x, head, row0, n, col0, v, e, a, b, s);
+    score_tile<BM, BN>(x, head, row0, a.n, col0, a.v, a.e, sa, sb, s);
     const float* srow = s + r * kLdS + half * kHalf;
     const int c0 = col0 + half * kHalf;
     float tmax = -INFINITY;
-    for (int c = 0; c < kHalf && c0 + c < v; ++c)
-      tmax = fmaxf(tmax, masked(srow[c], c0 + c, vocab_size));
+    for (int c = 0; c < kHalf && c0 + c < a.v; ++c)
+      tmax = fmaxf(tmax, masked(srow[c], c0 + c, a.vocab_size));
     tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
     const float m_new = fmaxf(m, tmax);
     float sum = 0.f, lab = 0.f;
-    for (int c = 0; c < kHalf && c0 + c < v; ++c) {
-      const float sv = masked(srow[c], c0 + c, vocab_size);
+    for (int c = 0; c < kHalf && c0 + c < a.v; ++c) {
+      const float sv = masked(srow[c], c0 + c, a.vocab_size);
       sum += expf(sv - m_new);
-      if (c0 + c == label) lab += sv;
+      if (c0 + c == label && label < a.vocab_size) lab += sv;
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     lab += __shfl_xor_sync(0xffffffffu, lab, 1);
@@ -301,28 +546,14 @@ ce_fwd_kernel(const T* __restrict__ x, const T* __restrict__ head, const int* __
     m = m_new;
     __syncthreads();   // s is rewritten by the next tile
   }
-  if (half == 0 && row < n) {
-    part[((size_t)split * 3 + 0) * n + row] = m;
-    part[((size_t)split * 3 + 1) * n + row] = l;
-    part[((size_t)split * 3 + 2) * n + row] = ll;
+  if (half == 0 && row < a.n) {        // the max goes to log2 units, as merge_splits reads it
+    a.part[((size_t)split * 3 + 0) * a.n + row] = m * kLog2e;
+    a.part[((size_t)split * 3 + 1) * a.n + row] = l;
+    a.part[((size_t)split * 3 + 2) * a.n + row] = ll;
   }
-  if (!last_block(counters + blockIdx.x, splits)) return;
-  for (int rr = threadIdx.x; rr < BM; rr += kThreads) {
-    const int row2 = row0 + rr;
-    if (row2 >= n) continue;
-    float mm = -INFINITY;
-    for (int j = 0; j < splits; ++j) mm = fmaxf(mm, __ldcg(part + ((size_t)j * 3) * n + row2));
-    float ls = 0.f, lls = 0.f;
-    for (int j = 0; j < splits; ++j) {
-      const float mj = __ldcg(part + ((size_t)j * 3) * n + row2);
-      const float lj = __ldcg(part + ((size_t)j * 3 + 1) * n + row2);
-      if (lj > 0.f) ls += lj * expf(mj - mm);
-      lls += __ldcg(part + ((size_t)j * 3 + 2) * n + row2);
-    }
-    const float lse_r = mm + logf(ls);
-    lse[row2] = lse_r;
-    nll[row2] = lse_r - lls;
-  }
+  if (!last_block(a.counters + blockIdx.x, splits)) return;
+  merge_splits(a.part, a.labels, a.nll, a.lse, row0, BM, a.n, a.v, a.vocab_size, splits,
+               threadIdx.x, kThreads);
 }
 
 // --------------------------------------------------------------------------
@@ -868,18 +1099,68 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
 
 bool aligned(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
-template <typename T>
-cudaError_t launch_fwd(const void* x, const void* head, const int* labels, float* part,
-                       int* counters, float* nll, float* lse, int n, int e, int v, int vocab_size,
-                       int splits, cudaStream_t st) {
-  const size_t smem = FwdLayout<T>::kBytes;
-  cudaError_t err = prepare(ce_fwd_kernel<T>, smem);
+// cuTensorMapEncodeTiled from the driver, found through the runtime (the
+// build links no -lcuda); null if the driver has none.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA map of a row-major bf16 [rows][cols] matrix read in boxes of
+// box_rows x kWgK with the 128-byte swizzle; reads past either edge fill
+// zeros.
+bool bf16_tile_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
+  const cuuint32_t box[2] = {(cuuint32_t)kWgK, (cuuint32_t)box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// One forward launch: row tiles along x, `splits` vocab splits along y.
+cudaError_t launch_fwd(const void* x, const void* head, FwdArgs a, int bf16_inputs, int splits,
+                       cudaStream_t st) {
+  if (bf16_inputs) {
+    a.per_split = cdiv(cdiv(a.v, kWgCols), splits);
+    CUtensorMap tm_x, tm_head;
+    if (!bf16_tile_map(&tm_x, x, a.n, a.e, kWgRows) ||
+        !bf16_tile_map(&tm_head, head, a.v, a.e, kWgCols))
+      return cudaErrorInvalidValue;
+    cudaError_t err = prepare(ce_fwd_wgmma_kernel, kWgSmem);
+    if (err != cudaSuccess) return err;
+    ce_fwd_wgmma_kernel<<<dim3(cdiv(a.n, kWgRows), splits), kWgThreads, kWgSmem, st>>>(
+        tm_x, tm_head, a);
+    return cudaGetLastError();
+  }
+  a.per_split = cdiv(cdiv(a.v, kFwdCols), splits);
+  cudaError_t err = prepare(ce_fwd_kernel, FwdLayout::kBytes);
   if (err != cudaSuccess) return err;
-  const int v_tiles = (v + kFwdCols - 1) / kFwdCols;
-  const dim3 grid((n + kFwdRows - 1) / kFwdRows, splits);
-  ce_fwd_kernel<T><<<grid, kThreads, smem, st>>>(
-      (const T*)x, (const T*)head, labels, part, counters, nll, lse, n, e, v, vocab_size,
-      (v_tiles + splits - 1) / splits);
+  ce_fwd_kernel<<<dim3(cdiv(a.n, kFwdRows), splits), kThreads, FwdLayout::kBytes, st>>>(
+      (const float*)x, (const float*)head, a);
   return cudaGetLastError();
 }
 
@@ -940,18 +1221,39 @@ bool shape_ok(int n, int e, int v, int vocab_size, int dtype) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  Each returns a cudaError_t (0 = launched).
-// part: [splits][3][n] fp32 scratch; counters: ceil(n / 128) zeroed ints.
+// part: [splits][3][n] fp32 scratch; counters: ceil(n / 128) ints, 0 before
+// the first launch (each launch leaves them so).  bf16 reads vocab tiles of
+// 256 columns, fp32 of 128; splits <= the vocab tiles.
 int dst_ce_forward(const void* x, const void* head, const int* labels, float* part,
                    int* counters, float* nll, float* lse, int n, int e, int v, int vocab_size,
                    int splits, int dtype, void* stream) {
-  if (!shape_ok(n, e, v, vocab_size, dtype) || splits <= 0 || splits > 65535 || !aligned(x) ||
-      !aligned(head))
+  const int v_tiles = cdiv(v, dtype == 1 ? kWgCols : kFwdCols);
+  if (!shape_ok(n, e, v, vocab_size, dtype) || splits <= 0 || splits > v_tiles ||
+      splits > 65535 || !aligned(x) || !aligned(head))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  return (int)(dtype == 0 ? launch_fwd<float>(x, head, labels, part, counters, nll, lse, n, e, v,
-                                              vocab_size, splits, st)
-                          : launch_fwd<bf16>(x, head, labels, part, counters, nll, lse, n, e, v,
-                                             vocab_size, splits, st));
+  const FwdArgs a = {labels, part, counters, nll, lse, n, e, v, vocab_size, 0};
+  return (int)launch_fwd(x, head, a, dtype == 1, splits, (cudaStream_t)stream);
+}
+
+// Blocks of the forward kernel for `dtype` one SM holds at once (0 on an
+// error); its dynamic shared memory per block in *smem_bytes.
+int dst_ce_forward_occupancy(int dtype, int* smem_bytes) {
+  if ((dtype != 0 && dtype != 1) || smem_bytes == nullptr) return 0;
+  int n = 0;
+  if (dtype == 1) {
+    *smem_bytes = (int)kWgSmem;
+    if (prepare(ce_fwd_wgmma_kernel, kWgSmem) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, ce_fwd_wgmma_kernel, kWgThreads,
+                                                      kWgSmem) != cudaSuccess)
+      return 0;
+  } else {
+    *smem_bytes = (int)FwdLayout::kBytes;
+    if (prepare(ce_fwd_kernel, FwdLayout::kBytes) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, ce_fwd_kernel, kThreads,
+                                                      FwdLayout::kBytes) != cudaSuccess)
+      return 0;
+  }
+  return n;
 }
 
 // Clusters of the dx kernel the current device holds at once at width e

@@ -1,9 +1,10 @@
 // Device primitives shared by the package's Hopper (sm_90a) kernels:
 // asynchronous 16- and 4-byte copies into shared memory, ldmatrix fragment
 // loads, the bf16 mma.sync m16n8k16 product (fp32 accumulate), the one-
-// instruction base-2 exponential, and for thread-block clusters the split
-// cluster barrier, peer addresses, transaction barriers (mbarrier) and
-// bulk copies (from global memory, or into a peer's shared memory).
+// instruction base-2 exponential, row-group (quad) max and sum, transaction
+// barriers (mbarrier), tensor-map (TMA) tile loads, and for thread-block
+// clusters the split cluster barrier, peer addresses and bulk copies (from
+// global memory, or into a peer's shared memory).
 //
 // mma.m16n8k16 register layouts, with g = lane / 4 and t = lane % 4:
 // * accumulator c[4]: rows g (c[0], c[1]) and g + 8 (c[2], c[3]), columns
@@ -131,6 +132,22 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       : "memory");
 }
 
+// One arrival on the barrier's current phase (no bytes expected).
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// A 2-D tile of the tensor map `map` (a __grid_constant__ kernel parameter)
+// at element coordinates (c0 innermost, c1) into this block's shared memory
+// at `dst`, by the tensor memory accelerator, counting its bytes off `bar`.
+// Elements past the map's edges arrive as zeros (and are counted).
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, int c0, int c1,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
+      "{%2, %3}], [%4];\n" ::"r"(dst), "l"(map), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
 // Copy `bytes` (a multiple of 16, both addresses 16-byte aligned) of this
 // block's shared memory at `src` to a peer's at `dst` (a cluster address
 // from map_rank) by the bulk-copy engine, counting off the peer's barrier
@@ -180,6 +197,17 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// Max and sum over the four threads of an mma row group (lanes 4 g .. 4 g
+// + 3 hold one row's columns in the accumulator layout).
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 }  // namespace

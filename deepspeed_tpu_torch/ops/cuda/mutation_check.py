@@ -7,13 +7,14 @@ breaks one kernel source (or the plan its wrapper makes) there in one known
 way, and runs the ``cuda``-marked tests of that kernel's test file against
 the copy's own build (the copies build and run side by side): the
 decode-attention kernels (``csrc/decode_attention.cu``), the flash forward,
-dQ and dKV (``csrc/flash_attention.cu``), the cross-entropy backward
-(``csrc/cross_entropy.cu``), the block-sparse dKV
+dQ and dKV (``csrc/flash_attention.cu``), the cross-entropy forward and
+backward (``csrc/cross_entropy.cu``), the block-sparse forward and dKV
 (``csrc/block_sparse_attention.cu``) and the fused AdamW
 (``csrc/fused_optim.cu`` and its plan in ``fused_optim.py``).  The
 unmutated checkout runs every one of those test files the same way and
 must pass every test; each mutation must fail at least one test in each
-dtype its kernel is compiled for (bf16 and fp32; AdamW fp32 only).  Prints
+dtype its kernel is compiled for (bf16 and fp32; AdamW fp32 only; the
+cross-entropy forward's wgmma kernel bf16 only).  Prints
 one line per run with the tests that failed, then a JSON summary; exits
 non-zero if the checkout fails a test or a mutation goes unseen in a
 dtype.
@@ -37,8 +38,9 @@ ADAM = (CSRC + "fused_optim.cu", "tests/test_torch_fused_optim.py")
 ADAM_PLAN = ("deepspeed_tpu_torch/ops/cuda/fused_optim.py", ADAM[1])
 TIMEOUT_S = 900
 # the dtypes a mutation must be seen in, by test file: every kernel but
-# AdamW is compiled for both
+# AdamW is compiled for both; by mutation where it breaks one dtype's kernel
 DTYPES = {ADAM[1]: ("float32",)}
+MUTATION_DTYPES = {"ce-fwd-drop-last-k-slice": ("bfloat16",)}
 BOTH = ("float32", "bfloat16")
 
 # name: ((source, test file), what it breaks, the line as it is, the line broken)
@@ -96,6 +98,27 @@ MUTATIONS = {
         CROSS_ENTROPY, "cross-entropy backward: dx never streams the last vocab tile",
         "  const int n_str = cdiv(str_n, B::kStream);                    // streamed tiles",
         "  const int n_str = cdiv(str_n, B::kStream) - (kDhead ? 0 : 1);   // streamed tiles"),
+    "ce-fwd-drop-last-k-slice": (
+        CROSS_ENTROPY, "cross-entropy forward (bf16, wgmma): the last 64-column slice of E is "
+        "never loaded or multiplied",
+        "  const int n_k = cdiv(a.e, kWgK);       // the last slice's columns past E are TMA's "
+        "zeros",
+        "  const int n_k = cdiv(a.e, kWgK) - 1;   // the last slice's columns past E are TMA's "
+        "zeros"),
+    "ce-fwd-merge-skips-split-0": (
+        CROSS_ENTROPY, "cross-entropy forward: the last block of a row tile leaves split 0's sum "
+        "and label logit out of the merge",
+        "    for (int j = 0; j < splits; ++j) {   // in split order, whatever the order of arrival",
+        "    for (int j = 1; j < splits; ++j) {   // in split order, whatever the order of arrival"),
+    "sparse-fwd-diagonal-unmasked": (
+        SPARSE, "block-sparse forward: the causal diagonal block is not masked",
+        "    if (diagonal && it == n - 1) {",
+        "    if (false) {"),
+    "sparse-fwd-empty-row-lse-by-log2-formula": (
+        SPARSE, "block-sparse forward: an empty row's lse goes through the log2 formula (-inf), "
+        "not JAX's -1e30",
+        "      lse[wrow0 + g + 8 * r] = n > 0 ? row_lse : kNegInf;   // an empty row: JAX's -1e30",
+        "      lse[wrow0 + g + 8 * r] = row_lse;"),
     "sparse-dkv-sum-drops-split-0": (
         SPARSE, "block-sparse dKV: the last split to arrive leaves split 0's partial out of "
         "its column's sum",
@@ -192,7 +215,8 @@ def main() -> int:
             if name == "checkout":
                 seen = not failed
             else:
-                seen = all(by_dtype[dt] for dt in DTYPES.get(MUTATIONS[name][0][1], BOTH))
+                seen = all(by_dtype[dt] for dt in MUTATION_DTYPES.get(
+                    name, DTYPES.get(MUTATIONS[name][0][1], BOTH)))
             ok = ok and seen
             what = "the checkout" if name == "checkout" else MUTATIONS[name][1]
             print(f"mutation_check: {name} ({what}): {len(failed)} of {n} tests failed "

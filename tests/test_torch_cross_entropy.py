@@ -8,8 +8,8 @@ dx, dhead); they are held against JAX's Pallas kernels in interpret mode
 the kernel off, on the same numpy inputs: N = 37 rows (ragged against any
 row tile), E = 64, V = 384 with ``vocab_size`` 300 (padded columns
 masked) and with ``vocab_size`` = V (no mask), and the same rows at E =
-200 ("wide-ragged": not a multiple of the forward's 32-column step, one
-block of the backward's cluster).
+200 ("wide-ragged": not a multiple of the forward's 32- or 64-column
+steps, one block of the backward's cluster).
 
 Tolerances.  fp32: the loss within 1e-6 relative, dx and dhead within
 1e-5 of their largest magnitude (both sides sum in fp32, in other orders).
@@ -188,6 +188,42 @@ def test_dx_grid_splits_the_vocab_to_fill_the_waves():
     assert tiles == 1 and splits == 16 and (splits - 1) * -(-v_tiles // 16) < v_tiles
 
 
+def fwd_tiles(N, V, dtype, splits):
+    """The (row tile, vocab tile) pairs each forward block walks, in launch
+    order (row tiles fastest), as ``launch_fwd`` in ``cross_entropy.cu``
+    cuts them: split s takes vocab tiles [s * per_split, (s + 1) *
+    per_split), per_split = ceil(vocab tiles / splits)."""
+    tiles = -(-N // tce.FWD_ROWS)
+    v_tiles = -(-V // tce.FWD_COLS[dtype])
+    per_split = -(-v_tiles // splits)
+    return [[(rt, vt) for vt in range(s * per_split, min((s + 1) * per_split, v_tiles))]
+            for s in range(splits) for rt in range(tiles)]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("N", [37, 4096, 8192])
+def test_fwd_grid_walks_every_tile_pair_once(N, dtype):
+    """The forward's schedule at GPT-2's vocab (V 50304) over a card of 132
+    one-block slots (bf16) or 264 (fp32): every (row tile, vocab tile)
+    pair in exactly one block, no split empty, row tiles fastest so a
+    vocab range's row tiles go out together."""
+    tdt = DTYPES[dtype][1]
+    V = 50304
+    slots = 132 if tdt == torch.bfloat16 else 264
+    tiles, splits = tce.fwd_grid(N, V, tdt, slots)
+    v_tiles = -(-V // tce.FWD_COLS[tdt])
+    blocks = fwd_tiles(N, V, tdt, splits)
+    assert tiles == -(-N // tce.FWD_ROWS) and len(blocks) == tiles * splits
+    pairs = [pair for walk in blocks for pair in walk]
+    assert sorted(pairs) == [(rt, vt) for rt in range(tiles) for vt in range(v_tiles)]
+    assert all(blocks) and 1 <= splits <= v_tiles
+    assert [walk[0][0] for walk in blocks[:tiles]] == list(range(tiles))
+    if tdt == torch.float32:
+        assert splits == tce.FWD_SPLITS_FP32 - 1       # 393 tiles: 13 a split fill 31
+    else:                                              # one wave that fills most slots
+        assert slots // 2 < tiles * splits <= slots
+
+
 # --------------------------------------------------------------------------- #
 # on the card
 # --------------------------------------------------------------------------- #
@@ -276,4 +312,56 @@ def test_cuda_loss_takes_the_kernel_for_every_dtype(cuda_device):
         tgpt.chunked_cross_entropy(x.half()[None], head.half(), labels[None], 128)
     tgpt.chunked_cross_entropy(x[None], head, labels[None], 128)
     assert tce.ce_forward.launches == 1 and tce.ce_forward_reference.calls == 0
+    tce.reset_counts()
+
+
+# rows not a multiple of 64 (nor of the 128-row tile) and a vocab not a
+# multiple of the bf16 kernel's 256-column tile (nor of fp32's 128), at
+# GPT-2's width and at E 200 (a last 64-column slice of 8 columns)
+FORWARD_CASES = {"n1000-v2000": (1000, 768, 2000, 1990), "e200-n333-v1100": (333, 200, 1100, 1100)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", sorted(FORWARD_CASES))
+def test_cuda_forward_at_ragged_rows_and_vocab(cuda_device, case, dtype):
+    N, E, V, vocab = FORWARD_CASES[case]
+    tdt = DTYPES[dtype][1]
+    x, head, labels = (torch.from_numpy(a).to(cuda_device)
+                       for a in make_inputs(N, E, V, vocab, seed=5))
+    x, head = x.to(tdt), head.to(tdt)
+    labels[:3] = torch.tensor([vocab - 1, 0, V - 1 if vocab < V else 1], dtype=torch.int32)
+    nll, lse = tce.ce_forward(x, head, labels, vocab)
+    rnll, rlse = tce.ce_forward_reference(x, head, labels, vocab, fp32_products=True)
+    torch.cuda.synchronize()
+    for got, want in ((nll, rnll), (lse, rlse)):
+        assert torch.isfinite(got).all()
+        err = ((got - want).abs() / want.abs().clamp(min=1.0)).max().item()
+        assert err <= KERNEL_TOL[dtype][0], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_forward_is_bitwise_equal_across_calls(cuda_device, dtype):
+    """The forward twice on the same inputs, with a call of more row tiles
+    between: bitwise-equal nll and lse.  The splits are merged in split
+    order whatever the order of arrival, and each launch leaves the cached
+    counters at 0 for the next (no memset)."""
+    tdt = DTYPES[dtype][1]
+
+    def forward(N, V):
+        x, head, labels = (torch.from_numpy(a).to(cuda_device)
+                           for a in make_inputs(N, 768, V, V, seed=6))
+        return tce.ce_forward(x.to(tdt), head.to(tdt), labels, V)
+    tce.reset_counts()
+    first = forward(700, 6000)
+    other = forward(1500, 3000)
+    second = forward(700, 6000)
+    torch.cuda.synchronize()
+    assert tce.ce_forward.launches == 3 and tce.ce_forward_reference.calls == 0
+    for a, b in zip(first, second):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
+    assert all(torch.isfinite(t).all() for t in other)
+    counters = tce._FWD_COUNTERS[cuda_device]
+    assert not counters.any(), "a launch left an arrival counter set"
     tce.reset_counts()

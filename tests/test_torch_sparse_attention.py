@@ -22,6 +22,10 @@ JAX package's.
   with rpe, key-padding and attention masks in both modes) against JAX's,
   fp32, 1e-5.
 
+* The forward's work list (``build_fwd_tasks``), on the same layouts:
+  every live (head, query block, key block) once, as the plain version's
+  ``_keep`` has it, the diagonal block marked, empty rows present with
+  count 0, tasks longest first across heads, made once per layout.
 * dKV's work list (``build_dkv_tasks``), on every ``KERNEL_CASES`` layout
   and the training path's (fixed, S 4096, H 12), unsplit and split: every
   live (key block, query block) pair in exactly one task, no future pair
@@ -531,6 +535,83 @@ def test_dkv_work_is_made_once_per_layout_and_batch():
         tbs._check_work(work, 1, H, S // 64, torch.device("cpu"))
 
 
+# --------------------------------------------------------------------------- #
+# the forward's work list (host side, no card needed)
+# --------------------------------------------------------------------------- #
+def fwd_list(case):
+    """(tasks as dicts of FWD_TASK_FIELDS, entries, layout, causal, row LUT,
+    row counts) of one case."""
+    _, S, H, layout_fn, causal = WORK_LIST_CASES[case]
+    layout = layout_fn(H, S)
+    row_lut, row_cnt, _, _ = tbs.build_luts(layout)
+    tasks, entries = tbs.build_fwd_tasks(row_lut, row_cnt, causal)
+    assert tasks.dtype == entries.dtype == np.int32
+    assert tasks.shape == (H * layout.shape[1], len(tbs.FWD_TASK_FIELDS))
+    rows = [dict(zip(tbs.FWD_TASK_FIELDS, map(int, t))) for t in tasks]
+    return rows, entries, layout, causal, row_lut, row_cnt
+
+
+@pytest.mark.parametrize("case", sorted(WORK_LIST_CASES))
+def test_fwd_tasks_cover_every_live_block_once_as_the_plain_version_keeps_it(case):
+    """Each (head, query block, key block) whose score tile the plain
+    version keeps any entry of (``_keep``: listed, and under ``causal`` not
+    wholly in the future) is in exactly one task, ascending within it; the
+    diagonal flag marks the tasks that end on their own block."""
+    rows, entries, layout, causal, row_lut, row_cnt = fwd_list(case)
+    H, nb, _ = layout.shape
+    keep = tbs._keep(torch.from_numpy(row_lut), torch.from_numpy(row_cnt), causal, 64, False)
+    want = np.zeros((H, nb, nb), np.int64)
+    idx = row_lut.reshape(H, nb, -1)
+    live = keep.flatten(3).any(-1).numpy()                 # [H, nb, n]
+    for h, qb, j in zip(*np.nonzero(live)):
+        want[h, qb, idx[h, qb, j]] += 1
+    seen = np.zeros((H, nb, nb), np.int64)
+    for t in rows:
+        walk = list(entries[t["first"]:t["first"] + t["count"]])
+        assert walk == sorted(walk)
+        for kb in walk:
+            seen[t["head"], t["query_block"], kb] += 1
+        assert t["diagonal"] == int(causal and bool(walk) and walk[-1] == t["query_block"])
+    np.testing.assert_array_equal(seen, want)
+    assert sum(t["count"] for t in rows) == len(entries)
+
+
+@pytest.mark.parametrize("case", sorted(WORK_LIST_CASES))
+def test_fwd_tasks_keep_empty_rows_and_run_longest_first(case):
+    """Every (head, query block) has one task, a row with nothing live
+    among them with count 0 (it still writes o = 0 and lse = -1e30); the
+    tasks come longest first across heads, ties by head then query
+    block."""
+    rows, _, layout, causal, _, _ = fwd_list(case)
+    H, nb, _ = layout.shape
+    assert sorted((t["head"], t["query_block"]) for t in rows) == [
+        (h, qb) for h in range(H) for qb in range(nb)]
+    live = layout * np.tril(np.ones((nb, nb), layout.dtype))[None] if causal else layout
+    by_row = {(t["head"], t["query_block"]): t["count"] for t in rows}
+    assert all(by_row[h, qb] == live[h, qb].sum() for h in range(H) for qb in range(nb))
+    keys = [(-t["count"], t["head"], t["query_block"]) for t in rows]
+    assert keys == sorted(keys)
+    if case in ("empty-rows", "future-only"):
+        assert rows[-1]["count"] == 0
+
+
+def test_fwd_work_is_made_once_per_layout():
+    _, S, H, layout_fn, causal = WORK_LIST_CASES["gpt2-s4096-fixed"]
+    layout = layout_fn(H, S)
+    work = tbs.fwd_work(layout, causal, "cpu")
+    assert work is tbs.fwd_work(layout.copy(), causal, torch.device("cpu"))
+    assert work is not tbs.fwd_work(layout, not causal, "cpu")
+    tasks, entries = tbs.build_fwd_tasks(*tbs.build_luts(layout)[:2], causal)
+    assert torch.equal(work.tasks, torch.from_numpy(tasks))
+    assert torch.equal(work.entries, torch.from_numpy(entries))
+    assert int(work.tasks[0, 3]) == 19                     # the path's longest causal row
+    tbs._check_fwd_work(work, H, S // 64, torch.device("cpu"))
+    with pytest.raises(ValueError, match="work list"):
+        tbs._check_fwd_work(None, H, S // 64, torch.device("cpu"))
+    with pytest.raises(ValueError, match="fwd_work of this layout"):
+        tbs._check_fwd_work(work, H + 1, S // 64, torch.device("cpu"))
+
+
 @pytest.mark.parametrize("tiles,batch,slots,want", [
     (640 * 12, 2, 264, 59), (640 * 2, 1, 264, 5), (9, 1, 264, 1), (0, 1, 264, 1),
     (264, 1, 264, 1), (265, 1, 264, 2)])
@@ -560,7 +641,8 @@ def kernel_inputs(case, dtype, device, seed=11):
 def test_cuda_kernels_match_plain(cuda_device, case, dtype):
     (q, k, v, do), layout, causal = kernel_inputs(case, dtype, cuda_device)
     row_lut, row_cnt, col_lut, col_cnt = tbs.device_luts(layout, cuda_device)
-    o, lse = tbs.block_sparse_forward(q, k, v, row_lut, row_cnt, causal, 0.125)
+    o, lse = tbs.block_sparse_forward(q, k, v, row_lut, row_cnt, causal, 0.125,
+                                      work=tbs.fwd_work(layout, causal, cuda_device))
     ro, rlse = tbs.block_sparse_forward_reference(q, k, v, row_lut, row_cnt, causal, 0.125,
                                                   kernel_rounding=True)
     delta = (ro.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
@@ -597,7 +679,8 @@ def test_cuda_dkv_is_deterministic_across_calls(cuda_device, dtype):
     def dkv(case):
         (q, k, v, do), layout, causal = kernel_inputs(case, dtype, cuda_device)
         row_lut, row_cnt, col_lut, col_cnt = tbs.device_luts(layout, cuda_device)
-        o, lse = tbs.block_sparse_forward(q, k, v, row_lut, row_cnt, causal, 0.125)
+        o, lse = tbs.block_sparse_forward(q, k, v, row_lut, row_cnt, causal, 0.125,
+                                          work=tbs.fwd_work(layout, causal, cuda_device))
         delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
         work = tbs.dkv_work(layout, causal, q.shape[0], cuda_device, q.dtype)
         return tbs.block_sparse_backward_dkv(q, k, v, do, lse, delta, col_lut, col_cnt, causal,
@@ -634,15 +717,53 @@ def test_cuda_reads_the_models_qkv_views_by_stride(cuda_device):
     layout = tsc.FixedSparsityConfig(num_heads=H, block=64,
                                      attention="unidirectional").make_layout(S)
     row_lut, row_cnt, _, _ = tbs.device_luts(layout, cuda_device)
+    work = tbs.fwd_work(layout, True, cuda_device)
     tbs.reset_counts()
-    o, lse = tbs.block_sparse_forward(q, k, v, row_lut, row_cnt, True, 0.125)
+    o, lse = tbs.block_sparse_forward(q, k, v, row_lut, row_cnt, True, 0.125, work=work)
     o2, lse2 = tbs.block_sparse_forward(q.contiguous(), k.contiguous(), v.contiguous(),
-                                        row_lut, row_cnt, True, 0.125)
+                                        row_lut, row_cnt, True, 0.125, work=work)
     torch.cuda.synchronize()
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
     assert tbs.block_sparse_forward.launches == 2
     assert tbs.block_sparse_forward_reference.calls == 0
     tbs.reset_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", sorted(KERNEL_CASES))
+def test_cuda_forward_reads_strided_qkv_views(cuda_device, case, dtype):
+    """The forward on q, k and v as views of one [B, S, 3, H, 64] product
+    (the model's qkv layout) gives, bit for bit, what contiguous copies
+    give, and both agree with the plain version."""
+    (q, k, v, _), layout, causal = kernel_inputs(case, dtype, cuda_device)
+    qkv = torch.stack((q, k, v), dim=2)                     # [B, S, 3, H, 64]
+    views = qkv.unbind(2)
+    assert not views[0].is_contiguous()
+    row_lut, row_cnt, _, _ = tbs.device_luts(layout, cuda_device)
+    work = tbs.fwd_work(layout, causal, cuda_device)
+    o, lse = tbs.block_sparse_forward(*views, row_lut, row_cnt, causal, 0.125, work=work)
+    o2, lse2 = tbs.block_sparse_forward(q, k, v, row_lut, row_cnt, causal, 0.125, work=work)
+    ro, rlse = tbs.block_sparse_forward_reference(q, k, v, row_lut, row_cnt, causal, 0.125,
+                                                  kernel_rounding=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert ((lse - rlse).abs() / rlse.abs().clamp(min=1.0)).max().item() <= 1e-5
+    max_tol, l2_tol = KERNEL_TOL[dtype]
+    err = o.float() - ro.float()
+    assert (err.abs().max() / ro.float().abs().max().clamp(min=1e-30)).item() <= max_tol
+    assert (err.norm() / ro.float().norm().clamp(min=1e-30)).item() <= l2_tol
+
+
+@pytest.mark.cuda
+def test_cuda_forward_raises_without_its_work_list(cuda_device):
+    (q, k, v, _), layout, causal = kernel_inputs("fixed-causal-s1024", "float32", cuda_device)
+    row_lut, row_cnt, _, _ = tbs.device_luts(layout, cuda_device)
+    with pytest.raises(ValueError, match="work list"):
+        tbs.block_sparse_forward(q, k, v, row_lut, row_cnt, causal, 0.125)
+    other = tbs.fwd_work(np.ones((2, 16, 16), np.int32), causal, cuda_device)
+    with pytest.raises(ValueError, match="fwd_work of this layout"):
+        tbs.block_sparse_forward(q, k, v, row_lut, row_cnt, causal, 0.125, work=other)
 
 
 @pytest.mark.cuda

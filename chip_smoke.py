@@ -82,17 +82,19 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 Phase 2 also prints the registers, spills, blocks per SM and shared
 memory of the kernels the tree redesigned last (the cross-entropy forward
-and the block-sparse forward), from ptxas's log and the occupancy query.
+and the block-sparse forward and dQ), from ptxas's log and the occupancy
+query.
 Phase 6 also holds the three block-sparse kernels against their plain
 versions (``kernel_rounding=True``: p and ds rounded to the input dtype
 before their products, as the bf16 kernels' tensor cores take them; the
 JAX-literal plain version keeps them in fp32 and is reported beside, for
 the path's case) in fp32 and bf16 over SPARSE_CASES below, with
 ``scaled_dot_product_attention`` under the layout's dense mask and the
-port's flash kernels at the same shape as yardsticks.  The forward walks
+port's flash kernels at the same shape as yardsticks (flash dQ also on
+its own, the per-tile yardstick of sparse dQ).  The forward and dQ walk
 the work list of ``fwd_work``, dKV that of ``dkv_work`` (its rows report
 the split length, the task count and the workspace bytes); a second call
-must give bitwise-equal dK and dV, and
+must give bitwise-equal dQ, dK and dV, and
 the fixed split lengths of DKV_SPLITS are held to the same tolerances and
 timed beside the kept one at each bf16 case.
 
@@ -1005,7 +1007,7 @@ def sparse_cases(device, flush, card: str, reps: int = 20, plain_reps: int = 3):
             kargs = (q, k, v, do, rlse, delta, col_lut, col_cnt, causal, scale)
             work = tbs.dkv_work(layout, causal, B, device, dtype)
             split = tbs.dkv_split(layout, causal, B, device, dtype)
-            dq = tbs.block_sparse_backward_dq(*qargs)
+            dq = tbs.block_sparse_backward_dq(*qargs, work=fwork)
             rdq = tbs.block_sparse_backward_dq_reference(*qargs, kernel_rounding=True)
             dk, dv = tbs.block_sparse_backward_dkv(*kargs, work=work)
             rdk, rdv = tbs.block_sparse_backward_dkv_reference(*kargs, kernel_rounding=True)
@@ -1048,11 +1050,12 @@ def sparse_cases(device, flush, card: str, reps: int = 20, plain_reps: int = 3):
                                   reps, flush)
             flash_bwd = median_ms(lambda: tfa.flash_block_bwd(
                 q, k, v, do, flse, fdelta, causal=causal, scale=scale), reps, flush)
+            flash_dq = median_ms(lambda: tfa.flash_backward_dq(
+                q, k, v, do, flse, fdelta, None, None, causal, scale), reps, flush)
             del fo, flse, fdelta
             esize = q.element_size()
             n_q, n_row = q.numel(), B * H * S
             pairs = B * sparse_pairs(layout, causal, bs)
-            lut_r = 4 * (row_lut.numel() + row_cnt.numel())             # dQ's row LUT
             lut_f = 4 * (fwork.tasks.numel() + fwork.entries.numel())   # the forward's work list
             lut_c = 4 * (work.tasks.numel() + work.entries.numel())     # dKV's work list
             specs = [
@@ -1064,10 +1067,11 @@ def sparse_cases(device, flush, card: str, reps: int = 20, plain_reps: int = 3):
                  f"{fwork.tasks.shape[0]} tasks x batch {B}, longest walk "
                  f"{int(fwork.tasks[0, 3])}"),
                 ("block_sparse_backward_dq", [("dq", dq, rdq)],
-                 lambda: tbs.block_sparse_backward_dq(*qargs),
+                 lambda: tbs.block_sparse_backward_dq(*qargs, work=fwork),
                  lambda: tbs.block_sparse_backward_dq_reference(*qargs, kernel_rounding=True),
-                 5 * n_q * esize + 8 * n_row + lut_r, 6.0 * 64 * pairs, bwd_lib,
-                 f"library: one SDPA backward under the mask; flash dQ + dKV {flash_bwd:.4f}"),
+                 5 * n_q * esize + 8 * n_row + lut_f, 6.0 * 64 * pairs, bwd_lib,
+                 f"library: one SDPA backward under the mask; flash dQ + dKV {flash_bwd:.4f}, "
+                 f"flash dQ {flash_dq:.4f}"),
                 ("block_sparse_backward_dkv", [("dk", dk, rdk), ("dv", dv, rdv)],
                  lambda: tbs.block_sparse_backward_dkv(*kargs, work=work),
                  lambda: tbs.block_sparse_backward_dkv_reference(*kargs, kernel_rounding=True),
@@ -1085,14 +1089,21 @@ def sparse_cases(device, flush, card: str, reps: int = 20, plain_reps: int = 3):
                     checks=checks, ms=median_ms(kern, reps, flush),
                     plain_ms=median_ms(plain, plain_reps, flush), bound_ms=b_ms,
                     bound_by=b_by, library_ms=lib, flash_fwd_ms=flash_fwd,
-                    flash_bwd_ms=flash_bwd, note=note))
-            # the split columns are summed in split order and each launch
-            # leaves its counters at 0: the timed calls above changed nothing
+                    flash_bwd_ms=flash_bwd, flash_dq_ms=flash_dq,
+                    live_tiles=B * fwork.entries.numel(),
+                    note=note))
+            # each dQ row is written by one block; dKV's split columns are
+            # summed in split order and each launch leaves its counters at 0:
+            # the timed calls above changed nothing
+            dq2 = tbs.block_sparse_backward_dq(*qargs, work=fwork)
+            if not torch.equal(dq, dq2):
+                fail(f"block_sparse_backward_dq {case} {dtype_name}: two calls on the same "
+                     "inputs differ")
             dk2, dv2 = tbs.block_sparse_backward_dkv(*kargs, work=work)
             if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
                 fail(f"block_sparse_backward_dkv {case} {dtype_name}: two calls on the same "
                      "inputs differ")
-            del dk2, dv2
+            del dq2, dk2, dv2
             if dtype == torch.bfloat16:
                 dkv_splits(rows[-1], split, kargs, layout, causal, (rdk, rdv), flush, reps, card)
             del o, lse, ro, rlse, dq, rdq, dk, dv, rdk, rdv
@@ -1106,6 +1117,21 @@ def sparse_cases(device, flush, card: str, reps: int = 20, plain_reps: int = 3):
             f"the mask {fwd['library_ms']:.4f} vs flash {fwd['flash_fwd_ms']:.4f}; dQ + dKV "
             f"{dq['ms'] + dkv['ms']:.4f} ms vs one SDPA backward {dq['library_ms']:.4f} vs "
             f"flash dQ + dKV {dq['flash_bwd_ms']:.4f} [{card}]")
+    # sparse dQ's cost per live (head, batch) tile of 64 x 64 beside flash
+    # dQ's at the same shape (causal: its tiles on or below the diagonal)
+    for dtype_name in ("float32", "bfloat16"):
+        parts = []
+        for case in SPARSE_CASES:
+            B, S, H, _, causal = SPARSE_CASES[case]
+            r = by[("block_sparse_backward_dq", case, dtype_name)]
+            nb = S // 64
+            dense_tiles = B * H * (nb * (nb + 1) // 2 if causal else nb * nb)
+            parts.append(f"{case} {1e6 * r['ms'] / r['live_tiles']:.2f} ns over "
+                         f"{r['live_tiles']} tiles vs flash dQ "
+                         f"{1e6 * r['flash_dq_ms'] / dense_tiles:.2f} ns over {dense_tiles} "
+                         f"({r['ms']:.4f} vs {r['flash_dq_ms']:.4f} ms)")
+        say(f"block_sparse_backward_dq {dtype_name} per live tile: " + "; ".join(parts)
+            + f" [{card}]")
     return rows
 
 
@@ -1386,7 +1412,7 @@ def profile_train_step(engine, batch, card: str, attn_impl: str = "auto"):
         k = kernel.lower()
         if "flash_fwd_kernel" in k or "flash_dq_kernel" in k or "flash_dkv_kernel" in k:
             return "flash attention kernels"
-        if "sparse_fwd_kernel" in k or "sparse_dq_kernel" in k or "sparse_dkv_kernel" in k:
+        if "sparse_fwd_kernel" in k or "sparse_dq_" in k or "sparse_dkv_kernel" in k:
             return "block-sparse attention kernels"
         if "ce_fwd" in k or "ce_bwd" in k:
             return "cross-entropy kernels"
@@ -1425,6 +1451,7 @@ def profile_train_step(engine, batch, card: str, attn_impl: str = "auto"):
     picked = {label: [(t, n) for name, (t, n) in by_name.items() if key in name]
               for label, key in (("CE forward", "ce_fwd_"),
                                  ("block-sparse forward", "sparse_fwd_kernel"),
+                                 ("block-sparse dQ", "sparse_dq_"),
                                  ("block-sparse dKV", "sparse_dkv_kernel"),
                                  ("flash dKV", "flash_dkv_kernel"), ("AdamW", "adam_kernel"))}
     say("train profile: per step " + ", ".join(
@@ -1525,7 +1552,8 @@ def phase_train_fp32_parity(device, steps: int = 3, seq: int = TRAIN_SEQ,
     # the plain versions walk the LUTs, not the forward's or dKV's work list
     tbs.block_sparse_forward = (
         lambda *args, work=None: tbs.block_sparse_forward_reference(*args))
-    tbs.block_sparse_backward_dq = tbs.block_sparse_backward_dq_reference
+    tbs.block_sparse_backward_dq = (
+        lambda *args, work=None: tbs.block_sparse_backward_dq_reference(*args))
     tbs.block_sparse_backward_dkv = (
         lambda *args, work=None: tbs.block_sparse_backward_dkv_reference(*args))
     tce.ce_forward = tce.ce_forward_reference
@@ -1620,7 +1648,7 @@ def main() -> int:
         + ", ".join(occupancy))
     from deepspeed_tpu_torch.ops.cuda import block_sparse_attention as tbs
     nb = SPARSE_SEQ // 64       # the path's layout: 64 blocks, at most 61 listed per row
-    occupancy = [(kern, dt_name, *tbs.kernel_occupancy(kern, dt, nb, nb))
+    occupancy = [(kern, dt_name, *tbs.kernel_occupancy(kern, dt, nb))
                  for kern in ("forward", "dq", "dkv")
                  for dt_name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32))]
     say("block-sparse blocks per SM x shared memory per block at S 4096 (occupancy query): "
@@ -1634,7 +1662,11 @@ def main() -> int:
                   ("sparse_fwd_kernel<bf16>", "sparse_fwd_kernelI13__nv_bfloat16",
                    tbs.kernel_occupancy("forward", torch.bfloat16, nb)),
                   ("sparse_fwd_kernel<fp32>", "sparse_fwd_kernelIf",
-                   tbs.kernel_occupancy("forward", torch.float32, nb))]
+                   tbs.kernel_occupancy("forward", torch.float32, nb)),
+                  ("sparse_dq_wgmma_kernel (bf16)", "sparse_dq_wgmma_kernel",
+                   tbs.kernel_occupancy("dq", torch.bfloat16, nb)),
+                  ("sparse_dq_kernel<fp32>", "sparse_dq_kernelIf",
+                   tbs.kernel_occupancy("dq", torch.float32, nb))]
     say("redesigned kernels (registers, spill stores / loads in bytes, blocks per SM, shared "
         "memory per block): " + "; ".join(
             "{} {} regs, spills {} / {}, {} per SM, {} B".format(

@@ -11,11 +11,11 @@ tables: the row LUT ``[H * nb, max_r]`` (the key blocks of each layout row,
 ascending, padded with the last) with its counts ``[H, nb]``, and the
 column LUT and counts likewise.  ``device_luts`` keeps them as int32
 tensors once per layout and device, so no step copies a LUT from the host.
-The forward kernel walks a work list made from the row LUT on the host
-(``build_fwd_tasks``: each row's live key blocks, the causal filter
-applied, longest first across heads); ``fwd_work`` keeps it on the device
-once per layout, ``causal`` and device.  The dKV kernel walks a work list
-made from the column LUT on the host
+The forward and dQ kernels walk one work list made from the row LUT on
+the host (``build_fwd_tasks``: each row's live key blocks, the causal
+filter applied, longest first across heads); ``fwd_work`` keeps it on the
+device once per layout, ``causal`` and device.  The dKV kernel walks a
+work list made from the column LUT on the host
 (``build_dkv_tasks``: each key block's live query blocks, long columns
 split into near-equal runs, longest first); ``dkv_work`` keeps it on the
 device with the kernel's workspace (fp32 partials of the split columns and
@@ -50,7 +50,8 @@ contiguous.  Kernel notes (bound, design) are in the ``.cu`` file.
 ``block_sparse_attention`` is differentiable in q, k and v through the
 custom op ``dst_torch::block_sparse_fwd`` (returning o and lse over the
 forward's work list; the column LUT and dKV's work list ride along as
-inputs) and its registered backward.
+inputs) and its registered backward, which hands dQ the forward's own work
+list.
 Activation checkpointing saves nothing of it, as the JAX policy saves only
 flash's outputs, so under remat its forward runs twice per layer
 (``runtime/activation_checkpointing/checkpointing.py``).
@@ -515,9 +516,10 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _check_fwd_work(work: Optional[FwdWork], H: int, nb: int, device) -> None:
-    """What the forward kernel takes of its work list (``fwd_work``)."""
-    name = "block_sparse_forward"
+def _check_fwd_work(work: Optional[FwdWork], H: int, nb: int, device,
+                    name: str = "block_sparse_forward") -> None:
+    """What the forward and dQ kernels take of their work list
+    (``fwd_work``)."""
     if work is None:
         raise ValueError(f"{name}: the CUDA kernel walks a work list: pass work=fwd_work(layout, "
                          "causal, device)")
@@ -555,20 +557,23 @@ block_sparse_forward.launches = 0
 
 
 def block_sparse_backward_dq(q, k, v, do, lse, delta, row_lut, row_cnt, causal: bool,
-                             scale: float) -> torch.Tensor:
+                             scale: float, work: Optional[FwdWork] = None) -> torch.Tensor:
     """dq ``[B, S, H, D]`` in q's dtype over the row LUT.  CPU tensors take
-    the plain version."""
+    the plain version; on CUDA the kernel walks ``work``, the forward's work
+    list (``fwd_work`` of the same layout and ``causal``)."""
     if q.device.type == "cpu":
         return block_sparse_backward_dq_reference(q, k, v, do, lse, delta, row_lut, row_cnt,
                                                   causal, scale)
-    dtype = _check("block_sparse_backward_dq", q, k, v, row_lut, row_cnt, do, lse, delta)
+    name = "block_sparse_backward_dq"
+    dtype = _check(name, q, k, v, row_lut, row_cnt, do, lse, delta)
     B, S, H, _ = q.shape
+    _check_fwd_work(work, H, row_cnt.shape[1], q.device, name)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lib = builder.load_library()
     rc = lib.dst_sparse_backward_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                                    lse.data_ptr(), delta.data_ptr(), row_lut.data_ptr(),
-                                    row_cnt.data_ptr(), dq.data_ptr(), _strides(q, k, v, do),
-                                    B, S, H, row_lut.shape[1], scale, int(causal), dtype,
+                                    lse.data_ptr(), delta.data_ptr(), work.tasks.data_ptr(),
+                                    work.entries.data_ptr(), work.tasks.shape[0], dq.data_ptr(),
+                                    _strides(q, k, v, do), B, S, H, scale, int(causal), dtype,
                                     _stream(q))
     builder.check(lib, rc, "block_sparse_backward_dq")
     block_sparse_backward_dq.launches += 1
@@ -628,17 +633,15 @@ block_sparse_backward_dkv.launches = 0
 _KERNEL_CODES = {"forward": 0, "dq": 1, "dkv": 2}
 
 
-def kernel_occupancy(kernel: str, dtype: torch.dtype, nb: int, max_n: int = 0
-                     ) -> Tuple[int, int]:
+def kernel_occupancy(kernel: str, dtype: torch.dtype, nb: int) -> Tuple[int, int]:
     """(blocks per SM, dynamic shared memory bytes per block) of one
     block-sparse kernel ("forward", "dq" or "dkv") on the current card at
-    ``nb`` layout blocks (``max_n`` listed per row for the forward and dQ),
-    by CUDA's occupancy query.  Launches nothing."""
+    ``nb`` layout blocks, by CUDA's occupancy query.  Launches nothing."""
     if kernel not in _KERNEL_CODES or dtype not in _DTYPE_CODES:
         raise ValueError(f"kernel_occupancy: no kernel {kernel!r} for {dtype}")
     lib = builder.load_library()
     smem = ctypes.c_int(0)
-    blocks = lib.dst_sparse_occupancy(_KERNEL_CODES[kernel], _DTYPE_CODES[dtype], nb, max_n,
+    blocks = lib.dst_sparse_occupancy(_KERNEL_CODES[kernel], _DTYPE_CODES[dtype], nb,
                                       ctypes.byref(smem))
     if blocks <= 0:
         raise RuntimeError(f"kernel_occupancy: the occupancy query failed for {kernel}")
@@ -676,6 +679,8 @@ def _setup_context(ctx, inputs, output):
     causal, scale = inputs[13:]
     o, lse = output
     ctx.save_for_backward(q, k, v, row_lut, row_cnt, col_lut, col_cnt, o, lse)
+    # the forward's own work list for dQ (the tensors it ran), dKV's for dKV
+    ctx.fwd_work = FwdWork(*inputs[7:9])
     ctx.work = DkvWork(*inputs[9:13])
     ctx.causal, ctx.scale = causal, scale
 
@@ -685,7 +690,7 @@ def _backward(ctx, do, _dlse):
     do = do.contiguous()
     delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()      # [B, H, S]
     dq = block_sparse_backward_dq(q, k, v, do, lse, delta, row_lut, row_cnt, ctx.causal,
-                                  ctx.scale)
+                                  ctx.scale, work=ctx.fwd_work)
     dk, dv = block_sparse_backward_dkv(q, k, v, do, lse, delta, col_lut, col_cnt, ctx.causal,
                                        ctx.scale, work=ctx.work)
     return (dq, dk, dv) + (None,) * 12

@@ -160,13 +160,13 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dst_sparse_forward.argtypes = [vp, vp, vp, vp, vp, ci, vp, vp, strides,
                                        ci, ci, ci, cf, ci, ci, vp]
     lib.dst_sparse_forward.restype = ci
-    lib.dst_sparse_backward_dq.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, strides,
-                                           ci, ci, ci, ci, cf, ci, ci, vp]
+    lib.dst_sparse_backward_dq.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, vp, strides,
+                                           ci, ci, ci, cf, ci, ci, vp]
     lib.dst_sparse_backward_dq.restype = ci
     lib.dst_sparse_backward_dkv.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, vp, ci, vp, ci,
                                             vp, vp, strides, ci, ci, ci, cf, ci, ci, vp]
     lib.dst_sparse_backward_dkv.restype = ci
-    lib.dst_sparse_occupancy.argtypes = [ci, ci, ci, ci, ctypes.POINTER(ci)]
+    lib.dst_sparse_occupancy.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
     lib.dst_sparse_occupancy.restype = ci
     lib.dst_fused_adam_chunk.argtypes = []
     lib.dst_fused_adam_chunk.restype = ci

@@ -6,12 +6,11 @@
 // * 16-byte cp.async copies of a [64][64] tile from a strided [B, S, H, 64]
 //   tensor into shared memory (rows past S zero-filled);
 // * c = a . b^T and acc += p . b on [16 x 64] warp tiles, bf16 through
-//   mma.sync m16n8k16 (fp32 accumulate), fp32 through FMA in the same
-//   register layout (no TF32): product_nt / product_pv read bf16 fragments
-//   with 32- and 16-bit shared loads (the block-sparse kernels);
-//   RowFragments (a warp's own 16 rows held in registers) and pv_tile read
-//   them with ldmatrix (the flash forward, dQ and dKV, and the decode
-//   prefill path);
+//   mma.sync m16n8k16 (fp32 accumulate) on fragments read by ldmatrix
+//   (RowFragments, a warp's own 16 rows held in registers, and pv_tile: the
+//   flash and block-sparse kernels and the decode prefill path), fp32
+//   through FMA in the same register layout (no TF32: product_nt /
+//   product_pv);
 // * row stores to contiguous [B, S, heads, 64] outputs.
 // A 16 x 64 fp32 tile of a warp lives in registers as c[8][4]: c[j][i] is
 // row g + 8 * (i >> 1), column 8 j + 2 t + (i & 1), where g = lane / 4 and
@@ -56,34 +55,12 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long long ss, in
   }
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 template <int NJ>
 __device__ __forceinline__ void zero(float (&c)[NJ][4]) {
 #pragma unroll
   for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) c[j][i] = 0.f;
-}
-
-// c = a . b^T: a is the warp's 16 rows, b 64 rows, both [row][kD] in shared
-// memory (the score product q . k^T and dp = do . v^T).
-__device__ __forceinline__ void product_nt(float (&c)[8][4], const bf16* a, const bf16* b) {
-  constexpr int L = Tr<bf16>::kLd;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  zero(c);
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    const bf16* ar = a + g * L + kk * 16 + 2 * t;
-    const uint32_t a0 = ld32(ar), a1 = ld32(ar + 8 * L), a2 = ld32(ar + 8),
-                   a3 = ld32(ar + 8 * L + 8);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const bf16* br = b + (j * 8 + g) * L + kk * 16 + 2 * t;
-      mma_bf16(c[j], a0, a1, a2, a3, ld32(br), ld32(br + 8));
-    }
-  }
 }
 
 // fp32: c = a . b^T for the first 8 NJ rows of b (c's columns).
@@ -110,28 +87,6 @@ __device__ __forceinline__ void product_nt(float (&c)[NJ][4], const float* a, co
         c[j][2 + i] = fmaf(hi.z, bv.z, c[j][2 + i]);
         c[j][2 + i] = fmaf(hi.w, bv.w, c[j][2 + i]);
       }
-  }
-}
-
-// acc += p . b: p is the warp's 16 x 64 tile in registers (rounded to bf16
-// here, as the bf16 kernels round p and ds before their products), b is
-// [64][kD] in shared memory (p . v, ds . k, p^T . do, ds^T . q).
-__device__ __forceinline__ void product_pv(float (&acc)[8][4], const float (&p)[8][4],
-                                           const bf16* b) {
-  constexpr int L = Tr<bf16>::kLd;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
-    const uint32_t a0 = pack_rn(p[2 * kk][0], p[2 * kk][1]);
-    const uint32_t a1 = pack_rn(p[2 * kk][2], p[2 * kk][3]);
-    const uint32_t a2 = pack_rn(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    const uint32_t a3 = pack_rn(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-    const bf16* br = b + (kk * 16 + 2 * t) * L + g;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const bf16* bj = br + j * 8;
-      mma_bf16(acc[j], a0, a1, a2, a3, pack_raw(bj[0], bj[L]), pack_raw(bj[8 * L], bj[9 * L]));
-    }
   }
 }
 
@@ -293,8 +248,6 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, const P& p, cudaStream
   kernel<<<grid, threads, smem, st>>>(p);
   return cudaGetLastError();
 }
-
-template <typename T> size_t tile_bytes() { return sizeof(T) * kTileElems<T>; }
 
 bool aligned16(const void* ptr) { return ((uintptr_t)ptr & 15u) == 0; }
 

@@ -56,16 +56,35 @@
 //   (mma.sync on 16-row warp tiles) is the limit, not the walk; the
 //   longest-first order is worth ~15 % (forward_variants.py).
 //
-// Design of dQ (simple and right first; the tile code is flash's,
-// attention_tile.cuh):
-// * One block of 4 warps per 64-row query block (grid: query blocks x
-//   heads x batch, the longest rows of a causal layout first).
-// * Each block reads its own count and LUT row and walks only the listed
-//   blocks (not a padded walk of the densest row's length, as the Pallas
-//   grid does): thread 0 copies the live entries (under `causal` those not
-//   wholly in the future) to shared memory, then the loop runs to that
-//   count.  The streamed K and V tiles are double-buffered with cp.async,
-//   the next listed block in flight while the current one is used.
+// Design of dQ (the forward's work list; bf16 on warpgroup MMA; redesigned
+// for Hopper):
+// * dQ walks what the forward walks: each (head, query block) row's live
+//   key blocks.  So it takes the forward's work list (build_fwd_tasks),
+//   with its grid of tasks x batch, batch fastest, rows longest first
+//   across heads, and the block's copy of its task's entries by all
+//   threads.  Each dQ row is written by one block: no atomics, and two
+//   launches on the same inputs give the same bits.  An empty task writes
+//   dq = 0.
+// * bf16 (sparse_dq_wgmma_kernel): the block's 4 warps are one warpgroup
+//   and its 64 query rows the m64 of wgmma.  s = Q . K^T and dp = dO . V^T
+//   take Q's and dO's ldmatrix fragments from registers (the A-operand
+//   layout of mma.sync is wgmma's) and K or V from shared memory as a
+//   K-major operand; dq += ds . K takes ds from registers and the same K
+//   tile as an MN-major operand.  K and V land by cp.async with the
+//   128-byte swizzle the descriptors name, in a ring of kStages buffers,
+//   one barrier per tile.  The accumulators keep the mma.sync layout per
+//   warp, so the mask, the exponentials and ds are the fp32 body's code.
+//   About a quarter faster than the same walk on mma.sync
+//   (forward_variants.py, "sparse-dq-mma-sync"; PERF.md, section 6).
+// * fp32 (sparse_dq_kernel): flash dQ's tile body: Q and dO held in
+//   shared memory, FMA products in the mma.sync register layout, score
+//   tiles 32 keys wide (kDqCols), so that on the diagonal block a warp
+//   skips the columns past its last row.
+// * Both: lse put in log2 units once per row in registers, p = ex2.approx
+//   of one FFMA (scale * log2(e) folded in), ds = p (dp - delta) * scale in
+//   natural units, masking by value only on the task's diagonal block;
+//   blocks per SM by __launch_bounds__ (kDqBlocksPerSm: bf16 3, fp32 2),
+//   read back by the occupancy query.
 //
 // Design of dKV (flash dKV's tile body over a work list made on the host):
 // * Under the "fixed" layout a global key block is listed by every later
@@ -108,51 +127,28 @@ namespace {
 struct Params {
   const void* q; const void* k; const void* v; const void* dout;
   const float* lse_in; const float* delta;
-  const int* lut; const int* cnt;     // dQ's row LUT: [H * nb, max_n] and [H * nb]
   const int* tasks; const int* entries;   // the forward's or dKV's work list and live blocks
   float* partials; int* counters;     // dKV: [B][n_slots][2][64 * 64] and [B][n_counters]
   void* o; float* lse; void* dq; void* dk; void* dv;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh;
-  int S, H, nb, max_n, causal, B, n_slots, n_counters;
+  int S, H, nb, causal, B, n_slots, n_counters;
   float scale;
 };
 
-// Thread 0 copies the live entries of this query block's LUT row to
-// `live`: all of them, or under `causal` those at or before block `own`.
-// Returns their count to every thread.
-__device__ __forceinline__ int live_entries(const Params& p, int h, int own, int* live) {
-  __shared__ int count;
-  if (threadIdx.x == 0) {
-    const long long row = (long long)h * p.nb + own;
-    const int* lut = p.lut + row * p.max_n;
-    const int n = p.cnt[row];
-    int m = 0;
-    for (int j = 0; j < n; ++j) {
-      const int other = lut[j];
-      if (!p.causal || other <= own) live[m++] = other;
-    }
-    count = m;
-  }
-  __syncthreads();
-  return count;
-}
-
-// s <- s * scale, -inf where the key is past the query (only in a diagonal
-// block under `causal`).  Local indices: the warp's 16 query rows, 64 key
-// columns.
-__device__ __forceinline__ void scale_mask(float (&s)[8][4], float scale, bool diag) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = warp * 16 + g + 8 * (i >> 1), c = j * 8 + 2 * t + (i & 1);
-      s[j][i] = diag && c > r ? -INFINITY : __fmul_rn(s[j][i], scale);
-    }
-}
-
 template <typename T> __device__ __forceinline__ const T* at(const void* base, long long off) {
   return static_cast<const T*>(base) + off;
+}
+
+// -inf where the key is past the query: the warp's 16 rows of the diagonal
+// block against its key columns c0 .. c0 + 8 NJ - 1.
+template <int NJ>
+__device__ __forceinline__ void mask_future_keys(float (&s)[NJ][4], int c0) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (c0 + jj * 8 + 2 * t + (i & 1) > warp * 16 + g + 8 * (i >> 1)) s[jj][i] = -INFINITY;
 }
 
 // --------------------------------------------------------------------------
@@ -221,13 +217,7 @@ __global__ void __launch_bounds__(kThreads, kFwdBlocksPerSm<T>) sparse_fwd_kerne
     qf.product_nt(s, sk + buf * TE);
     // only the causal diagonal block (the walk's last, which the work list
     // marks) is masked by value: keys past the query take no weight
-    if (diagonal && it == n - 1) {
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (jj * 8 + 2 * t + (i & 1) > warp * 16 + g + 8 * (i >> 1)) s[jj][i] = -INFINITY;
-    }
+    if (diagonal && it == n - 1) mask_future_keys(s, 0);
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj)
@@ -276,73 +266,272 @@ __global__ void __launch_bounds__(kThreads, kFwdBlocksPerSm<T>) sparse_fwd_kerne
 }
 
 // --------------------------------------------------------------------------
-// dQ: one block per (query block, head, batch), walking the row LUT
+// dQ: one block per (task of the forward's work list, batch), walking the
+// task's live key blocks.  bf16 on warpgroup MMA (sparse_dq_wgmma_kernel),
+// fp32 on flash dQ's FMA tile body (sparse_dq_kernel)
 // --------------------------------------------------------------------------
 
+constexpr int kStages = 2;              // streamed buffers in dQ's and dKV's rings
+constexpr int kDqCols = 32;             // key columns of a dQ score tile (the fp32 body)
+// bf16 dQ runs on wgmma (sparse_dq_wgmma_kernel), fp32 on sparse_dq_kernel
+template <typename T> constexpr bool kDqWgmma = sizeof(T) == 2;
+
+// Blocks per SM __launch_bounds__ asks for: bf16 3 (up to 168 registers a
+// thread), fp32 2 (its shared memory holds 2).
+template <typename T> constexpr int kDqBlocksPerSm = 3;
+template <> constexpr int kDqBlocksPerSm<float> = 2;
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads) sparse_dq_kernel(const Params p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int TE = kTileElems<T>, L = Tr<T>::kLd;
-  T* sq = reinterpret_cast<T*>(smem);
-  T* sdo = sq + TE;
-  T* sk = sdo + TE;                 // two buffers each
-  T* sv = sk + 2 * TE;
-  int* live = reinterpret_cast<int*>(sv + 2 * TE);
-  const int qb = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2;
-  const int row0 = qb * kTile, wrow0 = row0 + warp * 16;
-  const T* q = at<T>(p.q, b * p.q_sb + h * p.q_sh);
-  const T* dout = at<T>(p.dout, b * p.do_sb + h * p.do_sh);
-  const T* k = at<T>(p.k, b * p.k_sb + h * p.k_sh);
-  const T* v = at<T>(p.v, b * p.v_sb + h * p.v_sh);
-  const long long stat0 = ((long long)b * p.H + h) * p.S;
-  float lse[2], delta[2];
+constexpr size_t dq_smem_bytes(int nb) {   // Q and dO, kStages K and V buffers, the live list
+  return sizeof(T) * (2 + 2 * kStages) * kTileElems<T> + nb * sizeof(int);
+}
+
+// The warp's two rows' lse, in log2 units, and delta.
+__device__ __forceinline__ void dq_row_stats(const Params& p, int b, int h, int row,
+                                             float (&lse2)[2], float (&delta)[2]) {
+  const long long stat = ((long long)b * p.H + h) * p.S + row;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    lse[r] = p.lse_in[stat0 + wrow0 + g + 8 * r];
-    delta[r] = p.delta[stat0 + wrow0 + g + 8 * r];
+    lse2[r] = __fmul_rn(p.lse_in[stat + 8 * r], kLog2e);
+    delta[r] = p.delta[stat + 8 * r];
   }
-  const int n = live_entries(p, h, qb, live);
+}
 
-  load_tile(sq, q, p.q_ss, row0, p.S);
-  load_tile(sdo, dout, p.do_ss, row0, p.S);
+// s <- ds = p (dp - delta) * scale, p = 2^(s * scale * log2(e) - lse2).
+template <int NJ>
+__device__ __forceinline__ void ds_tile(float (&s)[NJ][4], const float (&dp)[NJ][4],
+                                        float to_log2, const float (&lse2)[2],
+                                        const float (&delta)[2], float scale) {
+#pragma unroll
+  for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float pr = exp2_approx(fmaf(s[jj][i], to_log2, -lse2[i >> 1]));
+      s[jj][i] = pr * (dp[jj][i] - delta[i >> 1]) * scale;
+    }
+}
+
+// grid: tasks x batch, batch fastest; the tasks come longest first
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kDqBlocksPerSm<T>) sparse_dq_kernel(const Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int TE = kTileElems<T>, L = Tr<T>::kLd, NS = kStages, NJ = kDqCols / 8;
+  T* sq = reinterpret_cast<T*>(smem);
+  T* sdo = sq + TE;
+  T* sk = sdo + TE;                 // NS buffers each
+  T* sv = sk + NS * TE;
+  int* live = reinterpret_cast<int*>(sv + NS * TE);
+  const int* task = p.tasks + (long long)(blockIdx.x / p.B) * kFwdTaskInts;
+  const int h = task[0], qb = task[1], first = task[2], n = task[3], diagonal = task[4];
+  const int b = blockIdx.x % p.B;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2;
+  const int row0 = qb * kTile, wrow0 = row0 + warp * 16;
+  const T* k = at<T>(p.k, b * p.k_sb + h * p.k_sh);
+  const T* v = at<T>(p.v, b * p.v_sb + h * p.v_sh);
+  const float to_log2 = p.scale * kLog2e;
+  auto stage = [&](int it, int buf) {
+    load_tile(sk + buf * TE, k, p.k_ss, live[it] * kTile, p.S);
+    load_tile(sv + buf * TE, v, p.v_ss, live[it] * kTile, p.S);
+  };
+
+  for (int i = threadIdx.x; i < n; i += kThreads) live[i] = p.entries[first + i];
   if (n > 0) {
-    load_tile(sk, k, p.k_ss, live[0] * kTile, p.S);
-    load_tile(sv, v, p.v_ss, live[0] * kTile, p.S);
+    load_tile(sq, at<T>(p.q, b * p.q_sb + h * p.q_sh), p.q_ss, row0, p.S);
+    load_tile(sdo, at<T>(p.dout, b * p.do_sb + h * p.do_sh), p.do_ss, row0, p.S);
   }
-  commit_copies();
+  __syncthreads();
+#pragma unroll
+  for (int st = 0; st < NS - 1; ++st) {
+    if (st < n) stage(st, st);
+    commit_copies();                   // the first group also holds Q and dO
+  }
+  float lse2[2], delta[2];
+  dq_row_stats(p, b, h, wrow0 + g, lse2, delta);
   float dq[8][4];
   zero(dq);
-  for (int j = 0; j < n; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n) {
-      load_tile(sk + (buf ^ 1) * TE, k, p.k_ss, live[j + 1] * kTile, p.S);
-      load_tile(sv + (buf ^ 1) * TE, v, p.v_ss, live[j + 1] * kTile, p.S);
-      commit_copies();
-      wait_copies<1>();
-    } else {
-      wait_copies<0>();
+  RowFragments<T> qf, dof;
+  for (int it = 0, buf = 0; it < n; ++it, buf = buf + 1 == NS ? 0 : buf + 1) {
+    wait_copies<NS - 2>();             // key block it has landed
+    __syncthreads();                   // ... for every thread; every warp is done with it - 1
+    if (it + NS - 1 < n) stage(it + NS - 1, buf == 0 ? NS - 1 : buf - 1);
+    commit_copies();
+    if (it == 0) {
+      qf.load(sq + warp * 16 * L);
+      dof.load(sdo + warp * 16 * L);
     }
-    __syncthreads();
-    float s[8][4], dp[8][4];
-    product_nt(s, sq + warp * 16 * L, sk + buf * TE);
-    scale_mask(s, p.scale, p.causal && live[j] == qb);
-    product_nt(dp, sdo + warp * 16 * L, sv + buf * TE);
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pr = expf(s[jj][i] - lse[i >> 1]);
-        s[jj][i] = pr * (dp[jj][i] - delta[i >> 1]) * p.scale;    // ds
-      }
-    product_pv(dq, s, sk + buf * TE);
-    __syncthreads();
+    // only the causal diagonal block (the walk's last, which the work list
+    // marks) is masked by value
+    const bool diag = diagonal && it == n - 1;
+#pragma unroll 1
+    for (int c = 0; c < kTile; c += kDqCols) {
+      // on the diagonal, key columns wholly past the warp's last row add nothing
+      if (diag && c > warp * 16 + 15) break;
+      const T* k_cols = sk + buf * TE + c * L;
+      float s[NJ][4], dp[NJ][4];
+      qf.product_nt(s, k_cols);
+      dof.product_nt(dp, sv + buf * TE + c * L);
+      if (diag && c + kDqCols - 1 > warp * 16) mask_future_keys(s, c);
+      ds_tile(s, dp, to_log2, lse2, delta, p.scale);
+      pv_tile(dq, s, k_cols);
+    }
   }
-  wait_copies<0>();
   const float one[2] = {1.f, 1.f};
   T* out = static_cast<T*>(p.dq) + (long long)b * p.S * p.H * kD + h * kD;
   store_rows<T>(out, (long long)p.H * kD, dq, wrow0, p.S, one);
+}
+
+// ---- bf16 on warpgroup MMA: the block's 4 warps are one warpgroup, its 64
+// query rows the m64 of wgmma ----
+
+constexpr int kSwTileElems = kTile * kD;    // a swizzled [64][64] bf16 tile: 8 KB, no padding
+
+constexpr size_t dq_wgmma_smem_bytes(int nb) {   // alignment slack, K, V ring, Q, dO, live list
+  return 1024 + sizeof(bf16) * (2 * kStages * kSwTileElems + 2 * kTileElems<bf16>) +
+         nb * sizeof(int);
+}
+
+// dst = rows row0 .. row0 + 63 of src ([row][kD] bf16 by stride ss) with the
+// 128-byte swizzle: 16-byte chunk c of row r at chunk c ^ (r % 8).  dst is
+// 1024-byte aligned.  Asynchronous, as load_tile.
+__device__ __forceinline__ void load_tile_sw128(bf16* dst, const bf16* src, long long ss,
+                                                int row0) {
+#pragma unroll
+  for (int i = 0; i < kTile * 8 / kThreads; ++i) {
+    const int c = threadIdx.x + i * kThreads, r = c >> 3, ch = c & 7;
+    copy16_async(dst + r * kD + ((ch ^ (r & 7)) << 3), src + (row0 + r) * ss + (ch << 3), true);
+  }
+}
+
+// Pins registers in program order around the asynchronous products (the
+// compiler does not see wgmma read or write them late).
+__device__ __forceinline__ void fence_acc(float (&d)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+f"(d[j][i])::"memory");
+}
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[kD / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[kk][i])::"memory");
+}
+
+#define DQ_ACC4(j) "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
+// d (+)= A . B over 16 of k: A the warpgroup's 64 rows from registers (a0 ..
+// a3: the mma.sync A fragment of the warp's 16 rows), B 64 columns from
+// shared memory (kTransB 0: K-major, 1: MN-major); `accumulate` 0
+// overwrites d, which keeps the mma.sync accumulator layout per warp.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[8][4], const uint32_t (&a)[4],
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : DQ_ACC4(0), DQ_ACC4(1), DQ_ACC4(2), DQ_ACC4(3), DQ_ACC4(4), DQ_ACC4(5), DQ_ACC4(6),
+        DQ_ACC4(7)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
+        "n"(kTransB));
+}
+#undef DQ_ACC4
+
+// grid: tasks x batch, batch fastest; the tasks come longest first
+__global__ void __launch_bounds__(kThreads, kDqBlocksPerSm<bf16>)
+    sparse_dq_wgmma_kernel(const Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int TE = kTileElems<bf16>, L = Tr<bf16>::kLd, NS = kStages, SW = kSwTileElems;
+  bf16* sk = reinterpret_cast<bf16*>(smem + ((1024 - (smem_u32(smem) & 1023)) & 1023));
+  bf16* sv = sk + NS * SW;          // NS buffers each, 1024-byte aligned
+  bf16* sq = sv + NS * SW;
+  bf16* sdo = sq + TE;
+  int* live = reinterpret_cast<int*>(sdo + TE);
+  const int* task = p.tasks + (long long)(blockIdx.x / p.B) * kFwdTaskInts;
+  const int h = task[0], qb = task[1], first = task[2], n = task[3], diagonal = task[4];
+  const int b = blockIdx.x % p.B;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2;
+  const int row0 = qb * kTile, wrow0 = row0 + warp * 16;
+  const bf16* k = at<bf16>(p.k, b * p.k_sb + h * p.k_sh);
+  const bf16* v = at<bf16>(p.v, b * p.v_sb + h * p.v_sh);
+  const float to_log2 = p.scale * kLog2e;
+  auto stage = [&](int it, int buf) {
+    load_tile_sw128(sk + buf * SW, k, p.k_ss, live[it] * kTile);
+    load_tile_sw128(sv + buf * SW, v, p.v_ss, live[it] * kTile);
+  };
+
+  for (int i = threadIdx.x; i < n; i += kThreads) live[i] = p.entries[first + i];
+  if (n > 0) {
+    load_tile(sq, at<bf16>(p.q, b * p.q_sb + h * p.q_sh), p.q_ss, row0, p.S);
+    load_tile(sdo, at<bf16>(p.dout, b * p.do_sb + h * p.do_sh), p.do_ss, row0, p.S);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int st = 0; st < NS - 1; ++st) {
+    if (st < n) stage(st, st);
+    commit_copies();                   // the first group also holds Q and dO
+  }
+  float lse2[2], delta[2];
+  dq_row_stats(p, b, h, wrow0 + g, lse2, delta);
+  float dq[8][4];
+  zero(dq);
+  for (int it = 0, buf = 0; it < n; ++it, buf = buf + 1 == NS ? 0 : buf + 1) {
+    wait_copies<NS - 2>();             // key block it has landed
+    proxy_fence();                     // ... visible to wgmma's (async proxy) reads
+    __syncthreads();                   // ... for every thread; every product of it - 1 is done
+    if (it + NS - 1 < n) stage(it + NS - 1, buf == 0 ? NS - 1 : buf - 1);
+    commit_copies();
+    // Q's and dO's fragments are loaded anew for each tile: held in
+    // registers from one tile to the next, they reached the products wrong
+    // from the second tile on (measured), as the compiler does not see
+    // wgmma read them late
+    RowFragments<bf16> qf, dof;
+    qf.load(sq + warp * 16 * L);
+    dof.load(sdo + warp * 16 * L);
+    const uint64_t desc_k = sw128_desc(smem_u32(sk + buf * SW));
+    const uint64_t desc_v = sw128_desc(smem_u32(sv + buf * SW));
+    float s[8][4], dp[8][4];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)   // s = Q . K^T, K K-major
+      wgmma_m64n64k16_rs<0>(s, qf.f[kk], desc_k + 2 * kk, kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)   // dp = dO . V^T
+      wgmma_m64n64k16_rs<0>(dp, dof.f[kk], desc_v + 2 * kk, kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    fence_acc(dp);
+    fence_frag(qf.f);
+    fence_frag(dof.f);
+    // only the causal diagonal block (the walk's last, which the work list
+    // marks) is masked by value
+    if (it == n - 1 && diagonal) mask_future_keys(s, 0);
+    ds_tile(s, dp, to_log2, lse2, delta, p.scale);
+    uint32_t a[kTile / 16][4];         // ds in bf16, the A operand of dq += ds . K
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      a[kk][0] = pack_rn(s[2 * kk][0], s[2 * kk][1]);
+      a[kk][1] = pack_rn(s[2 * kk][2], s[2 * kk][3]);
+      a[kk][2] = pack_rn(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[kk][3] = pack_rn(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)   // dq += ds . K, K MN-major
+      wgmma_m64n64k16_rs<1>(dq, a[kk], desc_k + 128 * kk, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dq);
+    fence_frag(a);
+  }
+  const float one[2] = {1.f, 1.f};
+  bf16* out = static_cast<bf16*>(p.dq) + (long long)b * p.S * p.H * kD + h * kD;
+  store_rows<bf16>(out, (long long)p.H * kD, dq, wrow0, p.S, one);
 }
 
 // --------------------------------------------------------------------------
@@ -351,7 +540,6 @@ __global__ void __launch_bounds__(kThreads) sparse_dq_kernel(const Params p) {
 // --------------------------------------------------------------------------
 
 constexpr int kDkvBlocksPerSm = 2;      // K, V, dK and dV fragments take 96 registers a thread
-constexpr int kStages = 2;              // query-block buffers in the ring
 constexpr int kTaskInts = 8;            // h, key block, first, count, split, splits, slot, counter
 constexpr int kPartFloats = kTile * kD;     // one fp32 [64][64] partial
 
@@ -539,30 +727,33 @@ __global__ void __launch_bounds__(kThreads, kDkvBlocksPerSm) sparse_dkv_kernel(c
 enum Which { kForward, kDq, kDkv };
 
 template <typename T>
-size_t smem_bytes(Which which, int nb, int max_n) {
-  const size_t live = sizeof(int) * max_n;
+size_t smem_bytes(Which which, int nb) {
   switch (which) {
     case kForward: return fwd_smem_bytes<T>(nb);
-    case kDq: return 6 * tile_bytes<T>() + live;
+    case kDq: return kDqWgmma<T> ? dq_wgmma_smem_bytes(nb) : dq_smem_bytes<T>(nb);
     default: return dkv_smem_bytes<T>(nb);
   }
 }
 
 template <typename T>
 cudaError_t run(Which which, const Params& p, int n_tasks, cudaStream_t st) {
-  const size_t smem = smem_bytes<T>(which, p.nb, p.max_n);
+  const size_t smem = smem_bytes<T>(which, p.nb);
   switch (which) {
     case kForward: return launch(sparse_fwd_kernel<T>, dim3(n_tasks * p.B), smem, p, st);
-    case kDq: return launch(sparse_dq_kernel<T>, dim3(p.nb, p.H, p.B), smem, p, st);
+    case kDq:
+      if constexpr (kDqWgmma<T>)
+        return launch(sparse_dq_wgmma_kernel, dim3(n_tasks * p.B), smem, p, st);
+      else
+        return launch(sparse_dq_kernel<T>, dim3(n_tasks * p.B), smem, p, st);
     default: return launch(sparse_dkv_kernel<T>, dim3(n_tasks * p.B), smem, p, st);
   }
 }
 
 // Blocks of one kernel that one SM holds at once, registers and shared
-// memory (at nb layout blocks, max_n listed) both counted; 0 on an error.
+// memory (at nb layout blocks) both counted; 0 on an error.
 template <typename T>
-int occupancy(Which which, int nb, int max_n, int* smem) {
-  *smem = (int)smem_bytes<T>(which, nb, max_n);
+int occupancy(Which which, int nb, int* smem) {
+  *smem = (int)smem_bytes<T>(which, nb);
   auto query = [&](auto kernel) {
     int n = 0;
     if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem) !=
@@ -573,7 +764,11 @@ int occupancy(Which which, int nb, int max_n, int* smem) {
   };
   switch (which) {
     case kForward: return query(sparse_fwd_kernel<T>);
-    case kDq: return query(sparse_dq_kernel<T>);
+    case kDq:
+      if constexpr (kDqWgmma<T>)
+        return query(sparse_dq_wgmma_kernel);
+      else
+        return query(sparse_dq_kernel<T>);
     default: return query(sparse_dkv_kernel<T>);
   }
 }
@@ -593,11 +788,9 @@ int dispatch(Which which, Params p, const long long* strides, int n_tasks, int d
   if (which == kDkv)
     ok = ok && n_tasks > 0 && (long long)n_tasks * p.B <= 0x7fffffffLL && p.n_slots >= 0 &&
          p.n_counters >= 0 && aligned16(p.tasks);
-  else if (which == kForward)            // one task per (head, query block)
+  else                                   // the forward's list: one task per (head, query block)
     ok = ok && (long long)n_tasks == (long long)p.H * (p.S / kTile) &&
          (long long)n_tasks * p.B <= 0x7fffffffLL && p.tasks != nullptr;
-  else
-    ok = ok && p.max_n > 0 && p.max_n <= p.S / kTile;
   for (int i = 0; i < 12; ++i) ok = ok && strides[i] % vec == 0;
   if (!ok) return (int)cudaErrorInvalidValue;
   p.nb = p.S / kTile;
@@ -624,17 +817,19 @@ int dst_sparse_forward(const void* q, const void* k, const void* v, const int* t
   return dispatch(kForward, p, strides, n_tasks, dtype, stream);
 }
 
-// dout by strides like q; lse and delta fp32 contiguous [B, H, S]; dq
-// contiguous [B, S, H, 64].
+// dout by strides like q; lse and delta fp32 contiguous [B, H, S]; the
+// forward's work list (tasks, entries, n_tasks) as dst_sparse_forward takes
+// it; dq contiguous [B, S, H, 64].
 int dst_sparse_backward_dq(const void* q, const void* k, const void* v, const void* dout,
-                           const float* lse, const float* delta, const int* lut, const int* cnt,
-                           void* dq, const long long* strides, int B, int S, int H, int max_n,
-                           float scale, int causal, int dtype, void* stream) {
+                           const float* lse, const float* delta, const int* tasks,
+                           const int* entries, int n_tasks, void* dq, const long long* strides,
+                           int B, int S, int H, float scale, int causal, int dtype,
+                           void* stream) {
   Params p = {};
   p.q = q; p.k = k; p.v = v; p.dout = dout; p.lse_in = lse; p.delta = delta;
-  p.lut = lut; p.cnt = cnt; p.dq = dq;
-  p.B = B; p.S = S; p.H = H; p.max_n = max_n; p.scale = scale; p.causal = causal;
-  return dispatch(kDq, p, strides, 0, dtype, stream);
+  p.tasks = tasks; p.entries = entries; p.dq = dq;
+  p.B = B; p.S = S; p.H = H; p.scale = scale; p.causal = causal;
+  return dispatch(kDq, p, strides, n_tasks, dtype, stream);
 }
 
 // The work list of build_dkv_tasks: tasks int32 [n_tasks][8] (head, key
@@ -657,15 +852,13 @@ int dst_sparse_backward_dkv(const void* q, const void* k, const void* v, const v
 }
 
 // Blocks of one kernel (which: 0 forward, 1 dQ, 2 dKV) that one SM holds
-// at once at S / 64 = nb layout blocks (max_n listed per row for dQ); its
-// dynamic shared memory per block in *smem_bytes.  0 on an error.
-int dst_sparse_occupancy(int which, int dtype, int nb, int max_n, int* smem_bytes) {
-  if (which < 0 || which > 2 || (dtype != 0 && dtype != 1) || nb <= 0 || max_n < 0 ||
-      smem_bytes == nullptr)
+// at once at S / 64 = nb layout blocks; its dynamic shared memory per block
+// in *smem_bytes.  0 on an error.
+int dst_sparse_occupancy(int which, int dtype, int nb, int* smem_bytes) {
+  if (which < 0 || which > 2 || (dtype != 0 && dtype != 1) || nb <= 0 || smem_bytes == nullptr)
     return 0;
   const Which w = (Which)which;
-  return dtype == 0 ? occupancy<float>(w, nb, max_n, smem_bytes)
-                    : occupancy<bf16>(w, nb, max_n, smem_bytes);
+  return dtype == 0 ? occupancy<float>(w, nb, smem_bytes) : occupancy<bf16>(w, nb, smem_bytes);
 }
 
 }  // extern "C"

@@ -221,23 +221,6 @@ struct FwdArgs {
   int n, e, v, vocab_size, per_split;
 };
 
-// A shared-memory matrix descriptor of wgmma for a K-major tile whose rows
-// are 128 bytes with the 128-byte swizzle: 8-row groups 1024 bytes apart.
-// A k step of 16 bf16 advances the start address by 32 bytes (+2).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
 // Pins the accumulators in program order around the asynchronous products
 // (the compiler does not see wgmma write them late).
 __device__ __forceinline__ void fence_acc(float (&d)[kWgAcc]) {

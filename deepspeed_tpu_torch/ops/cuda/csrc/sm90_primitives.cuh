@@ -1,10 +1,11 @@
 // Device primitives shared by the package's Hopper (sm_90a) kernels:
 // asynchronous 16- and 4-byte copies into shared memory, ldmatrix fragment
-// loads, the bf16 mma.sync m16n8k16 product (fp32 accumulate), the one-
-// instruction base-2 exponential, row-group (quad) max and sum, transaction
-// barriers (mbarrier), tensor-map (TMA) tile loads, and for thread-block
-// clusters the split cluster barrier, peer addresses and bulk copies (from
-// global memory, or into a peer's shared memory).
+// loads, the bf16 mma.sync m16n8k16 product (fp32 accumulate), wgmma's
+// swizzled-tile descriptor, fence, commit and wait, the one-instruction
+// base-2 exponential, row-group (quad) max and sum, transaction barriers
+// (mbarrier), tensor-map (TMA) tile loads, and for thread-block clusters
+// the split cluster barrier, peer addresses and bulk copies (from global
+// memory, or into a peer's shared memory).
 //
 // mma.m16n8k16 register layouts, with g = lane / 4 and t = lane % 4:
 // * accumulator c[4]: rows g (c[0], c[1]) and g + 8 (c[2], c[3]), columns
@@ -172,6 +173,30 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
 // copies (async proxy) that read or overwrite the same memory.
 __device__ __forceinline__ void proxy_fence() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- warpgroup MMA (wgmma) ----
+
+// A shared-memory matrix descriptor of wgmma for a tile of 128-byte rows
+// with the 128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r % 8),
+// the tile 1024-byte aligned): 8-row groups 1024 bytes apart.  As a
+// K-major operand a k step of 16 bf16 advances the start by 32 bytes (+2);
+// as an MN-major one (the transpose bit set) by 16 rows, 2048 bytes (+128).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N of this warpgroup's committed product groups are in
+// flight.
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ uint32_t pack_raw(bf16 lo, bf16 hi) {

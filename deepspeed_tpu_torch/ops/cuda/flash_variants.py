@@ -154,7 +154,7 @@ print(json.dumps({"ptxas": ptxas, "occupancy": occupancy, "times": times}))
 
 def copy_checkout(src: Path, dst: Path) -> None:
     shutil.copytree(src, dst, ignore=shutil.ignore_patterns(
-        ".git", "build_torch", "__pycache__", ".pytest_cache", "*.pyc"))
+        ".git", "build_torch", "chip_trees", "__pycache__", ".pytest_cache", "*.pyc"))
 
 
 def apply(root: Path, changes) -> None:

@@ -1,5 +1,5 @@
-"""Design variants of the cross-entropy forward and the block-sparse forward,
-side by side on one card.
+"""Design variants of the cross-entropy forward and the block-sparse forward
+and dQ, side by side on one card.
 
     python -m deepspeed_tpu_torch.ops.cuda.forward_variants [--parent DIR] [--only NAME ...]
 
@@ -12,12 +12,14 @@ then each is timed in its own process, in the order kept, variants, parent,
 kept, so a drift of the card over the run shows between the two ``kept``
 runs.
 
-Each run prints one JSON line: for each case of CASES (bf16) the median time
-of the forward by CUDA events after a ``zero_()`` flush of 64 MB and its
-error against the plain version (cross-entropy: |err| / max(1, |plain|) of
-lse, against fp32 products; block-sparse: max |err| / max |plain| of o,
-against the kernel's rounding), so a variant that computes something else
-shows as such.
+Each run prints one JSON line: for each case of CE_CASES and SPARSE_CASES
+(bf16) the median time of the forward by CUDA events after a ``zero_()``
+flush of 64 MB and its error against the plain version (cross-entropy:
+|err| / max(1, |plain|) of lse, against fp32 products; block-sparse: max
+|err| / max |plain| of o, against the kernel's rounding), so a variant that
+computes something else shows as such; for each case of DQ_CASES the same
+of block-sparse dQ (max |err| / max |plain| of dq against the plain
+version with the kernel's rounding, on the plain forward's lse).
 """
 
 import argparse
@@ -90,6 +92,23 @@ VARIANTS = {
                                  "in the ring", "constexpr int kFwdStages = 3;")],
     "sparse-2-blocks": [(SPARSE, "template <typename T> constexpr int kFwdBlocksPerSm = 3;",
                          "template <typename T> constexpr int kFwdBlocksPerSm = 2;")],
+    # block-sparse dQ (bf16 on wgmma): a ring of 3 key / value stages, not
+    # 2; 2 blocks per SM (up to 255 registers), not 3; the bf16 kernel on the
+    # fp32 kernel's mma.sync tile body (ldmatrix fragments, 32-key score
+    # tiles: the design before wgmma).  "sparse-rows-in-order" below changes
+    # dQ's order too: dQ walks the forward's work list
+    "sparse-dq-3-stages": [
+        (SPARSE, "  constexpr int TE = kTileElems<bf16>, L = Tr<bf16>::kLd, NS = kStages, "
+                 "SW = kSwTileElems;",
+         "  constexpr int TE = kTileElems<bf16>, L = Tr<bf16>::kLd, NS = 3, SW = kSwTileElems;"),
+        (SPARSE, "  return 1024 + sizeof(bf16) * (2 * kStages * kSwTileElems + 2 * "
+                 "kTileElems<bf16>) +",
+         "  return 1024 + sizeof(bf16) * (2 * 3 * kSwTileElems + 2 * kTileElems<bf16>) +")],
+    "sparse-dq-2-blocks": [(SPARSE, "template <typename T> constexpr int kDqBlocksPerSm = 3;",
+                            "template <typename T> constexpr int kDqBlocksPerSm = 2;")],
+    "sparse-dq-mma-sync": [(SPARSE, "template <typename T> constexpr bool kDqWgmma = "
+                                    "sizeof(T) == 2;",
+                            "template <typename T> constexpr bool kDqWgmma = false;")],
     "sparse-rows-in-order": [(SPARSE_PY, "    order = sorted(range(len(rows)), key=lambda i: "
                                          "-rows[i][3])\n    tasks = np.asarray([rows[i] for i in "
                                          "order], np.int32).reshape(-1, len(FWD_TASK_FIELDS))",
@@ -109,10 +128,11 @@ SPARSE_CASES = {
                                            "num_global_blocks": 1, "attention": "bidirectional",
                                            "seed": 3}, False),
 }
+DQ_CASES = {"dq-" + name.split("-", 1)[1]: case for name, case in SPARSE_CASES.items()}
 
 # Run inside a checkout (its root first on sys.path): build, time, compare.
 TIMER = r"""
-import json, statistics, sys
+import inspect, json, statistics, sys
 import numpy as np
 import torch
 from deepspeed_tpu_torch.ops.cuda import builder
@@ -120,7 +140,7 @@ from deepspeed_tpu_torch.ops.cuda import block_sparse_attention as tbs
 from deepspeed_tpu_torch.ops.cuda import cross_entropy as tce
 from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import sparsity_config_from_dict
 
-ce_cases, sparse_cases = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+ce_cases, sparse_cases, dq_cases = (json.loads(a) for a in sys.argv[1:4])
 builder.build()
 dev = torch.device("cuda", 0)
 flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -165,6 +185,27 @@ for name, (B, S, H, block, causal) in sparse_cases.items():
     ro, _ = tbs.block_sparse_forward_reference(*args, kernel_rounding=True)
     err = ((o.float() - ro.float()).abs().max() / ro.float().abs().max()).item()
     times[name] = {"ms": median_ms(lambda: tbs.block_sparse_forward(*args, **kw)), "err": err}
+# dQ on the plain forward's lse; an earlier tree's dQ may walk its row LUT
+# (no work=)
+dq_work = "work" in inspect.signature(tbs.block_sparse_backward_dq).parameters
+for name, (B, S, H, block, causal) in dq_cases.items():
+    layout = sparsity_config_from_dict(block, num_heads=H).make_layout(S)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2025)
+    q = (torch.randn((B, S, H, 64), generator=gen, device=dev) * 3.0).bfloat16()
+    k, v, do = (torch.randn((B, S, H, 64), generator=gen, device=dev).bfloat16()
+                for _ in range(3))
+    row_lut, row_cnt, _, _ = tbs.device_luts(layout, dev)
+    ro, rlse = tbs.block_sparse_forward_reference(q, k, v, row_lut, row_cnt, causal, 0.125,
+                                                  kernel_rounding=True)
+    delta = (ro.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    kw = {"work": tbs.fwd_work(layout, causal, dev)} if dq_work else {}
+    args = (q, k, v, do, rlse, delta, row_lut, row_cnt, causal, 0.125)
+    dq = tbs.block_sparse_backward_dq(*args, **kw)
+    rdq = tbs.block_sparse_backward_dq_reference(*args, kernel_rounding=True)
+    err = ((dq.float() - rdq.float()).abs().max() / rdq.float().abs().max()).item()
+    times[name] = {"ms": median_ms(lambda: tbs.block_sparse_backward_dq(*args, **kw)),
+                   "err": err}
 print(json.dumps({"card": torch.cuda.get_device_name(0), "times": times}))
 """
 
@@ -210,7 +251,8 @@ def main() -> int:
         ok = built == set(roots)
         order = ["kept", *names, *(["parent"] if "parent" in roots else []), "kept"]
         for name in (n for n in order if n in built):
-            res = run_in(roots[name], TIMER, json.dumps(CE_CASES), json.dumps(SPARSE_CASES))
+            res = run_in(roots[name], TIMER, json.dumps(CE_CASES), json.dumps(SPARSE_CASES),
+                         json.dumps(DQ_CASES))
             if res.returncode != 0:
                 print(f"forward_variants: {name}: exit {res.returncode}\n{res.stdout[-2000:]}"
                       f"{res.stderr[-4000:]}", flush=True)

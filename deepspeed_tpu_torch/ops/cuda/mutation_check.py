@@ -8,14 +8,14 @@ way, and runs the ``cuda``-marked tests of that kernel's test file against
 the copy's own build (the copies build and run side by side): the
 decode-attention kernels (``csrc/decode_attention.cu``), the flash forward,
 dQ and dKV (``csrc/flash_attention.cu``), the cross-entropy forward and
-backward (``csrc/cross_entropy.cu``), the block-sparse forward and dKV
+backward (``csrc/cross_entropy.cu``), the block-sparse forward, dQ and dKV
 (``csrc/block_sparse_attention.cu``) and the fused AdamW
 (``csrc/fused_optim.cu`` and its plan in ``fused_optim.py``).  The
 unmutated checkout runs every one of those test files the same way and
 must pass every test; each mutation must fail at least one test in each
 dtype its kernel is compiled for (bf16 and fp32; AdamW fp32 only; the
-cross-entropy forward's wgmma kernel bf16 only).  Prints
-one line per run with the tests that failed, then a JSON summary; exits
+cross-entropy forward's and block-sparse dQ's wgmma kernels bf16 only).
+Prints one line per run with the tests that failed, then a JSON summary; exits
 non-zero if the checkout fails a test or a mutation goes unseen in a
 dtype.
 """
@@ -40,10 +40,13 @@ TIMEOUT_S = 900
 # the dtypes a mutation must be seen in, by test file: every kernel but
 # AdamW is compiled for both; by mutation where it breaks one dtype's kernel
 DTYPES = {ADAM[1]: ("float32",)}
-MUTATION_DTYPES = {"ce-fwd-drop-last-k-slice": ("bfloat16",)}
+MUTATION_DTYPES = {"ce-fwd-drop-last-k-slice": ("bfloat16",),
+                   "sparse-dq-wgmma-tiles-unswizzled": ("bfloat16",),
+                   "sparse-dq-wgmma-k-step-of-k-major": ("bfloat16",)}
 BOTH = ("float32", "bfloat16")
 
-# name: ((source, test file), what it breaks, the line as it is, the line broken)
+# name: ((source, test file), what it breaks, the line as it is, the line broken);
+# a tuple of lines as they are and one of the lines broken change each pair
 MUTATIONS = {
     "drop-last-block-of-warp-0": (
         DECODE, "decode path: warp 0 skips the last block of its range",
@@ -112,13 +115,43 @@ MUTATIONS = {
         "    for (int j = 1; j < splits; ++j) {   // in split order, whatever the order of arrival"),
     "sparse-fwd-diagonal-unmasked": (
         SPARSE, "block-sparse forward: the causal diagonal block is not masked",
-        "    if (diagonal && it == n - 1) {",
-        "    if (false) {"),
+        "    if (diagonal && it == n - 1) mask_future_keys(s, 0);",
+        "    if (false) mask_future_keys(s, 0);"),
     "sparse-fwd-empty-row-lse-by-log2-formula": (
         SPARSE, "block-sparse forward: an empty row's lse goes through the log2 formula (-inf), "
         "not JAX's -1e30",
         "      lse[wrow0 + g + 8 * r] = n > 0 ? row_lse : kNegInf;   // an empty row: JAX's -1e30",
         "      lse[wrow0 + g + 8 * r] = row_lse;"),
+    # dQ runs on two kernels, bf16 on wgmma and fp32 on the FMA tile body:
+    # a mutation of dQ's semantics breaks both (one line of each, or of a
+    # helper they share)
+    "sparse-dq-diagonal-unmasked": (
+        SPARSE, "block-sparse dQ: the causal diagonal block is not masked (the fp32 body "
+        "still skips a warp's columns past its last row)",
+        ("      if (diag && c + kDqCols - 1 > warp * 16) mask_future_keys(s, c);",
+         "    if (it == n - 1 && diagonal) mask_future_keys(s, 0);"),
+        ("      if (false) mask_future_keys(s, c);", "    if (false) mask_future_keys(s, 0);")),
+    "sparse-dq-lse-in-natural-units": (
+        SPARSE, "block-sparse dQ: lse is not converted to log2 units before the exponential",
+        "    lse2[r] = __fmul_rn(p.lse_in[stat + 8 * r], kLog2e);",
+        "    lse2[r] = p.lse_in[stat + 8 * r];"),
+    "sparse-dq-drop-last-entry": (
+        SPARSE, "block-sparse dQ: each task's last key block is staged but adds nothing",
+        ("    const bool diag = diagonal && it == n - 1;",
+         "    if (it == n - 1 && diagonal) mask_future_keys(s, 0);"),
+        ("    if (it == n - 1) continue;   // dropped\n    const bool diag = false;",
+         "    if (it == n - 1) continue;   // dropped, wgmma")),
+    "sparse-dq-wgmma-tiles-unswizzled": (
+        SPARSE, "block-sparse dQ (bf16, wgmma): K and V land unswizzled under the 128-byte-swizzle "
+        "descriptors",
+        "    copy16_async(dst + r * kD + ((ch ^ (r & 7)) << 3), src + (row0 + r) * ss + "
+        "(ch << 3), true);",
+        "    copy16_async(dst + r * kD + (ch << 3), src + (row0 + r) * ss + (ch << 3), true);"),
+    "sparse-dq-wgmma-k-step-of-k-major": (
+        SPARSE, "block-sparse dQ (bf16, wgmma): dq += ds . K steps through K as a K-major "
+        "operand (32 bytes a k step), not an MN-major one (2048)",
+        "      wgmma_m64n64k16_rs<1>(dq, a[kk], desc_k + 128 * kk, 1);",
+        "      wgmma_m64n64k16_rs<1>(dq, a[kk], desc_k + 2 * kk, 1);"),
     "sparse-dkv-sum-drops-split-0": (
         SPARSE, "block-sparse dKV: the last split to arrive leaves split 0's partial out of "
         "its column's sum",
@@ -155,7 +188,12 @@ def dtype_of(test_id: str) -> str:
 
 def copy_checkout(dst: Path) -> None:
     shutil.copytree(REPO, dst, ignore=shutil.ignore_patterns(
-        ".git", "build_torch", "__pycache__", ".pytest_cache", "*.pyc"))
+        ".git", "build_torch", "chip_trees", "__pycache__", ".pytest_cache", "*.pyc"))
+
+
+def line_pairs(old, new):
+    """The (line as it is, line broken) pairs of one mutation."""
+    return list(zip(old, new)) if isinstance(old, tuple) else [(old, new)]
 
 
 def mutate(root: Path, source: str, old: str, new: str) -> None:
@@ -189,7 +227,8 @@ def main() -> int:
             copy_checkout(root)
             if m is not None:
                 (source, tests), _, old, new = m
-                mutate(root, source, old, new)
+                for line, broken in line_pairs(old, new):
+                    mutate(root, source, line, broken)
             procs[name] = (root, subprocess.Popen(
                 [sys.executable, "-m", "pytest", *([tests] if m else every_test_file), "-m",
                  "cuda", "-q", "-p", "no:cacheprovider", f"--junitxml={root / 'junit.xml'}"],

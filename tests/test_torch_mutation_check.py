@@ -1,7 +1,7 @@
 """The kernels' mutation check (``deepspeed_tpu_torch/ops/cuda/
-mutation_check.py``) on the CPU: each mutation still names a line of its
-kernel source exactly once (so an edit of a kernel cannot leave the check
-mutating nothing) and names an existing test file, and the report reading
+mutation_check.py``) on the CPU: each mutation still names each line it
+breaks of its kernel source exactly once (so an edit of a kernel cannot
+leave the check mutating nothing) and names an existing test file, and the report reading
 sorts the ``cuda`` tests of the decode, flash, cross-entropy, block-sparse
 and AdamW test files by dtype.  The check itself runs on the card."""
 
@@ -13,8 +13,9 @@ from deepspeed_tpu_torch.ops.cuda import mutation_check as mc
 @pytest.mark.parametrize("name", sorted(mc.MUTATIONS))
 def test_each_mutation_names_one_line_of_the_kernel(name):
     (source, tests), _, old, new = mc.MUTATIONS[name]
-    assert (mc.REPO / source).read_text().count(old) == 1
-    assert old != new
+    for line, broken in mc.line_pairs(old, new):
+        assert (mc.REPO / source).read_text().count(line) == 1
+        assert line != broken
     assert (mc.REPO / tests).is_file()
 
 
@@ -46,11 +47,12 @@ def check_mutation_applies(tmp_path, name):
     path = tmp_path / source
     path.parent.mkdir(parents=True)
     path.write_text((mc.REPO / source).read_text())
-    mc.mutate(tmp_path, source, old, new)
-    text = path.read_text()
-    assert old not in text and text.count(new) == 1
-    with pytest.raises(SystemExit):
-        mc.mutate(tmp_path, source, old, new)          # no longer there: refused
+    for line, broken in mc.line_pairs(old, new):
+        mc.mutate(tmp_path, source, line, broken)
+        text = path.read_text()
+        assert line not in text and text.count(broken) == 1
+        with pytest.raises(SystemExit):
+            mc.mutate(tmp_path, source, line, broken)    # no longer there: refused
 
 
 @pytest.mark.parametrize("test_id,dtype", [

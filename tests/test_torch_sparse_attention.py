@@ -25,7 +25,11 @@ JAX package's.
 * The forward's work list (``build_fwd_tasks``), on the same layouts:
   every live (head, query block, key block) once, as the plain version's
   ``_keep`` has it, the diagonal block marked, empty rows present with
-  count 0, tasks longest first across heads, made once per layout.
+  count 0, tasks longest first across heads, made once per layout.  dQ
+  walks it too: a plain walk of each task's entries in order, masked by
+  value only on a task's diagonal block, gives the plain dQ to fp32
+  rounding on every ``CASES`` layout, and the op's backward hands dQ the
+  forward's own list.
 * dKV's work list (``build_dkv_tasks``), on every ``KERNEL_CASES`` layout
   and the training path's (fixed, S 4096, H 12), unsplit and split: every
   live (key block, query block) pair in exactly one task, no future pair
@@ -36,8 +40,8 @@ The CUDA kernels run only on a card: the ``cuda``-marked tests skip here
 and run on the GPU machine (``python -m pytest
 tests/test_torch_sparse_attention.py -m cuda``), where each kernel is held
 against its plain version (with the kernel's rounding) on the same inputs,
-and dKV, whose split columns are summed by the last split to arrive, must
-give bitwise-equal outputs call after call.
+and dQ and dKV (whose split columns are summed by the last split to
+arrive) must give bitwise-equal outputs call after call.
 """
 
 import math
@@ -612,6 +616,71 @@ def test_fwd_work_is_made_once_per_layout():
         tbs._check_fwd_work(work, H + 1, S // 64, torch.device("cpu"))
 
 
+def walk_dq(q, k, v, do, lse, delta, work: "tbs.FwdWork", nb: int, scale: float):
+    """dq by a plain walk of the forward's work list, as the dQ kernel
+    walks it: per task, its entries in order, each a [bs, bs] score tile,
+    masked by value (keys past the query) only on the last block of a task
+    marked diagonal."""
+    B, S, H, D = q.shape
+    bs = S // nb
+    qb, kb, vb, dob = (tbs._blocks(t, nb) for t in (q, k, v, do))       # [B, H, nb, bs, D]
+    lse_b, delta_b = (t.reshape(B, H, nb, bs, 1) for t in (lse, delta))
+    future = torch.arange(bs)[None, :] > torch.arange(bs)[:, None]      # [row, key]
+    dq = torch.zeros(B, H, nb, bs, D)
+    for h, row, first, count, diagonal in work.tasks.tolist():
+        for it, col in enumerate(work.entries[first:first + count].tolist()):
+            s = torch.einsum("brd,bcd->brc", qb[:, h, row], kb[:, h, col]) * scale
+            if diagonal and it == count - 1:
+                s = s.masked_fill(future, -math.inf)
+            p = torch.exp(s - lse_b[:, h, row])
+            dp = torch.einsum("brd,bcd->brc", dob[:, h, row], vb[:, h, col])
+            ds = p * (dp - delta_b[:, h, row]) * scale
+            dq[:, h, row] += torch.einsum("brc,bcd->brd", ds, kb[:, h, col])
+    return tbs._unblock(dq, q.dtype)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_dq_walk_of_the_fwd_work_list_gives_the_plain_dq(case):
+    """Every ``CASES`` layout (empty rows, a future-only row, one layout per
+    head, bidirectional bigbird, blocks of 32 and 64): the walk of the
+    forward's work list equals the plain dQ (which the Pallas tests hold
+    against JAX) to fp32 rounding."""
+    (q, k, v, do), layout, causal = make_case(case, seed=3)
+    nb = layout.shape[-1]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    row_lut, row_cnt, _, _ = tbs.device_luts(layout, "cpu")
+    o, lse = tbs.block_sparse_forward_reference(tq, tk, tv, row_lut, row_cnt, causal, scale)
+    delta = (o * tdo).sum(-1).transpose(1, 2).contiguous()
+    want = tbs.block_sparse_backward_dq_reference(tq, tk, tv, tdo, lse, delta, row_lut, row_cnt,
+                                                  causal, scale)
+    got = walk_dq(tq, tk, tv, tdo, lse, delta, tbs.fwd_work(layout, causal, "cpu"), nb, scale)
+    assert want.abs().max() > 0.1
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_op_backward_hands_dq_the_forwards_work_list(monkeypatch, causal):
+    """On CPU tensors the custom op's backward passes dQ the forward's own
+    ``FwdWork`` (the tensors of ``fwd_work`` for this layout and
+    ``causal``), as it passes dKV its ``DkvWork``."""
+    (q, k, v, _), layout, _ = make_case("fixed-causal")
+    seen = []
+    plain_dq = tbs.block_sparse_backward_dq
+
+    def recording_dq(*args, work=None):
+        seen.append(work)
+        return plain_dq(*args, work=work)
+    monkeypatch.setattr(tbs, "block_sparse_backward_dq", recording_dq)
+    ts = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    tbs.block_sparse_attention(*ts, layout, causal=causal).sum().backward()
+    assert len(seen) == 1 and isinstance(seen[0], tbs.FwdWork)
+    want, other = (tbs.fwd_work(layout, c, "cpu") for c in (causal, not causal))
+    for got_t, want_t in zip(seen[0], want):
+        assert got_t.data_ptr() == want_t.data_ptr() and torch.equal(got_t, want_t)
+    assert not torch.equal(seen[0].tasks, other.tasks)      # the diagonal flags differ
+
+
 @pytest.mark.parametrize("tiles,batch,slots,want", [
     (640 * 12, 2, 264, 59), (640 * 2, 1, 264, 5), (9, 1, 264, 1), (0, 1, 264, 1),
     (264, 1, 264, 1), (265, 1, 264, 2)])
@@ -647,7 +716,8 @@ def test_cuda_kernels_match_plain(cuda_device, case, dtype):
                                                   kernel_rounding=True)
     delta = (ro.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
     bargs = (q, k, v, do, rlse, delta)
-    dq = tbs.block_sparse_backward_dq(*bargs, row_lut, row_cnt, causal, 0.125)
+    dq = tbs.block_sparse_backward_dq(*bargs, row_lut, row_cnt, causal, 0.125,
+                                      work=tbs.fwd_work(layout, causal, cuda_device))
     rdq = tbs.block_sparse_backward_dq_reference(*bargs, row_lut, row_cnt, causal, 0.125,
                                                  kernel_rounding=True)
     work = tbs.dkv_work(layout, causal, q.shape[0], cuda_device, q.dtype)
@@ -693,6 +763,44 @@ def test_cuda_dkv_is_deterministic_across_calls(cuda_device, dtype):
         assert torch.isfinite(a.float()).all(), what
         assert torch.equal(a, b), f"{what} differs between two calls on the same inputs"
     assert all(torch.isfinite(t.float()).all() for t in other)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_dq_is_deterministic_across_calls(cuda_device, dtype):
+    """dQ twice on the same inputs, with a call at another shape between:
+    bitwise-equal dq (each row is written by one block, no atomics)."""
+    def dq(case):
+        (q, k, v, do), layout, causal = kernel_inputs(case, dtype, cuda_device)
+        row_lut, row_cnt, _, _ = tbs.device_luts(layout, cuda_device)
+        work = tbs.fwd_work(layout, causal, cuda_device)
+        o, lse = tbs.block_sparse_forward(q, k, v, row_lut, row_cnt, causal, 0.125, work=work)
+        delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+        return tbs.block_sparse_backward_dq(q, k, v, do, lse, delta, row_lut, row_cnt, causal,
+                                            0.125, work=work)
+    first = dq("fixed-causal-s4096-split")
+    other = dq("bigbird-noncausal")
+    second = dq("fixed-causal-s4096-split")
+    torch.cuda.synchronize()
+    assert torch.isfinite(first.float()).all() and torch.isfinite(other.float()).all()
+    assert torch.equal(first, second), "dq differs between two calls on the same inputs"
+
+
+@pytest.mark.cuda
+def test_cuda_dq_raises_without_its_work_list(cuda_device):
+    (q, k, v, do), layout, causal = kernel_inputs("fixed-causal-s1024", "float32", cuda_device)
+    row_lut, row_cnt, _, _ = tbs.device_luts(layout, cuda_device)
+    stats = torch.zeros(q.shape[0], q.shape[2], q.shape[1], device=cuda_device)
+    tbs.reset_counts()
+    with pytest.raises(ValueError, match="block_sparse_backward_dq: the CUDA kernel walks a "
+                                         "work list"):
+        tbs.block_sparse_backward_dq(q, k, v, do, stats, stats, row_lut, row_cnt, causal, 0.125)
+    other = tbs.fwd_work(np.ones((2, 16, 16), np.int32), causal, cuda_device)
+    with pytest.raises(ValueError, match="fwd_work of this layout"):
+        tbs.block_sparse_backward_dq(q, k, v, do, stats, stats, row_lut, row_cnt, causal, 0.125,
+                                     work=other)
+    assert tbs.block_sparse_backward_dq.launches == 0
+    assert tbs.block_sparse_backward_dq_reference.calls == 0
 
 
 @pytest.mark.cuda

@@ -57,28 +57,55 @@ Phases, each printing its own lines; any failure exits non-zero:
 7. training end to end in bf16: ``deepspeed_tpu_torch.initialize`` ->
    ``train_batch`` with bench.py's headline config at seq 512 (micro 8,
    AdamW lr 1e-4 wd 0.01, clip 1.0, remat, attn_impl "auto" -> flash): 2
-   warm-up and 12 timed steps, median step ms, samples/s, TFLOPs by
-   bench.py's formula, a falling finite loss, and a ``torch.profiler``
-   split of one step's device time; then 3 timed steps of the same config
-   at seq 256, where "auto" takes the reference attention;
-8. the seq-512 model in fp32 (TF32 off), 3 steps through the kernels and 3
-   through the plain versions from the same seeded weights: losses and
-   final parameters held to the tolerances stated at the top;
+   warm-up calls (the first runs the step eagerly and captures it as one
+   CUDA graph) and 12 timed graphed steps (replays), then 3 eager steps
+   of the same engine through ``forward`` / ``backward`` / ``step``; for
+   both, the median step ms, the host's queue ms, samples/s, TFLOPs by
+   bench.py's formula, and a ``torch.profiler`` step's device time and
+   busy share (the eager step also split by category; "not measured"
+   where the profiler records no device time), each profiled step's
+   launch counters held against the kernels its trace holds and, for the
+   replay, against the captured graph's kernel nodes, and peak device
+   memory; a falling finite loss and one capture in all; then
+   the same at seq 256, where "auto" takes the reference attention;
+8. the seq-512 model in fp32 (TF32 off), 3 graphed steps through the
+   kernels and 3 eager ones through the plain versions from the same
+   seeded weights: losses and final parameters held to the tolerances
+   stated at the top;
 9. the block-sparse path in bf16: the same config at seq 4096, micro 2,
    with a ds_config ``sparse_attention`` block (the Sparse Transformer
    "fixed" layout, block 64) that reaches the model as
    ``attn_impl="block_sparse"`` through ``register_attention`` and an
    adapter over ``SparseSelfAttention`` (as a user of the package writes
-   it): 2 warm-up and 6 timed steps, a profile of one step with the sparse
-   kernels as a category of their own; then 3 steps of the same config
-   with ``attn_impl="flash"``, the dense step at the same length;
+   it): 2 warm-up calls, 6 timed graphed steps and 3 eager ones, profiled
+   as in phase 7 (the eager split with the sparse kernels as a category of
+   their own); then 3 graphed steps of the same config with
+   ``attn_impl="flash"``, the dense step at the same length;
 10. the sparse path in fp32 (TF32 off), 3 steps through the kernels and 3
    through the plain versions, as phase 8;
 11. the other GPT-2 widths in bf16 through the same entry points and
-   config at seq 512, micro 8: ``gpt_config("gpt2-medium")`` at full size
-   for 3 steps, ``gpt2-large`` and ``gpt2-xl`` at full size for 2 steps
-   each: a finite, falling loss, the step time and the launch counts of
-   every kernel, each model freed before the next.
+   config at seq 512, micro 8: ``gpt_config("gpt2-medium")``, ``gpt2-large``
+   and ``gpt2-xl`` at full size, each two warm-up calls (the capture and
+   the first replay), 4 / 3 / 3 timed graphed steps and 2 / 2 / 1 eager
+   ones: a finite loss, falling over all steps (gpt2-xl: over its first
+   three, see TRAIN_WIDTHS), graphed and eager step times, host times,
+   device times and busy shares, peak device memory graphed and eager, and
+   the launch counts of every kernel, each model freed (``engine.close()``)
+   before the next;
+12. the engine core: (a) GPT-2 at seq 512 in fp32 (TF32 off), 3 graphed
+   and 3 eager steps from the same seeded weights, held to phase 8's
+   limits, with whether they are bitwise equal; (b) resume in bf16: 3
+   graphed steps, ``save_checkpoint``, 3 more; a fresh engine from other
+   weights ``load_checkpoint``s and runs the same 3, held to the first
+   bit for bit (phase 8's limits where a kernel proves not to be
+   deterministic, printed as such); the same with ``checkpoint.async_save``,
+   training on while the finalizer writes and waiting before the load;
+   ``python -m deepspeed_tpu_torch.ckpt_cli verify`` (the walk and exit
+   codes of ``tools/verify_checkpoint.py``) exits 0 on the save dir and 1
+   after one flipped byte in the newest tag's state file; save and load
+   seconds and bytes; (c) the first engine loads that save dir, rolls back
+   to the earlier tag, and its next replays give the same losses with no
+   new capture.  Checkpoints go to a temporary directory, removed after.
 
 Phase 2 also prints the registers, spills, blocks per SM and shared
 memory of the kernels the tree redesigned last (the cross-entropy forward
@@ -98,9 +125,11 @@ must give bitwise-equal dQ, dK and dV, and
 the fixed split lengths of DKV_SPLITS are held to the same tolerances and
 timed beside the kept one at each bf16 case.
 
-Each run of phases 4-5 and 7-11 (generate(), each serve, the timed
-training steps, each fp32 training run) zeroes the launch counters just
-before it and reads them just after: its kernels must have launched (the
+Each run of phases 4-5 and 7-12 (generate(), each serve, the timed
+graphed and eager training steps, each fp32 training run) zeroes the launch
+counters just before it and reads them just after: its kernels must have
+launched (a replay counts every launch of its graph; the capture counts
+none; the
 flash kernels exactly once per layer per micro-step, the remat recompute
 reusing the saved o and lse; the sparse forward twice, since remat saves
 nothing of it, as in JAX, and its dQ and dKV once; the cross-entropy
@@ -112,11 +141,16 @@ The last two lines are the kernel table (JSON) and
 beside this file, it exits non-zero and prints no result.
 """
 
+import gc
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -170,8 +204,34 @@ CE_WIDTHS = {"gpt2-medium-train": 1024, "gpt2-large-train": 1280, "gpt2-xl-train
 # the cross-entropy forward alone at the sparse step's shape (micro 2 x seq
 # 4096 = N 8192 rows; bf16, E 768, the same V and inputs)
 CE_SPARSE_ROWS = 2 * 4096
-# phase 11: preset -> train_batch steps at full size (the first a warm-up)
-TRAIN_WIDTHS = {"gpt2-medium": 3, "gpt2-large": 2, "gpt2-xl": 2}
+# eager steps (forward / backward / step) timed beside the graphed ones
+EAGER_STEPS = 3
+# phase 11: preset -> (graphed, eager, loss window) at full size: timed
+# graphed steps after two warm-up calls (the first captures, the second is
+# the first replay, whose host time includes the graph's one-off upload),
+# timed eager steps, and the steps over which the loss must fall (None: all
+# of them).  gpt2-xl at lr 1e-4 on one fixed batch overshoots from its
+# fourth step (losses 10.2145, 10.0052, 9.4982, 10.2838, 10.3649, 10.2290
+# on the H100, graphed and eager alike, bit for bit), so its loss is held
+# over the first three
+TRAIN_WIDTHS = {"gpt2-medium": (4, 2, None), "gpt2-large": (3, 2, None),
+                "gpt2-xl": (3, 1, 3)}
+# each wrapper's kernel, by a pattern of its name in the profiler's trace
+# (demangled) and in the captured graph's dump (mangled: Lb0E is "false"):
+# one launch per wrapper call
+KERNEL_NAMES = {"paged_attention": r"paged_(decode|prefill)_kernel",
+                "decode_attention": r"contiguous_(decode|prefill)_kernel",
+                "flash_forward": r"flash_fwd_kernel", "flash_backward_dq": r"flash_dq_kernel",
+                "flash_backward_dkv": r"flash_dkv_kernel",
+                "ce_forward": r"ce_fwd_(wgmma_)?kernel",
+                "ce_backward_dx": r"ce_bwd_kernel(<[^,<>]+, false>|I\w+?Lb0E)",
+                "ce_backward_dhead": r"ce_bwd_kernel(<[^,<>]+, true>|I\w+?Lb1E)",
+                "fused_adam": r"adam_kernel", "block_sparse_forward": r"sparse_fwd_kernel",
+                "block_sparse_backward_dq": r"sparse_dq_(wgmma_)?kernel",
+                "block_sparse_backward_dkv": r"sparse_dkv_kernel"}
+# phase 12: graphed against eager steps (fp32), and the save / resume runs
+# (bf16: RESUME_STEPS steps, a save, RESUME_STEPS more)
+GRAPH_PARITY_STEPS, RESUME_STEPS = 3, 3
 # cross-entropy inputs: x ~ N(0, 1), head ~ N(0, CE_HEAD_STD^2), so the
 # logits' std is 0.15 * sqrt(768) ~ 4.2 and a few columns dominate each
 # row's softmax, as in a trained model.  (At head std 0.02 the softmax is
@@ -262,7 +322,9 @@ DKV_SPLITS = (None, 8, 16, 32)
 
 
 def fail(msg: str) -> None:
+    # on both streams: a caller that keeps only the end of one still reads why
     print(f"FAIL: {msg}", flush=True)
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -716,7 +778,6 @@ def phase_bf16(model, prompts, device, blocks: int, card: str):
 def build_info(log: str, entry: str):
     """(registers, spill store bytes, spill load bytes) of the kernel whose
     mangled name holds ``entry``, from ptxas's lines in the build log."""
-    import re
     lines = log.splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and entry in line:
@@ -1316,12 +1377,42 @@ def train_engine(model, config, device):
     return engine
 
 
-def train_batch_of(vocab: int, device, seq: int = TRAIN_SEQ, micro: int = TRAIN_MICRO):
+def train_batch_of(vocab: int, device, seq: int = TRAIN_SEQ, micro: int = TRAIN_MICRO,
+                   seed: int = 0):
     import torch
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     ids = torch.from_numpy(rng.integers(0, vocab, (1, micro, seq))
                            .astype(np.int32)).to(device)
     return ids, ids
+
+
+def eager_step(engine, batch):
+    """One optimizer step through the eager micro-step API (``forward``,
+    ``backward`` and ``step`` per micro-batch): the kernels of the graphed
+    ``train_batch``, launched one by one from Python.  The mean loss."""
+    ids, labels = batch
+    gas = engine.gradient_accumulation_steps()
+    total = None
+    for i in range(gas):
+        loss = engine.forward(ids[i], labels[i])
+        engine.backward(loss)
+        engine.step()
+        total = loss.detach() if total is None else total + loss.detach()
+    return total / gas
+
+
+def timed_steps(step, n: int):
+    """``n`` calls of ``step``: (results, host ms to queue each, wall ms of
+    each to the device's drain)."""
+    import torch
+    out, host, wall = [], [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out.append(step())
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    return out, host, wall
 
 
 def register_sparse_attention() -> None:
@@ -1364,16 +1455,58 @@ def train_expect(attn_impl: str, seq: int, layers: int, steps: int, plain: bool 
     return want
 
 
-def profile_train_step(engine, batch, card: str, attn_impl: str = "auto"):
-    """One step's device time by category (torch.profiler), and the
-    device's busy share of the step's wall time (profiling adds host time,
-    so the busy share reads low).  The flash, cross-entropy and AdamW
-    kernels are named by their kernel names (the block-sparse ones too);
-    other kernels are attributed through the CPU op that launched them:
+class KeptGraphs:
+    """An engine's accelerator whose graphs keep their ``cudaGraph_t``
+    (``keep_graph=True``: the first replay instantiates it), so that
+    ``graph_kernel_counts`` can list the kernel nodes a replay launches.
+    Everything else is the accelerator's own."""
+
+    def __init__(self, accel):
+        self._accel = accel
+
+    def __getattr__(self, name):
+        return getattr(self._accel, name)
+
+    def create_graph(self):
+        import torch
+        return torch.cuda.CUDAGraph(keep_graph=True)
+
+
+def graph_kernel_counts(engine):
+    """The kernel nodes of the engine's one captured step (built through
+    ``KeptGraphs``) by wrapper, as ``KERNEL_NAMES`` names them, and the
+    graph's node count: what each replay launches, read from the graph
+    itself (the CUDA runtime's DOT dump of it), with no profiler."""
+    (step,) = engine.graphs.steps.values()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_graph_") as tmp:
+        path = os.path.join(tmp, "step.dot")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")      # the dump's own "DEBUG:" notes
+            step.graph.debug_dump(path)
+        text = Path(path).read_text() if os.path.exists(path) else ""
+    nodes = re.split(r'(?m)^\s*"graph_\d+_node_\d+"\s*\[', text)[1:]
+    if not nodes:
+        fail("the captured step's DOT dump lists no node, so its launches cannot be read")
+    return ({k: sum(1 for n in nodes if re.search(pat, n)) for k, pat in KERNEL_NAMES.items()},
+            len(nodes))
+
+
+def profile_train_step(engine, batch, card: str, attn_impl: str = "auto",
+                       graphed: bool = False, split: bool = True):
+    """One step's device time (torch.profiler) and the device's busy share
+    of the step's wall time (profiling adds host time, so the busy share
+    reads low), for a graphed ``train_batch`` replay or an eager step.
+    With ``split`` (eager only: a replay's kernels have no CPU op) the
+    device time by category: the flash, cross-entropy and AdamW kernels
+    are named by their kernel names (the block-sparse ones too); other
+    kernels are attributed through the CPU op that launched them:
     "reference attention" is every kernel under the attention call (forward
     and remat recompute) or under the reference's backward ops (bmm,
     softmax, mask) -- with flash or the sparse kernels only what surrounds
-    their op."""
+    their op.  The step's launch counters are held against the kernels in
+    the trace and, for a replay, against the captured graph's kernel nodes
+    (``graph_kernel_counts``, which needs no profiler).  None where the
+    profiler recorded no device time (not measured)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -1387,13 +1520,27 @@ def profile_train_step(engine, batch, card: str, attn_impl: str = "auto"):
     tattn._REGISTRY[attn_impl] = traced
     try:
         torch.cuda.synchronize()
+        before = read_counts()[0]
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            engine.train_batch(batch=batch)
+            if graphed:
+                engine.train_batch(batch=batch)
+            else:
+                eager_step(engine, batch)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
+        counted_launches = {k: n - before[k] for k, n in read_counts()[0].items()}
     finally:
         tattn._REGISTRY[attn_impl] = inner
+    path = "graphed replay" if graphed else "eager step"
+    if graphed:
+        # the counters' launches in this replay against the graph's kernel nodes
+        in_graph, n_nodes = graph_kernel_counts(engine)
+        if in_graph != counted_launches:
+            fail(f"train profile ({path}): launch counters {counted_launches} disagree with "
+                 f"the kernel nodes of the captured graph {in_graph}")
+        say(f"train profile ({path}): launch counters equal the captured graph's kernel nodes "
+            f"({json.dumps({k: n for k, n in in_graph.items() if n})}; {n_nodes} nodes)")
     by_name = {}                     # device time and launches per kernel name
     for e in prof.key_averages():
         # the range opened above also appears on the device's timeline (a
@@ -1404,8 +1551,22 @@ def profile_train_step(engine, batch, card: str, attn_impl: str = "auto"):
             by_name[e.key] = (t + e.self_device_time_total, n + e.count)
     device_total = sum(t for t, _ in by_name.values())
     if not device_total:
-        say("train profile: the profiler recorded no device time (not measured)")
+        say(f"train profile ({path}): the profiler recorded no device time (not measured)")
         return None
+    # the counters' launches in this step against the kernels the trace saw
+    traced = {k: sum(n for name, (_, n) in by_name.items() if re.search(pat, name))
+              for k, pat in KERNEL_NAMES.items()}
+    if traced != counted_launches:
+        fail(f"train profile ({path}): launch counters {counted_launches} disagree with the "
+             f"kernels in the trace {traced}")
+    say(f"train profile ({path}): launch counters equal the trace's kernel counts "
+        f"({json.dumps({k: n for k, n in traced.items() if n})})")
+    n_kernels = sum(n for _, n in by_name.values())
+    if not split:
+        say(f"train profile ({path}): device busy {device_total / wall_us:.1%} of "
+            f"{wall_us / 1e3:.3f} ms wall ({device_total / 1e3:.3f} ms device, {n_kernels} "
+            f"kernels) [{card}]")
+        return {"device_ms": device_total / 1e3, "wall_ms": wall_us / 1e3}
     attn_ops = ("attention_call", "BmmBackward", "SoftmaxBackward", "WhereBackward")
 
     def category(kernel: str) -> str:
@@ -1442,9 +1603,9 @@ def profile_train_step(engine, batch, card: str, attn_impl: str = "auto"):
         a = 0.0 if cat.endswith("attention kernels") else min(attn.get(name, 0.0), t)
         split["reference attention"] = split.get("reference attention", 0.0) + a
         split[cat] = split.get(cat, 0.0) + t - a
-    say(f"train profile: one bf16 step, device busy {device_total / wall_us:.1%} of "
+    say(f"train profile ({path}): one bf16 step, device busy {device_total / wall_us:.1%} of "
         f"{wall_us / 1e3:.2f} ms wall ({device_total / 1e3:.3f} ms device, "
-        f"{sum(n for _, n in by_name.values())} kernels) [{card}]")
+        f"{n_kernels} kernels) [{card}]")
     for cat, t in sorted(split.items(), key=lambda kv: -kv[1]):
         say(f"  {t / device_total:6.1%} {t / 1e3:8.3f} ms  {cat}")
     # the kernels redesigned lately, by name: device ms and launches in the step
@@ -1466,63 +1627,137 @@ def profile_train_step(engine, batch, card: str, attn_impl: str = "auto"):
 
 def phase_train_bf16(device, card: str, seq: int = TRAIN_SEQ, timed: int = TRAIN_TIMED_STEPS,
                      profiled: bool = True, attn_impl: str = "auto", micro: int = TRAIN_MICRO,
-                     config=TRAIN_CFG, preset: str = "gpt2", warmup: int = 2):
+                     config=TRAIN_CFG, preset: str = "gpt2", warmup: int = 2,
+                     eager: int = EAGER_STEPS, loss_steps=None):
     """GPT-2 (``preset``) at ``seq`` through initialize() -> train_batch,
-    bench.py's headline config (``config``): warm-up, timed steps, a
-    profiled step.  With "auto" above 256 tokens the attention is flash:
+    bench.py's headline config (``config``): warm-up (the first call warms
+    up and captures the graph), ``timed`` graphed steps (replays; one
+    capture in all), then ``eager`` steps of the same engine through
+    ``forward`` / ``backward`` / ``step``, each timed on the host clock (the
+    host's queue time and the wall time to the device's drain) and
+    profiled (device time and busy share; the eager step by category when
+    ``profiled``).  With "auto" above 256 tokens the attention is flash:
     its three kernels launch once per layer per step; at 256 and below it
     is the reference and they never do.  "block_sparse" runs the sparse
-    kernels (``train_expect``)."""
+    kernels (``train_expect``); the counts are exact on both paths.  The
+    loss must fall over the first ``loss_steps`` steps (None: all of them).
+    Peak device memory: from the engine's state through the graphed steps
+    (warm-up, capture, replays), then over the eager steps alone."""
     import torch
     from deepspeed_tpu_torch.models.gpt import GPT, gpt_config
 
+    # an engine dropped by an earlier run lives on in reference cycles
+    # until Python's cyclic collector runs: free it before measuring
+    gc.collect()
+    torch.cuda.empty_cache()
     cfg = gpt_config(preset, n_positions=seq, remat=True, attn_impl=attn_impl)
     model = GPT(cfg, device=device, seed=0)
     engine = train_engine(model, config, device)
+    engine.graphs.accelerator = KeptGraphs(engine.graphs.accelerator)
     batch = train_batch_of(cfg.vocab_size, device, seq, micro)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state_gib = torch.cuda.memory_allocated() / 2 ** 30
     losses = [engine.train_batch(batch=batch) for _ in range(warmup)]
     torch.cuda.synchronize()
-    step_ms, host_ms = [], []
-
-    def run():
-        for _ in range(timed):
-            t0 = time.perf_counter()
-            losses.append(engine.train_batch(batch=batch))
-            host_ms.append((time.perf_counter() - t0) * 1e3)    # the host has queued the step
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-    expect = train_expect(attn_impl, seq, cfg.n_layer, timed)
-    _, counts = counted(f"bf16 train {preset} seq {seq} {attn_impl} ({timed} steps)", expect, run)
+    label = f"bf16 train {preset} seq {seq} {attn_impl}"
+    (out, host_ms, step_ms), counts = counted(
+        f"{label} graphed ({timed} steps)", train_expect(attn_impl, seq, cfg.n_layer, timed),
+        lambda: timed_steps(lambda: engine.train_batch(batch=batch), timed))
+    losses += out
+    mem = {"state_gib": state_gib,
+           "graphed_alloc_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "graphed_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30}
+    torch.cuda.reset_peak_memory_stats()
+    (out, e_host_ms, e_step_ms), e_counts = counted(
+        f"{label} eager ({eager} steps)", train_expect(attn_impl, seq, cfg.n_layer, eager),
+        lambda: timed_steps(lambda: eager_step(engine, batch), eager))
+    losses += out
+    mem["eager_alloc_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(f"{label} memory: state {mem['state_gib']:.2f} GiB allocated (params, gradients, "
+        f"moments, batch); graphed steps (warm-up, capture, replays) peak "
+        f"{mem['graphed_alloc_gib']:.2f} GiB allocated, {mem['graphed_reserved_gib']:.2f} GiB "
+        f"reserved; eager steps after them peak {mem['eager_alloc_gib']:.2f} GiB allocated "
+        f"(the graph's pool is reserved beside them, not allocated) [{card}]")
+    captures = engine.graphs.captures
+    if captures != 1:
+        fail(f"{label}: {captures} captures for one batch signature")
     vals = [float(v) for v in losses]
     if not all(np.isfinite(vals)):
         fail(f"bf16 train: non-finite loss {vals}")
-    if not vals[-1] < vals[0]:
-        fail(f"bf16 train: the loss did not fall ({vals[0]:.4f} -> {vals[-1]:.4f})")
-    med = statistics.median(step_ms)
-    samples_s = micro / (med / 1e3)
-    tflops = samples_s * seq * model.flops_per_token(seq) / 1e12
-    say(f"bf16 train: {preset} ({cfg.n_layer} layers x {cfg.n_embd}) seq {seq} micro {micro} "
-        f"attn_impl {attn_impl}, {model.num_params():,} params; "
-        f"loss {vals[0]:.4f} -> {vals[-1]:.4f} over {len(vals)} steps; median step "
-        f"{med:.3f} ms (min {min(step_ms):.3f}, max {max(step_ms):.3f}), of which the "
-        f"host takes a median {statistics.median(host_ms):.3f} ms to queue it; "
-        f"{samples_s:.2f} samples/s; {tflops:.2f} TFLOPs by bench.py's dense formula [{card}]")
-    prof = profile_train_step(engine, batch, card, attn_impl) if profiled else None
-    if prof is not None:
-        say(f"train: device busy {prof['device_ms'] / med:.1%} of the median un-profiled "
-            f"step ({prof['device_ms']:.3f} ms device / {med:.3f} ms)")
-    return dict(step_ms=med, host_ms=statistics.median(host_ms), samples_per_s=samples_s,
-                tflops=tflops, losses=vals, counts=counts, profile=prof,
-                params=model.num_params(), n_layer=cfg.n_layer, n_embd=cfg.n_embd)
+    window = vals[:loss_steps] if loss_steps else vals
+    if not window[-1] < window[0]:
+        fail(f"bf16 train: the loss did not fall over {len(window)} steps ({window[0]:.4f} -> "
+             f"{window[-1]:.4f})")
+    say(f"{label}: losses {[round(v, 4) for v in vals]}")
+    rates = {}
+    for path, wall, host in (("graphed", step_ms, host_ms), ("eager", e_step_ms, e_host_ms)):
+        med = statistics.median(wall)
+        samples_s = micro / (med / 1e3)
+        rates[path] = (med, statistics.median(host), samples_s,
+                       samples_s * seq * model.flops_per_token(seq) / 1e12)
+        say(f"bf16 train ({path}): {preset} ({cfg.n_layer} layers x {cfg.n_embd}) seq {seq} "
+            f"micro {micro} attn_impl {attn_impl}, {model.num_params():,} params; median step "
+            f"{med:.3f} ms (min {min(wall):.3f}, max {max(wall):.3f}) over {len(wall)} steps, "
+            f"of which the host takes a median {rates[path][1]:.3f} ms to queue it; "
+            f"{samples_s:.2f} samples/s; {rates[path][3]:.2f} TFLOPs by bench.py's dense "
+            f"formula [{card}]")
+    say(f"bf16 train: loss {vals[0]:.4f} -> {vals[-1]:.4f} over {len(vals)} steps ({warmup} "
+        f"warm-up, {timed} graphed, {eager} eager); {captures} capture, "
+        f"{engine.graphs.replays} replays")
+    prof = profile_train_step(engine, batch, card, attn_impl, graphed=True, split=False)
+    e_prof = profile_train_step(engine, batch, card, attn_impl, graphed=False, split=profiled)
+    for path, pr in (("graphed", prof), ("eager", e_prof)):
+        if pr is not None:
+            say(f"train ({path}): device busy {pr['device_ms'] / rates[path][0]:.1%} of the "
+                f"median un-profiled step ({pr['device_ms']:.3f} ms device / "
+                f"{rates[path][0]:.3f} ms)")
+    engine.close()
+    med, host, samples_s, tflops = rates["graphed"]
+    return dict(step_ms=med, host_ms=host, samples_per_s=samples_s, tflops=tflops,
+                eager_step_ms=rates["eager"][0], eager_host_ms=rates["eager"][1],
+                eager_samples_per_s=rates["eager"][2], eager_tflops=rates["eager"][3],
+                losses=vals, counts=counts, eager_counts=e_counts, profile=prof,
+                eager_profile=e_prof, params=model.num_params(), n_layer=cfg.n_layer,
+                n_embd=cfg.n_embd, memory=mem)
+
+
+def param_copies(model):
+    return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+
+def trajectory_diff(losses, params, ref_losses, ref_params):
+    """(max relative loss difference, max abs parameter difference, its
+    parameter, relative L2 difference over all parameters)."""
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    worst, worst_key, diff_sq, norm_sq = 0.0, "", 0.0, 0.0
+    for k, a in params.items():
+        d = (a - ref_params[k]).double()
+        if d.abs().max().item() > worst:
+            worst, worst_key = d.abs().max().item(), k
+        diff_sq += d.square().sum().item()
+        norm_sq += ref_params[k].double().square().sum().item()
+    return loss_rel, worst, worst_key, (diff_sq / norm_sq) ** 0.5
+
+
+def device_ms(result, key: str = "profile") -> float:
+    return (result.get(key) or {}).get("device_ms", float("nan"))
+
+
+def bitwise_equal(losses, params, ref_losses, ref_params) -> bool:
+    import torch
+    return losses == ref_losses and all(torch.equal(a, ref_params[k]) for k, a in params.items())
 
 
 def phase_train_fp32_parity(device, steps: int = 3, seq: int = TRAIN_SEQ,
                             micro: int = TRAIN_MICRO, attn_impl: str = "auto", config=TRAIN_CFG):
     """GPT-2 at ``seq``, full width and depth, in fp32 (TF32 off): ``steps``
-    train_batch steps through the training kernels (flash, or the sparse
-    ones with "block_sparse"; cross-entropy, AdamW), then through their
-    plain versions (patched in where the engine calls the kernels), from
-    the same seeded weights.  The plain path's only use on the card."""
+    graphed train_batch steps through the training kernels (flash, or the
+    sparse ones with "block_sparse"; cross-entropy, AdamW), then ``steps``
+    eager steps through their plain versions (patched in where the engine
+    calls the kernels; the plain cross-entropy backward indexes by a mask,
+    which a graph capture refuses), from the same seeded weights.  The
+    plain path's only use on the card."""
     import torch
     from deepspeed_tpu_torch.models.gpt import GPT, gpt_config
     from deepspeed_tpu_torch.runtime import optimizers
@@ -1531,13 +1766,14 @@ def phase_train_fp32_parity(device, steps: int = 3, seq: int = TRAIN_SEQ,
     cfg = gpt_config("gpt2", n_positions=seq, remat=True, dtype="float32", attn_impl=attn_impl)
     config = {k: v for k, v in config.items() if k != "bf16"}
 
-    def run_path():
+    def run_path(graphed: bool = True):
         model = GPT(cfg, device=device, seed=0)
         engine = train_engine(model, config, device)
         batch = train_batch_of(cfg.vocab_size, device, seq, micro)
-        losses = [float(engine.train_batch(batch=batch)) for _ in range(steps)]
-        names = [n for n, _ in model.named_parameters()]
-        return losses, dict(zip(names, [p.detach().clone() for p in model.parameters()]))
+        losses = [float(engine.train_batch(batch=batch) if graphed else eager_step(engine, batch))
+                  for _ in range(steps)]
+        engine.close()
+        return losses, param_copies(model)
 
     label = f"fp32 train seq {seq} {attn_impl}"
     (k_losses, k_params), k_counts = counted(
@@ -1564,7 +1800,7 @@ def phase_train_fp32_parity(device, steps: int = 3, seq: int = TRAIN_SEQ,
     try:
         for mod in kernel_modules():
             mod.reset_counts()
-        p_losses, p_params = run_path()
+        p_losses, p_params = run_path(graphed=False)
         _, plain = read_counts()
     finally:
         (tfa.flash_forward, tfa.flash_backward_dq, tfa.flash_backward_dkv, tce.ce_forward,
@@ -1572,15 +1808,7 @@ def phase_train_fp32_parity(device, steps: int = 3, seq: int = TRAIN_SEQ,
          tbs.block_sparse_forward, tbs.block_sparse_backward_dq,
          tbs.block_sparse_backward_dkv) = saved
     say(f"{label}, plain versions: plain calls {json.dumps(plain)}")
-    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(k_losses, p_losses))
-    worst, worst_key, diff_sq, norm_sq = 0.0, "", 0.0, 0.0
-    for k, a in k_params.items():
-        d = (a - p_params[k]).double()
-        if d.abs().max().item() > worst:
-            worst, worst_key = d.abs().max().item(), k
-        diff_sq += d.square().sum().item()
-        norm_sq += p_params[k].double().square().sum().item()
-    rel_l2 = (diff_sq / norm_sq) ** 0.5
+    loss_rel, worst, worst_key, rel_l2 = trajectory_diff(k_losses, k_params, p_losses, p_params)
     say(f"{label} parity over {steps} steps: losses kernel {k_losses} vs plain "
         f"{p_losses} (max rel diff {loss_rel:.3e}, tol {TRAIN_LOSS_RTOL:g}); params max abs "
         f"diff {worst:.3e} in {worst_key} (tol {TRAIN_PARAM_ATOL:g}), relative L2 "
@@ -1593,6 +1821,179 @@ def phase_train_fp32_parity(device, steps: int = 3, seq: int = TRAIN_SEQ,
     if not (worst <= TRAIN_PARAM_ATOL and rel_l2 <= TRAIN_PARAM_REL_L2):
         fail(f"{label}: kernel and plain parameters differ past the tolerance")
     return dict(loss_rel=loss_rel, param_max=worst, param_rel_l2=rel_l2, counts=k_counts)
+
+
+# --------------------------------------------------------------------------- #
+# phase 12: the graphed step against the eager one, and checkpoints
+# --------------------------------------------------------------------------- #
+def phase_graph_parity(device, steps: int = GRAPH_PARITY_STEPS):
+    """GPT-2 at seq 512 in fp32 (TF32 off): ``steps`` graphed train_batch
+    steps and ``steps`` eager ones (forward / backward / step), each from
+    the same seeded weights over the same batches, held to phase 8's
+    limits; whether they are bitwise equal is printed."""
+    from deepspeed_tpu_torch.models.gpt import GPT, gpt_config
+    cfg = gpt_config("gpt2", n_positions=TRAIN_SEQ, remat=True, dtype="float32")
+    config = {k: v for k, v in TRAIN_CFG.items() if k != "bf16"}
+    batches = [train_batch_of(cfg.vocab_size, device, seed=20 + i) for i in range(steps)]
+
+    def run(graphed: bool):
+        model = GPT(cfg, device=device, seed=0)
+        engine = train_engine(model, config, device)
+        losses = [float(engine.train_batch(batch=b) if graphed else eager_step(engine, b))
+                  for b in batches]
+        engine.close()
+        return losses, param_copies(model)
+    expect = train_expect("auto", TRAIN_SEQ, cfg.n_layer, steps)
+    (g_losses, g_params), _ = counted("fp32 graphed train_batch", expect, lambda: run(True))
+    (e_losses, e_params), _ = counted("fp32 eager steps", expect, lambda: run(False))
+    loss_rel, worst, worst_key, rel_l2 = trajectory_diff(g_losses, g_params, e_losses, e_params)
+    same = bitwise_equal(g_losses, g_params, e_losses, e_params)
+    say(f"graphed vs eager, fp32 seq {TRAIN_SEQ}, {steps} steps: losses {g_losses} vs "
+        f"{e_losses}; bitwise equal: {same}; max rel loss diff {loss_rel:.3e} (tol "
+        f"{TRAIN_LOSS_RTOL:g}); params max abs diff {worst:.3e} in {worst_key or '-'} (tol "
+        f"{TRAIN_PARAM_ATOL:g}), relative L2 {rel_l2:.3e} (tol {TRAIN_PARAM_REL_L2:g})")
+    if not (loss_rel <= TRAIN_LOSS_RTOL and worst <= TRAIN_PARAM_ATOL
+            and rel_l2 <= TRAIN_PARAM_REL_L2):
+        fail("graphed and eager steps differ past phase 8's limits")
+    return dict(bitwise=same, loss_rel=loss_rel, param_max=worst, param_rel_l2=rel_l2)
+
+
+def hold_resumed(label, losses, params, ref_losses, ref_params) -> bool:
+    """A resumed run against the uninterrupted one: bitwise, or where a
+    kernel is not deterministic from run to run (then named by the printed
+    difference), within phase 8's limits."""
+    if bitwise_equal(losses, params, ref_losses, ref_params):
+        say(f"{label}: bitwise equal to the uninterrupted run (losses {losses})")
+        return True
+    loss_rel, worst, worst_key, rel_l2 = trajectory_diff(losses, params, ref_losses, ref_params)
+    say(f"{label}: NOT bitwise equal: losses {losses} vs {ref_losses} (max rel {loss_rel:.3e}); "
+        f"params max abs diff {worst:.3e} in {worst_key}, relative L2 {rel_l2:.3e}; a kernel of "
+        "the step is not deterministic from run to run; held to phase 8's limits")
+    if not (loss_rel <= TRAIN_LOSS_RTOL and worst <= TRAIN_PARAM_ATOL
+            and rel_l2 <= TRAIN_PARAM_REL_L2):
+        fail(f"{label}: the resumed run differs past phase 8's limits")
+    return False
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def ckpt_verify(save_dir: str):
+    """``ckpt_cli verify`` on ``save_dir`` in a subprocess (the port found
+    through ``PYTHONPATH``, whatever the interpreter's path rules): its exit
+    code and the end of its output."""
+    here = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    res = subprocess.run([sys.executable, "-m", "deepspeed_tpu_torch.ckpt_cli", "verify",
+                          save_dir], capture_output=True, text=True, timeout=300, cwd=here,
+                         env=env)
+    return res.returncode, (res.stdout + res.stderr).strip()[-600:]
+
+
+def flip_byte(path: str) -> None:
+    with open(path, "r+b") as f:
+        f.seek(os.path.getsize(path) // 2)
+        b = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+def phase_resume(device, card: str, steps: int = RESUME_STEPS):
+    """bf16 GPT-2 at seq 512 (bench.py's config), per save mode (sync, then
+    ``checkpoint.async_save``): ``steps`` graphed steps, a save, ``steps``
+    more (losses and params A; with async_save the steps run while the
+    finalizer writes, and the save is waited for after them); a fresh engine
+    from other weights loads and runs the same ``steps`` (B), held to A
+    bit for bit.  Then (sync) a second tag at step 2 x ``steps``: ``ckpt_cli
+    verify`` exits 0, and 1 after one flipped byte in its state file; the
+    first engine, graphed, loads the save dir, rolls back to the earlier
+    tag and replays the same steps to A's losses with no new capture.
+    Save and load seconds and bytes are printed.  Checkpoints go to a
+    temporary directory, removed at the end: under ``$TMPDIR`` or beside
+    this file, whichever has more room (two tags of ~1.5 GB at once)."""
+    import shutil
+    from deepspeed_tpu_torch.models.gpt import GPT, gpt_config
+    from deepspeed_tpu_torch.runtime.checkpointing import wait_for_finalizer
+
+    cfg = gpt_config("gpt2", n_positions=TRAIN_SEQ, remat=True)
+    batches = [train_batch_of(cfg.vocab_size, device, seed=40 + i) for i in range(2 * steps)]
+
+    def engine_of(seed: int, async_save: bool):
+        config = dict(TRAIN_CFG, checkpoint={"async_save": async_save})
+        model = GPT(cfg, device=device, seed=seed)
+        return model, train_engine(model, config, device)
+
+    def run(engine, bs):
+        return [float(engine.train_batch(batch=b)) for b in bs]
+
+    out = {}
+    parent = max((tempfile.gettempdir(), str(Path(__file__).resolve().parent)),
+                 key=lambda d: shutil.disk_usage(d).free)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=parent)
+    say(f"checkpoints under {root} ({shutil.disk_usage(parent).free / 2 ** 30:.1f} GiB free)")
+    try:
+        for mode in ("sync", "async"):
+            save_dir = os.path.join(root, mode)
+            model_a, a = engine_of(0, mode == "async")
+            losses_a = run(a, batches[:steps])
+            t0 = time.perf_counter()
+            a.save_checkpoint(save_dir)
+            save_s = time.perf_counter() - t0
+            losses_a += run(a, batches[steps:])
+            t0 = time.perf_counter()
+            wait_for_finalizer(a)
+            wait_s = time.perf_counter() - t0
+            params_a = param_copies(model_a)
+            tag_dir = os.path.join(save_dir, f"global_step{steps}")
+            nbytes = dir_bytes(tag_dir)
+            model_b, b = engine_of(1, mode == "async")
+            t0 = time.perf_counter()
+            path, _ = b.load_checkpoint(save_dir)
+            load_s = time.perf_counter() - t0
+            if path != tag_dir or b.global_steps != steps:
+                fail(f"resume ({mode}): loaded {path} at step {b.global_steps}")
+            losses_b = run(b, batches[steps:])
+            same = hold_resumed(f"resume ({mode} save)", losses_b, param_copies(model_b),
+                                losses_a[steps:], params_a)
+            b.close()
+            say(f"checkpoint ({mode}): save {save_s:.3f} s blocking"
+                + (f" + {wait_s:.3f} s finalize waited after {steps} steps" if mode == "async"
+                   else "") + f", load {load_s:.3f} s, {nbytes:,} bytes in {tag_dir.split(os.sep)[-1]}"
+                f" [{card}]")
+            out[mode] = dict(save_s=save_s, wait_s=wait_s, load_s=load_s, bytes=nbytes,
+                             bitwise=same)
+            if mode == "async":
+                a.close()
+                break
+            # a second tag, verified, then torn: the loader rolls back
+            a.save_checkpoint(save_dir)
+            rc_ok, out_ok = ckpt_verify(save_dir)
+            flip_byte(os.path.join(save_dir, f"global_step{2 * steps}", "state.pt"))
+            rc_torn, out_torn = ckpt_verify(save_dir)
+            say(f"ckpt_cli verify: exit {rc_ok} on the save dir, {rc_torn} after one flipped "
+                "byte in the newest tag's state file")
+            if (rc_ok, rc_torn) != (0, 1):
+                fail(f"ckpt_cli verify exited {rc_ok} / {rc_torn}, expected 0 / 1; its output: "
+                     f"{out_ok!r} / {out_torn!r}")
+            captures = a.graphs.captures
+            path, _ = a.load_checkpoint(save_dir)
+            if path != tag_dir or a.global_steps != steps:
+                fail(f"rollback: loaded {path} at step {a.global_steps}, expected {tag_dir}")
+            again = run(a, batches[steps:])
+            say(f"rollback into the same graphed engine: loaded {path.split(os.sep)[-1]}, "
+                f"losses {again}, captures {captures} -> {a.graphs.captures}")
+            if a.graphs.captures != captures:
+                fail("a load into a graphed engine needed a new capture")
+            hold_resumed("rollback replay", again, param_copies(model_a), losses_a[steps:],
+                         params_a)
+            a.close()
+            shutil.rmtree(save_dir)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -1732,10 +2133,12 @@ def main() -> int:
 
     # ---- 8. kernel path against the plain path, fp32 ----------------------------- #
     parity = phase_train_fp32_parity(device)
-    say(f"summary: bf16 train seq {TRAIN_SEQ} {train['step_ms']:.3f} ms/step, "
-        f"{train['samples_per_s']:.2f} samples/s, {train['tflops']:.2f} TFLOPs (seq "
-        f"{SHORT_SEQ}: {short['step_ms']:.3f} ms/step); fp32 kernel-vs-plain loss rel diff "
-        f"{parity['loss_rel']:.3e} [{card}]")
+    say(f"summary: bf16 train seq {TRAIN_SEQ} graphed {train['step_ms']:.3f} ms/step "
+        f"(host {train['host_ms']:.3f}), {train['samples_per_s']:.2f} samples/s, "
+        f"{train['tflops']:.2f} TFLOPs; eager {train['eager_step_ms']:.3f} ms/step (host "
+        f"{train['eager_host_ms']:.3f}), {train['eager_samples_per_s']:.2f} samples/s (seq "
+        f"{SHORT_SEQ}: graphed {short['step_ms']:.3f}, eager {short['eager_step_ms']:.3f} "
+        f"ms/step); fp32 kernel-vs-plain loss rel diff {parity['loss_rel']:.3e} [{card}]")
     torch.cuda.empty_cache()
 
     # ---- 9. the block-sparse path, bf16, beside the dense step ----------------- #
@@ -1753,25 +2156,41 @@ def main() -> int:
     # ---- 10. the sparse path in fp32, kernels against plain versions ---------- #
     sparse_parity = phase_train_fp32_parity(device, seq=SPARSE_SEQ, micro=SPARSE_MICRO,
                                             attn_impl="block_sparse", config=SPARSE_TRAIN_CFG)
-    say(f"summary: bf16 train seq {SPARSE_SEQ} micro {SPARSE_MICRO}: block_sparse "
-        f"{sparse['step_ms']:.3f} ms/step, {sparse['samples_per_s']:.2f} samples/s; flash "
-        f"{dense['step_ms']:.3f} ms/step, {dense['samples_per_s']:.2f} samples/s; device ms "
-        f"per step {((sparse['profile'] or {}).get('device_ms', float('nan'))):.3f} sparse, "
-        f"{((dense['profile'] or {}).get('device_ms', float('nan'))):.3f} flash; fp32 "
+    say(f"summary: bf16 train seq {SPARSE_SEQ} micro {SPARSE_MICRO}: block_sparse graphed "
+        f"{sparse['step_ms']:.3f} ms/step (host {sparse['host_ms']:.3f}), "
+        f"{sparse['samples_per_s']:.2f} samples/s, eager {sparse['eager_step_ms']:.3f} ms/step "
+        f"(host {sparse['eager_host_ms']:.3f}); flash graphed {dense['step_ms']:.3f} ms/step, "
+        f"{dense['samples_per_s']:.2f} samples/s; device ms per graphed step "
+        f"{device_ms(sparse):.3f} sparse, {device_ms(dense):.3f} flash; fp32 "
         f"kernel-vs-plain loss rel diff {sparse_parity['loss_rel']:.3e} [{card}]")
 
     torch.cuda.empty_cache()
 
     # ---- 11. the other GPT-2 widths, bf16 ------------------------------------------ #
     widths = {}
-    for preset, steps in TRAIN_WIDTHS.items():
-        widths[preset] = phase_train_bf16(device, card, timed=steps - 1, profiled=False,
-                                          preset=preset, warmup=1)
+    for preset, (graphed, eager, loss_steps) in TRAIN_WIDTHS.items():
+        widths[preset] = phase_train_bf16(device, card, timed=graphed, profiled=False,
+                                          preset=preset, eager=eager, loss_steps=loss_steps)
         torch.cuda.empty_cache()
     say("summary: bf16 train at GPT-2's other widths, seq 512 micro 8: " + "; ".join(
         f"{p} {r['n_layer']} layers x {r['n_embd']}: loss {r['losses'][0]:.4f} -> "
-        f"{r['losses'][-1]:.4f}, {r['step_ms']:.3f} ms/step" for p, r in widths.items())
-        + f" [{card}]")
+        f"{r['losses'][-1]:.4f}, graphed {r['step_ms']:.3f} ms/step (host {r['host_ms']:.3f}, "
+        f"device {device_ms(r):.3f}), eager {r['eager_step_ms']:.3f} (host "
+        f"{r['eager_host_ms']:.3f}, device {device_ms(r, 'eager_profile'):.3f}); peak memory "
+        f"graphed {r['memory']['graphed_reserved_gib']:.2f} GiB reserved / "
+        f"{r['memory']['graphed_alloc_gib']:.2f} allocated, eager "
+        f"{r['memory']['eager_alloc_gib']:.2f} allocated"
+        for p, r in widths.items()) + f" [{card}]")
+
+    # ---- 12. graphed against eager; checkpoints --------------------------------- #
+    graph_parity = phase_graph_parity(device)
+    torch.cuda.empty_cache()
+    resume = phase_resume(device, card)
+    torch.cuda.empty_cache()
+    say(f"summary: graphed vs eager fp32 bitwise {graph_parity['bitwise']}; resume bitwise "
+        f"{resume['sync']['bitwise']} (sync) / {resume['async']['bitwise']} (async); save "
+        f"{resume['sync']['save_s']:.3f} s, load {resume['sync']['load_s']:.3f} s, "
+        f"{resume['sync']['bytes']:,} bytes a tag [{card}]")
 
     # ---- report ------------------------------------------------------------------ #
     # each kernel's row: its case at the shape and dtype of the run that

@@ -72,7 +72,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.ops.cuda import builder
+from deepspeed_tpu_torch.ops.cuda import builder, capture
 
 NEG_INF = -1e30
 KERNEL_BLOCK = 64          # the one layout block size the kernels are compiled for
@@ -139,7 +139,7 @@ def device_luts(layout: np.ndarray, device) -> Tuple[torch.Tensor, ...]:
     and device."""
     layout = _as_layout(layout)
     H, nb, _ = layout.shape
-    return _device_luts_cached(layout.tobytes(), H, nb, str(torch.device(device)))
+    return capture.hold(_device_luts_cached(layout.tobytes(), H, nb, str(torch.device(device))))
 
 
 # --------------------------------------------------------------------------- #
@@ -198,7 +198,8 @@ def fwd_work(layout: np.ndarray, causal: bool, device) -> FwdWork:
     which the kernel's grid folds in."""
     layout = _as_layout(layout)
     H, nb, _ = layout.shape
-    return _fwd_work_cached(layout.tobytes(), H, nb, bool(causal), str(torch.device(device)))
+    return capture.hold(_fwd_work_cached(layout.tobytes(), H, nb, bool(causal),
+                                         str(torch.device(device))))
 
 
 # --------------------------------------------------------------------------- #
@@ -326,8 +327,8 @@ def dkv_work(layout: np.ndarray, causal: bool, batch: int, device,
     layout = _as_layout(layout)
     split = dkv_split(layout, causal, batch, device, dtype, split)
     H, nb, _ = layout.shape
-    return _dkv_work_cached(layout.tobytes(), H, nb, bool(causal), int(batch),
-                            str(torch.device(device)), split)
+    return capture.hold(_dkv_work_cached(layout.tobytes(), H, nb, bool(causal), int(batch),
+                                         str(torch.device(device)), split))
 
 
 # --------------------------------------------------------------------------- #

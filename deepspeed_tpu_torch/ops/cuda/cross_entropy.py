@@ -49,7 +49,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from deepspeed_tpu_torch.ops.cuda import builder
+from deepspeed_tpu_torch.ops.cuda import builder, capture
 
 PAD_LOGIT = -1e9
 # the forward: rows and vocab columns of a tile (by dtype); fp32 keeps a
@@ -291,7 +291,7 @@ def _fwd_counters(device: torch.device, tiles: int) -> torch.Tensor:
     if counters is None or counters.numel() < tiles:
         counters = torch.zeros(max(tiles, 64), dtype=torch.int32, device=device)
         _FWD_COUNTERS[device] = counters
-    return counters
+    return capture.hold(counters)
 
 
 def ce_forward(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,

@@ -52,7 +52,12 @@ def checkpoint_policy(partition_activations: bool = False,
 def checkpoint(function: Callable, *args):
     """Run ``function(*args)`` keeping its inputs and what the policy
     saves for the backward."""
+    # No RNG state is stashed for the recompute: the training path draws no
+    # random numbers (dropout is ROADMAP.md, Queue 1 entry 5, item 4), and
+    # reading the CUDA generator's state is refused inside a CUDA graph
+    # capture.  Dropout will need graph-safe generators registered with
+    # the capture, and this flag back on.
     return torch.utils.checkpoint.checkpoint(
-        function, *args, use_reentrant=False,
+        function, *args, use_reentrant=False, preserve_rng_state=False,
         context_fn=functools.partial(create_selective_checkpoint_contexts,
                                      checkpoint_policy()))

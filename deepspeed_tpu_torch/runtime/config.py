@@ -10,7 +10,9 @@ solved and validated as the JAX package (and the reference) do, with the
 same ``DeepSpeedConfigError`` on inconsistent or missing values.  The world
 size is 1 in the port so far.  The ``sparse_attention`` block is checked
 as the JAX package checks it (``ValueError`` if it is not a dict,
-``NotImplementedError`` on an unknown mode) and kept as a dict.  Blocks of
+``NotImplementedError`` on an unknown mode) and kept as a dict.  The
+``checkpoint`` block and the checkpoint fields of ``fault_tolerance`` are
+typed, with the JAX defaults.  Blocks of
 features the port has not taken over yet (stability, telemetry, monitors,
 PLD, compression, ...) are kept as raw dicts; the engine raises when one of
 them is enabled.
@@ -57,6 +59,32 @@ class DeepSpeedActivationCheckpointingConfig(DeepSpeedConfigModel):
     profile: bool = False
 
 
+class DeepSpeedCheckpointConfig(DeepSpeedConfigModel):
+    """``checkpoint`` block: the storage backend of
+    ``runtime/checkpoint_engine/`` (``"torch"``, also taken as
+    ``"default"`` and ``"orbax"``, or ``"local"``) and async save.  Other
+    keys of the JAX block are carried and unused."""
+    tag_validation: str = "Warn"
+    async_save: bool = False
+    engine: str = "orbax"
+
+
+class DeepSpeedFaultToleranceConfig(DeepSpeedConfigModel):
+    """``fault_tolerance`` block: verified atomic checkpoints and load
+    rollback, with the JAX package's defaults.  ``preemption_enabled``
+    makes the engine raise (ROADMAP.md, Queue 1 item 8); the other
+    preemption and restart fields are parsed and unused."""
+    atomic_save: bool = True
+    keep_last_n: int = 0            # retention window; 0 = keep every tag
+    save_retries: int = 3
+    retry_backoff_s: float = 0.5
+    retry_backoff_max_s: float = 8.0
+    verify_on_load: bool = True
+    rollback: bool = True
+    max_rollback: int = 3           # earlier tags to try past the newest
+    preemption_enabled: bool = False
+
+
 class DeepSpeedConfigError(Exception):
     pass
 
@@ -66,7 +94,7 @@ class DeepSpeedConfigError(Exception):
 UNPORTED_BLOCKS = {
     C.STABILITY: "ROADMAP.md, Queue 1 item 8 (stability sentinel)",
     C.TELEMETRY: "ROADMAP.md, Queue 1 item 8 (telemetry)",
-    C.FAULT_TOLERANCE: "ROADMAP.md, Queue 1 item 8 (fault tolerance)",
+    C.FAULT_TOLERANCE: "ROADMAP.md, Queue 1 item 8 (preemption handling)",
     C.COMMS_LOGGER: "ROADMAP.md, Queue 1 item 7 (comms)",
     C.MONITOR_CONFIG_TENSORBOARD: "ROADMAP.md, Queue 1 item 9 (monitor)",
     C.MONITOR_CONFIG_WANDB: "ROADMAP.md, Queue 1 item 9 (monitor)",
@@ -128,6 +156,10 @@ class DeepSpeedConfig:
         self.amp_enabled = bool(pd.get(C.AMP, {}).get(C.AMP_ENABLED, C.AMP_ENABLED_DEFAULT))
         self.activation_checkpointing_config = DeepSpeedActivationCheckpointingConfig(
             **pd.get(C.ACTIVATION_CHECKPOINTING, {}))
+
+        self.checkpoint_config = DeepSpeedCheckpointConfig(**pd.get(C.CHECKPOINT, {}))
+        self.fault_tolerance_config = DeepSpeedFaultToleranceConfig(
+            **pd.get(C.FAULT_TOLERANCE, {}))
 
         self.parallel_blocks = {k: pd.get(k, {}) for k in (
             C.MESH, C.TENSOR_PARALLEL, C.PIPELINE_PARALLEL, C.SEQUENCE_PARALLEL)}

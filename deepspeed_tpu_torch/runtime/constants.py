@@ -63,9 +63,16 @@ SEQUENCE_PARALLEL = "sequence_parallel"
 ZERO_OPTIMIZATION = "zero_optimization"
 ACTIVATION_CHECKPOINTING = "activation_checkpointing"
 
+#############################################
+# Checkpoints: the ``checkpoint`` block and the checkpoint fields of the
+# ``fault_tolerance`` block (its ``preemption_*`` fields are item 8)
+#############################################
+CHECKPOINT = "checkpoint"
+
+FAULT_TOLERANCE = "fault_tolerance"
+
 # Blocks the port parses but whose feature is not ported yet: the engine
 # raises when one of them is enabled (ROADMAP.md, Queue 1 items 8 and 9).
-FAULT_TOLERANCE = "fault_tolerance"
 STABILITY = "stability"
 TELEMETRY = "telemetry"
 COMMS_LOGGER = "comms_logger"

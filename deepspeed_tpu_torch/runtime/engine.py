@@ -1,7 +1,9 @@
 """The training engine, single device, ZeRO-0 (counterpart of the
 ``DeepSpeedEngine`` of ``deepspeed_tpu/runtime/engine.py``).
 
-The step is the JAX engine's fused program, in PyTorch:
+The step is the JAX engine's fused program (one XLA program per optimizer
+step over GAS micro-batches, ``deepspeed_tpu/runtime/engine.py:2610-2612``),
+in PyTorch:
 
 * fp32 master parameters live in the model (``GPT.set_params``), from
   ``model.init_params(generator)`` seeded with ``seed``, or from
@@ -18,21 +20,33 @@ The step is the JAX engine's fused program, in PyTorch:
 
 No step reads a device value on the host: the returned loss is a device
 tensor, and the clip factor, the bias corrections and the learning rate
-reach the kernel as device scalars.  The device and its ``synchronize``
-come from ``accelerator/``; entry points run on the current CUDA device
-unless ``device="cpu"``.
+reach the kernel as device scalars.  So on a CUDA device ``train_batch``
+runs the whole step as one replay of a captured CUDA graph, one capture
+per batch signature (``runtime/step_graph.py``); ``forward`` /
+``backward`` / ``step`` stay eager, as the JAX engine's micro-step path is
+separate from its fused program.  On the CPU ``train_batch`` runs the
+same step body (``_graph_step``) as it is.
+The device and its ``synchronize`` come from ``accelerator/``; entry
+points run on the current CUDA device unless ``device="cpu"``.
+
+``save_checkpoint`` / ``load_checkpoint`` are ``runtime/checkpointing.py``
+(the JAX layout: verified atomic tags, ``latest``, rollback, retention,
+async save).  A load copies into the engine's own storage (parameters,
+moments, the optimizer count, the scaler) and never rebinds it, so the
+captured steps keep running on the restored state.
 
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
 item: ZeRO stages 1-3 and offload (Queue 1 item 7), fp16 (item 5),
-checkpoints (item 6), and the stability, telemetry,
-fault-tolerance, monitor, PLD, compression and data-pipeline blocks
-(items 8 and 9).  A ``sparse_attention`` block is accepted (the config
-checks it), as in the JAX engine: the model takes its layout through a
-registered ``attn_impl``.
+preemption handling and the stability, telemetry, monitor, PLD,
+compression and data-pipeline blocks (items 8 and 9).  A
+``sparse_attention`` block is accepted (the config checks it), as in the
+JAX engine: the model takes its layout through a registered
+``attn_impl``.
 """
 
 import dataclasses
-from typing import Callable
+import os
+from typing import Callable, Dict
 
 import numpy as np
 import torch
@@ -43,12 +57,12 @@ from deepspeed_tpu_torch.runtime.config import UNPORTED_BLOCKS, DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import unit_loss_scaler
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_schedule
 from deepspeed_tpu_torch.runtime.optimizers import get_optimizer
+from deepspeed_tpu_torch.runtime.step_graph import StepGraphs
 from deepspeed_tpu_torch.utils.logging import log_dist
 from deepspeed_tpu_torch.utils.timer import ThroughputTimer
 
 ZERO = "ROADMAP.md, Queue 1 item 7 (ZeRO-1/2/3 and offload)"
 PRECISION = "ROADMAP.md, Queue 1 item 5 (fp16 loss scaling)"
-CHECKPOINTS = "ROADMAP.md, Queue 1 item 6 (checkpoints)"
 OPS_PLANES = "ROADMAP.md, Queue 1 items 8 and 9"
 COMPRESSION = "ROADMAP.md, Queue 1 item 9 (compression)"
 
@@ -108,6 +122,10 @@ class DeepSpeedEngine:
         self._grads_pending = False
         self._grad_norm = None
         self._in_training_mode = True
+        self.checkpoint_engine = None
+        self._closed = False
+        self.graphs = (StepGraphs(self.accelerator, self.device, self._static_dtype)
+                       if self.device.type == "cuda" else None)
         self.tput_timer = ThroughputTimer(
             batch_size=self.train_batch_size(),
             synchronize=lambda: self.accelerator.synchronize(self.device.index),
@@ -195,13 +213,18 @@ class DeepSpeedEngine:
     def eval(self):
         return self.train(False)
 
+    def _static_dtype(self, dtype: torch.dtype) -> torch.dtype:
+        return self.compute_dtype if dtype.is_floating_point else dtype
+
+    @staticmethod
+    def _as_tensor(x) -> torch.Tensor:
+        return x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+
     def _place(self, x):
         if isinstance(x, (tuple, list)):
             return type(x)(self._place(v) for v in x)
-        t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
-        if t.is_floating_point():
-            t = t.to(self.compute_dtype)
-        return t.to(self.device)
+        t = self._as_tensor(x)
+        return t.to(self.device, self._static_dtype(t.dtype))
 
     def _loss(self, batch, train: bool = True) -> torch.Tensor:
         cast = _map_tree(lambda p: p.to(self.compute_dtype), self.params)
@@ -237,7 +260,7 @@ class DeepSpeedEngine:
     def step(self):
         """Optimizer step at GAS boundaries."""
         if self.is_gradient_accumulation_boundary() and self._grads_pending:
-            self._apply_updates()
+            self._grad_norm = self._apply_updates()
             self._grads_pending = False
             self._advance_step_counters()
 
@@ -245,24 +268,50 @@ class DeepSpeedEngine:
         """One optimizer step over GAS micro-batches.  ``batch`` leaves have
         a leading ``[gas, micro, ...]`` dimension, or ``data_iter`` yields
         the GAS micro-batches.  Returns the mean micro-batch loss as a
-        device tensor."""
+        device tensor.  The step is ``_graph_step``, starting from zeroed
+        gradients: on CUDA one replay of its captured graph, on the CPU the
+        same body run as it is."""
+        if not self._in_training_mode:
+            raise RuntimeError("train_batch called in eval mode")
         gas = self.gradient_accumulation_steps()
         if batch is None:
             micro = [next(data_iter) for _ in range(gas)]
+            sources = [[self._as_tensor(mb[j]) for mb in micro] for j in range(len(micro[0]))]
         else:
-            placed = self._place(batch)
-            micro = [tuple(x[i] for x in placed) for i in range(gas)]
+            sources = [self._as_tensor(x) for x in batch]
         self.tput_timer.start()
-        loss_sum = None
-        for mb in micro:
-            loss = self.backward(self.forward(mb)).detach()
-            loss_sum = loss if loss_sum is None else loss_sum + loss
-        self.step()
+        if self.graphs is None:
+            loss, self._grad_norm = self._graph_step([self._place(x) for x in sources])
+        else:
+            loss, self._grad_norm = self.graphs.run(sources, self._graph_step)
+            loss = loss.clone()          # the next replay overwrites the static output
+        self.micro_steps += gas
+        self._grads_pending = False
+        self._advance_step_counters()
         self.tput_timer.stop(global_step=True)
-        return loss_sum / gas
+        return loss
 
-    def _apply_updates(self):
-        """Unscale, global norm, clip factor, one fused AdamW launch."""
+    def _graph_step(self, leaves):
+        """The step that ``train_batch`` runs, and on CUDA captures: zero
+        the flat gradients, the GAS forward and backward micro-steps over
+        ``[gas, ...]`` leaves (or lists of GAS micro-batch tensors), the
+        update.  Touches no host counter.  Returns (mean loss, grad norm)."""
+        self._grad_flat.zero_()
+        gas = self.gradient_accumulation_steps()
+        loss_sum = None
+        for i in range(gas):
+            loss = self._loss(tuple(x[i] for x in leaves))
+            (loss * self.scaler.scale).backward()
+            loss = loss.detach()
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+        return loss_sum / gas, self._apply_updates()
+
+    def _apply_updates(self) -> torch.Tensor:
+        """Unscale, global norm, clip factor, one fused AdamW launch; the
+        global norm.  ``inv`` is computed on the device from the scaler's
+        scale tensor, which a captured step reads at every replay: bf16 and
+        fp32 hold it at 1; fp16 (ROADMAP.md, Queue 1 item 5) must update
+        that tensor in place."""
         inv = 1.0 / (self.scaler.scale * float(self.gradient_accumulation_steps()))
         grad_norm = torch.linalg.vector_norm(self._grad_flat) * inv
         clip = self.gradient_clipping()
@@ -271,7 +320,7 @@ class DeepSpeedEngine:
         else:
             factor = torch.ones_like(grad_norm)
         self.optimizer.step(inv, factor)
-        self._grad_norm = grad_norm
+        return grad_norm
 
     def _advance_step_counters(self):
         self.global_samples += self.train_batch_size()
@@ -315,7 +364,96 @@ class DeepSpeedEngine:
     def config(self):
         return self._config
 
-    def save_checkpoint(self, *args, **kwargs):
-        raise NotImplementedError(f"checkpoints are not ported yet ({CHECKPOINTS})")
+    # ------------------------------------------------------------------ #
+    # Checkpoints (runtime/checkpointing.py)
+    # ------------------------------------------------------------------ #
+    def save_checkpoint(self, save_dir, tag=None, client_state=None, save_latest=True):
+        from deepspeed_tpu_torch.runtime.checkpointing import save_checkpoint as _save
+        return _save(self, save_dir, tag=tag, client_state=client_state or {},
+                     save_latest=save_latest)
 
-    load_checkpoint = save_checkpoint
+    def load_checkpoint(self, load_dir, tag=None, load_optimizer_states=True,
+                        load_lr_scheduler_states=True, load_module_only=False):
+        """``(tag dir, client_state)``, or ``(None, {})`` when nothing was
+        loaded.  Copies into the existing storage: the captured steps run
+        on the restored state without a new capture."""
+        from deepspeed_tpu_torch.runtime.checkpointing import load_checkpoint as _load
+        return _load(self, load_dir, tag=tag, load_optimizer_states=load_optimizer_states,
+                     load_lr_scheduler_states=load_lr_scheduler_states,
+                     load_module_only=load_module_only)
+
+    def _checkpoint_state(self) -> Dict:
+        """The tree a checkpoint holds: fp32 master params by name, the
+        optimizer's mu, nu and count, and the scaler."""
+        return {"params": dict(zip(self._names, self._leaves)),
+                "opt_state": self.optimizer.state_dict(),
+                "scaler": self.scaler._asdict()}
+
+    def _checkpoint_copies(self, tree: Dict, load_optimizer_states: bool = True):
+        """``(own tensor, saved value)`` for every tensor a load writes: the
+        params, the optimizer state and the scaler, each name and shape
+        checked against this engine before the first copy, so that a tree
+        that does not fit raises and changes nothing."""
+        params = tree["params"]
+        if set(params) != set(self._names):
+            raise ValueError(f"checkpoint params {sorted(set(params) ^ set(self._names))[:5]} "
+                             "do not match the model's")
+        copies = []
+        for name, p in zip(self._names, self._leaves):
+            src = torch.as_tensor(params[name])
+            if src.shape != p.shape:
+                raise ValueError(f"checkpoint param {name}: shape {tuple(src.shape)}, "
+                                 f"expected {tuple(p.shape)}")
+            copies.append((p, src))
+        if load_optimizer_states:
+            copies += self.optimizer.state_copies(tree["opt_state"])
+        for field, dst in self.scaler._asdict().items():
+            src = torch.as_tensor(tree["scaler"][field])
+            if src.numel() != dst.numel():
+                raise ValueError(f"checkpoint scaler {field}: shape {tuple(src.shape)}, "
+                                 f"expected {tuple(dst.shape)}")
+            copies.append((dst, src.reshape(dst.shape)))
+        return copies
+
+    @staticmethod
+    @torch.no_grad()
+    def _copy_in(copies) -> None:
+        """Write what ``_checkpoint_copies`` checked into the engine's own
+        storage, in place: a captured step keeps its pointers."""
+        for dst, src in copies:
+            dst.copy_(src)
+
+    def get_fp32_params(self) -> Dict[str, torch.Tensor]:
+        """The fp32 master parameters by name, as host copies."""
+        return {n: p.detach().to("cpu", copy=True) for n, p in zip(self._names, self._leaves)}
+
+    def save_16bit_model(self, save_dir, save_filename="model.safetensors"):
+        """An ``.npz`` of fp16 leaves ``p0``, ``p1``, ... in parameter
+        order, as the JAX engine writes it; returns its path."""
+        os.makedirs(save_dir, exist_ok=True)
+        path = os.path.join(save_dir, "model_16bit.npz")
+        np.savez(path, **{f"p{i}": t.to(torch.float16).numpy()
+                          for i, t in enumerate(self.get_fp32_params().values())})
+        return path
+
+    def close(self):
+        """Join the async checkpoint finalizer (logging, not raising, its
+        failure), drain the checkpoint engine, and drop the captured steps
+        with their memory pools.  Idempotent."""
+        if self._closed:
+            return
+        self._closed = True
+        from deepspeed_tpu_torch.runtime.checkpointing import wait_for_finalizer
+        try:
+            wait_for_finalizer(self, raise_on_error=False)
+        except Exception as e:
+            log_dist(f"checkpoint finalizer join failed: {e}", ranks=[0])
+        if self.checkpoint_engine is not None:
+            try:
+                self.checkpoint_engine.wait()
+            except Exception as e:
+                log_dist(f"checkpoint engine drain failed: {e}", ranks=[0])
+        if self.graphs is not None:
+            if self._grad_norm is not None:
+                self._grad_norm = self._grad_norm.clone()
+            self.graphs.clear()

@@ -31,7 +31,10 @@ def _step_f32(step: Union[int, torch.Tensor]) -> torch.Tensor:
 
 
 class _ScheduleBase:
-    """Stateful veneer over a pure schedule function."""
+    """Stateful veneer over a pure schedule function.  ``state_dict`` holds
+    the JAX keys; its ``lr_scale`` is always 1.0, since the stability
+    sentinel that backs the lr off through it is not ported yet
+    (ROADMAP.md, Queue 1 item 8)."""
 
     def __init__(self, schedule_fn: Callable[[torch.Tensor], torch.Tensor]):
         self._fn = schedule_fn
@@ -47,6 +50,17 @@ class _ScheduleBase:
         if last_batch_iteration is None:
             last_batch_iteration = self.last_batch_iteration + 1
         self.last_batch_iteration = last_batch_iteration
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"last_batch_iteration": self.last_batch_iteration, "lr_scale": 1.0}
+
+    def load_state_dict(self, sd: Dict[str, Any]):
+        scale = float(sd.get("lr_scale", 1.0))
+        if scale != 1.0:
+            raise NotImplementedError(
+                f"lr_scale {scale} in the schedule state: the stability sentinel that sets "
+                "it is not ported yet (ROADMAP.md, Queue 1 item 8)")
+        self.last_batch_iteration = sd["last_batch_iteration"]
 
 
 class WarmupLR(_ScheduleBase):

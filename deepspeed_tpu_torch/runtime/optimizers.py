@@ -7,7 +7,7 @@ optimizer is decay-after Adam, stepped by the fused multi-tensor kernel of
 and nothing falls back to ``torch.optim``.
 """
 
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -58,18 +58,19 @@ class FusedAdam:
         scal = torch.stack([inv, clip_factor, neg_lr, bc1, bc2]).to(torch.float32)
         fused_adam(self.table, scal, b1=self.spec["b1"], b2=self.spec["b2"],
                    eps=self.spec["eps"], wd=self.spec["wd"])
-        self.count = safe_int32_increment(self.count)
+        # in place: a captured train step reads and writes this storage
+        self.count.copy_(safe_int32_increment(self.count))
 
     def state_dict(self) -> Dict[str, Any]:
         """``{"mu": {name: tensor}, "nu": {name: tensor}, "count": tensor}``."""
         return {"mu": dict(zip(self.names, self.mu)), "nu": dict(zip(self.names, self.nu)),
                 "count": self.count}
 
-    @torch.no_grad()
-    def load_state_dict(self, sd: Dict[str, Any]) -> None:
-        """Copy the moments in place (the kernel's table keeps pointing at
-        them); ``sd`` as ``state_dict()`` returns it, or as
-        ``models/convert.py:adam_state_from_jax`` does."""
+    def state_copies(self, sd: Dict[str, Any]) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """``(own tensor, saved value)`` for every tensor of ``sd``, each
+        name and shape checked first, so that a state that does not fit
+        raises before anything is copied."""
+        copies = []
         for key, dsts in (("mu", self.mu), ("nu", self.nu)):
             if set(sd[key]) != set(self.names):
                 raise ValueError(f"optimizer state {key} has keys {sorted(sd[key])[:5]}..., "
@@ -79,8 +80,20 @@ class FusedAdam:
                 if dst.shape != src.shape:
                     raise ValueError(f"{key}[{name}]: shape {tuple(src.shape)}, expected "
                                      f"{tuple(dst.shape)}")
-                dst.copy_(src)
-        self.count = torch.as_tensor(sd["count"], dtype=torch.int32).to(self.count.device)
+                copies.append((dst, src))
+        count = torch.as_tensor(sd["count"])
+        if count.numel() != 1:
+            raise ValueError(f"optimizer count: shape {tuple(count.shape)}, expected ()")
+        return copies + [(self.count, count.reshape(()))]
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: Dict[str, Any]) -> None:
+        """Copy the moments and the count in place (the kernel's table and
+        a captured train step keep pointing at them), after checking all of
+        ``sd``; ``sd`` as ``state_dict()`` returns it, or as
+        ``models/convert.py:adam_state_from_jax`` does."""
+        for dst, src in self.state_copies(sd):
+            dst.copy_(src)
 
 
 def get_optimizer(name: str, params: Dict[str, Any], leaves: List[torch.Tensor],

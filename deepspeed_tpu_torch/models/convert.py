@@ -3,9 +3,11 @@ JAX file answers to this one; it reads the pytree of
 ``deepspeed_tpu/models/gpt.py:init_gpt_params`` and optax's
 ``ScaleByAdamState``).
 
-The JAX pytree is ``{"wte", "wpe", "lnf_g", "lnf_b", "blocks"}`` where
-``blocks`` holds stacked ``[n_layer, ...]`` leaves (``scan_layers=True``) or
-one ``{"h<i>": {...}}`` dict per layer.  Leaves may be numpy arrays or
+The JAX pytree is ``{"wte", "wpe", "lnf_g", "lnf_b", "blocks"}`` (no
+``wpe`` with rope or ALiBi positions; ``lm_head`` and ``lm_head_b`` with an
+untied head) where ``blocks`` holds stacked ``[n_layer, ...]`` leaves
+(``scan_layers=True``) or one ``{"h<i>": {...}}`` dict per layer; the
+leaves' widths are the family's (a GQA qkv, a SwiGLU gate | up).  Leaves may be numpy arrays or
 anything ``numpy.asarray`` reads (JAX arrays included); this module imports
 no JAX.
 
@@ -23,7 +25,10 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.models.gpt import (BLOCK_KEYS, GPT, OTHER_FAMILIES,
-                                            TOP_KEYS, GPTConfig)
+                                            GPTConfig)
+
+# every leaf outside ``blocks`` a family's tree may hold
+TREE_TOP_KEYS = ("wte", "wpe", "lnf_g", "lnf_b", "lm_head", "lm_head_b")
 
 
 def _tensor(x) -> torch.Tensor:
@@ -39,12 +44,13 @@ def _tensor(x) -> torch.Tensor:
 
 def params_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
     """JAX GPT pytree -> state dict with :class:`GPT`'s keys (``"wte"``,
-    ``"blocks.<i>.qkv_w"``, ...), CPU tensors, weights ``[in, out]``."""
-    for key in ("lm_head", "lm_head_b"):
-        if key in tree:
-            raise NotImplementedError(
-                f"an untied head ({key!r}) is not ported yet ({OTHER_FAMILIES})")
-    sd = {name: _tensor(tree[name]) for name in TOP_KEYS}
+    ``"blocks.<i>.qkv_w"``, ...), CPU tensors, weights ``[in, out]``.  The
+    tree's own top-level leaves are carried over; :class:`GPT` checks them
+    against its config."""
+    extra = sorted(set(tree) - set(TREE_TOP_KEYS) - {"blocks"})
+    if extra:
+        raise ValueError(f"unknown top-level leaves {extra}")
+    sd = {name: _tensor(tree[name]) for name in TREE_TOP_KEYS if name in tree}
     blocks = tree["blocks"]
     if "moe" in blocks or any("moe" in b for b in blocks.values()
                               if isinstance(b, dict)):

@@ -1,32 +1,42 @@
-"""GPT-2 for training, generate() and the serving engine (counterpart of
-``deepspeed_tpu/models/gpt.py``).
+"""The GPT family for training, generate() and the serving engine
+(counterpart of ``deepspeed_tpu/models/gpt.py``).
 
-Ported here: the config and presets, the seeded init, the training
-forward and loss (``gpt_block``, ``gpt_forward``, ``chunked_cross_entropy``,
-``gpt_loss``), the KV-cache path of ``generate()`` and the paged serving
-step, with the JAX package's names and layouts.  Weights keep JAX's
-``[in, out]`` layout and are applied as ``h @ W``.  The functions take a
-parameter tree shaped like the JAX pytree, except that ``blocks`` is a list
-of per-layer dicts instead of stacked ``[n_layer, ...]`` leaves (the layer
-loop is a Python loop; ``scan_layers`` has no meaning here); :class:`GPT`
-is an ``nn.Module`` that owns such a tree and has the JAX ``GPT`` object's
-methods (``__call__(params, batch, rng, train)`` is the training loss).
+Ported here: the config, the presets and the family constructors
+(``gpt_config``, ``llama_config``, ``bloom_config``), the seeded init, the
+training forward and loss (``gpt_block``, ``gpt_forward``,
+``chunked_cross_entropy``, ``gpt_loss``), the KV-cache path of
+``generate()`` and the paged serving step, with the JAX package's names and
+layouts.  Weights keep JAX's ``[in, out]`` layout and are applied as
+``h @ W``.  The functions take a parameter tree shaped like the JAX pytree,
+except that ``blocks`` is a list of per-layer dicts instead of stacked
+``[n_layer, ...]`` leaves (the layer loop is a Python loop; ``scan_layers``
+has no meaning here); :class:`GPT` is an ``nn.Module`` that owns such a
+tree and has the JAX ``GPT`` object's methods (``__call__(params, batch,
+rng, train)`` is the training loss).
+
+One block serves three families, as in JAX: GPT-2 (learned positions,
+layernorm, gelu MLP, tied head), LLaMA-style (rope, RMSNorm, SwiGLU,
+bias-free, grouped-query attention, untied head) and BLOOM (ALiBi).  The
+serving paths (``generate()``, ``gpt_paged_step``) take every family knob;
+the training path takes GPT-2 only and raises ``NotImplementedError`` for
+the others (its flash kernels are compiled for head_dim 64 and its
+cross-entropy kernels for a tied head).
 
 Where JAX updated a cache with ``dynamic_update_slice`` or a scatter, the
 port writes into the cache tensor in place (no second cache in memory).
 
-Plain large products (qkv, out, fc, proj), layernorm, gelu, the embedding
-gather and the argmax are PyTorch calls.  Attention goes through the CUDA
-kernels of ``ops/cuda/decode_attention.py`` when decoding and through
-``ops/attention.py`` when training (the reference up to 256 tokens, the
-flash kernels of ``ops/cuda/flash_attention.py`` above, fed the
-``[B, S, H, D]`` views of the qkv product without copies); the training
-loss goes through the fused cross-entropy kernels of
-``ops/cuda/cross_entropy.py`` on the card.
-Config knobs of the other GPT families (rope, alibi, rmsnorm, swiglu, GQA,
-parallel blocks, MoE, untied heads) and training knobs not ported yet
-(random-LTD, activation quantization, dropout, progressive layer drop)
-raise ``NotImplementedError`` naming their ROADMAP item.
+Plain large products (qkv, out, fc, proj), the norms, the activations,
+rope, the embedding gather and the argmax are PyTorch calls.  Attention
+goes through the CUDA kernels of ``ops/cuda/decode_attention.py`` when
+decoding (GQA against the un-expanded ``Hkv`` cache, ALiBi as per-head
+slopes the kernels apply themselves) and through ``ops/attention.py`` when
+training (the reference up to 256 tokens, the flash kernels of
+``ops/cuda/flash_attention.py`` above, fed the ``[B, S, H, D]`` views of
+the qkv product without copies); the training loss goes through the fused
+cross-entropy kernels of ``ops/cuda/cross_entropy.py`` on the card.
+MoE blocks and training knobs not ported yet (random-LTD, activation
+quantization, dropout, progressive layer drop) raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 import dataclasses
@@ -39,7 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from deepspeed_tpu_torch.accelerator.real_accelerator import resolve_device
-from deepspeed_tpu_torch.ops.attention import get_attention_fn
+from deepspeed_tpu_torch.ops.attention import alibi_slopes, get_attention_fn
 from deepspeed_tpu_torch.ops.cuda.cross_entropy import (ce_logits, cross_entropy,
                                                         label_logit)
 from deepspeed_tpu_torch.ops.cuda.decode_attention import (decode_attention,
@@ -47,6 +57,7 @@ from deepspeed_tpu_torch.ops.cuda.decode_attention import (decode_attention,
 from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing import checkpoint
 
 OTHER_FAMILIES = "ROADMAP.md, Queue 1: other GPT families"
+FAMILIES_TRAINING = "ROADMAP.md, Queue 1: other GPT families: training"
 TRAINING = "ROADMAP.md, Queue 1 item 9 (data pipeline, compression, progressive layer drop)"
 DROPOUT = ("ROADMAP.md, Queue 1 item 4: dropout in training (its random streams "
            "cannot match JAX's; no config on the training path uses it)")
@@ -70,6 +81,14 @@ def as_torch_dtype(dt) -> torch.dtype:
     except KeyError:
         raise ValueError(f"unsupported dtype {dt!r}; expected one of "
                          f"{sorted(_DTYPES)}") from None
+
+
+_ACTIVATIONS = {
+    "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),   # GPT-2's gelu_new
+    "gelu": F.gelu,
+    "relu": F.relu,
+    "gelu_quick": lambda x: x * torch.sigmoid(1.702 * x),   # CLIP's quick_gelu
+}
 
 
 @dataclasses.dataclass
@@ -120,34 +139,56 @@ class GPTConfig:
                              f"{self.n_head}")
         self.head_dim = self.n_embd // self.n_head
         self.kv_heads = self.n_kv_head or self.n_head
+        if self.n_head % self.kv_heads:
+            raise ValueError(f"n_head {self.n_head} not divisible by n_kv_head "
+                             f"{self.kv_heads}")
         self.qkv_dim = (self.n_head + 2 * self.kv_heads) * self.head_dim
         self.ffn_dim = self.intermediate_size or 4 * self.n_embd
+        for knob, allowed in (("position_encoding", ("learned", "rope", "alibi")),
+                              ("norm", ("layernorm", "rmsnorm")),
+                              ("mlp_type", ("standard", "swiglu")),
+                              ("block_type", ("sequential", "parallel",
+                                              "parallel_single_ln")),
+                              ("activation", tuple(_ACTIVATIONS))):
+            if getattr(self, knob) not in allowed:
+                raise ValueError(f"GPTConfig.{knob}={getattr(self, knob)!r}; "
+                                 f"expected one of {allowed}")
+        if self.head_bias and not self.untied_head:
+            raise ValueError("head_bias needs untied_head: the bias belongs "
+                             "to the lm_head leaf")
         self._reject_unported()
 
     def _reject_unported(self):
-        family = {
-            "position_encoding": (self.position_encoding, "learned"),
-            "norm": (self.norm, "layernorm"),
-            "mlp_type": (self.mlp_type, "standard"),
-            "block_type": (self.block_type, "sequential"),
-            "activation": (self.activation, "gelu_tanh"),
-            "n_kv_head": (self.kv_heads, self.n_head),
-            "untied_head": (self.untied_head, False),
-            "head_bias": (self.head_bias, False),
-            "use_bias": (self.use_bias, True),
-            "moe_num_experts": (self.moe_num_experts, 0),
-        }
-        for knob, (value, ported) in family.items():
-            if value != ported:
-                raise NotImplementedError(
-                    f"GPTConfig.{knob}={value!r} is not ported yet; only "
-                    f"{ported!r} (GPT-2) is ({OTHER_FAMILIES})")
+        if self.moe_num_experts:
+            raise NotImplementedError(
+                f"GPTConfig.moe_num_experts={self.moe_num_experts!r} is not "
+                f"ported yet ({OTHER_FAMILIES})")
         training = {"ltd_keep": self.ltd_keep, "ltd_layers": self.ltd_layers,
                     "activation_quant_bits": self.activation_quant_bits}
         for knob, value in training.items():
             if value is not None:
                 raise NotImplementedError(
                     f"GPTConfig.{knob}={value!r} is not ported yet ({TRAINING})")
+
+
+# GPT-2's values of the family knobs: the training path takes only these
+GPT2_KNOBS = {"position_encoding": "learned", "norm": "layernorm",
+              "mlp_type": "standard", "block_type": "sequential",
+              "activation": "gelu_tanh", "use_bias": True,
+              "untied_head": False, "head_bias": False}
+
+
+def require_gpt2_family(cfg: GPTConfig, what: str) -> None:
+    """Raise unless ``cfg`` is of the GPT-2 family (training is ported for
+    it alone)."""
+    knobs = {k: getattr(cfg, k) for k, v in GPT2_KNOBS.items()
+             if getattr(cfg, k) != v}
+    if cfg.kv_heads != cfg.n_head:
+        knobs["n_kv_head"] = cfg.n_kv_head
+    if knobs:
+        raise NotImplementedError(
+            f"{what} trains the GPT-2 family only; {knobs} is served "
+            f"(init_serving, generate()) but not trained yet ({FAMILIES_TRAINING})")
 
 
 # Model zoo (GPT-2 sizes; the 1.5B "xl" is the north-star model).
@@ -166,51 +207,109 @@ def gpt_config(preset: str = "gpt2", **overrides) -> GPTConfig:
     return GPTConfig(**kw)
 
 
+def llama_config(vocab_size=32000, n_positions=2048, n_embd=512, n_layer=4,
+                 n_head=8, intermediate_size=None, **overrides) -> GPTConfig:
+    """LLaMA-style family: rope + RMSNorm + SwiGLU, bias-free, untied head
+    (JAX's defaults)."""
+    kw = dict(vocab_size=vocab_size, n_positions=n_positions, n_embd=n_embd,
+              n_layer=n_layer, n_head=n_head,
+              position_encoding="rope", norm="rmsnorm", mlp_type="swiglu",
+              use_bias=False, untied_head=True,
+              intermediate_size=intermediate_size or int(n_embd * 8 / 3),
+              activation="gelu")
+    kw.update(overrides)
+    return GPTConfig(**kw)
+
+
+def bloom_config(vocab_size=250880, n_positions=2048, n_embd=512, n_layer=4,
+                 n_head=8, **overrides) -> GPTConfig:
+    """BLOOM family: ALiBi positions, gelu MLP, tied embeddings (JAX's
+    defaults)."""
+    kw = dict(vocab_size=vocab_size, n_positions=n_positions, n_embd=n_embd,
+              n_layer=n_layer, n_head=n_head,
+              position_encoding="alibi", activation="gelu_tanh")
+    kw.update(overrides)
+    return GPTConfig(**kw)
+
+
 # --------------------------------------------------------------------------- #
 # Parameter construction
 # --------------------------------------------------------------------------- #
 BLOCK_KEYS = ("ln1_g", "ln1_b", "qkv_w", "qkv_b", "out_w", "out_b",
               "ln2_g", "ln2_b", "fc_w", "fc_b", "proj_w", "proj_b")
-TOP_KEYS = ("wte", "wpe", "lnf_g", "lnf_b")
 
 
-def _normal(shape, scale: float, gen: torch.Generator) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, device=gen.device,
-                       dtype=torch.float32) * scale
+def top_keys(cfg: GPTConfig) -> Tuple[str, ...]:
+    """The tree's leaves outside ``blocks``: ``wpe`` only with learned
+    positions, ``lm_head`` (and ``lm_head_b``) only with an untied head."""
+    keys = ["wte"] + (["wpe"] if cfg.position_encoding == "learned" else [])
+    keys += ["lnf_g", "lnf_b"]
+    if cfg.untied_head:
+        keys += ["lm_head"] + (["lm_head_b"] if cfg.head_bias else [])
+    return tuple(keys)
 
 
-def _init_block(cfg: GPTConfig, gen: torch.Generator) -> Dict[str, torch.Tensor]:
+def fc_width(cfg: GPTConfig) -> int:
+    """Width of the MLP's first product: SwiGLU fuses gate | up."""
+    return 2 * cfg.ffn_dim if cfg.mlp_type == "swiglu" else cfg.ffn_dim
+
+
+def leaf_shapes(cfg: GPTConfig) -> Tuple[Dict[str, tuple], Dict[str, tuple]]:
+    """(top-level leaf shapes, one block's leaf shapes) of ``cfg``'s tree.
+    Bias leaves exist (as zeros) when ``use_bias`` is off, as in JAX."""
+    E, I, V, F_ = cfg.n_embd, cfg.ffn_dim, cfg.padded_vocab, fc_width(cfg)
+    top = {"wte": (V, E), "wpe": (cfg.n_positions, E), "lnf_g": (E,),
+           "lnf_b": (E,), "lm_head": (V, E), "lm_head_b": (V,)}
+    block = {"ln1_g": (E,), "ln1_b": (E,), "qkv_w": (E, cfg.qkv_dim),
+             "qkv_b": (cfg.qkv_dim,), "out_w": (E, E), "out_b": (E,),
+             "ln2_g": (E,), "ln2_b": (E,), "fc_w": (E, F_), "fc_b": (F_,),
+             "proj_w": (I, E), "proj_b": (E,)}
+    return {k: top[k] for k in top_keys(cfg)}, block
+
+
+def _normal(shape, scale: float, gen: torch.Generator,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return (torch.randn(shape, generator=gen, device=gen.device,
+                        dtype=torch.float32) * scale).to(dtype)
+
+
+def _init_block(cfg: GPTConfig, gen: torch.Generator,
+                dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
     """One block's params (GPT-2 init: residual projections scaled by
-    1/sqrt(2L)), fp32, on ``gen.device``."""
-    E, I, dev = cfg.n_embd, cfg.ffn_dim, gen.device
+    1/sqrt(2L)), on ``gen.device``: drawn in fp32, stored in ``dtype``."""
+    dev = gen.device
+    _, shapes = leaf_shapes(cfg)
     proj_scale = 0.02 / math.sqrt(2 * cfg.n_layer)
-
-    def ones(n):
-        return torch.ones(n, device=dev)
-
-    def zeros(n):
-        return torch.zeros(n, device=dev)
-    return {
-        "ln1_g": ones(E), "ln1_b": zeros(E),
-        "qkv_w": _normal((E, cfg.qkv_dim), 0.02, gen), "qkv_b": zeros(cfg.qkv_dim),
-        "out_w": _normal((E, E), proj_scale, gen), "out_b": zeros(E),
-        "ln2_g": ones(E), "ln2_b": zeros(E),
-        "fc_w": _normal((E, I), 0.02, gen), "fc_b": zeros(I),
-        "proj_w": _normal((I, E), proj_scale, gen), "proj_b": zeros(E),
-    }
+    scale = {"qkv_w": 0.02, "out_w": proj_scale, "fc_w": 0.02, "proj_w": proj_scale}
+    out = {}
+    for k in BLOCK_KEYS:
+        if k in scale:
+            out[k] = _normal(shapes[k], scale[k], gen, dtype)
+        else:                           # norm gains ones, biases zeros
+            fill = torch.ones if k.endswith("_g") else torch.zeros
+            out[k] = fill(shapes[k], device=dev, dtype=dtype)
+    return out
 
 
-def init_gpt_params(cfg: GPTConfig, generator: torch.Generator) -> Dict:
+def init_gpt_params(cfg: GPTConfig, generator: torch.Generator,
+                    dtype: torch.dtype = torch.float32) -> Dict:
     """Parameter tree from ``generator`` (same distributions as the JAX
-    init; not the same numbers), on the generator's device, fp32."""
+    init; not the same numbers), on the generator's device.  Each leaf is
+    drawn in fp32 and cast to ``dtype`` before the next is drawn, so a
+    bf16 tree never has an fp32 copy beside it (the values are the fp32
+    tree's, rounded)."""
     E, dev = cfg.n_embd, generator.device
-    return {
-        "wte": _normal((cfg.padded_vocab, E), 0.02, generator),
-        "wpe": _normal((cfg.n_positions, E), 0.01, generator),
-        "lnf_g": torch.ones(E, device=dev),
-        "lnf_b": torch.zeros(E, device=dev),
-        "blocks": [_init_block(cfg, generator) for _ in range(cfg.n_layer)],
-    }
+    tree = {"wte": _normal((cfg.padded_vocab, E), 0.02, generator, dtype)}
+    if cfg.position_encoding == "learned":
+        tree["wpe"] = _normal((cfg.n_positions, E), 0.01, generator, dtype)
+    tree["lnf_g"] = torch.ones(E, device=dev, dtype=dtype)
+    tree["lnf_b"] = torch.zeros(E, device=dev, dtype=dtype)
+    tree["blocks"] = [_init_block(cfg, generator, dtype) for _ in range(cfg.n_layer)]
+    if cfg.untied_head:
+        tree["lm_head"] = _normal((cfg.padded_vocab, E), 0.02, generator, dtype)
+        if cfg.head_bias:
+            tree["lm_head_b"] = torch.zeros(cfg.padded_vocab, device=dev, dtype=dtype)
+    return tree
 
 
 # --------------------------------------------------------------------------- #
@@ -226,6 +325,53 @@ def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     return (y * g + b).to(x.dtype)
 
 
+def rms_norm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm in fp32, cast back to ``x``'s dtype."""
+    xf = x.float()
+    xf = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    return (xf * g.float()).to(x.dtype)
+
+
+def _norm(cfg: GPTConfig, x: torch.Tensor, g: torch.Tensor,
+          b: torch.Tensor) -> torch.Tensor:
+    if cfg.norm == "rmsnorm":
+        return rms_norm(x, g, eps=cfg.ln_eps)
+    return layer_norm(x, g, b, eps=cfg.ln_eps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0,
+               rope_dim: Optional[int] = None,
+               interleaved: bool = False) -> torch.Tensor:
+    """Rotary position embedding on ``x`` ``[B, S, H, D]``, in fp32, with
+    JAX's arithmetic: ``freqs = (1/theta) ** (i / half)``.  Half-split
+    (LLaMA / NeoX) pairing by default, GPT-J's rotate-every-two with
+    ``interleaved``; ``rope_dim`` rotates only the first features.
+    ``positions`` is ``[S]`` (shared by the batch) or ``[B, S]`` (per row:
+    the serving step, where every slot sits at its own position)."""
+    D = x.shape[-1]
+    rd = rope_dim or D
+    xr = x[..., :rd].float()
+    half = rd // 2
+    freqs = (1.0 / theta) ** (torch.arange(half, dtype=torch.float32,
+                                           device=x.device) / half)
+    angles = positions[..., None].float() * freqs      # [(B,) S, half]
+    cos, sin = angles.cos(), angles.sin()
+    if angles.dim() == 2:            # [S, half] -> broadcast over the batch
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:                            # [B, S, half] -> per-row positions
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    if interleaved:
+        x1, x2 = xr[..., 0::2], xr[..., 1::2]
+        rot = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                          dim=-1).reshape(xr.shape)
+    else:
+        x1, x2 = xr[..., :half], xr[..., half:]
+        rot = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    if rd == D:
+        return rot.to(x.dtype)
+    return torch.cat([rot.to(x.dtype), x[..., rd:]], dim=-1)
+
+
 def _split_qkv(cfg: GPTConfig, qkv: torch.Tensor):
     """[B, S, qkv_dim] -> q [B,S,H,D], k/v [B,S,Hkv,D] (q|k|v order)."""
     B, S = qkv.shape[:2]
@@ -235,36 +381,70 @@ def _split_qkv(cfg: GPTConfig, qkv: torch.Tensor):
             v.reshape(B, S, Hkv, D))
 
 
+def _dense(cfg: GPTConfig, p: Dict, h: torch.Tensor, name: str, dt) -> torch.Tensor:
+    """``h @ <name>_w`` plus ``<name>_b`` unless the family is bias-free."""
+    y = h @ p[name + "_w"].to(dt)
+    return y + p[name + "_b"].to(dt) if cfg.use_bias else y
+
+
 def _mlp(cfg: GPTConfig, p: Dict, h: torch.Tensor, dt) -> torch.Tensor:
-    up = h @ p["fc_w"].to(dt) + p["fc_b"].to(dt)
-    h = F.gelu(up, approximate="tanh")
-    return h @ p["proj_w"].to(dt) + p["proj_b"].to(dt)
+    up = _dense(cfg, p, h, "fc", dt)
+    if cfg.mlp_type == "swiglu":
+        gate, val = up.chunk(2, dim=-1)
+        h = F.silu(gate) * val
+    else:
+        h = _ACTIVATIONS[cfg.activation](up)
+    return _dense(cfg, p, h, "proj", dt)
 
 
-def _attn_in(cfg: GPTConfig, p: Dict, x: torch.Tensor, dt):
-    h = layer_norm(x, p["ln1_g"], p["ln1_b"], eps=cfg.ln_eps)
-    qkv = h @ p["qkv_w"].to(dt) + p["qkv_b"].to(dt)
-    return _split_qkv(cfg, qkv)
-
-
-def _attn_out(cfg: GPTConfig, p: Dict, x: torch.Tensor, o: torch.Tensor, dt):
-    """Attention projection, residual, then the MLP sub-block."""
-    x = x + (o @ p["out_w"].to(dt) + p["out_b"].to(dt))
-    h2 = layer_norm(x, p["ln2_g"], p["ln2_b"], eps=cfg.ln_eps)
-    return x + _mlp(cfg, p, h2, dt)
+def _block(cfg: GPTConfig, p: Dict, x: torch.Tensor, dt, attend: Callable,
+           rope_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One block on ``x`` ``[B, S, E]``.  ``attend(q, k, v)`` gives o
+    ``[B, S, H, D]`` (it also writes k and v to a cache where there is
+    one); with rope, q and k are rotated at ``rope_pos`` first.  Topology:
+    sequential (x + attn, then + mlp), parallel (GPT-NeoX: x + attn(ln1 x)
+    + mlp(ln2 x)) or parallel_single_ln (GPT-J: one norm feeds both)."""
+    B, S, E = x.shape
+    h = _norm(cfg, x, p["ln1_g"], p["ln1_b"])
+    q, k, v = _split_qkv(cfg, _dense(cfg, p, h, "qkv", dt))
+    if cfg.position_encoding == "rope":
+        q, k = (apply_rope(t, rope_pos, cfg.rope_theta, cfg.rope_dim,
+                           cfg.rope_interleaved) for t in (q, k))
+    o = _dense(cfg, p, attend(q, k, v).reshape(B, S, E), "out", dt)
+    if cfg.block_type == "sequential":
+        x = x + o
+        return x + _mlp(cfg, p, _norm(cfg, x, p["ln2_g"], p["ln2_b"]), dt)
+    if cfg.block_type == "parallel":
+        return x + o + _mlp(cfg, p, _norm(cfg, x, p["ln2_g"], p["ln2_b"]), dt)
+    return x + o + _mlp(cfg, p, h, dt)
 
 
 def _embed(cfg: GPTConfig, params: Dict, input_ids: torch.Tensor,
            pos: torch.Tensor, dt) -> torch.Tensor:
-    """Token + learned position embedding; ``pos`` broadcasts against
-    ``input_ids``."""
-    pos = pos.clamp(0, cfg.n_positions - 1)
-    return params["wte"].to(dt)[input_ids] + params["wpe"].to(dt)[pos]
+    """Token embedding, plus the learned position embedding where the
+    family has one; ``pos`` broadcasts against ``input_ids``."""
+    x = params["wte"].to(dt)[input_ids]
+    if cfg.position_encoding != "learned":
+        return x
+    return x + params["wpe"].to(dt)[pos.clamp(0, cfg.n_positions - 1)]
 
 
 def _head(cfg: GPTConfig, params: Dict, x: torch.Tensor, dt) -> torch.Tensor:
-    x = layer_norm(x, params["lnf_g"], params["lnf_b"], eps=cfg.ln_eps)
-    return (x @ params["wte"].to(dt).T).float()
+    """Final norm and the head: the tied embedding, or the untied lm_head
+    (plus its bias); fp32 logits."""
+    x = _norm(cfg, x, params["lnf_g"], params["lnf_b"])
+    head = params["lm_head"] if cfg.untied_head else params["wte"]
+    logits = (x @ head.to(dt).T).float()
+    if cfg.head_bias:
+        logits = logits + params["lm_head_b"].float()
+    return logits
+
+
+def _alibi(cfg: GPTConfig, device) -> Optional[torch.Tensor]:
+    """Per-head ALiBi slopes ``[H]`` fp32 for the attention kernels, or None."""
+    if cfg.position_encoding != "alibi":
+        return None
+    return torch.from_numpy(alibi_slopes(cfg.n_head)).to(device)
 
 
 def greedy_tokens(cfg: GPTConfig, logits: torch.Tensor) -> torch.Tensor:
@@ -281,10 +461,8 @@ def greedy_tokens(cfg: GPTConfig, logits: torch.Tensor) -> torch.Tensor:
 def gpt_block(cfg: GPTConfig, p: Dict, x: torch.Tensor,
               attention_fn: Callable) -> torch.Tensor:
     """One sequential pre-LN block on ``x`` ``[B, S, E]``."""
-    B, S, E = x.shape
-    q, k, v = _attn_in(cfg, p, x, x.dtype)
-    o = attention_fn(q, k, v, causal=True).reshape(B, S, E)
-    return _attn_out(cfg, p, x, o, x.dtype)
+    return _block(cfg, p, x, x.dtype,
+                  lambda q, k, v: attention_fn(q, k, v, causal=True))
 
 
 def gpt_forward(cfg: GPTConfig, params: Dict, input_ids: torch.Tensor,
@@ -295,6 +473,7 @@ def gpt_forward(cfg: GPTConfig, params: Dict, input_ids: torch.Tensor,
     final-layernorm hidden ``[B, S, E]`` that the training loss takes.  With
     ``cfg.remat`` each block keeps its input and the flash op's o and lse,
     and re-runs the rest in the backward pass (JAX's checkpoint policy)."""
+    require_gpt2_family(cfg, "gpt_forward")
     if pld_theta is not None:
         raise NotImplementedError(f"progressive layer drop is not ported yet ({TRAINING})")
     if train and cfg.dropout:
@@ -383,11 +562,13 @@ def init_kv_cache(cfg: GPTConfig, batch: int, max_len: int,
             "pos": 0}
 
 
-def _cached_attention(q, ck, cv, pos: int) -> torch.Tensor:
+def _cached_attention(q, ck, cv, pos: int,
+                      alibi: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q ``[B, S_q, H, D]`` attends causally to cache positions <= its own
-    global position (query i sits at ``pos + i``): the contiguous-cache
-    kernel on the card, its plain version on the CPU."""
-    return decode_attention(q.contiguous(), ck, cv, pos)
+    global position (query i sits at ``pos + i``), grouped against the
+    un-expanded ``[B, T, Hkv, D]`` cache, with ALiBi from per-head slopes:
+    the contiguous-cache kernel on the card, its plain version on the CPU."""
+    return decode_attention(q.contiguous(), ck, cv, pos, alibi=alibi)
 
 
 @torch.no_grad()
@@ -397,21 +578,22 @@ def gpt_apply_with_cache(cfg: GPTConfig, params: Dict, input_ids: torch.Tensor,
     (logits ``[B, S_new, padded_vocab]`` fp32, cache advanced by S_new).
     The cache's K/V tensors are written in place."""
     B, S = input_ids.shape
-    E, dt = cfg.n_embd, cfg.dtype
+    dt = cfg.dtype
     pos = int(cache["pos"])
     ck_full, cv_full = cache["k"], cache["v"]
     if pos + S > ck_full.shape[2]:
         raise ValueError(f"cache holds {ck_full.shape[2]} positions; cannot "
                          f"write {S} more at {pos}")
     ids = input_ids.long()
-    x = _embed(cfg, params, ids,
-               pos + torch.arange(S, device=ids.device)[None], dt)
+    rope_pos = pos + torch.arange(S, device=ids.device)
+    x = _embed(cfg, params, ids, rope_pos[None], dt)
+    slopes = _alibi(cfg, ids.device)
     for li, p in enumerate(params["blocks"]):
-        q, k, v = _attn_in(cfg, p, x, dt)
-        ck_full[li, :, pos:pos + S] = k.to(ck_full.dtype)
-        cv_full[li, :, pos:pos + S] = v.to(cv_full.dtype)
-        o = _cached_attention(q, ck_full[li], cv_full[li], pos).reshape(B, S, E)
-        x = _attn_out(cfg, p, x, o, dt)
+        def attend(q, k, v, li=li):
+            ck_full[li, :, pos:pos + S] = k.to(ck_full.dtype)
+            cv_full[li, :, pos:pos + S] = v.to(cv_full.dtype)
+            return _cached_attention(q, ck_full[li], cv_full[li], pos, alibi=slopes)
+        x = _block(cfg, p, x, dt, attend, rope_pos)
     return _head(cfg, params, x, dt), dict(cache, pos=pos + S)
 
 
@@ -464,28 +646,48 @@ def gpt_paged_step(cfg: GPTConfig, params: Dict, input_ids: torch.Tensor,
     trash block), written in place; ``block_tables`` [B, MB] int32;
     ``write_blocks``/``write_offsets`` [B, S] — physical (block, offset) of
     each new token's K/V (padding and idle slots point at the trash block).
-    Returns (logits [B, S, padded_vocab] fp32, k_pages, v_pages).
+    Rope rotates each row at its own positions; ALiBi reaches the kernel as
+    per-head slopes, never as a ``[B, H, S, T]`` bias.  Returns (logits
+    [B, S, padded_vocab] fp32, k_pages, v_pages).
     """
     B, S = input_ids.shape
-    E, dt = cfg.n_embd, cfg.dtype
+    dt = cfg.dtype
     pos2d = positions.long()[:, None] + torch.arange(S, device=positions.device)[None]
     x = _embed(cfg, params, input_ids.long(), pos2d, dt)
     wb, wo = write_blocks.long(), write_offsets.long()
+    slopes = _alibi(cfg, input_ids.device)
     for li, p in enumerate(params["blocks"]):
-        q, k, v = _attn_in(cfg, p, x, dt)
-        # rows that must not write carry trash-block coordinates, so the
-        # scatter needs no predication
-        k_pages[li, wb, wo] = k.to(k_pages.dtype)
-        v_pages[li, wb, wo] = v.to(v_pages.dtype)
-        o = paged_attention(q.contiguous(), k_pages[li], v_pages[li],
-                            block_tables, positions).reshape(B, S, E)
-        x = _attn_out(cfg, p, x, o, dt)
+        def attend(q, k, v, li=li):
+            # rows that must not write carry trash-block coordinates, so
+            # the scatter needs no predication
+            k_pages[li, wb, wo] = k.to(k_pages.dtype)
+            v_pages[li, wb, wo] = v.to(v_pages.dtype)
+            return paged_attention(q.contiguous(), k_pages[li], v_pages[li],
+                                   block_tables, positions, alibi=slopes)
+        x = _block(cfg, p, x, dt, attend, pos2d)
     return _head(cfg, params, x, dt), k_pages, v_pages
 
 
 # --------------------------------------------------------------------------- #
 # Module
 # --------------------------------------------------------------------------- #
+def count_params(cfg: GPTConfig) -> int:
+    """Parameter count of ``cfg``'s model as JAX counts it (the head bias
+    left out), without making it."""
+    E, L, I, F_ = cfg.n_embd, cfg.n_layer, cfg.ffn_dim, fc_width(cfg)
+    per_block = (E * cfg.qkv_dim + cfg.qkv_dim      # qkv (GQA-sized)
+                 + E * E + E                        # attn out
+                 + E * F_ + F_                      # mlp up (gate|up)
+                 + I * E + E                        # mlp down
+                 + 4 * E)                           # two norms
+    total = cfg.padded_vocab * E + L * per_block + 2 * E
+    if cfg.position_encoding == "learned":
+        total += cfg.n_positions * E
+    if cfg.untied_head:
+        total += cfg.padded_vocab * E
+    return total
+
+
 class GPTBlock(nn.Module):
     """One block's parameters, under the JAX leaf names."""
 
@@ -500,14 +702,8 @@ def _tree_from_state_dict(cfg: GPTConfig, sd: Dict[str, torch.Tensor],
                           device: torch.device) -> Dict:
     """``{"wte", ..., "blocks.<i>.<leaf>"}`` -> parameter tree on ``device``,
     checked against ``cfg``."""
-    expected = {"wte": (cfg.padded_vocab, cfg.n_embd),
-                "wpe": (cfg.n_positions, cfg.n_embd),
-                "lnf_g": (cfg.n_embd,), "lnf_b": (cfg.n_embd,)}
-    E, I = cfg.n_embd, cfg.ffn_dim
-    block_shapes = {"ln1_g": (E,), "ln1_b": (E,), "qkv_w": (E, cfg.qkv_dim),
-                    "qkv_b": (cfg.qkv_dim,), "out_w": (E, E), "out_b": (E,),
-                    "ln2_g": (E,), "ln2_b": (E,), "fc_w": (E, I), "fc_b": (I,),
-                    "proj_w": (I, E), "proj_b": (E,)}
+    expected, block_shapes = leaf_shapes(cfg)
+    expected = dict(expected)
     for i in range(cfg.n_layer):
         for k, shape in block_shapes.items():
             expected[f"blocks.{i}.{k}"] = shape
@@ -519,31 +715,34 @@ def _tree_from_state_dict(cfg: GPTConfig, sd: Dict[str, torch.Tensor],
     for k, shape in expected.items():
         if tuple(sd[k].shape) != shape:
             raise ValueError(f"{k}: shape {tuple(sd[k].shape)}, config wants {shape}")
-    tree = {k: sd[k].to(device) for k in TOP_KEYS}
+    tree = {k: sd[k].to(device) for k in top_keys(cfg)}
     tree["blocks"] = [{k: sd[f"blocks.{i}.{k}"].to(device) for k in BLOCK_KEYS}
                       for i in range(cfg.n_layer)]
     return tree
 
 
 class GPT(nn.Module):
-    """GPT-2 with the JAX ``GPT`` object's inference methods.  The weights
-    come from ``seed`` (a ``torch.Generator`` on ``device``) or from a
-    ``state_dict`` such as ``models/convert.py:params_from_jax`` returns.
-    ``device`` defaults to the current CUDA device and raises where there
-    is none."""
+    """A model of the GPT family with the JAX ``GPT`` object's methods.  The
+    weights come from ``seed`` (a ``torch.Generator`` on ``device``; each
+    leaf drawn in fp32 and stored in ``param_dtype``, fp32 by default, so a
+    full-size model can be made in bf16 on the card without an fp32 copy)
+    or from a ``state_dict`` such as ``models/convert.py:params_from_jax``
+    returns.  ``device`` defaults to the current CUDA device and raises
+    where there is none."""
 
     def __init__(self, cfg: GPTConfig, device=None, seed: int = 0,
-                 state_dict: Optional[Dict[str, torch.Tensor]] = None):
+                 state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
         dev = resolve_device(device)
         if state_dict is None:
             gen = torch.Generator(device=dev)
             gen.manual_seed(int(seed))
-            tree = init_gpt_params(cfg, gen)
+            tree = init_gpt_params(cfg, gen, dtype=param_dtype)
         else:
             tree = _tree_from_state_dict(cfg, state_dict, dev)
-        for name in TOP_KEYS:
+        for name in top_keys(cfg):
             self.register_parameter(
                 name, nn.Parameter(tree[name], requires_grad=False))
         self.blocks = nn.ModuleList(GPTBlock(p) for p in tree["blocks"])
@@ -554,7 +753,7 @@ class GPT(nn.Module):
 
     def param_tree(self) -> Dict:
         """The parameters as the functions of this module take them."""
-        tree = {name: getattr(self, name) for name in TOP_KEYS}
+        tree = {name: getattr(self, name) for name in top_keys(self.cfg)}
         tree["blocks"] = [dict(b.named_parameters()) for b in self.blocks]
         return tree
 
@@ -576,7 +775,7 @@ class GPT(nn.Module):
         without copying them."""
         if "blocks" not in tree:
             tree = _tree_from_state_dict(self.cfg, tree, tree["wte"].device)
-        for name in TOP_KEYS:
+        for name in top_keys(self.cfg):
             self.register_parameter(
                 name, nn.Parameter(tree[name], requires_grad=requires_grad))
         for block, p in zip(self.blocks, tree["blocks"]):
@@ -604,14 +803,7 @@ class GPT(nn.Module):
                               write_offsets)
 
     def num_params(self) -> int:
-        cfg = self.cfg
-        E, L, I = cfg.n_embd, cfg.n_layer, cfg.ffn_dim
-        per_block = (E * cfg.qkv_dim + cfg.qkv_dim      # qkv
-                     + E * E + E                        # attn out
-                     + E * I + I                        # mlp up
-                     + I * E + E                        # mlp down
-                     + 4 * E)                           # two norms
-        return cfg.padded_vocab * E + L * per_block + 2 * E + cfg.n_positions * E
+        return count_params(self.cfg)
 
     def flops_per_token(self, seq_len: int) -> float:
         """Training FLOPs/token ~ 6N + the attention term (PaLM appendix B)."""

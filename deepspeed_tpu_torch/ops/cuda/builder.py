@@ -123,11 +123,11 @@ def build() -> BuildResult:
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.dst_paged_attention.argtypes = [vp, vp, vp, vp, vp, vp,
+    lib.dst_paged_attention.argtypes = [vp, vp, vp, vp, vp, vp, vp,
                                         ci, ci, ci, ci, ci, ci, ci, cf, ci, vp]
     lib.dst_paged_attention.restype = ci
-    lib.dst_decode_attention.argtypes = [vp, vp, vp, vp,
-                                         ci, ci, ci, ci, ci, ci, cf, ci, vp]
+    lib.dst_decode_attention.argtypes = [vp, vp, vp, vp, vp,
+                                         ci, ci, ci, ci, ci, ci, ci, cf, ci, vp]
     lib.dst_decode_attention.restype = ci
     lib.dst_ce_forward.argtypes = [vp, vp, vp, vp, vp, vp, vp,
                                    ci, ci, ci, ci, ci, ci, vp]

@@ -16,7 +16,9 @@
 // row g + 8 * (i >> 1), column 8 j + 2 t + (i & 1), where g = lane / 4 and
 // t = lane % 4 (the mma.m16n8k16 accumulator layout, which is also the
 // A-operand layout of the next product, so p and ds go to the tensor cores
-// from registers).
+// from registers).  The row tiles' helpers (Tr, kTileElems, product_nt,
+// product_pv, pv_tile, store_rows) also take a wider head (a 16 x 128 tile
+// is c[16][4]) for the decode kernels' prefill path; their default is kD.
 
 #pragma once
 
@@ -33,11 +35,14 @@ constexpr int kThreads = 32 * kWarps;
 constexpr float kNegInf = -1e30f;       // JAX's NEG_INF: where the running max starts
 constexpr unsigned kFull = 0xffffffffu;
 
-template <typename T> struct Tr;
-template <> struct Tr<bf16> { static constexpr int kLd = kD + 8; };    // 144-byte rows
-template <> struct Tr<float> { static constexpr int kLd = kD + 4; };   // 272-byte rows
+// shared-memory row pitch of a [row][D] tile: 16 bytes past a multiple of
+// 128, so the 8 rows of one ldmatrix (or 8 lanes' float4 reads) hit
+// different banks
+template <typename T, int D = kD> struct Tr;
+template <int D> struct Tr<bf16, D> { static constexpr int kLd = D + 8; };    // 144-byte rows at D 64
+template <int D> struct Tr<float, D> { static constexpr int kLd = D + 4; };   // 272-byte rows at D 64
 
-template <typename T> constexpr int kTileElems = kTile * Tr<T>::kLd;
+template <typename T, int D = kD> constexpr int kTileElems = kTile * Tr<T, D>::kLd;
 
 // dst[r][0 : kD) = src[(row0 + r) * ss + 0 : kD) for r < kTile; rows at or
 // past S are zeros.  Asynchronous: commit, wait and a barrier before reading.
@@ -63,14 +68,14 @@ __device__ __forceinline__ void zero(float (&c)[NJ][4]) {
     for (int i = 0; i < 4; ++i) c[j][i] = 0.f;
 }
 
-// fp32: c = a . b^T for the first 8 NJ rows of b (c's columns).
-template <int NJ>
+// fp32: c = a . b^T for the first 8 NJ rows of b (c's columns), D deep.
+template <int NJ, int D = kD>
 __device__ __forceinline__ void product_nt(float (&c)[NJ][4], const float* a, const float* b) {
-  constexpr int L = Tr<float>::kLd;
+  constexpr int L = Tr<float, D>::kLd;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   zero(c);
 #pragma unroll 2
-  for (int d = 0; d < kD; d += 4) {
+  for (int d = 0; d < D; d += 4) {
     const float4 lo = *reinterpret_cast<const float4*>(a + g * L + d);
     const float4 hi = *reinterpret_cast<const float4*>(a + (g + 8) * L + d);
 #pragma unroll
@@ -90,11 +95,12 @@ __device__ __forceinline__ void product_nt(float (&c)[NJ][4], const float* a, co
   }
 }
 
-// fp32: acc += p . b over p's 8 NJ columns (b's first 8 NJ rows).
-template <int NJ>
-__device__ __forceinline__ void product_pv(float (&acc)[8][4], const float (&p)[NJ][4],
+// fp32: acc += p . b over p's 8 NJ columns (b's first 8 NJ rows); acc is
+// 16 x 8 ND (the head's width).
+template <int NJ, int ND>
+__device__ __forceinline__ void product_pv(float (&acc)[ND][4], const float (&p)[NJ][4],
                                            const float* b) {
-  constexpr int L = Tr<float>::kLd;
+  constexpr int L = Tr<float, 8 * ND>::kLd;
   const int lane = threadIdx.x & 31, t = lane & 3, quad = lane & ~3;
 #pragma unroll
   for (int jk = 0; jk < NJ; ++jk)
@@ -106,7 +112,7 @@ __device__ __forceinline__ void product_pv(float (&acc)[8][4], const float (&p)[
         const float p_hi = __shfl_sync(kFull, p[jk][2 + ik], quad + tk);
         const float* br = b + (jk * 8 + 2 * tk + ik) * L + 2 * t;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < ND; ++j) {
           const float2 bv = *reinterpret_cast<const float2*>(br + j * 8);
           acc[j][0] = fmaf(p_lo, bv.x, acc[j][0]);
           acc[j][1] = fmaf(p_lo, bv.y, acc[j][1]);
@@ -127,8 +133,8 @@ template <> __device__ __forceinline__ void store2<bf16>(bf16* dst, float a, flo
 // out[row][h][0 : kD) = c's rows (scaled by inv[0] / inv[1] for rows g and
 // g + 8) for the warp's rows below S; out is contiguous [B, S, heads, kD]
 // with its batch and head offset applied.
-template <typename T>
-__device__ __forceinline__ void store_rows(T* out, long long row_stride, const float (&c)[8][4],
+template <typename T, int ND>
+__device__ __forceinline__ void store_rows(T* out, long long row_stride, const float (&c)[ND][4],
                                            int row0, int S, const float (&inv)[2]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -137,7 +143,7 @@ __device__ __forceinline__ void store_rows(T* out, long long row_stride, const f
     if (r >= S) continue;
     T* dst = out + r * row_stride + 2 * t;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < ND; ++j)
       store2<T>(dst + j * 8, c[j][2 * half] * inv[half], c[j][2 * half + 1] * inv[half]);
   }
 }
@@ -210,11 +216,11 @@ template <> struct RowFragments<float> {
 // acc += p . b: p the warp's 16 x 8 NJ tile in registers (rounded to bf16,
 // as JAX's kernels round p to v's dtype and ds to q's), b [8 NJ][kD] in
 // shared memory (v or k for rows of queries; do or q for dKV's rows of
-// keys), read transposed by ldmatrix.trans.  NJ even.
-template <int NJ>
-__device__ __forceinline__ void pv_tile(float (&acc)[8][4], const float (&p)[NJ][4],
+// keys), read transposed by ldmatrix.trans.  NJ even; acc is 16 x 8 ND.
+template <int NJ, int ND>
+__device__ __forceinline__ void pv_tile(float (&acc)[ND][4], const float (&p)[NJ][4],
                                         const bf16* b) {
-  constexpr int L = Tr<bf16>::kLd;
+  constexpr int L = Tr<bf16, 8 * ND>::kLd;
   const int lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
 #pragma unroll
   for (int kk = 0; kk < NJ / 2; ++kk) {
@@ -223,7 +229,7 @@ __device__ __forceinline__ void pv_tile(float (&acc)[8][4], const float (&p)[NJ]
     const uint32_t a2 = pack_rn(p[2 * kk + 1][0], p[2 * kk + 1][1]);
     const uint32_t a3 = pack_rn(p[2 * kk + 1][2], p[2 * kk + 1][3]);
 #pragma unroll
-    for (int jp = 0; jp < 4; ++jp) {
+    for (int jp = 0; jp < ND / 2; ++jp) {
       uint32_t bfr[4];
       ldsm_x4_trans(bfr, b + (kk * 16 + (mi & 1) * 8 + r8) * L + (2 * jp + (mi >> 1)) * 8);
       mma_bf16(acc[2 * jp], a0, a1, a2, a3, bfr[0], bfr[1]);
@@ -232,8 +238,8 @@ __device__ __forceinline__ void pv_tile(float (&acc)[8][4], const float (&p)[NJ]
   }
 }
 
-template <int NJ>
-__device__ __forceinline__ void pv_tile(float (&acc)[8][4], const float (&p)[NJ][4],
+template <int NJ, int ND>
+__device__ __forceinline__ void pv_tile(float (&acc)[ND][4], const float (&p)[NJ][4],
                                         const float* b) {
   product_pv(acc, p, b);
 }

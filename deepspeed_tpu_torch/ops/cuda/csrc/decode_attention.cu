@@ -4,8 +4,12 @@
 // Replaces ops/pallas/decode_attention.py:_paged_kernel and :_decode_kernel
 // of the JAX package.  Both compute, per (row b, head h, query i at global
 // position len_b + i):
-//     out = softmax(q . K^T / sqrt(D), causal: col <= len_b + i) . V
-// over only the live cache columns, with an online softmax in fp32: masked
+//     out = softmax(q . K^T / sqrt(D) + slope_h (col - len_b - i),
+//                   causal: col <= len_b + i) . V
+// against kv head h / (H / Hkv) of the cache (grouped-query attention; the
+// ALiBi term only where slopes are given, as JAX's reference adds its bias
+// (ops/pallas/decode_attention.py:193), and in log2 units as every score
+// here) over only the live cache columns, with an online softmax in fp32: masked
 // scores are -1e30 and carry weight 0, the running max starts at -1e30, PV
 // takes p rounded to the cache dtype, out = acc / max(l, 1e-30) in q's
 // dtype, and columns past the cache (a contiguous cache's ragged tail, a
@@ -27,14 +31,15 @@
 //   blocks (aligned to absolute positions 0, 16, ...) are dealt to the warps
 //   round robin: block n goes to warp n % 8, so each warp walks every 8th
 //   block and all 8 warps stream one row's keys at once.  A warp copies a
-//   block with 16 bytes a lane (a key row per 8 lanes in bf16, 16 in fp32)
-//   into a ring in its own shared memory by cp.async, 3 blocks deep in bf16
-//   and 2 in fp32; each lane reads back only what it copied, so the ring
-//   needs no barrier.  Each warp keeps its own (m, l, acc) per row; at the
-//   end the 8 partial states are merged in shared memory in warp order
-//   0..7, each rescaled to the row's overall max.  A warp with no live
-//   block leaves m = -1e30, l = 0, acc = 0, which the merge weights by
-//   exp(-1e30 - m) = 0: no NaN.
+//   block with 16 bytes a lane (a key row per D / 8 lanes in bf16, D / 4 in
+//   fp32) into a ring in its own shared memory by cp.async, as deep as 16 KB
+//   a warp holds (at most 3 blocks: bf16 3 at head_dim 64, 2 at 128; fp32
+//   2 and 1), 128 KB a block of 8 warps at most; each lane reads back only
+//   what it copied, so the ring needs no barrier.  Each warp keeps its own
+//   (m, l, acc) per row; at the end the 8 partial states are merged in
+//   shared memory in warp order 0..7, each rescaled to the row's overall
+//   max.  A warp with no live block leaves m = -1e30, l = 0, acc = 0,
+//   which the merge weights by exp(-1e30 - m) = 0: no NaN.
 // * prefill, S_q > 4: tensor cores.  Per (64-query tile, head, row) a
 //   cluster of 4 blocks of 4 warps on neighbouring SMs, each warp 16 query
 //   rows; block g of the cluster walks 64-key tiles g, g + 4, ... (4 arena
@@ -69,8 +74,10 @@
 // whole (generate()) and in chunks (the serving engine) gives the same rows.
 // The two paths differ from each other in summation order.
 //
-// Compiled for the one shape the GPT-2 family serves: arena blocks of 16
-// keys, head_dim 64; the wrappers raise on any other.
+// Compiled for arena blocks of 16 keys and head_dim 64 (GPT-2) and 128 (the
+// LLaMA and BLOOM widths users serve), a template on D; the wrappers raise
+// on any other.  At D 128 a prefill block's shared memory is 87 KB in bf16
+// and 169 KB in fp32 (a query tile and two K and V tiles).
 
 #include <cooperative_groups.h>
 
@@ -101,28 +108,30 @@ template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __flo
 // --------------------------------------------------------------------------
 
 // handle(n) names the sequence's 16-key block n (called only for n < MB);
-// offset(hnd, key) is the element offset of key row `key` (0..15) of it.
-struct PagedAddr {
+// offset(hnd, key) is the element offset of key row `key` (0..15) of it,
+// for kv head hkv.
+template <int D> struct PagedAddr {
   const int* table;   // this row's block table, MB entries
   int hkv_count, hkv;
   __device__ __forceinline__ int handle(int n) const { return table[n]; }
   __device__ __forceinline__ long long offset(int hnd, int key) const {
-    return (((long long)hnd * kBlock + key) * hkv_count + hkv) * kD;
+    return (((long long)hnd * kBlock + key) * hkv_count + hkv) * D;
   }
 };
 
-struct DenseAddr {
+template <int D> struct DenseAddr {
   long long row_base;  // b * T
-  int h_count, h;
+  int hkv_count, hkv;
   __device__ __forceinline__ int handle(int n) const { return n; }
   __device__ __forceinline__ long long offset(int hnd, int key) const {
-    return ((row_base + (long long)hnd * kBlock + key) * h_count + h) * kD;
+    return ((row_base + (long long)hnd * kBlock + key) * hkv_count + hkv) * D;
   }
 };
 
 template <typename T> struct Args {
   const T* q; const T* k; const T* v; T* out;
   const int* tables; const int* lengths;  // paged
+  const float* slopes;                    // ALiBi slopes [H], or null
   int sq, h_count, hkv_count, mb;         // mb: table width (paged)
   int t_len, pos;                         // contiguous
   float scale_log2;                       // log2(e) / sqrt(D)
@@ -133,16 +142,37 @@ template <typename T> __device__ __forceinline__ int a_len(const Args<T>& a, int
   return a.lengths != nullptr ? a.lengths[b] : a.pos;
 }
 
+// Query head h reads kv head h / G, G = H / Hkv query heads a kv head.
+template <typename T> __device__ __forceinline__ int kv_head(const Args<T>& a, int h) {
+  return h / (a.h_count / a.hkv_count);
+}
+
+// Head h's ALiBi slope in log2 units; 0 without ALiBi.
+template <typename T> __device__ __forceinline__ float slope_log2(const Args<T>& a, int h) {
+  return a.slopes != nullptr ? __fmul_rn(a.slopes[h], kLog2e) : 0.f;
+}
+
+// A score in log2 units: q . k scaled, plus the ALiBi term slope * (key -
+// query position), which is <= 0 for every live key (exactly the scaled
+// product when the slope is 0).
+__device__ __forceinline__ float score_log2(float dot, float scale_log2, float slope2, int key,
+                                            int qpos) {
+  return fmaf(slope2, (float)(key - qpos), __fmul_rn(dot, scale_log2));
+}
+
 // --------------------------------------------------------------------------
 // decode path
 // --------------------------------------------------------------------------
 
-template <typename T> struct Lanes {
+// (bf16, fp32) at head_dim 64 | 128
+template <typename T, int D> struct Lanes {
   static constexpr int kElems = 16 / sizeof(T);         // per 16-byte load: 8 bf16, 4 fp32
-  static constexpr int kPerKey = kD / kElems;           // lanes per key row: 8, 16
-  static constexpr int kKeysPerLoad = 32 / kPerKey;     // 4, 2
-  static constexpr int kLoads = kBlock / kKeysPerLoad;  // warp loads per block: 4, 8
-  static constexpr int kStages = sizeof(T) == 2 ? 3 : 2;   // blocks in a warp's ring
+  static constexpr int kPerKey = D / kElems;            // lanes per key row: 8, 16 | 16, 32
+  static constexpr int kKeysPerLoad = 32 / kPerKey;     // 4, 2 | 2, 1
+  static constexpr int kLoads = kBlock / kKeysPerLoad;  // warp loads per block: 4, 8 | 8, 16
+  // blocks in a warp's ring: as many as 16 KB holds, at most 3 (3, 2 | 2, 1)
+  static constexpr int kStages = 16384 / (kLoads * 1024) < 3 ? 16384 / (kLoads * 1024) : 3;
+  static_assert(kStages >= 1, "a warp's ring holds a block");
 };
 
 __device__ __forceinline__ void unpack16(const uint4& w, float (&f)[4]) {
@@ -165,22 +195,22 @@ __device__ __forceinline__ void unpack16(const uint4& w, float (&f)[8]) {
 
 // One 16-key block of K and V as this lane holds it: key
 // i * kKeysPerLoad + lane / kPerKey, elements [c0, c0 + kElems).
-template <typename T> struct KV {
-  uint4 k[Lanes<T>::kLoads], v[Lanes<T>::kLoads];
+template <typename T, int D> struct KV {
+  uint4 k[Lanes<T, D>::kLoads], v[Lanes<T, D>::kLoads];
 };
 
 // A warp's stage holds one block: K then V, each kLoads x 32 lanes x 16
 // bytes, lane-major, so a warp's copy or read of one load is 512 contiguous
 // bytes.  Each lane reads back only what it copied itself, so the ring
 // needs no barrier, only cp.async.wait_group.
-template <typename T> constexpr int kStageBytes = 2 * Lanes<T>::kLoads * 32 * 16;
+template <typename T, int D> constexpr int kStageBytes = 2 * Lanes<T, D>::kLoads * 32 * 16;
 
 // Copy block n (handle hnd) into a stage; keys past last_col are zeros and
 // are not read.  Asynchronous: commit, then wait before read_block.
-template <typename T, typename Addr>
+template <typename T, int D, typename Addr>
 __device__ __forceinline__ void copy_block(unsigned char* stage, const T* k, const T* v,
                                            const Addr& addr, int hnd, int n, int last_col) {
-  using L = Lanes<T>;
+  using L = Lanes<T, D>;
   const int lane = threadIdx.x & 31, j = lane / L::kPerKey;
   const int c0 = (lane % L::kPerKey) * L::kElems;
 #pragma unroll
@@ -193,9 +223,9 @@ __device__ __forceinline__ void copy_block(unsigned char* stage, const T* k, con
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void read_block(KV<T>& kv, const unsigned char* stage) {
-  using L = Lanes<T>;
+template <typename T, int D>
+__device__ __forceinline__ void read_block(KV<T, D>& kv, const unsigned char* stage) {
+  using L = Lanes<T, D>;
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int i = 0; i < L::kLoads; ++i) {
@@ -208,14 +238,14 @@ __device__ __forceinline__ void read_block(KV<T>& kv, const unsigned char* stage
 // block is folded in (l summed over this lane's key group only, until the
 // end), acc is this lane's kElems columns over its key group.
 template <typename T, int kRows> struct RowState {
-  float m[kRows], l[kRows], acc[kRows][Lanes<T>::kElems];
+  float m[kRows], l[kRows], acc[kRows][16 / sizeof(T)];
 };
 
-template <typename T, int kRows>
-__device__ __forceinline__ void attend_block(RowState<T, kRows>& st, const KV<T>& kv,
-                                             const float (&qf)[kRows][Lanes<T>::kElems], int n,
-                                             int len, int n_cols, float scale_log2) {
-  using L = Lanes<T>;
+template <typename T, int D, int kRows>
+__device__ __forceinline__ void attend_block(RowState<T, kRows>& st, const KV<T, D>& kv,
+                                             const float (&qf)[kRows][16 / sizeof(T)], int n,
+                                             int len, int n_cols, float scale_log2, float slope2) {
+  using L = Lanes<T, D>;
   constexpr int E = L::kElems;
   const int j = (threadIdx.x & 31) / L::kPerKey;
 #pragma unroll
@@ -232,7 +262,8 @@ __device__ __forceinline__ void attend_block(RowState<T, kRows>& st, const KV<T>
       for (int e = 0; e < E; ++e) d = fmaf(qf[r][e], kf[e], d);
 #pragma unroll
       for (int off = 1; off < L::kPerKey; off <<= 1) d = __fadd_rn(d, __shfl_xor_sync(kFull, d, off));
-      s[i] = n * kBlock + i * L::kKeysPerLoad + j <= lim ? __fmul_rn(d, scale_log2) : kNegInf;
+      const int key = n * kBlock + i * L::kKeysPerLoad + j;
+      s[i] = key <= lim ? score_log2(d, scale_log2, slope2, key, len + r) : kNegInf;
     }
     float mt = s[0];
 #pragma unroll
@@ -263,17 +294,18 @@ __device__ __forceinline__ void attend_block(RowState<T, kRows>& st, const KV<T>
 }
 
 // One block: the kRows (= S_q) query rows of (b, h).
-template <typename T, int kRows, typename Addr>
+template <typename T, int D, int kRows, typename Addr>
 __device__ __forceinline__ void decode_rows(const Args<T>& a, const Addr& addr, int b, int h,
                                             int n_cols) {
-  using L = Lanes<T>;
+  using L = Lanes<T, D>;
   constexpr int E = L::kElems, S = L::kStages;
   __shared__ float s_m[kDecodeWarps][kRows], s_l[kDecodeWarps][kRows];
-  __shared__ float s_acc[kDecodeWarps][kRows][kD];
+  __shared__ float s_acc[kDecodeWarps][kRows][D];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int c0 = (lane % L::kPerKey) * E;
-  const long long row_stride = (long long)a.h_count * kD;
-  const long long base = (long long)b * kRows * row_stride + (long long)h * kD;
+  const long long row_stride = (long long)a.h_count * D;
+  const long long base = (long long)b * kRows * row_stride + (long long)h * D;
+  const float slope2 = slope_log2(a, h);
 
   float qf[kRows][E];
   RowState<T, kRows> st;
@@ -300,26 +332,27 @@ __device__ __forceinline__ void decode_rows(const Args<T>& a, const Addr& addr, 
   const int count = warp < n_blocks ? (n_blocks - 1 - warp) / kDecodeWarps + 1 : 0;
 
   extern __shared__ __align__(128) unsigned char ring[];   // kStages blocks per warp
-  unsigned char* my = ring + warp * S * kStageBytes<T>;
+  constexpr int kStage = kStageBytes<T, D>;
+  unsigned char* my = ring + warp * S * kStage;
 #pragma unroll
   for (int s = 0; s + 1 < S; ++s) {
     if (s < count)
-      copy_block(my + s * kStageBytes<T>, a.k, a.v, addr, __shfl_sync(kFull, hnd, s),
-                 block_of(s), last_col);
+      copy_block<T, D>(my + s * kStage, a.k, a.v, addr, __shfl_sync(kFull, hnd, s), block_of(s),
+                       last_col);
     commit_copies();
   }
   for (int i = 0; i < count; ++i) {
     const int next = i + S - 1;
     if (next < count) {
       if ((next & 31) == 0) hnd = next + lane < count ? addr.handle(block_of(next + lane)) : 0;
-      copy_block(my + (next % S) * kStageBytes<T>, a.k, a.v, addr,
-                 __shfl_sync(kFull, hnd, next & 31), block_of(next), last_col);
+      copy_block<T, D>(my + (next % S) * kStage, a.k, a.v, addr,
+                       __shfl_sync(kFull, hnd, next & 31), block_of(next), last_col);
     }
     commit_copies();
     wait_copies<S - 1>();                           // block i has landed
-    KV<T> kv;
-    read_block(kv, my + (i % S) * kStageBytes<T>);
-    attend_block<T, kRows>(st, kv, qf, block_of(i), len, n_cols, a.scale_log2);
+    KV<T, D> kv;
+    read_block(kv, my + (i % S) * kStage);
+    attend_block<T, D, kRows>(st, kv, qf, block_of(i), len, n_cols, a.scale_log2, slope2);
   }
 
   // the warp's state: sum l and acc over the lane groups of different keys
@@ -346,8 +379,8 @@ __device__ __forceinline__ void decode_rows(const Args<T>& a, const Addr& addr, 
   __syncthreads();
 
   // merge the warps in order 0..7, each rescaled to the row's max
-  for (int i = threadIdx.x; i < kRows * kD; i += kDecodeThreads) {
-    const int r = i / kD, c = i % kD;
+  for (int i = threadIdx.x; i < kRows * D; i += kDecodeThreads) {
+    const int r = i / D, c = i % D;
     float m = kNegInf;
 #pragma unroll
     for (int w = 0; w < kDecodeWarps; ++w) m = fmaxf(m, s_m[w][r]);
@@ -366,16 +399,17 @@ __device__ __forceinline__ void decode_rows(const Args<T>& a, const Addr& addr, 
 // prefill path
 // --------------------------------------------------------------------------
 
-// c = a . b^T for the warp's 16 rows of a and the 64 rows of b ([row][kD] in
+// c = a . b^T for the warp's 16 rows of a and the 64 rows of b ([row][D] in
 // shared memory).  Lane l addresses row l % 8 of 8x8 matrix l / 8; the four
 // matrices of one ldmatrix are A's (rows 0-7 | 8-15) x (columns 0-7 | 8-15)
 // of a 16-deep slice, or B's two halves of that slice for two 8-key slices.
+template <int D>
 __device__ __forceinline__ void scores_tile(float (&c)[8][4], const bf16* a, const bf16* b) {
-  constexpr int L = Tr<bf16>::kLd;
+  constexpr int L = Tr<bf16, D>::kLd;
   const int lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
   zero(c);
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
+  for (int kk = 0; kk < D / 16; ++kk) {
     uint32_t af[4];
     ldsm_x4(af, a + ((mi & 1) * 8 + r8) * L + kk * 16 + (mi >> 1) * 8);
 #pragma unroll
@@ -388,8 +422,9 @@ __device__ __forceinline__ void scores_tile(float (&c)[8][4], const bf16* a, con
   }
 }
 
+template <int D>
 __device__ __forceinline__ void scores_tile(float (&c)[8][4], const float* a, const float* b) {
-  product_nt(c, a, b);
+  product_nt<8, D>(c, a, b);
 }
 
 // The blocks of one query tile form a cluster of kPrefillCluster blocks on
@@ -400,15 +435,15 @@ __device__ __forceinline__ void scores_tile(float (&c)[8][4], const float* a, co
 constexpr int kPrefillCluster = 4;
 
 // Shared memory of a prefill block: the query tile, two K and two V buffers.
-template <typename T> constexpr size_t kPrefillSmem = 5 * sizeof(T) * kTileElems<T>;
+template <typename T, int D> constexpr size_t kPrefillSmem = 5 * sizeof(T) * kTileElems<T, D>;
 
 // The query tile: rows [row0, row0 + 64) of q (row stride `stride`, a
 // multiple of 16 bytes), rows at or past S_q zero.  16-byte cp.async copies
 // when q is 16-byte aligned (as a fresh tensor is), else element loads.
-template <typename T>
+template <typename T, int D>
 __device__ __forceinline__ void load_query_tile(T* dst, const T* q, long long stride, int row0,
                                                 int sq) {
-  constexpr int L = Tr<T>::kLd, kElems = 16 / sizeof(T), kChunks = kD / kElems;
+  constexpr int L = Tr<T, D>::kLd, kElems = 16 / sizeof(T), kChunks = D / kElems;
   if (aligned_ptr(q)) {
     for (int c = threadIdx.x; c < kTile * kChunks; c += kThreads) {
       const int r = c / kChunks, e = (c % kChunks) * kElems;
@@ -417,8 +452,8 @@ __device__ __forceinline__ void load_query_tile(T* dst, const T* q, long long st
     }
     return;
   }
-  for (int i = threadIdx.x; i < kTile * kD; i += kThreads) {
-    const int r = i / kD, c = i % kD;
+  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
+    const int r = i / D, c = i % D;
     dst[r * L + c] = row0 + r < sq ? q[(row0 + r) * stride + c] : from_f<T>(0.f);
   }
 }
@@ -426,11 +461,11 @@ __device__ __forceinline__ void load_query_tile(T* dst, const T* q, long long st
 // Key tile `tile` of K and V (keys [64 tile, 64 tile + 64)) through the
 // addressing; keys past last_col are zero-filled and neither they nor their
 // table entries are read.  Asynchronous: commit, wait and a barrier first.
-template <typename T, typename Addr>
+template <typename T, int D, typename Addr>
 __device__ __forceinline__ void load_key_tile(T* dk, T* dv, const T* k, const T* v,
                                               const Addr& addr, int tile, int last_col) {
-  constexpr int kElems = 16 / sizeof(T), kChunks = kD / kElems;
-  constexpr int kPer = kTile * kChunks / kThreads, L = Tr<T>::kLd;
+  constexpr int kElems = 16 / sizeof(T), kChunks = D / kElems;
+  constexpr int kPer = kTile * kChunks / kThreads, L = Tr<T, D>::kLd;
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     const int c = threadIdx.x + i * kThreads;
@@ -445,11 +480,15 @@ __device__ __forceinline__ void load_key_tile(T* dk, T* dv, const T* k, const T*
 
 // One block: key tiles rank, rank + G, ... of query rows [64 qt, 64 qt + 64)
 // of (b, h); the longest query tiles first.
-template <typename T, typename Addr>
+template <typename T, int D, typename Addr>
 __device__ __forceinline__ void prefill_rows(const Args<T>& a, const Addr& addr, int b, int h,
                                              int n_cols) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int G = kPrefillCluster, TE = kTileElems<T>, L = Tr<T>::kLd;
+  constexpr int G = kPrefillCluster, TE = kTileElems<T, D>, L = Tr<T, D>::kLd, ND = D / 8;
+  // the merge's state of a thread (acc, then m and l of its two rows) fits
+  // the two K buffers it reuses
+  constexpr int kAcc = 4 * ND;
+  static_assert((kAcc + 4) * kThreads * sizeof(float) <= 2 * TE * sizeof(T), "merge state");
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   T* s_q = reinterpret_cast<T*>(smem);
@@ -462,24 +501,28 @@ __device__ __forceinline__ void prefill_rows(const Args<T>& a, const Addr& addr,
   const int last_col = min(len + min(row0 + kTile, a.sq) - 1, n_cols - 1);
   const int all_live = min(len + row0, n_cols - 1);   // every row attends to columns 0..all_live
   const int n_kv = last_col / kTile + 1;
-  const long long stride = (long long)a.h_count * kD;
-  const long long base = (long long)b * a.sq * stride + (long long)h * kD;
-  // last column each of this thread's two rows (wrow0 + g, + 8) attends to
-  const int lim[2] = {min(len + wrow0 + g, n_cols - 1), min(len + wrow0 + g + 8, n_cols - 1)};
+  const long long stride = (long long)a.h_count * D;
+  const long long base = (long long)b * a.sq * stride + (long long)h * D;
+  // the position of each of this thread's two rows (wrow0 + g, + 8), and
+  // the last column it attends to
+  const int qpos[2] = {len + wrow0 + g, len + wrow0 + g + 8};
+  const int lim[2] = {min(qpos[0], n_cols - 1), min(qpos[1], n_cols - 1)};
+  const float slope2 = slope_log2(a, h);
 
-  load_query_tile(s_q, a.q + base, stride, row0, a.sq);
+  load_query_tile<T, D>(s_q, a.q + base, stride, row0, a.sq);
   commit_copies();
-  if (rank < n_kv) load_key_tile(s_k, s_v, a.k, a.v, addr, rank, last_col);
+  if (rank < n_kv) load_key_tile<T, D>(s_k, s_v, a.k, a.v, addr, rank, last_col);
   commit_copies();
   wait_copies<1>();                    // this thread's part of the query tile
   __syncthreads();                     // everyone's
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[8][4];
+  float acc[ND][4];
   zero(acc);
   for (int j = rank, it = 0; j < n_kv; j += G, ++it) {
     const int buf = it & 1;
     if (j + G < n_kv) {
-      load_key_tile(s_k + (buf ^ 1) * TE, s_v + (buf ^ 1) * TE, a.k, a.v, addr, j + G, last_col);
+      load_key_tile<T, D>(s_k + (buf ^ 1) * TE, s_v + (buf ^ 1) * TE, a.k, a.v, addr, j + G,
+                          last_col);
       commit_copies();
       wait_copies<1>();
     } else {
@@ -487,7 +530,7 @@ __device__ __forceinline__ void prefill_rows(const Args<T>& a, const Addr& addr,
     }
     __syncthreads();
     float s[8][4];
-    scores_tile(s, s_q + warp * 16 * L, s_k + buf * TE);
+    scores_tile<D>(s, s_q + warp * 16 * L, s_k + buf * TE);
     const bool band = j * kTile + kTile - 1 > all_live;   // some column lies past a row
     float mx[2] = {m[0], m[1]};
 #pragma unroll
@@ -495,7 +538,9 @@ __device__ __forceinline__ void prefill_rows(const Args<T>& a, const Addr& addr,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int col = j * kTile + jj * 8 + 2 * t + (i & 1);
-        const float x = band && col > lim[i >> 1] ? kNegInf : __fmul_rn(s[jj][i], a.scale_log2);
+        const float x = band && col > lim[i >> 1]
+                            ? kNegInf
+                            : score_log2(s[jj][i], a.scale_log2, slope2, col, qpos[i >> 1]);
         s[jj][i] = x;
         mx[i >> 1] = fmaxf(mx[i >> 1], x);
       }
@@ -515,8 +560,11 @@ __device__ __forceinline__ void prefill_rows(const Args<T>& a, const Addr& addr,
             band && col > lim[i >> 1] ? 0.f : exp2_approx(__fsub_rn(s[jj][i], mx[i >> 1]));
         s[jj][i] = p;
         sum[i >> 1] = __fadd_rn(sum[i >> 1], p);
-        acc[jj][i] = __fmul_rn(acc[jj][i], alpha[i >> 1]);
       }
+#pragma unroll
+    for (int jj = 0; jj < ND; ++jj)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[jj][i] = __fmul_rn(acc[jj][i], alpha[i >> 1]);
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = fmaf(l[r], alpha[r], sum[r]);   // this thread's columns
     pv_tile(acc, s, s_v + buf * TE);
@@ -533,13 +581,13 @@ __device__ __forceinline__ void prefill_rows(const Args<T>& a, const Addr& addr,
   constexpr int kStride = kThreads;    // element-major: lanes write neighbouring words
   if (rank > 0) {
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj)
+    for (int jj = 0; jj < ND; ++jj)
 #pragma unroll
       for (int i = 0; i < 4; ++i) st[(jj * 4 + i) * kStride + threadIdx.x] = acc[jj][i];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      st[(32 + r) * kStride + threadIdx.x] = m[r];
-      st[(34 + r) * kStride + threadIdx.x] = l[r];
+      st[(kAcc + r) * kStride + threadIdx.x] = m[r];
+      st[(kAcc + 2 + r) * kStride + threadIdx.x] = l[r];
     }
   }
   cluster.sync();
@@ -549,7 +597,7 @@ __device__ __forceinline__ void prefill_rows(const Args<T>& a, const Addr& addr,
     for (int gg = 1; gg < G; ++gg) {
       const float* so = cluster.map_shared_rank(st, gg);
 #pragma unroll
-      for (int r = 0; r < 2; ++r) mt[r] = fmaxf(mt[r], so[(32 + r) * kStride + threadIdx.x]);
+      for (int r = 0; r < 2; ++r) mt[r] = fmaxf(mt[r], so[(kAcc + r) * kStride + threadIdx.x]);
     }
     float f[2];
 #pragma unroll
@@ -558,7 +606,7 @@ __device__ __forceinline__ void prefill_rows(const Args<T>& a, const Addr& addr,
       l[r] = __fmul_rn(f[r], l[r]);
     }
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj)
+    for (int jj = 0; jj < ND; ++jj)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[jj][i] = __fmul_rn(f[i >> 1], acc[jj][i]);
 #pragma unroll
@@ -566,11 +614,11 @@ __device__ __forceinline__ void prefill_rows(const Args<T>& a, const Addr& addr,
       const float* so = cluster.map_shared_rank(st, gg);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        f[r] = exp2_approx(__fsub_rn(so[(32 + r) * kStride + threadIdx.x], mt[r]));
-        l[r] = fmaf(f[r], so[(34 + r) * kStride + threadIdx.x], l[r]);
+        f[r] = exp2_approx(__fsub_rn(so[(kAcc + r) * kStride + threadIdx.x], mt[r]));
+        l[r] = fmaf(f[r], so[(kAcc + 2 + r) * kStride + threadIdx.x], l[r]);
       }
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj)
+      for (int jj = 0; jj < ND; ++jj)
 #pragma unroll
         for (int i = 0; i < 4; ++i)
           acc[jj][i] = fmaf(f[i >> 1], so[(jj * 4 + i) * kStride + threadIdx.x], acc[jj][i]);
@@ -587,40 +635,40 @@ __device__ __forceinline__ void prefill_rows(const Args<T>& a, const Addr& addr,
 // kernels: grid (H, B) for decode, (H, B, query tiles) for prefill
 // --------------------------------------------------------------------------
 
-template <typename T>
-__device__ __forceinline__ PagedAddr paged_addr(const Args<T>& a, int b, int h) {
-  return PagedAddr{a.tables + (long long)b * a.mb, a.hkv_count, h / (a.h_count / a.hkv_count)};
+template <int D, typename T>
+__device__ __forceinline__ PagedAddr<D> paged_addr(const Args<T>& a, int b, int h) {
+  return PagedAddr<D>{a.tables + (long long)b * a.mb, a.hkv_count, kv_head(a, h)};
 }
 
-template <typename T>
-__device__ __forceinline__ DenseAddr dense_addr(const Args<T>& a, int b, int h) {
-  return DenseAddr{(long long)b * a.t_len, a.h_count, h};
+template <int D, typename T>
+__device__ __forceinline__ DenseAddr<D> dense_addr(const Args<T>& a, int b, int h) {
+  return DenseAddr<D>{(long long)b * a.t_len, a.hkv_count, kv_head(a, h)};
 }
 
-template <typename T, int kRows>
+template <typename T, int D, int kRows>
 __global__ void __launch_bounds__(kDecodeThreads) paged_decode_kernel(const Args<T> a) {
   const int h = blockIdx.x, b = blockIdx.y;
-  decode_rows<T, kRows>(a, paged_addr(a, b, h), b, h, a.mb * kBlock);
+  decode_rows<T, D, kRows>(a, paged_addr<D>(a, b, h), b, h, a.mb * kBlock);
 }
 
-template <typename T, int kRows>
+template <typename T, int D, int kRows>
 __global__ void __launch_bounds__(kDecodeThreads) contiguous_decode_kernel(const Args<T> a) {
   const int h = blockIdx.x, b = blockIdx.y;
-  decode_rows<T, kRows>(a, dense_addr(a, b, h), b, h, a.t_len);
+  decode_rows<T, D, kRows>(a, dense_addr<D>(a, b, h), b, h, a.t_len);
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __cluster_dims__(kPrefillCluster, 1, 1) __launch_bounds__(kThreads)
     paged_prefill_kernel(const Args<T> a) {
   const int h = blockIdx.x / kPrefillCluster, b = blockIdx.y;
-  prefill_rows<T>(a, paged_addr(a, b, h), b, h, a.mb * kBlock);
+  prefill_rows<T, D>(a, paged_addr<D>(a, b, h), b, h, a.mb * kBlock);
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __cluster_dims__(kPrefillCluster, 1, 1) __launch_bounds__(kThreads)
     contiguous_prefill_kernel(const Args<T> a) {
   const int h = blockIdx.x / kPrefillCluster, b = blockIdx.y;
-  prefill_rows<T>(a, dense_addr(a, b, h), b, h, a.t_len);
+  prefill_rows<T, D>(a, dense_addr<D>(a, b, h), b, h, a.t_len);
 }
 
 // Above the default 48 KB a kernel's dynamic shared memory must be raised
@@ -641,74 +689,84 @@ cudaError_t launch_kernel(dim3 grid, int threads, size_t smem, cudaStream_t st, 
   return cudaGetLastError();
 }
 
-template <typename T> constexpr size_t kDecodeSmem = (size_t)kDecodeWarps * Lanes<T>::kStages * kStageBytes<T>;
+template <typename T, int D>
+constexpr size_t kDecodeSmem = (size_t)kDecodeWarps * Lanes<T, D>::kStages * kStageBytes<T, D>;
 
 // One launch: the decode path for S_q <= kDecodeMaxRows, else the prefill path.
-template <typename T, bool kPaged>
+template <typename T, int D, bool kPaged>
 cudaError_t launch_attention(const Args<T>& a, int b, int h, cudaStream_t st) {
   static_assert(kDecodeMaxRows == 4, "one case per decode row count");
   const dim3 grid(h, b);
-  constexpr size_t ds = kDecodeSmem<T>;
+  constexpr size_t ds = kDecodeSmem<T, D>, ps = kPrefillSmem<T, D>;
+  constexpr int dt = kDecodeThreads;
   const dim3 prefill_grid(h * kPrefillCluster, b, cdiv(a.sq, kTile));
   switch (kPaged ? -a.sq : a.sq) {                  // one case per path, kernel and row count
-    case 1: return launch_kernel<contiguous_decode_kernel<T, 1>>(grid, kDecodeThreads, ds, st, a);
-    case 2: return launch_kernel<contiguous_decode_kernel<T, 2>>(grid, kDecodeThreads, ds, st, a);
-    case 3: return launch_kernel<contiguous_decode_kernel<T, 3>>(grid, kDecodeThreads, ds, st, a);
-    case 4: return launch_kernel<contiguous_decode_kernel<T, 4>>(grid, kDecodeThreads, ds, st, a);
-    case -1: return launch_kernel<paged_decode_kernel<T, 1>>(grid, kDecodeThreads, ds, st, a);
-    case -2: return launch_kernel<paged_decode_kernel<T, 2>>(grid, kDecodeThreads, ds, st, a);
-    case -3: return launch_kernel<paged_decode_kernel<T, 3>>(grid, kDecodeThreads, ds, st, a);
-    case -4: return launch_kernel<paged_decode_kernel<T, 4>>(grid, kDecodeThreads, ds, st, a);
+    case 1: return launch_kernel<contiguous_decode_kernel<T, D, 1>>(grid, dt, ds, st, a);
+    case 2: return launch_kernel<contiguous_decode_kernel<T, D, 2>>(grid, dt, ds, st, a);
+    case 3: return launch_kernel<contiguous_decode_kernel<T, D, 3>>(grid, dt, ds, st, a);
+    case 4: return launch_kernel<contiguous_decode_kernel<T, D, 4>>(grid, dt, ds, st, a);
+    case -1: return launch_kernel<paged_decode_kernel<T, D, 1>>(grid, dt, ds, st, a);
+    case -2: return launch_kernel<paged_decode_kernel<T, D, 2>>(grid, dt, ds, st, a);
+    case -3: return launch_kernel<paged_decode_kernel<T, D, 3>>(grid, dt, ds, st, a);
+    case -4: return launch_kernel<paged_decode_kernel<T, D, 4>>(grid, dt, ds, st, a);
     default:
       if (kPaged)
-        return launch_kernel<paged_prefill_kernel<T>>(prefill_grid, kThreads, kPrefillSmem<T>,
-                                                      st, a);
-      return launch_kernel<contiguous_prefill_kernel<T>>(prefill_grid, kThreads,
-                                                         kPrefillSmem<T>, st, a);
+        return launch_kernel<paged_prefill_kernel<T, D>>(prefill_grid, kThreads, ps, st, a);
+      return launch_kernel<contiguous_prefill_kernel<T, D>>(prefill_grid, kThreads, ps, st, a);
   }
 }
 
+template <typename T, bool kPaged>
+int dispatch_dim(const Args<T>& a, int d, int b, int h, cudaStream_t st) {
+  if (d == 64) return (int)launch_attention<T, 64, kPaged>(a, b, h, st);
+  return (int)launch_attention<T, 128, kPaged>(a, b, h, st);
+}
+
 template <bool kPaged>
-int dispatch(int dtype, const void* q, const void* k, const void* v, void* out,
-             const int* tables, const int* lengths, int b, int sq, int h, int hkv, int mb,
-             int t_len, int pos, float scale, void* stream) {
+int dispatch(int dtype, const void* q, const void* k, const void* v, const float* slopes,
+             void* out, const int* tables, const int* lengths, int b, int sq, int h, int hkv,
+             int d, int mb, int t_len, int pos, float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return (int)launch_attention<float, kPaged>(
+    return dispatch_dim<float, kPaged>(
         Args<float>{(const float*)q, (const float*)k, (const float*)v, (float*)out, tables,
-                    lengths, sq, h, hkv, mb, t_len, pos, scale * kLog2e},
-        b, h, st);
-  return (int)launch_attention<bf16, kPaged>(
+                    lengths, slopes, sq, h, hkv, mb, t_len, pos, scale * kLog2e},
+        d, b, h, st);
+  return dispatch_dim<bf16, kPaged>(
       Args<bf16>{(const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, tables, lengths,
-                 sq, h, hkv, mb, t_len, pos, scale * kLog2e},
-      b, h, st);
+                 slopes, sq, h, hkv, mb, t_len, pos, scale * kLog2e},
+      d, b, h, st);
 }
+
+bool head_dim_ok(int d) { return d == 64 || d == 128; }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16; slopes: ALiBi slopes [h] fp32, or null.
+// Returns a cudaError_t (0 = launched).
 int dst_paged_attention(const void* q, const void* k_pages, const void* v_pages,
-                        const int* block_tables, const int* lengths, void* out, int b,
-                        int sq, int h, int hkv, int d, int bs, int mb, float scale,
-                        int dtype, void* stream) {
-  if (b <= 0 || sq <= 0 || h <= 0 || hkv <= 0 || h % hkv != 0 || d != kD || bs != kBlock ||
-      mb <= 0 || b > 65535 || (dtype != 0 && dtype != 1) || !aligned16(k_pages) ||
-      !aligned16(v_pages))
+                        const int* block_tables, const int* lengths, const float* slopes,
+                        void* out, int b, int sq, int h, int hkv, int d, int bs, int mb,
+                        float scale, int dtype, void* stream) {
+  if (b <= 0 || sq <= 0 || h <= 0 || hkv <= 0 || h % hkv != 0 || !head_dim_ok(d) ||
+      bs != kBlock || mb <= 0 || b > 65535 || (dtype != 0 && dtype != 1) ||
+      !aligned16(k_pages) || !aligned16(v_pages))
     return (int)cudaErrorInvalidValue;
-  return dispatch<true>(dtype, q, k_pages, v_pages, out, block_tables, lengths, b, sq, h, hkv,
-                        mb, 0, 0, scale, stream);
+  return dispatch<true>(dtype, q, k_pages, v_pages, slopes, out, block_tables, lengths, b, sq,
+                        h, hkv, d, mb, 0, 0, scale, stream);
 }
 
-int dst_decode_attention(const void* q, const void* ck, const void* cv, void* out, int b,
-                         int sq, int h, int d, int t_len, int pos, float scale, int dtype,
-                         void* stream) {
-  if (b <= 0 || sq <= 0 || h <= 0 || d != kD || t_len <= 0 || pos < 0 || b > 65535 ||
-      (dtype != 0 && dtype != 1) || !aligned16(ck) || !aligned16(cv))
+int dst_decode_attention(const void* q, const void* ck, const void* cv, const float* slopes,
+                         void* out, int b, int sq, int h, int hkv, int d, int t_len, int pos,
+                         float scale, int dtype, void* stream) {
+  if (b <= 0 || sq <= 0 || h <= 0 || hkv <= 0 || h % hkv != 0 || !head_dim_ok(d) ||
+      t_len <= 0 || pos < 0 || b > 65535 || (dtype != 0 && dtype != 1) || !aligned16(ck) ||
+      !aligned16(cv))
     return (int)cudaErrorInvalidValue;
-  return dispatch<false>(dtype, q, ck, cv, out, nullptr, nullptr, b, sq, h, h, 0, t_len, pos,
-                         scale, stream);
+  return dispatch<false>(dtype, q, ck, cv, slopes, out, nullptr, nullptr, b, sq, h, hkv, d, 0,
+                         t_len, pos, scale, stream);
 }
 
 const char* dst_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

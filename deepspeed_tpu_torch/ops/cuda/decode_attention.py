@@ -4,9 +4,13 @@ PyTorch versions (counterpart of ``deepspeed_tpu/ops/pallas/decode_attention.py`
 Layouts are the JAX package's: q ``[B, S_q, H, D]``; the paged arena
 ``[NB, BS, Hkv, D]`` per layer (block 0 is the shared trash block) with
 ``block_tables`` ``[B, MB]`` int32 and ``lengths`` ``[B]`` int32; the
-contiguous cache ``[B, T, H, D]`` with a scalar ``pos``.  Query ``i`` of row
-``b`` sits at global position ``lengths[b] + i`` (or ``pos + i``) and
-attends causally.
+contiguous cache ``[B, T, Hkv, D]`` with a scalar ``pos``.  Query ``i`` of
+row ``b`` sits at global position ``lengths[b] + i`` (or ``pos + i``) and
+attends causally.  Query head ``h`` reads kv head ``h // (H / Hkv)``
+(grouped-query attention against the un-expanded cache).  ``alibi``, per-head
+slopes ``[H]`` fp32, adds ``slope_h * (key position - query position)`` to
+each scaled score (BLOOM); on the card the kernels add it themselves, so no
+``[B, H, S_q, T]`` bias is ever made.
 
 Dispatch, for both entry points:
 
@@ -22,18 +26,20 @@ Kernel notes (details in the ``.cu`` file):
   ``_decode_kernel`` (``:78``).
 * Both are bound by bytes: the live K/V read once, ~4 flops per element;
   the floor is live K/V bytes / 3.35 TB/s on an H100 SXM.
-* Compiled for the GPT-2 family's shape only: head_dim 64, arena blocks of
-  16 keys (the serving arena's default block size).  Any other head_dim or
-  block size raises on CUDA.
+* Compiled for head_dim 64 (GPT-2) and 128 (the LLaMA and BLOOM widths
+  users serve) and arena blocks of 16 keys (the serving arena's default
+  block size).  Any other head_dim or block size raises on CUDA, and so
+  does a dense ``bias`` tensor (``alibi`` slopes are what the kernels take).
 * Each call launches one kernel, of one of two paths picked by ``S_q``
   alone (``DECODE_MAX_ROWS``):
 
   - decode (``S_q <= 4``, every decode step): one block of 8 warps per
     (row, head); the row's live 16-key blocks are dealt to the warps round
     robin (block n to warp n % 8), so all 8 warps stream one row's keys at
-    once, each with 16-byte ``cp.async`` copies into its own 2-3 block
-    ring, which is what a bytes-bound kernel needs; each warp keeps its own
-    online-softmax state and the 8 are merged at the end in a fixed order.
+    once, each with 16-byte ``cp.async`` copies into its own ring of 1-3
+    blocks (16 KB a warp), which is what a bytes-bound kernel needs; each
+    warp keeps its own online-softmax state and the 8 are merged at the
+    end in a fixed order.
   - prefill (``S_q > 4``, prompt chunks): 64-query tiles on tensor cores
     (bf16 ``mma.sync``; fp32 by FMA, no TF32); the tile's 64-key tiles are
     dealt round robin to a cluster of 4 blocks, double buffered in shared
@@ -60,8 +66,9 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+OTHER_HEAD_DIMS = "ROADMAP.md, Queue 2 part A: decode kernels at head_dim 96 and 256"
 KERNEL_TILE = 16         # keys per kernel tile = the paged arena's block_size
-KERNEL_HEAD_DIM = 64     # the one head_dim the kernels are compiled for
+KERNEL_HEAD_DIMS = (64, 128)   # the head_dims the kernels are compiled for
 DECODE_MAX_ROWS = 4      # S_q up to this takes the kernels' decode path
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -70,20 +77,42 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Plain versions (ports of decode_attention_reference :168 and
 # paged_attention_reference :193)
 # --------------------------------------------------------------------------- #
-def decode_attention_reference(q: torch.Tensor, ck: torch.Tensor,
-                               cv: torch.Tensor, pos: int) -> torch.Tensor:
-    """Full-cache decode attention: q ``[B, S_q, H, D]`` against cache
-    ``[B, T, H, D]``, query ``i`` at position ``pos + i``."""
-    decode_attention_reference.calls += 1
+def _grouped_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                       qpos: torch.Tensor, alibi: Optional[torch.Tensor],
+                       bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q ``[B, S_q, H, D]`` against the gathered cache ``[B, T, Hkv, D]``,
+    grouped (no K/V expansion); ``qpos`` ``[B or 1, S_q]`` each query's
+    position.  Scores: ``q . k / sqrt(D)`` in fp32, plus the ALiBi term
+    and ``bias`` ``[B, H, S_q, T]``, masked past each query's position."""
     B, Sq, H, D = q.shape
-    T = ck.shape[1]
-    scale = 1.0 / math.sqrt(D)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), ck.float()) * scale
-    kpos = torch.arange(T, device=q.device)[None, :]
-    qpos = int(pos) + torch.arange(Sq, device=q.device)[:, None]
-    s = torch.where((kpos <= qpos)[None, None], s, NEG_INF)
+    T, Hkv = ck.shape[1], ck.shape[2]
+    G = H // Hkv
+    qg = q.reshape(B, Sq, Hkv, G, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), ck.float()) * (1.0 / math.sqrt(D))
+    kpos = torch.arange(T, device=q.device)
+    if alibi is not None:
+        dist = (kpos[None, None, :] - qpos[:, :, None]).float()   # [B, Sq, T]
+        s = s + (alibi.float().reshape(Hkv, G)[None, :, :, None, None]
+                 * dist[:, None, None])
+    if bias is not None:
+        s = s + bias.float().reshape(bias.shape[0], Hkv, G, *bias.shape[2:])
+    mask = kpos[None, None, :] <= qpos[:, :, None]                # [B, Sq, T]
+    s = torch.where(mask[:, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype), cv)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(q.dtype), cv)
+    return out.reshape(B, Sq, H, D)
+
+
+def decode_attention_reference(q: torch.Tensor, ck: torch.Tensor,
+                               cv: torch.Tensor, pos: int,
+                               alibi: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-cache decode attention: q ``[B, S_q, H, D]`` against cache
+    ``[B, T, Hkv, D]``, query ``i`` at position ``pos + i`` (JAX's
+    ``decode_attention_reference``, and its ``_cached_attention`` for GQA
+    and ALiBi)."""
+    decode_attention_reference.calls += 1
+    qpos = int(pos) + torch.arange(q.shape[1], device=q.device)[None]
+    return _grouped_attention(q, ck, cv, qpos, alibi)
 
 
 decode_attention_reference.calls = 0
@@ -92,33 +121,22 @@ decode_attention_reference.calls = 0
 def paged_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
                               v_pages: torch.Tensor, block_tables: torch.Tensor,
                               lengths: torch.Tensor,
-                              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                              bias: Optional[torch.Tensor] = None,
+                              alibi: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Paged attention through the block tables, GQA-aware (grouped against
     the un-expanded ``Hkv`` pages).  ``bias``: optional additive
-    ``[B, H, S_q, MB*BS]`` logit bias (ALiBi)."""
+    ``[B, H, S_q, MB*BS]`` logit bias; ``alibi``: per-head slopes ``[H]``
+    (the same bias made from positions)."""
     paged_attention_reference.calls += 1
     B, Sq, H, D = q.shape
     NB, BS, Hkv, _ = k_pages.shape
-    MB = block_tables.shape[1]
-    T = MB * BS
-    G = H // Hkv
-    scale = 1.0 / math.sqrt(D)
+    T = block_tables.shape[1] * BS
     tables = block_tables.long()
     # [B, MB, BS, Hkv, D] -> [B, T, Hkv, D]: the sequence's logical positions
     ck = k_pages[tables].reshape(B, T, Hkv, D)
     cv = v_pages[tables].reshape(B, T, Hkv, D)
-    qg = q.reshape(B, Sq, Hkv, G, D)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), ck.float()) * scale
-    if bias is not None:
-        s = s + bias.float().reshape(bias.shape[0], Hkv, G, *bias.shape[2:])
-    kpos = torch.arange(T, device=q.device)[None, None, :]
-    qpos = (lengths.long()[:, None, None]
-            + torch.arange(Sq, device=q.device)[None, :, None])
-    mask = kpos <= qpos                                   # [B, Sq, T]
-    s = torch.where(mask[:, None, None], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(q.dtype), cv)
-    return out.reshape(B, Sq, H, D)
+    qpos = lengths.long()[:, None] + torch.arange(Sq, device=q.device)[None]
+    return _grouped_attention(q, ck, cv, qpos, alibi, bias)
 
 
 paged_attention_reference.calls = 0
@@ -146,12 +164,26 @@ def _check_cuda(name: str, q: torch.Tensor, *tensors: torch.Tensor) -> int:
             raise ValueError(f"{name}: K/V tensors must start on a 16-byte "
                              "boundary (the kernel loads 16 bytes at a time)")
     D = q.shape[-1]
-    if D != KERNEL_HEAD_DIM:
+    if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{name}: the CUDA kernel is compiled for head_dim "
-                         f"{KERNEL_HEAD_DIM}, got {D}")
+                         f"{' or '.join(map(str, KERNEL_HEAD_DIMS))}, got {D} "
+                         f"({OTHER_HEAD_DIMS})")
     if q.shape[0] > 65535:
         raise ValueError(f"{name}: batch {q.shape[0]} > 65535")
     return _DTYPE_CODES[q.dtype]
+
+
+def _check_alibi(name: str, alibi: Optional[torch.Tensor], q: torch.Tensor) -> int:
+    """The slopes' pointer for the kernel (0: no ALiBi)."""
+    if alibi is None:
+        return 0
+    H = q.shape[2]
+    if (alibi.device != q.device or alibi.dtype != torch.float32
+            or tuple(alibi.shape) != (H,) or not alibi.is_contiguous()):
+        raise ValueError(f"{name}: alibi must be contiguous float32 [{H}] slopes "
+                         f"on {q.device}, got {alibi.dtype} {tuple(alibi.shape)} "
+                         f"on {alibi.device}")
+    return alibi.data_ptr()
 
 
 def _check_index(name: str, t: torch.Tensor, shape, device) -> None:
@@ -166,18 +198,20 @@ def _check_index(name: str, t: torch.Tensor, shape, device) -> None:
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, block_tables: torch.Tensor,
                     lengths: torch.Tensor,
-                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    bias: Optional[torch.Tensor] = None,
+                    alibi: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Block-table KV attention for the serving engine (``[B, S_q, H, D]``
-    out, q's dtype).  CPU tensors take the plain version."""
+    out, q's dtype).  CPU tensors take the plain version, with ``bias`` or
+    ``alibi``; on the card ALiBi is ``alibi`` and a dense ``bias`` raises."""
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_pages, v_pages, block_tables,
-                                         lengths, bias=bias)
+                                         lengths, bias=bias, alibi=alibi)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: no kernel for device {q.device}")
     if bias is not None:
         raise NotImplementedError(
-            "paged_attention: an additive bias (ALiBi) has no CUDA kernel "
-            "yet (ROADMAP.md, Queue 1: other GPT families)")
+            "paged_attention: a dense additive bias has no CUDA kernel; pass "
+            "ALiBi as alibi= slopes (ROADMAP.md, Queue 2 part A)")
     name = "paged_attention"
     dtype = _check_cuda(name, q, k_pages, v_pages)
     B, Sq, H, D = q.shape
@@ -196,12 +230,13 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     MB = block_tables.shape[1]
     _check_index(name, block_tables, (B, MB), q.device)
     _check_index(name, lengths, (B,), q.device)
+    slopes = _check_alibi(name, alibi, q)
     from deepspeed_tpu_torch.ops.cuda import builder
     lib = builder.load_library()
     out = torch.empty_like(q)
     rc = lib.dst_paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        block_tables.data_ptr(), lengths.data_ptr(), slopes, out.data_ptr(),
         B, Sq, H, Hkv, D, BS, MB, 1.0 / math.sqrt(D), dtype,
         torch.cuda.current_stream(q.device).cuda_stream)
     builder.check(lib, rc, name)
@@ -213,32 +248,34 @@ paged_attention.launches = 0
 
 
 def decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-                     pos: int) -> torch.Tensor:
+                     pos: int, alibi: Optional[torch.Tensor] = None) -> torch.Tensor:
     """KV-cache attention for generate()'s prefill and decode
-    (``[B, S_q, H, D]`` out, q's dtype).  The kernel splits the keys at
-    the serving arena's block size, ``KERNEL_TILE``, as ``paged_attention``
-    does, so the two agree bit for bit in fp32.  Any ``T`` is taken; the
-    ragged last tile is masked.  CPU tensors take the plain version."""
+    (``[B, S_q, H, D]`` out, q's dtype) against the ``[B, T, Hkv, D]``
+    cache.  The kernel splits the keys at the serving arena's block size,
+    ``KERNEL_TILE``, as ``paged_attention`` does, so the two agree bit for
+    bit in fp32.  Any ``T`` is taken; the ragged last tile is masked.  CPU
+    tensors take the plain version."""
     if q.device.type == "cpu":
-        return decode_attention_reference(q, ck, cv, pos)
+        return decode_attention_reference(q, ck, cv, pos, alibi=alibi)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for device {q.device}")
     name = "decode_attention"
     dtype = _check_cuda(name, q, ck, cv)
     B, Sq, H, D = q.shape
     if ck.dim() != 4 or ck.shape != cv.shape or ck.shape[0] != B \
-            or ck.shape[2] != H or ck.shape[3] != D:
-        raise ValueError(f"{name}: cache must be [B, T, H, D] = "
-                         f"[{B}, T, {H}, {D}], got {tuple(ck.shape)}")
+            or H % ck.shape[2] or ck.shape[3] != D:
+        raise ValueError(f"{name}: cache must be [B, T, Hkv, D] = "
+                         f"[{B}, T, a divisor of {H}, {D}], got {tuple(ck.shape)}")
     pos = int(pos)
     if pos < 0:
         raise ValueError(f"{name}: pos {pos} < 0")
+    slopes = _check_alibi(name, alibi, q)
     from deepspeed_tpu_torch.ops.cuda import builder
     lib = builder.load_library()
     out = torch.empty_like(q)
     rc = lib.dst_decode_attention(
-        q.data_ptr(), ck.data_ptr(), cv.data_ptr(), out.data_ptr(),
-        B, Sq, H, D, ck.shape[1], pos, 1.0 / math.sqrt(D), dtype,
+        q.data_ptr(), ck.data_ptr(), cv.data_ptr(), slopes, out.data_ptr(),
+        B, Sq, H, ck.shape[2], D, ck.shape[1], pos, 1.0 / math.sqrt(D), dtype,
         torch.cuda.current_stream(q.device).cuda_stream)
     builder.check(lib, rc, name)
     decode_attention.launches += 1

@@ -62,6 +62,15 @@ MUTATIONS = {
         DECODE, "decode path: the warps' states are merged without rescaling to the row's max",
         "      const float f = exp2_approx(__fsub_rn(s_m[w][r], m));",
         "      const float f = 1.f;"),
+    "alibi-sign-flipped": (
+        DECODE, "both paths: the ALiBi term is added as slope * (query - key), its sign flipped",
+        "  return fmaf(slope2, (float)(key - qpos), __fmul_rn(dot, scale_log2));",
+        "  return fmaf(slope2, (float)(qpos - key), __fmul_rn(dot, scale_log2));"),
+    "kv-head-off-by-one-group": (
+        DECODE, "both kernels: query head h reads kv head h / G + 1 (mod Hkv), the next "
+        "group's",
+        "  return h / (a.h_count / a.hkv_count);",
+        "  return (h / (a.h_count / a.hkv_count) + 1) % a.hkv_count;"),
     "flash-lse-in-log2-units": (
         FLASH, "flash forward: lse is saved in log2 units, not converted back by ln 2",
         "      if (row < p.S) lse[row] = __fmul_rn(__fadd_rn(m[r], log2f(l[r])), kLn2);",

@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.accelerator.real_accelerator import get_accelerator, resolve_device
+from deepspeed_tpu_torch.models.gpt import GPTConfig, require_gpt2_family
 from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing import checkpoint_policy
 from deepspeed_tpu_torch.runtime.config import UNPORTED_BLOCKS, DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import unit_loss_scaler
@@ -105,6 +106,8 @@ class DeepSpeedEngine:
         ac = self._config.activation_checkpointing_config
         checkpoint_policy(ac.partition_activations, ac.cpu_checkpointing)
         mcfg = getattr(model, "cfg", None)
+        if isinstance(mcfg, GPTConfig):
+            require_gpt2_family(mcfg, "initialize()")
         if ((ac.contiguous_memory_optimization or ac.number_checkpoints)
                 and mcfg is not None and not mcfg.remat):
             model.cfg = dataclasses.replace(mcfg, remat=True)

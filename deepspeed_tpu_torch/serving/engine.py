@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.accelerator.real_accelerator import resolve_device
-from deepspeed_tpu_torch.ops.cuda.decode_attention import (KERNEL_HEAD_DIM,
+from deepspeed_tpu_torch.ops.cuda.decode_attention import (KERNEL_HEAD_DIMS,
                                                            KERNEL_TILE)
 from deepspeed_tpu_torch.serving.config import DeepSpeedServingConfig
 from deepspeed_tpu_torch.serving.kv_cache import (ArenaExhausted,
@@ -95,7 +95,9 @@ class ServeFuture:
 
 class ServingEngine:
     """``submit()/step()/run()`` over a model implementing ``paged_step``
-    (the GPT family, ``models/gpt.py:gpt_paged_step``).
+    (the GPT family, ``models/gpt.py:gpt_paged_step``: GPT-2, LLaMA-style
+    with grouped-query attention, BLOOM with ALiBi).  The arena holds the
+    model's ``kv_heads`` heads.
 
     ``device`` defaults to the current CUDA device and raises where there is
     none.  The model is served in the configured dtype on ``device``: when
@@ -123,11 +125,11 @@ class ServingEngine:
         self.device = resolve_device(device)
         head_dim = model.cfg.n_embd // model.cfg.n_head
         if self.device.type == "cuda" and (
-                cfg.block_size != KERNEL_TILE or head_dim != KERNEL_HEAD_DIM):
+                cfg.block_size != KERNEL_TILE or head_dim not in KERNEL_HEAD_DIMS):
             raise ValueError(
                 f"the CUDA paged-attention kernel is compiled for block_size "
-                f"{KERNEL_TILE} and head_dim {KERNEL_HEAD_DIM}; got block_size "
-                f"{cfg.block_size}, head_dim {head_dim}")
+                f"{KERNEL_TILE} and head_dim {' or '.join(map(str, KERNEL_HEAD_DIMS))}; "
+                f"got block_size {cfg.block_size}, head_dim {head_dim}")
         self.dtype = cfg.torch_dtype
         self.module = self._serving_model(model, params)
         mcfg = self.module.cfg

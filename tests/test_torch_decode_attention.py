@@ -20,6 +20,7 @@ import torch
 import jax.numpy as jnp
 
 from deepspeed_tpu.ops.pallas import decode_attention as jda
+from deepspeed_tpu_torch.ops.attention import alibi_slopes
 from deepspeed_tpu_torch.ops.cuda import decode_attention as tda
 
 ATOL = 1e-5
@@ -132,11 +133,11 @@ DECODE_CASES = {
 }
 
 
-def make_cache(B, Sq, H, D, T, seed=0):
+def make_cache(B, Sq, H, D, T, seed=0, Hkv=None):
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((B, Sq, H, D)).astype(np.float32)
-    ck = rng.standard_normal((B, T, H, D)).astype(np.float32)
-    cv = rng.standard_normal((B, T, H, D)).astype(np.float32)
+    ck = rng.standard_normal((B, T, Hkv or H, D)).astype(np.float32)
+    cv = rng.standard_normal((B, T, Hkv or H, D)).astype(np.float32)
     return q, ck, cv
 
 
@@ -213,9 +214,11 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-# the kernels are compiled for head_dim 64 and blocks of 16 keys; MB = 4
-# keeps the CPU cases' 64-slot table rows (len + S_q > MB*BS still holds)
-KERNEL_SHAPE = dict(D=tda.KERNEL_HEAD_DIM, BS=tda.KERNEL_TILE, MB=4)
+# the cases above run on the card at GPT-2's head_dim 64 and blocks of 16
+# keys; MB = 4 keeps the CPU cases' 64-slot table rows (len + S_q > MB*BS
+# still holds).  The head_dim 128 cases (GQA, ALiBi) follow below.
+KERNEL_HEAD_DIM = 64
+KERNEL_SHAPE = dict(D=KERNEL_HEAD_DIM, BS=tda.KERNEL_TILE, MB=4)
 
 # generate()'s own shapes for GPT-2 XL (25 heads): a 300-token prompt
 # prefilled from position 0 into a 332-slot cache, then a decode step whose
@@ -249,7 +252,7 @@ def test_cuda_paged_kernel_matches_plain(cuda_device, case, dtype, tol):
 def test_cuda_decode_kernel_matches_plain(cuda_device, case, dtype, tol):
     B, Sq, H, _, T, pos = {**DECODE_CASES, **GPT2XL_DECODE_CASES}[case]
     q, ck, cv = (torch.from_numpy(a).to(cuda_device, dtype)
-                 for a in make_cache(B, Sq, H, tda.KERNEL_HEAD_DIM, T, seed=13))
+                 for a in make_cache(B, Sq, H, KERNEL_HEAD_DIM, T, seed=13))
     out = tda.decode_attention(q, ck, cv, pos)
     ref = tda.decode_attention_reference(q, ck, cv, pos)
     torch.cuda.synchronize()
@@ -306,7 +309,7 @@ def test_cuda_paged_kernel_bf16_peaked(cuda_device, case):
                          + sorted(GPT2XL_DECODE_CASES))
 def test_cuda_decode_kernel_bf16_peaked(cuda_device, case):
     B, Sq, H, _, T, pos = {**DECODE_CASES, **GPT2XL_DECODE_CASES}[case]
-    q, ck, cv = make_cache(B, Sq, H, tda.KERNEL_HEAD_DIM, T, seed=23)
+    q, ck, cv = make_cache(B, Sq, H, KERNEL_HEAD_DIM, T, seed=23)
     q, ck, cv = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
                  for a in (q * PEAKED_Q_STD, ck, cv))
     out = tda.decode_attention(q, ck, cv, pos)
@@ -322,7 +325,7 @@ def test_cuda_prefill_rows_do_not_depend_on_chunking(cuda_device):
     padded to 64 as the serving engine sends it) gives bit-identical rows:
     a row's result depends only on its position and the keys."""
     rng = np.random.default_rng(29)
-    H, D, BS, P, C = 4, tda.KERNEL_HEAD_DIM, tda.KERNEL_TILE, 300, 64
+    H, D, BS, P, C = 4, KERNEL_HEAD_DIM, tda.KERNEL_TILE, 300, 64
     T, MB = 332, 21                         # the table holds 336 keys
     q = rng.standard_normal((1, P, H, D)).astype(np.float32)
     k = rng.standard_normal((MB * BS, H, D)).astype(np.float32)
@@ -357,12 +360,12 @@ def test_cuda_decode_rows_do_not_depend_on_s_q(cuda_device):
     S_q = 1 call at its own position, in both kernels."""
     B, H, T, pos, R = 2, 4, 300, 250, tda.DECODE_MAX_ROWS
     q, ck, cv = (torch.from_numpy(a).to(cuda_device)
-                 for a in make_cache(B, R, H, tda.KERNEL_HEAD_DIM, T, seed=31))
+                 for a in make_cache(B, R, H, KERNEL_HEAD_DIM, T, seed=31))
     NB, BS = T // tda.KERNEL_TILE + 2, tda.KERNEL_TILE    # 19 blocks: 304 keys
-    kp = torch.zeros(NB, BS, H, tda.KERNEL_HEAD_DIM, device=cuda_device)
+    kp = torch.zeros(NB, BS, H, KERNEL_HEAD_DIM, device=cuda_device)
     vp = torch.zeros_like(kp)
-    kp[1:, :].view(-1, H, tda.KERNEL_HEAD_DIM)[:T] = ck[0]
-    vp[1:, :].view(-1, H, tda.KERNEL_HEAD_DIM)[:T] = cv[0]
+    kp[1:, :].view(-1, H, KERNEL_HEAD_DIM)[:T] = ck[0]
+    vp[1:, :].view(-1, H, KERNEL_HEAD_DIM)[:T] = cv[0]
     table = torch.arange(1, NB, dtype=torch.int32, device=cuda_device)[None]
     for sq in range(2, R + 1):
         out = tda.decode_attention(q[:, :sq].contiguous(), ck, cv, pos)
@@ -382,7 +385,7 @@ def test_cuda_rejects_what_the_kernel_does_not_take(cuda_device):
     q, kp, vp, tables, lengths = (torch.from_numpy(a).to(cuda_device)
                                   for a in arrays)
     other_bs = [torch.from_numpy(a).to(cuda_device) for a in make_paged(
-        D=tda.KERNEL_HEAD_DIM, BS=8, MB=8)]
+        D=KERNEL_HEAD_DIM, BS=8, MB=8)]
     with pytest.raises(ValueError, match="block_size"):
         tda.paged_attention(*other_bs)
     other_d = [torch.from_numpy(a).to(cuda_device) for a in make_paged(
@@ -392,11 +395,167 @@ def test_cuda_rejects_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="head_dim"):
         tda.decode_attention(*[torch.from_numpy(a).to(cuda_device)
                                for a in make_cache(1, 1, 4, 32, 16)], 3)
+    with pytest.raises(ValueError, match="head_dim"):
+        tda.decode_attention(*[torch.from_numpy(a).to(cuda_device)
+                               for a in make_cache(1, 1, 4, 96, 16)], 3)
     with pytest.raises(NotImplementedError):
         tda.paged_attention(q, kp, vp, tables, lengths, bias=torch.zeros(1))
+    with pytest.raises(ValueError, match="alibi"):
+        tda.paged_attention(q, kp, vp, tables, lengths,
+                            alibi=torch.ones(q.shape[2] + 1, device=cuda_device))
+    with pytest.raises(ValueError, match="alibi"):
+        tda.paged_attention(q, kp, vp, tables, lengths,
+                            alibi=torch.ones(q.shape[2], dtype=torch.float64,
+                                             device=cuda_device))
     with pytest.raises(TypeError):
         tda.paged_attention(q.half(), kp.half(), vp.half(), tables, lengths)
     with pytest.raises(TypeError):
         tda.paged_attention(q, kp, vp, tables.long(), lengths)
     with pytest.raises(ValueError):
         tda.paged_attention(q.transpose(1, 2), kp, vp, tables, lengths)
+
+
+# --------------------------------------------------------------------------- #
+# on the card at head_dim 128: the LLaMA and BLOOM serving shapes
+# --------------------------------------------------------------------------- #
+# name: (H, Hkv, alibi, S_q, lengths of the paged rows, T, pos of the
+# contiguous call).  Llama-3-8B's heads (32 over 8 kv heads: G 4), G 1 and
+# 8, BLOOM's ALiBi (H 32, G 1) and ALiBi with GQA; decode rows of ragged
+# lengths (0, inside a block, past every warp's first block), the decode
+# path's most rows, and prefill chunks whose last key tile crosses the
+# table's end or a ragged T
+WIDE_CASES = {
+    "llama3-g4-decode": (32, 8, False, 1, (0, 17, 300, 1023), 1000, 999),
+    "g1-decode": (8, 8, False, 1, (15, 16, 129, 700), 333, 200),
+    "g8-multirow-decode": (16, 2, False, 4, (0, 250, 1019, 31), 1024, 1020),
+    "bloom-alibi-decode": (32, 32, True, 1, (1, 64, 511, 1022), 1023, 1022),
+    "g4-alibi-decode": (8, 2, True, 2, (3, 140, 900, 0), 700, 650),
+    "g4-prefill-65": (8, 2, False, 65, (0, 40, 959, 7), 300, 0),
+    "bloom-alibi-prefill": (8, 8, True, 70, (0, 100, 954, 33), 400, 120),
+    "g8-alibi-chunk": (16, 2, True, 17, (60, 1007, 5, 333), 70, 53),
+}
+WIDE_D, WIDE_MB = 128, 64          # 1024 keys a table row
+
+
+def wide_paged(case, dtype, device, seed):
+    H, Hkv, alibi, Sq, lengths, _, _ = WIDE_CASES[case]
+    arrays = make_paged(B=len(lengths), Sq=Sq, H=H, Hkv=Hkv, D=WIDE_D, BS=tda.KERNEL_TILE,
+                        MB=WIDE_MB, NB=len(lengths) * WIDE_MB + 1, seed=seed,
+                        lengths=lengths)
+    q, kp, vp = (torch.from_numpy(a).to(device, dtype) for a in arrays[:3])
+    tables, lens = (torch.from_numpy(a).to(device) for a in arrays[3:])
+    return q, kp, vp, tables, lens, slopes_of(case, device)
+
+
+def wide_cache(case, dtype, device, seed, B=2):
+    H, Hkv, _, Sq, _, T, pos = WIDE_CASES[case]
+    q, ck, cv = (torch.from_numpy(a).to(device, dtype)
+                 for a in make_cache(B, Sq, H, WIDE_D, T, seed=seed, Hkv=Hkv))
+    return q, ck, cv, pos, slopes_of(case, device)
+
+
+def slopes_of(case, device):
+    H, _, alibi = WIDE_CASES[case][:3]
+    return torch.from_numpy(alibi_slopes(H)).to(device) if alibi else None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", sorted(WIDE_CASES))
+def test_cuda_head_dim_128_paged_matches_plain(cuda_device, case, dtype, tol):
+    tda.reset_counts()
+    q, kp, vp, tables, lens, slopes = wide_paged(case, dtype, cuda_device, seed=41)
+    out = tda.paged_attention(q, kp, vp, tables, lens, alibi=slopes)
+    assert tda.paged_attention.launches == 1
+    ref = tda.paged_attention_reference(q, kp, vp, tables, lens, alibi=slopes)
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs() / ref.float().abs().clamp(min=1)
+    assert diff.max().item() <= tol
+    if dtype == torch.bfloat16:
+        qq = q * PEAKED_Q_STD
+        out = tda.paged_attention(qq, kp, vp, tables, lens, alibi=slopes)
+        ref = tda.paged_attention_reference(qq.float(), kp.float(), vp.float(), tables,
+                                            lens, alibi=slopes)
+        assert rel_l2(out, ref) <= PEAKED_L2_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", sorted(WIDE_CASES))
+def test_cuda_head_dim_128_contiguous_matches_plain(cuda_device, case, dtype, tol):
+    tda.reset_counts()
+    q, ck, cv, pos, slopes = wide_cache(case, dtype, cuda_device, seed=43)
+    out = tda.decode_attention(q, ck, cv, pos, alibi=slopes)
+    assert tda.decode_attention.launches == 1
+    ref = tda.decode_attention_reference(q, ck, cv, pos, alibi=slopes)
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs() / ref.float().abs().clamp(min=1)
+    assert diff.max().item() <= tol
+    if dtype == torch.bfloat16:
+        qq = q * PEAKED_Q_STD
+        out = tda.decode_attention(qq, ck, cv, pos, alibi=slopes)
+        ref = tda.decode_attention_reference(qq.float(), ck.float(), cv.float(), pos,
+                                             alibi=slopes)
+        assert rel_l2(out, ref) <= PEAKED_L2_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["llama3-g4-decode", "g4-alibi-decode",
+                                  "bloom-alibi-prefill", "g8-alibi-chunk"])
+def test_cuda_head_dim_128_paged_and_contiguous_agree_bitwise(cuda_device, case):
+    """fp32: on the cache gathered through the tables, the two kernels give
+    the same bits with GQA and ALiBi, as at head_dim 64."""
+    q, kp, vp, tables, lens, slopes = wide_paged(case, torch.float32, cuda_device, seed=47)
+    B, Sq, H, D = q.shape
+    pos = 500
+    lens = torch.full_like(lens, pos)
+    T = tables.shape[1] * kp.shape[1]
+    paged = tda.paged_attention(q, kp, vp, tables, lens, alibi=slopes)
+    ck, cv = (p[tables.long()].reshape(B, T, -1, D) for p in (kp, vp))
+    dense = tda.decode_attention(q, ck, cv, pos, alibi=slopes)
+    assert torch.equal(paged, dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alibi", [False, True])
+def test_cuda_head_dim_128_prefill_rows_do_not_depend_on_chunking(cuda_device, alibi):
+    """fp32, Llama-3-8B's heads (and BLOOM's ALiBi): a 300-token prompt
+    prefilled whole and in chunks of 64 (contiguous, and paged with the last
+    chunk padded) gives bit-identical rows, and each decode-path row equals
+    the S_q = 1 call at its own position."""
+    rng = np.random.default_rng(53)
+    H, Hkv, D, BS, P, C = 32, 8, WIDE_D, tda.KERNEL_TILE, 300, 64
+    T, MB = 332, 21
+    dev = cuda_device
+    slopes = torch.from_numpy(alibi_slopes(H)).to(dev) if alibi else None
+    q = torch.from_numpy(rng.standard_normal((1, P, H, D)).astype(np.float32)).to(dev)
+    k = rng.standard_normal((MB * BS, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((MB * BS, Hkv, D)).astype(np.float32)
+    ids = rng.permutation(np.arange(1, MB + 1)).astype(np.int32)
+    kp = np.zeros((MB + 1, BS, Hkv, D), np.float32)
+    vp = np.zeros_like(kp)
+    kp[ids], vp[ids] = k.reshape(MB, BS, Hkv, D), v.reshape(MB, BS, Hkv, D)
+    ck, cv = (torch.from_numpy(a[None, :T]).to(dev) for a in (k, v))
+    kp, vp = torch.from_numpy(kp).to(dev), torch.from_numpy(vp).to(dev)
+    table = torch.from_numpy(ids[None]).to(dev)
+    whole = tda.decode_attention(q, ck, cv, 0, alibi=slopes)
+    contiguous, paged = [], []
+    for s in range(0, P, C):
+        n = min(C, P - s)
+        contiguous.append(tda.decode_attention(q[:, s:s + n].contiguous(), ck, cv, s,
+                                               alibi=slopes))
+        padded = torch.zeros(1, C, H, D, device=dev)
+        padded[:, :n] = q[:, s:s + n]
+        paged.append(tda.paged_attention(
+            padded, kp, vp, table, torch.tensor([s], dtype=torch.int32, device=dev),
+            alibi=slopes)[:, :n])
+    assert torch.equal(torch.cat(contiguous, dim=1), whole)
+    assert torch.equal(torch.cat(paged, dim=1), whole)
+    pos = 250
+    rows = tda.decode_attention(q[:, :tda.DECODE_MAX_ROWS].contiguous(), ck, cv, pos,
+                                alibi=slopes)
+    for i in range(tda.DECODE_MAX_ROWS):
+        one = tda.decode_attention(q[:, i:i + 1].contiguous(), ck, cv, pos + i, alibi=slopes)
+        assert torch.equal(rows[:, i:i + 1], one)

@@ -265,11 +265,25 @@ KERNEL_NAMES = {"paged_attention": r"paged_(decode|prefill)_kernel",
                 "flash_forward": r"flash_fwd_kernel", "flash_backward_dq": r"flash_dq_kernel",
                 "flash_backward_dkv": r"flash_dkv_kernel",
                 "ce_forward": r"ce_fwd_(wgmma_)?kernel",
-                "ce_backward_dx": r"ce_bwd_kernel(<[^,<>]+, false>|I\w+?Lb0E)",
-                "ce_backward_dhead": r"ce_bwd_kernel(<[^,<>]+, true>|I\w+?Lb1E)",
+                "ce_backward_dx": r"ce_(bwd|wide_ds)_kernel(<[^,<>]+, false>|I\w+?Lb0E)"
+                                  r"|ce_wide_dx_kernel",
+                "ce_backward_dhead": r"ce_(bwd|wide_ds)_kernel(<[^,<>]+, true>|I\w+?Lb1E)"
+                                     r"|ce_wide_dhead_kernel",
                 "fused_adam": r"adam_kernel", "block_sparse_forward": r"sparse_fwd_kernel",
                 "block_sparse_backward_dq": r"sparse_dq_(wgmma_)?kernel",
                 "block_sparse_backward_dkv": r"sparse_dkv_kernel"}
+# phases 15-17: the families' training cells.  name -> (layers, warm-up,
+# timed graphed steps, eager steps, profiled by category).  Depth cut:
+# ZeRO and offload are not ported, so the fp32 master, gradient, two
+# moments and the bf16 copy (18 bytes a parameter) sit on one 80 GB card:
+# Llama-3-8B at 8 of 32 layers is 2.80 B parameters, ~50 GB of state;
+# BLOOM-7b1 at 2 of 30 (its 250880 x 4096 tied head alone is 1.03 B)
+FAMILY_TRAIN = {"llama3-8b": (8, 2, 6, 2, True), "bloom-7b1": (2, 2, 3, 1, False)}
+FAMILY_TRAIN_SEQ, FAMILY_TRAIN_MICRO = 2048, 4
+FAMILY_TRAIN_CFG = dict(TRAIN_CFG, train_micro_batch_size_per_gpu=FAMILY_TRAIN_MICRO)
+# the fp32 kernel-vs-plain parity of Llama-3-8B's widths at phase 8's
+# config and limits: layers, seq, micro
+FAMILY_PARITY = (2, TRAIN_SEQ, TRAIN_MICRO)
 # phase 12: graphed against eager steps (fp32), and the save / resume runs
 # (bf16: RESUME_STEPS steps, a save, RESUME_STEPS more)
 GRAPH_PARITY_STEPS, RESUME_STEPS = 3, 3
@@ -296,6 +310,19 @@ CE_HEAD_STD = 0.15
 CE_FWD_TOL = {"float32": 1e-5, "bfloat16": 1e-5}
 CE_GRAD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 CE_SOFTMAX_TOL = {"float32": 1e-5, "bfloat16": 2e-3}
+# the cross-entropy kernels at the families' training shape (phase 6):
+# N 8192 rows (micro 4 x seq 2048), E 4096, over each family's vocab, with
+# and without a head bias; head std so that the logits' std is ~4.2, as
+# CE_HEAD_STD gives at E 768.  fp32 cases are timed over fewer calls (a
+# call takes seconds there)
+CE_FAMILY_VOCABS = {"llama3-8b": 128256, "bloom-7b1": 250880}
+CE_FAMILY_HEAD_STD = CE_HEAD_STD * (768 / 4096) ** 0.5
+# ... and the forward's and softmax part's tolerances scaled by sqrt(4096 /
+# 768): a score sums 4096 products, not 768, and the kernels' fp32
+# rounding of it grows with the root of the length.  ce_family_cases
+# prints, for the Llama cases without a bias, how far the kernel's and the
+# plain version's lse and dx are from an fp64 reference
+CE_FAMILY_WIDTH_SCALE = (4096 / 768) ** 0.5
 # flash attention cases: (B, S, H, Hkv, causal, bias, alibi); the path's
 # shape first.  q is drawn with std 3 (k, v, do std 1), so the scores
 # q.k * scale have std 3 and each row's softmax is peaked: a wrong p . v or
@@ -309,6 +336,11 @@ FLASH_CASES = {
     "ragged": (2, 1000, 12, 12, True, None, False),
     "noncausal": (8, 512, 12, 12, False, None, False),
     "gpt2-s4096": (2, 4096, 12, 12, True, None, False),
+    # the families' training shape (micro 4 x seq 2048) at head_dim 128
+    # (trailing entry; 64 where absent): Llama-3-8B's GQA 32:8, BLOOM-7b1's
+    # 32 heads with ALiBi
+    "llama3-8b-train": (4, 2048, 32, 8, True, None, False, 128),
+    "bloom-7b1-train": (4, 2048, 32, 32, True, None, True, 128),
 }
 FLASH_Q_STD = 3.0
 # flash tolerances, kernel against the plain version (exact products) on
@@ -957,15 +989,17 @@ def report_rows(rows):
         fail("; ".join(bad))
 
 
-def ce_checks(name, dtype_name, out, ref, head, labels, gscale, vocab):
+def ce_checks(name, dtype_name, out, ref, head, labels, gscale, vocab, width_scale=1.0):
     """(label, value, tolerance) of one cross-entropy output against the
-    plain version with fp32 products (CE_* tolerances)."""
+    plain version with fp32 products (CE_* tolerances; the forward's and
+    the softmax part's, which measure the fp32 rounding of the scores,
+    times ``width_scale``)."""
     import torch
     diff = (out.float() - ref.float()).abs()
     if name == "ce_forward":
         return [("err/max(1,|plain|)",
                  (diff / ref.float().abs().clamp(min=1.0)).max().item(),
-                 CE_FWD_TOL[dtype_name])]
+                 CE_FWD_TOL[dtype_name] * width_scale)]
     checks = [("err/max|plain|", diff.max().item() / ref.float().abs().max().item(),
                CE_GRAD_TOL[dtype_name])]
     if name == "ce_backward_dx":
@@ -977,7 +1011,8 @@ def ce_checks(name, dtype_name, out, ref, head, labels, gscale, vocab):
         rows = ~hit & (torch.arange(head.shape[0], device=head.device) < vocab)
         softmax, err = ref.float()[rows], diff[rows]
     checks.append(("softmax-part err_2/|softmax|_2",
-                   (err.norm() / softmax.norm()).item(), CE_SOFTMAX_TOL[dtype_name]))
+                   (err.norm() / softmax.norm()).item(),
+                   CE_SOFTMAX_TOL[dtype_name] * width_scale))
     return checks
 
 
@@ -986,15 +1021,16 @@ def flash_inputs(case: str, dtype, device, seed: int = 2024):
     on the card from a seeded generator."""
     import torch
     from deepspeed_tpu_torch.ops.attention import alibi_slopes
-    B, S, H, Hkv, causal, bias_kind, alibi = FLASH_CASES[case]
+    B, S, H, Hkv, causal, bias_kind, alibi, *head_dim = FLASH_CASES[case]
+    D = head_dim[0] if head_dim else 64
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
 
     def randn(shape, std=1.0):
         return torch.randn(shape, generator=gen, device=device) * std
-    q = randn((B, S, H, 64), FLASH_Q_STD).to(dtype)
-    k, v = (randn((B, S, Hkv, 64)).to(dtype) for _ in range(2))
-    do = randn((B, S, H, 64)).to(dtype)
+    q = randn((B, S, H, D), FLASH_Q_STD).to(dtype)
+    k, v = (randn((B, S, Hkv, D)).to(dtype) for _ in range(2))
+    do = randn((B, S, H, D)).to(dtype)
     bias = randn((1, H, S, S), 0.5) if bias_kind == "per-head" else None
     slopes = torch.from_numpy(alibi_slopes(H)).to(device) if alibi else None
     return (q, k, v, do), bias, slopes, causal
@@ -1029,9 +1065,10 @@ def flash_cases(device, flush, card: str, reps: int = 20, plain_reps: int = 5):
     rows = []
     for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for case in FLASH_CASES:
-            B, S, H, Hkv, causal, _, _ = FLASH_CASES[case]
+            B, S, H, Hkv, causal, *_ = FLASH_CASES[case]
             (q, k, v, do), bias, slopes, causal = flash_inputs(case, dtype, device)
-            scale = 1.0 / 8.0
+            D = q.shape[-1]
+            scale = 1.0 / D ** 0.5
             args = (q, k, v)
             extra = (bias, slopes, causal, scale)
             o, lse = tfa.flash_forward(*args, *extra)
@@ -1092,17 +1129,17 @@ def flash_cases(device, flush, card: str, reps: int = 20, plain_reps: int = 5):
                 ("flash_forward", [("o", o, ro), ("lse", lse, rlse)],
                  lambda: tfa.flash_forward(*args, *extra),
                  lambda: tfa.flash_forward_reference(*args, *extra),
-                 (2 * n_q + 2 * n_kv) * esize + 4 * n_row + bias_bytes, 4.0 * 64 * n_pairs,
+                 (2 * n_q + 2 * n_kv) * esize + 4 * n_row + bias_bytes, 4.0 * D * n_pairs,
                  fwd_lib, "library: scaled_dot_product_attention forward"),
                 ("flash_backward_dq", [("dq", dq, rdq)],
                  lambda: tfa.flash_backward_dq(*bargs),
                  lambda: tfa.flash_backward_dq_reference(*bargs),
-                 (3 * n_q + 2 * n_kv) * esize + 8 * n_row + bias_bytes, 6.0 * 64 * n_pairs,
+                 (3 * n_q + 2 * n_kv) * esize + 8 * n_row + bias_bytes, 6.0 * D * n_pairs,
                  bwd_lib, "library: one SDPA autograd backward giving dq, dk and dv"),
                 ("flash_backward_dkv", [("dk", dk, rdk), ("dv", dv, rdv)],
                  lambda: tfa.flash_backward_dkv(*bargs),
                  lambda: tfa.flash_backward_dkv_reference(*bargs),
-                 (2 * n_q + 4 * n_kv) * esize + 8 * n_row + bias_bytes, 8.0 * 64 * n_pairs,
+                 (2 * n_q + 4 * n_kv) * esize + 8 * n_row + bias_bytes, 8.0 * D * n_pairs,
                  bwd_lib, "library: the same SDPA backward"),
             ]
             for name, outs, kern, plain, nbytes, flops, lib, note in specs:
@@ -1128,6 +1165,13 @@ def flash_cases(device, flush, card: str, reps: int = 20, plain_reps: int = 5):
                   for k in ("flash_forward", "flash_backward_dq", "flash_backward_dkv")}
         say(f"flash causal / non-causal time ({dtype_name}, B 8, S 512): "
             + ", ".join(f"{k} {r:.3f}" for k, r in ratios.items()))
+        for case in ("llama3-8b-train", "bloom-7b1-train"):
+            fwd, dq, dkv = (by[(k, case, dtype_name)] for k in (
+                "flash_forward", "flash_backward_dq", "flash_backward_dkv"))
+            say(f"flash {case} {dtype_name} (head_dim 128): forward {fwd['ms']:.4f} ms (bound "
+                f"{fwd['bound_ms']:.4f}, SDPA {fwd['library_ms']:.4f}); dQ {dq['ms']:.4f} + dKV "
+                f"{dkv['ms']:.4f} ms (bounds {dq['bound_ms']:.4f} + {dkv['bound_ms']:.4f}) vs one "
+                f"SDPA backward {dq['library_ms']:.4f} [{card}]")
     return rows
 
 
@@ -1433,6 +1477,157 @@ def ce_cases(device, flush, reps: int = 20, plain_reps: int = 5):
     return rows
 
 
+def fp64_distance(x, head, labels, lse, gscale, dx, rdx, klse, card: str) -> None:
+    """Print how far the kernel's and the plain version's lse (``klse``,
+    ``lse``: their relative errors) and dx (given the plain lse; in the
+    softmax part's norm) are from the same computed in fp64 on the same
+    inputs."""
+    import torch
+    logits = x.double() @ head.double().T
+    exact_lse = torch.logsumexp(logits, -1)
+    lse_err = [((t.double() - exact_lse).abs() / exact_lse.abs().clamp(min=1.0)).max().item()
+               for t in (klse, lse)]
+    ds = torch.exp(logits - lse.double()[:, None])
+    del logits
+    ds[torch.arange(x.shape[0], device=x.device), labels.long()] -= 1.0
+    exact = (ds * gscale.double()) @ head.double()
+    del ds
+    softmax = exact + gscale.double() * head[labels.long()].double()
+    say("cross-entropy {} at N {}, E {}, V {}, distance from fp64: lse kernel {:.3e}, plain "
+        "{:.3e}; dx's softmax part kernel {:.3e}, plain {:.3e} [{}]".format(
+            str(x.dtype).split(".")[-1], x.shape[0], x.shape[1], head.shape[0], *lse_err,
+            ((dx.double() - exact).norm() / softmax.norm()).item(),
+            ((rdx.double() - exact).norm() / softmax.norm()).item(), card))
+
+
+def ce_family_cases(device, flush, card: str, reps: int = 5, fp32_reps: int = 1):
+    """The three cross-entropy kernels at the families' training shape
+    (N 8192 = micro 4 x seq 2048, E 4096: the backward's wide path) over
+    CE_FAMILY_VOCABS, with and without a head bias, fp32 and bf16, against
+    the plain versions with fp32 products, phase 6's CE_* tolerances (the
+    forward's and the softmax part's times CE_FAMILY_WIDTH_SCALE; the bias
+    gradient held as dhead is); beside each, ``x @ head^T (+ b)`` and
+    ``F.cross_entropy`` and their autograd backward.  Each bf16 wide
+    backward runs twice and must give bitwise-equal dx and dhead (and
+    dbias), and each call must make the launches ``launches_per_call``
+    counts."""
+    import torch
+    import torch.nn.functional as F
+    tce = kernel_modules()[1]
+
+    N, E = FAMILY_TRAIN_MICRO * FAMILY_TRAIN_SEQ, 4096
+    rows = []
+    for cell, V in CE_FAMILY_VOCABS.items():
+        for bias in (False, True):
+            for dtype_name in ("float32", "bfloat16"):
+                dtype = getattr(torch, dtype_name)
+                case = f"{cell}-train" + ("-bias" if bias else "")
+                gen = torch.Generator(device=device)
+                gen.manual_seed(4321)
+                x = torch.randn((N, E), generator=gen, device=device).to(dtype)
+                head = (torch.randn((V, E), generator=gen, device=device)
+                        * CE_FAMILY_HEAD_STD).to(dtype)
+                labels = torch.randint(0, V, (N,), generator=gen, device=device,
+                                       dtype=torch.int32)
+                b = ((torch.randn(V, generator=gen, device=device) * 0.5).to(dtype)
+                     if bias else None)
+                gscale = torch.full((1,), 1.0 / N, device=device)
+                esize = x.element_size()
+                k_reps = reps if dtype == torch.bfloat16 else fp32_reps
+                per_call = tce.launches_per_call(N, E, V, dtype, bias=bias)
+                tce.reset_counts()
+                nll, lse = tce.ce_forward(x, head, labels, V, head_b=b)
+                rnll, rlse = tce.ce_forward_reference(x, head, labels, V, fp32_products=True,
+                                                      head_b=b)
+                # each backward kernel against its plain version on the same lse
+                args = (x, head, labels, rlse, gscale, V)
+                dx = tce.ce_backward_dx(*args, head_b=b)
+                dh = tce.ce_backward_dhead(*args, head_b=b)
+                torch.cuda.synchronize()
+                launches = (tce.ce_forward.launches, tce.ce_backward_dx.launches,
+                            tce.ce_backward_dhead.launches)
+                if launches != (1, per_call, per_call):
+                    fail(f"cross-entropy {case} {dtype_name}: launches {launches}, expected "
+                         f"(1, {per_call}, {per_call})")
+                if dtype == torch.bfloat16:     # the wide backward is deterministic
+                    again = (tce.ce_backward_dx(*args, head_b=b),
+                             tce.ce_backward_dhead(*args, head_b=b))
+                    first = [dx] + (list(dh) if bias else [dh])
+                    second = [again[0]] + (list(again[1]) if bias else [again[1]])
+                    same = all(torch.equal(u, w) for u, w in zip(first, second))
+                    say(f"cross-entropy {case} bf16: a second backward is bitwise equal: {same}")
+                    if not same:
+                        fail(f"cross-entropy {case}: the wide backward is not deterministic")
+                    del again, first, second
+                outs = {"ce_forward": (torch.stack([nll, lse]), torch.stack([rnll, rlse])),
+                        "ce_backward_dx": (dx, tce.ce_backward_dx_reference(
+                            *args, fp32_products=True, head_b=b))}
+                rdh = tce.ce_backward_dhead_reference(*args, fp32_products=True, head_b=b)
+                extra = []
+                if bias:
+                    (dh, db), (rdh, rdb) = dh, rdh
+                    extra = [("dbias err/max|plain|", (db.float() - rdb.float()).abs().max().item()
+                              / rdb.float().abs().max().item(), CE_GRAD_TOL[dtype_name])]
+                outs["ce_backward_dhead"] = (dh, rdh)
+                if not bias and cell == "llama3-8b":
+                    fp64_distance(x, head, labels, rlse, gscale, dx, outs["ce_backward_dx"][1],
+                                  lse, card)
+                del rnll, nll, lse
+                torch.cuda.synchronize()
+                # yardstick: the logits by cuBLAS (plus the bias), F.cross_entropy,
+                # and one autograd backward giving dx and dhead (and dbias)
+                xr, hr = x.detach().requires_grad_(), head.detach().requires_grad_()
+                br = b.detach().requires_grad_() if bias else None
+                lab64 = labels.long()
+
+                def lib_loss():
+                    logits = xr @ hr.T
+                    return F.cross_entropy(logits + br if bias else logits, lab64)
+                fwd_lib = median_ms(lib_loss, k_reps, flush)
+                loss = lib_loss()
+                leaves = (xr, hr) + ((br,) if bias else ())
+                bwd_lib = median_ms(lambda: torch.autograd.grad(loss, leaves, retain_graph=True),
+                                    k_reps, flush)
+                del loss
+                io = N * E * esize + V * E * esize + N * 4 + N * 4 + (V * esize if bias else 0)
+                specs = {
+                    "ce_forward": (lambda: tce.ce_forward(x, head, labels, V, head_b=b),
+                                   lambda: tce.ce_forward_reference(x, head, labels, V,
+                                                                    head_b=b),
+                                   io + N * 4, 2.0 * N * E * V, fwd_lib,
+                                   "library: matmul + F.cross_entropy"),
+                    "ce_backward_dx": (lambda: tce.ce_backward_dx(*args, head_b=b),
+                                       lambda: tce.ce_backward_dx_reference(*args, head_b=b),
+                                       io + N * E * esize, 4.0 * N * E * V, bwd_lib,
+                                       "library: one autograd backward giving dx and dhead"),
+                    "ce_backward_dhead": (lambda: tce.ce_backward_dhead(*args, head_b=b),
+                                          lambda: tce.ce_backward_dhead_reference(*args,
+                                                                                 head_b=b),
+                                          io + V * E * esize, 4.0 * N * E * V, bwd_lib,
+                                          "library: the same autograd backward"),
+                }
+                for name, (kern, plain, nbytes, flops, lib, note) in specs.items():
+                    out, ref = outs[name]
+                    if not torch.isfinite(out.float()).all():
+                        fail(f"{name} {case} {dtype_name}: non-finite kernel output")
+                    err, scaled = compare(out, ref)
+                    checks = ce_checks(name, dtype_name, out, ref, head, labels, gscale, V,
+                                       CE_FAMILY_WIDTH_SCALE)
+                    if name == "ce_backward_dhead":
+                        checks += extra
+                    b_ms, b_by = bound(nbytes, flops, dtype_name)
+                    rows.append(dict(
+                        kernel=name, case=case, dtype=dtype_name, err=err, scaled=scaled,
+                        checks=checks, ms=median_ms(kern, k_reps, flush),
+                        plain_ms=median_ms(plain, 1, flush), bound_ms=b_ms, bound_by=b_by,
+                        library_ms=lib, note=note + f"; {per_call if name != 'ce_forward' else 1}"
+                        f" launches a call"))
+                del xr, hr, br, outs, x, head, b, dx, dh, rdh, args, rlse
+                torch.cuda.empty_cache()
+            report_rows(rows[-6:])
+    return rows
+
+
 def adam_case(device, flush, reps: int = 20, plain_reps: int = 3):
     """The fused AdamW kernel over all 148 GPT-2 leaves at seq 512 (fp32
     params, grads and moments, a mid-training state), bit for bit against
@@ -1582,14 +1777,17 @@ def register_sparse_attention() -> None:
     register_attention("block_sparse", block_sparse)
 
 
-def train_expect(attn_impl: str, seq: int, layers: int, steps: int, plain: bool = False):
-    """Exact launches of ``steps`` GPT-2 steps of one micro-step each (or,
-    with ``plain``, calls of the plain versions): the attention kernels once
-    per layer per step (the sparse forward twice: remat saves nothing of
-    it), the cross-entropy kernels once per step, AdamW once."""
+def train_expect(attn_impl: str, seq: int, layers: int, steps: int, plain: bool = False,
+                 ce_launches: int = 1):
+    """Exact launches of ``steps`` steps of one micro-step each (or, with
+    ``plain``, calls of the plain versions): the attention kernels once per
+    layer per step (the sparse forward twice: remat saves nothing of it),
+    the cross-entropy kernels once per step (the backward's ``ce_launches``
+    each on the wide path: ``launches_per_call``), AdamW once."""
     from deepspeed_tpu_torch.ops.attention import XLA_FUSED_MAX_SEQ
     n = layers * steps
-    want = {"ce_forward": steps, "ce_backward_dx": steps, "ce_backward_dhead": steps,
+    bwd = steps * (1 if plain else ce_launches)
+    want = {"ce_forward": steps, "ce_backward_dx": bwd, "ce_backward_dhead": bwd,
             "fused_adam": steps}
     if attn_impl == "block_sparse":
         want.update(block_sparse_forward=2 * n, block_sparse_backward_dq=n,
@@ -1722,7 +1920,7 @@ def profile_train_step(engine, batch, card: str, attn_impl: str = "auto",
             return "flash attention kernels"
         if "sparse_fwd_kernel" in k or "sparse_dq_" in k or "sparse_dkv_kernel" in k:
             return "block-sparse attention kernels"
-        if "ce_fwd" in k or "ce_bwd" in k:
+        if "ce_fwd" in k or "ce_bwd" in k or "ce_wide" in k:
             return "cross-entropy kernels"
         if "adam_kernel" in k:
             return "fused AdamW"
@@ -1757,7 +1955,7 @@ def profile_train_step(engine, batch, card: str, attn_impl: str = "auto",
         say(f"  {t / device_total:6.1%} {t / 1e3:8.3f} ms  {cat}")
     # the kernels redesigned lately, by name: device ms and launches in the step
     picked = {label: [(t, n) for name, (t, n) in by_name.items() if key in name]
-              for label, key in (("CE forward", "ce_fwd_"),
+              for label, key in (("CE forward", "ce_fwd_"), ("CE wide backward", "ce_wide_"),
                                  ("block-sparse forward", "sparse_fwd_kernel"),
                                  ("block-sparse dQ", "sparse_dq_"),
                                  ("block-sparse dKV", "sparse_dkv_kernel"),
@@ -1775,8 +1973,10 @@ def profile_train_step(engine, batch, card: str, attn_impl: str = "auto",
 def phase_train_bf16(device, card: str, seq: int = TRAIN_SEQ, timed: int = TRAIN_TIMED_STEPS,
                      profiled: bool = True, attn_impl: str = "auto", micro: int = TRAIN_MICRO,
                      config=TRAIN_CFG, preset: str = "gpt2", warmup: int = 2,
-                     eager: int = EAGER_STEPS, loss_steps=None):
-    """GPT-2 (``preset``) at ``seq`` through initialize() -> train_batch,
+                     eager: int = EAGER_STEPS, loss_steps=None, cfg=None):
+    """GPT-2 (``preset``; or the model of ``cfg``, a GPTConfig of another
+    family, made in bf16 since the engine draws its own fp32 masters) at
+    ``seq`` through initialize() -> train_batch,
     bench.py's headline config (``config``): warm-up (the first call warms
     up and captures the graph), ``timed`` graphed steps (replays; one
     capture in all), then ``eager`` steps of the same engine through
@@ -1797,11 +1997,16 @@ def phase_train_bf16(device, card: str, seq: int = TRAIN_SEQ, timed: int = TRAIN
     # until Python's cyclic collector runs: free it before measuring
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = gpt_config(preset, n_positions=seq, remat=True, attn_impl=attn_impl)
-    model = GPT(cfg, device=device, seed=0)
+    if cfg is None:
+        cfg = gpt_config(preset, n_positions=seq, remat=True, attn_impl=attn_impl)
+        model = GPT(cfg, device=device, seed=0)
+    else:
+        model = GPT(cfg, device=device, seed=0, param_dtype=torch.bfloat16)
     engine = train_engine(model, config, device)
     engine.graphs.accelerator = KeptGraphs(engine.graphs.accelerator)
     batch = train_batch_of(cfg.vocab_size, device, seq, micro)
+    ce_launches = kernel_modules()[1].launches_per_call(
+        micro * seq, cfg.n_embd, cfg.padded_vocab, torch.bfloat16, bias=cfg.head_bias)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     state_gib = torch.cuda.memory_allocated() / 2 ** 30
@@ -1809,7 +2014,8 @@ def phase_train_bf16(device, card: str, seq: int = TRAIN_SEQ, timed: int = TRAIN
     torch.cuda.synchronize()
     label = f"bf16 train {preset} seq {seq} {attn_impl}"
     (out, host_ms, step_ms), counts = counted(
-        f"{label} graphed ({timed} steps)", train_expect(attn_impl, seq, cfg.n_layer, timed),
+        f"{label} graphed ({timed} steps)",
+        train_expect(attn_impl, seq, cfg.n_layer, timed, ce_launches=ce_launches),
         lambda: timed_steps(lambda: engine.train_batch(batch=batch), timed))
     losses += out
     mem = {"state_gib": state_gib,
@@ -1817,7 +2023,8 @@ def phase_train_bf16(device, card: str, seq: int = TRAIN_SEQ, timed: int = TRAIN
            "graphed_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30}
     torch.cuda.reset_peak_memory_stats()
     (out, e_host_ms, e_step_ms), e_counts = counted(
-        f"{label} eager ({eager} steps)", train_expect(attn_impl, seq, cfg.n_layer, eager),
+        f"{label} eager ({eager} steps)",
+        train_expect(attn_impl, seq, cfg.n_layer, eager, ce_launches=ce_launches),
         lambda: timed_steps(lambda: eager_step(engine, batch), eager))
     losses += out
     mem["eager_alloc_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1897,8 +2104,10 @@ def bitwise_equal(losses, params, ref_losses, ref_params) -> bool:
 
 
 def phase_train_fp32_parity(device, steps: int = 3, seq: int = TRAIN_SEQ,
-                            micro: int = TRAIN_MICRO, attn_impl: str = "auto", config=TRAIN_CFG):
-    """GPT-2 at ``seq``, full width and depth, in fp32 (TF32 off): ``steps``
+                            micro: int = TRAIN_MICRO, attn_impl: str = "auto", config=TRAIN_CFG,
+                            cfg=None):
+    """GPT-2 at ``seq``, full width and depth (or the model of ``cfg``), in
+    fp32 (TF32 off): ``steps``
     graphed train_batch steps through the training kernels (flash, or the
     sparse ones with "block_sparse"; cross-entropy, AdamW), then ``steps``
     eager steps through their plain versions (patched in where the engine
@@ -1910,10 +2119,16 @@ def phase_train_fp32_parity(device, steps: int = 3, seq: int = TRAIN_SEQ,
     from deepspeed_tpu_torch.runtime import optimizers
     _, tce, tfo, tfa, tbs = kernel_modules()
 
-    cfg = gpt_config("gpt2", n_positions=seq, remat=True, dtype="float32", attn_impl=attn_impl)
+    if cfg is None:
+        cfg = gpt_config("gpt2", n_positions=seq, remat=True, dtype="float32",
+                         attn_impl=attn_impl)
     config = {k: v for k, v in config.items() if k != "bf16"}
+    ce_launches = tce.launches_per_call(micro * seq, cfg.n_embd, cfg.padded_vocab,
+                                        torch.float32, bias=cfg.head_bias)
 
     def run_path(graphed: bool = True):
+        gc.collect()                     # an earlier engine may linger in reference cycles
+        torch.cuda.empty_cache()
         model = GPT(cfg, device=device, seed=0)
         engine = train_engine(model, config, device)
         batch = train_batch_of(cfg.vocab_size, device, seq, micro)
@@ -1922,9 +2137,10 @@ def phase_train_fp32_parity(device, steps: int = 3, seq: int = TRAIN_SEQ,
         engine.close()
         return losses, param_copies(model)
 
-    label = f"fp32 train seq {seq} {attn_impl}"
+    label = f"fp32 train {cfg.n_layer} layers x {cfg.n_embd} seq {seq} {attn_impl}"
     (k_losses, k_params), k_counts = counted(
-        f"{label}, kernels", train_expect(attn_impl, seq, cfg.n_layer, steps), run_path)
+        f"{label}, kernels",
+        train_expect(attn_impl, seq, cfg.n_layer, steps, ce_launches=ce_launches), run_path)
     saved = (tfa.flash_forward, tfa.flash_backward_dq, tfa.flash_backward_dkv, tce.ce_forward,
              tce.ce_backward_dx, tce.ce_backward_dhead, optimizers.fused_adam,
              tbs.block_sparse_forward, tbs.block_sparse_backward_dq,
@@ -2144,6 +2360,28 @@ def phase_resume(device, card: str, steps: int = RESUME_STEPS):
 
 
 # --------------------------------------------------------------------------- #
+def phase_family_train(name: str, device, card: str):
+    """Phases 15 and 17: one family's training cell, its published widths
+    cut in depth to FAMILY_TRAIN's layers, seeded weights, through
+    initialize() -> train_batch with bench.py's config at micro 4 x seq
+    2048 (bf16, AdamW lr 1e-4 wd 0.01, clip 1.0, remat, ZeRO-0): as phase
+    7, the graphed and eager steps timed, profiled and counted."""
+    from deepspeed_tpu_torch.models import gpt as gpt_mod
+    ctor, kw, _ = FAMILY_CELLS[name]
+    layers, warmup, timed, eager, profiled = FAMILY_TRAIN[name]
+    cfg = getattr(gpt_mod, ctor)(**dict(kw, n_layer=layers), remat=True, dtype="bfloat16")
+    say(f"model: {name} training at {layers} of {kw['n_layer']} layers (depth cut: the fp32 "
+        f"master, gradient, moments and bf16 copy of every parameter sit on one card, ZeRO "
+        f"and offload not ported) x {cfg.n_embd}, {cfg.n_head} heads over {cfg.kv_heads} kv "
+        f"heads, head_dim {cfg.head_dim}, {cfg.position_encoding} positions, "
+        f"{'untied' if cfg.untied_head else 'tied'} head over vocab {cfg.padded_vocab}, "
+        f"{gpt_mod.count_params(cfg) / 1e9:.3f}B params; micro {FAMILY_TRAIN_MICRO} x seq "
+        f"{FAMILY_TRAIN_SEQ}")
+    return phase_train_bf16(device, card, seq=FAMILY_TRAIN_SEQ, timed=timed, profiled=profiled,
+                            micro=FAMILY_TRAIN_MICRO, config=FAMILY_TRAIN_CFG, preset=name,
+                            warmup=warmup, eager=eager, cfg=cfg)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2198,8 +2436,10 @@ def main() -> int:
     for kern in ("forward", "dq", "dkv"):
         for dt_name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
             for extras in (False, True):
-                n, smem = tfa.kernel_occupancy(kern, dt, extras)
-                occupancy.append(f"{kern} {dt_name}{' extras' if extras else ''} {n} x {smem} B")
+                for head_dim in (64, 128):
+                    n, smem = tfa.kernel_occupancy(kern, dt, extras, head_dim)
+                    occupancy.append(f"{kern} {dt_name}{' extras' if extras else ''} D{head_dim} "
+                                     f"{n} x {smem} B")
     say("flash blocks per SM x shared memory per block (occupancy query): "
         + ", ".join(occupancy))
     from deepspeed_tpu_torch.ops.cuda import block_sparse_attention as tbs
@@ -2212,7 +2452,7 @@ def main() -> int:
     # the kernels this tree redesigned: registers and spills (ptxas), blocks
     # per SM and dynamic shared memory per block (the occupancy query)
     from deepspeed_tpu_torch.ops.cuda import cross_entropy as tce
-    redesigned = [("ce_fwd_wgmma_kernel", "ce_fwd_wgmma_kernel",
+    redesigned = [("ce_fwd_wgmma_kernel", "ce_fwd_wgmma_kernelILb0E",
                    tce.kernel_occupancy(torch.bfloat16)),
                   ("ce_fwd_kernel (fp32)", "13ce_fwd_kernelE", tce.kernel_occupancy(torch.float32)),
                   ("sparse_fwd_kernel<bf16>", "sparse_fwd_kernelI13__nv_bfloat16",
@@ -2228,6 +2468,18 @@ def main() -> int:
             "{} {} regs, spills {} / {}, {} per SM, {} B".format(
                 name, *build_info(res.log, entry), blocks, smem)
             for name, entry, (blocks, smem) in redesigned))
+    # the kernels this tree added: the flash kernels at head_dim 128 and the
+    # cross-entropy backward's wide path (registers and spills, ptxas)
+    added = [(f"flash_{k}_kernel<{dt}, 128{', extras' if x else ''}>",
+              f"flash_{k}_kernelI{m}Li128ELb{int(x)}E")
+             for k in ("fwd", "dq", "dkv") for dt, m in (("bf16", "13__nv_bfloat16"), ("fp32", "f"))
+             for x in (False, True)]
+    added += [(f"ce_wide_{k}_kernel<{dt}>", f"ce_wide_{k}_kernelI{m}")
+              for k in ("ds", "dx", "dhead")
+              for dt, m in (("bf16", "13__nv_bfloat16"), ("fp32", "f"))]
+    say("head_dim-128 flash and wide cross-entropy kernels (registers, spill stores / loads in "
+        "bytes): " + "; ".join("{} {} regs, spills {} / {}".format(
+            name, *build_info(res.log, entry)) for name, entry in added))
     say("kernels: paged_attention, decode_attention, flash_forward, flash_backward_dq, "
         "flash_backward_dkv, ce_forward, ce_backward_dx, ce_backward_dhead, fused_adam, "
         "block_sparse_forward, block_sparse_backward_dq, block_sparse_backward_dkv")
@@ -2280,6 +2532,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_rows = ce_cases(device, flush=scratch.zero_) + adam_case(device, flush=scratch.zero_)
     report_rows(train_rows)
+    torch.cuda.empty_cache()
+    train_rows += ce_family_cases(device, scratch.zero_, card)
     del scratch
     torch.cuda.empty_cache()
     phase_done("6")
@@ -2381,6 +2635,36 @@ def main() -> int:
             ("fp32 serve (roomy)", r["fp32"]["roomy"]["counts"]),
             ("fp32 serve (preempting)", r["fp32"]["preempting"]["counts"]),
             ("bf16 serve", r["bf16"]["counts"]))}))
+
+    # ---- 15-17. the families' training cells -------------------------------------- #
+    gc.collect()
+    torch.cuda.empty_cache()
+    family_train = {"llama3-8b": phase_family_train("llama3-8b", device, card)}
+    phase_done("15")
+    from deepspeed_tpu_torch.models.gpt import llama_config
+    layers, seq, micro = FAMILY_PARITY
+    _, kw, _ = FAMILY_CELLS["llama3-8b"]
+    family_parity = phase_train_fp32_parity(
+        device, seq=seq, micro=micro,
+        cfg=llama_config(**dict(kw, n_layer=layers), remat=True, dtype="float32"))
+    phase_done("16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    family_train["bloom-7b1"] = phase_family_train("bloom-7b1", device, card)
+    phase_done("17")
+    for name, r in family_train.items():
+        say(f"summary: {name} training at {r['n_layer']} layers x {r['n_embd']}, micro "
+            f"{FAMILY_TRAIN_MICRO} x seq {FAMILY_TRAIN_SEQ}, {r['params']:,} params: loss "
+            f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}; graphed {r['step_ms']:.3f} ms/step "
+            f"(host {r['host_ms']:.3f}, device {device_ms(r):.3f}), {r['samples_per_s']:.3f} "
+            f"samples/s, {r['tflops']:.2f} TFLOPs; eager {r['eager_step_ms']:.3f} ms/step; peak "
+            f"memory graphed {r['memory']['graphed_alloc_gib']:.2f} GiB allocated / "
+            f"{r['memory']['graphed_reserved_gib']:.2f} reserved [{card}]")
+    say(f"summary: llama3-8b fp32 kernel-vs-plain at {layers} layers, seq {seq}, micro {micro}: "
+        f"loss rel diff {family_parity['loss_rel']:.3e}, params max abs diff "
+        f"{family_parity['param_max']:.3e}, relative L2 {family_parity['param_rel_l2']:.3e}")
+    say("launches by run: " + json.dumps({
+        f"{name} bf16 train graphed": r["counts"] for name, r in family_train.items()}))
 
     # ---- report ------------------------------------------------------------------ #
     # each kernel's row: its case at the shape and dtype of the run that

@@ -14,13 +14,16 @@ has no meaning here); :class:`GPT` is an ``nn.Module`` that owns such a
 tree and has the JAX ``GPT`` object's methods (``__call__(params, batch,
 rng, train)`` is the training loss).
 
-One block serves three families, as in JAX: GPT-2 (learned positions,
+One block serves the dense families, as in JAX: GPT-2 (learned positions,
 layernorm, gelu MLP, tied head), LLaMA-style (rope, RMSNorm, SwiGLU,
-bias-free, grouped-query attention, untied head) and BLOOM (ALiBi).  The
-serving paths (``generate()``, ``gpt_paged_step``) take every family knob;
-the training path takes GPT-2 only and raises ``NotImplementedError`` for
-the others (its flash kernels are compiled for head_dim 64 and its
-cross-entropy kernels for a tied head).
+bias-free, grouped-query attention, untied head), BLOOM (ALiBi),
+GPT-NeoX-style parallel blocks and GPT-J-style single-norm parallel blocks
+(untied head with a bias).  The training path (``gpt_forward``,
+``gpt_loss``) and the serving paths (``generate()``, ``gpt_paged_step``)
+take every family knob: rope at positions ``arange(S)``, GQA K/V handed to
+the attention op unexpanded, ALiBi as per-head slopes the attention op
+applies itself, the untied head and its bias through the cross-entropy
+kernels.
 
 Where JAX updated a cache with ``dynamic_update_slice`` or a scatter, the
 port writes into the cache tensor in place (no second cache in memory).
@@ -54,10 +57,10 @@ from deepspeed_tpu_torch.ops.cuda.cross_entropy import (ce_logits, cross_entropy
                                                         label_logit)
 from deepspeed_tpu_torch.ops.cuda.decode_attention import (decode_attention,
                                                            paged_attention)
+from deepspeed_tpu_torch.ops.cuda import capture
 from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing import checkpoint
 
 OTHER_FAMILIES = "ROADMAP.md, Queue 1: other GPT families"
-FAMILIES_TRAINING = "ROADMAP.md, Queue 1: other GPT families: training"
 TRAINING = "ROADMAP.md, Queue 1 item 9 (data pipeline, compression, progressive layer drop)"
 DROPOUT = ("ROADMAP.md, Queue 1 item 4: dropout in training (its random streams "
            "cannot match JAX's; no config on the training path uses it)")
@@ -169,26 +172,6 @@ class GPTConfig:
             if value is not None:
                 raise NotImplementedError(
                     f"GPTConfig.{knob}={value!r} is not ported yet ({TRAINING})")
-
-
-# GPT-2's values of the family knobs: the training path takes only these
-GPT2_KNOBS = {"position_encoding": "learned", "norm": "layernorm",
-              "mlp_type": "standard", "block_type": "sequential",
-              "activation": "gelu_tanh", "use_bias": True,
-              "untied_head": False, "head_bias": False}
-
-
-def require_gpt2_family(cfg: GPTConfig, what: str) -> None:
-    """Raise unless ``cfg`` is of the GPT-2 family (training is ported for
-    it alone)."""
-    knobs = {k: getattr(cfg, k) for k, v in GPT2_KNOBS.items()
-             if getattr(cfg, k) != v}
-    if cfg.kv_heads != cfg.n_head:
-        knobs["n_kv_head"] = cfg.n_kv_head
-    if knobs:
-        raise NotImplementedError(
-            f"{what} trains the GPT-2 family only; {knobs} is served "
-            f"(init_serving, generate()) but not trained yet ({FAMILIES_TRAINING})")
 
 
 # Model zoo (GPT-2 sizes; the 1.5B "xl" is the north-star model).
@@ -440,11 +423,18 @@ def _head(cfg: GPTConfig, params: Dict, x: torch.Tensor, dt) -> torch.Tensor:
     return logits
 
 
+@functools.lru_cache(maxsize=None)
+def _alibi_on(n_head: int, device: str) -> torch.Tensor:
+    return torch.from_numpy(alibi_slopes(n_head)).to(device)
+
+
 def _alibi(cfg: GPTConfig, device) -> Optional[torch.Tensor]:
-    """Per-head ALiBi slopes ``[H]`` fp32 for the attention kernels, or None."""
+    """Per-head ALiBi slopes ``[H]`` fp32 for the attention kernels, or
+    None.  Made once per device and kept, so a captured training step reads
+    them without a host copy in the capture (and holds them)."""
     if cfg.position_encoding != "alibi":
         return None
-    return torch.from_numpy(alibi_slopes(cfg.n_head)).to(device)
+    return capture.hold(_alibi_on(cfg.n_head, str(torch.device(device))))
 
 
 def greedy_tokens(cfg: GPTConfig, logits: torch.Tensor) -> torch.Tensor:
@@ -460,20 +450,26 @@ def greedy_tokens(cfg: GPTConfig, logits: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 def gpt_block(cfg: GPTConfig, p: Dict, x: torch.Tensor,
               attention_fn: Callable) -> torch.Tensor:
-    """One sequential pre-LN block on ``x`` ``[B, S, E]``."""
+    """One block of the family on ``x`` ``[B, S, E]`` (JAX's ``gpt_block``):
+    rope at positions ``arange(S)``, grouped K/V to the attention op as
+    they are, ALiBi as the family's per-head slopes."""
+    S = x.shape[1]
+    rope_pos = (torch.arange(S, device=x.device) if cfg.position_encoding == "rope"
+                else None)
+    slopes = _alibi(cfg, x.device)
     return _block(cfg, p, x, x.dtype,
-                  lambda q, k, v: attention_fn(q, k, v, causal=True))
+                  lambda q, k, v: attention_fn(q, k, v, causal=True, alibi=slopes), rope_pos)
 
 
 def gpt_forward(cfg: GPTConfig, params: Dict, input_ids: torch.Tensor,
                 rng=None, train: bool = False,
                 attention_fn: Optional[Callable] = None,
                 pld_theta=None, return_hidden: bool = False) -> torch.Tensor:
-    """Logits ``[B, S, padded_vocab]`` fp32, or with ``return_hidden`` the
-    final-layernorm hidden ``[B, S, E]`` that the training loss takes.  With
-    ``cfg.remat`` each block keeps its input and the flash op's o and lse,
-    and re-runs the rest in the backward pass (JAX's checkpoint policy)."""
-    require_gpt2_family(cfg, "gpt_forward")
+    """Logits ``[B, S, padded_vocab]`` fp32 (the head's bias added), or
+    with ``return_hidden`` the final-norm hidden ``[B, S, E]`` that the
+    training loss takes.  With ``cfg.remat`` each block keeps its input and
+    the flash op's o and lse, and re-runs the rest (rope, the norms, the
+    MLP) in the backward pass (JAX's checkpoint policy)."""
     if pld_theta is not None:
         raise NotImplementedError(f"progressive layer drop is not ported yet ({TRAINING})")
     if train and cfg.dropout:
@@ -486,16 +482,17 @@ def gpt_forward(cfg: GPTConfig, params: Dict, input_ids: torch.Tensor,
     body = functools.partial(gpt_block, cfg, attention_fn=attention_fn)
     for p in params["blocks"]:
         x = checkpoint(body, p, x) if cfg.remat else body(p, x)
-    x = layer_norm(x, params["lnf_g"], params["lnf_b"], eps=cfg.ln_eps)
     if return_hidden:
-        return x
-    return (x @ params["wte"].to(dt).T).float()
+        return _norm(cfg, x, params["lnf_g"], params["lnf_b"])
+    return _head(cfg, params, x, dt)
 
 
 def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
-                          vocab_size: int, n_chunks: int = 0) -> torch.Tensor:
+                          vocab_size: int, n_chunks: int = 0,
+                          head_b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token cross-entropy of the hidden ``x`` ``[B, S, E]``
-    against ``head`` ``[V, E]``, padded vocab columns masked with ``-1e9``.
+    against ``head`` ``[V, E]`` (plus the head bias ``head_b`` ``[V]`` in
+    fp32), padded vocab columns masked with ``-1e9``.
 
     On the card this is always the fused kernel (``ops/cuda/cross_entropy.py``),
     which never materializes logits and raises on a dtype or width it does
@@ -508,14 +505,14 @@ def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor, labels: torch.Ten
     N = B * S
     if x.is_cuda:
         return cross_entropy(x.reshape(N, E), head, labels.reshape(N).to(torch.int32),
-                             vocab_size)
+                             vocab_size, head_b=head_b)
     if n_chunks <= 0:
         if N * V * 4 <= CE_CHUNK_BYTES:
             n_chunks = 1
         else:
             n_chunks = max(1, -(-N // max(1, CE_CHUNK_BYTES // (4 * V))))
     if n_chunks == 1:
-        logits = ce_logits(x.reshape(N, E), head, vocab_size)
+        logits = ce_logits(x.reshape(N, E), head, vocab_size, head_b=head_b)
         lse = torch.logsumexp(logits, dim=-1)
         return (lse - label_logit(logits, labels.reshape(N))).mean()
     # rows padded up to n_chunks * rows; pad rows are masked out of the sum
@@ -528,7 +525,7 @@ def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor, labels: torch.Ten
     valid = (torch.arange(n_chunks * rows, device=x.device) < N).reshape(n_chunks, rows)
 
     def chunk(xc, lc, keep):
-        logits = ce_logits(xc, head, vocab_size)
+        logits = ce_logits(xc, head, vocab_size, head_b=head_b)
         nll = torch.logsumexp(logits, dim=-1) - label_logit(logits, lc)
         return torch.where(keep, nll, 0.0).sum()
 
@@ -541,11 +538,14 @@ def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor, labels: torch.Ten
 def gpt_loss(cfg: GPTConfig, params: Dict, input_ids: torch.Tensor,
              labels: torch.Tensor, rng=None, train: bool = True,
              attention_fn: Optional[Callable] = None, pld_theta=None) -> torch.Tensor:
-    """Next-token cross-entropy over the tied head (no ``[B, S, V]`` logits
-    tensor on the card)."""
+    """Next-token cross-entropy over the head: the tied ``wte``, or the
+    untied ``lm_head`` and its bias (no ``[B, S, V]`` logits tensor on the
+    card)."""
     x = gpt_forward(cfg, params, input_ids, rng, train, attention_fn,
                     pld_theta=pld_theta, return_hidden=True)
-    return chunked_cross_entropy(x, params["wte"], labels, cfg.vocab_size)
+    head = params["lm_head"] if cfg.untied_head else params["wte"]
+    head_b = params["lm_head_b"] if cfg.head_bias else None
+    return chunked_cross_entropy(x, head, labels, cfg.vocab_size, head_b=head_b)
 
 
 # --------------------------------------------------------------------------- #

@@ -129,7 +129,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dst_decode_attention.argtypes = [vp, vp, vp, vp, vp,
                                          ci, ci, ci, ci, ci, ci, ci, cf, ci, vp]
     lib.dst_decode_attention.restype = ci
-    lib.dst_ce_forward.argtypes = [vp, vp, vp, vp, vp, vp, vp,
+    lib.dst_ce_forward.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
                                    ci, ci, ci, ci, ci, ci, vp]
     lib.dst_ce_forward.restype = ci
     lib.dst_ce_backward_dx.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
@@ -142,20 +142,27 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dst_ce_forward_occupancy.restype = ci
     lib.dst_ce_backward_active_clusters.argtypes = [ci, ci]
     lib.dst_ce_backward_active_clusters.restype = ci
+    lib.dst_ce_wide_ds.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
+                                   ci, ci, ci, ci, ci, ci, ci, ci, vp]
+    lib.dst_ce_wide_ds.restype = ci
+    lib.dst_ce_wide_dx.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
+    lib.dst_ce_wide_dx.restype = ci
+    lib.dst_ce_wide_dhead.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
+    lib.dst_ce_wide_dhead.restype = ci
     lib.dst_fused_adam.argtypes = [vp, ci, vp, ci, ci, vp,
                                    cf, cf, cf, cf, cf, cf, ci, vp]
     lib.dst_fused_adam.restype = ci
     strides = ctypes.POINTER(ctypes.c_longlong)
     lib.dst_flash_forward.argtypes = [vp, vp, vp, vp, vp, vp, vp, strides,
-                                      ci, ci, ci, ci, cf, ci, ci, vp]
+                                      ci, ci, ci, ci, ci, cf, ci, ci, vp]
     lib.dst_flash_forward.restype = ci
     lib.dst_flash_backward_dq.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, strides,
-                                          ci, ci, ci, ci, cf, ci, ci, vp]
+                                          ci, ci, ci, ci, ci, cf, ci, ci, vp]
     lib.dst_flash_backward_dq.restype = ci
     lib.dst_flash_backward_dkv.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, strides,
-                                           ci, ci, ci, ci, cf, ci, ci, vp]
+                                           ci, ci, ci, ci, ci, cf, ci, ci, vp]
     lib.dst_flash_backward_dkv.restype = ci
-    lib.dst_flash_occupancy.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+    lib.dst_flash_occupancy.argtypes = [ci, ci, ci, ci, ctypes.POINTER(ci)]
     lib.dst_flash_occupancy.restype = ci
     lib.dst_sparse_forward.argtypes = [vp, vp, vp, vp, vp, ci, vp, vp, strides,
                                        ci, ci, ci, cf, ci, ci, vp]

@@ -1,12 +1,14 @@
-"""Fused cross-entropy over the tied lm head: hand-written CUDA kernels and
+"""Fused cross-entropy over the lm head: hand-written CUDA kernels and
 their plain PyTorch versions (counterpart of
 ``deepspeed_tpu/ops/pallas/cross_entropy.py``).
 
 Layouts are the JAX package's: ``x`` ``[N, E]`` hidden rows, ``head``
-``[V, E]`` (the tied ``wte``, vocab padded to a multiple of 128),
-``labels`` ``[N]`` int32; vocab columns at or past ``vocab_size`` are
-masked with the same ``-1e9`` sentinel as the JAX kernels and reference.
-The loss is the mean nll over the N rows.
+``[V, E]`` (the tied ``wte`` or an untied ``lm_head``, vocab padded to a
+multiple of 128), ``labels`` ``[N]`` int32, the optional head bias
+``head_b`` ``[V]`` (added to the fp32 logits, as JAX's ``_score_block``
+adds it); vocab columns at or past ``vocab_size`` are masked with the same
+``-1e9`` sentinel as the JAX kernels and reference.  The loss is the mean
+nll over the N rows.
 
 Three entry points, one per TPU kernel, each with its plain version:
 
@@ -14,7 +16,8 @@ Three entry points, one per TPU kernel, each with its plain version:
   (``ops/pallas/cross_entropy.py:92``);
 * ``ce_backward_dx`` -> dx in x's dtype; replaces ``_bwd_dx_kernel``
   (``:182``);
-* ``ce_backward_dhead`` -> dhead in head's dtype; replaces
+* ``ce_backward_dhead`` -> dhead in head's dtype (and with a head bias
+  dbias = the sum over rows of the fp32 ds, in the bias's dtype); replaces
   ``_bwd_dh_kernel`` (``:205``).
 
 Dispatch: a CPU tensor goes to the plain version (``*_reference``, JAX's
@@ -22,22 +25,31 @@ Dispatch: a CPU tensor goes to the plain version (``*_reference``, JAX's
 its hand-derived backward); a CUDA tensor launches the kernel of
 ``csrc/cross_entropy.cu`` or raises on a dtype, shape or layout the kernel
 does not take.  There is no fallback from one to the other.
-``cross_entropy`` is the ``torch.autograd.Function`` over the three.
+``cross_entropy`` is the ``torch.autograd.Function`` over the three,
+differentiable in x, head and head_b.
 
 Kernel notes (details in the ``.cu`` file): all three are bound by
 operations (the score product x . head^T, recomputed in each kernel so no
 ``[N, V]`` tensor reaches device memory); bf16 inputs go through the
 tensor cores, fp32 inputs through fp32 FMA.  The kernels take any n_embd
-that is a multiple of 8 up to ``MAX_EMBD`` (1664: every GPT-2 width).  The
-bf16 forward runs warpgroup MMA on TMA-fed tiles of 128 rows x
-``FWD_COLS`` vocab columns, the online softmax on its accumulators, over
-``fwd_grid``'s vocab splits; the last block of a row tile merges the
-splits in split order and resets its arrival counter, so the counters
-(``_fwd_counters``, one set per device) are never memset.  dx and dhead
-are one CUDA kernel, run by thread-block clusters of up to
-``BWD_MAX_CLUSTER`` blocks, each owning a slice of n_embd of at most
-``BWD_SLICE`` columns.  The head bias of the JAX kernel is not ported
-(GPT-2 has none).
+that is a multiple of 8.  The bf16 forward runs warpgroup MMA on TMA-fed
+tiles of 128 rows x ``FWD_COLS`` vocab columns, the online softmax on its
+accumulators, over ``fwd_grid``'s vocab splits; the last block of a row
+tile merges the splits in split order and resets its arrival counter, so
+the counters (``_fwd_counters``, one set per device) are never memset.
+dx and dhead take one of two paths (``wide_path``):
+
+* up to ``CLUSTER_MAX_EMBD`` (1664: every GPT-2 width) without a head
+  bias, one CUDA kernel run by thread-block clusters of up to
+  ``BWD_MAX_CLUSTER`` blocks, each owning a slice of n_embd of at most
+  ``BWD_SLICE`` columns: one launch per call;
+* past it (LLaMA's and BLOOM's 4096) or with a head bias, the wide path:
+  the vocab in chunks of ``wide_chunk`` columns (ds in the input dtype
+  for a chunk fits ``WIDE_SCRATCH_BYTES``), each a ds pass (the scores
+  again, ds formed and rounded as the plain version rounds it) and a
+  hand-written product, dx summed over the chunks in an fp32 buffer in
+  chunk order: two launches per chunk (``launches_per_call``), each
+  counted.
 
 Each wrapper counts its launches (``ce_forward.launches``); each plain
 version counts its calls (``ce_forward_reference.calls``).
@@ -67,9 +79,13 @@ BWD_ROWS = {torch.bfloat16: 128, torch.float32: 64}
 BWD_STREAM = {torch.bfloat16: 64, torch.float32: 32}
 BWD_SLICE, BWD_MAX_CLUSTER = 208, 8
 EMBD_ALIGN = 8           # n_embd a multiple of 8: rows start on 16-byte boundaries
-MAX_EMBD = BWD_SLICE * BWD_MAX_CLUSTER
+# the widest n_embd the cluster backward takes; wider ones take the wide path
+CLUSTER_MAX_EMBD = BWD_SLICE * BWD_MAX_CLUSTER
+# the wide backward's ds scratch of one vocab chunk, at most (the chunk a
+# multiple of WIDE_TILE columns, at least one tile)
+WIDE_SCRATCH_BYTES = 256 * 2 ** 20
+WIDE_TILE = 128
 OTHER_FAMILIES = "ROADMAP.md, Queue 1: other GPT families"
-HEAD_BIAS = "ROADMAP.md, Queue 1: other GPT families (head bias)"
 FP16 = "ROADMAP.md, Queue 1 item 5 (fp16 training)"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -77,16 +93,35 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # --------------------------------------------------------------------------- #
 # Plain versions
 # --------------------------------------------------------------------------- #
+def _exact_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` from the operands' values summed in fp64, rounded to fp32:
+    exact products (as the tensor cores form bf16 ones) and sums whose
+    rounding stays far below fp32's.  An fp32 GEMM over n_embd 4096 or a
+    128256-column vocab is itself ~2e-5 off in the softmax part (measured
+    on the H100 against fp64, ``chip_smoke.py`` phase 6), more than the
+    kernels are."""
+    return (a.double() @ b.double()).float()
+
+
+def _exact(x: torch.Tensor, fp32_products: bool) -> bool:
+    """Whether the plain products are exact: asked for, or fp32 inputs."""
+    return fp32_products or x.dtype == torch.float32
+
+
 def ce_logits(x: torch.Tensor, head: torch.Tensor, vocab_size: int,
-              fp32_products: bool = False) -> torch.Tensor:
+              fp32_products: bool = False,
+              head_b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``[N, V]`` fp32 logits as JAX's unchunked branch forms them:
-    ``x @ head^T`` in x's dtype, then fp32, pad columns ``-1e9``.  With
-    ``fp32_products`` the product runs on the inputs upcast to fp32, as
-    the kernels form it (bf16 x bf16 products are exact in fp32)."""
-    if fp32_products:
-        logits = x.float() @ head.float().T
+    ``x @ head^T`` in x's dtype, then fp32, plus the head bias in fp32,
+    pad columns ``-1e9``.  fp32 inputs, or any with ``fp32_products``, take
+    ``_exact_product`` (for bf16 the product of the kernels, whose bf16 x
+    bf16 products are exact in fp32)."""
+    if _exact(x, fp32_products):
+        logits = _exact_product(x, head.T)
     else:
         logits = (x @ head.to(x.dtype).T).float()
+    if head_b is not None:
+        logits = logits + head_b.float()
     V = head.shape[0]
     if V != vocab_size:
         keep = torch.arange(V, device=x.device) < vocab_size
@@ -105,11 +140,12 @@ def label_logit(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def ce_forward_reference(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
-                         vocab_size: int, fp32_products: bool = False
+                         vocab_size: int, fp32_products: bool = False,
+                         head_b: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row (nll, lse), fp32."""
     ce_forward_reference.calls += 1
-    logits = ce_logits(x, head, vocab_size, fp32_products)
+    logits = ce_logits(x, head, vocab_size, fp32_products, head_b)
     lse = torch.logsumexp(logits, dim=-1)
     return lse - label_logit(logits, labels), lse
 
@@ -117,9 +153,10 @@ def ce_forward_reference(x: torch.Tensor, head: torch.Tensor, labels: torch.Tens
 ce_forward_reference.calls = 0
 
 
-def _dlogits(x, head, labels, lse, gscale, vocab_size, fp32_products) -> torch.Tensor:
+def _dlogits(x, head, labels, lse, gscale, vocab_size, fp32_products,
+             head_b=None) -> torch.Tensor:
     """(softmax - onehot) * g / N, fp32 ``[N, V]``."""
-    logits = ce_logits(x, head, vocab_size, fp32_products)
+    logits = ce_logits(x, head, vocab_size, fp32_products, head_b)
     ds = torch.exp(logits - lse[:, None])
     lab = labels.long()
     valid = (lab >= 0) & (lab < ds.shape[1])
@@ -129,16 +166,17 @@ def _dlogits(x, head, labels, lse, gscale, vocab_size, fp32_products) -> torch.T
 
 
 def ce_backward_dx_reference(x, head, labels, lse, gscale, vocab_size,
-                             fp32_products: bool = False) -> torch.Tensor:
+                             fp32_products: bool = False, head_b=None) -> torch.Tensor:
     """dx = ds . head, in x's dtype (ds rounded to x's dtype first, as the
-    autograd of the unchunked branch rounds it).  ``fp32_products``: both
-    products in fp32 on the upcast operands, only the roundings of ds and
-    of dx left in x's dtype (what the kernels compute, up to summation
-    order)."""
+    autograd of the unchunked branch rounds it).  ``fp32_products`` (and
+    fp32 inputs): both products exact (``_exact_product``), only the
+    roundings of ds and of dx left in x's dtype (what the kernels compute,
+    up to summation order)."""
     ce_backward_dx_reference.calls += 1
-    ds = _dlogits(x, head, labels, lse, gscale, vocab_size, fp32_products).to(x.dtype)
-    if fp32_products:
-        return (ds.float() @ head.float()).to(x.dtype)
+    ds = _dlogits(x, head, labels, lse, gscale, vocab_size, fp32_products,
+                  head_b).to(x.dtype)
+    if _exact(x, fp32_products):
+        return _exact_product(ds, head).to(x.dtype)
     return (ds @ head.to(x.dtype)).to(x.dtype)
 
 
@@ -146,13 +184,20 @@ ce_backward_dx_reference.calls = 0
 
 
 def ce_backward_dhead_reference(x, head, labels, lse, gscale, vocab_size,
-                                fp32_products: bool = False) -> torch.Tensor:
-    """dhead = ds^T . x, in head's dtype (``fp32_products`` as for dx)."""
+                                fp32_products: bool = False, head_b=None):
+    """dhead = ds^T . x, in head's dtype (``fp32_products`` as for dx).
+    With ``head_b``: (dhead, dbias), dbias the sum over rows of the fp32 ds
+    (JAX's ``db_ref += sum(ds)``), in head_b's dtype."""
     ce_backward_dhead_reference.calls += 1
-    ds = _dlogits(x, head, labels, lse, gscale, vocab_size, fp32_products).to(x.dtype)
-    if fp32_products:
-        return (ds.float().T @ x.float()).to(head.dtype)
-    return (ds.T @ x).to(head.dtype)
+    ds32 = _dlogits(x, head, labels, lse, gscale, vocab_size, fp32_products, head_b)
+    ds = ds32.to(x.dtype)
+    if _exact(x, fp32_products):
+        dh = _exact_product(ds.T, x).to(head.dtype)
+    else:
+        dh = (ds.T @ x).to(head.dtype)
+    if head_b is None:
+        return dh
+    return dh, ds32.sum(0).to(head_b.dtype)
 
 
 ce_backward_dhead_reference.calls = 0
@@ -162,10 +207,47 @@ ce_backward_dhead_reference.calls = 0
 # Kernel wrappers
 # --------------------------------------------------------------------------- #
 def check_embd(name: str, E: int) -> None:
-    """The widths the kernels take: a multiple of 8 up to ``MAX_EMBD``."""
-    if E <= 0 or E % EMBD_ALIGN or E > MAX_EMBD:
-        raise ValueError(f"{name}: the CUDA kernels take n_embd a multiple of {EMBD_ALIGN} up "
-                         f"to {MAX_EMBD}, got {E} ({OTHER_FAMILIES})")
+    """The widths the kernels take: a positive multiple of 8."""
+    if E <= 0 or E % EMBD_ALIGN:
+        raise ValueError(f"{name}: the CUDA kernels take n_embd a positive multiple of "
+                         f"{EMBD_ALIGN}, got {E} ({OTHER_FAMILIES})")
+
+
+def wide_path(E: int, bias: bool = False) -> bool:
+    """Whether dx and dhead take the wide path (n_embd past the cluster
+    kernel's ``CLUSTER_MAX_EMBD``, or a head bias) rather than the cluster
+    kernel."""
+    return E > CLUSTER_MAX_EMBD or bias
+
+
+def wide_chunk(N: int, V: int, dtype: torch.dtype) -> int:
+    """Vocab columns per chunk of the wide backward: the most whose ds
+    (``N`` rows in ``dtype``) fits ``WIDE_SCRATCH_BYTES``, a multiple of
+    ``WIDE_TILE``, at least one tile and no more than V rounded up."""
+    per_column = N * torch.tensor([], dtype=dtype).element_size()
+    fit = max(WIDE_TILE, WIDE_SCRATCH_BYTES // per_column // WIDE_TILE * WIDE_TILE)
+    return min(fit, -(-V // WIDE_TILE) * WIDE_TILE)
+
+
+def launches_per_call(N: int, E: int, V: int, dtype: torch.dtype, bias: bool = False) -> int:
+    """Kernel launches one ``ce_backward_dx`` or ``ce_backward_dhead`` call
+    makes: 1 on the cluster path, a ds pass and a product per vocab chunk
+    on the wide path."""
+    if not wide_path(E, bias):
+        return 1
+    return 2 * -(-V // wide_chunk(N, V, dtype))
+
+
+def _check_bias(name: str, head_b: Optional[torch.Tensor], V: int,
+                device: torch.device) -> Optional[torch.Tensor]:
+    """The head bias as the kernels take it (contiguous fp32 [V] on the
+    device), or None."""
+    if head_b is None:
+        return None
+    if head_b.dim() != 1 or head_b.shape[0] != V or head_b.device != device:
+        raise ValueError(f"{name}: head_b must be [{V}] on {device}, got "
+                         f"{tuple(head_b.shape)} on {head_b.device}")
+    return head_b.detach().float().contiguous()
 
 
 def _check_cuda(name: str, x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
@@ -295,16 +377,18 @@ def _fwd_counters(device: torch.device, tiles: int) -> torch.Tensor:
 
 
 def ce_forward(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
-               vocab_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+               vocab_size: int, head_b: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row (nll, lse) in fp32 without materializing logits.  CPU
     tensors take the plain version."""
     if x.device.type == "cpu":
-        return ce_forward_reference(x, head, labels, vocab_size)
+        return ce_forward_reference(x, head, labels, vocab_size, head_b=head_b)
     if x.device.type != "cuda":
         raise ValueError(f"ce_forward: no kernel for device {x.device}")
     dtype = _check_cuda("ce_forward", x, head, labels, vocab_size)
     N, E = x.shape
     V = head.shape[0]
+    bias = _check_bias("ce_forward", head_b, V, x.device)
     index = x.device.index if x.device.index is not None else torch.cuda.current_device()
     tiles, splits = fwd_grid(N, V, x.dtype, _fwd_slots(x.dtype, index))
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -313,6 +397,7 @@ def ce_forward(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
     counters = _fwd_counters(torch.device("cuda", index), tiles)
     lib = builder.load_library()
     rc = lib.dst_ce_forward(x.data_ptr(), head.data_ptr(), labels.data_ptr(),
+                            None if bias is None else bias.data_ptr(),
                             part.data_ptr(), counters.data_ptr(), nll.data_ptr(),
                             lse.data_ptr(), N, E, V, vocab_size, splits, dtype, _stream(x))
     builder.check(lib, rc, "ce_forward")
@@ -323,16 +408,56 @@ def ce_forward(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
 ce_forward.launches = 0
 
 
+def _wide_chunks(x: torch.Tensor, head: torch.Tensor):
+    """(chunk width, [(v0, first, last)], ds scratch) of the wide path."""
+    N, V = x.shape[0], head.shape[0]
+    ld = wide_chunk(N, V, x.dtype)
+    starts = list(range(0, V, ld))
+    chunks = [(v0, i == 0, i == len(starts) - 1) for i, v0 in enumerate(starts)]
+    return ld, chunks, torch.empty((N, ld), dtype=x.dtype, device=x.device)
+
+
+def _wide_ds(lib, x, head, labels, lse, gscale, bias, ds, colsum, vocab_size, v0, ld,
+             for_dhead: bool, dtype: int) -> None:
+    N, E = x.shape
+    rc = lib.dst_ce_wide_ds(x.data_ptr(), head.data_ptr(), labels.data_ptr(), lse.data_ptr(),
+                            gscale.data_ptr(), None if bias is None else bias.data_ptr(),
+                            ds.data_ptr(), None if colsum is None else colsum.data_ptr(),
+                            N, E, head.shape[0], vocab_size, v0, ld, int(for_dhead), dtype,
+                            _stream(x))
+    builder.check(lib, rc, "cross-entropy backward (ds pass)")
+
+
 def ce_backward_dx(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
-                   lse: torch.Tensor, gscale: torch.Tensor, vocab_size: int) -> torch.Tensor:
+                   lse: torch.Tensor, gscale: torch.Tensor, vocab_size: int,
+                   head_b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """dx ``[N, E]`` in x's dtype; ``gscale`` is dloss/N as a one-element
     fp32 tensor on the device (never read on the host)."""
     if x.device.type == "cpu":
-        return ce_backward_dx_reference(x, head, labels, lse, gscale, vocab_size)
+        return ce_backward_dx_reference(x, head, labels, lse, gscale, vocab_size,
+                                        head_b=head_b)
     if x.device.type != "cuda":
         raise ValueError(f"ce_backward_dx: no kernel for device {x.device}")
     dtype = _check_cuda("ce_backward_dx", x, head, labels, vocab_size, lse, gscale)
     N, E = x.shape
+    bias = _check_bias("ce_backward_dx", head_b, head.shape[0], x.device)
+    if wide_path(E, bias is not None):
+        lib = builder.load_library()
+        ld, chunks, ds = _wide_chunks(x, head)
+        dx = torch.empty_like(x)
+        acc = torch.empty((N, E) if len(chunks) > 1 else (0,), dtype=torch.float32,
+                          device=x.device)
+        for v0, first, last in chunks:
+            _wide_ds(lib, x, head, labels, lse, gscale, bias, ds, None, vocab_size, v0, ld,
+                     False, dtype)
+            ce_backward_dx.launches += 1
+            rc = lib.dst_ce_wide_dx(x.data_ptr(), head.data_ptr(), ds.data_ptr(),
+                                    acc.data_ptr() if acc.numel() else None, dx.data_ptr(),
+                                    N, E, head.shape[0], vocab_size, v0, ld, int(first),
+                                    int(last), dtype, _stream(x))
+            builder.check(lib, rc, "ce_backward_dx (product)")
+            ce_backward_dx.launches += 1
+        return dx
     active = _active_clusters(E, dtype, x.device.index if x.device.index is not None
                               else torch.cuda.current_device())
     tiles, splits = dx_grid(N, head.shape[0], x.dtype, active)
@@ -354,17 +479,39 @@ ce_backward_dx.launches = 0
 
 
 def ce_backward_dhead(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
-                      lse: torch.Tensor, gscale: torch.Tensor,
-                      vocab_size: int) -> torch.Tensor:
+                      lse: torch.Tensor, gscale: torch.Tensor, vocab_size: int,
+                      head_b: Optional[torch.Tensor] = None):
     """dhead ``[V, E]`` in head's dtype, summed over the rows by one
-    cluster per 128 vocab rows (64 in fp32; no atomics: deterministic)."""
+    cluster per 128 vocab rows (64 in fp32), or on the wide path by one
+    block per 128 x 128 tile of a chunk (no atomics: deterministic).  With
+    ``head_b``: (dhead, dbias), dbias in head_b's dtype."""
     if x.device.type == "cpu":
-        return ce_backward_dhead_reference(x, head, labels, lse, gscale, vocab_size)
+        return ce_backward_dhead_reference(x, head, labels, lse, gscale, vocab_size,
+                                           head_b=head_b)
     if x.device.type != "cuda":
         raise ValueError(f"ce_backward_dhead: no kernel for device {x.device}")
     dtype = _check_cuda("ce_backward_dhead", x, head, labels, vocab_size, lse, gscale)
     N, E = x.shape
+    V = head.shape[0]
+    bias = _check_bias("ce_backward_dhead", head_b, V, x.device)
     dh = torch.empty_like(head)
+    if wide_path(E, bias is not None):
+        lib = builder.load_library()
+        ld, chunks, ds = _wide_chunks(x, head)
+        f32 = dict(dtype=torch.float32, device=x.device)
+        colsum = torch.empty(-(-N // WIDE_TILE) * ld, **f32) if bias is not None else None
+        db = torch.empty(V, **f32) if bias is not None else None
+        for v0, _, _ in chunks:
+            _wide_ds(lib, x, head, labels, lse, gscale, bias, ds, colsum, vocab_size, v0, ld,
+                     True, dtype)
+            ce_backward_dhead.launches += 1
+            rc = lib.dst_ce_wide_dhead(x.data_ptr(), head.data_ptr(), ds.data_ptr(),
+                                       None if colsum is None else colsum.data_ptr(),
+                                       dh.data_ptr(), None if db is None else db.data_ptr(),
+                                       N, E, V, vocab_size, v0, ld, dtype, _stream(x))
+            builder.check(lib, rc, "ce_backward_dhead (product)")
+            ce_backward_dhead.launches += 1
+        return dh if head_b is None else (dh, db.to(head_b.dtype))
     lib = builder.load_library()
     rc = lib.dst_ce_backward_dhead(x.data_ptr(), head.data_ptr(), labels.data_ptr(),
                                    lse.data_ptr(), gscale.data_ptr(), dh.data_ptr(), N, E,
@@ -378,36 +525,38 @@ ce_backward_dhead.launches = 0
 
 
 class _CrossEntropy(torch.autograd.Function):
-    """Mean nll; backward through the dx and dhead entry points."""
+    """Mean nll; backward through the dx and dhead entry points (dhead's
+    also gives dbias)."""
 
     @staticmethod
-    def forward(ctx, x, head, labels, vocab_size):
-        nll, lse = ce_forward(x, head, labels, vocab_size)
-        ctx.save_for_backward(x, head, labels, lse)
+    def forward(ctx, x, head, head_b, labels, vocab_size):
+        nll, lse = ce_forward(x, head, labels, vocab_size, head_b=head_b)
+        ctx.save_for_backward(x, head, head_b, labels, lse)
         ctx.vocab_size = vocab_size
         return nll.mean()
 
     @staticmethod
     def backward(ctx, g):
-        x, head, labels, lse = ctx.saved_tensors
+        x, head, head_b, labels, lse = ctx.saved_tensors
         # d(mean)/d(nll_i) = g / N, as a device scalar
         gscale = (g.float() / x.shape[0]).reshape(1)
-        dx = dh = None
+        dx = dh = db = None
         if ctx.needs_input_grad[0]:
-            dx = ce_backward_dx(x, head, labels, lse, gscale, ctx.vocab_size)
-        if ctx.needs_input_grad[1]:
-            dh = ce_backward_dhead(x, head, labels, lse, gscale, ctx.vocab_size)
-        return dx, dh, None, None
+            dx = ce_backward_dx(x, head, labels, lse, gscale, ctx.vocab_size, head_b=head_b)
+        if ctx.needs_input_grad[1] or (head_b is not None and ctx.needs_input_grad[2]):
+            dh = ce_backward_dhead(x, head, labels, lse, gscale, ctx.vocab_size,
+                                       head_b=head_b)
+            if head_b is not None:
+                dh, db = dh
+        return dx, dh, db, None, None
 
 
 def cross_entropy(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
                   vocab_size: int, head_b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token nll of ``x`` ``[N, E]`` against ``head`` ``[V, E]``
-    without materializing logits (counterpart of ``fused_cross_entropy``).
-    Differentiable in x and head."""
-    if head_b is not None:
-        raise NotImplementedError(f"cross_entropy: a head bias is not ported yet ({HEAD_BIAS})")
-    return _CrossEntropy.apply(x, head, labels, vocab_size)
+    (plus ``head_b`` ``[V]``) without materializing logits (counterpart of
+    ``fused_cross_entropy``).  Differentiable in x, head and head_b."""
+    return _CrossEntropy.apply(x, head, head_b, labels, vocab_size)
 
 
 def reset_counts() -> None:

@@ -17,8 +17,13 @@
 // t = lane % 4 (the mma.m16n8k16 accumulator layout, which is also the
 // A-operand layout of the next product, so p and ds go to the tensor cores
 // from registers).  The row tiles' helpers (Tr, kTileElems, product_nt,
-// product_pv, pv_tile, store_rows) also take a wider head (a 16 x 128 tile
-// is c[16][4]) for the decode kernels' prefill path; their default is kD.
+// product_pv, pv_tile, store_rows, load_rows, RowFragments) also take a
+// wider head (a 16 x 128 tile is c[16][4]) for the decode kernels' prefill
+// path and the flash kernels at head_dim 128; their default is kD.
+// SharedRows is RowFragments without the registers: the rows stay in shared
+// memory and each product reads them by ldmatrix (the flash dKV at head_dim
+// 128, where K's and V's fragments would take 64 registers a thread beside
+// the 128 of dK and dV).
 
 #pragma once
 
@@ -152,10 +157,10 @@ __device__ __forceinline__ void store_rows(T* out, long long row_stride, const f
 
 // dst[r][0 : kD) = src[(row0 + r) * ss + 0 : kD) for r < ROWS, by THREADS
 // threads; rows at or past S are zeros.  Asynchronous, as load_tile.
-template <typename T, int ROWS, int THREADS>
+template <typename T, int ROWS, int THREADS, int D = kD>
 __device__ __forceinline__ void load_rows(T* dst, const T* src, long long ss, int row0, int S) {
   constexpr int kElems = 16 / sizeof(T);
-  constexpr int kChunks = kD / kElems;
+  constexpr int kChunks = D / kElems;
   constexpr int kPer = ROWS * kChunks / THREADS;
   static_assert(kPer * THREADS == ROWS * kChunks, "whole 16-byte chunks per thread");
 #pragma unroll
@@ -163,37 +168,37 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, long long ss, in
     const int c = threadIdx.x + i * THREADS;
     const int r = c / kChunks, col = (c % kChunks) * kElems;
     const bool valid = row0 + r < S;
-    copy16_async(dst + r * Tr<T>::kLd + col, valid ? src + (row0 + r) * ss + col : src, valid);
+    copy16_async(dst + r * Tr<T, D>::kLd + col, valid ? src + (row0 + r) * ss + col : src, valid);
   }
 }
 
-// A warp's own 16 rows ([row][kD] in shared memory) as the A operand of c =
+// A warp's own 16 rows ([row][D] in shared memory) as the A operand of c =
 // rows . b^T: the flash forward's and dQ's query (and dO) rows, dKV's key
 // (and value) rows.  bf16 fragments are loaded once by ldmatrix and kept in
 // registers, b's by ldmatrix per tile (four 8x8 matrices, two mma, per
 // instruction); fp32 leaves the rows in shared memory for product_nt.
-template <typename T> struct RowFragments;
+template <typename T, int D = kD> struct RowFragments;
 
-template <> struct RowFragments<bf16> {
-  uint32_t f[kD / 16][4];
+template <int D> struct RowFragments<bf16, D> {
+  uint32_t f[D / 16][4];
 
   __device__ __forceinline__ void load(const bf16* rows) {
-    constexpr int L = Tr<bf16>::kLd;
+    constexpr int L = Tr<bf16, D>::kLd;
     const int lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk)
+    for (int kk = 0; kk < D / 16; ++kk)
       ldsm_x4(f[kk], rows + ((mi & 1) * 8 + r8) * L + kk * 16 + (mi >> 1) * 8);
   }
 
-  // c = rows . b^T for the first 8 NJ rows of b ([row][kD] in shared
+  // c = rows . b^T for the first 8 NJ rows of b ([row][D] in shared
   // memory; NJ even)
   template <int NJ>
   __device__ __forceinline__ void product_nt(float (&c)[NJ][4], const bf16* b) const {
-    constexpr int L = Tr<bf16>::kLd;
+    constexpr int L = Tr<bf16, D>::kLd;
     const int lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
     zero(c);
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk)
+    for (int kk = 0; kk < D / 16; ++kk)
 #pragma unroll
       for (int jp = 0; jp < NJ / 2; ++jp) {
         uint32_t bfr[4];
@@ -204,12 +209,39 @@ template <> struct RowFragments<bf16> {
   }
 };
 
-template <> struct RowFragments<float> {
+template <int D> struct RowFragments<float, D> {
   const float* rows;
   __device__ __forceinline__ void load(const float* r) { rows = r; }
   template <int NJ>
   __device__ __forceinline__ void product_nt(float (&c)[NJ][4], const float* b) const {
-    ::product_nt(c, rows, b);
+    ::product_nt<NJ, D>(c, rows, b);
+  }
+};
+
+// The same A operand left in shared memory: bf16 reads its fragments by
+// ldmatrix at every product (one 16-deep slice at a time); fp32 already does.
+template <typename T, int D = kD> struct SharedRows : RowFragments<T, D> {};
+
+template <int D> struct SharedRows<bf16, D> {
+  const bf16* rows;
+  __device__ __forceinline__ void load(const bf16* r) { rows = r; }
+  template <int NJ>
+  __device__ __forceinline__ void product_nt(float (&c)[NJ][4], const bf16* b) const {
+    constexpr int L = Tr<bf16, D>::kLd;
+    const int lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
+    zero(c);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t af[4];
+      ldsm_x4(af, rows + ((mi & 1) * 8 + r8) * L + kk * 16 + (mi >> 1) * 8);
+#pragma unroll
+      for (int jp = 0; jp < NJ / 2; ++jp) {
+        uint32_t bfr[4];
+        ldsm_x4(bfr, b + ((2 * jp + (mi >> 1)) * 8 + r8) * L + kk * 16 + (mi & 1) * 8);
+        mma_bf16(c[2 * jp], af[0], af[1], af[2], af[3], bfr[0], bfr[1]);
+        mma_bf16(c[2 * jp + 1], af[0], af[1], af[2], af[3], bfr[2], bfr[3]);
+      }
+    }
   }
 };
 

@@ -18,8 +18,14 @@
 // inputs are a few MB, so the floor is those flops over the tensor-core
 // rate in bf16 (989 TFLOP/s) and over the fp32 rate (67 TFLOP/s) for fp32.
 // Widths: any n_embd E that is a multiple of 8 (rows start on 16-byte
-// boundaries), up to 8 x 208 = 1664 in the backward (GPT-2's 768, 1024,
-// 1280 and 1600 all fit); the wrapper raises on any other.
+// boundaries); the wrapper raises on any other.  The backward runs in
+// thread-block clusters up to 8 x 208 = 1664 columns (GPT-2's 768, 1024,
+// 1280 and 1600 all fit) and, past that or with a head bias, through the
+// wide path at the end of this file (LLaMA's and BLOOM's 4096).
+// Head bias (GPT-J's untied head): the forward adds bias[col] to the fp32
+// scores before the label's logit and the pad mask, as the JAX kernels'
+// _score_block does; the wide backward's ds pass does the same, and the
+// dhead entry point also writes dbias = the sum over rows of the fp32 ds.
 //
 // Forward, bf16 (ce_fwd_wgmma_kernel; redesigned for Hopper).  The score
 // product is a GEMM with one long reduction over E and no dependent second
@@ -144,6 +150,11 @@ __device__ __forceinline__ float masked(float s, int col, int vocab_size) {
   return col < vocab_size ? s : kPadLogit;
 }
 
+// The score plus the head bias of its column (fp32), where there is one.
+__device__ __forceinline__ float biased(float s, const float* bias, int col) {
+  return bias != nullptr ? s + bias[col] : s;
+}
+
 // True in the block that arrives last at `counter` (of `expected`); that
 // block then sees every other block's global writes (read them with
 // __ldcg, past the incoherent L1) and sets the counter back to 0, ready
@@ -219,6 +230,7 @@ struct FwdArgs {
   float* nll;
   float* lse;
   int n, e, v, vocab_size, per_split;
+  const float* bias;   // the head bias [v] fp32, or null
 };
 
 // Pins the accumulators in program order around the asynchronous products
@@ -266,6 +278,7 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kWgThreads - 128) : "memory");
 }
 
+template <bool kBias>
 __global__ void __launch_bounds__(kWgThreads, 1)
 ce_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
                     const __grid_constant__ CUtensorMap tm_head, const FwdArgs a) {
@@ -355,6 +368,18 @@ ce_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
     // ---- the online softmax on the accumulators: d[4 j + 2 r + i] is row
     // rbase + 8 r, column col0 + 8 j + 2 t4 + i ----
     const int col0 = t * kWgCols;
+    if (kBias) {   // the head bias joins the fp32 scores first, as in JAX's _score_block
+#pragma unroll
+      for (int j = 0; j < kWgCols / 8; ++j) {
+        const int c = col0 + 8 * j + 2 * t4;
+        const float b0 = c < a.v ? __ldg(a.bias + c) : 0.f;
+        const float b1 = c + 1 < a.v ? __ldg(a.bias + c + 1) : 0.f;
+        d[4 * j] += b0;
+        d[4 * j + 1] += b1;
+        d[4 * j + 2] += b0;
+        d[4 * j + 3] += b1;
+      }
+    }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int lc = label[r] - col0;
@@ -513,12 +538,12 @@ ce_fwd_kernel(const float* __restrict__ x, const float* __restrict__ head, const
     const int c0 = col0 + half * kHalf;
     float tmax = -INFINITY;
     for (int c = 0; c < kHalf && c0 + c < a.v; ++c)
-      tmax = fmaxf(tmax, masked(srow[c], c0 + c, a.vocab_size));
+      tmax = fmaxf(tmax, masked(biased(srow[c], a.bias, c0 + c), c0 + c, a.vocab_size));
     tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
     const float m_new = fmaxf(m, tmax);
     float sum = 0.f, lab = 0.f;
     for (int c = 0; c < kHalf && c0 + c < a.v; ++c) {
-      const float sv = masked(srow[c], c0 + c, a.vocab_size);
+      const float sv = masked(biased(srow[c], a.bias, c0 + c), c0 + c, a.vocab_size);
       sum += expf(sv - m_new);
       if (c0 + c == label && label < a.vocab_size) lab += sv;
     }
@@ -1072,6 +1097,347 @@ __global__ void __launch_bounds__(Bwd<T>::kWarps * 32, 1) ce_bwd_kernel(const Bw
 }
 
 // --------------------------------------------------------------------------
+// backward at any width (dx and dhead past the cluster's 8 x 208 columns, or
+// with a head bias): the vocab in chunks, each a ds pass and a product
+// --------------------------------------------------------------------------
+//
+// Per chunk of `ld` vocab columns [v0, v0 + kc):
+//   ds pass:  ds = (exp(x . head_chunk^T (+ bias) - lse) - onehot) * g,
+//             rounded to the input dtype into a scratch [n][ld] (the
+//             rounding of rows 5-6's kernels and their plain version);
+//   dx:       dx (+)= ds . head_chunk, summed in fp32 in a buffer [n][e]
+//             across the chunks in chunk order (the last chunk writes dx in
+//             the input dtype);
+//   dhead:    dhead[v0 : v0 + kc] = ds^T . x, and with a bias dbias = the
+//             sum over rows of the fp32 ds, from per-row-tile column sums
+//             the ds pass leaves, added in row-tile order.
+// All three are one GEMM body with the operands' layouts and the epilogue
+// as template parameters: a 128 x 128 tile per block of 8 warps (2 x 4, a
+// warp 64 x 32), K in steps of 32 through a 3-stage cp.async ring; bf16
+// through mma.sync m16n8k16 (fp32 accumulate) on ldmatrix fragments (.trans
+// for an operand stored with M or N contiguous), fp32 through FMA in the
+// same register layout.  Every sum has a fixed order, so two runs are
+// bitwise equal.  Bound: operations, 2 n e kc per product and chunk; the
+// ds pass is the forward's product again, so one backward entry point does
+// two products of 2 n e V (wgmma and TMA, and one ds pass shared by dx and
+// dhead, are later work).
+
+constexpr int kGm = 128, kGn = 128, kGk = 32;   // block tile and K step
+constexpr int kGThreads = 256;                   // 8 warps: 2 along M x 4 along N
+constexpr int kGStages = 3;
+
+// shared-memory pitch of a [rows][cols] operand tile (16 bytes past a
+// multiple of 128 bytes every row, so ldmatrix rows hit distinct banks)
+template <typename T> __host__ __device__ constexpr int gpad() { return 16 / (int)sizeof(T); }
+// an operand tile: [kGm][kGk] when K is contiguous in memory, [kGk][kGm]
+// when M (or N) is
+template <typename T, bool kKContig> struct GTile {
+  static constexpr int kRows = kKContig ? kGm : kGk;
+  static constexpr int kCols = kKContig ? kGk : kGm;
+  static constexpr int kLd = kCols + gpad<T>();
+  static constexpr int kElems = kRows * kLd;
+};
+
+// dst = rows [r0, r0 + kRows) x columns [c0, c0 + kCols) of a row-major
+// matrix with leading dimension ld; 16-byte chunks at or past (r_ext,
+// c_ext) are zeros (c_ext a multiple of 16 bytes).  Asynchronous.
+template <typename T, bool kKContig>
+__device__ __forceinline__ void load_gtile(T* dst, const T* src, long long ld, int r0, int c0,
+                                           int r_ext, int c_ext) {
+  using G = GTile<T, kKContig>;
+  constexpr int kE = 16 / sizeof(T), kChunks = G::kCols / kE;
+  constexpr int kPer = G::kRows * kChunks / kGThreads;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int c = threadIdx.x + i * kGThreads;
+    const int r = c / kChunks, col = (c % kChunks) * kE;
+    const bool valid = r0 + r < r_ext && c0 + col < c_ext;
+    copy16_async(dst + r * G::kLd + col, valid ? src + (long long)(r0 + r) * ld + c0 + col : src,
+                 valid);
+  }
+}
+
+// An operand: a row-major matrix, K contiguous ([MN][K]) or MN contiguous
+// ([K][MN]), with its extents (rows, columns as stored).
+template <typename T> struct GOperand {
+  const T* p;
+  long long ld;
+  int rows, cols;
+};
+
+// acc[i][j][.]: the warp's m16 tile i, n8 tile j (rows g, g + 8 and columns
+// 2t, 2t + 1 of each)
+using GAcc = float[4][4][4];
+
+template <bool kAK, bool kBK>
+__device__ __forceinline__ void gemm_step(GAcc& acc, const bf16* sa, const bf16* sb) {
+  constexpr int LA = GTile<bf16, kAK>::kLd, LB = GTile<bf16, kBK>::kLd;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+#pragma unroll
+  for (int kk = 0; kk < kGk / 16; ++kk) {
+    uint32_t af[4][4], bfr[2][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = wm + i * 16;
+      if (kAK)
+        ldsm_x4(af[i], sa + (m + (mi & 1) * 8 + r8) * LA + kk * 16 + (mi >> 1) * 8);
+      else
+        ldsm_x4_trans(af[i], sa + (kk * 16 + (mi >> 1) * 8 + r8) * LA + m + (mi & 1) * 8);
+    }
+#pragma unroll
+    for (int jp = 0; jp < 2; ++jp) {
+      const int n = wn + jp * 16;
+      if (kBK)
+        ldsm_x4(bfr[jp], sb + (n + (mi >> 1) * 8 + r8) * LB + kk * 16 + (mi & 1) * 8);
+      else
+        ldsm_x4_trans(bfr[jp], sb + (kk * 16 + (mi & 1) * 8 + r8) * LB + n + (mi >> 1) * 8);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp) {
+        mma_bf16(acc[i][2 * jp], af[i][0], af[i][1], af[i][2], af[i][3], bfr[jp][0], bfr[jp][1]);
+        mma_bf16(acc[i][2 * jp + 1], af[i][0], af[i][1], af[i][2], af[i][3], bfr[jp][2],
+                 bfr[jp][3]);
+      }
+  }
+}
+
+// fp32: the step's 32 products summed apart, then added to acc, so a sum
+// over K is a chain of K / 32 partial sums, not of K products (at n_embd
+// 4096 a 4096-long chain of FMAs drifts by ~1e-5 of the scores, past the
+// fp32 tolerance of the plain version's blocked sums)
+template <bool kAK, bool kBK>
+__device__ __forceinline__ void gemm_step(GAcc& acc, const float* sa, const float* sb) {
+  constexpr int LA = GTile<float, kAK>::kLd, LB = GTile<float, kBK>::kLd;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+  GAcc part = {};
+#pragma unroll 4
+  for (int k = 0; k < kGk; ++k) {
+    float a[4][2], b[4][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = wm + i * 16 + g + 8 * h;
+        a[i][h] = kAK ? sa[m * LA + k] : sa[k * LA + m];
+      }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int n = wn + j * 8 + 2 * t + c;
+        b[j][c] = kBK ? sb[n * LB + k] : sb[k * LB + n];
+      }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          part[i][j][e] = fmaf(a[i][e >> 1], b[j][e & 1], part[i][j][e]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+}
+
+// Blocks per SM __launch_bounds__ asks for: bf16 2 (128 registers a
+// thread); fp32 1, whose step sums (64 registers beside the 64 of acc)
+// would spill at 128.
+template <typename T> __host__ __device__ constexpr int gemm_min_blocks() {
+  return sizeof(T) == 2 ? 2 : 1;
+}
+
+// acc = A[m0 : m0 + 128, :K] . B[:K, n0 : n0 + 128] over K in steps of kGk,
+// in order; A is [M][K] (kAK) or [K][M], B [N][K] (kBK) or [K][N].  Leaves
+// every copy landed and the ring free for the epilogue.
+template <typename T, bool kAK, bool kBK>
+__device__ __forceinline__ void gemm_block(GAcc& acc, const GOperand<T>& A, const GOperand<T>& B,
+                                           int m0, int n0, int K, T* smem) {
+  constexpr int EA = GTile<T, kAK>::kElems, EB = GTile<T, kBK>::kElems;
+  T* sa = smem;
+  T* sb = smem + kGStages * EA;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  const int nk = cdiv(K, kGk);
+  auto stage = [&](int kt, int s) {
+    const int k0 = kt * kGk;
+    if (kAK)
+      load_gtile<T, true>(sa + s * EA, A.p, A.ld, m0, k0, A.rows, A.cols);
+    else
+      load_gtile<T, false>(sa + s * EA, A.p, A.ld, k0, m0, A.rows, A.cols);
+    if (kBK)
+      load_gtile<T, true>(sb + s * EB, B.p, B.ld, n0, k0, B.rows, B.cols);
+    else
+      load_gtile<T, false>(sb + s * EB, B.p, B.ld, k0, n0, B.rows, B.cols);
+  };
+#pragma unroll
+  for (int s = 0; s < kGStages - 1; ++s) {
+    if (s < nk) stage(s, s);
+    commit_copies();
+  }
+  for (int kt = 0, s = 0; kt < nk; ++kt, s = s + 1 == kGStages ? 0 : s + 1) {
+    wait_copies<kGStages - 2>();       // step kt has landed
+    __syncthreads();                   // ... for every thread, and step kt - 1's slot is free
+    const int next = kt + kGStages - 1;
+    if (next < nk) stage(next, s == 0 ? kGStages - 1 : s - 1);
+    commit_copies();
+    gemm_step<kAK, kBK>(acc, sa + s * EA, sb + s * EB);
+  }
+  wait_copies<0>();
+  __syncthreads();
+}
+
+template <typename T>
+constexpr size_t gemm_smem(bool a_kcontig, bool b_kcontig) {
+  return sizeof(T) * kGStages *
+         ((a_kcontig ? GTile<T, true>::kElems : GTile<T, false>::kElems) +
+          (b_kcontig ? GTile<T, true>::kElems : GTile<T, false>::kElems));
+}
+
+struct WideArgs {
+  const void* x;        // [n][e]
+  const void* head;     // [v][e]
+  const int* labels;
+  const float* lse;
+  const float* gscale;
+  const float* bias;    // [v] fp32 or null
+  void* ds;             // scratch [n][ld] in the input dtype
+  float* colsum;        // [row tiles][ld] fp32: the ds pass's column sums, or null
+  float* acc;           // dx's fp32 buffer [n][e]
+  void* out;            // dx [n][e] or dhead [v][e]
+  float* dbias;         // [v] fp32 or null
+  int n, e, v, vocab_size, v0, ld, kc;
+  int first, last;      // dx: this chunk is the first / the last
+};
+
+// Calls f(row, col, value, i, j, e) for every accumulator element of the
+// thread (row and column within the block tile).
+template <typename F>
+__device__ __forceinline__ void for_acc(const GAcc& acc, F f) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        f(wm + i * 16 + g + 8 * (e >> 1), wn + j * 8 + 2 * t + (e & 1), acc[i][j][e], i, j, e);
+}
+
+// The ds pass of one chunk: grid (row tiles of x, column tiles of the
+// chunk).  kColSums: the dhead entry point's pass, which also leaves the
+// fp32 column sums of its rows for dbias when there is a bias (colsum set).
+template <typename T, bool kColSums>
+__global__ void __launch_bounds__(kGThreads, gemm_min_blocks<T>())
+    ce_wide_ds_kernel(const WideArgs a) {
+  extern __shared__ __align__(128) unsigned char gsmem[];
+  T* smem = reinterpret_cast<T*>(gsmem);
+  const int m0 = blockIdx.x * kGm, n0 = blockIdx.y * kGn;
+  const GOperand<T> A = {static_cast<const T*>(a.x), a.e, a.n, a.e};
+  const GOperand<T> B = {static_cast<const T*>(a.head) + (long long)a.v0 * a.e, a.e, a.kc, a.e};
+  GAcc acc;
+  gemm_block<T, true, true>(acc, A, B, m0, n0, a.e, smem);
+  const float g = *a.gscale;
+  T* ds = static_cast<T*>(a.ds);
+  float colsum[4][2] = {};
+  for_acc(acc, [&](int r, int c, float s, int, int j, int e) {
+    const int row = m0 + r, col = n0 + c, vcol = a.v0 + col;
+    if (row >= a.n || col >= a.ld) return;
+    float d = 0.f;                     // columns past V (the chunk's padding) are zeros
+    if (vcol < a.v) {
+      if (a.bias != nullptr) s += a.bias[vcol];
+      if (vcol >= a.vocab_size) s = kPadLogit;
+      const float p = exp2_approx(__fmul_rn(s, kLog2e) - __fmul_rn(a.lse[row], kLog2e));
+      d = (p - (vcol == a.labels[row] ? 1.f : 0.f)) * g;
+    }
+    ds[(long long)row * a.ld + col] = from_f<T>(d);
+    if (kColSums) colsum[j][e & 1] += d;
+  });
+  if (!kColSums || a.colsum == nullptr) return;
+  // this warp's 64 rows, then the two warps along M in order
+  float* red = reinterpret_cast<float*>(gsmem);          // [2][kGn]: the ring is free
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      float v = colsum[j][c];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (lane < 4) red[(warp >> 2) * kGn + (warp & 3) * 32 + j * 8 + 2 * t + c] = v;
+    }
+  __syncthreads();
+  if (threadIdx.x < kGn && n0 + (int)threadIdx.x < a.ld)
+    a.colsum[(long long)blockIdx.x * a.ld + n0 + threadIdx.x] =
+        red[threadIdx.x] + red[kGn + threadIdx.x];
+}
+
+// dx (+)= ds . head_chunk: grid (row tiles of x, column tiles of e).
+template <typename T>
+__global__ void __launch_bounds__(kGThreads, gemm_min_blocks<T>())
+    ce_wide_dx_kernel(const WideArgs a) {
+  extern __shared__ __align__(128) unsigned char gsmem[];
+  const int m0 = blockIdx.x * kGm, n0 = blockIdx.y * kGn;
+  // A = ds [n][ld] (its columns past kc are the ds pass's zeros), B = the
+  // chunk's head rows [kc][e]
+  const T* head_rows = static_cast<const T*>(a.head) + (long long)a.v0 * a.e;
+  const GOperand<T> A = {static_cast<const T*>(a.ds), a.ld, a.n, a.ld};
+  const GOperand<T> B = {head_rows, a.e, a.kc, a.e};
+  GAcc acc;
+  gemm_block<T, true, false>(acc, A, B, m0, n0, a.kc, reinterpret_cast<T*>(gsmem));
+  T* out = static_cast<T*>(a.out);
+  for_acc(acc, [&](int r, int c, float v, int, int, int) {
+    const int row = m0 + r, col = n0 + c;
+    if (row >= a.n || col >= a.e) return;
+    const long long i = (long long)row * a.e + col;
+    if (!a.first) v = __ldcg(a.acc + i) + v;       // the earlier chunks' sum, in chunk order
+    if (a.last)
+      out[i] = from_f<T>(v);
+    else
+      a.acc[i] = v;
+  });
+}
+
+// dhead[v0 : v0 + kc] = ds^T . x: grid (row tiles of the chunk, column tiles
+// of e); with a bias, the blocks of column tile 0 also write dbias.
+template <typename T>
+__global__ void __launch_bounds__(kGThreads, gemm_min_blocks<T>())
+    ce_wide_dhead_kernel(const WideArgs a) {
+  extern __shared__ __align__(128) unsigned char gsmem[];
+  const int m0 = blockIdx.x * kGm, n0 = blockIdx.y * kGn;
+  // A = ds^T: ds [n][ld] read with the chunk's columns as M; B = x [n][e]
+  const GOperand<T> A = {static_cast<const T*>(a.ds), a.ld, a.n, a.ld};
+  const GOperand<T> B = {static_cast<const T*>(a.x), a.e, a.n, a.e};
+  GAcc acc;
+  gemm_block<T, false, false>(acc, A, B, m0, n0, a.n, reinterpret_cast<T*>(gsmem));
+  T* out = static_cast<T*>(a.out) + (long long)a.v0 * a.e;
+  for_acc(acc, [&](int r, int c, float v, int, int, int) {
+    const int row = m0 + r, col = n0 + c;
+    if (row < a.kc && col < a.e) out[(long long)row * a.e + col] = from_f<T>(v);
+  });
+  if (a.dbias == nullptr || blockIdx.y != 0 || threadIdx.x >= kGm) return;
+  const int row = m0 + threadIdx.x;
+  if (row >= a.kc) return;
+  float sum = 0.f;
+  for (int rt = 0; rt < cdiv(a.n, kGm); ++rt) sum += a.colsum[(long long)rt * a.ld + row];
+  a.dbias[a.v0 + row] = sum;
+}
+
+
+// --------------------------------------------------------------------------
 // launches
 // --------------------------------------------------------------------------
 
@@ -1133,10 +1499,10 @@ cudaError_t launch_fwd(const void* x, const void* head, FwdArgs a, int bf16_inpu
     if (!bf16_tile_map(&tm_x, x, a.n, a.e, kWgRows) ||
         !bf16_tile_map(&tm_head, head, a.v, a.e, kWgCols))
       return cudaErrorInvalidValue;
-    cudaError_t err = prepare(ce_fwd_wgmma_kernel, kWgSmem);
+    const auto kernel = a.bias != nullptr ? ce_fwd_wgmma_kernel<true> : ce_fwd_wgmma_kernel<false>;
+    cudaError_t err = prepare(kernel, kWgSmem);
     if (err != cudaSuccess) return err;
-    ce_fwd_wgmma_kernel<<<dim3(cdiv(a.n, kWgRows), splits), kWgThreads, kWgSmem, st>>>(
-        tm_x, tm_head, a);
+    kernel<<<dim3(cdiv(a.n, kWgRows), splits), kWgThreads, kWgSmem, st>>>(tm_x, tm_head, a);
     return cudaGetLastError();
   }
   a.per_split = cdiv(cdiv(a.v, kFwdCols), splits);
@@ -1199,6 +1565,39 @@ bool shape_ok(int n, int e, int v, int vocab_size, int dtype) {
          (dtype == 0 || dtype == 1);
 }
 
+// One launch of the wide backward: which 0 the ds pass of dx, 1 that of
+// dhead, 2 the dx product, 3 the dhead product.
+template <typename T>
+cudaError_t launch_wide(int which, const WideArgs& a, cudaStream_t st) {
+  const int row_tiles = cdiv(which == 3 ? a.kc : a.n, kGm);
+  const int col_tiles = cdiv(which <= 1 ? a.kc : a.e, kGn);
+  const dim3 grid(row_tiles, col_tiles);
+  auto run = [&](auto kernel, size_t smem) {
+    cudaError_t err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kGThreads, smem, st>>>(a);
+    return cudaGetLastError();
+  };
+  switch (which) {
+    case 0: return run(ce_wide_ds_kernel<T, false>, gemm_smem<T>(true, true));
+    case 1: return run(ce_wide_ds_kernel<T, true>, gemm_smem<T>(true, true));
+    case 2: return run(ce_wide_dx_kernel<T>, gemm_smem<T>(true, false));
+    default: return run(ce_wide_dhead_kernel<T>, gemm_smem<T>(false, false));
+  }
+}
+
+// The chunk [v0, v0 + ld) of the wide backward: checks, then one launch.
+int wide(int which, WideArgs a, int dtype, void* stream) {
+  if (!shape_ok(a.n, a.e, a.v, a.vocab_size, dtype) || a.ld <= 0 || a.ld % kGn || a.v0 < 0 ||
+      a.v0 >= a.v || a.v0 % kGn || (which == 2 && a.acc == nullptr && !(a.first && a.last)) ||
+      cdiv(a.ld, kGn) > 65535 || cdiv(a.e, kGn) > 65535 || !aligned(a.x) || !aligned(a.head) ||
+      !aligned(a.ds))
+    return (int)cudaErrorInvalidValue;
+  a.kc = a.v - a.v0 < a.ld ? a.v - a.v0 : a.ld;
+  cudaStream_t st = (cudaStream_t)stream;
+  return (int)(dtype == 0 ? launch_wide<float>(which, a, st) : launch_wide<bf16>(which, a, st));
+}
+
 }  // namespace
 
 extern "C" {
@@ -1207,14 +1606,14 @@ extern "C" {
 // part: [splits][3][n] fp32 scratch; counters: ceil(n / 128) ints, 0 before
 // the first launch (each launch leaves them so).  bf16 reads vocab tiles of
 // 256 columns, fp32 of 128; splits <= the vocab tiles.
-int dst_ce_forward(const void* x, const void* head, const int* labels, float* part,
-                   int* counters, float* nll, float* lse, int n, int e, int v, int vocab_size,
-                   int splits, int dtype, void* stream) {
+int dst_ce_forward(const void* x, const void* head, const int* labels, const float* bias,
+                   float* part, int* counters, float* nll, float* lse, int n, int e, int v,
+                   int vocab_size, int splits, int dtype, void* stream) {
   const int v_tiles = cdiv(v, dtype == 1 ? kWgCols : kFwdCols);
   if (!shape_ok(n, e, v, vocab_size, dtype) || splits <= 0 || splits > v_tiles ||
       splits > 65535 || !aligned(x) || !aligned(head))
     return (int)cudaErrorInvalidValue;
-  const FwdArgs a = {labels, part, counters, nll, lse, n, e, v, vocab_size, 0};
+  const FwdArgs a = {labels, part, counters, nll, lse, n, e, v, vocab_size, 0, bias};
   return (int)launch_fwd(x, head, a, dtype == 1, splits, (cudaStream_t)stream);
 }
 
@@ -1225,8 +1624,8 @@ int dst_ce_forward_occupancy(int dtype, int* smem_bytes) {
   int n = 0;
   if (dtype == 1) {
     *smem_bytes = (int)kWgSmem;
-    if (prepare(ce_fwd_wgmma_kernel, kWgSmem) != cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, ce_fwd_wgmma_kernel, kWgThreads,
+    if (prepare(ce_fwd_wgmma_kernel<false>, kWgSmem) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, ce_fwd_wgmma_kernel<false>, kWgThreads,
                                                       kWgSmem) != cudaSuccess)
       return 0;
   } else {
@@ -1273,6 +1672,48 @@ int dst_ce_backward_dhead(const void* x, const void* head, const int* labels, co
                      0, 0, 0};
   cudaStream_t st = (cudaStream_t)stream;
   return (int)(dtype == 0 ? launch_bwd<float, true>(a, 1, st) : launch_bwd<bf16, true>(a, 1, st));
+}
+
+// The wide backward (any e that is a multiple of 8; a head bias), one chunk
+// of ld vocab columns [v0, v0 + ld) per call (ld and v0 multiples of 128).
+// ds: scratch [n][ld] in the input dtype.  The ds pass (for_dhead: the
+// dhead entry point's, which with a bias also writes colsum [ceil(n / 128)]
+// [ld] fp32); bias fp32 [v] or null.
+int dst_ce_wide_ds(const void* x, const void* head, const int* labels, const float* lse,
+                   const float* gscale, const float* bias, void* ds, float* colsum, int n, int e,
+                   int v, int vocab_size, int v0, int ld, int for_dhead, int dtype,
+                   void* stream) {
+  WideArgs a = {};
+  a.x = x; a.head = head; a.labels = labels; a.lse = lse; a.gscale = gscale; a.bias = bias;
+  a.ds = ds; a.colsum = for_dhead ? colsum : nullptr;
+  a.n = n; a.e = e; a.v = v; a.vocab_size = vocab_size; a.v0 = v0; a.ld = ld;
+  return wide(for_dhead ? 1 : 0, a, dtype, stream);
+}
+
+// dx (+)= ds . head[v0 : v0 + ld]: first / last mark the chunk's place;
+// acc is the fp32 buffer [n][e] the chunks sum in (unused when the one
+// chunk is both), dx [n][e] is written by the last.
+int dst_ce_wide_dx(const void* x, const void* head, const void* ds, float* acc, void* dx, int n,
+                   int e, int v, int vocab_size, int v0, int ld, int first, int last, int dtype,
+                   void* stream) {
+  WideArgs a = {};
+  a.x = x; a.head = head; a.ds = const_cast<void*>(ds); a.acc = acc; a.out = dx;
+  a.n = n; a.e = e; a.v = v; a.vocab_size = vocab_size; a.v0 = v0; a.ld = ld;
+  a.first = first; a.last = last;
+  return wide(2, a, dtype, stream);
+}
+
+// dhead[v0 : v0 + ld] = ds^T . x; with dbias (fp32 [v]) also dbias[v0 : v0 +
+// ld] from the ds pass's colsum.
+int dst_ce_wide_dhead(const void* x, const void* head, const void* ds, const float* colsum,
+                      void* dhead, float* dbias, int n, int e, int v, int vocab_size, int v0,
+                      int ld, int dtype, void* stream) {
+  WideArgs a = {};
+  a.x = x; a.head = head; a.ds = const_cast<void*>(ds); a.colsum = const_cast<float*>(colsum);
+  a.out = dhead;
+  a.dbias = colsum != nullptr ? dbias : nullptr;
+  a.n = n; a.e = e; a.v = v; a.vocab_size = vocab_size; a.v0 = v0; a.ld = ld;
+  return wide(3, a, dtype, stream);
 }
 
 }  // extern "C"

@@ -18,7 +18,10 @@
 // the forward moves 25 MB and does 3.2 GFLOP: about 7.6 us of memory time
 // against 3.3 us of tensor-core time, so bytes bind; dQ and dKV do two to
 // three times the products over a few more tensors and sit near the same
-// line.  What a simple kernel does about it: each input tile is read from
+// line.  At Llama-3-8B's training shape (B 4, S 2048, H 32 over 8 kv heads,
+// D 128, bf16) the forward does 137 GFLOP over 168 MB: 0.14 ms of
+// tensor-core time against 0.05 ms of memory time, so there operations
+// bind.  What a simple kernel does about it: each input tile is read from
 // device memory once per block that needs it, scores and probabilities never
 // leave registers, and fully masked key tiles are skipped.
 //
@@ -71,6 +74,17 @@
 //   softmax overlap another's products; dQ 3 on GPT-2's bf16 path, 2 on the
 //   others, where 168 registers would spill; dKV 2 (K, V, dK and dV take 96
 //   registers a thread before any score: at 168 it spills).
+// * head_dim 128 (LLaMA, BLOOM): every kernel is a template on the width D,
+//   and the 64-wide instantiations are the code above.  At 128 the row
+//   tiles double (a 64-row tile of 128 bf16 is 17 KB), so a forward block
+//   takes 87 KB of shared memory in bf16 (169 KB in fp32), dQ 102 KB (198
+//   KB) and dKV 103 KB (199 KB): two blocks an SM in bf16, one in fp32, and
+//   __launch_bounds__ asks for 2 (255 registers a thread).  The forward's
+//   and dQ's accumulators double to 64 registers a thread; dKV's dK and dV
+//   to 128, so there K and V stay in shared memory and are read by
+//   ldmatrix at each product (SharedRows) instead of held in registers,
+//   and its score tiles are 32 queries wide: registers for dK, dV, s and dp
+//   (~192) instead of ~256 with K and V held.
 // * The online softmax keeps m, l and the accumulator in fp32 registers;
 //   out-of-range and causally masked columns are -inf, exactly zero weight,
 //   never 0/0 (l = 0 gives o = 0).
@@ -81,7 +95,10 @@
 //   and dK/dV are summed in a fixed order with no atomics.
 // * Inputs are read by strides ([B, S, H, D] views, e.g. of the model's qkv
 //   product), head_dim contiguous; outputs are written contiguous.  Rows past
-//   S are zero-filled in shared memory and never written.  head_dim 64 only.
+//   S are zero-filled in shared memory and never written.  head_dim 64 and
+//   128 only (GPT-NeoX-20B's 96 and GPT-J's 256 are ROADMAP work).
+
+#include <type_traits>
 
 #include "attention_tile.cuh"
 
@@ -104,13 +121,22 @@ struct Params {
 constexpr int kFwdWarps = 4;
 constexpr int kFwdRows = 16 * kFwdWarps;          // query rows of a forward block
 constexpr int kFwdThreads = 32 * kFwdWarps;
-constexpr int kFwdBlocksPerSm = 3;                // up to 168 registers a thread
+constexpr int kFwdBlocksPerSm = 3;                // head_dim 64: up to 168 registers a thread
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-template <typename T>
+// Blocks per SM __launch_bounds__ asks for: kFwdBlocksPerSm at head_dim 64;
+// at 128 two (a cap of 255 registers a thread: the accumulator alone is 64),
+// which is all the shared memory holds in bf16 (87 KB a block; fp32's 169 KB
+// holds one)
+template <int D>
+constexpr int fwd_min_blocks() {
+  return D == 64 ? kFwdBlocksPerSm : 2;
+}
+
+template <typename T, int D>
 constexpr size_t fwd_smem_bytes() {               // the query tile, two K and two V buffers
-  return sizeof(T) * (kFwdRows + 4 * kTile) * Tr<T>::kLd;
+  return sizeof(T) * (kFwdRows + 4 * kTile) * Tr<T, D>::kLd;
 }
 
 // With extras (a bias or ALiBi): s <- s * scale (+ bias) (+ slope * (key -
@@ -143,10 +169,11 @@ __device__ __forceinline__ void scores_log2(float (&s)[NJ][4], const Params& p, 
     }
 }
 
-template <typename T, bool kExtras>
-__global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSm) flash_fwd_kernel(const Params p) {
+template <typename T, int D, bool kExtras>
+__global__ void __launch_bounds__(kFwdThreads, (fwd_min_blocks<D>()))
+    flash_fwd_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int TE = kTileElems<T>, L = Tr<T>::kLd;
+  constexpr int TE = kTileElems<T, D>, L = Tr<T, D>::kLd, ND = D / 8;
   T* sq = reinterpret_cast<T*>(smem);
   T* sk = sq + kFwdRows * L;        // two buffers each
   T* sv = sk + 2 * TE;
@@ -165,22 +192,22 @@ __global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSm) flash_fwd_kernel
   const int n_all = cdiv(p.S, kTile);
   const int n_kv = p.causal ? min(cdiv(row0 + kFwdRows, kTile), n_all) : n_all;
 
-  load_rows<T, kFwdRows, kFwdThreads>(sq, q, p.q_ss, row0, p.S);
-  load_rows<T, kTile, kFwdThreads>(sk, k, p.k_ss, 0, p.S);
-  load_rows<T, kTile, kFwdThreads>(sv, v, p.v_ss, 0, p.S);
+  load_rows<T, kFwdRows, kFwdThreads, D>(sq, q, p.q_ss, row0, p.S);
+  load_rows<T, kTile, kFwdThreads, D>(sk, k, p.k_ss, 0, p.S);
+  load_rows<T, kTile, kFwdThreads, D>(sv, v, p.v_ss, 0, p.S);
   commit_copies();
   // m in log2 units; its start is JAX's -1e30 scaled as a score is, so a
   // row whose every column a bias sets to -1e30 still averages uniformly
   const float m0 = __fmul_rn(kNegInf, kLog2e);
   float m[2] = {m0, m0}, l[2] = {0.f, 0.f};
-  float acc[8][4];
+  float acc[ND][4];
   zero(acc);
-  RowFragments<T> qf;
+  RowFragments<T, D> qf;
   for (int j = 0; j < n_kv; ++j) {
     const int buf = j & 1;
     if (j + 1 < n_kv) {
-      load_rows<T, kTile, kFwdThreads>(sk + (buf ^ 1) * TE, k, p.k_ss, (j + 1) * kTile, p.S);
-      load_rows<T, kTile, kFwdThreads>(sv + (buf ^ 1) * TE, v, p.v_ss, (j + 1) * kTile, p.S);
+      load_rows<T, kTile, kFwdThreads, D>(sk + (buf ^ 1) * TE, k, p.k_ss, (j + 1) * kTile, p.S);
+      load_rows<T, kTile, kFwdThreads, D>(sv + (buf ^ 1) * TE, v, p.v_ss, (j + 1) * kTile, p.S);
       commit_copies();
       wait_copies<1>();
     } else {
@@ -221,7 +248,7 @@ __global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSm) flash_fwd_kernel
         }
       if (__any_sync(kFull, alpha[0] != 1.f || alpha[1] != 1.f)) {   // a row's max moved
 #pragma unroll
-        for (int jj = 0; jj < 8; ++jj)
+        for (int jj = 0; jj < ND; ++jj)
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[jj][i] *= alpha[i >> 1];
       }
@@ -237,8 +264,8 @@ __global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSm) flash_fwd_kernel
     l[r] = quad_sum(l[r]);
     inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
   }
-  T* o = static_cast<T*>(p.o) + (long long)b * p.S * p.H * kD + h * kD;
-  store_rows<T>(o, (long long)p.H * kD, acc, wrow0, p.S, inv);
+  T* o = static_cast<T*>(p.o) + (long long)b * p.S * p.H * D + h * D;
+  store_rows<T>(o, (long long)p.H * D, acc, wrow0, p.S, inv);
   if (t == 0) {
     float* lse = p.lse + ((long long)b * p.H + h) * p.S;
 #pragma unroll
@@ -269,23 +296,27 @@ constexpr int kDqCols = 32;                       // key columns of a score tile
 
 // Blocks per SM __launch_bounds__ asks for: GPT-2's path kDqBlocksPerSm (up
 // to 168 registers a thread); the bias / ALiBi and fp32 paths 2, where they
-// spill nothing (fp32's shared memory holds two blocks an SM anyway).
-template <typename T, bool kExtras>
+// spill nothing (fp32's shared memory holds two blocks an SM anyway).  At
+// head_dim 128, 2: Q's and dO's fragments and the accumulator take 128
+// registers a thread before any score, and the shared memory (102 KB a
+// block in bf16, 198 KB in fp32) holds two blocks an SM at most.
+template <typename T, int D, bool kExtras>
 constexpr int dq_min_blocks() {
-  return sizeof(T) == 2 && !kExtras ? kDqBlocksPerSm : 2;
+  return D == 64 && sizeof(T) == 2 && !kExtras ? kDqBlocksPerSm : 2;
 }
 
-template <typename T>
+template <typename T, int D>
 constexpr size_t dq_smem_bytes() {                // Q and dO, kStages K and V buffers
-  return sizeof(T) * (2 * kDqRows + 2 * kStages * kTile) * Tr<T>::kLd;
+  return sizeof(T) * (2 * kDqRows + 2 * kStages * kTile) * Tr<T, D>::kLd;
 }
 
 // grid: heads x batch x query tiles, the longest causal rows dispatched first
-template <typename T, bool kExtras>
-__global__ void __launch_bounds__(kDqThreads, (dq_min_blocks<T, kExtras>()))
+template <typename T, int D, bool kExtras>
+__global__ void __launch_bounds__(kDqThreads, (dq_min_blocks<T, D, kExtras>()))
     flash_dq_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int TE = kTileElems<T>, L = Tr<T>::kLd, NS = kStages, NJ = kDqCols / 8;
+  constexpr int TE = kTileElems<T, D>, L = Tr<T, D>::kLd, NS = kStages, NJ = kDqCols / 8;
+  constexpr int ND = D / 8;
   T* sq = reinterpret_cast<T*>(smem);
   T* sdo = sq + kDqRows * L;
   T* sk = sdo + kDqRows * L;        // NS buffers each
@@ -312,26 +343,26 @@ __global__ void __launch_bounds__(kDqThreads, (dq_min_blocks<T, kExtras>()))
     delta[r] = row < p.S ? p.delta[stat0 + row] : 0.f;
   }
 
-  load_rows<T, kDqRows, kDqThreads>(sq, q, p.q_ss, row0, p.S);
-  load_rows<T, kDqRows, kDqThreads>(sdo, dout, p.do_ss, row0, p.S);
+  load_rows<T, kDqRows, kDqThreads, D>(sq, q, p.q_ss, row0, p.S);
+  load_rows<T, kDqRows, kDqThreads, D>(sdo, dout, p.do_ss, row0, p.S);
 #pragma unroll
   for (int st = 0; st < NS - 1; ++st) {
     if (st < n_kv) {
-      load_rows<T, kTile, kDqThreads>(sk + st * TE, k, p.k_ss, st * kTile, p.S);
-      load_rows<T, kTile, kDqThreads>(sv + st * TE, v, p.v_ss, st * kTile, p.S);
+      load_rows<T, kTile, kDqThreads, D>(sk + st * TE, k, p.k_ss, st * kTile, p.S);
+      load_rows<T, kTile, kDqThreads, D>(sv + st * TE, v, p.v_ss, st * kTile, p.S);
     }
     commit_copies();
   }
-  float dq[8][4];
+  float dq[ND][4];
   zero(dq);
-  RowFragments<T> qf, dof;
+  RowFragments<T, D> qf, dof;
   for (int j = 0, buf = 0; j < n_kv; ++j, buf = buf + 1 == NS ? 0 : buf + 1) {
     wait_copies<NS - 2>();             // key tile j has landed
     __syncthreads();
     const int next = j + NS - 1, nbuf = buf == 0 ? NS - 1 : buf - 1;
     if (next < n_kv) {
-      load_rows<T, kTile, kDqThreads>(sk + nbuf * TE, k, p.k_ss, next * kTile, p.S);
-      load_rows<T, kTile, kDqThreads>(sv + nbuf * TE, v, p.v_ss, next * kTile, p.S);
+      load_rows<T, kTile, kDqThreads, D>(sk + nbuf * TE, k, p.k_ss, next * kTile, p.S);
+      load_rows<T, kTile, kDqThreads, D>(sv + nbuf * TE, v, p.v_ss, next * kTile, p.S);
     }
     commit_copies();
     if (j == 0) {
@@ -364,8 +395,8 @@ __global__ void __launch_bounds__(kDqThreads, (dq_min_blocks<T, kExtras>()))
     }
   }
   const float one[2] = {1.f, 1.f};
-  T* out = static_cast<T*>(p.dq) + (long long)b * p.S * p.H * kD + h * kD;
-  store_rows<T>(out, (long long)p.H * kD, dq, wrow0, p.S, one);
+  T* out = static_cast<T*>(p.dq) + (long long)b * p.S * p.H * D + h * D;
+  store_rows<T>(out, (long long)p.H * D, dq, wrow0, p.S, one);
 }
 
 // --------------------------------------------------------------------------
@@ -377,24 +408,37 @@ constexpr int kDkvWarps = 4;
 constexpr int kDkvRows = 16 * kDkvWarps;          // key rows of a dKV block
 constexpr int kDkvThreads = 32 * kDkvWarps;
 constexpr int kDkvBlocksPerSm = 2;
-constexpr int kDkvCols = 64;                      // query columns of a score tile
 
-template <typename T>
+// Query columns of a score tile: 64 at head_dim 64; 32 at 128, where dK
+// and dV alone take 128 registers a thread and a 64-wide s and dp 64 more.
+template <int D>
+__host__ __device__ constexpr int dkv_cols() {
+  return D == 64 ? 64 : 32;
+}
+
+// K's and V's rows as A operands: held in registers at head_dim 64 (32
+// registers a thread for both in bf16); at 128 they stay in shared memory
+// and each product reads them by ldmatrix (held, with dK, dV, s and dp,
+// they would need ~256 registers a thread).
+template <typename T, int D>
+using DkvRows = std::conditional_t<D == 64, RowFragments<T, D>, SharedRows<T, D>>;
+
+template <typename T, int D>
 constexpr size_t dkv_smem_bytes() {   // K and V, kStages Q, dO, lse and delta buffers
-  return sizeof(T) * (2 * kDkvRows + 2 * kStages * kTile) * Tr<T>::kLd +
+  return sizeof(T) * (2 * kDkvRows + 2 * kStages * kTile) * Tr<T, D>::kLd +
          2 * kStages * kTile * sizeof(float);
 }
 
 // Stage query tile `qt` of head h: Q and dO, lse and delta (zeros past S),
 // all by cp.async.
-template <typename T>
+template <typename T, int D>
 __device__ __forceinline__ void load_query_tile(const Params& p, T* sq, T* sdo, float* slse,
                                                 float* sdelta, int b, int h, int qt) {
   static_assert(kDkvThreads >= 2 * kTile, "lse and delta take one thread per row each");
   const int row0 = qt * kTile;
-  load_rows<T, kTile, kDkvThreads>(sq, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh,
-                                   p.q_ss, row0, p.S);
-  load_rows<T, kTile, kDkvThreads>(
+  load_rows<T, kTile, kDkvThreads, D>(sq, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh,
+                                      p.q_ss, row0, p.S);
+  load_rows<T, kTile, kDkvThreads, D>(
       sdo, static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh, p.do_ss, row0, p.S);
   if (threadIdx.x < 2 * kTile) {
     const bool is_lse = threadIdx.x < kTile;
@@ -407,10 +451,11 @@ __device__ __forceinline__ void load_query_tile(const Params& p, T* sq, T* sdo, 
 
 // grid: kv heads x batch x key tiles, the longest causal walks dispatched
 // first
-template <typename T, bool kExtras>
+template <typename T, int D, bool kExtras>
 __global__ void __launch_bounds__(kDkvThreads, kDkvBlocksPerSm) flash_dkv_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int TE = kTileElems<T>, L = Tr<T>::kLd, NS = kStages, NJ = kDkvCols / 8;
+  constexpr int TE = kTileElems<T, D>, L = Tr<T, D>::kLd, NS = kStages;
+  constexpr int kDkvCols = dkv_cols<D>(), NJ = kDkvCols / 8, ND = D / 8;
   T* sk = reinterpret_cast<T*>(smem);
   T* sv = sk + kDkvRows * L;
   T* sq = sv + kDkvRows * L;        // NS buffers each
@@ -426,24 +471,24 @@ __global__ void __launch_bounds__(kDkvThreads, kDkvBlocksPerSm) flash_dkv_kernel
   // stage item `it` (query head it / per_head of the group, query tile
   // first + it % per_head) into buffer `buf`
   auto stage = [&](int it, int buf) {
-    load_query_tile<T>(p, sq + buf * TE, sdo + buf * TE, slse + buf * kTile,
+    load_query_tile<T, D>(p, sq + buf * TE, sdo + buf * TE, slse + buf * kTile,
                        sdelta + buf * kTile, b, hk * p.group + it / per_head,
                        first + it % per_head);
   };
 
-  load_rows<T, kDkvRows, kDkvThreads>(sk, static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh,
-                                      p.k_ss, key0, p.S);
-  load_rows<T, kDkvRows, kDkvThreads>(sv, static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh,
-                                      p.v_ss, key0, p.S);
+  load_rows<T, kDkvRows, kDkvThreads, D>(
+      sk, static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh, p.k_ss, key0, p.S);
+  load_rows<T, kDkvRows, kDkvThreads, D>(
+      sv, static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh, p.v_ss, key0, p.S);
 #pragma unroll
   for (int st = 0; st < NS - 1; ++st) {
     if (st < total) stage(st, st);
     commit_copies();
   }
-  float dk[8][4], dv[8][4];
+  float dk[ND][4], dv[ND][4];
   zero(dk);
   zero(dv);
-  RowFragments<T> kf, vf;
+  DkvRows<T, D> kf, vf;
   for (int it = 0, buf = 0; it < total; ++it, buf = buf + 1 == NS ? 0 : buf + 1) {
     wait_copies<NS - 2>();             // item it has landed
     __syncthreads();
@@ -497,9 +542,9 @@ __global__ void __launch_bounds__(kDkvThreads, kDkvBlocksPerSm) flash_dkv_kernel
     }
   }
   const float one[2] = {1.f, 1.f};
-  const long long off = (long long)b * p.S * p.Hkv * kD + hk * kD;
-  store_rows<T>(static_cast<T*>(p.dk) + off, (long long)p.Hkv * kD, dk, wkey0, p.S, one);
-  store_rows<T>(static_cast<T*>(p.dv) + off, (long long)p.Hkv * kD, dv, wkey0, p.S, one);
+  const long long off = (long long)b * p.S * p.Hkv * D + hk * D;
+  store_rows<T>(static_cast<T*>(p.dk) + off, (long long)p.Hkv * D, dk, wkey0, p.S, one);
+  store_rows<T>(static_cast<T*>(p.dv) + off, (long long)p.Hkv * D, dv, wkey0, p.S, one);
 }
 
 // --------------------------------------------------------------------------
@@ -508,30 +553,27 @@ __global__ void __launch_bounds__(kDkvThreads, kDkvBlocksPerSm) flash_dkv_kernel
 
 enum Which { kForward, kDq, kDkv };
 
-template <typename T>
+template <typename T, int D>
 cudaError_t run(Which which, const Params& p, int B, cudaStream_t st) {
   const bool extras = p.bias != nullptr || p.slopes != nullptr;
   switch (which) {
     case kForward: {
       const dim3 grid(cdiv(p.S, kFwdRows), p.H, B);
-      return extras ? launch(flash_fwd_kernel<T, true>, grid, fwd_smem_bytes<T>(), p, st,
-                             kFwdThreads)
-                    : launch(flash_fwd_kernel<T, false>, grid, fwd_smem_bytes<T>(), p, st,
-                             kFwdThreads);
+      constexpr size_t smem = fwd_smem_bytes<T, D>();
+      return extras ? launch(flash_fwd_kernel<T, D, true>, grid, smem, p, st, kFwdThreads)
+                    : launch(flash_fwd_kernel<T, D, false>, grid, smem, p, st, kFwdThreads);
     }
     case kDq: {
       const dim3 grid(p.H, B, cdiv(p.S, kDqRows));
-      return extras ? launch(flash_dq_kernel<T, true>, grid, dq_smem_bytes<T>(), p, st,
-                             kDqThreads)
-                    : launch(flash_dq_kernel<T, false>, grid, dq_smem_bytes<T>(), p, st,
-                             kDqThreads);
+      constexpr size_t smem = dq_smem_bytes<T, D>();
+      return extras ? launch(flash_dq_kernel<T, D, true>, grid, smem, p, st, kDqThreads)
+                    : launch(flash_dq_kernel<T, D, false>, grid, smem, p, st, kDqThreads);
     }
     default: {
       const dim3 grid(p.Hkv, B, cdiv(p.S, kDkvRows));
-      return extras ? launch(flash_dkv_kernel<T, true>, grid, dkv_smem_bytes<T>(), p, st,
-                             kDkvThreads)
-                    : launch(flash_dkv_kernel<T, false>, grid, dkv_smem_bytes<T>(), p, st,
-                             kDkvThreads);
+      constexpr size_t smem = dkv_smem_bytes<T, D>();
+      return extras ? launch(flash_dkv_kernel<T, D, true>, grid, smem, p, st, kDkvThreads)
+                    : launch(flash_dkv_kernel<T, D, false>, grid, smem, p, st, kDkvThreads);
     }
   }
 }
@@ -550,27 +592,28 @@ int blocks_per_sm(Kernel kernel, int threads, size_t smem) {
              : 0;
 }
 
-template <typename T>
+template <typename T, int D>
 int occupancy(Which which, bool extras, int* smem) {
   switch (which) {
     case kForward:
-      *smem = (int)fwd_smem_bytes<T>();
-      return extras ? blocks_per_sm(flash_fwd_kernel<T, true>, kFwdThreads, *smem)
-                    : blocks_per_sm(flash_fwd_kernel<T, false>, kFwdThreads, *smem);
+      *smem = (int)fwd_smem_bytes<T, D>();
+      return extras ? blocks_per_sm(flash_fwd_kernel<T, D, true>, kFwdThreads, *smem)
+                    : blocks_per_sm(flash_fwd_kernel<T, D, false>, kFwdThreads, *smem);
     case kDq:
-      *smem = (int)dq_smem_bytes<T>();
-      return extras ? blocks_per_sm(flash_dq_kernel<T, true>, kDqThreads, *smem)
-                    : blocks_per_sm(flash_dq_kernel<T, false>, kDqThreads, *smem);
+      *smem = (int)dq_smem_bytes<T, D>();
+      return extras ? blocks_per_sm(flash_dq_kernel<T, D, true>, kDqThreads, *smem)
+                    : blocks_per_sm(flash_dq_kernel<T, D, false>, kDqThreads, *smem);
     default:
-      *smem = (int)dkv_smem_bytes<T>();
-      return extras ? blocks_per_sm(flash_dkv_kernel<T, true>, kDkvThreads, *smem)
-                    : blocks_per_sm(flash_dkv_kernel<T, false>, kDkvThreads, *smem);
+      *smem = (int)dkv_smem_bytes<T, D>();
+      return extras ? blocks_per_sm(flash_dkv_kernel<T, D, true>, kDkvThreads, *smem)
+                    : blocks_per_sm(flash_dkv_kernel<T, D, false>, kDkvThreads, *smem);
   }
 }
 
 // strides: [q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, do_b, do_s, do_h,
 // bias_b, bias_h, bias_q, bias_k], in elements.
-int dispatch(Which which, Params p, const long long* strides, int B, int dtype, void* stream) {
+int dispatch(Which which, Params p, const long long* strides, int B, int D, int dtype,
+             void* stream) {
   p.q_sb = strides[0]; p.q_ss = strides[1]; p.q_sh = strides[2];
   p.k_sb = strides[3]; p.k_ss = strides[4]; p.k_sh = strides[5];
   p.v_sb = strides[6]; p.v_ss = strides[7]; p.v_sh = strides[8];
@@ -580,66 +623,76 @@ int dispatch(Which which, Params p, const long long* strides, int B, int dtype, 
   // dQ's and dKV's tiles are the grid's z dimension
   bool ok = B > 0 && p.S > 0 && p.H > 0 && p.Hkv > 0 && p.H % p.Hkv == 0 && B <= 65535 &&
             p.H <= 65535 && (which == kForward || cdiv(p.S, kTile) <= 65535) &&
-            (dtype == 0 || dtype == 1) && aligned16(p.q) && aligned16(p.k) && aligned16(p.v) &&
-            (p.dout == nullptr || aligned16(p.dout));
+            (dtype == 0 || dtype == 1) && (D == 64 || D == 128) && aligned16(p.q) &&
+            aligned16(p.k) && aligned16(p.v) && (p.dout == nullptr || aligned16(p.dout));
   for (int i = 0; i < 12; ++i) ok = ok && strides[i] % vec == 0;
   if (!ok) return (int)cudaErrorInvalidValue;
   p.group = p.H / p.Hkv;
   cudaStream_t st = (cudaStream_t)stream;
-  return (int)(dtype == 0 ? run<float>(which, p, B, st) : run<bf16>(which, p, B, st));
+  if (D == 64)
+    return (int)(dtype == 0 ? run<float, 64>(which, p, B, st) : run<bf16, 64>(which, p, B, st));
+  return (int)(dtype == 0 ? run<float, 128>(which, p, B, st) : run<bf16, 128>(which, p, B, st));
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Each returns a cudaError_t (0 = launched).
-// q [B, S, H, 64], k and v [B, S, Hkv, 64] by strides; bias fp32 by strides
-// or null; slopes fp32 [H] or null; o contiguous [B, S, H, 64]; lse fp32
-// contiguous [B, H, S].
+// dtype: 0 = float32, 1 = bfloat16; D (head_dim): 64 or 128.  Each returns a
+// cudaError_t (0 = launched).  q [B, S, H, D], k and v [B, S, Hkv, D] by
+// strides; bias fp32 by strides or null; slopes fp32 [H] or null; o
+// contiguous [B, S, H, D]; lse fp32 contiguous [B, H, S].
 int dst_flash_forward(const void* q, const void* k, const void* v, const float* bias,
                       const float* slopes, void* o, float* lse, const long long* strides, int B,
-                      int S, int H, int Hkv, float scale, int causal, int dtype, void* stream) {
+                      int S, int H, int Hkv, int D, float scale, int causal, int dtype,
+                      void* stream) {
   Params p = {};
   p.q = q; p.k = k; p.v = v; p.bias = bias; p.slopes = slopes; p.o = o; p.lse = lse;
   p.S = S; p.H = H; p.Hkv = Hkv; p.scale = scale; p.causal = causal;
-  return dispatch(kForward, p, strides, B, dtype, stream);
+  return dispatch(kForward, p, strides, B, D, dtype, stream);
 }
 
 // dout by strides like q; lse and delta fp32 contiguous [B, H, S]; dq
-// contiguous [B, S, H, 64].
+// contiguous [B, S, H, D].
 int dst_flash_backward_dq(const void* q, const void* k, const void* v, const void* dout,
                           const float* lse, const float* delta, const float* bias,
                           const float* slopes, void* dq, const long long* strides, int B, int S,
-                          int H, int Hkv, float scale, int causal, int dtype, void* stream) {
+                          int H, int Hkv, int D, float scale, int causal, int dtype,
+                          void* stream) {
   Params p = {};
   p.q = q; p.k = k; p.v = v; p.dout = dout; p.lse_in = lse; p.delta = delta; p.bias = bias;
   p.slopes = slopes; p.dq = dq;
   p.S = S; p.H = H; p.Hkv = Hkv; p.scale = scale; p.causal = causal;
-  return dispatch(kDq, p, strides, B, dtype, stream);
+  return dispatch(kDq, p, strides, B, D, dtype, stream);
 }
 
-// dk, dv contiguous [B, S, Hkv, 64].
+// dk, dv contiguous [B, S, Hkv, D].
 int dst_flash_backward_dkv(const void* q, const void* k, const void* v, const void* dout,
                            const float* lse, const float* delta, const float* bias,
                            const float* slopes, void* dk, void* dv, const long long* strides,
-                           int B, int S, int H, int Hkv, float scale, int causal, int dtype,
-                           void* stream) {
+                           int B, int S, int H, int Hkv, int D, float scale, int causal,
+                           int dtype, void* stream) {
   Params p = {};
   p.q = q; p.k = k; p.v = v; p.dout = dout; p.lse_in = lse; p.delta = delta; p.bias = bias;
   p.slopes = slopes; p.dk = dk; p.dv = dv;
   p.S = S; p.H = H; p.Hkv = Hkv; p.scale = scale; p.causal = causal;
-  return dispatch(kDkv, p, strides, B, dtype, stream);
+  return dispatch(kDkv, p, strides, B, D, dtype, stream);
 }
 
-// Blocks of one kernel (which: 0 forward, 1 dQ, 2 dKV; extras: its bias /
-// ALiBi instantiation) that one SM holds at once; its dynamic shared memory
-// per block in *smem_bytes.  0 on an error.
-int dst_flash_occupancy(int which, int dtype, int extras, int* smem_bytes) {
-  if (which < 0 || which > 2 || (dtype != 0 && dtype != 1) || smem_bytes == nullptr) return 0;
+// Blocks of one kernel (which: 0 forward, 1 dQ, 2 dKV; D: 64 or 128;
+// extras: its bias / ALiBi instantiation) that one SM holds at once; its
+// dynamic shared memory per block in *smem_bytes.  0 on an error.
+int dst_flash_occupancy(int which, int dtype, int D, int extras, int* smem_bytes) {
+  if (which < 0 || which > 2 || (dtype != 0 && dtype != 1) || (D != 64 && D != 128) ||
+      smem_bytes == nullptr)
+    return 0;
   const Which w = (Which)which;
-  return dtype == 0 ? occupancy<float>(w, extras != 0, smem_bytes)
-                    : occupancy<bf16>(w, extras != 0, smem_bytes);
+  const bool x = extras != 0;
+  if (D == 64)
+    return dtype == 0 ? occupancy<float, 64>(w, x, smem_bytes)
+                      : occupancy<bf16, 64>(w, x, smem_bytes);
+  return dtype == 0 ? occupancy<float, 128>(w, x, smem_bytes)
+                    : occupancy<bf16, 128>(w, x, smem_bytes);
 }
 
 }  // extern "C"

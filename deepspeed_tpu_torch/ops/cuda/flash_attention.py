@@ -38,6 +38,8 @@ mask, as in JAX), in the kernels and the plain versions alike.
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor launches
 the kernel of ``csrc/flash_attention.cu`` or raises on a dtype, head_dim,
 shape, layout or device the kernel does not take.  There is no fallback.
+The kernels are compiled for head_dim 64 (GPT-2) and 128 (LLaMA, BLOOM),
+``KERNEL_HEAD_DIMS``; another width raises naming its ROADMAP entry.
 The kernels read q, k, v and do by strides (head_dim contiguous, rows on
 16-byte boundaries), so the model's ``[B, S, H, D]`` views of its qkv
 product go in without copies; o, dq, dk and dv come out contiguous.
@@ -62,8 +64,9 @@ from deepspeed_tpu_torch.ops.attention import canonical_bias, expand_kv_heads
 from deepspeed_tpu_torch.ops.cuda import builder
 
 NEG_INF = -1e30
-KERNEL_HEAD_DIM = 64       # the one head_dim the kernels are compiled for
-OTHER_FAMILIES = "ROADMAP.md, Queue 1: other GPT families"
+KERNEL_HEAD_DIMS = (64, 128)   # the head_dims the kernels are compiled for
+OTHER_HEAD_DIMS = ("ROADMAP.md, Queue 2 part A: flash kernels at head_dim 96 "
+                   "(GPT-NeoX-20B) and 256 (GPT-J)")
 FP16 = "ROADMAP.md, Queue 1 item 5 (fp16 training)"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -165,9 +168,10 @@ def _check(name: str, q, k, v, do=None, lse=None, delta=None, bias=None, slopes=
         raise ValueError(f"{name}: k and v {tuple(k.shape)} do not match q {tuple(q.shape)}")
     if H % Hkv:
         raise ValueError(f"{name}: {H} q heads not a multiple of {Hkv} kv heads")
-    if D != KERNEL_HEAD_DIM:
-        raise ValueError(f"{name}: the CUDA kernels are compiled for head_dim "
-                         f"{KERNEL_HEAD_DIM}, got {D} ({OTHER_FAMILIES})")
+    if D not in KERNEL_HEAD_DIMS:
+        raise NotImplementedError(f"{name}: the CUDA kernels are compiled for head_dim "
+                                  f"{' or '.join(map(str, KERNEL_HEAD_DIMS))}, got {D} "
+                                  f"({OTHER_HEAD_DIMS})")
     if B == 0 or S == 0 or B > 65535 or H > 65535 or B * S * H * D >= 2 ** 31:
         raise ValueError(f"{name}: shape {tuple(q.shape)} out of range")
     inputs = (q, k, v) + ((do,) if do is not None else ())
@@ -227,13 +231,13 @@ def flash_forward(q, k, v, bias, slopes, causal: bool, scale: float
     if q.device.type == "cpu":
         return flash_forward_reference(q, k, v, bias, slopes, causal, scale)
     dtype = _check("flash_forward", q, k, v, bias=bias, slopes=slopes)
-    B, S, H, _ = q.shape
+    B, S, H, D = q.shape
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     lib = builder.load_library()
     rc = lib.dst_flash_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
                                _ptr(slopes), o.data_ptr(), lse.data_ptr(),
-                               _strides(q, k, v, None, bias), B, S, H, k.shape[2],
+                               _strides(q, k, v, None, bias), B, S, H, k.shape[2], D,
                                scale, int(causal), dtype,
                                torch.cuda.current_stream(q.device).cuda_stream)
     builder.check(lib, rc, "flash_forward")
@@ -251,13 +255,13 @@ def flash_backward_dq(q, k, v, do, lse, delta, bias, slopes, causal: bool,
     if q.device.type == "cpu":
         return flash_backward_dq_reference(q, k, v, do, lse, delta, bias, slopes, causal, scale)
     dtype = _check("flash_backward_dq", q, k, v, do, lse, delta, bias, slopes)
-    B, S, H, _ = q.shape
+    B, S, H, D = q.shape
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lib = builder.load_library()
     rc = lib.dst_flash_backward_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                                    lse.data_ptr(), delta.data_ptr(), _ptr(bias), _ptr(slopes),
                                    dq.data_ptr(), _strides(q, k, v, do, bias), B, S, H,
-                                   k.shape[2], scale, int(causal), dtype,
+                                   k.shape[2], D, scale, int(causal), dtype,
                                    torch.cuda.current_stream(q.device).cuda_stream)
     builder.check(lib, rc, "flash_backward_dq")
     flash_backward_dq.launches += 1
@@ -276,14 +280,14 @@ def flash_backward_dkv(q, k, v, do, lse, delta, bias, slopes, causal: bool,
         return flash_backward_dkv_reference(q, k, v, do, lse, delta, bias, slopes, causal,
                                             scale)
     dtype = _check("flash_backward_dkv", q, k, v, do, lse, delta, bias, slopes)
-    B, S, H, _ = q.shape
+    B, S, H, D = q.shape
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     lib = builder.load_library()
     rc = lib.dst_flash_backward_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                                     lse.data_ptr(), delta.data_ptr(), _ptr(bias), _ptr(slopes),
                                     dk.data_ptr(), dv.data_ptr(), _strides(q, k, v, do, bias),
-                                    B, S, H, k.shape[2], scale, int(causal), dtype,
+                                    B, S, H, k.shape[2], D, scale, int(causal), dtype,
                                     torch.cuda.current_stream(q.device).cuda_stream)
     builder.check(lib, rc, "flash_backward_dkv")
     flash_backward_dkv.launches += 1
@@ -296,17 +300,20 @@ flash_backward_dkv.launches = 0
 _KERNEL_CODES = {"forward": 0, "dq": 1, "dkv": 2}
 
 
-def kernel_occupancy(kernel: str, dtype: torch.dtype, extras: bool = False) -> Tuple[int, int]:
+def kernel_occupancy(kernel: str, dtype: torch.dtype, extras: bool = False,
+                     head_dim: int = 64) -> Tuple[int, int]:
     """(blocks per SM, dynamic shared memory bytes per block) of one flash
     kernel on the current card, by CUDA's occupancy query: ``kernel`` is
-    "forward", "dq" or "dkv", ``extras`` its bias / ALiBi instantiation.
-    Launches nothing."""
-    if kernel not in _KERNEL_CODES or dtype not in _DTYPE_CODES:
-        raise ValueError(f"kernel_occupancy: no kernel {kernel!r} for {dtype}")
+    "forward", "dq" or "dkv", ``extras`` its bias / ALiBi instantiation,
+    ``head_dim`` 64 or 128.  Launches nothing."""
+    if (kernel not in _KERNEL_CODES or dtype not in _DTYPE_CODES
+            or head_dim not in KERNEL_HEAD_DIMS):
+        raise ValueError(f"kernel_occupancy: no kernel {kernel!r} for {dtype} at "
+                         f"head_dim {head_dim}")
     lib = builder.load_library()
     smem = ctypes.c_int(0)
-    blocks = lib.dst_flash_occupancy(_KERNEL_CODES[kernel], _DTYPE_CODES[dtype], int(extras),
-                                     ctypes.byref(smem))
+    blocks = lib.dst_flash_occupancy(_KERNEL_CODES[kernel], _DTYPE_CODES[dtype], head_dim,
+                                     int(extras), ctypes.byref(smem))
     if blocks <= 0:
         raise RuntimeError(f"kernel_occupancy: the occupancy query failed for {kernel}")
     return blocks, smem.value

@@ -37,16 +37,17 @@ DQ_BLOCKS = "constexpr int kDqBlocksPerSm = 3;"
 DQ_COLS = "constexpr int kDqCols = 32;"
 DKV_WARPS = "constexpr int kDkvWarps = 4;"
 DKV_BLOCKS = "constexpr int kDkvBlocksPerSm = 2;"
-DKV_COLS = "constexpr int kDkvCols = 64;"
-DKV_32_COLS = [(DKV_COLS, "constexpr int kDkvCols = 32;")]
+DKV_COLS = "  return D == 64 ? 64 : 32;"          # dKV's query columns by head_dim
+DKV_32_COLS = [(DKV_COLS, "  return 32;")]
 DKV_3_BLOCKS = [(DKV_BLOCKS, "constexpr int kDkvBlocksPerSm = 3;")]
 # V's fragments read from shared memory for each score tile, not held in
-# registers (16 registers fewer)
+# registers (16 registers fewer at head_dim 64; head_dim 128 reads both K
+# and V so already)
 DKV_V_FROM_SMEM = [
-    ("  RowFragments<T> kf, vf;", "  RowFragments<T> kf;"),
+    ("  DkvRows<T, D> kf, vf;", "  DkvRows<T, D> kf;"),
     ("      vf.load(sv + warp * 16 * L);\n", ""),
     ("      vf.product_nt(dp, do_cols);",
-     "      RowFragments<T> v_rows;\n      v_rows.load(sv + warp * 16 * L);\n"
+     "      SharedRows<T, D> v_rows;\n      v_rows.load(sv + warp * 16 * L);\n"
      "      v_rows.product_nt(dp, do_cols);")]
 VARIANTS = {
     # blocks per SM of GPT-2's dQ path (registers a thread: 2 -> 255, 3 ->

@@ -7,8 +7,10 @@ breaks one kernel source (or the plan its wrapper makes) there in one known
 way, and runs the ``cuda``-marked tests of that kernel's test file against
 the copy's own build (the copies build and run side by side): the
 decode-attention kernels (``csrc/decode_attention.cu``), the flash forward,
-dQ and dKV (``csrc/flash_attention.cu``), the cross-entropy forward and
-backward (``csrc/cross_entropy.cu``), the block-sparse forward, dQ and dKV
+dQ and dKV (``csrc/flash_attention.cu``; at head_dim 128 dKV reads K's rows
+from shared memory through ``csrc/attention_tile.cuh``), the cross-entropy
+forward and backward, cluster and wide paths (``csrc/cross_entropy.cu``),
+the block-sparse forward, dQ and dKV
 (``csrc/block_sparse_attention.cu``) and the fused AdamW
 (``csrc/fused_optim.cu`` and its plan in ``fused_optim.py``).  The
 unmutated checkout runs every one of those test files the same way and
@@ -32,6 +34,7 @@ REPO = Path(__file__).resolve().parents[3]
 CSRC = "deepspeed_tpu_torch/ops/cuda/csrc/"
 DECODE = (CSRC + "decode_attention.cu", "tests/test_torch_decode_attention.py")
 FLASH = (CSRC + "flash_attention.cu", "tests/test_torch_flash_attention.py")
+TILE = (CSRC + "attention_tile.cuh", "tests/test_torch_flash_attention.py")
 CROSS_ENTROPY = (CSRC + "cross_entropy.cu", "tests/test_torch_cross_entropy.py")
 SPARSE = (CSRC + "block_sparse_attention.cu", "tests/test_torch_sparse_attention.py")
 ADAM = (CSRC + "fused_optim.cu", "tests/test_torch_fused_optim.py")
@@ -41,6 +44,7 @@ TIMEOUT_S = 900
 # AdamW is compiled for both; by mutation where it breaks one dtype's kernel
 DTYPES = {ADAM[1]: ("float32",)}
 MUTATION_DTYPES = {"ce-fwd-drop-last-k-slice": ("bfloat16",),
+                   "flash-dkv-d128-k-rows-half-deep": ("bfloat16",),
                    "sparse-dq-wgmma-tiles-unswizzled": ("bfloat16",),
                    "sparse-dq-wgmma-k-step-of-k-major": ("bfloat16",)}
 BOTH = ("float32", "bfloat16")
@@ -101,6 +105,21 @@ MUTATIONS = {
         "per_head = n_q - first;",
         "  const int n_q = max(p.S / kTile, key0 / kTile + 1), first = p.causal ? key0 / kTile "
         ": 0, per_head = n_q - first;"),
+    "flash-dkv-d128-drop-second-column-half": (
+        FLASH, "flash dKV at head_dim 128: each query tile's second half of columns adds "
+        "nothing to dK and dV",
+        "    for (int c = 0; c < kTile; c += kDkvCols) {",
+        "    for (int c = 0; c < (D == 64 ? kTile : kTile - kDkvCols); c += kDkvCols) {"),
+    "flash-dkv-d128-k-rows-half-deep": (
+        TILE, "flash dKV at head_dim 128 (bf16): the scores read K's rows from shared memory "
+        "only 64 deep",
+        "    for (int kk = 0; kk < D / 16; ++kk) {",
+        "    for (int kk = 0; kk < D / 32; ++kk) {"),
+    "ce-wide-dx-wrong-chunk-offset": (
+        CROSS_ENTROPY, "cross-entropy wide backward: dx's product reads chunk c's head rows "
+        "from half its offset",
+        "  const T* head_rows = static_cast<const T*>(a.head) + (long long)a.v0 * a.e;",
+        "  const T* head_rows = static_cast<const T*>(a.head) + (long long)(a.v0 / 2) * a.e;"),
     "ce-drop-last-cluster-block": (
         CROSS_ENTROPY, "cross-entropy backward: the last block's slice of E is left out of "
         "every summed score",

@@ -52,7 +52,8 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.accelerator.real_accelerator import get_accelerator, resolve_device
-from deepspeed_tpu_torch.models.gpt import GPTConfig, require_gpt2_family
+from deepspeed_tpu_torch.models.gpt import GPTConfig
+from deepspeed_tpu_torch.ops.cuda.flash_attention import KERNEL_HEAD_DIMS, OTHER_HEAD_DIMS
 from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing import checkpoint_policy
 from deepspeed_tpu_torch.runtime.config import UNPORTED_BLOCKS, DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import unit_loss_scaler
@@ -106,8 +107,11 @@ class DeepSpeedEngine:
         ac = self._config.activation_checkpointing_config
         checkpoint_policy(ac.partition_activations, ac.cpu_checkpointing)
         mcfg = getattr(model, "cfg", None)
-        if isinstance(mcfg, GPTConfig):
-            require_gpt2_family(mcfg, "initialize()")
+        if (isinstance(mcfg, GPTConfig) and self.device.type == "cuda"
+                and mcfg.head_dim not in KERNEL_HEAD_DIMS):
+            raise NotImplementedError(
+                f"initialize(): head_dim {mcfg.head_dim} has no flash kernels on the card "
+                f"(they take {' or '.join(map(str, KERNEL_HEAD_DIMS))}; {OTHER_HEAD_DIMS})")
         if ((ac.contiguous_memory_optimization or ac.number_checkpoints)
                 and mcfg is not None and not mcfg.remat):
             model.cfg = dataclasses.replace(mcfg, remat=True)
@@ -316,7 +320,13 @@ class DeepSpeedEngine:
         fp32 hold it at 1; fp16 (ROADMAP.md, Queue 1 item 5) must update
         that tensor in place."""
         inv = 1.0 / (self.scaler.scale * float(self.gradient_accumulation_steps()))
-        grad_norm = torch.linalg.vector_norm(self._grad_flat) * inv
+        if self._grad_flat.is_cuda:
+            grad_norm = torch.linalg.vector_norm(self._grad_flat) * inv
+        else:
+            # the CPU reduction sums fp32 squares in sequence, which over a
+            # few million values drifts by ~1e-4 from the tree sum of XLA
+            # (and of the card); fp64 keeps it to fp32 rounding
+            grad_norm = torch.linalg.vector_norm(self._grad_flat, dtype=torch.float64).float() * inv
         clip = self.gradient_clipping()
         if clip and clip > 0:
             factor = torch.clamp(clip / (grad_norm + 1e-6), max=1.0)

@@ -11,6 +11,11 @@ masked) and with ``vocab_size`` = V (no mask), and the same rows at E =
 200 ("wide-ragged": not a multiple of the forward's 32- or 64-column
 steps, one block of the backward's cluster).
 
+The head bias (GPT-J's untied head) the same way: the loss and the
+gradients of x, head and the bias against the Pallas kernels in interpret
+mode (``has_bias``) and against JAX's chunked path, unchunked and in 3 row
+chunks.
+
 Tolerances.  fp32: the loss within 1e-6 relative, dx and dhead within
 1e-5 of their largest magnitude (both sides sum in fp32, in other orders).
 bf16: 2e-2 of the largest magnitude (the plain version rounds the logits
@@ -20,7 +25,8 @@ fp32).
 The CUDA kernels run only on a card: the ``cuda``-marked tests skip here
 and run on the GPU machine (``python -m pytest
 tests/test_torch_cross_entropy.py -m cuda``); ``chip_smoke.py`` holds the
-kernels against the plain versions at GPT-2's training shape.
+kernels against the plain versions at GPT-2's training shape and at
+Llama-3-8B's and BLOOM-7b1's (n_embd 4096, through the wide backward).
 """
 
 import numpy as np
@@ -110,6 +116,63 @@ def test_cross_entropy_matches_jax_chunked(monkeypatch, case, dtype, n_chunks):
     assert_close(port_value_and_grads(fn, x, head, dtype), ref, dtype)
 
 
+def make_bias(V, seed=0):
+    return (np.random.default_rng(seed).standard_normal(V) * 0.5).astype(np.float32)
+
+
+def jax_value_and_grads_with_bias(fn, x, head, b, dtype):
+    jdt = DTYPES[dtype][0]
+    loss, grads = jax.value_and_grad(fn, argnums=(0, 1, 2))(
+        jnp.asarray(x, jdt), jnp.asarray(head, jdt), jnp.asarray(b, jdt))
+    return (float(loss),) + tuple(np.asarray(g.astype(jnp.float32)) for g in grads)
+
+
+def port_value_and_grads_with_bias(fn, x, head, b, dtype):
+    tdt = DTYPES[dtype][1]
+    ts = [torch.from_numpy(a).to(tdt).requires_grad_() for a in (x, head, b)]
+    loss = fn(*ts)
+    loss.backward()
+    return (float(loss.detach()),) + tuple(t.grad.float().numpy() for t in ts)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_cross_entropy_with_head_bias_matches_pallas_interpret(case, dtype):
+    """The JAX kernels with ``has_bias`` (interpret mode on the CPU): the
+    loss and the gradients of x, head and the bias."""
+    N, E, V, vocab = CASES[case]
+    x, head, labels = make_inputs(N, E, V, vocab, seed=7)
+    b = make_bias(V, seed=7)
+    lab_j, lab_t = jnp.asarray(labels), torch.from_numpy(labels)
+    ref = jax_value_and_grads_with_bias(
+        lambda a, h, hb: jce.fused_cross_entropy(a, h, lab_j, vocab, head_b=hb), x, head, b,
+        dtype)
+    port = port_value_and_grads_with_bias(
+        lambda a, h, hb: tce.cross_entropy(a, h, lab_t, vocab, head_b=hb), x, head, b, dtype)
+    assert_close(port, ref, dtype)
+
+
+@pytest.mark.parametrize("n_chunks", [0, 3])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_cross_entropy_with_head_bias_matches_jax_chunked(monkeypatch, case, n_chunks):
+    """JAX's chunked_cross_entropy with ``head_b`` and the kernel off
+    against the port's (fp32): unchunked, and in 3 ragged row chunks."""
+    monkeypatch.setenv("DST_PALLAS_CE", "0")
+    N, E, V, vocab = CASES[case]
+    x, head, labels = make_inputs(N, E, V, vocab, seed=8)
+    b = make_bias(V, seed=8)
+    lab_j, lab_t = jnp.asarray(labels)[None], torch.from_numpy(labels)[None]
+    ref = jax_value_and_grads_with_bias(
+        lambda a, h, hb: jgpt.chunked_cross_entropy(a[None], h, lab_j, vocab,
+                                                    n_chunks=n_chunks, head_b=hb),
+        x, head, b, "float32")
+    port = port_value_and_grads_with_bias(
+        lambda a, h, hb: tgpt.chunked_cross_entropy(a[None], h, lab_t, vocab,
+                                                    n_chunks=n_chunks, head_b=hb),
+        x, head, b, "float32")
+    assert_close(port, ref, "float32")
+
+
 def test_plain_entry_points_agree_with_autograd_of_the_logits():
     """The hand-derived dx and dhead are autograd's gradient of the
     unchunked loss (fp32, 1e-6 of the largest magnitude)."""
@@ -139,13 +202,23 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     tce.reset_counts()
 
 
-def test_other_devices_and_a_bias_raise():
+def test_other_devices_raise_and_a_bias_is_taken():
+    """A device with no kernel raises; a head bias is taken (on the CPU by
+    the plain versions, which give its gradient as dhead's entry point
+    does)."""
     x = torch.empty(4, 768, device="meta")
     lab = torch.empty(4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         tce.ce_forward(x, x, lab, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tce.cross_entropy(x, x, lab, 4, head_b=torch.zeros(4))
+    N, E, V, vocab = CASES["padded-vocab"]
+    x, head, labels = map(torch.from_numpy, make_inputs(N, E, V, vocab, seed=9))
+    b = torch.from_numpy(make_bias(V, seed=9)).requires_grad_()
+    tce.reset_counts()
+    tce.cross_entropy(x, head, labels, vocab, head_b=b).backward()
+    assert b.grad is not None and torch.isfinite(b.grad).all()
+    assert tce.ce_backward_dhead_reference.calls == 1 and tce.ce_backward_dhead.launches == 0
+    assert b.grad[vocab:].abs().max() == 0          # pad columns take no weight
+    tce.reset_counts()
 
 
 def _meta_inputs(E, N=4, V=128):
@@ -154,20 +227,23 @@ def _meta_inputs(E, N=4, V=128):
     return x, head, torch.empty(N, dtype=torch.int32, device="meta")
 
 
-@pytest.mark.parametrize("E", sorted(GPT2_EMBD.values()) + [200])
+@pytest.mark.parametrize("E", sorted(GPT2_EMBD.values()) + [200, 1672, 4096])
 def test_kernel_shape_check_takes_every_gpt2_width(E):
     """The kernels' shape check takes each GPT-2 preset's n_embd (and 200,
-    not a multiple of the forward's 32-column step)."""
+    not a multiple of the forward's 32-column step), and the widths past
+    the cluster backward's 8 x 208 columns: 1672, and LLaMA's and BLOOM's
+    4096, which take the wide backward."""
     x, head, labels = _meta_inputs(E)
     assert tce._check_cuda("ce_forward", x, head, labels, 128) == 0
+    assert tce.wide_path(E) == (E > tce.CLUSTER_MAX_EMBD)
     if E in GPT2_EMBD.values():
         assert tgpt.gpt_config(next(k for k, v in GPT2_EMBD.items() if v == E)).n_embd == E
 
 
-@pytest.mark.parametrize("E", [100, 764, 1604, tce.MAX_EMBD + 8])
+@pytest.mark.parametrize("E", [100, 764, 1604, 4100])
 def test_kernel_shape_check_refuses_other_widths_naming_the_roadmap(E):
-    """A width that is not a multiple of 8 (or past the backward's 8 x 208
-    columns) raises, naming the ROADMAP item; it never falls back."""
+    """A width that is not a multiple of 8 raises, naming the ROADMAP item;
+    it never falls back."""
     x, head, labels = _meta_inputs(E)
     with pytest.raises(ValueError, match="n_embd.*Queue 1: other GPT families"):
         tce._check_cuda("ce_forward", x, head, labels, 128)
@@ -186,6 +262,37 @@ def test_dx_grid_splits_the_vocab_to_fill_the_waves():
     tiles, splits = tce.dx_grid(37, 1000, torch.float32, 100)
     v_tiles = -(-1000 // tce.BWD_STREAM[torch.float32])
     assert tiles == 1 and splits == 16 and (splits - 1) * -(-v_tiles // 16) < v_tiles
+
+
+# (N, V, dtype): Llama-3-8B's and BLOOM-7b1's training rows (micro 4 x
+# seq 2048) and padded vocabs, and a few rows of a small vocab
+WIDE_CASES = {"llama3-8b-bf16": (8192, 128256, torch.bfloat16),
+              "bloom-7b1-bf16": (8192, 250880, torch.bfloat16),
+              "llama3-8b-fp32": (8192, 128256, torch.float32),
+              "small": (37, 384, torch.float32)}
+
+
+@pytest.mark.parametrize("case", sorted(WIDE_CASES))
+def test_wide_chunks_fit_the_scratch_and_cover_the_vocab(case):
+    """The wide backward's vocab chunks: whole 128-column tiles, the ds
+    scratch of one chunk within WIDE_SCRATCH_BYTES, every vocab column in
+    exactly one chunk; two launches a chunk on the wide path, one call's
+    launch on the cluster path."""
+    N, V, dtype = WIDE_CASES[case]
+    ld = tce.wide_chunk(N, V, dtype)
+    elem = torch.tensor([], dtype=dtype).element_size()
+    assert ld % tce.WIDE_TILE == 0 and ld >= tce.WIDE_TILE
+    assert N * ld * elem <= tce.WIDE_SCRATCH_BYTES or ld == tce.WIDE_TILE
+    starts = list(range(0, V, ld))
+    covered = [c for v0 in starts for c in range(v0, min(v0 + ld, V))]
+    assert covered == list(range(V))
+    assert tce.launches_per_call(N, 4096, V, dtype) == 2 * len(starts)
+    assert tce.launches_per_call(N, 768, V, dtype) == 1
+    assert tce.launches_per_call(N, 768, V, dtype, bias=True) == 2 * len(starts)
+    if case == "llama3-8b-bf16":
+        assert (ld, len(starts)) == (16384, 8)
+    if case == "bloom-7b1-bf16":
+        assert (ld, len(starts)) == (16384, 16)
 
 
 def fwd_tiles(N, V, dtype, splits):
@@ -283,6 +390,89 @@ def test_cuda_kernels_match_plain(cuda_device, case, dtype):
         err = (got.float() - want.float()).abs()
         assert err.max().item() <= grad_tol * want.float().abs().max().item()
         assert (err[rows].norm() / softmax.norm()).item() <= softmax_tol
+
+
+# the wide backward (n_embd past 1664, or a head bias): (N, E, V, vocab,
+# bias, chunk columns or None for the default chunk); ragged rows and a
+# ragged vocab, in one chunk and in 256-column chunks (dx summed over them)
+WIDE_KERNEL_CASES = {"e1672-one-chunk": (300, 1672, 1000, 999, False, None),
+                     "e4096-ragged": (333, 4096, 1000, 990, False, None),
+                     "e4096-chunks": (333, 4096, 1000, 990, False, 256),
+                     "e768-bias": (200, 768, 1000, 997, True, None),
+                     "e4096-bias-chunks": (130, 4096, 1000, 1000, True, 256)}
+
+
+def wide_case(case, dtype, device, monkeypatch):
+    N, E, V, vocab, bias, chunk = WIDE_KERNEL_CASES[case]
+    tdt = DTYPES[dtype][1]
+    if chunk is not None:      # scratch for `chunk` columns: several chunks at this size
+        elem = 2 if dtype == "bfloat16" else 4
+        monkeypatch.setattr(tce, "WIDE_SCRATCH_BYTES", N * chunk * elem)
+    x, head, labels = (torch.from_numpy(a).to(device)
+                       for a in make_inputs(N, E, V, vocab, seed=4))
+    # the logits' std at most 5 (0.2 sqrt(E) unscaled): peaked rows, as at E 768
+    x, head = x.to(tdt), (head * min(1.0, 25.0 / E ** 0.5)).to(tdt)
+    b = torch.from_numpy(make_bias(V, seed=4)).to(device, tdt) if bias else None
+    return x, head, labels, b, vocab
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", sorted(WIDE_KERNEL_CASES))
+def test_cuda_wide_backward_matches_plain(cuda_device, monkeypatch, case, dtype):
+    """The wide path's dx and dhead (and dbias), and the forward with a
+    bias, against the plain versions with fp32 products, to the cluster
+    path's tolerances; each call makes the launches launches_per_call
+    counts."""
+    x, head, labels, b, vocab = wide_case(case, dtype, cuda_device, monkeypatch)
+    N, V = x.shape[0], head.shape[0]
+    fwd_tol, grad_tol, softmax_tol = KERNEL_TOL[dtype]
+    g = torch.full((1,), 1.0 / N, device=cuda_device)
+    tce.reset_counts()
+    nll, lse = tce.ce_forward(x, head, labels, vocab, b)
+    rnll, rlse = tce.ce_forward_reference(x, head, labels, vocab, fp32_products=True, head_b=b)
+    args = (x, head, labels, rlse, g, vocab)
+    dx = tce.ce_backward_dx(*args, head_b=b)
+    rdx = tce.ce_backward_dx_reference(*args, fp32_products=True, head_b=b)
+    dh = tce.ce_backward_dhead(*args, head_b=b)
+    rdh = tce.ce_backward_dhead_reference(*args, fp32_products=True, head_b=b)
+    torch.cuda.synchronize()
+    per_call = tce.launches_per_call(N, x.shape[1], V, x.dtype, bias=b is not None)
+    assert per_call > 1 and tce.ce_backward_dx.launches == per_call
+    assert tce.ce_backward_dhead.launches == per_call
+    if b is not None:
+        (dh, db), (rdh, rdb) = dh, rdh
+        err = (db.float() - rdb.float()).abs().max().item()
+        assert err <= grad_tol * rdb.float().abs().max().item(), f"dbias {err:.3e}"
+    for got, want in ((nll, rnll), (lse, rlse)):
+        assert ((got - want).abs() / want.abs().clamp(min=1.0)).max().item() <= fwd_tol
+    hit = torch.zeros(V, dtype=torch.bool, device=cuda_device)
+    hit[labels.long()] = True
+    free = ~hit & (torch.arange(V, device=cuda_device) < vocab)
+    softmax_dx = rdx.float() + g * head[labels.long()].float()
+    for got, want, softmax, rows in ((dx, rdx, softmax_dx, slice(None)),
+                                     (dh, rdh, rdh.float()[free], free)):
+        assert torch.isfinite(got.float()).all()
+        err = (got.float() - want.float()).abs()
+        assert err.max().item() <= grad_tol * want.float().abs().max().item()
+        assert (err[rows].norm() / softmax.norm()).item() <= softmax_tol
+    tce.reset_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_wide_backward_is_bitwise_equal_across_calls(cuda_device, monkeypatch, dtype):
+    """dx, dhead and dbias twice on the same inputs over several chunks:
+    bitwise equal (every sum in a fixed order, no atomics)."""
+    x, head, labels, b, vocab = wide_case("e4096-bias-chunks", dtype, cuda_device, monkeypatch)
+    g = torch.full((1,), 1.0 / x.shape[0], device=cuda_device)
+    _, lse = tce.ce_forward(x, head, labels, vocab, b)
+    runs = [(tce.ce_backward_dx(x, head, labels, lse, g, vocab, head_b=b),
+             *tce.ce_backward_dhead(x, head, labels, lse, g, vocab, head_b=b))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, c in zip(*runs):
+        assert torch.isfinite(a.float()).all() and torch.equal(a, c)
 
 
 @pytest.mark.cuda

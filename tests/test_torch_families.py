@@ -33,6 +33,7 @@ from deepspeed_tpu_torch.models import gpt as tgpt
 from deepspeed_tpu_torch.models.convert import gpt_from_jax, params_from_jax
 from deepspeed_tpu_torch.ops.attention import alibi_slopes
 from deepspeed_tpu_torch.ops.cuda import decode_attention as tda
+from deepspeed_tpu_torch.ops.cuda import flash_attention as tfa
 from deepspeed_tpu_torch.serving.kv_cache import PagedKVAllocator
 
 TOL = 1e-5
@@ -470,17 +471,48 @@ def test_serving_engine_arena_holds_kv_heads():
 
 
 @pytest.mark.parametrize("name", ["llama-g2", "bloom", "neox-parallel"])
-def test_training_refuses_the_families(name):
-    """Training takes GPT-2 only: gpt_forward, gpt_loss and initialize()
-    raise naming the ROADMAP entry."""
-    family, kw = TINY[name]
-    cfg = make_config(tgpt, family, kw, dtype="float32")
-    model = tgpt.GPT(cfg, device="cpu")
-    ids = torch.zeros(1, 4, dtype=torch.long)
-    for call in (lambda: tgpt.gpt_forward(cfg, model.param_tree(), ids),
-                 lambda: model(model.param_tree(), (ids, ids)),
-                 lambda: dst.initialize(model=model, device="cpu", config={
-                     "train_micro_batch_size_per_gpu": 1})):
-        with pytest.raises(NotImplementedError, match="other GPT families: training"):
-            call()
+def test_training_takes_the_families(name):
+    """gpt_forward, the model's loss and initialize() -> train_batch take
+    the families (they raised before training was ported for them): the
+    logits and the loss match JAX's, and a train_batch step gives a finite
+    loss (the full parity of training is tests/test_torch_family_training.py)."""
+    jcfg, jparams = jax_model(name)
+    model = port_model(name, jparams)
+    cfg = model.cfg
+    rng = np.random.default_rng(31)
+    ids = rng.integers(0, cfg.vocab_size, (2, 12)).astype(np.int32)
+    labels = np.roll(ids, -1, axis=-1)
+    want = jgpt.gpt_forward(jcfg, jparams, jnp.asarray(ids))
+    got = tgpt.gpt_forward(cfg, model.param_tree(), torch.from_numpy(ids))
+    assert_close(got.numpy(), np.asarray(want))
+    jloss = float(jgpt.gpt_loss(jcfg, jparams, jnp.asarray(ids), jnp.asarray(labels)))
+    loss = float(model(model.param_tree(), (torch.from_numpy(ids), torch.from_numpy(labels))))
+    assert abs(loss - jloss) <= TOL * abs(jloss)
+    engine = dst.initialize(model=model, device="cpu", model_parameters=params_from_jax(jparams),
+                            config={"train_micro_batch_size_per_gpu": 2,
+                                    "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}})[0]
+    step = float(engine.train_batch(batch=(ids[None], labels[None])))
+    assert np.isfinite(step) and abs(step - jloss) <= TOL * abs(jloss)
     assert tgpt.GPT(dataclasses.replace(cfg, n_layer=1), device="cpu").num_params() > 0
+
+
+@pytest.mark.parametrize("what", ["moe", "dropout", "head_dim-96-on-the-card"])
+def test_training_refuses_the_families(what):
+    """What training still leaves unported raises NotImplementedError naming
+    its ROADMAP entry: MoE blocks, dropout, and a head_dim the flash
+    kernels are not compiled for (the card's kernels; shapes are checked
+    before the device, so meta tensors meet the same check)."""
+    family, kw = TINY["llama-g2"]
+    if what == "moe":
+        with pytest.raises(NotImplementedError, match="other GPT families"):
+            make_config(tgpt, family, kw, dtype="float32", moe_num_experts=4)
+    elif what == "dropout":
+        cfg = make_config(tgpt, family, kw, dtype="float32", dropout=0.1)
+        model = tgpt.GPT(cfg, device="cpu")
+        ids = torch.zeros(1, 4, dtype=torch.long)
+        with pytest.raises(NotImplementedError, match="dropout"):
+            model(model.param_tree(), (ids, ids))
+    else:
+        q = torch.empty(1, 300, 2, 96, device="meta")
+        with pytest.raises(NotImplementedError, match="head_dim 64 or 128.*Queue 2 part A"):
+            tfa.flash_forward(q, q, q, None, None, True, 96 ** -0.5)

@@ -14,7 +14,8 @@ held, on the same numpy inputs, against
 
 Cases: causal and non-causal, S 256 at head_dim 64, GQA with Hkv 2 and 1
 at H 4, ALiBi slopes from ``alibi_slopes``, a per-head dense bias and a
-rank-2 bias; each in fp32 and bf16.  Tolerance: |port - jax| <= tol *
+rank-2 bias, and at head_dim 128 (LLaMA's and BLOOM's) GQA 4:1 and ALiBi;
+each in fp32 and bf16.  Tolerance: |port - jax| <= tol *
 max(1, |jax|), tol 2e-5 in fp32 (the JAX tests' own: fp32 sums in other
 orders) and 2e-2 in bf16 (p, ds and the outputs are rounded to bf16 on
 both sides, from fp32 values that differ by rounding noise).  Against the
@@ -28,7 +29,8 @@ and run on the GPU machine (``python -m pytest
 tests/test_torch_flash_attention.py -m cuda``), where each kernel is held
 against its plain version on the same inputs, over the
 same cases plus a ragged S 1000, GPT-2 XL's 25 heads at S 512, a GQA
-group of 3 and S around the kernels' 64-row tiles.
+group of 3 and S around the kernels' 64-row tiles, and at head_dim 128
+GQA 4:1 at a ragged S, ALiBi, a group of 3, a dense bias and S 129.
 """
 
 import math
@@ -55,6 +57,8 @@ CASES = {
     "alibi": (1, 128, 4, 4, 32, True, None, True),
     "bias-per-head": (2, 128, 4, 4, 32, False, "per-head", False),
     "bias-rank2": (1, 128, 4, 2, 32, True, "rank2", False),
+    "gqa4-d128": (1, 128, 4, 1, 128, True, None, False),
+    "alibi-d128": (1, 128, 2, 2, 128, True, None, True),
 }
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -263,9 +267,10 @@ def test_what_the_kernels_do_not_take_raises():
     """Shapes are checked before the device, so meta tensors reach the
     checks a CUDA tensor meets; a grouping that does not divide raises on
     every device."""
-    q = torch.empty(1, 8, 4, 48, device="meta")
-    with pytest.raises(ValueError, match="head_dim 64.*Queue 1: other GPT families"):
-        tfa.flash_forward(q, q, q, *NO_EXTRAS)
+    for D in (48, 96, 256):
+        q = torch.empty(1, 8, 4, D, device="meta")
+        with pytest.raises(NotImplementedError, match="head_dim 64 or 128.*Queue 2 part A"):
+            tfa.flash_forward(q, q, q, *NO_EXTRAS)
     q = torch.empty(1, 8, 4, 64, device="meta")
     kv = torch.empty(1, 8, 3, 64, device="meta")
     with pytest.raises(ValueError, match="multiple"):
@@ -319,6 +324,14 @@ KERNEL_CASES = {
     "s129-noncausal": (2, 129, 4, 4, False, None, False),
     "s255-causal": (1, 255, 4, 2, True, None, False),
     "s255-noncausal": (1, 255, 4, 4, False, None, False),
+    # head_dim 128 (LLaMA, BLOOM): GQA 4:1 at a ragged S, ALiBi, dKV's loop
+    # over a group of 3, a dense bias without the causal mask, and one row
+    # into a second tile (trailing entry: the head_dim; 64 where absent)
+    "d128-gqa4-s1000": (1, 1000, 8, 2, True, None, False, 128),
+    "d128-alibi-s320": (1, 320, 4, 4, True, None, True, 128),
+    "d128-gqa-group3": (1, 200, 6, 2, True, None, False, 128),
+    "d128-bias-per-head-s200": (1, 200, 2, 2, False, "per-head", False, 128),
+    "d128-s129-noncausal": (2, 129, 2, 2, False, None, False, 128),
 }
 # kernel against the plain version (exact products) on the same inputs, q
 # drawn so the score std is 3 (peaked rows).  Per output: max |err| / max
@@ -330,14 +343,15 @@ KERNEL_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 5e-3)}
 
 
 def kernel_inputs(case, dtype, device, seed=11):
-    B, S, H, Hkv, causal, bias_kind, alibi = KERNEL_CASES[case]
+    B, S, H, Hkv, causal, bias_kind, alibi, *head_dim = KERNEL_CASES[case]
+    D = head_dim[0] if head_dim else 64
     rng = np.random.default_rng(seed)
 
     def dev(a, dt=None):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device, dt or DTYPES[dtype][1])
-    q = dev(rng.standard_normal((B, S, H, 64)) * 3.0)
-    k, v = (dev(rng.standard_normal((B, S, Hkv, 64))) for _ in range(2))
-    do = dev(rng.standard_normal((B, S, H, 64)))
+    q = dev(rng.standard_normal((B, S, H, D)) * 3.0)
+    k, v = (dev(rng.standard_normal((B, S, Hkv, D))) for _ in range(2))
+    do = dev(rng.standard_normal((B, S, H, D)))
     bias = None
     if bias_kind == "per-head":
         bias = dev(rng.standard_normal((B, H, S, S)) * 0.5, torch.float32)
@@ -359,7 +373,7 @@ def kernel_errors(got, want):
 @pytest.mark.parametrize("case", sorted(KERNEL_CASES))
 def test_cuda_kernels_match_plain(cuda_device, case, dtype):
     (q, k, v, do), bias, slopes, causal = kernel_inputs(case, dtype, cuda_device)
-    scale = 1.0 / 8.0
+    scale = 1.0 / math.sqrt(q.shape[-1])
     o, lse = tfa.flash_forward(q, k, v, bias, slopes, causal, scale)
     ro, rlse = tfa.flash_forward_reference(q, k, v, bias, slopes, causal, scale)
     delta = (ro.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
@@ -399,8 +413,8 @@ def test_cuda_reads_the_models_qkv_views_by_stride(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_rejects_what_the_kernels_do_not_take(cuda_device):
-    q = torch.zeros(1, 64, 4, 48, device=cuda_device)
-    with pytest.raises(ValueError, match="Queue 1: other GPT families"):
+    q = torch.zeros(1, 64, 4, 96, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="Queue 2 part A"):
         tfa.flash_forward(q, q, q, *NO_EXTRAS)
     q = torch.zeros(1, 64, 4, 64, device=cuda_device)
     kv = torch.zeros(1, 64, 3, 64, device=cuda_device)
@@ -428,12 +442,14 @@ PEAKED_L2_TOL = 5e-3
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["causal", "noncausal", "alibi", "bias-per-head",
-                                  "ragged-s1000", "s129-causal"])
+                                  "ragged-s1000", "s129-causal", "d128-gqa4-s1000",
+                                  "d128-alibi-s320"])
 def test_cuda_forward_bf16_peaked(cuda_device, case):
     (q, k, v, _), bias, slopes, causal = kernel_inputs(case, "bfloat16", cuda_device)
-    o, _ = tfa.flash_forward(q, k, v, bias, slopes, causal, 0.125)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    o, _ = tfa.flash_forward(q, k, v, bias, slopes, causal, scale)
     ro, _ = tfa.flash_forward_reference(q.float(), k.float(), v.float(), bias, slopes, causal,
-                                        0.125)
+                                        scale)
     torch.cuda.synchronize()
     err = ((o.float() - ro).norm() / ro.norm()).item()
     assert err <= PEAKED_L2_TOL, f"relative L2 {err:.3e}"
@@ -441,13 +457,13 @@ def test_cuda_forward_bf16_peaked(cuda_device, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("case", ["causal", "alibi", "ragged-s1000"])
+@pytest.mark.parametrize("case", ["causal", "alibi", "ragged-s1000", "d128-alibi-s320"])
 def test_cuda_saved_lse_gives_the_plain_forwards_gradients(cuda_device, case, dtype):
     """The lse the kernel forward saves (for the backward and for remat) is
     in natural-log units: dQ and dKV given it agree with dQ and dKV given
     the plain forward's lse, within the kernels' tolerances."""
     (q, k, v, do), bias, slopes, causal = kernel_inputs(case, dtype, cuda_device)
-    scale = 0.125
+    scale = 1.0 / math.sqrt(q.shape[-1])
     o, lse = tfa.flash_forward(q, k, v, bias, slopes, causal, scale)
     _, rlse = tfa.flash_forward_reference(q, k, v, bias, slopes, causal, scale)
     delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()

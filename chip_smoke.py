@@ -120,7 +120,33 @@ Phases, each printing its own lines; any failure exits non-zero:
    the first decode step's logits against the plain attention path), the
    paged kernel launched once per layer per dispatch, and peak memory;
 14. the same for BLOOM-7b1's widths (``bloom_config``, ALiBi, tied head):
-   fp32 at 8 of 30 layers, bf16 at all 30.
+   fp32 at 8 of 30 layers, bf16 at all 30;
+15-17. the families' training cells (FAMILY_TRAIN below): Llama-3-8B's
+   widths at 8 layers, bf16, graphed and eager, profiled; its fp32 kernel
+   path against the plain path at 2 layers; BLOOM-7b1's widths at 2 layers;
+18. DeepSpeed-MoE's 350M+MoE-128 (MOE_CELL below) served: (a) fp32 (TF32
+   off) at 8 of its 24 blocks with a no-drop eval capacity factor (chunked
+   and whole-prompt prefills would drop different tokens at 1.0), held
+   token for token against the port's ``generate()`` through
+   ``init_serving`` (roomy and preempting) and ``init_inference(...)
+   .generate``, near-ties counted as in phase 4; (b) bf16 at all 24 blocks
+   and the published factor 1.0 through ``init_serving``: phase 5's
+   measurements (the logit comparison pinned to the kernel run's routes,
+   the routes that differ and their smallest gate margin printed), 24
+   paged launches a dispatch, peak memory, and the drop fraction and load
+   entropy of every gating call of one more serve of the same requests;
+19. its training, bf16, at 2 of 24 blocks (micro 4 x seq 2048, AdamW lr
+   1e-4 wd 0.01, clip 1.0, remat, ZeRO-0, graphed, gating noise drawn from
+   the engine's generator): as phase 15, with TFLOPs by the active
+   parameter count (one expert a token), all uninstrumented; then the
+   drop fraction of each of 4 eager steps after them, under MoEGauges;
+20. its fp32 kernel path against the plain path at 2 blocks, phase 8's
+   config, top-1 and top-2: 3 graphed steps, 3 eager steps through the
+   kernels (recording every gating call's routes; bitwise equal to the
+   graphed ones, or held to phase 8's limits), 3 eager steps through the
+   plain versions pinned to those routes (the routes of their own that
+   differ and their smallest gate margin printed), held to phase 8's
+   limits.
 Each phase prints its seconds.
 
 Phase 2 also prints the registers, spills, blocks per SM and shared
@@ -151,7 +177,9 @@ reusing the saved o and lse; the sparse forward twice, since remat saves
 nothing of it, as in JAX, and its dQ and dKV once; the cross-entropy
 kernels once per micro-step; AdamW once per step), no other kernel, and
 the plain versions never (the fp32 phases' plain runs excepted).
-The kernel table reports each kernel's count from the run that uses it.
+The kernel table reports each kernel's case at the shape of this
+slice's run that launches it and that run's count (phases 18-19; the
+block-sparse kernels phase 9's).
 The last two lines are the kernel table (JSON) and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside this file, it exits non-zero and prints no result.
@@ -213,7 +241,8 @@ FAMILY_CELLS = {
 }
 KERNEL_HEADS = {"gpt2-xl": (H, H, D, False),
                 "llama3-8b": (32, 8, 128, False),      # GQA 4:1
-                "bloom-7b1": (32, 32, 128, True)}
+                "bloom-7b1": (32, 32, 128, True),
+                "moe-350m": (16, 16, 64, False)}
 
 PROMPT_LENS = [17, 45, 80, 130, 200, 260, 300, 33, 150, 96]
 NEW_TOKENS = 32
@@ -284,6 +313,26 @@ FAMILY_TRAIN_CFG = dict(TRAIN_CFG, train_micro_batch_size_per_gpu=FAMILY_TRAIN_M
 # the fp32 kernel-vs-plain parity of Llama-3-8B's widths at phase 8's
 # config and limits: layers, seq, micro
 FAMILY_PARITY = (2, TRAIN_SEQ, TRAIN_MICRO)
+# phases 18-20: DeepSpeed-MoE's 350M+MoE-128 (Rajbhandari et al., ICML 2022;
+# Megatron-DeepSpeed examples_deepspeed/MoE/ds_pretrain_gpt_350M_MoE128.sh):
+# GPT-2 medium's dense widths (1024 x 16 heads, head_dim 64, learned
+# positions, tied head over vocab 50304) at n_positions 2048; 128 GELU
+# experts of 4096 in every block (the published model has them in every
+# other block; the repo's MoE layout puts a bank in each); top-1, capacity
+# factor 1.0 in training and eval, min capacity 4, aux coefficient 0.01
+MOE_CELL = dict(n_embd=1024, n_head=16, n_layer=24, n_positions=2048, moe_num_experts=128,
+                moe_top_k=1, moe_expert_hidden=4096, moe_capacity_factor=1.0,
+                moe_eval_capacity_factor=1.0, moe_min_capacity=4, moe_aux_coeff=0.01)
+# phase 18 (a): blocks of the fp32 identity runs (8.68 B parameters, 34.7
+# GB), at an eval capacity factor >= the 128 experts, which drops no token
+MOE_FP32_LAYERS, MOE_NO_DROP = 8, 128.0
+# phase 19: blocks, warm-up, timed graphed and eager steps (2 blocks: 2.21 B
+# parameters, ~40 GB of fp32 master, gradient, moments and bf16 copy), and
+# the eager steps after them that read the gating's drop fraction;
+# phase 20: blocks of the fp32 parity runs
+MOE_TRAIN = (2, 2, 6, 2, 4)
+MOE_TRAIN_PARAMS = 2_211_072_000
+MOE_PARITY_LAYERS = 2
 # phase 12: graphed against eager steps (fp32), and the save / resume runs
 # (bf16: RESUME_STEPS steps, a save, RESUME_STEPS more)
 GRAPH_PARITY_STEPS, RESUME_STEPS = 3, 3
@@ -336,6 +385,8 @@ FLASH_CASES = {
     "ragged": (2, 1000, 12, 12, True, None, False),
     "noncausal": (8, 512, 12, 12, False, None, False),
     "gpt2-s4096": (2, 4096, 12, 12, True, None, False),
+    # the MoE cell's training shape (micro 4 x seq 2048, 16 heads of 64)
+    "moe-350m-train": (4, 2048, 16, 16, True, None, False),
     # the families' training shape (micro 4 x seq 2048) at head_dim 128
     # (trailing entry; 64 where absent): Llama-3-8B's GQA 32:8, BLOOM-7b1's
     # 32 heads with ALiBi
@@ -716,7 +767,7 @@ def phase_fp32(model, prompts, device, roomy_blocks: int, small_blocks: int,
     tag = f"{name} " if name else ""
     refs, gen_counts = counted(f"{tag}fp32 generate()", {"decode_attention": None}, lambda: [
         model.generate([p], NEW_TOKENS)[0, len(p):].tolist() for p in prompts])
-    results = {"generate": dict(counts=gen_counts)}
+    results = {"generate": dict(counts=gen_counts), "refs": refs}
     for label, blocks in (("roomy", roomy_blocks), ("preempting", small_blocks)):
         eng = dst.init_serving(model=model, device=device, config={"serving": dict(
             SERVE_CFG, num_blocks=blocks, dtype="float32")})
@@ -883,9 +934,20 @@ def phase_bf16(model, prompts, device, blocks: int, card: str, name: str = ""):
     profile = profile_decode(eng, prompts, card)
     serve_model = eng.module
     del eng
-    tok, *kernel = first_decode_logits(serve_model, prompts[1], "kernel")
-    plain = first_decode_logits(serve_model, prompts[1], "plain", tok=tok)[1:]
-    exact = first_decode_logits(serve_model, prompts[1], "exact", tok=tok)[1:]
+    # an MoE model's gate could route a token elsewhere on another path at a
+    # near-tie: the plain and exact runs take the kernel run's routes
+    from deepspeed_tpu_torch.moe.sharded_moe import route_log
+    with route_log() as routes:
+        tok, *kernel = first_decode_logits(serve_model, prompts[1], "kernel")
+    with route_log(pinned=routes.choices) as plain_routes:
+        plain = first_decode_logits(serve_model, prompts[1], "plain", tok=tok)[1:]
+    with route_log(pinned=routes.choices) as exact_routes:
+        exact = first_decode_logits(serve_model, prompts[1], "exact", tok=tok)[1:]
+    if routes.choices:
+        say(f"{tag}bf16 logit comparison pinned to the kernel run's routes over "
+            f"{len(routes.choices)} gating calls: own routes that differ: plain attention "
+            f"{plain_routes.differ()} (smallest gate margin {plain_routes.min_margin():.3e}), "
+            f"exact attention {exact_routes.differ()} (smallest {exact_routes.min_margin():.3e})")
 
     def dist(a, b):
         return max((x - y).abs().max().item() for x, y in zip(a, b))
@@ -1390,8 +1452,9 @@ def sparse_cases(device, flush, card: str, reps: int = 20, plain_reps: int = 3):
 def ce_cases(device, flush, reps: int = 20, plain_reps: int = 5):
     """The three cross-entropy kernels at GPT-2's training shape (N 4096 =
     micro 8 x seq 512, E 768, V 50304, vocab 50257), fp32 and bf16, in bf16
-    at the other GPT-2 widths (CE_WIDTHS), and the forward alone at the
-    sparse step's N 8192.  Beside the forward, cuBLAS's ``x @
+    at the other GPT-2 widths (CE_WIDTHS) and at the MoE cell's (N 8192 =
+    micro 4 x seq 2048, E 1024), and the forward alone at the sparse step's
+    N 8192.  Beside the forward, cuBLAS's ``x @
     head[:vocab]^T`` alone (and over the padded head, ``x @ head^T``): the
     least a library takes for the product the kernel fuses."""
     import torch
@@ -1401,10 +1464,12 @@ def ce_cases(device, flush, reps: int = 20, plain_reps: int = 5):
     N0, E0, V, vocab = CE_SHAPE
     runs = [("gpt2-train", N0, E0, "float32"), ("gpt2-train", N0, E0, "bfloat16")] + [
         (case, N0, E, "bfloat16") for case, E in CE_WIDTHS.items()] + [
-        ("gpt2-s4096-sparse", CE_SPARSE_ROWS, E0, "bfloat16")]
+        ("gpt2-s4096-sparse", CE_SPARSE_ROWS, E0, "bfloat16"),
+        ("moe-350m-train", FAMILY_TRAIN_MICRO * FAMILY_TRAIN_SEQ, MOE_CELL["n_embd"],
+         "bfloat16")]
     rows = []
     for case, N, E, dtype_name in runs:
-        forward_only = N != N0
+        forward_only = case == "gpt2-s4096-sparse"
         rng = np.random.default_rng(4321)
         x32 = torch.from_numpy(rng.standard_normal((N, E), dtype=np.float32)).to(device)
         h32 = torch.from_numpy(rng.standard_normal((V, E), dtype=np.float32)
@@ -1709,6 +1774,62 @@ def adam_case(device, flush, reps: int = 20, plain_reps: int = 3):
                  note="library: torch._fused_adamw_ on the same leaves")]
 
 
+def adam_moe_case(device, flush, reps: int = 5, plain_reps: int = 2):
+    """The fused AdamW kernel over the 13 leaves of one block of the MoE
+    cell (1,078,730,752 fp32 values; the bank's wi and wo 536,870,912 each,
+    the training run's largest leaves), bit for bit against the plain
+    version, ``torch._fused_adamw_`` as the yardstick."""
+    import torch
+    from deepspeed_tpu_torch.models import gpt as gpt_mod
+    tfo = kernel_modules()[2]
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    cfg = moe_config(1, "float32")
+    block = gpt_mod._init_block(cfg, gen)
+    params = [gpt_mod.get_leaf(block, k) for k in gpt_mod.block_keys(cfg)]
+
+    def randn_like(p, scale):
+        return torch.randn(p.shape, generator=gen, device=device) * scale
+    grads = [randn_like(p, 1e-3) for p in params]
+    mus = [randn_like(p, 1e-4) for p in params]
+    nus = [randn_like(p, 1e-3).square() for p in params]
+    spec = tfo.spec_from_config("adamw", {"weight_decay": 0.01}, 1e-4)
+    neg_lr, bc1, bc2 = tfo.step_scalars(spec, torch.tensor(10, dtype=torch.int32,
+                                                           device=device))
+    scal = torch.stack([torch.tensor(0.5, device=device), torch.tensor(0.7, device=device),
+                        neg_lr, bc1, bc2])
+    kw = dict(b1=spec["b1"], b2=spec["b2"], eps=spec["eps"], wd=spec["wd"])
+    a = [[t.clone() for t in ts] for ts in (params, mus, nus)]
+    a.insert(1, grads)
+    b = [params, grads, mus, nus]            # the originals: no second copy in memory
+    table = tfo.AdamTable(*a)
+    tfo.fused_adam(table, scal, **kw)
+    tfo.adam_reference(*b, scal, **kw)
+    torch.cuda.synchronize()
+    mismatches = sum(int((x != y).sum()) for xs, ys in zip(a, b) for x, y in zip(xs, ys))
+    err = max((x - y).abs().max().item() for xs, ys in zip(a, b) for x, y in zip(xs, ys))
+    n = table.numel()
+    say(f"fused_adam (moe-350m block): {len(params)} leaves, {n:,} values, largest "
+        f"{max(p.numel() for p in params):,}; {mismatches} elements differ from the plain "
+        f"version (bitwise contract)")
+    if mismatches:
+        fail(f"fused_adam (moe-350m block): {mismatches} elements differ from the plain version")
+    steps = [torch.tensor(10.0, device=device) for _ in params]
+    lib = median_ms(lambda: torch._fused_adamw_(
+        a[0], grads, a[2], a[3], [], steps, lr=1e-4, beta1=0.9, beta2=0.999,
+        weight_decay=0.01, eps=1e-8, amsgrad=False, maximize=False), reps, flush)
+    b_ms, b_by = bound(28 * n, 20.0 * n, "float32")
+    row = dict(kernel="fused_adam", case="moe-350m-block", dtype="float32", err=err,
+               scaled=err, ms=median_ms(lambda: tfo.fused_adam(table, scal, **kw), reps, flush),
+               plain_ms=median_ms(lambda: tfo.adam_reference(*b, scal, **kw), plain_reps, flush),
+               bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+               note="library: torch._fused_adamw_ on the same leaves")
+    del a, b, table, params, grads, mus, nus
+    torch.cuda.empty_cache()
+    return [row]
+
+
 # --------------------------------------------------------------------------- #
 # phases 7-8: training end to end
 # --------------------------------------------------------------------------- #
@@ -1973,7 +2094,9 @@ def profile_train_step(engine, batch, card: str, attn_impl: str = "auto",
 def phase_train_bf16(device, card: str, seq: int = TRAIN_SEQ, timed: int = TRAIN_TIMED_STEPS,
                      profiled: bool = True, attn_impl: str = "auto", micro: int = TRAIN_MICRO,
                      config=TRAIN_CFG, preset: str = "gpt2", warmup: int = 2,
-                     eager: int = EAGER_STEPS, loss_steps=None, cfg=None):
+                     eager: int = EAGER_STEPS, loss_steps=None, cfg=None,
+                     flops_per_token=None, flops_label: str = "bench.py's dense formula",
+                     after=None):
     """GPT-2 (``preset``; or the model of ``cfg``, a GPTConfig of another
     family, made in bf16 since the engine draws its own fp32 masters) at
     ``seq`` through initialize() -> train_batch,
@@ -1989,7 +2112,11 @@ def phase_train_bf16(device, card: str, seq: int = TRAIN_SEQ, timed: int = TRAIN
     kernels (``train_expect``); the counts are exact on both paths.  The
     loss must fall over the first ``loss_steps`` steps (None: all of them).
     Peak device memory: from the engine's state through the graphed steps
-    (warm-up, capture, replays), then over the eager steps alone."""
+    (warm-up, capture, replays), then over the eager steps alone.  TFLOPs
+    by ``model.flops_per_token(seq)``, or by ``flops_per_token`` (named by
+    ``flops_label``).  ``after(engine, batch)`` runs once the measurements
+    and profiles are done, before the engine closes; what it returns is
+    the result's ``after``."""
     import torch
     from deepspeed_tpu_torch.models.gpt import GPT, gpt_config
 
@@ -2010,13 +2137,16 @@ def phase_train_bf16(device, card: str, seq: int = TRAIN_SEQ, timed: int = TRAIN
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     state_gib = torch.cuda.memory_allocated() / 2 ** 30
-    losses = [engine.train_batch(batch=batch) for _ in range(warmup)]
+
+    def graphed_step():
+        return engine.train_batch(batch=batch)
+    losses = [graphed_step() for _ in range(warmup)]
     torch.cuda.synchronize()
     label = f"bf16 train {preset} seq {seq} {attn_impl}"
     (out, host_ms, step_ms), counts = counted(
         f"{label} graphed ({timed} steps)",
         train_expect(attn_impl, seq, cfg.n_layer, timed, ce_launches=ce_launches),
-        lambda: timed_steps(lambda: engine.train_batch(batch=batch), timed))
+        lambda: timed_steps(graphed_step, timed))
     losses += out
     mem = {"state_gib": state_gib,
            "graphed_alloc_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -2045,17 +2175,18 @@ def phase_train_bf16(device, card: str, seq: int = TRAIN_SEQ, timed: int = TRAIN
              f"{window[-1]:.4f})")
     say(f"{label}: losses {[round(v, 4) for v in vals]}")
     rates = {}
+    fpt = flops_per_token or model.flops_per_token(seq)
+    n_params = sum(p.numel() for p in model.parameters())      # the tree's leaves
     for path, wall, host in (("graphed", step_ms, host_ms), ("eager", e_step_ms, e_host_ms)):
         med = statistics.median(wall)
         samples_s = micro / (med / 1e3)
-        rates[path] = (med, statistics.median(host), samples_s,
-                       samples_s * seq * model.flops_per_token(seq) / 1e12)
+        rates[path] = (med, statistics.median(host), samples_s, samples_s * seq * fpt / 1e12)
         say(f"bf16 train ({path}): {preset} ({cfg.n_layer} layers x {cfg.n_embd}) seq {seq} "
-            f"micro {micro} attn_impl {attn_impl}, {model.num_params():,} params; median step "
+            f"micro {micro} attn_impl {attn_impl}, {n_params:,} params; median step "
             f"{med:.3f} ms (min {min(wall):.3f}, max {max(wall):.3f}) over {len(wall)} steps, "
             f"of which the host takes a median {rates[path][1]:.3f} ms to queue it; "
-            f"{samples_s:.2f} samples/s; {rates[path][3]:.2f} TFLOPs by bench.py's dense "
-            f"formula [{card}]")
+            f"{samples_s:.2f} samples/s; {rates[path][3]:.2f} TFLOPs by {flops_label} "
+            f"[{card}]")
     say(f"bf16 train: loss {vals[0]:.4f} -> {vals[-1]:.4f} over {len(vals)} steps ({warmup} "
         f"warm-up, {timed} graphed, {eager} eager); {captures} capture, "
         f"{engine.graphs.replays} replays")
@@ -2066,14 +2197,15 @@ def phase_train_bf16(device, card: str, seq: int = TRAIN_SEQ, timed: int = TRAIN
             say(f"train ({path}): device busy {pr['device_ms'] / rates[path][0]:.1%} of the "
                 f"median un-profiled step ({pr['device_ms']:.3f} ms device / "
                 f"{rates[path][0]:.3f} ms)")
+    extra = after(engine, batch) if after is not None else None
     engine.close()
     med, host, samples_s, tflops = rates["graphed"]
     return dict(step_ms=med, host_ms=host, samples_per_s=samples_s, tflops=tflops,
                 eager_step_ms=rates["eager"][0], eager_host_ms=rates["eager"][1],
                 eager_samples_per_s=rates["eager"][2], eager_tflops=rates["eager"][3],
                 losses=vals, counts=counts, eager_counts=e_counts, profile=prof,
-                eager_profile=e_prof, params=model.num_params(), n_layer=cfg.n_layer,
-                n_embd=cfg.n_embd, memory=mem)
+                eager_profile=e_prof, params=n_params, n_layer=cfg.n_layer,
+                n_embd=cfg.n_embd, memory=mem, after=extra)
 
 
 def param_copies(model):
@@ -2113,9 +2245,14 @@ def phase_train_fp32_parity(device, steps: int = 3, seq: int = TRAIN_SEQ,
     eager steps through their plain versions (patched in where the engine
     calls the kernels; the plain cross-entropy backward indexes by a mask,
     which a graph capture refuses), from the same seeded weights.  The
-    plain path's only use on the card."""
+    plain path's only use on the card.  An MoE model also runs its kernel
+    steps eagerly, recording every gating call's routes (held to the
+    graphed steps), and its plain steps are pinned to those routes and held
+    against them (the routes of their own that differ, and their smallest
+    gate margin, printed)."""
     import torch
     from deepspeed_tpu_torch.models.gpt import GPT, gpt_config
+    from deepspeed_tpu_torch.moe.sharded_moe import route_log
     from deepspeed_tpu_torch.runtime import optimizers
     _, tce, tfo, tfa, tbs = kernel_modules()
 
@@ -2138,9 +2275,29 @@ def phase_train_fp32_parity(device, steps: int = 3, seq: int = TRAIN_SEQ,
         return losses, param_copies(model)
 
     label = f"fp32 train {cfg.n_layer} layers x {cfg.n_embd} seq {seq} {attn_impl}"
-    (k_losses, k_params), k_counts = counted(
-        f"{label}, kernels",
-        train_expect(attn_impl, seq, cfg.n_layer, steps, ce_launches=ce_launches), run_path)
+    moe = bool(cfg.moe_num_experts)
+    if moe:
+        label += f" moe top-{cfg.moe_top_k}"
+    want = train_expect(attn_impl, seq, cfg.n_layer, steps, ce_launches=ce_launches)
+    (k_losses, k_params), k_counts = counted(f"{label}, kernels", want, run_path)
+    routes = None
+    if moe:
+        # the kernels again, eagerly, recording every gating call's routes
+        # (the graphed run draws the same noise: the capture registers the
+        # engine's generator); the plain path takes these routes
+        with route_log() as routes:
+            (e_losses, e_params), _ = counted(f"{label}, kernels eager", want,
+                                              lambda: run_path(graphed=False))
+        same = bitwise_equal(e_losses, e_params, k_losses, k_params)
+        loss_rel, worst, _, rel_l2 = trajectory_diff(e_losses, e_params, k_losses, k_params)
+        say(f"{label}: graphed and eager kernel steps bitwise equal {same} (losses rel diff "
+            f"{loss_rel:.3e}, params max abs diff {worst:.3e}, relative L2 {rel_l2:.3e}); "
+            f"{len(routes.choices)} gating calls recorded")
+        if not (loss_rel <= TRAIN_LOSS_RTOL and worst <= TRAIN_PARAM_ATOL
+                and rel_l2 <= TRAIN_PARAM_REL_L2):
+            fail(f"{label}: graphed and eager kernel steps differ past phase 8's limits")
+        del k_params
+        k_losses, k_params = e_losses, e_params
     saved = (tfa.flash_forward, tfa.flash_backward_dq, tfa.flash_backward_dkv, tce.ce_forward,
              tce.ce_backward_dx, tce.ce_backward_dhead, optimizers.fused_adam,
              tbs.block_sparse_forward, tbs.block_sparse_backward_dq,
@@ -2163,7 +2320,8 @@ def phase_train_fp32_parity(device, steps: int = 3, seq: int = TRAIN_SEQ,
     try:
         for mod in kernel_modules():
             mod.reset_counts()
-        p_losses, p_params = run_path(graphed=False)
+        with route_log(pinned=routes.choices if moe else None) as pinned:
+            p_losses, p_params = run_path(graphed=False)
         _, plain = read_counts()
     finally:
         (tfa.flash_forward, tfa.flash_backward_dq, tfa.flash_backward_dkv, tce.ce_forward,
@@ -2171,6 +2329,10 @@ def phase_train_fp32_parity(device, steps: int = 3, seq: int = TRAIN_SEQ,
          tbs.block_sparse_forward, tbs.block_sparse_backward_dq,
          tbs.block_sparse_backward_dkv) = saved
     say(f"{label}, plain versions: plain calls {json.dumps(plain)}")
+    if moe:
+        say(f"{label}, plain versions pinned to the kernel run's routes: {pinned.differ()} "
+            f"(token, choice) routes of their own differ over {len(pinned.choices)} gating "
+            f"calls; smallest gate margin among them {pinned.min_margin():.3e}")
     loss_rel, worst, worst_key, rel_l2 = trajectory_diff(k_losses, k_params, p_losses, p_params)
     say(f"{label} parity over {steps} steps: losses kernel {k_losses} vs plain "
         f"{p_losses} (max rel diff {loss_rel:.3e}, tol {TRAIN_LOSS_RTOL:g}); params max abs "
@@ -2183,7 +2345,9 @@ def phase_train_fp32_parity(device, steps: int = 3, seq: int = TRAIN_SEQ,
         fail(f"{label}: kernel and plain losses differ by {loss_rel:.3e}")
     if not (worst <= TRAIN_PARAM_ATOL and rel_l2 <= TRAIN_PARAM_REL_L2):
         fail(f"{label}: kernel and plain parameters differ past the tolerance")
-    return dict(loss_rel=loss_rel, param_max=worst, param_rel_l2=rel_l2, counts=k_counts)
+    return dict(loss_rel=loss_rel, param_max=worst, param_rel_l2=rel_l2, counts=k_counts,
+                routes_differ=pinned.differ() if moe else 0,
+                min_margin=pinned.min_margin() if moe else None)
 
 
 # --------------------------------------------------------------------------- #
@@ -2382,6 +2546,196 @@ def phase_family_train(name: str, device, card: str):
                             warmup=warmup, eager=eager, cfg=cfg)
 
 
+# --------------------------------------------------------------------------- #
+# phases 18-20: DeepSpeed-MoE 350M+MoE-128
+# --------------------------------------------------------------------------- #
+def moe_config(layers: int, dtype: str, **overrides):
+    from deepspeed_tpu_torch.models.gpt import gpt_config
+    return gpt_config("gpt2", **dict(MOE_CELL, n_layer=layers, **overrides), dtype=dtype)
+
+
+class MoEGauges:
+    """While active, every gating call (``moe/sharded_moe.py``, where the
+    MoE layer calls it) also computes ``expert_load_metrics`` of its
+    decision and keeps its (tokens, drop fraction, load entropy), the last
+    two as device scalars.  Nothing is read on the host until ``summary``.
+    Smoke-only instrumentation: no measured run is made under it."""
+
+    def __init__(self):
+        self.records = []
+
+    def __enter__(self):
+        from deepspeed_tpu_torch.moe import sharded_moe
+        self._saved = (sharded_moe.top1gating, sharded_moe.top2gating)
+        sharded_moe.top1gating = self._wrap(self._saved[0], 1)
+        sharded_moe.top2gating = self._wrap(self._saved[1], 2)
+        return self
+
+    def __exit__(self, *exc):
+        from deepspeed_tpu_torch.moe import sharded_moe
+        sharded_moe.top1gating, sharded_moe.top2gating = self._saved
+
+    def _wrap(self, gating, k: int):
+        from deepspeed_tpu_torch.moe.sharded_moe import expert_load_metrics
+
+        def gated(logits, *args, **kwargs):
+            out = gating(logits, *args, **kwargs)
+            m = expert_load_metrics(out[2], out[1], k=k)
+            self.records.append((logits.shape[0], m["drop_fraction"].detach(),
+                                 m["load_entropy_frac"].detach()))
+            return out
+        return gated
+
+    def summary(self):
+        """By gating width (tokens a call): calls, mean drop fraction, mean
+        load entropy (fraction of log E)."""
+        out = {}
+        for tokens, drop, ent in self.records:
+            c, d, e = out.get(tokens, (0, 0.0, 0.0))
+            out[tokens] = (c + 1, d + float(drop), e + float(ent))
+        return {t: (c, d / c, e / c) for t, (c, d, e) in sorted(out.items())}
+
+
+def phase_moe_serve(device, card: str):
+    """Phase 18: the MoE cell served.  (a) fp32 (TF32 off) at
+    MOE_FP32_LAYERS blocks and the no-drop eval factor: ``init_serving``
+    (roomy, preempting; phase 4's checks) and ``init_inference(...)
+    .generate`` held token for token against ``generate()``; (b) bf16 at
+    all 24 blocks and factor 1.0, made in bf16 on the card: phase 5's
+    measurements through ``init_serving`` with 24 paged launches a
+    dispatch, peak memory, then one more serve of the same requests under
+    MoEGauges for the drop fraction and load entropy."""
+    import torch
+    import deepspeed_tpu_torch as dst
+    from types import SimpleNamespace
+    from deepspeed_tpu_torch.models import gpt as gpt_mod
+
+    cfg = moe_config(MOE_FP32_LAYERS, "float32", moe_eval_capacity_factor=MOE_NO_DROP)
+    t0 = time.perf_counter()
+    model = gpt_mod.GPT(cfg, device=device, seed=0)
+    torch.cuda.synchronize()
+    say(f"model: moe-350m fp32 at {cfg.n_layer} of {MOE_CELL['n_layer']} blocks (depth cut to "
+        f"fit the fp32 run; widths as published) x {cfg.n_embd}, {cfg.n_head} heads, "
+        f"{cfg.moe_num_experts} experts of {cfg.expert_hidden}, top-{cfg.moe_top_k}, eval "
+        f"capacity factor {cfg.moe_eval_capacity_factor:g} (no drop), "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f}B params, seeded init in "
+        f"{time.perf_counter() - t0:.1f}s")
+    prompts = make_prompts(cfg.vocab_size, PROMPT_LENS)
+    fp32 = phase_fp32(model, prompts, device, roomy_blocks=512, small_blocks=40,
+                      name="moe-350m")
+    eng = dst.init_inference(model=model, device=device, config={"dtype": "float32"})
+    if eng.module is not model:
+        fail("init_inference copied an fp32 model it could serve as it is")
+    t0 = time.perf_counter()
+    outs, inf_counts = counted("moe-350m fp32 init_inference generate",
+                               {"decode_attention": None}, lambda: [
+                                   eng.generate([p], NEW_TOKENS)[0, len(p):].tolist()
+                                   for p in prompts])
+    wall = time.perf_counter() - t0
+    ties = check_identity(model, prompts, [SimpleNamespace(token_ids=o) for o in outs],
+                          fp32["refs"], "moe-350m fp32 init_inference")
+    say(f"moe-350m fp32 init_inference(...).generate: {len(outs)} requests (prompts padded "
+        f"to 64-token buckets) token-identical to generate() except {ties} near-ties; "
+        f"{wall:.2f}s")
+    fp32["inference"] = dict(ties=ties, counts=inf_counts)
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats(device)
+    before = torch.cuda.memory_allocated(device)
+    cfg = moe_config(MOE_CELL["n_layer"], "bfloat16")
+    t0 = time.perf_counter()
+    model = gpt_mod.GPT(cfg, device=device, seed=0, param_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated(device) - before
+    n_params = sum(p.numel() for p in model.parameters())
+    bank = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+               if ".moe.experts." in n)
+    say(f"model: moe-350m bf16 at all {cfg.n_layer} blocks, {n_params / 1e9:.3f}B params "
+        f"({gpt_mod.active_params(cfg) / 1e6:.1f}M active a token), {weights / 2 ** 30:.2f} GiB "
+        f"of weights (the expert banks {bank / 1e9:.2f} GB), eval capacity "
+        f"factor {cfg.moe_eval_capacity_factor:g}, seeded init in "
+        f"{time.perf_counter() - t0:.1f}s")
+    bf16 = phase_bf16(model, prompts, device, blocks=512, card=card, name="moe-350m")
+    peak = torch.cuda.max_memory_allocated(device) - before
+    say(f"moe-350m bf16: peak device memory {peak / 2 ** 30:.2f} GiB allocated above the "
+        f"{before / 2 ** 30:.2f} GiB earlier phases held "
+        f"({torch.cuda.max_memory_reserved(device) / 2 ** 30:.2f} reserved in all) [{card}]")
+    eng = dst.init_serving(model=model, device=device, config={"serving": dict(
+        SERVE_CFG, num_blocks=512, dtype="bfloat16")})
+    with MoEGauges() as gauges:
+        serve(eng, prompts, NEW_TOKENS)
+    load = gauges.summary()
+    say("moe-350m bf16 gating (expert_load_metrics of every gating call of one more serve, "
+        "by tokens a call: calls, mean drop fraction, mean load entropy as a fraction of "
+        "log 128): " + "; ".join(f"{t} tokens: {c} calls, drop {d:.4f}, entropy {e:.4f}"
+                                 for t, (c, d, e) in load.items()))
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(fp32=fp32, bf16=bf16, peak_gib=peak / 2 ** 30, weights_gib=weights / 2 ** 30,
+                load=load)
+
+
+def phase_moe_train(device, card: str):
+    """Phase 19: the MoE cell's training at MOE_TRAIN's blocks through
+    initialize() -> train_batch (bf16, micro 4 x seq 2048, bench.py's
+    config, remat, graphed, the gating noise from the engine's
+    generator): phase 15's measurements and TFLOPs by the active parameter
+    count, all without instrumentation; then, after them, a few eager
+    steps of the same engine under MoEGauges for each step's drop
+    fraction (the forward's gating calls)."""
+    from deepspeed_tpu_torch.models import gpt as gpt_mod
+    from deepspeed_tpu_torch.moe.sharded_moe import _capacity
+    layers, warmup, timed, eager, gauged = MOE_TRAIN
+    cfg = moe_config(layers, "bfloat16", remat=True)
+    seq, micro = FAMILY_TRAIN_SEQ, FAMILY_TRAIN_MICRO
+    active = gpt_mod.active_params(cfg)
+    capacity = _capacity(micro * seq, cfg.moe_num_experts, cfg.moe_capacity_factor,
+                         cfg.moe_min_capacity)
+    say(f"model: moe-350m training at {layers} of {MOE_CELL['n_layer']} blocks (depth cut: the "
+        f"fp32 master, gradient, moments and bf16 copy of every parameter sit on one card, "
+        f"ZeRO and offload not ported) x {cfg.n_embd}, {cfg.moe_num_experts} experts of "
+        f"{cfg.expert_hidden}, top-{cfg.moe_top_k}, capacity factor "
+        f"{cfg.moe_capacity_factor:g} (capacity {capacity} a block); "
+        f"{active:,} active params a token; micro {micro} x seq {seq}")
+
+    def drops(engine, batch):
+        out = []
+        for _ in range(gauged):
+            with MoEGauges() as gauges:
+                eager_step(engine, batch)
+            out.append([round(float(d), 4) for _, d, _ in gauges.records[:layers]])
+        return out
+    r = phase_train_bf16(device, card, seq=seq, timed=timed, profiled=True, micro=micro,
+                         config=FAMILY_TRAIN_CFG, preset="moe-350m", warmup=warmup,
+                         eager=eager, cfg=cfg,
+                         flops_per_token=6 * active + 12 * layers * cfg.n_embd * seq,
+                         flops_label="the active parameter count (one expert a token)",
+                         after=drops)
+    if r["params"] != MOE_TRAIN_PARAMS:
+        fail(f"moe-350m training: expected {MOE_TRAIN_PARAMS:,} parameters, got "
+             f"{r['params']:,}")
+    r["drops"] = r.pop("after")
+    say(f"moe-350m training: drop fraction per block in each of {gauged} eager steps after "
+        f"the {warmup} warm-up, {timed} graphed and {eager} eager measured ones (forward "
+        f"gating, under MoEGauges): {r['drops']}")
+    return r
+
+
+def phase_moe_parity(device):
+    """Phase 20: the MoE cell at MOE_PARITY_LAYERS blocks in fp32 (TF32
+    off), phase 8's config (seq 512, micro 8), top-1 and top-2: the kernel
+    path against the plain path (``phase_train_fp32_parity``: routes
+    recorded on the kernels' eager run, the plain run pinned to them)."""
+    out = {}
+    for k in (1, 2):
+        cfg = moe_config(MOE_PARITY_LAYERS, "float32", remat=True, moe_top_k=k)
+        out[k] = phase_train_fp32_parity(device, cfg=cfg)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2531,6 +2885,8 @@ def main() -> int:
     sparse_rows = sparse_cases(device, scratch.zero_, card)
     torch.cuda.empty_cache()
     train_rows = ce_cases(device, flush=scratch.zero_) + adam_case(device, flush=scratch.zero_)
+    torch.cuda.empty_cache()
+    train_rows += adam_moe_case(device, flush=scratch.zero_)
     report_rows(train_rows)
     torch.cuda.empty_cache()
     train_rows += ce_family_cases(device, scratch.zero_, card)
@@ -2666,22 +3022,76 @@ def main() -> int:
     say("launches by run: " + json.dumps({
         f"{name} bf16 train graphed": r["counts"] for name, r in family_train.items()}))
 
+    # ---- 18-20. DeepSpeed-MoE 350M+MoE-128 ---------------------------------------- #
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_serve = phase_moe_serve(device, card)
+    prof = moe_serve["bf16"]["profile"]
+    f32 = moe_serve["fp32"]
+    say(f"summary: moe-350m fp32 near-ties {f32['roomy']['ties']} roomy / "
+        f"{f32['preempting']['ties']} preempting (preemptions {f32['preempting']['preemptions']}) "
+        f"/ {f32['inference']['ties']} init_inference; bf16 {MOE_CELL['n_layer']} blocks: "
+        f"{moe_serve['bf16']['tokens_per_s']:.1f} tokens/s, median TTFT "
+        f"{moe_serve['bf16']['ttft_ms']:.1f} ms, median decode step "
+        f"{moe_serve['bf16']['decode_step_ms']:.2f} ms, "
+        + ("profiled decode step not measured" if prof is None else
+           f"profiled decode step {prof[0]:.3f} ms device, busy {prof[1]:.1%}, paged attention "
+           f"{prof[2]:.4f} ms ({prof[3]:.1%})")
+        + f", weights {moe_serve['weights_gib']:.2f} GiB, peak memory "
+        f"{moe_serve['peak_gib']:.2f} GiB [{card}]")
+    say("launches by run: " + json.dumps({
+        "moe-350m fp32 generate()": f32["generate"]["counts"],
+        "moe-350m fp32 serve (roomy)": f32["roomy"]["counts"],
+        "moe-350m fp32 serve (preempting)": f32["preempting"]["counts"],
+        "moe-350m fp32 init_inference generate": f32["inference"]["counts"],
+        "moe-350m bf16 serve": moe_serve["bf16"]["counts"]}))
+    phase_done("18")
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_train = phase_moe_train(device, card)
+    r = moe_train
+    say(f"summary: moe-350m training at {r['n_layer']} blocks x {r['n_embd']}, micro "
+        f"{FAMILY_TRAIN_MICRO} x seq {FAMILY_TRAIN_SEQ}, {r['params']:,} params: loss "
+        f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}; graphed {r['step_ms']:.3f} ms/step "
+        f"(host {r['host_ms']:.3f}, device {device_ms(r):.3f}), {r['samples_per_s']:.3f} "
+        f"samples/s, {r['tflops']:.2f} TFLOPs by the active parameter count; eager "
+        f"{r['eager_step_ms']:.3f} ms/step (host {r['eager_host_ms']:.3f}, device "
+        f"{device_ms(r, 'eager_profile'):.3f}); peak memory graphed "
+        f"{r['memory']['graphed_alloc_gib']:.2f} GiB allocated / "
+        f"{r['memory']['graphed_reserved_gib']:.2f} reserved [{card}]")
+    say("launches by run: " + json.dumps({"moe-350m bf16 train graphed": r["counts"],
+                                          "moe-350m bf16 train eager": r["eager_counts"]}))
+    phase_done("19")
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_parity = phase_moe_parity(device)
+    say("summary: moe-350m fp32 kernel-vs-plain at "
+        f"{MOE_PARITY_LAYERS} blocks, seq {TRAIN_SEQ}, micro {TRAIN_MICRO}: " + "; ".join(
+            f"top-{k}: loss rel diff {r['loss_rel']:.3e}, params max abs diff "
+            f"{r['param_max']:.3e}, relative L2 {r['param_rel_l2']:.3e}, own routes differing "
+            f"{r['routes_differ']} (smallest gate margin {r['min_margin']:.3e})"
+            for k, r in moe_parity.items()))
+    phase_done("20")
+
     # ---- report ------------------------------------------------------------------ #
-    # each kernel's row: its case at the shape and dtype of the run that
-    # launches it, and that run's launch count: the bf16 serve for the paged
-    # kernel, the fp32 generate() for the contiguous one, the seq-512 bf16
-    # training run for the flash, cross-entropy and AdamW kernels, the
-    # seq-4096 sparse bf16 training run for the block-sparse kernels
-    main_case = {"paged_attention": ("paged-decode", "bfloat16", bf16["counts"]),
-                 "decode_attention": ("generate-decode", "float32",
-                                      fp32["generate"]["counts"]),
-                 "flash_forward": ("gpt2-train", "bfloat16", train["counts"]),
-                 "flash_backward_dq": ("gpt2-train", "bfloat16", train["counts"]),
-                 "flash_backward_dkv": ("gpt2-train", "bfloat16", train["counts"]),
-                 "ce_forward": ("gpt2-train", "bfloat16", train["counts"]),
-                 "ce_backward_dx": ("gpt2-train", "bfloat16", train["counts"]),
-                 "ce_backward_dhead": ("gpt2-train", "bfloat16", train["counts"]),
-                 "fused_adam": ("gpt2-148-leaves", "float32", train["counts"]),
+    # each kernel's row: its case at the shape and dtype of this slice's run
+    # that launches it, and that run's launch count: the MoE cell's bf16
+    # serve for the paged kernel, its fp32 init_inference generate for the
+    # contiguous one, its bf16 training run for the flash, cross-entropy and
+    # AdamW kernels; the seq-4096 sparse bf16 training run for the
+    # block-sparse kernels
+    moe_train_counts = moe_train["counts"]
+    main_case = {"paged_attention": ("moe-350m-paged-decode", "bfloat16",
+                                     moe_serve["bf16"]["counts"]),
+                 "decode_attention": ("moe-350m-generate-decode", "float32",
+                                      moe_serve["fp32"]["inference"]["counts"]),
+                 "flash_forward": ("moe-350m-train", "bfloat16", moe_train_counts),
+                 "flash_backward_dq": ("moe-350m-train", "bfloat16", moe_train_counts),
+                 "flash_backward_dkv": ("moe-350m-train", "bfloat16", moe_train_counts),
+                 "ce_forward": ("moe-350m-train", "bfloat16", moe_train_counts),
+                 "ce_backward_dx": ("moe-350m-train", "bfloat16", moe_train_counts),
+                 "ce_backward_dhead": ("moe-350m-train", "bfloat16", moe_train_counts),
+                 "fused_adam": ("moe-350m-block", "float32", moe_train_counts),
                  "block_sparse_forward": ("gpt2-s4096-fixed", "bfloat16", sparse["counts"]),
                  "block_sparse_backward_dq": ("gpt2-s4096-fixed", "bfloat16", sparse["counts"]),
                  "block_sparse_backward_dkv": ("gpt2-s4096-fixed", "bfloat16",

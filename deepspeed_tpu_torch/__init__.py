@@ -1,15 +1,18 @@
 """deepspeed_tpu_torch — the PyTorch/CUDA port of ``deepspeed_tpu``.
 
-Counterpart of ``deepspeed_tpu/__init__.py``.  Two slices so far: training
-(``initialize`` -> ``DeepSpeedEngine.train_batch``, GPT-2 at ZeRO-0 on one
-device, with the hand-written flash attention, cross-entropy and fused
-AdamW kernels; flash runs on the card above 256 tokens) and
+Counterpart of ``deepspeed_tpu/__init__.py``.  Three entry points:
+training (``initialize`` -> ``DeepSpeedEngine.train_batch``, the GPT
+families, dense and mixture-of-experts, at ZeRO-0 on one device, with the
+hand-written flash attention, cross-entropy and fused AdamW kernels),
 serving (``init_serving`` / ``ServingEngine`` over the paged KV arena, with
-the decode-attention kernels).  ``init_inference`` comes in a later slice
-(ROADMAP.md).  Entry points run on the current CUDA device unless the
-caller passes ``device="cpu"``.
+the paged decode kernel) and inference (``init_inference`` /
+``InferenceEngine``: forward and greedy ``generate`` over the contiguous KV
+cache, with the contiguous decode kernel).  Entry points run on the
+current CUDA device unless the caller passes ``device="cpu"``.
 """
 
+from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
+from deepspeed_tpu_torch.inference.engine import InferenceEngine
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig, DeepSpeedConfigError
 from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
 from deepspeed_tpu_torch.serving.config import DeepSpeedServingConfig
@@ -29,6 +32,13 @@ def initialize(model=None, config=None, model_parameters=None, lr_scheduler=None
     return engine, engine.optimizer, None, engine.lr_scheduler
 
 
+def init_inference(model=None, config=None, **kwargs):
+    """Build an InferenceEngine (``inference/``) from a config dict +
+    kwargs (``params=``, ``device=``)."""
+    from deepspeed_tpu_torch.inference.engine import init_inference as _init
+    return _init(model=model, config=config, **kwargs)
+
+
 def init_serving(model=None, config=None, **kwargs):
     """Build a continuous-batching ServingEngine (``serving/``) from a
     ``{"serving": {...}}`` config dict + kwargs."""
@@ -37,5 +47,5 @@ def init_serving(model=None, config=None, **kwargs):
 
 
 __all__ = ["DeepSpeedConfig", "DeepSpeedConfigError", "DeepSpeedEngine",
-           "DeepSpeedServingConfig", "ServingEngine", "__version__", "initialize",
-           "init_serving"]
+           "DeepSpeedInferenceConfig", "DeepSpeedServingConfig", "InferenceEngine",
+           "ServingEngine", "__version__", "initialize", "init_inference", "init_serving"]

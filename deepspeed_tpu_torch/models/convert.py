@@ -7,7 +7,10 @@ The JAX pytree is ``{"wte", "wpe", "lnf_g", "lnf_b", "blocks"}`` (no
 ``wpe`` with rope or ALiBi positions; ``lm_head`` and ``lm_head_b`` with an
 untied head) where ``blocks`` holds stacked ``[n_layer, ...]`` leaves
 (``scan_layers=True``) or one ``{"h<i>": {...}}`` dict per layer; the
-leaves' widths are the family's (a GQA qkv, a SwiGLU gate | up).  Leaves may be numpy arrays or
+leaves' widths are the family's (a GQA qkv, a SwiGLU gate | up).  An MoE
+block holds a nested ``moe`` subtree (``gate.wg``, ``experts.{wi, bi, wo,
+bo}`` stacked over experts) in place of ``fc_*`` / ``proj_*``; its leaves
+become ``blocks.<i>.moe.gate.wg`` and so on.  Leaves may be numpy arrays or
 anything ``numpy.asarray`` reads (JAX arrays included); this module imports
 no JAX.
 
@@ -24,8 +27,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.models.gpt import (BLOCK_KEYS, GPT, OTHER_FAMILIES,
-                                            GPTConfig)
+from deepspeed_tpu_torch.models.gpt import GPT, OTHER_FAMILIES, GPTConfig
 
 # every leaf outside ``blocks`` a family's tree may hold
 TREE_TOP_KEYS = ("wte", "wpe", "lnf_g", "lnf_b", "lm_head", "lm_head_b")
@@ -42,6 +44,25 @@ def _tensor(x) -> torch.Tensor:
     return torch.tensor(arr)
 
 
+def _block_leaves(block: Dict) -> Dict[str, Any]:
+    """One block's (or the stacked blocks') leaves by dotted path: the
+    ``moe`` subtree is walked, any other leaf taken as it is (a quantized
+    leaf, a dict, raises in ``_tensor``)."""
+    out = {}
+    for k, v in block.items():
+        if k == "moe" and isinstance(v, dict):
+            stack = [("moe", v)]
+            while stack:
+                path, node = stack.pop(0)
+                if isinstance(node, dict):
+                    stack += [(f"{path}.{name}", child) for name, child in node.items()]
+                else:
+                    out[path] = node
+        else:
+            out[k] = v
+    return out
+
+
 def params_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
     """JAX GPT pytree -> state dict with :class:`GPT`'s keys (``"wte"``,
     ``"blocks.<i>.qkv_w"``, ...), CPU tensors, weights ``[in, out]``.  The
@@ -52,20 +73,16 @@ def params_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
         raise ValueError(f"unknown top-level leaves {extra}")
     sd = {name: _tensor(tree[name]) for name in TREE_TOP_KEYS if name in tree}
     blocks = tree["blocks"]
-    if "moe" in blocks or any("moe" in b for b in blocks.values()
-                              if isinstance(b, dict)):
-        raise NotImplementedError(f"MoE blocks are not ported yet ({OTHER_FAMILIES})")
     if "h0" in blocks:                       # scan_layers=False: one dict per layer
-        layers = [blocks[f"h{i}"] for i in range(len(blocks))]
-        for i, layer in enumerate(layers):
-            for k in BLOCK_KEYS:
-                sd[f"blocks.{i}.{k}"] = _tensor(layer[k])
+        for i in range(len(blocks)):
+            for k, leaf in _block_leaves(blocks[f"h{i}"]).items():
+                sd[f"blocks.{i}.{k}"] = _tensor(leaf)
         return sd
-    stacked = {k: _tensor(blocks[k]) for k in BLOCK_KEYS}
+    stacked = {k: _tensor(leaf) for k, leaf in _block_leaves(blocks).items()}
     n_layer = stacked["qkv_w"].shape[0]
     for i in range(n_layer):
-        for k in BLOCK_KEYS:
-            sd[f"blocks.{i}.{k}"] = stacked[k][i].clone()
+        for k, leaf in stacked.items():
+            sd[f"blocks.{i}.{k}"] = leaf[i].clone()
     return sd
 
 

@@ -18,18 +18,28 @@ One block serves the dense families, as in JAX: GPT-2 (learned positions,
 layernorm, gelu MLP, tied head), LLaMA-style (rope, RMSNorm, SwiGLU,
 bias-free, grouped-query attention, untied head), BLOOM (ALiBi),
 GPT-NeoX-style parallel blocks and GPT-J-style single-norm parallel blocks
-(untied head with a bias).  The training path (``gpt_forward``,
-``gpt_loss``) and the serving paths (``generate()``, ``gpt_paged_step``)
-take every family knob: rope at positions ``arange(S)``, GQA K/V handed to
-the attention op unexpanded, ALiBi as per-head slopes the attention op
-applies itself, the untied head and its bias through the cross-entropy
-kernels.
+(untied head with a bias).  With ``moe_num_experts > 0`` each block's MLP
+is a gated bank of GELU experts (``moe/``; JAX's ``_ffn``): top-1 or top-2
+gating at ``moe_capacity_factor`` in training and
+``moe_eval_capacity_factor`` otherwise, over every token a call is given
+(padding and idle serving slots included, as in JAX), and the blocks' aux
+losses summed into ``gpt_loss`` times ``moe_aux_coeff``.  In training the
+gating noise (RTS priorities, gumbel draws) is drawn from the ``rng``
+generator before each block's checkpointed body and handed to it as
+tensors, so the recompute routes as the forward did.
+
+The training path (``gpt_forward``, ``gpt_loss``) and the serving paths
+(``generate()``, ``gpt_paged_step``) take every family knob: rope at
+positions ``arange(S)``, GQA K/V handed to the attention op unexpanded,
+ALiBi as per-head slopes the attention op applies itself, the untied head
+and its bias through the cross-entropy kernels.
 
 Where JAX updated a cache with ``dynamic_update_slice`` or a scatter, the
 port writes into the cache tensor in place (no second cache in memory).
 
-Plain large products (qkv, out, fc, proj), the norms, the activations,
-rope, the embedding gather and the argmax are PyTorch calls.  Attention
+Plain large products (qkv, out, fc, proj, the gate and the experts' batched
+products), the norms, the activations, rope, the embedding gather, the
+gating and the argmax are PyTorch calls.  Attention
 goes through the CUDA kernels of ``ops/cuda/decode_attention.py`` when
 decoding (GQA against the un-expanded ``Hkv`` cache, ALiBi as per-head
 slopes the kernels apply themselves) and through ``ops/attention.py`` when
@@ -37,9 +47,9 @@ training (the reference up to 256 tokens, the flash kernels of
 ``ops/cuda/flash_attention.py`` above, fed the ``[B, S, H, D]`` views of
 the qkv product without copies); the training loss goes through the fused
 cross-entropy kernels of ``ops/cuda/cross_entropy.py`` on the card.
-MoE blocks and training knobs not ported yet (random-LTD, activation
-quantization, dropout, progressive layer drop) raise
-``NotImplementedError`` naming their ROADMAP item.
+Training knobs not ported yet (random-LTD, activation quantization,
+dropout, progressive layer drop) raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 import dataclasses
@@ -52,6 +62,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from deepspeed_tpu_torch.accelerator.real_accelerator import resolve_device
+from deepspeed_tpu_torch.moe.experts import FFNExpert
+from deepspeed_tpu_torch.moe.layer import MoE
+from deepspeed_tpu_torch.moe.sharded_moe import draw_noise
 from deepspeed_tpu_torch.ops.attention import alibi_slopes, get_attention_fn
 from deepspeed_tpu_torch.ops.cuda.cross_entropy import (ce_logits, cross_entropy,
                                                         label_logit)
@@ -147,6 +160,7 @@ class GPTConfig:
                              f"{self.kv_heads}")
         self.qkv_dim = (self.n_head + 2 * self.kv_heads) * self.head_dim
         self.ffn_dim = self.intermediate_size or 4 * self.n_embd
+        self.expert_hidden = self.moe_expert_hidden or self.ffn_dim
         for knob, allowed in (("position_encoding", ("learned", "rope", "alibi")),
                               ("norm", ("layernorm", "rmsnorm")),
                               ("mlp_type", ("standard", "swiglu")),
@@ -159,13 +173,12 @@ class GPTConfig:
         if self.head_bias and not self.untied_head:
             raise ValueError("head_bias needs untied_head: the bias belongs "
                              "to the lm_head leaf")
+        if self.moe_num_experts and self.moe_top_k not in (1, 2):
+            raise ValueError(f"GPTConfig.moe_top_k={self.moe_top_k!r}; only top-1 and "
+                             f"top-2 gating are defined")
         self._reject_unported()
 
     def _reject_unported(self):
-        if self.moe_num_experts:
-            raise NotImplementedError(
-                f"GPTConfig.moe_num_experts={self.moe_num_experts!r} is not "
-                f"ported yet ({OTHER_FAMILIES})")
         training = {"ltd_keep": self.ltd_keep, "ltd_layers": self.ltd_layers,
                     "activation_quant_bits": self.activation_quant_bits}
         for knob, value in training.items():
@@ -220,6 +233,36 @@ def bloom_config(vocab_size=250880, n_positions=2048, n_embd=512, n_layer=4,
 # --------------------------------------------------------------------------- #
 BLOCK_KEYS = ("ln1_g", "ln1_b", "qkv_w", "qkv_b", "out_w", "out_b",
               "ln2_g", "ln2_b", "fc_w", "fc_b", "proj_w", "proj_b")
+# an MoE block's leaves in place of the MLP's (``fc_*``, ``proj_*``), by
+# their path in JAX's nested ``moe`` subtree
+MOE_KEYS = ("moe.gate.wg", "moe.experts.wi", "moe.experts.bi", "moe.experts.wo",
+            "moe.experts.bo")
+
+
+def block_keys(cfg: "GPTConfig") -> Tuple[str, ...]:
+    """One block's leaves, dotted paths into its tree (``moe.gate.wg``)."""
+    if not cfg.moe_num_experts:
+        return BLOCK_KEYS
+    return BLOCK_KEYS[:8] + MOE_KEYS            # the norms and attention, then the bank
+
+
+def get_leaf(tree: Dict, path: str):
+    for part in path.split("."):
+        tree = tree[part]
+    return tree
+
+
+def nest(flat: Dict[str, Any]) -> Dict:
+    """``{"moe.gate.wg": t, ...}`` -> ``{"moe": {"gate": {"wg": t}}, ...}``,
+    in ``flat``'s order."""
+    tree: Dict = {}
+    for path, leaf in flat.items():
+        *parents, name = path.split(".")
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[name] = leaf
+    return tree
 
 
 def top_keys(cfg: GPTConfig) -> Tuple[str, ...]:
@@ -233,21 +276,28 @@ def top_keys(cfg: GPTConfig) -> Tuple[str, ...]:
 
 
 def fc_width(cfg: GPTConfig) -> int:
-    """Width of the MLP's first product: SwiGLU fuses gate | up."""
+    """Width of the dense MLP's first product: SwiGLU fuses gate | up.  An
+    MoE block has no such product (its experts are ``expert_hidden`` wide),
+    but JAX's parameter count counts it in place of the bank."""
     return 2 * cfg.ffn_dim if cfg.mlp_type == "swiglu" else cfg.ffn_dim
 
 
 def leaf_shapes(cfg: GPTConfig) -> Tuple[Dict[str, tuple], Dict[str, tuple]]:
-    """(top-level leaf shapes, one block's leaf shapes) of ``cfg``'s tree.
-    Bias leaves exist (as zeros) when ``use_bias`` is off, as in JAX."""
+    """(top-level leaf shapes, one block's leaf shapes by dotted path) of
+    ``cfg``'s tree.  Bias leaves exist (as zeros) when ``use_bias`` is off,
+    as in JAX; an MoE block's expert leaves are stacked ``[experts, ...]``."""
     E, I, V, F_ = cfg.n_embd, cfg.ffn_dim, cfg.padded_vocab, fc_width(cfg)
+    NE, H = cfg.moe_num_experts, cfg.expert_hidden
     top = {"wte": (V, E), "wpe": (cfg.n_positions, E), "lnf_g": (E,),
            "lnf_b": (E,), "lm_head": (V, E), "lm_head_b": (V,)}
     block = {"ln1_g": (E,), "ln1_b": (E,), "qkv_w": (E, cfg.qkv_dim),
              "qkv_b": (cfg.qkv_dim,), "out_w": (E, E), "out_b": (E,),
              "ln2_g": (E,), "ln2_b": (E,), "fc_w": (E, F_), "fc_b": (F_,),
-             "proj_w": (I, E), "proj_b": (E,)}
-    return {k: top[k] for k in top_keys(cfg)}, block
+             "proj_w": (I, E), "proj_b": (E,), "moe.gate.wg": (E, NE),
+             "moe.experts.wi": (NE, E, H), "moe.experts.bi": (NE, H),
+             "moe.experts.wo": (NE, H, E), "moe.experts.bo": (NE, E)}
+    return ({k: top[k] for k in top_keys(cfg)},
+            {k: block[k] for k in block_keys(cfg)})
 
 
 def _normal(shape, scale: float, gen: torch.Generator,
@@ -259,19 +309,28 @@ def _normal(shape, scale: float, gen: torch.Generator,
 def _init_block(cfg: GPTConfig, gen: torch.Generator,
                 dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
     """One block's params (GPT-2 init: residual projections scaled by
-    1/sqrt(2L)), on ``gen.device``: drawn in fp32, stored in ``dtype``."""
+    1/sqrt(2L)), on ``gen.device``: drawn in fp32, stored in ``dtype``.  An
+    MoE block's MLP is the gate (std 0.02) and the stacked experts (JAX's
+    ``FFNExpert`` init: std 1/sqrt(fan_in), zero biases)."""
     dev = gen.device
     _, shapes = leaf_shapes(cfg)
     proj_scale = 0.02 / math.sqrt(2 * cfg.n_layer)
-    scale = {"qkv_w": 0.02, "out_w": proj_scale, "fc_w": 0.02, "proj_w": proj_scale}
+    scale = {"qkv_w": 0.02, "out_w": proj_scale, "fc_w": 0.02, "proj_w": proj_scale,
+             "moe.gate.wg": 0.02}
     out = {}
-    for k in BLOCK_KEYS:
+    for k in block_keys(cfg):
         if k in scale:
             out[k] = _normal(shapes[k], scale[k], gen, dtype)
+        elif k.startswith("moe.experts."):
+            continue
         else:                           # norm gains ones, biases zeros
             fill = torch.ones if k.endswith("_g") else torch.zeros
             out[k] = fill(shapes[k], device=dev, dtype=dtype)
-    return out
+    if cfg.moe_num_experts:
+        bank = FFNExpert(cfg.n_embd, cfg.expert_hidden).init_params(
+            gen, cfg.moe_num_experts, dtype)
+        out.update({f"moe.experts.{k}": v for k, v in bank.items()})
+    return nest({k: out[k] for k in block_keys(cfg)})
 
 
 def init_gpt_params(cfg: GPTConfig, generator: torch.Generator,
@@ -380,13 +439,38 @@ def _mlp(cfg: GPTConfig, p: Dict, h: torch.Tensor, dt) -> torch.Tensor:
     return _dense(cfg, p, h, "proj", dt)
 
 
+def moe_layer(cfg: GPTConfig) -> MoE:
+    """The MoE layer of ``cfg``'s blocks: the gate and GELU expert bank
+    that JAX's ``_ffn`` builds from the same fields."""
+    return MoE(cfg.n_embd, num_experts=cfg.moe_num_experts, k=cfg.moe_top_k,
+               capacity_factor=cfg.moe_capacity_factor,
+               eval_capacity_factor=cfg.moe_eval_capacity_factor,
+               min_capacity=cfg.moe_min_capacity, expert_hidden=cfg.expert_hidden)
+
+
+def _ffn(cfg: GPTConfig, p: Dict, h: torch.Tensor, dt, train: bool = False,
+         noise: Optional[Dict[str, torch.Tensor]] = None
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The dense MLP, or the block's MoE layer (JAX's ``_ffn``) over every
+    row of ``h``.  Returns (y, the gate's aux loss, None for a dense
+    block).  ``noise``: the gating uniforms (``moe/sharded_moe.py``), used
+    in training only."""
+    if not cfg.moe_num_experts:
+        return _mlp(cfg, p, h, dt), None
+    y, l_aux, _ = moe_layer(cfg)(p["moe"], h, train=train, noise=noise)
+    return y.to(dt), l_aux
+
+
 def _block(cfg: GPTConfig, p: Dict, x: torch.Tensor, dt, attend: Callable,
-           rope_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One block on ``x`` ``[B, S, E]``.  ``attend(q, k, v)`` gives o
-    ``[B, S, H, D]`` (it also writes k and v to a cache where there is
-    one); with rope, q and k are rotated at ``rope_pos`` first.  Topology:
-    sequential (x + attn, then + mlp), parallel (GPT-NeoX: x + attn(ln1 x)
-    + mlp(ln2 x)) or parallel_single_ln (GPT-J: one norm feeds both)."""
+           rope_pos: Optional[torch.Tensor] = None, train: bool = False,
+           noise: Optional[Dict[str, torch.Tensor]] = None
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One block on ``x`` ``[B, S, E]``; returns (x, the MoE aux loss or
+    None).  ``attend(q, k, v)`` gives o ``[B, S, H, D]`` (it also writes k
+    and v to a cache where there is one); with rope, q and k are rotated at
+    ``rope_pos`` first.  Topology: sequential (x + attn, then + mlp),
+    parallel (GPT-NeoX: x + attn(ln1 x) + mlp(ln2 x)) or parallel_single_ln
+    (GPT-J: one norm feeds both)."""
     B, S, E = x.shape
     h = _norm(cfg, x, p["ln1_g"], p["ln1_b"])
     q, k, v = _split_qkv(cfg, _dense(cfg, p, h, "qkv", dt))
@@ -396,10 +480,13 @@ def _block(cfg: GPTConfig, p: Dict, x: torch.Tensor, dt, attend: Callable,
     o = _dense(cfg, p, attend(q, k, v).reshape(B, S, E), "out", dt)
     if cfg.block_type == "sequential":
         x = x + o
-        return x + _mlp(cfg, p, _norm(cfg, x, p["ln2_g"], p["ln2_b"]), dt)
+        f, aux = _ffn(cfg, p, _norm(cfg, x, p["ln2_g"], p["ln2_b"]), dt, train, noise)
+        return x + f, aux
     if cfg.block_type == "parallel":
-        return x + o + _mlp(cfg, p, _norm(cfg, x, p["ln2_g"], p["ln2_b"]), dt)
-    return x + o + _mlp(cfg, p, h, dt)
+        f, aux = _ffn(cfg, p, _norm(cfg, x, p["ln2_g"], p["ln2_b"]), dt, train, noise)
+        return x + o + f, aux
+    f, aux = _ffn(cfg, p, h, dt, train, noise)
+    return x + o + f, aux
 
 
 def _embed(cfg: GPTConfig, params: Dict, input_ids: torch.Tensor,
@@ -448,28 +535,48 @@ def greedy_tokens(cfg: GPTConfig, logits: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 # Training: forward and loss
 # --------------------------------------------------------------------------- #
-def gpt_block(cfg: GPTConfig, p: Dict, x: torch.Tensor,
-              attention_fn: Callable) -> torch.Tensor:
+def gpt_block(cfg: GPTConfig, p: Dict, x: torch.Tensor, attention_fn: Callable,
+              train: bool = False, noise: Optional[Dict[str, torch.Tensor]] = None
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One block of the family on ``x`` ``[B, S, E]`` (JAX's ``gpt_block``):
     rope at positions ``arange(S)``, grouped K/V to the attention op as
-    they are, ALiBi as the family's per-head slopes."""
+    they are, ALiBi as the family's per-head slopes.  Returns (x, the MoE
+    aux loss; None for a dense block)."""
     S = x.shape[1]
     rope_pos = (torch.arange(S, device=x.device) if cfg.position_encoding == "rope"
                 else None)
     slopes = _alibi(cfg, x.device)
     return _block(cfg, p, x, x.dtype,
-                  lambda q, k, v: attention_fn(q, k, v, causal=True, alibi=slopes), rope_pos)
+                  lambda q, k, v: attention_fn(q, k, v, causal=True, alibi=slopes), rope_pos,
+                  train, noise)
+
+
+def _block_noise(cfg: GPTConfig, rng, train: bool, noise, i: int, tokens: int):
+    """Block ``i``'s gating noise: ``noise[i]`` where the caller pins it,
+    else drawn from the ``rng`` generator in training (MoE blocks only)."""
+    if not (train and cfg.moe_num_experts):
+        return None
+    if noise is not None:
+        return noise[i]
+    if isinstance(rng, torch.Generator):
+        return draw_noise(rng, tokens, cfg.moe_num_experts, cfg.moe_top_k)
+    return None
 
 
 def gpt_forward(cfg: GPTConfig, params: Dict, input_ids: torch.Tensor,
                 rng=None, train: bool = False,
                 attention_fn: Optional[Callable] = None,
-                pld_theta=None, return_hidden: bool = False) -> torch.Tensor:
+                pld_theta=None, return_hidden: bool = False, with_aux: bool = False,
+                noise: Optional[List[Dict[str, torch.Tensor]]] = None):
     """Logits ``[B, S, padded_vocab]`` fp32 (the head's bias added), or
     with ``return_hidden`` the final-norm hidden ``[B, S, E]`` that the
-    training loss takes.  With ``cfg.remat`` each block keeps its input and
-    the flash op's o and lse, and re-runs the rest (rope, the norms, the
-    MLP) in the backward pass (JAX's checkpoint policy)."""
+    training loss takes; with ``with_aux``, (that, the blocks' summed MoE
+    aux loss).  With ``cfg.remat`` each block keeps its input and the flash
+    op's o and lse, and re-runs the rest (rope, the norms, the MLP or the
+    experts) in the backward pass (JAX's checkpoint policy).  MoE training
+    noise: block i's ``noise[i]`` (the uniforms of ``moe/sharded_moe.py``;
+    a test's hook), else drawn from ``rng``, a ``torch.Generator``, before
+    the block's body, else none."""
     if pld_theta is not None:
         raise NotImplementedError(f"progressive layer drop is not ported yet ({TRAINING})")
     if train and cfg.dropout:
@@ -479,12 +586,22 @@ def gpt_forward(cfg: GPTConfig, params: Dict, input_ids: torch.Tensor,
     S = input_ids.shape[1]
     x = _embed(cfg, params, input_ids.long(),
                torch.arange(S, device=input_ids.device)[None], dt)
-    body = functools.partial(gpt_block, cfg, attention_fn=attention_fn)
-    for p in params["blocks"]:
-        x = checkpoint(body, p, x) if cfg.remat else body(p, x)
-    if return_hidden:
-        return _norm(cfg, x, params["lnf_g"], params["lnf_b"])
-    return _head(cfg, params, x, dt)
+
+    def body(p, x, block_noise):
+        return gpt_block(cfg, p, x, attention_fn, train, block_noise)
+    aux_total = None
+    for i, p in enumerate(params["blocks"]):
+        n = _block_noise(cfg, rng, train, noise, i, input_ids.numel())
+        x, aux = checkpoint(body, p, x, n) if cfg.remat else body(p, x, n)
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
+    out = (_norm(cfg, x, params["lnf_g"], params["lnf_b"]) if return_hidden
+           else _head(cfg, params, x, dt))
+    if not with_aux:
+        return out
+    if aux_total is None:
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    return out, aux_total
 
 
 def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
@@ -537,15 +654,20 @@ def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor, labels: torch.Ten
 
 def gpt_loss(cfg: GPTConfig, params: Dict, input_ids: torch.Tensor,
              labels: torch.Tensor, rng=None, train: bool = True,
-             attention_fn: Optional[Callable] = None, pld_theta=None) -> torch.Tensor:
+             attention_fn: Optional[Callable] = None, pld_theta=None,
+             noise: Optional[List[Dict[str, torch.Tensor]]] = None) -> torch.Tensor:
     """Next-token cross-entropy over the head: the tied ``wte``, or the
     untied ``lm_head`` and its bias (no ``[B, S, V]`` logits tensor on the
-    card)."""
-    x = gpt_forward(cfg, params, input_ids, rng, train, attention_fn,
-                    pld_theta=pld_theta, return_hidden=True)
+    card); an MoE model adds ``moe_aux_coeff`` times the blocks' summed
+    load-balance loss.  ``rng`` and ``noise`` as ``gpt_forward``'s."""
+    x, aux = gpt_forward(cfg, params, input_ids, rng, train, attention_fn,
+                         pld_theta=pld_theta, return_hidden=True, with_aux=True, noise=noise)
     head = params["lm_head"] if cfg.untied_head else params["wte"]
     head_b = params["lm_head_b"] if cfg.head_bias else None
-    return chunked_cross_entropy(x, head, labels, cfg.vocab_size, head_b=head_b)
+    ce = chunked_cross_entropy(x, head, labels, cfg.vocab_size, head_b=head_b)
+    if cfg.moe_num_experts:
+        ce = ce + cfg.moe_aux_coeff * aux
+    return ce
 
 
 # --------------------------------------------------------------------------- #
@@ -593,16 +715,21 @@ def gpt_apply_with_cache(cfg: GPTConfig, params: Dict, input_ids: torch.Tensor,
             ck_full[li, :, pos:pos + S] = k.to(ck_full.dtype)
             cv_full[li, :, pos:pos + S] = v.to(cv_full.dtype)
             return _cached_attention(q, ck_full[li], cv_full[li], pos, alibi=slopes)
-        x = _block(cfg, p, x, dt, attend, rope_pos)
+        x, _ = _block(cfg, p, x, dt, attend, rope_pos)
     return _head(cfg, params, x, dt), dict(cache, pos=pos + S)
 
 
 @torch.no_grad()
 def gpt_generate(cfg: GPTConfig, params: Dict, input_ids, max_new_tokens: int,
-                 temperature: float = 0.0,
-                 max_len: Optional[int] = None) -> torch.Tensor:
+                 temperature: float = 0.0, max_len: Optional[int] = None,
+                 prompt_len: Optional[int] = None) -> torch.Tensor:
     """Greedy autoregressive generation with the padded-vocab mask; returns
-    ``[B, S + max_new_tokens]`` int64 (prompt included)."""
+    ``[B, S + max_new_tokens]`` int64 (prompt included).  With
+    ``prompt_len`` the prompt is right-padded to ``S``: the first token
+    follows position ``prompt_len - 1`` and decoding overwrites the pad
+    tail's cache slots (JAX's bucketed generate; causality keeps the real
+    positions from seeing the pad, though an MoE gate still sees the pad
+    tokens in the prefill, as JAX's does)."""
     if temperature:
         raise NotImplementedError(
             "sampled decoding is not ported; generate() is greedy "
@@ -617,6 +744,9 @@ def gpt_generate(cfg: GPTConfig, params: Dict, input_ids, max_new_tokens: int,
     cache = init_kv_cache(cfg, B, max_len or (S + max_new_tokens), device=dev)
     logits, cache = gpt_apply_with_cache(cfg, params, ids, cache)
     last = logits[:, -1]
+    if prompt_len is not None:
+        last = logits[:, int(prompt_len) - 1]
+        cache = dict(cache, pos=int(prompt_len))
     toks: List[torch.Tensor] = []
     for i in range(max_new_tokens):
         tok = greedy_tokens(cfg, last)
@@ -664,7 +794,7 @@ def gpt_paged_step(cfg: GPTConfig, params: Dict, input_ids: torch.Tensor,
             v_pages[li, wb, wo] = v.to(v_pages.dtype)
             return paged_attention(q.contiguous(), k_pages[li], v_pages[li],
                                    block_tables, positions, alibi=slopes)
-        x = _block(cfg, p, x, dt, attend, pos2d)
+        x, _ = _block(cfg, p, x, dt, attend, pos2d)
     return _head(cfg, params, x, dt), k_pages, v_pages
 
 
@@ -673,7 +803,8 @@ def gpt_paged_step(cfg: GPTConfig, params: Dict, input_ids: torch.Tensor,
 # --------------------------------------------------------------------------- #
 def count_params(cfg: GPTConfig) -> int:
     """Parameter count of ``cfg``'s model as JAX counts it (the head bias
-    left out), without making it."""
+    left out; an MoE block counted as a dense one, its bank not), without
+    making it."""
     E, L, I, F_ = cfg.n_embd, cfg.n_layer, cfg.ffn_dim, fc_width(cfg)
     per_block = (E * cfg.qkv_dim + cfg.qkv_dim      # qkv (GQA-sized)
                  + E * E + E                        # attn out
@@ -688,14 +819,39 @@ def count_params(cfg: GPTConfig) -> int:
     return total
 
 
-class GPTBlock(nn.Module):
-    """One block's parameters, under the JAX leaf names."""
+def active_params(cfg: GPTConfig) -> int:
+    """Parameters one token runs through: every leaf of the tree (the head
+    bias left out), except that an MoE block counts its gate and
+    ``moe_top_k`` experts, not the whole bank.  Equal to the tree's size
+    for a dense model."""
+    top, block = leaf_shapes(cfg)
+    share = {k: cfg.moe_top_k / cfg.moe_num_experts for k in MOE_KEYS[1:]}
+    per_block = sum(math.prod(s) * share.get(k, 1) for k, s in block.items())
+    return int(sum(math.prod(s) for k, s in top.items() if k != "lm_head_b")
+               + cfg.n_layer * per_block)
 
-    def __init__(self, tensors: Dict[str, torch.Tensor]):
+
+class GPTBlock(nn.Module):
+    """One block's parameters, under the JAX leaf names; an MoE block's
+    under ``moe.gate`` and ``moe.experts`` submodules (JAX's nesting)."""
+
+    def __init__(self, tensors: Dict, keys: Tuple[str, ...] = BLOCK_KEYS):
         super().__init__()
-        for name in BLOCK_KEYS:
-            self.register_parameter(
-                name, nn.Parameter(tensors[name], requires_grad=False))
+        self.keys = keys
+        for path in keys:
+            self.set_leaf(path, get_leaf(tensors, path))
+
+    def set_leaf(self, path: str, tensor: torch.Tensor, requires_grad: bool = False) -> None:
+        *parents, name = path.split(".")
+        module = self
+        for part in parents:
+            if not hasattr(module, part):
+                module.add_module(part, nn.Module())
+            module = getattr(module, part)
+        module.register_parameter(name, nn.Parameter(tensor, requires_grad=requires_grad))
+
+    def tree(self) -> Dict:
+        return nest(dict(self.named_parameters()))
 
 
 def _tree_from_state_dict(cfg: GPTConfig, sd: Dict[str, torch.Tensor],
@@ -716,9 +872,25 @@ def _tree_from_state_dict(cfg: GPTConfig, sd: Dict[str, torch.Tensor],
         if tuple(sd[k].shape) != shape:
             raise ValueError(f"{k}: shape {tuple(sd[k].shape)}, config wants {shape}")
     tree = {k: sd[k].to(device) for k in top_keys(cfg)}
-    tree["blocks"] = [{k: sd[f"blocks.{i}.{k}"].to(device) for k in BLOCK_KEYS}
+    tree["blocks"] = [nest({k: sd[f"blocks.{i}.{k}"].to(device) for k in block_keys(cfg)})
                       for i in range(cfg.n_layer)]
     return tree
+
+
+def model_in(model: "GPT", dtype: torch.dtype, device: torch.device,
+             params: Optional[Dict[str, torch.Tensor]] = None) -> "GPT":
+    """``model`` itself when it already holds its weights in ``dtype`` on
+    ``device`` (and no ``params``, a state dict, replace them), else a copy
+    with ``cfg.dtype`` set to ``dtype`` (the serving and inference engines'
+    model; the caller's is left alone)."""
+    sd = params if params is not None else model.state_dict()
+    if (params is None and model.cfg.dtype == dtype
+            and all(t.dtype == dtype and t.device == device for t in sd.values())):
+        return model
+    sd = {k: torch.as_tensor(v).to(device, dtype) if torch.as_tensor(v).is_floating_point()
+          else torch.as_tensor(v).to(device) for k, v in sd.items()}
+    return type(model)(dataclasses.replace(model.cfg, dtype=dtype), device=device,
+                       state_dict=sd)
 
 
 class GPT(nn.Module):
@@ -745,7 +917,7 @@ class GPT(nn.Module):
         for name in top_keys(cfg):
             self.register_parameter(
                 name, nn.Parameter(tree[name], requires_grad=False))
-        self.blocks = nn.ModuleList(GPTBlock(p) for p in tree["blocks"])
+        self.blocks = nn.ModuleList(GPTBlock(p, block_keys(cfg)) for p in tree["blocks"])
 
     @property
     def device(self) -> torch.device:
@@ -754,7 +926,7 @@ class GPT(nn.Module):
     def param_tree(self) -> Dict:
         """The parameters as the functions of this module take them."""
         tree = {name: getattr(self, name) for name in top_keys(self.cfg)}
-        tree["blocks"] = [dict(b.named_parameters()) for b in self.blocks]
+        tree["blocks"] = [b.tree() for b in self.blocks]
         return tree
 
     def forward(self, params: Dict, batch, rng=None, train: bool = True,
@@ -779,9 +951,8 @@ class GPT(nn.Module):
             self.register_parameter(
                 name, nn.Parameter(tree[name], requires_grad=requires_grad))
         for block, p in zip(self.blocks, tree["blocks"]):
-            for name in BLOCK_KEYS:
-                block.register_parameter(
-                    name, nn.Parameter(p[name], requires_grad=requires_grad))
+            for path in block.keys:
+                block.set_leaf(path, get_leaf(p, path), requires_grad)
 
     # ---- inference decode protocol ---------------------------------- #
     def init_cache(self, batch: int, max_len: int) -> Dict:
@@ -790,9 +961,16 @@ class GPT(nn.Module):
     def apply_with_cache(self, input_ids, cache):
         return gpt_apply_with_cache(self.cfg, self.param_tree(), input_ids, cache)
 
-    def generate(self, input_ids, max_new_tokens: int, temperature: float = 0.0):
+    def generate(self, input_ids, max_new_tokens: int, temperature: float = 0.0,
+                 prompt_len: Optional[int] = None):
         return gpt_generate(self.cfg, self.param_tree(), input_ids,
-                            max_new_tokens, temperature=temperature)
+                            max_new_tokens, temperature=temperature, prompt_len=prompt_len)
+
+    def forward_logits(self, input_ids) -> torch.Tensor:
+        """Full-sequence logits in eval mode (the inference engine's
+        ``forward``)."""
+        with torch.no_grad():
+            return gpt_forward(self.cfg, self.param_tree(), input_ids, train=False)
 
     def paged_step(self, input_ids, positions, k_pages, v_pages, block_tables,
                    write_blocks, write_offsets):
@@ -804,6 +982,7 @@ class GPT(nn.Module):
 
     def num_params(self) -> int:
         return count_params(self.cfg)
+
 
     def flops_per_token(self, seq_len: int) -> float:
         """Training FLOPs/token ~ 6N + the attention term (PaLM appendix B)."""

@@ -51,12 +51,15 @@ def checkpoint_policy(partition_activations: bool = False,
 
 def checkpoint(function: Callable, *args):
     """Run ``function(*args)`` keeping its inputs and what the policy
-    saves for the backward."""
-    # No RNG state is stashed for the recompute: the training path draws no
-    # random numbers (dropout is ROADMAP.md, Queue 1 entry 5, item 4), and
-    # reading the CUDA generator's state is refused inside a CUDA graph
-    # capture.  Dropout will need graph-safe generators registered with
-    # the capture, and this flag back on.
+    saves for the backward; returns what ``function`` returns (a tensor,
+    or a tuple such as a block's ``(x, aux)``)."""
+    # No RNG state is stashed for the recompute: nothing draws random
+    # numbers inside a checkpointed body (the MoE gating noise is drawn
+    # before it, from the engine's generator, and passed in as tensors, so
+    # the recompute routes as the forward did), and reading the CUDA
+    # generator's state is refused inside a CUDA graph capture.  Dropout
+    # (ROADMAP.md, Queue 1 entry 6) draws inside the body: it will need
+    # this flag back on, with the generator the capture registers.
     return torch.utils.checkpoint.checkpoint(
         function, *args, use_reentrant=False, preserve_rng_state=False,
         context_fn=functools.partial(create_selective_checkpoint_contexts,

@@ -339,3 +339,26 @@ def _load_tag(engine, load_dir: str, tag: str, load_optimizer_states: bool,
         client_state = meta.get("client_state", {})
     log_dist(f"loaded checkpoint {ckpt_dir} at step {engine.global_steps}", ranks=[0])
     return ckpt_dir, client_state
+
+
+def load_params_only(load_dir: str, tag: Optional[str] = None) -> Dict[str, Any]:
+    """The fp32 master parameters of a training checkpoint, by name, as CPU
+    tensors (the inference engine's load; counterpart of the JAX module's
+    ``load_params_only``): tag ``tag``, or the one ``latest`` names, held
+    against its manifest first; either store (``state.pt`` or
+    ``state.npz``)."""
+    if tag is None:
+        with open(os.path.join(load_dir, LATEST_FILE)) as f:
+            tag = f.read().strip()
+    ckpt_dir = os.path.join(load_dir, str(tag))
+    ok, report = manifest_ok(ckpt_dir)
+    if not ok:
+        raise CheckpointCorruptError(f"checkpoint {ckpt_dir} is corrupt: {report.get('errors')}")
+    path = os.path.join(ckpt_dir, STATE)
+    for name in ("torch", "local"):
+        store = get_checkpoint_engine(name)
+        if store.exists(path):
+            params = store.load(path)["params"]
+            log_dist(f"loaded params from {ckpt_dir}", ranks=[0])
+            return params
+    raise FileNotFoundError(f"checkpoint {ckpt_dir} holds no state file")

@@ -18,6 +18,13 @@ in PyTorch:
   ``min(1, clip / (norm + 1e-6))`` and runs one fused AdamW launch over
   every parameter (``runtime/optimizers.py``).
 
+The engine's generator (``engine.rng``, a ``torch.Generator`` on the
+device seeded with ``seed``) reaches the model in training: an MoE model
+draws its gating noise from it (RTS priorities for top-1, gumbel draws for
+top-2), as the JAX engine hands its model a key.  The captured step
+registers it, so each replay draws fresh noise; a checkpoint does not hold
+its state (the JAX checkpoint holds no key).
+
 No step reads a device value on the host: the returned loss is a device
 tensor, and the clip factor, the bias corrections and the learning rate
 reach the kernel as device scalars.  So on a CUDA device ``train_batch``
@@ -117,6 +124,8 @@ class DeepSpeedEngine:
             model.cfg = dataclasses.replace(mcfg, remat=True)
 
         self._init_parameters(model, model_parameters, seed)
+        self.rng = torch.Generator(device=self.device)
+        self.rng.manual_seed(int(seed))
         self.lr_scheduler = None
         self._schedule_fn = None
         self._configure_lr_scheduler(lr_scheduler)
@@ -131,7 +140,8 @@ class DeepSpeedEngine:
         self._in_training_mode = True
         self.checkpoint_engine = None
         self._closed = False
-        self.graphs = (StepGraphs(self.accelerator, self.device, self._static_dtype)
+        self.graphs = (StepGraphs(self.accelerator, self.device, self._static_dtype,
+                                  generators=[self.rng])
                        if self.device.type == "cuda" else None)
         self.tput_timer = ThroughputTimer(
             batch_size=self.train_batch_size(),
@@ -235,7 +245,7 @@ class DeepSpeedEngine:
 
     def _loss(self, batch, train: bool = True) -> torch.Tensor:
         cast = _map_tree(lambda p: p.to(self.compute_dtype), self.params)
-        return self.module(cast, batch, None, train).float()
+        return self.module(cast, batch, self.rng if train else None, train).float()
 
     def forward(self, *inputs):
         """The loss of one micro-batch; in train mode the autograd graph is

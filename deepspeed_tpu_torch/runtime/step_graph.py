@@ -32,6 +32,9 @@ replay of a graph captured through the accelerator's ``create_graph`` /
   wrappers and launches nothing; a replay launches everything and calls
   nothing.  So each counter's increase during the capture is taken off
   again, and added back at every replay.
+* The generators the step draws from (the engine's, for MoE gating
+  noise) are registered with each capture, so every replay draws fresh
+  numbers, the ones an eager step at that point would draw.
 * A capture that fails raises with its cause.  Nothing falls back to the
   eager step.
 
@@ -117,13 +120,16 @@ class CapturedStep:
 class StepGraphs:
     """The captured steps of one engine, by batch signature.  ``dtype_of``
     maps a source dtype to its static buffer's (the engine's cast of
-    floating leaves to the compute dtype)."""
+    floating leaves to the compute dtype); ``generators`` are registered
+    with every capture."""
 
     def __init__(self, accelerator, device: torch.device,
-                 dtype_of: Callable[[torch.dtype], torch.dtype] = lambda dt: dt):
+                 dtype_of: Callable[[torch.dtype], torch.dtype] = lambda dt: dt,
+                 generators: Sequence[torch.Generator] = ()):
         self.accelerator = accelerator
         self.device = device
         self.dtype_of = dtype_of
+        self.generators = list(generators)
         self.steps: Dict[Tuple, CapturedStep] = {}
         self.captures = 0
         self.replays = 0
@@ -168,6 +174,8 @@ class StepGraphs:
         counters = launch_counters()
         before = read_counters(counters)
         graph = accel.create_graph()
+        for gen in self.generators:
+            graph.register_generator_state(gen)
         try:
             with capture.holding() as held, accel.capture_to_graph(graph, stream=stream):
                 static_out = body(inputs)

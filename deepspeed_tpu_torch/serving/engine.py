@@ -27,7 +27,6 @@ telemetry hub and a tracer (ROADMAP.md, Queue 1).  Fault injection has no
 hook here.
 """
 
-import dataclasses
 import time
 from typing import Any, Dict, List, Optional
 
@@ -35,6 +34,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.accelerator.real_accelerator import resolve_device
+from deepspeed_tpu_torch.models.gpt import model_in
 from deepspeed_tpu_torch.ops.cuda.decode_attention import (KERNEL_HEAD_DIMS,
                                                            KERNEL_TILE)
 from deepspeed_tpu_torch.serving.config import DeepSpeedServingConfig
@@ -131,7 +131,7 @@ class ServingEngine:
                 f"{KERNEL_TILE} and head_dim {' or '.join(map(str, KERNEL_HEAD_DIMS))}; "
                 f"got block_size {cfg.block_size}, head_dim {head_dim}")
         self.dtype = cfg.torch_dtype
-        self.module = self._serving_model(model, params)
+        self.module = model_in(model, self.dtype, self.device, params)
         mcfg = self.module.cfg
 
         # ---- paged arena + control plane --------------------------------- #
@@ -163,19 +163,6 @@ class ServingEngine:
             f"(max {self.max_blocks_per_seq} blocks/seq), "
             f"prefill_chunk={cfg.prefill_chunk}, dtype={self.dtype}, "
             f"device={self.device}", ranks=[0])
-
-    def _serving_model(self, model, params):
-        """``model`` itself when it already holds its weights in the serving
-        dtype on the serving device, else a converted copy."""
-        sd = params if params is not None else model.state_dict()
-        if (params is None and model.cfg.dtype == self.dtype
-                and all(t.dtype == self.dtype and t.device == self.device
-                        for t in sd.values())):
-            return model
-        sd = {k: v.to(self.device, self.dtype) if v.is_floating_point()
-              else v.to(self.device) for k, v in sd.items()}
-        return type(model)(dataclasses.replace(model.cfg, dtype=self.dtype),
-                           device=self.device, state_dict=sd)
 
     # ---- request lifecycle robustness --------------------------------- #
     def _expire_deadlines(self):

@@ -496,16 +496,18 @@ def test_training_takes_the_families(name):
     assert tgpt.GPT(dataclasses.replace(cfg, n_layer=1), device="cpu").num_params() > 0
 
 
-@pytest.mark.parametrize("what", ["moe", "dropout", "head_dim-96-on-the-card"])
+@pytest.mark.parametrize("what", ["pld_theta", "dropout", "head_dim-96-on-the-card"])
 def test_training_refuses_the_families(what):
     """What training still leaves unported raises NotImplementedError naming
-    its ROADMAP entry: MoE blocks, dropout, and a head_dim the flash
-    kernels are not compiled for (the card's kernels; shapes are checked
-    before the device, so meta tensors meet the same check)."""
+    its ROADMAP entry: progressive layer drop, dropout, and a head_dim the
+    flash kernels are not compiled for (the card's kernels; shapes are
+    checked before the device, so meta tensors meet the same check)."""
     family, kw = TINY["llama-g2"]
-    if what == "moe":
-        with pytest.raises(NotImplementedError, match="other GPT families"):
-            make_config(tgpt, family, kw, dtype="float32", moe_num_experts=4)
+    if what == "pld_theta":
+        model = tgpt.GPT(make_config(tgpt, family, kw, dtype="float32"), device="cpu")
+        ids = torch.zeros(1, 4, dtype=torch.long)
+        with pytest.raises(NotImplementedError, match="progressive layer drop.*ROADMAP"):
+            model(model.param_tree(), (ids, ids), pld_theta=0.5)
     elif what == "dropout":
         cfg = make_config(tgpt, family, kw, dtype="float32", dropout=0.1)
         model = tgpt.GPT(cfg, device="cpu")

@@ -73,8 +73,10 @@ def test_params_from_jax_round_trip(scan_layers):
 
 
 def test_params_from_jax_rejects_unported_leaves():
-    """int8-quantized leaves and MoE blocks raise; an untied head is taken
-    (the families' tests hold it), and a leaf no family has is refused."""
+    """int8-quantized leaves raise; an untied head is taken (the families'
+    tests hold it), a leaf no family has is refused, and an MoE tree
+    converts (its nested ``moe`` leaves by dotted path, stacked per layer;
+    ``tests/test_torch_moe.py`` holds the values)."""
     _, tree = jax_model("tiny")
     assert "lm_head" in params_from_jax(dict(tree, lm_head=tree["wte"]))
     with pytest.raises(ValueError, match="unknown"):
@@ -82,8 +84,14 @@ def test_params_from_jax_rejects_unported_leaves():
     blocks = dict(tree["blocks"], qkv_w={"q": 1, "scale": 2})
     with pytest.raises(NotImplementedError):
         params_from_jax(dict(tree, blocks=blocks))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        params_from_jax(dict(tree, blocks=dict(tree["blocks"], moe={})))
+    cfg, moe_tree = jax_model("tiny", moe_num_experts=4, moe_expert_hidden=48)
+    sd = params_from_jax(moe_tree)
+    assert tuple(sd["blocks.1.moe.experts.wi"].shape) == (4, 32, 48)
+    assert tuple(sd["blocks.0.moe.gate.wg"].shape) == (32, 4)
+    assert "blocks.0.fc_w" not in sd
+    model = gpt_from_jax(tgpt.GPTConfig(dtype="float32", **CONFIGS["tiny"], moe_num_experts=4,
+                                        moe_expert_hidden=48), moe_tree, device="cpu")
+    assert model.num_params() == jgpt.GPT(cfg).num_params()
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
@@ -180,7 +188,7 @@ def test_padded_vocab_never_sampled():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("moe_num_experts", 4), ("ltd_keep", 8), ("activation_quant_bits", 8),
+    ("ltd_layers", (0,)), ("ltd_keep", 8), ("activation_quant_bits", 8),
 ])
 def test_unported_config_knobs_raise(knob, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

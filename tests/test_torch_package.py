@@ -141,5 +141,6 @@ def test_build_directory_is_keyed_by_sources_and_ignored():
 def test_public_surface():
     assert dst.__version__
     for name in ("init_serving", "ServingEngine", "DeepSpeedServingConfig", "initialize",
-                 "DeepSpeedEngine", "DeepSpeedConfig", "DeepSpeedConfigError"):
+                 "DeepSpeedEngine", "DeepSpeedConfig", "DeepSpeedConfigError",
+                 "init_inference", "InferenceEngine", "DeepSpeedInferenceConfig"):
         assert hasattr(dst, name)

@@ -146,13 +146,38 @@ Phases, each printing its own lines; any failure exits non-zero:
    graphed ones, or held to phase 8's limits), 3 eager steps through the
    plain versions pinned to those routes (the routes of their own that
    differ and their smallest gate margin printed), held to phase 8's
-   limits.
+   limits;
+21. the attention kernels at head_dim 256 (GPT-J-6B's 16 heads) and 96
+   (GPT-NeoX-20B's 64), fp32 and bf16, as phase 3 does (WIDE_KERNEL_HEADS:
+   paged batch-8 decode and prefill chunk 64, contiguous batch-8 T 1024
+   and T 1000, generate()'s prefill 300 and decode) and the flash forward
+   alone (WIDE_FLASH_CASES: B 1, S 2048 causal; S 200 ragged; GQA 4; ALiBi)
+   against its plain version, with ``scaled_dot_product_attention`` as the
+   yardstick;
+22. GPT-J-6B (``EleutherAI/gpt-j-6b``'s widths, FAMILY_CELLS): fp32 at 8 of
+   its 28 layers through ``init_serving`` held token for token against
+   ``generate()``, roomy and preempting; bf16 at all 28 layers, phase 13's
+   measurements, 28 paged launches a dispatch;
+23. GPT-NeoX-20B (``EleutherAI/gpt-neox-20b``'s widths): the same, fp32 at
+   8 of 44 layers, bf16 at all 44 (41.1 GB of weights);
+24. ``module_inject`` and int8: HF-layout stand-ins (``hf_standin``: a
+   ``config`` namespace with HF's field names, a ``state_dict()`` with HF's
+   keys and layouts) of GPT-J-6B and GPT-NeoX-20B at 2 layers, seeded, go
+   through ``init_inference``: fp32 greedy tokens against the port's
+   ``generate()`` on the same weights (near-ties counted as in phase 4),
+   bf16 logits of a 300-token forward (flash) and of a prefill and decode
+   step (the contiguous kernel) against the plain attention path; then
+   GPT-J-6B at full size in bf16 and with ``dtype="int8"``: int8 block
+   weight bytes against bf16, peak memory, the median decode step of each,
+   their greedy agreement over 32 tokens x 8 prompts, the largest logit
+   distance, and a 2048-token forward through the flash kernel.
 Each phase prints its seconds.
 
 Phase 2 also prints the registers, spills, blocks per SM and shared
 memory of the kernels the tree redesigned last (the cross-entropy forward
-and the block-sparse forward and dQ), from ptxas's log and the occupancy
-query.
+and the block-sparse forward and dQ) and of those at head_dim 96 and 256
+(the flash forward, the decode kernels' two paths), from ptxas's log and
+the occupancy query.
 Phase 6 also holds the three block-sparse kernels against their plain
 versions (``kernel_rounding=True``: p and ds rounded to the input dtype
 before their products, as the bf16 kernels' tensor cores take them; the
@@ -167,7 +192,7 @@ must give bitwise-equal dQ, dK and dV, and
 the fixed split lengths of DKV_SPLITS are held to the same tolerances and
 timed beside the kept one at each bf16 case.
 
-Each run of phases 4-5, 7-12 and 13-14 (generate(), each serve, the timed
+Each run of phases 4-5, 7-24 (generate(), each serve, the timed
 graphed and eager training steps, each fp32 training run) zeroes the launch
 counters just before it and reads them just after: its kernels must have
 launched (a replay counts every launch of its graph; the capture counts
@@ -177,9 +202,10 @@ reusing the saved o and lse; the sparse forward twice, since remat saves
 nothing of it, as in JAX, and its dQ and dKV once; the cross-entropy
 kernels once per micro-step; AdamW once per step), no other kernel, and
 the plain versions never (the fp32 phases' plain runs excepted).
-The kernel table reports each kernel's case at the shape of this
-slice's run that launches it and that run's count (phases 18-19; the
-block-sparse kernels phase 9's).
+The kernel table reports each kernel's case at the shape of the latest
+slice's run that launches it and that run's count (the attention kernels
+phases 23-24's, the training kernels phase 19's, the block-sparse kernels
+phase 9's).
 The last two lines are the kernel table (JSON) and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside this file, it exits non-zero and prints no result.
@@ -238,11 +264,30 @@ FAMILY_CELLS = {
     # bigscience/bloom-7b1 config.json: ALiBi, tied head, 7.07B parameters
     "bloom-7b1": ("bloom_config", dict(vocab_size=250880, n_positions=2048, n_embd=4096,
                                        n_layer=30, n_head=32), 8),
+    # phases 22-23.  EleutherAI/gpt-j-6b config.json: head_dim 256, rotary_dim
+    # 64 interleaved, a parallel residual from one LayerNorm, gelu_new, an
+    # untied head with a bias; 6.05 B parameters
+    "gptj-6b": ("GPTConfig", dict(vocab_size=50400, n_positions=2048, n_embd=4096,
+                                  n_layer=28, n_head=16, position_encoding="rope",
+                                  rope_dim=64, rope_interleaved=True,
+                                  block_type="parallel_single_ln", activation="gelu_tanh",
+                                  untied_head=True, head_bias=True, ln_eps=1e-5), 8),
+    # EleutherAI/gpt-neox-20b config.json: head_dim 96, rotary_pct 0.25
+    # (rope_dim 24, base 10000), a parallel residual, intermediate 24576,
+    # an untied head; its gelu_fast is the tanh gelu; 20.55 B parameters
+    "neox-20b": ("GPTConfig", dict(vocab_size=50432, n_positions=2048, n_embd=6144,
+                                   n_layer=44, n_head=64, position_encoding="rope",
+                                   rope_dim=24, rope_theta=10000.0, block_type="parallel",
+                                   intermediate_size=24576, activation="gelu_tanh",
+                                   untied_head=True, ln_eps=1e-5), 8),
 }
 KERNEL_HEADS = {"gpt2-xl": (H, H, D, False),
                 "llama3-8b": (32, 8, 128, False),      # GQA 4:1
                 "bloom-7b1": (32, 32, 128, True),
                 "moe-350m": (16, 16, 64, False)}
+# phase 21: the same cases at GPT-J-6B's and GPT-NeoX-20B's heads
+WIDE_KERNEL_HEADS = {"gptj-6b": (16, 16, 256, False),
+                     "neox-20b": (64, 64, 96, False)}
 
 PROMPT_LENS = [17, 45, 80, 130, 200, 260, 300, 33, 150, 96]
 NEW_TOKENS = 32
@@ -393,6 +438,20 @@ FLASH_CASES = {
     "llama3-8b-train": (4, 2048, 32, 8, True, None, False, 128),
     "bloom-7b1-train": (4, 2048, 32, 32, True, None, True, 128),
 }
+# phase 21: the flash forward alone at the served head_dims (trailing
+# entry), GPT-J-6B's and GPT-NeoX-20B's heads: a 2048-token prompt, a
+# ragged one, GQA 4 and ALiBi (GQA and ALiBi exercise the kernel's
+# options at these widths; neither model has them)
+WIDE_FLASH_CASES = {
+    "gptj-6b-s2048": (1, 2048, 16, 16, True, None, False, 256),
+    "gptj-6b-s200": (1, 200, 16, 16, True, None, False, 256),
+    "gptj-6b-gqa4-s512": (1, 512, 16, 4, True, None, False, 256),
+    "gptj-6b-alibi-s512": (1, 512, 16, 16, True, None, True, 256),
+    "neox-20b-s2048": (1, 2048, 64, 64, True, None, False, 96),
+    "neox-20b-s200": (1, 200, 64, 64, True, None, False, 96),
+    "neox-20b-gqa4-s512": (1, 512, 64, 16, True, None, False, 96),
+    "neox-20b-alibi-s512": (1, 512, 64, 64, True, None, True, 96),
+}
 FLASH_Q_STD = 3.0
 # flash tolerances, kernel against the plain version (exact products) on
 # the same inputs, per output: max |err| / max |plain| and |err|_2 /
@@ -443,6 +502,11 @@ SPARSE_CASES = {
 # fixed dKV split lengths timed beside the kept one (DKV_SPLIT, "auto") at
 # each bf16 case, each also held to the tolerances; None splits no column
 DKV_SPLITS = (None, 8, 16, 32)
+# phase 24: layers of the HF-layout stand-ins; the 300-token forward that
+# takes flash (above ops/attention.py's 256); GPT-J-6B int8 against bf16:
+# prompts x prompt length, new tokens, the long forward's length
+INJECT_LAYERS, INJECT_FORWARD = 2, 300
+INT8_PROMPTS, INT8_PROMPT_LEN, INT8_NEW, INT8_FORWARD = 8, 64, 32, 2048
 
 
 def fail(msg: str) -> None:
@@ -542,10 +606,11 @@ def sdpa_mask(keep, slopes, qpos, T, dtype):
     return bias.masked_fill(~keep[:, None], float("-inf")).to(dtype)
 
 
-def kernel_cases(device, flush, clean_flush, reps: int = 50, plain_reps: int = 10):
-    """Every model's head shape x case x dtype: error, times, bound.
-    Returns the result rows.  ``clean_flush`` is a read-only flush, for the
-    second pair of times."""
+def kernel_cases(device, flush, clean_flush, reps: int = 50, plain_reps: int = 10,
+                 heads=KERNEL_HEADS):
+    """Every model's head shape (``heads``) x case x dtype: error, times,
+    bound.  Returns the result rows.  ``clean_flush`` is a read-only flush,
+    for the second pair of times."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.attention import alibi_slopes
@@ -554,7 +619,7 @@ def kernel_cases(device, flush, clean_flush, reps: int = 50, plain_reps: int = 1
     rng = np.random.default_rng(1234)
     decode_lengths = [0, 1, 15, 16, 17, 500, 299, MB * BS - 1]
     rows = []
-    for model, (Hq, Hkv, Dh, alibi) in KERNEL_HEADS.items():
+    for model, (Hq, Hkv, Dh, alibi) in heads.items():
         prefix = "" if model == "gpt2-xl" else model + "-"
         slopes = torch.from_numpy(alibi_slopes(Hq)).to(device) if alibi else None
         for dtype_name, dtype in (("float32", torch.float32),
@@ -1078,12 +1143,12 @@ def ce_checks(name, dtype_name, out, ref, head, labels, gscale, vocab, width_sca
     return checks
 
 
-def flash_inputs(case: str, dtype, device, seed: int = 2024):
-    """(q, k, v, do), bias, slopes, causal for one FLASH_CASES entry, drawn
+def flash_inputs(case: str, dtype, device, seed: int = 2024, cases=FLASH_CASES):
+    """(q, k, v, do), bias, slopes, causal for one ``cases`` entry, drawn
     on the card from a seeded generator."""
     import torch
     from deepspeed_tpu_torch.ops.attention import alibi_slopes
-    B, S, H, Hkv, causal, bias_kind, alibi, *head_dim = FLASH_CASES[case]
+    B, S, H, Hkv, causal, bias_kind, alibi, *head_dim = cases[case]
     D = head_dim[0] if head_dim else 64
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -1114,6 +1179,21 @@ def flash_checks(pairs):
         checks.append((f"{name} err_2/|plain|_2", (err.norm() / want.float().norm()).item(),
                        l2_tol))
     return checks, worst
+
+
+def flash_sdpa_mask(bias, slopes, causal, S, dtype, device):
+    """SDPA's additive attn_mask for a flash case: the bias or ALiBi (with
+    the causal mask as -inf) in q's dtype; None without either (SDPA's
+    is_causal then masks)."""
+    import torch
+    if bias is None and slopes is None:
+        return None
+    pos = torch.arange(S, device=device)
+    dist = (pos[None, :] - pos[:, None]).float()
+    mask = bias if bias is not None else slopes[None, :, None, None] * dist[None, None]
+    if causal:
+        mask = mask.masked_fill(dist > 0, float("-inf"))
+    return mask.to(dtype)
 
 
 def flash_cases(device, flush, card: str, reps: int = 20, plain_reps: int = 5):
@@ -1148,15 +1228,7 @@ def flash_cases(device, flush, card: str, reps: int = 20, plain_reps: int = 5):
             # yardstick: SDPA in its [B, H, S, D] layout, the bias or ALiBi
             # (with the causal mask) as an additive mask in q's dtype
             qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
-            mask = None
-            if bias is not None or slopes is not None:
-                pos = torch.arange(S, device=device)
-                dist = (pos[None, :] - pos[:, None]).float()
-                mask = (bias if bias is not None
-                        else slopes[None, :, None, None] * dist[None, None])
-                if causal:
-                    mask = mask.masked_fill(dist > 0, float("-inf"))
-                mask = mask.to(dtype)
+            mask = flash_sdpa_mask(bias, slopes, causal, S, dtype, device)
 
             def sdpa(a, b, c):
                 return F.scaled_dot_product_attention(
@@ -1234,6 +1306,50 @@ def flash_cases(device, flush, card: str, reps: int = 20, plain_reps: int = 5):
                 f"{fwd['bound_ms']:.4f}, SDPA {fwd['library_ms']:.4f}); dQ {dq['ms']:.4f} + dKV "
                 f"{dkv['ms']:.4f} ms (bounds {dq['bound_ms']:.4f} + {dkv['bound_ms']:.4f}) vs one "
                 f"SDPA backward {dq['library_ms']:.4f} [{card}]")
+    return rows
+
+
+def wide_flash_cases(device, flush, card: str, reps: int = 20, plain_reps: int = 3):
+    """Phase 21: the flash forward alone (the kernel that serves these
+    widths) against its plain version over WIDE_FLASH_CASES, fp32 and bf16,
+    one SDPA forward as the yardstick."""
+    import torch
+    import torch.nn.functional as F
+    tfa = kernel_modules()[3]
+
+    rows = []
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for case, (B, S, H, Hkv, *_) in WIDE_FLASH_CASES.items():
+            (q, k, v, _), bias, slopes, causal = flash_inputs(case, dtype, device,
+                                                              cases=WIDE_FLASH_CASES)
+            D = q.shape[-1]
+            extra = (bias, slopes, causal, 1.0 / D ** 0.5)
+            o, lse = tfa.flash_forward(q, k, v, *extra)
+            ro, rlse = tfa.flash_forward_reference(q, k, v, *extra)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(o.float()).all() and torch.isfinite(lse).all()):
+                fail(f"flash {case} {dtype_name}: non-finite kernel output")
+            checks, worst = flash_checks([("o", o, ro, dtype_name), ("lse", lse, rlse, dtype_name)])
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            mask = flash_sdpa_mask(bias, slopes, causal, S, dtype, device)
+            lib = median_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None, scale=extra[3],
+                enable_gqa=Hkv != H), reps, flush)
+            n_pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+            b_ms, b_by = bound((2 * q.numel() + 2 * k.numel()) * q.element_size()
+                               + 4 * B * H * S, 4.0 * D * n_pairs, dtype_name)
+            rows.append(dict(
+                kernel="flash_forward", case=case, dtype=dtype_name, err=worst, scaled=worst,
+                checks=checks, ms=median_ms(lambda: tfa.flash_forward(q, k, v, *extra), reps,
+                                            flush),
+                plain_ms=median_ms(lambda: tfa.flash_forward_reference(q, k, v, *extra),
+                                   plain_reps, flush),
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                note=f"H {H}, Hkv {Hkv}, D {D}; library: scaled_dot_product_attention "
+                     f"forward{' (enable_gqa)' if Hkv != H else ''}"))
+            del q, k, v, o, lse, ro, rlse, qt, kt, vt
+        torch.cuda.empty_cache()
+    report_rows(rows)
     return rows
 
 
@@ -2736,6 +2852,286 @@ def phase_moe_parity(device):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 24: module_inject and int8
+# --------------------------------------------------------------------------- #
+class HFStandIn:
+    """What ``module_inject`` reads of a Hugging Face model: ``config`` (HF's
+    field names) and ``state_dict()`` (HF's keys and layouts)."""
+
+    def __init__(self, config, state_dict):
+        self.config, self._state_dict = config, state_dict
+
+    def state_dict(self):
+        return self._state_dict
+
+
+# the block activations' names in HF configs
+HF_ACTIVATION = {"gelu_tanh": "gelu_new", "gelu": "gelu", "relu": "relu"}
+
+
+def hf_standin(model, kind: str) -> HFStandIn:
+    """An HF-layout stand-in of the port's ``model``, the inverse of
+    ``module_inject``'s GPT-J (``kind`` "gptj") or GPT-NeoX ("gpt_neox")
+    policy: Linear weights ``[out, in]``, q / k / v separate (GPT-J) or
+    head-interleaved ``[H, 3, D]`` rows (NeoX), the vocab unpadded.  Its
+    tensors are the model's own where the layout matches (no copy)."""
+    from types import SimpleNamespace
+    cfg = model.cfg
+    V, E, H, D, L = cfg.vocab_size, cfg.n_embd, cfg.n_head, cfg.head_dim, cfg.n_layer
+    p = {k: t.detach() for k, t in model.state_dict().items()}
+    act = HF_ACTIVATION[cfg.activation]
+    sd = {}
+    if kind == "gptj":
+        hc = SimpleNamespace(model_type="gptj", vocab_size=V, n_positions=cfg.n_positions,
+                             n_embd=E, n_layer=L, n_head=H, rotary_dim=cfg.rope_dim,
+                             activation_function=act, layer_norm_epsilon=cfg.ln_eps,
+                             tie_word_embeddings=False)
+        sd["transformer.wte.weight"] = p["wte"][:V]
+        for i in range(L):
+            b, t = f"transformer.h.{i}.", f"blocks.{i}."
+            q, k, v = p[t + "qkv_w"].split(E, dim=1)
+            sd.update({b + "ln_1.weight": p[t + "ln1_g"], b + "ln_1.bias": p[t + "ln1_b"],
+                       b + "attn.q_proj.weight": q.T, b + "attn.k_proj.weight": k.T,
+                       b + "attn.v_proj.weight": v.T, b + "attn.out_proj.weight": p[t + "out_w"].T,
+                       b + "mlp.fc_in.weight": p[t + "fc_w"].T, b + "mlp.fc_in.bias": p[t + "fc_b"],
+                       b + "mlp.fc_out.weight": p[t + "proj_w"].T,
+                       b + "mlp.fc_out.bias": p[t + "proj_b"]})
+        sd.update({"transformer.ln_f.weight": p["lnf_g"], "transformer.ln_f.bias": p["lnf_b"],
+                   "lm_head.weight": p["lm_head"][:V], "lm_head.bias": p["lm_head_b"][:V]})
+        return HFStandIn(hc, sd)
+    hc = SimpleNamespace(model_type="gpt_neox", vocab_size=V,
+                         max_position_embeddings=cfg.n_positions, hidden_size=E, num_hidden_layers=L, num_attention_heads=H,
+                         rotary_pct=cfg.rope_dim / D, rotary_emb_base=cfg.rope_theta,
+                         use_parallel_residual=cfg.block_type == "parallel", hidden_act=act,
+                         layer_norm_eps=cfg.ln_eps, intermediate_size=cfg.ffn_dim,
+                         tie_word_embeddings=False)
+    sd["gpt_neox.embed_in.weight"] = p["wte"][:V]
+    for i in range(L):
+        b, t = f"gpt_neox.layers.{i}.", f"blocks.{i}."
+        # [E, q | k | v] columns -> [H, 3, D] rows of [3E, E]
+        w = p[t + "qkv_w"].T.reshape(3, H, D, E).transpose(0, 1).reshape(3 * E, E)
+        bias = p[t + "qkv_b"].reshape(3, H, D).transpose(0, 1).reshape(3 * E)
+        sd.update({b + "input_layernorm.weight": p[t + "ln1_g"],
+                   b + "input_layernorm.bias": p[t + "ln1_b"],
+                   b + "post_attention_layernorm.weight": p[t + "ln2_g"],
+                   b + "post_attention_layernorm.bias": p[t + "ln2_b"],
+                   b + "attention.query_key_value.weight": w,
+                   b + "attention.query_key_value.bias": bias,
+                   b + "attention.dense.weight": p[t + "out_w"].T,
+                   b + "attention.dense.bias": p[t + "out_b"],
+                   b + "mlp.dense_h_to_4h.weight": p[t + "fc_w"].T,
+                   b + "mlp.dense_h_to_4h.bias": p[t + "fc_b"],
+                   b + "mlp.dense_4h_to_h.weight": p[t + "proj_w"].T,
+                   b + "mlp.dense_4h_to_h.bias": p[t + "proj_b"]})
+    sd.update({"gpt_neox.final_layer_norm.weight": p["lnf_g"],
+               "gpt_neox.final_layer_norm.bias": p["lnf_b"], "embed_out.weight": p["lm_head"][:V]})
+    return HFStandIn(hc, sd)
+
+
+INJECT_KINDS = {"gptj-6b": "gptj", "neox-20b": "gpt_neox"}
+
+
+def standin_model(name: str, device, layers: int = INJECT_LAYERS):
+    """(the port's fp32 GPT at ``name``'s widths and ``layers`` layers,
+    seeded, its padded vocab rows zero so the policy's round trip is
+    exact; its HF-layout stand-in).  NeoX-20B's published ``gelu_fast`` is
+    refused by the policy, as by JAX's: the stand-in says ``gelu``, the
+    nearest activation it takes."""
+    import torch
+    from deepspeed_tpu_torch.models import gpt as gpt_mod
+    _, kw, _ = FAMILY_CELLS[name]
+    kw = dict(kw, n_layer=layers)
+    if name == "neox-20b":
+        kw["activation"] = "gelu"
+    model = gpt_mod.GPT(gpt_mod.GPTConfig(**kw, dtype="float32"), device=device, seed=0)
+    with torch.no_grad():
+        for leaf in ("wte", "lm_head", "lm_head_b"):
+            if hasattr(model, leaf):
+                getattr(model, leaf)[model.cfg.vocab_size:] = 0
+    return model, hf_standin(model, INJECT_KINDS[name])
+
+
+def attention_paths(model, ids, attention: str):
+    """Logits of ``model`` (bf16) on ``ids``: the full forward (flash above
+    256 tokens) and a prefill then one decode step through the contiguous
+    cache, with ``attention`` "kernel", "plain" (the plain versions) or
+    "exact" (the plain versions in fp32 on the bf16 inputs)."""
+    import torch
+    from deepspeed_tpu_torch.models import gpt as gpt_mod
+    from deepspeed_tpu_torch.ops import attention as attn_mod
+    tfa, da = kernel_modules()[3], kernel_modules()[0]
+
+    def flash_plain(q, k, v, causal=True, bias=None, alibi=None, exact=False):
+        cast = (lambda t: t.float()) if exact else (lambda t: t)
+        o, _ = tfa.flash_forward_reference(cast(q), cast(k), cast(v), None, alibi, causal,
+                                           1.0 / q.shape[-1] ** 0.5)
+        return o.to(q.dtype)
+
+    def decode_plain(q, ck, cv, pos, alibi=None, exact=False):
+        cast = (lambda t: t.float()) if exact else (lambda t: t)
+        return da.decode_attention_reference(cast(q), cast(ck), cast(cv), pos,
+                                             alibi=alibi).to(q.dtype)
+    fns = {"kernel": (attn_mod.flash_attention, da.decode_attention),
+           "plain": (flash_plain, decode_plain),
+           "exact": (lambda *a, **k: flash_plain(*a, **k, exact=True),
+                     lambda *a, **k: decode_plain(*a, **k, exact=True))}[attention]
+    saved = gpt_mod.decode_attention
+    gpt_mod.decode_attention = fns[1]
+    try:
+        with torch.no_grad():
+            full = gpt_mod.gpt_forward(model.cfg, model.param_tree(), ids, attention_fn=fns[0])
+        cache = model.init_cache(ids.shape[0], ids.shape[1] + 1)
+        prefill, cache = model.apply_with_cache(ids, cache)
+        tok = ids[:, :1]
+        step, _ = model.apply_with_cache(tok, cache)
+    finally:
+        gpt_mod.decode_attention = saved
+    V = model.cfg.vocab_size
+    return full[..., :V], prefill[..., :V], step[..., :V]
+
+
+def phase_inject(device, card: str):
+    """Phase 24: the stand-ins through ``init_inference`` (fp32 tokens,
+    bf16 logits), then GPT-J-6B at full size in bf16 and int8."""
+    import torch
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import gpt as gpt_mod
+
+    out = {}
+    for name in INJECT_KINDS:
+        model, standin = standin_model(name, device)
+        if name == "neox-20b":
+            say("neox-20b stand-in: hidden_act 'gelu' in place of the published 'gelu_fast', "
+                "which module_inject refuses as the JAX package does")
+        prompts = make_prompts(model.cfg.vocab_size, PROMPT_LENS[:4])
+
+        def run():
+            eng = dst.init_inference(standin, device=device, config={"dtype": "float32"})
+            return eng, [eng.generate([p], NEW_TOKENS)[0, len(p):].tolist() for p in prompts]
+        (eng, toks), counts = counted(f"{name} fp32 init_inference(stand-in) generate",
+                                      {"decode_attention": None}, run)
+        own = dict(model.named_parameters())
+        differ = [k for k, t in eng.module.named_parameters() if not torch.equal(t, own[k])]
+        if differ:
+            fail(f"{name}: the injected weights differ from the model's: {differ[:4]}")
+        ties = 0
+        for i, (p, got) in enumerate(zip(prompts, toks)):
+            ref = model.generate([p], NEW_TOKENS)[0, len(p):].tolist()
+            if got == ref:
+                continue
+            k = next(j for j, (a, b) in enumerate(zip(got, ref)) if a != b)
+            gap = top2_gap(model, p + ref[:k])
+            if gap > NEAR_TIE:
+                fail(f"{name} init_inference(stand-in): request {i} diverges at token {k}, "
+                     f"top-2 gap {gap:.3e} > {NEAR_TIE}")
+            ties += 1
+        del eng
+        say(f"{name} stand-in ({INJECT_LAYERS} layers, {len(standin.state_dict())} HF leaves) "
+            f"through init_inference, fp32: injected weights equal the model's bit for bit; "
+            f"{len(prompts)} greedy streams of {NEW_TOKENS} equal to generate() except {ties} "
+            f"near-ties")
+        eng16 = dst.init_inference(standin, device=device, config={"dtype": "bfloat16"})
+        ids = torch.from_numpy(np.asarray(make_prompts(model.cfg.vocab_size, [INJECT_FORWARD],
+                                                       seed=11))).to(device)
+        kernel, fwd_counts = counted(f"{name} bf16 forward + cached prefill and decode",
+                                     {"flash_forward": eng16.module.cfg.n_layer,
+                                      "decode_attention": 2 * eng16.module.cfg.n_layer},
+                                     lambda: attention_paths(eng16.module, ids, "kernel"))
+        plain = attention_paths(eng16.module, ids, "plain")
+        exact = attention_paths(eng16.module, ids, "exact")
+
+        def dist(a, b):
+            return max((x.float() - y.float()).abs().max().item() for x, y in zip(a, b))
+        err, noise = dist(kernel, plain), dist(plain, exact)
+        tol = max(BF16_LOGIT_TOL, LOGIT_NOISE_FACTOR * noise)
+        say(f"{name} stand-in bf16 logits ({INJECT_FORWARD}-token forward through flash, its "
+            f"prefill and one decode step through the contiguous kernel): kernel vs plain "
+            f"attention max abs diff {err:.4f} (tol {tol:.4f}); plain vs exact {noise:.4f}; "
+            f"|logits| max {plain[0].abs().max().item():.3f}")
+        if not all(torch.isfinite(t).all() for t in kernel) or not err <= tol:
+            fail(f"{name} stand-in bf16 logits differ by {err:.4f} > {tol:.4f}")
+        out[name] = dict(ties=ties, counts=counts, forward_counts=fwd_counts, err=err)
+        del eng16, model, standin, kernel, plain, exact
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # GPT-J-6B at full size: bf16 against int8 weights
+    _, kw, _ = FAMILY_CELLS["gptj-6b"]
+    torch.cuda.reset_peak_memory_stats(device)
+    before = torch.cuda.memory_allocated(device)
+    model = gpt_mod.GPT(gpt_mod.GPTConfig(**kw, dtype="bfloat16"), device=device, seed=0,
+                        param_dtype=torch.bfloat16)
+    bf16_peak_init = torch.cuda.max_memory_allocated(device) - before
+    eng16 = dst.init_inference(model, device=device, config={"dtype": "bfloat16"})
+    eng8 = dst.init_inference(model, device=device, config={"dtype": "int8"})
+    if eng16.module is not model or not eng8.module.quantized:
+        fail("gptj-6b: the bf16 engine must serve the model itself and the int8 one a "
+             "quantized copy")
+    qkeys = gpt_mod.QUANT_KEYS
+    bf16_bytes = sum(t.numel() * t.element_size() for n, t in model.named_parameters()
+                     if n.rsplit(".", 1)[-1] in qkeys)
+    int8_bytes = sum(t.numel() * t.element_size() for n, t in eng8.module.named_parameters()
+                     if n.endswith((".q8", ".scale")))
+    rng = np.random.default_rng(13)
+    ids = torch.from_numpy(rng.integers(1, model.cfg.vocab_size, size=(
+        INT8_PROMPTS, INT8_PROMPT_LEN))).to(device)
+    results = {}
+    for label, eng in (("bf16", eng16), ("int8", eng8)):
+        step_ms = []
+        inner = gpt_mod.gpt_apply_with_cache
+
+        def timed(cfg, params, input_ids, cache, inner=inner, step_ms=step_ms):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = inner(cfg, params, input_ids, cache)
+            torch.cuda.synchronize()
+            if input_ids.shape[1] == 1:
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            return res
+        eng.generate(ids[:1, :8], max_new_tokens=2)                 # warm-up
+        gpt_mod.gpt_apply_with_cache = timed
+        try:
+            toks, counts = counted(f"gptj-6b {label} init_inference generate",
+                                   {"decode_attention": None},
+                                   lambda eng=eng: eng.generate(ids, max_new_tokens=INT8_NEW))
+        finally:
+            gpt_mod.gpt_apply_with_cache = inner
+        with torch.no_grad():
+            logits = eng.module.forward_logits(ids)[:, -1, :model.cfg.vocab_size]
+        results[label] = dict(tokens=toks[:, INT8_PROMPT_LEN:].cpu(), logits=logits,
+                              step_ms=statistics.median(step_ms), counts=counts)
+    same = results["bf16"]["tokens"] == results["int8"]["tokens"]
+    agree = int(same.long().cumprod(dim=1).sum())                  # up to each first divergence
+    logit_dist = (results["bf16"]["logits"] - results["int8"]["logits"]).abs().max().item()
+    long_ids = torch.from_numpy(rng.integers(1, model.cfg.vocab_size, size=(
+        1, INT8_FORWARD))).to(device)
+    logits, flash_counts = counted(f"gptj-6b bf16 {INT8_FORWARD}-token forward",
+                                   {"flash_forward": model.cfg.n_layer},
+                                   lambda: eng16.forward(long_ids))
+    if not torch.isfinite(logits).all():
+        fail("gptj-6b: non-finite logits in the long forward")
+    peak = torch.cuda.max_memory_allocated(device) - before
+    say(f"gptj-6b full size, {model.cfg.n_layer} layers: block weights int8 "
+        f"{int8_bytes / 2 ** 30:.2f} GiB (q8 and fp32 scales) against bf16 "
+        f"{bf16_bytes / 2 ** 30:.2f} GiB ({int8_bytes / bf16_bytes:.3f}x); bf16 init peak "
+        f"{bf16_peak_init / 2 ** 30:.2f} GiB, peak {peak / 2 ** 30:.2f} GiB with both engines "
+        f"[{card}]")
+    say(f"gptj-6b decode step ({INT8_PROMPTS} rows, median of {INT8_NEW - 1}): bf16 "
+        f"{results['bf16']['step_ms']:.2f} ms, int8 {results['int8']['step_ms']:.2f} ms; "
+        f"greedy agreement {agree} of {same.numel()} tokens up to each stream's first "
+        f"divergence ({int(same.all(dim=1).sum())} of {INT8_PROMPTS} streams identical); "
+        f"largest last-position logit distance int8 vs bf16 {logit_dist:.4f} [{card}]")
+    out["int8"] = dict(bf16=results["bf16"], int8=results["int8"], agree=agree,
+                       tokens=same.numel(), logit_dist=logit_dist, peak_gib=peak / 2 ** 30,
+                       int8_gib=int8_bytes / 2 ** 30, bf16_gib=bf16_bytes / 2 ** 30,
+                       flash_counts=flash_counts)
+    del eng8, eng16, model, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2794,6 +3190,12 @@ def main() -> int:
                     n, smem = tfa.kernel_occupancy(kern, dt, extras, head_dim)
                     occupancy.append(f"{kern} {dt_name}{' extras' if extras else ''} D{head_dim} "
                                      f"{n} x {smem} B")
+    for dt_name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        for extras in (False, True):
+            for head_dim in (96, 256):
+                n, smem = tfa.kernel_occupancy("forward", dt, extras, head_dim)
+                occupancy.append(f"forward {dt_name}{' extras' if extras else ''} D{head_dim} "
+                                 f"{n} x {smem} B")
     say("flash blocks per SM x shared memory per block (occupancy query): "
         + ", ".join(occupancy))
     from deepspeed_tpu_torch.ops.cuda import block_sparse_attention as tbs
@@ -2834,6 +3236,19 @@ def main() -> int:
     say("head_dim-128 flash and wide cross-entropy kernels (registers, spill stores / loads in "
         "bytes): " + "; ".join("{} {} regs, spills {} / {}".format(
             name, *build_info(res.log, entry)) for name, entry in added))
+    # the kernels at head_dim 96 and 256: the flash forward, the
+    # decode kernels' decode path (S_q 1 and 4) and prefill path
+    served = [(f"flash_fwd_kernel<{dt}, {d}{', extras' if x else ''}>",
+               f"flash_fwd_kernelI{m}Li{d}ELb{int(x)}E")
+              for d in (96, 256) for dt, m in (("bf16", "13__nv_bfloat16"), ("fp32", "f"))
+              for x in (False, True)]
+    served += [(f"paged_{k}_kernel<{dt}, {d}{r}>", f"paged_{k}_kernelI{m}Li{d}E{e}")
+               for d in (96, 256) for dt, m in (("bf16", "13__nv_bfloat16"), ("fp32", "f"))
+               for k, r, e in (("decode", ", 1", "Li1E"), ("decode", ", 4", "Li4E"),
+                               ("prefill", "", "EE"))]
+    say("head_dim-96 and -256 kernels (registers, spill stores / loads in bytes): "
+        + "; ".join("{} {} regs, spills {} / {}".format(name, *build_info(res.log, entry))
+                    for name, entry in served))
     say("kernels: paged_attention, decode_attention, flash_forward, flash_backward_dq, "
         "flash_backward_dkv, ce_forward, ce_backward_dx, ce_backward_dhead, fused_adam, "
         "block_sparse_forward, block_sparse_backward_dq, block_sparse_backward_dkv")
@@ -3073,19 +3488,77 @@ def main() -> int:
             for k, r in moe_parity.items()))
     phase_done("20")
 
+    # ---- 21. the attention kernels at head_dim 256 and 96 ------------------------ #
+    gc.collect()
+    torch.cuda.empty_cache()
+    scratch = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)
+    wide_rows = kernel_cases(device, flush=scratch.zero_,
+                             clean_flush=scratch.view(torch.float32).sum, reps=20,
+                             plain_reps=5, heads=WIDE_KERNEL_HEADS)
+    wide_rows += wide_flash_cases(device, scratch.zero_, card)
+    del scratch
+    torch.cuda.empty_cache()
+    phase_done("21")
+
+    # ---- 22-23. GPT-J-6B and GPT-NeoX-20B served: fp32 identity, bf16 at full size #
+    for n, name in ((22, "gptj-6b"), (23, "neox-20b")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        families[name] = r = phase_family(name, device, card)
+        prof = r["bf16"]["profile"]
+        say(f"summary: {name} fp32 near-ties {r['fp32']['roomy']['ties']} roomy / "
+            f"{r['fp32']['preempting']['ties']} preempting (preemptions "
+            f"{r['fp32']['preempting']['preemptions']}); bf16 {r['n_layer']} layers: "
+            f"{r['bf16']['tokens_per_s']:.1f} tokens/s, median TTFT {r['bf16']['ttft_ms']:.1f} "
+            f"ms, median decode step {r['bf16']['decode_step_ms']:.2f} ms, "
+            + ("profiled decode step not measured" if prof is None else
+               f"profiled decode step {prof[0]:.3f} ms device, busy {prof[1]:.1%}, paged "
+               f"attention {prof[2]:.4f} ms ({prof[3]:.1%})")
+            + f", peak memory {r['peak_gib']:.2f} GiB [{card}]")
+        say("launches by run: " + json.dumps({
+            f"{name} {run}": counts for run, counts in (
+                ("fp32 generate()", r["fp32"]["generate"]["counts"]),
+                ("fp32 serve (roomy)", r["fp32"]["roomy"]["counts"]),
+                ("fp32 serve (preempting)", r["fp32"]["preempting"]["counts"]),
+                ("bf16 serve", r["bf16"]["counts"]))}))
+        phase_done(str(n))
+
+    # ---- 24. module_inject and int8 --------------------------------------------- #
+    gc.collect()
+    torch.cuda.empty_cache()
+    inject = phase_inject(device, card)
+    i8 = inject["int8"]
+    say(f"summary: module_inject stand-ins fp32 near-ties "
+        f"{inject['gptj-6b']['ties']} (gptj-6b) / {inject['neox-20b']['ties']} (neox-20b); "
+        f"gptj-6b int8 block weights {i8['int8_gib']:.2f} GiB vs bf16 {i8['bf16_gib']:.2f}, "
+        f"decode step int8 {i8['int8']['step_ms']:.2f} ms vs bf16 {i8['bf16']['step_ms']:.2f}, "
+        f"agreement {i8['agree']} / {i8['tokens']}, logit distance {i8['logit_dist']:.4f}, "
+        f"peak {i8['peak_gib']:.2f} GiB [{card}]")
+    say("launches by run: " + json.dumps({
+        **{f"{name} fp32 init_inference(stand-in) generate": inject[name]["counts"]
+           for name in INJECT_KINDS},
+        **{f"{name} bf16 stand-in forward + cached steps": inject[name]["forward_counts"]
+           for name in INJECT_KINDS},
+        "gptj-6b bf16 init_inference generate": i8["bf16"]["counts"],
+        "gptj-6b int8 init_inference generate": i8["int8"]["counts"],
+        f"gptj-6b bf16 {INT8_FORWARD}-token forward": i8["flash_counts"]}))
+    phase_done("24")
+
     # ---- report ------------------------------------------------------------------ #
-    # each kernel's row: its case at the shape and dtype of this slice's run
-    # that launches it, and that run's launch count: the MoE cell's bf16
-    # serve for the paged kernel, its fp32 init_inference generate for the
-    # contiguous one, its bf16 training run for the flash, cross-entropy and
-    # AdamW kernels; the seq-4096 sparse bf16 training run for the
-    # block-sparse kernels
+    # each kernel's row: its case at the shape and dtype of the latest
+    # slice's run that launches it, and that run's launch count: the
+    # NeoX-20B bf16 serve for the paged kernel, GPT-J-6B's bf16
+    # init_inference generate for the contiguous one and its 2048-token
+    # forward for the flash forward (phases 23-24); the MoE cell's bf16
+    # training run for flash dQ and dKV, the cross-entropy and AdamW
+    # kernels; the seq-4096 sparse bf16 training run for the block-sparse
+    # kernels
     moe_train_counts = moe_train["counts"]
-    main_case = {"paged_attention": ("moe-350m-paged-decode", "bfloat16",
-                                     moe_serve["bf16"]["counts"]),
-                 "decode_attention": ("moe-350m-generate-decode", "float32",
-                                      moe_serve["fp32"]["inference"]["counts"]),
-                 "flash_forward": ("moe-350m-train", "bfloat16", moe_train_counts),
+    main_case = {"paged_attention": ("neox-20b-paged-decode", "bfloat16",
+                                     families["neox-20b"]["bf16"]["counts"]),
+                 "decode_attention": ("gptj-6b-generate-decode", "bfloat16",
+                                      i8["bf16"]["counts"]),
+                 "flash_forward": ("gptj-6b-s2048", "bfloat16", i8["flash_counts"]),
                  "flash_backward_dq": ("moe-350m-train", "bfloat16", moe_train_counts),
                  "flash_backward_dkv": ("moe-350m-train", "bfloat16", moe_train_counts),
                  "ce_forward": ("moe-350m-train", "bfloat16", moe_train_counts),
@@ -3124,7 +3597,7 @@ def main() -> int:
                     "deepspeed_tpu/ops/pallas/block_sparse_attention.py:231"}
     table = []
     for name, (case, dt, counts) in main_case.items():
-        r = next(r for r in rows + flash_rows + sparse_rows + train_rows
+        r = next(r for r in rows + flash_rows + sparse_rows + train_rows + wide_rows
                  if r["kernel"] == name and r["case"] == case and r["dtype"] == dt)
         table.append({"name": name, "route": "cuda", "source": source[name],
                       "replaces": replaces[name], "launches": counts[name],

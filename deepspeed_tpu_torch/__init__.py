@@ -7,8 +7,9 @@ hand-written flash attention, cross-entropy and fused AdamW kernels),
 serving (``init_serving`` / ``ServingEngine`` over the paged KV arena, with
 the paged decode kernel) and inference (``init_inference`` /
 ``InferenceEngine``: forward and greedy ``generate`` over the contiguous KV
-cache, with the contiguous decode kernel).  Entry points run on the
-current CUDA device unless the caller passes ``device="cpu"``.
+cache, with the contiguous decode kernel; a Hugging Face decoder through
+``module_inject``, and int8 weights with ``dtype="int8"``).  Entry points
+run on the current CUDA device unless the caller passes ``device="cpu"``.
 """
 
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
@@ -34,7 +35,8 @@ def initialize(model=None, config=None, model_parameters=None, lr_scheduler=None
 
 def init_inference(model=None, config=None, **kwargs):
     """Build an InferenceEngine (``inference/``) from a config dict +
-    kwargs (``params=``, ``device=``)."""
+    kwargs (``params=``, ``device=``, ``policy=``).  ``model`` is the
+    port's GPT or a Hugging Face causal LM (``module_inject``)."""
     from deepspeed_tpu_torch.inference.engine import init_inference as _init
     return _init(model=model, config=config, **kwargs)
 

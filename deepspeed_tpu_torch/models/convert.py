@@ -7,7 +7,10 @@ The JAX pytree is ``{"wte", "wpe", "lnf_g", "lnf_b", "blocks"}`` (no
 ``wpe`` with rope or ALiBi positions; ``lm_head`` and ``lm_head_b`` with an
 untied head) where ``blocks`` holds stacked ``[n_layer, ...]`` leaves
 (``scan_layers=True``) or one ``{"h<i>": {...}}`` dict per layer; the
-leaves' widths are the family's (a GQA qkv, a SwiGLU gate | up).  An MoE
+leaves' widths are the family's (a GQA qkv, a SwiGLU gate | up).  An int8
+tree (JAX's ``init_inference(dtype="int8")``) holds ``{"q8", "scale"}``
+dicts in place of the block weights; they become ``blocks.<i>.qkv_w.q8``
+and ``blocks.<i>.qkv_w.scale``.  An MoE
 block holds a nested ``moe`` subtree (``gate.wg``, ``experts.{wi, bi, wo,
 bo}`` stacked over experts) in place of ``fc_*`` / ``proj_*``; its leaves
 become ``blocks.<i>.moe.gate.wg`` and so on.  Leaves may be numpy arrays or
@@ -27,17 +30,13 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.models.gpt import GPT, OTHER_FAMILIES, GPTConfig
+from deepspeed_tpu_torch.models.gpt import GPT, GPTConfig, cast_leaf
 
 # every leaf outside ``blocks`` a family's tree may hold
 TREE_TOP_KEYS = ("wte", "wpe", "lnf_g", "lnf_b", "lm_head", "lm_head_b")
 
 
 def _tensor(x) -> torch.Tensor:
-    if isinstance(x, dict):
-        raise NotImplementedError(
-            "int8-quantized weight leaves are not ported yet "
-            f"({OTHER_FAMILIES})")
     arr = np.asarray(x)
     if arr.dtype.name == "bfloat16":   # numpy has no bf16: go through fp32, exactly
         return torch.tensor(arr.astype(np.float32)).to(torch.bfloat16)
@@ -46,11 +45,17 @@ def _tensor(x) -> torch.Tensor:
 
 def _block_leaves(block: Dict) -> Dict[str, Any]:
     """One block's (or the stacked blocks') leaves by dotted path: the
-    ``moe`` subtree is walked, any other leaf taken as it is (a quantized
-    leaf, a dict, raises in ``_tensor``)."""
+    ``moe`` subtree is walked, an int8 weight (``{"q8", "scale"}``, JAX's
+    ``module_inject/quantization.py``) becomes ``<key>.q8`` and
+    ``<key>.scale``, any other leaf is taken as it is."""
     out = {}
     for k, v in block.items():
-        if k == "moe" and isinstance(v, dict):
+        if isinstance(v, dict) and set(v) == {"q8", "scale"}:
+            out[f"{k}.q8"], out[f"{k}.scale"] = v["q8"], v["scale"]
+        elif isinstance(v, dict) and k != "moe":
+            raise ValueError(f"block leaf {k}: a dict of {sorted(v)} is neither an int8 weight "
+                             "({'q8', 'scale'}) nor the moe subtree")
+        elif k == "moe" and isinstance(v, dict):
             stack = [("moe", v)]
             while stack:
                 path, node = stack.pop(0)
@@ -79,7 +84,7 @@ def params_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
                 sd[f"blocks.{i}.{k}"] = _tensor(leaf)
         return sd
     stacked = {k: _tensor(leaf) for k, leaf in _block_leaves(blocks).items()}
-    n_layer = stacked["qkv_w"].shape[0]
+    n_layer = next(iter(stacked.values())).shape[0]
     for i in range(n_layer):
         for k, leaf in stacked.items():
             sd[f"blocks.{i}.{k}"] = leaf[i].clone()
@@ -92,7 +97,7 @@ def gpt_from_jax(cfg: GPTConfig, tree: Dict, device=None,
     (default: the current CUDA device), optionally cast to ``dtype``."""
     sd = params_from_jax(tree)
     if dtype is not None:
-        sd = {k: v.to(dtype) for k, v in sd.items()}
+        sd = {k: cast_leaf(k, v, dtype, v.device) for k, v in sd.items()}
     return GPT(cfg, device=device, state_dict=sd)
 
 

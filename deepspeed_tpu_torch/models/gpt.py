@@ -46,7 +46,9 @@ slopes the kernels apply themselves) and through ``ops/attention.py`` when
 training (the reference up to 256 tokens, the flash kernels of
 ``ops/cuda/flash_attention.py`` above, fed the ``[B, S, H, D]`` views of
 the qkv product without copies); the training loss goes through the fused
-cross-entropy kernels of ``ops/cuda/cross_entropy.py`` on the card.
+cross-entropy kernels of ``ops/cuda/cross_entropy.py`` on the card.  An
+int8 model (``init_inference(dtype="int8")``) holds its block weights as
+``<key>.q8`` and ``<key>.scale`` leaves, dequantized at each product.
 Training knobs not ported yet (random-LTD, activation quantization,
 dropout, progressive layer drop) raise ``NotImplementedError`` naming
 their ROADMAP item.
@@ -73,7 +75,6 @@ from deepspeed_tpu_torch.ops.cuda.decode_attention import (decode_attention,
 from deepspeed_tpu_torch.ops.cuda import capture
 from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing import checkpoint
 
-OTHER_FAMILIES = "ROADMAP.md, Queue 1: other GPT families"
 TRAINING = "ROADMAP.md, Queue 1 item 9 (data pipeline, compression, progressive layer drop)"
 DROPOUT = ("ROADMAP.md, Queue 1 item 4: dropout in training (its random streams "
            "cannot match JAX's; no config on the training path uses it)")
@@ -239,11 +240,19 @@ MOE_KEYS = ("moe.gate.wg", "moe.experts.wi", "moe.experts.bi", "moe.experts.wo",
             "moe.experts.bo")
 
 
-def block_keys(cfg: "GPTConfig") -> Tuple[str, ...]:
-    """One block's leaves, dotted paths into its tree (``moe.gate.wg``)."""
-    if not cfg.moe_num_experts:
-        return BLOCK_KEYS
-    return BLOCK_KEYS[:8] + MOE_KEYS            # the norms and attention, then the bank
+# the weights an int8 model holds quantized (the large 2-D matmul operands of
+# a block, JAX's set), each as two leaves: ``<key>.q8`` and ``<key>.scale``
+QUANT_KEYS = ("qkv_w", "out_w", "fc_w", "proj_w")
+
+
+def block_keys(cfg: "GPTConfig", quantized: bool = False) -> Tuple[str, ...]:
+    """One block's leaves, dotted paths into its tree (``moe.gate.wg``;
+    ``qkv_w.q8`` and ``qkv_w.scale`` for a quantized weight)."""
+    keys = BLOCK_KEYS if not cfg.moe_num_experts else BLOCK_KEYS[:8] + MOE_KEYS
+    if not quantized:
+        return keys
+    return tuple(leaf for k in keys
+                 for leaf in ((k + ".q8", k + ".scale") if k in QUANT_KEYS else (k,)))
 
 
 def get_leaf(tree: Dict, path: str):
@@ -282,10 +291,12 @@ def fc_width(cfg: GPTConfig) -> int:
     return 2 * cfg.ffn_dim if cfg.mlp_type == "swiglu" else cfg.ffn_dim
 
 
-def leaf_shapes(cfg: GPTConfig) -> Tuple[Dict[str, tuple], Dict[str, tuple]]:
+def leaf_shapes(cfg: GPTConfig, quantized: bool = False
+                ) -> Tuple[Dict[str, tuple], Dict[str, tuple]]:
     """(top-level leaf shapes, one block's leaf shapes by dotted path) of
     ``cfg``'s tree.  Bias leaves exist (as zeros) when ``use_bias`` is off,
-    as in JAX; an MoE block's expert leaves are stacked ``[experts, ...]``."""
+    as in JAX; an MoE block's expert leaves are stacked ``[experts, ...]``;
+    a quantized weight's scale is ``[1, out]``."""
     E, I, V, F_ = cfg.n_embd, cfg.ffn_dim, cfg.padded_vocab, fc_width(cfg)
     NE, H = cfg.moe_num_experts, cfg.expert_hidden
     top = {"wte": (V, E), "wpe": (cfg.n_positions, E), "lnf_g": (E,),
@@ -296,8 +307,10 @@ def leaf_shapes(cfg: GPTConfig) -> Tuple[Dict[str, tuple], Dict[str, tuple]]:
              "proj_w": (I, E), "proj_b": (E,), "moe.gate.wg": (E, NE),
              "moe.experts.wi": (NE, E, H), "moe.experts.bi": (NE, H),
              "moe.experts.wo": (NE, H, E), "moe.experts.bo": (NE, E)}
+    for k in QUANT_KEYS:
+        block[k + ".q8"], block[k + ".scale"] = block[k], (1, block[k][-1])
     return ({k: top[k] for k in top_keys(cfg)},
-            {k: block[k] for k in block_keys(cfg)})
+            {k: block[k] for k in block_keys(cfg, quantized)})
 
 
 def _normal(shape, scale: float, gen: torch.Generator,
@@ -424,8 +437,14 @@ def _split_qkv(cfg: GPTConfig, qkv: torch.Tensor):
 
 
 def _dense(cfg: GPTConfig, p: Dict, h: torch.Tensor, name: str, dt) -> torch.Tensor:
-    """``h @ <name>_w`` plus ``<name>_b`` unless the family is bias-free."""
-    y = h @ p[name + "_w"].to(dt)
+    """``h @ <name>_w`` plus ``<name>_b`` unless the family is bias-free.  An
+    int8 weight (``{"q8", "scale"}``) is dequantized to ``dt`` first, as
+    JAX's ``_wget`` does."""
+    w = p[name + "_w"]
+    if isinstance(w, dict):
+        from deepspeed_tpu_torch.module_inject.quantization import dequantize_weight
+        w = dequantize_weight(w, dt)
+    y = h @ w.to(dt)
     return y + p[name + "_b"].to(dt) if cfg.use_bias else y
 
 
@@ -854,11 +873,17 @@ class GPTBlock(nn.Module):
         return nest(dict(self.named_parameters()))
 
 
+def is_quantized(sd: Dict[str, torch.Tensor]) -> bool:
+    """Whether a state dict holds int8 weights (``<key>.q8`` leaves)."""
+    return any(k.endswith(".q8") for k in sd)
+
+
 def _tree_from_state_dict(cfg: GPTConfig, sd: Dict[str, torch.Tensor],
                           device: torch.device) -> Dict:
     """``{"wte", ..., "blocks.<i>.<leaf>"}`` -> parameter tree on ``device``,
     checked against ``cfg``."""
-    expected, block_shapes = leaf_shapes(cfg)
+    quantized = is_quantized(sd)
+    expected, block_shapes = leaf_shapes(cfg, quantized)
     expected = dict(expected)
     for i in range(cfg.n_layer):
         for k, shape in block_shapes.items():
@@ -872,9 +897,19 @@ def _tree_from_state_dict(cfg: GPTConfig, sd: Dict[str, torch.Tensor],
         if tuple(sd[k].shape) != shape:
             raise ValueError(f"{k}: shape {tuple(sd[k].shape)}, config wants {shape}")
     tree = {k: sd[k].to(device) for k in top_keys(cfg)}
-    tree["blocks"] = [nest({k: sd[f"blocks.{i}.{k}"].to(device) for k in block_keys(cfg)})
+    tree["blocks"] = [nest({k: sd[f"blocks.{i}.{k}"].to(device)
+                            for k in block_keys(cfg, quantized)})
                       for i in range(cfg.n_layer)]
     return tree
+
+
+def cast_leaf(name: str, t, dtype: torch.dtype, device) -> torch.Tensor:
+    """A leaf in ``dtype`` on ``device``: float leaves cast, an int8
+    payload kept, a quantization scale kept in fp32 (as JAX keeps it)."""
+    t = torch.as_tensor(t)
+    if t.is_floating_point() and not name.endswith(".scale"):
+        return t.to(device, dtype)
+    return t.to(device)
 
 
 def model_in(model: "GPT", dtype: torch.dtype, device: torch.device,
@@ -885,10 +920,9 @@ def model_in(model: "GPT", dtype: torch.dtype, device: torch.device,
     model; the caller's is left alone)."""
     sd = params if params is not None else model.state_dict()
     if (params is None and model.cfg.dtype == dtype
-            and all(t.dtype == dtype and t.device == device for t in sd.values())):
+            and all(cast_leaf(k, t, dtype, device) is t for k, t in sd.items())):
         return model
-    sd = {k: torch.as_tensor(v).to(device, dtype) if torch.as_tensor(v).is_floating_point()
-          else torch.as_tensor(v).to(device) for k, v in sd.items()}
+    sd = {k: cast_leaf(k, v, dtype, device) for k, v in sd.items()}
     return type(model)(dataclasses.replace(model.cfg, dtype=dtype), device=device,
                        state_dict=sd)
 
@@ -914,10 +948,12 @@ class GPT(nn.Module):
             tree = init_gpt_params(cfg, gen, dtype=param_dtype)
         else:
             tree = _tree_from_state_dict(cfg, state_dict, dev)
+        self.quantized = state_dict is not None and is_quantized(state_dict)
         for name in top_keys(cfg):
             self.register_parameter(
                 name, nn.Parameter(tree[name], requires_grad=False))
-        self.blocks = nn.ModuleList(GPTBlock(p, block_keys(cfg)) for p in tree["blocks"])
+        self.blocks = nn.ModuleList(GPTBlock(p, block_keys(cfg, self.quantized))
+                                    for p in tree["blocks"])
 
     @property
     def device(self) -> torch.device:

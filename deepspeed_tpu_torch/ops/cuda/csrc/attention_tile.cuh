@@ -39,6 +39,7 @@ constexpr int kWarps = 4;               // 16 rows each
 constexpr int kThreads = 32 * kWarps;
 constexpr float kNegInf = -1e30f;       // JAX's NEG_INF: where the running max starts
 constexpr unsigned kFull = 0xffffffffu;
+constexpr size_t kMaxSmem = 232448;    // dynamic shared memory a block may have (H100)
 
 // shared-memory row pitch of a [row][D] tile: 16 bytes past a multiple of
 // 128, so the 8 rows of one ldmatrix (or 8 lanes' float4 reads) hit

@@ -32,9 +32,12 @@
 //   round robin: block n goes to warp n % 8, so each warp walks every 8th
 //   block and all 8 warps stream one row's keys at once.  A warp copies a
 //   block with 16 bytes a lane (a key row per D / 8 lanes in bf16, D / 4 in
-//   fp32) into a ring in its own shared memory by cp.async, as deep as 16 KB
-//   a warp holds (at most 3 blocks: bf16 3 at head_dim 64, 2 at 128; fp32
-//   2 and 1), 128 KB a block of 8 warps at most; each lane reads back only
+//   fp32, rounded up to a power of two at head_dim 96, whose last lanes
+//   copy nothing; fp32 at 256 two chunks a lane and the block in two parts
+//   of 8 keys, see Lanes) into a ring in its own shared memory by cp.async,
+//   as deep as 16 KB a warp holds (at most 3 parts: bf16 3 at head_dim 64,
+//   2 at 96 and 128, 1 at 256; fp32 2, then 1), 128 KB a block of 8 warps
+//   at most; each lane reads back only
 //   what it copied, so the ring needs no barrier.  Each warp keeps its own
 //   (m, l, acc) per row; at the end the 8 partial states are merged in
 //   shared memory in warp order 0..7, each rescaled to the row's overall
@@ -74,10 +77,15 @@
 // whole (generate()) and in chunks (the serving engine) gives the same rows.
 // The two paths differ from each other in summation order.
 //
-// Compiled for arena blocks of 16 keys and head_dim 64 (GPT-2) and 128 (the
-// LLaMA and BLOOM widths users serve), a template on D; the wrappers raise
-// on any other.  At D 128 a prefill block's shared memory is 87 KB in bf16
-// and 169 KB in fp32 (a query tile and two K and V tiles).
+// Compiled for arena blocks of 16 keys and head_dim 64 (GPT-2), 96
+// (GPT-NeoX-20B), 128 (the LLaMA and BLOOM widths users serve) and 256
+// (GPT-J), a template on D; the wrappers raise on any other.  A prefill
+// block's shared memory is a query tile and two K and V tiles: 87 KB in
+// bf16 and 169 KB in fp32 at D 128, 165 KB in bf16 at 256; fp32 at 256
+// keeps one K and one V tile (195 KB; kPrefillBufs), so its next tile's
+// copies wait for the barrier that ends the current one.  A decode block's
+// ring is 128 KB at 256 (one 16 KB part a warp) beside 32 KB of merge
+// state at S_q 4.
 
 #include <cooperative_groups.h>
 
@@ -164,15 +172,35 @@ __device__ __forceinline__ float score_log2(float dot, float scale_log2, float s
 // decode path
 // --------------------------------------------------------------------------
 
-// (bf16, fp32) at head_dim 64 | 128
+constexpr int pow2_ceil(int n) { return n <= 1 ? 1 : 2 * pow2_ceil((n + 1) / 2); }
+
+// How a warp holds key rows, at (bf16 | fp32) and head_dim 64, 96, 128, 256.
+// A key row is kChunks 16-byte chunks; a lane holds kWide of them (2 only
+// for fp32 at 256, whose 64 chunks outnumber the lanes), so kPerKey lanes,
+// a power of two, share a key row and reduce its scores by xor shuffles.
+// At head_dim 96 a row's 12 (24) chunks spread over 16 (32) lanes: the 4
+// (8) lanes past them copy and hold zeros (a quarter of the warp idle, in
+// exchange for the power-of-two reductions of the other widths).  A warp
+// copies kKeysPerLoad keys a load; a 16-key block is kSplit parts of
+// kPartKeys keys, a part being what one stage of the ring holds: the whole
+// block except fp32 at 256 (32 KB of K and V, two parts of 16 KB).
 template <typename T, int D> struct Lanes {
-  static constexpr int kElems = 16 / sizeof(T);         // per 16-byte load: 8 bf16, 4 fp32
-  static constexpr int kPerKey = D / kElems;            // lanes per key row: 8, 16 | 16, 32
-  static constexpr int kKeysPerLoad = 32 / kPerKey;     // 4, 2 | 2, 1
-  static constexpr int kLoads = kBlock / kKeysPerLoad;  // warp loads per block: 4, 8 | 8, 16
-  // blocks in a warp's ring: as many as 16 KB holds, at most 3 (3, 2 | 2, 1)
-  static constexpr int kStages = 16384 / (kLoads * 1024) < 3 ? 16384 / (kLoads * 1024) : 3;
-  static_assert(kStages >= 1, "a warp's ring holds a block");
+  static constexpr int kElems = 16 / sizeof(T);         // per 16-byte chunk: 8 bf16, 4 fp32
+  static constexpr int kChunks = D / kElems;            // 8, 12, 16, 32 | 16, 24, 32, 64
+  static constexpr int kWide = (kChunks + 31) / 32;     // chunks a lane holds of a key row
+  static constexpr int kCols = kWide * kElems;          // columns a lane holds: 8 | 4, 8 at 256
+  static constexpr int kPerKey = pow2_ceil(kChunks / kWide);   // 8, 16, 16, 32 | 16, 32, 32, 32
+  static constexpr int kKeysPerLoad = 32 / kPerKey;     // 4, 2, 2, 1 | 2, 1, 1, 1
+  static constexpr int kBlockBytes = 2 * kBlock / kKeysPerLoad * kWide * 512;   // K and V
+  static constexpr int kSplit = kBlockBytes > 16384 ? 2 : 1;
+  static constexpr int kPartKeys = kBlock / kSplit;
+  static constexpr int kLoads = kPartKeys / kKeysPerLoad;   // warp loads a part: 4, 8, 8, 16 | 8, 16, 16, 8
+  // parts in a warp's ring: as many as 16 KB holds, at most 3 (bf16 3, 2, 2,
+  // 1; fp32 2, 1, 1, 1)
+  static constexpr int kStageBytes = 2 * kLoads * kWide * 512;
+  static constexpr int kStages = 16384 / kStageBytes < 3 ? 16384 / kStageBytes : 3;
+  static_assert(kPerKey * kWide >= kChunks && kPerKey <= 32, "a key row fits the lanes");
+  static_assert(kStages >= 1, "a warp's ring holds a part");
 };
 
 __device__ __forceinline__ void unpack16(const uint4& w, float (&f)[4]) {
@@ -193,76 +221,94 @@ __device__ __forceinline__ void unpack16(const uint4& w, float (&f)[8]) {
   }
 }
 
-// One 16-key block of K and V as this lane holds it: key
-// i * kKeysPerLoad + lane / kPerKey, elements [c0, c0 + kElems).
+// One part of a 16-key block, K and V, as this lane holds it: for load i,
+// key part * kPartKeys + i * kKeysPerLoad + lane / kPerKey, chunks
+// lane % kPerKey + w * kPerKey (w < kWide).
 template <typename T, int D> struct KV {
-  uint4 k[Lanes<T, D>::kLoads], v[Lanes<T, D>::kLoads];
+  uint4 k[Lanes<T, D>::kLoads][Lanes<T, D>::kWide], v[Lanes<T, D>::kLoads][Lanes<T, D>::kWide];
 };
 
-// A warp's stage holds one block: K then V, each kLoads x 32 lanes x 16
-// bytes, lane-major, so a warp's copy or read of one load is 512 contiguous
-// bytes.  Each lane reads back only what it copied itself, so the ring
-// needs no barrier, only cp.async.wait_group.
-template <typename T, int D> constexpr int kStageBytes = 2 * Lanes<T, D>::kLoads * 32 * 16;
-
-// Copy block n (handle hnd) into a stage; keys past last_col are zeros and
-// are not read.  Asynchronous: commit, then wait before read_block.
-template <typename T, int D, typename Addr>
-__device__ __forceinline__ void copy_block(unsigned char* stage, const T* k, const T* v,
-                                           const Addr& addr, int hnd, int n, int last_col) {
+// A warp's stage holds one part: K then V, each kLoads x kWide x 32 lanes
+// x 16 bytes, lane-major, so a warp's copy or read of one slot is 512
+// contiguous bytes.  Each lane reads back only what it copied itself, so
+// the ring needs no barrier, only cp.async.wait_group.
+template <typename T, int D>
+__device__ __forceinline__ int slot_offset(int i, int w, bool is_v) {
   using L = Lanes<T, D>;
-  const int lane = threadIdx.x & 31, j = lane / L::kPerKey;
-  const int c0 = (lane % L::kPerKey) * L::kElems;
+  return (((is_v ? L::kLoads * L::kWide : 0) + i * L::kWide + w) * 32 + (threadIdx.x & 31)) * 16;
+}
+
+// Copy part `part` of block n (handle hnd) into a stage; keys past last_col
+// and chunks past the row (head_dim 96's idle lanes) are zeros and are not
+// read.  Asynchronous: commit, then wait before read_part.
+template <typename T, int D, typename Addr>
+__device__ __forceinline__ void copy_part(unsigned char* stage, const T* k, const T* v,
+                                          const Addr& addr, int hnd, int n, int part,
+                                          int last_col) {
+  using L = Lanes<T, D>;
+  const int lane = threadIdx.x & 31, j = lane / L::kPerKey, ch0 = lane % L::kPerKey;
 #pragma unroll
   for (int i = 0; i < L::kLoads; ++i) {
-    const int key = i * L::kKeysPerLoad + j;
-    const bool valid = n * kBlock + key <= last_col;
-    const long long off = valid ? addr.offset(hnd, key) + c0 : 0;
-    copy16_async(stage + (i * 32 + lane) * 16, k + off, valid);
-    copy16_async(stage + ((L::kLoads + i) * 32 + lane) * 16, v + off, valid);
+    const int key = part * L::kPartKeys + i * L::kKeysPerLoad + j;
+    const bool live = n * kBlock + key <= last_col;
+    const long long row = live ? addr.offset(hnd, key) : 0;
+#pragma unroll
+    for (int w = 0; w < L::kWide; ++w) {
+      const int ch = ch0 + w * L::kPerKey;
+      const bool valid = live && ch < L::kChunks;
+      const long long off = valid ? row + ch * L::kElems : 0;
+      copy16_async(stage + slot_offset<T, D>(i, w, false), k + off, valid);
+      copy16_async(stage + slot_offset<T, D>(i, w, true), v + off, valid);
+    }
   }
 }
 
 template <typename T, int D>
-__device__ __forceinline__ void read_block(KV<T, D>& kv, const unsigned char* stage) {
+__device__ __forceinline__ void read_part(KV<T, D>& kv, const unsigned char* stage) {
   using L = Lanes<T, D>;
-  const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int i = 0; i < L::kLoads; ++i) {
-    kv.k[i] = *reinterpret_cast<const uint4*>(stage + (i * 32 + lane) * 16);
-    kv.v[i] = *reinterpret_cast<const uint4*>(stage + ((L::kLoads + i) * 32 + lane) * 16);
-  }
+  for (int i = 0; i < L::kLoads; ++i)
+#pragma unroll
+    for (int w = 0; w < L::kWide; ++w) {
+      kv.k[i][w] = *reinterpret_cast<const uint4*>(stage + slot_offset<T, D>(i, w, false));
+      kv.v[i][w] = *reinterpret_cast<const uint4*>(stage + slot_offset<T, D>(i, w, true));
+    }
 }
 
 // The warp's running state of its rows: m and l are whole-warp values once a
-// block is folded in (l summed over this lane's key group only, until the
-// end), acc is this lane's kElems columns over its key group.
-template <typename T, int kRows> struct RowState {
-  float m[kRows], l[kRows], acc[kRows][16 / sizeof(T)];
+// part is folded in (l summed over this lane's key group only, until the
+// end), acc is this lane's kCols columns over its key group.
+template <typename T, int D, int kRows> struct RowState {
+  float m[kRows], l[kRows], acc[kRows][Lanes<T, D>::kCols];
 };
 
 template <typename T, int D, int kRows>
-__device__ __forceinline__ void attend_block(RowState<T, kRows>& st, const KV<T, D>& kv,
-                                             const float (&qf)[kRows][16 / sizeof(T)], int n,
-                                             int len, int n_cols, float scale_log2, float slope2) {
+__device__ __forceinline__ void attend_part(RowState<T, D, kRows>& st, const KV<T, D>& kv,
+                                            const float (&qf)[kRows][Lanes<T, D>::kCols],
+                                            int n, int part, int len, int n_cols,
+                                            float scale_log2, float slope2) {
   using L = Lanes<T, D>;
-  constexpr int E = L::kElems;
+  constexpr int E = L::kElems, W = L::kWide, C = L::kCols;
+  const int first = n * kBlock + part * L::kPartKeys;   // the part's first key
   const int j = (threadIdx.x & 31) / L::kPerKey;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int lim = min(len + r, n_cols - 1);       // last column row r attends to
-    if (n * kBlock > lim) continue;                 // warp-uniform: the block is past row r
+    if (first > lim) continue;                      // warp-uniform: the part is past row r
     float s[L::kLoads];
 #pragma unroll
     for (int i = 0; i < L::kLoads; ++i) {
-      float kf[E];
-      unpack16(kv.k[i], kf);
       float d = 0.f;
 #pragma unroll
-      for (int e = 0; e < E; ++e) d = fmaf(qf[r][e], kf[e], d);
+      for (int w = 0; w < W; ++w) {
+        float kf[E];
+        unpack16(kv.k[i][w], kf);
+#pragma unroll
+        for (int e = 0; e < E; ++e) d = fmaf(qf[r][w * E + e], kf[e], d);
+      }
 #pragma unroll
       for (int off = 1; off < L::kPerKey; off <<= 1) d = __fadd_rn(d, __shfl_xor_sync(kFull, d, off));
-      const int key = n * kBlock + i * L::kKeysPerLoad + j;
+      const int key = first + i * L::kKeysPerLoad + j;
       s[i] = key <= lim ? score_log2(d, scale_log2, slope2, key, len + r) : kNegInf;
     }
     float mt = s[0];
@@ -272,23 +318,26 @@ __device__ __forceinline__ void attend_block(RowState<T, kRows>& st, const KV<T,
     for (int off = L::kPerKey; off < 32; off <<= 1) mt = fmaxf(mt, __shfl_xor_sync(kFull, mt, off));
     const float m_new = fmaxf(st.m[r], mt);
     const float alpha = exp2_approx(__fsub_rn(st.m[r], m_new));
-    float ps = 0.f, pv[E];
+    float ps = 0.f, pv[C];
 #pragma unroll
-    for (int e = 0; e < E; ++e) pv[e] = 0.f;
+    for (int c = 0; c < C; ++c) pv[c] = 0.f;
 #pragma unroll
     for (int i = 0; i < L::kLoads; ++i) {
-      const bool keep = n * kBlock + i * L::kKeysPerLoad + j <= lim;
+      const bool keep = first + i * L::kKeysPerLoad + j <= lim;
       const float p = keep ? exp2_approx(__fsub_rn(s[i], m_new)) : 0.f;
       ps = __fadd_rn(ps, p);
       const float pr = to_f(from_f<T>(p));          // PV takes p in the cache dtype
-      float vf[E];
-      unpack16(kv.v[i], vf);
 #pragma unroll
-      for (int e = 0; e < E; ++e) pv[e] = fmaf(pr, vf[e], pv[e]);
+      for (int w = 0; w < W; ++w) {
+        float vf[E];
+        unpack16(kv.v[i][w], vf);
+#pragma unroll
+        for (int e = 0; e < E; ++e) pv[w * E + e] = fmaf(pr, vf[e], pv[w * E + e]);
+      }
     }
     st.l[r] = fmaf(st.l[r], alpha, ps);
 #pragma unroll
-    for (int e = 0; e < E; ++e) st.acc[r][e] = fmaf(st.acc[r][e], alpha, pv[e]);
+    for (int c = 0; c < C; ++c) st.acc[r][c] = fmaf(st.acc[r][c], alpha, pv[c]);
     st.m[r] = m_new;
   }
 }
@@ -298,61 +347,71 @@ template <typename T, int D, int kRows, typename Addr>
 __device__ __forceinline__ void decode_rows(const Args<T>& a, const Addr& addr, int b, int h,
                                             int n_cols) {
   using L = Lanes<T, D>;
-  constexpr int E = L::kElems, S = L::kStages;
+  constexpr int E = L::kElems, W = L::kWide, C = L::kCols, S = L::kStages, P = L::kSplit;
   __shared__ float s_m[kDecodeWarps][kRows], s_l[kDecodeWarps][kRows];
   __shared__ float s_acc[kDecodeWarps][kRows][D];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c0 = (lane % L::kPerKey) * E;
+  const int ch0 = lane % L::kPerKey;          // this lane's chunks: ch0 + w * kPerKey
   const long long row_stride = (long long)a.h_count * D;
   const long long base = (long long)b * kRows * row_stride + (long long)h * D;
   const float slope2 = slope_log2(a, h);
 
-  float qf[kRows][E];
-  RowState<T, kRows> st;
+  float qf[kRows][C];
+  RowState<T, D, kRows> st;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
 #pragma unroll
-    for (int e = 0; e < E; ++e) {
-      qf[r][e] = to_f(a.q[base + r * row_stride + c0 + e]);
-      st.acc[r][e] = 0.f;
+    for (int w = 0; w < W; ++w) {
+      const int ch = ch0 + w * L::kPerKey;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        qf[r][w * E + e] =
+            ch < L::kChunks ? to_f(a.q[base + r * row_stride + ch * E + e]) : 0.f;
+        st.acc[r][w * E + e] = 0.f;
+      }
     }
     st.m[r] = kNegInf;
     st.l[r] = 0.f;
   }
 
-  // this warp's blocks: warp, warp + 8, ... up to the last live one.  Lane
-  // l holds the handle of the warp's block 32 * (i / 32) + l; the first 32
-  // are read before the length is known (the table is read only below its
-  // width n_cols / 16), so the two reads overlap
+  // this warp's blocks: warp, warp + 8, ... up to the last live one, each
+  // walked as its P parts (items i: block i / P, part i % P).  Lane l holds
+  // the handle of the warp's block 32 * (n / 32) + l; the first 32 are read
+  // before the length is known (the table is read only below its width
+  // n_cols / 16), so the two reads overlap
   const auto block_of = [&](int i) { return warp + i * kDecodeWarps; };
   int hnd = block_of(lane) * kBlock < n_cols ? addr.handle(block_of(lane)) : 0;
   const int len = a_len(a, b);
   const int last_col = min(len + kRows - 1, n_cols - 1);
   const int n_blocks = last_col / kBlock + 1;
   const int count = warp < n_blocks ? (n_blocks - 1 - warp) / kDecodeWarps + 1 : 0;
+  const int items = count * P;
 
-  extern __shared__ __align__(128) unsigned char ring[];   // kStages blocks per warp
-  constexpr int kStage = kStageBytes<T, D>;
+  extern __shared__ __align__(128) unsigned char ring[];   // kStages parts per warp
+  constexpr int kStage = L::kStageBytes;
   unsigned char* my = ring + warp * S * kStage;
 #pragma unroll
   for (int s = 0; s + 1 < S; ++s) {
-    if (s < count)
-      copy_block<T, D>(my + s * kStage, a.k, a.v, addr, __shfl_sync(kFull, hnd, s), block_of(s),
-                       last_col);
+    if (s < items)
+      copy_part<T, D>(my + s * kStage, a.k, a.v, addr, __shfl_sync(kFull, hnd, s / P),
+                      block_of(s / P), s % P, last_col);
     commit_copies();
   }
-  for (int i = 0; i < count; ++i) {
+  for (int i = 0; i < items; ++i) {
     const int next = i + S - 1;
-    if (next < count) {
-      if ((next & 31) == 0) hnd = next + lane < count ? addr.handle(block_of(next + lane)) : 0;
-      copy_block<T, D>(my + (next % S) * kStage, a.k, a.v, addr,
-                       __shfl_sync(kFull, hnd, next & 31), block_of(next), last_col);
+    if (next < items) {
+      const int nb = next / P;
+      if ((nb & 31) == 0 && next % P == 0)
+        hnd = nb + lane < count ? addr.handle(block_of(nb + lane)) : 0;
+      copy_part<T, D>(my + (next % S) * kStage, a.k, a.v, addr, __shfl_sync(kFull, hnd, nb & 31),
+                      block_of(nb), next % P, last_col);
     }
     commit_copies();
-    wait_copies<S - 1>();                           // block i has landed
+    wait_copies<S - 1>();                           // item i has landed
     KV<T, D> kv;
-    read_block(kv, my + (i % S) * kStage);
-    attend_block<T, D, kRows>(st, kv, qf, block_of(i), len, n_cols, a.scale_log2, slope2);
+    read_part(kv, my + (i % S) * kStage);
+    attend_part<T, D, kRows>(st, kv, qf, block_of(i / P), i % P, len, n_cols, a.scale_log2,
+                             slope2);
   }
 
   // the warp's state: sum l and acc over the lane groups of different keys
@@ -362,14 +421,19 @@ __device__ __forceinline__ void decode_rows(const Args<T>& a, const Addr& addr, 
     for (int off = L::kPerKey; off < 32; off <<= 1) {
       st.l[r] = __fadd_rn(st.l[r], __shfl_xor_sync(kFull, st.l[r], off));
 #pragma unroll
-      for (int e = 0; e < E; ++e)
-        st.acc[r][e] = __fadd_rn(st.acc[r][e], __shfl_xor_sync(kFull, st.acc[r][e], off));
+      for (int c = 0; c < C; ++c)
+        st.acc[r][c] = __fadd_rn(st.acc[r][c], __shfl_xor_sync(kFull, st.acc[r][c], off));
     }
   if (lane < L::kPerKey)
 #pragma unroll
-    for (int r = 0; r < kRows; ++r)
+    for (int w = 0; w < W; ++w) {
+      const int ch = ch0 + w * L::kPerKey;
+      if (ch < L::kChunks)
 #pragma unroll
-      for (int e = 0; e < E; ++e) s_acc[warp][r][c0 + e] = st.acc[r][e];
+        for (int r = 0; r < kRows; ++r)
+#pragma unroll
+          for (int e = 0; e < E; ++e) s_acc[warp][r][ch * E + e] = st.acc[r][w * E + e];
+    }
   if (lane == 0)
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
@@ -434,8 +498,17 @@ __device__ __forceinline__ void scores_tile(float (&c)[8][4], const float* a, co
 // memory at the end.
 constexpr int kPrefillCluster = 4;
 
-// Shared memory of a prefill block: the query tile, two K and two V buffers.
-template <typename T, int D> constexpr size_t kPrefillSmem = 5 * sizeof(T) * kTileElems<T, D>;
+// K and V buffers of a prefill block: two each (the next key tile loads
+// while this one is used) where the query tile and four buffers fit a
+// block's shared memory, else one each (fp32 at head_dim 256: 5 x 65 KB
+// would not fit; 3 x 65 KB does, and the next tile's copies wait for the
+// barrier that ends this one)
+template <typename T, int D>
+constexpr int kPrefillBufs = 5 * sizeof(T) * kTileElems<T, D> <= kMaxSmem ? 2 : 1;
+
+// Shared memory of a prefill block: the query tile and the K and V buffers.
+template <typename T, int D>
+constexpr size_t kPrefillSmem = (1 + 2 * kPrefillBufs<T, D>) * sizeof(T) * kTileElems<T, D>;
 
 // The query tile: rows [row0, row0 + 64) of q (row stride `stride`, a
 // multiple of 16 bytes), rows at or past S_q zero.  16-byte cp.async copies
@@ -485,15 +558,16 @@ __device__ __forceinline__ void prefill_rows(const Args<T>& a, const Addr& addr,
                                              int n_cols) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int G = kPrefillCluster, TE = kTileElems<T, D>, L = Tr<T, D>::kLd, ND = D / 8;
+  constexpr int NB = kPrefillBufs<T, D>;
   // the merge's state of a thread (acc, then m and l of its two rows) fits
-  // the two K buffers it reuses
+  // the two tiles past the query tile it reuses (two K buffers, or K and V)
   constexpr int kAcc = 4 * ND;
   static_assert((kAcc + 4) * kThreads * sizeof(float) <= 2 * TE * sizeof(T), "merge state");
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   T* s_q = reinterpret_cast<T*>(smem);
-  T* s_k = s_q + TE;                   // two buffers each
-  T* s_v = s_k + 2 * TE;
+  T* s_k = s_q + TE;                   // NB buffers each
+  T* s_v = s_k + NB * TE;
   const int qt = gridDim.z - 1 - blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int row0 = qt * kTile, wrow0 = row0 + warp * 16;
@@ -519,13 +593,17 @@ __device__ __forceinline__ void prefill_rows(const Args<T>& a, const Addr& addr,
   float acc[ND][4];
   zero(acc);
   for (int j = rank, it = 0; j < n_kv; j += G, ++it) {
-    const int buf = it & 1;
-    if (j + G < n_kv) {
+    const int buf = NB == 2 ? it & 1 : 0;
+    if (NB == 2 && j + G < n_kv) {
       load_key_tile<T, D>(s_k + (buf ^ 1) * TE, s_v + (buf ^ 1) * TE, a.k, a.v, addr, j + G,
                           last_col);
       commit_copies();
       wait_copies<1>();
     } else {
+      if (NB == 1 && it > 0) {         // the barrier ending the last tile freed the buffer
+        load_key_tile<T, D>(s_k, s_v, a.k, a.v, addr, j, last_col);
+        commit_copies();
+      }
       wait_copies<0>();
     }
     __syncthreads();
@@ -690,7 +768,7 @@ cudaError_t launch_kernel(dim3 grid, int threads, size_t smem, cudaStream_t st, 
 }
 
 template <typename T, int D>
-constexpr size_t kDecodeSmem = (size_t)kDecodeWarps * Lanes<T, D>::kStages * kStageBytes<T, D>;
+constexpr size_t kDecodeSmem = (size_t)kDecodeWarps * Lanes<T, D>::kStages * Lanes<T, D>::kStageBytes;
 
 // One launch: the decode path for S_q <= kDecodeMaxRows, else the prefill path.
 template <typename T, int D, bool kPaged>
@@ -718,8 +796,12 @@ cudaError_t launch_attention(const Args<T>& a, int b, int h, cudaStream_t st) {
 
 template <typename T, bool kPaged>
 int dispatch_dim(const Args<T>& a, int d, int b, int h, cudaStream_t st) {
-  if (d == 64) return (int)launch_attention<T, 64, kPaged>(a, b, h, st);
-  return (int)launch_attention<T, 128, kPaged>(a, b, h, st);
+  switch (d) {
+    case 64: return (int)launch_attention<T, 64, kPaged>(a, b, h, st);
+    case 96: return (int)launch_attention<T, 96, kPaged>(a, b, h, st);
+    case 128: return (int)launch_attention<T, 128, kPaged>(a, b, h, st);
+    default: return (int)launch_attention<T, 256, kPaged>(a, b, h, st);
+  }
 }
 
 template <bool kPaged>
@@ -738,7 +820,7 @@ int dispatch(int dtype, const void* q, const void* k, const void* v, const float
       d, b, h, st);
 }
 
-bool head_dim_ok(int d) { return d == 64 || d == 128; }
+bool head_dim_ok(int d) { return d == 64 || d == 96 || d == 128 || d == 256; }
 
 }  // namespace
 

@@ -28,7 +28,8 @@
 // Design (wgmma, TMA and warp specialisation are later work).  All three
 // kernels share it:
 // * One block of 4 warps per 64-row tile, each warp 16 rows: query rows in
-//   the forward and dQ, key rows in dKV.  The forward's grid is query tiles
+//   the forward and dQ, key rows in dKV (the bf16 forward at head_dim 256:
+//   8 warps, 128 rows).  The forward's grid is query tiles
 //   x heads x batch, each head's longest causal rows first; dQ's and dKV's
 //   is heads x batch x tiles, so that every head's longest causal walk is
 //   dispatched before any shorter one (12-13 % faster at GPT-2's training
@@ -85,6 +86,16 @@
 //   ldmatrix at each product (SharedRows) instead of held in registers,
 //   and its score tiles are 32 queries wide: registers for dK, dV, s and dp
 //   (~192) instead of ~256 with K and V held.
+// * head_dim 96 (GPT-NeoX-20B) and 256 (GPT-J), served: the forward only.
+//   At 96 the tiles are 12 ldmatrix columns of 8 (rows of 208 bytes, still
+//   conflict-free), 65 KB a bf16 block, two blocks an SM.  At 256 the
+//   accumulator is 128 registers a thread, so Q stays in shared memory
+//   (SharedRows) and __launch_bounds__ asks for one block an SM: in bf16 a
+//   block of 8 warps, 128 query rows (198 KB; fwd_warps); fp32 keeps 4
+//   warps and one K and one V buffer (195 KB; fwd_bufs), so its next
+//   tile's copies wait for the barrier that ends the current one.  dQ and
+//   dKV at these widths are ROADMAP work (dKV's dK and dV at 256 alone
+//   would be 256 registers a thread).
 // * The online softmax keeps m, l and the accumulator in fp32 registers;
 //   out-of-range and causally masked columns are -inf, exactly zero weight,
 //   never 0/0 (l = 0 gives o = 0).
@@ -95,8 +106,7 @@
 //   and dK/dV are summed in a fixed order with no atomics.
 // * Inputs are read by strides ([B, S, H, D] views, e.g. of the model's qkv
 //   product), head_dim contiguous; outputs are written contiguous.  Rows past
-//   S are zero-filled in shared memory and never written.  head_dim 64 and
-//   128 only (GPT-NeoX-20B's 96 and GPT-J's 256 are ROADMAP work).
+//   S are zero-filled in shared memory and never written.
 
 #include <type_traits>
 
@@ -118,26 +128,57 @@ struct Params {
 // forward: one block of 4 warps per (64-query tile, head, batch)
 // --------------------------------------------------------------------------
 
-constexpr int kFwdWarps = 4;
-constexpr int kFwdRows = 16 * kFwdWarps;          // query rows of a forward block
-constexpr int kFwdThreads = 32 * kFwdWarps;
 constexpr int kFwdBlocksPerSm = 3;                // head_dim 64: up to 168 registers a thread
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // Blocks per SM __launch_bounds__ asks for: kFwdBlocksPerSm at head_dim 64;
-// at 128 two (a cap of 255 registers a thread: the accumulator alone is 64),
-// which is all the shared memory holds in bf16 (87 KB a block; fp32's 169 KB
-// holds one)
+// at 96 and 128 two (a cap of 255 registers a thread: the accumulator alone
+// is 48 or 64), which is all the shared memory holds at 128 in bf16 (87 KB a
+// block; fp32's 169 KB holds one); at 256 one (the accumulator is 128
+// registers; a bf16 block takes 165 KB, an fp32 one 195 KB)
 template <int D>
 constexpr int fwd_min_blocks() {
-  return D == 64 ? kFwdBlocksPerSm : 2;
+  return D == 64 ? kFwdBlocksPerSm : D <= 128 ? 2 : 1;
+}
+
+// Warps of a forward block, 16 query rows each: 4; 8 in bf16 at 256, where
+// one block fills an SM's shared memory, so that 8 warps (not 4) hide its
+// latency and each K and V tile staged serves 128 query rows
+template <typename T, int D>
+__host__ __device__ constexpr int fwd_warps() {
+  return sizeof(T) == 2 && D == 256 ? 8 : 4;
 }
 
 template <typename T, int D>
-constexpr size_t fwd_smem_bytes() {               // the query tile, two K and two V buffers
-  return sizeof(T) * (kFwdRows + 4 * kTile) * Tr<T, D>::kLd;
+__host__ __device__ constexpr int fwd_rows() {    // query rows of a forward block
+  return 16 * fwd_warps<T, D>();
 }
+
+template <typename T, int D>
+__host__ __device__ constexpr int fwd_threads() {
+  return 32 * fwd_warps<T, D>();
+}
+
+// K and V buffers of a forward block: two each, so the next key tile loads
+// while this one is used, where they fit beside the query tile; one each
+// for fp32 at 256 (the query tile and four buffers would be 325 KB)
+template <typename T, int D>
+__host__ __device__ constexpr int fwd_bufs() {
+  return sizeof(T) * (fwd_rows<T, D>() + 4 * kTile) * Tr<T, D>::kLd <= kMaxSmem ? 2 : 1;
+}
+
+template <typename T, int D>
+constexpr size_t fwd_smem_bytes() {               // the query tile, the K and V buffers
+  return sizeof(T) * (fwd_rows<T, D>() + 2 * fwd_bufs<T, D>() * kTile) * Tr<T, D>::kLd;
+}
+
+// The warp's query rows as A operands: held in registers as ldmatrix
+// fragments, except at 256, where they would take 64 registers a thread
+// beside the accumulator's 128, so they stay in shared memory and each
+// product reads them by ldmatrix (SharedRows)
+template <typename T, int D>
+using FwdRows = std::conditional_t<D == 256, SharedRows<T, D>, RowFragments<T, D>>;
 
 // With extras (a bias or ALiBi): s <- s * scale (+ bias) (+ slope * (key -
 // query)), times log2(e).  Without (GPT-2's path) s stays as it is: the
@@ -170,13 +211,14 @@ __device__ __forceinline__ void scores_log2(float (&s)[NJ][4], const Params& p, 
 }
 
 template <typename T, int D, bool kExtras>
-__global__ void __launch_bounds__(kFwdThreads, (fwd_min_blocks<D>()))
+__global__ void __launch_bounds__((fwd_threads<T, D>()), (fwd_min_blocks<D>()))
     flash_fwd_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int TE = kTileElems<T, D>, L = Tr<T, D>::kLd, ND = D / 8;
+  constexpr int TE = kTileElems<T, D>, L = Tr<T, D>::kLd, ND = D / 8, NB = fwd_bufs<T, D>();
+  constexpr int kFwdRows = fwd_rows<T, D>(), kFwdThreads = fwd_threads<T, D>();
   T* sq = reinterpret_cast<T*>(smem);
-  T* sk = sq + kFwdRows * L;        // two buffers each
-  T* sv = sk + 2 * TE;
+  T* sk = sq + kFwdRows * L;        // NB buffers each
+  T* sv = sk + NB * TE;
   const int qt = gridDim.x - 1 - blockIdx.x;      // the longest causal rows first
   const int h = blockIdx.y, b = blockIdx.z, hk = h / p.group;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -202,15 +244,20 @@ __global__ void __launch_bounds__(kFwdThreads, (fwd_min_blocks<D>()))
   float m[2] = {m0, m0}, l[2] = {0.f, 0.f};
   float acc[ND][4];
   zero(acc);
-  RowFragments<T, D> qf;
+  FwdRows<T, D> qf;
   for (int j = 0; j < n_kv; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_kv) {
+    const int buf = NB == 2 ? j & 1 : 0;
+    if (NB == 2 && j + 1 < n_kv) {
       load_rows<T, kTile, kFwdThreads, D>(sk + (buf ^ 1) * TE, k, p.k_ss, (j + 1) * kTile, p.S);
       load_rows<T, kTile, kFwdThreads, D>(sv + (buf ^ 1) * TE, v, p.v_ss, (j + 1) * kTile, p.S);
       commit_copies();
       wait_copies<1>();
     } else {
+      if (NB == 1 && j > 0) {         // the barrier ending the last tile freed the buffer
+        load_rows<T, kTile, kFwdThreads, D>(sk, k, p.k_ss, j * kTile, p.S);
+        load_rows<T, kTile, kFwdThreads, D>(sv, v, p.v_ss, j * kTile, p.S);
+        commit_copies();
+      }
       wait_copies<0>();
     }
     __syncthreads();
@@ -554,15 +601,23 @@ __global__ void __launch_bounds__(kDkvThreads, kDkvBlocksPerSm) flash_dkv_kernel
 enum Which { kForward, kDq, kDkv };
 
 template <typename T, int D>
+cudaError_t run_forward(const Params& p, int B, cudaStream_t st) {
+  const bool extras = p.bias != nullptr || p.slopes != nullptr;
+  const dim3 grid(cdiv(p.S, fwd_rows<T, D>()), p.H, B);
+  constexpr size_t smem = fwd_smem_bytes<T, D>();
+  constexpr int threads = fwd_threads<T, D>();
+  return extras ? launch(flash_fwd_kernel<T, D, true>, grid, smem, p, st, threads)
+                : launch(flash_fwd_kernel<T, D, false>, grid, smem, p, st, threads);
+}
+
+// head_dim 64 and 128: all three kernels; 96 and 256 (GPT-NeoX-20B, GPT-J
+// served): the forward only, whose dQ and dKV are ROADMAP work
+template <typename T, int D>
 cudaError_t run(Which which, const Params& p, int B, cudaStream_t st) {
   const bool extras = p.bias != nullptr || p.slopes != nullptr;
   switch (which) {
-    case kForward: {
-      const dim3 grid(cdiv(p.S, kFwdRows), p.H, B);
-      constexpr size_t smem = fwd_smem_bytes<T, D>();
-      return extras ? launch(flash_fwd_kernel<T, D, true>, grid, smem, p, st, kFwdThreads)
-                    : launch(flash_fwd_kernel<T, D, false>, grid, smem, p, st, kFwdThreads);
-    }
+    case kForward:
+      return run_forward<T, D>(p, B, st);
     case kDq: {
       const dim3 grid(p.H, B, cdiv(p.S, kDqRows));
       constexpr size_t smem = dq_smem_bytes<T, D>();
@@ -593,12 +648,18 @@ int blocks_per_sm(Kernel kernel, int threads, size_t smem) {
 }
 
 template <typename T, int D>
+int forward_occupancy(bool extras, int* smem) {
+  *smem = (int)fwd_smem_bytes<T, D>();
+  constexpr int threads = fwd_threads<T, D>();
+  return extras ? blocks_per_sm(flash_fwd_kernel<T, D, true>, threads, *smem)
+                : blocks_per_sm(flash_fwd_kernel<T, D, false>, threads, *smem);
+}
+
+template <typename T, int D>
 int occupancy(Which which, bool extras, int* smem) {
   switch (which) {
     case kForward:
-      *smem = (int)fwd_smem_bytes<T, D>();
-      return extras ? blocks_per_sm(flash_fwd_kernel<T, D, true>, kFwdThreads, *smem)
-                    : blocks_per_sm(flash_fwd_kernel<T, D, false>, kFwdThreads, *smem);
+      return forward_occupancy<T, D>(extras, smem);
     case kDq:
       *smem = (int)dq_smem_bytes<T, D>();
       return extras ? blocks_per_sm(flash_dq_kernel<T, D, true>, kDqThreads, *smem)
@@ -608,6 +669,12 @@ int occupancy(Which which, bool extras, int* smem) {
       return extras ? blocks_per_sm(flash_dkv_kernel<T, D, true>, kDkvThreads, *smem)
                     : blocks_per_sm(flash_dkv_kernel<T, D, false>, kDkvThreads, *smem);
   }
+}
+
+// The head_dims a kernel is compiled for: the forward 64, 96, 128 and 256;
+// dQ and dKV 64 and 128.
+bool head_dim_ok(Which which, int D) {
+  return D == 64 || D == 128 || (which == kForward && (D == 96 || D == 256));
 }
 
 // strides: [q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, do_b, do_s, do_h,
@@ -623,22 +690,32 @@ int dispatch(Which which, Params p, const long long* strides, int B, int D, int 
   // dQ's and dKV's tiles are the grid's z dimension
   bool ok = B > 0 && p.S > 0 && p.H > 0 && p.Hkv > 0 && p.H % p.Hkv == 0 && B <= 65535 &&
             p.H <= 65535 && (which == kForward || cdiv(p.S, kTile) <= 65535) &&
-            (dtype == 0 || dtype == 1) && (D == 64 || D == 128) && aligned16(p.q) &&
+            (dtype == 0 || dtype == 1) && head_dim_ok(which, D) && aligned16(p.q) &&
             aligned16(p.k) && aligned16(p.v) && (p.dout == nullptr || aligned16(p.dout));
   for (int i = 0; i < 12; ++i) ok = ok && strides[i] % vec == 0;
   if (!ok) return (int)cudaErrorInvalidValue;
   p.group = p.H / p.Hkv;
   cudaStream_t st = (cudaStream_t)stream;
-  if (D == 64)
-    return (int)(dtype == 0 ? run<float, 64>(which, p, B, st) : run<bf16, 64>(which, p, B, st));
-  return (int)(dtype == 0 ? run<float, 128>(which, p, B, st) : run<bf16, 128>(which, p, B, st));
+  switch (D) {
+    case 64:
+      return (int)(dtype == 0 ? run<float, 64>(which, p, B, st) : run<bf16, 64>(which, p, B, st));
+    case 128:
+      return (int)(dtype == 0 ? run<float, 128>(which, p, B, st)
+                              : run<bf16, 128>(which, p, B, st));
+    case 96:
+      return (int)(dtype == 0 ? run_forward<float, 96>(p, B, st) : run_forward<bf16, 96>(p, B, st));
+    default:
+      return (int)(dtype == 0 ? run_forward<float, 256>(p, B, st)
+                              : run_forward<bf16, 256>(p, B, st));
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; D (head_dim): 64 or 128.  Each returns a
+// dtype: 0 = float32, 1 = bfloat16; D (head_dim): 64 or 128, the forward
+// also 96 and 256.  Each returns a
 // cudaError_t (0 = launched).  q [B, S, H, D], k and v [B, S, Hkv, D] by
 // strides; bias fp32 by strides or null; slopes fp32 [H] or null; o
 // contiguous [B, S, H, D]; lse fp32 contiguous [B, H, S].
@@ -679,20 +756,30 @@ int dst_flash_backward_dkv(const void* q, const void* k, const void* v, const vo
   return dispatch(kDkv, p, strides, B, D, dtype, stream);
 }
 
-// Blocks of one kernel (which: 0 forward, 1 dQ, 2 dKV; D: 64 or 128;
+// Blocks of one kernel (which: 0 forward, 1 dQ, 2 dKV; D: 64 or 128, the
+// forward also 96 and 256;
 // extras: its bias / ALiBi instantiation) that one SM holds at once; its
 // dynamic shared memory per block in *smem_bytes.  0 on an error.
 int dst_flash_occupancy(int which, int dtype, int D, int extras, int* smem_bytes) {
-  if (which < 0 || which > 2 || (dtype != 0 && dtype != 1) || (D != 64 && D != 128) ||
+  if (which < 0 || which > 2 || (dtype != 0 && dtype != 1) || !head_dim_ok((Which)which, D) ||
       smem_bytes == nullptr)
     return 0;
   const Which w = (Which)which;
   const bool x = extras != 0;
-  if (D == 64)
-    return dtype == 0 ? occupancy<float, 64>(w, x, smem_bytes)
-                      : occupancy<bf16, 64>(w, x, smem_bytes);
-  return dtype == 0 ? occupancy<float, 128>(w, x, smem_bytes)
-                    : occupancy<bf16, 128>(w, x, smem_bytes);
+  switch (D) {
+    case 64:
+      return dtype == 0 ? occupancy<float, 64>(w, x, smem_bytes)
+                        : occupancy<bf16, 64>(w, x, smem_bytes);
+    case 128:
+      return dtype == 0 ? occupancy<float, 128>(w, x, smem_bytes)
+                        : occupancy<bf16, 128>(w, x, smem_bytes);
+    case 96:
+      return dtype == 0 ? forward_occupancy<float, 96>(x, smem_bytes)
+                        : forward_occupancy<bf16, 96>(x, smem_bytes);
+    default:
+      return dtype == 0 ? forward_occupancy<float, 256>(x, smem_bytes)
+                        : forward_occupancy<bf16, 256>(x, smem_bytes);
+  }
 }
 
 }  // extern "C"

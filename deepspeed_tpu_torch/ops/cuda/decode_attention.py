@@ -26,10 +26,11 @@ Kernel notes (details in the ``.cu`` file):
   ``_decode_kernel`` (``:78``).
 * Both are bound by bytes: the live K/V read once, ~4 flops per element;
   the floor is live K/V bytes / 3.35 TB/s on an H100 SXM.
-* Compiled for head_dim 64 (GPT-2) and 128 (the LLaMA and BLOOM widths
-  users serve) and arena blocks of 16 keys (the serving arena's default
-  block size).  Any other head_dim or block size raises on CUDA, and so
-  does a dense ``bias`` tensor (``alibi`` slopes are what the kernels take).
+* Compiled for head_dim 64 (GPT-2), 96 (GPT-NeoX-20B), 128 (the LLaMA and
+  BLOOM widths users serve) and 256 (GPT-J), and arena blocks of 16 keys
+  (the serving arena's default block size).  Any other head_dim or block
+  size raises on CUDA, and so does a dense ``bias`` tensor (``alibi``
+  slopes are what the kernels take).
 * Each call launches one kernel, of one of two paths picked by ``S_q``
   alone (``DECODE_MAX_ROWS``):
 
@@ -37,7 +38,8 @@ Kernel notes (details in the ``.cu`` file):
     (row, head); the row's live 16-key blocks are dealt to the warps round
     robin (block n to warp n % 8), so all 8 warps stream one row's keys at
     once, each with 16-byte ``cp.async`` copies into its own ring of 1-3
-    blocks (16 KB a warp), which is what a bytes-bound kernel needs; each
+    blocks (16 KB a warp; fp32 at head_dim 256 in halves of 8 keys), which
+    is what a bytes-bound kernel needs; each
     warp keeps its own online-softmax state and the 8 are merged at the
     end in a fixed order.
   - prefill (``S_q > 4``, prompt chunks): 64-query tiles on tensor cores
@@ -66,9 +68,9 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
-OTHER_HEAD_DIMS = "ROADMAP.md, Queue 2 part A: decode kernels at head_dim 96 and 256"
+OTHER_HEAD_DIMS = "ROADMAP.md, Queue 2 part A: decode kernels at other head_dims"
 KERNEL_TILE = 16         # keys per kernel tile = the paged arena's block_size
-KERNEL_HEAD_DIMS = (64, 128)   # the head_dims the kernels are compiled for
+KERNEL_HEAD_DIMS = (64, 96, 128, 256)   # the head_dims the kernels are compiled for
 DECODE_MAX_ROWS = 4      # S_q up to this takes the kernels' decode path
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -166,7 +168,7 @@ def _check_cuda(name: str, q: torch.Tensor, *tensors: torch.Tensor) -> int:
     D = q.shape[-1]
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{name}: the CUDA kernel is compiled for head_dim "
-                         f"{' or '.join(map(str, KERNEL_HEAD_DIMS))}, got {D} "
+                         f"{', '.join(map(str, KERNEL_HEAD_DIMS))}, got {D} "
                          f"({OTHER_HEAD_DIMS})")
     if q.shape[0] > 65535:
         raise ValueError(f"{name}: batch {q.shape[0]} > 65535")

@@ -38,8 +38,11 @@ mask, as in JAX), in the kernels and the plain versions alike.
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor launches
 the kernel of ``csrc/flash_attention.cu`` or raises on a dtype, head_dim,
 shape, layout or device the kernel does not take.  There is no fallback.
-The kernels are compiled for head_dim 64 (GPT-2) and 128 (LLaMA, BLOOM),
-``KERNEL_HEAD_DIMS``; another width raises naming its ROADMAP entry.
+The forward is compiled for head_dim 64 (GPT-2), 96 (GPT-NeoX-20B), 128
+(LLaMA, BLOOM) and 256 (GPT-J), ``KERNEL_HEAD_DIMS``; dQ and dKV for 64
+and 128, ``BACKWARD_HEAD_DIMS``, so a gradient at 96 or 256 raises on the
+card naming its ROADMAP entry (``TRAIN_HEAD_DIMS``), as does any other
+width.
 The kernels read q, k, v and do by strides (head_dim contiguous, rows on
 16-byte boundaries), so the model's ``[B, S, H, D]`` views of its qkv
 product go in without copies; o, dq, dk and dv come out contiguous.
@@ -64,9 +67,11 @@ from deepspeed_tpu_torch.ops.attention import canonical_bias, expand_kv_heads
 from deepspeed_tpu_torch.ops.cuda import builder
 
 NEG_INF = -1e30
-KERNEL_HEAD_DIMS = (64, 128)   # the head_dims the kernels are compiled for
-OTHER_HEAD_DIMS = ("ROADMAP.md, Queue 2 part A: flash kernels at head_dim 96 "
-                   "(GPT-NeoX-20B) and 256 (GPT-J)")
+KERNEL_HEAD_DIMS = (64, 96, 128, 256)   # the head_dims the forward is compiled for
+BACKWARD_HEAD_DIMS = (64, 128)          # ... and dQ and dKV
+OTHER_HEAD_DIMS = "ROADMAP.md, Queue 2 part A: flash kernels at other head_dims"
+TRAIN_HEAD_DIMS = ("ROADMAP.md, Queue 1 entry 2: other GPT families: training at head_dim "
+                   "96 and 256 (flash dQ and dKV at those widths)")
 FP16 = "ROADMAP.md, Queue 1 item 5 (fp16 training)"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -157,8 +162,20 @@ flash_backward_dkv_reference.calls = 0
 # --------------------------------------------------------------------------- #
 # Kernel wrappers
 # --------------------------------------------------------------------------- #
+def check_head_dim(name: str, D: int, backward: bool) -> None:
+    if backward and D in KERNEL_HEAD_DIMS and D not in BACKWARD_HEAD_DIMS:
+        raise NotImplementedError(f"{name}: the CUDA backward kernels are compiled for head_dim "
+                                  f"{' or '.join(map(str, BACKWARD_HEAD_DIMS))}, got {D}; the "
+                                  f"forward serves it ({TRAIN_HEAD_DIMS})")
+    dims = BACKWARD_HEAD_DIMS if backward else KERNEL_HEAD_DIMS
+    if D not in dims:
+        raise NotImplementedError(f"{name}: the CUDA kernels are compiled for head_dim "
+                                  f"{', '.join(map(str, dims))}, got {D} ({OTHER_HEAD_DIMS})")
+
+
 def _check(name: str, q, k, v, do=None, lse=None, delta=None, bias=None, slopes=None) -> int:
-    """Validate what the kernels take; returns the dtype code."""
+    """Validate what the kernels take (the backward's when ``do`` is
+    given); returns the dtype code."""
     if q.dim() != 4 or k.dim() != 4 or tuple(k.shape) != tuple(v.shape):
         raise ValueError(f"{name}: q must be [B, S, H, D] and k, v [B, S, Hkv, D], got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -168,10 +185,7 @@ def _check(name: str, q, k, v, do=None, lse=None, delta=None, bias=None, slopes=
         raise ValueError(f"{name}: k and v {tuple(k.shape)} do not match q {tuple(q.shape)}")
     if H % Hkv:
         raise ValueError(f"{name}: {H} q heads not a multiple of {Hkv} kv heads")
-    if D not in KERNEL_HEAD_DIMS:
-        raise NotImplementedError(f"{name}: the CUDA kernels are compiled for head_dim "
-                                  f"{' or '.join(map(str, KERNEL_HEAD_DIMS))}, got {D} "
-                                  f"({OTHER_HEAD_DIMS})")
+    check_head_dim(name, D, do is not None)
     if B == 0 or S == 0 or B > 65535 or H > 65535 or B * S * H * D >= 2 ** 31:
         raise ValueError(f"{name}: shape {tuple(q.shape)} out of range")
     inputs = (q, k, v) + ((do,) if do is not None else ())
@@ -305,9 +319,9 @@ def kernel_occupancy(kernel: str, dtype: torch.dtype, extras: bool = False,
     """(blocks per SM, dynamic shared memory bytes per block) of one flash
     kernel on the current card, by CUDA's occupancy query: ``kernel`` is
     "forward", "dq" or "dkv", ``extras`` its bias / ALiBi instantiation,
-    ``head_dim`` 64 or 128.  Launches nothing."""
-    if (kernel not in _KERNEL_CODES or dtype not in _DTYPE_CODES
-            or head_dim not in KERNEL_HEAD_DIMS):
+    ``head_dim`` one it is compiled for.  Launches nothing."""
+    dims = KERNEL_HEAD_DIMS if kernel == "forward" else BACKWARD_HEAD_DIMS
+    if kernel not in _KERNEL_CODES or dtype not in _DTYPE_CODES or head_dim not in dims:
         raise ValueError(f"kernel_occupancy: no kernel {kernel!r} for {dtype} at "
                          f"head_dim {head_dim}")
     lib = builder.load_library()
@@ -380,6 +394,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     Hkv = k.shape[2]
     if H % Hkv:
         raise ValueError(f"flash_attention: {H} q heads not a multiple of {Hkv} kv heads")
+    if (q.device.type == "cuda" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        check_head_dim("flash_attention", D, backward=True)   # before a forward it could not undo
     bias = canonical_bias(bias)
     if bias is not None:
         bias = bias.detach().float().broadcast_to((bias.shape[0], bias.shape[1], S, S))

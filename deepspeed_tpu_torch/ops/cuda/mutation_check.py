@@ -6,7 +6,9 @@ For each mutation below, copies the checkout into a temporary directory,
 breaks one kernel source (or the plan its wrapper makes) there in one known
 way, and runs the ``cuda``-marked tests of that kernel's test file against
 the copy's own build (the copies build and run side by side): the
-decode-attention kernels (``csrc/decode_attention.cu``), the flash forward,
+decode-attention kernels (``csrc/decode_attention.cu``, with the lane
+layouts of head_dim 96 and 256), the flash forward (and its one-buffer
+path of fp32 at head_dim 256),
 dQ and dKV (``csrc/flash_attention.cu``; at head_dim 128 dKV reads K's rows
 from shared memory through ``csrc/attention_tile.cuh``), the cross-entropy
 forward and backward, cluster and wide paths (``csrc/cross_entropy.cu``),
@@ -44,6 +46,8 @@ TIMEOUT_S = 900
 # AdamW is compiled for both; by mutation where it breaks one dtype's kernel
 DTYPES = {ADAM[1]: ("float32",)}
 MUTATION_DTYPES = {"ce-fwd-drop-last-k-slice": ("bfloat16",),
+                   "decode-d256-fp32-part-at-block-start": ("float32",),
+                   "flash-fwd-one-buffer-tile-not-reloaded": ("float32",),
                    "flash-dkv-d128-k-rows-half-deep": ("bfloat16",),
                    "sparse-dq-wgmma-tiles-unswizzled": ("bfloat16",),
                    "sparse-dq-wgmma-k-step-of-k-major": ("bfloat16",)}
@@ -75,6 +79,23 @@ MUTATIONS = {
         "group's",
         "  return h / (a.h_count / a.hkv_count);",
         "  return (h / (a.h_count / a.hkv_count) + 1) % a.hkv_count;"),
+    "decode-d96-lanes-not-a-power-of-two": (
+        DECODE, "decode path at head_dim 96: a key row's 12 (24) chunks over 12 (24) lanes, "
+        "so the xor reductions mix two keys' lanes",
+        "  static constexpr int kPerKey = pow2_ceil(kChunks / kWide);   "
+        "// 8, 16, 16, 32 | 16, 32, 32, 32",
+        "  static constexpr int kPerKey = kChunks / kWide;"),
+    "decode-d256-fp32-part-at-block-start": (
+        DECODE, "decode path, fp32 at head_dim 256: a block's second part of 8 keys is masked "
+        "and ALiBi-scored as if it were its first",
+        "  const int first = n * kBlock + part * L::kPartKeys;   // the part's first key",
+        "  const int first = n * kBlock;"),
+    "flash-fwd-one-buffer-tile-not-reloaded": (
+        FLASH, "flash forward, fp32 at head_dim 256 (one K/V buffer): the key tiles after the "
+        "first are never loaded",
+        "      if (NB == 1 && j > 0) {         "
+        "// the barrier ending the last tile freed the buffer",
+        "      if (NB == 1 && j < 0) {"),
     "flash-lse-in-log2-units": (
         FLASH, "flash forward: lse is saved in log2 units, not converted back by ln 2",
         "      if (row < p.S) lse[row] = __fmul_rn(__fadd_rn(m[r], log2f(l[r])), kLn2);",

@@ -60,7 +60,7 @@ import torch
 
 from deepspeed_tpu_torch.accelerator.real_accelerator import get_accelerator, resolve_device
 from deepspeed_tpu_torch.models.gpt import GPTConfig
-from deepspeed_tpu_torch.ops.cuda.flash_attention import KERNEL_HEAD_DIMS, OTHER_HEAD_DIMS
+from deepspeed_tpu_torch.ops.cuda.flash_attention import check_head_dim
 from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing import checkpoint_policy
 from deepspeed_tpu_torch.runtime.config import UNPORTED_BLOCKS, DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import unit_loss_scaler
@@ -114,11 +114,9 @@ class DeepSpeedEngine:
         ac = self._config.activation_checkpointing_config
         checkpoint_policy(ac.partition_activations, ac.cpu_checkpointing)
         mcfg = getattr(model, "cfg", None)
-        if (isinstance(mcfg, GPTConfig) and self.device.type == "cuda"
-                and mcfg.head_dim not in KERNEL_HEAD_DIMS):
-            raise NotImplementedError(
-                f"initialize(): head_dim {mcfg.head_dim} has no flash kernels on the card "
-                f"(they take {' or '.join(map(str, KERNEL_HEAD_DIMS))}; {OTHER_HEAD_DIMS})")
+        if isinstance(mcfg, GPTConfig) and self.device.type == "cuda":
+            # training needs flash's dQ and dKV at the model's head_dim
+            check_head_dim("initialize()", mcfg.head_dim, backward=True)
         if ((ac.contiguous_memory_optimization or ac.number_checkpoints)
                 and mcfg is not None and not mcfg.remat):
             model.cfg = dataclasses.replace(mcfg, remat=True)

@@ -204,6 +204,40 @@ def test_other_devices_raise():
         tda.paged_attention(q, q, q, q, q)
 
 
+# head_dim 96 (GPT-NeoX-20B) and 256 (GPT-J), the widths the kernels take
+# besides 64 and 128: the plain versions against JAX's Pallas kernels in
+# interpret mode (MHA, the kernels' case) and JAX's references (GQA), on
+# small tables and caches
+SERVING_HEAD_DIMS = (96, 256)
+HEAD_DIM_CASES = {
+    # name: (paged?, make_paged / make_cache arguments)
+    "paged-decode": (True, dict(Sq=1, H=2, BS=8, MB=4, NB=12, lengths=(20, 7))),
+    "paged-chunk": (True, dict(Sq=6, H=2, BS=8, MB=4, NB=12, lengths=(3, 25))),
+    "paged-gqa-decode": (True, dict(Sq=2, H=4, Hkv=2, BS=8, MB=4, NB=12, lengths=(0, 29))),
+    "contiguous-decode": (False, (2, 1, 2, 48, 40)),     # B, Sq, H, T, pos
+    "contiguous-chunk": (False, (1, 9, 2, 32, 11)),
+}
+
+
+@pytest.mark.parametrize("D", SERVING_HEAD_DIMS)
+@pytest.mark.parametrize("case", sorted(HEAD_DIM_CASES))
+def test_head_dims_96_256_match_jax(monkeypatch, case, D):
+    paged, args = HEAD_DIM_CASES[case]
+    if paged:
+        monkeypatch.setenv("DST_PALLAS_PAGED", "1")
+        arrays = make_paged(D=D, seed=D, **args)
+        fn = jda.paged_attention if "gqa" not in case else jda.paged_attention_reference
+        j, t = both(fn, tda.paged_attention, *arrays)
+    else:
+        monkeypatch.setenv("DST_PALLAS_DECODE", "1")
+        B, Sq, H, T, pos = args
+        q, ck, cv = make_cache(B, Sq, H, D, T, seed=D)
+        j = np.asarray(jda.decode_attention(jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv),
+                                            jnp.int32(pos), block_k=16))
+        t = tda.decode_attention(*map(torch.from_numpy, (q, ck, cv)), pos).numpy()
+    np.testing.assert_allclose(t, j, atol=ATOL, rtol=0)
+
+
 # --------------------------------------------------------------------------- #
 # on the card
 # --------------------------------------------------------------------------- #
@@ -397,7 +431,7 @@ def test_cuda_rejects_what_the_kernel_does_not_take(cuda_device):
                                for a in make_cache(1, 1, 4, 32, 16)], 3)
     with pytest.raises(ValueError, match="head_dim"):
         tda.decode_attention(*[torch.from_numpy(a).to(cuda_device)
-                               for a in make_cache(1, 1, 4, 96, 16)], 3)
+                               for a in make_cache(1, 1, 4, 80, 16)], 3)
     with pytest.raises(NotImplementedError):
         tda.paged_attention(q, kp, vp, tables, lengths, bias=torch.zeros(1))
     with pytest.raises(ValueError, match="alibi"):
@@ -437,9 +471,9 @@ WIDE_CASES = {
 WIDE_D, WIDE_MB = 128, 64          # 1024 keys a table row
 
 
-def wide_paged(case, dtype, device, seed):
+def wide_paged(case, dtype, device, seed, D=WIDE_D):
     H, Hkv, alibi, Sq, lengths, _, _ = WIDE_CASES[case]
-    arrays = make_paged(B=len(lengths), Sq=Sq, H=H, Hkv=Hkv, D=WIDE_D, BS=tda.KERNEL_TILE,
+    arrays = make_paged(B=len(lengths), Sq=Sq, H=H, Hkv=Hkv, D=D, BS=tda.KERNEL_TILE,
                         MB=WIDE_MB, NB=len(lengths) * WIDE_MB + 1, seed=seed,
                         lengths=lengths)
     q, kp, vp = (torch.from_numpy(a).to(device, dtype) for a in arrays[:3])
@@ -447,10 +481,10 @@ def wide_paged(case, dtype, device, seed):
     return q, kp, vp, tables, lens, slopes_of(case, device)
 
 
-def wide_cache(case, dtype, device, seed, B=2):
+def wide_cache(case, dtype, device, seed, B=2, D=WIDE_D):
     H, Hkv, _, Sq, _, T, pos = WIDE_CASES[case]
     q, ck, cv = (torch.from_numpy(a).to(device, dtype)
-                 for a in make_cache(B, Sq, H, WIDE_D, T, seed=seed, Hkv=Hkv))
+                 for a in make_cache(B, Sq, H, D, T, seed=seed, Hkv=Hkv))
     return q, ck, cv, pos, slopes_of(case, device)
 
 
@@ -554,6 +588,103 @@ def test_cuda_head_dim_128_prefill_rows_do_not_depend_on_chunking(cuda_device, a
     assert torch.equal(torch.cat(contiguous, dim=1), whole)
     assert torch.equal(torch.cat(paged, dim=1), whole)
     pos = 250
+    rows = tda.decode_attention(q[:, :tda.DECODE_MAX_ROWS].contiguous(), ck, cv, pos,
+                                alibi=slopes)
+    for i in range(tda.DECODE_MAX_ROWS):
+        one = tda.decode_attention(q[:, i:i + 1].contiguous(), ck, cv, pos + i, alibi=slopes)
+        assert torch.equal(rows[:, i:i + 1], one)
+
+
+# --------------------------------------------------------------------------- #
+# on the card at head_dim 96 (GPT-NeoX-20B) and 256 (GPT-J): the lane
+# layouts that are not a power of two (96: 12 or 24 chunks a key row over
+# 16 or 32 lanes) or wider than a warp (fp32 at 256: two chunks a lane, a
+# block in two parts), and the prefill path's single K/V buffer (fp32 at
+# 256), over the head_dim-128 cases (GQA, ALiBi, ragged rows and chunks)
+# --------------------------------------------------------------------------- #
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", sorted(WIDE_CASES))
+@pytest.mark.parametrize("D", SERVING_HEAD_DIMS)
+def test_cuda_head_dims_96_256_match_plain(cuda_device, D, case, dtype, tol):
+    tda.reset_counts()
+    q, kp, vp, tables, lens, slopes = wide_paged(case, dtype, cuda_device, seed=59, D=D)
+    paged = tda.paged_attention(q, kp, vp, tables, lens, alibi=slopes)
+    rpaged = tda.paged_attention_reference(q, kp, vp, tables, lens, alibi=slopes)
+    q2, ck, cv, pos, _ = wide_cache(case, dtype, cuda_device, seed=61, D=D)
+    dense = tda.decode_attention(q2, ck, cv, pos, alibi=slopes)
+    rdense = tda.decode_attention_reference(q2, ck, cv, pos, alibi=slopes)
+    assert (tda.paged_attention.launches, tda.decode_attention.launches) == (1, 1)
+    torch.cuda.synchronize()
+    for out, ref in ((paged, rpaged), (dense, rdense)):
+        assert torch.isfinite(out.float()).all()
+        diff = (out.float() - ref.float()).abs() / ref.float().abs().clamp(min=1)
+        assert diff.max().item() <= tol
+    if dtype == torch.bfloat16:
+        out = tda.paged_attention(q * PEAKED_Q_STD, kp, vp, tables, lens, alibi=slopes)
+        ref = tda.paged_attention_reference(q.float() * PEAKED_Q_STD, kp.float(), vp.float(),
+                                            tables, lens, alibi=slopes)
+        assert rel_l2(out, ref) <= PEAKED_L2_TOL
+        out = tda.decode_attention(q2 * PEAKED_Q_STD, ck, cv, pos, alibi=slopes)
+        ref = tda.decode_attention_reference(q2.float() * PEAKED_Q_STD, ck.float(),
+                                             cv.float(), pos, alibi=slopes)
+        assert rel_l2(out, ref) <= PEAKED_L2_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["llama3-g4-decode", "g4-alibi-decode",
+                                  "bloom-alibi-prefill", "g8-alibi-chunk"])
+@pytest.mark.parametrize("D", SERVING_HEAD_DIMS)
+def test_cuda_head_dims_96_256_paged_and_contiguous_agree_bitwise(cuda_device, D, case):
+    q, kp, vp, tables, lens, slopes = wide_paged(case, torch.float32, cuda_device, seed=67,
+                                                 D=D)
+    B = q.shape[0]
+    pos = 500
+    lens = torch.full_like(lens, pos)
+    T = tables.shape[1] * kp.shape[1]
+    paged = tda.paged_attention(q, kp, vp, tables, lens, alibi=slopes)
+    ck, cv = (p[tables.long()].reshape(B, T, -1, D) for p in (kp, vp))
+    dense = tda.decode_attention(q, ck, cv, pos, alibi=slopes)
+    assert torch.equal(paged, dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", SERVING_HEAD_DIMS)
+def test_cuda_head_dims_96_256_rows_do_not_depend_on_chunking(cuda_device, D):
+    """fp32, GQA 4:1 with ALiBi: a 200-token prompt prefilled whole and in
+    chunks of 64 (contiguous, and paged with the last chunk padded) gives
+    bit-identical rows, and each decode-path row equals the S_q = 1 call at
+    its own position."""
+    rng = np.random.default_rng(71)
+    H, Hkv, BS, P, C = 8, 2, tda.KERNEL_TILE, 200, 64
+    T, MB = 230, 15
+    dev = cuda_device
+    slopes = torch.from_numpy(alibi_slopes(H)).to(dev)
+    q = torch.from_numpy(rng.standard_normal((1, P, H, D)).astype(np.float32)).to(dev)
+    k = rng.standard_normal((MB * BS, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((MB * BS, Hkv, D)).astype(np.float32)
+    ids = rng.permutation(np.arange(1, MB + 1)).astype(np.int32)
+    kp = np.zeros((MB + 1, BS, Hkv, D), np.float32)
+    vp = np.zeros_like(kp)
+    kp[ids], vp[ids] = k.reshape(MB, BS, Hkv, D), v.reshape(MB, BS, Hkv, D)
+    ck, cv = (torch.from_numpy(a[None, :T]).to(dev) for a in (k, v))
+    kp, vp = torch.from_numpy(kp).to(dev), torch.from_numpy(vp).to(dev)
+    table = torch.from_numpy(ids[None]).to(dev)
+    whole = tda.decode_attention(q, ck, cv, 0, alibi=slopes)
+    contiguous, paged = [], []
+    for s in range(0, P, C):
+        n = min(C, P - s)
+        contiguous.append(tda.decode_attention(q[:, s:s + n].contiguous(), ck, cv, s,
+                                               alibi=slopes))
+        padded = torch.zeros(1, C, H, D, device=dev)
+        padded[:, :n] = q[:, s:s + n]
+        paged.append(tda.paged_attention(
+            padded, kp, vp, table, torch.tensor([s], dtype=torch.int32, device=dev),
+            alibi=slopes)[:, :n])
+    assert torch.equal(torch.cat(contiguous, dim=1), whole)
+    assert torch.equal(torch.cat(paged, dim=1), whole)
+    pos = 150
     rows = tda.decode_attention(q[:, :tda.DECODE_MAX_ROWS].contiguous(), ck, cv, pos,
                                 alibi=slopes)
     for i in range(tda.DECODE_MAX_ROWS):

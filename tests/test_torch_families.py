@@ -10,8 +10,9 @@ difference of outputs and logits within 1e-5 of max(1, the reference's
 largest magnitude) (both sides sum in fp32, in different orders); greedy
 tokens identical.
 
-The tiny models keep the served widths' head_dim of 128 (n_embd 256 over
-2 heads) so the shapes the kernels take on the card are the ones held here.
+The tiny models keep the served widths' head_dims (128 for LLaMA and
+BLOOM, 256 for GPT-J, 96 for GPT-NeoX-20B) so the shapes the kernels take
+on the card are the ones held here.
 """
 
 import dataclasses
@@ -72,6 +73,17 @@ TINY = {
                                    n_head=4, position_encoding="rope", rope_dim=16,
                                    rope_interleaved=True, block_type="parallel_single_ln",
                                    untied_head=True, head_bias=True, activation="gelu")),
+    # GPT-J-6B's topology at its head_dim 256: interleaved rope over 64
+    # features, one norm, an untied head with a bias, tanh gelu
+    "gptj-d256": ("gpt", dict(vocab_size=300, n_positions=96, n_embd=512, n_layer=2,
+                              n_head=2, position_encoding="rope", rope_dim=64,
+                              rope_interleaved=True, block_type="parallel_single_ln",
+                              untied_head=True, head_bias=True)),
+    # GPT-NeoX-20B's at its head_dim 96: half-split rope over 24 features, a
+    # parallel residual, an untied head
+    "neox-d96": ("gpt", dict(vocab_size=300, n_positions=96, n_embd=192, n_layer=2,
+                             n_head=2, position_encoding="rope", rope_dim=24,
+                             block_type="parallel", intermediate_size=384, untied_head=True)),
 }
 
 
@@ -124,6 +136,29 @@ def test_full_size_config_attributes_match_jax(name):
         assert getattr(t, attr) == getattr(j, attr), attr
     assert tgpt.count_params(t) == jgpt.GPT(j).num_params()
     assert t.head_dim == 128
+
+
+# the GPT-J and GPT-NeoX families' full-size configurations chip_smoke.py
+# serves (phases 22-23): parameters, head_dim and KV bytes a token in bf16
+SERVED_FULL_SIZE = {"gptj-6b": (6_051_782_656, 256, 458_752),
+                    "neox-20b": (20_554_567_680, 96, 1_081_344)}
+
+
+@pytest.mark.parametrize("name", sorted(SERVED_FULL_SIZE))
+def test_served_full_size_configs_match_jax(name):
+    import chip_smoke
+    ctor, kw, fp32_layers = chip_smoke.FAMILY_CELLS[name]
+    t, j = getattr(tgpt, ctor)(**kw), getattr(jgpt, ctor)(**kw)
+    for attr in ("qkv_dim", "ffn_dim", "kv_heads", "head_dim", "padded_vocab",
+                 "position_encoding", "norm", "mlp_type", "use_bias", "untied_head",
+                 "head_bias", "rope_dim", "rope_interleaved", "rope_theta", "block_type",
+                 "activation", "ln_eps"):
+        assert getattr(t, attr) == getattr(j, attr), attr
+    params, head_dim, kv_bytes = SERVED_FULL_SIZE[name]
+    assert tgpt.count_params(t) == jgpt.GPT(j).num_params() == params
+    assert t.head_dim == head_dim and head_dim in tda.KERNEL_HEAD_DIMS
+    assert 2 * t.n_layer * t.kv_heads * t.head_dim * 2 == kv_bytes
+    assert fp32_layers < t.n_layer
 
 
 def test_llama3_8b_sizes():
@@ -400,7 +435,7 @@ def test_generate_tokens_identical(name):
     assert len(set(tout[0, 9:].tolist())) > 1, "degenerate stream tests nothing"
 
 
-SERVE_MODELS = ["llama-g2", "bloom"]
+SERVE_MODELS = ["llama-g2", "bloom", "gptj-d256", "neox-d96"]
 
 
 @pytest.fixture(scope="module", params=SERVE_MODELS)
@@ -431,8 +466,9 @@ def serve_both(served, serving, prompts, mnts, stagger):
 @pytest.mark.parametrize("arena", ["roomy", "evicting"])
 def test_serving_engine_matches_jax_engine_and_generate(served, arena):
     """The port's engine against JAX's engine and JAX's generate() on the
-    tiny LLaMA (GQA, rope) and BLOOM (ALiBi); the small arena holds a fifth
-    of the requests' KV, so it preempts, evicts and recomputes."""
+    tiny LLaMA (GQA, rope), BLOOM (ALiBi), GPT-J (head_dim 256) and GPT-NeoX
+    (head_dim 96); the small arena holds a fifth of the requests' KV, so it
+    preempts, evicts and recomputes."""
     name, jmodel, jparams, port = served
     rng = np.random.default_rng(6)
     if arena == "roomy":
@@ -496,12 +532,14 @@ def test_training_takes_the_families(name):
     assert tgpt.GPT(dataclasses.replace(cfg, n_layer=1), device="cpu").num_params() > 0
 
 
-@pytest.mark.parametrize("what", ["pld_theta", "dropout", "head_dim-96-on-the-card"])
-def test_training_refuses_the_families(what):
+@pytest.mark.parametrize("what", ["pld_theta", "dropout", "head_dim-96-on-the-card",
+                                  "initialize-at-head_dim-256-on-the-card"])
+def test_training_refuses_the_families(what, monkeypatch):
     """What training still leaves unported raises NotImplementedError naming
     its ROADMAP entry: progressive layer drop, dropout, and a head_dim the
-    flash kernels are not compiled for (the card's kernels; shapes are
-    checked before the device, so meta tensors meet the same check)."""
+    flash backward kernels are not compiled for (the card's kernels; shapes
+    are checked before the device, so meta tensors meet the same check),
+    in the wrapper and in ``initialize()`` on the card."""
     family, kw = TINY["llama-g2"]
     if what == "pld_theta":
         model = tgpt.GPT(make_config(tgpt, family, kw, dtype="float32"), device="cpu")
@@ -514,7 +552,18 @@ def test_training_refuses_the_families(what):
         ids = torch.zeros(1, 4, dtype=torch.long)
         with pytest.raises(NotImplementedError, match="dropout"):
             model(model.param_tree(), (ids, ids))
+    elif what.startswith("initialize"):
+        # the engine checks the model's head_dim before it touches the card
+        from deepspeed_tpu_torch.runtime import engine as engine_mod
+        model = tgpt.GPT(make_config(tgpt, *TINY["gptj-d256"], dtype="float32"), device="cpu")
+        monkeypatch.setattr(engine_mod, "resolve_device", lambda device=None: torch.device("cuda"))
+        with pytest.raises(NotImplementedError,
+                           match="initialize.*head_dim 64 or 128, got 256.*Queue 1 entry 2"):
+            dst.initialize(model=model, config={"train_micro_batch_size_per_gpu": 1,
+                                                "optimizer": {"type": "AdamW",
+                                                              "params": {"lr": 1e-3}}})
     else:
         q = torch.empty(1, 300, 2, 96, device="meta")
-        with pytest.raises(NotImplementedError, match="head_dim 64 or 128.*Queue 2 part A"):
-            tfa.flash_forward(q, q, q, None, None, True, 96 ** -0.5)
+        stat = torch.empty(1, 2, 300, device="meta")
+        with pytest.raises(NotImplementedError, match="head_dim 64 or 128.*Queue 1 entry 2"):
+            tfa.flash_backward_dq(q, q, q, q, stat, stat, None, None, True, 96 ** -0.5)

@@ -60,6 +60,14 @@ CASES = {
     "gqa4-d128": (1, 128, 4, 1, 128, True, None, False),
     "alibi-d128": (1, 128, 2, 2, 128, True, None, True),
 }
+# the widths served at head_dim 96 (GPT-NeoX-20B) and 256 (GPT-J), whose
+# kernel is the forward alone: GQA, ALiBi, a dense bias, non-causal
+SERVING_CASES = {
+    "gqa2-d96": (1, 128, 4, 2, 96, True, None, False),
+    "alibi-d96": (1, 128, 2, 2, 96, True, None, True),
+    "gqa4-d256": (1, 128, 4, 1, 256, True, None, False),
+    "bias-noncausal-d256": (1, 128, 2, 2, 256, False, "per-head", False),
+}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 BLOCK = 64              # the JAX kernels' block size in these tests
@@ -69,7 +77,7 @@ NO_EXTRAS = (None, None, True, 0.125)     # bias, slopes, causal, scale at head_
 def make_case(name, seed=0, q_std=1.0):
     """numpy (q, k, v, do) in [B, S, H, D], the bias as given to the public
     functions (or None) and the slopes (or None)."""
-    B, S, H, Hkv, D, causal, bias_kind, alibi = CASES[name]
+    B, S, H, Hkv, D, causal, bias_kind, alibi = {**CASES, **SERVING_CASES}[name]
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((B, S, H, D)).astype(np.float32) * q_std
     k, v = (rng.standard_normal((B, S, Hkv, D)).astype(np.float32) for _ in range(2))
@@ -139,6 +147,14 @@ def test_forward_matches_pallas_block_fwd(case, dtype):
     assert o.dtype == tq.dtype and lse.dtype == torch.float32
     assert_close(o, jo, dtype, "o")
     assert_close(lse, jlse, dtype, "lse")
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", sorted(SERVING_CASES))
+def test_forward_at_serving_head_dims_matches_pallas_block_fwd(case, dtype):
+    """The plain forward against JAX's Pallas forward (interpret mode) at
+    head_dim 96 and 256, the widths the port serves."""
+    test_forward_matches_pallas_block_fwd(case, dtype)
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -266,11 +282,21 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
 def test_what_the_kernels_do_not_take_raises():
     """Shapes are checked before the device, so meta tensors reach the
     checks a CUDA tensor meets; a grouping that does not divide raises on
-    every device."""
-    for D in (48, 96, 256):
+    every device.  The forward takes head_dim 96 and 256 (served), dQ and
+    dKV do not (training at those widths is a ROADMAP entry)."""
+    for D in (48, 80, 512):
         q = torch.empty(1, 8, 4, D, device="meta")
-        with pytest.raises(NotImplementedError, match="head_dim 64 or 128.*Queue 2 part A"):
+        with pytest.raises(NotImplementedError, match="head_dim 64, 96, 128, 256.*Queue 2 part A"):
             tfa.flash_forward(q, q, q, *NO_EXTRAS)
+    for D in (96, 256):
+        q = torch.empty(1, 8, 4, D, device="meta")
+        stat = torch.empty(1, 4, 8, device="meta")
+        with pytest.raises(ValueError, match="no kernel"):        # past the head_dim check
+            tfa.flash_forward(q, q, q, *NO_EXTRAS)
+        for fn in (tfa.flash_backward_dq, tfa.flash_backward_dkv):
+            with pytest.raises(NotImplementedError,
+                               match="head_dim 64 or 128.*Queue 1 entry 2.*96 and 256"):
+                fn(q, q, q, q, stat, stat, None, None, True, D ** -0.5)
     q = torch.empty(1, 8, 4, 64, device="meta")
     kv = torch.empty(1, 8, 3, 64, device="meta")
     with pytest.raises(ValueError, match="multiple"):
@@ -343,7 +369,7 @@ KERNEL_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 5e-3)}
 
 
 def kernel_inputs(case, dtype, device, seed=11):
-    B, S, H, Hkv, causal, bias_kind, alibi, *head_dim = KERNEL_CASES[case]
+    B, S, H, Hkv, causal, bias_kind, alibi, *head_dim = KERNEL_CASES_ALL[case]
     D = head_dim[0] if head_dim else 64
     rng = np.random.default_rng(seed)
 
@@ -413,7 +439,7 @@ def test_cuda_reads_the_models_qkv_views_by_stride(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_rejects_what_the_kernels_do_not_take(cuda_device):
-    q = torch.zeros(1, 64, 4, 96, device=cuda_device)
+    q = torch.zeros(1, 64, 4, 80, device=cuda_device)
     with pytest.raises(NotImplementedError, match="Queue 2 part A"):
         tfa.flash_forward(q, q, q, *NO_EXTRAS)
     q = torch.zeros(1, 64, 4, 64, device=cuda_device)
@@ -475,3 +501,61 @@ def test_cuda_saved_lse_gives_the_plain_forwards_gradients(cuda_device, case, dt
         err_max, err_l2 = kernel_errors(got, want)
         assert err_max <= max_tol and err_l2 <= l2_tol, \
             f"{what}: max {err_max:.3e} (tol {max_tol}), L2 {err_l2:.3e} (tol {l2_tol})"
+
+
+# --------------------------------------------------------------------------- #
+# on the card at head_dim 96 (GPT-NeoX-20B) and 256 (GPT-J): the forward
+# (Q from shared memory at 256; one K and V buffer in fp32 at 256); a
+# gradient at those widths raises, naming its ROADMAP entry
+# --------------------------------------------------------------------------- #
+SERVING_KERNEL_CASES = {
+    # NeoX-20B's 64 heads and GPT-J's 16 at S 2048; a ragged S 200; GQA 4;
+    # ALiBi; a dense bias without the causal mask; around the 64-row tiles
+    "neox-d96-s2048": (1, 2048, 64, 64, True, None, False, 96),
+    "gptj-d256-s2048": (1, 2048, 16, 16, True, None, False, 256),
+    "d96-ragged-s200": (2, 200, 8, 8, True, None, False, 96),
+    "d256-ragged-s200": (2, 200, 4, 4, True, None, False, 256),
+    "d96-gqa4-s320": (1, 320, 8, 2, True, None, False, 96),
+    "d256-gqa4-s320": (1, 320, 8, 2, True, None, False, 256),
+    "d96-alibi-s256": (1, 256, 8, 8, True, None, True, 96),
+    "d256-alibi-s256": (1, 256, 4, 4, True, None, True, 256),
+    "d96-bias-noncausal-s129": (1, 129, 4, 4, False, "per-head", False, 96),
+    "d256-bias-noncausal-s129": (1, 129, 2, 2, False, "per-head", False, 256),
+    "d256-s65-causal": (2, 65, 2, 2, True, None, False, 256),
+}
+KERNEL_CASES_ALL = {**KERNEL_CASES, **SERVING_KERNEL_CASES}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", sorted(SERVING_KERNEL_CASES))
+def test_cuda_forward_at_head_dims_96_256_matches_plain(cuda_device, case, dtype):
+    (q, k, v, _), bias, slopes, causal = kernel_inputs(case, dtype, cuda_device)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    tfa.reset_counts()
+    o, lse = tfa.flash_forward(q, k, v, bias, slopes, causal, scale)
+    assert tfa.flash_forward.launches == 1
+    ro, rlse = tfa.flash_forward_reference(q, k, v, bias, slopes, causal, scale)
+    torch.cuda.synchronize()
+    lse_err = ((lse - rlse).abs() / rlse.abs().clamp(min=1.0)).max().item()
+    assert lse_err <= 1e-5, f"lse {lse_err:.3e}"
+    assert o.dtype == ro.dtype and o.shape == ro.shape and torch.isfinite(o.float()).all()
+    max_tol, l2_tol = KERNEL_TOL[dtype]
+    err_max, err_l2 = kernel_errors(o, ro)
+    assert err_max <= max_tol and err_l2 <= l2_tol, \
+        f"o: max {err_max:.3e} (tol {max_tol}), L2 {err_l2:.3e} (tol {l2_tol})"
+    if dtype == "bfloat16":
+        ro, _ = tfa.flash_forward_reference(q.float(), k.float(), v.float(), bias, slopes,
+                                            causal, scale)
+        err = ((o.float() - ro).norm() / ro.norm()).item()
+        assert err <= PEAKED_L2_TOL, f"peaked relative L2 {err:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [96, 256])
+def test_cuda_gradients_at_head_dims_96_256_raise(cuda_device, D):
+    q = torch.randn(1, 320, 4, D, device=cuda_device, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="Queue 1 entry 2"):
+        tattn.flash_attention(q, q, q)
+    with torch.no_grad():
+        assert tattn.flash_attention(q, q, q).shape == q.shape

@@ -73,7 +73,9 @@ def test_params_from_jax_round_trip(scan_layers):
 
 
 def test_params_from_jax_rejects_unported_leaves():
-    """int8-quantized leaves raise; an untied head is taken (the families'
+    """A dict leaf that is not an int8 weight is refused (int8 leaves,
+    ``{"q8", "scale"}``, are taken: ``tests/test_torch_module_inject.py``
+    holds them against JAX's); an untied head is taken (the families'
     tests hold it), a leaf no family has is refused, and an MoE tree
     converts (its nested ``moe`` leaves by dotted path, stacked per layer;
     ``tests/test_torch_moe.py`` holds the values)."""
@@ -82,8 +84,14 @@ def test_params_from_jax_rejects_unported_leaves():
     with pytest.raises(ValueError, match="unknown"):
         params_from_jax(dict(tree, head=tree["wte"]))
     blocks = dict(tree["blocks"], qkv_w={"q": 1, "scale": 2})
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="neither an int8 weight"):
         params_from_jax(dict(tree, blocks=blocks))
+    q8 = np.zeros(np.shape(tree["blocks"]["qkv_w"]), np.int8)
+    scale = np.ones(q8.shape[:-2] + (1, q8.shape[-1]), np.float32)
+    sd = params_from_jax(dict(tree, blocks=dict(tree["blocks"], qkv_w={"q8": q8,
+                                                                       "scale": scale})))
+    assert sd["blocks.1.qkv_w.q8"].dtype == torch.int8 and "blocks.1.qkv_w" not in sd
+    assert tuple(sd["blocks.1.qkv_w.scale"].shape) == scale.shape[1:]
     cfg, moe_tree = jax_model("tiny", moe_num_experts=4, moe_expert_hidden=48)
     sd = params_from_jax(moe_tree)
     assert tuple(sd["blocks.1.moe.experts.wi"].shape) == (4, 32, 48)

@@ -161,7 +161,8 @@ def test_config_keys_the_port_does_not_read_raise(config):
 
 
 @pytest.mark.parametrize("config,match", [
-    ({"dtype": "int8"}, "int8"),
+    # int8 weights are ported; int4 is not
+    ({"dtype": "int8", "quant": {"weight": {"num_bits": 4}}}, "int8"),
     ({"tensor_parallel": {"tp_size": 2}}, "tp_size"),
     ({"moe": {"ep_size": 2}}, "ep_size"),
     ({"enable_cuda_graph": True}, "enable_cuda_graph"),

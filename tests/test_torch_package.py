@@ -1,10 +1,11 @@
 """The port package stands alone and defaults to the card.
 
 * ``import deepspeed_tpu_torch`` (every module of it, and ``chip_smoke.py``)
-  in a fresh interpreter leaves ``jax`` and ``deepspeed_tpu`` out of
-  ``sys.modules``;
+  in a fresh interpreter leaves ``jax``, ``deepspeed_tpu`` and
+  ``transformers`` out of ``sys.modules``;
 * no module of the port, and not ``chip_smoke.py``, has an import of
-  ``jax`` or ``deepspeed_tpu`` anywhere in its source;
+  ``jax``, ``deepspeed_tpu`` or ``transformers`` anywhere in its source
+  (``module_inject`` reads Hugging Face models by duck typing);
 * with no CUDA, the entry points raise unless ``device="cpu"`` is given.
 """
 
@@ -30,7 +31,7 @@ PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 def forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "flax", "optax", "deepspeed_tpu")
+    return top in ("jax", "jaxlib", "flax", "optax", "deepspeed_tpu", "transformers")
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -55,7 +56,7 @@ def test_import_leaves_jax_out_of_sys_modules():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'deepspeed_tpu'))\n"
+        "('jax', 'jaxlib', 'deepspeed_tpu', 'transformers'))\n"
         "print(len([k for k in sys.modules if k.startswith('deepspeed_tpu_torch')]))\n"
         "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -144,3 +145,8 @@ def test_public_surface():
                  "DeepSpeedEngine", "DeepSpeedConfig", "DeepSpeedConfigError",
                  "init_inference", "InferenceEngine", "DeepSpeedInferenceConfig"):
         assert hasattr(dst, name)
+    from deepspeed_tpu_torch import module_inject
+    for name in ("inject_hf_model", "replace_transformer_layer", "is_hf_model",
+                 "load_megatron_gpt", "policy_for_model", "InjectionPolicy",
+                 "quantize_weight", "dequantize_weight", "quantize_block_params"):
+        assert hasattr(module_inject, name)

@@ -170,14 +170,26 @@ Phases, each printing its own lines; any failure exits non-zero:
    GPT-J-6B at full size in bf16 and with ``dtype="int8"``: int8 block
    weight bytes against bf16, peak memory, the median decode step of each,
    their greedy agreement over 32 tokens x 8 prompts, the largest logit
-   distance, and a 2048-token forward through the flash kernel.
+   distance, and a 2048-token forward through the flash kernel;
+25. flash dQ and dKV (and the forward) at head_dim 256 and 96 against
+   their plain versions, fp32 and bf16, as phase 6 (WIDE_BACKWARD_CASES:
+   GPT-J-6B's and GPT-NeoX-20B's training shape, B 4, S 2048, H 16 / 64,
+   causal; a ragged S 200, GQA 4, ALiBi, a dense bias at S 129, S 65 at
+   each width), each kernel's time, bound and one SDPA autograd backward
+   beside it, and the blocks per SM of each new instantiation;
+26. GPT-J-6B's widths at 12 of 28 layers and GPT-NeoX-20B's at 5 of 44
+   (FAMILY_TRAIN: 2.83 B and 2.89 B parameters, near phase 15's 2.80 B)
+   trained as phase 15: bf16, micro 4 x seq 2048, graphed and eager,
+   profiled by category;
+27. their fp32 kernel paths against their plain paths at 2 layers, as
+   phase 16 (FAMILY_PARITY, phase 8's limits).
 Each phase prints its seconds.
 
 Phase 2 also prints the registers, spills, blocks per SM and shared
 memory of the kernels the tree redesigned last (the cross-entropy forward
 and the block-sparse forward and dQ) and of those at head_dim 96 and 256
-(the flash forward, the decode kernels' two paths), from ptxas's log and
-the occupancy query.
+(the three flash kernels, the decode kernels' two paths), from ptxas's log
+and the occupancy query.
 Phase 6 also holds the three block-sparse kernels against their plain
 versions (``kernel_rounding=True``: p and ds rounded to the input dtype
 before their products, as the bf16 kernels' tensor cores take them; the
@@ -192,7 +204,7 @@ must give bitwise-equal dQ, dK and dV, and
 the fixed split lengths of DKV_SPLITS are held to the same tolerances and
 timed beside the kept one at each bf16 case.
 
-Each run of phases 4-5, 7-24 (generate(), each serve, the timed
+Each run of phases 4-5, 7-27 (generate(), each serve, the timed
 graphed and eager training steps, each fp32 training run) zeroes the launch
 counters just before it and reads them just after: its kernels must have
 launched (a replay counts every launch of its graph; the capture counts
@@ -203,8 +215,9 @@ nothing of it, as in JAX, and its dQ and dKV once; the cross-entropy
 kernels once per micro-step; AdamW once per step), no other kernel, and
 the plain versions never (the fp32 phases' plain runs excepted).
 The kernel table reports each kernel's case at the shape of the latest
-slice's run that launches it and that run's count (the attention kernels
-phases 23-24's, the training kernels phase 19's, the block-sparse kernels
+slice's run that launches it and that run's count (the decode kernels
+phases 23-24's, the flash kernels phases 25-26's (GPT-J-6B's), the
+cross-entropy and AdamW kernels phase 19's, the block-sparse kernels
 phase 9's).
 The last two lines are the kernel table (JSON) and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -352,11 +365,15 @@ KERNEL_NAMES = {"paged_attention": r"paged_(decode|prefill)_kernel",
 # moments and the bf16 copy (18 bytes a parameter) sit on one 80 GB card:
 # Llama-3-8B at 8 of 32 layers is 2.80 B parameters, ~50 GB of state;
 # BLOOM-7b1 at 2 of 30 (its 250880 x 4096 tied head alone is 1.03 B)
-FAMILY_TRAIN = {"llama3-8b": (8, 2, 6, 2, True), "bloom-7b1": (2, 2, 3, 1, False)}
+# phase 26: GPT-J-6B's widths at 12 of 28 layers (2.83 B) and
+# GPT-NeoX-20B's at 5 of 44 (2.89 B), near Llama's 2.80 B, for the same cut
+FAMILY_TRAIN = {"llama3-8b": (8, 2, 6, 2, True), "bloom-7b1": (2, 2, 3, 1, False),
+                "gptj-6b": (12, 2, 6, 2, True), "neox-20b": (5, 2, 6, 2, True)}
 FAMILY_TRAIN_SEQ, FAMILY_TRAIN_MICRO = 2048, 4
 FAMILY_TRAIN_CFG = dict(TRAIN_CFG, train_micro_batch_size_per_gpu=FAMILY_TRAIN_MICRO)
-# the fp32 kernel-vs-plain parity of Llama-3-8B's widths at phase 8's
-# config and limits: layers, seq, micro
+# the fp32 kernel-vs-plain parity of Llama-3-8B's widths (phase 16), and of
+# GPT-J-6B's and GPT-NeoX-20B's (phase 27), at phase 8's config and limits:
+# layers, seq, micro
 FAMILY_PARITY = (2, TRAIN_SEQ, TRAIN_MICRO)
 # phases 18-20: DeepSpeed-MoE's 350M+MoE-128 (Rajbhandari et al., ICML 2022;
 # Megatron-DeepSpeed examples_deepspeed/MoE/ds_pretrain_gpt_350M_MoE128.sh):
@@ -451,6 +468,22 @@ WIDE_FLASH_CASES = {
     "neox-20b-s200": (1, 200, 64, 64, True, None, False, 96),
     "neox-20b-gqa4-s512": (1, 512, 64, 16, True, None, False, 96),
     "neox-20b-alibi-s512": (1, 512, 64, 64, True, None, True, 96),
+}
+# phase 25: flash dQ and dKV (with the forward) at GPT-J-6B's and
+# GPT-NeoX-20B's head_dims (trailing entry): the training cells' shape
+# first (micro 4 x seq 2048, causal, their heads), then the served widths'
+# kernel cases of tests/test_torch_flash_attention.py at each width: a
+# ragged S 200, GQA 4 at S 320, ALiBi, a dense bias without the causal
+# mask at S 129, S 65 (one row into a second tile)
+WIDE_BACKWARD_CASES = {
+    "gptj-6b-train": (4, 2048, 16, 16, True, None, False, 256),
+    "neox-20b-train": (4, 2048, 64, 64, True, None, False, 96),
+    **{f"d{d}-{name}": (*shape, d) for d in (256, 96) for name, shape in (
+        ("ragged-s200", (2, 200, 8, 8, True, None, False)),
+        ("gqa4-s320", (1, 320, 8, 2, True, None, False)),
+        ("alibi-s256", (1, 256, 8, 8, True, None, True)),
+        ("bias-noncausal-s129", (1, 129, 4, 4, False, "per-head", False)),
+        ("s65-causal", (2, 65, 4, 4, True, None, False)))},
 }
 FLASH_Q_STD = 3.0
 # flash tolerances, kernel against the plain version (exact products) on
@@ -1196,96 +1229,106 @@ def flash_sdpa_mask(bias, slopes, causal, S, dtype, device):
     return mask.to(dtype)
 
 
-def flash_cases(device, flush, card: str, reps: int = 20, plain_reps: int = 5):
-    """The three flash kernels against their plain versions over
-    FLASH_CASES, fp32 and bf16, with ``scaled_dot_product_attention`` (and
-    its autograd backward, one call for dq, dk and dv) as the yardstick."""
+def flash_case_rows(case: str, cases, dtype_name: str, device, flush, card: str, reps: int,
+                    plain_reps: int):
+    """One case of ``cases``: the three flash kernels against their plain
+    versions, with ``scaled_dot_product_attention`` (and its autograd
+    backward, one call for dq, dk and dv) as the yardstick; three rows."""
     import torch
     import torch.nn.functional as F
     tfa = kernel_modules()[3]
 
-    rows = []
-    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        for case in FLASH_CASES:
-            B, S, H, Hkv, causal, *_ = FLASH_CASES[case]
-            (q, k, v, do), bias, slopes, causal = flash_inputs(case, dtype, device)
-            D = q.shape[-1]
-            scale = 1.0 / D ** 0.5
-            args = (q, k, v)
-            extra = (bias, slopes, causal, scale)
-            o, lse = tfa.flash_forward(*args, *extra)
-            ro, rlse = tfa.flash_forward_reference(*args, *extra)
-            delta = (ro.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
-            bargs = (q, k, v, do, rlse, delta) + extra
-            dq = tfa.flash_backward_dq(*bargs)
-            rdq = tfa.flash_backward_dq_reference(*bargs)
-            dk, dv = tfa.flash_backward_dkv(*bargs)
-            rdk, rdv = tfa.flash_backward_dkv_reference(*bargs)
-            torch.cuda.synchronize()
-            for t in (o, lse, dq, dk, dv):
-                if not torch.isfinite(t.float()).all():
-                    fail(f"flash {case} {dtype_name}: non-finite kernel output")
-            # yardstick: SDPA in its [B, H, S, D] layout, the bias or ALiBi
-            # (with the causal mask) as an additive mask in q's dtype
-            qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
-            mask = flash_sdpa_mask(bias, slopes, causal, S, dtype, device)
+    dtype = getattr(torch, dtype_name)
+    B, S, H, Hkv, causal, *_ = cases[case]
+    (q, k, v, do), bias, slopes, causal = flash_inputs(case, dtype, device, cases=cases)
+    D = q.shape[-1]
+    scale = 1.0 / D ** 0.5
+    args = (q, k, v)
+    extra = (bias, slopes, causal, scale)
+    o, lse = tfa.flash_forward(*args, *extra)
+    ro, rlse = tfa.flash_forward_reference(*args, *extra)
+    delta = (ro.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    bargs = (q, k, v, do, rlse, delta) + extra
+    dq = tfa.flash_backward_dq(*bargs)
+    rdq = tfa.flash_backward_dq_reference(*bargs)
+    dk, dv = tfa.flash_backward_dkv(*bargs)
+    rdk, rdv = tfa.flash_backward_dkv_reference(*bargs)
+    torch.cuda.synchronize()
+    for t in (o, lse, dq, dk, dv):
+        if not torch.isfinite(t.float()).all():
+            fail(f"flash {case} {dtype_name}: non-finite kernel output")
+    # yardstick: SDPA in its [B, H, S, D] layout, the bias or ALiBi (with
+    # the causal mask) as an additive mask in q's dtype
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    mask = flash_sdpa_mask(bias, slopes, causal, S, dtype, device)
 
-            def sdpa(a, b, c):
-                return F.scaled_dot_product_attention(
-                    a, b, c, attn_mask=mask, is_causal=causal and mask is None, scale=scale,
-                    enable_gqa=Hkv != H)
-            fwd_lib = median_ms(lambda: sdpa(qt, kt, vt), reps, flush)
-            lib_in = [t.detach().requires_grad_() for t in (qt, kt, vt)]
-            lib_out = sdpa(*lib_in)
-            bwd_lib = median_ms(lambda: torch.autograd.grad(lib_out, lib_in, dot,
-                                                            retain_graph=True), reps, flush)
-            del lib_out, lib_in
-            if case == "gpt2-train":
-                # what auto would run here without flash: JAX's reference
-                # attention in plain torch, forward and autograd backward
-                from deepspeed_tpu_torch.ops.attention import reference_attention
-                ref_in = [t.detach().requires_grad_() for t in (q, k, v)]
-                ref_fwd = median_ms(lambda: reference_attention(*ref_in, causal=True), reps,
-                                    flush)
-                ref_out = reference_attention(*ref_in, causal=True)
-                ref_bwd = median_ms(lambda: torch.autograd.grad(ref_out, ref_in, do,
-                                                                retain_graph=True),
-                                    reps, flush)
-                say(f"reference attention at the path's shape ({dtype_name}): forward "
-                    f"{ref_fwd:.4f} ms, backward {ref_bwd:.4f} ms (one autograd call) "
-                    f"[{card}]")
-                del ref_out, ref_in
-            esize = q.element_size()
-            n_q, n_kv, n_row = q.numel(), k.numel(), B * H * S
-            n_pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
-            bias_bytes = bias.numel() * 4 if bias is not None else 0
-            specs = [
-                ("flash_forward", [("o", o, ro), ("lse", lse, rlse)],
-                 lambda: tfa.flash_forward(*args, *extra),
-                 lambda: tfa.flash_forward_reference(*args, *extra),
-                 (2 * n_q + 2 * n_kv) * esize + 4 * n_row + bias_bytes, 4.0 * D * n_pairs,
-                 fwd_lib, "library: scaled_dot_product_attention forward"),
-                ("flash_backward_dq", [("dq", dq, rdq)],
-                 lambda: tfa.flash_backward_dq(*bargs),
-                 lambda: tfa.flash_backward_dq_reference(*bargs),
-                 (3 * n_q + 2 * n_kv) * esize + 8 * n_row + bias_bytes, 6.0 * D * n_pairs,
-                 bwd_lib, "library: one SDPA autograd backward giving dq, dk and dv"),
-                ("flash_backward_dkv", [("dk", dk, rdk), ("dv", dv, rdv)],
-                 lambda: tfa.flash_backward_dkv(*bargs),
-                 lambda: tfa.flash_backward_dkv_reference(*bargs),
-                 (2 * n_q + 4 * n_kv) * esize + 8 * n_row + bias_bytes, 8.0 * D * n_pairs,
-                 bwd_lib, "library: the same SDPA backward"),
-            ]
-            for name, outs, kern, plain, nbytes, flops, lib, note in specs:
-                checks, worst = flash_checks([(o_name, got, want, dtype_name)
-                                              for o_name, got, want in outs])
-                b_ms, b_by = bound(nbytes, flops, dtype_name)
-                rows.append(dict(
-                    kernel=name, case=case, dtype=dtype_name, err=worst, scaled=worst,
-                    checks=checks, ms=median_ms(kern, reps, flush),
-                    plain_ms=median_ms(plain, plain_reps, flush), bound_ms=b_ms,
-                    bound_by=b_by, library_ms=lib, note=note))
-            del o, lse, ro, rlse, dq, rdq, dk, dv, rdk, rdv
+    def sdpa(a, b, c):
+        return F.scaled_dot_product_attention(
+            a, b, c, attn_mask=mask, is_causal=causal and mask is None, scale=scale,
+            enable_gqa=Hkv != H)
+    fwd_lib = median_ms(lambda: sdpa(qt, kt, vt), reps, flush)
+    lib_in = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+    lib_out = sdpa(*lib_in)
+    bwd_lib = median_ms(lambda: torch.autograd.grad(lib_out, lib_in, dot, retain_graph=True),
+                        reps, flush)
+    del lib_out, lib_in
+    if case == "gpt2-train":
+        # what auto would run here without flash: JAX's reference
+        # attention in plain torch, forward and autograd backward
+        from deepspeed_tpu_torch.ops.attention import reference_attention
+        ref_in = [t.detach().requires_grad_() for t in (q, k, v)]
+        ref_fwd = median_ms(lambda: reference_attention(*ref_in, causal=True), reps, flush)
+        ref_out = reference_attention(*ref_in, causal=True)
+        ref_bwd = median_ms(lambda: torch.autograd.grad(ref_out, ref_in, do, retain_graph=True),
+                            reps, flush)
+        say(f"reference attention at the path's shape ({dtype_name}): forward "
+            f"{ref_fwd:.4f} ms, backward {ref_bwd:.4f} ms (one autograd call) [{card}]")
+        del ref_out, ref_in
+    esize = q.element_size()
+    n_q, n_kv, n_row = q.numel(), k.numel(), B * H * S
+    n_pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+    bias_bytes = bias.numel() * 4 if bias is not None else 0
+    specs = [
+        ("flash_forward", [("o", o, ro), ("lse", lse, rlse)],
+         lambda: tfa.flash_forward(*args, *extra),
+         lambda: tfa.flash_forward_reference(*args, *extra),
+         (2 * n_q + 2 * n_kv) * esize + 4 * n_row + bias_bytes, 4.0 * D * n_pairs,
+         fwd_lib, "library: scaled_dot_product_attention forward"),
+        ("flash_backward_dq", [("dq", dq, rdq)],
+         lambda: tfa.flash_backward_dq(*bargs),
+         lambda: tfa.flash_backward_dq_reference(*bargs),
+         (3 * n_q + 2 * n_kv) * esize + 8 * n_row + bias_bytes, 6.0 * D * n_pairs,
+         bwd_lib, "library: one SDPA autograd backward giving dq, dk and dv"),
+        ("flash_backward_dkv", [("dk", dk, rdk), ("dv", dv, rdv)],
+         lambda: tfa.flash_backward_dkv(*bargs),
+         lambda: tfa.flash_backward_dkv_reference(*bargs),
+         (2 * n_q + 4 * n_kv) * esize + 8 * n_row + bias_bytes, 8.0 * D * n_pairs,
+         bwd_lib, "library: the same SDPA backward"),
+    ]
+    rows = []
+    for name, outs, kern, plain, nbytes, flops, lib, note in specs:
+        checks, worst = flash_checks([(o_name, got, want, dtype_name)
+                                      for o_name, got, want in outs])
+        b_ms, b_by = bound(nbytes, flops, dtype_name)
+        rows.append(dict(
+            kernel=name, case=case, dtype=dtype_name, err=worst, scaled=worst,
+            checks=checks, ms=median_ms(kern, reps, flush),
+            plain_ms=median_ms(plain, plain_reps, flush), bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib,
+            note=note if D == 64 else f"H {H}, Hkv {Hkv}, D {D}; {note}"))
+    return rows
+
+
+def flash_cases(device, flush, card: str, reps: int = 20, plain_reps: int = 5):
+    """The three flash kernels against their plain versions over
+    FLASH_CASES, fp32 and bf16 (``flash_case_rows``)."""
+    import torch
+    rows = []
+    for dtype_name in ("float32", "bfloat16"):
+        for case in FLASH_CASES:
+            rows += flash_case_rows(case, FLASH_CASES, dtype_name, device, flush, card, reps,
+                                    plain_reps)
+            torch.cuda.empty_cache()
         report_rows(rows[-3 * len(FLASH_CASES):])
     by = {(r["kernel"], r["case"], r["dtype"]): r for r in rows}
     for dtype_name in ("float32", "bfloat16"):
@@ -1350,6 +1393,41 @@ def wide_flash_cases(device, flush, card: str, reps: int = 20, plain_reps: int =
             del q, k, v, o, lse, ro, rlse, qt, kt, vt
         torch.cuda.empty_cache()
     report_rows(rows)
+    return rows
+
+
+def wide_backward_cases(device, flush, card: str, reps: int = 10, plain_reps: int = 2):
+    """Phase 25: flash dQ and dKV (and the forward) at head_dim 256 and 96
+    against their plain versions over WIDE_BACKWARD_CASES, fp32 and bf16,
+    with phase 6's tolerances and yardsticks (``flash_case_rows``), and the
+    blocks per SM and shared memory of each dQ and dKV instantiation at
+    those widths."""
+    import torch
+    tfa = kernel_modules()[3]
+    rows = []
+    for dtype_name in ("float32", "bfloat16"):
+        for case in WIDE_BACKWARD_CASES:
+            rows += flash_case_rows(case, WIDE_BACKWARD_CASES, dtype_name, device, flush, card,
+                                    reps, plain_reps)
+            torch.cuda.empty_cache()
+    report_rows(rows)
+    say("flash dQ / dKV at head_dim 96 and 256, blocks per SM x shared memory per block "
+        "(occupancy query): " + ", ".join(
+            "{} {}{} D{} {} x {} B".format(kern, dt_name, " extras" if extras else "", d,
+                                          *tfa.kernel_occupancy(kern, dt, extras, d))
+            for kern in ("dq", "dkv") for d in (96, 256)
+            for dt_name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32))
+            for extras in (False, True)))
+    by = {(r["kernel"], r["case"], r["dtype"]): r for r in rows}
+    for case in ("gptj-6b-train", "neox-20b-train"):
+        B, S, H, Hkv, *_, D = WIDE_BACKWARD_CASES[case]
+        for dtype_name in ("bfloat16", "float32"):
+            fwd, dq, dkv = (by[(k, case, dtype_name)] for k in (
+                "flash_forward", "flash_backward_dq", "flash_backward_dkv"))
+            say(f"flash {case} {dtype_name} (B {B}, S {S}, H {H}, D {D}): forward "
+                f"{fwd['ms']:.4f} ms (bound {fwd['bound_ms']:.4f}, SDPA {fwd['library_ms']:.4f}); "
+                f"dQ {dq['ms']:.4f} + dKV {dkv['ms']:.4f} ms (bounds {dq['bound_ms']:.4f} + "
+                f"{dkv['bound_ms']:.4f}) vs one SDPA backward {dq['library_ms']:.4f} [{card}]")
     return rows
 
 
@@ -2641,7 +2719,7 @@ def phase_resume(device, card: str, steps: int = RESUME_STEPS):
 
 # --------------------------------------------------------------------------- #
 def phase_family_train(name: str, device, card: str):
-    """Phases 15 and 17: one family's training cell, its published widths
+    """Phases 15, 17 and 26: one family's training cell, its published widths
     cut in depth to FAMILY_TRAIN's layers, seeded weights, through
     initialize() -> train_batch with bench.py's config at micro 4 x seq
     2048 (bf16, AdamW lr 1e-4 wd 0.01, clip 1.0, remat, ZeRO-0): as phase
@@ -3186,16 +3264,10 @@ def main() -> int:
     for kern in ("forward", "dq", "dkv"):
         for dt_name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
             for extras in (False, True):
-                for head_dim in (64, 128):
+                for head_dim in tfa.BACKWARD_HEAD_DIMS:
                     n, smem = tfa.kernel_occupancy(kern, dt, extras, head_dim)
                     occupancy.append(f"{kern} {dt_name}{' extras' if extras else ''} D{head_dim} "
                                      f"{n} x {smem} B")
-    for dt_name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
-        for extras in (False, True):
-            for head_dim in (96, 256):
-                n, smem = tfa.kernel_occupancy("forward", dt, extras, head_dim)
-                occupancy.append(f"forward {dt_name}{' extras' if extras else ''} D{head_dim} "
-                                 f"{n} x {smem} B")
     say("flash blocks per SM x shared memory per block (occupancy query): "
         + ", ".join(occupancy))
     from deepspeed_tpu_torch.ops.cuda import block_sparse_attention as tbs
@@ -3236,12 +3308,12 @@ def main() -> int:
     say("head_dim-128 flash and wide cross-entropy kernels (registers, spill stores / loads in "
         "bytes): " + "; ".join("{} {} regs, spills {} / {}".format(
             name, *build_info(res.log, entry)) for name, entry in added))
-    # the kernels at head_dim 96 and 256: the flash forward, the
+    # the kernels at head_dim 96 and 256: the three flash kernels, the
     # decode kernels' decode path (S_q 1 and 4) and prefill path
-    served = [(f"flash_fwd_kernel<{dt}, {d}{', extras' if x else ''}>",
-               f"flash_fwd_kernelI{m}Li{d}ELb{int(x)}E")
-              for d in (96, 256) for dt, m in (("bf16", "13__nv_bfloat16"), ("fp32", "f"))
-              for x in (False, True)]
+    served = [(f"flash_{k}_kernel<{dt}, {d}{', extras' if x else ''}>",
+               f"flash_{k}_kernelI{m}Li{d}ELb{int(x)}E")
+              for k in ("fwd", "dq", "dkv") for d in (96, 256)
+              for dt, m in (("bf16", "13__nv_bfloat16"), ("fp32", "f")) for x in (False, True)]
     served += [(f"paged_{k}_kernel<{dt}, {d}{r}>", f"paged_{k}_kernelI{m}Li{d}E{e}")
                for d in (96, 256) for dt, m in (("bf16", "13__nv_bfloat16"), ("fp32", "f"))
                for k, r, e in (("decode", ", 1", "Li1E"), ("decode", ", 4", "Li4E"),
@@ -3544,23 +3616,70 @@ def main() -> int:
         f"gptj-6b bf16 {INT8_FORWARD}-token forward": i8["flash_counts"]}))
     phase_done("24")
 
+    # ---- 25. flash dQ and dKV at head_dim 256 and 96 -------------------------------- #
+    gc.collect()
+    torch.cuda.empty_cache()
+    scratch = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)
+    wide_rows += wide_backward_cases(device, scratch.zero_, card)
+    del scratch
+    torch.cuda.empty_cache()
+    phase_done("25")
+
+    # ---- 26. GPT-J-6B's and GPT-NeoX-20B's training cells ------------------------- #
+    wide_train = {}
+    for name in ("gptj-6b", "neox-20b"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        wide_train[name] = phase_family_train(name, device, card)
+    for name, r in wide_train.items():
+        say(f"summary: {name} training at {r['n_layer']} layers x {r['n_embd']}, micro "
+            f"{FAMILY_TRAIN_MICRO} x seq {FAMILY_TRAIN_SEQ}, {r['params']:,} params: loss "
+            f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}; graphed {r['step_ms']:.3f} ms/step "
+            f"(host {r['host_ms']:.3f}, device {device_ms(r):.3f}), {r['samples_per_s']:.3f} "
+            f"samples/s, {r['tflops']:.2f} TFLOPs; eager {r['eager_step_ms']:.3f} ms/step (host "
+            f"{r['eager_host_ms']:.3f}, device {device_ms(r, 'eager_profile'):.3f}); peak memory "
+            f"graphed {r['memory']['graphed_alloc_gib']:.2f} GiB allocated / "
+            f"{r['memory']['graphed_reserved_gib']:.2f} reserved, eager "
+            f"{r['memory']['eager_alloc_gib']:.2f} allocated [{card}]")
+    say("launches by run: " + json.dumps({
+        f"{name} bf16 train {path}": r[key] for name, r in wide_train.items()
+        for path, key in (("graphed", "counts"), ("eager", "eager_counts"))}))
+    phase_done("26")
+
+    # ---- 27. their fp32 kernel paths against the plain paths --------------------- #
+    from deepspeed_tpu_torch.models.gpt import GPTConfig
+    layers, seq, micro = FAMILY_PARITY
+    wide_parity = {}
+    for name in ("gptj-6b", "neox-20b"):
+        _, kw, _ = FAMILY_CELLS[name]
+        gc.collect()
+        torch.cuda.empty_cache()
+        wide_parity[name] = phase_train_fp32_parity(
+            device, seq=seq, micro=micro,
+            cfg=GPTConfig(**dict(kw, n_layer=layers), remat=True, dtype="float32"))
+    say(f"summary: fp32 kernel-vs-plain at {layers} layers, seq {seq}, micro {micro}: " + "; ".join(
+        f"{name} loss rel diff {r['loss_rel']:.3e}, params max abs diff {r['param_max']:.3e}, "
+        f"relative L2 {r['param_rel_l2']:.3e}" for name, r in wide_parity.items()))
+    phase_done("27")
+
     # ---- report ------------------------------------------------------------------ #
     # each kernel's row: its case at the shape and dtype of the latest
     # slice's run that launches it, and that run's launch count: the
     # NeoX-20B bf16 serve for the paged kernel, GPT-J-6B's bf16
-    # init_inference generate for the contiguous one and its 2048-token
-    # forward for the flash forward (phases 23-24); the MoE cell's bf16
-    # training run for flash dQ and dKV, the cross-entropy and AdamW
+    # init_inference generate for the contiguous one (phases 23-24); GPT-J-6B's
+    # graphed bf16 training run for the three flash kernels (phases 25-26);
+    # the MoE cell's bf16 training run for the cross-entropy and AdamW
     # kernels; the seq-4096 sparse bf16 training run for the block-sparse
     # kernels
     moe_train_counts = moe_train["counts"]
+    gptj_train_counts = wide_train["gptj-6b"]["counts"]
     main_case = {"paged_attention": ("neox-20b-paged-decode", "bfloat16",
                                      families["neox-20b"]["bf16"]["counts"]),
                  "decode_attention": ("gptj-6b-generate-decode", "bfloat16",
                                       i8["bf16"]["counts"]),
-                 "flash_forward": ("gptj-6b-s2048", "bfloat16", i8["flash_counts"]),
-                 "flash_backward_dq": ("moe-350m-train", "bfloat16", moe_train_counts),
-                 "flash_backward_dkv": ("moe-350m-train", "bfloat16", moe_train_counts),
+                 "flash_forward": ("gptj-6b-train", "bfloat16", gptj_train_counts),
+                 "flash_backward_dq": ("gptj-6b-train", "bfloat16", gptj_train_counts),
+                 "flash_backward_dkv": ("gptj-6b-train", "bfloat16", gptj_train_counts),
                  "ce_forward": ("moe-350m-train", "bfloat16", moe_train_counts),
                  "ce_backward_dx": ("moe-350m-train", "bfloat16", moe_train_counts),
                  "ce_backward_dhead": ("moe-350m-train", "bfloat16", moe_train_counts),

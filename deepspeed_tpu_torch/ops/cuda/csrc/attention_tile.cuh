@@ -22,8 +22,9 @@
 // path and the flash kernels at head_dim 128; their default is kD.
 // SharedRows is RowFragments without the registers: the rows stay in shared
 // memory and each product reads them by ldmatrix (the flash dKV at head_dim
-// 128, where K's and V's fragments would take 64 registers a thread beside
-// the 128 of dK and dV).
+// 96, 128 and 256, where K's and V's fragments would take 64 registers a
+// thread beside the 128 of dK and dV at 128; the forward's Q and dQ's Q and
+// dO at 256).
 
 #pragma once
 
@@ -102,11 +103,12 @@ __device__ __forceinline__ void product_nt(float (&c)[NJ][4], const float* a, co
 }
 
 // fp32: acc += p . b over p's 8 NJ columns (b's first 8 NJ rows); acc is
-// 16 x 8 ND (the head's width).
-template <int NJ, int ND>
+// 16 x 8 ND, the head's width or, given W (the width of b's rows), the 8 ND
+// columns of b from where it points (the flash dKV's column halves at 256).
+template <int W = 0, int NJ, int ND>
 __device__ __forceinline__ void product_pv(float (&acc)[ND][4], const float (&p)[NJ][4],
                                            const float* b) {
-  constexpr int L = Tr<float, 8 * ND>::kLd;
+  constexpr int L = Tr<float, W ? W : 8 * ND>::kLd;
   const int lane = threadIdx.x & 31, t = lane & 3, quad = lane & ~3;
 #pragma unroll
   for (int jk = 0; jk < NJ; ++jk)
@@ -249,11 +251,12 @@ template <int D> struct SharedRows<bf16, D> {
 // acc += p . b: p the warp's 16 x 8 NJ tile in registers (rounded to bf16,
 // as JAX's kernels round p to v's dtype and ds to q's), b [8 NJ][kD] in
 // shared memory (v or k for rows of queries; do or q for dKV's rows of
-// keys), read transposed by ldmatrix.trans.  NJ even; acc is 16 x 8 ND.
-template <int NJ, int ND>
+// keys), read transposed by ldmatrix.trans.  NJ even; acc is 16 x 8 ND,
+// as in product_pv (W: the width of b's rows where acc is narrower).
+template <int W = 0, int NJ, int ND>
 __device__ __forceinline__ void pv_tile(float (&acc)[ND][4], const float (&p)[NJ][4],
                                         const bf16* b) {
-  constexpr int L = Tr<bf16, 8 * ND>::kLd;
+  constexpr int L = Tr<bf16, W ? W : 8 * ND>::kLd;
   const int lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
 #pragma unroll
   for (int kk = 0; kk < NJ / 2; ++kk) {
@@ -271,10 +274,10 @@ __device__ __forceinline__ void pv_tile(float (&acc)[ND][4], const float (&p)[NJ
   }
 }
 
-template <int NJ, int ND>
+template <int W = 0, int NJ, int ND>
 __device__ __forceinline__ void pv_tile(float (&acc)[ND][4], const float (&p)[NJ][4],
                                         const float* b) {
-  product_pv(acc, p, b);
+  product_pv<W>(acc, p, b);
 }
 
 

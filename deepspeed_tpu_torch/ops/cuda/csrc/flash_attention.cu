@@ -28,17 +28,18 @@
 // Design (wgmma, TMA and warp specialisation are later work).  All three
 // kernels share it:
 // * One block of 4 warps per 64-row tile, each warp 16 rows: query rows in
-//   the forward and dQ, key rows in dKV (the bf16 forward at head_dim 256:
-//   8 warps, 128 rows).  The forward's grid is query tiles
+//   the forward and dQ, key rows in dKV (at head_dim 256: the bf16 forward
+//   8 warps, 128 rows; dKV two warps per 16 rows; fp32 dQ and dKV 32 rows a
+//   block).  The forward's grid is query tiles
 //   x heads x batch, each head's longest causal rows first; dQ's and dKV's
 //   is heads x batch x tiles, so that every head's longest causal walk is
 //   dispatched before any shorter one (12-13 % faster at GPT-2's training
 //   shape than each head's tiles together: the short walks fill the tail).
 // * The rows the block owns are staged once; the other side's tiles stream
-//   through two shared-memory buffers by cp.async (K and V in the forward
-//   and dQ; Q, dO, lse and delta in dKV).  dQ and dKV issue the next tile's
-//   copies right after their one barrier per tile, which also tells every
-//   warp is done with the buffer being refilled.
+//   through two shared-memory buffers (one in fp32 at 256) by cp.async (K
+//   and V in the forward and dQ; Q, dO, lse and delta in dKV).  dQ and dKV
+//   issue the next tile's copies right after their one barrier per tile,
+//   which also tells every warp is done with the buffer being refilled.
 // * bf16: the warp's own rows are loaded once by ldmatrix and held in
 //   registers as mma.sync m16n8k16 A fragments (RowFragments: Q in the
 //   forward, Q and dO in dQ, K and V in dKV); the streamed tile's fragments
@@ -86,16 +87,27 @@
 //   ldmatrix at each product (SharedRows) instead of held in registers,
 //   and its score tiles are 32 queries wide: registers for dK, dV, s and dp
 //   (~192) instead of ~256 with K and V held.
-// * head_dim 96 (GPT-NeoX-20B) and 256 (GPT-J), served: the forward only.
-//   At 96 the tiles are 12 ldmatrix columns of 8 (rows of 208 bytes, still
-//   conflict-free), 65 KB a bf16 block, two blocks an SM.  At 256 the
-//   accumulator is 128 registers a thread, so Q stays in shared memory
-//   (SharedRows) and __launch_bounds__ asks for one block an SM: in bf16 a
-//   block of 8 warps, 128 query rows (198 KB; fwd_warps); fp32 keeps 4
-//   warps and one K and one V buffer (195 KB; fwd_bufs), so its next
-//   tile's copies wait for the barrier that ends the current one.  dQ and
-//   dKV at these widths are ROADMAP work (dKV's dK and dV at 256 alone
-//   would be 256 registers a thread).
+// * head_dim 96 (GPT-NeoX-20B) and 256 (GPT-J).  At 96 the tiles are 12
+//   ldmatrix columns of 8 (rows of 208 bytes, still conflict-free) and every
+//   kernel is the 128 one at three quarters of the width: a forward block
+//   takes 65 KB in bf16, dQ 80 KB (154 KB in fp32), dKV 81 KB (155 KB).
+//   At 256 the forward's and dQ's accumulators are 128 registers a thread,
+//   so their own rows (Q; Q and dO) stay in shared memory (SharedRows) and
+//   __launch_bounds__ asks for one block an SM: the bf16 forward a block of
+//   8 warps, 128 query rows (198 KB; fwd_warps), bf16 dQ 4 warps and two K
+//   and V buffers (198 KB).  fp32 does not fit so: its forward keeps 4
+//   warps and one K and one V buffer (195 KB; fwd_bufs), its dQ 32 query
+//   rows (2 warps) and one buffer (195 KB; half_block), so their next tile's
+//   copies wait for the barrier that ends the current one.  dKV's dK and dV
+//   at 256 would be 256 registers a thread, past the 255 a thread may
+//   have: each is split over a pair of warps (dkv_halves), which take the
+//   same 16 key rows and one column half of dK and dV each (8 warps a
+//   block, 199 KB in bf16).  Both warps of a pair need the same p and ds,
+//   and each forms them itself (s and dp over the full depth): 1.5 times
+//   the products of one warp doing all of it, where summing half-depth
+//   partial scores through shared memory would take 16 KB more and two
+//   pair barriers a score tile.  fp32 dKV at 256 takes 32 key rows (4
+//   warps) and one Q, dO buffer (196 KB; half_block).
 // * The online softmax keeps m, l and the accumulator in fp32 registers;
 //   out-of-range and causally masked columns are -inf, exactly zero weight,
 //   never 0/0 (l = 0 gives o = 0).
@@ -173,12 +185,13 @@ constexpr size_t fwd_smem_bytes() {               // the query tile, the K and V
   return sizeof(T) * (fwd_rows<T, D>() + 2 * fwd_bufs<T, D>() * kTile) * Tr<T, D>::kLd;
 }
 
-// The warp's query rows as A operands: held in registers as ldmatrix
-// fragments, except at 256, where they would take 64 registers a thread
-// beside the accumulator's 128, so they stay in shared memory and each
-// product reads them by ldmatrix (SharedRows)
+// The warp's query rows (the forward's Q, dQ's Q and dO) as A operands:
+// held in registers as ldmatrix fragments, except at 256, where they would
+// take 64 registers a thread each beside the accumulator's 128, so they
+// stay in shared memory and each product reads them by ldmatrix
+// (SharedRows)
 template <typename T, int D>
-using FwdRows = std::conditional_t<D == 256, SharedRows<T, D>, RowFragments<T, D>>;
+using QueryRows = std::conditional_t<D == 256, SharedRows<T, D>, RowFragments<T, D>>;
 
 // With extras (a bias or ALiBi): s <- s * scale (+ bias) (+ slope * (key -
 // query)), times log2(e).  Without (GPT-2's path) s stays as it is: the
@@ -244,7 +257,7 @@ __global__ void __launch_bounds__((fwd_threads<T, D>()), (fwd_min_blocks<D>()))
   float m[2] = {m0, m0}, l[2] = {0.f, 0.f};
   float acc[ND][4];
   zero(acc);
-  FwdRows<T, D> qf;
+  QueryRows<T, D> qf;
   for (int j = 0; j < n_kv; ++j) {
     const int buf = NB == 2 ? j & 1 : 0;
     if (NB == 2 && j + 1 < n_kv) {
@@ -326,10 +339,25 @@ __global__ void __launch_bounds__((fwd_threads<T, D>()), (fwd_min_blocks<D>()))
 // --------------------------------------------------------------------------
 // dQ and dKV: a ring of kStages buffers for the streamed tiles, a tile's
 // copies issued kStages - 1 tiles ahead, right after the one barrier per
-// tile (a third buffer, copies two tiles ahead, measured no faster)
+// tile (a third buffer, copies two tiles ahead, measured no faster); fp32
+// at head_dim 256 has one buffer, refilled after a second barrier a tile
 // --------------------------------------------------------------------------
 
 constexpr int kStages = 2;
+
+// fp32 at head_dim 256: a dQ block with Q, dO and two K and V buffers would
+// take 390 KB of shared memory (one buffer each: 260 KB), a dKV block with
+// K, V and one Q and dO buffer 260 KB; so both take half the rows a block
+// (dq_rows, dkv_rows) and one buffer for the streamed tiles: 195-196 KB
+template <typename T, int D>
+__host__ __device__ constexpr bool half_block() {
+  return sizeof(T) == 4 && D == 256;
+}
+
+template <typename T, int D>
+__host__ __device__ constexpr int bwd_stages() { // buffers of each streamed tile
+  return half_block<T, D>() ? 1 : kStages;
+}
 
 // --------------------------------------------------------------------------
 // dQ: one block per (query tile, head, batch), walking the key tiles
@@ -337,41 +365,53 @@ constexpr int kStages = 2;
 
 constexpr int kDqWarps = 4;
 constexpr int kDqRows = 16 * kDqWarps;            // query rows of a dQ block
-constexpr int kDqThreads = 32 * kDqWarps;
 constexpr int kDqBlocksPerSm = 3;                 // bf16 without extras (GPT-2's path)
 constexpr int kDqCols = 32;                       // key columns of a score tile
 
 // Blocks per SM __launch_bounds__ asks for: GPT-2's path kDqBlocksPerSm (up
 // to 168 registers a thread); the bias / ALiBi and fp32 paths 2, where they
 // spill nothing (fp32's shared memory holds two blocks an SM anyway).  At
-// head_dim 128, 2: Q's and dO's fragments and the accumulator take 128
-// registers a thread before any score, and the shared memory (102 KB a
-// block in bf16, 198 KB in fp32) holds two blocks an SM at most.
+// head_dim 96 and 128, 2: Q's and dO's fragments and the accumulator take
+// 96 or 128 registers a thread before any score, and the shared memory (80
+// or 102 KB a block in bf16, 154 or 198 KB in fp32) holds two blocks an SM
+// at most.  At 256, 1: the accumulator alone is 128 registers a thread
+// (Q and dO are read from shared memory) and a block takes 195-198 KB.
 template <typename T, int D, bool kExtras>
 constexpr int dq_min_blocks() {
-  return D == 64 && sizeof(T) == 2 && !kExtras ? kDqBlocksPerSm : 2;
+  return D == 64 && sizeof(T) == 2 && !kExtras ? kDqBlocksPerSm : D == 256 ? 1 : 2;
 }
 
 template <typename T, int D>
-constexpr size_t dq_smem_bytes() {                // Q and dO, kStages K and V buffers
-  return sizeof(T) * (2 * kDqRows + 2 * kStages * kTile) * Tr<T, D>::kLd;
+__host__ __device__ constexpr int dq_rows() {    // query rows of a dQ block
+  return half_block<T, D>() ? kDqRows / 2 : kDqRows;
+}
+
+template <typename T, int D>
+__host__ __device__ constexpr int dq_threads() {
+  return 2 * dq_rows<T, D>();                     // a warp per 16 rows
+}
+
+template <typename T, int D>
+constexpr size_t dq_smem_bytes() {                // Q and dO, the K and V buffers
+  return sizeof(T) * (2 * dq_rows<T, D>() + 2 * bwd_stages<T, D>() * kTile) * Tr<T, D>::kLd;
 }
 
 // grid: heads x batch x query tiles, the longest causal rows dispatched first
 template <typename T, int D, bool kExtras>
-__global__ void __launch_bounds__(kDqThreads, (dq_min_blocks<T, D, kExtras>()))
+__global__ void __launch_bounds__((dq_threads<T, D>()), (dq_min_blocks<T, D, kExtras>()))
     flash_dq_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int TE = kTileElems<T, D>, L = Tr<T, D>::kLd, NS = kStages, NJ = kDqCols / 8;
-  constexpr int ND = D / 8;
+  constexpr int TE = kTileElems<T, D>, L = Tr<T, D>::kLd, NS = bwd_stages<T, D>();
+  constexpr int NJ = kDqCols / 8, ND = D / 8, kRows = dq_rows<T, D>();
+  constexpr int kThreads = dq_threads<T, D>();
   T* sq = reinterpret_cast<T*>(smem);
-  T* sdo = sq + kDqRows * L;
-  T* sk = sdo + kDqRows * L;        // NS buffers each
+  T* sdo = sq + kRows * L;
+  T* sk = sdo + kRows * L;          // NS buffers each
   T* sv = sk + NS * TE;
   const int qt = gridDim.z - 1 - blockIdx.z;
   const int h = blockIdx.x, b = blockIdx.y, hk = h / p.group;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2;
-  const int row0 = qt * kDqRows, wrow0 = row0 + warp * 16;
+  const int row0 = qt * kRows, wrow0 = row0 + warp * 16;
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
@@ -380,7 +420,7 @@ __global__ void __launch_bounds__(kDqThreads, (dq_min_blocks<T, D, kExtras>()))
   const float slope = kExtras && p.slopes != nullptr ? p.slopes[h] : 0.f;
   const float to_log2 = kExtras ? 1.f : p.scale * kLog2e;
   const int n_all = cdiv(p.S, kTile);
-  const int n_kv = p.causal ? min(cdiv(row0 + kDqRows, kTile), n_all) : n_all;
+  const int n_kv = p.causal ? min(cdiv(row0 + kRows, kTile), n_all) : n_all;
   const long long stat0 = ((long long)b * p.H + h) * p.S;
   float lse2[2], delta[2];          // lse in log2 units
 #pragma unroll
@@ -390,28 +430,39 @@ __global__ void __launch_bounds__(kDqThreads, (dq_min_blocks<T, D, kExtras>()))
     delta[r] = row < p.S ? p.delta[stat0 + row] : 0.f;
   }
 
-  load_rows<T, kDqRows, kDqThreads, D>(sq, q, p.q_ss, row0, p.S);
-  load_rows<T, kDqRows, kDqThreads, D>(sdo, dout, p.do_ss, row0, p.S);
+  load_rows<T, kRows, kThreads, D>(sq, q, p.q_ss, row0, p.S);
+  load_rows<T, kRows, kThreads, D>(sdo, dout, p.do_ss, row0, p.S);
 #pragma unroll
-  for (int st = 0; st < NS - 1; ++st) {
+  for (int st = 0; st < (NS > 1 ? NS - 1 : 1); ++st) {   // one buffer: the first tile
     if (st < n_kv) {
-      load_rows<T, kTile, kDqThreads, D>(sk + st * TE, k, p.k_ss, st * kTile, p.S);
-      load_rows<T, kTile, kDqThreads, D>(sv + st * TE, v, p.v_ss, st * kTile, p.S);
+      load_rows<T, kTile, kThreads, D>(sk + st * TE, k, p.k_ss, st * kTile, p.S);
+      load_rows<T, kTile, kThreads, D>(sv + st * TE, v, p.v_ss, st * kTile, p.S);
     }
     commit_copies();
   }
   float dq[ND][4];
   zero(dq);
-  RowFragments<T, D> qf, dof;
+  QueryRows<T, D> qf, dof;
   for (int j = 0, buf = 0; j < n_kv; ++j, buf = buf + 1 == NS ? 0 : buf + 1) {
-    wait_copies<NS - 2>();             // key tile j has landed
-    __syncthreads();
-    const int next = j + NS - 1, nbuf = buf == 0 ? NS - 1 : buf - 1;
-    if (next < n_kv) {
-      load_rows<T, kTile, kDqThreads, D>(sk + nbuf * TE, k, p.k_ss, next * kTile, p.S);
-      load_rows<T, kTile, kDqThreads, D>(sv + nbuf * TE, v, p.v_ss, next * kTile, p.S);
+    if constexpr (NS == 1) {
+      if (j > 0) {   // one K and V buffer: refilled once every warp is done with tile j - 1
+        __syncthreads();
+        load_rows<T, kTile, kThreads, D>(sk, k, p.k_ss, j * kTile, p.S);
+        load_rows<T, kTile, kThreads, D>(sv, v, p.v_ss, j * kTile, p.S);
+        commit_copies();
+      }
+      wait_copies<0>();                // key tile j has landed
+      __syncthreads();
+    } else {
+      wait_copies<NS - 2>();           // key tile j has landed
+      __syncthreads();
+      const int next = j + NS - 1, nbuf = buf == 0 ? NS - 1 : buf - 1;
+      if (next < n_kv) {
+        load_rows<T, kTile, kThreads, D>(sk + nbuf * TE, k, p.k_ss, next * kTile, p.S);
+        load_rows<T, kTile, kThreads, D>(sv + nbuf * TE, v, p.v_ss, next * kTile, p.S);
+      }
+      commit_copies();
     }
-    commit_copies();
     if (j == 0) {
       qf.load(sq + warp * 16 * L);
       dof.load(sdo + warp * 16 * L);
@@ -453,39 +504,65 @@ __global__ void __launch_bounds__(kDqThreads, (dq_min_blocks<T, D, kExtras>()))
 
 constexpr int kDkvWarps = 4;
 constexpr int kDkvRows = 16 * kDkvWarps;          // key rows of a dKV block
-constexpr int kDkvThreads = 32 * kDkvWarps;
 constexpr int kDkvBlocksPerSm = 2;
 
-// Query columns of a score tile: 64 at head_dim 64; 32 at 128, where dK
-// and dV alone take 128 registers a thread and a 64-wide s and dp 64 more.
+// Query columns of a score tile: 64 at head_dim 64; 32 at 96, 128 and 256,
+// where dK and dV alone take 96 or more registers a thread and a 64-wide s
+// and dp 64 more.
 template <int D>
 __host__ __device__ constexpr int dkv_cols() {
   return D == 64 ? 64 : 32;
 }
 
+// Column halves of dK and dV, one warp each of a pair that shares 16 key
+// rows: 2 at head_dim 256, where one warp's dK and dV would take 256
+// registers a thread; 1 below
+template <int D>
+__host__ __device__ constexpr int dkv_halves() {
+  return D == 256 ? 2 : 1;
+}
+
+template <typename T, int D>
+__host__ __device__ constexpr int dkv_rows() {   // key rows of a dKV block
+  return half_block<T, D>() ? kDkvRows / 2 : kDkvRows;
+}
+
+template <typename T, int D>
+__host__ __device__ constexpr int dkv_threads() {
+  return 2 * dkv_rows<T, D>() * dkv_halves<D>();  // a warp per 16 rows and column half
+}
+
+// Blocks per SM __launch_bounds__ asks for: kDkvBlocksPerSm; at 256 one
+// (a block takes 196-199 KB of shared memory)
+template <int D>
+constexpr int dkv_min_blocks() {
+  return D == 256 ? 1 : kDkvBlocksPerSm;
+}
+
 // K's and V's rows as A operands: held in registers at head_dim 64 (32
-// registers a thread for both in bf16); at 128 they stay in shared memory
+// registers a thread for both in bf16); wider, they stay in shared memory
 // and each product reads them by ldmatrix (held, with dK, dV, s and dp,
-// they would need ~256 registers a thread).
+// they would need ~256 registers a thread at 128).
 template <typename T, int D>
 using DkvRows = std::conditional_t<D == 64, RowFragments<T, D>, SharedRows<T, D>>;
 
 template <typename T, int D>
-constexpr size_t dkv_smem_bytes() {   // K and V, kStages Q, dO, lse and delta buffers
-  return sizeof(T) * (2 * kDkvRows + 2 * kStages * kTile) * Tr<T, D>::kLd +
-         2 * kStages * kTile * sizeof(float);
+constexpr size_t dkv_smem_bytes() {   // K and V, the Q, dO, lse and delta buffers
+  constexpr int NS = bwd_stages<T, D>();
+  return sizeof(T) * (2 * dkv_rows<T, D>() + 2 * NS * kTile) * Tr<T, D>::kLd +
+         2 * NS * kTile * sizeof(float);
 }
 
 // Stage query tile `qt` of head h: Q and dO, lse and delta (zeros past S),
-// all by cp.async.
-template <typename T, int D>
+// all by cp.async, by THREADS threads.
+template <typename T, int D, int THREADS>
 __device__ __forceinline__ void load_query_tile(const Params& p, T* sq, T* sdo, float* slse,
                                                 float* sdelta, int b, int h, int qt) {
-  static_assert(kDkvThreads >= 2 * kTile, "lse and delta take one thread per row each");
+  static_assert(THREADS >= 2 * kTile, "lse and delta take one thread per row each");
   const int row0 = qt * kTile;
-  load_rows<T, kTile, kDkvThreads, D>(sq, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh,
-                                      p.q_ss, row0, p.S);
-  load_rows<T, kTile, kDkvThreads, D>(
+  load_rows<T, kTile, THREADS, D>(sq, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh,
+                                  p.q_ss, row0, p.S);
+  load_rows<T, kTile, THREADS, D>(
       sdo, static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh, p.do_ss, row0, p.S);
   if (threadIdx.x < 2 * kTile) {
     const bool is_lse = threadIdx.x < kTile;
@@ -499,36 +576,41 @@ __device__ __forceinline__ void load_query_tile(const Params& p, T* sq, T* sdo, 
 // grid: kv heads x batch x key tiles, the longest causal walks dispatched
 // first
 template <typename T, int D, bool kExtras>
-__global__ void __launch_bounds__(kDkvThreads, kDkvBlocksPerSm) flash_dkv_kernel(const Params p) {
+__global__ void __launch_bounds__((dkv_threads<T, D>()), (dkv_min_blocks<D>()))
+    flash_dkv_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int TE = kTileElems<T, D>, L = Tr<T, D>::kLd, NS = kStages;
-  constexpr int kDkvCols = dkv_cols<D>(), NJ = kDkvCols / 8, ND = D / 8;
+  constexpr int TE = kTileElems<T, D>, L = Tr<T, D>::kLd, NS = bwd_stages<T, D>();
+  constexpr int kDkvCols = dkv_cols<D>(), NJ = kDkvCols / 8;
+  constexpr int kRows = dkv_rows<T, D>(), kThreads = dkv_threads<T, D>(), kGroups = kRows / 16;
+  constexpr int DH = D / dkv_halves<D>(), ND = DH / 8;     // a warp's columns of dK and dV
   T* sk = reinterpret_cast<T*>(smem);
-  T* sv = sk + kDkvRows * L;
-  T* sq = sv + kDkvRows * L;        // NS buffers each
+  T* sv = sk + kRows * L;
+  T* sq = sv + kRows * L;           // NS buffers each
   T* sdo = sq + NS * TE;
   float* slse = reinterpret_cast<float*>(sdo + NS * TE);    // [NS][kTile]
   float* sdelta = slse + NS * kTile;
   const int kt = blockIdx.z, hk = blockIdx.x, b = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
-  const int key0 = kt * kDkvRows, wkey0 = key0 + warp * 16;
+  // the warp's 16 key rows (row group rg of the block's) and its column half
+  const int rg = (threadIdx.x >> 5) % kGroups, half = (threadIdx.x >> 5) / kGroups;
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int key0 = kt * kRows, wkey0 = key0 + rg * 16;
   const int n_q = cdiv(p.S, kTile), first = p.causal ? key0 / kTile : 0, per_head = n_q - first;
   const int total = p.group * per_head;
   const float to_log2 = kExtras ? 1.f : p.scale * kLog2e;
   // stage item `it` (query head it / per_head of the group, query tile
   // first + it % per_head) into buffer `buf`
   auto stage = [&](int it, int buf) {
-    load_query_tile<T, D>(p, sq + buf * TE, sdo + buf * TE, slse + buf * kTile,
-                       sdelta + buf * kTile, b, hk * p.group + it / per_head,
-                       first + it % per_head);
+    load_query_tile<T, D, kThreads>(p, sq + buf * TE, sdo + buf * TE, slse + buf * kTile,
+                                    sdelta + buf * kTile, b, hk * p.group + it / per_head,
+                                    first + it % per_head);
   };
 
-  load_rows<T, kDkvRows, kDkvThreads, D>(
+  load_rows<T, kRows, kThreads, D>(
       sk, static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh, p.k_ss, key0, p.S);
-  load_rows<T, kDkvRows, kDkvThreads, D>(
+  load_rows<T, kRows, kThreads, D>(
       sv, static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh, p.v_ss, key0, p.S);
 #pragma unroll
-  for (int st = 0; st < NS - 1; ++st) {
+  for (int st = 0; st < (NS > 1 ? NS - 1 : 1); ++st) {   // one buffer: the first item
     if (st < total) stage(st, st);
     commit_copies();
   }
@@ -537,13 +619,23 @@ __global__ void __launch_bounds__(kDkvThreads, kDkvBlocksPerSm) flash_dkv_kernel
   zero(dv);
   DkvRows<T, D> kf, vf;
   for (int it = 0, buf = 0; it < total; ++it, buf = buf + 1 == NS ? 0 : buf + 1) {
-    wait_copies<NS - 2>();             // item it has landed
-    __syncthreads();
-    if (it + NS - 1 < total) stage(it + NS - 1, buf == 0 ? NS - 1 : buf - 1);
-    commit_copies();
+    if constexpr (NS == 1) {
+      if (it > 0) {   // one buffer: refilled once every warp is done with item it - 1
+        __syncthreads();
+        stage(it, 0);
+        commit_copies();
+      }
+      wait_copies<0>();                // item it has landed
+      __syncthreads();
+    } else {
+      wait_copies<NS - 2>();           // item it has landed
+      __syncthreads();
+      if (it + NS - 1 < total) stage(it + NS - 1, buf == 0 ? NS - 1 : buf - 1);
+      commit_copies();
+    }
     if (it == 0) {
-      kf.load(sk + warp * 16 * L);
-      vf.load(sv + warp * 16 * L);
+      kf.load(sk + rg * 16 * L);
+      vf.load(sv + rg * 16 * L);
     }
     const int h = hk * p.group + it / per_head, q0 = (first + it % per_head) * kTile;
     const float* bias = kExtras && p.bias != nullptr ? p.bias + b * p.b_sb + h * p.b_sh : nullptr;
@@ -576,7 +668,7 @@ __global__ void __launch_bounds__(kDkvThreads, kDkvBlocksPerSm) flash_dkv_kernel
         s[jj][2] = exp2_approx(fmaf(s[jj][2], to_log2, -l0));
         s[jj][3] = exp2_approx(fmaf(s[jj][3], to_log2, -l1));
       }
-      pv_tile(dv, s, do_cols);                          // dv += p^T . do
+      pv_tile<D>(dv, s, do_cols + half * DH);           // dv += p^T . do, the warp's columns
 #pragma unroll
       for (int jj = 0; jj < NJ; ++jj) {   // ds^T, delta read once per column pair
         const float2 d = *reinterpret_cast<const float2*>(delta + jj * 8 + 2 * t);
@@ -585,11 +677,11 @@ __global__ void __launch_bounds__(kDkvThreads, kDkvBlocksPerSm) flash_dkv_kernel
         s[jj][2] = s[jj][2] * (dp[jj][2] - d.x) * p.scale;
         s[jj][3] = s[jj][3] * (dp[jj][3] - d.y) * p.scale;
       }
-      pv_tile(dk, s, q_cols);                           // dk += ds^T . q
+      pv_tile<D>(dk, s, q_cols + half * DH);            // dk += ds^T . q, the warp's columns
     }
   }
   const float one[2] = {1.f, 1.f};
-  const long long off = (long long)b * p.S * p.Hkv * D + hk * D;
+  const long long off = (long long)b * p.S * p.Hkv * D + hk * D + half * DH;
   store_rows<T>(static_cast<T*>(p.dk) + off, (long long)p.Hkv * D, dk, wkey0, p.S, one);
   store_rows<T>(static_cast<T*>(p.dv) + off, (long long)p.Hkv * D, dv, wkey0, p.S, one);
 }
@@ -601,34 +693,29 @@ __global__ void __launch_bounds__(kDkvThreads, kDkvBlocksPerSm) flash_dkv_kernel
 enum Which { kForward, kDq, kDkv };
 
 template <typename T, int D>
-cudaError_t run_forward(const Params& p, int B, cudaStream_t st) {
-  const bool extras = p.bias != nullptr || p.slopes != nullptr;
-  const dim3 grid(cdiv(p.S, fwd_rows<T, D>()), p.H, B);
-  constexpr size_t smem = fwd_smem_bytes<T, D>();
-  constexpr int threads = fwd_threads<T, D>();
-  return extras ? launch(flash_fwd_kernel<T, D, true>, grid, smem, p, st, threads)
-                : launch(flash_fwd_kernel<T, D, false>, grid, smem, p, st, threads);
-}
-
-// head_dim 64 and 128: all three kernels; 96 and 256 (GPT-NeoX-20B, GPT-J
-// served): the forward only, whose dQ and dKV are ROADMAP work
-template <typename T, int D>
 cudaError_t run(Which which, const Params& p, int B, cudaStream_t st) {
   const bool extras = p.bias != nullptr || p.slopes != nullptr;
   switch (which) {
-    case kForward:
-      return run_forward<T, D>(p, B, st);
+    case kForward: {
+      const dim3 grid(cdiv(p.S, fwd_rows<T, D>()), p.H, B);
+      constexpr size_t smem = fwd_smem_bytes<T, D>();
+      constexpr int threads = fwd_threads<T, D>();
+      return extras ? launch(flash_fwd_kernel<T, D, true>, grid, smem, p, st, threads)
+                    : launch(flash_fwd_kernel<T, D, false>, grid, smem, p, st, threads);
+    }
     case kDq: {
-      const dim3 grid(p.H, B, cdiv(p.S, kDqRows));
+      const dim3 grid(p.H, B, cdiv(p.S, dq_rows<T, D>()));
       constexpr size_t smem = dq_smem_bytes<T, D>();
-      return extras ? launch(flash_dq_kernel<T, D, true>, grid, smem, p, st, kDqThreads)
-                    : launch(flash_dq_kernel<T, D, false>, grid, smem, p, st, kDqThreads);
+      constexpr int threads = dq_threads<T, D>();
+      return extras ? launch(flash_dq_kernel<T, D, true>, grid, smem, p, st, threads)
+                    : launch(flash_dq_kernel<T, D, false>, grid, smem, p, st, threads);
     }
     default: {
-      const dim3 grid(p.Hkv, B, cdiv(p.S, kDkvRows));
+      const dim3 grid(p.Hkv, B, cdiv(p.S, dkv_rows<T, D>()));
       constexpr size_t smem = dkv_smem_bytes<T, D>();
-      return extras ? launch(flash_dkv_kernel<T, D, true>, grid, smem, p, st, kDkvThreads)
-                    : launch(flash_dkv_kernel<T, D, false>, grid, smem, p, st, kDkvThreads);
+      constexpr int threads = dkv_threads<T, D>();
+      return extras ? launch(flash_dkv_kernel<T, D, true>, grid, smem, p, st, threads)
+                    : launch(flash_dkv_kernel<T, D, false>, grid, smem, p, st, threads);
     }
   }
 }
@@ -648,33 +735,32 @@ int blocks_per_sm(Kernel kernel, int threads, size_t smem) {
 }
 
 template <typename T, int D>
-int forward_occupancy(bool extras, int* smem) {
-  *smem = (int)fwd_smem_bytes<T, D>();
-  constexpr int threads = fwd_threads<T, D>();
-  return extras ? blocks_per_sm(flash_fwd_kernel<T, D, true>, threads, *smem)
-                : blocks_per_sm(flash_fwd_kernel<T, D, false>, threads, *smem);
-}
-
-template <typename T, int D>
 int occupancy(Which which, bool extras, int* smem) {
   switch (which) {
-    case kForward:
-      return forward_occupancy<T, D>(extras, smem);
-    case kDq:
+    case kForward: {
+      *smem = (int)fwd_smem_bytes<T, D>();
+      constexpr int threads = fwd_threads<T, D>();
+      return extras ? blocks_per_sm(flash_fwd_kernel<T, D, true>, threads, *smem)
+                    : blocks_per_sm(flash_fwd_kernel<T, D, false>, threads, *smem);
+    }
+    case kDq: {
       *smem = (int)dq_smem_bytes<T, D>();
-      return extras ? blocks_per_sm(flash_dq_kernel<T, D, true>, kDqThreads, *smem)
-                    : blocks_per_sm(flash_dq_kernel<T, D, false>, kDqThreads, *smem);
-    default:
+      constexpr int threads = dq_threads<T, D>();
+      return extras ? blocks_per_sm(flash_dq_kernel<T, D, true>, threads, *smem)
+                    : blocks_per_sm(flash_dq_kernel<T, D, false>, threads, *smem);
+    }
+    default: {
       *smem = (int)dkv_smem_bytes<T, D>();
-      return extras ? blocks_per_sm(flash_dkv_kernel<T, D, true>, kDkvThreads, *smem)
-                    : blocks_per_sm(flash_dkv_kernel<T, D, false>, kDkvThreads, *smem);
+      constexpr int threads = dkv_threads<T, D>();
+      return extras ? blocks_per_sm(flash_dkv_kernel<T, D, true>, threads, *smem)
+                    : blocks_per_sm(flash_dkv_kernel<T, D, false>, threads, *smem);
+    }
   }
 }
 
-// The head_dims a kernel is compiled for: the forward 64, 96, 128 and 256;
-// dQ and dKV 64 and 128.
-bool head_dim_ok(Which which, int D) {
-  return D == 64 || D == 128 || (which == kForward && (D == 96 || D == 256));
+// The head_dims every kernel is compiled for: 64, 96, 128 and 256.
+bool head_dim_ok(int D) {
+  return D == 64 || D == 96 || D == 128 || D == 256;
 }
 
 // strides: [q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, do_b, do_s, do_h,
@@ -687,10 +773,10 @@ int dispatch(Which which, Params p, const long long* strides, int B, int D, int 
   p.do_sb = strides[9]; p.do_ss = strides[10]; p.do_sh = strides[11];
   p.b_sb = strides[12]; p.b_sh = strides[13]; p.b_sq = strides[14]; p.b_sk = strides[15];
   const int vec = dtype == 0 ? 4 : 8;             // elements per 16 bytes
-  // dQ's and dKV's tiles are the grid's z dimension
+  // dQ's and dKV's tiles (of 32 rows in fp32 at 256) are the grid's z dimension
   bool ok = B > 0 && p.S > 0 && p.H > 0 && p.Hkv > 0 && p.H % p.Hkv == 0 && B <= 65535 &&
-            p.H <= 65535 && (which == kForward || cdiv(p.S, kTile) <= 65535) &&
-            (dtype == 0 || dtype == 1) && head_dim_ok(which, D) && aligned16(p.q) &&
+            p.H <= 65535 && (which == kForward || cdiv(p.S, kTile / 2) <= 65535) &&
+            (dtype == 0 || dtype == 1) && head_dim_ok(D) && aligned16(p.q) &&
             aligned16(p.k) && aligned16(p.v) && (p.dout == nullptr || aligned16(p.dout));
   for (int i = 0; i < 12; ++i) ok = ok && strides[i] % vec == 0;
   if (!ok) return (int)cudaErrorInvalidValue;
@@ -703,10 +789,10 @@ int dispatch(Which which, Params p, const long long* strides, int B, int D, int 
       return (int)(dtype == 0 ? run<float, 128>(which, p, B, st)
                               : run<bf16, 128>(which, p, B, st));
     case 96:
-      return (int)(dtype == 0 ? run_forward<float, 96>(p, B, st) : run_forward<bf16, 96>(p, B, st));
+      return (int)(dtype == 0 ? run<float, 96>(which, p, B, st) : run<bf16, 96>(which, p, B, st));
     default:
-      return (int)(dtype == 0 ? run_forward<float, 256>(p, B, st)
-                              : run_forward<bf16, 256>(p, B, st));
+      return (int)(dtype == 0 ? run<float, 256>(which, p, B, st)
+                              : run<bf16, 256>(which, p, B, st));
   }
 }
 
@@ -714,8 +800,8 @@ int dispatch(Which which, Params p, const long long* strides, int B, int D, int 
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; D (head_dim): 64 or 128, the forward
-// also 96 and 256.  Each returns a
+// dtype: 0 = float32, 1 = bfloat16; D (head_dim): 64, 96, 128 or 256.
+// Each returns a
 // cudaError_t (0 = launched).  q [B, S, H, D], k and v [B, S, Hkv, D] by
 // strides; bias fp32 by strides or null; slopes fp32 [H] or null; o
 // contiguous [B, S, H, D]; lse fp32 contiguous [B, H, S].
@@ -756,12 +842,11 @@ int dst_flash_backward_dkv(const void* q, const void* k, const void* v, const vo
   return dispatch(kDkv, p, strides, B, D, dtype, stream);
 }
 
-// Blocks of one kernel (which: 0 forward, 1 dQ, 2 dKV; D: 64 or 128, the
-// forward also 96 and 256;
-// extras: its bias / ALiBi instantiation) that one SM holds at once; its
+// Blocks of one kernel (which: 0 forward, 1 dQ, 2 dKV; D: 64, 96, 128 or
+// 256; extras: its bias / ALiBi instantiation) that one SM holds at once; its
 // dynamic shared memory per block in *smem_bytes.  0 on an error.
 int dst_flash_occupancy(int which, int dtype, int D, int extras, int* smem_bytes) {
-  if (which < 0 || which > 2 || (dtype != 0 && dtype != 1) || !head_dim_ok((Which)which, D) ||
+  if (which < 0 || which > 2 || (dtype != 0 && dtype != 1) || !head_dim_ok(D) ||
       smem_bytes == nullptr)
     return 0;
   const Which w = (Which)which;
@@ -774,11 +859,11 @@ int dst_flash_occupancy(int which, int dtype, int D, int extras, int* smem_bytes
       return dtype == 0 ? occupancy<float, 128>(w, x, smem_bytes)
                         : occupancy<bf16, 128>(w, x, smem_bytes);
     case 96:
-      return dtype == 0 ? forward_occupancy<float, 96>(x, smem_bytes)
-                        : forward_occupancy<bf16, 96>(x, smem_bytes);
+      return dtype == 0 ? occupancy<float, 96>(w, x, smem_bytes)
+                        : occupancy<bf16, 96>(w, x, smem_bytes);
     default:
-      return dtype == 0 ? forward_occupancy<float, 256>(x, smem_bytes)
-                        : forward_occupancy<bf16, 256>(x, smem_bytes);
+      return dtype == 0 ? occupancy<float, 256>(w, x, smem_bytes)
+                        : occupancy<bf16, 256>(w, x, smem_bytes);
   }
 }
 

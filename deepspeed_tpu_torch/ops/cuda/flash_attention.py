@@ -38,11 +38,10 @@ mask, as in JAX), in the kernels and the plain versions alike.
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor launches
 the kernel of ``csrc/flash_attention.cu`` or raises on a dtype, head_dim,
 shape, layout or device the kernel does not take.  There is no fallback.
-The forward is compiled for head_dim 64 (GPT-2), 96 (GPT-NeoX-20B), 128
-(LLaMA, BLOOM) and 256 (GPT-J), ``KERNEL_HEAD_DIMS``; dQ and dKV for 64
-and 128, ``BACKWARD_HEAD_DIMS``, so a gradient at 96 or 256 raises on the
-card naming its ROADMAP entry (``TRAIN_HEAD_DIMS``), as does any other
-width.
+All three kernels are compiled for head_dim 64 (GPT-2), 96 (GPT-NeoX-20B),
+128 (LLaMA, BLOOM) and 256 (GPT-J), ``KERNEL_HEAD_DIMS`` (dQ and dKV:
+``BACKWARD_HEAD_DIMS``, the same); another width raises on the card naming
+its ROADMAP entry.
 The kernels read q, k, v and do by strides (head_dim contiguous, rows on
 16-byte boundaries), so the model's ``[B, S, H, D]`` views of its qkv
 product go in without copies; o, dq, dk and dv come out contiguous.
@@ -68,10 +67,8 @@ from deepspeed_tpu_torch.ops.cuda import builder
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (64, 96, 128, 256)   # the head_dims the forward is compiled for
-BACKWARD_HEAD_DIMS = (64, 128)          # ... and dQ and dKV
+BACKWARD_HEAD_DIMS = (64, 96, 128, 256)  # ... and dQ and dKV
 OTHER_HEAD_DIMS = "ROADMAP.md, Queue 2 part A: flash kernels at other head_dims"
-TRAIN_HEAD_DIMS = ("ROADMAP.md, Queue 1 entry 2: other GPT families: training at head_dim "
-                   "96 and 256 (flash dQ and dKV at those widths)")
 FP16 = "ROADMAP.md, Queue 1 item 5 (fp16 training)"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -163,10 +160,6 @@ flash_backward_dkv_reference.calls = 0
 # Kernel wrappers
 # --------------------------------------------------------------------------- #
 def check_head_dim(name: str, D: int, backward: bool) -> None:
-    if backward and D in KERNEL_HEAD_DIMS and D not in BACKWARD_HEAD_DIMS:
-        raise NotImplementedError(f"{name}: the CUDA backward kernels are compiled for head_dim "
-                                  f"{' or '.join(map(str, BACKWARD_HEAD_DIMS))}, got {D}; the "
-                                  f"forward serves it ({TRAIN_HEAD_DIMS})")
     dims = BACKWARD_HEAD_DIMS if backward else KERNEL_HEAD_DIMS
     if D not in dims:
         raise NotImplementedError(f"{name}: the CUDA kernels are compiled for head_dim "

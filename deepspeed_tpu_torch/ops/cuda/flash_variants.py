@@ -45,9 +45,9 @@ DKV_3_BLOCKS = [(DKV_BLOCKS, "constexpr int kDkvBlocksPerSm = 3;")]
 # and V so already)
 DKV_V_FROM_SMEM = [
     ("  DkvRows<T, D> kf, vf;", "  DkvRows<T, D> kf;"),
-    ("      vf.load(sv + warp * 16 * L);\n", ""),
+    ("      vf.load(sv + rg * 16 * L);\n", ""),
     ("      vf.product_nt(dp, do_cols);",
-     "      SharedRows<T, D> v_rows;\n      v_rows.load(sv + warp * 16 * L);\n"
+     "      SharedRows<T, D> v_rows;\n      v_rows.load(sv + rg * 16 * L);\n"
      "      v_rows.product_nt(dp, do_cols);")]
 VARIANTS = {
     # blocks per SM of GPT-2's dQ path (registers a thread: 2 -> 255, 3 ->

@@ -10,7 +10,9 @@ decode-attention kernels (``csrc/decode_attention.cu``, with the lane
 layouts of head_dim 96 and 256), the flash forward (and its one-buffer
 path of fp32 at head_dim 256),
 dQ and dKV (``csrc/flash_attention.cu``; at head_dim 128 dKV reads K's rows
-from shared memory through ``csrc/attention_tile.cuh``), the cross-entropy
+from shared memory through ``csrc/attention_tile.cuh``; at 256 dKV's column
+halves and fp32 dQ's one K/V buffer, seen by the ``cuda`` tests of
+``tests/test_torch_wide_head_training.py``), the cross-entropy
 forward and backward, cluster and wide paths (``csrc/cross_entropy.cu``),
 the block-sparse forward, dQ and dKV
 (``csrc/block_sparse_attention.cu``) and the fused AdamW
@@ -37,6 +39,7 @@ CSRC = "deepspeed_tpu_torch/ops/cuda/csrc/"
 DECODE = (CSRC + "decode_attention.cu", "tests/test_torch_decode_attention.py")
 FLASH = (CSRC + "flash_attention.cu", "tests/test_torch_flash_attention.py")
 TILE = (CSRC + "attention_tile.cuh", "tests/test_torch_flash_attention.py")
+WIDE = (CSRC + "flash_attention.cu", "tests/test_torch_wide_head_training.py")
 CROSS_ENTROPY = (CSRC + "cross_entropy.cu", "tests/test_torch_cross_entropy.py")
 SPARSE = (CSRC + "block_sparse_attention.cu", "tests/test_torch_sparse_attention.py")
 ADAM = (CSRC + "fused_optim.cu", "tests/test_torch_fused_optim.py")
@@ -48,6 +51,7 @@ DTYPES = {ADAM[1]: ("float32",)}
 MUTATION_DTYPES = {"ce-fwd-drop-last-k-slice": ("bfloat16",),
                    "decode-d256-fp32-part-at-block-start": ("float32",),
                    "flash-fwd-one-buffer-tile-not-reloaded": ("float32",),
+                   "flash-dq-d256-one-buffer-tile-not-reloaded": ("float32",),
                    "flash-dkv-d128-k-rows-half-deep": ("bfloat16",),
                    "sparse-dq-wgmma-tiles-unswizzled": ("bfloat16",),
                    "sparse-dq-wgmma-k-step-of-k-major": ("bfloat16",)}
@@ -136,6 +140,18 @@ MUTATIONS = {
         "only 64 deep",
         "    for (int kk = 0; kk < D / 16; ++kk) {",
         "    for (int kk = 0; kk < D / 32; ++kk) {"),
+    "flash-dkv-d256-dv-second-half-reads-first-half": (
+        WIDE, "flash dKV at head_dim 256: the warp of a pair that owns dV's second column "
+        "half sums p^T . do over do's first half",
+        "      pv_tile<D>(dv, s, do_cols + half * DH);           // dv += p^T . do, the warp's "
+        "columns",
+        "      pv_tile<D>(dv, s, do_cols);"),
+    "flash-dq-d256-one-buffer-tile-not-reloaded": (
+        WIDE, "flash dQ, fp32 at head_dim 256 (one K/V buffer): the key tiles after the first "
+        "are never loaded",
+        "      if (j > 0) {   // one K and V buffer: refilled once every warp is done with tile "
+        "j - 1",
+        "      if (j < 0) {"),
     "ce-wide-dx-wrong-chunk-offset": (
         CROSS_ENTROPY, "cross-entropy wide backward: dx's product reads chunk c's head rows "
         "from half its offset",

@@ -28,8 +28,6 @@ import deepspeed_tpu_torch as dst
 from deepspeed_tpu.models import gpt as jgpt
 from deepspeed_tpu.ops.attention import alibi_slopes as jax_alibi_slopes
 from deepspeed_tpu.ops.pallas import decode_attention as jda
-from deepspeed_tpu.serving import DeepSpeedServingConfig as JServingConfig
-from deepspeed_tpu.serving import ServingEngine as JServingEngine
 from deepspeed_tpu_torch.models import gpt as tgpt
 from deepspeed_tpu_torch.models.convert import gpt_from_jax, params_from_jax
 from deepspeed_tpu_torch.ops.attention import alibi_slopes
@@ -435,68 +433,6 @@ def test_generate_tokens_identical(name):
     assert len(set(tout[0, 9:].tolist())) > 1, "degenerate stream tests nothing"
 
 
-SERVE_MODELS = ["llama-g2", "bloom", "gptj-d256", "neox-d96"]
-
-
-@pytest.fixture(scope="module", params=SERVE_MODELS)
-def served(request):
-    """(name, JAX model, JAX params, port model) on the same weights."""
-    jcfg, tree = jax_model(request.param, seed=5)
-    return (request.param, jgpt.GPT(jcfg), jax.tree.map(jnp.asarray, tree),
-            port_model(request.param, tree))
-
-
-def serve_both(served, serving, prompts, mnts, stagger):
-    _, jmodel, jparams, port = served
-    jeng = JServingEngine(jmodel, config=JServingConfig(**serving), params=jparams)
-    teng = dst.init_serving(model=port, config={"serving": serving}, device="cpu")
-    out = []
-    for eng in (jeng, teng):
-        futs = [eng.submit(p, max_new_tokens=m)
-                for p, m in zip(prompts[:stagger], mnts[:stagger])]
-        for _ in range(3):
-            eng.step()
-        futs += [eng.submit(p, max_new_tokens=m)
-                 for p, m in zip(prompts[stagger:], mnts[stagger:])]
-        eng.run()
-        out.append(futs)
-    return out[0], out[1], jeng, teng
-
-
-@pytest.mark.parametrize("arena", ["roomy", "evicting"])
-def test_serving_engine_matches_jax_engine_and_generate(served, arena):
-    """The port's engine against JAX's engine and JAX's generate() on the
-    tiny LLaMA (GQA, rope), BLOOM (ALiBi), GPT-J (head_dim 256) and GPT-NeoX
-    (head_dim 96); the small arena holds a fifth of the requests' KV, so it
-    preempts, evicts and recomputes."""
-    name, jmodel, jparams, port = served
-    rng = np.random.default_rng(6)
-    if arena == "roomy":
-        lens, mnts = [3, 9, 17, 30, 5, 21, 12, 7], [8, 12, 5, 7, 10, 6, 12, 9]
-        serving = dict(block_size=8, num_blocks=64, max_batch_size=4, prefill_chunk=16,
-                       dtype="float32")
-        stagger = 4
-    else:
-        lens, mnts = [10, 14, 6, 12, 9, 16], [20, 16, 24, 12, 18, 14]
-        serving = dict(block_size=4, num_blocks=10, max_batch_size=4, prefill_chunk=8,
-                       max_blocks_per_seq=9, dtype="float32")
-        stagger = len(lens)
-    prompts = [list(rng.integers(1, port.cfg.vocab_size, size=n)) for n in lens]
-    jfuts, tfuts, jeng, teng = serve_both(served, serving, prompts, mnts, stagger)
-    if arena == "evicting":
-        assert teng.sched.preemption_count > 0 and teng.alloc.eviction_count > 0
-        assert teng.sched.preemption_count == jeng.sched.preemption_count
-    for i, (p, m, jf, tf) in enumerate(zip(prompts, mnts, jfuts, tfuts)):
-        assert tf.done and tf.token_ids == jf.token_ids, (name, i)
-        assert tf.token_ids == port.generate([p], m)[0, len(p):].tolist(), (name, i)
-    for i in (0, 3):
-        jref = np.asarray(jmodel.generate(jparams, np.asarray(prompts[i], np.int32)[None],
-                                          mnts[i]))
-        assert tfuts[i].token_ids == jref[0, lens[i]:].tolist(), (name, i)
-    assert len({t for f in tfuts for t in f.token_ids}) > len(tfuts)
-    teng.alloc.check_consistent()
-
-
 def test_serving_engine_arena_holds_kv_heads():
     """The GQA arena holds Hkv heads: half the bytes of an MHA arena here."""
     model = tgpt.GPT(make_config(tgpt, *TINY["llama-g2"], dtype="float32"), device="cpu")
@@ -539,7 +475,9 @@ def test_training_refuses_the_families(what, monkeypatch):
     its ROADMAP entry: progressive layer drop, dropout, and a head_dim the
     flash backward kernels are not compiled for (the card's kernels; shapes
     are checked before the device, so meta tensors meet the same check),
-    in the wrapper and in ``initialize()`` on the card."""
+    in the wrapper and in ``initialize()`` on the card.  GPT-NeoX-20B's
+    head_dim 96 and GPT-J's 256 pass both checks; 80 and 512 stand for
+    the widths still refused."""
     family, kw = TINY["llama-g2"]
     if what == "pld_theta":
         model = tgpt.GPT(make_config(tgpt, family, kw, dtype="float32"), device="cpu")
@@ -553,17 +491,28 @@ def test_training_refuses_the_families(what, monkeypatch):
         with pytest.raises(NotImplementedError, match="dropout"):
             model(model.param_tree(), (ids, ids))
     elif what.startswith("initialize"):
-        # the engine checks the model's head_dim before it touches the card
+        # the engine checks the model's head_dim before it touches the card:
+        # GPT-J's topology at twice its width (head_dim 512) is refused
         from deepspeed_tpu_torch.runtime import engine as engine_mod
-        model = tgpt.GPT(make_config(tgpt, *TINY["gptj-d256"], dtype="float32"), device="cpu")
+        family_j, kw_j = TINY["gptj-d256"]
+        assert tgpt.GPT(make_config(tgpt, family_j, kw_j, dtype="float32"),
+                        device="cpu").cfg.head_dim == 256
+        tfa.check_head_dim("initialize()", 256, backward=True)      # GPT-J's own passes
+        model = tgpt.GPT(make_config(tgpt, family_j, dict(kw_j, n_embd=1024), dtype="float32"),
+                         device="cpu")
         monkeypatch.setattr(engine_mod, "resolve_device", lambda device=None: torch.device("cuda"))
         with pytest.raises(NotImplementedError,
-                           match="initialize.*head_dim 64 or 128, got 256.*Queue 1 entry 2"):
+                           match="initialize.*head_dim 64, 96, 128, 256, got 512.*Queue 2 part A"):
             dst.initialize(model=model, config={"train_micro_batch_size_per_gpu": 1,
                                                 "optimizer": {"type": "AdamW",
                                                               "params": {"lr": 1e-3}}})
     else:
-        q = torch.empty(1, 300, 2, 96, device="meta")
         stat = torch.empty(1, 2, 300, device="meta")
-        with pytest.raises(NotImplementedError, match="head_dim 64 or 128.*Queue 1 entry 2"):
+        q = torch.empty(1, 300, 2, 96, device="meta")
+        tfa.check_head_dim("flash_backward_dq", 96, backward=True)    # NeoX-20B's passes
+        with pytest.raises(ValueError, match="no kernel"):           # past the head_dim check
             tfa.flash_backward_dq(q, q, q, q, stat, stat, None, None, True, 96 ** -0.5)
+        q = torch.empty(1, 300, 2, 80, device="meta")
+        with pytest.raises(NotImplementedError,
+                           match="head_dim 64, 96, 128, 256, got 80.*Queue 2 part A"):
+            tfa.flash_backward_dq(q, q, q, q, stat, stat, None, None, True, 80 ** -0.5)

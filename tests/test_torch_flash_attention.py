@@ -282,20 +282,24 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
 def test_what_the_kernels_do_not_take_raises():
     """Shapes are checked before the device, so meta tensors reach the
     checks a CUDA tensor meets; a grouping that does not divide raises on
-    every device.  The forward takes head_dim 96 and 256 (served), dQ and
-    dKV do not (training at those widths is a ROADMAP entry)."""
+    every device.  All three kernels take head_dim 64, 96, 128 and 256;
+    another width raises naming Queue 2 part A in the forward, dQ and dKV."""
     for D in (48, 80, 512):
         q = torch.empty(1, 8, 4, D, device="meta")
+        stat = torch.empty(1, 4, 8, device="meta")
         with pytest.raises(NotImplementedError, match="head_dim 64, 96, 128, 256.*Queue 2 part A"):
             tfa.flash_forward(q, q, q, *NO_EXTRAS)
+        for fn in (tfa.flash_backward_dq, tfa.flash_backward_dkv):
+            with pytest.raises(NotImplementedError,
+                               match=f"head_dim 64, 96, 128, 256, got {D}.*Queue 2 part A"):
+                fn(q, q, q, q, stat, stat, None, None, True, D ** -0.5)
     for D in (96, 256):
         q = torch.empty(1, 8, 4, D, device="meta")
         stat = torch.empty(1, 4, 8, device="meta")
         with pytest.raises(ValueError, match="no kernel"):        # past the head_dim check
             tfa.flash_forward(q, q, q, *NO_EXTRAS)
         for fn in (tfa.flash_backward_dq, tfa.flash_backward_dkv):
-            with pytest.raises(NotImplementedError,
-                               match="head_dim 64 or 128.*Queue 1 entry 2.*96 and 256"):
+            with pytest.raises(ValueError, match="no kernel"):    # past it too
                 fn(q, q, q, q, stat, stat, None, None, True, D ** -0.5)
     q = torch.empty(1, 8, 4, 64, device="meta")
     kv = torch.empty(1, 8, 3, 64, device="meta")
@@ -505,8 +509,8 @@ def test_cuda_saved_lse_gives_the_plain_forwards_gradients(cuda_device, case, dt
 
 # --------------------------------------------------------------------------- #
 # on the card at head_dim 96 (GPT-NeoX-20B) and 256 (GPT-J): the forward
-# (Q from shared memory at 256; one K and V buffer in fp32 at 256); a
-# gradient at those widths raises, naming its ROADMAP entry
+# (Q from shared memory at 256; one K and V buffer in fp32 at 256); dQ and
+# dKV at those widths are held in tests/test_torch_wide_head_training.py
 # --------------------------------------------------------------------------- #
 SERVING_KERNEL_CASES = {
     # NeoX-20B's 64 heads and GPT-J's 16 at S 2048; a ragged S 200; GQA 4;
@@ -554,8 +558,19 @@ def test_cuda_forward_at_head_dims_96_256_matches_plain(cuda_device, case, dtype
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [96, 256])
 def test_cuda_gradients_at_head_dims_96_256_raise(cuda_device, D):
+    """A gradient at head_dim 96 and 256 runs the kernels now; the width
+    beside each that no kernel takes (80, 512) still raises naming Queue 2
+    part A, before any forward, and so does the forward alone."""
     q = torch.randn(1, 320, 4, D, device=cuda_device, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 entry 2"):
-        tattn.flash_attention(q, q, q)
-    with torch.no_grad():
-        assert tattn.flash_attention(q, q, q).shape == q.shape
+    tfa.reset_counts()
+    tattn.flash_attention(q, q, q).float().square().sum().backward()
+    assert q.grad.shape == q.shape and torch.isfinite(q.grad).all()
+    assert (tfa.flash_backward_dq.launches, tfa.flash_backward_dkv.launches) == (1, 1)
+    tfa.reset_counts()
+    other = torch.randn(1, 320, 4, {96: 80, 256: 512}[D], device=cuda_device,
+                        requires_grad=True)
+    with pytest.raises(NotImplementedError, match="Queue 2 part A"):
+        tattn.flash_attention(other, other, other)
+    assert tfa.flash_forward.launches == 0
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="Queue 2 part A"):
+        tattn.flash_attention(other, other, other)

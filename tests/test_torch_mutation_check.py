@@ -25,8 +25,8 @@ def test_every_redesigned_kernel_has_two_mutations():
     by_tests = {}
     for (_, tests), *_ in mc.MUTATIONS.values():
         by_tests[tests] = by_tests.get(tests, 0) + 1
-    assert set(by_tests) == {mc.DECODE[1], mc.FLASH[1], mc.CROSS_ENTROPY[1], mc.SPARSE[1],
-                             mc.ADAM[1]}
+    assert set(by_tests) == {mc.DECODE[1], mc.FLASH[1], mc.WIDE[1], mc.CROSS_ENTROPY[1],
+                             mc.SPARSE[1], mc.ADAM[1]}
     assert min(by_tests.values()) >= 2
     sources = {source for (source, _), *_ in mc.MUTATIONS.values()}
     assert {mc.SPARSE[0], mc.ADAM[0], mc.ADAM_PLAN[0]} <= sources

@@ -208,9 +208,10 @@ def test_torch_dtype_property():
 
 @pytest.mark.cuda
 def test_cuda_engine_refuses_shapes_the_kernel_lacks(models):
-    """The paged kernel is compiled for block_size 16 and head_dim 64 and
-    128: on CUDA the engine refuses any other (NeoX-20B's 96 here) at
-    construction, not at its first step, and takes 128 (LLaMA, BLOOM)."""
+    """The paged kernel is compiled for block_size 16 and head_dim 64, 96,
+    128 and 256: on CUDA the engine refuses any other (8 and 80 here) at
+    construction, not at its first step, and takes 96 (GPT-NeoX-20B) and
+    128 (LLaMA, BLOOM)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     _, _, port = models                            # head_dim 8
@@ -219,14 +220,16 @@ def test_cuda_engine_refuses_shapes_the_kernel_lacks(models):
     with pytest.raises(ValueError, match="head_dim"):
         dst.init_serving(model=port, config={"serving": serving}, device="cuda")
     small = dict(vocab_size=256, n_positions=96, n_layer=1, dtype="float32")
-    neox = tgpt.GPT(tgpt.GPTConfig(n_embd=192, n_head=2, **small), device="cuda")
+    d80 = tgpt.GPT(tgpt.GPTConfig(n_embd=160, n_head=2, **small), device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
-        dst.init_serving(model=neox, config={"serving": serving}, device="cuda")
+        dst.init_serving(model=d80, config={"serving": serving}, device="cuda")
+    neox = tgpt.GPT(tgpt.GPTConfig(n_embd=192, n_head=2, **small), device="cuda")
     llama = tgpt.GPT(tgpt.llama_config(n_embd=256, n_head=2, n_kv_head=1, **small),
                      device="cuda")
-    eng = dst.init_serving(model=llama, config={"serving": serving}, device="cuda")
-    out = eng.submit([1, 2, 3], max_new_tokens=4).result()
-    assert out == llama.generate([[1, 2, 3]], 4)[0, 3:].tolist()
+    for model in (neox, llama):
+        eng = dst.init_serving(model=model, config={"serving": serving}, device="cuda")
+        out = eng.submit([1, 2, 3], max_new_tokens=4).result()
+        assert out == model.generate([[1, 2, 3]], 4)[0, 3:].tolist()
 
 
 # --------------------------------------------------------------------------- #

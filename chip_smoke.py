@@ -182,8 +182,26 @@ Phases, each printing its own lines; any failure exits non-zero:
    trained as phase 15: bf16, micro 4 x seq 2048, graphed and eager,
    profiled by category;
 27. their fp32 kernel paths against their plain paths at 2 layers, as
-   phase 16 (FAMILY_PARITY, phase 8's limits).
-Each phase prints its seconds.
+   phase 16 (FAMILY_PARITY, phase 8's limits);
+28. ZeRO at world size 1 (a one-rank NCCL group, so every collective of a
+   stage runs): GPT-2 at phase 8's fp32 config, 3 graphed steps at each of
+   ZERO_CONFIGS (stages 0-3, stage 2 with ``offload_optimizer`` and stage 3
+   with both offloads, the offloaded state in 8 chunks), each held to phase
+   8's limits against stage 0 (and whether bit for bit), one capture each,
+   AdamW's launches a step printed, and one more replay's launch counters
+   held against the captured graph's kernel nodes and the trace;
+29. GPT-2 XL (BASELINE.md's north star) in bf16 at stage 3 with
+   ``offload_param`` and ``offload_optimizer`` (cpu), seq 512 micro 8:
+   graphed and eager steps, the bytes a step moves each way, the pinned
+   bandwidth (a 1 GiB copy each way), the step's floor (device time
+   outside the copies, and phase 11's stage-0 device time, plus the bytes
+   over that bandwidth), peak device memory and pinned host bytes beside
+   the memory model's plan, the loss finite and falling;
+30. Llama-3-8B's widths at stage 3 with both offloads, micro 4 x seq 2048
+   (phase 15's cell), at the deepest cut (at least 16 layers) whose 12
+   pinned bytes a parameter fit what MemAvailable leaves: phase 29's
+   readings and TFLOPs by bench.py's formula.
+Each phase prints its seconds, and the total is printed after phase 30.
 
 Phase 2 also prints the registers, spills, blocks per SM and shared
 memory of the kernels the tree redesigned last (the cross-entropy forward
@@ -204,7 +222,7 @@ must give bitwise-equal dQ, dK and dV, and
 the fixed split lengths of DKV_SPLITS are held to the same tolerances and
 timed beside the kept one at each bf16 case.
 
-Each run of phases 4-5, 7-27 (generate(), each serve, the timed
+Each run of phases 4-5, 7-30 (generate(), each serve, the timed
 graphed and eager training steps, each fp32 training run) zeroes the launch
 counters just before it and reads them just after: its kernels must have
 launched (a replay counts every launch of its graph; the capture counts
@@ -395,6 +413,48 @@ MOE_FP32_LAYERS, MOE_NO_DROP = 8, 128.0
 MOE_TRAIN = (2, 2, 6, 2, 4)
 MOE_TRAIN_PARAMS = 2_211_072_000
 MOE_PARITY_LAYERS = 2
+# phases 28-30: ZeRO and CPU offload at world size 1 (a one-rank NCCL
+# group, so every collective of the stage runs).  Phase 28: GPT-2 at phase
+# 8's fp32 config at the six configurations of tests/test_torch_zero.py,
+# the offloaded state in pieces of ZERO_PIECE elements (8 chunks of GPT-2's
+# 124 M), each held to phase 8's limits against stage 0
+OFFLOAD = {"device": "cpu"}
+ZERO_PIECE = 2 ** 24
+ZERO_CONFIGS = {
+    "stage0": {"stage": 0}, "stage1": {"stage": 1}, "stage2": {"stage": 2},
+    "stage3": {"stage": 3},
+    "stage2-offload-optimizer": {"stage": 2, "offload_optimizer": OFFLOAD,
+                                 "sub_group_size": ZERO_PIECE},
+    "stage3-offload-both": {"stage": 3, "offload_param": OFFLOAD, "offload_optimizer": OFFLOAD,
+                            "sub_group_size": ZERO_PIECE},
+}
+ZERO3_OFFLOAD = {"stage": 3, "offload_param": OFFLOAD, "offload_optimizer": OFFLOAD}
+# phase 29: GPT-2 XL (BASELINE.md's north star, GPT-2 1.5B at ZeRO-3 with
+# offload) at bench.py's config, seq 512, micro 8: warm-up, timed graphed and
+# eager steps, loss window (phase 11's gpt2-xl cut: lr 1e-4 on one batch
+# overshoots from its fourth step)
+ZERO_XL = (2, 3, 1, 3)
+# phase 30: Llama-3-8B's widths at stage 3 with both offloads, micro 4 x seq
+# 2048 (phase 15's cell): the deepest that the host holds (12 bytes a
+# parameter pinned: fp32 master and two moments), at least LLAMA_MIN_LAYERS;
+# warm-up, timed graphed and eager steps
+LLAMA_OFFLOAD = (2, 2, 1)
+LLAMA_MIN_LAYERS = 16
+# of MemAvailable, the part phase 30 leaves to the rest of the machine
+HOST_RESERVE_FRACTION, HOST_RESERVE_BYTES = 0.15, 4 << 30
+PINNED_PROBE_BYTES = 1 << 30
+# what a profiled step keeps in front of it inside the profiler's window.
+# The trace loses device records at a window's start, two ways, seen on the
+# H100: (1) it drops records it dates before the window, and its device
+# timestamps can sit a millisecond off the host's (an fp32 GPT-2 replay
+# lost 1-2 of its 12 flash forwards in 3 of 259 profiles, in none of 259
+# behind ~20 ms of synchronised sleep, TRACE_MARGIN_CYCLES); (2) late in a
+# long run (from phase 28 on) every window lost its first ~40 device
+# records, the sleep among them, and with them the step's first flash
+# forward.  So the window opens on TRACE_FILL_KERNELS empty sleeps, then
+# the margin; each end keeps the margin.  No sleep counts as a kernel
+TRACE_MARGIN_CYCLES = 40_000_000
+TRACE_FILL_KERNELS = 256
 # phase 12: graphed against eager steps (fp32), and the save / resume runs
 # (bf16: RESUME_STEPS steps, a save, RESUME_STEPS more)
 GRAPH_PARITY_STEPS, RESUME_STEPS = 3, 3
@@ -2027,6 +2087,11 @@ def adam_moe_case(device, flush, reps: int = 5, plain_reps: int = 2):
 # --------------------------------------------------------------------------- #
 # phases 7-8: training end to end
 # --------------------------------------------------------------------------- #
+def adam_launches(engine) -> int:
+    """AdamW launches a step: one, or one a chunk of the ZeRO optimizer."""
+    return len(getattr(engine.optimizer, "chunks", [None]))
+
+
 def train_engine(model, config, device):
     import deepspeed_tpu_torch as dst
     engine, _, _, _ = dst.initialize(model=model, config=config, device=device, seed=0)
@@ -2093,17 +2158,18 @@ def register_sparse_attention() -> None:
 
 
 def train_expect(attn_impl: str, seq: int, layers: int, steps: int, plain: bool = False,
-                 ce_launches: int = 1):
+                 ce_launches: int = 1, adam_launches: int = 1):
     """Exact launches of ``steps`` steps of one micro-step each (or, with
     ``plain``, calls of the plain versions): the attention kernels once per
     layer per step (the sparse forward twice: remat saves nothing of it),
     the cross-entropy kernels once per step (the backward's ``ce_launches``
-    each on the wide path: ``launches_per_call``), AdamW once."""
+    each on the wide path: ``launches_per_call``), AdamW ``adam_launches``
+    times (once, or once a chunk of offloaded state)."""
     from deepspeed_tpu_torch.ops.attention import XLA_FUSED_MAX_SEQ
     n = layers * steps
     bwd = steps * (1 if plain else ce_launches)
     want = {"ce_forward": steps, "ce_backward_dx": bwd, "ce_backward_dhead": bwd,
-            "fused_adam": steps}
+            "fused_adam": steps * adam_launches}
     if attn_impl == "block_sparse":
         want.update(block_sparse_forward=2 * n, block_sparse_backward_dq=n,
                     block_sparse_backward_dkv=n)
@@ -2165,7 +2231,9 @@ def profile_train_step(engine, batch, card: str, attn_impl: str = "auto",
     softmax, mask) -- with flash or the sparse kernels only what surrounds
     their op.  The step's launch counters are held against the kernels in
     the trace and, for a replay, against the captured graph's kernel nodes
-    (``graph_kernel_counts``, which needs no profiler).  None where the
+    (``graph_kernel_counts``, which needs no profiler); the step runs
+    behind ``TRACE_FILL_KERNELS`` empty sleeps and ``TRACE_MARGIN_CYCLES``
+    of sleep, and ends that margin before the window does.  None where the
     profiler recorded no device time (not measured)."""
     import torch
     from torch.autograd import DeviceType
@@ -2182,6 +2250,10 @@ def profile_train_step(engine, batch, card: str, attn_impl: str = "auto",
         torch.cuda.synchronize()
         before = read_counts()[0]
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(TRACE_FILL_KERNELS):
+                torch.cuda._sleep(1)
+            torch.cuda._sleep(TRACE_MARGIN_CYCLES)
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             if graphed:
                 engine.train_batch(batch=batch)
@@ -2189,6 +2261,8 @@ def profile_train_step(engine, batch, card: str, attn_impl: str = "auto",
                 eager_step(engine, batch)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
+            torch.cuda._sleep(TRACE_MARGIN_CYCLES)
+            torch.cuda.synchronize()
         counted_launches = {k: n - before[k] for k, n in read_counts()[0].items()}
     finally:
         tattn._REGISTRY[attn_impl] = inner
@@ -2204,9 +2278,10 @@ def profile_train_step(engine, batch, card: str, attn_impl: str = "auto",
     by_name = {}                     # device time and launches per kernel name
     for e in prof.key_averages():
         # the range opened above also appears on the device's timeline (a
-        # GPU user annotation spanning its kernels): not a kernel
+        # GPU user annotation spanning its kernels): not a kernel; nor are
+        # the margin's sleeps
         if (e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-                and e.key != "attention_call"):
+                and e.key != "attention_call" and "spin_kernel" not in e.key):
             t, n = by_name.get(e.key, (0.0, 0))
             by_name[e.key] = (t + e.self_device_time_total, n + e.count)
     device_total = sum(t for t, _ in by_name.values())
@@ -2223,10 +2298,14 @@ def profile_train_step(engine, batch, card: str, attn_impl: str = "auto",
         f"({json.dumps({k: n for k, n in traced.items() if n})})")
     n_kernels = sum(n for _, n in by_name.values())
     if not split:
+        copy_us = sum(t for name, (t, _) in by_name.items() if name.startswith("Memcpy"))
+        comm_us = sum(t for name, (t, _) in by_name.items() if "nccl" in name.lower())
         say(f"train profile ({path}): device busy {device_total / wall_us:.1%} of "
             f"{wall_us / 1e3:.3f} ms wall ({device_total / 1e3:.3f} ms device, {n_kernels} "
-            f"kernels) [{card}]")
-        return {"device_ms": device_total / 1e3, "wall_ms": wall_us / 1e3}
+            f"kernels; of it {copy_us / 1e3:.3f} ms host-device copies, {comm_us / 1e3:.3f} ms "
+            f"NCCL) [{card}]")
+        return {"device_ms": device_total / 1e3, "wall_ms": wall_us / 1e3,
+                "copy_ms": copy_us / 1e3, "comm_ms": comm_us / 1e3}
     attn_ops = ("attention_call", "BmmBackward", "SoftmaxBackward", "WhereBackward")
 
     def category(kernel: str) -> str:
@@ -2323,11 +2402,13 @@ def phase_train_bf16(device, card: str, seq: int = TRAIN_SEQ, timed: int = TRAIN
         model = GPT(cfg, device=device, seed=0)
     else:
         model = GPT(cfg, device=device, seed=0, param_dtype=torch.bfloat16)
+    n_params = sum(p.numel() for p in model.parameters())      # the tree's leaves
     engine = train_engine(model, config, device)
     engine.graphs.accelerator = KeptGraphs(engine.graphs.accelerator)
     batch = train_batch_of(cfg.vocab_size, device, seq, micro)
     ce_launches = kernel_modules()[1].launches_per_call(
         micro * seq, cfg.n_embd, cfg.padded_vocab, torch.bfloat16, bias=cfg.head_bias)
+    adam = adam_launches(engine)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     state_gib = torch.cuda.memory_allocated() / 2 ** 30
@@ -2339,7 +2420,8 @@ def phase_train_bf16(device, card: str, seq: int = TRAIN_SEQ, timed: int = TRAIN
     label = f"bf16 train {preset} seq {seq} {attn_impl}"
     (out, host_ms, step_ms), counts = counted(
         f"{label} graphed ({timed} steps)",
-        train_expect(attn_impl, seq, cfg.n_layer, timed, ce_launches=ce_launches),
+        train_expect(attn_impl, seq, cfg.n_layer, timed, ce_launches=ce_launches,
+                     adam_launches=adam),
         lambda: timed_steps(graphed_step, timed))
     losses += out
     mem = {"state_gib": state_gib,
@@ -2348,7 +2430,8 @@ def phase_train_bf16(device, card: str, seq: int = TRAIN_SEQ, timed: int = TRAIN
     torch.cuda.reset_peak_memory_stats()
     (out, e_host_ms, e_step_ms), e_counts = counted(
         f"{label} eager ({eager} steps)",
-        train_expect(attn_impl, seq, cfg.n_layer, eager, ce_launches=ce_launches),
+        train_expect(attn_impl, seq, cfg.n_layer, eager, ce_launches=ce_launches,
+                     adam_launches=adam),
         lambda: timed_steps(lambda: eager_step(engine, batch), eager))
     losses += out
     mem["eager_alloc_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2370,7 +2453,6 @@ def phase_train_bf16(device, card: str, seq: int = TRAIN_SEQ, timed: int = TRAIN
     say(f"{label}: losses {[round(v, 4) for v in vals]}")
     rates = {}
     fpt = flops_per_token or model.flops_per_token(seq)
-    n_params = sum(p.numel() for p in model.parameters())      # the tree's leaves
     for path, wall, host in (("graphed", step_ms, host_ms), ("eager", e_step_ms, e_host_ms)):
         med = statistics.median(wall)
         samples_s = micro / (med / 1e3)
@@ -3210,6 +3292,192 @@ def phase_inject(device, card: str):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phases 28-30: ZeRO stages and CPU offload
+# --------------------------------------------------------------------------- #
+def phase_zero_stages(device, card: str, steps: int = 3, seq: int = TRAIN_SEQ,
+                      micro: int = TRAIN_MICRO):
+    """Phase 28: GPT-2 at phase 8's fp32 config, ``steps`` graphed steps at
+    each of ZERO_CONFIGS, held to phase 8's limits against stage 0 (and
+    whether bit for bit).  Each run: one capture, its launch counters exact
+    (AdamW once a chunk of offloaded state), then one more replay whose
+    counters are held against the captured graph's kernel nodes and the
+    profiler's trace."""
+    import torch
+    from deepspeed_tpu_torch.models.gpt import GPT, gpt_config
+    _, tce, _, _, _ = kernel_modules()
+    cfg = gpt_config("gpt2", n_positions=seq, remat=True, dtype="float32")
+    base = {k: v for k, v in TRAIN_CFG.items() if k != "bf16"}
+    ce_launches = tce.launches_per_call(micro * seq, cfg.n_embd, cfg.padded_vocab,
+                                        torch.float32, bias=cfg.head_bias)
+    runs = {}
+    for name, zero in ZERO_CONFIGS.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = GPT(cfg, device=device, seed=0)
+        engine = train_engine(model, dict(base, zero_optimization=zero), device)
+        engine.graphs.accelerator = KeptGraphs(engine.graphs.accelerator)
+        batch = train_batch_of(cfg.vocab_size, device, seq, micro)
+        adam = adam_launches(engine)
+        label = f"fp32 train gpt2 seq {seq} {name}"
+        t0 = time.perf_counter()
+        losses, counts = counted(
+            f"{label} graphed ({steps} steps)",
+            train_expect("auto", seq, cfg.n_layer, steps, ce_launches=ce_launches,
+                         adam_launches=adam),
+            lambda: [float(engine.train_batch(batch=batch)) for _ in range(steps)])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        params = engine.get_fp32_params()
+        if engine.graphs.captures != 1:
+            fail(f"{label}: {engine.graphs.captures} captures for one batch signature")
+        prof = profile_train_step(engine, batch, card, graphed=True, split=False)
+        runs[name] = dict(losses=losses, params=params, counts=counts, adam=adam, secs=secs,
+                          world=engine.world_size, stage=engine.zero_optimization_stage(),
+                          pinned=engine.pinned_bytes(), profile=prof)
+        say(f"{label}: world size {engine.world_size}, stage {runs[name]['stage']}, AdamW "
+            f"launches a step {adam}, losses {losses}, {secs:.2f} s for {steps} steps (warm-up "
+            f"and capture included), pinned host bytes {runs[name]['pinned']:,} [{card}]")
+        engine.close()
+        del engine, model
+    ref = runs["stage0"]
+    for name, r in runs.items():
+        same = bitwise_equal(r["losses"], r["params"], ref["losses"], ref["params"])
+        loss_rel, worst, worst_key, rel_l2 = trajectory_diff(r["losses"], r["params"],
+                                                             ref["losses"], ref["params"])
+        r.update(bitwise=same, loss_rel=loss_rel, param_max=worst, param_rel_l2=rel_l2)
+        say(f"zero {name} vs stage 0 over {steps} steps: bitwise equal {same}; losses max rel "
+            f"diff {loss_rel:.3e} (tol {TRAIN_LOSS_RTOL:g}), params max abs diff {worst:.3e} "
+            f"in {worst_key} (tol {TRAIN_PARAM_ATOL:g}), relative L2 {rel_l2:.3e} (tol "
+            f"{TRAIN_PARAM_REL_L2:g})")
+        if not (loss_rel <= TRAIN_LOSS_RTOL and worst <= TRAIN_PARAM_ATOL
+                and rel_l2 <= TRAIN_PARAM_REL_L2):
+            fail(f"zero {name}: the trajectory differs from stage 0 past phase 8's limits")
+    for r in runs.values():
+        del r["params"]
+    return runs
+
+
+def mem_available() -> int:
+    """MemAvailable of /proc/meminfo, in bytes."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    fail("/proc/meminfo has no MemAvailable")
+
+
+def pinned_bandwidth(device, nbytes: int = PINNED_PROBE_BYTES, reps: int = 5):
+    """(host->device, device->host) bytes/s of one ``nbytes`` copy between
+    the device and host memory registered as the engine's offload holds it
+    (``FlatStore``), by CUDA events, median of ``reps``."""
+    import torch
+    from deepspeed_tpu_torch.runtime.zero.partition_parameters import FlatStore
+    n = nbytes // 4
+    host = FlatStore(n, device, host=True, piece=n)
+    dev = torch.empty(n, dtype=torch.float32, device=device)
+    try:
+        h2d = median_ms(lambda: dev.copy_(host.pieces[0], non_blocking=True), reps)
+        d2h = median_ms(lambda: host.pieces[0].copy_(dev, non_blocking=True), reps)
+    finally:
+        torch.cuda.synchronize()
+        host.close()
+    return nbytes / (h2d / 1e3), nbytes / (d2h / 1e3)
+
+
+def offload_traffic(engine):
+    """(host->device, device->host) bytes of one step of an offloaded ZeRO
+    engine, from its layout: each gather of a unit's fp32 partition (a
+    block twice a micro-step under remat: the forward and the recompute;
+    the other units once), and each chunk of staged optimizer state in and
+    out."""
+    z, opt = engine.zero, engine.optimizer
+    gas = engine.gradient_accumulation_steps()
+    remat = bool(getattr(getattr(engine.module, "cfg", None), "remat", False))
+    h2d = d2h = 0
+    if z.master is not None and z.master.host:
+        for u in z.layout.units:
+            h2d += 4 * u.part * gas * (2 if remat and u.name.startswith("blocks.") else 1)
+    for _, length, _ in opt.chunks:
+        h2d += 4 * length * len(opt.staged)
+        d2h += 4 * length * len(opt.staged)
+    return h2d, d2h
+
+
+def memory_model_plan(engine, n_layer: int):
+    """The memory model's numbers for an offloaded stage-3 engine at world
+    size 1: the JAX model's plain and layer-window peaks (bf16 compute, one
+    block prefetched; activations are not in it) and the host bytes
+    ``host_state_bytes`` gives."""
+    from deepspeed_tpu_torch.runtime import memory_model as mm
+    lay = engine.zero.layout
+    n = lay.numel
+    blk = sum(u.numel for u in lay.units if u.name.startswith("blocks."))
+    peaks = mm.analytic_step_peaks(n, 1, compute_itemsize=2, block_params=blk,
+                                   n_layer=n_layer, prefetch_depth=1, optimizer_tier="cpu")
+    return dict(params=n, plain_peak=peaks.plain_peak_bytes, window_peak=peaks.window_peak_bytes,
+                host=mm.host_state_bytes(n, 1, True, True))
+
+
+def phase_zero_offload(device, card: str, label: str, bandwidth, stage0_device_ms=None, **kw):
+    """Phases 29-30: ``phase_train_bf16`` (``kw``) at stage 3 with both
+    offloads, and the offload readings: bytes a step each way, the step's
+    floor (the step's device time outside host-device copies, and
+    ``stage0_device_ms`` where given, plus the bytes over the measured
+    pinned bandwidth), peak device memory and pinned host bytes beside the
+    memory model's plan."""
+    def readings(engine, batch):
+        h2d, d2h = offload_traffic(engine)
+        return dict(h2d=h2d, d2h=d2h, pinned=engine.pinned_bytes(),
+                    plan=memory_model_plan(engine, engine.module.cfg.n_layer),
+                    chunks=adam_launches(engine), stage=engine.zero_optimization_stage())
+    r = phase_train_bf16(device, card, profiled=False, after=readings, **kw)
+    a = r["after"]
+    copy_s = a["h2d"] / bandwidth[0] + a["d2h"] / bandwidth[1]
+    prof = r["profile"] or {}
+    compute_ms = prof["device_ms"] - prof["copy_ms"] if prof else float("nan")
+    a.update(copy_floor_ms=copy_s * 1e3, floor_ms=compute_ms + copy_s * 1e3,
+             compute_ms=compute_ms,
+             stage0_floor_ms=(stage0_device_ms + copy_s * 1e3) if stage0_device_ms else None)
+    gib = 2 ** 30
+    plan = a["plan"]
+    say(f"{label}: stage {a['stage']} with offload_param and offload_optimizer (cpu), "
+        f"{plan['params']:,} params; graphed step {r['step_ms']:.3f} ms (device "
+        f"{device_ms(r):.3f}, of it {prof.get('copy_ms', float('nan')):.3f} host-device copies), "
+        f"eager step {r['eager_step_ms']:.3f} ms; host->device {a['h2d'] / 1e9:.3f} GB and "
+        f"device->host {a['d2h'] / 1e9:.3f} GB a step ({a['chunks']} AdamW chunks); pinned "
+        f"bandwidth {bandwidth[0] / 1e9:.2f} GB/s up, {bandwidth[1] / 1e9:.2f} GB/s down; floor "
+        f"{a['floor_ms']:.3f} ms (device time outside copies {compute_ms:.3f} + copies at that "
+        f"bandwidth {a['copy_floor_ms']:.3f})"
+        + (f", {a['stage0_floor_ms']:.3f} ms from the stage-0 step's device time "
+           f"{stage0_device_ms:.3f}" if stage0_device_ms else "")
+        + f"; step / floor {r['step_ms'] / a['floor_ms']:.2f}; peak device memory graphed "
+        f"{r['memory']['graphed_alloc_gib']:.2f} GiB allocated / "
+        f"{r['memory']['graphed_reserved_gib']:.2f} reserved, eager "
+        f"{r['memory']['eager_alloc_gib']:.2f} allocated; the memory model's layer-window peak "
+        f"{plan['window_peak'] / gib:.2f} GiB (plain stage-3 {plan['plain_peak'] / gib:.2f}; "
+        f"no activations); pinned host {a['pinned'] / gib:.2f} GiB held, model "
+        f"{plan['host'] / gib:.2f} GiB; loss {r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}; "
+        f"{r['tflops']:.2f} TFLOPs [{card}]")
+    return r
+
+
+def llama_offload_depth(available: int):
+    """The deepest cut of Llama-3-8B's widths (at least LLAMA_MIN_LAYERS)
+    whose pinned host state (``host_state_bytes``) fits what MemAvailable
+    leaves after HOST_RESERVE_*: (layers, params, host bytes)."""
+    from deepspeed_tpu_torch.models.gpt import count_params, llama_config
+    from deepspeed_tpu_torch.runtime import memory_model as mm
+    _, kw, _ = FAMILY_CELLS["llama3-8b"]
+    room = (1 - HOST_RESERVE_FRACTION) * available - HOST_RESERVE_BYTES
+    for layers in range(kw["n_layer"], LLAMA_MIN_LAYERS - 1, -1):
+        n = count_params(llama_config(**dict(kw, n_layer=layers)))
+        host = mm.host_state_bytes(n, 1, True, True)
+        if host <= room:
+            return layers, n, host
+    fail(f"MemAvailable {available / 2 ** 30:.1f} GiB holds fewer than {LLAMA_MIN_LAYERS} "
+         f"layers of Llama-3-8B's offloaded state")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3231,6 +3499,7 @@ def main() -> int:
     from deepspeed_tpu_torch.ops.cuda import builder
 
     clock = [time.perf_counter()]
+    started = clock[0]
 
     def phase_done(label: str) -> None:
         now = time.perf_counter()
@@ -3661,6 +3930,69 @@ def main() -> int:
         f"{name} loss rel diff {r['loss_rel']:.3e}, params max abs diff {r['param_max']:.3e}, "
         f"relative L2 {r['param_rel_l2']:.3e}" for name, r in wide_parity.items()))
     phase_done("27")
+
+    # ---- 28. ZeRO stages 0-3 and offload at world size 1 -------------------------- #
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_runs = phase_zero_stages(device, card)
+    say("summary: ZeRO at world size 1 (NCCL), GPT-2 fp32 seq 512 micro 8, 3 graphed steps "
+        "against stage 0: " + "; ".join(
+            f"{n} bitwise {r['bitwise']}, loss rel {r['loss_rel']:.3e}, params max abs "
+            f"{r['param_max']:.3e}, AdamW launches a step {r['adam']}"
+            for n, r in zero_runs.items()) + f" [{card}]")
+    say("launches by run: " + json.dumps({f"gpt2 fp32 {n} graphed": r["counts"]
+                                          for n, r in zero_runs.items()}))
+    phase_done("28")
+
+    # ---- 29. GPT-2 XL at stage 3 with both offloads ------------------------------- #
+    gc.collect()
+    torch.cuda.empty_cache()
+    bandwidth = pinned_bandwidth(device)
+    warm, timed, eager, loss_steps = ZERO_XL
+    xl_offload = phase_zero_offload(
+        device, card, "gpt2-xl offload", bandwidth,
+        stage0_device_ms=device_ms(widths["gpt2-xl"]), preset="gpt2-xl",
+        config=dict(TRAIN_CFG, zero_optimization=ZERO3_OFFLOAD), warmup=warm, timed=timed,
+        eager=eager, loss_steps=loss_steps)
+    say(f"summary: gpt2-xl bf16 seq 512 micro 8 at ZeRO-3 with both offloads: graphed "
+        f"{xl_offload['step_ms']:.3f} ms/step, eager {xl_offload['eager_step_ms']:.3f}, floor "
+        f"{xl_offload['after']['floor_ms']:.3f}; phase 11's stage-0 graphed step "
+        f"{widths['gpt2-xl']['step_ms']:.3f} ms [{card}]")
+    say("launches by run: " + json.dumps({
+        f"gpt2-xl offload bf16 train {path}": xl_offload[key]
+        for path, key in (("graphed", "counts"), ("eager", "eager_counts"))}))
+    phase_done("29")
+
+    # ---- 30. Llama-3-8B's widths past 8 layers at stage 3 with both offloads ------- #
+    gc.collect()
+    torch.cuda.empty_cache()
+    available = mem_available()
+    layers, n_llama, host_llama = llama_offload_depth(available)
+    _, kw, _ = FAMILY_CELLS["llama3-8b"]
+    say(f"model: llama3-8b training at {layers} of {kw['n_layer']} layers at ZeRO-3 with both "
+        f"offloads: {n_llama:,} params; MemAvailable {available / 2 ** 30:.2f} GiB; the memory "
+        f"model's host state {host_llama / 2 ** 30:.2f} GiB pinned (12 bytes a parameter), "
+        f"{(1 - HOST_RESERVE_FRACTION):.0%} of MemAvailable less "
+        f"{HOST_RESERVE_BYTES / 2 ** 30:.0f} GiB allowed [{card}]")
+    warm, timed, eager = LLAMA_OFFLOAD
+    llama_offload = phase_zero_offload(
+        device, card, f"llama3-8b {layers} layers offload", bandwidth,
+        cfg=llama_config(**dict(kw, n_layer=layers), remat=True, dtype="bfloat16"),
+        preset="llama3-8b", seq=FAMILY_TRAIN_SEQ, micro=FAMILY_TRAIN_MICRO,
+        config=dict(FAMILY_TRAIN_CFG, zero_optimization=ZERO3_OFFLOAD), warmup=warm,
+        timed=timed, eager=eager)
+    say(f"summary: llama3-8b widths at {layers} layers, micro {FAMILY_TRAIN_MICRO} x seq "
+        f"{FAMILY_TRAIN_SEQ}, ZeRO-3 with both offloads: graphed "
+        f"{llama_offload['step_ms']:.3f} ms/step, eager {llama_offload['eager_step_ms']:.3f}, "
+        f"floor {llama_offload['after']['floor_ms']:.3f}, {llama_offload['tflops']:.2f} TFLOPs; "
+        f"phase 15's 8-layer stage-0 graphed step {family_train['llama3-8b']['step_ms']:.3f} "
+        f"ms [{card}]")
+    say("launches by run: " + json.dumps({
+        f"llama3-8b offload bf16 train {path}": llama_offload[key]
+        for path, key in (("graphed", "counts"), ("eager", "eager_counts"))}))
+    phase_done("30")
+
+    say(f"total: {time.perf_counter() - started:.1f} s (build and phases 1-30)")
 
     # ---- report ------------------------------------------------------------------ #
     # each kernel's row: its case at the shape and dtype of the latest

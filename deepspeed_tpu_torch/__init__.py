@@ -2,7 +2,8 @@
 
 Counterpart of ``deepspeed_tpu/__init__.py``.  Three entry points:
 training (``initialize`` -> ``DeepSpeedEngine.train_batch``, the GPT
-families, dense and mixture-of-experts, at ZeRO-0 on one device, with the
+families, dense and mixture-of-experts, at ZeRO stages 0-3 with CPU
+offload over ``torch.distributed``, one process a device, with the
 hand-written flash attention, cross-entropy and fused AdamW kernels),
 serving (``init_serving`` / ``ServingEngine`` over the paged KV arena, with
 the paged decode kernel) and inference (``init_inference`` /
@@ -24,7 +25,8 @@ from deepspeed_tpu_torch.version import __version__
 def initialize(model=None, config=None, model_parameters=None, lr_scheduler=None,
                device=None, seed: int = 42):
     """Build a training engine (``runtime/engine.py``) from a ds_config dict
-    or JSON path.  Returns ``(engine, optimizer, training_dataloader,
+    or JSON path; with ``WORLD_SIZE`` > 1, or at a ZeRO stage >= 1, it makes
+    the process group first (``comm.init_distributed``).  Returns ``(engine, optimizer, training_dataloader,
     lr_scheduler)`` as the JAX package does; the optimizer object stands
     where JAX returns its optax transformation, and the dataloader is None
     in this slice."""

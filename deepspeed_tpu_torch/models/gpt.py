@@ -607,7 +607,10 @@ def gpt_forward(cfg: GPTConfig, params: Dict, input_ids: torch.Tensor,
                torch.arange(S, device=input_ids.device)[None], dt)
 
     def body(p, x, block_noise):
-        return gpt_block(cfg, p, x, attention_fn, train, block_noise)
+        # a ZeRO-3 engine passes each block as a callable that gathers its
+        # leaves: called here, inside the checkpoint, it gathers again for
+        # the recompute
+        return gpt_block(cfg, p() if callable(p) else p, x, attention_fn, train, block_noise)
     aux_total = None
     for i, p in enumerate(params["blocks"]):
         n = _block_noise(cfg, rng, train, noise, i, input_ids.numel())

@@ -26,6 +26,9 @@ is::
   tensors are on the host; a finalizer thread commits, writes the
   manifest, promotes and moves ``latest``.  Its failure is raised at the
   next save, load or ``close``.
+* **ZeRO**: the engine gathers its partitions into whole leaves, so the
+  layout is stage 0's at every stage and world size; rank 0 writes it, and
+  each rank's load takes its own partitions from it.
 
 The JAX module's telemetry events, spans and fault-injection sites
 (``ckpt.pre_save`` and the rest) belong to ROADMAP.md, Queue 1 item 8, and
@@ -42,6 +45,7 @@ import shutil
 import threading
 from typing import Any, Dict, List, Optional
 
+from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.runtime.checkpoint_engine import get_checkpoint_engine
 from deepspeed_tpu_torch.runtime.checkpoint_engine.manifest import (atomic_write_json,
                                                                     atomic_write_text,
@@ -98,7 +102,14 @@ def wait_for_finalizer(engine, timeout: Optional[float] = None, raise_on_error: 
 # --------------------------------------------------------------------------- #
 def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
                     client_state: Optional[Dict] = None, save_latest: bool = True) -> bool:
+    """Every rank calls it (a ZeRO engine gathers its partitions); rank 0
+    writes, and the others wait for the commit (for an async save, for the
+    state to be on the host)."""
     wait_for_finalizer(engine)
+    tree = engine._checkpoint_state()
+    if comm.get_rank() != 0:
+        comm.barrier()
+        return True
     ft = engine._config.fault_tolerance_config
     tag = str(tag if tag is not None else f"global_step{engine.global_steps}")
     final_dir = os.path.join(save_dir, tag)
@@ -112,7 +123,6 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     os.makedirs(work_dir, exist_ok=True)
     ce = _ckpt_engine(engine)
     ce.create(tag)
-    tree = engine._checkpoint_state()
     _retry(ft, "save", lambda: ce.save(tree, os.path.join(work_dir, STATE)))
     del tree
 
@@ -125,7 +135,7 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
         "lr_scheduler": sched.state_dict() if sched is not None and hasattr(
             sched, "state_dict") else None,
         "zero_stage": engine.zero_optimization_stage(),
-        "world_size": 1,
+        "world_size": comm.get_world_size(),
         "mesh_shape": {},
     }
     atomic_write_json(os.path.join(work_dir, "client_state.json"), meta)
@@ -165,6 +175,7 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
         engine._ckpt_finalizer = t
     else:
         _finalize()
+    comm.barrier()
     return True
 
 

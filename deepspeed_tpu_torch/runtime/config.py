@@ -7,8 +7,9 @@ the batch arithmetic invariant
     train_batch_size = micro_batch_per_device * gradient_accumulation_steps * dp_world_size
 
 solved and validated as the JAX package (and the reference) do, with the
-same ``DeepSpeedConfigError`` on inconsistent or missing values.  The world
-size is 1 in the port so far.  The ``sparse_attention`` block is checked
+same ``DeepSpeedConfigError`` on inconsistent or missing values.  The
+engine passes the data-parallel world size (``WORLD_SIZE``, or the process
+group's).  The ``sparse_attention`` block is checked
 as the JAX package checks it (``ValueError`` if it is not a dict,
 ``NotImplementedError`` on an unknown mode) and kept as a dict.  The
 ``checkpoint`` block and the checkpoint fields of ``fault_tolerance`` are

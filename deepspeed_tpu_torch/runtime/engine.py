@@ -1,5 +1,6 @@
-"""The training engine, single device, ZeRO-0 (counterpart of the
-``DeepSpeedEngine`` of ``deepspeed_tpu/runtime/engine.py``).
+"""The training engine, ZeRO stages 0-3 with data parallelism and CPU
+offload (counterpart of the ``DeepSpeedEngine`` of
+``deepspeed_tpu/runtime/engine.py``).
 
 The step is the JAX engine's fused program (one XLA program per optimizer
 step over GAS micro-batches, ``deepspeed_tpu/runtime/engine.py:2610-2612``),
@@ -42,9 +43,38 @@ async save).  A load copies into the engine's own storage (parameters,
 moments, the optimizer count, the scaler) and never rebinds it, so the
 captured steps keep running on the restored state.
 
+Data parallelism and ZeRO (``runtime/zero/``, ``comm/``): one process a
+device, ``WORLD_SIZE`` of them, each with its ``micro`` rows of the global
+batch (``train_batch_size = micro * gas * world``).  The gradients are
+averaged over the ranks, as JAX's mean over the data axis gives:
+``inv`` carries ``1 / world`` as it carries ``1 / gas``, and the returned
+loss is the mean over the ranks.
+
+* stage 0: one bucketed all-reduce of the flat gradient (none at world
+  size 1, where no process group is made: the step is the one above);
+* stages 1-2: the model's leaves are views of one full fp32 buffer.  The
+  gradients are reduce-scattered into each rank's fp32 gradient shard, at
+  the boundary (stage 1) or after every micro-step (stage 2, so between
+  micro-steps they live only in the shard); each rank updates its
+  partitions, which are all-gathered back into the leaves;
+* stage 3: the model holds no weights; the fp32 master is partitioned, and
+  each block's leaves are gathered inside its checkpoint by
+  ``runtime/zero/partition_parameters.py``, whose backward reduce-scatters
+  their gradients into the shard.  ``offload_param: {device: cpu}`` keeps
+  the master in host memory (below stage 3 it changes nothing, as in JAX);
+* ``offload_optimizer: {device: cpu}`` (stage >= 1) keeps the moments in
+  host memory, streamed through the card in pieces (``ZeroAdam``);
+* the global norm is one all-reduce of the shards' squared sums (fp64 on
+  the CPU, as the stage-0 norm there).
+
+Any stage >= 1 makes a process group, a world of one when there is no
+``RANK`` / ``WORLD_SIZE``, and runs its collectives even there.  The fused
+AdamW kernel is the update on every path.
+
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-item: ZeRO stages 1-3 and offload (Queue 1 item 7), fp16 (item 5),
-preemption handling and the stability, telemetry, monitor, PLD,
+item: the NVMe tier, ZeRO++ (quantized weights and gradients, hpZ) and
+tensor, pipeline and sequence parallelism (Queue 1 items 7 and 9), fp16
+(item 5), preemption handling and the stability, telemetry, monitor, PLD,
 compression and data-pipeline blocks (items 8 and 9).  A
 ``sparse_attention`` block is accepted (the config checks it), as in the
 JAX engine: the model takes its layout through a registered
@@ -52,12 +82,14 @@ JAX engine: the model takes its layout through a registered
 """
 
 import dataclasses
+import logging
 import os
 from typing import Callable, Dict
 
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.accelerator.real_accelerator import get_accelerator, resolve_device
 from deepspeed_tpu_torch.models.gpt import GPTConfig
 from deepspeed_tpu_torch.ops.cuda.flash_attention import check_head_dim
@@ -65,12 +97,23 @@ from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing import c
 from deepspeed_tpu_torch.runtime.config import UNPORTED_BLOCKS, DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import unit_loss_scaler
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_schedule
-from deepspeed_tpu_torch.runtime.optimizers import get_optimizer
+from deepspeed_tpu_torch.runtime import constants as C
+from deepspeed_tpu_torch.runtime.optimizers import ZeroAdam, adam_spec, get_optimizer
 from deepspeed_tpu_torch.runtime.step_graph import StepGraphs
+from deepspeed_tpu_torch.runtime.zero.partition_parameters import (FlatStore,
+                                                                   PartitionedParameters,
+                                                                   init_ctx_active, named_tree)
+from deepspeed_tpu_torch.runtime.zero.policy import ZeroLayout, zero_min_size
 from deepspeed_tpu_torch.utils.logging import log_dist
 from deepspeed_tpu_torch.utils.timer import ThroughputTimer
 
-ZERO = "ROADMAP.md, Queue 1 item 7 (ZeRO-1/2/3 and offload)"
+NVME = "ROADMAP.md, Queue 1 item 7 (the NVMe tier)"
+ZERO_PP = "ROADMAP.md, Queue 1 item 7 (ZeRO++)"
+TENSOR_PARALLEL = "ROADMAP.md, Queue 1 item 7 (tensor parallelism)"
+MODEL_PARALLEL = "ROADMAP.md, Queue 1 item 9 (pipeline and sequence parallelism)"
+# the largest piece of host state streamed through the card at once: 512 MiB
+# of fp32, so three device buffers (master, mu, nu) take 1.5 GiB
+OFFLOAD_PIECE_MAX = 2 ** 27
 PRECISION = "ROADMAP.md, Queue 1 item 5 (fp16 loss scaling)"
 OPS_PLANES = "ROADMAP.md, Queue 1 items 8 and 9"
 COMPRESSION = "ROADMAP.md, Queue 1 item 9 (compression)"
@@ -82,6 +125,21 @@ def _map_tree(fn: Callable, tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_map_tree(fn, v) for v in tree)
     return fn(tree)
+
+
+def _tier(block) -> str:
+    """An offload block's device as a plain string (none / cpu / nvme)."""
+    if block is None:
+        return "none"
+    return str(getattr(block.device, "value", block.device))
+
+
+def offload_piece(sub_group_size: int) -> int:
+    """Elements of host state the optimizer streams at once: the largest
+    power of two within ``sub_group_size`` (the reference's optimizer
+    sub-group), at most ``OFFLOAD_PIECE_MAX``."""
+    n = max(1, min(int(sub_group_size), OFFLOAD_PIECE_MAX))
+    return 1 << (n.bit_length() - 1)
 
 
 def _leaves(tree):
@@ -102,12 +160,28 @@ class DeepSpeedEngine:
                  lr_scheduler=None, device=None, seed: int = 42):
         if model is None:
             raise ValueError("deepspeed_tpu_torch.initialize requires a model")
-        self._config = DeepSpeedConfig(config if config is not None else {})
+        self._config = DeepSpeedConfig(config if config is not None else {},
+                                       world_size=comm.env_world_size())
         self._reject_unported()
         self.device = resolve_device(device)
         self.accelerator = get_accelerator(self.device.type)
         self.module = model
         self.compute_dtype = self._config.precision_dtype
+        zc = self._config.zero_config
+        # inside zero.Init the parameters are partitioned as at stage 3
+        self._zero_stage = 3 if init_ctx_active() else int(zc.stage)
+        if self._config.world_size > 1 or self._zero_stage > 0:
+            comm.init_distributed(device=self.device)
+        self.world_size, self.rank = comm.get_world_size(), comm.get_rank()
+        self._offload_param = _tier(zc.offload_param) == "cpu" and self._zero_stage >= 3
+        self._offload_optimizer = _tier(zc.offload_optimizer) == "cpu" and self._zero_stage >= 1
+        self._piece = offload_piece(zc.sub_group_size)
+        for key, on, least in (("offload_param", self._offload_param, 3),
+                               ("offload_optimizer", self._offload_optimizer, 1)):
+            if _tier(getattr(zc, key)) == "cpu" and not on:
+                log_dist(f"{key} takes effect from ZeRO stage {least}: ignored at stage "
+                         f"{self._zero_stage}", ranks=[0], level=logging.WARNING)
+        self.zero = None
 
         # activation checkpointing: the block selects the remat policy and
         # turns on the model's per-block remat, as the JAX engine does
@@ -139,14 +213,17 @@ class DeepSpeedEngine:
         self.checkpoint_engine = None
         self._closed = False
         self.graphs = (StepGraphs(self.accelerator, self.device, self._static_dtype,
-                                  generators=[self.rng])
+                                  generators=[self.rng],
+                                  thread_local=comm.is_initialized())
                        if self.device.type == "cuda" else None)
         self.tput_timer = ThroughputTimer(
             batch_size=self.train_batch_size(),
             synchronize=lambda: self.accelerator.synchronize(self.device.index),
             steps_per_output=self._config.steps_per_print or 50)
-        log_dist(f"DeepSpeedEngine ready: device={self.device}, zero_stage=0, "
-                 f"dtype={self.compute_dtype}, "
+        log_dist(f"DeepSpeedEngine ready: device={self.device}, "
+                 f"zero_stage={self._zero_stage}, world_size={self.world_size}, "
+                 f"offload_param={self._offload_param}, "
+                 f"offload_optimizer={self._offload_optimizer}, dtype={self.compute_dtype}, "
                  f"micro_batch={self.train_micro_batch_size_per_gpu()}, "
                  f"gas={self.gradient_accumulation_steps()}", ranks=[0])
 
@@ -156,11 +233,22 @@ class DeepSpeedEngine:
     def _reject_unported(self):
         cfg = self._config
         zc = cfg.zero_config
-        if zc.stage > 0:
-            raise NotImplementedError(f"ZeRO stage {zc.stage} is not ported yet ({ZERO})")
-        for block in (zc.offload_param, zc.offload_optimizer):
-            if block is not None and str(block.device) not in ("none", "OffloadDeviceEnum.none"):
-                raise NotImplementedError(f"ZeRO offload is not ported yet ({ZERO})")
+        for key in ("offload_param", "offload_optimizer"):
+            if _tier(getattr(zc, key)) == "nvme":
+                raise NotImplementedError(f"{key} to nvme is not ported yet ({NVME})")
+        if (zc.zero_quantized_weights or zc.zero_quantized_gradients
+                or zc.zero_hpz_partition_size > 1):
+            raise NotImplementedError(f"ZeRO++ (zero_quantized_weights, "
+                                      f"zero_quantized_gradients, zero_hpz_partition_size) "
+                                      f"is not ported yet ({ZERO_PP})")
+        blocks = cfg.parallel_blocks
+        mesh = blocks[C.MESH]
+        if max(int(blocks[C.TENSOR_PARALLEL].get("tp_size", 1)), int(mesh.get("tensor", 1))) > 1:
+            raise NotImplementedError(f"tensor parallelism is not ported yet ({TENSOR_PARALLEL})")
+        if max(int(blocks[C.PIPELINE_PARALLEL].get("stages", 1)), int(mesh.get("pipe", 1)),
+               int(blocks[C.SEQUENCE_PARALLEL].get("sp_size", 1)), int(mesh.get("seq", 1))) > 1:
+            raise NotImplementedError(f"pipeline and sequence parallelism are not ported yet "
+                                      f"({MODEL_PARALLEL})")
         if cfg.fp16_config.enabled or cfg.amp_enabled:
             raise NotImplementedError(f"fp16 / amp training is not ported yet ({PRECISION})")
         flags = {"fault_tolerance": "preemption_enabled"}
@@ -191,16 +279,44 @@ class DeepSpeedEngine:
         self._names, leaves = map(list, zip(*model.named_parameters()))
         if [id(p) for p in leaves] != [id(p) for p in _leaves(self.params)]:
             raise ValueError("the model's named_parameters() and param_tree() disagree")
-        # one flat fp32 gradient buffer; its views are the .grad tensors, so
-        # autograd accumulates in place and the optimizer's pointers hold
         sizes = [p.numel() for p in leaves]
-        self._grad_flat = torch.zeros(sum(sizes), dtype=torch.float32, device=self.device)
-        self._grads = list(torch.split(self._grad_flat, sizes))
-        for p, g in zip(leaves, self._grads):
-            p.grad = g.view_as(p)
-        self._leaves = leaves
+        self._shapes = [tuple(p.shape) for p in leaves]
         self._num_params = sum(sizes)
+        if self._zero_stage == 0:
+            # one flat fp32 gradient buffer; its views are the .grad tensors,
+            # so autograd accumulates in place and the optimizer's pointers hold
+            self._grad_flat = torch.zeros(sum(sizes), dtype=torch.float32, device=self.device)
+            self._grads = list(torch.split(self._grad_flat, sizes))
+            for p, g in zip(leaves, self._grads):
+                p.grad = g.view_as(p)
+            self._leaves = leaves
+        else:
+            layout = ZeroLayout(self._names, sizes, self.world_size, self.rank,
+                                zero_min_size(self._config.zero_config))
+            self.zero = PartitionedParameters(self._names, leaves, self._zero_stage, layout,
+                                              self.device, self.compute_dtype,
+                                              offload_param=self._offload_param,
+                                              piece=self._piece)
+            del tree, leaves
+            if self._zero_stage >= 3:
+                self._grad_flat = None
+                self._place_stage3_placeholders()
+            else:
+                self._grad_flat = self.zero.grad_flat
+                model.set_params(named_tree(dict(zip(self._names, self.zero.model_leaves()))),
+                                 requires_grad=True)
+                own = dict(model.named_parameters())
+                for name, g in zip(self._names, self.zero.grad_views()):
+                    own[name].grad = g
+            self.params = model.param_tree()
+            log_dist(layout.describe(), ranks=[0])
         log_dist(f"model parameters: {self._num_params:,}", ranks=[0])
+
+    def _place_stage3_placeholders(self) -> None:
+        """Stage 3: the model holds empty leaves (its weights are the
+        partitions); ``GatheredParameters`` puts whole ones in for a while."""
+        self.module.set_params(named_tree({n: torch.empty(0, device=self.device)
+                                           for n in self._names}))
 
     def _configure_lr_scheduler(self, client_lr_scheduler):
         if self._config.scheduler_name is not None:
@@ -214,9 +330,44 @@ class DeepSpeedEngine:
 
     def _configure_optimizer(self):
         name = self._config.optimizer_name or "adam"
-        self.optimizer = get_optimizer(name, dict(self._config.optimizer_params),
-                                       self._leaves, [p.grad for p in self._leaves],
-                                       lr_schedule=self._schedule_fn, names=self._names)
+        if self.zero is None:
+            self.optimizer = get_optimizer(name, dict(self._config.optimizer_params),
+                                           self._leaves, [p.grad for p in self._leaves],
+                                           lr_schedule=self._schedule_fn, names=self._names)
+            return
+        spec = adam_spec(name, dict(self._config.optimizer_params), self._schedule_fn)
+        z = self.zero
+        n = z.layout.shard_numel
+        mu, nu = (FlatStore(n, self.device, host=self._offload_optimizer, piece=self._piece)
+                  for _ in range(2))
+        self.optimizer = ZeroAdam(spec, z.master_segments(), z.grad_shard, mu, nu,
+                                  master_store=z.master, gather_full=z.full_named,
+                                  scatter=z.shard_copies)
+        self._check_hbm_budget()
+
+    def _check_hbm_budget(self):
+        """The residency planner's gate (``runtime/offload/``): with a budget
+        (``hbm_budget_bytes`` or ``DST_HBM_BUDGET_BYTES``), refuse a step
+        whose plain stage-3 peak, and with offload its layer-window peak,
+        does not fit it (``HBMBudgetError``), as the JAX engine does."""
+        from deepspeed_tpu_torch.runtime import offload
+        zc = self._config.zero_config
+        budget = (int(os.environ.get("DST_HBM_BUDGET_BYTES", "0") or 0)
+                  or int(zc.hbm_budget_bytes or 0))
+        if budget <= 0:
+            return
+        shapes = named_tree({n: torch.empty(s, device="meta")
+                             for n, s in zip(self._names, self._shapes)})
+        p_dev, o_dev = _tier(zc.offload_param), _tier(zc.offload_optimizer)
+        plan = offload.plan_residency(
+            shapes, None, budget_bytes=budget, world=self.world_size,
+            compute_itemsize=torch.empty((), dtype=self.compute_dtype).element_size(),
+            prefetch_depth=int(zc.prefetch_depth),
+            params_tier="hbm" if p_dev == "none" else p_dev,
+            optimizer_tier="hbm" if o_dev == "none" else o_dev)
+        self._residency_plan = plan
+        offload.check_budget(plan, offload_enabled=(p_dev != "none"))
+        log_dist(plan.describe(), ranks=[0])
 
     # ------------------------------------------------------------------ #
     # Training API
@@ -242,8 +393,11 @@ class DeepSpeedEngine:
         return t.to(self.device, self._static_dtype(t.dtype))
 
     def _loss(self, batch, train: bool = True) -> torch.Tensor:
-        cast = _map_tree(lambda p: p.to(self.compute_dtype), self.params)
-        return self.module(cast, batch, self.rng if train else None, train).float()
+        if self._zero_stage >= 3:
+            tree = self.zero.compute_tree()      # gathered in the compute dtype
+        else:
+            tree = _map_tree(lambda p: p.to(self.compute_dtype), self.params)
+        return self.module(tree, batch, self.rng if train else None, train).float()
 
     def forward(self, *inputs):
         """The loss of one micro-batch; in train mode the autograd graph is
@@ -263,11 +417,33 @@ class DeepSpeedEngine:
         if not self._in_training_mode:
             raise RuntimeError("backward called in eval mode")
         if not self._grads_pending:
-            self._grad_flat.zero_()
+            self._zero_grads()
             self._grads_pending = True
+        elif self._zero_stage == 2:
+            self._grad_flat.zero_()
         (loss.float() * self.scaler.scale).backward()
         self.micro_steps += 1
+        self._reduce_gradients(self.is_gradient_accumulation_boundary())
         return loss
+
+    def _zero_grads(self) -> None:
+        if self._grad_flat is not None:
+            self._grad_flat.zero_()
+        if self.zero is not None:
+            self.zero.grad_shard.zero_()
+
+    def _reduce_gradients(self, boundary: bool) -> None:
+        """After a micro-step's backward: stage 2 reduce-scatters its
+        gradients into the shard, stage 1 the step's at the boundary, stage
+        0 all-reduces them at the boundary (world size > 1); stage 3's
+        backward has reduce-scattered them already."""
+        if self._zero_stage == 0:
+            if boundary and self.world_size > 1:
+                bucket = max(1, int(self._config.zero_config.reduce_bucket_size))
+                for start in range(0, self._grad_flat.numel(), bucket):
+                    comm.all_reduce(self._grad_flat[start:start + bucket])
+        elif self._zero_stage == 2 or (self._zero_stage == 1 and boundary):
+            self.zero.reduce_grads()
 
     def is_gradient_accumulation_boundary(self) -> bool:
         return self.micro_steps % self.gradient_accumulation_steps() == 0
@@ -311,24 +487,35 @@ class DeepSpeedEngine:
         the flat gradients, the GAS forward and backward micro-steps over
         ``[gas, ...]`` leaves (or lists of GAS micro-batch tensors), the
         update.  Touches no host counter.  Returns (mean loss, grad norm)."""
-        self._grad_flat.zero_()
+        self._zero_grads()
         gas = self.gradient_accumulation_steps()
         loss_sum = None
         for i in range(gas):
+            if i and self._zero_stage == 2:
+                self._grad_flat.zero_()
             loss = self._loss(tuple(x[i] for x in leaves))
             (loss * self.scaler.scale).backward()
+            self._reduce_gradients(i == gas - 1)
             loss = loss.detach()
             loss_sum = loss if loss_sum is None else loss_sum + loss
-        return loss_sum / gas, self._apply_updates()
+        loss = loss_sum / gas
+        if self.world_size > 1:
+            loss = comm.all_reduce(loss) / self.world_size
+        return loss, self._apply_updates()
 
     def _apply_updates(self) -> torch.Tensor:
-        """Unscale, global norm, clip factor, one fused AdamW launch; the
-        global norm.  ``inv`` is computed on the device from the scaler's
-        scale tensor, which a captured step reads at every replay: bf16 and
-        fp32 hold it at 1; fp16 (ROADMAP.md, Queue 1 item 5) must update
-        that tensor in place."""
-        inv = 1.0 / (self.scaler.scale * float(self.gradient_accumulation_steps()))
-        if self._grad_flat.is_cuda:
+        """Unscale (``1 / (scale * gas * world)``), global norm, clip factor,
+        the fused AdamW update (one launch, or one a chunk of offloaded
+        state), and at stages 1-2 the all-gather of the updated partitions;
+        returns the global norm.  ``inv`` is computed on the device from the
+        scaler's scale tensor, which a captured step reads at every replay:
+        bf16 and fp32 hold it at 1; fp16 (ROADMAP.md, Queue 1 item 5) must
+        update that tensor in place."""
+        inv = 1.0 / (self.scaler.scale
+                     * float(self.gradient_accumulation_steps() * self.world_size))
+        if self.zero is not None:
+            grad_norm = self.zero.sq_norm().sqrt().float() * inv
+        elif self._grad_flat.is_cuda:
             grad_norm = torch.linalg.vector_norm(self._grad_flat) * inv
         else:
             # the CPU reduction sums fp32 squares in sequence, which over a
@@ -341,6 +528,8 @@ class DeepSpeedEngine:
         else:
             factor = torch.ones_like(grad_norm)
         self.optimizer.step(inv, factor)
+        if self.zero is not None and self._zero_stage < 3:
+            self.zero.gather_params()
         return grad_norm
 
     def _advance_step_counters(self):
@@ -366,6 +555,13 @@ class DeepSpeedEngine:
 
     def zero_optimization_stage(self):
         return self._config.zero_config.stage
+
+    def pinned_bytes(self) -> int:
+        """Host bytes this engine's offload holds pinned (master and moments)."""
+        n = self.zero.pinned_bytes() if self.zero is not None else 0
+        if isinstance(self.optimizer, ZeroAdam):
+            n += self.optimizer.mu.pinned_bytes() + self.optimizer.nu.pinned_bytes()
+        return n
 
     def get_lr(self):
         if self._schedule_fn is not None:
@@ -405,28 +601,42 @@ class DeepSpeedEngine:
 
     def _checkpoint_state(self) -> Dict:
         """The tree a checkpoint holds: fp32 master params by name, the
-        optimizer's mu, nu and count, and the scaler."""
-        return {"params": dict(zip(self._names, self._leaves)),
-                "opt_state": self.optimizer.state_dict(),
+        optimizer's mu, nu and count, and the scaler.  A ZeRO engine
+        gathers its partitions into whole leaves (every rank calls this), so
+        a checkpoint has one layout at every stage and world size."""
+        params = (dict(zip(self._names, self._leaves)) if self.zero is None
+                  else self.zero.full_named(None))
+        return {"params": params, "opt_state": self.optimizer.state_dict(),
                 "scaler": self.scaler._asdict()}
+
+    def _check_named(self, named: Dict, what: str) -> None:
+        """Raise unless ``named`` has this model's leaf names and shapes."""
+        if set(named) != set(self._names):
+            raise ValueError(f"{what} {sorted(set(named) ^ set(self._names))[:5]} "
+                             "do not match the model's")
+        for name, shape in zip(self._names, self._shapes):
+            got = tuple(torch.as_tensor(named[name]).shape)
+            if got != shape:
+                raise ValueError(f"{what} {name}: shape {got}, expected {shape}")
+
+    def _param_copies(self, params: Dict) -> list:
+        """``(own tensor, value)`` pairs writing whole fp32 leaves by name
+        into this engine's parameters (a ZeRO engine's partitions)."""
+        self._check_named(params, "checkpoint params")
+        if self.zero is not None:
+            return self.zero.shard_copies(params, None)
+        return [(p, torch.as_tensor(params[n])) for n, p in zip(self._names, self._leaves)]
 
     def _checkpoint_copies(self, tree: Dict, load_optimizer_states: bool = True):
         """``(own tensor, saved value)`` for every tensor a load writes: the
         params, the optimizer state and the scaler, each name and shape
         checked against this engine before the first copy, so that a tree
         that does not fit raises and changes nothing."""
-        params = tree["params"]
-        if set(params) != set(self._names):
-            raise ValueError(f"checkpoint params {sorted(set(params) ^ set(self._names))[:5]} "
-                             "do not match the model's")
-        copies = []
-        for name, p in zip(self._names, self._leaves):
-            src = torch.as_tensor(params[name])
-            if src.shape != p.shape:
-                raise ValueError(f"checkpoint param {name}: shape {tuple(src.shape)}, "
-                                 f"expected {tuple(p.shape)}")
-            copies.append((p, src))
+        copies = self._param_copies(tree["params"])
         if load_optimizer_states:
+            if self.zero is not None:
+                for key in ("mu", "nu"):
+                    self._check_named(tree["opt_state"][key], f"optimizer state {key}")
             copies += self.optimizer.state_copies(tree["opt_state"])
         for field, dst in self.scaler._asdict().items():
             src = torch.as_tensor(tree["scaler"][field])
@@ -445,16 +655,21 @@ class DeepSpeedEngine:
             dst.copy_(src)
 
     def get_fp32_params(self) -> Dict[str, torch.Tensor]:
-        """The fp32 master parameters by name, as host copies."""
+        """The fp32 master parameters by name, as host copies (a ZeRO engine
+        gathers them: every rank calls this)."""
+        if self.zero is not None:
+            return self.zero.full_named(None)
         return {n: p.detach().to("cpu", copy=True) for n, p in zip(self._names, self._leaves)}
 
     def save_16bit_model(self, save_dir, save_filename="model.safetensors"):
         """An ``.npz`` of fp16 leaves ``p0``, ``p1``, ... in parameter
         order, as the JAX engine writes it; returns its path."""
-        os.makedirs(save_dir, exist_ok=True)
+        params = self.get_fp32_params()
         path = os.path.join(save_dir, "model_16bit.npz")
-        np.savez(path, **{f"p{i}": t.to(torch.float16).numpy()
-                          for i, t in enumerate(self.get_fp32_params().values())})
+        if self.rank == 0:
+            os.makedirs(save_dir, exist_ok=True)
+            np.savez(path, **{f"p{i}": t.to(torch.float16).numpy()
+                              for i, t in enumerate(params.values())})
         return path
 
     def close(self):
@@ -478,3 +693,9 @@ class DeepSpeedEngine:
             if self._grad_norm is not None:
                 self._grad_norm = self._grad_norm.clone()
             self.graphs.clear()
+        if self.zero is not None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.zero.close()
+            self.optimizer.mu.close()
+            self.optimizer.nu.close()

@@ -3,8 +3,10 @@
 The JAX package builds an optax chain per optimizer name; the port's one
 optimizer is decay-after Adam, stepped by the fused multi-tensor kernel of
 ``ops/cuda/fused_optim.py``: ``Adam``, ``AdamW``, ``FusedAdam`` and
-``CPUAdam`` with ``adam_w_mode`` (the default).  Every other name raises,
-and nothing falls back to ``torch.optim``.
+``CPUAdam`` with ``adam_w_mode`` (the default).  ``FusedAdam`` updates a
+list of whole leaves (ZeRO stage 0), ``ZeroAdam`` a rank's ZeRO shard, on
+the device or streamed through it from host memory.  Every other name
+raises, and nothing falls back to ``torch.optim``.
 """
 
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -96,12 +98,91 @@ class FusedAdam:
             dst.copy_(src)
 
 
-def get_optimizer(name: str, params: Dict[str, Any], leaves: List[torch.Tensor],
-                  grads: List[torch.Tensor], lr_schedule: Optional[Callable] = None,
-                  names: Optional[List[str]] = None) -> FusedAdam:
-    """The optimizer of a ds_config ``optimizer`` block over ``leaves``
-    (named ``names`` in its state dict); ``lr_schedule`` (a function of the
-    device step count) overrides the static ``lr``."""
+class ZeroAdam:
+    """Decay-after Adam over one rank's ZeRO shard (``runtime/zero/``): the
+    same fused kernel over the slices of the flat master, gradient and
+    moment buffers that the rank owns, the padding left out.
+
+    ``segments`` are ``(shard offset, length, master view or None)``: a view
+    where the master lives on the device, None where it lives in
+    ``master_store`` on the host (stage 3 with ``offload_param``).  The
+    moments live in ``mu`` and ``nu`` (``FlatStore``\\ s, on the host with
+    ``offload_optimizer``).  With every state on the device a step is one
+    launch.  Otherwise the shard is walked in the host stores' pieces: each
+    chunk's host state is copied into device buffers, updated by one launch
+    over the chunk's slices and copied back, all on the caller's stream (a
+    captured step holds the copies).  The clip factor and ``inv`` come in
+    once for the whole shard, so a chunked step gives what one launch
+    gives, bit for bit."""
+
+    def __init__(self, spec: Dict[str, Any], segments, grad: torch.Tensor, mu, nu,
+                 master_store=None, gather_full=None, scatter=None):
+        self.spec = spec
+        self.device = grad.device
+        self.mu, self.nu, self.master_store = mu, nu, master_store
+        self.count = torch.zeros((), dtype=torch.int32, device=self.device)
+        self._gather_full, self._scatter = gather_full, scatter
+        staged = [s for s in (master_store if any(v is None for _, _, v in segments) else None,
+                              mu, nu) if s is not None and s.host]
+        n = grad.numel()
+        piece = staged[0].piece if staged else max(1, n)
+        self.buffers = {id(s): torch.empty(min(piece, n), dtype=torch.float32,
+                                           device=self.device) for s in staged}
+        self.staged = staged
+        self.chunks = []          # (piece index, length, AdamTable)
+        for c0 in range(0, n, piece):
+            c1 = min(n, c0 + piece)
+            leaves = ([], [], [], [])
+            for a, length, view in segments:
+                lo, hi = max(a, c0), min(a + length, c1)
+                if lo >= hi:
+                    continue
+                p = (view[lo - a:hi - a] if view is not None
+                     else self.buffers[id(master_store)][lo - c0:hi - c0])
+                for dst, t in zip(leaves, (p, grad[lo:hi],
+                                           self._slice(mu, lo, hi, c0),
+                                           self._slice(nu, lo, hi, c0))):
+                    dst.append(t)
+            if leaves[0]:
+                self.chunks.append((c0 // piece, c1 - c0, AdamTable(*leaves)))
+
+    def _slice(self, store, lo: int, hi: int, c0: int) -> torch.Tensor:
+        if store.host:
+            return self.buffers[id(store)][lo - c0:hi - c0]
+        return store.flat()[lo:hi]
+
+    def step(self, inv: torch.Tensor, clip_factor: torch.Tensor) -> None:
+        neg_lr, bc1, bc2 = step_scalars(self.spec, self.count)
+        scal = torch.stack([inv, clip_factor, neg_lr, bc1, bc2]).to(torch.float32)
+        kw = dict(b1=self.spec["b1"], b2=self.spec["b2"], eps=self.spec["eps"],
+                  wd=self.spec["wd"])
+        for k, length, table in self.chunks:
+            for s in self.staged:
+                self.buffers[id(s)][:length].copy_(s.pieces[k], non_blocking=True)
+            fused_adam(table, scal, **kw)
+            for s in self.staged:
+                s.pieces[k].copy_(self.buffers[id(s)][:length], non_blocking=True)
+        self.count.copy_(safe_int32_increment(self.count))
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The whole moments by name (every rank calls it: it gathers)."""
+        return {"mu": self._gather_full(self.mu), "nu": self._gather_full(self.nu),
+                "count": self.count}
+
+    def state_copies(self, sd: Dict[str, Any]) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """``(own view, value)`` writing whole saved moments into this rank's
+        shards; the caller has checked their names and shapes."""
+        count = torch.as_tensor(sd["count"])
+        if count.numel() != 1:
+            raise ValueError(f"optimizer count: shape {tuple(count.shape)}, expected ()")
+        return (self._scatter(sd["mu"], self.mu) + self._scatter(sd["nu"], self.nu)
+                + [(self.count, count.reshape(()))])
+
+
+def adam_spec(name: str, params: Dict[str, Any], lr_schedule: Optional[Callable] = None
+              ) -> Dict[str, Any]:
+    """The fused kernel's spec for a ds_config ``optimizer`` block, or the
+    ``NotImplementedError`` / ``ValueError`` of an optimizer it is not."""
     name = name.lower()
     if name in ADAM_FAMILY:
         lr = lr_schedule if lr_schedule is not None else params.get("lr", 1e-3)
@@ -110,7 +191,16 @@ def get_optimizer(name: str, params: Dict[str, Any], leaves: List[torch.Tensor],
             raise NotImplementedError(
                 f"{name} with adam_w_mode=false and weight_decay (L2 mode) is not ported "
                 f"yet ({UNPORTED})")
-        return FusedAdam(leaves, grads, spec, names)
+        return spec
     if name in DS_NATIVE_OPTIMIZERS:
         raise NotImplementedError(f"optimizer {name!r} is not ported yet ({UNPORTED})")
     raise ValueError(f"Unknown optimizer type: {name!r} (valid: {DS_NATIVE_OPTIMIZERS})")
+
+
+def get_optimizer(name: str, params: Dict[str, Any], leaves: List[torch.Tensor],
+                  grads: List[torch.Tensor], lr_schedule: Optional[Callable] = None,
+                  names: Optional[List[str]] = None) -> FusedAdam:
+    """The optimizer of a ds_config ``optimizer`` block over ``leaves``
+    (named ``names`` in its state dict); ``lr_schedule`` (a function of the
+    device step count) overrides the static ``lr``."""
+    return FusedAdam(leaves, grads, adam_spec(name, params, lr_schedule), names)

@@ -35,6 +35,11 @@ replay of a graph captured through the accelerator's ``create_graph`` /
 * The generators the step draws from (the engine's, for MoE gating
   noise) are registered with each capture, so every replay draws fresh
   numbers, the ones an eager step at that point would draw.
+* A ZeRO step's collectives (NCCL) and host copies (registered host
+  memory) are captured as nodes like the kernels: the warm-up has made the
+  communicator and run every collective once before the capture.  With a
+  process group the capture is ``thread_local``: the NCCL watchdog thread
+  may query its events while this thread captures.
 * A capture that fails raises with its cause.  Nothing falls back to the
   eager step.
 
@@ -121,11 +126,12 @@ class StepGraphs:
     """The captured steps of one engine, by batch signature.  ``dtype_of``
     maps a source dtype to its static buffer's (the engine's cast of
     floating leaves to the compute dtype); ``generators`` are registered
-    with every capture."""
+    with every capture; ``thread_local`` captures in that error mode."""
 
     def __init__(self, accelerator, device: torch.device,
                  dtype_of: Callable[[torch.dtype], torch.dtype] = lambda dt: dt,
-                 generators: Sequence[torch.Generator] = ()):
+                 generators: Sequence[torch.Generator] = (), thread_local: bool = False):
+        self.capture_kwargs = {"capture_error_mode": "thread_local"} if thread_local else {}
         self.accelerator = accelerator
         self.device = device
         self.dtype_of = dtype_of
@@ -177,7 +183,8 @@ class StepGraphs:
         for gen in self.generators:
             graph.register_generator_state(gen)
         try:
-            with capture.holding() as held, accel.capture_to_graph(graph, stream=stream):
+            with capture.holding() as held, accel.capture_to_graph(graph, stream=stream,
+                                                                   **self.capture_kwargs):
                 static_out = body(inputs)
         except Exception as e:
             raise RuntimeError(f"capturing the train step for batch signature {sig} failed: "

@@ -3,8 +3,8 @@
 The same JSON surface and pydantic model: stage 0-3, bucket sizes,
 offload blocks, the ``stage3_*`` aliases and the ZeRO++ keys all parse, so
 a config written for the JAX package parses here unchanged.  The engine
-runs stage 0; it raises for stages 1-3 and offload (ROADMAP.md, Queue 1
-item 7).
+runs stages 0-3 and offload to the CPU; it raises for the NVMe tier and
+ZeRO++ (ROADMAP.md, Queue 1 item 7).
 """
 
 from enum import Enum

@@ -200,8 +200,43 @@ Phases, each printing its own lines; any failure exits non-zero:
 30. Llama-3-8B's widths at stage 3 with both offloads, micro 4 x seq 2048
    (phase 15's cell), at the deepest cut (at least 16 layers) whose 12
    pinned bytes a parameter fit what MemAvailable leaves: phase 29's
-   readings and TFLOPs by bench.py's formula.
-Each phase prints its seconds, and the total is printed after phase 30.
+   readings and TFLOPs by bench.py's formula;
+31. tiered KV: Llama-3-8B at all 32 layers in bf16 through ``init_serving``
+   (seeded weights; KV 128 KiB a token, 2 MiB a 16-token block), 12
+   requests of 300-700 prompt tokens and 64 new in three waves of rising
+   SLO class (TIERED_WAVES), served in a roomy arena, then in 192 blocks
+   with ``kv_tiering`` (host cache 256 MiB, disk tier under $TMPDIR or the
+   checkout, whichever has more room) and without it: every restaged
+   block equal byte for byte to what was spilled (``RestageCheck``, apart
+   from the tiering code), at least one restage from the disk tier,
+   spills, restages by source, the copies' bytes and GB/s each way (and
+   the same spills through ``index_select`` and ``.cpu()`` into pageable
+   memory, ``RestageCheck``'s own gathers), the median restage wait, each
+   run's wall time and prefill tokens (what tiering saved against
+   recompute), tokens against the roomy run with near-ties counted as in
+   phase 4 at twice the bf16 paths' own logit distance (a prefill row
+   against a decode step at one position, the two paths a resumed request
+   and an uninterrupted one take), the tokens each comparison reached (a
+   request is compared up to its first divergence), and the spread of the
+   roomy run's top-two logit gaps against that bound;
+32. bounded dispatch on the same cell: ``serve_step_timeout_s`` 8 times the
+   tiered run's median step (at least 0.5 s) and a wedge of ``serve.step``
+   at its 60th hit: exactly one incident, every request finished with all
+   its tokens, ``last_recovery_s``, tokens against the run without the
+   fault; then a raise at the first ``serve.restage``: that request
+   recomputes, the others restage;
+33. sampled ``generate()`` at Llama-3-8B's widths, fp32 at 2 layers (TF32
+   off): the kernel path and the plain path fed the same Gumbel noise draw
+   the same tokens; through ``init_inference``, one ``seed`` twice gives the
+   same tokens and two seeds differ;
+34. phases 31-32's traffic, arena and schedule at fp32 (TF32 off) at 4
+   layers of Llama-3-8B's widths, the host cache scaled with the block
+   (64 MiB): a roomy run, a tiered one (restages held byte for byte), a
+   recomputing one and a wedged one with bounded dispatch, each held
+   token for token to the roomy run with phase 4's 1e-4 near-tie bound,
+   so that every request of the recovered and the tiered runs is
+   compared to its end, and the roomy run's top-two gap spread.
+Each phase prints its seconds, and the total is printed after phase 34.
 
 Phase 2 also prints the registers, spills, blocks per SM and shared
 memory of the kernels the tree redesigned last (the cross-entropy forward
@@ -222,7 +257,7 @@ must give bitwise-equal dQ, dK and dV, and
 the fixed split lengths of DKV_SPLITS are held to the same tolerances and
 timed beside the kept one at each bf16 case.
 
-Each run of phases 4-5, 7-30 (generate(), each serve, the timed
+Each run of phases 4-5, 7-34 (generate(), each serve, the timed
 graphed and eager training steps, each fp32 training run) zeroes the launch
 counters just before it and reads them just after: its kernels must have
 launched (a replay counts every launch of its graph; the capture counts
@@ -233,8 +268,9 @@ nothing of it, as in JAX, and its dQ and dKV once; the cross-entropy
 kernels once per micro-step; AdamW once per step), no other kernel, and
 the plain versions never (the fp32 phases' plain runs excepted).
 The kernel table reports each kernel's case at the shape of the latest
-slice's run that launches it and that run's count (the decode kernels
-phases 23-24's, the flash kernels phases 25-26's (GPT-J-6B's), the
+slice's run that launches it and that run's count (the paged kernel
+phase 31's tiered serve, the contiguous one phase 24's, the flash kernels
+phases 25-26's (GPT-J-6B's), the
 cross-entropy and AdamW kernels phase 19's, the block-sparse kernels
 phase 9's).
 The last two lines are the kernel table (JSON) and
@@ -246,6 +282,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -600,6 +637,35 @@ DKV_SPLITS = (None, 8, 16, 32)
 # prompts x prompt length, new tokens, the long forward's length
 INJECT_LAYERS, INJECT_FORWARD = 2, 300
 INT8_PROMPTS, INT8_PROMPT_LEN, INT8_NEW, INT8_FORWARD = 8, 64, 32, 2048
+# phases 31-32: Llama-3-8B at all 32 layers in bf16 under arena pressure.
+# One block of 16 tokens holds 2 x 32 layers x 8 kv heads x 128 x 2 B x 16
+# = 2 MiB of KV; the arena's 192 usable blocks (384 MiB) hold about half
+# of what 12 requests of 300-700 prompt tokens and 64 new tokens need
+# (6,778 tokens, 424 blocks), so preemption spills, and a host cache of 256
+# MiB (about four spills) sends older spills to the disk tier.  The roomy
+# arena holds 8 slots of the longest request (48 blocks each).  They come
+# in three waves of rising SLO class (count, class, engine steps before the
+# next wave): the standard wave's admissions spill batch requests, the
+# realtime wave's spill again once those spills' disk writes have landed,
+# so the host LRU drops the oldest to the disk tier; a roomy arena's 8
+# slots take them without a preemption.
+TIERED_LENS = [300, 700, 420, 650, 350, 560, 610, 480, 330, 690, 520, 400]
+TIERED_WAVES = ((5, "batch", 50), (4, "standard", 40), (3, "realtime", 0))
+TIERED_NEW = 64
+TIERED_BLOCKS, TIERED_ROOMY_BLOCKS = 193, 8 * 48 + 1
+TIERED_HOST_BYTES = 256 << 20
+# bounded dispatch: the deadline is this many times the tiered run's median
+# step (never below TIMEOUT_FLOOR_S), and the wedge takes the serve.step hit
+# WEDGE_HIT, well after each phase's first (inline) dispatch
+TIMEOUT_FACTOR, TIMEOUT_FLOOR_S = 8.0, 0.5
+WEDGE_HIT = 60
+# phase 34: phases 31-32's traffic at fp32 at this depth (the arena and the
+# schedule as there, the host cache scaled with the block's bytes)
+FP32_TIER_LAYERS = 4
+# phase 33: sampled generate() at Llama-3-8B's widths, fp32 at 2 layers
+# (TF32 off), where the kernel and plain paths agree to ~1e-6 and the same
+# Gumbel noise must give the same tokens; batch x prompt, new tokens, T
+SAMPLE_LAYERS, SAMPLE_BATCH, SAMPLE_PROMPT, SAMPLE_NEW, SAMPLE_T = 2, 4, 64, 32, 0.8
 
 
 def fail(msg: str) -> None:
@@ -2717,7 +2783,6 @@ def phase_resume(device, card: str, steps: int = RESUME_STEPS):
     Save and load seconds and bytes are printed.  Checkpoints go to a
     temporary directory, removed at the end: under ``$TMPDIR`` or beside
     this file, whichever has more room (two tags of ~1.5 GB at once)."""
-    import shutil
     from deepspeed_tpu_torch.models.gpt import GPT, gpt_config
     from deepspeed_tpu_torch.runtime.checkpointing import wait_for_finalizer
 
@@ -3478,6 +3543,498 @@ def llama_offload_depth(available: int):
          f"layers of Llama-3-8B's offloaded state")
 
 
+# --------------------------------------------------------------------------- #
+# phases 31-33: tiered KV, bounded dispatch and recovery, sampled generate()
+# --------------------------------------------------------------------------- #
+class RestageCheck:
+    """Holds every restage of a tiered engine to its spill, byte for byte,
+    apart from the tiering code: after each spill the spilled blocks as the
+    arena holds them are gathered here to the host (an ``index_select`` and
+    ``.cpu()`` into pageable memory, timed: the plain copy beside the
+    engine's); after each restage the blocks they landed in are gathered
+    and compared as raw bytes."""
+
+    def __init__(self, eng):
+        import torch
+        self.eng, self.saved = eng, {}
+        self.restages = self.blocks = 0
+        self.seconds = 0.0             # the check's own gathers, inside the run's wall
+        self.spill_bytes, self.spill_seconds = 0, 0.0   # of it, those after a spill
+        adapter = eng.sched.tiering
+        spill, restage = adapter.spill, adapter.restage
+
+        def host(blocks):
+            t0 = time.perf_counter()
+            idx = torch.tensor(blocks, dtype=torch.long, device=eng.device)
+            out = [p.index_select(1, idx).view(torch.uint8).cpu()
+                   for p in (eng._k_pages, eng._v_pages)]
+            self.seconds += time.perf_counter() - t0
+            return out
+
+        def checked_spill(req):
+            blocks = eng.alloc.owned_blocks(req.rid)[:eng.alloc.blocks_for_tokens(req.prefilled)]
+            tier = spill(req)
+            if tier is not None:
+                t0 = self.seconds
+                self.saved[req.rid] = host(blocks)
+                self.spill_seconds += self.seconds - t0
+                self.spill_bytes += sum(a.numel() for a in self.saved[req.rid])
+            return tier
+
+        def checked_restage(req):
+            ok = restage(req)
+            saved = self.saved.pop(req.rid, None)
+            if ok:
+                n = eng.alloc.blocks_for_tokens(req.spilled_tokens)
+                got = host(eng.alloc.owned_blocks(req.rid)[:n])
+                if saved is None or not all(torch.equal(a, b) for a, b in zip(got, saved)):
+                    fail(f"request {req.rid}: a restaged block differs from what was spilled")
+                self.restages += 1
+                self.blocks += n
+            return ok
+        adapter.spill, adapter.restage = checked_spill, checked_restage
+
+
+class DispatchLog:
+    """Wraps an engine's model step: counts the dispatches started and
+    returned (a dispatch abandoned by a timeout returns later, on its own
+    thread, and launches its kernels all the same) and keeps each one's
+    logits-finite flag.  One step at a time: the abandoned dispatch and
+    the engine's next one do not interleave their launch counts.
+    ``restore`` puts the model's own step back."""
+
+    def __init__(self, eng):
+        import threading
+        import torch
+        self.started, self.finite = 0, []
+        self.module, self.own = eng.module, vars(eng.module).get("paged_step")
+        inner, lock = eng.module.paged_step, threading.Lock()
+
+        def step(*args):
+            with lock:
+                self.started += 1
+                out = inner(*args)
+                self.finite.append(torch.isfinite(out[0]).all())
+            return out
+        eng.module.paged_step = step
+
+    def restore(self):
+        if self.own is None:
+            del self.module.paged_step       # the class's method again
+        else:
+            self.module.paged_step = self.own
+
+    def join(self, timeout_s: float = 30.0):
+        """Wait until every started dispatch has returned."""
+        t0 = time.monotonic()
+        while len(self.finite) < self.started and time.monotonic() - t0 < timeout_s:
+            time.sleep(0.01)
+        if len(self.finite) < self.started:
+            fail(f"{self.started - len(self.finite)} dispatch(es) never returned")
+
+
+def serve_waves(eng, prompts, new_tokens):
+    """Submit the requests in TIERED_WAVES, drive to completion; (futures,
+    prefill tokens dispatched, seconds of each step)."""
+    from deepspeed_tpu_torch.serving.engine import ServeStepTimeout
+    futs, prefill, steps = [], 0, []
+
+    def step():
+        nonlocal prefill
+        t0 = time.perf_counter()
+        try:
+            stats = eng.step()
+        except ServeStepTimeout as e:
+            say(f"incident: {e} (recovered in {eng.last_recovery_s * 1e3:.1f} ms)")
+            return
+        steps.append(time.perf_counter() - t0)
+        prefill += stats["prefill_tokens"]
+    for n, slo, after in TIERED_WAVES:
+        futs += [eng.submit(p, max_new_tokens=new_tokens, slo=slo)
+                 for p in prompts[len(futs):len(futs) + n]]
+        for _ in range(after):
+            step()
+    while eng.sched.has_work:
+        step()
+    return futs, prefill, steps
+
+
+def same_tokens(model, prompts, futs, ref_futs, label: str, tie: float) -> int:
+    """Token identity with a reference run; a divergence counts as a
+    near-tie only where generate()'s top-two logits at the first differing
+    position are within ``tie``, and ends that request's comparison (its
+    later tokens follow another context).  Prints how many tokens were
+    compared; returns the near-tie count."""
+    ties = compared = total = 0
+    for i, (p, f, r) in enumerate(zip(prompts, futs, ref_futs)):
+        got, ref = f.token_ids, r.token_ids
+        if len(got) != len(ref):
+            fail(f"{label}: request {i} has {len(got)} tokens, the reference {len(ref)}")
+        total += len(ref)
+        if got == ref:
+            compared += len(ref)
+            continue
+        k = next(j for j, (a, b) in enumerate(zip(got, ref)) if a != b)
+        compared += k + 1
+        gap = top2_gap(model, p + ref[:k])
+        if gap > tie:
+            fail(f"{label}: request {i} diverges at token {k} ({got[k:k + 4]} vs "
+                 f"{ref[k:k + 4]}), top-2 gap {gap:.3e} > {tie:.3e}")
+        ties += 1
+        say(f"{label}: request {i} near-tie at token {k} (gap {gap:.3e})")
+    say(f"{label}: {ties} near-ties (bound {tie:.3e}); {compared} of {total} tokens "
+        f"compared")
+    return ties
+
+
+def gap_spread(model, prompts, futs, label: str, tie: float) -> dict:
+    """The top-two logit gap at every generated position of a run (one
+    forward a request over its prompt and tokens): how many positions a
+    near-tie bound of ``tie`` would excuse."""
+    import torch
+    gaps = []
+    for p, f in zip(prompts, futs):
+        ids = p + f.token_ids[:-1]
+        cache = model.init_cache(1, len(ids))
+        logits, _ = model.apply_with_cache(torch.tensor([ids], device=model.device), cache)
+        top = torch.topk(logits[0, len(p) - 1:, :model.cfg.vocab_size].float(), 2).values
+        gaps += (top[:, 0] - top[:, 1]).tolist()
+    gaps.sort()
+    out = dict(n=len(gaps), under=sum(g <= tie for g in gaps), min=gaps[0],
+               p1=gaps[len(gaps) // 100], p5=gaps[len(gaps) // 20],
+               median=gaps[len(gaps) // 2])
+    say(f"{label}: top-2 logit gaps at its {out['n']} generated positions: min "
+        f"{out['min']:.3e}, 1% {out['p1']:.3e}, 5% {out['p5']:.3e}, median "
+        f"{out['median']:.3e}; {out['under']} at or under the near-tie bound {tie:.3e}")
+    return out
+
+
+def path_noise(model, prompt) -> float:
+    """Largest logit distance between the two bf16 paths that give one
+    position's logits in serving: the prefill chunk's last row over
+    ``prompt``, and a decode step feeding its last token after a prefill of
+    the rest.  Resumed and recomputed requests take the first where an
+    uninterrupted one takes the second."""
+    _, prefilled, _ = first_decode_logits(model, prompt, "kernel")
+    _, _, decoded = first_decode_logits(model, prompt[:-1], "kernel", tok=prompt[-1])
+    return (prefilled.float() - decoded.float()).abs().max().item()
+
+
+def tiered_config(blocks: int, tiering: bool, offload_dir=None, dtype="bfloat16",
+                  host_bytes=None, **extra):
+    host_bytes = TIERED_HOST_BYTES if host_bytes is None else host_bytes
+    return {"serving": dict(SERVE_CFG, num_blocks=blocks, dtype=dtype, kv_tiering=tiering,
+                            kv_host_cache_bytes=host_bytes, kv_offload_dir=offload_dir,
+                            **extra)}
+
+
+def tiered_run(model, prompts, device, label: str, config, card: str, plan=None):
+    """One serve of ``prompts`` through ``init_serving(config)``: the launch
+    counters zeroed just before and read just after, every dispatch's
+    logits finite and n_layer paged launches each, every request complete;
+    a tiered engine's restages held byte for byte to its spills.  A fault
+    ``plan`` is installed after the warm-up request."""
+    import torch
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.testing import fault_injection as fi
+
+    eng = dst.init_serving(model=model, device=device, config=config)
+    eng.submit(prompts[0][:20], max_new_tokens=4).result()      # warm-up, both phases
+    check = RestageCheck(eng) if eng.tiering is not None else None
+    log = DispatchLog(eng)
+    if plan is not None:
+        fi.install_plan(plan)
+    t0 = time.perf_counter()
+    try:
+        (futs, prefill, steps), counts = counted(
+            label, {"paged_attention": None}, lambda: (serve_waves(eng, prompts, TIERED_NEW),
+                                                       log.join(), torch.cuda.synchronize())[0])
+    finally:
+        fi.clear_plan()
+        log.restore()
+    wall = time.perf_counter() - t0
+    if not all(bool(f) for f in log.finite):
+        fail(f"{label}: non-finite logits")
+    if counts["paged_attention"] != model.cfg.n_layer * log.started:
+        fail(f"{label}: {counts['paged_attention']} paged launches in {log.started} "
+             f"dispatches, expected {model.cfg.n_layer} per dispatch")
+    if any(len(f.token_ids) != TIERED_NEW for f in futs):
+        fail(f"{label}: a request lost tokens")
+    eng.alloc.check_consistent()
+    r = dict(eng=eng, futs=futs, prefill=prefill, wall=wall, steps=steps, counts=counts,
+             dispatches=log.started, preemptions=eng.sched.preemption_count,
+             spills=eng.sched.spill_count, restages=eng.sched.restage_count,
+             incidents=eng.incident_count, check=check)
+    checked = "" if check is None else f" (of it {check.seconds:.3f} s in the byte check)"
+    say(f"{label}: {len(futs)} requests x {TIERED_NEW} tokens in {wall:.3f} s{checked} "
+        f"({len(futs) * TIERED_NEW / wall:.1f} tokens/s), {len(steps)} steps (median "
+        f"{statistics.median(steps) * 1e3:.2f} ms), {log.started} dispatches, {prefill} prefill "
+        f"tokens, preemptions {r['preemptions']}, spills {r['spills']}, restages "
+        f"{r['restages']}, incidents {r['incidents']} [{card}]")
+    return r
+
+
+def tiering_numbers(r, card: str, label: str = "tiering"):
+    """The copies' and the tiers' readings of one tiered run."""
+    mgr, check = r["eng"].tiering, r["check"]
+    staged = mgr.staging.snapshot()
+    waits = mgr.restage_waits
+    h2d_s = mgr.h2d_s
+    out = dict(spills=r["spills"], restages=r["restages"], sources=dict(mgr.restage_sources),
+               d2h_gb=mgr.d2h_bytes / 1e9, h2d_gb=mgr.h2d_bytes / 1e9,
+               d2h_gbs=mgr.d2h_bytes / mgr.d2h_s / 1e9 if mgr.d2h_s else 0.0,
+               h2d_gbs=mgr.h2d_bytes / h2d_s / 1e9 if h2d_s else 0.0,
+               cpu_gbs=(check.spill_bytes / check.spill_seconds / 1e9
+                        if check.spill_seconds else 0.0),
+               disk_written_gb=staged["bytes_written"] / 1e9,
+               disk_read_gb=staged["bytes_read"] / 1e9,
+               wait_ms=statistics.median(waits) * 1e3 if waits else 0.0,
+               checked=check.restages, checked_blocks=check.blocks)
+    say(f"{label}: {out['spills']} spills, {out['restages']} restages "
+        f"({out['sources']['host']} from host memory, {out['sources']['nvme']} from disk); "
+        f"spills {out['d2h_gb']:.3f} GB device->host at {out['d2h_gbs']:.2f} GB/s (host clock "
+        f"until spill() returns: index_select on the engine's stream, the copy into pinned "
+        f"memory, its event); the same spills through index_select + .cpu() into pageable "
+        f"memory {out['cpu_gbs']:.2f} GB/s (the byte check's gathers); restages "
+        f"{out['h2d_gb']:.3f} GB host->device at {out['h2d_gbs']:.2f} GB/s (device time of "
+        f"the copy and index_copy_); disk tier {out['disk_written_gb']:.3f} GB written (every "
+        f"spill, write-through), {out['disk_read_gb']:.3f} GB read; median restage wait "
+        f"{out['wait_ms']:.3f} ms; {out['checked']} restages ({out['checked_blocks']} blocks) "
+        f"equal their spilled bytes [{card}]")
+    if out["checked"] != out["restages"]:
+        fail(f"{label}: {out['checked']} of {out['restages']} restages checked")
+    return out
+
+
+def tiered_cell(device):
+    """Phases 31-32's cell: Llama-3-8B at its published widths and all 32
+    layers in bf16 (seeded weights, made in bf16 on the card), the 12
+    requests, the near-tie bound of its bf16 paths, and a folder for the
+    disk tier (under $TMPDIR or the checkout, whichever has more room)."""
+    import torch
+    from deepspeed_tpu_torch.models import gpt as gpt_mod
+
+    ctor, kw, _ = FAMILY_CELLS["llama3-8b"]
+    cfg = getattr(gpt_mod, ctor)(**kw, dtype="bfloat16")
+    model = gpt_mod.GPT(cfg, device=device, seed=0, param_dtype=torch.bfloat16)
+    block = 2 * cfg.n_layer * BS * cfg.kv_heads * cfg.head_dim * 2
+    prompts = make_prompts(cfg.vocab_size, TIERED_LENS, seed=31)
+    need = sum(-(-(n + TIERED_NEW) // BS) for n in TIERED_LENS)
+    say(f"model: llama3-8b bf16 at all {cfg.n_layer} layers; KV {block // BS // 1024} KiB a "
+        f"token, {block / 2 ** 20:.0f} MiB a {BS}-token block; {len(prompts)} requests of "
+        f"{min(TIERED_LENS)}-{max(TIERED_LENS)} prompt tokens + {TIERED_NEW} new need {need} "
+        f"blocks; tiered arena {TIERED_BLOCKS - 1} blocks "
+        f"({(TIERED_BLOCKS - 1) * block / 2 ** 20:.0f} MiB), host cache "
+        f"{TIERED_HOST_BYTES / 2 ** 20:.0f} MiB; roomy arena {TIERED_ROOMY_BLOCKS - 1} blocks")
+    noise = path_noise(model, prompts[0])
+    say(f"bf16 paths: a prefill row and a decode step at the same position differ by up to "
+        f"{noise:.4f} in the logits; near-tie bound twice that, {2 * noise:.4f}")
+    parent = max((tempfile.gettempdir(), str(Path(__file__).resolve().parent)),
+                 key=lambda d: shutil.disk_usage(d).free)
+    root = tempfile.mkdtemp(prefix="chip_smoke_kv_", dir=parent)
+    say(f"disk tier under {root} ({shutil.disk_usage(parent).free / 2 ** 30:.1f} GiB free)")
+    return dict(model=model, prompts=prompts, tie=2 * noise, root=root)
+
+
+def phase_tiered(cell, device, card: str):
+    """Phase 31: the 12 requests in a roomy arena, with tiering in the small
+    one, and without it (preemption recomputes).  Token identity with the
+    roomy run is counted as phase 4 counts it, at the bf16 paths' own
+    logit distance (``same_tokens``); every restage equals its spill byte
+    for byte (``RestageCheck``); some restage must come from the disk."""
+    model, prompts, tie, root = cell["model"], cell["prompts"], cell["tie"], cell["root"]
+    roomy = tiered_run(model, prompts, device, "llama3-8b bf16 serve (roomy)",
+                       tiered_config(TIERED_ROOMY_BLOCKS, False), card)
+    if roomy["preemptions"]:
+        fail("the roomy arena preempted")
+    spread = gap_spread(model, prompts, roomy["futs"], "llama3-8b bf16 serve (roomy)", tie)
+    tiered = tiered_run(model, prompts, device, "llama3-8b bf16 serve (tiered)",
+                        tiered_config(TIERED_BLOCKS, True, os.path.join(root, "tiered")), card)
+    numbers = tiering_numbers(tiered, card)
+    if numbers["sources"]["nvme"] == 0:
+        fail("tiering: no restage came from the disk tier")
+    ties = same_tokens(model, prompts, tiered["futs"], roomy["futs"], "tiered vs roomy", tie)
+    recompute = tiered_run(model, prompts, device, "llama3-8b bf16 serve (recompute)",
+                           tiered_config(TIERED_BLOCKS, False), card)
+    rties = same_tokens(model, prompts, recompute["futs"], roomy["futs"],
+                        "recompute vs roomy", tie)
+    saved = recompute["prefill"] - tiered["prefill"]
+    for r in (roomy, tiered, recompute):
+        r["eng"].close()
+    say(f"summary: llama3-8b bf16 under arena pressure ({TIERED_BLOCKS - 1} blocks): tiered "
+        f"{tiered['wall']:.3f} s, {tiered['prefill']} prefill tokens, {tiered['preemptions']} "
+        f"preemptions; recompute {recompute['wall']:.3f} s, {recompute['prefill']} prefill "
+        f"tokens, {recompute['preemptions']} preemptions; roomy {roomy['wall']:.3f} s, "
+        f"{roomy['prefill']} prefill tokens; tiering saved {saved} prefill tokens; near-ties "
+        f"vs roomy: tiered {ties}, recompute {rties} [{card}]")
+    return dict(roomy=roomy, tiered=tiered, recompute=recompute, tiering=numbers, saved=saved,
+                ties=ties, rties=rties, spread=spread)
+
+
+def phase_bounded(cell, tiered, device, card: str):
+    """Phase 32: the tiered cell with ``serve_step_timeout_s`` TIMEOUT_FACTOR
+    times the tiered run's median step and a wedge of serve.step at hit
+    WEDGE_HIT: one incident, every request finished, tokens as the run
+    without the fault (near-ties counted); then a raise at the first
+    serve.restage: that request recomputes, tokens as before."""
+    model, prompts, tie, root = cell["model"], cell["prompts"], cell["tie"], cell["root"]
+    step_s = statistics.median(tiered["steps"])
+    deadline = max(TIMEOUT_FLOOR_S, TIMEOUT_FACTOR * step_s)
+    wedged = tiered_run(
+        model, prompts, device, "llama3-8b bf16 serve (bounded, wedged once)",
+        tiered_config(TIERED_BLOCKS, True, os.path.join(root, "wedged"),
+                      serve_step_timeout_s=deadline), card,
+        plan=[{"site": "serve.step", "action": "wedge", "on_hit": WEDGE_HIT}])
+    eng = wedged["eng"]
+    if wedged["incidents"] != 1:
+        fail(f"bounded dispatch: {wedged['incidents']} incidents, expected 1")
+    wties = same_tokens(model, prompts, wedged["futs"], tiered["futs"], "wedged vs tiered", tie)
+    bounded = eng._bounded.stats()
+    say(f"bounded dispatch: deadline {deadline:.3f} s ({TIMEOUT_FACTOR:g}x the tiered run's "
+        f"median step {step_s * 1e3:.2f} ms); the wedge at serve.step hit {WEDGE_HIT} raised "
+        f"ServeStepTimeout; recovery (fresh arena and allocator, every request requeued) "
+        f"last_recovery_s {eng.last_recovery_s:.4f} s; incidents {eng.incident_count}, "
+        f"abandoned workers {bounded['abandoned']}, bounded dispatches {bounded['calls']}; "
+        f"every request finished with {TIERED_NEW} tokens; near-ties vs the run without the "
+        f"fault {wties}; {wedged['wall']:.3f} s [{card}]")
+    eng.close()
+    faulted = tiered_run(
+        model, prompts, device, "llama3-8b bf16 serve (restage fault)",
+        tiered_config(TIERED_BLOCKS, True, os.path.join(root, "faulted")), card,
+        plan=[{"site": "serve.restage", "action": "raise", "on_hit": 1}])
+    fties = same_tokens(model, prompts, faulted["futs"], tiered["futs"],
+                        "restage fault vs tiered", tie)
+    # each spill is restaged once or falls back once: one fell back
+    fell = faulted["spills"] - faulted["restages"]
+    say(f"restage fault: the first restage raised FaultInjected and its request recomputed "
+        f"({faulted['restages']} restages of {faulted['spills']} spills; {faulted['prefill']} "
+        f"prefill tokens against the fault-free run's {tiered['prefill']}); near-ties vs the "
+        f"run without the fault {fties} [{card}]")
+    if fell != 1:
+        fail(f"restage fault: {fell} restages fell back to recompute, expected 1")
+    faulted["eng"].close()
+    return dict(wedged=wedged, faulted=faulted, deadline=deadline, step_s=step_s, wties=wties,
+                fties=fties, recovery_s=eng.last_recovery_s)
+
+
+def phase_sampled(device, card: str):
+    """Phase 33: sampled generate() (temperature > 0) at Llama-3-8B's widths,
+    fp32 at SAMPLE_LAYERS layers (TF32 off): the kernel path against the
+    plain path fed the same Gumbel noise, token for token; through
+    init_inference, a seed twice gives the same tokens, two seeds differ."""
+    import torch
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import gpt as gpt_mod
+    from deepspeed_tpu_torch.ops.cuda import decode_attention as da
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ctor, kw, _ = FAMILY_CELLS["llama3-8b"]
+    cfg = getattr(gpt_mod, ctor)(**dict(kw, n_layer=SAMPLE_LAYERS), dtype="float32")
+    model = gpt_mod.GPT(cfg, device=device, seed=0)
+    ids = torch.tensor(make_prompts(cfg.vocab_size, [SAMPLE_PROMPT] * SAMPLE_BATCH, seed=33),
+                       device=device)
+    noise = gpt_mod.gumbel_noise((SAMPLE_NEW, SAMPLE_BATCH, cfg.padded_vocab),
+                                 torch.Generator(device=device).manual_seed(5), device)
+    kernel, counts = counted("fp32 sampled generate()", {"decode_attention": None}, lambda: (
+        model.generate(ids, SAMPLE_NEW, temperature=SAMPLE_T, noise=noise)))
+    saved = gpt_mod.decode_attention
+    gpt_mod.decode_attention = da.decode_attention_reference
+    try:
+        plain = model.generate(ids, SAMPLE_NEW, temperature=SAMPLE_T, noise=noise)
+    finally:
+        gpt_mod.decode_attention = saved
+    if not torch.equal(kernel, plain):
+        fail("sampled generate(): the kernel path and the plain path drew different tokens "
+             "from the same noise")
+    greedy = model.generate(ids, SAMPLE_NEW)
+    new = kernel[:, SAMPLE_PROMPT:]
+    if (new >= cfg.vocab_size).any():
+        fail("sampled generate() drew a padded vocab column")
+
+    def seeded(seed):
+        eng = dst.init_inference(model=model, device=device,
+                                 config={"dtype": "float32", "seed": seed})
+        return eng.generate(ids, max_new_tokens=SAMPLE_NEW, temperature=SAMPLE_T)
+    a, b, c = seeded(3), seeded(3), seeded(4)
+    if not torch.equal(a, b) or torch.equal(a, c):
+        fail("init_inference seed: the same seed must repeat and two seeds must differ")
+    differ = int((new != greedy[:, SAMPLE_PROMPT:]).sum())
+    say(f"sampled generate(): llama3-8b widths, fp32, {SAMPLE_LAYERS} layers, {SAMPLE_BATCH} x "
+        f"{SAMPLE_PROMPT} prompt tokens + {SAMPLE_NEW} at T {SAMPLE_T}: kernel path == plain "
+        f"path on the same noise ({SAMPLE_BATCH * SAMPLE_NEW} tokens, {differ} of them off the "
+        f"greedy stream); init_inference seed 3 twice equal, seed 4 differs in "
+        f"{int((a != c).sum())} tokens; {counts['decode_attention']} decode launches [{card}]")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(counts=counts, differ=differ)
+
+
+def phase_tiered_fp32(device, card: str):
+    """Phase 34: phases 31-32's traffic at fp32 (TF32 off), FP32_TIER_LAYERS
+    layers of Llama-3-8B's widths: the same arena and schedule (the host
+    cache scaled with the block), a roomy, a tiered, a recomputing and a
+    wedged run (bounded dispatch), each held token for token to the roomy
+    run with phase 4's NEAR_TIE, where the fp32 paths leave no room for
+    the bf16 bound's near-ties: every request of the tiered and the
+    recovered runs is compared to its end unless its top-two gap is under
+    1e-4 (``same_tokens`` prints how far the comparison reached)."""
+    import torch
+    from deepspeed_tpu_torch.models import gpt as gpt_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ctor, kw, _ = FAMILY_CELLS["llama3-8b"]
+    cfg = getattr(gpt_mod, ctor)(**dict(kw, n_layer=FP32_TIER_LAYERS), dtype="float32")
+    model = gpt_mod.GPT(cfg, device=device, seed=0)
+    prompts = make_prompts(cfg.vocab_size, TIERED_LENS, seed=31)
+    # phase 31's host cache in that cell's blocks (bf16, all layers)
+    host = TIERED_HOST_BYTES * (FP32_TIER_LAYERS * 4) // (kw["n_layer"] * 2)
+    root = tempfile.mkdtemp(prefix="chip_smoke_kv_", dir=max(
+        (tempfile.gettempdir(), str(Path(__file__).resolve().parent)),
+        key=lambda d: shutil.disk_usage(d).free))
+    label = f"llama3-8b fp32 {FP32_TIER_LAYERS}-layer serve"
+    try:
+        def config(*args, **extra):
+            return tiered_config(*args, dtype="float32", host_bytes=host, **extra)
+        roomy = tiered_run(model, prompts, device, f"{label} (roomy)",
+                           config(TIERED_ROOMY_BLOCKS, False), card)
+        spread = gap_spread(model, prompts, roomy["futs"], f"{label} (roomy)", NEAR_TIE)
+        tiered = tiered_run(model, prompts, device, f"{label} (tiered)",
+                            config(TIERED_BLOCKS, True, os.path.join(root, "tiered")), card)
+        numbers = tiering_numbers(tiered, card, f"{label} tiering")
+        recompute = tiered_run(model, prompts, device, f"{label} (recompute)",
+                               config(TIERED_BLOCKS, False), card)
+        deadline = max(TIMEOUT_FLOOR_S, TIMEOUT_FACTOR * statistics.median(tiered["steps"]))
+        wedged = tiered_run(
+            model, prompts, device, f"{label} (bounded, wedged once)",
+            config(TIERED_BLOCKS, True, os.path.join(root, "wedged"),
+                   serve_step_timeout_s=deadline), card,
+            plan=[{"site": "serve.step", "action": "wedge", "on_hit": WEDGE_HIT}])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if not tiered["spills"] or tiered["restages"] != tiered["spills"]:
+        fail(f"{label}: {tiered['spills']} spills, {tiered['restages']} restages")
+    if wedged["incidents"] != 1:
+        fail(f"{label}: {wedged['incidents']} incidents in the wedged run, expected 1")
+    ties = {name: same_tokens(model, prompts, r["futs"], roomy["futs"], f"{label}: {name} vs roomy",
+                              NEAR_TIE)
+            for name, r in (("tiered", tiered), ("recompute", recompute), ("wedged", wedged))}
+    for r in (roomy, tiered, recompute, wedged):
+        r["eng"].close()
+    say(f"summary: {label} under arena pressure ({TIERED_BLOCKS - 1} blocks, host cache "
+        f"{host / 2 ** 20:.0f} MiB): tiered {tiered['preemptions']} preemptions, "
+        f"{tiered['spills']} spills, {numbers['sources']['nvme']} restages from disk; wedged "
+        f"{wedged['incidents']} incident, last_recovery_s {wedged['eng'].last_recovery_s:.4f} s; "
+        f"near-ties at {NEAR_TIE:g} vs roomy: tiered {ties['tiered']}, recompute "
+        f"{ties['recompute']}, wedged {ties['wedged']} [{card}]")
+    counts = {name: r["counts"] for name, r in (("roomy", roomy), ("tiered", tiered),
+                                                 ("recompute", recompute), ("wedged", wedged))}
+    del model, roomy, tiered, recompute, wedged
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(counts=counts, ties=ties, spread=spread, tiering=numbers)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3992,21 +4549,54 @@ def main() -> int:
         for path, key in (("graphed", "counts"), ("eager", "eager_counts"))}))
     phase_done("30")
 
-    say(f"total: {time.perf_counter() - started:.1f} s (build and phases 1-30)")
+    # ---- 31-32. tiered KV, bounded dispatch and recovery: Llama-3-8B, bf16 ------- #
+    gc.collect()
+    torch.cuda.empty_cache()
+    cell = tiered_cell(device)
+    try:
+        tier = phase_tiered(cell, device, card)
+        phase_done("31")
+        bounded = phase_bounded(cell, tier["tiered"], device, card)
+    finally:
+        shutil.rmtree(cell["root"], ignore_errors=True)
+    say("launches by run: " + json.dumps({
+        f"llama3-8b bf16 serve ({name})": r["counts"] for name, r in (
+            ("roomy", tier["roomy"]), ("tiered", tier["tiered"]),
+            ("recompute", tier["recompute"]), ("wedged", bounded["wedged"]),
+            ("restage fault", bounded["faulted"]))}))
+    tiered_counts = tier["tiered"]["counts"]
+    del cell, tier, bounded          # the engines hold the 32-layer model
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("32")
+
+    # ---- 33. sampled generate() ------------------------------------------------- #
+    sampled = phase_sampled(device, card)
+    say("launches by run: " + json.dumps({"llama3-8b fp32 sampled generate()":
+                                          sampled["counts"]}))
+    phase_done("33")
+
+    # ---- 34. phases 31-32's traffic at fp32 ------------------------------------------ #
+    tiered32 = phase_tiered_fp32(device, card)
+    say("launches by run: " + json.dumps({
+        f"llama3-8b fp32 {FP32_TIER_LAYERS}-layer serve ({name})": c
+        for name, c in tiered32["counts"].items()}))
+    phase_done("34")
+
+    say(f"total: {time.perf_counter() - started:.1f} s (build and phases 1-34)")
 
     # ---- report ------------------------------------------------------------------ #
     # each kernel's row: its case at the shape and dtype of the latest
     # slice's run that launches it, and that run's launch count: the
-    # NeoX-20B bf16 serve for the paged kernel, GPT-J-6B's bf16
-    # init_inference generate for the contiguous one (phases 23-24); GPT-J-6B's
+    # Llama-3-8B bf16 tiered serve for the paged kernel (phase 31), GPT-J-6B's bf16
+    # init_inference generate for the contiguous one (phase 24); GPT-J-6B's
     # graphed bf16 training run for the three flash kernels (phases 25-26);
     # the MoE cell's bf16 training run for the cross-entropy and AdamW
     # kernels; the seq-4096 sparse bf16 training run for the block-sparse
     # kernels
     moe_train_counts = moe_train["counts"]
     gptj_train_counts = wide_train["gptj-6b"]["counts"]
-    main_case = {"paged_attention": ("neox-20b-paged-decode", "bfloat16",
-                                     families["neox-20b"]["bf16"]["counts"]),
+    main_case = {"paged_attention": ("llama3-8b-paged-decode", "bfloat16", tiered_counts),
                  "decode_attention": ("gptj-6b-generate-decode", "bfloat16",
                                       i8["bf16"]["counts"]),
                  "flash_forward": ("gptj-6b-train", "bfloat16", gptj_train_counts),

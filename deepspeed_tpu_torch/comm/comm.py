@@ -20,6 +20,11 @@ graph holds them as nodes), plus the host-side ``barrier`` and
 
 A stage-0 engine at world size 1 makes no group, so the paths that ran
 before ZeRO was ported run exactly as they did.
+
+Each tensor collective first passes the ``comm.collective`` fault site
+(``testing/fault_injection.py``, ctx ``op``), as the JAX package's do when
+they are staged: on the host, so inside a captured step it fires at the
+capture and not at the replays.
 """
 
 import os
@@ -29,6 +34,8 @@ from typing import List, Optional
 
 import torch
 import torch.distributed as dist
+
+from deepspeed_tpu_torch.testing.fault_injection import fault_point
 
 ReduceOp = dist.ReduceOp
 DEFAULT_TIMEOUT = timedelta(minutes=10)
@@ -113,6 +120,7 @@ def broadcast_object_list(objs: List, src: int = 0) -> List:
 # --------------------------------------------------------------------------- #
 def all_reduce(tensor: torch.Tensor, op=ReduceOp.SUM) -> torch.Tensor:
     """``tensor`` summed (or ``op``) over the ranks, in place."""
+    fault_point("comm.collective", op="all_reduce")
     dist.all_reduce(tensor, op=op)
     return tensor
 
@@ -126,6 +134,7 @@ def all_gather(output: torch.Tensor, tensor: torch.Tensor) -> torch.Tensor:
     tensor.numel()`` elements), in rank order.  ``tensor`` may be this
     rank's slice of ``output`` (in place): NCCL takes that as it is, gloo
     gets a copy."""
+    fault_point("comm.collective", op="all_gather")
     if get_backend() == "gloo" and _shares_storage(output, tensor):
         tensor = tensor.clone()
     dist.all_gather_into_tensor(output, tensor)
@@ -135,10 +144,12 @@ def all_gather(output: torch.Tensor, tensor: torch.Tensor) -> torch.Tensor:
 def reduce_scatter(output: torch.Tensor, tensor: torch.Tensor,
                    op=ReduceOp.SUM) -> torch.Tensor:
     """Rank r's ``output`` is slice r of ``tensor`` summed over the ranks."""
+    fault_point("comm.collective", op="reduce_scatter")
     dist.reduce_scatter_tensor(output, tensor, op=op)
     return output
 
 
 def broadcast(tensor: torch.Tensor, src: int = 0) -> torch.Tensor:
+    fault_point("comm.collective", op="broadcast")
     dist.broadcast(tensor, src=src)
     return tensor

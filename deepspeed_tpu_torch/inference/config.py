@@ -7,17 +7,24 @@ compute in bf16, the block weights quantized when ``quant.enabled`` and
 ``quant.weight.enabled`` (both default true), as the JAX engine reads
 them; ``quant.weight.num_bits`` other than 8 raises.
 
+``seed`` seeds ``generate``'s sampler (``temperature > 0``) on every
+call, as the JAX engine's ``PRNGKey(seed)`` does.  ``replace_method``,
+``triangular_masking`` (``tm``), ``return_tuple`` and ``max_out_tokens``
+are keys the JAX engine accepts and does not read: the port takes them at
+JAX's defaults (``JAX_DEFAULTS``) so a JAX ds_config loads, and refuses
+any other value by name.
+
 What the port does not take raises in the engine, naming its ROADMAP
 entry: ``tensor_parallel.tp_size > 1``, ``moe.ep_size > 1`` and
 ``enable_cuda_graph: true`` (the JAX package accepts and ignores it, since
 XLA already replays a compiled program; on the card a graph of the decode
-step is work still to do).  Any other key (``max_out_tokens``,
-``checkpoint``, ``seed``, ``quant.activation``, ...) is one the port does
-not read, and the engine refuses it (``unread_keys``) rather than drop it
+step is work still to do).  Any other key (``checkpoint``,
+``min_out_tokens``, ``quant.activation``, ...) is one the port does not
+read, and the engine refuses it (``unread_keys``) rather than drop it
 silently.
 """
 
-from typing import List
+from typing import Any, ClassVar, Dict, List
 
 import torch
 from pydantic import Field
@@ -50,6 +57,22 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
     enable_cuda_graph: bool = False
     moe: DeepSpeedMoEConfig = DeepSpeedMoEConfig()
     quant: QuantizationConfig = QuantizationConfig()
+    seed: int = 0
+    # accepted at JAX's defaults only (see the module docstring)
+    replace_method: str = "auto"
+    triangular_masking: bool = Field(True, alias="tm")
+    return_tuple: bool = True
+    max_tokens: int = Field(1024, alias="max_out_tokens")
+
+    JAX_DEFAULTS: ClassVar[Dict[str, Any]] = {"replace_method": "auto", "triangular_masking": True,
+                                               "return_tuple": True, "max_out_tokens": 1024}
+
+    def off_default_keys(self) -> Dict[str, Any]:
+        """The keys of ``JAX_DEFAULTS`` given another value."""
+        fields = {"max_out_tokens": "max_tokens"}
+        return {name: getattr(self, fields.get(name, name))
+                for name, default in self.JAX_DEFAULTS.items()
+                if getattr(self, fields.get(name, name)) != default}
 
     @property
     def int8(self) -> bool:

@@ -5,12 +5,15 @@ on one device.
 
 * ``forward`` is the full-sequence logits in eval mode (an MoE model gates
   at ``moe_eval_capacity_factor``).
-* ``generate`` is greedy decoding over the contiguous KV cache, through the
-  decode kernel of ``ops/cuda/decode_attention.py`` on the card.  As in the
-  JAX engine, the prompt is right-padded to a multiple of
-  ``PROMPT_BUCKET`` and its true length passed on (falling back to the
-  exact length near ``n_positions``), so an MoE gate sees the pad rows in
-  the prefill as JAX's does.
+* ``generate`` decodes over the contiguous KV cache, through the decode
+  kernel of ``ops/cuda/decode_attention.py`` on the card: greedy, or at
+  ``temperature > 0`` sampled with Gumbel noise from a generator seeded by
+  the config's ``seed`` on every call (or ``rng=``, a ``torch.Generator``),
+  as the JAX engine draws from ``PRNGKey(seed)``.  As in the JAX engine,
+  the prompt is right-padded to a multiple of ``PROMPT_BUCKET`` and its
+  true length passed on (falling back to the exact length near
+  ``n_positions``), so an MoE gate sees the pad rows in the prefill as
+  JAX's does.
 * ``load_checkpoint`` takes the port's training checkpoints
   (``runtime/checkpointing.py``), cast to the engine's dtype (and
   quantized for int8), into a new model of the engine's own.
@@ -32,9 +35,9 @@ engine does.
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
 entry: ``tensor_parallel.tp_size > 1``, ``moe.ep_size > 1``,
 ``telemetry=`` / ``tracer=``, ``enable_cuda_graph: true``, and a model
-that is neither the port's GPT family nor an HF decoder a policy takes;
-sampled decoding (``temperature > 0``) raises in ``generate()``.  A config
-key the engine does not read raises ``ValueError``.
+that is neither the port's GPT family nor an HF decoder a policy takes.
+A config key the engine does not read, or one of JAX's ignored keys at
+another value than JAX's default, raises ``ValueError``.
 """
 
 from typing import Dict, Optional
@@ -86,8 +89,13 @@ class InferenceEngine:
         if cfg.unread_keys():
             raise ValueError(f"inference config keys {cfg.unread_keys()} are not read by the "
                              f"port's engine; it takes dtype, kernel_inject, "
-                             f"tensor_parallel.tp_size, moe.ep_size, enable_cuda_graph and "
-                             f"quant.enabled, quant.weight.enabled and quant.weight.num_bits")
+                             f"tensor_parallel.tp_size, moe.ep_size, enable_cuda_graph, seed "
+                             f"and quant.enabled, quant.weight.enabled and "
+                             f"quant.weight.num_bits")
+        if cfg.off_default_keys():
+            raise ValueError(f"inference config {cfg.off_default_keys()}: these keys are not "
+                             f"read by the port's engine (nor by the JAX package's); it takes "
+                             f"them at JAX's defaults {cfg.JAX_DEFAULTS} only")
         if cfg.quantize_weights:
             check_bits(cfg.quant.weight.num_bits)
         if int(cfg.tensor_parallel.tp_size) > 1:
@@ -144,18 +152,24 @@ class InferenceEngine:
     __call__ = forward
 
     def generate(self, input_ids, max_new_tokens: int = 32, temperature: float = 0.0,
-                 rng=None, **kwargs) -> torch.Tensor:
-        """Greedy generation, ``[B, S + max_new_tokens]`` (prompt included),
-        the prompt right-padded to a multiple of ``PROMPT_BUCKET``."""
+                 rng=None, noise=None, **kwargs) -> torch.Tensor:
+        """Greedy (or, at ``temperature > 0``, sampled) generation,
+        ``[B, S + max_new_tokens]`` (prompt included), the prompt
+        right-padded to a multiple of ``PROMPT_BUCKET``.  ``rng`` is a
+        ``torch.Generator`` on the engine's device (default: one seeded by
+        the config's ``seed``); ``noise`` replays given Gumbel draws
+        (``models/gpt.py:gpt_generate``)."""
         ids = self._ids(input_ids)
         B, S = ids.shape
+        if rng is None and noise is None and temperature and temperature > 0:
+            rng = torch.Generator(device=self.device).manual_seed(int(self._config.seed))
+        sample = dict(temperature=temperature, generator=rng, noise=noise)
         S_pad = max(self.PROMPT_BUCKET, -(-S // self.PROMPT_BUCKET) * self.PROMPT_BUCKET)
         if S_pad + max_new_tokens > self.module.cfg.n_positions:
             # the padded prompt would not fit the cache: the exact length
-            return self.module.generate(ids, max_new_tokens, temperature=temperature)
+            return self.module.generate(ids, max_new_tokens, **sample)
         padded = torch.cat([ids, ids.new_zeros(B, S_pad - S)], dim=1)
-        out = self.module.generate(padded, max_new_tokens, temperature=temperature,
-                                   prompt_len=S)
+        out = self.module.generate(padded, max_new_tokens, prompt_len=S, **sample)
         return torch.cat([out[:, :S], out[:, S_pad:]], dim=1)
 
 

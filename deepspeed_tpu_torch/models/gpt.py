@@ -543,12 +543,33 @@ def _alibi(cfg: GPTConfig, device) -> Optional[torch.Tensor]:
     return capture.hold(_alibi_on(cfg.n_head, str(torch.device(device))))
 
 
-def greedy_tokens(cfg: GPTConfig, logits: torch.Tensor) -> torch.Tensor:
-    """Argmax over the real vocab (padded columns masked to -1e30)."""
+def _vocab_masked(cfg: GPTConfig, logits: torch.Tensor) -> torch.Tensor:
     if cfg.padded_vocab != cfg.vocab_size:
         vmask = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab_size
         logits = torch.where(vmask, logits, -1e30)
-    return logits.argmax(dim=-1)
+    return logits
+
+
+def greedy_tokens(cfg: GPTConfig, logits: torch.Tensor) -> torch.Tensor:
+    """Argmax over the real vocab (padded columns masked to -1e30)."""
+    return _vocab_masked(cfg, logits).argmax(dim=-1)
+
+
+def gumbel_noise(shape, generator: Optional[torch.Generator] = None,
+                 device=None) -> torch.Tensor:
+    """fp32 Gumbel noise ``-log(-log(u))``, ``u`` uniform in ``[tiny, 1)``
+    from ``generator`` (JAX's ``jax.random.gumbel`` draws the same
+    distribution from its own bits)."""
+    u = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
+    return -torch.log(-torch.log(u.clamp_(min=torch.finfo(torch.float32).tiny)))
+
+
+def sampled_tokens(cfg: GPTConfig, logits: torch.Tensor, temperature: float,
+                   noise: torch.Tensor) -> torch.Tensor:
+    """A draw from ``softmax(logits / temperature)`` over the real vocab:
+    ``argmax(logits / T + g)`` with Gumbel ``g`` — what
+    ``jax.random.categorical`` computes."""
+    return (_vocab_masked(cfg, logits.float()) / temperature + noise).argmax(dim=-1)
 
 
 # --------------------------------------------------------------------------- #
@@ -744,18 +765,21 @@ def gpt_apply_with_cache(cfg: GPTConfig, params: Dict, input_ids: torch.Tensor,
 @torch.no_grad()
 def gpt_generate(cfg: GPTConfig, params: Dict, input_ids, max_new_tokens: int,
                  temperature: float = 0.0, max_len: Optional[int] = None,
-                 prompt_len: Optional[int] = None) -> torch.Tensor:
-    """Greedy autoregressive generation with the padded-vocab mask; returns
-    ``[B, S + max_new_tokens]`` int64 (prompt included).  With
+                 prompt_len: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None,
+                 noise=None) -> torch.Tensor:
+    """Autoregressive generation with the padded-vocab mask; returns
+    ``[B, S + max_new_tokens]`` int64 (prompt included).  Greedy at
+    ``temperature`` <= 0; above it each token is ``argmax(logits / T + g)``
+    (``sampled_tokens``), ``g`` Gumbel noise drawn step by step from
+    ``generator`` (default: a fresh one seeded 0, as JAX's default key is
+    ``PRNGKey(0)``), or taken from ``noise`` ``[max_new_tokens, B,
+    padded_vocab]`` when given (to replay another sampler's draws).  With
     ``prompt_len`` the prompt is right-padded to ``S``: the first token
     follows position ``prompt_len - 1`` and decoding overwrites the pad
     tail's cache slots (JAX's bucketed generate; causality keeps the real
     positions from seeing the pad, though an MoE gate still sees the pad
     tokens in the prefill, as JAX's does)."""
-    if temperature:
-        raise NotImplementedError(
-            "sampled decoding is not ported; generate() is greedy "
-            "(temperature=0)")
     dev = params["wte"].device
     ids = torch.as_tensor(input_ids, device=dev).long()
     B, S = ids.shape
@@ -763,6 +787,15 @@ def gpt_generate(cfg: GPTConfig, params: Dict, input_ids, max_new_tokens: int,
         raise ValueError(
             f"prompt ({S}) + max_new_tokens ({max_new_tokens}) exceeds "
             f"n_positions ({cfg.n_positions}); the KV cache cannot grow past it")
+    sample = bool(temperature) and temperature > 0     # JAX's test: <= 0 is greedy
+    if sample:
+        shape = (max_new_tokens, B, cfg.padded_vocab)
+        if noise is not None:
+            noise = torch.as_tensor(noise, dtype=torch.float32, device=dev)
+            if tuple(noise.shape) != shape:
+                raise ValueError(f"noise has shape {tuple(noise.shape)}; expected {shape}")
+        elif generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
     cache = init_kv_cache(cfg, B, max_len or (S + max_new_tokens), device=dev)
     logits, cache = gpt_apply_with_cache(cfg, params, ids, cache)
     last = logits[:, -1]
@@ -771,7 +804,12 @@ def gpt_generate(cfg: GPTConfig, params: Dict, input_ids, max_new_tokens: int,
         cache = dict(cache, pos=int(prompt_len))
     toks: List[torch.Tensor] = []
     for i in range(max_new_tokens):
-        tok = greedy_tokens(cfg, last)
+        if not sample:
+            tok = greedy_tokens(cfg, last)
+        else:
+            g = noise[i] if noise is not None else gumbel_noise(
+                (B, cfg.padded_vocab), generator, dev)
+            tok = sampled_tokens(cfg, last, temperature, g)
         toks.append(tok)
         if i + 1 < max_new_tokens:      # the last token's logits are never used
             logits, cache = gpt_apply_with_cache(cfg, params, tok[:, None], cache)
@@ -1001,9 +1039,10 @@ class GPT(nn.Module):
         return gpt_apply_with_cache(self.cfg, self.param_tree(), input_ids, cache)
 
     def generate(self, input_ids, max_new_tokens: int, temperature: float = 0.0,
-                 prompt_len: Optional[int] = None):
+                 prompt_len: Optional[int] = None, generator=None, noise=None):
         return gpt_generate(self.cfg, self.param_tree(), input_ids,
-                            max_new_tokens, temperature=temperature, prompt_len=prompt_len)
+                            max_new_tokens, temperature=temperature, prompt_len=prompt_len,
+                            generator=generator, noise=noise)
 
     def forward_logits(self, input_ids) -> torch.Tensor:
         """Full-sequence logits in eval mode (the inference engine's

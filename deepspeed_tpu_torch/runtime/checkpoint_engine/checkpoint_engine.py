@@ -22,7 +22,11 @@ Backends, by the ``checkpoint.engine`` config key:
   store.  With ``async_save`` the file is written by a background thread.
 * ``"local"``: :class:`LocalCheckpointEngine`, one ``<path>.npz`` of named
   arrays (bf16 stored as fp32, which holds every bf16 value exactly).
-* ``"faulty"`` (the JAX package's fault-injecting test backend) is item 8.
+* ``"faulty"``: a test backend, the engine named by ``config_params["inner"]``
+  (default ``"local"``) wrapped in ``testing/fault_injection.py``'s
+  :class:`FaultyCheckpointEngine`, with fault sites around every storage
+  call; ``config_params["plan"]`` gives it a plan of its own, else the
+  installed one drives it.
 
 Every save first copies each tensor to host memory on the calling thread
 (device-to-host copies into pageable buffers, then one stream sync), so
@@ -32,14 +36,13 @@ training thread stays valid while a file is written.
 
 import os
 import threading
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from deepspeed_tpu_torch.utils.logging import log_dist
 
-FAULTY = "ROADMAP.md, Queue 1 item 8 (fault injection)"
 SEP = "/"
 
 
@@ -191,11 +194,18 @@ class LocalCheckpointEngine(CheckpointEngine):
         return os.path.isfile(path + self.SUFFIX)
 
 
-def get_checkpoint_engine(name: str = "orbax", async_save: bool = False) -> CheckpointEngine:
+def get_checkpoint_engine(name: str = "orbax", async_save: bool = False,
+                          config_params: Optional[Dict] = None) -> CheckpointEngine:
     if name in ("torch", "default", "orbax"):
         return TorchCheckpointEngine(async_save=async_save)
     if name == "local":
         return LocalCheckpointEngine()
     if name == "faulty":
-        raise NotImplementedError(f"the 'faulty' checkpoint engine is not ported yet ({FAULTY})")
+        from deepspeed_tpu_torch.testing.fault_injection import (FaultInjector,
+                                                                 FaultyCheckpointEngine)
+        cp = dict(config_params or {})
+        inner = get_checkpoint_engine(cp.get("inner", "local"), async_save=async_save)
+        plan = cp.get("plan")
+        return FaultyCheckpointEngine(
+            inner, injector=FaultInjector(plan) if plan is not None else None)
     raise ValueError(f"unknown checkpoint engine {name!r}")

@@ -30,9 +30,12 @@ is::
   layout is stage 0's at every stage and world size; rank 0 writes it, and
   each rank's load takes its own partitions from it.
 
-The JAX module's telemetry events, spans and fault-injection sites
-(``ckpt.pre_save`` and the rest) belong to ROADMAP.md, Queue 1 item 8, and
-are not here.  The engine supplies ``_checkpoint_state()`` (the tree to
+Crash-critical boundaries carry the JAX module's ``fault_point`` sites
+(``testing/fault_injection.py``): ``ckpt.pre_save`` before any state is
+written, ``ckpt.mid_save`` after the state and before its metadata,
+``ckpt.pre_commit`` before the commit barrier and ``ckpt.post_commit``
+after ``latest`` moved.  Its telemetry events and spans belong to
+ROADMAP.md, Queue 1 item 8, and are not here.  The engine supplies ``_checkpoint_state()`` (the tree to
 save), ``_checkpoint_copies(tree, ...)`` (every check of a loaded tree,
 before anything is written) and ``_copy_in`` (the copies into its own
 storage).
@@ -53,6 +56,7 @@ from deepspeed_tpu_torch.runtime.checkpoint_engine.manifest import (atomic_write
                                                                     write_manifest)
 from deepspeed_tpu_torch.runtime.fault_tolerance import (CheckpointCorruptError,
                                                          CheckpointWriteError, retry_transient)
+from deepspeed_tpu_torch.testing.fault_injection import fault_point
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
 LATEST_FILE = "latest"
@@ -123,8 +127,10 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     os.makedirs(work_dir, exist_ok=True)
     ce = _ckpt_engine(engine)
     ce.create(tag)
+    fault_point("ckpt.pre_save", tag=tag, path=work_dir)
     _retry(ft, "save", lambda: ce.save(tree, os.path.join(work_dir, STATE)))
     del tree
+    fault_point("ckpt.mid_save", tag=tag, path=work_dir)
 
     sched = engine.lr_scheduler
     meta = {
@@ -151,6 +157,7 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     def _finalize():
         # commit is the durability barrier; only a durable, verified
         # checkpoint may become 'latest'
+        fault_point("ckpt.pre_commit", tag=tag, path=work_dir)
         _retry(ft, "commit", lambda: ce.commit(tag))
         if atomic:
             write_manifest(work_dir, extra={"tag": tag, "global_steps": global_steps,
@@ -158,6 +165,7 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
             _promote(work_dir, final_dir)
         if save_latest:
             atomic_write_text(os.path.join(save_dir, LATEST_FILE), tag)
+        fault_point("ckpt.post_commit", tag=tag, path=final_dir)
         _gc_old_tags(save_dir, keep_last_n=int(ft.keep_last_n), protect={tag})
         log_dist(f"saved checkpoint {final_dir}", ranks=[0])
 

@@ -104,6 +104,7 @@ from deepspeed_tpu_torch.runtime.zero.partition_parameters import (FlatStore,
                                                                    PartitionedParameters,
                                                                    init_ctx_active, named_tree)
 from deepspeed_tpu_torch.runtime.zero.policy import ZeroLayout, zero_min_size
+from deepspeed_tpu_torch.testing.fault_injection import fault_point
 from deepspeed_tpu_torch.utils.logging import log_dist
 from deepspeed_tpu_torch.utils.timer import ThroughputTimer
 
@@ -537,6 +538,9 @@ class DeepSpeedEngine:
         self.global_steps += 1
         if self.lr_scheduler is not None:
             self.lr_scheduler.step()
+        # on the host after the step (a graphed step's replay included),
+        # never inside a capture
+        fault_point("train.step", step=self.global_steps)
 
     # ------------------------------------------------------------------ #
     # Introspection (the JAX engine's property surface)

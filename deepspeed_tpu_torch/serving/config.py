@@ -2,9 +2,6 @@
 (counterpart of ``deepspeed_tpu/serving/config.py``; ``torch_dtype`` takes
 the place of ``jnp_dtype``).
 
-Out of this slice, and refused by the engine when set: ``kv_tiering`` and
-``serve_step_timeout_s > 0``.
-
 The reference snapshot (v0.8.3) predates DeepSpeed-FastGen, so there is no
 reference config surface to mirror; the knobs follow the same shape
 philosophy as the rest of ``runtime/config.py``: one pydantic block, safe
@@ -49,8 +46,10 @@ class DeepSpeedServingConfig(DeepSpeedConfigModel):
     kv_offload_dir: Optional[str] = None   # None -> private tempdir
     kv_host_cache_bytes: int = 1 << 30     # host-LRU tier budget
     kv_spill_budget_bytes: int = 0         # total spill cap; 0 = unbounded
-    kv_spill_chunk_blocks: int = 8         # copy-ring chunk (blocks)
-    kv_ring_depth: int = 2                 # outstanding D2H chunk gathers
+    # JAX's copy-ring chunk (blocks) and outstanding D2H gathers; the
+    # port copies a spill in one stream-ordered gather (serving/kv_tiering.py)
+    kv_spill_chunk_blocks: int = 8
+    kv_ring_depth: int = 2
     # ---- prefix cache (serving/prefix_cache.py) --------------------------- #
     prefix_cache: bool = False        # share full prompt blocks, refcounted
     prefix_cache_blocks: int = 0      # pinned-block cap; 0 = unbounded

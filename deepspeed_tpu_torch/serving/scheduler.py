@@ -5,8 +5,8 @@ Pure-host control plane for ``serving/engine.py``: admission, the
 prefill/decode split with chunked prefill, and SLO-class preemption.  The
 scheduler owns request state and drives the :class:`PagedKVAllocator`; it
 never touches the device, so every policy below is unit-testable on CPU in
-microseconds.  The tiering hooks stay (duck-typed, ``None`` by default);
-the port's engine does not install a tiering manager yet.
+microseconds.  The tiering hooks are duck-typed, ``None`` by default;
+the engine installs its adapter when ``kv_tiering`` is on.
 
 Scheduling policy (see README § Serving):
 

@@ -152,7 +152,7 @@ def test_load_checkpoint_leaves_a_training_engines_model_alone(tmp_path):
 
 
 @pytest.mark.parametrize("config", [{"max_out_tokens": 64}, {"checkpoint": "ckpt.json"},
-                                    {"seed": 3}, {"moe": {"num_experts": 4}},
+                                    {"min_out_tokens": 2}, {"moe": {"num_experts": 4}},
                                     {"tensor_parallel": {"enabled": False}}])
 def test_config_keys_the_port_does_not_read_raise(config):
     _, _, port = models("dense")

@@ -188,8 +188,9 @@ def test_deadline_expiry_frees_blocks(models):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"config": {"kv_tiering": True}},
-    {"config": {"serve_step_timeout_s": 5.0}},
+    # tiering and bounded dispatch are taken; the planes beside them are not
+    {"config": {"kv_tiering": True}, "telemetry": object()},
+    {"config": {"serve_step_timeout_s": 5.0}, "tracer": object()},
     {"telemetry": object()},
     {"tracer": object()},
     {"model_seed": 3},

@@ -198,14 +198,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    over that bandwidth), peak device memory and pinned host bytes beside
    the memory model's plan, the loss finite and falling;
 30. Llama-3-8B's widths at stage 3 with both offloads, micro 4 x seq 2048
-   (phase 15's cell), at the deepest cut (at least 16 layers) whose 12
-   pinned bytes a parameter fit what MemAvailable leaves: phase 29's
-   readings and TFLOPs by bench.py's formula;
-31. tiered KV: Llama-3-8B at all 32 layers in bf16 through ``init_serving``
-   (seeded weights; KV 128 KiB a token, 2 MiB a 16-token block), 12
+   (phase 15's cell), at 16 layers, whose 12 pinned bytes a parameter must
+   fit what MemAvailable leaves: phase 29's readings and TFLOPs by
+   bench.py's formula;
+31. tiered KV: Llama-3-8B at 16 of its 32 layers in bf16 through
+   ``init_serving`` (seeded weights; KV 64 KiB a token, 1 MiB a 16-token
+   block), 12
    requests of 300-700 prompt tokens and 64 new in three waves of rising
    SLO class (TIERED_WAVES), served in a roomy arena, then in 192 blocks
-   with ``kv_tiering`` (host cache 256 MiB, disk tier under $TMPDIR or the
+   with ``kv_tiering`` (host cache 128 MiB, disk tier under $TMPDIR or the
    checkout, whichever has more room) and without it: every restaged
    block equal byte for byte to what was spilled (``RestageCheck``, apart
    from the tiering code), at least one restage from the disk tier,
@@ -235,8 +236,30 @@ Phases, each printing its own lines; any failure exits non-zero:
    recomputing one and a wedged one with bounded dispatch, each held
    token for token to the roomy run with phase 4's 1e-4 near-tie bound,
    so that every request of the recovered and the tiered runs is
-   compared to its end, and the roomy run's top-two gap spread.
-Each phase prints its seconds, and the total is printed after phase 34.
+   compared to its end, and the roomy run's top-two gap spread;
+35. the telemetry plane on phase 5's serving cell (GPT-2 XL bf16 through
+   ``init_serving``, 8 slots, its prompts), four runs in turn (off,
+   scraped, hub, off): telemetry off; a dict-built hub
+   (JSONL, ``flush_every`` 8, metrics, the default SLO rules, tracing into
+   a ``trace_dir``) with the ops server on an ephemeral port while a thread
+   scrapes ``/metrics`` and ``/healthz`` over HTTP every 0.1 s; the same
+   hub without the ops server: the same tokens in all four; in each hub run
+   one finished ``serve_request`` record a request and ``serve_step``
+   records, the ``serve.step`` / ``serve.prefill`` / ``serve.decode``
+   spans, and in each scraped run a mid-run scrape with ``serve_ttft_ms``
+   counted and blocks in use and ``/healthz`` healthy with
+   ``serve_arena``; 48 paged launches a dispatch; the median decode step
+   and TTFT of each setting, and each run's tokens/s;
+36. the telemetry plane on phase 7's training cell (GPT-2 bf16, seq 512,
+   micro 8, ``train_batch``): 24 steps from one seed with the
+   ``telemetry`` block off (each step's loss and grad norm read after it)
+   and on (JSONL with ``flush_every`` 5, metrics, goodput, tracing, a
+   profiler window over steps 10-12): losses and parameters bit for bit
+   equal, each step record's loss and grad norm equal to the off run's,
+   one capture and the launch counters equal to the captured graph's
+   kernel nodes, ``EFFICIENCY.json`` written, the profiler's Chrome trace
+   holding device events; the graphed step's median off and on.
+Each phase prints its seconds, and the total is printed after phase 36.
 
 Phase 2 also prints the registers, spills, blocks per SM and shared
 memory of the kernels the tree redesigned last (the cross-entropy forward
@@ -257,7 +280,7 @@ must give bitwise-equal dQ, dK and dV, and
 the fixed split lengths of DKV_SPLITS are held to the same tolerances and
 timed beside the kept one at each bf16 case.
 
-Each run of phases 4-5, 7-34 (generate(), each serve, the timed
+Each run of phases 4-5, 7-36 (generate(), each serve, the timed
 graphed and eager training steps, each fp32 training run) zeroes the launch
 counters just before it and reads them just after: its kernels must have
 launched (a replay counts every launch of its graph; the capture counts
@@ -472,10 +495,10 @@ ZERO3_OFFLOAD = {"stage": 3, "offload_param": OFFLOAD, "offload_optimizer": OFFL
 # overshoots from its fourth step)
 ZERO_XL = (2, 3, 1, 3)
 # phase 30: Llama-3-8B's widths at stage 3 with both offloads, micro 4 x seq
-# 2048 (phase 15's cell): the deepest that the host holds (12 bytes a
-# parameter pinned: fp32 master and two moments), at least LLAMA_MIN_LAYERS;
-# warm-up, timed graphed and eager steps
-LLAMA_OFFLOAD = (2, 2, 1)
+# 2048 (phase 15's cell) at LLAMA_MIN_LAYERS layers, if the host holds them
+# (12 bytes a parameter pinned: fp32 master and two moments); warm-up,
+# timed graphed and eager steps
+LLAMA_OFFLOAD = (2, 1, 1)       # warm-up, timed, eager steps (~4.6 s each)
 LLAMA_MIN_LAYERS = 16
 # of MemAvailable, the part phase 30 leaves to the rest of the machine
 HOST_RESERVE_FRACTION, HOST_RESERVE_BYTES = 0.15, 4 << 30
@@ -524,6 +547,11 @@ CE_SOFTMAX_TOL = {"float32": 1e-5, "bfloat16": 2e-3}
 # CE_HEAD_STD gives at E 768.  fp32 cases are timed over fewer calls (a
 # call takes seconds there)
 CE_FAMILY_VOCABS = {"llama3-8b": 128256, "bloom-7b1": 250880}
+# the (family, head bias) cases that run in fp32 too, a call taking
+# seconds at these shapes: both of Llama's and BLOOM's without a bias
+# (BLOOM's with a bias is held in bf16 only, to keep the whole script
+# inside 1200 s)
+CE_FAMILY_FP32 = {("llama3-8b", False), ("llama3-8b", True), ("bloom-7b1", False)}
 CE_FAMILY_HEAD_STD = CE_HEAD_STD * (768 / 4096) ** 0.5
 # ... and the forward's and softmax part's tolerances scaled by sqrt(4096 /
 # 768): a score sums 4096 products, not 768, and the kernels' fp32
@@ -637,12 +665,16 @@ DKV_SPLITS = (None, 8, 16, 32)
 # prompts x prompt length, new tokens, the long forward's length
 INJECT_LAYERS, INJECT_FORWARD = 2, 300
 INT8_PROMPTS, INT8_PROMPT_LEN, INT8_NEW, INT8_FORWARD = 8, 64, 32, 2048
-# phases 31-32: Llama-3-8B at all 32 layers in bf16 under arena pressure.
-# One block of 16 tokens holds 2 x 32 layers x 8 kv heads x 128 x 2 B x 16
-# = 2 MiB of KV; the arena's 192 usable blocks (384 MiB) hold about half
-# of what 12 requests of 300-700 prompt tokens and 64 new tokens need
-# (6,778 tokens, 424 blocks), so preemption spills, and a host cache of 256
-# MiB (about four spills) sends older spills to the disk tier.  The roomy
+# phases 31-32: Llama-3-8B's widths at TIERED_LAYERS of its 32 layers in
+# bf16 under arena pressure (the whole script must finish in 1200 s: one
+# H100 machine with a slow host took 1191 s with all 32 layers, and
+# another 1191 s with 16, these phases taking 136 s of it).  One block of
+# 16 tokens holds 2 x 8 layers x 8 kv heads x 128 x 2 B x 16 = 0.5 MiB of
+# KV; the arena's 192 usable blocks (96 MiB) hold about half of what 12
+# requests of 300-700 prompt tokens and 64 new tokens need (6,778 tokens,
+# 424 blocks), so preemption spills, and a host cache of 64 MiB (128
+# blocks, as 256 MiB held at 32 layers: about four spills) sends older
+# spills to the disk tier.  The roomy
 # arena holds 8 slots of the longest request (48 blocks each).  They come
 # in three waves of rising SLO class (count, class, engine steps before the
 # next wave): the standard wave's admissions spill batch requests, the
@@ -653,7 +685,8 @@ TIERED_LENS = [300, 700, 420, 650, 350, 560, 610, 480, 330, 690, 520, 400]
 TIERED_WAVES = ((5, "batch", 50), (4, "standard", 40), (3, "realtime", 0))
 TIERED_NEW = 64
 TIERED_BLOCKS, TIERED_ROOMY_BLOCKS = 193, 8 * 48 + 1
-TIERED_HOST_BYTES = 256 << 20
+TIERED_LAYERS = 8
+TIERED_HOST_BYTES = 64 << 20
 # bounded dispatch: the deadline is this many times the tiered run's median
 # step (never below TIMEOUT_FLOOR_S), and the wedge takes the serve.step hit
 # WEDGE_HIT, well after each phase's first (inline) dispatch
@@ -1888,7 +1921,8 @@ def fp64_distance(x, head, labels, lse, gscale, dx, rdx, klse, card: str) -> Non
 def ce_family_cases(device, flush, card: str, reps: int = 5, fp32_reps: int = 1):
     """The three cross-entropy kernels at the families' training shape
     (N 8192 = micro 4 x seq 2048, E 4096: the backward's wide path) over
-    CE_FAMILY_VOCABS, with and without a head bias, fp32 and bf16, against
+    CE_FAMILY_VOCABS, with and without a head bias, bf16 (and fp32 for the
+    cases of CE_FAMILY_FP32), against
     the plain versions with fp32 products, phase 6's CE_* tolerances (the
     forward's and the softmax part's times CE_FAMILY_WIDTH_SCALE; the bias
     gradient held as dhead is); beside each, ``x @ head^T (+ b)`` and
@@ -1904,7 +1938,9 @@ def ce_family_cases(device, flush, card: str, reps: int = 5, fp32_reps: int = 1)
     rows = []
     for cell, V in CE_FAMILY_VOCABS.items():
         for bias in (False, True):
-            for dtype_name in ("float32", "bfloat16"):
+            dtypes = (("float32", "bfloat16") if (cell, bias) in CE_FAMILY_FP32
+                      else ("bfloat16",))
+            for dtype_name in dtypes:
                 dtype = getattr(torch, dtype_name)
                 case = f"{cell}-train" + ("-bias" if bias else "")
                 gen = torch.Generator(device=device)
@@ -2009,7 +2045,7 @@ def ce_family_cases(device, flush, card: str, reps: int = 5, fp32_reps: int = 1)
                         f" launches a call"))
                 del xr, hr, br, outs, x, head, b, dx, dh, rdh, args, rlse
                 torch.cuda.empty_cache()
-            report_rows(rows[-6:])
+            report_rows(rows[-3 * len(dtypes):])
     return rows
 
 
@@ -3527,20 +3563,21 @@ def phase_zero_offload(device, card: str, label: str, bandwidth, stage0_device_m
 
 
 def llama_offload_depth(available: int):
-    """The deepest cut of Llama-3-8B's widths (at least LLAMA_MIN_LAYERS)
-    whose pinned host state (``host_state_bytes``) fits what MemAvailable
-    leaves after HOST_RESERVE_*: (layers, params, host bytes)."""
+    """Llama-3-8B's widths at LLAMA_MIN_LAYERS layers, whose pinned host
+    state (``host_state_bytes``) must fit what MemAvailable leaves after
+    HOST_RESERVE_*: (layers, params, host bytes).  The deepest cut that
+    fits, 20 layers on an H100 machine's host, took ~12 s more of the
+    script's 1200 s."""
     from deepspeed_tpu_torch.models.gpt import count_params, llama_config
     from deepspeed_tpu_torch.runtime import memory_model as mm
     _, kw, _ = FAMILY_CELLS["llama3-8b"]
     room = (1 - HOST_RESERVE_FRACTION) * available - HOST_RESERVE_BYTES
-    for layers in range(kw["n_layer"], LLAMA_MIN_LAYERS - 1, -1):
-        n = count_params(llama_config(**dict(kw, n_layer=layers)))
-        host = mm.host_state_bytes(n, 1, True, True)
-        if host <= room:
-            return layers, n, host
-    fail(f"MemAvailable {available / 2 ** 30:.1f} GiB holds fewer than {LLAMA_MIN_LAYERS} "
-         f"layers of Llama-3-8B's offloaded state")
+    n = count_params(llama_config(**dict(kw, n_layer=LLAMA_MIN_LAYERS)))
+    host = mm.host_state_bytes(n, 1, True, True)
+    if host > room:
+        fail(f"MemAvailable {available / 2 ** 30:.1f} GiB holds fewer than {LLAMA_MIN_LAYERS} "
+             f"layers of Llama-3-8B's offloaded state")
+    return LLAMA_MIN_LAYERS, n, host
 
 
 # --------------------------------------------------------------------------- #
@@ -3807,20 +3844,20 @@ def tiering_numbers(r, card: str, label: str = "tiering"):
 
 
 def tiered_cell(device):
-    """Phases 31-32's cell: Llama-3-8B at its published widths and all 32
-    layers in bf16 (seeded weights, made in bf16 on the card), the 12
+    """Phases 31-32's cell: Llama-3-8B at its published widths and
+    TIERED_LAYERS layers in bf16 (seeded weights, made in bf16 on the card), the 12
     requests, the near-tie bound of its bf16 paths, and a folder for the
     disk tier (under $TMPDIR or the checkout, whichever has more room)."""
     import torch
     from deepspeed_tpu_torch.models import gpt as gpt_mod
 
     ctor, kw, _ = FAMILY_CELLS["llama3-8b"]
-    cfg = getattr(gpt_mod, ctor)(**kw, dtype="bfloat16")
+    cfg = getattr(gpt_mod, ctor)(**dict(kw, n_layer=TIERED_LAYERS), dtype="bfloat16")
     model = gpt_mod.GPT(cfg, device=device, seed=0, param_dtype=torch.bfloat16)
     block = 2 * cfg.n_layer * BS * cfg.kv_heads * cfg.head_dim * 2
     prompts = make_prompts(cfg.vocab_size, TIERED_LENS, seed=31)
     need = sum(-(-(n + TIERED_NEW) // BS) for n in TIERED_LENS)
-    say(f"model: llama3-8b bf16 at all {cfg.n_layer} layers; KV {block // BS // 1024} KiB a "
+    say(f"model: llama3-8b bf16 at {cfg.n_layer} of {kw['n_layer']} layers; KV {block // BS // 1024} KiB a "
         f"token, {block / 2 ** 20:.0f} MiB a {BS}-token block; {len(prompts)} requests of "
         f"{min(TIERED_LENS)}-{max(TIERED_LENS)} prompt tokens + {TIERED_NEW} new need {need} "
         f"blocks; tiered arena {TIERED_BLOCKS - 1} blocks "
@@ -3987,8 +4024,8 @@ def phase_tiered_fp32(device, card: str):
     cfg = getattr(gpt_mod, ctor)(**dict(kw, n_layer=FP32_TIER_LAYERS), dtype="float32")
     model = gpt_mod.GPT(cfg, device=device, seed=0)
     prompts = make_prompts(cfg.vocab_size, TIERED_LENS, seed=31)
-    # phase 31's host cache in that cell's blocks (bf16, all layers)
-    host = TIERED_HOST_BYTES * (FP32_TIER_LAYERS * 4) // (kw["n_layer"] * 2)
+    # phase 31's host cache in that cell's blocks (bf16, TIERED_LAYERS)
+    host = TIERED_HOST_BYTES * (FP32_TIER_LAYERS * 4) // (TIERED_LAYERS * 2)
     root = tempfile.mkdtemp(prefix="chip_smoke_kv_", dir=max(
         (tempfile.gettempdir(), str(Path(__file__).resolve().parent)),
         key=lambda d: shutil.disk_usage(d).free))
@@ -4033,6 +4070,380 @@ def phase_tiered_fp32(device, card: str):
     gc.collect()
     torch.cuda.empty_cache()
     return dict(counts=counts, ties=ties, spread=spread, tiering=numbers)
+
+
+# ---- 35-36: the telemetry plane ------------------------------------------------ #
+OPS_FLUSH_EVERY = 8              # phase 35's hub: JSONL flush window (records)
+OPS_SCRAPE_S = 0.1               # the scraper thread's period
+OPS_TRAIN_STEPS, OPS_TRAIN_WARMUP = 24, 2
+OPS_TRAIN_FLUSH_EVERY = 5
+OPS_PROFILE_WINDOW = (10, 12)    # phase 36's profiler window, [start, end) steps
+DEVICE_EVENT_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+class Scraper:
+    """A thread that GETs ``/metrics`` and ``/healthz`` of an ops server
+    every ``period`` seconds until ``stop()``; a scrape counts as mid-run
+    when ``live`` was set before its requests and still after them."""
+
+    def __init__(self, url: str, period: float = OPS_SCRAPE_S):
+        import threading
+        self.url, self.period = url, period
+        self.live = False
+        self.scrapes, self.errors = [], []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, name="chip-smoke-scraper",
+                                        daemon=True)
+
+    def _get(self, path):
+        import urllib.error
+        import urllib.request
+        try:
+            with urllib.request.urlopen(self.url + path, timeout=5) as r:
+                return r.status, r.read().decode()
+        except urllib.error.HTTPError as e:      # /healthz answers 503 when unhealthy
+            return e.code, e.read().decode()
+
+    def _loop(self):
+        while not self._stop.is_set():
+            before = self.live
+            try:
+                metrics = self._get("/metrics")
+                health = self._get("/healthz")
+            except Exception as e:
+                self.errors.append(repr(e))
+            else:
+                self.scrapes.append({"mid_run": before and self.live,
+                                     "metrics": metrics, "health": health})
+            self._stop.wait(self.period)
+
+    def start(self):
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=30)
+        if self._thread.is_alive():
+            fail("the ops-server scraper thread did not stop")
+
+
+def prom_value(text: str, name: str):
+    """The value of an unlabelled Prometheus series, or None."""
+    m = re.search(rf"^{re.escape(name)} (\S+)$", text, re.MULTILINE)
+    return float(m.group(1)) if m else None
+
+
+def ops_serve_run(model, prompts, device, card: str, label: str, telemetry=None):
+    """One phase-5 serving run of ``model`` (bf16, 8 slots, 512 blocks)
+    through ``init_serving``: a warm-up request, then ``serve``'s staggered
+    traffic, counted.  With ``telemetry`` (a config dict) a ``Scraper``
+    runs beside it.  Returns tokens, times, counts and the scrapes."""
+    import torch
+    import deepspeed_tpu_torch as dst
+
+    kw = {} if telemetry is None else {"telemetry": telemetry}
+    eng = dst.init_serving(model=model, device=device, config={"serving": dict(
+        SERVE_CFG, num_blocks=512, dtype="bfloat16")}, **kw)
+    eng.submit(prompts[0][:20], max_new_tokens=4).result()    # warm-up
+    dispatches = []
+    inner = eng.module.paged_step
+
+    def counted_step(*args):
+        out = inner(*args)
+        dispatches.append(torch.isfinite(out[0]).all())
+        return out
+    eng.module.paged_step = counted_step
+    step_ms, decode_ms = [], []
+
+    def on_step(dt, stats):
+        step_ms.append(dt * 1e3)
+        if stats["decode_batch"] and not stats["prefill_tokens"]:
+            decode_ms.append(dt * 1e3)
+
+    scraper = None
+    if telemetry is not None and telemetry.get("ops_server"):
+        if eng.telemetry is None or eng.telemetry.obs_server is None:
+            fail(f"{label}: the dict-built hub has no ops server")
+        scraper = Scraper(eng.telemetry.obs_server.url).start()
+        scraper.live = True
+    try:
+        t0 = time.perf_counter()
+        futs, counts = counted(f"{label} serve", {"paged_attention": None},
+                               lambda: serve(eng, prompts, NEW_TOKENS, on_step))
+        wall = time.perf_counter() - t0
+    finally:
+        if scraper is not None:
+            scraper.live = False
+            scraper.stop()
+    if not all(bool(f) for f in dispatches):
+        fail(f"{label}: non-finite logits")
+    if any(len(f.token_ids) != NEW_TOKENS for f in futs):
+        fail(f"{label}: a request did not produce all its tokens")
+    per = model.cfg.n_layer
+    if counts["paged_attention"] != per * len(dispatches):
+        fail(f"{label}: {counts['paged_attention']} paged launches in {len(dispatches)} "
+             f"dispatches, expected {per} per dispatch")
+    ntok = sum(len(f.token_ids) for f in futs)
+    ttft = [(f.request.first_token_at - f.request.arrival) * 1e3 for f in futs]
+    out = dict(tokens=[f.token_ids for f in futs], tokens_per_s=ntok / wall,
+               ttft_ms=statistics.median(ttft), decode_step_ms=statistics.median(decode_ms),
+               decode_ms=decode_ms, ttfts=ttft, dispatches=len(dispatches), counts=counts,
+               scraper=scraper, submitted=eng._rid_counter)
+    say(f"{label}: {len(futs)} requests, {ntok} tokens in {wall:.3f}s = "
+        f"{out['tokens_per_s']:.1f} tokens/s; median TTFT {out['ttft_ms']:.1f} ms; median "
+        f"decode step {out['decode_step_ms']:.2f} ms ({len(decode_ms)} pure decode steps); "
+        f"{len(dispatches)} dispatches, {per} paged launches each [{card}]")
+    eng.close()
+    return out
+
+
+def check_ops_run(on, label: str):
+    """The checks of a run with the hub: one finished ``serve_request``
+    record a request and ``serve_step`` records in the JSONL, the three
+    serving spans in the Chrome trace; with the ops server scraped, a
+    mid-run scrape with ``serve_ttft_ms`` counted and blocks in use and
+    ``/healthz`` healthy with ``serve_arena``."""
+    sc, records, trace = on["scraper"], on["records"], on["trace"]
+    finished = [r["rid"] for r in records
+                if r.get("kind") == "serve_request" and r.get("event") == "finished"]
+    if sorted(finished) != list(range(1, on["submitted"] + 1)):
+        fail(f"{label}: finished serve_request records for rids {sorted(finished)}, "
+             f"expected one each for 1..{on['submitted']}")
+    n_steps = sum(r.get("kind") == "serve_step" for r in records)
+    if n_steps < 1:
+        fail(f"{label}: no serve_step record in the JSONL")
+    spans = {e["name"] for e in trace["traceEvents"] if e.get("ph") == "X"}
+    missing = {"serve.step", "serve.prefill", "serve.decode"} - spans
+    if missing:
+        fail(f"{label}: the Chrome trace lacks the spans {sorted(missing)}")
+    said = (f"JSONL {len(records)} records ({len(finished)} finished serve_request, {n_steps} "
+            f"serve_step); trace spans {sorted(spans)}")
+    if sc is None:
+        say(f"{label}: {said}")
+        return
+    mid = [s for s in sc.scrapes if s["mid_run"]]
+    live = [s for s in mid if s["metrics"][0] == 200
+            and (prom_value(s["metrics"][1], "dstpu_serve_ttft_ms_count") or 0) > 0
+            and (prom_value(s["metrics"][1], "dstpu_serve_blocks_in_use") or 0) > 0]
+    if not live:
+        fail(f"{label}: no mid-run /metrics scrape showed serve_ttft_ms counted and blocks "
+             f"in use ({len(mid)} mid-run scrapes, {len(sc.errors)} errors: {sc.errors[:2]})")
+    code, body = live[-1]["health"]
+    health = json.loads(body)
+    if code != 200 or not health.get("healthy") or "serve_arena" not in health.get("checks", {}):
+        fail(f"{label}: /healthz mid-run answered {code} {body[:300]}")
+    say(f"{label}: {len(sc.scrapes)} scrapes ({len(mid)} mid-run, {len(live)} with TTFT "
+        f"counted, the last of them "
+        f"{prom_value(live[-1]['metrics'][1], 'dstpu_serve_ttft_ms_count'):.0f} requests), "
+        f"/healthz {code} with checks {sorted(health['checks'])}; {said}")
+
+
+#: phase 35's runs in turn: the hub with its ops server scraped by a
+#: thread, then OPS_PAIRS pairs of runs with telemetry off and with the hub
+#: alone, in the order off-hub, hub-off, ... so that a drift of the host's
+#: speed over the phase falls on both settings alike
+OPS_PAIRS = 3
+OPS_RUNS = ("scraped",) + sum((("off", "hub") if i % 2 == 0 else ("hub", "off")
+                               for i in range(OPS_PAIRS)), ())
+
+
+def quartiles(values):
+    """(first quartile, median, third quartile) of ``values``."""
+    q = statistics.quantiles(values, n=4, method="inclusive")
+    return q[0], q[1], q[2]
+
+
+def phase_ops_serve(device, card: str):
+    """Phase 35: phase 5's serving cell (GPT-2 XL bf16, 8 slots, its
+    prompts) through ``init_serving``, the runs of OPS_RUNS in turn: a
+    dict-built hub (JSONL, ``flush_every`` OPS_FLUSH_EVERY, metrics, the
+    default SLO rules, tracing into a ``trace_dir``) with the ops server on
+    an ephemeral port while a thread scrapes ``/metrics`` and ``/healthz``
+    ("scraped"); then OPS_PAIRS pairs of a run with telemetry off ("off")
+    and one with the same hub without the ops server ("hub").  The same
+    tokens in all; each hub run passes ``check_ops_run``; ``n_layer``
+    paged launches a dispatch in every run.  Each run's median decode
+    step; each setting's quartiles of them; the hub's gap in the median
+    and in each pair; median TTFT and tokens/s."""
+    import torch
+    from deepspeed_tpu_torch.models.gpt import GPT, gpt_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = gpt_config("gpt2-xl", dtype="bfloat16")
+    model = GPT(cfg, device=device, seed=0, param_dtype=torch.bfloat16)
+    prompts = make_prompts(cfg.vocab_size, PROMPT_LENS)
+    runs = {kind: [] for kind in OPS_RUNS}
+    for i, kind in enumerate(OPS_RUNS):
+        label = f"ops plane {kind} ({i + 1} of {len(OPS_RUNS)}): bf16 gpt2-xl"
+        if kind == "off":
+            runs[kind].append(ops_serve_run(model, prompts, device, card, label))
+            continue
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ops_") as tmp:
+            jsonl = os.path.join(tmp, "serve.jsonl")
+            on = ops_serve_run(model, prompts, device, card, label, telemetry={
+                "enabled": True, "jsonl_path": jsonl, "flush_every": OPS_FLUSH_EVERY,
+                "metrics": True, "ops_server": kind == "scraped", "ops_port": 0,
+                "tracing": True, "trace_dir": tmp})
+            on["records"] = [json.loads(line) for line in Path(jsonl).read_text().splitlines()]
+            on["trace"] = json.loads(Path(tmp, "trace_rank0.json").read_text())
+        check_ops_run(on, label)
+        runs[kind].append(on)
+    first = runs["off"][0]["tokens"]
+    for kind, rs in runs.items():
+        for r in rs:
+            if r["tokens"] != first:
+                bad = sum(a != b for a, b in zip(r["tokens"], first))
+                fail(f"ops plane: {bad} requests' tokens differ between the runs ({kind})")
+    per_run = {k: [statistics.median(r["decode_ms"]) for r in rs] for k, rs in runs.items()}
+    med = {k: {"decode_step_ms": statistics.median(per_run[k]),
+               "ttft_ms": statistics.median(x for r in rs for x in r["ttfts"]),
+               "tokens_per_s": [r["tokens_per_s"] for r in rs]} for k, rs in runs.items()}
+    gap = {k: med[k]["decode_step_ms"] / med["off"]["decode_step_ms"] - 1.0
+           for k in ("hub", "scraped")}
+    # run i of "hub" and run i of "off" are adjacent (OPS_RUNS)
+    pairs = [h / o - 1.0 for h, o in zip(per_run["hub"], per_run["off"])]
+    spread = {k: quartiles(per_run[k]) for k in ("off", "hub")}
+    say(f"summary: ops plane on gpt2-xl bf16 serving (phase 5's cell), runs "
+        f"{' / '.join(OPS_RUNS)}, tokens equal in all: each run's median decode step "
+        + "; ".join(f"{k} [{', '.join(f'{v:.3f}' for v in per_run[k])}] ms"
+                    for k in ("off", "hub", "scraped"))
+        + "; quartiles of the runs' medians " + "; ".join(
+            f"{k} {q1:.3f} / {q2:.3f} / {q3:.3f} ms (IQR {(q3 - q1) / q2:.1%} of the median)"
+            for k, (q1, q2, q3) in spread.items())
+        + f"; hub gap in the median {gap['hub']:+.1%}, in each pair "
+        f"[{', '.join(f'{g:+.1%}' for g in pairs)}] (median {statistics.median(pairs):+.1%}); "
+        f"scraped {gap['scraped']:+.1%}; median TTFT "
+        + "; ".join(f"{k} {med[k]['ttft_ms']:.1f}" for k in ("off", "hub", "scraped"))
+        + " ms; tokens/s " + "; ".join(
+            f"{k} {', '.join(f'{v:.1f}' for v in med[k]['tokens_per_s'])}"
+            for k in ("off", "hub", "scraped")) + f" [{card}]")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(runs=runs, gap=gap, medians=med, pairs=pairs, spread=spread)
+
+
+def device_events(trace) -> list:
+    return [e for e in trace.get("traceEvents", [])
+            if e.get("ph") == "X" and e.get("cat") in DEVICE_EVENT_CATS]
+
+
+def ops_train_run(device, card: str, label: str, telemetry=None):
+    """OPS_TRAIN_STEPS graphed steps of phase 7's GPT-2 cell (seq 512, micro
+    8, bf16) from seed 0; each step timed to the device's drain.  Without
+    telemetry each step's loss and grad norm are read after it.  Returns
+    the values, the final parameters, times, counts and the engine's
+    graph facts."""
+    import torch
+    from deepspeed_tpu_torch.models.gpt import GPT, gpt_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = gpt_config("gpt2", n_positions=TRAIN_SEQ, remat=True)
+    model = GPT(cfg, device=device, seed=0)
+    config = dict(TRAIN_CFG) if telemetry is None else dict(TRAIN_CFG, telemetry=telemetry)
+    engine = train_engine(model, config, device)
+    engine.graphs.accelerator = KeptGraphs(engine.graphs.accelerator)
+    batch = train_batch_of(cfg.vocab_size, device)
+    losses, norms = [], []
+
+    def step():
+        loss = engine.train_batch(batch=batch)
+        if telemetry is None:
+            losses.append(float(loss))
+            norms.append(engine.get_global_grad_norm())
+        return loss
+    for _ in range(OPS_TRAIN_WARMUP):
+        step()
+    torch.cuda.synchronize()
+    n = OPS_TRAIN_STEPS - OPS_TRAIN_WARMUP
+    ce = kernel_modules()[1].launches_per_call(TRAIN_MICRO * TRAIN_SEQ, cfg.n_embd,
+                                               cfg.padded_vocab, torch.bfloat16)
+    (_, host_ms, wall_ms), counts = counted(
+        f"{label} graphed ({n} steps)",
+        train_expect("auto", TRAIN_SEQ, cfg.n_layer, n, ce_launches=ce,
+                     adam_launches=adam_launches(engine)),
+        lambda: timed_steps(step, n))
+    if engine.graphs.captures != 1:
+        fail(f"{label}: {engine.graphs.captures} captures for one batch signature")
+    nodes, n_nodes = graph_kernel_counts(engine)
+    for k, per in nodes.items():
+        if counts.get(k, 0) != per * n:
+            fail(f"{label}: {k} launched {counts.get(k, 0)} times in {n} replays of a graph "
+                 f"with {per} of its kernel nodes")
+    params = param_copies(model)
+    window = engine.profiler_window
+    out = dict(losses=losses, norms=norms, params=params, step_ms=statistics.median(wall_ms),
+               host_ms=statistics.median(host_ms), counts=counts, nodes=n_nodes,
+               trace_path=window.trace_path if window is not None else None)
+    engine.close()
+    return out
+
+
+def phase_ops_train(device, card: str):
+    """Phase 36: phase 7's GPT-2 cell (seq 512, micro 8, bf16) through
+    ``initialize()`` -> ``train_batch``, OPS_TRAIN_STEPS steps from one seed
+    with the ``telemetry`` block off (each step's loss and grad norm read
+    after it), then on (JSONL with ``flush_every`` OPS_TRAIN_FLUSH_EVERY,
+    metrics, goodput, tracing, a profiler window over OPS_PROFILE_WINDOW):
+    losses and parameters bit for bit equal; each step record's loss and
+    grad norm equal to the off run's for that step (the static outputs of
+    the replay are copied per step); one capture and the launch counters
+    equal to the graph's kernel nodes in both; ``EFFICIENCY.json``
+    written; the profiler's trace valid Chrome-trace JSON with device
+    events.  The graphed step's median with telemetry off and on."""
+    import torch
+
+    off = ops_train_run(device, card, "ops plane off: bf16 train gpt2 seq 512")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ops_train_") as tmp:
+        jsonl = os.path.join(tmp, "train.jsonl")
+        start, end = OPS_PROFILE_WINDOW
+        on = ops_train_run(device, card, "ops plane on: bf16 train gpt2 seq 512", telemetry={
+            "enabled": True, "jsonl_path": jsonl, "flush_every": OPS_TRAIN_FLUSH_EVERY,
+            "metrics": True, "goodput": True, "tracing": True, "trace_dir": tmp,
+            "profiler_start_step": start, "profiler_end_step": end,
+            "profiler_dir": os.path.join(tmp, "profile")})
+        records = [json.loads(line) for line in Path(jsonl).read_text().splitlines()]
+        efficiency = Path(tmp, "EFFICIENCY.json")
+        if not efficiency.is_file():
+            fail("ops plane train: EFFICIENCY.json was not written")
+        goodput = json.loads(efficiency.read_text())["ledger"]
+        if not on["trace_path"] or not os.path.isfile(on["trace_path"]):
+            fail(f"ops plane train: the profiler window wrote no trace ({on['trace_path']})")
+        prof = json.loads(Path(on["trace_path"]).read_text())
+        spans = json.loads(Path(tmp, "trace_rank0.json").read_text())
+    steps = sorted((r for r in records if r.get("kind") == "step"), key=lambda r: r["step"])
+    if [r["step"] for r in steps] != list(range(1, OPS_TRAIN_STEPS + 1)):
+        fail(f"ops plane train: step records {[r['step'] for r in steps]}")
+    bad = [(r["step"], r["loss"], a, r["grad_norm"], b)
+           for r, a, b in zip(steps, off["losses"], off["norms"])
+           if r["loss"] != a or r["grad_norm"] != b]
+    if bad:
+        fail(f"ops plane train: step records differ from the off run's own values (step, "
+             f"loss, off loss, norm, off norm): {bad[:4]}")
+    if not all(torch.equal(on["params"][k], v) for k, v in off["params"].items()):
+        fail("ops plane train: the parameters differ with telemetry on")
+    dev = device_events(prof)
+    names = {e["name"] for e in dev if e.get("cat") == "kernel"}
+    ours = {k for k, pat in KERNEL_NAMES.items() if any(re.search(pat, n) for n in names)}
+    launches = [e for e in prof.get("traceEvents", []) if "cudaGraphLaunch" in str(e.get("name"))]
+    if not dev:
+        fail(f"ops plane train: the profiler's trace holds no device event "
+             f"({len(prof.get('traceEvents', []))} events)")
+    gap = on["step_ms"] / off["step_ms"] - 1.0
+    say(f"ops plane train: {len(steps)} step records equal to the off run's loss and grad norm "
+        f"bit for bit; parameters bit for bit; 1 capture, {on['nodes']} graph nodes; "
+        f"EFFICIENCY.json goodput {goodput.get('goodput_frac')}, conservation "
+        f"{goodput.get('conservation', {}).get('ok')}; profiler trace {len(dev)} device events "
+        f"({len(names)} kernel names, the port's: {sorted(ours)}), {len(launches)} "
+        f"cudaGraphLaunch calls; span trace {len(spans['traceEvents'])} events")
+    say(f"summary: ops plane on gpt2 bf16 seq 512 micro 8 graphed training: median step "
+        f"{off['step_ms']:.3f} ms off / {on['step_ms']:.3f} ms on ({gap:+.2%}; host "
+        f"{off['host_ms']:.3f} / {on['host_ms']:.3f} ms; the off run reads each step's loss "
+        f"and norm) [{card}]")
+    return dict(off=off, on=on, gap=gap, device_events=len(dev), kernel_names=sorted(ours))
 
 
 def main() -> int:
@@ -4192,12 +4603,15 @@ def main() -> int:
     phase_done("5")
 
     # ---- 6. training kernels against their plain versions -------------------- #
+    # 10 timed launches a case, not 20: the whole script must finish in
+    # 1200 s, and one H100 machine with a slow host took 1141 s
     scratch = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)
-    flash_rows = flash_cases(device, scratch.zero_, card)
+    flash_rows = flash_cases(device, scratch.zero_, card, reps=10)
     torch.cuda.empty_cache()
-    sparse_rows = sparse_cases(device, scratch.zero_, card)
+    sparse_rows = sparse_cases(device, scratch.zero_, card, reps=10)
     torch.cuda.empty_cache()
-    train_rows = ce_cases(device, flush=scratch.zero_) + adam_case(device, flush=scratch.zero_)
+    train_rows = (ce_cases(device, flush=scratch.zero_, reps=10)
+                  + adam_case(device, flush=scratch.zero_))
     torch.cuda.empty_cache()
     train_rows += adam_moe_case(device, flush=scratch.zero_)
     report_rows(train_rows)
@@ -4565,7 +4979,7 @@ def main() -> int:
             ("recompute", tier["recompute"]), ("wedged", bounded["wedged"]),
             ("restage fault", bounded["faulted"]))}))
     tiered_counts = tier["tiered"]["counts"]
-    del cell, tier, bounded          # the engines hold the 32-layer model
+    del cell, tier, bounded          # the engines hold the model
     gc.collect()
     torch.cuda.empty_cache()
     phase_done("32")
@@ -4583,7 +4997,20 @@ def main() -> int:
         for name, c in tiered32["counts"].items()}))
     phase_done("34")
 
-    say(f"total: {time.perf_counter() - started:.1f} s (build and phases 1-34)")
+    # ---- 35. serving under the ops plane, GPT-2 XL bf16 ----------------------------- #
+    ops_serve = phase_ops_serve(device, card)
+    say("launches by run: " + json.dumps({
+        f"gpt2-xl bf16 serve (ops plane {k}, run {i + 1})": r["counts"]
+        for k, rs in ops_serve["runs"].items() for i, r in enumerate(rs)}))
+    phase_done("35")
+
+    # ---- 36. graphed training under the ops plane, GPT-2 bf16 ----------------------- #
+    ops_train = phase_ops_train(device, card)
+    say("launches by run: " + json.dumps({f"gpt2 bf16 train graphed (ops plane {k})":
+                                          ops_train[k]["counts"] for k in ("off", "on")}))
+    phase_done("36")
+
+    say(f"total: {time.perf_counter() - started:.1f} s (build and phases 1-36)")
 
     # ---- report ------------------------------------------------------------------ #
     # each kernel's row: its case at the shape and dtype of the latest

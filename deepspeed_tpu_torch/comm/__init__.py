@@ -4,11 +4,14 @@
 from deepspeed_tpu_torch.comm.bounded import BoundedCollective, CollectiveTimeout
 from deepspeed_tpu_torch.comm.comm import (ReduceOp, all_gather, all_reduce, barrier,
                                            broadcast, broadcast_object_list,
+                                           configure_collective_monitor,
+                                           configure_metrics_registry,
                                            destroy_process_group, env_world_size,
                                            get_local_rank, get_rank, get_world_size,
                                            init_distributed, is_initialized, reduce_scatter)
 
 __all__ = ["BoundedCollective", "CollectiveTimeout", "ReduceOp", "all_gather", "all_reduce",
-           "barrier", "broadcast", "broadcast_object_list", "destroy_process_group",
+           "barrier", "broadcast", "broadcast_object_list", "configure_collective_monitor",
+           "configure_metrics_registry", "destroy_process_group",
            "env_world_size", "get_local_rank", "get_rank", "get_world_size",
            "init_distributed", "is_initialized", "reduce_scatter"]

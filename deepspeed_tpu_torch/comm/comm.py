@@ -21,20 +21,29 @@ graph holds them as nodes), plus the host-side ``barrier`` and
 A stage-0 engine at world size 1 makes no group, so the paths that ran
 before ZeRO was ported run exactly as they did.
 
-Each tensor collective first passes the ``comm.collective`` fault site
-(``testing/fault_injection.py``, ctx ``op``), as the JAX package's do when
-they are staged: on the host, so inside a captured step it fires at the
-capture and not at the replays.
+Each tensor collective runs inside ``_log_op`` (JAX ``comm/comm.py:
+170-240``): the ``comm.collective`` fault site (``testing/fault_injection.py``,
+ctx ``op``), then, when the telemetry plane is wired in
+(``configure_metrics_registry`` / ``configure_collective_monitor``, and a
+global tracer), the ``comm_bytes_total{op}`` / ``comm_ops_total{op}``
+counters, one seq / fingerprint record in the collective monitor's ring and
+a ``comm.<op>`` span.  All of it is host code around the launch.  A
+collective called eagerly is counted once a call.  One inside a captured
+step is counted once, when the graph is captured, and not at its replays:
+the JAX package's "staged" semantics, where a collective is counted once,
+when it is traced into a program.
 """
 
 import os
 import warnings
+from contextlib import contextmanager
 from datetime import timedelta
 from typing import List, Optional
 
 import torch
 import torch.distributed as dist
 
+from deepspeed_tpu_torch.telemetry.tracing import get_global_tracer
 from deepspeed_tpu_torch.testing.fault_injection import fault_point
 
 ReduceOp = dist.ReduceOp
@@ -116,12 +125,77 @@ def broadcast_object_list(objs: List, src: int = 0) -> List:
 
 
 # --------------------------------------------------------------------------- #
+# Telemetry hooks: the registry's per-op counters, the collective monitor
+# --------------------------------------------------------------------------- #
+_METRICS_REGISTRY = None
+_COLLECTIVE_MONITOR = None
+# a collective's group as the monitor's and the span's ``axis``: the port
+# has one process group, the world
+_AXIS = "world"
+
+
+def configure_metrics_registry(registry):
+    """Attach the live MetricsRegistry (None detaches it): every tensor
+    collective then increments ``comm_bytes_total{op=...}`` /
+    ``comm_ops_total{op=...}`` — once a call eagerly, once at the capture
+    inside a captured step (module docstring)."""
+    global _METRICS_REGISTRY
+    _METRICS_REGISTRY = registry
+
+
+def configure_collective_monitor(monitor):
+    """Attach the per-rank CollectiveMonitor (None detaches it): every
+    tensor collective then gets a monotonic seq_no + structure fingerprint
+    in the monitor's bounded ring, with enter / exit stamps on the host
+    around its launch."""
+    global _COLLECTIVE_MONITOR
+    _COLLECTIVE_MONITOR = monitor
+
+
+@contextmanager
+def _log_op(name: str, tensor: torch.Tensor):
+    """Per-collective instrumentation around one launch: the
+    ``comm.collective`` fault site, the registry's byte / op counters, a
+    seq / fingerprint record in the collective monitor's ring and a
+    ``comm.<op>`` span tagged {op, axis, bytes, seq} on the global tracer —
+    the span's ``seq`` joins trace timelines to collective records by
+    (rank, seq).  Reads only the tensor's metadata, never its value."""
+    fault_point("comm.collective", op=name)
+    nbytes = tensor.numel() * tensor.element_size()
+    if _METRICS_REGISTRY is not None:
+        _METRICS_REGISTRY.counter("comm_bytes_total", {"op": name}).inc(nbytes)
+        _METRICS_REGISTRY.counter("comm_ops_total", {"op": name}).inc()
+    axis = _AXIS
+    mon = _COLLECTIVE_MONITOR
+    rec = None
+    if mon is not None:
+        try:
+            rec = mon.begin(name, axis, str(tensor.dtype).replace("torch.", ""),
+                            tuple(tensor.shape), nbytes)
+        except Exception:
+            rec = None
+    try:
+        tracer = get_global_tracer()
+        if tracer is None:
+            yield
+            return
+        span_args = {"op": name, "axis": axis, "bytes": nbytes}
+        if rec is not None:
+            span_args["seq"] = rec["seq"]
+        with tracer.span(f"comm.{name}", **span_args):
+            yield
+    finally:
+        if rec is not None:
+            mon.end(rec)
+
+
+# --------------------------------------------------------------------------- #
 # Collectives on flat tensors
 # --------------------------------------------------------------------------- #
 def all_reduce(tensor: torch.Tensor, op=ReduceOp.SUM) -> torch.Tensor:
     """``tensor`` summed (or ``op``) over the ranks, in place."""
-    fault_point("comm.collective", op="all_reduce")
-    dist.all_reduce(tensor, op=op)
+    with _log_op("all_reduce", tensor):
+        dist.all_reduce(tensor, op=op)
     return tensor
 
 
@@ -134,22 +208,22 @@ def all_gather(output: torch.Tensor, tensor: torch.Tensor) -> torch.Tensor:
     tensor.numel()`` elements), in rank order.  ``tensor`` may be this
     rank's slice of ``output`` (in place): NCCL takes that as it is, gloo
     gets a copy."""
-    fault_point("comm.collective", op="all_gather")
-    if get_backend() == "gloo" and _shares_storage(output, tensor):
-        tensor = tensor.clone()
-    dist.all_gather_into_tensor(output, tensor)
+    with _log_op("all_gather", tensor):
+        if get_backend() == "gloo" and _shares_storage(output, tensor):
+            tensor = tensor.clone()
+        dist.all_gather_into_tensor(output, tensor)
     return output
 
 
 def reduce_scatter(output: torch.Tensor, tensor: torch.Tensor,
                    op=ReduceOp.SUM) -> torch.Tensor:
     """Rank r's ``output`` is slice r of ``tensor`` summed over the ranks."""
-    fault_point("comm.collective", op="reduce_scatter")
-    dist.reduce_scatter_tensor(output, tensor, op=op)
+    with _log_op("reduce_scatter", tensor):
+        dist.reduce_scatter_tensor(output, tensor, op=op)
     return output
 
 
 def broadcast(tensor: torch.Tensor, src: int = 0) -> torch.Tensor:
-    fault_point("comm.collective", op="broadcast")
-    dist.broadcast(tensor, src=src)
+    with _log_op("broadcast", tensor):
+        dist.broadcast(tensor, src=src)
     return tensor

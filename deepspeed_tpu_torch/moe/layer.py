@@ -2,9 +2,13 @@
 and a stacked expert bank behind the layer contract ``__call__(params, x,
 rng=None, train=False) -> (y, l_aux, exp_counts)``, on one device.
 
-Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-entry: ``ep_size > 1`` (expert parallelism over ``comm/``) and
-``telemetry=`` (the expert-load gauges of the telemetry hub).
+``telemetry=`` (a TelemetryHub) buffers a ``moe_gauge`` record of the
+expert load and drop fraction (``sharded_moe.emit_expert_gauges``) at each
+call, except while a CUDA stream is capturing a graph, as the JAX layer
+skips them under a tracer (``deepspeed_tpu/moe/layer.py:73``).
+
+Not ported yet, and raising ``NotImplementedError`` with its ROADMAP
+entry: ``ep_size > 1`` (expert parallelism over ``comm/``).
 """
 
 from typing import Dict, Optional
@@ -12,8 +16,8 @@ from typing import Dict, Optional
 import torch
 
 from deepspeed_tpu_torch.moe.experts import FFNExpert
-from deepspeed_tpu_torch.moe.sharded_moe import (EXPERT_PARALLEL, TELEMETRY, TopKGate,
-                                                 moe_dispatch_combine)
+from deepspeed_tpu_torch.moe.sharded_moe import (EXPERT_PARALLEL, TopKGate,
+                                                 emit_expert_gauges, moe_dispatch_combine)
 
 
 class MoE:
@@ -33,9 +37,9 @@ class MoE:
         if ep_size > 1:
             raise NotImplementedError(f"MoE(ep_size={ep_size}) is not ported yet "
                                       f"({EXPERT_PARALLEL})")
-        if telemetry is not None:
-            raise NotImplementedError(f"MoE(telemetry=...) expert gauges are not ported yet "
-                                      f"({TELEMETRY})")
+        # optional TelemetryHub for the expert-load / drop gauges
+        self.telemetry = telemetry
+        self._gauge_step = 0
         self.hidden_size = hidden_size
         self.num_experts = num_experts
         self.ep_size = ep_size
@@ -58,4 +62,9 @@ class MoE:
         l_aux, routing, exp_counts = self.gate(params["gate"], xt, train=train, noise=noise,
                                                rng=rng)
         y = moe_dispatch_combine(xt, routing, self.experts, params["experts"])
+        if self.telemetry is not None and not (
+                torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()):
+            self._gauge_step += 1
+            emit_expert_gauges(self.telemetry, exp_counts, routing, k=self.gate.k,
+                               step=self._gauge_step)
         return y.reshape(*lead, M).to(x.dtype), l_aux, exp_counts

@@ -45,7 +45,6 @@ import torch.nn.functional as F
 
 GUMBEL_MIN = 1e-9
 EXPERT_PARALLEL = "ROADMAP.md, Queue 1 entry 5 (expert parallelism needs comm/)"
-TELEMETRY = "ROADMAP.md, Queue 1 entry 7 (the telemetry hub)"
 
 
 def _capacity(num_tokens: int, num_experts: int, capacity_factor: float,
@@ -271,6 +270,19 @@ def expert_load_metrics(exp_counts: torch.Tensor, routing: Routing, k: int = 1) 
         "drop_fraction": torch.clamp(drop_fraction, 0.0, 1.0),
         "tokens": float(T),
     }
+
+
+def emit_expert_gauges(hub, exp_counts: torch.Tensor, routing: Routing, k: int = 1,
+                       step=None, layer: str = ""):
+    """Buffer a ``moe_gauge`` record (:func:`expert_load_metrics`) on a
+    TelemetryHub; a no-op when ``hub`` is None.  The values stay device
+    tensors until the hub's windowed drain."""
+    if hub is None:
+        return
+    payload = expert_load_metrics(exp_counts, routing, k=k)
+    if layer:
+        payload["layer"] = layer
+    hub.emit("moe_gauge", payload, step=step)
 
 
 class TopKGate:

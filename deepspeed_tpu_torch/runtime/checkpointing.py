@@ -34,8 +34,12 @@ Crash-critical boundaries carry the JAX module's ``fault_point`` sites
 (``testing/fault_injection.py``): ``ckpt.pre_save`` before any state is
 written, ``ckpt.mid_save`` after the state and before its metadata,
 ``ckpt.pre_commit`` before the commit barrier and ``ckpt.post_commit``
-after ``latest`` moved.  Its telemetry events and spans belong to
-ROADMAP.md, Queue 1 item 8, and are not here.  The engine supplies ``_checkpoint_state()`` (the tree to
+after ``latest`` moved.  With a telemetry hub on the engine it emits the
+JAX module's events (``ckpt_retry`` per retried storage op, ``ckpt_saved``
+once a tag is durable, ``ckpt_rollback`` when a load walked back), through
+an ``_emit`` that never turns a checkpoint op into a crash; with a global
+tracer the save's staging and the load's read are ``checkpoint.save`` /
+``checkpoint.load`` spans.  The engine supplies ``_checkpoint_state()`` (the tree to
 save), ``_checkpoint_copies(tree, ...)`` (every check of a loaded tree,
 before anything is written) and ``_copy_in`` (the copies into its own
 storage).
@@ -56,6 +60,7 @@ from deepspeed_tpu_torch.runtime.checkpoint_engine.manifest import (atomic_write
                                                                     write_manifest)
 from deepspeed_tpu_torch.runtime.fault_tolerance import (CheckpointCorruptError,
                                                          CheckpointWriteError, retry_transient)
+from deepspeed_tpu_torch.telemetry.tracing import maybe_span
 from deepspeed_tpu_torch.testing.fault_injection import fault_point
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
@@ -74,10 +79,25 @@ def _ckpt_engine(engine):
     return ce
 
 
-def _retry(ft, what: str, fn):
+def _emit(engine, kind: str, payload: Dict[str, Any], flush: bool = False):
+    """Telemetry emission that never turns a checkpoint op into a crash."""
+    hub = getattr(engine, "telemetry", None)
+    if hub is None:
+        return
+    try:
+        hub.emit(kind, payload, step=getattr(engine, "global_steps", None))
+        if flush:
+            hub.flush()
+    except Exception as e:
+        logger.warning(f"checkpoint telemetry emission failed: {e}")
+
+
+def _retry(engine, ft, what: str, fn):
     def on_retry(attempt, delay, exc):
         logger.warning(f"checkpoint {what} failed ({exc}); retry "
                        f"{attempt}/{ft.save_retries} in {delay:.2f}s")
+        _emit(engine, "ckpt_retry", {"what": what, "attempt": attempt,
+                                     "delay_s": delay, "error": str(exc)})
     try:
         return retry_transient(fn, retries=ft.save_retries, base_s=ft.retry_backoff_s,
                                max_s=ft.retry_backoff_max_s, on_retry=on_retry)
@@ -126,11 +146,12 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
 
     os.makedirs(work_dir, exist_ok=True)
     ce = _ckpt_engine(engine)
-    ce.create(tag)
-    fault_point("ckpt.pre_save", tag=tag, path=work_dir)
-    _retry(ft, "save", lambda: ce.save(tree, os.path.join(work_dir, STATE)))
-    del tree
-    fault_point("ckpt.mid_save", tag=tag, path=work_dir)
+    with maybe_span("checkpoint.save", tag=tag, dir=save_dir):
+        ce.create(tag)
+        fault_point("ckpt.pre_save", tag=tag, path=work_dir)
+        _retry(engine, ft, "save", lambda: ce.save(tree, os.path.join(work_dir, STATE)))
+        del tree
+        fault_point("ckpt.mid_save", tag=tag, path=work_dir)
 
     sched = engine.lr_scheduler
     meta = {
@@ -158,7 +179,7 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
         # commit is the durability barrier; only a durable, verified
         # checkpoint may become 'latest'
         fault_point("ckpt.pre_commit", tag=tag, path=work_dir)
-        _retry(ft, "commit", lambda: ce.commit(tag))
+        _retry(engine, ft, "commit", lambda: ce.commit(tag))
         if atomic:
             write_manifest(work_dir, extra={"tag": tag, "global_steps": global_steps,
                                             "engine": type(ce).__name__})
@@ -167,6 +188,7 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
             atomic_write_text(os.path.join(save_dir, LATEST_FILE), tag)
         fault_point("ckpt.post_commit", tag=tag, path=final_dir)
         _gc_old_tags(save_dir, keep_last_n=int(ft.keep_last_n), protect={tag})
+        _emit(engine, "ckpt_saved", {"tag": tag, "dir": save_dir, "atomic": atomic})
         log_dist(f"saved checkpoint {final_dir}", ranks=[0])
 
     def _finalize_guarded():
@@ -304,9 +326,16 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
             logger.error(f"restore of tag {cand!r} failed ({e}); rolling back")
             continue
         if failures:
+            _emit(engine, "ckpt_rollback",
+                  {"dir": load_dir, "from_tag": candidates[0], "to_tag": cand,
+                   "failures": failures}, flush=True)
             logger.warning(f"rolled back from {candidates[0]!r} to last verified "
                            f"checkpoint {cand!r}")
         return result
+    if failures:
+        _emit(engine, "ckpt_rollback",
+              {"dir": load_dir, "from_tag": candidates[0] if candidates else None,
+               "to_tag": None, "failures": failures}, flush=True)
     logger.warning(f"no verified checkpoint under {load_dir}; nothing loaded")
     return None, {}
 
@@ -334,7 +363,8 @@ def _verify_tag(engine, load_dir: str, tag: str, ft):
 def _load_tag(engine, load_dir: str, tag: str, load_optimizer_states: bool,
               load_lr_scheduler_states: bool, load_module_only: bool):
     ckpt_dir = os.path.join(load_dir, str(tag))
-    tree = _ckpt_engine(engine).load(os.path.join(ckpt_dir, STATE))
+    with maybe_span("checkpoint.load", tag=str(tag), dir=load_dir):
+        tree = _ckpt_engine(engine).load(os.path.join(ckpt_dir, STATE))
     meta_path = os.path.join(ckpt_dir, "client_state.json")
     meta = None
     if os.path.isfile(meta_path):

@@ -13,22 +13,27 @@ group's).  The ``sparse_attention`` block is checked
 as the JAX package checks it (``ValueError`` if it is not a dict,
 ``NotImplementedError`` on an unknown mode) and kept as a dict.  The
 ``checkpoint`` block and the checkpoint fields of ``fault_tolerance`` are
-typed, with the JAX defaults.  Blocks of
-features the port has not taken over yet (stability, telemetry, monitors,
-PLD, compression, ...) are kept as raw dicts; the engine raises when one of
-them is enabled.
+typed, with the JAX defaults, and so is the ``telemetry`` block
+(``DeepSpeedTelemetryConfig``: every key of the JAX package's, with its
+defaults; ``profiler_dir`` defaults under the temporary directory).  Blocks
+of features the port has not taken over yet (stability, monitors, PLD,
+compression, ...) are kept as raw dicts; the engine raises when one of them
+is enabled.
 """
 
 import json
 import os
-from typing import Any, Dict, Optional
+import tempfile
+from typing import Any, Dict, List, Optional
 
 import torch
+from pydantic import Field
 
 from deepspeed_tpu_torch.runtime import constants as C
 from deepspeed_tpu_torch.runtime.config_utils import (DeepSpeedConfigModel,
                                                       dict_raise_error_on_duplicate_keys)
 from deepspeed_tpu_torch.runtime.zero.config import DeepSpeedZeroConfig
+from deepspeed_tpu_torch.telemetry.profiler import DEFAULT_PROFILER_DIR
 from deepspeed_tpu_torch.utils.logging import logger
 
 
@@ -86,6 +91,61 @@ class DeepSpeedFaultToleranceConfig(DeepSpeedConfigModel):
     preemption_enabled: bool = False
 
 
+# the flight recorder's default dump directory, under TMPDIR as the
+# profiler's is (the JAX package's is /tmp/deepspeed_tpu_flight)
+DEFAULT_FLIGHT_DIR = os.path.join(tempfile.gettempdir(), "deepspeed_tpu_flight")
+
+
+class DeepSpeedTelemetryConfig(DeepSpeedConfigModel):
+    """``telemetry`` block — the TelemetryHub + profiler-window knobs
+    (``telemetry/``), the JAX package's keys and defaults.
+
+    Off by default; when enabled the engine emits one structured record per
+    optimizer step and drains them (one device sync) every ``flush_every``
+    steps.
+    """
+    enabled: bool = False
+    jsonl_path: str = ""                 # rank-0 JSONL sink ("" disables)
+    jsonl_max_bytes: int = 0             # rotate the sink past this (0 → off)
+    jsonl_keep: int = 5                  # rotated files kept (beyond live)
+    ring_buffer_size: int = 1024         # in-memory sink (0 disables)
+    flush_every: int = 0                 # 0 → follow steps_per_print (or 50)
+    # live metrics plane
+    metrics: bool = True                 # MetricsRegistry fed off the drain
+    snapshot_every: int = 0              # cross-rank fold cadence, steps (0 off)
+    ops_server: bool = False             # stdlib HTTP /metrics /healthz /slo
+    ops_host: str = "127.0.0.1"
+    ops_port: int = 0                    # 0 → ephemeral (logged at startup)
+    slo_rules: List[Dict[str, Any]] = Field(default_factory=list)
+    # empty slo_rules → telemetry/slo.py default_rules(); entries use the
+    # rule grammar documented in that module
+    # windowed torch.profiler capture over [start, end) global steps
+    profiler_start_step: int = 0
+    profiler_end_step: int = 0           # 0 → profiler disabled
+    profiler_dir: str = Field(default_factory=lambda: DEFAULT_PROFILER_DIR)
+    profiler_max_window_steps: int = 64  # unbounded-trace guard
+    # span tracing (Chrome-trace export per rank; tools/trace_merge.py
+    # folds rank files onto one timeline)
+    tracing: bool = False
+    trace_dir: str = ""                  # "" → no export on close
+    trace_buffer_size: int = 65536       # completed-span ring capacity
+    # goodput/efficiency attribution ledger
+    goodput: bool = True                 # GoodputLedger on the metrics plane
+    efficiency_json_path: str = ""       # "" → EFFICIENCY.json next to jsonl
+    # > 0 (JAX's MFU gauge) raises: it needs the flops profiler, not ported
+    goodput_peak_tflops_per_chip: float = 0.0
+    # collective health plane: per-rank seq/fingerprint ring on comm/ +
+    # cross-rank skew/desync fold at snapshot_every cadence
+    collective_monitor: bool = True      # rides the metrics plane
+    collective_ring: int = 2048          # per-rank record ring capacity
+    # hang watchdog + flight recorder
+    watchdog_enabled: bool = False
+    watchdog_timeout_s: float = 120.0    # stall threshold (monotonic)
+    watchdog_poll_s: float = 0.0         # 0 → timeout/4, clamped [0.5, 10]s
+    watchdog_signal_dump: bool = True    # dump on SIGTERM/SIGABRT too
+    flight_recorder_dir: str = Field(default_factory=lambda: DEFAULT_FLIGHT_DIR)
+
+
 class DeepSpeedConfigError(Exception):
     pass
 
@@ -94,7 +154,6 @@ class DeepSpeedConfigError(Exception):
 # the engine raise, naming the ROADMAP item
 UNPORTED_BLOCKS = {
     C.STABILITY: "ROADMAP.md, Queue 1 item 8 (stability sentinel)",
-    C.TELEMETRY: "ROADMAP.md, Queue 1 item 8 (telemetry)",
     C.FAULT_TOLERANCE: "ROADMAP.md, Queue 1 item 8 (preemption handling)",
     C.COMMS_LOGGER: "ROADMAP.md, Queue 1 item 7 (comms)",
     C.MONITOR_CONFIG_TENSORBOARD: "ROADMAP.md, Queue 1 item 9 (monitor)",
@@ -161,6 +220,7 @@ class DeepSpeedConfig:
         self.checkpoint_config = DeepSpeedCheckpointConfig(**pd.get(C.CHECKPOINT, {}))
         self.fault_tolerance_config = DeepSpeedFaultToleranceConfig(
             **pd.get(C.FAULT_TOLERANCE, {}))
+        self.telemetry_config = DeepSpeedTelemetryConfig(**pd.get(C.TELEMETRY, {}))
 
         self.parallel_blocks = {k: pd.get(k, {}) for k in (
             C.MESH, C.TENSOR_PARALLEL, C.PIPELINE_PARALLEL, C.SEQUENCE_PARALLEL)}

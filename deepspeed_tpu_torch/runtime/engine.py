@@ -71,11 +71,28 @@ Any stage >= 1 makes a process group, a world of one when there is no
 ``RANK`` / ``WORLD_SIZE``, and runs its collectives even there.  The fused
 AdamW kernel is the update on every path.
 
+The ``telemetry`` block (``telemetry/``) is built in the JAX engine's
+order (``deepspeed_tpu/runtime/engine.py:256-370``): the hub, the profiler
+window, the registry and the collective monitor into ``comm/``, the tracer
+(made global), the watchdog, the flight recorder, the heartbeat gauge, the
+health checks and ``/debug/dump``.  Each step buffers one record
+(``record_step``: loss, lr, grad norm, loss scale, samples) as device
+tensors, drained once a flush window, and drives ``maybe_snapshot``, the
+profiler window, the watchdog and the goodput ledger.  All of it runs on
+the host around the step: nothing of it is inside ``_graph_step``, whose
+host code runs only at the capture, so the captured graph, its launches
+and its capture count are the same with telemetry on.  The graphed step's
+loss and grad norm are static outputs that the next replay overwrites, so
+a record holds a copy of each, made on the engine's stream after the
+replay.  ``train_batch`` is one ``train_batch`` span a step (the JAX
+engine's name) around the replay; the eager API's are JAX's ``fwd``,
+``bwd`` and ``step``.
+
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
 item: the NVMe tier, ZeRO++ (quantized weights and gradients, hpZ) and
 tensor, pipeline and sequence parallelism (Queue 1 items 7 and 9), fp16
-(item 5), preemption handling and the stability, telemetry, monitor, PLD,
-compression and data-pipeline blocks (items 8 and 9).  A
+(item 5), preemption handling, ``wall_clock_breakdown`` and the stability,
+monitor, PLD, compression and data-pipeline blocks (items 8 and 9).  A
 ``sparse_attention`` block is accepted (the config checks it), as in the
 JAX engine: the model takes its layout through a registered
 ``attn_impl``.
@@ -84,7 +101,9 @@ JAX engine: the model takes its layout through a registered
 import dataclasses
 import logging
 import os
-from typing import Callable, Dict
+import time
+from contextlib import nullcontext
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -105,7 +124,7 @@ from deepspeed_tpu_torch.runtime.zero.partition_parameters import (FlatStore,
                                                                    init_ctx_active, named_tree)
 from deepspeed_tpu_torch.runtime.zero.policy import ZeroLayout, zero_min_size
 from deepspeed_tpu_torch.testing.fault_injection import fault_point
-from deepspeed_tpu_torch.utils.logging import log_dist
+from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.timer import ThroughputTimer
 
 NVME = "ROADMAP.md, Queue 1 item 7 (the NVMe tier)"
@@ -116,7 +135,8 @@ MODEL_PARALLEL = "ROADMAP.md, Queue 1 item 9 (pipeline and sequence parallelism)
 # of fp32, so three device buffers (master, mu, nu) take 1.5 GiB
 OFFLOAD_PIECE_MAX = 2 ** 27
 PRECISION = "ROADMAP.md, Queue 1 item 5 (fp16 loss scaling)"
-OPS_PLANES = "ROADMAP.md, Queue 1 items 8 and 9"
+# the fwd / bwd / step timers have no boundary inside one graph replay
+WALL_CLOCK = "ROADMAP.md, Queue 1 item 8 (wall_clock_breakdown)"
 COMPRESSION = "ROADMAP.md, Queue 1 item 9 (compression)"
 
 
@@ -210,6 +230,7 @@ class DeepSpeedEngine:
         self.global_samples = 0
         self._grads_pending = False
         self._grad_norm = None
+        self._cached_loss = None        # the last eager forward's loss (telemetry)
         self._in_training_mode = True
         self.checkpoint_engine = None
         self._closed = False
@@ -221,6 +242,7 @@ class DeepSpeedEngine:
             batch_size=self.train_batch_size(),
             synchronize=lambda: self.accelerator.synchronize(self.device.index),
             steps_per_output=self._config.steps_per_print or 50)
+        self._init_telemetry(self._config.telemetry_config)
         log_dist(f"DeepSpeedEngine ready: device={self.device}, "
                  f"zero_stage={self._zero_stage}, world_size={self.world_size}, "
                  f"offload_param={self._offload_param}, "
@@ -259,7 +281,70 @@ class DeepSpeedEngine:
         if cfg.compression_config:
             raise NotImplementedError(f"compression_training is not ported yet ({COMPRESSION})")
         if cfg.wall_clock_breakdown:
-            raise NotImplementedError(f"wall_clock_breakdown is not ported yet ({OPS_PLANES})")
+            raise NotImplementedError(f"wall_clock_breakdown is not ported yet ({WALL_CLOCK})")
+
+    def _init_telemetry(self, tcfg):
+        """The ``telemetry`` block's planes, in the JAX engine's order; all
+        None when it is off, and then no step takes a telemetry branch."""
+        self.telemetry = None
+        self.profiler_window = None
+        self.tracer = None
+        self.watchdog = None
+        self.flight_recorder = None
+        if not tcfg.enabled:
+            return
+        from deepspeed_tpu_torch.comm import comm as comm_backend
+        from deepspeed_tpu_torch.telemetry import (FlightRecorder, HangWatchdog, ProfilerWindow,
+                                                   TelemetryHub, Tracer, set_global_tracer,
+                                                   watchdog_health_check)
+        self.telemetry = TelemetryHub.from_config(
+            tcfg, batch_size=self.train_batch_size(),
+            steps_per_print=self._config.steps_per_print, device=self.device)
+        self.profiler_window = ProfilerWindow.from_config(tcfg)
+        if self.telemetry.registry is not None:
+            # live per-op wire-byte counters off comm/
+            comm_backend.configure_metrics_registry(self.telemetry.registry)
+        mon = self.telemetry.collective_monitor
+        if mon is not None:
+            comm_backend.configure_collective_monitor(mon)
+        if tcfg.tracing or tcfg.watchdog_enabled:
+            # the tracer is global so that comm/ and checkpointing annotate
+            # spans without an engine; every span pets the watchdog
+            if tcfg.watchdog_enabled:
+                self.watchdog = HangWatchdog(timeout_s=tcfg.watchdog_timeout_s,
+                                             poll_s=tcfg.watchdog_poll_s)
+            self.tracer = Tracer(rank=self.rank, capacity=tcfg.trace_buffer_size,
+                                 heartbeat=self.watchdog.pet if self.watchdog else None)
+            set_global_tracer(self.tracer)
+            if self.watchdog is not None:
+                self.flight_recorder = FlightRecorder(
+                    tcfg.flight_recorder_dir, rank=self.rank, hub=self.telemetry,
+                    tracer=self.tracer, collective_monitor=mon)
+                self.watchdog.on_stall = self.flight_recorder.on_stall
+                if mon is not None:
+                    # the stall log names the collective the run is stuck in
+                    self.watchdog.context_fn = mon.wedged_summary
+                if tcfg.watchdog_signal_dump:
+                    self.watchdog.install_signal_handlers()
+                self.watchdog.start()
+        # what only the engine owns on the live plane: the heartbeat gauge,
+        # the watchdog health check and the recorder behind /debug/dump
+        if self.telemetry.registry is not None:
+            if self.watchdog is not None:
+                self.telemetry.registry.gauge("watchdog_heartbeat_age_s",
+                                              fn=self.watchdog.heartbeat_age_s)
+            srv = self.telemetry.obs_server
+            if srv is not None:
+                if self.watchdog is not None:
+                    srv.add_health_check("watchdog", watchdog_health_check(self.watchdog))
+                if self.flight_recorder is not None:
+                    srv.flight_recorder = self.flight_recorder
+
+    def _span(self, name, **args):
+        """A tracer span, or an inert context when tracing is off."""
+        if self.tracer is None:
+            return nullcontext()
+        return self.tracer.span(name, **args)
 
     def _init_parameters(self, model, model_parameters, seed: int):
         """fp32 master parameters on the device, made the model's own."""
@@ -405,10 +490,18 @@ class DeepSpeedEngine:
         kept for ``backward``."""
         batch = self._place(inputs if len(inputs) != 1 else inputs[0])
         if self._in_training_mode:
-            loss = self._loss(batch)
-        else:
-            with torch.no_grad():
-                loss = self._loss(batch, train=False)
+            if self.profiler_window is not None:
+                self.profiler_window.step_begin(self.global_steps)
+            if self.watchdog is not None:
+                self.watchdog.arm(f"fwd step={self.global_steps}")
+        with self._span("fwd", step=self.global_steps, micro_step=self.micro_steps):
+            if self._in_training_mode:
+                loss = self._loss(batch)
+                if self.telemetry is not None:
+                    self._cached_loss = loss.detach()
+            else:
+                with torch.no_grad():
+                    loss = self._loss(batch, train=False)
         return loss
 
     __call__ = forward
@@ -417,14 +510,15 @@ class DeepSpeedEngine:
         """Accumulate the micro-batch gradients into the flat buffer."""
         if not self._in_training_mode:
             raise RuntimeError("backward called in eval mode")
-        if not self._grads_pending:
-            self._zero_grads()
-            self._grads_pending = True
-        elif self._zero_stage == 2:
-            self._grad_flat.zero_()
-        (loss.float() * self.scaler.scale).backward()
-        self.micro_steps += 1
-        self._reduce_gradients(self.is_gradient_accumulation_boundary())
+        with self._span("bwd", micro_step=self.micro_steps):
+            if not self._grads_pending:
+                self._zero_grads()
+                self._grads_pending = True
+            elif self._zero_stage == 2:
+                self._grad_flat.zero_()
+            (loss.float() * self.scaler.scale).backward()
+            self.micro_steps += 1
+            self._reduce_gradients(self.is_gradient_accumulation_boundary())
         return loss
 
     def _zero_grads(self) -> None:
@@ -452,9 +546,14 @@ class DeepSpeedEngine:
     def step(self):
         """Optimizer step at GAS boundaries."""
         if self.is_gradient_accumulation_boundary() and self._grads_pending:
-            self._grad_norm = self._apply_updates()
-            self._grads_pending = False
-            self._advance_step_counters()
+            with self._span("step", step=self.global_steps):
+                self._grad_norm = self._apply_updates()
+                self._grads_pending = False
+                self._advance_step_counters(self._cached_loss, self._grad_norm)
+            if self.watchdog is not None:
+                # between optimizer steps the host legitimately blocks in
+                # user code (data loading): not a stall
+                self.watchdog.disarm()
 
     def train_batch(self, data_iter=None, batch=None):
         """One optimizer step over GAS micro-batches.  ``batch`` leaves have
@@ -471,15 +570,26 @@ class DeepSpeedEngine:
             sources = [[self._as_tensor(mb[j]) for mb in micro] for j in range(len(micro[0]))]
         else:
             sources = [self._as_tensor(x) for x in batch]
+        if self.profiler_window is not None:
+            self.profiler_window.step_begin(self.global_steps)
+        if self.watchdog is not None:
+            self.watchdog.arm(f"train_batch step={self.global_steps}")
         self.tput_timer.start()
-        if self.graphs is None:
-            loss, self._grad_norm = self._graph_step([self._place(x) for x in sources])
-        else:
-            loss, self._grad_norm = self.graphs.run(sources, self._graph_step)
-            loss = loss.clone()          # the next replay overwrites the static output
-        self.micro_steps += gas
-        self._grads_pending = False
-        self._advance_step_counters()
+        with self._span("train_batch", step=self.global_steps, gas=gas):
+            if self.graphs is None:
+                loss, self._grad_norm = self._graph_step([self._place(x) for x in sources])
+                grad_norm = self._grad_norm
+            else:
+                loss, self._grad_norm = self.graphs.run(sources, self._graph_step)
+                loss = loss.clone()          # the next replay overwrites the static output
+                # ... and the norm's: a record buffered until the flush
+                # holds this step's own copy
+                grad_norm = self._grad_norm.clone() if self.telemetry is not None else None
+            self.micro_steps += gas
+            self._grads_pending = False
+            self._advance_step_counters(loss, grad_norm)
+        if self.watchdog is not None:
+            self.watchdog.disarm()
         self.tput_timer.stop(global_step=True)
         return loss
 
@@ -533,11 +643,25 @@ class DeepSpeedEngine:
             self.zero.gather_params()
         return grad_norm
 
-    def _advance_step_counters(self):
+    def _advance_step_counters(self, loss: Optional[torch.Tensor] = None,
+                               grad_norm: Optional[torch.Tensor] = None):
+        """Host counters after a step, then the step's telemetry (the
+        JAX engine's ``_advance_step_counters``): the record of ``loss``
+        and ``grad_norm`` (device tensors, read at the flush), the
+        cross-rank snapshot, the profiler window and the goodput ledger."""
         self.global_samples += self.train_batch_size()
         self.global_steps += 1
         if self.lr_scheduler is not None:
             self.lr_scheduler.step()
+        if self.telemetry is not None:
+            self.telemetry.record_step(
+                self.global_steps, loss=loss, lr=self.get_lr()[0], grad_norm=grad_norm,
+                loss_scale=self.scaler.scale.clone(), global_samples=self.global_samples)
+            self.telemetry.maybe_snapshot(self.global_steps)
+            if self.telemetry.ledger is not None:
+                self.telemetry.ledger.on_step(self.global_steps)
+        if self.profiler_window is not None:
+            self.profiler_window.step_end(self.global_steps)
         # on the host after the step (a graphed step's replay included),
         # never inside a capture
         fault_point("train.step", step=self.global_steps)
@@ -590,8 +714,15 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------ #
     def save_checkpoint(self, save_dir, tag=None, client_state=None, save_latest=True):
         from deepspeed_tpu_torch.runtime.checkpointing import save_checkpoint as _save
-        return _save(self, save_dir, tag=tag, client_state=client_state or {},
-                     save_latest=save_latest)
+        t0 = time.monotonic()
+        try:
+            return _save(self, save_dir, tag=tag, client_state=client_state or {},
+                         save_latest=save_latest)
+        finally:
+            if self.telemetry is not None and self.telemetry.ledger is not None:
+                # the blocking part of the save (an async finalize runs off
+                # the step path)
+                self.telemetry.ledger.note_ckpt_stall(time.monotonic() - t0)
 
     def load_checkpoint(self, load_dir, tag=None, load_optimizer_states=True,
                         load_lr_scheduler_states=True, load_module_only=False):
@@ -676,10 +807,43 @@ class DeepSpeedEngine:
                               for i, t in enumerate(params.values())})
         return path
 
+    def telemetry_flush(self):
+        """Drain buffered telemetry records to all sinks now (one device
+        sync).  No-op when telemetry is off."""
+        if self.telemetry is not None:
+            self.telemetry.flush()
+
+    def telemetry_close(self):
+        """End-of-run hook: stop an in-flight profiler capture, flush and
+        close every sink (``EFFICIENCY.json`` included), detach the registry
+        and the monitor from ``comm/``, stop the watchdog and export this
+        rank's span timeline.  Idempotent."""
+        if self.profiler_window is not None:
+            self.profiler_window.close()
+        if self.telemetry is not None:
+            from deepspeed_tpu_torch.comm import comm as comm_backend
+            self.telemetry.close()
+            if (self.telemetry.registry is not None
+                    and comm_backend._METRICS_REGISTRY is self.telemetry.registry):
+                comm_backend.configure_metrics_registry(None)
+            if (self.telemetry.collective_monitor is not None
+                    and comm_backend._COLLECTIVE_MONITOR is self.telemetry.collective_monitor):
+                comm_backend.configure_collective_monitor(None)
+        if self.watchdog is not None:
+            self.watchdog.stop()
+        if self.tracer is not None:
+            from deepspeed_tpu_torch.telemetry.tracing import (export_rank_trace,
+                                                               get_global_tracer,
+                                                               set_global_tracer)
+            export_rank_trace(self.tracer, self._config.telemetry_config.trace_dir)
+            if get_global_tracer() is self.tracer:
+                set_global_tracer(None)
+            self.tracer.close()
+
     def close(self):
         """Join the async checkpoint finalizer (logging, not raising, its
-        failure), drain the checkpoint engine, and drop the captured steps
-        with their memory pools.  Idempotent."""
+        failure), drain the checkpoint engine, close the telemetry, and
+        drop the captured steps with their memory pools.  Idempotent."""
         if self._closed:
             return
         self._closed = True
@@ -693,6 +857,10 @@ class DeepSpeedEngine:
                 self.checkpoint_engine.wait()
             except Exception as e:
                 log_dist(f"checkpoint engine drain failed: {e}", ranks=[0])
+        try:
+            self.telemetry_close()
+        except Exception as e:
+            logger.warning(f"telemetry close failed: {e}")
         if self.graphs is not None:
             if self._grad_norm is not None:
                 self._grad_norm = self._grad_norm.clone()

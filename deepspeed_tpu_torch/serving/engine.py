@@ -41,11 +41,34 @@ Ported, besides ``submit``/``step``/``run``/``close``,
   in every dispatch, ``serve.restage`` before a restore (a failure there
   falls back to recompute).
 
-The JAX engine's ``kv_spill`` / ``kv_restage`` / ``serve_incident``
-events go through :meth:`ServingEngine._emit`, a no-op
-until a telemetry hub is ported; ``telemetry=`` and ``tracer=`` raise
-(ROADMAP.md, Queue 1 entry 7).  Decoding is greedy, as in the JAX engine:
-``submit(temperature > 0)`` raises.
+The observability half of the JAX engine (``deepspeed_tpu/serving/
+engine.py:180-335,385-410,636-652,830-852``), with ``telemetry=`` (a
+``TelemetryHub``, or a ``telemetry`` config dict through ``init_serving``,
+which builds a hub the engine owns and closes) and ``tracer=``:
+
+* every event at its JAX site, through :meth:`ServingEngine._emit`:
+  ``serve_request`` (submitted, finished), ``serve_step`` every
+  ``telemetry_every`` steps, ``serve_preempt``, ``prefix_hit``,
+  ``serve_shed`` (rung changes, rejections), ``serve_expired``,
+  ``serve_incident``, ``kv_spill``, ``kv_restage``;
+* the registry's gauges (``serve_queue_depth``, ``serve_active``,
+  ``serve_blocks_in_use``, ``serve_blocks_total``, the tier bytes,
+  ``prefix_hit_rate``) and step-time histograms, set from host counts and
+  the host clock; the event-derived metrics (TTFT, latency, preemptions)
+  reach the registry through the hub's flush at the ``telemetry_every``
+  cadence;
+* the goodput ledger in serve mode (``slo_ttft_bound_ms``; a restage's
+  wait counts as offload stall), the ``serve_arena`` and
+  ``serve_incident`` health checks, and the TTFT-burn admission signal
+  (the SLO monitor's state of ``serve_ttft_ms`` beside the queue age);
+* the ``serve.step``, ``serve.prefill`` and ``serve.decode`` spans (on
+  ``tracer``, else the global tracer).  A dict with ``tracing: true``
+  also gets a tracer of the engine's own, exported to ``trace_dir`` as
+  ``trace_rank0.json`` on ``close()``.
+
+The hub reads only host state: with it the engine launches the same
+kernels and gives the same tokens.  Decoding is greedy, as in the JAX
+engine: ``submit(temperature > 0)`` raises.
 """
 
 import contextlib
@@ -67,15 +90,15 @@ from deepspeed_tpu_torch.serving.kv_cache import (ArenaExhausted,
 from deepspeed_tpu_torch.serving.kv_tiering import KVTieringManager
 from deepspeed_tpu_torch.serving.prefix_cache import PrefixCache
 from deepspeed_tpu_torch.serving.scheduler import (DECODE, EXPIRED, FINISHED,
-                                                   SLO_PRIORITY,
+                                                   SHED_LEVELS, SLO_PRIORITY,
                                                    AdmissionController,
                                                    DeadlineExceeded, Request,
                                                    ServingScheduler, ShedError)
+from deepspeed_tpu_torch.telemetry.hub import telemetry_from_arg
+from deepspeed_tpu_torch.telemetry.tracing import maybe_span
 from deepspeed_tpu_torch.testing.fault_injection import (FaultInjected, fault_point,
                                                          release_wedges)
 from deepspeed_tpu_torch.utils.logging import log_dist
-
-PLANES = "ROADMAP.md, Queue 1 entry 7 (telemetry and tracing)"
 
 
 class ServeStepTimeout(RuntimeError):
@@ -217,13 +240,30 @@ class ServingEngine:
                  params: Optional[Dict[str, torch.Tensor]] = None,
                  device=None, telemetry=None, tracer=None):
         cfg = config or DeepSpeedServingConfig()
-        if telemetry is not None or tracer is not None:
-            raise NotImplementedError(
-                f"serving telemetry and tracing are not ported yet ({PLANES})")
         if not (hasattr(model, "paged_step") and hasattr(model, "cfg")):
             raise TypeError("ServingEngine needs a model with .cfg and "
                             ".paged_step(...) (the GPT family)")
         self._config = cfg
+        self.telemetry = telemetry
+        self.tracer = tracer
+        # live metrics plane: gauges + step-time histograms are updated
+        # directly (host clock / scheduler counts, no device read);
+        # event-derived metrics (TTFT, preemptions, restages) flow through
+        # the hub's MetricsSink on the periodic flush in step() — one
+        # source of truth per metric, no double counting
+        self.registry = getattr(telemetry, "registry", None)
+        if self.registry is not None:
+            r = self.registry
+            self._g_queue = r.gauge("serve_queue_depth")
+            self._g_active = r.gauge("serve_active")
+            self._g_blocks = r.gauge("serve_blocks_in_use")
+            self._g_blocks_total = r.gauge("serve_blocks_total")
+            self._g_blocks_total.set(cfg.num_blocks)
+            self._g_host_bytes = r.gauge("serve_kv_host_bytes")
+            self._g_nvme_bytes = r.gauge("serve_kv_nvme_bytes")
+            self._g_prefix_rate = r.gauge("prefix_hit_rate")
+            self._h_step = r.histogram("serve_step_ms")
+            self._h_decode = r.histogram("serve_decode_step_ms")
         self.device = resolve_device(device)
         head_dim = model.cfg.n_embd // model.cfg.n_head
         if self.device.type == "cuda" and (
@@ -242,6 +282,7 @@ class ServingEngine:
         self.alloc = PagedKVAllocator(cfg.num_blocks, cfg.block_size,
                                       self.max_blocks_per_seq)
         self.sched = ServingScheduler(cfg, self.alloc, cfg.max_batch_size)
+        self.sched.on_preempt = self._on_preempt
         self._k_pages, self._v_pages = init_arena(
             mcfg, cfg.num_blocks, cfg.block_size, dtype=self.dtype,
             device=self.device)
@@ -249,7 +290,6 @@ class ServingEngine:
         # included) is ordered on this stream
         self._stream = (torch.cuda.current_stream(self.device)
                         if self.device.type == "cuda" else None)
-        self.telemetry = None           # the _emit seam (no hub ported yet)
 
         # ---- tiered spill/restage + prefix sharing (both opt-in) ---------- #
         self.tiering: Optional[KVTieringManager] = None
@@ -264,6 +304,7 @@ class ServingEngine:
             self.prefix = PrefixCache(self.alloc,
                                       max_blocks=cfg.prefix_cache_blocks)
             self.sched.prefix_cache = self.prefix
+            self.sched.on_prefix_hit = self._on_prefix_hit
         self._vmask = (torch.arange(mcfg.padded_vocab, device=self.device)
                        < mcfg.vocab_size)
 
@@ -293,6 +334,21 @@ class ServingEngine:
         self.step_count = 0
         self.tokens_generated = 0
         self._started = time.monotonic()
+        self._owned_telemetry = None    # init_serving sets it for a dict-built hub
+        # goodput ledger: the hub's, in serve mode — step() attributes wall
+        # time, finished requests feed the per-SLO tokens-within-TTFT-bound
+        # accounting
+        self.ledger = getattr(telemetry, "ledger", None)
+        self._restage_wait_ms = 0.0
+        if self.ledger is not None:
+            self.ledger.mode = "serve"
+            self.ledger.slo_ttft_bounds_ms.update(
+                {str(k): float(v) for k, v in (cfg.slo_ttft_bound_ms or {}).items()})
+            self.ledger.mark()
+        obs = getattr(telemetry, "obs_server", None)
+        if obs is not None:
+            obs.add_health_check("serve_arena", self._arena_health)
+            obs.add_health_check("serve_incident", self._incident_health)
         log_dist(
             f"ServingEngine ready: slots={cfg.max_batch_size}, "
             f"arena={cfg.num_blocks}x{cfg.block_size} tok "
@@ -302,10 +358,30 @@ class ServingEngine:
 
     # ------------------------------------------------------------------ #
     def _emit(self, kind, payload, step=None):
-        """The JAX engine's telemetry seam; a no-op until a hub is ported
-        (``telemetry=`` raises)."""
+        if (self.ledger is not None and kind == "kv_restage"
+                and payload.get("ok")):
+            # exposed restage wait attributes to offload_stall on next step
+            self._restage_wait_ms += float(payload.get("wait_ms", 0.0))
         if self.telemetry is not None:
             self.telemetry.emit(kind, payload, step=step)
+
+    def _arena_health(self):
+        """`/healthz` contribution: arena + tier occupancy (always ``ok``
+        on its own — oversubscription is a designed-for state; the gauges
+        give the operator the occupancy picture)."""
+        st = self.sched.stats()
+        total = int(self._config.num_blocks)
+        used = int(st.get("blocks_in_use", 0))
+        out = {"ok": True, "blocks_in_use": used, "blocks_total": total,
+               "occupancy": round(used / total, 4) if total else 0.0,
+               "active": int(st.get("active", 0)),
+               "queue_depth": int(st.get("queue_depth", 0))}
+        if self.tiering is not None:
+            ts = self.tiering.stats()
+            for key in ("kv_host_bytes", "kv_nvme_bytes"):
+                if key in ts:
+                    out[key] = ts[key]
+        return out
 
     def _incident_health(self):
         """`/healthz` contribution: unhealthy while a serve incident is
@@ -321,16 +397,64 @@ class ServingEngine:
     # ---- request lifecycle robustness --------------------------------- #
     def _expire_deadlines(self):
         """Cancel every request whose per-class deadline has passed, at the
-        step boundary; frees its arena blocks."""
+        step boundary; frees its arena blocks and books its prefill as
+        wasted compute."""
         if not self._config.deadline_ms:
             return
-        for req in self.sched.expired(self._clock()):
+        now = self._clock()
+        for req in self.sched.expired(now):
+            wasted = req.prefilled
             self.sched.cancel(req)
+            if self.ledger is not None:
+                self.ledger.note_serve_expired(req.slo, wasted)
+            self._emit("serve_expired", {
+                "rid": req.rid, "slo": req.slo,
+                "age_ms": (now - req.arrival) * 1000.0,
+                "deadline_ms": (req.deadline_at - req.arrival) * 1000.0,
+                "generated": len(req.generated),
+                "wasted_prefill_tokens": wasted,
+            }, step=self.step_count)
 
     def _update_admission(self):
-        """Advance the shed ladder from the queue-age signal (the TTFT burn
-        signal needs the telemetry hub, not ported yet)."""
-        self.admission.evaluate(self.sched.oldest_wait_s(self._clock()))
+        """Advance the shed ladder from the queue-age and TTFT-burn
+        signals (the SLO monitor's state of ``serve_ttft_ms``); rung
+        changes are telemetered (and gauge-fed via the MetricsSink on
+        flush)."""
+        age = self.sched.oldest_wait_s(self._clock())
+        state = "ok"
+        mon = getattr(self.telemetry, "slo_monitor", None)
+        if mon is not None:
+            try:
+                state = mon.state_for_metric("serve_ttft_ms")
+            except Exception:
+                state = "ok"
+        prev = self.admission.level
+        level = self.admission.evaluate(age, state)
+        if level != prev:
+            self._emit("serve_shed", {
+                "event": "level", "level": level,
+                "from": SHED_LEVELS[prev], "to": self.admission.level_name,
+                "queue_age_ms": age * 1000.0, "ttft_state": state,
+            }, step=self.step_count)
+
+    def _on_preempt(self, victim: Request):
+        if self.ledger is not None and not victim.spilled:
+            # eviction without a spill record: the prefill is recomputed
+            # from scratch on resume — those tokens are wasted work
+            self.ledger.note_wasted_prefill(victim.slo, victim.prefilled)
+        self._emit("serve_preempt", {
+            "rid": victim.rid, "slo": victim.slo,
+            "generated": len(victim.generated),
+            "preemptions": victim.preemptions,
+            "spilled": victim.spilled,
+        }, step=self.step_count)
+
+    def _on_prefix_hit(self, req: Request, blocks: List[int]):
+        self._emit("prefix_hit", {
+            "rid": req.rid, "slo": req.slo, "blocks": len(blocks),
+            "tokens": len(blocks) * self._config.block_size,
+            "prompt_tokens": len(req.prompt),
+        }, step=self.step_count)
 
     # ------------------------------------------------------------------ #
     def submit(self, prompt, max_new_tokens: Optional[int] = None,
@@ -345,6 +469,12 @@ class ServingEngine:
                 f"{sorted(SLO_PRIORITY)}")
         cfg, mcfg = self._config, self.module.cfg
         if not self.admission.admit_ok(slo):
+            self._emit("serve_shed", {
+                "event": "rejected", "slo": slo,
+                "level": self.admission.level,
+                "level_name": self.admission.level_name,
+                "queue_depth": len(self.sched.waiting),
+            }, step=self.step_count)
             raise ShedError(
                 f"admission ladder at {self.admission.level_name!r} is "
                 f"shedding {slo!r}-class requests (retry later or raise "
@@ -371,6 +501,11 @@ class ServingEngine:
         if dl > 0.0:
             req.deadline_at = req.arrival + dl / 1e3
         self.sched.submit(req)
+        self._emit("serve_request", {
+            "event": "submitted", "rid": req.rid, "slo": slo,
+            "prompt_tokens": len(prompt), "max_new_tokens": mnt,
+            "queue_depth": len(self.sched.waiting),
+        }, step=self.step_count)
         return ServeFuture(self, req)
 
     # ------------------------------------------------------------------ #
@@ -384,23 +519,32 @@ class ServingEngine:
         self._update_admission()
         self.sched.admit()
         prefill_tokens = 0
+        t_step = time.monotonic() if self.registry is not None else 0.0
         try:
-            pf = self.sched.next_prefill()
-            if pf is not None:
-                req, start, n = pf
-                self._run_prefill(req, start, n)
-                prefill_tokens = n
-            # growth pass, oldest/strongest first: each decode step writes
-            # one token per sequence, so capacity must exist before the
-            # batch is built; eviction here removes victims from `active`
-            decode = sorted(self.sched.decode_batch(),
-                            key=lambda r: (r.priority, r.admit_seq))
-            for r in decode:
-                if r.state == DECODE:      # not evicted by an earlier r
-                    self.sched.ensure_capacity(r, r.prefilled + 1)
-            decode = self.sched.decode_batch()
-            if decode:
-                self._run_decode(decode)
+            with maybe_span("serve.step", tracer=self.tracer, step=self.step_count):
+                pf = self.sched.next_prefill()
+                if pf is not None:
+                    req, start, n = pf
+                    with maybe_span("serve.prefill", tracer=self.tracer, rid=req.rid,
+                                    start=start, tokens=n):
+                        self._run_prefill(req, start, n)
+                    prefill_tokens = n
+                # growth pass, oldest/strongest first: each decode step
+                # writes one token per sequence, so capacity must exist
+                # before the batch is built; eviction here removes victims
+                # from `active`
+                decode = sorted(self.sched.decode_batch(),
+                                key=lambda r: (r.priority, r.admit_seq))
+                for r in decode:
+                    if r.state == DECODE:      # not evicted by an earlier r
+                        self.sched.ensure_capacity(r, r.prefilled + 1)
+                decode = self.sched.decode_batch()
+                if decode:
+                    t_dec = time.monotonic() if self.registry is not None else 0.0
+                    with maybe_span("serve.decode", tracer=self.tracer, batch=len(decode)):
+                        self._run_decode(decode)
+                    if self.registry is not None:
+                        self._h_decode.observe((time.monotonic() - t_dec) * 1e3)
         except ServeStepTimeout as err:
             self._recover_incident(err)
             raise
@@ -412,6 +556,10 @@ class ServingEngine:
             }, step=self.step_count)
             self._incident = None
         self.step_count += 1
+        if self.ledger is not None:
+            self.ledger.on_step(self.step_count,
+                                offload_wait_s=self._restage_wait_ms / 1e3)
+            self._restage_wait_ms = 0.0
         stats = dict(self.sched.stats(), decode_batch=len(decode),
                      prefill_tokens=prefill_tokens,
                      tokens_generated=self.tokens_generated,
@@ -422,6 +570,28 @@ class ServingEngine:
             stats.update(self.tiering.stats())
         if self.prefix is not None:
             stats.update(self.prefix.stats())
+        if self.registry is not None:
+            self._h_step.observe((time.monotonic() - t_step) * 1e3)
+            for gauge, key in ((self._g_queue, "queue_depth"),
+                               (self._g_active, "active"),
+                               (self._g_blocks, "blocks_in_use"),
+                               (self._g_host_bytes, "kv_host_bytes"),
+                               (self._g_nvme_bytes, "kv_nvme_bytes")):
+                v = stats.get(key)
+                if isinstance(v, (int, float)):
+                    gauge.set(v)
+            lookups = stats.get("prefix_lookups")
+            if lookups:
+                self._g_prefix_rate.set(int(stats.get("prefix_hits", 0)) / int(lookups))
+        if (self.telemetry is not None and self._config.telemetry_every
+                and self.step_count % self._config.telemetry_every == 0):
+            self._emit("serve_step", stats, step=self.step_count)
+            if self.registry is not None:
+                # drain the emit buffer so event-derived metrics (TTFT,
+                # restage, preemption) stay live for /metrics scrapes,
+                # then run the pod fold at its own cadence
+                self.telemetry.flush()
+                self.telemetry.maybe_snapshot(self.step_count)
         return stats
 
     def run(self, max_steps: int = 1_000_000) -> int:
@@ -446,7 +616,9 @@ class ServingEngine:
     def close(self):
         """Release the resilience and tiering backends: stop the bounded
         dispatch worker, drain the staging pool's writes, close it and
-        remove the tempdir the tiering manager made.  Idempotent."""
+        remove the tempdir the tiering manager made; close a hub that
+        ``init_serving`` built (final flush, ops-server shutdown) and
+        export a tracer it built.  Idempotent."""
         if self._closed:
             return
         self._closed = True
@@ -454,6 +626,8 @@ class ServingEngine:
             self._bounded.shutdown()
         if self.tiering is not None:
             self.tiering.close()
+        if self._owned_telemetry is not None:
+            self._owned_telemetry.close()
 
     # ---- warm restart -------------------------------------------------- #
     def snapshot(self) -> Dict[str, Any]:
@@ -575,6 +749,10 @@ class ServingEngine:
             "deadline_s": err.deadline_s, "incident": self.incident_count,
             "in_flight": len(self.sched.active),
         }, step=self.step_count)
+        if self.ledger is not None:
+            # resident KV is about to be discarded: its prefill recomputes
+            for r in self.sched.active.values():
+                self.ledger.note_wasted_prefill(r.slo, r.prefilled)
         if self.tiering is not None:
             # spill writes and prefetch reads in flight finish first, as in
             # the JAX engine (none of them touches the arena)
@@ -595,6 +773,10 @@ class ServingEngine:
         self._incident = {"at": t0, "step": self.step_count,
                           "phase": err.op}
         self.last_recovery_s = self._clock() - t0
+        if self.ledger is not None:
+            # the wedge wait (the expired deadline) plus the rebuild are
+            # incident seconds, not productive step time
+            self.ledger.note_comm_recovery((err.deadline_s or 0.0) + self.last_recovery_s)
         self._emit("serve_incident", {
             "event": "recovered", "phase": err.op, "step": self.step_count,
             "requeued": len(requeued), "lost": 0,
@@ -651,14 +833,32 @@ class ServingEngine:
         if req.done(self._config.eos_token_id):
             req.finished_at = self._clock()
             self.sched.finish(req)
+            ttft = req.first_token_at - req.arrival
+            latency = req.finished_at - req.arrival
+            if self.ledger is not None:
+                self.ledger.note_serve_request(req.slo, ttft * 1000.0, len(req.generated))
+            self._emit("serve_request", {
+                "event": "finished", "rid": req.rid, "slo": req.slo,
+                "prompt_tokens": len(req.prompt),
+                "new_tokens": len(req.generated),
+                "ttft_ms": ttft * 1000.0,
+                "latency_ms": latency * 1000.0,
+                "tokens_per_sec": len(req.generated) / max(latency, 1e-9),
+                "preemptions": req.preemptions,
+            }, step=self.step_count)
 
 
 def init_serving(model=None, config=None, **kwargs):
     """Module-level helper in the ``deepspeed.init_inference`` style: merge
     a ``{"serving": {...}}`` (or flat) config dict + kwargs.  The nested
     form is collapsed FIRST and kwargs applied after, so engine kwargs
-    (``params=``, ``device=``, ...) are never discarded by a full ds_config
-    — and explicit kwargs always win over config keys."""
+    (``params=``, ``device=``, ``telemetry=``, ...) are never discarded by
+    a full ds_config — and explicit kwargs always win over config keys.
+    ``telemetry`` is a ``TelemetryHub`` or a ``telemetry`` config dict
+    (``DeepSpeedTelemetryConfig``'s keys): a hub built from a dict has no
+    other owner, so the engine closes it on ``close()``; with ``tracing:
+    true`` and no ``tracer=`` the engine also gets a tracer of its own,
+    exported to ``trace_dir`` on ``close()``."""
     cfg_dict = dict(config or {})
     if "serving" in cfg_dict:
         cfg_dict = dict(cfg_dict["serving"])
@@ -671,5 +871,13 @@ def init_serving(model=None, config=None, **kwargs):
         raise TypeError("model_seed: the port's GPT carries its own weights; "
                         "seed it at construction, GPT(cfg, seed=...)")
     cfg = DeepSpeedServingConfig(**cfg_dict)
-    return ServingEngine(model, config=cfg, params=params, device=device,
-                         telemetry=telemetry, tracer=tracer)
+    telemetry, tracer, owned = telemetry_from_arg(telemetry, tracer, resolve_device(device))
+    try:
+        eng = ServingEngine(model, config=cfg, params=params, device=device,
+                            telemetry=telemetry, tracer=tracer)
+    except BaseException:
+        if owned is not None:
+            owned.close()
+        raise
+    eng._owned_telemetry = owned
+    return eng

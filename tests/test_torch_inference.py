@@ -166,8 +166,6 @@ def test_config_keys_the_port_does_not_read_raise(config):
     ({"tensor_parallel": {"tp_size": 2}}, "tp_size"),
     ({"moe": {"ep_size": 2}}, "ep_size"),
     ({"enable_cuda_graph": True}, "enable_cuda_graph"),
-    ({"telemetry": object()}, "telemetry"),
-    ({"tracer": object()}, "telemetry and tracing"),
     ({"mesh": object()}, "mesh"),
 ])
 def test_unported_options_raise_naming_their_roadmap_entry(config, match):

@@ -188,11 +188,7 @@ def test_deadline_expiry_frees_blocks(models):
 
 
 @pytest.mark.parametrize("kwargs", [
-    # tiering and bounded dispatch are taken; the planes beside them are not
-    {"config": {"kv_tiering": True}, "telemetry": object()},
-    {"config": {"serve_step_timeout_s": 5.0}, "tracer": object()},
-    {"telemetry": object()},
-    {"tracer": object()},
+    # tiering, bounded dispatch, telemetry and tracing are taken; a model seed is not
     {"model_seed": 3},
 ])
 def test_out_of_slice_options_raise(models, kwargs):

@@ -10,8 +10,7 @@
   ``generate()``), equal incident, preemption, spill and restage counts,
   no request lost.
 * ``init_serving`` takes ``kv_tiering``, ``serve_step_timeout_s > 0`` and
-  an installed plan; ``telemetry=`` and ``tracer=`` still raise, naming
-  ROADMAP entry 7.
+  an installed plan, and beside them a telemetry hub and a tracer.
 * Sampled ``generate()`` (``temperature > 0``), the model's and
   ``InferenceEngine``'s, gives JAX's tokens when JAX's own Gumbel draws
   are passed in (``noise=``); a seed gives the same output twice and two
@@ -207,9 +206,15 @@ def test_init_serving_takes_the_resilience_plane(models, tmp_path):
     assert stats["incidents"] == 0 and "kv_spills" in stats
     eng.close()
     assert (tmp_path / "kv").is_dir(), "a caller's offload dir is the caller's"
-    for kwargs in ({"telemetry": object()}, {"tracer": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 entry 7"):
-            dst.init_serving(model=port, device="cpu", config=TIERED, **kwargs)
+    from deepspeed_tpu_torch.telemetry import RingBufferSink, TelemetryHub, Tracer
+    hub, tracer = TelemetryHub(sinks=[RingBufferSink()], flush_every=0), Tracer()
+    eng = dst.init_serving(model=port, device="cpu", config=TIERED, telemetry=hub,
+                           tracer=tracer)
+    assert eng.submit([5, 6, 7], max_new_tokens=4).result() == reference(port, [5, 6, 7], 4)
+    hub.flush()
+    assert [r["event"] for r in hub.ring.of_kind("serve_request")] == ["submitted", "finished"]
+    assert "serve.step" in {s["name"] for s in tracer.snapshot()}
+    eng.close()
 
 
 # --------------------------------------------------------------------------- #

@@ -258,8 +258,30 @@ Phases, each printing its own lines; any failure exits non-zero:
    equal, each step record's loss and grad norm equal to the off run's,
    one capture and the launch counters equal to the captured graph's
    kernel nodes, ``EFFICIENCY.json`` written, the profiler's Chrome trace
-   holding device events; the graphed step's median off and on.
-Each phase prints its seconds, and the total is printed after phase 36.
+   holding device events; the graphed step's median off and on;
+37. the stability sentinel in phase 7's graphed cell: clean steps with
+   the ``stability`` block on and off bit for bit (one capture each, the
+   counters equal to the graph's kernel nodes, each median step); a
+   ``train.grads`` nan step leaving parameters, moments and count bit for
+   bit, seen on the host one step later; a run of poisoned steps walking
+   the ladder in JAX's order (the backed-off replay moving the parameters
+   half as far as one at the full lr; the rollback into the same graphs;
+   the quarantined batch skipped); the fused AdamW kernel's skip flag set
+   and clear against its plain version, also on a ``ZeroAdam`` chunk;
+38. phase 7's cell at ZeRO-1 (a one-rank NCCL group) under the port's
+   elastic agent and launcher, one agent run of four starts: a preemption
+   (SIGTERM at a step boundary, exit 143), a crash (exit 9), a wedged
+   collective with no retry left (exit 113 with the marker) and the
+   finishing start: the agent's restarts, the budget spent only on the
+   crash, each start's start-up seconds, the preemption save and
+   ``ckpt_stall``; the final parameters equal an uninterrupted run's bit
+   for bit;
+39. collective recovery in process on that cell: a ``comm.collective``
+   wedge at the capture's first collective retried in place (one
+   incident, the capture abandoned and taken again, ``comm_recovery``
+   booked, ``/recovery`` answering, the parameters of phase 38's
+   uninterrupted run).
+Each phase prints its seconds, and the total is printed after phase 39.
 
 Phase 2 also prints the registers, spills, blocks per SM and shared
 memory of the kernels the tree redesigned last (the cross-entropy forward
@@ -280,7 +302,7 @@ must give bitwise-equal dQ, dK and dV, and
 the fixed split lengths of DKV_SPLITS are held to the same tolerances and
 timed beside the kept one at each bf16 case.
 
-Each run of phases 4-5, 7-36 (generate(), each serve, the timed
+Each run of phases 4-5, 7-37 (generate(), each serve, the timed
 graphed and eager training steps, each fp32 training run) zeroes the launch
 counters just before it and reads them just after: its kernels must have
 launched (a replay counts every launch of its graph; the capture counts
@@ -4076,6 +4098,21 @@ def phase_tiered_fp32(device, card: str):
 OPS_FLUSH_EVERY = 8              # phase 35's hub: JSONL flush window (records)
 OPS_SCRAPE_S = 0.1               # the scraper thread's period
 OPS_TRAIN_STEPS, OPS_TRAIN_WARMUP = 24, 2
+# phase 37: the stability block on phase 7's cell; the ladder's thresholds
+# make two consecutive anomalies back the lr off and three roll back
+STABILITY_CFG = {"enabled": True, "warmup_steps": 1000, "lr_backoff_after": 2,
+                 "lr_backoff_factor": 0.5, "rollback_after": 3}
+STABILITY_CLEAN_STEPS, STABILITY_TAIL = 6, 4
+# phase 38: the agent run's length and the step whose boundary is sent
+# SIGTERM
+PREEMPT_TOTAL, PREEMPT_STEP = 6, 3
+# phase 39: the recovery plane's deadline in process (a warm GPT-2 step and
+# its capture take ~0.4 s); a fresh worker's first step takes 9-18 s (on
+# first use), which phase 38's worker deadline covers
+RECOVERY_STEPS = 3
+RECOVERY_CFG = {"recovery_enabled": True, "collective_timeout_s": 5.0,
+                "max_step_retries": 1, "retry_backoff_s": 0.1}
+RECOVERY_WORKER_TIMEOUT_S = 25.0
 OPS_TRAIN_FLUSH_EVERY = 5
 OPS_PROFILE_WINDOW = (10, 12)    # phase 36's profiler window, [start, end) steps
 DEVICE_EVENT_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -4446,6 +4483,618 @@ def phase_ops_train(device, card: str):
     return dict(off=off, on=on, gap=gap, device_events=len(dev), kernel_names=sorted(ours))
 
 
+# --------------------------------------------------------------------------- #
+# phases 37-39: the training robustness plane on phase 7's GPT-2 cell
+# --------------------------------------------------------------------------- #
+def host_batch(vocab: int, seed: int):
+    """Phase 7's batch shape, ``[1, 8, 512]`` int32 ids, in host memory (a
+    host batch is fingerprinted, so it can be quarantined)."""
+    ids = np.random.default_rng(seed).integers(0, vocab, (1, TRAIN_MICRO, TRAIN_SEQ))
+    return ids.astype(np.int32), ids.astype(np.int32)
+
+
+def optimizer_state(engine):
+    """Host copies of what a skipped step must leave alone: the fp32
+    parameters, the moments and the count."""
+    import torch
+    opt = engine.optimizer
+    return ([p.detach().clone() for p in engine._leaves] + [t.clone() for t in opt.mu]
+            + [t.clone() for t in opt.nu] + [opt.count.clone()])
+
+
+def same_state(a, b) -> bool:
+    import torch
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def adam_skip_cases(device, card: str):
+    """The fused AdamW kernel's skip flag against its plain version: over
+    the 148 GPT-2 leaves with the flag set (nothing written, bit for bit)
+    and clear (equal to the plain version and to a launch without the
+    flag), and on a ``ZeroAdam`` chunk of offloaded moments (host pieces
+    unchanged with the flag set).  The flagged launch's time after a
+    ``zero_()`` flush, beside the unflagged one's."""
+    import torch
+    from deepspeed_tpu_torch.models.gpt import gpt_config, init_gpt_params
+    from deepspeed_tpu_torch.runtime.optimizers import ZeroAdam
+    from deepspeed_tpu_torch.runtime.zero.partition_parameters import FlatStore
+    tfo = kernel_modules()[2]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    tree = init_gpt_params(gpt_config("gpt2", n_positions=TRAIN_SEQ), gen)
+    params = [tree[k] for k in ("wte", "wpe", "lnf_g", "lnf_b")] + [
+        t for blk in tree["blocks"] for t in blk.values()]
+    grads = [torch.randn(p.shape, generator=gen, device=device) * 1e-3 for p in params]
+    mus = [torch.randn(p.shape, generator=gen, device=device) * 1e-4 for p in params]
+    nus = [(torch.randn(p.shape, generator=gen, device=device) * 1e-3).square() for p in params]
+    spec = tfo.spec_from_config("adamw", {"weight_decay": 0.01}, 1e-4)
+    neg_lr, bc1, bc2 = tfo.step_scalars(spec, torch.tensor(10, dtype=torch.int32,
+                                                           device=device))
+    scal = torch.stack([torch.tensor(0.5, device=device), torch.tensor(0.7, device=device),
+                        neg_lr, bc1, bc2])
+    kw = dict(b1=spec["b1"], b2=spec["b2"], eps=spec["eps"], wd=spec["wd"])
+    one = torch.ones((), device=device)
+    zero = torch.zeros((), device=device)
+
+    def copies():
+        return [[t.clone() for t in ts] for ts in (params, grads, mus, nus)]
+    a, b, c = copies(), copies(), copies()
+    before = copies()
+    table = tfo.AdamTable(*a)
+    tfo.fused_adam(table, scal, skip=one, **kw)
+    torch.cuda.synchronize()
+    set_same = all(torch.equal(x, y) for xs, ys in zip(a, before) for x, y in zip(xs, ys))
+    tfo.fused_adam(table, scal, skip=zero, **kw)
+    tfo.fused_adam(tfo.AdamTable(*c), scal, **kw)
+    tfo.adam_reference(*b, scal, **kw)
+    torch.cuda.synchronize()
+    clear_plain = all(torch.equal(x, y) for xs, ys in zip(a, b) for x, y in zip(xs, ys))
+    clear_noflag = all(torch.equal(x, y) for xs, ys in zip(a, c) for x, y in zip(xs, ys))
+    scratch = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)
+    ms_flag = median_ms(lambda: tfo.fused_adam(table, scal, skip=zero, **kw), 10,
+                        scratch.zero_)
+    ms_none = median_ms(lambda: tfo.fused_adam(table, scal, **kw), 10, scratch.zero_)
+    ms_set = median_ms(lambda: tfo.fused_adam(table, scal, skip=one, **kw), 10, scratch.zero_)
+    del scratch
+    # a ZeroAdam over offloaded moments: 2**23 + 5 values in host pieces of 2**22
+    n, piece = 2 ** 23 + 5, 2 ** 22
+    master = torch.randn(n, generator=gen, device=device) * 0.02
+    grad = torch.randn(n, generator=gen, device=device) * 1e-3
+    mu, nu = (FlatStore(n, device, host=True, piece=piece) for _ in range(2))
+    for s in (mu, nu):
+        for t in s.pieces:
+            t.copy_(torch.rand(t.shape) * 1e-4)
+    zadam = ZeroAdam(spec, [(0, n, master)], grad, mu, nu)
+    host_before = [t.clone() for s in (mu, nu) for t in s.pieces] + [master.cpu()]
+    zadam.step(torch.tensor(1.0, device=device), torch.tensor(1.0, device=device), skip=one)
+    torch.cuda.synchronize()
+    host_after = [t.clone() for s in (mu, nu) for t in s.pieces] + [master.cpu()]
+    zero_same = (same_state(host_before, host_after) and int(zadam.count) == 0
+                 and len(zadam.chunks) > 1)
+    # clear: the chunked step against the plain update of the whole shard
+    ref = [master.clone()], [grad.clone()], [torch.cat(mu.pieces).to(device)], \
+        [torch.cat(nu.pieces).to(device)]
+    nl, b1c, b2c = tfo.step_scalars(spec, zadam.count)
+    zscal = torch.stack([torch.tensor(1.0, device=device), torch.tensor(1.0, device=device),
+                         nl, b1c, b2c]).to(torch.float32)
+    tfo.adam_reference(*ref, zscal, **kw)
+    zadam.step(torch.tensor(1.0, device=device), torch.tensor(1.0, device=device), skip=zero)
+    torch.cuda.synchronize()
+    zero_clear = (torch.equal(master, ref[0][0])
+                  and torch.equal(torch.cat(mu.pieces).to(device), ref[2][0])
+                  and torch.equal(torch.cat(nu.pieces).to(device), ref[3][0])
+                  and int(zadam.count) == 1)
+    mu.close()
+    nu.close()
+    say(f"fused_adam skip flag, 148 GPT-2 leaves ({table.numel():,} values): set writes "
+        f"nothing {set_same}; clear equals the plain version {clear_plain} and the launch "
+        f"without the flag {clear_noflag}; ZeroAdam over {len(zadam.chunks)} chunks of "
+        f"offloaded moments: set leaves the host pieces, the master and the count {zero_same}, "
+        f"clear equals the plain update {zero_clear}; ms after a zero_() flush: flag clear "
+        f"{ms_flag:.4f}, no flag {ms_none:.4f}, flag set {ms_set:.4f} [{card}]")
+    if not (set_same and clear_plain and clear_noflag and zero_same and zero_clear):
+        fail("fused_adam skip flag: a case differs from its plain version")
+    return dict(ms_flag=ms_flag, ms_none=ms_none, ms_set=ms_set)
+
+
+def anomaly_events(engine):
+    engine.telemetry.flush()
+    kinds = ("anomaly", "lr_backoff", "auto_rollback", "batch_quarantined")
+    return [r for r in engine.telemetry.ring.records if r.get("kind") in kinds]
+
+
+def phase_stability(device, card: str):
+    """Phase 37: the stability sentinel in phase 7's graphed GPT-2 cell
+    (seq 512, micro 8, bf16, AdamW, clip 1.0):
+
+    * clean: STABILITY_CLEAN_STEPS steps with the block off and on from one
+      seed: parameters bit for bit, one capture each, the launch counters
+      equal to the graph's kernel nodes; each setting's median step;
+    * a ``train.grads`` nan plan on one step: parameters, moments and count
+      after it bit for bit those before it, ``skipped`` 1, the cause code
+      on the host at the next boundary (the seam's capture is the plan's
+      own: a clean graph keeps its nodes);
+    * a run of poisoned steps: ``anomaly`` -> ``lr_backoff`` (the next
+      replay moves the parameters half as far as one at the full lr, from
+      the same state) -> ``batch_quarantined`` and ``auto_rollback`` into
+      the same graphs (no new capture) -> the quarantined batch skipped on
+      replay; then clean steps: loss finite and falling;
+    * the fused AdamW kernel's skip flag against its plain version."""
+    import torch
+    from deepspeed_tpu_torch.models.gpt import GPT, gpt_config
+    from deepspeed_tpu_torch.testing import fault_injection as fi
+
+    cfg = gpt_config("gpt2", n_positions=TRAIN_SEQ, remat=True)
+    n = STABILITY_CLEAN_STEPS
+    batches = [host_batch(cfg.vocab_size, 700 + i) for i in range(n + 12)]
+    ce = kernel_modules()[1].launches_per_call(TRAIN_MICRO * TRAIN_SEQ, cfg.n_embd,
+                                               cfg.padded_vocab, torch.bfloat16)
+    runs = {}
+    telemetry = {"enabled": True, "flush_every": 10 ** 6}
+    for label, extra in (("off", {"telemetry": telemetry}),
+                         ("on", {"stability": STABILITY_CFG, "telemetry": telemetry})):
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = GPT(cfg, device=device, seed=0)
+        engine = train_engine(model, dict(TRAIN_CFG, **extra), device)
+        engine.graphs.accelerator = KeptGraphs(engine.graphs.accelerator)
+        engine.train_batch(batch=batches[0])          # warm-up and capture
+        torch.cuda.synchronize()
+        (_, host_ms, wall_ms), counts = counted(
+            f"stability {label}: bf16 train gpt2 seq 512 graphed ({n} steps)",
+            train_expect("auto", TRAIN_SEQ, cfg.n_layer, n, ce_launches=ce),
+            lambda: timed_steps(lambda: engine.train_batch(batch=batches[1]), n))
+        nodes, n_nodes = graph_kernel_counts(engine)
+        for k, per in nodes.items():
+            if counts.get(k, 0) != per * n:
+                fail(f"stability {label}: {k} launched {counts.get(k, 0)} times in {n} replays "
+                     f"of a graph with {per} of its kernel nodes")
+        if engine.graphs.captures != 1:
+            fail(f"stability {label}: {engine.graphs.captures} captures")
+        runs[label] = dict(engine=engine, model=model, step_ms=statistics.median(wall_ms),
+                           host_ms=statistics.median(host_ms), nodes=n_nodes,
+                           params=param_copies(model))
+        if label == "off":
+            engine.close()
+            del runs[label]["engine"], runs[label]["model"], engine, model
+    on, off = runs["on"], runs["off"]
+    if not all(torch.equal(v, off["params"][k]) for k, v in on["params"].items()):
+        fail("stability on: a clean graphed step differs from the step without the block")
+    say(f"stability clean: {n} graphed steps off and on, parameters bit for bit; one capture "
+        f"each; graph nodes off {off['nodes']}, on {on['nodes']}; median step {off['step_ms']:.3f} "
+        f"ms off, {on['step_ms']:.3f} ms on (host {off['host_ms']:.3f} / {on['host_ms']:.3f}) "
+        f"[{card}]")
+    engine, model = on["engine"], on["model"]
+    del runs
+    root = tempfile.mkdtemp(prefix="chip_smoke_stability_", dir=ckpt_root())
+    try:
+        t0 = time.perf_counter()
+        engine.save_checkpoint(root)
+        save_s = time.perf_counter() - t0
+        step0 = engine.global_steps
+        # one nan step: nothing of the update lands
+        before = optimizer_state(engine)
+        fi.install_plan([{"site": "train.grads", "action": "nan", "on_hit": 1}])
+        engine.train_batch(batch=batches[2])
+        torch.cuda.synchronize()
+        after = optimizer_state(engine)
+        skipped = engine.skipped_steps
+        seen_at_step = [r for r in anomaly_events(engine) if r["kind"] == "anomaly"]
+        fi.clear_plan()
+        engine.train_batch(batch=batches[3])
+        seen_next = [r for r in anomaly_events(engine) if r["kind"] == "anomaly"]
+        if not same_state(before, after) or skipped != 1:
+            fail(f"stability: the nan step changed the state or skipped {skipped} steps")
+        if seen_at_step or len(seen_next) != 1 or seen_next[0]["step"] != step0 + 1 \
+                or seen_next[0]["detected_at"] != step0 + 2:
+            fail(f"stability: the nan step's cause code was seen {seen_at_step} / {seen_next}")
+        say(f"stability nan step {step0 + 1}: parameters, moments and count bit for bit those "
+            f"before it; skipped 1; {seen_next[0]['cause']} on the host at step "
+            f"{seen_next[0]['detected_at']}; captures {engine.graphs.captures} (the seam's "
+            f"own) [{card}]")
+        # a run of poisoned steps: backoff at streak 2, rollback at 3
+        captures = engine.graphs.captures
+        fi.install_plan([{"site": "train.grads", "action": "nan", "on_hit": 1, "times": 2}])
+        engine.train_batch(batch=batches[4])
+        engine.train_batch(batch=batches[5])
+        fi.clear_plan()
+        # the step after the second nan judges the first (streak 1 ... ): a
+        # clean step now, from this state, at the backed-off lr after the
+        # boundary that sees streak 2
+        engine.train_batch(batch=batches[6])
+        if float(engine._lr_scale_dev) != STABILITY_CFG["lr_backoff_factor"]:
+            fail(f"stability: lr scale {float(engine._lr_scale_dev)} after the backoff")
+        state = optimizer_state(engine)
+        sentinel = [t.clone() for t in engine.sentinel]
+        engine.train_batch(batch=batches[7])
+        torch.cuda.synchronize()
+        half = [p.detach().clone() for p in engine._leaves]
+        engine._copy_in(list(zip(list(engine._leaves) + engine.optimizer.mu + engine.optimizer.nu
+                                 + [engine.optimizer.count] + list(engine.sentinel),
+                                 state + sentinel)))
+        engine._lr_scale_dev.fill_(1.0)
+        engine.train_batch(batch=batches[7])
+        torch.cuda.synchronize()
+        full = [p.detach().clone() for p in engine._leaves]
+        engine._copy_in(list(zip(engine._leaves, half)))
+        engine._lr_scale_dev.fill_(STABILITY_CFG["lr_backoff_factor"])
+        num = sum((h - s).double().square().sum().item() for h, s in zip(half, state))
+        den = sum((f - s).double().square().sum().item() for f, s in zip(full, state))
+        ratio = (num / den) ** 0.5
+        if abs(ratio - STABILITY_CFG["lr_backoff_factor"]) > 1e-3:
+            fail(f"stability: the backed-off replay moved the parameters {ratio:.6f} as far as "
+                 "one at the full lr")
+        fi.install_plan([{"site": "train.grads", "action": "nan", "on_hit": 1, "times": 3}])
+        for b in batches[8:11]:
+            engine.train_batch(batch=b)
+        fi.clear_plan()
+        engine.train_batch(batch=batches[11])         # judges the third: rollback
+        rolled_to = engine.global_steps
+        engine.train_batch(batch=batches[9])          # quarantined: skipped
+        events = anomaly_events(engine)
+        kinds = [r["kind"] + (f":{r['phase']}" if r["kind"] == "batch_quarantined" else "")
+                 for r in events]
+        order = [kinds.index(k) if k in kinds else -1 for k in (
+            "anomaly", "lr_backoff", "batch_quarantined:quarantined", "auto_rollback",
+            "batch_quarantined:skipped")]
+        if -1 in order or order != sorted(order):
+            fail(f"stability: events {kinds}")
+        if engine.graphs.captures != captures:
+            fail(f"stability: the rollback captured again ({engine.graphs.captures} captures)")
+        losses = [float(engine.train_batch(batch=batches[1])) for _ in range(STABILITY_TAIL)]
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            fail(f"stability: after the rollback the loss went {losses}")
+        roll = next(r for r in events if r["kind"] == "auto_rollback")
+        say(f"stability ladder: events {kinds}; the backed-off replay moved the parameters "
+            f"{ratio:.6f} as far as one at the full lr; rollback from step {roll['from_step']} "
+            f"to {roll['to_step']} (resumed at {rolled_to}), {roll['quarantined']} fingerprints "
+            f"quarantined; captures {engine.graphs.captures} before and after; then "
+            f"{STABILITY_TAIL} clean steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}; save "
+            f"{save_s:.3f} s [{card}]")
+    finally:
+        fi.clear_plan()
+        engine.close()
+        shutil.rmtree(root, ignore_errors=True)
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    adam = adam_skip_cases(device, card)
+    say(f"summary: stability on gpt2 bf16 seq 512 micro 8 graphed: median step "
+        f"{off['step_ms']:.3f} ms off / {on['step_ms']:.3f} ms on; fused_adam 148 leaves "
+        f"{adam['ms_none']:.4f} ms without the flag, {adam['ms_flag']:.4f} with it clear, "
+        f"{adam['ms_set']:.4f} set [{card}]")
+    return dict(off_ms=off["step_ms"], on_ms=on["step_ms"], adam=adam)
+
+
+def ckpt_root() -> str:
+    """Where large temporary checkpoints go: $TMPDIR or the checkout,
+    whichever has more room."""
+    here = str(Path(__file__).resolve().parent)
+    tmp = tempfile.gettempdir()
+    return max((tmp, here), key=lambda d: shutil.disk_usage(d).free)
+
+
+ROBUST_WORKER = '''\
+import hashlib, json, os, sys, time
+sys.path.insert(0, {repo!r})
+import numpy as np
+import torch
+
+
+def process_age():
+    """Seconds since this process started (/proc/self/stat's start time)."""
+    ticks = os.sysconf("SC_CLK_TCK")
+    start = int(open("/proc/self/stat").read().rsplit(")", 1)[1].split()[19]) / ticks
+    return float(open("/proc/uptime").read().split()[0]) - start
+
+
+def main():
+    cfgv = json.loads(sys.argv[1])
+    starts = os.path.join(cfgv["root"], "starts")
+    n = (int(open(starts).read()) if os.path.exists(starts) else 0) + 1
+    open(starts, "w").write(str(n))
+    times = {{"python_s": process_age()}}
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.gpt import GPT, gpt_config
+    from deepspeed_tpu_torch.testing import fault_injection as fi
+    times["import_s"] = process_age()
+    cfg = gpt_config("gpt2", n_positions={seq}, remat=True)
+    model = GPT(cfg, seed=0)
+    torch.cuda.synchronize()
+    times["model_s"] = process_age()
+    config = dict(cfgv.get("configs", {{}}).get(str(n), cfgv["config"]))
+    config["telemetry"] = {{"enabled": True, "flush_every": 1,
+                           "jsonl_path": os.path.join(cfgv["root"], "start%d.jsonl" % n)}}
+    eng = dst.initialize(model=model, config=config, seed=0)[0]
+    times["engine_s"] = process_age()
+    ckpt = cfgv.get("ckpt")
+    if ckpt and os.path.exists(os.path.join(ckpt, "latest")):
+        eng.load_checkpoint(ckpt)
+    plan = cfgv.get("plans", {{}}).get(str(n))
+    if plan:
+        fi.install_plan(plan)
+    saves = []
+    save = eng.save_checkpoint
+
+    def timed_save(*a, **k):
+        t0 = time.perf_counter()
+        out = save(*a, **k)
+        saves.append(time.perf_counter() - t0)
+        return out
+    eng.save_checkpoint = timed_save
+    times["load_s"] = process_age()
+    info = {{"start": n, "resumed_at": eng.global_steps, "times": times}}
+    print("WORKER " + json.dumps(info), flush=True)      # a start that is killed
+    try:
+        while eng.global_steps < cfgv["steps"]:
+            ids = np.random.default_rng(900 + eng.global_steps).integers(
+                0, cfg.vocab_size, (1, {micro}, {seq})).astype(np.int32)
+            eng.train_batch(batch=(ids, ids))
+            if "startup_s" not in info:
+                torch.cuda.synchronize()
+                info["startup_s"] = process_age()
+    except SystemExit as e:
+        info.update(exit=e.code, saves_s=saves, step=eng.global_steps)
+        eff = os.path.join(cfgv["root"], "EFFICIENCY.json")
+        if os.path.exists(eff):
+            info["ckpt_stall_s"] = json.load(open(eff))["ledger"]["categories"]["ckpt_stall"]
+        print("WORKER " + json.dumps(info), flush=True)
+        raise
+    h = hashlib.sha256()
+    for k, t in sorted(eng.get_fp32_params().items()):
+        h.update(k.encode())
+        h.update(t.numpy().tobytes())
+    info.update(exit=0, digest=h.hexdigest(), step=eng.global_steps,
+                status=eng.recovery_manager.status() if eng.recovery_manager else None)
+    eng.close()
+    print("WORKER " + json.dumps(info), flush=True)
+
+
+main()
+'''
+
+
+def digest_of(engine) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for k, t in sorted(engine.get_fp32_params().items()):
+        h.update(k.encode())
+        h.update(t.numpy().tobytes())
+    return h.hexdigest()
+
+
+def run_agent(root: str, cfgv: dict, env: dict, max_restarts: int):
+    """The port's elastic agent supervising one worker (``ROBUST_WORKER``)
+    through the port's launcher (one process, ``cuda:0``), from this
+    checkout.  Returns (exit code, the agent, each start's ``WORKER`` lines
+    merged, the agent's sleeps, the workers' log)."""
+    from collections import OrderedDict
+    from deepspeed_tpu_torch.elasticity.elastic_agent import DSElasticAgent, WorkerSpec
+    from deepspeed_tpu_torch.launcher import runner
+    here = str(Path(__file__).resolve().parent)
+    script = os.path.join(root, "worker.py")
+    Path(script).write_text(ROBUST_WORKER.format(repo=here, seq=TRAIN_SEQ, micro=TRAIN_MICRO))
+    log = os.path.join(root, "workers.log")
+    # the launcher by its file: ``-m`` would import the package, and torch,
+    # before the worker does
+    cmd = [sys.executable, "-u", os.path.join(here, "deepspeed_tpu_torch", "launcher",
+                                              "launch.py"),
+           f"--world_info={runner.encode_world_info(OrderedDict(localhost=1))}",
+           f"--master_port={free_port_local()}", script, json.dumps(cfgv)]
+    shell = ["bash", "-c", " ".join(map(shlex_quote, cmd)) + f" >> {shlex_quote(log)} 2>&1"]
+    sleeps = []
+    # the workers keep the bytecode of what they import beside the run
+    # (the installed packages come without it): a later start reads what
+    # the first compiled
+    env = dict(env, PYTHONPATH=here, PYTHONDONTWRITEBYTECODE="",
+               PYTHONPYCACHEPREFIX=os.path.join(root, "pycache"))
+    agent = DSElasticAgent(WorkerSpec(shell, env=env),
+                           max_restarts=max_restarts, monitor_interval=0.5,
+                           sleep_fn=lambda s: (sleeps.append(s), time.sleep(s)))
+    old = os.getcwd()
+    os.chdir(here)
+    try:
+        rc = agent.run()
+    finally:
+        os.chdir(old)
+    text = Path(log).read_text() if os.path.exists(log) else ""
+    starts = {}
+    for x in text.splitlines():
+        if x.startswith("WORKER "):
+            rec = json.loads(x[len("WORKER "):])
+            starts.setdefault(rec["start"], {}).update(rec)
+    return rc, agent, starts, sleeps, text
+
+
+def shlex_quote(s: str) -> str:
+    import shlex
+    return shlex.quote(s)
+
+
+def free_port_local() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_agent(device, card: str):
+    """Phase 38: phase 7's GPT-2 cell at ZeRO-1 (so that the step runs
+    collectives on a one-rank NCCL group) under the port's elastic agent
+    and launcher (world 1), one agent run of four starts:
+
+    * start 1 trains and is sent SIGTERM at the boundary of step
+      PREEMPT_STEP (the ``sigterm`` action at ``train.step``): it saves
+      ``preempt_step<N>`` and exits 143; the agent restarts it at once,
+      spending no budget;
+    * start 2 resumes and dies at the boundary of its first step (a
+      ``kill``, exit 9): the agent backs off and spends its one restart;
+    * start 3 resumes with the recovery plane and no retry left
+      (``max_step_retries`` 0): a ``comm.collective`` wedge at its capture's
+      first collective expires the deadline, the worker exits 113 with the
+      marker, and the agent consumes it and restarts without budget;
+    * start 4 resumes from the preemption checkpoint and finishes, with no
+      incident; its parameters equal an uninterrupted in-process run's bit
+      for bit.
+
+    Returns the uninterrupted run's collectives a step and its parameters
+    after RECOVERY_STEPS steps, which phase 39 holds its wedged run to."""
+    import torch
+    from deepspeed_tpu_torch.models.gpt import GPT, gpt_config
+    cfg = gpt_config("gpt2", n_positions=TRAIN_SEQ, remat=True)
+    base = dict(TRAIN_CFG, zero_optimization={"stage": 1})
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = GPT(cfg, device=device, seed=0)
+    engine = train_engine(model, base, device)
+    per_step = collectives_per_step(engine, host_batch(cfg.vocab_size, 900))
+    while engine.global_steps < PREEMPT_TOTAL:
+        if engine.global_steps == RECOVERY_STEPS:
+            at_recovery_steps = engine.get_fp32_params()
+        engine.train_batch(batch=host_batch(cfg.vocab_size, 900 + engine.global_steps))
+    want = digest_of(engine)
+    engine.close()
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_agent_", dir=ckpt_root())
+    try:
+        ckpt, rdv = os.path.join(root, "ck"), os.path.join(root, "rdv")
+        config = dict(base, fault_tolerance={"preemption_enabled": True,
+                                             "preemption_save_dir": ckpt,
+                                             "preemption_grace_s": 60.0})
+        # a fresh worker's first step runs under the deadline too; the
+        # restart after the wedge meets at a rendezvous of its own (a
+        # coordinator starts at epoch 0 and would read start 3's abort of
+        # that epoch as its own, as the JAX package's does), while start 3
+        # writes its marker where the agent reads it (DS_RECOVERY_DIR)
+        recovery = dict(RECOVERY_CFG, collective_timeout_s=RECOVERY_WORKER_TIMEOUT_S,
+                        max_step_retries=0)
+        cfgv = {"root": root, "ckpt": ckpt, "steps": PREEMPT_TOTAL, "config": config,
+                "configs": {"3": dict(config, elasticity=dict(recovery, rendezvous_dir=rdv)),
+                            "4": dict(config, elasticity=dict(
+                                recovery, rendezvous_dir=os.path.join(rdv, "restart")))},
+                "plans": {"1": [{"site": "train.step", "action": "sigterm",
+                                 "on_hit": PREEMPT_STEP}],
+                          "2": [{"site": "train.step", "action": "kill", "exit_code": 9,
+                                 "on_hit": 1}],
+                          "3": [{"site": "comm.collective", "action": "wedge",
+                                 "on_hit": per_step + 1}]}}
+        t0 = time.perf_counter()
+        rc, agent, by_start, sleeps, log = run_agent(root, cfgv, {"DS_RECOVERY_DIR": rdv},
+                                                     max_restarts=1)
+        secs = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    starts = [by_start.get(i, {}) for i in (1, 2, 3, 4)]
+    last_status = starts[3].get("status") or {}
+    ok = (rc == 0 and agent.preemption_count == 1 and agent.recovery_count == 1
+          and agent.restart_count == 1 and len(sleeps) == 1
+          and starts[0].get("exit") == 143 and starts[0].get("step") == PREEMPT_STEP
+          and starts[2].get("exit") == 113 and starts[3].get("exit") == 0
+          and all(x.get("resumed_at") == PREEMPT_STEP for x in starts[1:])
+          and last_status.get("incidents") == 0 and starts[3].get("digest") == want)
+    say(f"preemption, crash and restart exit through the agent and the launcher (gpt2 bf16 "
+        f"seq 512 micro 8, ZeRO-1, {secs:.1f} s): exit {rc}; preemptions "
+        f"{agent.preemption_count}, recoveries {agent.recovery_count}, restarts "
+        f"{agent.restart_count} of 1 (backoff {sleeps}); exits by start "
+        f"{[x.get('exit') for x in starts]} (start 2's kill prints none); start 1 at step "
+        f"{starts[0].get('step')}, preemption save {starts[0].get('saves_s')} s, ckpt_stall "
+        f"{starts[0].get('ckpt_stall_s')} s; start 3's wedge under a "
+        f"{RECOVERY_WORKER_TIMEOUT_S} s deadline; start 4's incidents "
+        f"{last_status.get('incidents')}; starts resumed at "
+        f"{[x.get('resumed_at') for x in starts]}; first-step process age s "
+        f"{[round(x['startup_s'], 3) if 'startup_s' in x else None for x in starts]} "
+        f"(process age at python, imports, model, engine, load: "
+        f"{[x.get('times') for x in starts]}); final parameters equal the uninterrupted "
+        f"run's bit for bit {starts[3].get('digest') == want} [{card}]")
+    if not ok:
+        print(log[-6000:], file=sys.stderr)
+        fail("agent run: the exits, the agent's restarts or the resumed run are not as expected")
+    return dict(secs=secs, starts=by_start, per_step=per_step, want=at_recovery_steps)
+
+
+def collectives_per_step(engine, batch) -> int:
+    """The ``comm.collective`` hits of one step: a counting rule over a
+    first ``train_batch`` (its warm-up step and its capture each run the
+    step's host code once)."""
+    from deepspeed_tpu_torch.testing import fault_injection as fi
+    inj = fi.install_plan([{"site": "comm.collective", "action": "delay", "delay_s": 0.0,
+                            "on_hit": 10 ** 9}])
+    engine.train_batch(batch=batch)
+    fi.clear_plan()
+    hits = inj.rules[0].hits
+    if hits <= 0 or hits % 2:
+        fail(f"recovery: {hits} collective hits in a first step (warm-up and capture)")
+    return hits // 2
+
+
+def phase_recovery(device, card: str, per_step: int, want):
+    """Phase 39: collective recovery in process at world 1 (phase 38's
+    cell: ZeRO-1 on a one-rank NCCL group, ``per_step`` collectives a
+    step): a ``comm.collective`` wedge at the first collective of the
+    capture (host code in a graphed step runs at its capture) fires under
+    the deadline; the engine abandons the capture (the stream leaves
+    capture mode, the graph is dropped), takes the retry rung with one
+    incident, books ``comm_recovery`` and captures again; ``/recovery``
+    answers mid-run; the parameters after RECOVERY_STEPS steps equal
+    ``want``, phase 38's uninterrupted run's."""
+    import torch
+    import urllib.error
+    import urllib.request
+    from deepspeed_tpu_torch.models.gpt import GPT, gpt_config
+    from deepspeed_tpu_torch.testing import fault_injection as fi
+    cfg = gpt_config("gpt2", n_positions=TRAIN_SEQ, remat=True)
+    base = dict(TRAIN_CFG, zero_optimization={"stage": 1})
+    batches = [host_batch(cfg.vocab_size, 900 + i) for i in range(RECOVERY_STEPS)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = GPT(cfg, device=device, seed=0)
+    engine = train_engine(model, dict(base, elasticity=dict(RECOVERY_CFG),
+                                      telemetry={"enabled": True, "flush_every": 1,
+                                                 "ops_server": True}), device)
+    try:
+        fi.install_plan([{"site": "comm.collective", "action": "wedge",
+                          "on_hit": per_step + 1}])
+        t0 = time.perf_counter()
+        engine.train_batch(batch=batches[0])
+        first_s = time.perf_counter() - t0
+        capturing = torch.cuda.is_current_stream_capturing()
+        fi.clear_plan()
+        url = engine.telemetry.obs_server.url
+        status = json.loads(urllib.request.urlopen(url + "/recovery", timeout=30).read())
+        try:
+            health = urllib.request.urlopen(url + "/healthz", timeout=30).status
+        except urllib.error.HTTPError as e:         # an unhealthy answer is an answer
+            health = e.code
+        for b in batches[1:]:
+            engine.train_batch(batch=b)
+        got = engine.get_fp32_params()
+        same = all(torch.equal(got[k], v) for k, v in want.items())
+        recovery_s = engine.telemetry.ledger.snapshot()["categories"].get("comm_recovery", 0.0)
+        final = engine.recovery_manager.status()
+        captures = engine.graphs.captures
+    finally:
+        fi.clear_plan()
+        engine.close()
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"recovery in process (gpt2 bf16 seq 512 micro 8, ZeRO-1, one-rank NCCL group; "
+        f"{per_step} collectives a step; wedge at hit {per_step + 1}, the capture's first): "
+        f"first step {first_s:.3f} s (deadline {RECOVERY_CFG['collective_timeout_s']} s); "
+        f"stream capturing after it {capturing}; /recovery mid-run: incidents "
+        f"{status.get('incidents')}, state {status.get('ladder_state')}; /healthz {health}; "
+        f"captures {captures}; comm_recovery {recovery_s:.3f} s; parameters after "
+        f"{RECOVERY_STEPS} steps equal the unwedged run's bit for bit {same} [{card}]")
+    if (capturing or not same or captures != 1 or final["incidents"] != 1
+            or final["recoveries"] != 1 or status.get("incidents") != 1
+            or recovery_s < 0.5 * RECOVERY_CFG["collective_timeout_s"]):
+        fail(f"recovery in process: {final}")
+    return dict(first_s=first_s, recovery_s=recovery_s)
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4492,7 +5141,8 @@ def main() -> int:
     res = builder.build()
     builder.load_library()
     say(f"build: {res.path.name} in {res.seconds:.2f}s from "
-        f"{[p.name for p in builder.sources()]}")
+        f"{[p.name for p in builder.sources()]}; each source's nvcc ended at (s) "
+        f"{ {k: round(v, 1) for k, v in res.per_source.items()} }")
     for line in res.log.splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             say(f"  ptxas: {line.strip()}")
@@ -5010,7 +5660,26 @@ def main() -> int:
                                           ops_train[k]["counts"] for k in ("off", "on")}))
     phase_done("36")
 
-    say(f"total: {time.perf_counter() - started:.1f} s (build and phases 1-36)")
+    # ---- 37. the stability sentinel in the graphed GPT-2 step ------------------ #
+    gc.collect()
+    torch.cuda.empty_cache()
+    stability = phase_stability(device, card)
+    phase_done("37")
+
+    # ---- 38. preemption, crash and restart exit through the agent ------------- #
+    agent_run = phase_agent(device, card)
+    phase_done("38")
+
+    # ---- 39. collective recovery in process at world 1 ------------------------ #
+    recovery = phase_recovery(device, card, agent_run["per_step"], agent_run["want"])
+    phase_done("39")
+    say(f"summary: robustness plane on gpt2 bf16 seq 512 micro 8: stability median step "
+        f"{stability['off_ms']:.3f} ms off / {stability['on_ms']:.3f} ms on; agent run "
+        f"(preemption, crash, restart exit) {agent_run['secs']:.1f} s; recovery first step "
+        f"{recovery['first_s']:.3f} s under a {RECOVERY_CFG['collective_timeout_s']} s deadline, "
+        f"comm_recovery {recovery['recovery_s']:.3f} s [{card}]")
+
+    say(f"total: {time.perf_counter() - started:.1f} s (build and phases 1-39)")
 
     # ---- report ------------------------------------------------------------------ #
     # each kernel's row: its case at the shape and dtype of the latest

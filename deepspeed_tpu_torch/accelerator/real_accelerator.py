@@ -43,8 +43,10 @@ def set_accelerator(accel: DeepSpeedAccelerator):
 
 def resolve_device(device: Union[None, str, torch.device] = None) -> torch.device:
     """``device`` as a ``torch.device``; ``None`` means the current CUDA
-    device.  Raises when CUDA is asked for (explicitly or by default) on a
-    machine that has none."""
+    device, or under the launcher (``LOCAL_RANK`` set, one process a GPU)
+    ``cuda:LOCAL_RANK``, made current so that the NCCL group and every
+    kernel of the rank run there.  Raises when CUDA is asked for
+    (explicitly or by default) on a machine that has none."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -52,5 +54,10 @@ def resolve_device(device: Union[None, str, torch.device] = None) -> torch.devic
                 "CUDA is not available on this machine; pass device='cpu' "
                 "to run the plain PyTorch path on the CPU")
         if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
+            local = os.environ.get("LOCAL_RANK")
+            if local is not None:
+                dev = torch.device("cuda", int(local))
+                torch.cuda.set_device(dev)
+            else:
+                dev = torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -11,8 +11,11 @@ device work never finishes parks the worker, not the engine.
 Threads cannot be killed in Python, so a timed-out worker is
 *abandoned*: it stays parked on its (daemon) thread until the wedged
 call returns or the process exits, and the next ``run`` gets a fresh
-worker with a fresh queue.  The abandoned count is visible in
-:meth:`BoundedCollective.stats`.
+worker with a fresh queue, unless an abandoned worker's call has ended
+by then: that worker is taken back, with what its thread has made on
+first use (on the card, its cuBLAS handles: a thread that made none
+cannot make them inside a stream capture).  The abandoned count is
+visible in :meth:`BoundedCollective.stats`.
 
 On the card a worker thread starts on device 0 and on that device's
 default stream.  Give ``device`` and ``stream`` and every worker makes
@@ -38,6 +41,7 @@ class CollectiveTimeout(RuntimeError):
         super().__init__(message)
         self.op = op
         self.deadline_s = deadline_s
+        self.job = None          # the abandoned call (``_Job``), set by run()
 
 
 class _Job:
@@ -71,6 +75,7 @@ class BoundedCollective:
         self._worker = None            # guarded-by: _lock
         self._queue = None             # guarded-by: _lock
         self._generation = 0           # guarded-by: _lock
+        self._parked = []              # guarded-by: _lock; abandoned (worker, queue, job)
         self.abandoned = 0             # workers left wedged on a timeout
         self.timeouts = 0
         self.calls = 0
@@ -99,6 +104,12 @@ class BoundedCollective:
     def _ensure_worker(self):
         # requires-lock: _lock
         if self._worker is None or not self._worker.is_alive():
+            for i, (worker, q, job) in enumerate(self._parked):
+                if job.done.is_set() and worker.is_alive():
+                    # the abandoned call ended: its worker waits on its queue
+                    del self._parked[i]
+                    self._worker, self._queue = worker, q
+                    return q
             self._queue = queue.SimpleQueue()
             self._generation += 1
             self._worker = threading.Thread(
@@ -124,12 +135,16 @@ class BoundedCollective:
         q.put(job)
         if not job.done.wait(bound):
             with self._lock:
+                self._parked.append((self._worker, self._queue, job))
                 self._worker = None
                 self._queue = None
                 self.abandoned += 1
             self.timeouts += 1
             err = CollectiveTimeout("%s %r exceeded its %.3fs deadline" % (noun, op, bound),
                                     op=op, deadline_s=float(bound))
+            # the abandoned call: a caller that frees it (a released wedge)
+            # may wait on ``err.job.done`` and read what it left
+            err.job = job
             if self.on_timeout is not None:
                 try:
                     self.on_timeout(err)
@@ -150,5 +165,7 @@ class BoundedCollective:
         with self._lock:
             q, self._queue = self._queue, None
             self._worker = None
-        if q is not None:
-            q.put(None)
+            parked, self._parked = self._parked, []
+        for queue_ in [q] + [pq for _, pq, _ in parked]:
+            if queue_ is not None:
+                queue_.put(None)

@@ -71,10 +71,16 @@ def init_distributed(dist_backend: Optional[str] = None, device=None,
                      init_method: Optional[str] = None, rank: int = -1,
                      world_size: int = -1) -> None:
     """Make the process group once (a second call returns): NCCL for a CUDA
-    ``device``, gloo for the CPU, unless ``dist_backend`` names one."""
+    ``device``, gloo for the CPU, unless ``dist_backend`` names one.  With
+    no ``device`` the rank's own GPU: ``cuda:LOCAL_RANK`` under the
+    launcher (``accelerator/real_accelerator.py:resolve_device``)."""
     if is_initialized():
         return
-    dev = torch.device(device if device is not None else "cuda")
+    if device is None:
+        from deepspeed_tpu_torch.accelerator.real_accelerator import resolve_device
+        dev = resolve_device(None)
+    else:
+        dev = torch.device(device)
     backend = dist_backend or backend_for(dev)
     timeout = timeout or DEFAULT_TIMEOUT
     # torch 2.13 renamed the tensor collectives (``all_gather_single``, ...);

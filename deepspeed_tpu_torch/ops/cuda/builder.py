@@ -7,7 +7,11 @@ PyTorch headers, so a build takes seconds, not minutes).
 
 * The build happens at first use (``load_library()``), never at import.
 * Each source compiles in its own ``nvcc`` process, all started together;
-  one link step joins them.
+  one link step joins them.  The sources of ``SPLIT_FLAGS`` also spread
+  their functions over threads (``-split-compile``), in the way that
+  leaves each one's SASS as a one-thread build's (compared with
+  ``cuobjdump -sass`` under CUDA 12.9: ``nvcc``'s split changes
+  ``decode_attention.cu``'s, ``ptxas``'s does not).
 * The library lands in ``build_torch/<hash of the sources and flags>/`` at
   the root of the checkout (listed in ``.gitignore``), so a changed source
   builds anew and an unchanged one is reused.
@@ -32,6 +36,9 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v"]
 BUILD_TIMEOUT_S = 600
+SPLIT_FLAGS = {"decode_attention.cu": ["-Xptxas", "-split-compile=0"],
+               "flash_attention.cu": ["-split-compile=0"],
+               "fused_optim.cu": ["-split-compile=0"]}
 
 
 class KernelBuildError(RuntimeError):
@@ -57,6 +64,7 @@ def sources() -> List[Path]:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SPLIT_FLAGS.items())).encode())
     for src in sources() + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -64,13 +72,16 @@ def source_hash() -> str:
 
 
 class BuildResult:
-    """Where the library is, how long the build took (0 when reused) and
-    what ``nvcc`` printed (register and shared-memory use per kernel)."""
+    """Where the library is, how long the build took (0 when reused), when
+    each source's ``nvcc`` ended (seconds from the start; empty when
+    reused) and what ``nvcc`` printed (register and shared-memory use per
+    kernel)."""
 
-    def __init__(self, path: Path, seconds: float, log: str):
+    def __init__(self, path: Path, seconds: float, log: str, per_source=None):
         self.path = path
         self.seconds = seconds
         self.log = log
+        self.per_source = per_source or {}
 
 
 def build() -> BuildResult:
@@ -87,20 +98,25 @@ def build() -> BuildResult:
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         procs = []
         for src in sources():
-            obj = Path(tmp, src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-            procs.append((src, obj, cmd, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+            obj, out = Path(tmp, src.stem + ".o"), Path(tmp, src.stem + ".log")
+            cmd = [nvcc, *NVCC_FLAGS, *SPLIT_FLAGS.get(src.name, []), "-c", str(src),
+                   "-o", str(obj)]
+            with open(out, "w") as f:
+                procs.append((src, obj, cmd, out, subprocess.Popen(
+                    cmd, stdout=f, stderr=subprocess.STDOUT)))
+        per_source = {}
+        while len(per_source) < len(procs) and time.perf_counter() - t0 < BUILD_TIMEOUT_S:
+            for src, _, _, _, proc in procs:
+                if src.name not in per_source and proc.poll() is not None:
+                    per_source[src.name] = time.perf_counter() - t0
+            time.sleep(0.05)
         logs, failed = [], []
-        for src, obj, cmd, proc in procs:
-            try:
-                text, _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
-            except subprocess.TimeoutExpired:
+        for src, obj, cmd, out, proc in procs:
+            if proc.poll() is None:
                 proc.kill()
-                text, _ = proc.communicate()
+                proc.wait()
                 failed.append(f"{src.name}: timed out after {BUILD_TIMEOUT_S}s")
-            logs.append(f"$ {' '.join(cmd)}\n{text}")
+            logs.append(f"$ {' '.join(cmd)}\n{out.read_text()}")
             if proc.returncode != 0:
                 failed.append(f"{src.name}: nvcc exit {proc.returncode}")
         if failed:
@@ -108,7 +124,7 @@ def build() -> BuildResult:
                                    + "\n" + "\n".join(logs))
         tmp_lib = Path(tmp, LIB_NAME)
         cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_lib),
-               *[str(obj) for _, obj, _, _ in procs]]
+               *[str(obj) for _, obj, _, _, _ in procs]]
         link = subprocess.run(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True,
                               timeout=BUILD_TIMEOUT_S)
@@ -118,7 +134,7 @@ def build() -> BuildResult:
         log = "\n".join(logs)
         (out_dir / "build.log").write_text(log)
         os.replace(tmp_lib, lib)      # atomic: a concurrent loader sees all or nothing
-    return BuildResult(lib, time.perf_counter() - t0, log)
+    return BuildResult(lib, time.perf_counter() - t0, log, per_source)
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -149,7 +165,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dst_ce_wide_dx.restype = ci
     lib.dst_ce_wide_dhead.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
     lib.dst_ce_wide_dhead.restype = ci
-    lib.dst_fused_adam.argtypes = [vp, ci, vp, ci, ci, vp,
+    lib.dst_fused_adam.argtypes = [vp, ci, vp, ci, ci, vp, vp,
                                    cf, cf, cf, cf, cf, cf, ci, vp]
     lib.dst_fused_adam.restype = ci
     strides = ctypes.POINTER(ctypes.c_longlong)

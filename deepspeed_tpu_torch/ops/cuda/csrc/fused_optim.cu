@@ -15,6 +15,13 @@
 // bc2] are read from a device buffer, so the clip factor and the bias
 // corrections never pass through the host.
 //
+// The skip flag: an optional device float beside the scalars (a null
+// pointer when the caller has none).  When it reads non-zero every block
+// returns before it loads or stores anything, so p, mu and nu stay bit for
+// bit as they were: the stability sentinel's suppressed update
+// (runtime/stability.py), which the JAX engine takes with lax.cond and a
+// captured CUDA graph can only take on the device.
+//
 // Bound: bytes.  Each element reads p, g, mu, nu and writes p, mu, nu:
 // 28 bytes for ~20 flops, so the floor is 28 B x elements / 3.35 TB/s.
 // What holds a simple kernel below it is the bytes it keeps in flight and
@@ -75,7 +82,9 @@ __device__ __forceinline__ float adam_update(float pi, float g, float& mu, float
 // chunks: int32 [n_chunks][4] = leaf, vector (1) or scalar (0), count, start
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 adam_kernel(const int64_t* __restrict__ table, int n_leaves, const int4* __restrict__ chunks,
-            int n_chunks, const float* __restrict__ scal, Hyper h) {
+            int n_chunks, const float* __restrict__ scal, const float* __restrict__ skip,
+            Hyper h) {
+  if (skip != nullptr && *skip != 0.f) return;
   const float inv = scal[0], clip = scal[1], neg_lr = scal[2], bc1 = scal[3], bc2 = scal[4];
   int c = blockIdx.x;
   int4 next = c < n_chunks ? chunks[c] : make_int4(0, 0, 0, 0);
@@ -149,14 +158,16 @@ extern "C" {
 // table: int64 [4][n_leaves] = p, g, mu, nu pointers; chunks: int32
 // [n_chunks][4] (leaf, vector, count, start) of the wrapper's plan; grid:
 // the blocks to launch (dst_fused_adam_grid); scal: fp32 [inv, clip,
-// neg_lr, bc1, bc2] on the device.  Returns a cudaError_t (0 = launched).
+// neg_lr, bc1, bc2] on the device; skip: a device fp32 flag (non-zero: no
+// update) or null.  Returns a cudaError_t (0 = launched).
 int dst_fused_adam(const int64_t* table, int n_leaves, const int* chunks, int n_chunks,
-                   int grid, const float* scal, float b1, float b2, float one_minus_b1,
-                   float one_minus_b2, float eps, float wd, int has_wd, void* stream) {
+                   int grid, const float* scal, const float* skip, float b1, float b2,
+                   float one_minus_b1, float one_minus_b2, float eps, float wd, int has_wd,
+                   void* stream) {
   if (n_leaves <= 0 || n_chunks <= 0 || grid <= 0) return (int)cudaErrorInvalidValue;
   const Hyper h = {b1, b2, one_minus_b1, one_minus_b2, eps, wd, has_wd};
   adam_kernel<<<grid < n_chunks ? grid : n_chunks, kThreads, 0, (cudaStream_t)stream>>>(
-      table, n_leaves, reinterpret_cast<const int4*>(chunks), n_chunks, scal, h);
+      table, n_leaves, reinterpret_cast<const int4*>(chunks), n_chunks, scal, skip, h);
   return (int)cudaGetLastError();
 }
 

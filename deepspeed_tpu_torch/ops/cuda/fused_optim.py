@@ -6,7 +6,12 @@ plain PyTorch version (counterpart of ``deepspeed_tpu/ops/pallas/fused_optim.py`
 launch.  ``scal`` is the fp32 device vector ``[inv, clip_factor, neg_lr,
 bc1, bc2]``: the loss-scale unscale and the clip factor fold into the
 gradient read as ``(g * inv) * clip``, and the bias corrections and step
-size come from the device, so a step needs no host sync.
+size come from the device, so a step needs no host sync.  ``skip`` (an
+fp32 0-dim device tensor, or None) is the stability sentinel's flag: when
+it reads non-zero the kernel returns before it writes anything, so p, mu
+and nu stay bit for bit (the JAX engine's ``lax.cond`` skip,
+``deepspeed_tpu/runtime/engine.py:1855-1879``, taken on the device because
+a captured CUDA graph has no host branch).
 
 The per-element op sequence is ``_adam_kernel``'s (``fused_optim.py:139``)
 and optax's: ``(1-b1)*g + b1*mu``, ``(1-b2)*(g*g) + b2*nu``,
@@ -103,9 +108,12 @@ def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
 def adam_reference(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
                    mus: Sequence[torch.Tensor], nus: Sequence[torch.Tensor],
                    scal: torch.Tensor, *, b1: float, b2: float, eps: float,
-                   wd: float) -> None:
-    """The kernel's update, leaf by leaf, in place, each op rounded to fp32."""
+                   wd: float, skip: Optional[torch.Tensor] = None) -> None:
+    """The kernel's update, leaf by leaf, in place, each op rounded to fp32;
+    nothing is written when ``skip`` reads non-zero."""
     adam_reference.calls += 1
+    if skip is not None and float(skip) != 0.0:
+        return
     inv, clip, neg_lr, bc1, bc2 = scal.unbind()
     c1, c2 = _f32(1 - b1), _f32(1 - b2)
     b1, b2, eps, wd = _f32(b1), _f32(b2), _f32(eps), _f32(wd)
@@ -196,10 +204,11 @@ class AdamTable:
 
 
 def fused_adam(table: AdamTable, scal: torch.Tensor, *, b1: float, b2: float,
-               eps: float, wd: float) -> None:
-    """One Adam/AdamW step over every leaf of ``table``, in place."""
+               eps: float, wd: float, skip: Optional[torch.Tensor] = None) -> None:
+    """One Adam/AdamW step over every leaf of ``table``, in place, unless
+    the device flag ``skip`` reads non-zero."""
     if table.device.type == "cpu":
-        adam_reference(*table.leaves, scal, b1=b1, b2=b2, eps=eps, wd=wd)
+        adam_reference(*table.leaves, scal, b1=b1, b2=b2, eps=eps, wd=wd, skip=skip)
         return
     if table.device.type != "cuda":
         raise ValueError(f"fused_adam: no kernel for device {table.device}")
@@ -207,9 +216,13 @@ def fused_adam(table: AdamTable, scal: torch.Tensor, *, b1: float, b2: float,
             or tuple(scal.shape) != (5,) or not scal.is_contiguous()):
         raise TypeError("fused_adam: scal must be a contiguous fp32 [5] tensor on "
                         f"{table.device}")
+    if skip is not None and (skip.dtype != torch.float32 or skip.device != table.device
+                             or skip.numel() != 1):
+        raise TypeError(f"fused_adam: skip must be an fp32 scalar tensor on {table.device}")
     lib = builder.load_library()
     rc = lib.dst_fused_adam(table.table.data_ptr(), table.n_leaves, table.chunks.data_ptr(),
-                            table.n_chunks, table.grid, scal.data_ptr(), _f32(b1), _f32(b2),
+                            table.n_chunks, table.grid, scal.data_ptr(),
+                            skip.data_ptr() if skip is not None else None, _f32(b1), _f32(b2),
                             _f32(1 - b1), _f32(1 - b2), _f32(eps), _f32(wd), int(wd != 0),
                             torch.cuda.current_stream(table.device).cuda_stream)
     builder.check(lib, rc, "fused_adam")

@@ -131,6 +131,7 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     state to be on the host)."""
     wait_for_finalizer(engine)
     tree = engine._checkpoint_state()
+    engine._last_ckpt_dir = save_dir
     if comm.get_rank() != 0:
         comm.barrier()
         return True
@@ -165,6 +166,11 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
         "world_size": comm.get_world_size(),
         "mesh_shape": {},
     }
+    # the stability ladder's quarantine ring and counters ride in the
+    # metadata, so a rollback or a restart keeps its quarantine (JAX layout)
+    stability_state = engine._stability_state_for_checkpoint()
+    if stability_state is not None:
+        meta["stability"] = stability_state
     atomic_write_json(os.path.join(work_dir, "client_state.json"), meta)
     # the recovery script rides along with every checkpoint, as in the JAX
     # package (and the reference's engine)
@@ -386,6 +392,8 @@ def _load_tag(engine, load_dir: str, tag: str, load_optimizer_states: bool,
         engine.global_samples = meta.get("global_samples", 0)
         engine.micro_steps = meta.get("micro_steps", 0)
         client_state = meta.get("client_state", {})
+    # the stability ladder's state and LR scale; the sentinel starts afresh
+    engine._after_checkpoint_load(meta)
     log_dist(f"loaded checkpoint {ckpt_dir} at step {engine.global_steps}", ranks=[0])
     return ckpt_dir, client_state
 

@@ -12,13 +12,19 @@ engine passes the data-parallel world size (``WORLD_SIZE``, or the process
 group's).  The ``sparse_attention`` block is checked
 as the JAX package checks it (``ValueError`` if it is not a dict,
 ``NotImplementedError`` on an unknown mode) and kept as a dict.  The
-``checkpoint`` block and the checkpoint fields of ``fault_tolerance`` are
-typed, with the JAX defaults, and so is the ``telemetry`` block
+``checkpoint``, ``fault_tolerance`` (checkpoints, preemption and the
+elastic agent's restart keys) and ``stability`` blocks are typed, with the
+JAX defaults, and so is the ``telemetry`` block
 (``DeepSpeedTelemetryConfig``: every key of the JAX package's, with its
-defaults; ``profiler_dir`` defaults under the temporary directory).  Blocks
-of features the port has not taken over yet (stability, monitors, PLD,
-compression, ...) are kept as raw dicts; the engine raises when one of them
-is enabled.
+defaults; ``profiler_dir`` defaults under the temporary directory).  The
+``elasticity`` block is kept as the JAX package keeps it (a dict, read by
+``comm/recovery.py:RecoveryPolicy.from_config`` and the elastic agent) and
+checked here: with ``enabled`` its solver keys must parse
+(``elasticity/elasticity.py:ElasticityConfig``), and every key must be one
+the solver or the recovery plane reads, so a block is never taken and
+ignored.  Blocks of features the port has not taken over yet (monitors,
+PLD, compression, ...) are kept as raw dicts; the engine raises when one of
+them is enabled.
 """
 
 import json
@@ -76,10 +82,11 @@ class DeepSpeedCheckpointConfig(DeepSpeedConfigModel):
 
 
 class DeepSpeedFaultToleranceConfig(DeepSpeedConfigModel):
-    """``fault_tolerance`` block: verified atomic checkpoints and load
-    rollback, with the JAX package's defaults.  ``preemption_enabled``
-    makes the engine raise (ROADMAP.md, Queue 1 item 8); the other
-    preemption and restart fields are parsed and unused."""
+    """``fault_tolerance`` block: verified atomic checkpoints, load
+    rollback and preemption-aware shutdown (``runtime/fault_tolerance.py``),
+    with the JAX package's keys and defaults.  The restart keys are the
+    elastic agent's (``elasticity/elastic_agent.py`` reads them from the
+    ds_config)."""
     atomic_save: bool = True
     keep_last_n: int = 0            # retention window; 0 = keep every tag
     save_retries: int = 3
@@ -88,7 +95,73 @@ class DeepSpeedFaultToleranceConfig(DeepSpeedConfigModel):
     verify_on_load: bool = True
     rollback: bool = True
     max_rollback: int = 3           # earlier tags to try past the newest
+    # SIGTERM / a cloud probe -> final synchronous checkpoint + exit 143
     preemption_enabled: bool = False
+    preemption_save_dir: str = ""   # "" -> the last save_checkpoint dir
+    preemption_grace_s: float = 30.0
+    preemption_probe: str = ""      # "pkg.mod:callable"
+    preemption_poll_s: float = 0.0  # 0 -> signal only (no probe thread)
+    restart_backoff_s: float = 1.0
+    restart_backoff_max_s: float = 30.0
+    restart_jitter: float = 0.2
+    stability_window_s: float = 300.0  # uptime that clears restart_count
+
+
+class DeepSpeedStabilityConfig(DeepSpeedConfigModel):
+    """``stability`` block: the training-stability sentinel
+    (``runtime/stability.py``), the JAX package's keys and defaults.  The
+    detector thresholds are constants of the captured step; the ladder
+    runs on the host at the step boundary."""
+    enabled: bool = False
+    warmup_steps: int = 20          # clean steps before the spike detectors arm
+    ema_alpha: float = 0.02         # EW mean / variance decay
+    grad_spike_factor: float = 10.0  # grad_norm > factor * EMA -> anomaly
+    loss_spike_zscore: float = 8.0  # (loss - EMA) / sigma above this -> anomaly
+    scale_collapse_windows: int = 3  # boundaries at min_scale -> anomaly
+    skip_anomalous_steps: bool = True  # suppress the update on the device
+    lr_backoff_after: int = 3
+    lr_backoff_factor: float = 0.5
+    max_lr_backoffs: int = 3
+    rollback_after: int = 6
+    max_auto_rollbacks: int = 2
+    rollback_load_dir: str = ""     # "" -> the last save_checkpoint dir
+    quarantine: bool = True
+    quarantine_ring: int = 64
+
+
+# the keys of an ``elasticity`` block: the batch solver's
+# (``elasticity/elasticity.py``) and the recovery plane's
+# (``comm/recovery.py:RecoveryPolicy``)
+ELASTICITY_SOLVER_KEYS = ("enabled", "max_train_batch_size", "micro_batch_sizes", "min_gpus",
+                          "max_gpus", "model_parallel_size", "num_gpus_per_node", "min_time",
+                          "version", "prefer_larger_batch_size",
+                          "ignore_non_elastic_batch_info")
+ELASTICITY_RECOVERY_KEYS = ("recovery_enabled", "collective_timeout_s", "heartbeat_interval_s",
+                            "heartbeat_timeout_s", "max_step_retries", "retry_backoff_s",
+                            "min_world_size", "allow_shrink", "allow_restart",
+                            "recovery_deadline_s", "rendezvous_dir")
+
+
+def check_elasticity_block(block: Any) -> Dict[str, Any]:
+    """The ``elasticity`` block as a dict, refused (``DeepSpeedConfigError``)
+    when it is not a dict, names a key neither the solver nor the recovery
+    plane reads, or is enabled with solver keys that do not parse."""
+    if block is None:
+        return {}
+    if not isinstance(block, dict):
+        raise DeepSpeedConfigError(f"'{C.ELASTICITY}' must be a dict, got {type(block).__name__}")
+    unknown = sorted(set(block) - set(ELASTICITY_SOLVER_KEYS) - set(ELASTICITY_RECOVERY_KEYS))
+    if unknown:
+        raise DeepSpeedConfigError(f"unknown '{C.ELASTICITY}' keys {unknown}: the port reads "
+                                   f"{ELASTICITY_SOLVER_KEYS + ELASTICITY_RECOVERY_KEYS}")
+    if block.get("enabled", False):
+        from deepspeed_tpu_torch.elasticity.elasticity import (ElasticityConfig,
+                                                               ElasticityConfigError)
+        try:
+            ElasticityConfig(block)
+        except ElasticityConfigError as e:
+            raise DeepSpeedConfigError(f"'{C.ELASTICITY}' block: {e}") from e
+    return dict(block)
 
 
 # the flight recorder's default dump directory, under TMPDIR as the
@@ -153,8 +226,6 @@ class DeepSpeedConfigError(Exception):
 # blocks whose feature is not ported: {"enabled": true} in one of them makes
 # the engine raise, naming the ROADMAP item
 UNPORTED_BLOCKS = {
-    C.STABILITY: "ROADMAP.md, Queue 1 item 8 (stability sentinel)",
-    C.FAULT_TOLERANCE: "ROADMAP.md, Queue 1 item 8 (preemption handling)",
     C.COMMS_LOGGER: "ROADMAP.md, Queue 1 item 7 (comms)",
     C.MONITOR_CONFIG_TENSORBOARD: "ROADMAP.md, Queue 1 item 9 (monitor)",
     C.MONITOR_CONFIG_WANDB: "ROADMAP.md, Queue 1 item 9 (monitor)",
@@ -197,6 +268,8 @@ class DeepSpeedConfig:
                                                      C.TRAIN_MICRO_BATCH_SIZE_PER_GPU_DEFAULT)
         self.gradient_accumulation_steps = pd.get(C.GRADIENT_ACCUMULATION_STEPS,
                                                   C.GRADIENT_ACCUMULATION_STEPS_DEFAULT)
+        self._raw_batch = (self.train_batch_size, self.train_micro_batch_size_per_gpu,
+                           self.gradient_accumulation_steps)
         self.steps_per_print = pd.get(C.STEPS_PER_PRINT, C.STEPS_PER_PRINT_DEFAULT)
         self.wall_clock_breakdown = pd.get(C.WALL_CLOCK_BREAKDOWN, C.WALL_CLOCK_BREAKDOWN_DEFAULT)
         self.gradient_clipping = pd.get(C.GRADIENT_CLIPPING, C.GRADIENT_CLIPPING_DEFAULT)
@@ -221,6 +294,8 @@ class DeepSpeedConfig:
         self.fault_tolerance_config = DeepSpeedFaultToleranceConfig(
             **pd.get(C.FAULT_TOLERANCE, {}))
         self.telemetry_config = DeepSpeedTelemetryConfig(**pd.get(C.TELEMETRY, {}))
+        self.stability_config = DeepSpeedStabilityConfig(**pd.get(C.STABILITY, {}))
+        self.elasticity_config = check_elasticity_block(pd.get(C.ELASTICITY, None))
 
         self.parallel_blocks = {k: pd.get(k, {}) for k in (
             C.MESH, C.TENSOR_PARALLEL, C.PIPELINE_PARALLEL, C.SEQUENCE_PARALLEL)}
@@ -252,6 +327,16 @@ class DeepSpeedConfig:
             raise DeepSpeedConfigError(
                 f"world size {self.world_size} not divisible by tp*pp*sp={model_degree}")
         return self.world_size // model_degree
+
+    def resolve_batch_size(self, world_size: int):
+        """Solve the batch arithmetic again for another world size (a mesh
+        shrink), from the values the config gave."""
+        if world_size == self.world_size:
+            return
+        self.world_size = world_size
+        (self.train_batch_size, self.train_micro_batch_size_per_gpu,
+         self.gradient_accumulation_steps) = self._raw_batch
+        self._configure_train_batch_size()
 
     def _configure_train_batch_size(self):
         """Solve/validate train_batch = micro * gas * dp_world."""

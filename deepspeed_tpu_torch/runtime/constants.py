@@ -74,6 +74,7 @@ FAULT_TOLERANCE = "fault_tolerance"
 # Blocks the port parses but whose feature is not ported yet: the engine
 # raises when one of them is enabled (ROADMAP.md, Queue 1 items 8 and 9).
 STABILITY = "stability"
+ELASTICITY = "elasticity"
 TELEMETRY = "telemetry"
 COMMS_LOGGER = "comms_logger"
 MONITOR_CONFIG_TENSORBOARD = "tensorboard"

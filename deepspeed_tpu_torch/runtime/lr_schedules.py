@@ -32,9 +32,10 @@ def _step_f32(step: Union[int, torch.Tensor]) -> torch.Tensor:
 
 class _ScheduleBase:
     """Stateful veneer over a pure schedule function.  ``state_dict`` holds
-    the JAX keys; its ``lr_scale`` is always 1.0, since the stability
-    sentinel that backs the lr off through it is not ported yet
-    (ROADMAP.md, Queue 1 item 8)."""
+    the JAX keys; its ``lr_scale`` is always 1.0: the port's stability
+    ladder keeps its LR backoff on the engine (a device scale the captured
+    step reads, saved as the checkpoint's ``stability.lr_backoff_scale``),
+    where the JAX engine scales a schedule that has ``scale_lr``."""
 
     def __init__(self, schedule_fn: Callable[[torch.Tensor], torch.Tensor]):
         self._fn = schedule_fn
@@ -58,8 +59,9 @@ class _ScheduleBase:
         scale = float(sd.get("lr_scale", 1.0))
         if scale != 1.0:
             raise NotImplementedError(
-                f"lr_scale {scale} in the schedule state: the stability sentinel that sets "
-                "it is not ported yet (ROADMAP.md, Queue 1 item 8)")
+                f"lr_scale {scale} in the schedule state: the port keeps the stability "
+                "ladder's LR backoff on the engine, and a scale on the schedule is not "
+                "read (ROADMAP.md, Queue 1 item 8)")
         self.last_batch_iteration = sd["last_batch_iteration"]
 
 

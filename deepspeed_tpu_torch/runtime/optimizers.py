@@ -37,6 +37,17 @@ DS_NATIVE_OPTIMIZERS = [ADAM_OPTIMIZER, ADAMW_OPTIMIZER, FUSED_ADAM, CPU_ADAM, L
 UNPORTED = "ROADMAP.md, Queue 1 item 5"
 
 
+def next_count(count: torch.Tensor, skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The step count after a step: optax's saturating increment, or, where
+    the device flag ``skip`` is set, the count unchanged (JAX's ``skip_step``
+    keeps the whole optimizer state, so neither the bias corrections nor a
+    schedule on the count move)."""
+    inc = safe_int32_increment(count)
+    if skip is None:
+        return inc
+    return torch.where(skip != 0, count, inc)
+
+
 class FusedAdam:
     """Decay-after Adam over a fixed list of fp32 leaves: the state optax's
     ``ScaleByAdamState`` holds (``mu``, ``nu``, ``count``), and one fused
@@ -52,16 +63,23 @@ class FusedAdam:
         self.count = torch.zeros((), dtype=torch.int32, device=params[0].device)
         self.table = AdamTable(params, grads, self.mu, self.nu)
 
-    def step(self, inv: torch.Tensor, clip_factor: torch.Tensor) -> None:
+    def step(self, inv: torch.Tensor, clip_factor: torch.Tensor,
+             skip: Optional[torch.Tensor] = None, lr_scale: Optional[torch.Tensor] = None
+             ) -> None:
         """Update every leaf in place from its raw gradient, which the
         kernel scales by ``inv`` (loss-scale and accumulation unscale) and
-        ``clip_factor``; both are device scalars."""
+        ``clip_factor``; both are device scalars.  ``skip`` (fp32 0-dim,
+        non-zero: no update, and the count stays) and ``lr_scale`` (the
+        stability ladder's LR backoff, multiplying the step size) are
+        device scalars too, or None."""
         neg_lr, bc1, bc2 = step_scalars(self.spec, self.count)
+        if lr_scale is not None:
+            neg_lr = neg_lr * lr_scale
         scal = torch.stack([inv, clip_factor, neg_lr, bc1, bc2]).to(torch.float32)
         fused_adam(self.table, scal, b1=self.spec["b1"], b2=self.spec["b2"],
-                   eps=self.spec["eps"], wd=self.spec["wd"])
+                   eps=self.spec["eps"], wd=self.spec["wd"], skip=skip)
         # in place: a captured train step reads and writes this storage
-        self.count.copy_(safe_int32_increment(self.count))
+        self.count.copy_(next_count(self.count, skip))
 
     def state_dict(self) -> Dict[str, Any]:
         """``{"mu": {name: tensor}, "nu": {name: tensor}, "count": tensor}``."""
@@ -151,18 +169,24 @@ class ZeroAdam:
             return self.buffers[id(store)][lo - c0:hi - c0]
         return store.flat()[lo:hi]
 
-    def step(self, inv: torch.Tensor, clip_factor: torch.Tensor) -> None:
+    def step(self, inv: torch.Tensor, clip_factor: torch.Tensor,
+             skip: Optional[torch.Tensor] = None, lr_scale: Optional[torch.Tensor] = None
+             ) -> None:
+        """``FusedAdam.step`` over the shard: with ``skip`` set no launch
+        writes, so an offloaded chunk's host state copies back unchanged."""
         neg_lr, bc1, bc2 = step_scalars(self.spec, self.count)
+        if lr_scale is not None:
+            neg_lr = neg_lr * lr_scale
         scal = torch.stack([inv, clip_factor, neg_lr, bc1, bc2]).to(torch.float32)
         kw = dict(b1=self.spec["b1"], b2=self.spec["b2"], eps=self.spec["eps"],
-                  wd=self.spec["wd"])
+                  wd=self.spec["wd"], skip=skip)
         for k, length, table in self.chunks:
             for s in self.staged:
                 self.buffers[id(s)][:length].copy_(s.pieces[k], non_blocking=True)
             fused_adam(table, scal, **kw)
             for s in self.staged:
                 s.pieces[k].copy_(self.buffers[id(s)][:length], non_blocking=True)
-        self.count.copy_(safe_int32_increment(self.count))
+        self.count.copy_(next_count(self.count, skip))
 
     def state_dict(self) -> Dict[str, Any]:
         """The whole moments by name (every rank calls it: it gathers)."""

@@ -42,12 +42,22 @@ replay of a graph captured through the accelerator's ``create_graph`` /
   may query its events while this thread captures.
 * A capture that fails raises with its cause.  Nothing falls back to the
   eager step.
+* A caller may run a first call on another thread under a deadline (the
+  engine's bounded step, ``comm/bounded.py``).  When that deadline expires
+  the caller calls ``abandon()`` and then ``wait_idle()``: an
+  abandoned call that is still in its warm-up finishes the step and
+  captures nothing; one in its capture ends the capture (the stream leaves
+  capture mode) and throws the graph away.  Either way the warm-up's
+  outputs are kept as *pending* for the signature: the step ran once, and
+  the next call with that signature (the retry, with the same batch)
+  captures without a second warm-up and returns them.
 
 The outputs of a replay are the capture's static tensors, which the next
 replay overwrites; a caller that keeps one clones it.
 """
 
 import importlib
+import threading
 from typing import Callable, Dict, List, Sequence, Tuple, Union
 
 import torch
@@ -122,6 +132,11 @@ class CapturedStep:
         self.held = list(held)
 
 
+class StepAbandoned(RuntimeError):
+    """A first call was abandoned (``StepGraphs.abandon``): its graph, if
+    any, was thrown away."""
+
+
 class StepGraphs:
     """The captured steps of one engine, by batch signature.  ``dtype_of``
     maps a source dtype to its static buffer's (the engine's cast of
@@ -140,16 +155,24 @@ class StepGraphs:
         self.captures = 0
         self.replays = 0
         self._stream = None
+        # signature -> (static inputs, warm-up outputs) of a step that ran
+        # and was not captured (its first call was abandoned)
+        self.pending: Dict[Tuple, Tuple] = {}
+        self._abandoned = False
+        self._idle = threading.Event()
+        self._idle.set()
 
     def _side_stream(self):
         if self._stream is None:
             self._stream = self.accelerator.Stream(device=self.device)
         return self._stream
 
-    def run(self, sources: Sequence[Source], body: Callable[[List[torch.Tensor]], Tuple]):
+    def run(self, sources: Sequence[Source], body: Callable[[List[torch.Tensor]], Tuple],
+            key: Tuple = ()):
         """``body``'s outputs for this batch: replayed, or on a new
-        signature computed eagerly and then captured."""
-        sig = signature(sources)
+        signature computed eagerly and then captured.  ``key`` joins the
+        signature (a body that captures differently for it)."""
+        sig = signature(sources) + tuple(key)
         step = self.steps.get(sig)
         if step is None:
             return self._warm_up_and_capture(sig, sources, body)
@@ -160,21 +183,53 @@ class StepGraphs:
         self.replays += 1
         return step.outputs
 
+    def abandon(self) -> None:
+        """Mark the first call in flight (on another thread) abandoned."""
+        self._abandoned = True
+
+    def wait_idle(self, timeout: float = None) -> bool:
+        """Wait until no first call is in flight (an abandoned one has
+        finished its warm-up or ended its capture); True if none is."""
+        idle = self._idle.wait(timeout)
+        if idle:
+            self._abandoned = False
+        return idle
+
     def _warm_up_and_capture(self, sig, sources, body):
-        inputs = [torch.empty(shape, dtype=self.dtype_of(dt), device=self.device)
-                  for shape, dt in sig]
-        for static, src in zip(inputs, sources):
-            fill(static, src)
+        self._idle.clear()
+        try:
+            return self._first_call(sig, sources, body)
+        finally:
+            self._idle.set()
+
+    def _first_call(self, sig, sources, body):
         accel, stream = self.accelerator, self._side_stream()
         current = accel.current_stream(self.device)
-        if stream is not None:
-            stream.wait_stream(current)
-        with accel.stream(stream):
-            outputs = body(inputs)
-        if stream is not None:
-            current.wait_stream(stream)
-            for t in outputs:
-                t.record_stream(current)
+        ran = self.pending.get(sig)
+        if ran is not None:
+            # the step ran in an abandoned call: capture it, no second step
+            inputs, outputs = ran
+            for static, src in zip(inputs, sources):
+                fill(static, src)
+            if stream is not None:
+                stream.wait_stream(current)
+        else:
+            inputs = [torch.empty(shape, dtype=self.dtype_of(dt), device=self.device)
+                      for shape, dt in signature(sources)]
+            for static, src in zip(inputs, sources):
+                fill(static, src)
+            if stream is not None:
+                stream.wait_stream(current)
+            with accel.stream(stream):
+                outputs = body(inputs)
+            if stream is not None:
+                current.wait_stream(stream)
+                for t in outputs:
+                    t.record_stream(current)
+            self.pending[sig] = (inputs, outputs)
+            if self._abandoned:
+                raise StepAbandoned(f"the step for batch signature {sig} was abandoned after "
+                                    "its warm-up; not captured")
         accel.empty_cache()
 
         counters = launch_counters()
@@ -192,6 +247,18 @@ class StepGraphs:
         finally:
             increase = [a - b for a, b in zip(read_counters(counters), before)]
             add_counters(counters, [-n for n in increase])
+        if self._abandoned:
+            # free the graph, its outputs and its pool here, while nothing
+            # captures: left to the collector (the exception's frame holds
+            # them) they could be freed during the next capture, which a
+            # graph's destruction breaks
+            static_out = held = None
+            graph.reset()
+            graph = None
+            accel.empty_cache()
+            raise StepAbandoned(f"the capture for batch signature {sig} was abandoned; its "
+                                "graph is dropped")
+        del self.pending[sig]
         self.steps[sig] = CapturedStep(graph, inputs, static_out, counters, increase,
                                        held.values())
         self.captures += 1
@@ -201,3 +268,4 @@ class StepGraphs:
         """Drop every capture (and with the graphs, their memory pools and
         the cached buffers only they held)."""
         self.steps.clear()
+        self.pending.clear()

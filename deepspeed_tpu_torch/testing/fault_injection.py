@@ -24,14 +24,20 @@ site                  fires
 ``engine.*``          :class:`FaultyCheckpointEngine` wrapper sites
 ====================  =====================================================
 
-JAX's engine also plants two **value sites**, ``train.loss`` (the cached
-loss at the step boundary) and ``train.grads`` (the accumulated grads):
-the runtime routes the value itself through :func:`numeric_fault`, and
-the numeric actions (``nan``/``inf``/``spike``) corrupt its floating
-leaves, torch tensors here, instead of crashing the process.  The port's
-engine plants them with ``runtime/stability.py`` (ROADMAP.md, Queue 1
-entry 7); until then a rule naming either is refused
-(:data:`UNPLANTED_SITES`), since it would never fire.
+Two **value sites**, ``train.loss`` (the loss the stability sentinel
+judges at the step boundary) and ``train.grads`` (the accumulated
+gradients), take numeric actions (``nan``/``inf``/``spike``) that corrupt
+the value instead of crashing the process, on the same hits as JAX's.
+A hit's numeric rules compose into one affine pair ``(mult, add)``,
+``value * mult + add`` their effect on every finite value (``1`` and
+``-0.0`` on a clean hit, which leave every value bit for bit).  A replay of
+the engine's captured step runs no host code, so the engine plants the two
+sites as a device seam (:func:`numeric_seam`): the host writes the pair
+into static device scalars before each step, eager or replayed, and the
+update applies it.  The seam is in the step only when a plan with a rule
+at a value site is installed (:func:`value_sites_armed`); a clean graph
+keeps its nodes.  :func:`numeric_fault` (JAX's hook) applies the same pair
+to the floating leaves of a host value.
 
 A *plan* is a JSON list of rules.  Each rule names a site, an action, and
 the 1-based hit count it fires on — so "kill the process the 3rd time a
@@ -87,10 +93,15 @@ SITES = (
     # to drive a ServeStepTimeout incident; `serve.restage` fires before a
     # tiered KV restore (ctx: rid) — raise to force the recompute fallback
     "serve.step", "serve.restage",
+    # value sites (numeric_fault / numeric_seam): the sentinel's loss and
+    # the accumulated gradients at the step boundary (ctx: step, fp)
+    "train.loss", "train.grads",
 )
 
-#: JAX's value sites, which the port's engine does not plant yet
-UNPLANTED_SITES = ("train.loss", "train.grads")
+#: the value sites among SITES
+VALUE_SITES = ("train.loss", "train.grads")
+#: the ``(mult, add)`` of a value-site hit at which no numeric rule fires
+CLEAN_SEAM = (1.0, -0.0)
 
 # `wedge` parks the firing thread until released — the infinite-delay
 # model of a stuck peer, interruptible so a bounded-collective timeout
@@ -137,10 +148,6 @@ class FaultRule:
         if "site" not in spec:
             raise ValueError(f"fault rule missing 'site': {spec!r}")
         self.site = str(spec["site"])
-        if self.site in UNPLANTED_SITES:
-            raise ValueError(f"fault site {self.site!r} is not planted in the port: the "
-                             "engine's value sites wait for runtime/stability.py (ROADMAP.md, "
-                             "Queue 1 entry 7)")
         if self.site not in SITES:
             raise ValueError(f"unknown fault site {self.site!r} "
                              f"(expected one of {SITES})")
@@ -190,10 +197,23 @@ class FaultInjector:
                 self._execute(rule, site, ctx)
 
     def transform(self, site: str, value, **ctx):
-        """Value-site counterpart of :func:`fire`: route ``value`` through
-        the matching numeric rules (same 1-based hit counters) and return
-        the possibly-corrupted value.  Non-numeric rules at a value site
-        still execute (a ``kill`` at ``train.loss`` is legal)."""
+        """Value-site counterpart of :func:`fire`: ``value`` with this
+        hit's :meth:`seam` applied to its floating leaves (``value`` itself
+        when no numeric rule fires)."""
+        mult, add = self.seam(site, **ctx)
+        if (mult, add) == CLEAN_SEAM:
+            return value
+        return _corrupt_value(value, mult, add)
+
+    def seam(self, site: str, **ctx):
+        """One hit of a value site: the matching rules' 1-based hit
+        counters advance as at :meth:`fire`, and the numeric rules that
+        fire are composed into ``(mult, add)`` with ``value * mult + add``
+        their effect on every finite value (``nan``: NaN, ``inf``: +inf,
+        ``spike``: times its ``factor``); :data:`CLEAN_SEAM` when none
+        fires.  Non-numeric rules at a value site still execute (a
+        ``kill`` at ``train.loss`` is legal)."""
+        mult, add = CLEAN_SEAM
         for rule in self.rules:
             if not rule.matches(site, ctx):
                 continue
@@ -201,12 +221,16 @@ class FaultInjector:
             if rule.should_fire():
                 self.log.append({"site": site, "action": rule.action,
                                  "hit": rule.hits, "ctx": dict(ctx)})
-                if rule.action in NUMERIC_ACTIONS:
-                    value = _corrupt_value(value, rule.action,
-                                           float(rule.spec.get("factor", 1e3)))
+                if rule.action == "nan":
+                    mult, add = float("nan"), float("nan")
+                elif rule.action == "inf":
+                    mult, add = 1.0, float("inf")
+                elif rule.action == "spike":
+                    factor = float(rule.spec.get("factor", 1e3))
+                    mult, add = mult * factor, add * factor
                 else:
                     self._execute(rule, site, ctx)
-        return value
+        return mult, add
 
     # ------------------------------------------------------------------ #
     def _execute(self, rule: FaultRule, site: str, ctx: Dict[str, Any]):
@@ -252,9 +276,10 @@ class FaultInjector:
             truncate_file(path, size=int(spec.get("size", 0)))
 
 
-def _corrupt_value(value, action: str, factor: float):
-    """Corrupt every floating tensor of a (possibly nested dict, list or
-    tuple) value; other leaves pass through unchanged."""
+def _corrupt_value(value, mult: float, add: float):
+    """``x * mult + add`` for every floating tensor ``x`` of a (possibly
+    nested dict, list or tuple) value; other leaves pass through
+    unchanged."""
     import torch
 
     def leaf(x):
@@ -265,11 +290,7 @@ def _corrupt_value(value, action: str, factor: float):
         t = torch.as_tensor(x)
         if not t.is_floating_point():
             return x
-        if action == "nan":
-            return torch.full_like(t, float("nan"))
-        if action == "inf":
-            return torch.full_like(t, float("inf"))
-        return t * factor
+        return t * mult + add
 
     return leaf(value)
 
@@ -377,6 +398,23 @@ def numeric_fault(site: str, value, **ctx):
     if inj is None or not inj.active:
         return value
     return inj.transform(site, value, **ctx)
+
+
+def value_sites_armed() -> bool:
+    """Whether the installed plan has a rule at a value site: the engine
+    then captures its step with the device seam."""
+    inj = _injector if _env_checked else get_injector()
+    return inj is not None and any(r.site in VALUE_SITES for r in inj.rules)
+
+
+def numeric_seam(site: str, **ctx):
+    """Value-site hook for a device seam: ``(mult, add)`` for this hit of
+    ``site`` (``(1.0, -0.0)`` without a plan), see
+    :meth:`FaultInjector.seam`."""
+    inj = _injector if _env_checked else get_injector()
+    if inj is None or not inj.active:
+        return CLEAN_SEAM
+    return inj.seam(site, **ctx)
 
 
 # --------------------------------------------------------------------------- #

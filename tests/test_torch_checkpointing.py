@@ -15,10 +15,11 @@ on the CPU, against the uninterrupted run and against the JAX package.
 * Faults: a flipped byte, a truncated file and a ``latest`` naming a lost
   tag roll back to the earlier tag; an explicit corrupt tag raises
   ``CheckpointCorruptError``; ``keep_last_n``, ``save_latest=False``,
-  ``load_module_only``; ``preemption_enabled`` raises naming item 8.  A
-  tag that verifies but does not fit (one leaf of the wrong shape, or an
-  ``lr_scale`` other than 1, which only the unported stability sentinel
-  sets) is refused before anything is written: the engine is unchanged.
+  ``load_module_only``; ``preemption_enabled`` installs the handler.  A
+  tag that verifies but does not fit (one leaf of the wrong shape, or a
+  schedule ``lr_scale`` other than 1, which the port never writes: its
+  LR backoff is the engine's) is refused before anything is written: the
+  engine is unchanged.
 * Async save: training goes on while the finalizer runs; after the wait a
   fresh engine loads and equals; the finalizer and writer threads make no
   CUDA call.
@@ -431,11 +432,21 @@ def test_load_module_only_keeps_the_optimizer_state(tmp_path):
 
 
 def test_fault_tolerance_block_passes_unless_preemption_is_enabled():
+    """Every key of the block is taken; ``preemption_enabled`` installs the
+    preemption handler on SIGTERM (``runtime/fault_tolerance.py``), which
+    ``close()`` takes off again."""
+    import signal
     eng = engine(fault_tolerance={"keep_last_n": 3, "max_rollback": 1, "verify_on_load": False})
     assert eng.config.fault_tolerance_config.keep_last_n == 3
     assert eng.config.fault_tolerance_config.save_retries == 3
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 8"):
-        engine(fault_tolerance={"preemption_enabled": True})
+    assert eng.preemption_handler is None
+    before = signal.getsignal(signal.SIGTERM)
+    eng = engine(fault_tolerance={"preemption_enabled": True, "preemption_grace_s": 5.0})
+    assert eng.config.fault_tolerance_config.preemption_grace_s == 5.0
+    assert signal.getsignal(signal.SIGTERM) == eng.preemption_handler._on_signal
+    assert not eng.preemption_handler.triggered
+    eng.close()
+    assert signal.getsignal(signal.SIGTERM) == before
 
 
 # --------------------------------------------------------------------------- #

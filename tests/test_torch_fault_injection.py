@@ -102,7 +102,7 @@ def test_one_plan_fires_alike_in_both_packages(case):
 
 
 def test_plans_validate_alike():
-    assert sorted(fi.SITES + fi.UNPLANTED_SITES) == sorted(jfi.SITES) and fi.ACTIONS == jfi.ACTIONS
+    assert sorted(fi.SITES) == sorted(jfi.SITES) and fi.ACTIONS == jfi.ACTIONS
     assert fi.NUMERIC_ACTIONS == jfi.NUMERIC_ACTIONS
     for bad, match in (({"site": "serve.steps", "action": "wedge"}, "unknown fault site"),
                        ({"site": "train.step", "action": "explode"}, "unknown fault action"),
@@ -146,25 +146,51 @@ def test_wedge_parks_until_released_and_its_cap_expires():
 
 @pytest.mark.parametrize("site", ["train.loss", "train.grads"])
 def test_unplanted_value_sites_are_refused(site, monkeypatch):
-    """A plan at a value site the port's engine does not plant would never
-    fire: it is refused by name, in process and through DS_FAULT_PLAN."""
+    """The value sites are planted since ``runtime/stability.py``: a plan at
+    either installs in process and through DS_FAULT_PLAN, as JAX's does,
+    arms the engine's device seam, and the seam's hits corrupt a value as
+    :func:`numeric_fault` does (none is refused any more)."""
+    assert site in fi.SITES and site in fi.VALUE_SITES
     rule = {"site": site, "action": "nan"}
-    with pytest.raises(ValueError, match="runtime/stability.py.*Queue 1 entry 7"):
-        fi.install_plan([rule])
-    with pytest.raises(ValueError, match="not planted in the port"):
-        fi.FaultInjector([rule])
+    fi.install_plan([rule])
+    assert fi.value_sites_armed()
+    mult, add = fi.numeric_seam(site)
+    assert np.isnan(2.0 * mult + add)
+    assert fi.numeric_seam(site) == (1.0, -0.0)        # one hit only
     monkeypatch.setenv(fi.PLAN_ENV, json.dumps([rule]))
     fi.clear_plan()
-    with pytest.raises(ValueError, match="not planted in the port"):
-        fi.get_injector()
+    assert fi.get_injector().rules[0].site == site
+    fi.clear_plan()
+    monkeypatch.delenv(fi.PLAN_ENV)
+    assert not fi.value_sites_armed()
     jfi.install_plan([rule])            # JAX's engine plants it
     jfi.clear_plan()
 
 
+@pytest.mark.parametrize("action,spec,want", [
+    ("nan", {}, float("nan")), ("inf", {}, float("inf")),
+    ("spike", {"factor": 100.0}, -250.0), ("spike", {}, -2500.0),
+])
+def test_seam_hits_corrupt_as_numeric_fault(action, spec, want):
+    """``value * mult + add`` gives what :func:`numeric_fault` gives for a
+    finite value, and ``(1, -0.0)`` leaves every value bit for bit."""
+    rule = dict({"site": "train.grads", "action": action, "on_hit": 2}, **spec)
+    seam = fi.FaultInjector([rule])
+    host = fi.FaultInjector([rule])
+    for hit in range(3):
+        mult, add = seam.seam("train.grads")
+        x = torch.tensor([-2.5, -0.0, 0.0, 1e-30], dtype=torch.float32)
+        got = x * mult + add
+        ref = host.transform("train.grads", x.clone())
+        if hit != 1:
+            assert (mult, add) == (1.0, -0.0)
+            assert torch.equal(got, x) and torch.equal(torch.signbit(got), torch.signbit(x))
+        else:
+            assert torch.allclose(got[:1], ref[:1], equal_nan=True)
+            assert np.isclose(float(got[0]), want, equal_nan=True)
+
+
 def test_numeric_rules_corrupt_torch_values_as_jax_corrupts_arrays(monkeypatch):
-    # the value sites as the engine will plant them with runtime/stability.py
-    monkeypatch.setattr(fi, "SITES", fi.SITES + fi.UNPLANTED_SITES)
-    monkeypatch.setattr(fi, "UNPLANTED_SITES", ())
     plan = [{"site": "train.grads", "action": "nan"},
             {"site": "train.loss", "action": "spike", "factor": 100.0, "on_hit": 2}]
     value = {"w": np.full((2, 3), 2.0, np.float32), "step": np.int32(7)}

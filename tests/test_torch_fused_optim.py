@@ -374,3 +374,48 @@ def test_cuda_rejects_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(TypeError):
         tfo.fused_adam(table, torch.zeros(4, device=cuda_device), b1=0.9, b2=0.999, eps=1e-8,
                        wd=0.0)
+
+
+def test_skip_flag_leaves_every_leaf_bitwise_and_the_count():
+    """The stability sentinel's skip flag (a device scalar beside the
+    scalars): set, the plain version writes nothing and ``FusedAdam``'s
+    count stays; clear, the step is the one without the flag, bit for bit
+    (JAX's ``skip_step`` keeps params and optimizer state as they were)."""
+    params = [torch.from_numpy(make_tree(3)[k]).clone() for k in KEYS]
+    grads = [torch.from_numpy(make_tree(4)[k]).clone() for k in KEYS]
+    flagged = FusedAdam([p.clone() for p in params], grads,
+                        {"b1": 0.9, "b2": 0.999, "eps": 1e-8, "wd": 0.01, "lr": 1e-3})
+    plain = FusedAdam([p.clone() for p in params], grads,
+                      {"b1": 0.9, "b2": 0.999, "eps": 1e-8, "wd": 0.01, "lr": 1e-3})
+    one, inv = torch.tensor(1.0), torch.tensor(0.5)
+    flagged.step(inv, one, skip=torch.tensor(0.0))
+    plain.step(inv, one)
+    for a, b in zip(flagged.table.leaves, plain.table.leaves):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    before = [[t.clone() for t in group] for group in flagged.table.leaves]
+    flagged.step(inv, one, skip=torch.tensor(1.0))
+    assert int(flagged.count) == 1
+    for a, b in zip(flagged.table.leaves, before):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wd", [0.0, 0.01])
+def test_cuda_skip_flag_writes_nothing_and_clear_matches_plain(cuda_device, wd):
+    """On the card: with the flag set no block writes p, mu or nu; with it
+    clear the kernel equals the plain version bit for bit."""
+    a, b = card_leaves(cuda_device, 2), card_leaves(cuda_device, 2)
+    scal = torch.tensor([0.5, 0.7, -1e-3, 0.3, 0.01], device=cuda_device)
+    before = [[t.clone() for t in group] for group in a]
+    table = tfo.AdamTable(*a)
+    tfo.fused_adam(table, scal, b1=0.9, b2=0.999, eps=1e-8, wd=wd,
+                   skip=torch.ones((), device=cuda_device))
+    torch.cuda.synchronize()
+    for xs, ys in zip(a, before):
+        assert all(torch.equal(x, y) for x, y in zip(xs, ys))
+    tfo.fused_adam(table, scal, b1=0.9, b2=0.999, eps=1e-8, wd=wd,
+                   skip=torch.zeros((), device=cuda_device))
+    tfo.adam_reference(*b, scal, b1=0.9, b2=0.999, eps=1e-8, wd=wd)
+    torch.cuda.synchronize()
+    for xs, ys in zip(a, b):
+        assert all(torch.equal(x, y) for x, y in zip(xs, ys))

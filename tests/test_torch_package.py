@@ -1,8 +1,10 @@
 """The port package stands alone and defaults to the card.
 
-* ``import deepspeed_tpu_torch`` (every module of it, and ``chip_smoke.py``)
-  in a fresh interpreter leaves ``jax``, ``deepspeed_tpu`` and
-  ``transformers`` out of ``sys.modules``;
+* ``import deepspeed_tpu_torch`` (every module of it, the robustness
+  plane's ``comm/recovery.py``, ``elasticity/``, ``launcher/`` and
+  ``cli_utils.py`` among them, and ``chip_smoke.py``) in a fresh
+  interpreter leaves ``jax``, ``deepspeed_tpu`` and ``transformers`` out
+  of ``sys.modules``;
 * no module of the port, and not ``chip_smoke.py``, has an import of
   ``jax``, ``deepspeed_tpu`` or ``transformers`` anywhere in its source
   (``module_inject`` reads Hugging Face models by duck typing);
@@ -48,6 +50,15 @@ def test_no_jax_or_jax_package_import_in_source(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+# the training robustness plane's modules, which the walk below must reach
+ROBUSTNESS_MODULES = (
+    "deepspeed_tpu_torch.runtime.stability", "deepspeed_tpu_torch.runtime.fault_tolerance",
+    "deepspeed_tpu_torch.comm.recovery", "deepspeed_tpu_torch.elasticity.elasticity",
+    "deepspeed_tpu_torch.elasticity.elastic_agent", "deepspeed_tpu_torch.launcher.runner",
+    "deepspeed_tpu_torch.launcher.launch", "deepspeed_tpu_torch.launcher.multinode_runner",
+    "deepspeed_tpu_torch.cli_utils")
+
+
 def test_import_leaves_jax_out_of_sys_modules():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -57,8 +68,10 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import chip_smoke\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'deepspeed_tpu', 'transformers'))\n"
+        f"missing = sorted(set({ROBUSTNESS_MODULES!r}) - set(sys.modules))\n"
         "print(len([k for k in sys.modules if k.startswith('deepspeed_tpu_torch')]))\n"
-        "assert not bad, bad\n")
+        "assert not bad, bad\n"
+        "assert not missing, missing\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

@@ -4,8 +4,8 @@ on the CPU (``runtime/config.py``, ``comm/``, ``runtime/checkpointing.py``,
 
 * The ``telemetry`` block: every key of JAX's ``DeepSpeedTelemetryConfig``
   with its default; the blocks still unported go on raising, each naming
-  its ROADMAP entry (``wall_clock_breakdown``, ``stability``,
-  ``fault_tolerance.preemption_enabled``, ...).
+  its ROADMAP entry (``wall_clock_breakdown``, the comms logger, the
+  monitors, the flops profiler, progressive layer drop, ...).
 * Training: JAX's engine and ``initialize()`` run three steps with the
   block on; the step records' ``loss`` and ``grad_norm`` agree within the
   training tests' 1e-5 relative, ``lr`` and ``global_samples`` exactly.
@@ -136,8 +136,8 @@ def test_telemetry_config_has_jax_keys_and_defaults():
 
 @pytest.mark.parametrize("config,item", [
     ({"wall_clock_breakdown": True}, r"item 8 \(wall_clock_breakdown\)"),
-    ({"stability": {"enabled": True}}, r"item 8 \(stability sentinel\)"),
-    ({"fault_tolerance": {"preemption_enabled": True}}, r"item 8 \(preemption handling\)"),
+    ({"progressive_layer_drop": {"enabled": True}}, r"item 9 \(progressive layer drop\)"),
+    ({"csv_monitor": {"enabled": True}}, r"item 9 \(monitor\)"),
     ({"comms_logger": {"enabled": True}}, r"item 7 \(comms\)"),
     ({"tensorboard": {"enabled": True}}, r"item 9 \(monitor\)"),
     ({"flops_profiler": {"enabled": True}}, r"item 9 \(flops profiler\)"),

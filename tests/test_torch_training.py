@@ -498,7 +498,7 @@ def test_forward_backward_step_equals_train_batch():
     ({"zero_optimization": {"stage": 3, "zero_quantized_weights": True}}, "item 7"),
     ({"fp16": {"enabled": True}}, "item 5"),
     ({"optimizer": {"type": "Lamb"}}, "item 5"),
-    ({"stability": {"enabled": True}}, "item 8"),
+    ({"wall_clock_breakdown": True}, "item 8"),
     ({"activation_checkpointing": {"partition_activations": True}}, "item 6"),
     ({"activation_checkpointing": {"cpu_checkpointing": True}}, "item 7"),
     ({"compression_training": {"weight_quantization": {"shared_parameters": {}}}}, "item 9"),

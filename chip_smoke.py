@@ -104,14 +104,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    bit for bit (phase 8's limits where a kernel proves not to be
    deterministic, printed as such); the same with ``checkpoint.async_save``,
    training on while the finalizer writes and waiting before the load;
-   ``python -m deepspeed_tpu_torch.ckpt_cli verify`` (the walk and exit
-   codes of ``tools/verify_checkpoint.py``) exits 0 on the save dir and 1
-   after one flipped byte in the newest tag's state file; save and load
+   ``deepspeed_tpu_torch.ckpt_cli verify`` (the walk and exit codes of
+   ``tools/verify_checkpoint.py``; its ``main`` in this process) exits 0
+   on the save dir and 1 after one flipped byte in the newest tag's state
+   file; save and load
    seconds and bytes; (c) the first engine loads that save dir, rolls back
    to the earlier tag, and its next replays give the same losses with no
    new capture.  Checkpoints go to a temporary directory, removed after;
 13. Llama-3-8B (``llama_config`` at ``meta-llama/Meta-Llama-3-8B``'s widths,
-   FAMILY_CELLS below): fp32 (TF32 off) at 8 of its 32 layers, seeded
+   FAMILY_CELLS below): fp32 (TF32 off) at 4 of its 32 layers, seeded
    weights, ``init_serving`` held token for token against the port's
    ``generate()`` with a roomy and a preempting arena, near-ties counted as
    in phase 4; then bf16 at all 32 layers, made in bf16 on the card: the
@@ -120,12 +121,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    the first decode step's logits against the plain attention path), the
    paged kernel launched once per layer per dispatch, and peak memory;
 14. the same for BLOOM-7b1's widths (``bloom_config``, ALiBi, tied head):
-   fp32 at 8 of 30 layers, bf16 at all 30;
+   fp32 at 4 of 30 layers, bf16 at all 30;
 15-17. the families' training cells (FAMILY_TRAIN below): Llama-3-8B's
    widths at 8 layers, bf16, graphed and eager, profiled; its fp32 kernel
    path against the plain path at 2 layers; BLOOM-7b1's widths at 2 layers;
 18. DeepSpeed-MoE's 350M+MoE-128 (MOE_CELL below) served: (a) fp32 (TF32
-   off) at 8 of its 24 blocks with a no-drop eval capacity factor (chunked
+   off) at 4 of its 24 blocks with a no-drop eval capacity factor (chunked
    and whole-prompt prefills would drop different tokens at 1.0), held
    token for token against the port's ``generate()`` through
    ``init_serving`` (roomy and preempting) and ``init_inference(...)
@@ -154,12 +155,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    alone (WIDE_FLASH_CASES: B 1, S 2048 causal; S 200 ragged; GQA 4; ALiBi)
    against its plain version, with ``scaled_dot_product_attention`` as the
    yardstick;
-22. GPT-J-6B (``EleutherAI/gpt-j-6b``'s widths, FAMILY_CELLS): fp32 at 8 of
+22. GPT-J-6B (``EleutherAI/gpt-j-6b``'s widths, FAMILY_CELLS): fp32 at 4 of
    its 28 layers through ``init_serving`` held token for token against
    ``generate()``, roomy and preempting; bf16 at all 28 layers, phase 13's
    measurements, 28 paged launches a dispatch;
 23. GPT-NeoX-20B (``EleutherAI/gpt-neox-20b``'s widths): the same, fp32 at
-   8 of 44 layers, bf16 at all 44 (41.1 GB of weights);
+   4 of 44 layers, bf16 at all 44 (41.1 GB of weights);
 24. ``module_inject`` and int8: HF-layout stand-ins (``hf_standin``: a
    ``config`` namespace with HF's field names, a ``state_dict()`` with HF's
    keys and layouts) of GPT-J-6B and GPT-NeoX-20B at 2 layers, seeded, go
@@ -198,7 +199,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    over that bandwidth), peak device memory and pinned host bytes beside
    the memory model's plan, the loss finite and falling;
 30. Llama-3-8B's widths at stage 3 with both offloads, micro 4 x seq 2048
-   (phase 15's cell), at 16 layers, whose 12 pinned bytes a parameter must
+   (phase 15's cell), at 10 layers, whose 12 pinned bytes a parameter must
    fit what MemAvailable leaves: phase 29's readings and TFLOPs by
    bench.py's formula;
 31. tiered KV: Llama-3-8B at 16 of its 32 layers in bf16 through
@@ -280,8 +281,33 @@ Phases, each printing its own lines; any failure exits non-zero:
    wedge at the capture's first collective retried in place (one
    incident, the capture abandoned and taken again, ``comm_recovery``
    booked, ``/recovery`` answering, the parameters of phase 38's
-   uninterrupted run).
-Each phase prints its seconds, and the total is printed after phase 39.
+   uninterrupted run);
+40. the autotuner through the launcher: ``python -m
+   deepspeed_tpu_torch.launcher.runner --autotuning run`` on
+   ``tests/torch_autotune_worker.py`` (GPT-2 at full width, bf16, seq 512,
+   AdamW, remat, seeded tokens, 6 ``train_batch`` steps) with
+   ``autotuning: {zero_stages: [0], micro_batch_sizes: [4, 8]}``: two
+   experiments and the final run, each its own process; each experiment's
+   ``metrics.json`` (the engine's throughput at its ``steps_per_print``
+   boundaries) above 0, ``ds_config_optimal.json`` the one with the larger
+   throughput, the final run training at its micro-batch; each child's
+   launches of the flash, cross-entropy and AdamW kernels exactly what its
+   steps make, no plain version called;
+41. the closed loop on the same worker: ``ClosedLoopAutotuner`` over ZeRO-3
+   x ``offload_param`` {none, cpu} x micro {4, 8} with GPT-2's
+   ``model_info`` and a device budget between the offloaded layer-window
+   peak and the gathered peak: the two unoffloaded candidates pruned (no
+   trial dir, no process), two trials scored from their
+   ``EFFICIENCY.json``, their launches held as in phase 40; then a GPT-2
+   engine with the emitted ``ds_config_patch.json`` applied builds under
+   ``stale_policy: refuse``, and one with a copy whose fingerprint says
+   ``num_params: 1`` raises ``StaleTuningError`` with no kernel launched.
+   Each trial's start-up seconds, mean step ms, samples/s and score are
+   printed.
+Phases 40-41's searches run in a thread beside phases 38-39 (their trials
+are processes of their own, whose start-ups take most of their time); the
+check at build of phase 41 runs after phase 39.  Each phase prints its
+seconds, and the total is printed after phase 41.
 
 Phase 2 also prints the registers, spills, blocks per SM and shared
 memory of the kernels the tree redesigned last (the cross-entropy forward
@@ -314,15 +340,16 @@ kernels once per micro-step; AdamW once per step), no other kernel, and
 the plain versions never (the fp32 phases' plain runs excepted).
 The kernel table reports each kernel's case at the shape of the latest
 slice's run that launches it and that run's count (the paged kernel
-phase 31's tiered serve, the contiguous one phase 24's, the flash kernels
-phases 25-26's (GPT-J-6B's), the
-cross-entropy and AdamW kernels phase 19's, the block-sparse kernels
-phase 9's).
+phase 31's tiered serve, the contiguous one phase 24's, the flash,
+cross-entropy and AdamW kernels the autotuner's children of phases 40-41
+(their launches summed; the case at GPT-2's training shape from phase
+6), the block-sparse kernels phase 9's).
 The last two lines are the kernel table (JSON) and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside this file, it exits non-zero and prints no result.
 """
 
+import atexit
 import gc
 import json
 import os
@@ -332,6 +359,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -366,17 +394,18 @@ MB = 1024 // BS                  # blocks per sequence at n_positions 1024
 # phase 3's head shapes: model -> (H, Hkv, head_dim, ALiBi).  The decode
 # kernels run at each, the paged cases at 1024-slot table rows
 # phases 13-14: name -> (constructor in models/gpt.py, its published widths,
-# layers of the fp32 identity run); bf16 runs at full depth
+# layers of the fp32 identity run: 4, cut from 8 so that the script ends in
+# its time); bf16 runs at full depth
 FAMILY_CELLS = {
     # meta-llama/Meta-Llama-3-8B config.json: untied head, GQA 32:8, rope
     # theta 5e5, SwiGLU 14336, 8.03B parameters
     "llama3-8b": ("llama_config", dict(vocab_size=128256, n_positions=8192, n_embd=4096,
                                        n_layer=32, n_head=32, n_kv_head=8,
                                        intermediate_size=14336, rope_theta=500000.0,
-                                       ln_eps=1e-5), 8),
+                                       ln_eps=1e-5), 4),
     # bigscience/bloom-7b1 config.json: ALiBi, tied head, 7.07B parameters
     "bloom-7b1": ("bloom_config", dict(vocab_size=250880, n_positions=2048, n_embd=4096,
-                                       n_layer=30, n_head=32), 8),
+                                       n_layer=30, n_head=32), 4),
     # phases 22-23.  EleutherAI/gpt-j-6b config.json: head_dim 256, rotary_dim
     # 64 interleaved, a parallel residual from one LayerNorm, gelu_new, an
     # untied head with a bias; 6.05 B parameters
@@ -384,7 +413,7 @@ FAMILY_CELLS = {
                                   n_layer=28, n_head=16, position_encoding="rope",
                                   rope_dim=64, rope_interleaved=True,
                                   block_type="parallel_single_ln", activation="gelu_tanh",
-                                  untied_head=True, head_bias=True, ln_eps=1e-5), 8),
+                                  untied_head=True, head_bias=True, ln_eps=1e-5), 4),
     # EleutherAI/gpt-neox-20b config.json: head_dim 96, rotary_pct 0.25
     # (rope_dim 24, base 10000), a parallel residual, intermediate 24576,
     # an untied head; its gelu_fast is the tanh gelu; 20.55 B parameters
@@ -392,7 +421,7 @@ FAMILY_CELLS = {
                                    n_layer=44, n_head=64, position_encoding="rope",
                                    rope_dim=24, rope_theta=10000.0, block_type="parallel",
                                    intermediate_size=24576, activation="gelu_tanh",
-                                   untied_head=True, ln_eps=1e-5), 8),
+                                   untied_head=True, ln_eps=1e-5), 4),
 }
 KERNEL_HEADS = {"gpt2-xl": (H, H, D, False),
                 "llama3-8b": (32, 8, 128, False),      # GQA 4:1
@@ -485,9 +514,10 @@ FAMILY_PARITY = (2, TRAIN_SEQ, TRAIN_MICRO)
 MOE_CELL = dict(n_embd=1024, n_head=16, n_layer=24, n_positions=2048, moe_num_experts=128,
                 moe_top_k=1, moe_expert_hidden=4096, moe_capacity_factor=1.0,
                 moe_eval_capacity_factor=1.0, moe_min_capacity=4, moe_aux_coeff=0.01)
-# phase 18 (a): blocks of the fp32 identity runs (8.68 B parameters, 34.7
-# GB), at an eval capacity factor >= the 128 experts, which drops no token
-MOE_FP32_LAYERS, MOE_NO_DROP = 8, 128.0
+# phase 18 (a): blocks of the fp32 identity runs (about 4.37 B parameters,
+# 17.5 GB; cut from 8 so that the script ends in its time), at an eval
+# capacity factor >= the 128 experts, which drops no token
+MOE_FP32_LAYERS, MOE_NO_DROP = 4, 128.0
 # phase 19: blocks, warm-up, timed graphed and eager steps (2 blocks: 2.21 B
 # parameters, ~40 GB of fp32 master, gradient, moments and bf16 copy), and
 # the eager steps after them that read the gating's drop fraction;
@@ -521,7 +551,9 @@ ZERO_XL = (2, 3, 1, 3)
 # (12 bytes a parameter pinned: fp32 master and two moments); warm-up,
 # timed graphed and eager steps
 LLAMA_OFFLOAD = (2, 1, 1)       # warm-up, timed, eager steps (~4.6 s each)
-LLAMA_MIN_LAYERS = 16
+# 10 layers, still past phase 15's 8 (16 took 59.0 s, 10 took 42.0 s): the
+# time went to phases 40-41
+LLAMA_MIN_LAYERS = 10
 # of MemAvailable, the part phase 30 leaves to the rest of the machine
 HOST_RESERVE_FRACTION, HOST_RESERVE_BYTES = 0.15, 4 << 30
 PINNED_PROBE_BYTES = 1 << 30
@@ -723,15 +755,22 @@ FP32_TIER_LAYERS = 4
 SAMPLE_LAYERS, SAMPLE_BATCH, SAMPLE_PROMPT, SAMPLE_NEW, SAMPLE_T = 2, 4, 64, 32, 0.8
 
 
+# one line at a time: the thread of phases 40-41 prints beside the main one
+_SAY = threading.Lock()
+
+
 def fail(msg: str) -> None:
     # on both streams: a caller that keeps only the end of one still reads why
-    print(f"FAIL: {msg}", flush=True)
-    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    with _SAY:
+        print(f"FAIL: {msg}", flush=True)
+        print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
 def say(msg: str) -> None:
-    print(msg, flush=True)
+    with _SAY:
+        sys.stdout.write(msg + "\n")
+        sys.stdout.flush()
 
 
 # --------------------------------------------------------------------------- #
@@ -774,21 +813,29 @@ def bound(nbytes: int, flops: float, dtype: str):
 # --------------------------------------------------------------------------- #
 # phase 3: kernels against their plain versions
 # --------------------------------------------------------------------------- #
+def device_normal(rng, shapes, device):
+    """Standard normal fp32 tensors of ``shapes``, drawn on ``device`` by a
+    generator seeded from one draw of ``rng`` (drawing tens of millions of
+    values on the host took a third of phases 3 and 21)."""
+    import torch
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(rng.integers(2 ** 62)))
+    return [torch.randn(shape, generator=gen, device=device) for shape in shapes]
+
+
 def paged_inputs(rng, B, Sq, lengths, dtype, device, heads=(H, H, D)):
     import torch
     Hq, Hkv, Dh = heads
     NB = B * MB + 1
-    kp = rng.standard_normal((NB, BS, Hkv, Dh), dtype=np.float32)
-    vp = rng.standard_normal((NB, BS, Hkv, Dh), dtype=np.float32)
+    kp, vp, q = (t.to(dtype) for t in device_normal(
+        rng, [(NB, BS, Hkv, Dh), (NB, BS, Hkv, Dh), (B, Sq, Hq, Dh)], device))
     ids = np.arange(1, NB, dtype=np.int32)
     rng.shuffle(ids)
     tables = ids[:B * MB].reshape(B, MB)
-    q = rng.standard_normal((B, Sq, Hq, Dh), dtype=np.float32)
 
-    def dev(a, dt=dtype):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device, dt)
-    return (dev(q), dev(kp), dev(vp), dev(tables, torch.int32),
-            dev(np.asarray(lengths, np.int32), torch.int32))
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device, torch.int32)
+    return q, kp, vp, dev(tables), dev(np.asarray(lengths, np.int32))
 
 
 def peaked_checks(dtype_name, scaled, kernel, exact, q):
@@ -889,9 +936,8 @@ def kernel_cases(device, flush, clean_flush, reps: int = 50, plain_reps: int = 1
                          f"kernel {clean:.4f}, that SDPA {gathered_clean:.4f} ms"))
                 del q, kp, vp
             for case, B, Sq, T, pos in CONTIGUOUS_CASES:
-                q, ck, cv = (torch.from_numpy(rng.standard_normal(
-                    shape, dtype=np.float32)).to(device, dtype)
-                    for shape in ((B, Sq, Hq, Dh), (B, T, Hkv, Dh), (B, T, Hkv, Dh)))
+                q, ck, cv = (t.to(dtype) for t in device_normal(
+                    rng, [(B, Sq, Hq, Dh), (B, T, Hkv, Dh), (B, T, Hkv, Dh)], device))
 
                 def kernel(qq):
                     return da.decode_attention(qq, ck, cv, pos, alibi=slopes)
@@ -1134,7 +1180,9 @@ def profile_decode(eng, prompts, card: str, steps: int = 8):
                                    for r in eng.sched.active.values()):
         eng.step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # the device's activity alone: what follows reads only kernels, and the
+    # host's ops (thousands a step) would cost seconds to parse
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             eng.step()
@@ -1447,11 +1495,13 @@ def flash_case_rows(case: str, cases, dtype_name: str, device, flush, card: str,
         return F.scaled_dot_product_attention(
             a, b, c, attn_mask=mask, is_causal=causal and mask is None, scale=scale,
             enable_gqa=Hkv != H)
-    fwd_lib = median_ms(lambda: sdpa(qt, kt, vt), reps, flush)
+    # as many calls as the plain versions get: in fp32, and with a mask,
+    # SDPA runs its math path, whose calls take as long as theirs
+    fwd_lib = median_ms(lambda: sdpa(qt, kt, vt), plain_reps, flush)
     lib_in = [t.detach().requires_grad_() for t in (qt, kt, vt)]
     lib_out = sdpa(*lib_in)
     bwd_lib = median_ms(lambda: torch.autograd.grad(lib_out, lib_in, dot, retain_graph=True),
-                        reps, flush)
+                        plain_reps, flush)
     del lib_out, lib_in
     if case == "gpt2-train":
         # what auto would run here without flash: JAX's reference
@@ -1846,9 +1896,8 @@ def ce_cases(device, flush, reps: int = 20, plain_reps: int = 5):
     for case, N, E, dtype_name in runs:
         forward_only = case == "gpt2-s4096-sparse"
         rng = np.random.default_rng(4321)
-        x32 = torch.from_numpy(rng.standard_normal((N, E), dtype=np.float32)).to(device)
-        h32 = torch.from_numpy(rng.standard_normal((V, E), dtype=np.float32)
-                               * CE_HEAD_STD).to(device)
+        x32, h32 = device_normal(rng, [(N, E), (V, E)], device)
+        h32 *= CE_HEAD_STD
         labels = torch.from_numpy(rng.integers(0, vocab, N).astype(np.int32)).to(device)
         gscale = torch.full((1,), 1.0 / N, device=device)
         dtype = getattr(torch, dtype_name)
@@ -2373,7 +2422,9 @@ def profile_train_step(engine, batch, card: str, attn_impl: str = "auto",
     try:
         torch.cuda.synchronize()
         before = read_counts()[0]
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # the host's ops only where ``split`` attributes kernels through them
+        acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if split else [])
+        with profile(activities=acts) as prof:
             for _ in range(TRACE_FILL_KERNELS):
                 torch.cuda._sleep(1)
             torch.cuda._sleep(TRACE_MARGIN_CYCLES)
@@ -2808,16 +2859,16 @@ def dir_bytes(path: str) -> int:
 
 
 def ckpt_verify(save_dir: str):
-    """``ckpt_cli verify`` on ``save_dir`` in a subprocess (the port found
-    through ``PYTHONPATH``, whatever the interpreter's path rules): its exit
-    code and the end of its output."""
-    here = str(Path(__file__).resolve().parent)
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [here] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
-    res = subprocess.run([sys.executable, "-m", "deepspeed_tpu_torch.ckpt_cli", "verify",
-                          save_dir], capture_output=True, text=True, timeout=300, cwd=here,
-                         env=env)
-    return res.returncode, (res.stdout + res.stderr).strip()[-600:]
+    """``ckpt_cli verify`` on ``save_dir``, through the module's ``main`` in
+    this process (a process of its own would spend seconds importing
+    torch): its exit code and the end of its output."""
+    import contextlib
+    import io
+    from deepspeed_tpu_torch import ckpt_cli
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(out):
+        rc = ckpt_cli.main(["verify", save_dir])
+    return rc, out.getvalue().strip()[-600:]
 
 
 def flip_byte(path: str) -> None:
@@ -4883,11 +4934,10 @@ def run_agent(root: str, cfgv: dict, env: dict, max_restarts: int):
            f"--master_port={free_port_local()}", script, json.dumps(cfgv)]
     shell = ["bash", "-c", " ".join(map(shlex_quote, cmd)) + f" >> {shlex_quote(log)} 2>&1"]
     sleeps = []
-    # the workers keep the bytecode of what they import beside the run
-    # (the installed packages come without it): a later start reads what
-    # the first compiled
+    # the workers read the bytecode this process wrote (``main``) and
+    # keep there what they compile beyond it
     env = dict(env, PYTHONPATH=here, PYTHONDONTWRITEBYTECODE="",
-               PYTHONPYCACHEPREFIX=os.path.join(root, "pycache"))
+               PYTHONPYCACHEPREFIX=sys.pycache_prefix)
     agent = DSElasticAgent(WorkerSpec(shell, env=env),
                            max_restarts=max_restarts, monitor_interval=0.5,
                            sleep_fn=lambda s: (sleeps.append(s), time.sleep(s)))
@@ -5095,7 +5145,273 @@ def phase_recovery(device, card: str, per_step: int, want):
 
 
 
+# --------------------------------------------------------------------------- #
+# phases 40-41: the autotuner on GPT-2
+# --------------------------------------------------------------------------- #
+# the user script the autotuner runs (GPT-2 at seq 512 through initialize()
+# -> train_batch, AUTOTUNE_STEPS steps; it prints a WORKER line and writes
+# launches.json beside its metrics)
+AUTOTUNE_WORKER = os.path.join("tests", "torch_autotune_worker.py")
+AUTOTUNE_STEPS = 6
+AUTOTUNE_CFG = dict(TRAIN_CFG, steps_per_print=3)          # 3 divides the 6 steps
+AUTOTUNE_MICROS = [4, 8]
+GPT2_BLOCK_PARAMS = 7_087_872       # one GPT-2 block (the closed loop's model_info)
+# the kernels the trials' path runs: Queue 2 rows 1-7
+AUTOTUNE_KERNELS = ("flash_forward", "flash_backward_dq", "flash_backward_dkv", "ce_forward",
+                    "ce_backward_dx", "ce_backward_dhead", "fused_adam")
+AUTOTUNE_TIMEOUT_S = 300.0
+
+
+def autotune_env() -> dict:
+    """The children's environment: this checkout on the path, the bytecode
+    this process wrote (``main``) read from its prefix, and no autotuning
+    variable of the caller's."""
+    here = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, PYTHONPATH=here, PYTHONDONTWRITEBYTECODE="",
+               PYTHONPYCACHEPREFIX=sys.pycache_prefix)
+    for key in ("DS_AUTOTUNING_CONFIG", "DS_AUTOTUNING_METRIC_PATH"):
+        env.pop(key, None)
+    return env
+
+
+def worker_lines(text: str) -> list:
+    return [json.loads(x[len("WORKER "):]) for x in text.splitlines()
+            if x.startswith("WORKER ")]
+
+
+def child_launches(info: dict, label: str) -> dict:
+    """A child's launches of rows 1-7, held to the launches its steps must
+    make (``expected``: each flash kernel once per layer per micro-step,
+    each cross-entropy kernel once per micro-step, AdamW once a step or a
+    chunk) with no plain version called."""
+    got = {k: info["launches"][k] for k in AUTOTUNE_KERNELS}
+    want = {k: info["expected"][k] for k in AUTOTUNE_KERNELS}
+    if got != want or any(v <= 0 for v in got.values()) or any(info["plain_calls"].values()):
+        fail(f"{label}: launches {got}, expected {want}; plain calls {info['plain_calls']}")
+    return got
+
+
+def add_counts(total: dict, more: dict) -> dict:
+    return {k: total.get(k, 0) + more.get(k, 0) for k in AUTOTUNE_KERNELS}
+
+
+def phase_autotune_launcher(card: str):
+    """Phase 40: ``python -m deepspeed_tpu_torch.launcher.runner --autotuning
+    run`` on AUTOTUNE_WORKER with ``autotuning: {zero_stages: [0],
+    micro_batch_sizes: [4, 8]}``: two experiments through the
+    ``ResourceManager`` (each a process; the engine writes its throughput
+    at each ``steps_per_print`` boundary) and the final run through the
+    launcher with ``DS_AUTOTUNING_CONFIG`` at ``ds_config_optimal.json``.
+    Holds: each experiment's metrics.json has throughput > 0 after 6
+    steps; ``ds_config_optimal.json`` is the experiment with the larger
+    recorded throughput; the final run's engine reports its micro-batch;
+    each child launched rows 1-7 exactly as its steps must."""
+    here = str(Path(__file__).resolve().parent)
+    root = tempfile.mkdtemp(prefix="chip_smoke_autotune_", dir=ckpt_root())
+    try:
+        cfg = dict(AUTOTUNE_CFG, autotuning={"zero_stages": [0],
+                                             "micro_batch_sizes": AUTOTUNE_MICROS})
+        Path(root, "ds.json").write_text(json.dumps(cfg))
+        cmd = [sys.executable, "-m", "deepspeed_tpu_torch.launcher.runner", "--autotuning",
+               "run", os.path.join(here, AUTOTUNE_WORKER), "--steps", str(AUTOTUNE_STEPS),
+               "--deepspeed_config", "ds.json"]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, cwd=root, env=autotune_env(), capture_output=True,
+                             text=True, timeout=3 * AUTOTUNE_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        if out.returncode != 0:
+            print(out.stdout[-6000:] + out.stderr[-6000:], file=sys.stderr)
+            fail(f"--autotuning run exited {out.returncode}")
+        exps, launches = [], {}
+        for d in sorted(Path(root, "autotuning_exps").iterdir()):
+            metrics = json.loads((d / "metrics.json").read_text())
+            exp_cfg = json.loads((d / "ds_config.json").read_text())
+            info = json.loads((d / "launches.json").read_text())
+            if (metrics["throughput"] <= 0 or metrics["global_steps"] != AUTOTUNE_STEPS
+                    or info["micro_batch"] != exp_cfg["train_micro_batch_size_per_gpu"]):
+                fail(f"autotuning experiment {d.name}: metrics {metrics}, micro "
+                     f"{info['micro_batch']} of {exp_cfg['train_micro_batch_size_per_gpu']}")
+            launches = add_counts(launches, child_launches(info, f"experiment {d.name}"))
+            exps.append(dict(name=d.name, throughput=metrics["throughput"], cfg=exp_cfg,
+                             info=info))
+        optimal = json.loads(Path(root, "autotuning_results", "ds_config_optimal.json")
+                             .read_text())
+        best = max(exps, key=lambda e: e["throughput"])
+        final = worker_lines(out.stdout)
+        if (len(exps) != len(AUTOTUNE_MICROS) or optimal != best["cfg"] or len(final) != 1
+                or final[0]["micro_batch"] != optimal["train_micro_batch_size_per_gpu"]
+                or final[0]["steps"] != AUTOTUNE_STEPS):
+            fail(f"--autotuning run: experiments {[(e['name'], e['throughput']) for e in exps]}, "
+                 f"optimal micro {optimal.get('train_micro_batch_size_per_gpu')}, final run "
+                 f"{final}")
+        launches = add_counts(launches, child_launches(final[0], "the final run"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for e in exps + [dict(name="final run", throughput=None, info=final[0])]:
+        i = e["info"]
+        say(f"autotune launcher {e['name']} (gpt2 bf16 seq {TRAIN_SEQ} micro {i['micro_batch']}, "
+            f"ZeRO-0): start-up {i['times']['startup_s']:.2f} s (process age at imports "
+            f"{i['times']['import_s']:.2f}, engine {i['times']['engine_s']:.2f}), mean step "
+            f"{i['step_ms']:.3f} ms, {i['samples_per_s']:.1f} samples/s"
+            + (f", recorded throughput {e['throughput']:.1f}" if e["throughput"] else "")
+            + f", loss {i['loss']:.4f} [{card}]")
+    say(f"autotune launcher (--autotuning run, {secs:.1f} s): optimal micro "
+        f"{optimal['train_micro_batch_size_per_gpu']} (the larger recorded throughput: "
+        f"{best['name']}); the final run trained at micro {final[0]['micro_batch']}; children's "
+        f"launches {json.dumps(launches)} [{card}]")
+    return dict(secs=secs, launches=launches, best=best["name"])
+
+
+def phase_autotune_loop(card: str):
+    """Phase 41, the search: ``ClosedLoopAutotuner`` with
+    ``TrialScheduler(cmd=[python, AUTOTUNE_WORKER])`` and GPT-2's
+    ``model_info`` (its parameters at seq 512, 12 layers, one block's
+    parameters) over ZeRO-3 x ``offload_param`` {none, cpu} x micro {4, 8},
+    with ``device_memory_bytes`` between the offloaded layer-window peak and
+    the gathered peak of ``memory_model.analytic_step_peaks``: the two
+    unoffloaded candidates are pruned (no trial dir, no process), the two
+    offloaded ones run and are scored from their ``EFFICIENCY.json``.  It
+    starts no kernel in this process.  Returns what ``phase_tuned_patch``
+    checks; the caller removes ``root``."""
+    from deepspeed_tpu_torch.autotuning import ClosedLoopAutotuner, TrialScheduler
+    from deepspeed_tpu_torch.runtime import memory_model
+    here = str(Path(__file__).resolve().parent)
+    peaks = memory_model.analytic_step_peaks(TRAIN_PARAMS, 1, block_params=GPT2_BLOCK_PARAMS,
+                                             n_layer=TRAIN_LAYERS)
+    budget = (peaks.window_peak_bytes + peaks.plain_peak_bytes) // 2
+    root = tempfile.mkdtemp(prefix="chip_smoke_autoloop_", dir=ckpt_root())
+    results = os.path.join(root, "results")
+    base = dict(AUTOTUNE_CFG, zero_optimization={"stage": 3}, autotuning={
+        "search_space": {"zero_stage": [3], "offload_param": [None, "cpu"],
+                         "micro_batch": AUTOTUNE_MICROS},
+        "model_info": {"num_params": TRAIN_PARAMS, "n_layer": TRAIN_LAYERS,
+                       "block_params": GPT2_BLOCK_PARAMS},
+        "device_memory_bytes": budget, "results_dir": results})
+    try:
+        sched = TrialScheduler(os.path.join(results, "trials"),
+                               cmd=[sys.executable, os.path.join(here, AUTOTUNE_WORKER),
+                                    "--steps", str(AUTOTUNE_STEPS)],
+                               timeout_s=AUTOTUNE_TIMEOUT_S, env=autotune_env())
+        loop = ClosedLoopAutotuner(base, scheduler=sched, world=1)
+        t0 = time.perf_counter()
+        best = loop.tune()
+        loop_s = time.perf_counter() - t0
+        launches, trials = {}, []
+        for t in loop.trials:
+            info = (json.loads(Path(t.trial_dir, "launches.json").read_text())
+                    if os.path.exists(os.path.join(t.trial_dir, "launches.json")) else None)
+            if not t.scored or info is None:
+                print(Path(t.trial_dir, "stdout.log").read_text()[-6000:], file=sys.stderr)
+                fail(f"closed loop: trial {t.name} {t.status} ({t.error})")
+            launches = add_counts(launches, child_launches(info, f"trial {t.name}"))
+            trials.append((t, info))
+        pruned_dirs = [p.name for p in loop.pruned
+                       if os.path.exists(os.path.join(results, "trials", p.name))]
+        if (len(loop.pruned) != 2 or pruned_dirs or len(trials) != 2
+                or any("offload_param" in p.knobs for p in loop.pruned)
+                or best is None or best.knobs.get("offload_param") != "cpu"):
+            fail(f"closed loop: pruned {[(p.name, p.knobs) for p in loop.pruned]} (trial dirs "
+                 f"{pruned_dirs}), trials {[t.name for t in loop.trials]}, best "
+                 f"{best and best.knobs}")
+        for t, i in trials:
+            say(f"autotune loop trial {t.name} {t.knobs} (gpt2 bf16 seq {TRAIN_SEQ}): start-up "
+                f"{i['times']['startup_s']:.2f} s, mean step {i['step_ms']:.3f} ms, "
+                f"{i['samples_per_s']:.1f} samples/s, engine throughput "
+                f"{i['engine_throughput']:.1f}, score goodput_frac "
+                f"{t.score.goodput_frac:.4f} step {t.score.step_time_s:.4f} s (mfu "
+                f"{t.score.mfu}), trial {t.duration_s:.1f} s [{card}]")
+        pruned = [(p.name, p.prune_reason) for p in loop.pruned]
+        say(f"autotune loop ({loop_s:.1f} s): pruned {pruned}; best {best.name} {best.patch}; "
+            f"children's launches {json.dumps(launches)} [{card}]")
+    except BaseException:
+        shutil.rmtree(root, ignore_errors=True)
+        raise
+    return dict(root=root, base=base, best=best, secs=loop_s, launches=launches,
+                patch=os.path.join(results, "ds_config_patch.json"))
+
+
+def phase_tuned_patch(device, card: str, looped):
+    """Phase 41, the check at build, in this process: a GPT-2 engine built
+    with the search's emitted patch applied and ``stale_policy: refuse``
+    builds; with a copy of the patch whose fingerprint says ``num_params:
+    1`` it raises ``StaleTuningError`` with no kernel launched."""
+    import torch
+    from deepspeed_tpu_torch.autotuning import StaleTuningError
+    from deepspeed_tpu_torch.autotuning.space import apply_patch
+    from deepspeed_tpu_torch.models.gpt import GPT, gpt_config
+    best, patch_path = looped["best"], looped["patch"]
+    doc = json.loads(Path(patch_path).read_text())
+    cfg = apply_patch({k: v for k, v in looped["base"].items() if k != "autotuning"},
+                      best.patch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = GPT(gpt_config("gpt2", n_positions=TRAIN_SEQ, remat=True), device=device, seed=0)
+    t0 = time.perf_counter()
+    engine = train_engine(model, dict(cfg, autotuning={"patch": patch_path,
+                                                       "stale_policy": "refuse"}), device)
+    build_s = time.perf_counter() - t0
+    built = (engine.train_micro_batch_size_per_gpu(), engine._zero_stage,
+             engine._offload_param)
+    engine.close()
+    del engine
+    doc["fingerprint"]["model"]["num_params"] = 1
+    doctored = os.path.join(looped["root"], "doctored_patch.json")
+    Path(doctored).write_text(json.dumps(doc))
+    for mod in kernel_modules():
+        mod.reset_counts()
+    try:
+        train_engine(model, dict(cfg, autotuning={"patch": doctored,
+                                                  "stale_policy": "refuse"}), device)
+        refused = None
+    except StaleTuningError as e:
+        refused = str(e)
+    counts, plain = read_counts()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"autotune loop's patch: fingerprint {doc['fingerprint']['pod']} "
+        f"{doc['fingerprint_digest']}; the patched engine (micro, stage, offload_param) {built} "
+        f"built under refuse in {build_s:.2f} s; the doctored patch refused: {refused}; launches "
+        f"during that build {sum(counts.values())}, plain calls {sum(plain.values())} [{card}]")
+    if (refused is None or "model.num_params: tuned on 1, now %d" % TRAIN_PARAMS not in refused
+            or any(counts.values()) or any(plain.values())
+            or built != (best.knobs["micro_batch"], 3, True)):
+        fail("closed loop: the emitted patch's fingerprint check did not hold")
+
+
+class Beside(threading.Thread):
+    """``fn`` in a thread beside this one.  ``result()`` waits for it and
+    returns what it returned, or raises what it raised (a ``fail`` in it
+    ends the script there).  Not a daemon: a script that fails in the main
+    thread waits for it, so that no process it started outlives the
+    script."""
+
+    def __init__(self, fn):
+        super().__init__(name="chip_smoke_beside")
+        self._fn, self._out, self._err = fn, None, None
+        self.start()
+
+    def run(self):
+        try:
+            self._out = self._fn()
+        except BaseException as e:        # SystemExit from fail() too
+            self._err = e
+
+    def result(self):
+        self.join()
+        if self._err is not None:
+            raise self._err
+        return self._out
+
+
 def main() -> int:
+    # the bytecode of what this process imports, written where the
+    # processes of phases 38-41 read it: the installed packages come
+    # without it, and a process compiling torch's modules spends seconds
+    # of its start-up on them
+    sys.pycache_prefix = tempfile.mkdtemp(prefix="chip_smoke_pycache_", dir=ckpt_root())
+    sys.dont_write_bytecode = False
+    atexit.register(shutil.rmtree, sys.pycache_prefix, True)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing to run",
@@ -5666,42 +5982,67 @@ def main() -> int:
     stability = phase_stability(device, card)
     phase_done("37")
 
-    # ---- 38. preemption, crash and restart exit through the agent ------------- #
-    agent_run = phase_agent(device, card)
-    phase_done("38")
+    # ---- 38-41. the agent and collective recovery in this thread; beside them,
+    # the autotuner's searches (phases 40-41), whose trials are processes of
+    # their own that each train a few GPT-2 steps (their start-ups, not the
+    # card, take their time) ------------------------------------------------- #
+    roots = []
 
-    # ---- 39. collective recovery in process at world 1 ------------------------ #
-    recovery = phase_recovery(device, card, agent_run["per_step"], agent_run["want"])
-    phase_done("39")
-    say(f"summary: robustness plane on gpt2 bf16 seq 512 micro 8: stability median step "
-        f"{stability['off_ms']:.3f} ms off / {stability['on_ms']:.3f} ms on; agent run "
-        f"(preemption, crash, restart exit) {agent_run['secs']:.1f} s; recovery first step "
-        f"{recovery['first_s']:.3f} s under a {RECOVERY_CFG['collective_timeout_s']} s deadline, "
-        f"comm_recovery {recovery['recovery_s']:.3f} s [{card}]")
+    def searches():
+        tuned = phase_autotune_launcher(card)
+        looped = phase_autotune_loop(card)
+        roots.append(looped["root"])
+        return tuned, looped
+    beside = Beside(searches)
+    try:
+        agent_run = phase_agent(device, card)
+        phase_done("38 (beside 40-41)")
 
-    say(f"total: {time.perf_counter() - started:.1f} s (build and phases 1-39)")
+        recovery = phase_recovery(device, card, agent_run["per_step"], agent_run["want"])
+        phase_done("39 (beside 40-41)")
+        say(f"summary: robustness plane on gpt2 bf16 seq 512 micro 8: stability median step "
+            f"{stability['off_ms']:.3f} ms off / {stability['on_ms']:.3f} ms on; agent run "
+            f"(preemption, crash, restart exit) {agent_run['secs']:.1f} s; recovery first step "
+            f"{recovery['first_s']:.3f} s under a {RECOVERY_CFG['collective_timeout_s']} s "
+            f"deadline, comm_recovery {recovery['recovery_s']:.3f} s [{card}]")
+
+        # ---- 40-41. the launcher's --autotuning run and the closed loop --- #
+        tuned, looped = beside.result()
+        say(f"phases 40-41 beside 38-39: --autotuning run {tuned['secs']:.1f} s, closed loop "
+            f"{looped['secs']:.1f} s")
+        phase_done("40-41 (after 39)")
+        phase_tuned_patch(device, card, looped)
+        phase_done("41 (the patch's check at build)")
+    finally:
+        beside.join()
+        for d in roots:
+            shutil.rmtree(d, ignore_errors=True)
+    autotune_launches = add_counts(tuned["launches"], looped["launches"])
+    say("launches by run: " + json.dumps({"gpt2 bf16 autotuner children (phases 40-41)":
+                                          autotune_launches}))
+
+    say(f"total: {time.perf_counter() - started:.1f} s (build and phases 1-41)")
 
     # ---- report ------------------------------------------------------------------ #
     # each kernel's row: its case at the shape and dtype of the latest
     # slice's run that launches it, and that run's launch count: the
     # Llama-3-8B bf16 tiered serve for the paged kernel (phase 31), GPT-J-6B's bf16
-    # init_inference generate for the contiguous one (phase 24); GPT-J-6B's
-    # graphed bf16 training run for the three flash kernels (phases 25-26);
-    # the MoE cell's bf16 training run for the cross-entropy and AdamW
-    # kernels; the seq-4096 sparse bf16 training run for the block-sparse
-    # kernels
-    moe_train_counts = moe_train["counts"]
-    gptj_train_counts = wide_train["gptj-6b"]["counts"]
+    # init_inference generate for the contiguous one (phase 24); the
+    # autotuner's GPT-2 children (phases 40-41, bf16, seq 512, micro 4 and
+    # 8: their launches summed) for the flash, cross-entropy and AdamW
+    # kernels, at GPT-2's training shape (phase 6: B 8, S 512; N 4096, E
+    # 768; the 148 leaves); the seq-4096 sparse bf16 training run for the
+    # block-sparse kernels
     main_case = {"paged_attention": ("llama3-8b-paged-decode", "bfloat16", tiered_counts),
                  "decode_attention": ("gptj-6b-generate-decode", "bfloat16",
                                       i8["bf16"]["counts"]),
-                 "flash_forward": ("gptj-6b-train", "bfloat16", gptj_train_counts),
-                 "flash_backward_dq": ("gptj-6b-train", "bfloat16", gptj_train_counts),
-                 "flash_backward_dkv": ("gptj-6b-train", "bfloat16", gptj_train_counts),
-                 "ce_forward": ("moe-350m-train", "bfloat16", moe_train_counts),
-                 "ce_backward_dx": ("moe-350m-train", "bfloat16", moe_train_counts),
-                 "ce_backward_dhead": ("moe-350m-train", "bfloat16", moe_train_counts),
-                 "fused_adam": ("moe-350m-block", "float32", moe_train_counts),
+                 "flash_forward": ("gpt2-train", "bfloat16", autotune_launches),
+                 "flash_backward_dq": ("gpt2-train", "bfloat16", autotune_launches),
+                 "flash_backward_dkv": ("gpt2-train", "bfloat16", autotune_launches),
+                 "ce_forward": ("gpt2-train", "bfloat16", autotune_launches),
+                 "ce_backward_dx": ("gpt2-train", "bfloat16", autotune_launches),
+                 "ce_backward_dhead": ("gpt2-train", "bfloat16", autotune_launches),
+                 "fused_adam": ("gpt2-148-leaves", "float32", autotune_launches),
                  "block_sparse_forward": ("gpt2-s4096-fixed", "bfloat16", sparse["counts"]),
                  "block_sparse_backward_dq": ("gpt2-s4096-fixed", "bfloat16", sparse["counts"]),
                  "block_sparse_backward_dkv": ("gpt2-s4096-fixed", "bfloat16",

@@ -53,16 +53,36 @@ def elastic_batch_config(config):
     return config
 
 
+def autotuning_experiment_config(config):
+    """``config``, or under the autotuner the experiment's own: when
+    ``DS_AUTOTUNING_CONFIG`` names a file (the launcher's ``--autotuning``
+    points each experiment, and ``run``'s final job, at the config it
+    mutated), that file's JSON replaces ``config``, as
+    ``deepspeed_tpu/__init__.py:47-56`` does."""
+    from deepspeed_tpu_torch.autotuning.scheduler import CONFIG_PATH_ENV
+    path = os.environ.get(CONFIG_PATH_ENV)
+    if not (path and os.path.isfile(path)):
+        return config
+    with open(path) as f:
+        config = json.load(f)
+    from deepspeed_tpu_torch.utils.logging import log_dist
+    log_dist(f"autotuning: using experiment config {path}", ranks=[0])
+    return config
+
+
 def initialize(model=None, config=None, model_parameters=None, lr_scheduler=None,
                device=None, seed: int = 42):
     """Build a training engine (``runtime/engine.py``) from a ds_config dict
     or JSON path; with ``WORLD_SIZE`` > 1, or at a ZeRO stage >= 1, it makes
-    the process group first (``comm.init_distributed``).  Under the elastic
-    agent the re-solved batch is applied first (``elastic_batch_config``).
-    Returns ``(engine, optimizer, training_dataloader, lr_scheduler)`` as
-    the JAX package does; the optimizer object stands where JAX returns its
-    optax transformation, and the dataloader is None in this slice."""
-    config = elastic_batch_config(config)
+    the process group first (``comm.init_distributed``).  Under the
+    autotuner the experiment's config replaces ``config``
+    (``autotuning_experiment_config``), then under the elastic agent the
+    re-solved batch is applied (``elastic_batch_config``), in the JAX
+    package's order.  Returns ``(engine, optimizer, training_dataloader,
+    lr_scheduler)`` as the JAX package does; the optimizer object stands
+    where JAX returns its optax transformation, and the dataloader is None
+    in this slice."""
+    config = elastic_batch_config(autotuning_experiment_config(config))
     engine = DeepSpeedEngine(model=model, config=config, model_parameters=model_parameters,
                              lr_scheduler=lr_scheduler, device=device, seed=seed)
     return engine, engine.optimizer, None, engine.lr_scheduler

@@ -13,7 +13,12 @@ Responsibilities (reference line cites):
 * multi-node: build a pdsh/mpirun/srun command that re-invokes the per-node
   launcher on every host (``runner.py:487-498``) — command construction is
   unit-testable without ssh;
-* ``.deepspeed_env`` propagation (``runner.py:36,514-520``).
+* ``.deepspeed_env`` propagation (``runner.py:36,514-520``);
+* ``--autotuning tune|run`` (``runner.py:439``): the ``Autotuner`` runs
+  experiments of the user script through a ``ResourceManager``
+  (``autotuning_exps/``, ``autotuning_results/`` in the working directory)
+  and writes ``ds_config_optimal.json``; ``run`` then launches the job with
+  ``DS_AUTOTUNING_CONFIG`` pointing at it.
 """
 
 import argparse
@@ -244,8 +249,29 @@ def main(args=None):
     args = parse_args(args)
 
     if args.autotuning:
-        raise NotImplementedError("--autotuning is not ported yet (ROADMAP.md, Queue 1 "
-                                  "item 8: autotuning/)")
+        # the launcher hands off to the autotuner, which runs experiments
+        # of the user script (each reads its mutated config through
+        # DS_AUTOTUNING_CONFIG, which initialize() honours) and writes the
+        # optimal config; 'run' then launches the real job with it
+        # (deepspeed_tpu/launcher/runner.py:226-249)
+        from deepspeed_tpu_torch.autotuning import Autotuner, ResourceManager
+        from deepspeed_tpu_torch.autotuning.scheduler import CONFIG_PATH_ENV
+        cfg_path = _find_user_config(args.user_args)
+        if not cfg_path:
+            raise ValueError("--autotuning needs --deepspeed_config <json> in the user "
+                             "script arguments")
+        with open(cfg_path) as f:
+            user_config = json.load(f)
+        cmd = [sys.executable, args.user_script] + list(args.user_args)
+        rm = ResourceManager("autotuning_exps", cmd=cmd,
+                             metric=user_config.get("autotuning", {}).get("metric", "throughput"))
+        tuner = Autotuner(user_config, resource_manager=rm)
+        best = tuner.tune()
+        if args.autotuning == "tune" or best is None:
+            logger.info(f"autotuning done; best config: {best}")
+            return 0
+        os.environ[CONFIG_PATH_ENV] = os.path.abspath(
+            os.path.join(tuner.results_dir, "ds_config_optimal.json"))
 
     resources = resolve_resources(args)
 

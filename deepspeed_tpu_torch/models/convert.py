@@ -1,7 +1,8 @@
 """JAX GPT parameters and optimizer state -> the port's GPT and optimizer (no
 JAX file answers to this one; it reads the pytree of
 ``deepspeed_tpu/models/gpt.py:init_gpt_params`` and optax's
-``ScaleByAdamState``).
+``ScaleByAdamState``), and the JAX ``SimpleModel``'s flax tree -> the
+port's ``models/simple.py`` (``simple_params_from_jax``).
 
 The JAX pytree is ``{"wte", "wpe", "lnf_g", "lnf_b", "blocks"}`` (no
 ``wpe`` with rope or ALiBi positions; ``lm_head`` and ``lm_head_b`` with an
@@ -99,6 +100,23 @@ def gpt_from_jax(cfg: GPTConfig, tree: Dict, device=None,
     if dtype is not None:
         sd = {k: cast_leaf(k, v, dtype, v.device) for k, v in sd.items()}
     return GPT(cfg, device=device, state_dict=sd)
+
+
+def simple_params_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
+    """JAX ``SimpleModel`` parameters (flax's ``{"Dense_<i>": {"kernel",
+    "bias"}}``, kernels ``[in, out]``) -> a state dict with
+    ``models/simple.py:SimpleModel``'s keys (``"Dense_<i>.kernel"``), CPU
+    tensors, the ``[in, out]`` layout kept (the port applies ``h @ kernel``
+    too)."""
+    sd = {}
+    for name, layer in tree.items():
+        if not (name.startswith("Dense_") and isinstance(layer, dict)
+                and set(layer) == {"kernel", "bias"}):
+            raise ValueError(f"not a SimpleModel leaf: {name} "
+                             f"({sorted(layer) if isinstance(layer, dict) else type(layer)})")
+        for leaf in ("kernel", "bias"):
+            sd[f"{name}.{leaf}"] = _tensor(layer[leaf])
+    return sd
 
 
 def adam_state_from_jax(opt_state) -> Dict[str, Any]:

@@ -6,8 +6,9 @@ shared library with a plain C interface, loaded through ``ctypes`` (no
 PyTorch headers, so a build takes seconds, not minutes).
 
 * The build happens at first use (``load_library()``), never at import.
-* Each source compiles in its own ``nvcc`` process, all started together;
-  one link step joins them.  The sources of ``SPLIT_FLAGS`` also spread
+* Each source compiles in its own ``nvcc`` process (a source of ``PARTS``
+  in one per part), all started together; one link step joins them.  The
+  sources of ``SPLIT_FLAGS`` also spread
   their functions over threads (``-split-compile``), in the way that
   leaves each one's SASS as a one-thread build's (compared with
   ``cuobjdump -sass`` under CUDA 12.9: ``nvcc``'s split changes
@@ -39,6 +40,10 @@ BUILD_TIMEOUT_S = 600
 SPLIT_FLAGS = {"decode_attention.cu": ["-Xptxas", "-split-compile=0"],
                "flash_attention.cu": ["-split-compile=0"],
                "fused_optim.cu": ["-split-compile=0"]}
+# sources compiled as several objects at once, one per set of flags:
+# decode_attention.cu's float32 kernels (with its entry points) and its
+# bfloat16 kernels (without them, their build bounded the whole one's)
+PARTS = {"decode_attention.cu": (["-DDST_DECODE_DTYPE=0"], ["-DDST_DECODE_DTYPE=1"])}
 
 
 class KernelBuildError(RuntimeError):
@@ -65,6 +70,7 @@ def sources() -> List[Path]:
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update(repr(sorted(SPLIT_FLAGS.items())).encode())
+    h.update(repr(sorted(PARTS.items())).encode())
     for src in sources() + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -98,27 +104,31 @@ def build() -> BuildResult:
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         procs = []
         for src in sources():
-            obj, out = Path(tmp, src.stem + ".o"), Path(tmp, src.stem + ".log")
-            cmd = [nvcc, *NVCC_FLAGS, *SPLIT_FLAGS.get(src.name, []), "-c", str(src),
-                   "-o", str(obj)]
-            with open(out, "w") as f:
-                procs.append((src, obj, cmd, out, subprocess.Popen(
-                    cmd, stdout=f, stderr=subprocess.STDOUT)))
+            parts = PARTS.get(src.name, ([],))
+            for i, flags in enumerate(parts):
+                name = f"{src.name}[{i}]" if len(parts) > 1 else src.name
+                stem = f"{src.stem}.{i}" if len(parts) > 1 else src.stem
+                obj, out = Path(tmp, stem + ".o"), Path(tmp, stem + ".log")
+                cmd = [nvcc, *NVCC_FLAGS, *SPLIT_FLAGS.get(src.name, []), *flags, "-c",
+                       str(src), "-o", str(obj)]
+                with open(out, "w") as f:
+                    procs.append((name, obj, cmd, out, subprocess.Popen(
+                        cmd, stdout=f, stderr=subprocess.STDOUT)))
         per_source = {}
         while len(per_source) < len(procs) and time.perf_counter() - t0 < BUILD_TIMEOUT_S:
-            for src, _, _, _, proc in procs:
-                if src.name not in per_source and proc.poll() is not None:
-                    per_source[src.name] = time.perf_counter() - t0
+            for name, _, _, _, proc in procs:
+                if name not in per_source and proc.poll() is not None:
+                    per_source[name] = time.perf_counter() - t0
             time.sleep(0.05)
         logs, failed = [], []
-        for src, obj, cmd, out, proc in procs:
+        for name, obj, cmd, out, proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-                failed.append(f"{src.name}: timed out after {BUILD_TIMEOUT_S}s")
+                failed.append(f"{name}: timed out after {BUILD_TIMEOUT_S}s")
             logs.append(f"$ {' '.join(cmd)}\n{out.read_text()}")
             if proc.returncode != 0:
-                failed.append(f"{src.name}: nvcc exit {proc.returncode}")
+                failed.append(f"{name}: nvcc exit {proc.returncode}")
         if failed:
             raise KernelBuildError("kernel build failed: " + "; ".join(failed)
                                    + "\n" + "\n".join(logs))

@@ -804,28 +804,65 @@ int dispatch_dim(const Args<T>& a, int d, int b, int h, cudaStream_t st) {
   }
 }
 
-template <bool kPaged>
-int dispatch(int dtype, const void* q, const void* k, const void* v, const float* slopes,
-             void* out, const int* tables, const int* lengths, int b, int sq, int h, int hkv,
-             int d, int mb, int t_len, int pos, float scale, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return dispatch_dim<float, kPaged>(
-        Args<float>{(const float*)q, (const float*)k, (const float*)v, (float*)out, tables,
-                    lengths, slopes, sq, h, hkv, mb, t_len, pos, scale * kLog2e},
-        d, b, h, st);
-  return dispatch_dim<bf16, kPaged>(
-      Args<bf16>{(const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, tables, lengths,
-                 slopes, sq, h, hkv, mb, t_len, pos, scale * kLog2e},
-      d, b, h, st);
+template <typename T, bool kPaged>
+int dispatch(const void* q, const void* k, const void* v, const float* slopes, void* out,
+             const int* tables, const int* lengths, int b, int sq, int h, int hkv, int d, int mb,
+             int t_len, int pos, float scale, void* stream) {
+  return dispatch_dim<T, kPaged>(
+      Args<T>{(const T*)q, (const T*)k, (const T*)v, (T*)out, tables, lengths, slopes, sq, h, hkv,
+              mb, t_len, pos, scale * kLog2e},
+      d, b, h, (cudaStream_t)stream);
 }
 
 bool head_dim_ok(int d) { return d == 64 || d == 96 || d == 128 || d == 256; }
 
 }  // namespace
 
+// Each dtype's kernels may compile in a translation unit of their own, so
+// that the two halves build in parallel: -DDST_DECODE_DTYPE=0 gives the
+// float32 kernels and the entry points, -DDST_DECODE_DTYPE=1 the bfloat16
+// kernels.  Without the macro this file holds both.
+#if !defined(DST_DECODE_DTYPE) || DST_DECODE_DTYPE == 0
+#define DST_DECODE_ENTRY 1
+#define DST_DECODE_FLOAT 1
+#endif
+#if !defined(DST_DECODE_DTYPE) || DST_DECODE_DTYPE == 1
+#define DST_DECODE_BF16 1
+#endif
+
 extern "C" {
 
+// One dtype's dispatch: paged (block tables) or contiguous.
+int dst_decode_dispatch_f32(int paged, const void* q, const void* k, const void* v,
+                            const float* slopes, void* out, const int* tables,
+                            const int* lengths, int b, int sq, int h, int hkv, int d, int mb,
+                            int t_len, int pos, float scale, void* stream);
+int dst_decode_dispatch_bf16(int paged, const void* q, const void* k, const void* v,
+                             const float* slopes, void* out, const int* tables,
+                             const int* lengths, int b, int sq, int h, int hkv, int d, int mb,
+                             int t_len, int pos, float scale, void* stream);
+
+#ifdef DST_DECODE_FLOAT
+int dst_decode_dispatch_f32(int paged, const void* q, const void* k, const void* v,
+                            const float* slopes, void* out, const int* tables,
+                            const int* lengths, int b, int sq, int h, int hkv, int d, int mb,
+                            int t_len, int pos, float scale, void* stream) {
+  auto fn = paged ? &dispatch<float, true> : &dispatch<float, false>;
+  return fn(q, k, v, slopes, out, tables, lengths, b, sq, h, hkv, d, mb, t_len, pos, scale, stream);
+}
+#endif
+
+#ifdef DST_DECODE_BF16
+int dst_decode_dispatch_bf16(int paged, const void* q, const void* k, const void* v,
+                             const float* slopes, void* out, const int* tables,
+                             const int* lengths, int b, int sq, int h, int hkv, int d, int mb,
+                             int t_len, int pos, float scale, void* stream) {
+  auto fn = paged ? &dispatch<bf16, true> : &dispatch<bf16, false>;
+  return fn(q, k, v, slopes, out, tables, lengths, b, sq, h, hkv, d, mb, t_len, pos, scale, stream);
+}
+#endif
+
+#ifdef DST_DECODE_ENTRY
 // dtype: 0 = float32, 1 = bfloat16; slopes: ALiBi slopes [h] fp32, or null.
 // Returns a cudaError_t (0 = launched).
 int dst_paged_attention(const void* q, const void* k_pages, const void* v_pages,
@@ -836,8 +873,9 @@ int dst_paged_attention(const void* q, const void* k_pages, const void* v_pages,
       bs != kBlock || mb <= 0 || b > 65535 || (dtype != 0 && dtype != 1) ||
       !aligned16(k_pages) || !aligned16(v_pages))
     return (int)cudaErrorInvalidValue;
-  return dispatch<true>(dtype, q, k_pages, v_pages, slopes, out, block_tables, lengths, b, sq,
-                        h, hkv, d, mb, 0, 0, scale, stream);
+  return (dtype == 0 ? dst_decode_dispatch_f32 : dst_decode_dispatch_bf16)(
+      1, q, k_pages, v_pages, slopes, out, block_tables, lengths, b, sq, h, hkv, d, mb, 0, 0,
+      scale, stream);
 }
 
 int dst_decode_attention(const void* q, const void* ck, const void* cv, const float* slopes,
@@ -847,10 +885,12 @@ int dst_decode_attention(const void* q, const void* ck, const void* cv, const fl
       t_len <= 0 || pos < 0 || b > 65535 || (dtype != 0 && dtype != 1) || !aligned16(ck) ||
       !aligned16(cv))
     return (int)cudaErrorInvalidValue;
-  return dispatch<false>(dtype, q, ck, cv, slopes, out, nullptr, nullptr, b, sq, h, hkv, d, 0,
-                         t_len, pos, scale, stream);
+  return (dtype == 0 ? dst_decode_dispatch_f32 : dst_decode_dispatch_bf16)(
+      0, q, ck, cv, slopes, out, nullptr, nullptr, b, sq, h, hkv, d, 0, t_len, pos, scale,
+      stream);
 }
 
 const char* dst_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+#endif
 
 }  // extern "C"

@@ -22,9 +22,11 @@ defaults; ``profiler_dir`` defaults under the temporary directory).  The
 checked here: with ``enabled`` its solver keys must parse
 (``elasticity/elasticity.py:ElasticityConfig``), and every key must be one
 the solver or the recovery plane reads, so a block is never taken and
-ignored.  Blocks of features the port has not taken over yet (monitors,
-PLD, compression, ...) are kept as raw dicts; the engine raises when one of
-them is enabled.
+ignored.  The ``autotuning`` block is kept as a dict, as the JAX package
+keeps it: the engine checks the fingerprint of a tuned patch it names
+(``patch`` / ``results_dir``) at build.  Blocks of features the port has
+not taken over yet (monitors, PLD, compression, ...) are kept as raw dicts;
+the engine raises when one of them is enabled.
 """
 
 import json
@@ -310,6 +312,9 @@ class DeepSpeedConfig:
                                  f"got {type(self.sparse_attention).__name__}")
             validate_sparsity_mode(self.sparse_attention.get(C.SPARSE_MODE, C.SPARSE_MODE_DEFAULT))
         self.compression_config = pd.get(C.COMPRESSION_TRAINING, {})
+        # kept as the JAX config keeps it; the engine checks a tuned patch's
+        # fingerprint at build (autotuning/fingerprint.py:check_engine)
+        self.autotuning_config = pd.get(C.AUTOTUNING, {})
         self.unported_blocks = {k: pd.get(k, {}) for k in UNPORTED_BLOCKS}
 
     @property

@@ -88,5 +88,11 @@ COMPRESSION_TRAINING = "compression_training"
 DATA_EFFICIENCY = "data_efficiency"
 CURRICULUM_LEARNING_LEGACY = "curriculum_learning"
 SPARSE_ATTENTION = "sparse_attention"
+
+#############################################
+# Autotuning: a tuned patch applied to this run (``patch`` / ``results_dir``)
+# has its fingerprint checked at engine build (``autotuning/fingerprint.py``)
+#############################################
+AUTOTUNING = "autotuning"
 SPARSE_MODE = "mode"
 SPARSE_MODE_DEFAULT = "fixed"

@@ -114,6 +114,14 @@ The robustness plane (the JAX engine's, ``deepspeed_tpu/runtime/engine.py:
   group onto the survivors with the ZeRO partitions laid out again from
   the verified checkpoint, or exit 113 for the elastic agent to restart.
 
+The ``autotuning`` block (``autotuning/``): a tuned patch that the config
+applies (``patch`` / ``results_dir``) has its environment fingerprint
+checked once the parameters are in and before any step is built
+(``stale_policy`` ``warn`` / ``refuse`` / ``off``); under the autotuner
+(``DS_AUTOTUNING_METRIC_PATH`` set) each ``steps_per_print`` boundary of
+``train_batch`` and of the eager ``step`` writes the throughput the
+launcher's autotuner ranks on.
+
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
 item: the NVMe tier, ZeRO++ (quantized weights and gradients, hpZ) and
 tensor, pipeline and sequence parallelism (Queue 1 items 7 and 9), fp16
@@ -262,6 +270,7 @@ class DeepSpeedEngine:
             model.cfg = dataclasses.replace(mcfg, remat=True)
 
         self._init_parameters(model, model_parameters, seed)
+        self._check_tuned_patch()
         self.rng = torch.Generator(device=self.device)
         self.rng.manual_seed(int(seed))
         self.lr_scheduler = None
@@ -457,6 +466,23 @@ class DeepSpeedEngine:
             log_dist(layout.describe(), ranks=[0])
         log_dist(f"model parameters: {self._num_params:,}", ranks=[0])
 
+    def _check_tuned_patch(self) -> None:
+        """When the ds_config applies an emitted autotuner patch
+        (``autotuning.patch`` / ``results_dir``), check the patch's
+        environment fingerprint against this run: the mesh the JAX engine
+        would build for it, the parameter count (known once the parameters
+        are in) and the torch version; ``stale_policy`` ``warn`` (default)
+        logs each mismatch, ``refuse`` raises ``StaleTuningError`` before
+        any step is built, ``off`` skips it
+        (``deepspeed_tpu/runtime/engine.py:490-499``)."""
+        at_cfg = self._config.autotuning_config or {}
+        if not (at_cfg.get("patch") or at_cfg.get("results_dir")):
+            return
+        from deepspeed_tpu_torch.autotuning import fingerprint
+        fingerprint.check_engine(
+            at_cfg, mesh_shape=fingerprint.data_parallel_mesh(self.world_size, self._zero_stage),
+            num_params=self._num_params, device=self.device)
+
     def _place_stage3_placeholders(self) -> None:
         """Stage 3: the model holds empty leaves (its weights are the
         partitions); ``GatheredParameters`` puts whole ones in for a while."""
@@ -561,6 +587,8 @@ class DeepSpeedEngine:
                 self._step_fps.append(fp)
         batch = self._place(raw)
         if self._in_training_mode:
+            if not self._grads_pending and not self.tput_timer.started:
+                self.tput_timer.start()      # the step's first micro-batch
             if self.profiler_window is not None:
                 self.profiler_window.step_begin(self.global_steps)
             if self.watchdog is not None:
@@ -639,6 +667,8 @@ class DeepSpeedEngine:
                 self._grads_pending = False
                 self._advance_step_counters(loss, self._grad_norm,
                                             stats=self._stash_stats(stats))
+            self.tput_timer.stop(global_step=True)
+            self._report_progress()
             if self.watchdog is not None:
                 # between optimizer steps the host legitimately blocks in
                 # user code (data loading): not a stall
@@ -752,7 +782,28 @@ class DeepSpeedEngine:
         if self.watchdog is not None:
             self.watchdog.disarm()
         self.tput_timer.stop(global_step=True)
+        self._report_progress()
         return loss
+
+    def _report_progress(self) -> None:
+        """Autotuning experiment mode: at each ``steps_per_print`` boundary
+        write ``{"throughput", "global_steps"}`` to
+        ``$DS_AUTOTUNING_METRIC_PATH``, the metric the launcher's autotuner
+        ranks on (``deepspeed_tpu/runtime/engine.py:3294-3309``; no
+        ``FLOPS_per_gpu``: the flops profiler is not ported).  It runs on the
+        host after the step (after the replay of a graphed one); reading the
+        throughput drains the device once a window."""
+        from deepspeed_tpu_torch.autotuning.scheduler import METRIC_PATH_ENV, write_metrics
+        spp = self._config.steps_per_print
+        metric_path = os.environ.get(METRIC_PATH_ENV)
+        if not (metric_path and spp and self.global_steps % spp == 0):
+            return
+        metrics = {"throughput": self.tput_timer.avg_samples_per_sec(),
+                   "global_steps": self.global_steps}
+        try:
+            write_metrics(metric_path, metrics)
+        except OSError as e:
+            logger.warning(f"autotuning metric write failed: {e}")
 
     def _graph_step(self, leaves):
         """The step that ``train_batch`` runs, and on CUDA captures: zero

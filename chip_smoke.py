@@ -187,10 +187,15 @@ Phases, each printing its own lines; any failure exits non-zero:
 28. ZeRO at world size 1 (a one-rank NCCL group, so every collective of a
    stage runs): GPT-2 at phase 8's fp32 config, 3 graphed steps at each of
    ZERO_CONFIGS (stages 0-3, stage 2 with ``offload_optimizer`` and stage 3
-   with both offloads, the offloaded state in 8 chunks), each held to phase
-   8's limits against stage 0 (and whether bit for bit), one capture each,
-   AdamW's launches a step printed, and one more replay's launch counters
-   held against the captured graph's kernel nodes and the trace;
+   with both offloads, the offloaded state in 8 chunks; and ZeRO-Infinity's
+   NVMe tier: stage 1 and stage 3 with ``offload_optimizer: nvme`` and
+   stage 3 with both tiers on NVMe, each in a fresh directory of the
+   machine's disk with NVME_AIO's staging knobs, the update a walk over
+   the 8 chunks after each replay), each held to phase 8's limits against
+   stage 0 (and whether bit for bit), one capture each, AdamW's launches a
+   step printed, and one more replay's launch counters held against the
+   captured graph's kernel nodes (and the walk's AdamW launches after it)
+   and the trace;
 29. GPT-2 XL (BASELINE.md's north star) in bf16 at stage 3 with
    ``offload_param`` and ``offload_optimizer`` (cpu), seq 512 micro 8:
    graphed and eager steps, the bytes a step moves each way, the pinned
@@ -303,7 +308,19 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``stale_policy: refuse``, and one with a copy whose fingerprint says
    ``num_params: 1`` raises ``StaleTuningError`` with no kernel launched.
    Each trial's start-up seconds, mean step ms, samples/s and score are
-   printed.
+   printed;
+42. ZeRO-Infinity at GPT-2 XL: phase 29's config with ``offload_optimizer:
+   nvme`` on a fresh directory of the machine's disk (its filesystem and
+   free bytes printed; tmpfs or less room than twice the moments fails),
+   after 1 GiB written and read back through ``AIOHandle`` there with and
+   without ``use_o_direct`` (bytes equal, GB/s): a warm-up step and two
+   timed ones, their losses bit for bit phase 29's first three, one
+   capture, AdamW once a chunk a step in the walk; each step split into
+   the replay and the walk, the staging bytes beside ``/proc/self/io``,
+   ``offload_wait``, ring hits and misses, pinned host bytes against phase
+   29's, peak device memory, and the depth at Llama-3-8B's widths that the
+   host and disk admit with the moments on the host and on NVMe; one walk
+   chunk of AdamW against its plain version.
 Phases 40-41's searches run in a thread beside phases 38-39 (their trials
 are processes of their own, whose start-ups take most of their time); the
 check at build of phase 41 runs after phase 39.  Each phase prints its
@@ -340,10 +357,11 @@ kernels once per micro-step; AdamW once per step), no other kernel, and
 the plain versions never (the fp32 phases' plain runs excepted).
 The kernel table reports each kernel's case at the shape of the latest
 slice's run that launches it and that run's count (the paged kernel
-phase 31's tiered serve, the contiguous one phase 24's, the flash,
-cross-entropy and AdamW kernels the autotuner's children of phases 40-41
-(their launches summed; the case at GPT-2's training shape from phase
-6), the block-sparse kernels phase 9's).
+phase 31's tiered serve, the contiguous one phase 24's, the flash and
+cross-entropy kernels the autotuner's children of phases 40-41 (their
+launches summed; the case at GPT-2's training shape from phase 6), AdamW
+phase 42's NVMe walk (its case one chunk of that walk), the block-sparse
+kernels phase 9's).
 The last two lines are the kernel table (JSON) and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside this file, it exits non-zero and prints no result.
@@ -531,6 +549,9 @@ MOE_PARITY_LAYERS = 2
 # the offloaded state in pieces of ZERO_PIECE elements (8 chunks of GPT-2's
 # 124 M), each held to phase 8's limits against stage 0
 OFFLOAD = {"device": "cpu"}
+# ZeRO-Infinity's NVMe tier: ``nvme_path`` is set for each run, a fresh
+# directory under ckpt_root() (the machine's local disk), removed after it
+NVME = {"device": "nvme"}
 ZERO_PIECE = 2 ** 24
 ZERO_CONFIGS = {
     "stage0": {"stage": 0}, "stage1": {"stage": 1}, "stage2": {"stage": 2},
@@ -539,8 +560,28 @@ ZERO_CONFIGS = {
                                  "sub_group_size": ZERO_PIECE},
     "stage3-offload-both": {"stage": 3, "offload_param": OFFLOAD, "offload_optimizer": OFFLOAD,
                             "sub_group_size": ZERO_PIECE},
+    "stage1-nvme-optimizer": {"stage": 1, "offload_optimizer": NVME,
+                              "sub_group_size": ZERO_PIECE},
+    "stage3-nvme-optimizer": {"stage": 3, "offload_optimizer": NVME,
+                              "sub_group_size": ZERO_PIECE},
+    "stage3-nvme-both": {"stage": 3, "offload_param": NVME, "offload_optimizer": NVME,
+                         "sub_group_size": ZERO_PIECE},
 }
 ZERO3_OFFLOAD = {"stage": 3, "offload_param": OFFLOAD, "offload_optimizer": OFFLOAD}
+# the NVMe runs' ``aio`` block: the staging pool's 8 writer threads and 8 MiB
+# bounce buffers wrote fastest (0.84 GiB/s) of the settings
+# ``runtime/swap_tensor/swap_probe.py`` tries, 4 GiB in 512 MiB chunks on
+# the H100 machine's disk
+NVME_AIO = {"block_size": 8 << 20, "queue_depth": 32, "thread_count": 8}
+# phase 42: GPT-2 XL at phase 29's config with the moments on NVMe; a
+# warm-up step (the capture) and two timed ones, the three losses held bit
+# for bit to phase 29's first three
+NVME_XL = (1, 2)
+# the swap path must hold twice the moments (each piece is rewritten
+# through a temporary file beside it)
+NVME_ROOM_FACTOR = 2
+# phase 42's AIOHandle reading: 1 GiB written and read back
+AIO_PROBE_BYTES = 1 << 30
 # phase 29: GPT-2 XL (BASELINE.md's north star, GPT-2 1.5B at ZeRO-3 with
 # offload) at bench.py's config, seq 512, micro 8: warm-up, timed graphed and
 # eager steps, loss window (phase 11's gpt2-xl cut: lr 1e-4 on one batch
@@ -2443,13 +2484,19 @@ def profile_train_step(engine, batch, card: str, attn_impl: str = "auto",
         tattn._REGISTRY[attn_impl] = inner
     path = "graphed replay" if graphed else "eager step"
     if graphed:
-        # the counters' launches in this replay against the graph's kernel nodes
+        # the counters' launches in this replay against the graph's kernel
+        # nodes, and with NVMe moments the walk's AdamW launches after it
         in_graph, n_nodes = graph_kernel_counts(engine)
-        if in_graph != counted_launches:
+        walked = (len(engine.optimizer.chunks)
+                  if getattr(engine.optimizer, "streamed", False) else 0)
+        stepped = dict(in_graph, fused_adam=in_graph["fused_adam"] + walked)
+        if stepped != counted_launches:
             fail(f"train profile ({path}): launch counters {counted_launches} disagree with "
-                 f"the kernel nodes of the captured graph {in_graph}")
+                 f"the kernel nodes of the captured graph {in_graph}"
+                 + (f" and the walk's {walked} AdamW launches" if walked else ""))
         say(f"train profile ({path}): launch counters equal the captured graph's kernel nodes "
-            f"({json.dumps({k: n for k, n in in_graph.items() if n})}; {n_nodes} nodes)")
+            f"({json.dumps({k: n for k, n in in_graph.items() if n})}; {n_nodes} nodes)"
+            + (f" and the walk's {walked} AdamW launches after the replay" if walked else ""))
     by_name = {}                     # device time and launches per kernel name
     for e in prof.key_averages():
         # the range opened above also appears on the device's timeline (a
@@ -3474,9 +3521,11 @@ def phase_zero_stages(device, card: str, steps: int = 3, seq: int = TRAIN_SEQ,
     """Phase 28: GPT-2 at phase 8's fp32 config, ``steps`` graphed steps at
     each of ZERO_CONFIGS, held to phase 8's limits against stage 0 (and
     whether bit for bit).  Each run: one capture, its launch counters exact
-    (AdamW once a chunk of offloaded state), then one more replay whose
-    counters are held against the captured graph's kernel nodes and the
-    profiler's trace."""
+    (AdamW once a chunk of offloaded state; with NVMe moments in the walk
+    after the replay), then one more replay whose counters are held against
+    the captured graph's kernel nodes (and the walk's launches) and the
+    profiler's trace.  An NVMe configuration swaps in a fresh directory
+    under ``ckpt_root()`` with NVME_AIO's knobs, removed after its run."""
     import torch
     from deepspeed_tpu_torch.models.gpt import GPT, gpt_config
     _, tce, _, _, _ = kernel_modules()
@@ -3489,7 +3538,12 @@ def phase_zero_stages(device, card: str, steps: int = 3, seq: int = TRAIN_SEQ,
         gc.collect()
         torch.cuda.empty_cache()
         model = GPT(cfg, device=device, seed=0)
-        engine = train_engine(model, dict(base, zero_optimization=zero), device)
+        swap = None
+        if NVME in (zero.get("offload_param"), zero.get("offload_optimizer")):
+            swap = tempfile.mkdtemp(prefix="chip_smoke_nvme_", dir=ckpt_root())
+            zero = with_nvme_path(zero, swap)
+        config = dict(base, zero_optimization=zero, **({"aio": NVME_AIO} if swap else {}))
+        engine = train_engine(model, config, device)
         engine.graphs.accelerator = KeptGraphs(engine.graphs.accelerator)
         batch = train_batch_of(cfg.vocab_size, device, seq, micro)
         adam = adam_launches(engine)
@@ -3511,9 +3565,14 @@ def phase_zero_stages(device, card: str, steps: int = 3, seq: int = TRAIN_SEQ,
                           pinned=engine.pinned_bytes(), profile=prof)
         say(f"{label}: world size {engine.world_size}, stage {runs[name]['stage']}, AdamW "
             f"launches a step {adam}, losses {losses}, {secs:.2f} s for {steps} steps (warm-up "
-            f"and capture included), pinned host bytes {runs[name]['pinned']:,} [{card}]")
+            f"and capture included), pinned host bytes {runs[name]['pinned']:,} [{card}]"
+            + (f"; NVMe: the walk after each replay, {adam} chunks read and written a step, "
+               f"last step's offload record {json.dumps(engine.last_offload_record)}"
+               if swap else ""))
         engine.close()
         del engine, model
+        if swap:
+            shutil.rmtree(swap, ignore_errors=True)
     ref = runs["stage0"]
     for name, r in runs.items():
         same = bitwise_equal(r["losses"], r["params"], ref["losses"], ref["params"])
@@ -3530,6 +3589,12 @@ def phase_zero_stages(device, card: str, steps: int = 3, seq: int = TRAIN_SEQ,
     for r in runs.values():
         del r["params"]
     return runs
+
+
+def with_nvme_path(zero, path: str):
+    """``zero`` with ``nvme_path`` set in its NVMe offload blocks."""
+    return {k: (dict(v, nvme_path=path) if isinstance(v, dict) and v.get("device") == "nvme"
+                else v) for k, v in zero.items()}
 
 
 def mem_available() -> int:
@@ -3651,6 +3716,273 @@ def llama_offload_depth(available: int):
         fail(f"MemAvailable {available / 2 ** 30:.1f} GiB holds fewer than {LLAMA_MIN_LAYERS} "
              f"layers of Llama-3-8B's offloaded state")
     return LLAMA_MIN_LAYERS, n, host
+
+
+# --------------------------------------------------------------------------- #
+# phase 42: ZeRO-Infinity's NVMe tier at GPT-2 XL
+# --------------------------------------------------------------------------- #
+def proc_io():
+    """``/proc/self/io`` as a dict: ``read_bytes`` / ``write_bytes`` are the
+    bytes this process made the block layer fetch and send (what reached
+    storage rather than the page cache, where the filesystem counts it)."""
+    out = {}
+    for line in Path("/proc/self/io").read_text().splitlines():
+        key, _, val = line.partition(":")
+        out[key.strip()] = int(val)
+    return out
+
+
+def o_direct_accepted(folder: str) -> bool:
+    """Whether the filesystem of ``folder`` opens a file with O_DIRECT (the
+    aio engine falls back to buffered I/O where it does not)."""
+    path = os.path.join(folder, "o_direct_probe")
+    try:
+        fd = os.open(path, os.O_WRONLY | os.O_CREAT | getattr(os, "O_DIRECT", 0), 0o644)
+    except OSError:
+        return False
+    os.close(fd)
+    os.remove(path)
+    return hasattr(os, "O_DIRECT")
+
+
+def aio_reading(folder: str, device, card: str, nbytes: int = AIO_PROBE_BYTES):
+    """``nbytes`` of random bytes written and read back through
+    ``AIOHandle`` (NVME_AIO's threads and block size) in ``folder``, from
+    and into pinned (page-aligned) tensors, with and without
+    ``use_o_direct``: bytes equal; GB/s each way by the host clock.  The
+    read follows the write, so it may be served from the page cache
+    (warm).  (mode -> (write GB/s, read GB/s))."""
+    import torch
+    from deepspeed_tpu_torch.ops.aio import AIOHandle
+    src = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    src.copy_(torch.randint(0, 256, (nbytes,), dtype=torch.uint8, device=device))
+    back = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    direct = o_direct_accepted(folder)
+    out = {}
+    for od in (False, True):
+        h = AIOHandle(block_size=NVME_AIO["block_size"], queue_depth=NVME_AIO["queue_depth"],
+                      num_threads=NVME_AIO["thread_count"], use_o_direct=od)
+        path = os.path.join(folder, f"aio_{int(od)}.bin")
+        back.zero_()
+        t0 = time.perf_counter()
+        h.pwrite(src, path)
+        w_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        h.pread(back, path)
+        r_s = time.perf_counter() - t0
+        h.close()
+        os.remove(path)
+        if not torch.equal(back, src):
+            fail(f"AIOHandle (use_o_direct={od}): the bytes read back differ from those written")
+        out["o_direct" if od else "buffered"] = (nbytes / w_s / 1e9, nbytes / r_s / 1e9)
+        say(f"AIOHandle use_o_direct={od}: {nbytes / 2 ** 30:.0f} GiB written "
+            f"{nbytes / w_s / 1e9:.3f} GB/s, read back (warm) {nbytes / r_s / 1e9:.3f} GB/s, "
+            f"bytes equal; buffers page-aligned {src.data_ptr() % 4096 == 0}, the filesystem "
+            f"{'takes' if direct else 'refuses'} O_DIRECT"
+            + ("" if direct or not od else " (so the engine ran buffered)") + f" [{card}]")
+    return out
+
+
+def llama_depths(available: int, disk_free: int, piece: int):
+    """The depth at Llama-3-8B's widths that the host admits with both
+    offloads to the host (phase 30's reckoning: 12 bytes a parameter
+    pinned within what HOST_RESERVE_* leave of MemAvailable) and with the
+    moments on NVMe (4 bytes a parameter pinned plus the walk's bounce
+    buffers, two a moment of one ``piece``; 8 bytes a parameter on the
+    swap path plus one temporary file a bounce buffer in flight):
+    (host-tier layers, NVMe-tier layers, full depth)."""
+    from deepspeed_tpu_torch.models.gpt import count_params, llama_config
+    from deepspeed_tpu_torch.runtime import memory_model as mm
+    _, kw, _ = FAMILY_CELLS["llama3-8b"]
+    room = (1 - HOST_RESERVE_FRACTION) * available - HOST_RESERVE_BYTES
+    full = kw["n_layer"]
+    host_depth = nvme_depth = 0
+    for layers in range(1, full + 1):
+        n = count_params(llama_config(**dict(kw, n_layer=layers)))
+        if mm.host_state_bytes(n, 1, True, True) <= room:
+            host_depth = layers
+        inflight = 4 * 4 * min(piece, n)
+        if (mm.host_state_bytes(n, 1, True, False) + inflight <= room
+                and 8 * n + inflight <= disk_free):
+            nvme_depth = layers
+    return host_depth, nvme_depth, full
+
+
+def adam_chunk_case(device, flush, n: int, reps: int = 10, plain_reps: int = 2):
+    """The fused AdamW kernel over one chunk of the NVMe walk (``n`` fp32
+    values of master, gradient and moments, one flat leaf, a mid-training
+    state) bit for bit against the plain version; ``torch._fused_adamw_``
+    on the same values as the yardstick."""
+    import torch
+    tfo = kernel_modules()[2]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+
+    def randn(scale):
+        return torch.randn(n, generator=gen, device=device) * scale
+    p, g, mu, nu = randn(2e-2), randn(1e-3), randn(1e-4), randn(1e-3).square()
+    spec = tfo.spec_from_config("adamw", {"weight_decay": 0.01}, 1e-4)
+    neg_lr, bc1, bc2 = tfo.step_scalars(spec, torch.tensor(10, dtype=torch.int32,
+                                                           device=device))
+    scal = torch.stack([torch.tensor(0.5, device=device), torch.tensor(0.7, device=device),
+                        neg_lr, bc1, bc2])
+    kw = dict(b1=spec["b1"], b2=spec["b2"], eps=spec["eps"], wd=spec["wd"])
+    a = [[p.clone()], [g], [mu.clone()], [nu.clone()]]
+    b = [[p], [g], [mu], [nu]]
+    table = tfo.AdamTable(*a)
+    tfo.fused_adam(table, scal, **kw)
+    tfo.adam_reference(*b, scal, **kw)
+    torch.cuda.synchronize()
+    mismatches = sum(int((x[0] != y[0]).sum()) for x, y in zip(a, b))
+    err = max((x[0] - y[0]).abs().max().item() for x, y in zip(a, b))
+    say(f"fused_adam (gpt2-xl NVMe walk chunk): {n:,} values; {mismatches} elements differ "
+        f"from the plain version (bitwise contract)")
+    if mismatches:
+        fail(f"fused_adam (NVMe walk chunk): {mismatches} elements differ from the plain version")
+    steps = [torch.tensor(10.0, device=device)]
+    lib = median_ms(lambda: torch._fused_adamw_(
+        a[0], [g], a[2], a[3], [], steps, lr=1e-4, beta1=0.9, beta2=0.999,
+        weight_decay=0.01, eps=1e-8, amsgrad=False, maximize=False), reps, flush)
+    b_ms, b_by = bound(28 * n, 20.0 * n, "float32")
+    row = dict(kernel="fused_adam", case="gpt2-xl-nvme-chunk", dtype="float32", err=err,
+               scaled=err, ms=median_ms(lambda: tfo.fused_adam(table, scal, **kw), reps, flush),
+               plain_ms=median_ms(lambda: tfo.adam_reference(*b, scal, **kw), plain_reps, flush),
+               bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+               note="library: torch._fused_adamw_ on the same values")
+    del a, b, table, p, g, mu, nu
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_nvme_offload(device, card: str, ref, flush):
+    """Phase 42: GPT-2 XL at phase 29's config (bf16, seq 512, micro 8,
+    stage 3, ``offload_param: cpu``) with ``offload_optimizer: nvme`` on a
+    fresh directory of the machine's disk (its filesystem and free bytes
+    printed; tmpfs, or less room than NVME_ROOM_FACTOR times the moments,
+    fails), NVME_AIO's staging knobs.  Before it, ``aio_reading`` on that
+    directory.  One warm-up step (the capture) and two timed ones: their
+    losses bit for bit phase 29's first three (``ref``: its result), one
+    capture, the launches exact (AdamW once a chunk a step, in the walk).
+    Readings (no limits): the engine's build (with the initial persist of
+    zeroed moments), each step's ms split into the replay (to a device
+    sync before the walk) and the walk, the staging bytes read and written
+    beside ``/proc/self/io``'s deltas, ``offload_wait`` ms, ring hits and
+    misses, pinned host bytes against phase 29's, peak device memory, and
+    Llama-3-8B's depth that MemAvailable and the disk admit with the
+    moments on the host and on NVMe.  Then one walk chunk of AdamW against
+    its plain version (the kernel table's row)."""
+    import torch
+    from deepspeed_tpu_torch.models.gpt import GPT, gpt_config
+    from deepspeed_tpu_torch.runtime.swap_tensor.partitioned_param_swapper import (
+        MEMORY_FILESYSTEMS, filesystem_type)
+    warm, timed = NVME_XL
+    gib = 2 ** 30
+    swap = tempfile.mkdtemp(prefix="chip_smoke_nvme_", dir=ckpt_root())
+    try:
+        cfg = gpt_config("gpt2-xl", n_positions=TRAIN_SEQ, remat=True)
+        fs, free = filesystem_type(swap), shutil.disk_usage(swap).free
+        available = mem_available()
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = GPT(cfg, device=device, seed=0)
+        n_params = sum(p.numel() for p in model.parameters())
+        moments = 8 * n_params
+        say(f"gpt2-xl nvme: swap path {swap} on {fs}, {free / 1e9:.2f} GB free; the moments "
+            f"{moments / 1e9:.2f} GB ({NVME_ROOM_FACTOR}x: {NVME_ROOM_FACTOR * moments / 1e9:.2f}"
+            f" GB); MemAvailable {available / gib:.2f} GiB [{card}]")
+        if fs in MEMORY_FILESYSTEMS:
+            fail(f"gpt2-xl nvme: the swap path is on {fs}, host memory, not a disk")
+        if free < NVME_ROOM_FACTOR * moments:
+            fail(f"gpt2-xl nvme: {free / 1e9:.2f} GB free, less than {NVME_ROOM_FACTOR}x the "
+                 f"moments")
+        aio = aio_reading(swap, device, card)
+        zero = with_nvme_path(dict(ZERO3_OFFLOAD, offload_optimizer=NVME), swap)
+        t0 = time.perf_counter()
+        engine = train_engine(model, dict(TRAIN_CFG, zero_optimization=zero, aio=NVME_AIO),
+                              device)
+        build_s = time.perf_counter() - t0
+        batch = train_batch_of(cfg.vocab_size, device)
+        chunks = adam_launches(engine)
+        ce_launches = kernel_modules()[1].launches_per_call(
+            TRAIN_MICRO * TRAIN_SEQ, cfg.n_embd, cfg.padded_vocab, torch.bfloat16,
+            bias=cfg.head_bias)
+        walk_s = []
+        walk = engine.optimizer.walk
+
+        def timed_walk():
+            torch.cuda.synchronize()         # the replay's device work ends here
+            t = time.perf_counter()
+            walk()
+            walk_s.append(time.perf_counter() - t)
+        engine.optimizer.walk = timed_walk
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps = []
+
+        def run():
+            out = []
+            for _ in range(warm + timed):
+                io0, t0 = proc_io(), time.perf_counter()
+                out.append(engine.train_batch(batch=batch))
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                io1 = proc_io()
+                steps.append(dict(ms=ms, walk_ms=walk_s[-1] * 1e3,
+                                  replay_ms=ms - walk_s[-1] * 1e3,
+                                  io_read=io1["read_bytes"] - io0["read_bytes"],
+                                  io_write=io1["write_bytes"] - io0["write_bytes"],
+                                  rec=dict(engine.last_offload_record)))
+            return out
+        label = "bf16 train gpt2-xl seq 512 nvme"
+        losses, counts = counted(
+            f"{label} ({warm} warm-up, {timed} timed)",
+            train_expect("auto", TRAIN_SEQ, cfg.n_layer, warm + timed, ce_launches=ce_launches,
+                         adam_launches=chunks), run)
+        vals = [float(v) for v in losses]
+        peak = (torch.cuda.max_memory_allocated() / gib, torch.cuda.max_memory_reserved() / gib)
+        pinned = engine.pinned_bytes()
+        captures = engine.graphs.captures
+        piece = engine.optimizer.chunks[0][1]
+        engine.close()
+        del engine, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(swap, ignore_errors=True)
+    want = ref["losses"][:warm + timed]
+    same = vals == want
+    say(f"{label}: losses {vals} against phase 29's first {warm + timed} {want}: bitwise "
+        f"equal {same}; {captures} capture; AdamW {chunks} launches a step in the walk")
+    if captures != 1:
+        fail(f"{label}: {captures} captures for one batch signature")
+    if not same:
+        fail(f"{label}: the losses differ from phase 29's")
+    for i, st in enumerate(steps):
+        r = st["rec"]
+        say(f"{label} step {i} ({'warm-up and capture' if i < warm else 'timed'}): "
+            f"{st['ms']:.1f} ms = replay {st['replay_ms']:.1f} + walk {st['walk_ms']:.1f}; "
+            f"staging read {r['optimizer_bytes_read'] / 1e9:.3f} GB, wrote "
+            f"{r['optimizer_bytes_written'] / 1e9:.3f} GB; /proc/self/io read_bytes "
+            f"{st['io_read'] / 1e9:.3f} GB, write_bytes {st['io_write'] / 1e9:.3f} GB; "
+            f"offload_wait {r['wait_ms']:.1f} ms; ring hits {r['ring_hits']}, misses "
+            f"{r['ring_misses']} [{card}]")
+    timed_steps_ = steps[warm:]
+    host_depth, nvme_depth, full = llama_depths(available, free, piece)
+    say(f"{label}: engine build {build_s:.1f} s (the initial persist of "
+        f"{moments / 1e9:.2f} GB of zeroed moments included); timed steps "
+        f"{statistics.median(s['ms'] for s in timed_steps_):.1f} ms median (replay "
+        f"{statistics.median(s['replay_ms'] for s in timed_steps_):.1f}, walk "
+        f"{statistics.median(s['walk_ms'] for s in timed_steps_):.1f}); pinned host "
+        f"{pinned / gib:.2f} GiB against phase 29's {ref['after']['pinned'] / gib:.2f}; peak "
+        f"device memory {peak[0]:.2f} GiB allocated, {peak[1]:.2f} reserved (phase 29: "
+        f"{ref['memory']['graphed_alloc_gib']:.2f} / {ref['memory']['graphed_reserved_gib']:.2f}); "
+        f"Llama-3-8B's widths: MemAvailable {available / gib:.2f} GiB and {free / 1e9:.2f} GB "
+        f"of disk admit {host_depth} of {full} layers with the moments on the host, "
+        f"{nvme_depth} of {full} with them on NVMe [{card}]")
+    row = adam_chunk_case(device, flush, piece)
+    return dict(losses=vals, counts=counts, steps=steps, pinned=pinned, peak=peak,
+                build_s=build_s, aio=aio, depths=(host_depth, nvme_depth, full), row=row,
+                chunks=chunks)
 
 
 # --------------------------------------------------------------------------- #
@@ -6021,7 +6353,19 @@ def main() -> int:
     say("launches by run: " + json.dumps({"gpt2 bf16 autotuner children (phases 40-41)":
                                           autotune_launches}))
 
-    say(f"total: {time.perf_counter() - started:.1f} s (build and phases 1-41)")
+    # ---- 42. GPT-2 XL at ZeRO-3 with its moments on NVMe --------------------------- #
+    gc.collect()
+    torch.cuda.empty_cache()
+    scratch = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)
+    nvme_xl = phase_nvme_offload(device, card, xl_offload, scratch.zero_)
+    del scratch
+    train_rows.append(nvme_xl["row"])
+    report_rows([nvme_xl["row"]])
+    say("launches by run: " + json.dumps({"gpt2-xl bf16 nvme train (phase 42)":
+                                          nvme_xl["counts"]}))
+    phase_done("42")
+
+    say(f"total: {time.perf_counter() - started:.1f} s (build and phases 1-42)")
 
     # ---- report ------------------------------------------------------------------ #
     # each kernel's row: its case at the shape and dtype of the latest
@@ -6029,10 +6373,11 @@ def main() -> int:
     # Llama-3-8B bf16 tiered serve for the paged kernel (phase 31), GPT-J-6B's bf16
     # init_inference generate for the contiguous one (phase 24); the
     # autotuner's GPT-2 children (phases 40-41, bf16, seq 512, micro 4 and
-    # 8: their launches summed) for the flash, cross-entropy and AdamW
-    # kernels, at GPT-2's training shape (phase 6: B 8, S 512; N 4096, E
-    # 768; the 148 leaves); the seq-4096 sparse bf16 training run for the
-    # block-sparse kernels
+    # 8: their launches summed) for the flash and cross-entropy kernels, at
+    # GPT-2's training shape (phase 6: B 8, S 512; N 4096, E 768); the
+    # GPT-2 XL NVMe walk (phase 42: its steps' launches, one a chunk) for
+    # AdamW, at one chunk of that walk; the seq-4096 sparse bf16 training
+    # run for the block-sparse kernels
     main_case = {"paged_attention": ("llama3-8b-paged-decode", "bfloat16", tiered_counts),
                  "decode_attention": ("gptj-6b-generate-decode", "bfloat16",
                                       i8["bf16"]["counts"]),
@@ -6042,7 +6387,7 @@ def main() -> int:
                  "ce_forward": ("gpt2-train", "bfloat16", autotune_launches),
                  "ce_backward_dx": ("gpt2-train", "bfloat16", autotune_launches),
                  "ce_backward_dhead": ("gpt2-train", "bfloat16", autotune_launches),
-                 "fused_adam": ("gpt2-148-leaves", "float32", autotune_launches),
+                 "fused_adam": ("gpt2-xl-nvme-chunk", "float32", nvme_xl["counts"]),
                  "block_sparse_forward": ("gpt2-s4096-fixed", "bfloat16", sparse["counts"]),
                  "block_sparse_backward_dq": ("gpt2-s4096-fixed", "bfloat16", sparse["counts"]),
                  "block_sparse_backward_dkv": ("gpt2-s4096-fixed", "bfloat16",

@@ -13,10 +13,14 @@ Two layers:
   discipline — launcher grandchildren must not linger as zombies), then
   recorded as **degraded** — a wedged trial never eats the search
   budget, it just loses.  Crashed trials (rc != 0, such as one whose
-  engine raises ``NotImplementedError`` on a ZeRO++ or NVMe candidate of
-  JAX's default space) and trials whose ledger fails its conservation
-  check are likewise recorded degraded, never silently dropped: every
-  launched trial leaves a result row.
+  engine raises ``NotImplementedError`` on a ZeRO++ candidate of JAX's
+  default space) and trials whose ledger fails its conservation check
+  are likewise recorded degraded, never silently dropped: every launched
+  trial leaves a result row.  An NVMe candidate (``offload_param`` /
+  ``offload_optimizer`` ``nvme``) trains like any other, its swap files
+  under its block's ``nvme_path`` (JAX's ``/tmp/dst_nvme`` when the
+  candidate names none); it fails as a crash only where that path cannot
+  hold the tier (an in-memory filesystem, too little room).
 
 * :class:`ResourceManager` — the seed-era interface (command template +
   ``metrics.json`` scalar), kept for scripts that drive their own

@@ -28,7 +28,14 @@ is::
   next save, load or ``close``.
 * **ZeRO**: the engine gathers its partitions into whole leaves, so the
   layout is stage 0's at every stage and world size; rank 0 writes it, and
-  each rank's load takes its own partitions from it.
+  each rank's load takes its own partitions from it.  With the moments on
+  NVMe the gather streams them from their chunk files piece by piece, and
+  a load patches them piece by piece and writes every piece back to disk
+  before the engine runs on (JAX's ``runtime/checkpointing.py:455-457``:
+  the engine's ``_after_checkpoint_load`` resyncs its NVMe tiers), so
+  nothing staged from the abandoned trajectory is read again.  A
+  checkpoint has one layout whatever the tiers: one saved with NVMe loads
+  into a CPU-offload or stage-0 engine, and the reverse.
 
 Crash-critical boundaries carry the JAX module's ``fault_point`` sites
 (``testing/fault_injection.py``): ``ckpt.pre_save`` before any state is

@@ -24,7 +24,9 @@ checked here: with ``enabled`` its solver keys must parse
 the solver or the recovery plane reads, so a block is never taken and
 ignored.  The ``autotuning`` block is kept as a dict, as the JAX package
 keeps it: the engine checks the fingerprint of a tuned patch it names
-(``patch`` / ``results_dir``) at build.  Blocks of features the port has
+(``patch`` / ``results_dir``) at build.  The ``aio`` block is the JAX
+package's, with its defaults (``aio_config``: the NVMe tier's staging
+knobs).  Blocks of features the port has
 not taken over yet (monitors, PLD, compression, ...) are kept as raw dicts;
 the engine raises when one of them is enabled.
 """
@@ -40,6 +42,7 @@ from pydantic import Field
 from deepspeed_tpu_torch.runtime import constants as C
 from deepspeed_tpu_torch.runtime.config_utils import (DeepSpeedConfigModel,
                                                       dict_raise_error_on_duplicate_keys)
+from deepspeed_tpu_torch.runtime.swap_tensor.aio_config import get_aio_config
 from deepspeed_tpu_torch.runtime.zero.config import DeepSpeedZeroConfig
 from deepspeed_tpu_torch.telemetry.profiler import DEFAULT_PROFILER_DIR
 from deepspeed_tpu_torch.utils.logging import logger
@@ -285,6 +288,8 @@ class DeepSpeedConfig:
         self.scheduler_params = (sched or {}).get(C.SCHEDULER_PARAMS, {})
 
         self.zero_config = DeepSpeedZeroConfig(**pd.get(C.ZERO_OPTIMIZATION, {}))
+        # the NVMe tier's staging knobs (runtime/swap_tensor/aio_config.py)
+        self.aio_config = get_aio_config(pd)
 
         self.fp16_config = DeepSpeedFP16Config(**pd.get(C.FP16, {}))
         self.bfloat16_config = DeepSpeedBF16Config(**pd.get(C.BFLOAT16, pd.get(C.BFLOAT16_OLD, {})))

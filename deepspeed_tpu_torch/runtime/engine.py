@@ -64,6 +64,27 @@ loss is the mean over the ranks.
   the master in host memory (below stage 3 it changes nothing, as in JAX);
 * ``offload_optimizer: {device: cpu}`` (stage >= 1) keeps the moments in
   host memory, streamed through the card in pieces (``ZeroAdam``);
+* ZeRO-Infinity's NVMe tier (``runtime/swap_tensor/``, the JAX engine's
+  ``deepspeed_tpu/runtime/engine.py:733-1028``): ``offload_optimizer:
+  {device: nvme}`` keeps the moments in CRC'd chunk files under
+  ``nvme_path`` (one a piece, written as zeros and drained at build), at
+  any stage as in JAX (at stage 0 the same ``ZeroAdam`` walks the flat
+  gradient buffer, with the leaves as its segments and no process group).
+  File I/O cannot be captured, so ``train_batch`` is one replay of
+  everything up to the update (forward, backward, reduce-scatter, norm,
+  clip factor, the sentinel and its skip flag, the step's scalars and
+  count) and then the streamed walk on the host, on the engine's stream:
+  each piece read back (its reads started before the previous piece's
+  launch; the first piece's at the step's start), copied in, one AdamW
+  launch, copied out and written back (drained at the walk's end unless
+  ``pipeline_write``).  ``offload_param: {device: nvme}`` (stage 3) keeps
+  the master in host memory as ``cpu`` does, plus JAX's write-through copy
+  of each leaf's part in ``nvme_path``, persisted after each step and
+  joined before the next update.  Every step records ``offload_staged``
+  (and ``offload_wait`` when it blocked) and hands the wait to the goodput
+  ledger; a checkpoint load writes the restored moments back to disk and
+  re-persists the parameter tier.  An unwritable, in-memory or too-small
+  swap path raises at build, a failed read or write in the step;
 * the global norm is one all-reduce of the shards' squared sums (fp64 on
   the CPU, as the stage-0 norm there).
 
@@ -123,7 +144,7 @@ checked once the parameters are in and before any step is built
 launcher's autotuner ranks on.
 
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-item: the NVMe tier, ZeRO++ (quantized weights and gradients, hpZ) and
+item: ZeRO++ (quantized weights and gradients, hpZ) and
 tensor, pipeline and sequence parallelism (Queue 1 items 7 and 9), fp16
 (item 5), ``wall_clock_breakdown`` and the monitor, PLD, compression and
 data-pipeline blocks (items 8 and 9).  A
@@ -156,7 +177,8 @@ from deepspeed_tpu_torch.runtime.stability import (StabilitySentinel, assign_sen
                                                    fingerprint_batch, init_sentinel_state,
                                                    reset_sentinel_state_, sentinel_observe)
 from deepspeed_tpu_torch.runtime.step_graph import StepGraphs
-from deepspeed_tpu_torch.runtime.zero.partition_parameters import (FlatStore,
+from deepspeed_tpu_torch.runtime.zero.partition_parameters import (FlatLeaves, FlatStore,
+                                                                   NvmeFlatStore,
                                                                    PartitionedParameters,
                                                                    init_ctx_active, named_tree)
 from deepspeed_tpu_torch.runtime.zero.policy import ZeroLayout, zero_min_size
@@ -165,13 +187,14 @@ from deepspeed_tpu_torch.testing.fault_injection import fault_point
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.timer import ThroughputTimer
 
-NVME = "ROADMAP.md, Queue 1 item 7 (the NVMe tier)"
 ZERO_PP = "ROADMAP.md, Queue 1 item 7 (ZeRO++)"
 TENSOR_PARALLEL = "ROADMAP.md, Queue 1 item 7 (tensor parallelism)"
 MODEL_PARALLEL = "ROADMAP.md, Queue 1 item 9 (pipeline and sequence parallelism)"
 # the largest piece of host state streamed through the card at once: 512 MiB
 # of fp32, so three device buffers (master, mu, nu) take 1.5 GiB
 OFFLOAD_PIECE_MAX = 2 ** 27
+# the JAX engine's swap folder when an offload block names none
+DEFAULT_NVME_PATH = "/tmp/dst_nvme"
 PRECISION = "ROADMAP.md, Queue 1 item 5 (fp16 loss scaling)"
 # the fwd / bwd / step timers have no boundary inside one graph replay
 WALL_CLOCK = "ROADMAP.md, Queue 1 item 8 (wall_clock_breakdown)"
@@ -247,12 +270,18 @@ class DeepSpeedEngine:
         if self._config.world_size > 1 or self._zero_stage > 0:
             comm.init_distributed(device=self.device)
         self.world_size, self.rank = comm.get_world_size(), comm.get_rank()
-        self._offload_param = _tier(zc.offload_param) == "cpu" and self._zero_stage >= 3
-        self._offload_optimizer = _tier(zc.offload_optimizer) == "cpu" and self._zero_stage >= 1
+        p_tier, o_tier = _tier(zc.offload_param), _tier(zc.offload_optimizer)
+        # the master on the host (a cpu or nvme parameter tier) from stage 3;
+        # moments on the host from stage 1, on NVMe at any stage (as in JAX)
+        self._offload_param = p_tier in ("cpu", "nvme") and self._zero_stage >= 3
+        self._nvme_param = p_tier == "nvme" and self._zero_stage >= 3
+        self._offload_optimizer = o_tier == "cpu" and self._zero_stage >= 1
+        self._nvme_optimizer = o_tier == "nvme"
         self._piece = offload_piece(zc.sub_group_size)
-        for key, on, least in (("offload_param", self._offload_param, 3),
-                               ("offload_optimizer", self._offload_optimizer, 1)):
-            if _tier(getattr(zc, key)) == "cpu" and not on:
+        for key, tier, on, least in (("offload_param", p_tier, self._offload_param, 3),
+                                     ("offload_optimizer", o_tier,
+                                      self._offload_optimizer or self._nvme_optimizer, 1)):
+            if tier != "none" and not on:
                 log_dist(f"{key} takes effect from ZeRO stage {least}: ignored at stage "
                          f"{self._zero_stage}", ranks=[0], level=logging.WARNING)
         self.zero = None
@@ -269,47 +298,57 @@ class DeepSpeedEngine:
                 and mcfg is not None and not mcfg.remat):
             model.cfg = dataclasses.replace(mcfg, remat=True)
 
-        self._init_parameters(model, model_parameters, seed)
-        self._check_tuned_patch()
-        self.rng = torch.Generator(device=self.device)
-        self.rng.manual_seed(int(seed))
-        self.lr_scheduler = None
-        self._schedule_fn = None
-        self._configure_lr_scheduler(lr_scheduler)
-        self._configure_optimizer()
-        self.scaler = unit_loss_scaler(self.device)
+        self.optimizer = self.optimizer_swapper = self.param_swapper = None
+        try:
+            self._init_parameters(model, model_parameters, seed)
+            self._check_tuned_patch()
+            self.rng = torch.Generator(device=self.device)
+            self.rng.manual_seed(int(seed))
+            self.lr_scheduler = None
+            self._schedule_fn = None
+            self._configure_lr_scheduler(lr_scheduler)
+            self._configure_optimizer()
+            self.scaler = unit_loss_scaler(self.device)
 
-        self.micro_steps = 0
-        self.global_steps = 0
-        self.global_samples = 0
-        self._grads_pending = False
-        self._grad_norm = None
-        self._cached_loss = None        # the last eager forward's loss (telemetry)
-        self._in_training_mode = True
-        self.checkpoint_engine = None
-        self._closed = False
-        self._ckpt_finalizer = None
-        self._ckpt_finalizer_error = None
-        self._last_ckpt_dir = None
-        self.graphs = self._make_graphs()
-        self.tput_timer = ThroughputTimer(
-            batch_size=self.train_batch_size(),
-            synchronize=lambda: self.accelerator.synchronize(self.device.index),
-            steps_per_output=self._config.steps_per_print or 50)
-        # installed before the watchdog (in the telemetry block), so the
-        # watchdog's SIGTERM chain ends at this cooperative flag
-        self._init_preemption(self._config.fault_tolerance_config)
-        self._init_telemetry(self._config.telemetry_config)
-        if self.preemption_handler is not None:
-            self.preemption_handler.telemetry = self.telemetry
-        self._init_stability(self._config.stability_config)
-        self._configure_recovery()
-        log_dist(f"DeepSpeedEngine ready: device={self.device}, "
-                 f"zero_stage={self._zero_stage}, world_size={self.world_size}, "
-                 f"offload_param={self._offload_param}, "
-                 f"offload_optimizer={self._offload_optimizer}, dtype={self.compute_dtype}, "
-                 f"micro_batch={self.train_micro_batch_size_per_gpu()}, "
-                 f"gas={self.gradient_accumulation_steps()}", ranks=[0])
+            self.micro_steps = 0
+            self.global_steps = 0
+            self.global_samples = 0
+            self._grads_pending = False
+            self._grad_norm = None
+            self._cached_loss = None        # the last eager forward's loss (telemetry)
+            self._in_training_mode = True
+            self.checkpoint_engine = None
+            self._closed = False
+            self._ckpt_finalizer = None
+            self._ckpt_finalizer_error = None
+            self._last_ckpt_dir = None
+            self.graphs = self._make_graphs()
+            self.tput_timer = ThroughputTimer(
+                batch_size=self.train_batch_size(),
+                synchronize=lambda: self.accelerator.synchronize(self.device.index),
+                steps_per_output=self._config.steps_per_print or 50)
+            # installed before the watchdog (in the telemetry block), so the
+            # watchdog's SIGTERM chain ends at this cooperative flag
+            self._init_preemption(self._config.fault_tolerance_config)
+            self._init_telemetry(self._config.telemetry_config)
+            if self.preemption_handler is not None:
+                self.preemption_handler.telemetry = self.telemetry
+            self._init_stability(self._config.stability_config)
+            self._configure_recovery()
+            o_on = self._offload_optimizer or self._nvme_optimizer
+            log_dist(f"DeepSpeedEngine ready: device={self.device}, "
+                     f"zero_stage={self._zero_stage}, world_size={self.world_size}, "
+                     f"offload_param={p_tier if self._offload_param else None}, "
+                     f"offload_optimizer={o_tier if o_on else None}, dtype={self.compute_dtype}, "
+                     f"micro_batch={self.train_micro_batch_size_per_gpu()}, "
+                     f"gas={self.gradient_accumulation_steps()}", ranks=[0])
+        except BaseException:
+            # a refusal once host state is pinned (a stale tuned patch, the
+            # HBM budget, a swap path) must not leave memory registered with
+            # CUDA behind the dropped engine: a later pinned allocation at
+            # those addresses would fail
+            self._close_state()
+            raise
 
     # ------------------------------------------------------------------ #
     # Setup
@@ -325,9 +364,6 @@ class DeepSpeedEngine:
     def _reject_unported(self):
         cfg = self._config
         zc = cfg.zero_config
-        for key in ("offload_param", "offload_optimizer"):
-            if _tier(getattr(zc, key)) == "nvme":
-                raise NotImplementedError(f"{key} to nvme is not ported yet ({NVME})")
         if (zc.zero_quantized_weights or zc.zero_quantized_gradients
                 or zc.zero_hpz_partition_size > 1):
             raise NotImplementedError(f"ZeRO++ (zero_quantized_weights, "
@@ -500,21 +536,190 @@ class DeepSpeedEngine:
                 self._schedule_fn = client_lr_scheduler.schedule_fn()
 
     def _configure_optimizer(self):
+        """The optimizer (``FusedAdam`` at stage 0, ``ZeroAdam`` over the
+        rank's shard otherwise, and over the flat stage-0 layout when the
+        moments live on NVMe), then the NVMe parameter tier."""
         name = self._config.optimizer_name or "adam"
-        if self.zero is None:
+        self.optimizer_swapper = self.param_swapper = None
+        self._offload_stats_prev = {}
+        self._last_offload_wait_ms = 0.0
+        self.last_offload_record = None      # the last step's offload_staged record
+        if self.zero is None and not self._nvme_optimizer:
             self.optimizer = get_optimizer(name, dict(self._config.optimizer_params),
                                            self._leaves, [p.grad for p in self._leaves],
                                            lr_schedule=self._schedule_fn, names=self._names)
             return
         spec = adam_spec(name, dict(self._config.optimizer_params), self._schedule_fn)
         z = self.zero
-        n = z.layout.shard_numel
-        mu, nu = (FlatStore(n, self.device, host=self._offload_optimizer, piece=self._piece)
-                  for _ in range(2))
-        self.optimizer = ZeroAdam(spec, z.master_segments(), z.grad_shard, mu, nu,
-                                  master_store=z.master, gather_full=z.full_named,
-                                  scatter=z.shard_copies)
+        if z is not None:
+            n, segments, grad = z.layout.shard_numel, z.master_segments(), z.grad_shard
+            master, gather, scatter = z.master, z.full_named, z.shard_copies
+        else:
+            flat = FlatLeaves(self._names, self._shapes)
+            n, segments, grad = self._num_params, flat.segments(self._leaves), self._grad_flat
+            master, gather, scatter = None, flat.full_named, flat.shard_copies
+        if self._nvme_optimizer:
+            self.optimizer_swapper = self._configure_nvme_offload(n)
+            # the reference's buffer_count: pinned swap buffers a moment
+            slots = max(3, int(self._config.zero_config.offload_optimizer.buffer_count or 4))
+            stores = []
+            try:
+                for key in ("mu", "nu"):
+                    stores.append(NvmeFlatStore(n, self.device, self._piece,
+                                                self.optimizer_swapper, key, slots=slots))
+            except BaseException:
+                for st in stores:        # its pinned slots, before the engine is dropped
+                    st.close()
+                raise
+            mu, nu = stores
+            log_dist(f"ZeRO-Infinity: optimizer state swapped to "
+                     f"{self.optimizer_swapper.swap_folder} "
+                     f"({self.optimizer_swapper.swapped_bytes() >> 20} MiB)", ranks=[0])
+        else:
+            mu, nu = (FlatStore(n, self.device, host=self._offload_optimizer, piece=self._piece)
+                      for _ in range(2))
+        self.optimizer = ZeroAdam(spec, segments, grad, mu, nu, master_store=master,
+                                  gather_full=gather, scatter=scatter)
+        if self._nvme_param:
+            self._configure_param_tier()
         self._check_hbm_budget()
+
+    @property
+    def _streamed(self) -> bool:
+        """Whether the update is a streamed walk after the step (NVMe)."""
+        return isinstance(self.optimizer, ZeroAdam) and self.optimizer.streamed
+
+    def _swap_folder(self, block, tier: str) -> str:
+        """``<nvme_path>/<tier>`` (JAX's layout), under ``rank<r>`` when the
+        world has more than one rank (each rank swaps its own shard)."""
+        root = getattr(block, "nvme_path", None) or DEFAULT_NVME_PATH
+        if self.world_size > 1:
+            root = os.path.join(root, f"rank{self.rank}")
+        return os.path.join(root, tier)
+
+    def _configure_nvme_offload(self, numel: int):
+        """ZeRO-Infinity's optimizer tier (the JAX engine's
+        ``_configure_nvme_offload``): a ``PartitionedOptimizerSwapper`` over
+        ``<nvme_path>/optimizer`` with the ``aio`` block's staging knobs,
+        ``max_in_cpu`` 0 unless the block says otherwise (host copies drop
+        once their write is durable), ``pipeline_write`` and
+        ``buffer_count`` (at least 2) from the block.  The swap path must
+        hold both moments."""
+        from deepspeed_tpu_torch.runtime.swap_tensor import PartitionedOptimizerSwapper
+        from deepspeed_tpu_torch.runtime.swap_tensor.partitioned_param_swapper import (
+            check_swap_folder)
+        oc = self._config.zero_config.offload_optimizer
+        folder = self._swap_folder(oc, "optimizer")
+        check_swap_folder(folder, 8 * numel)
+        extra = oc.model_extra or {}
+        return PartitionedOptimizerSwapper(
+            folder, self._config.aio_config,
+            max_in_cpu=int(extra.get("max_in_cpu", 0) or 0),
+            pipeline_write=bool(oc.pipeline_write),
+            buffer_count=max(2, int(oc.buffer_count or 4)))
+
+    def _configure_param_tier(self):
+        """ZeRO-Infinity's parameter tier at stage 3 (the JAX engine's
+        ``_configure_offload_engine``): a write-through copy of this rank's
+        part of every leaf of the host master, one chunk a leaf under
+        ``<nvme_path>/params`` (per-block chunking: a block's leaves are
+        chunks of their own), its host LRU bounded by ``max_in_cpu``.  The
+        initial persist drains while the first step runs."""
+        from deepspeed_tpu_torch.runtime.swap_tensor import AsyncPartitionedParameterSwapper
+        from deepspeed_tpu_torch.runtime.swap_tensor.partitioned_param_swapper import (
+            check_swap_folder)
+        oc = self._config.zero_config.offload_param
+        folder = self._swap_folder(oc, "params")
+        check_swap_folder(folder, 4 * self.zero.layout.shard_numel)
+        self.param_swapper = AsyncPartitionedParameterSwapper(
+            folder, self._config.aio_config, buffer_count=max(2, int(oc.buffer_count)),
+            max_in_cpu=int(oc.max_in_cpu))
+        self._persist_params()
+        log_dist(f"ZeRO-Infinity: parameter chunks staging to {folder} "
+                 f"(max_in_cpu={int(oc.max_in_cpu) >> 20} MiB host LRU)", ranks=[0])
+
+    def _persist_params(self):
+        """Write the master's leaves to the parameter tier, async.  The
+        writers read the master itself (no copy): ``_await_param_persist``
+        joins them before an update writes it."""
+        self.param_swapper.swap_out_tree(self.zero.rank_leaves(), prefix="param", sync=False,
+                                         cache=False)
+
+    def _await_param_persist(self):
+        if self.param_swapper is not None:
+            self.param_swapper.store.drain()
+
+    def _finish_update(self):
+        """After the step (a replay, or the eager update): the streamed
+        walk and, at stages 1-2, the all-gather of the partitions it
+        updated; the parameter tier's persist; the step's offload records
+        (the JAX engine's order, ``engine.py:2303-2334``)."""
+        if self._streamed:
+            self._await_param_persist()
+            self.optimizer.walk()
+            if self.zero is not None and self._zero_stage < 3:
+                self.zero.gather_params()
+        if self.param_swapper is not None:
+            self._persist_params()
+        self._emit_offload_telemetry()
+
+    def _offload_components(self):
+        """name -> counter snapshot of every NVMe store."""
+        comps = {}
+        if self.param_swapper is not None:
+            comps["param"] = self.param_swapper.stats()
+        if self.optimizer_swapper is not None:
+            comps["optimizer"] = self.optimizer_swapper.stats()
+        return comps
+
+    def _emit_offload_telemetry(self):
+        """The staging counters as per-step deltas (JAX's
+        ``_emit_offload_telemetry``): ``offload_staged`` every step (bytes
+        in and out, ring hits and misses, by store) and ``offload_wait``
+        when the step blocked on staged I/O; the wait goes to the goodput
+        ledger's ``offload_wait_s``."""
+        self._last_offload_wait_ms = 0.0
+        comps = self._offload_components()
+        if not comps:
+            return
+        prev = self._offload_stats_prev
+        rec = {"step": self.global_steps}
+        wait_ms = 0.0
+        hits = misses = 0
+        for name, snap in comps.items():
+            last = prev.get(name, {})
+            for k in ("bytes_written", "bytes_read", "ring_hits", "ring_misses"):
+                rec[f"{name}_{k}"] = int(snap.get(k, 0)) - int(last.get(k, 0))
+            dwait = float(snap.get("wait_s", 0.0)) - float(last.get("wait_s", 0.0))
+            rec[f"{name}_wait_ms"] = dwait * 1e3
+            wait_ms += dwait * 1e3
+            hits += rec[f"{name}_ring_hits"]
+            misses += rec[f"{name}_ring_misses"]
+            prev[name] = snap
+        rec["wait_ms"] = wait_ms
+        rec["ring_hits"] = hits
+        rec["ring_misses"] = misses
+        self._last_offload_wait_ms = wait_ms
+        self.last_offload_record = rec
+        if self.telemetry is None:
+            return
+        self.telemetry.emit("offload_staged", rec, step=self.global_steps)
+        if wait_ms > 0.0:
+            self.telemetry.emit("offload_wait", {"step": self.global_steps, "wait_ms": wait_ms},
+                                step=self.global_steps)
+
+    def _resync_offload_state(self):
+        """Rollback coherence for the NVMe tiers, after a checkpoint load
+        (and so after the stability plane's rollback): the moments the load
+        patched are written back to disk (every piece: nothing staged from
+        the abandoned trajectory is read again), and the parameter tier is
+        dropped and persisted again from the restored master."""
+        if self.optimizer_swapper is not None:
+            self.optimizer.flush()
+            self.optimizer_swapper.drain()
+        if self.param_swapper is not None:
+            self.param_swapper.invalidate()
+            self._persist_params()
 
     def _check_hbm_budget(self):
         """The residency planner's gate (``runtime/offload/``): with a budget
@@ -589,6 +794,9 @@ class DeepSpeedEngine:
         if self._in_training_mode:
             if not self._grads_pending and not self.tput_timer.started:
                 self.tput_timer.start()      # the step's first micro-batch
+            if not self._grads_pending and self._streamed:
+                # the walk's first reads overlap the step's micro-batches
+                self.optimizer.prefetch()
             if self.profiler_window is not None:
                 self.profiler_window.step_begin(self.global_steps)
             if self.watchdog is not None:
@@ -663,7 +871,10 @@ class DeepSpeedEngine:
                 self._arm_seam(loss_hit=loss is not None)
                 if self.stability is not None and loss is not None and self.world_size > 1:
                     loss = comm.all_reduce(loss.clone()) / self.world_size
+                if not self._streamed:
+                    self._await_param_persist()      # the update writes the master
                 self._grad_norm, stats, loss = self._apply_updates(loss)
+                self._finish_update()
                 self._grads_pending = False
                 self._advance_step_counters(loss, self._grad_norm,
                                             stats=self._stash_stats(stats))
@@ -753,6 +964,10 @@ class DeepSpeedEngine:
             self.watchdog.arm(f"train_batch step={self.global_steps}")
         self.tput_timer.start()
         with self._span("train_batch", step=self.global_steps, gas=gas):
+            if self._streamed:
+                self.optimizer.prefetch()
+            else:
+                self._await_param_persist()      # the step's update writes the master
             if self.graphs is None:
                 out = self._run_bounded(
                     lambda: self._graph_step([self._place(x) for x in sources]))
@@ -768,6 +983,8 @@ class DeepSpeedEngine:
                 # ... and the norm's: a record buffered until the flush
                 # holds this step's own copy
                 grad_norm = self._grad_norm.clone() if self.telemetry is not None else None
+            # after the replay: the NVMe walk, the parameter tier, the records
+            self._finish_update()
             recorded, stats = loss, None
             if self.stability is not None:
                 stats = self._stash_stats(out[2])
@@ -857,6 +1074,9 @@ class DeepSpeedEngine:
         computed on the device from the scaler's scale tensor, which a
         captured step reads at every replay: bf16 and fp32 hold it at 1;
         fp16 (ROADMAP.md, Queue 1 item 5) must update that tensor in place.
+        With NVMe moments the update itself is the walk of
+        ``_finish_update``, after this: here the optimizer computes the
+        step's scalars and count only.
 
         With the stability block the sentinel observes ``loss`` (0 when
         None, as in JAX) and the norm on the device (``runtime/stability.py``), its cause
@@ -905,7 +1125,8 @@ class DeepSpeedEngine:
             stats = torch.stack([code.to(torch.float32), loss_in, grad_norm.float(),
                                  self.scaler.scale.float().reshape(())])
         self.optimizer.step(inv, factor, skip=skip, lr_scale=lr_scale)
-        if self.zero is not None and self._zero_stage < 3:
+        if self.zero is not None and self._zero_stage < 3 and not self._streamed:
+            # a streamed update gathers after its walk (_finish_update)
             self.zero.gather_params()
         return grad_norm, stats, loss
 
@@ -929,6 +1150,7 @@ class DeepSpeedEngine:
             if self.telemetry.ledger is not None:
                 gas = max(1, self.gradient_accumulation_steps())
                 self.telemetry.ledger.on_step(self.global_steps,
+                                              offload_wait_s=self._last_offload_wait_ms / 1e3,
                                               quarantine_frac=self._skipped_micros_step / gas)
         self._skipped_micros_step = 0
         if self.profiler_window is not None:
@@ -1127,9 +1349,11 @@ class DeepSpeedEngine:
         return sd
 
     def _after_checkpoint_load(self, meta) -> None:
-        """After a load: the ladder's state from the checkpoint, its LR
-        scale into the device scalar, and the sentinel's device state
-        zeroed in place (its EMAs described a trajectory that is gone)."""
+        """After a load: the NVMe tiers made coherent with the restored
+        state, the ladder's state from the checkpoint, its LR scale into
+        the device scalar, and the sentinel's device state zeroed in place
+        (its EMAs described a trajectory that is gone)."""
+        self._resync_offload_state()
         if self.stability is None:
             return
         sd = (meta or {}).get("stability") or {}
@@ -1450,12 +1674,7 @@ class DeepSpeedEngine:
         backend = dist.get_backend()
         if self.graphs is not None:
             self.graphs.clear()
-        if self.zero is not None:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.zero.close()
-            self.optimizer.mu.close()
-            self.optimizer.nu.close()
+        self._close_state()
         comm.destroy_process_group()
         kw = {"device_id": self.device} if self.device.type == "cuda" else {}
         dist.init_process_group(backend, store=dist.PrefixStore(f"dst_recovery_{epoch}", store),
@@ -1503,7 +1722,8 @@ class DeepSpeedEngine:
         return self._config.zero_config.stage
 
     def pinned_bytes(self) -> int:
-        """Host bytes this engine's offload holds pinned (master and moments)."""
+        """Host bytes this engine's offload holds pinned (master and
+        moments; of NVMe moments, the walk's slots)."""
         n = self.zero.pinned_bytes() if self.zero is not None else 0
         if isinstance(self.optimizer, ZeroAdam):
             n += self.optimizer.mu.pinned_bytes() + self.optimizer.nu.pinned_bytes()
@@ -1599,7 +1819,7 @@ class DeepSpeedEngine:
         that does not fit raises and changes nothing."""
         copies = self._param_copies(tree["params"])
         if load_optimizer_states:
-            if self.zero is not None:
+            if isinstance(self.optimizer, ZeroAdam):
                 for key in ("mu", "nu"):
                     self._check_named(tree["opt_state"][key], f"optimizer state {key}")
             copies += self.optimizer.state_copies(tree["opt_state"])
@@ -1705,9 +1925,17 @@ class DeepSpeedEngine:
             if self._grad_norm is not None:
                 self._grad_norm = self._grad_norm.clone()
             self.graphs.clear()
+        self._close_state()
+
+    def _close_state(self) -> None:
+        """Unregister the host state, join the NVMe tiers' writes and stop
+        their staging workers (of an engine built in part too)."""
+        if self.device.type == "cuda" and self.zero is not None:
+            torch.cuda.synchronize(self.device)
         if self.zero is not None:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
             self.zero.close()
-            self.optimizer.mu.close()
-            self.optimizer.nu.close()
+        if isinstance(self.optimizer, ZeroAdam):
+            self.optimizer.close()
+        for sw in (self.optimizer_swapper, self.param_swapper):
+            if sw is not None:
+                sw.close()

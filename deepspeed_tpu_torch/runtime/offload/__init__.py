@@ -10,9 +10,11 @@
   cannot fit the device-memory budget.
 
 The serving engine's tiered KV (``serving/kv_tiering.py``) runs on the
-first two.  ZeRO's host tier is ``runtime/zero/partition_parameters.py``'s
-``FlatStore``; its NVMe tier (``runtime/swap_tensor/``, ``ops/aio/``) is
-not ported (ROADMAP.md, Queue 1 item 7).
+first two, and so does ZeRO-Infinity's NVMe tier (``runtime/swap_tensor/``:
+the optimizer's moments as ``runtime/zero/partition_parameters.py``'s
+``NvmeFlatStore``, the parameter tier's write-through copy); ZeRO's host
+tier is that module's ``FlatStore``.  ``ops/aio/`` is the native
+``AIOHandle`` over ``csrc/aio/dst_aio.cpp``.
 """
 
 from deepspeed_tpu_torch.runtime.offload.policy import (HBMBudgetError, ResidencyPlan,

@@ -1,22 +1,23 @@
 """Async NVMe staging pool — the I/O engine under the tiered offload store
 (counterpart of ``deepspeed_tpu/runtime/offload/staging.py``).
 
-* **background worker threads** (``THREAD_COUNT``) drain a bounded task
+* **background worker threads** (``thread_count``) drain a bounded task
   queue, so enqueueing a write returns at once and the file I/O overlaps
   the caller's next work.  The pool takes host tensors only: the caller
   moves device bytes to the host itself, so no worker thread ever makes a
   CUDA call;
 * **double-buffered bounce buffers**: file I/O goes through a fixed pool of
-  ``BUFFER_COUNT`` reusable ``BUFFER_SIZE``-byte buffers (a byte-budget
+  ``buffer_count`` reusable ``buffer_size``-byte buffers (a byte-budget
   semaphore), so the number of chunk copies in flight is capped — the
   backpressure that keeps a fast producer from ballooning host RAM;
-* **capped in-flight depth** (``QUEUE_DEPTH``): submission blocks once that
+* **capped in-flight depth** (``queue_depth``): submission blocks once that
   many tasks are outstanding — the time a submitter spends blocked on the
   cap is accounted to ``wait_s`` (and a dedicated ``submit_wait_s``);
-* **per-key write ordering**: ``write(key, ..., after=prev_future)`` makes
-  the worker wait for the previous in-flight write of the same key before
+* **per-key ordering**: ``write(key, ..., after=prev_future)`` makes the
+  worker wait for the previous in-flight write of the same key before
   touching the file, so two overlapping writes of one key can never land
-  out of order;
+  out of order; ``read(key, after=write_future)`` likewise reads only once
+  that write has landed;
 * **CRC'd chunk files**: every chunk file's CRC-32 is computed while the
   bytes stream through the bounce buffer and recorded in a
   ``STAGING_MANIFEST.json`` written with the checkpoint plane's atomic
@@ -48,7 +49,8 @@ from deepspeed_tpu_torch.runtime.checkpoint_engine.manifest import (atomic_write
 MANIFEST_FILE = "STAGING_MANIFEST.json"
 MANIFEST_VERSION = 1
 
-# the JAX pool's defaults, which its serving tier runs with
+# the JAX pool's defaults (its serving tier runs with them); the ZeRO
+# swappers pass the ``aio`` block's values instead
 BUFFER_COUNT = 2
 BUFFER_SIZE = 1 << 20
 QUEUE_DEPTH = 8
@@ -113,6 +115,11 @@ class StagingFuture:
         self._error = error
         self._event.set()
 
+    def wait(self) -> None:
+        """Block until the task has finished, whatever its outcome (no
+        accounting, no raise: ``result()`` reports it)."""
+        self._event.wait()
+
     def result(self, timeout: Optional[float] = None):
         if not self._event.is_set():
             t0 = time.perf_counter()
@@ -158,11 +165,16 @@ class _BouncePool:
 class StagingPool:
     """Bounded async read/write queues over CRC'd chunk files."""
 
-    def __init__(self, folder: str):
+    def __init__(self, folder: str, buffer_count: Optional[int] = None,
+                 buffer_size: Optional[int] = None, queue_depth: Optional[int] = None,
+                 thread_count: Optional[int] = None):
         self.folder = folder
         os.makedirs(folder, exist_ok=True)
-        self._bounce = _BouncePool(BUFFER_COUNT, BUFFER_SIZE)
-        self._depth = threading.Semaphore(QUEUE_DEPTH)
+        # a knob left None takes the module default as it stands at the call
+        self._bounce = _BouncePool(BUFFER_COUNT if buffer_count is None else buffer_count,
+                                   BUFFER_SIZE if buffer_size is None else buffer_size)
+        self._depth = threading.Semaphore(max(1, int(QUEUE_DEPTH if queue_depth is None
+                                                     else queue_depth)))
         self._queue: "queue.Queue[Optional[Tuple]]" = queue.Queue()
         self._lock = threading.Lock()
         self._manifest: Dict[str, Dict[str, Any]] = {}  # guarded-by: _lock
@@ -178,7 +190,8 @@ class StagingPool:
         self._workers = [
             threading.Thread(target=self._worker, name=f"dst-staging-{i}",
                              daemon=True)
-            for i in range(THREAD_COUNT)]
+            for i in range(max(1, int(THREAD_COUNT if thread_count is None
+                                      else thread_count)))]
         for w in self._workers:
             w.start()
         self._load_manifest()
@@ -265,21 +278,30 @@ class StagingPool:
         self._queue.put(("write", key, array, fut, after))
         return fut
 
-    def read(self, key: str) -> StagingFuture:  # may-block: depth-cap backpressure
+    def read(self, key: str,  # may-block: depth-cap backpressure
+             after: Optional[StagingFuture] = None,
+             out: Optional[torch.Tensor] = None) -> StagingFuture:
         """Enqueue an async (prefetch) read; ``result()`` returns the
-        reassembled CPU tensor, CRC-verified."""
+        reassembled CPU tensor, CRC-verified: a new one, or ``out`` (a
+        contiguous host tensor of the chunk's dtype and byte size, which
+        the caller must not touch until the future is done) filled.
+        ``after`` (an in-flight write of the same key, enqueued earlier) is
+        awaited by the worker first, so the read sees that write's bytes."""
         with self._lock:
             if self._closed:
                 raise StagingError("staging pool is closed")
         fut = StagingFuture(self, key, "read")
+        if after is not None and after.done:
+            after = None
         self._acquire_depth()
-        self._queue.put(("read", key, None, fut, None))
+        self._queue.put(("read", key, out, fut, after))
         return fut
 
-    def read_sync(self, key: str) -> torch.Tensor:  # may-block: synchronous file I/O
+    def read_sync(self, key: str,  # may-block: synchronous file I/O
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Synchronous read (a prefetch-ring MISS — counted as read wait)."""
         t0 = time.perf_counter()
-        out = self._do_read(key)
+        out = self._do_read(key, out)
         self._account_wait(time.perf_counter() - t0, "read")
         return out
 
@@ -299,15 +321,16 @@ class StagingPool:
                 return
             op, key, array, fut, after = task
             try:
+                if after is not None:
+                    # ordering barrier only — a failed predecessor must not
+                    # block the newer write (or the read, whose CRC check
+                    # catches what the failure left)
+                    after._event.wait()
                 if op == "write":
-                    if after is not None:
-                        # ordering barrier only — a failed predecessor must
-                        # not block the newer (superseding) write
-                        after._event.wait()
                     self._do_write(key, array)
                     fut._finish(None)
                 else:
-                    fut._finish(self._do_read(key))
+                    fut._finish(self._do_read(key, array))
             except BaseException as e:  # noqa: BLE001 — surfaced at join
                 fut._finish(error=e)
             finally:
@@ -342,12 +365,19 @@ class StagingPool:
             self.bytes_written += int(view.nbytes)
             self.write_count += 1
 
-    def _do_read(self, key: str) -> torch.Tensor:
+    def _do_read(self, key: str, out: Optional[torch.Tensor] = None) -> torch.Tensor:
         info = self.chunk_info(key)
         if info is None:
             raise StagingError(f"no staged chunk for key {key!r}")
         path = self._path(key)
-        out = torch.empty(info["shape"], dtype=_resolve_dtype(info["dtype"]))
+        dtype = _resolve_dtype(info["dtype"])
+        if out is None:
+            out = torch.empty(info["shape"], dtype=dtype)
+        elif (out.device.type != "cpu" or not out.is_contiguous() or out.dtype != dtype
+              or out.numel() * out.element_size() != int(info["bytes"])):
+            raise StagingError(f"chunk {key!r} ({info['bytes']} bytes of {info['dtype']}) "
+                               f"does not fit the buffer given ({out.numel()} x {out.dtype} "
+                               f"on {out.device})")
         view = _byte_view(out)
         crc = 0
         step = self._bounce.buffer_size

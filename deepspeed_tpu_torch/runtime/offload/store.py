@@ -15,10 +15,11 @@ finished before it was needed is a **ring hit**, one still in flight or
 never issued is a **ring miss** whose blocking time is the stall.
 The host copies are the caller's tensors as given (pinned ones stay
 pinned), so a restage from the host tier copies to the device directly.
-
-JAX's store also tracks a device tier (``mark_hbm``) and rolls back
-(``invalidate``) for ZeRO's NVMe tier; the port adds them with that tier
-(ROADMAP.md, Queue 1 entry 5).
+``invalidate`` drops every cached and staged copy, so that after a
+rollback the caller re-persists from the restored state (stale NVMe bytes
+must never survive a rollback).  JAX's store also marks a device tier
+(``mark_hbm``), which only its residency report reads; the port's callers
+hold their device copies themselves.
 """
 
 import threading
@@ -50,6 +51,8 @@ class TieredStore:
         self._host: "OrderedDict[str, torch.Tensor]" = OrderedDict()  # guarded-by: _lock
         self._host_bytes = 0                                        # guarded-by: _lock
         self._pending_reads: Dict[str, StagingFuture] = {}          # guarded-by: _lock
+        # keys whose pending read lands in a buffer of the caller's
+        self._reads_into: set = set()                               # guarded-by: _lock
         self._pending_writes: Dict[str, StagingFuture] = {}         # guarded-by: _lock
         self._lock = threading.RLock()
         # serializes write SUBMISSION only (prev-lookup → enqueue → record),
@@ -60,9 +63,9 @@ class TieredStore:
         self.ring_misses = 0                                        # guarded-by: _lock
 
     # ---- write path ---------------------------------------------------- #
-    def put(self, key: str, array):
-        """Install a host copy and start the async NVMe
-        write.  The host copy is what ``get`` serves while the write
+    def put(self, key: str, array) -> StagingFuture:
+        """Install a host copy and start the async NVMe write (its future
+        is returned).  The host copy is what ``get`` serves while the write
         drains, so the caller only waits here on staging backpressure
         (the depth cap — accounted wait, taken outside the store lock).
 
@@ -73,7 +76,9 @@ class TieredStore:
         host = as_host_tensor(array)
         with self._lock:
             self._host_insert(key, host)
-            self._pending_reads.pop(key, None)
+            orphan = self._drop_read(key)
+        if orphan is not None:
+            orphan.wait()
         with self._submit:
             with self._lock:
                 prev = self._pending_writes.get(key)
@@ -85,21 +90,25 @@ class TieredStore:
                 self._pending_writes[key] = fut
         with self._lock:
             self._evict_to_budget()
+        return fut
 
-    def put_uncached(self, key: str, array):  # may-block: staging backpressure
+    def put_uncached(self, key: str, array) -> StagingFuture:  # may-block: staging backpressure
         """Write-through without a host-LRU copy (JAX's ``put_device``,
         whose pool did the device-to-host copy itself): hand ``array``, a
         host tensor the caller filled from the device, straight
         to the staging pool.  A spill larger than the host budget must not
         wash the cache; ``get`` serves it from the chunk tier (or from a
-        prefetch that landed it back in the LRU)."""
+        prefetch that landed it back in the LRU).  Returns the write's
+        future: the caller may write into ``array`` again once it is done."""
         array = as_host_tensor(array)
         with self._lock:
             # the new bytes supersede any cached copy / in-flight read
             old = self._host.pop(key, None)
             if old is not None:
                 self._host_bytes -= _nbytes(old)
-            self._pending_reads.pop(key, None)
+            orphan = self._drop_read(key)
+        if orphan is not None:
+            orphan.wait()
         with self._submit:
             with self._lock:
                 prev = self._pending_writes.get(key)
@@ -107,6 +116,17 @@ class TieredStore:
             fut = self.staging.write(key, array, after=prev)
             with self._lock:
                 self._pending_writes[key] = fut
+        return fut
+
+    def _drop_read(self, key: str) -> Optional[StagingFuture]:  # requires-lock: _lock
+        """Forget ``key``'s pending read; the read itself, when it fills a
+        buffer of the caller's, for the caller to wait for (outside the
+        lock), so that no forgotten read writes into a buffer reused."""
+        fut = self._pending_reads.pop(key, None)
+        if key in self._reads_into:
+            self._reads_into.discard(key)
+            return fut
+        return None
 
     def _host_insert(self, key: str, host: torch.Tensor):  # requires-lock: _lock
         old = self._host.pop(key, None)
@@ -134,29 +154,46 @@ class TieredStore:
             self._pending_writes.pop(key, None)
 
     # ---- read path ----------------------------------------------------- #
-    def prefetch(self, keys: Iterable[str]):
-        """Issue async NVMe reads for keys not already host-resident.
+    def prefetch(self, keys: Iterable[str], into: Optional[Dict[str, torch.Tensor]] = None):
+        """Issue async NVMe reads for keys not already host-resident;
+        ``into`` maps a key to a host buffer of the caller's that its read
+        fills (``get`` then returns that buffer, and the LRU keeps no copy
+        of it: the caller reuses it).
 
         Read submission can block on the staging depth cap, so it happens
         OUTSIDE the store lock (one saturated queue must not stall every
-        concurrent ``get``/``stats``).  The
-        re-check before recording each future drops reads made redundant —
-        or stale — by a ``put``/``get`` that landed the key meanwhile."""
+        concurrent ``get``/``stats``).  A key whose write (``put_uncached``)
+        is still in flight is read after that write lands.  The re-check
+        before recording each future drops reads made redundant — or stale
+        — by a ``put``/``get`` that landed the key meanwhile."""
         with self._lock:
-            wanted = [key for key in keys
-                      if key not in self._host
-                      and key not in self._pending_reads
-                      and self.staging.chunk_info(key) is not None]
-        for key in wanted:
-            fut = self.staging.read(key)
-            with self._lock:
+            wanted = []
+            for key in keys:
                 if key in self._host or key in self._pending_reads:
-                    continue   # superseded while submitting; result unused
-                self._pending_reads[key] = fut
+                    continue
+                wfut = self._pending_writes.get(key)
+                if ((wfut is None or wfut.done)
+                        and self.staging.chunk_info(key) is None):
+                    continue
+                wanted.append((key, wfut))
+        into = into or {}
+        for key, wfut in wanted:
+            fut = self.staging.read(key, after=wfut, out=into.get(key))
+            with self._lock:
+                superseded = (key in self._host or key in self._pending_reads
+                              or self._pending_writes.get(key) is not wfut)
+                if not superseded:
+                    self._pending_reads[key] = fut
+                    if key in into:
+                        self._reads_into.add(key)
+            if superseded and key in into:
+                fut.wait()     # the result is unused, but it fills the caller's buffer
 
-    def get(self, key: str) -> torch.Tensor:
+    def get(self, key: str, out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Return the host copy, joining a prefetch or falling back to a
-        synchronous NVMe read.  Hit/miss counts go to ``stats()``."""
+        synchronous NVMe read (into ``out`` when given: a buffer of the
+        caller's, which the LRU does not keep).  Hit/miss counts go to
+        ``stats()``."""
         with self._lock:
             host = self._host.get(key)
             if host is not None:
@@ -164,6 +201,8 @@ class TieredStore:
                 self.ring_hits += 1
                 return host
             fut = self._pending_reads.pop(key, None)
+            borrowed = key in self._reads_into if fut is not None else out is not None
+            self._reads_into.discard(key)
         if fut is not None:
             was_done = fut.done
             host = fut.result()
@@ -175,12 +214,14 @@ class TieredStore:
             if wfut is not None:
                 wfut.result()
             was_done = False
-            host = self.staging.read_sync(key)
+            host = self.staging.read_sync(key, out=out)
         with self._lock:
             if was_done:
                 self.ring_hits += 1
             else:
                 self.ring_misses += 1
+            if borrowed:
+                return host
             cur = self._host.get(key)
             if cur is not None:
                 # a concurrent put() installed a fresher copy while this
@@ -239,8 +280,10 @@ class TieredStore:
             host = self._host.pop(key, None)
             if host is not None:
                 self._host_bytes -= _nbytes(host)
-            self._pending_reads.pop(key, None)
+            orphan = self._drop_read(key)
             wfut = self._pending_writes.pop(key, None)
+        if orphan is not None:
+            orphan.wait()
         if wfut is not None:
             try:
                 wfut.result()
@@ -256,3 +299,23 @@ class TieredStore:
                         host_bytes=self._host_bytes,
                         host_keys=len(self._host))
         return snap
+
+    def invalidate(self):
+        """Drop every cached and staged copy (rollback coherence): the
+        caller re-persists from the restored state, so nothing staged from
+        the abandoned trajectory may be read again."""
+        self.drain()
+        # chunk deletion is file I/O, outside the lock; the trainer is
+        # quiescent, so nothing stages between the deletes and the clear
+        for key in list(self.staging.keys()):
+            self.staging.delete(key)
+        with self._lock:
+            orphans = [self._pending_reads[k] for k in self._reads_into
+                       if k in self._pending_reads]
+            self._host.clear()
+            self._host_bytes = 0
+            self._pending_reads.clear()
+            self._reads_into.clear()
+            self._pending_writes.clear()
+        for fut in orphans:
+            fut.wait()

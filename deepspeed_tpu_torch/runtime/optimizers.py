@@ -125,13 +125,25 @@ class ZeroAdam:
     where the master lives on the device, None where it lives in
     ``master_store`` on the host (stage 3 with ``offload_param``).  The
     moments live in ``mu`` and ``nu`` (``FlatStore``\\ s, on the host with
-    ``offload_optimizer``).  With every state on the device a step is one
-    launch.  Otherwise the shard is walked in the host stores' pieces: each
-    chunk's host state is copied into device buffers, updated by one launch
-    over the chunk's slices and copied back, all on the caller's stream (a
-    captured step holds the copies).  The clip factor and ``inv`` come in
-    once for the whole shard, so a chunked step gives what one launch
-    gives, bit for bit."""
+    ``offload_optimizer: cpu``, ``NvmeFlatStore``\\ s with ``nvme``).
+    With every state on the device a step is one launch.  Otherwise the
+    shard is walked in the stores' pieces: each chunk's state is copied
+    into device buffers, updated by one launch over the chunk's slices and
+    copied back, on the caller's stream.  The clip factor and ``inv`` come
+    in once for the whole shard, so a chunked step gives what one launch
+    gives, bit for bit.
+
+    With host stores the walk is part of ``step`` (a captured step holds
+    the copies).  With NVMe stores (``streamed``) file I/O cannot be
+    captured, so ``step`` only computes the step's scalars into ``scal``
+    (and advances the count), and ``walk`` (JAX's ``_fused_offload_step``,
+    ``deepspeed_tpu/runtime/engine.py:799-897``) runs after it, on the host:
+    for chunk k it joins chunk k's reads (each into a pinned slot of its
+    store; the first chunk's started at the step's start) and copies it to
+    the device buffers, starts chunk k+1's reads, makes the one launch with
+    the same ``scal`` and skip flag, copies the chunk back into its slots,
+    waits on an event for those copies and hands the slots to the staging
+    writers."""
 
     def __init__(self, spec: Dict[str, Any], segments, grad: torch.Tensor, mu, nu,
                  master_store=None, gather_full=None, scatter=None):
@@ -147,6 +159,10 @@ class ZeroAdam:
         self.buffers = {id(s): torch.empty(min(piece, n), dtype=torch.float32,
                                            device=self.device) for s in staged}
         self.staged = staged
+        self.streamed = any(st.nvme for st in staged)
+        # the step's (inv, clip factor, -lr, bc1, bc2), for a walk after it
+        self.scal = torch.zeros(5, dtype=torch.float32, device=self.device)
+        self._walk_skip = None
         self.chunks = []          # (piece index, length, AdamTable)
         for c0 in range(0, n, piece):
             c1 = min(n, c0 + piece)
@@ -173,20 +189,76 @@ class ZeroAdam:
              skip: Optional[torch.Tensor] = None, lr_scale: Optional[torch.Tensor] = None
              ) -> None:
         """``FusedAdam.step`` over the shard: with ``skip`` set no launch
-        writes, so an offloaded chunk's host state copies back unchanged."""
+        writes, so an offloaded chunk's state copies back unchanged.  When
+        ``streamed`` the chunks are left to ``walk``."""
         neg_lr, bc1, bc2 = step_scalars(self.spec, self.count)
         if lr_scale is not None:
             neg_lr = neg_lr * lr_scale
         scal = torch.stack([inv, clip_factor, neg_lr, bc1, bc2]).to(torch.float32)
-        kw = dict(b1=self.spec["b1"], b2=self.spec["b2"], eps=self.spec["eps"],
-                  wd=self.spec["wd"], skip=skip)
-        for k, length, table in self.chunks:
-            for s in self.staged:
-                self.buffers[id(s)][:length].copy_(s.pieces[k], non_blocking=True)
-            fused_adam(table, scal, **kw)
-            for s in self.staged:
-                s.pieces[k].copy_(self.buffers[id(s)][:length], non_blocking=True)
+        if self.streamed:
+            # in place: a captured step writes what the walk after it reads
+            self.scal.copy_(scal)
+            self._walk_skip = skip
+        else:
+            for k, length, table in self.chunks:
+                for s in self.staged:
+                    s.load_piece(k, self.buffers[id(s)][:length])
+                fused_adam(table, scal, **self._kernel_kw(skip))
+                for s in self.staged:
+                    s.save_piece(k, self.buffers[id(s)][:length])
         self.count.copy_(next_count(self.count, skip))
+
+    def _kernel_kw(self, skip):
+        return dict(b1=self.spec["b1"], b2=self.spec["b2"], eps=self.spec["eps"],
+                    wd=self.spec["wd"], skip=skip)
+
+    def prefetch(self) -> None:
+        """Start the reads of the walk's first chunk (at the start of a
+        step, so they overlap its forward and backward)."""
+        if self.streamed and self.chunks:
+            for s in self.staged:
+                if s.nvme:
+                    s.prefetch_piece(self.chunks[0][0])
+
+    def walk(self) -> None:
+        """The update of a ``streamed`` shard, after ``step`` (see the
+        class).  A failed read or write raises."""
+        if not self.streamed:
+            return
+        nvme = [s for s in self.staged if s.nvme]
+        kw = self._kernel_kw(self._walk_skip)
+        cuda = self.device.type == "cuda"
+        for i, (k, length, table) in enumerate(self.chunks):
+            for s in self.staged:
+                s.load_piece(k, self.buffers[id(s)][:length])
+            if i + 1 < len(self.chunks):
+                # chunk k+1's reads start before chunk k's launch (taking
+                # a slot may wait for an earlier chunk's write)
+                for s in nvme:
+                    s.prefetch_piece(self.chunks[i + 1][0])
+            fused_adam(table, self.scal, **kw)
+            for s in self.staged:
+                s.save_piece(k, self.buffers[id(s)][:length])
+            if cuda:
+                # the slots go to writer threads only once their
+                # device-to-host copies have landed
+                event = torch.cuda.Event()
+                event.record()
+                event.synchronize()
+            for s in nvme:
+                s.write_saved()
+        for s in nvme:
+            s.end_walk()
+
+    def flush(self) -> None:
+        """Write back what a checkpoint load patched into NVMe stores."""
+        for s in (self.mu, self.nu):
+            if s.nvme:
+                s.flush()
+
+    def close(self) -> None:
+        self.mu.close()
+        self.nu.close()
 
     def state_dict(self) -> Dict[str, Any]:
         """The whole moments by name (every rank calls it: it gathers)."""

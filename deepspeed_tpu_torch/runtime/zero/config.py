@@ -3,8 +3,11 @@
 The same JSON surface and pydantic model: stage 0-3, bucket sizes,
 offload blocks, the ``stage3_*`` aliases and the ZeRO++ keys all parse, so
 a config written for the JAX package parses here unchanged.  The engine
-runs stages 0-3 and offload to the CPU; it raises for the NVMe tier and
-ZeRO++ (ROADMAP.md, Queue 1 item 7).
+runs stages 0-3, offload to the CPU and ZeRO-Infinity's NVMe tier, which
+reads both blocks' ``nvme_path`` and ``buffer_count``, ``offload_param``'s
+``max_in_cpu`` and ``offload_optimizer``'s ``pipeline_write`` and
+``max_in_cpu`` (an extra key, default 0, as the JAX engine reads it); it
+raises for ZeRO++ (ROADMAP.md, Queue 1 item 7).
 """
 
 from enum import Enum

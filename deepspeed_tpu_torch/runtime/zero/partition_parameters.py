@@ -14,6 +14,11 @@ layout of ``runtime/zero/policy.py`` and moves it itself:
   copies, which a captured step holds as graph nodes, and no power-of-two
   rounding of PyTorch's caching host allocator, so the pinned bytes held
   are the bytes asked for.
+* ``NvmeFlatStore``: the same flat state with each piece a CRC'd chunk
+  file of ZeRO-Infinity's optimizer swapper (``runtime/swap_tensor/``);
+  the optimizer walks it piece by piece after the captured step, and the
+  checkpoint gather and scatter stream it piece by piece.  ``FlatLeaves``
+  is stage 0's flat layout, for a stage-0 engine whose moments live there.
 * ``PartitionedParameters``: the engine's ZeRO state.  At stages 1-2 the
   model's leaves are views of one full fp32 buffer and a rank's master is
   its partitions of it; the gradients of a micro-step (stage 2) or of the
@@ -131,11 +136,247 @@ class FlatStore:
         for off, v in self.views(start, src.numel()):
             v.copy_(src[off:off + v.numel()], non_blocking=self.pinned)
 
+    # ---- the optimizer's walk, one piece at a time ---------------------- #
+    nvme = False
+
+    def load_piece(self, k: int, dst: torch.Tensor) -> None:
+        """Copy piece ``k`` into ``dst`` (a device buffer) on the stream."""
+        dst.copy_(self.pieces[k], non_blocking=True)
+
+    def save_piece(self, k: int, src: torch.Tensor) -> None:
+        """Copy ``src`` (a device buffer) back into piece ``k`` on the stream."""
+        self.pieces[k].copy_(src, non_blocking=True)
+
     def close(self) -> None:
         if self.pinned:
             for t in self.pieces:
                 _unpin(t)
             self.pinned = False
+
+
+class _StoreRange:
+    """``[start, start + n)`` of an NVMe store, as the destination of a
+    checkpoint's ``(dst, src)`` copy: ``copy_`` writes through the store."""
+
+    def __init__(self, store: "NvmeFlatStore", start: int, n: int):
+        self.store, self.start, self.n = store, int(start), int(n)
+
+    def numel(self) -> int:
+        return self.n
+
+    def copy_(self, src, non_blocking: bool = False) -> "_StoreRange":
+        self.store.write(self.start, torch.as_tensor(src).reshape(-1))
+        return self
+
+
+class NvmeFlatStore(FlatStore):
+    """``numel`` fp32 elements on NVMe (ZeRO-Infinity's optimizer tier):
+    piece ``k`` is the leaf ``<name>__piece<k>`` of ``swapper`` (a
+    ``PartitionedOptimizerSwapper``), a CRC'd chunk file; all pieces are
+    written as zeros at construction and drained (the initial persist).
+
+    The host side is ``slots`` buffers of one piece (registered with CUDA
+    as ``FlatStore``'s pieces are, on a CUDA engine) plus the swapper's host
+    LRU, bounded by its ``max_in_cpu``.  The walk (``runtime/optimizers.py``)
+    drives ``prefetch_piece`` / ``load_piece`` / ``save_piece`` /
+    ``write_saved`` / ``end_walk``: a piece's prefetch takes the next slot
+    and reads the chunk into it; ``load_piece`` joins that read and copies
+    the slot to the device; after the update ``save_piece`` copies the
+    device buffer back into the same slot on the stream, and once the
+    caller's event says that copy has landed, ``write_saved`` hands the
+    slot to a staging writer (with a host LRU, ``cache``, the LRU gets a
+    copy of its own).  A slot is taken again only after its write is done,
+    so a slot never goes to a writer, or is refilled, while a copy or a
+    write still uses it.
+
+    ``read_into`` / ``write`` / ``views`` stream piece by piece for the
+    checkpoint gather and scatter, holding one piece more on the host: a
+    read keeps the last piece read, a write patches one open piece (read,
+    patched, written back by the next piece's write or by ``flush``).  Any
+    failed read or write raises."""
+
+    nvme = True
+
+    def __init__(self, numel: int, device: torch.device, piece: int, swapper, name: str,
+                 slots: int = 3):
+        self.numel, self.device, self.host = int(numel), torch.device(device), True
+        self.piece = max(1, min(int(piece), self.numel))
+        self.swapper, self.name = swapper, name
+        self.pinned = self.device.type == "cuda"
+        self.lengths = [min(self.piece, self.numel - s) for s in range(0, self.numel, self.piece)]
+        self.keys = [swapper.leaf_key((name, f"piece{k}")) for k in range(len(self.lengths))]
+        self.cache = swapper.store.max_in_cpu != 0
+        self.slots = [torch.empty(self.lengths[0], dtype=torch.float32)
+                      for _ in range(max(2, int(slots)))]
+        if self.pinned:
+            for t in self.slots:
+                _pin(t)
+        self._writes: List[list] = [[] for _ in self.slots]   # a slot's pending writes
+        self._turn = 0
+        self._slot_of: Dict[int, int] = {}     # piece -> the slot it was read into
+        self._unloaded = set()       # pieces prefetched into a slot, not loaded yet
+        self._saved = []             # pieces copied back, not yet handed to a writer
+        self._read = None            # (piece, host tensor): the last piece read
+        self._open = None            # (piece, host tensor): the piece being patched
+        zeros = torch.zeros(self.lengths[0], dtype=torch.float32)
+        for key, n in zip(self.keys, self.lengths):
+            swapper.swap_out_leaf(key, zeros[:n], cache=False)
+        swapper.drain()
+
+    @property
+    def pieces(self):
+        raise RuntimeError("an NVMe store keeps its pieces on disk; use load_piece / read_into")
+
+    def pinned_bytes(self) -> int:
+        return sum(4 * t.numel() for t in self.slots) if self.pinned else 0
+
+    def flat(self) -> torch.Tensor:
+        raise RuntimeError("an NVMe store has no single device tensor")
+
+    # ---- the walk ----------------------------------------------------- #
+    def _view(self, k: int) -> torch.Tensor:
+        return self.slots[self._slot_of[k]][:self.lengths[k]]
+
+    def _take_slot(self) -> int:
+        """The next slot, once its write is done (raising its failure) and
+        a prefetch left in it is joined."""
+        b, self._turn = self._turn, (self._turn + 1) % len(self.slots)
+        for fut in self._writes[b]:
+            fut.result()
+        self._writes[b] = []
+        for k in [k for k, s in self._slot_of.items() if s == b]:
+            if k in self._unloaded:
+                self.swapper.swap_in_leaf(self.keys[k], out=self._view(k))
+                self._unloaded.discard(k)
+            del self._slot_of[k]
+        return b
+
+    def prefetch_piece(self, k: int) -> None:
+        """Start reading piece ``k`` into a slot (once a walk)."""
+        if k in self._slot_of:
+            return
+        self._slot_of[k] = self._take_slot()
+        self._unloaded.add(k)
+        self.swapper.prefetch_leaf(self.keys[k], out=self._view(k))
+
+    def load_piece(self, k: int, dst: torch.Tensor) -> None:
+        self.prefetch_piece(k)
+        host = self.swapper.swap_in_leaf(self.keys[k], out=self._view(k))
+        self._unloaded.discard(k)
+        dst.copy_(self._checked(k, host), non_blocking=True)
+
+    def save_piece(self, k: int, src: torch.Tensor) -> None:
+        """Copy ``src`` into piece ``k``'s slot on the stream, behind the
+        copy out of it; ``write_saved`` hands the slot to a writer once the
+        caller has waited for the copy."""
+        self._view(k).copy_(src, non_blocking=True)
+        self._saved.append(k)
+
+    def write_saved(self) -> None:
+        """Hand the slots of ``save_piece`` to the staging writers (the
+        caller has waited for their copies)."""
+        for k in self._saved:
+            if self._read is not None and self._read[0] == k:
+                self._read = None
+            view = self._view(k)
+            self._writes[self._slot_of[k]] = self.swapper.swap_out_leaf(
+                self.keys[k], view.clone() if self.cache else view, cache=self.cache)
+        self._saved = []
+
+    def end_walk(self) -> None:
+        """After a walk: its slots stay taken until their writes are done;
+        the writes are joined here unless they drain in the background
+        (``pipeline_write``)."""
+        self._slot_of = {k: b for k, b in self._slot_of.items() if k in self._unloaded}
+        if not self.swapper.pipeline_write:
+            self.swapper.drain()
+
+    def _checked(self, k: int, host: torch.Tensor) -> torch.Tensor:
+        if tuple(host.shape) != (self.lengths[k],) or host.dtype != torch.float32:
+            raise RuntimeError(f"NVMe piece {self.keys[k]}: staged {tuple(host.shape)} "
+                               f"{host.dtype}, expected ({self.lengths[k]},) float32")
+        return host
+
+    def _host_piece(self, k: int) -> torch.Tensor:
+        """Piece ``k`` as a host tensor of its own (kept as the last read)."""
+        if self._read is not None and self._read[0] == k:
+            return self._read[1]
+        host = self._checked(k, self.swapper.swap_in_leaf(self.keys[k]))
+        if any(host.data_ptr() == t.data_ptr() for t in self.slots):
+            # a prefetch had read it into a slot, which the walk reuses
+            host = host.clone()
+            self._unloaded.discard(k)
+        self._read = (k, host)
+        return host
+
+    # ---- checkpoint gather and scatter -------------------------------- #
+    def _spans(self, start: int, length: int):
+        pos, end = int(start), int(start) + int(length)
+        while pos < end:
+            k, off = divmod(pos, self.piece)
+            n = min(end, (k + 1) * self.piece) - pos
+            yield pos - start, k, off, n
+            pos += n
+
+    def views(self, start: int, length: int):
+        return [(o, _StoreRange(self, start + o, n)) for o, _, _, n in self._spans(start, length)]
+
+    def read_into(self, dst: torch.Tensor, start: int) -> torch.Tensor:
+        self.flush()
+        for o, k, off, n in self._spans(start, dst.numel()):
+            dst[o:o + n].copy_(self._host_piece(k)[off:off + n])
+        return dst
+
+    def write(self, start: int, src: torch.Tensor) -> None:
+        for o, k, off, n in self._spans(start, src.numel()):
+            if self._open is None or self._open[0] != k:
+                self.flush()
+                self._open = (k, self._host_piece(k).clone())
+            self._open[1][off:off + n].copy_(src[o:o + n])
+
+    def flush(self) -> None:
+        """Write the piece ``write`` patched back to the chunk tier."""
+        if self._open is not None:
+            k, host = self._open
+            self._open = None
+            self._read = None
+            self.swapper.swap_out_leaf(self.keys[k], host, cache=self.cache)
+
+    def close(self) -> None:
+        self.flush()
+        self.swapper.drain()
+        if self.pinned:
+            for t in self.slots:
+                _unpin(t)
+            self.pinned = False
+
+
+class FlatLeaves:
+    """Stage 0's leaves end to end, in order: the layout its optimizer
+    walks when the moments live on NVMe (the gradients are already one
+    flat buffer in this order).  The gather and scatter of ``ZeroAdam``'s
+    checkpoint state, with no collective."""
+
+    def __init__(self, names: Sequence[str], shapes: Sequence[Tuple[int, ...]]):
+        self.names, self.shapes = list(names), [tuple(s) for s in shapes]
+        self.sizes = [int(torch.Size(s).numel()) for s in self.shapes]
+        self.offsets = [sum(self.sizes[:i]) for i in range(len(self.sizes))]
+
+    def segments(self, leaves: Sequence[torch.Tensor]):
+        """``(offset, length, flat view)`` of each leaf."""
+        return [(o, n, p.detach().view(-1)) for o, n, p in zip(self.offsets, self.sizes, leaves)]
+
+    def full_named(self, store: FlatStore) -> Dict[str, torch.Tensor]:
+        return {name: store.read_into(torch.empty(n, dtype=torch.float32), o).view(shape)
+                for name, shape, o, n in zip(self.names, self.shapes, self.offsets, self.sizes)}
+
+    def shard_copies(self, named: Dict[str, torch.Tensor], store: FlatStore):
+        copies = []
+        for name, o, n in zip(self.names, self.offsets, self.sizes):
+            src = torch.as_tensor(named[name]).reshape(-1)
+            for off, v in store.views(o, n):
+                copies.append((v, src[off:off + v.numel()]))
+        return copies
 
 
 def _nest(flat: Dict[str, torch.Tensor]) -> Dict:
@@ -412,6 +653,22 @@ class PartitionedParameters:
             for off, v in store.views(u.shard_offset, u.part):
                 copies.append((v, src[off:off + v.numel()]))
         return copies
+
+    def rank_leaves(self) -> Dict[str, torch.Tensor]:
+        """Stage 3 with a host master: this rank's part of each leaf, by
+        name, as host tensors viewing the master where the part lies in one
+        piece (a copy where it crosses two): the whole leaf in its shape at
+        world size 1, a flat slice of it otherwise."""
+        out = {}
+        for u in self.layout.units:
+            for i, o, n in zip(u.leaves, u.offsets, u.sizes):
+                lo, hi = max(o, u.start), min(o + n, u.start + u.part)
+                if lo >= hi:
+                    continue
+                views = [v for _, v in self.master.views(u.shard_offset + lo - u.start, hi - lo)]
+                t = views[0] if len(views) == 1 else torch.cat(views)
+                out[self.names[i]] = t.view(self.shapes[i]) if hi - lo == n else t
+        return out
 
     def pinned_bytes(self) -> int:
         return self.master.pinned_bytes() if self.master is not None else 0

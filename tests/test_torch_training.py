@@ -494,7 +494,7 @@ def test_forward_backward_step_equals_train_batch():
 
 
 @pytest.mark.parametrize("config,item", [
-    ({"zero_optimization": {"stage": 3, "offload_optimizer": {"device": "nvme"}}}, "item 7"),
+    ({"zero_optimization": {"stage": 3, "zero_quantized_gradients": True}}, "item 7"),
     ({"zero_optimization": {"stage": 3, "zero_quantized_weights": True}}, "item 7"),
     ({"fp16": {"enabled": True}}, "item 5"),
     ({"optimizer": {"type": "Lamb"}}, "item 5"),
@@ -502,7 +502,7 @@ def test_forward_backward_step_equals_train_batch():
     ({"activation_checkpointing": {"partition_activations": True}}, "item 6"),
     ({"activation_checkpointing": {"cpu_checkpointing": True}}, "item 7"),
     ({"compression_training": {"weight_quantization": {"shared_parameters": {}}}}, "item 9"),
-    ({"zero_optimization": {"stage": 3, "offload_param": {"device": "nvme"}}}, "item 7"),
+    ({"zero_optimization": {"stage": 2, "zero_quantized_weights": True}}, "item 7"),
     ({"zero_optimization": {"stage": 3, "zero_hpz_partition_size": 2}}, "item 7"),
 ])
 def test_engine_rejects_what_is_not_ported(config, item):

@@ -3,10 +3,12 @@
 * Two ranks over gloo (``tests/torch_zero_worker.py``, spawned once for the
   module on a free port, each ``join`` under ``JOIN_TIMEOUT_S``): the tiny
   GPT of ``tests/test_torch_training.py`` (fp32, GAS 2, clip 1.0 binding,
-  AdamW) trains 3 steps at six configurations: stages 0, 1, 2 and 3, stage
+  AdamW) trains 3 steps at seven configurations: stages 0, 1, 2 and 3, stage
   2 with ``offload_optimizer`` and stage 3 with ``offload_param`` and
-  ``offload_optimizer`` (in pieces of 4096 elements, so the update walks
-  many chunks).  Each is held against the JAX engine at the same stage on
+  ``offload_optimizer`` to the CPU and to NVMe (in pieces of 4096
+  elements, so the update walks many chunks; each rank's NVMe tier under
+  its own ``rank<r>`` folder).  Each is held against the JAX engine at the
+  same stage on
   a 2-device CPU mesh and against the port's world-1 stage-0 run on the
   same global batch: losses and grad norms within 1e-5 relative, moments
   within 1e-4 of their largest magnitude, parameters within 2e-5 absolute
@@ -53,6 +55,7 @@ WORLD, MICRO, GAS, SEQ, STEPS, LR, CLIP = 2, 2, 2, 16, 3, 1e-3, 1.0
 JOIN_TIMEOUT_S = 120
 LOSS_RTOL, MOMENT_TOL, PARAM_TOL = 1e-5, 1e-4, 2e-5
 OFFLOAD = {"device": "cpu"}
+NVME = {"device": "nvme"}
 PIECE = 4096
 CONFIGS = {
     "stage0": {"stage": 0},
@@ -63,8 +66,16 @@ CONFIGS = {
                                  "sub_group_size": PIECE},
     "stage3-offload-both": {"stage": 3, "offload_param": OFFLOAD, "offload_optimizer": OFFLOAD,
                             "sub_group_size": PIECE},
+    # ZeRO-Infinity: each rank swaps its shard under <nvme_path>/rank<r>
+    "stage3-nvme-both": {"stage": 3, "offload_param": NVME, "offload_optimizer": NVME,
+                         "sub_group_size": PIECE},
 }
 CHECKPOINTED = "stage3-offload-both"
+
+
+def with_nvme_path(zero, path):
+    """``zero`` with ``nvme_path`` set in its NVMe offload blocks."""
+    return {k: dict(v, nvme_path=str(path)) if v == NVME else v for k, v in zero.items()}
 
 
 def ds_config(zero, micro=MICRO):
@@ -100,7 +111,8 @@ def world2(setup, tmp_path_factory):
     out = tmp_path_factory.mktemp("zero-world2")
     spec = {"dims": MODELS["tiny"], "params": params_from_jax(jparams),
             "batches": [(torch.from_numpy(i), torch.from_numpy(l)) for i, l in batches],
-            "configs": {name: ds_config(z) for name, z in CONFIGS.items()},
+            "configs": {name: ds_config(with_nvme_path(z, out / "nvme"))
+                        for name, z in CONFIGS.items()},
             "checkpoint": CHECKPOINTED, "eager": "stage2"}
     spec_path = str(out / "spec.pt")
     torch.save(spec, spec_path)
